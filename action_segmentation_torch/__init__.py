@@ -1,0 +1,45 @@
+"""PyTorch/CUDA port of the action-segmentation framework.
+
+A PyTorch twin of ``action_segmentation_tpu`` for one NVIDIA H100:
+hidden semi-Markov models over pre-extracted video frame features. The
+decode path (potentials -> Viterbi frame labels) runs through two CUDA
+kernels written by hand for Hopper (``csrc/``); everything around them
+is plain PyTorch.
+
+Layout (each file has one twin in the JAX package):
+  ops/         span codec, semi-Markov DP (plain torch + CUDA kernels),
+               emission/duration/transition distributions, sufficient stats
+  models/      model classes (semimarkov)
+  data/        synthetic corpus and host-side batching
+  evaluation/  Hungarian-matched accuracy metrics
+  utils/       logging, the deferred label drain, small helpers
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
+"""
+
+import torch
+
+__version__ = "0.1.0"
+
+BIG_NEG = -1e9
+
+# Parity is defined in fp32: reduced-precision emission matmuls (TF32
+# keeps about three decimal digits) move D=300 Gaussian log-likelihoods
+# by tenths of a nat, enough to flip near-boundary frame decodes. Pin
+# full fp32 for cuBLAS and cuDNN alike.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+
+def resolve_device(device=None):
+    """The device an entry point runs on: ``cuda`` unless the caller
+    asks for another. Raises when CUDA is asked for (explicitly or by
+    default) and no card is present, rather than carrying on quietly on
+    the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return device

@@ -1,0 +1,288 @@
+"""Traceback-free Viterbi frame labels through two hand-written CUDA kernels.
+
+Twin of ``action_segmentation_tpu/ops/hsmm_pallas.py``'s decode chain
+(``hsmm_viterbi_labels_pallas`` -> ``_labels_packed``). Two kernels:
+
+  * ``hsmm_gamma_scan`` (csrc/hsmm_scan.cu) — the max-semiring forward
+    scan over the forward model and the time-reversed model stacked on
+    the batch axis, emitting each step's transition combine (the gamma
+    plane);
+  * ``hsmm_band_max`` (csrc/band_max.cu) — the duration-band combine
+    that turns the two directions' gamma planes into per-frame
+    max-marginals.
+
+Each wrapper takes its kernel's plain PyTorch version (``_gamma_scan_plain``,
+``_band_max_plain``) only for tensors on the CPU; for a CUDA tensor it
+launches the kernel or raises. ``launches`` on each wrapper counts the
+kernel launches, so a run can show that its decode went through them.
+
+In the max semiring the "marginal" of a span is the score of the best
+path through it; the best path's spans attain the global best, so
+labels[t] = argmax_c (best span score covering t with class c). No
+traceback, so decode cost does not grow with the segment count.
+"""
+
+import ctypes
+
+import torch
+
+from action_segmentation_torch import BIG_NEG
+from action_segmentation_torch.ops._build import load_library
+from action_segmentation_torch.ops.hsmm import (
+    HsmmPotentials,
+    _clamped,
+    _durations,
+    _emission_cumsum,
+    reverse_within_length,
+)
+
+# The kernels put one class per thread of a block and the transposed
+# transition table in shared memory. Like the JAX package's lane gate
+# (pallas_supported), models with more classes decode through the
+# traceback hsmm_viterbi instead; the gate looks at the shape only.
+MAX_CLASSES = 128
+
+
+def kernels_supported(n_classes):
+    """True when the decode kernels take this class count (C <= 128)."""
+    return n_classes <= MAX_CLASSES
+
+
+def _stream_args(t):
+    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda(name, tensors, shapes):
+    """Device, dtype, shape and contiguity checks before a launch."""
+    device = tensors[0].device
+    for t, shape in zip(tensors, shapes):
+        if t.device != device:
+            raise ValueError("{}: tensors on {} and {}".format(name, device, t.device))
+        if t.dtype != torch.float32:
+            raise TypeError("{}: the kernel takes float32, got {}".format(name, t.dtype))
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError("{}: shape {} != {}".format(name, tuple(t.shape), shape))
+        if not t.is_contiguous():
+            raise ValueError("{}: the kernel takes contiguous tensors".format(name))
+
+
+def _raise_on_error(name, err):
+    if err != 0:
+        raise RuntimeError("{}: CUDA launch failed with error {}".format(name, err))
+
+
+def _device_type(t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError("no kernel for tensors on {}".format(t.device))
+    return t.device.type
+
+
+# ---- (a) the gamma scan ----------------------------------------------------
+
+
+def _gamma_scan_plain(trans, init, dur, emit, with_alphas=False):
+    """Plain PyTorch version of the gamma scan (any device, any float dtype).
+
+    trans (N, C, C) [to, from]; init (N, C); dur (N, Km, C), row j scoring
+    duration j+1; emit (N, T, C). Returns (gamma (N, T, C), alphas or
+    None): alphas[:, t] is the best score of frames [0, t] whose last span
+    ends at t, gamma[:, t, c] = max_c' trans[c, c'] + alphas[:, t, c'].
+    The same fp32 operations in the same order as the kernel.
+    """
+    N, T, C = emit.shape
+    Km = dur.shape[1]
+    W = torch.full((N, Km, C), BIG_NEG, dtype=emit.dtype, device=emit.device)
+    W[:, 0] = init
+    cum = torch.zeros((N, C), dtype=emit.dtype, device=emit.device)
+    gammas, alphas = [], []
+    for t in range(T):
+        cum = cum + emit[:, t]
+        alpha = (W + dur).amax(dim=1) + cum
+        gamma = (trans + alpha[:, None, :]).amax(dim=2)
+        W = torch.cat([(gamma - cum)[:, None], W[:, :-1]], dim=1)
+        gammas.append(gamma)
+        alphas.append(alpha)
+    gamma = torch.stack(gammas, dim=1) if T else emit.new_empty((N, 0, C))
+    if not with_alphas:
+        return gamma, None
+    return gamma, torch.stack(alphas, dim=1) if T else emit.new_empty((N, 0, C))
+
+
+def hsmm_gamma_scan(trans, init, dur, emit, with_alphas=False):
+    """Max-semiring gamma scan: (gamma (N, T, C), alphas or None).
+
+    See ``_gamma_scan_plain`` for the function. On CUDA tensors (float32,
+    contiguous, C <= 128) it launches csrc/hsmm_scan.cu, one block per
+    chain; on CPU tensors it runs the plain version."""
+    if _device_type(emit) == "cpu":
+        return _gamma_scan_plain(trans, init, dur, emit, with_alphas)
+    N, T, C = emit.shape
+    Km = dur.shape[1]
+    if not kernels_supported(C):
+        raise ValueError("hsmm_gamma_scan: C={} > {}".format(C, MAX_CLASSES))
+    if Km < 1:  # the carry's ring buffer needs a row (see _durations)
+        raise ValueError("hsmm_gamma_scan: dur needs at least one row")
+    _check_cuda(
+        "hsmm_gamma_scan", (emit, trans, init, dur),
+        ((N, T, C), (N, C, C), (N, C), (N, Km, C)),
+    )
+    lib = load_library("hsmm_scan")
+    fn = lib.hsmm_gamma_scan_max
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    gamma = torch.empty_like(emit)
+    alphas = torch.empty_like(emit) if with_alphas else None
+    err = fn(
+        trans.data_ptr(), init.data_ptr(), dur.data_ptr(), emit.data_ptr(),
+        gamma.data_ptr(), alphas.data_ptr() if with_alphas else None,
+        N, T, C, Km, *_stream_args(emit),
+    )
+    _raise_on_error("hsmm_gamma_scan", err)
+    hsmm_gamma_scan.launches += 1
+    return gamma, alphas
+
+
+hsmm_gamma_scan.launches = 0
+
+
+# ---- (b) the band max ------------------------------------------------------
+
+
+def _band_max_plain(G1, G2p, dur):
+    """Plain PyTorch version of the band max (any device, any float dtype).
+
+    G1 (B, T, C); G2p (B, T2, C) with T2 >= T + Km; dur (B, Km, C).
+    fm[t, c] = max over spans (s, d) covering t (s <= t < s + d,
+    1 <= d <= Km) of G1[s, c] + dur[d-1, c] + G2p[s + d, c], in the
+    running form H_r[s] = max_{j >= r} dur[j] + G2p[s+j+1],
+    fm[t] = max_r G1[t-r] + H_r[t-r] — the kernel's operations.
+    """
+    B, T, C = G1.shape
+    Km = dur.shape[1]
+    H = torch.full_like(G1, BIG_NEG)
+    fm = torch.full_like(G1, BIG_NEG)
+    for r in range(Km - 1, -1, -1):
+        H = torch.maximum(H, dur[:, r : r + 1] + G2p[:, r + 1 : r + 1 + T])
+        if r < T:
+            fm[:, r:] = torch.maximum(fm[:, r:], (G1 + H)[:, : T - r])
+    return fm
+
+
+def hsmm_band_max(G1, G2p, dur):
+    """Per-frame max-marginals fm (B, T, C); see ``_band_max_plain``.
+
+    On CUDA tensors (float32, contiguous) it launches csrc/band_max.cu,
+    which streams T in tiles (one kernel for any T); on CPU tensors it
+    runs the plain version."""
+    if _device_type(G1) == "cpu":
+        return _band_max_plain(G1, G2p, dur)
+    B, T, C = G1.shape
+    T2, Km = G2p.shape[1], dur.shape[1]
+    if T2 < T + Km:
+        raise ValueError("hsmm_band_max: G2p has {} rows < T + Km = {}".format(T2, T + Km))
+    _check_cuda(
+        "hsmm_band_max", (G1, G2p, dur), ((B, T, C), (B, T2, C), (B, Km, C))
+    )
+    lib = load_library("band_max")
+    fn = lib.hsmm_band_max
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fm = torch.empty_like(G1)
+    err = fn(
+        G1.data_ptr(), G2p.data_ptr(), dur.data_ptr(), fm.data_ptr(),
+        B, T, T2, C, Km, *_stream_args(G1),
+    )
+    _raise_on_error("hsmm_band_max", err)
+    hsmm_band_max.launches += 1
+    return fm
+
+
+hsmm_band_max.launches = 0
+
+
+# ---- the labels chain ------------------------------------------------------
+
+
+def _stack_fwd_rev(pots: HsmmPotentials, lengths):
+    """The forward model and its time-reversed counterpart stacked on the
+    batch axis, as contiguous (2B, ...) scan inputs.
+
+    By the HSMM's time symmetry the suffix boundary scores are the prefix
+    boundary scores of the REVERSED model: emissions reversed within each
+    length, transitions transposed, init and end_mask swapped. Every
+    chain starts at t = 0."""
+    trans = torch.cat([pots.trans, pots.trans.transpose(-1, -2)], dim=0)
+    init = torch.cat([pots.init, pots.end_mask], dim=0)
+    dur = _durations(pots.lens)
+    dur = torch.cat([dur, dur], dim=0)
+    emit = torch.cat([pots.emit, reverse_within_length(pots.emit, lengths)], dim=0)
+    return tuple(x.contiguous() for x in (trans, init, dur, emit))
+
+
+def _band_inputs(pots: HsmmPotentials, lengths, gamma):
+    """(G1, G2p, band) for the band max from the stacked gamma planes.
+
+    Splits each span's best-path score into a prefix part at its start
+    boundary s and a suffix part at its end boundary e = s + d:
+    M[s, d] = G1[s] + lens[d] + G2p[s + d]."""
+    B, T, C = pots.emit.shape
+    device = pots.emit.device
+    K = pots.lens.shape[1]
+    gammaF, gammaR = gamma[:B], gamma[B:]
+    t_col = torch.arange(T, device=device)[None, :, None]
+    L = lengths[:, None, None]
+    cum = _emission_cumsum(pots.emit)  # (B, T+1, C) exclusive prefix sums
+
+    # G1[s] = F[s] - cum[s], F[s] the best prefix with the next span
+    # starting at s (init at s = 0), BIG_NEG from the length on
+    F = torch.cat([pots.init[:, None], gammaF[:, : T - 1]], dim=1)
+    F = torch.where(t_col < L, F, torch.full_like(F, BIG_NEG))
+    G1 = F - cum[:, :T]
+
+    # G2[e] = cum[e] + S2[e], S2[e] the best suffix from boundary e given
+    # the previous span's class: the reversed chain has consumed L - e
+    # frames at its step L - e - 1. Row e == L carries end_mask; rows
+    # e == 0 and e > L are BIG_NEG.
+    e_col = torch.arange(T + 1, device=device)[None, :, None]
+    idx = (L - e_col - 1).clamp(0, T - 1).expand(B, T + 1, C)
+    S2 = torch.gather(gammaR, 1, idx)
+    S2 = torch.where(e_col == L, pots.end_mask[:, None, :], S2)
+    S2 = torch.where((e_col >= 1) & (e_col <= L), S2, torch.full_like(S2, BIG_NEG))
+    # K - 1 BIG_NEG rows past e = T: spans ending beyond the buffer
+    G2p = torch.cat([cum + S2, torch.full_like(S2[:, : K - 1], BIG_NEG)], dim=1)
+    # K == 1 has no representable duration: an empty band (all BIG_NEG)
+    band = pots.lens[:, 1:, :]
+    return G1.contiguous(), G2p.contiguous(), band.contiguous()
+
+
+def _max_marginals(pots: HsmmPotentials, lengths, gamma_scan, band_max):
+    """Per-frame max-marginals fm (B, T, C): the best score of any
+    segmentation whose span covering frame t has class c."""
+    lengths = _clamped(lengths, pots.emit.device)
+    gamma, _ = gamma_scan(*_stack_fwd_rev(pots, lengths))
+    return band_max(*_band_inputs(pots, lengths, gamma))
+
+
+def _viterbi_labels(pots: HsmmPotentials, lengths, gamma_scan, band_max):
+    fm = _max_marginals(pots, lengths, gamma_scan, band_max)
+    lengths = _clamped(lengths, pots.emit.device)
+    t = torch.arange(fm.shape[1], device=fm.device)[None, :]
+    labels = fm.argmax(dim=2)  # first maximum, like jnp.argmax
+    labels = torch.where(t < lengths[:, None], labels, -1)
+    # every frame of the best path attains the global best score
+    scores = fm[:, 0].amax(dim=1)
+    return labels, scores
+
+
+def hsmm_viterbi_labels(pots: HsmmPotentials, lengths):
+    """Viterbi frame labels without traceback: (labels (B, T) int64 with
+    -1 past each length, scores (B,)). Both kernels on CUDA tensors, their
+    plain versions on CPU tensors. Requires C <= 128."""
+    return _viterbi_labels(pots, lengths, hsmm_gamma_scan, hsmm_band_max)
+
+
+def hsmm_viterbi_labels_plain(pots: HsmmPotentials, lengths):
+    """``hsmm_viterbi_labels`` through the plain versions only, on any
+    device and dtype (float64 included): the yardstick the kernels are
+    held against."""
+    return _viterbi_labels(pots, lengths, _gamma_scan_plain, _band_max_plain)
