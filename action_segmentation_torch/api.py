@@ -8,9 +8,10 @@ Example:
     seg = Segmenter(model)
     labels = seg.segment(features)              # (T, D) -> (T,) int labels
     batches = seg.segment_many([f1, f2, ...])   # list of (T_i, D)
+    labels, marginals = seg.segment_with_marginals(features)
 
-Loading a pickled model, ``segment_with_marginals`` and the per-task end
-masks of constrained models come with later slices (ROADMAP.md §1).
+Loading a pickled model and the per-task end masks of constrained models
+come with later slices (ROADMAP.md §1).
 """
 
 import numpy as np
@@ -18,6 +19,9 @@ import torch
 
 from action_segmentation_torch.data.batching import pad_length_to_bucket
 from action_segmentation_torch.models.semimarkov import SemiMarkovModel, upload
+from action_segmentation_torch.ops.hsmm import hsmm_frame_marginals
+from action_segmentation_torch.ops.hsmm_cuda import kernel_path
+from action_segmentation_torch.ops.hsmm_grad import hsmm_frame_marginals_fast
 from action_segmentation_torch.utils.drain import DeferredLabelDrain
 
 
@@ -71,3 +75,37 @@ class Segmenter:
     def segment(self, features):
         """Segment one (T, D) float array -> (T,) int labels."""
         return self.segment_many([np.asarray(features)])[0]
+
+    def segment_with_marginals(self, features):
+        """Segment one (T, D) array and return posterior frame marginals.
+
+        Returns (labels (T,), marginals (T, n_classes)): marginals[t, c]
+        is the posterior probability that frame t belongs to GLOBAL class
+        c under the HSMM (zero for classes outside this segmenter's valid
+        set), d logZ / d emit through the kernel forward/backward pair
+        (ops/hsmm_grad.py). Labels come from the decode kernels, as in
+        ``segment_many``, on the same potentials.
+        """
+        model = self.model
+        device = model.device
+        features = np.asarray(features, np.float32)
+        T, D = features.shape
+        feats = np.zeros((1, pad_length_to_bucket(T), D), np.float32)
+        feats[0, :T] = features
+        C = len(self.valid_classes)
+        feats = upload(feats, device)
+        lengths = upload(np.array([T], np.int32), device)
+        vc = upload(self.valid_classes, device)
+        cons = torch.zeros(feats.shape[:2] + (C,), dtype=torch.float32, device=device)
+        ends = torch.zeros((1, C), dtype=torch.float32, device=device)
+        labels, _ = model._decode(feats, lengths, vc, cons, ends)
+        with torch.no_grad():
+            pots = model.module.compute_potentials(feats, vc, cons, ends)
+        marginals_fn = (
+            hsmm_frame_marginals_fast if kernel_path(C, device) else hsmm_frame_marginals
+        )
+        marg_sub = marginals_fn(pots, lengths)
+        # scatter the subset's columns into global class ids, like labels
+        marg = np.zeros((T, model.n_classes), np.float32)
+        marg[:, self.valid_classes] = marg_sub[0, :T].cpu().numpy()
+        return labels[0, :T].cpu().numpy(), marg

@@ -1,22 +1,32 @@
 """Hidden semi-Markov segmentation model, PyTorch.
 
 Twin of ``action_segmentation_tpu/models/semimarkov.py`` for the decode
-slice:
+and training slices:
 
 * ``GaussianHsmm`` is an ``nn.Module`` holding the Poisson log-rates,
   Gaussian means, tied diagonal covariance (a frozen buffer) and the
   transition/init logits; it builds batched ``HsmmPotentials`` for a
   set of valid classes, and fits itself in closed form;
-* ``SemiMarkovModel`` batches a datasplit, fits it (closed form) and
-  decodes it, streaming batches to the device with every label tensor
-  kept there until one stacked copy at the end.
+* ``SemiMarkovModel`` batches a datasplit, fits it (closed form,
+  gradient-based supervised, generative or discriminative, closed form
+  then gradient, or unsupervised by the marginal likelihood) and decodes
+  it, streaming batches to the device with every label tensor kept there
+  until one stacked copy at the end.
 
-Decode goes through the two CUDA kernels of ``ops/hsmm_cuda.py`` for
-C <= 128 and through the traceback ``hsmm_viterbi`` above that.
-Gradient and unsupervised training, transition and end constraints,
-narration, class merging, flows and the compound model raise
-``NotImplementedError``: they come with later slices (ROADMAP.md §1).
+On the card, decode goes through the decode kernels of
+``ops/hsmm_cuda.py`` and training's partition through the kernel
+forward/backward of ``ops/hsmm_grad.py``; a model with more classes than
+the kernels take raises there. On the CPU the same chains run as the
+kernels' plain versions for C <= 128 and, above that, the traceback
+``hsmm_viterbi`` and autograd of ``hsmm_partition`` (``kernel_path``).
+Transition and end constraints, narration, class merging, flows, the
+compound model, the resident corpus, data parallelism, checkpoints and
+profiling raise ``NotImplementedError``: they come with later slices
+(ROADMAP.md §1).
 """
+
+import itertools
+import time
 
 import numpy as np
 import torch
@@ -24,22 +34,35 @@ from torch import nn
 
 from action_segmentation_torch import BIG_NEG, resolve_device
 from action_segmentation_torch.data.batching import iter_batches, pad_class_width
-from action_segmentation_torch.models.base import Model
+from action_segmentation_torch.models.base import (
+    Model,
+    clip_grads,
+    fold_stats,
+    make_optimizer,
+    mask_grads,
+    set_lr,
+)
 from action_segmentation_torch.ops.distributions import (
     gaussian_emission_log_probs,
     initial_log_probs,
     poisson_length_log_probs,
     transition_log_probs,
 )
-from action_segmentation_torch.ops.hsmm import HsmmPotentials, hsmm_viterbi
+from action_segmentation_torch.ops.hsmm import (
+    HsmmPotentials,
+    hsmm_gold_score,
+    hsmm_partition,
+    hsmm_viterbi,
+)
 from action_segmentation_torch.ops.hsmm_cuda import (
     MAX_CLASSES,
     hsmm_viterbi_labels,
-    kernels_supported,
+    kernel_path,
 )
-from action_segmentation_torch.ops.span_codec import spans_to_labels
+from action_segmentation_torch.ops.hsmm_grad import hsmm_partition_fast
+from action_segmentation_torch.ops.span_codec import labels_to_spans, spans_to_labels
 from action_segmentation_torch.ops.stats import semimarkov_sufficient_stats
-from action_segmentation_torch.utils import all_equal
+from action_segmentation_torch.utils import all_equal, logger
 from action_segmentation_torch.utils.drain import DeferredLabelDrain
 
 _LATER = "is not ported yet; it comes with a later slice (ROADMAP.md §1)"
@@ -53,6 +76,8 @@ _UNPORTED_FLAGS = (
     "sm_feature_projection",
     "sm_init_non_projection_parameters_from",
 )
+# training flags of paths not ported yet; fit refuses them
+_UNPORTED_FIT_FLAGS = ("data_parallel", "checkpoint_dir", "resume", "profile_dir")
 
 
 def upload(x, device):
@@ -94,6 +119,11 @@ class GaussianHsmm(nn.Module):
         self.init_logits = nn.Parameter(
             torch.rand(n_classes, generator=gen, dtype=torch.float32).to(device)
         )
+
+    @property
+    def trainable_mask(self):
+        """{name: trainable} over the state dict: the covariance is frozen."""
+        return {name: name != "gaussian_cov" for name in self.state_dict()}
 
     def compute_potentials(self, features, vc, constraints_add, end_allowed):
         """Batched HsmmPotentials for valid classes `vc` (C_sub,).
@@ -185,6 +215,7 @@ class SemiMarkovModel(Model):
             choices=["closed-form", "gradient-based", "closed-then-gradient"],
             default="closed-form",
         )
+        parser.add_argument("--sm_train_discriminatively", action="store_true")
         parser.add_argument(
             "--sm_hidden_markov",
             action="store_true",
@@ -224,13 +255,16 @@ class SemiMarkovModel(Model):
 
     def _batch_device_args(self, batch):
         """Shared valid classes and dense per-batch numpy arrays
-        (vc, cons, end_allowed), class-bucket padded."""
+        (vc, inv_map, cons, end_allowed), class-bucket padded; inv_map
+        maps a global class id to its column among the valid classes."""
         assert all_equal(
             tuple(ti.tolist()) for ti in batch["task_indices"]
         ), "batch must share valid_classes"
         vc = np.asarray(batch["task_indices"][0], np.int64)
         C_sub = len(vc)
         B, T = batch["features"].shape[:2]
+        inv_map = np.zeros(self.n_classes, np.int64)
+        inv_map[vc] = np.arange(C_sub)
         cons = np.zeros((B, T, C_sub), np.float32)
         end_allowed = np.zeros((B, C_sub), np.float32)
 
@@ -247,21 +281,27 @@ class SemiMarkovModel(Model):
             end_allowed = np.pad(
                 end_allowed, ((0, 0), (0, extra)), constant_values=BIG_NEG
             )
-        return vc, cons, end_allowed
+        return vc, inv_map, cons, end_allowed
 
-    def _pad_batch_rows(self, features, lengths, cons, end_allowed):
-        """Pad the batch to --batch_size rows (length-1 dummies) so every
-        batch has one shape; the drain drops the dummy rows."""
+    def _pad_batch_rows(self, features, lengths, gt, cons, end_allowed):
+        """Pad the batch to --batch_size rows (weight-0, length-1 dummies)
+        so every batch has one shape; returns the padded arrays (`gt` may
+        be None, as for a decode) and the row weights (Bp,). The drain
+        drops the dummy rows of a decode, and every mean of the training
+        loss is weighted."""
         B = len(lengths)
         Bp = max(int(getattr(self.args, "batch_size", B) or B), B)
+        weights = np.zeros(Bp, np.float32)
+        weights[:B] = 1.0
         if Bp == B:
-            return features, lengths, cons, end_allowed
+            return features, lengths, gt, cons, end_allowed, weights
 
         def padz(arr):
             return np.pad(arr, [(0, Bp - B)] + [(0, 0)] * (arr.ndim - 1))
 
         lengths = np.concatenate([lengths, np.ones(Bp - B, lengths.dtype)])
-        return padz(features), lengths, padz(cons), padz(end_allowed)
+        gt = None if gt is None else padz(gt)
+        return padz(features), lengths, gt, padz(cons), padz(end_allowed), weights
 
     # ----- decode -----
 
@@ -272,7 +312,7 @@ class SemiMarkovModel(Model):
         Launches work and returns without waiting for it."""
         lengths = lengths.long().clamp(min=1)
         pots = self.module.compute_potentials(features, vc, cons, end_allowed)
-        if kernels_supported(self.n_classes):
+        if kernel_path(self.n_classes, features.device):
             labels_sub, scores = hsmm_viterbi_labels(pots, lengths)
         else:
             spans_sub, scores = hsmm_viterbi(pots, lengths)
@@ -280,6 +320,67 @@ class SemiMarkovModel(Model):
             labels_sub = torch.where(t < lengths[:, None], spans_to_labels(spans_sub), -1)
         labels = torch.where(labels_sub >= 0, vc[labels_sub.clamp(min=0)], -1)
         return labels, scores
+
+    # ----- training -----
+
+    def _loss(self, features, lengths, vc, inv_map, gt, cons, end_allowed,
+              weights, use_labels):
+        """(loss, aux) of one batch, the JAX package's ``_build_loss_fn``.
+
+        Generative supervised: -wmean(gold score); discriminative:
+        -wmean(gold - logZ); unsupervised: -wmean(logZ). Every mean is
+        weighted by `weights` (padded rows weigh 0 and have length 1), so
+        padding never changes the loss. The partition goes through the
+        kernel forward/backward (``kernel_path``)."""
+        lengths = lengths.long().clamp(min=1)
+        denom = weights.sum().clamp(min=1.0)
+
+        def wmean(x):
+            return (x * weights).sum() / denom
+
+        pots = self.module.compute_potentials(features, vc, cons, end_allowed)
+        partition = (
+            hsmm_partition_fast if kernel_path(self.n_classes, features.device)
+            else hsmm_partition
+        )
+        if use_labels:
+            spans = labels_to_spans(inv_map[gt], self.module.max_k)
+            gold = hsmm_gold_score(pots, lengths, spans)
+            if getattr(self.args, "sm_train_discriminatively", False):
+                ll = wmean(gold - partition(pots, lengths))
+            else:
+                ll = wmean(gold)
+        else:
+            ll = wmean(partition(pots, lengths))
+        nll = -ll
+        # the Gaussian module has no flow log-det and no KL term
+        zero = torch.zeros((), dtype=nll.dtype, device=nll.device)
+        return nll, {"nll": nll.detach(), "kl": zero, "log_det": zero}
+
+    def _training_batch(self, batch):
+        """One collated batch as padded tensors on the device: (features,
+        lengths, vc, inv_map, gt, cons, end_allowed, weights)."""
+        vc, inv_map, cons, end_allowed = self._batch_device_args(batch)
+        gt = batch.get("gt_single", np.zeros(batch["features"].shape[:2], np.int64))
+        features, lengths, gt, cons, end_allowed, weights = self._pad_batch_rows(
+            batch["features"], batch["lengths"], gt, cons, end_allowed
+        )
+        return tuple(
+            upload(x, self.device)
+            for x in (features, lengths, vc, inv_map, gt, cons, end_allowed, weights)
+        )
+
+    def _moment_init(self, train_data):
+        """Moment-match the emissions on the first shuffled 100-video batch."""
+        feats = []
+        for batch in iter_batches(
+            train_data, batch_size=100, batch_by_task=False, shuffle=True,
+            seed=getattr(self.args, "seed", 1), bucket=False,
+        ):
+            for i in range(len(batch["lengths"])):
+                feats.append(batch["features"][i, : batch["lengths"][i]])
+            break
+        self.module.initialize_gaussian(feats)
 
     # ----- public API -----
 
@@ -294,11 +395,116 @@ class SemiMarkovModel(Model):
         self.module.fit_supervised(features, labels)
 
     def fit(self, train_data, use_labels, callback_fn=None):
-        if not use_labels or self.args.sm_supervised_method != "closed-form":
-            raise NotImplementedError(
-                "gradient-based and unsupervised training " + _LATER
+        """Fit on `train_data`: closed form, or Adam over shuffled batches.
+
+        The streaming loop of the JAX package's ``fit``: a moment init
+        (unless the closed form ran first), then per epoch the batches of
+        ``iter_batches(shuffle=True, seed=seed + epoch)`` (at most
+        --train_limit), one Adam step per batch or per --batch_accumulation
+        window (a partial window at the epoch's end is dropped), the norm
+        clip, and the plateau controller after the epoch.
+        ``callback_fn(epoch, stats)`` gets the epoch's train_loss,
+        train_nll_frame_avg, train_kl_vid_avg and train_recon_bound. The
+        losses stay on the device until one fetch per epoch."""
+        args = self.args
+        for flag in _UNPORTED_FIT_FLAGS:
+            if getattr(args, flag, None):
+                raise NotImplementedError("--{} {}".format(flag, _LATER))
+        method = args.sm_supervised_method
+        if use_labels and method in ("closed-form", "closed-then-gradient"):
+            self.fit_supervised(train_data)
+            if method == "closed-form":
+                return
+            if callback_fn:
+                callback_fn(-1, {})
+        else:
+            self._moment_init(train_data)
+
+        named = list(self.module.named_parameters())
+        params = [p for _, p in named]
+        trainable = self.module.trainable_mask
+        optimizer, scheduler = make_optimizer(args, params)
+        lr = args.lr
+        seed = getattr(args, "seed", 1) or 1
+        window = max(1, args.batch_accumulation)
+        for epoch in range(args.epochs):
+            start_time = time.time()
+            num_frames = num_videos = 0
+            stats = torch.zeros(5, device=self.device)
+            losses, log_rows = [], []
+            pending = 0
+            optimizer.zero_grad(set_to_none=True)
+            batches = iter_batches(
+                train_data, batch_size=args.batch_size, batch_by_task=True,
+                shuffle=True, seed=seed + epoch,
             )
-        self.fit_supervised(train_data)
+            if args.train_limit:
+                batches = itertools.islice(batches, args.train_limit)
+            for batch_ix, batch in enumerate(batches):
+                B = len(batch["lengths"])
+                num_videos += B
+                num_frames += int(batch["lengths"].sum())
+                loss, aux = self._loss(*self._training_batch(batch), use_labels=use_labels)
+                loss.backward()
+                stats = fold_stats(stats, loss.detach(), aux, float(B))
+                losses.append(loss.detach())
+                pending += 1
+                if pending < window:
+                    continue
+                if pending > 1:  # the window's mean gradient
+                    for p in params:
+                        if p.grad is not None:
+                            p.grad.div_(pending)
+                mask_grads(named, trainable)
+                gnorm = clip_grads(params, args.max_grad_norm)
+                optimizer.step()
+                optimizer.zero_grad(set_to_none=True)
+                pending = 0
+                if args.print_every and batch_ix % args.print_every == 0:
+                    log_rows.append((batch_ix, num_videos, num_frames,
+                                     torch.stack([gnorm.detach().float(), stats[2],
+                                                  stats[3], stats[4]])))
+            epoch_stats = self._finish_epoch(
+                epoch, lr, stats, losses, log_rows, num_videos, num_frames, start_time
+            )
+            if scheduler is not None:
+                lr = scheduler.step(epoch_stats["train_loss"])
+                set_lr(optimizer, lr)
+            if callback_fn:
+                callback_fn(epoch, epoch_stats)
+
+    def _finish_epoch(self, epoch, lr, stats, losses, log_rows, num_videos,
+                      num_frames, start_time):
+        """The epoch's one fetch: stats, per-batch losses and log lines in
+        one stacked copy; logs non-finite losses and the print_every
+        lines; returns the callback stats."""
+        parts = [stats] + [loss[None] for loss in losses] + [v for *_, v in log_rows]
+        flat = torch.cat(parts).tolist()
+        elapsed = max(time.time() - start_time, 1e-9)
+        for bix, loss in enumerate(flat[5 : 5 + len(losses)]):
+            if not np.isfinite(loss):
+                logger.debug("WARNING: non-finite loss {} at epoch {} batch {}".format(
+                    loss, epoch, bix))
+        off = 5 + len(losses)
+        for i, (bix, nvid, nfrm, _) in enumerate(log_rows):
+            gnorm, nll_c, kl_c, ld_c = flat[off + 4 * i : off + 4 * i + 4]
+            logger.debug(
+                "Epoch: %02d, Batch: %03d, |GParam|: %.2f, lr: %.2E, loss: %.4f, "
+                "recon: %.4f, kl: %.4f, log_det: %.4f, Throughput: %.2f vid / sec"
+                % (epoch, bix, gnorm, lr, (nll_c + kl_c + ld_c) / nvid, nll_c / nfrm,
+                   kl_c / nfrm, ld_c / nvid, nvid / elapsed)
+            )
+        if num_videos == 0:
+            return {"train_loss": 0.0, "train_nll_frame_avg": 0.0,
+                    "train_kl_vid_avg": 0.0, "train_recon_bound": 0.0}
+        count, loss_sum, nll_c, kl_c = flat[:4]
+        nf, nv = float(max(num_frames, 1)), float(max(num_videos, 1))
+        return {
+            "train_loss": loss_sum / max(count, 1.0),
+            "train_nll_frame_avg": nll_c / nf,
+            "train_kl_vid_avg": kl_c / nv,
+            "train_recon_bound": (nll_c + kl_c) / nf,
+        }
 
     def predict(self, test_data):
         drain = DeferredLabelDrain()
@@ -309,13 +515,15 @@ class SemiMarkovModel(Model):
             shuffle=False,
             sort_by_length=True,
         ):
-            vc, cons, end_allowed = self._batch_device_args(batch)
+            vc, _, cons, end_allowed = self._batch_device_args(batch)
             B = len(batch["lengths"])
             # fixed-B decode shapes; padded rows are dropped by the drain
-            padded = self._pad_batch_rows(
-                batch["features"], batch["lengths"], cons, end_allowed
+            features, lengths, _, cons, end_allowed, _ = self._pad_batch_rows(
+                batch["features"], batch["lengths"], None, cons, end_allowed
             )
-            features, lengths, cons, end_allowed = (upload(x, self.device) for x in padded)
+            features, lengths, cons, end_allowed = (
+                upload(x, self.device) for x in (features, lengths, cons, end_allowed)
+            )
             labels, _ = self._decode(
                 features, lengths, upload(vc, self.device), cons, end_allowed
             )

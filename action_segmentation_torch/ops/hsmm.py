@@ -1,8 +1,9 @@
 """Banded semi-Markov dynamic programs (log / max semirings), plain torch.
 
 The reference DP of the port: a banded time scan whose per-step working
-set is O(K*C). The decode kernels in ``ops/hsmm_cuda.py`` are held
-against it.
+set is O(K*C), the gold-span score, and frame marginals by autograd.
+The kernels in ``ops/hsmm_cuda.py`` and the partition gradient of
+``ops/hsmm_grad.py`` are held against it.
 
 Model (durations d in [1, K-1], classes c in [0, C)):
 
@@ -134,6 +135,69 @@ def hsmm_partition(pots: HsmmPotentials, lengths):
     lengths = _clamped(lengths, pots.emit.device)
     alphas, _ = _forward_scan(pots.trans, pots.init, pots.lens, pots.emit, "log")
     return torch.logsumexp(_finals(alphas, lengths, pots.end_mask), dim=-1)
+
+
+def hsmm_frame_marginals(pots: HsmmPotentials, lengths):
+    """Posterior per-frame class marginals by autograd of the partition:
+    d logZ / d emit[t, c] = E[frame t has class c]; (B, T, C)."""
+    pots = HsmmPotentials(*(x.detach() for x in pots))
+    emit = pots.emit.requires_grad_(True)
+    with torch.enable_grad():
+        total = hsmm_partition(pots._replace(emit=emit), lengths).sum()
+        return torch.autograd.grad(total, emit)[0]
+
+
+def hsmm_gold_score(pots: HsmmPotentials, lengths, spans):
+    """Joint score of gold span sequences (the DP's factors): (B,) float.
+
+    spans (B, T) int: the class at each span start, -1 on continuations.
+    A gold span longer than the band (K - 1 frames) scores BIG_NEG, not
+    a clipped finite value: the DP gives it zero probability. Includes
+    the end-mask term of the last span's class.
+    """
+    B, T, C = pots.emit.shape
+    K = pots.lens.shape[1]
+    device = pots.emit.device
+    lengths = _clamped(lengths, device)
+    spans = spans.to(device).long()
+    b_idx = torch.arange(B, device=device)[:, None]
+    t_idx = torch.arange(T, device=device)[None, :]
+    cum = _emission_cumsum(pots.emit)  # (B, T+1, C)
+
+    start = (spans >= 0) & (t_idx < lengths[:, None])
+    # class of the span covering each frame (forward fill of the starts)
+    filled_idx = torch.cummax(torch.where(start, t_idx, 0), dim=1).values
+    filled = torch.gather(spans, 1, filled_idx)
+
+    # next span start strictly after t, or the length if none
+    start_pos = torch.where(start, t_idx, T + 1)
+    suffix_min = torch.cummin(start_pos.flip(1), dim=1).values.flip(1)
+    next_start = torch.minimum(
+        torch.cat([suffix_min[:, 1:], torch.full_like(suffix_min[:, :1], T + 1)], dim=1),
+        lengths[:, None],
+    )
+    dur_raw = next_start - t_idx
+    dur = dur_raw.clamp(0, K - 1)
+    over_band = start & (dur_raw > K - 1)
+
+    cls = spans.clamp(0, C - 1)
+    span_emit = (
+        cum[b_idx, next_start.clamp(max=T), cls] - cum[b_idx, t_idx.clamp(max=T), cls]
+    )
+    len_term = pots.lens[b_idx, dur, cls]
+    prev_cls = torch.where(t_idx > 0, filled[:, (t_idx[0] - 1).clamp(min=0)], 0)
+    trans_term = pots.trans[b_idx, cls, prev_cls]
+    first = torch.where(t_idx > 0, trans_term, pots.init[b_idx, cls])
+    per_start = span_emit + len_term + first
+    per_start = torch.where(over_band, torch.full_like(per_start, BIG_NEG), per_start)
+    total = torch.where(start, per_start, torch.zeros_like(per_start)).sum(dim=1)
+    last_cls = filled[torch.arange(B, device=device), lengths - 1]
+    return total + pots.end_mask[torch.arange(B, device=device), last_cls]
+
+
+def hsmm_log_prob(pots: HsmmPotentials, lengths, spans):
+    """log p(spans | features) = gold score - partition (discriminative)."""
+    return hsmm_gold_score(pots, lengths, spans) - hsmm_partition(pots, lengths)
 
 
 def hsmm_viterbi(pots: HsmmPotentials, lengths):

@@ -1,20 +1,28 @@
-"""Traceback-free Viterbi frame labels through two hand-written CUDA kernels.
+"""The banded semi-Markov DP's hand-written CUDA kernels and their chains.
 
-Twin of ``action_segmentation_tpu/ops/hsmm_pallas.py``'s decode chain
-(``hsmm_viterbi_labels_pallas`` -> ``_labels_packed``). Two kernels:
+Twin of ``action_segmentation_tpu/ops/hsmm_pallas.py``. Five kernels, from
+three sources:
 
-  * ``hsmm_gamma_scan`` (csrc/hsmm_scan.cu) — the max-semiring forward
+  * ``hsmm_gamma_scan`` (csrc/hsmm_scan.cu, max semiring) — the forward
     scan over the forward model and the time-reversed model stacked on
     the batch axis, emitting each step's transition combine (the gamma
-    plane);
+    plane); decode;
+  * ``hsmm_log_scan`` (csrc/hsmm_scan.cu, log semiring) — the same scan
+    with the alphas plane; the training forward;
+  * ``hsmm_forward_scan`` (csrc/hsmm_scan.cu, log semiring, no gamma
+    store) — the alphas-only scan behind the partition's primal;
   * ``hsmm_band_max`` (csrc/band_max.cu) — the duration-band combine
     that turns the two directions' gamma planes into per-frame
-    max-marginals.
+    max-marginals; decode;
+  * ``hsmm_band_grad`` (csrc/band_grad.cu) — the log-semiring band sweep
+    that turns them into the span posteriors' start, stop and duration
+    masses; the training backward (ops/hsmm_grad.py).
 
-Each wrapper takes its kernel's plain PyTorch version (``_gamma_scan_plain``,
-``_band_max_plain``) only for tensors on the CPU; for a CUDA tensor it
-launches the kernel or raises. ``launches`` on each wrapper counts the
-kernel launches, so a run can show that its decode went through them.
+Each wrapper takes its kernel's plain PyTorch version (``_gamma_scan_plain``
+and its log forms, ``_band_max_plain``, ``_band_grad_plain``) only for
+tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
+``launches`` on each wrapper counts the kernel launches, so a run can show
+that its path went through them.
 
 In the max semiring the "marginal" of a span is the score of the best
 path through it; the best path's spans attain the global best, so
@@ -23,6 +31,7 @@ traceback, so decode cost does not grow with the segment count.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,15 +46,31 @@ from action_segmentation_torch.ops.hsmm import (
 )
 
 # The kernels put one class per thread of a block and the transposed
-# transition table in shared memory. Like the JAX package's lane gate
-# (pallas_supported), models with more classes decode through the
-# traceback hsmm_viterbi instead; the gate looks at the shape only.
+# transition table in shared memory, so they take C <= 128 classes.
 MAX_CLASSES = 128
 
 
 def kernels_supported(n_classes):
-    """True when the decode kernels take this class count (C <= 128)."""
+    """True when the kernels take this class count (C <= 128)."""
     return n_classes <= MAX_CLASSES
+
+
+def kernel_path(n_classes, device):
+    """Whether a model-level call on `device` takes the kernel chain.
+
+    CUDA tensors always do: a class count the kernels do not take raises
+    there, and no plain version runs on the card. CPU tensors take the
+    chain (as the kernels' plain versions) for C <= 128 and, like the JAX
+    package's lane gate (pallas_supported), the traceback ``hsmm_viterbi``
+    and autograd of ``hsmm_partition`` above it."""
+    if device.type != "cuda":
+        return kernels_supported(n_classes)
+    if not kernels_supported(n_classes):
+        raise NotImplementedError(
+            "{} classes on the card: the kernels take at most {}; wider class "
+            "tables are not ported yet (ROADMAP.md §2)".format(n_classes, MAX_CLASSES)
+        )
+    return True
 
 
 def _stream_args(t):
@@ -77,17 +102,55 @@ def _device_type(t):
     return t.device.type
 
 
-# ---- (a) the gamma scan ----------------------------------------------------
+@functools.cache
+def _bound(lib_name, symbol, argtypes):
+    """csrc/<lib_name>.cu's C function `symbol`, its signature bound once."""
+    fn = getattr(load_library(lib_name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def _gamma_scan_plain(trans, init, dur, emit, with_alphas=False):
-    """Plain PyTorch version of the gamma scan (any device, any float dtype).
+def _call(lib_name, symbol, pointers, ints, stream_of):
+    """One call of csrc/<lib_name>.cu's C function `symbol`: pointer
+    arguments (tensors, or None for a null pointer), int arguments, then
+    the device and stream of `stream_of`. Returns the CUDA error code."""
+    argtypes = (
+        (ctypes.c_void_p,) * len(pointers) + (ctypes.c_int,) * (len(ints) + 1)
+        + (ctypes.c_void_p,)
+    )
+    return _bound(lib_name, symbol, argtypes)(
+        *[None if p is None else p.data_ptr() for p in pointers], *ints,
+        *_stream_args(stream_of),
+    )
+
+
+# ---- (a) the scan: max and log semirings -----------------------------------
+
+
+def _reduce(x, dim, semiring):
+    """JAX's ``_semiring_reduce`` over `dim`: the max, or in the log
+    semiring m + log(sum(exp(x - m))) with the sum taken in index order,
+    as the kernel takes it."""
+    m = x.amax(dim=dim)
+    if semiring == "max":
+        return m
+    e = torch.exp(x - m.unsqueeze(dim))
+    s = e.select(dim, 0)
+    for j in range(1, x.shape[dim]):
+        s = s + e.select(dim, j)
+    return m + torch.log(s)
+
+
+def _gamma_scan_plain(trans, init, dur, emit, with_alphas=False, semiring="max"):
+    """Plain PyTorch version of the scan (any device, any float dtype).
 
     trans (N, C, C) [to, from]; init (N, C); dur (N, Km, C), row j scoring
     duration j+1; emit (N, T, C). Returns (gamma (N, T, C), alphas or
-    None): alphas[:, t] is the best score of frames [0, t] whose last span
-    ends at t, gamma[:, t, c] = max_c' trans[c, c'] + alphas[:, t, c'].
-    The same fp32 operations in the same order as the kernel.
+    None): alphas[:, t] is the semiring mass (max: the best score) of
+    frames [0, t] whose last span ends at t, gamma[:, t, c] =
+    reduce_c' trans[c, c'] + alpha[:, t, c']. The same fp32 operations in
+    the same order as the kernel.
     """
     N, T, C = emit.shape
     Km = dur.shape[1]
@@ -97,8 +160,8 @@ def _gamma_scan_plain(trans, init, dur, emit, with_alphas=False):
     gammas, alphas = [], []
     for t in range(T):
         cum = cum + emit[:, t]
-        alpha = (W + dur).amax(dim=1) + cum
-        gamma = (trans + alpha[:, None, :]).amax(dim=2)
+        alpha = _reduce(W + dur, 1, semiring) + cum
+        gamma = _reduce(trans + alpha[:, None, :], 2, semiring)
         W = torch.cat([(gamma - cum)[:, None], W[:, :-1]], dim=1)
         gammas.append(gamma)
         alphas.append(alpha)
@@ -108,41 +171,85 @@ def _gamma_scan_plain(trans, init, dur, emit, with_alphas=False):
     return gamma, torch.stack(alphas, dim=1) if T else emit.new_empty((N, 0, C))
 
 
+def _log_scan_plain(trans, init, dur, emit):
+    """Plain version of ``hsmm_log_scan``: (gamma, alphas)."""
+    return _gamma_scan_plain(trans, init, dur, emit, True, "log")
+
+
+def _forward_scan_plain(trans, init, dur, emit):
+    """Plain version of ``hsmm_forward_scan``: alphas."""
+    return _gamma_scan_plain(trans, init, dur, emit, True, "log")[1]
+
+
+def _launch_scan(name, symbol, trans, init, dur, emit, outputs):
+    """Checks, then one launch of csrc/hsmm_scan.cu's `symbol` (one block
+    per chain) writing `outputs` (tensors, or None where not stored)."""
+    N, T, C = emit.shape
+    Km = dur.shape[1]
+    if not kernels_supported(C):
+        raise ValueError("{}: C={} > {}".format(name, C, MAX_CLASSES))
+    if Km < 1:  # the carry's ring buffer needs a row (see _durations)
+        raise ValueError("{}: dur needs at least one row".format(name))
+    _check_cuda(
+        name, (emit, trans, init, dur), ((N, T, C), (N, C, C), (N, C), (N, Km, C))
+    )
+    err = _call("hsmm_scan", symbol, [trans, init, dur, emit, *outputs],
+                [N, T, C, Km], emit)
+    _raise_on_error(name, err)
+
+
 def hsmm_gamma_scan(trans, init, dur, emit, with_alphas=False):
-    """Max-semiring gamma scan: (gamma (N, T, C), alphas or None).
+    """Max-semiring gamma scan (decode): (gamma (N, T, C), alphas or None).
 
     See ``_gamma_scan_plain`` for the function. On CUDA tensors (float32,
     contiguous, C <= 128) it launches csrc/hsmm_scan.cu, one block per
     chain; on CPU tensors it runs the plain version."""
     if _device_type(emit) == "cpu":
         return _gamma_scan_plain(trans, init, dur, emit, with_alphas)
-    N, T, C = emit.shape
-    Km = dur.shape[1]
-    if not kernels_supported(C):
-        raise ValueError("hsmm_gamma_scan: C={} > {}".format(C, MAX_CLASSES))
-    if Km < 1:  # the carry's ring buffer needs a row (see _durations)
-        raise ValueError("hsmm_gamma_scan: dur needs at least one row")
-    _check_cuda(
-        "hsmm_gamma_scan", (emit, trans, init, dur),
-        ((N, T, C), (N, C, C), (N, C), (N, Km, C)),
-    )
-    lib = load_library("hsmm_scan")
-    fn = lib.hsmm_gamma_scan_max
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     gamma = torch.empty_like(emit)
     alphas = torch.empty_like(emit) if with_alphas else None
-    err = fn(
-        trans.data_ptr(), init.data_ptr(), dur.data_ptr(), emit.data_ptr(),
-        gamma.data_ptr(), alphas.data_ptr() if with_alphas else None,
-        N, T, C, Km, *_stream_args(emit),
-    )
-    _raise_on_error("hsmm_gamma_scan", err)
+    _launch_scan("hsmm_gamma_scan", "hsmm_gamma_scan_max", trans, init, dur, emit,
+                 [gamma, alphas])
     hsmm_gamma_scan.launches += 1
     return gamma, alphas
 
 
 hsmm_gamma_scan.launches = 0
+
+
+def hsmm_log_scan(trans, init, dur, emit):
+    """Log-semiring scan with the alphas plane (the training forward):
+    (gamma (N, T, C), alphas (N, T, C)).
+
+    Same inputs and checks as ``hsmm_gamma_scan``; on CPU tensors it runs
+    ``_log_scan_plain``."""
+    if _device_type(emit) == "cpu":
+        return _log_scan_plain(trans, init, dur, emit)
+    gamma, alphas = torch.empty_like(emit), torch.empty_like(emit)
+    _launch_scan("hsmm_log_scan", "hsmm_gamma_scan_log", trans, init, dur, emit,
+                 [gamma, alphas])
+    hsmm_log_scan.launches += 1
+    return gamma, alphas
+
+
+hsmm_log_scan.launches = 0
+
+
+def hsmm_forward_scan(trans, init, dur, emit):
+    """Forward-only log scan (the partition's primal): alphas (N, T, C).
+
+    The kernel of ``hsmm_log_scan`` with the gamma store skipped. On CPU
+    tensors it runs ``_forward_scan_plain``."""
+    if _device_type(emit) == "cpu":
+        return _forward_scan_plain(trans, init, dur, emit)
+    alphas = torch.empty_like(emit)
+    _launch_scan("hsmm_forward_scan", "hsmm_forward_scan_log", trans, init, dur, emit,
+                 [alphas])
+    hsmm_forward_scan.launches += 1
+    return alphas
+
+
+hsmm_forward_scan.launches = 0
 
 
 # ---- (b) the band max ------------------------------------------------------
@@ -168,6 +275,15 @@ def _band_max_plain(G1, G2p, dur):
     return fm
 
 
+def _band_shapes(name, G1, G2p, dur):
+    B, T, C = G1.shape
+    T2, Km = G2p.shape[1], dur.shape[1]
+    if T2 < T + Km:
+        raise ValueError("{}: G2p has {} rows < T + Km = {}".format(name, T2, T + Km))
+    _check_cuda(name, (G1, G2p, dur), ((B, T, C), (B, T2, C), (B, Km, C)))
+    return B, T, T2, C, Km
+
+
 def hsmm_band_max(G1, G2p, dur):
     """Per-frame max-marginals fm (B, T, C); see ``_band_max_plain``.
 
@@ -176,22 +292,9 @@ def hsmm_band_max(G1, G2p, dur):
     runs the plain version."""
     if _device_type(G1) == "cpu":
         return _band_max_plain(G1, G2p, dur)
-    B, T, C = G1.shape
-    T2, Km = G2p.shape[1], dur.shape[1]
-    if T2 < T + Km:
-        raise ValueError("hsmm_band_max: G2p has {} rows < T + Km = {}".format(T2, T + Km))
-    _check_cuda(
-        "hsmm_band_max", (G1, G2p, dur), ((B, T, C), (B, T2, C), (B, Km, C))
-    )
-    lib = load_library("band_max")
-    fn = lib.hsmm_band_max
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    B, T, T2, C, Km = _band_shapes("hsmm_band_max", G1, G2p, dur)
     fm = torch.empty_like(G1)
-    err = fn(
-        G1.data_ptr(), G2p.data_ptr(), dur.data_ptr(), fm.data_ptr(),
-        B, T, T2, C, Km, *_stream_args(G1),
-    )
+    err = _call("band_max", "hsmm_band_max", [G1, G2p, dur, fm], [B, T, T2, C, Km], G1)
     _raise_on_error("hsmm_band_max", err)
     hsmm_band_max.launches += 1
     return fm
@@ -200,7 +303,64 @@ def hsmm_band_max(G1, G2p, dur):
 hsmm_band_max.launches = 0
 
 
-# ---- the labels chain ------------------------------------------------------
+# ---- (c) the band gradient -------------------------------------------------
+
+
+def _band_grad_plain(G1m, G2p, dur):
+    """Plain PyTorch version of the band sweep (any device, any float dtype).
+
+    G1m (B, T, C) = G1 - logZ; G2p (B, T2, C) with T2 >= T + Km;
+    dur (B, Km, C). With M[s, j] = exp(G1m[s] + dur[j] + G2p[s+j+1]) the
+    span posteriors, returns (qg, sa, st (B, T, C), lg (B, Km, C)):
+    qg[s] = LSE_j dur[j] + G2p[s+j+1], sa[s] = sum_j M[s, j],
+    st[i] = sum_j M[i-j-1, j], lg[j] = sum_s M[s, j]. The kernel's
+    operations in its order (r descending, qg by jnp.logaddexp's formula);
+    lg's sum over T is associated per thread block on the card.
+    """
+    B, T, C = G1m.shape
+    Km = dur.shape[1]
+    qg = torch.full_like(G1m, BIG_NEG)
+    sa = torch.zeros_like(G1m)
+    st = torch.zeros_like(G1m)
+    lg = G1m.new_zeros((B, Km, C))
+    for r in range(Km - 1, -1, -1):
+        x = dur[:, r : r + 1] + G2p[:, r + 1 : r + 1 + T]
+        qg = torch.maximum(qg, x) + torch.log1p(torch.exp(-(qg - x).abs()))
+        M = torch.exp(G1m + x)
+        sa = sa + M
+        lg[:, r] = M.sum(dim=1)
+        if r + 1 < T:
+            st[:, r + 1 :] = st[:, r + 1 :] + M[:, : T - r - 1]
+    return qg, sa, st, lg
+
+
+def hsmm_band_grad(G1m, G2p, dur):
+    """Span-posterior masses (qg, sa, st, lg); see ``_band_grad_plain``.
+
+    On CUDA tensors (float32, contiguous, C <= 128) it launches
+    csrc/band_grad.cu, which streams T in row tiles and reduces lg over
+    the tiles in a fixed order (two runs give the same bits); on CPU
+    tensors it runs the plain version."""
+    if _device_type(G1m) == "cpu":
+        return _band_grad_plain(G1m, G2p, dur)
+    B, T, T2, C, Km = _band_shapes("hsmm_band_grad", G1m, G2p, dur)
+    if not kernels_supported(C):
+        raise ValueError("hsmm_band_grad: C={} > {}".format(C, MAX_CLASSES))
+    blocks = _bound("band_grad", "hsmm_band_grad_blocks", (ctypes.c_int, ctypes.c_int))(T, C)
+    qg, sa, st = (torch.empty_like(G1m) for _ in range(3))
+    lg = G1m.new_empty((B, Km, C))
+    partials = G1m.new_empty((B * blocks * Km * C,))
+    err = _call("band_grad", "hsmm_band_grad", [G1m, G2p, dur, qg, sa, st, lg, partials],
+                [B, T, T2, C, Km], G1m)
+    _raise_on_error("hsmm_band_grad", err)
+    hsmm_band_grad.launches += 1
+    return qg, sa, st, lg
+
+
+hsmm_band_grad.launches = 0
+
+
+# ---- the two directions and the band inputs --------------------------------
 
 
 def _stack_fwd_rev(pots: HsmmPotentials, lengths):
@@ -220,11 +380,13 @@ def _stack_fwd_rev(pots: HsmmPotentials, lengths):
 
 
 def _band_inputs(pots: HsmmPotentials, lengths, gamma):
-    """(G1, G2p, band) for the band max from the stacked gamma planes.
+    """(G1, G2p, band) for the band kernels from the stacked gamma planes
+    (max semiring for the band max, log for the band gradient).
 
-    Splits each span's best-path score into a prefix part at its start
-    boundary s and a suffix part at its end boundary e = s + d:
-    M[s, d] = G1[s] + lens[d] + G2p[s + d]."""
+    Splits each span's score into a prefix part at its start boundary s
+    and a suffix part at its end boundary e = s + d:
+    M[s, d] = G1[s] + lens[d] + G2p[s + d]. JAX's _packed_G1_g2 in the
+    unpacked layout."""
     B, T, C = pots.emit.shape
     device = pots.emit.device
     K = pots.lens.shape[1]
@@ -233,13 +395,13 @@ def _band_inputs(pots: HsmmPotentials, lengths, gamma):
     L = lengths[:, None, None]
     cum = _emission_cumsum(pots.emit)  # (B, T+1, C) exclusive prefix sums
 
-    # G1[s] = F[s] - cum[s], F[s] the best prefix with the next span
+    # G1[s] = F[s] - cum[s], F[s] the prefix score with the next span
     # starting at s (init at s = 0), BIG_NEG from the length on
     F = torch.cat([pots.init[:, None], gammaF[:, : T - 1]], dim=1)
     F = torch.where(t_col < L, F, torch.full_like(F, BIG_NEG))
     G1 = F - cum[:, :T]
 
-    # G2[e] = cum[e] + S2[e], S2[e] the best suffix from boundary e given
+    # G2[e] = cum[e] + S2[e], S2[e] the suffix score from boundary e given
     # the previous span's class: the reversed chain has consumed L - e
     # frames at its step L - e - 1. Row e == L carries end_mask; rows
     # e == 0 and e > L are BIG_NEG.
@@ -253,6 +415,17 @@ def _band_inputs(pots: HsmmPotentials, lengths, gamma):
     # K == 1 has no representable duration: an empty band (all BIG_NEG)
     band = pots.lens[:, 1:, :]
     return G1.contiguous(), G2p.contiguous(), band.contiguous()
+
+
+def _grad_band_inputs(pots: HsmmPotentials, lengths, gamma, logZ):
+    """(G1m, G2p, band) for the band gradient from the stacked log-semiring
+    gamma planes: ``_band_inputs`` with -logZ folded into G1, so that
+    G1m[s] + band[j] + G2p[s+j+1] is a log span posterior."""
+    G1, G2p, band = _band_inputs(pots, lengths, gamma)
+    return (G1 - logZ[:, None, None]).contiguous(), G2p, band
+
+
+# ---- the labels chain ------------------------------------------------------
 
 
 def _max_marginals(pots: HsmmPotentials, lengths, gamma_scan, band_max):

@@ -1,0 +1,186 @@
+"""The partition as a ``torch.autograd.Function`` whose forward and
+backward are hand-written kernels.
+
+Twin of ``action_segmentation_tpu/ops/hsmm_grad.py``. Training against
+the marginal likelihood needs d logZ / d potentials (= posterior expected
+sufficient statistics). Autograd of the plain scan (ops/hsmm.py) works
+but replays the scan; here:
+
+  * the forward runs the log-semiring scan once over the forward model
+    and the time-reversed model stacked on the batch axis
+    (``hsmm_log_scan``), and keeps its gamma and alphas planes;
+  * the backward runs one band sweep (``hsmm_band_grad``) over the two
+    directions' boundary split and forms the five cotangents in closed
+    form, as JAX's ``_fb_bwd_packed`` does;
+  * a call that needs no gradient takes the primal: the forward-only scan
+    (``hsmm_forward_scan``) over the forward model alone, as JAX's
+    primal calls ``hsmm_alphas_pallas``.
+
+By the HSMM's time symmetry the suffix mass S2[e, c] ("segmentations of
+frames [e, L) given the previous span had class c", including the
+transition into the first suffix span and the end mask) is the prefix
+boundary mass of the REVERSED model. With F[s, c] the prefix mass with
+the next span starting at s in class c, the posterior of span (start s,
+duration d, class c) is
+
+  exp( F[s,c] + lens[d,c] + (cum[s+d]-cum[s])[c] + S2[s+d,c] - logZ )
+
+from which all five cotangents (emit / trans / init / lens / end_mask)
+follow by summation.
+
+Each entry point takes ``kernels``: ``KERNELS`` (the default; the CUDA
+kernels on CUDA tensors, their plain versions on CPU tensors) or
+``PLAIN`` (the plain versions on any device and dtype, the yardstick the
+kernels are held against).
+"""
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from action_segmentation_torch import BIG_NEG
+from action_segmentation_torch.ops.hsmm import (
+    HsmmPotentials,
+    _clamped,
+    _durations,
+    _emission_cumsum,
+    _finals,
+)
+from action_segmentation_torch.ops.hsmm_cuda import (
+    _band_grad_plain,
+    _forward_scan_plain,
+    _grad_band_inputs,
+    _log_scan_plain,
+    _stack_fwd_rev,
+    hsmm_band_grad,
+    hsmm_forward_scan,
+    hsmm_log_scan,
+)
+
+
+class FbKernels(NamedTuple):
+    """The three functions the partition's forward and backward call."""
+
+    log_scan: Callable  # (trans, init, dur, emit) -> (gamma, alphas)
+    forward_scan: Callable  # (trans, init, dur, emit) -> alphas
+    band_grad: Callable  # (G1m, G2p, dur) -> (qg, sa, st, lg)
+
+
+KERNELS = FbKernels(hsmm_log_scan, hsmm_forward_scan, hsmm_band_grad)
+PLAIN = FbKernels(_log_scan_plain, _forward_scan_plain, _band_grad_plain)
+
+
+def _log_partition(alphas_f, lengths, end_mask):
+    return torch.logsumexp(_finals(alphas_f, lengths, end_mask), dim=-1)
+
+
+def _cotangents(pots: HsmmPotentials, lengths, gamma, alphas_f, logZ, band_grad):
+    """The five cotangents of logZ (B,) from the forward's planes: one
+    band sweep, then the closed form of JAX's ``_fb_bwd_packed``."""
+    B, T, C = pots.emit.shape
+    G1m, G2p, band = _grad_band_inputs(pots, lengths, gamma, logZ)
+    qg, sa, st, lg = band_grad(G1m, G2p, band)
+
+    # emit: frame marginals from the start/stop difference array
+    emit_g = torch.cumsum(sa - st, dim=1)
+    # lens: rows 1..K-1 are the per-duration posterior masses
+    lens_g = torch.cat([lg.new_zeros((B, 1, C)), lg], dim=1)
+
+    # Q[s] = LSE_j body, the suffix mass from s without the transition
+    Q = qg - _emission_cumsum(pots.emit)[:, :T]
+
+    # trans: pair marginals over the interior boundaries s = 1..L-1.
+    # trans stays INSIDE the exponential: the full exponent is a log pair
+    # posterior (<= ~0, always representable under BIG_NEG masks), while
+    # pulling exp(trans) out overflows where a masked transition
+    # separates a dominant class from the class it cannot reach.
+    t_idx = torch.arange(T, device=pots.emit.device)[None, :]
+    interior = (t_idx >= 1) & (t_idx < lengths[:, None])
+    af_sh = torch.cat([alphas_f.new_zeros((B, 1, C)), alphas_f[:, : T - 1]], dim=1)
+    expo = (
+        af_sh[:, :, None, :]
+        + pots.trans[:, None, :, :]
+        + Q[:, :, :, None]
+        - logZ[:, None, None, None]
+    )
+    pair = torch.exp(
+        torch.where(interior[:, :, None, None], expo, torch.full_like(expo, BIG_NEG))
+    )
+    trans_g = pair.sum(dim=1)
+
+    init_g = torch.exp(pots.init + Q[:, 0] - logZ[:, None])
+    end_g = torch.exp(_finals(alphas_f, lengths, pots.end_mask) - logZ[:, None])
+    return trans_g, init_g, lens_g, emit_g, end_g
+
+
+class HsmmPartitionFB(torch.autograd.Function):
+    """logZ (B,) with a kernel forward (the stacked log scan) and a kernel
+    backward (the band sweep). Inputs as ``ops.hsmm.hsmm_partition``;
+    trans/init/lens may be expanded views (autograd sums their
+    cotangents back through the expand)."""
+
+    @staticmethod
+    def forward(ctx, trans, init, lens, emit, end_mask, lengths, kernels):
+        pots = HsmmPotentials(trans, init, lens, emit, end_mask)
+        lengths = _clamped(lengths, emit.device)
+        gamma, alphas = kernels.log_scan(*_stack_fwd_rev(pots, lengths))
+        alphas_f = alphas[: emit.shape[0]]  # the backward reads the forward half
+        logZ = _log_partition(alphas_f, lengths, end_mask)
+        ctx.save_for_backward(trans, init, lens, emit, end_mask, lengths, gamma,
+                              alphas_f, logZ)
+        ctx.band_grad = kernels.band_grad
+        return logZ
+
+    @staticmethod
+    def backward(ctx, g):
+        trans, init, lens, emit, end_mask, lengths, gamma, alphas_f, logZ = (
+            ctx.saved_tensors
+        )
+        pots = HsmmPotentials(trans, init, lens, emit, end_mask)
+        trans_g, init_g, lens_g, emit_g, end_g = _cotangents(
+            pots, lengths, gamma, alphas_f, logZ, ctx.band_grad
+        )
+        gb = g[:, None, None]
+        return (
+            trans_g * gb, init_g * g[:, None], lens_g * gb, emit_g * gb,
+            end_g * g[:, None], None, None,
+        )
+
+
+def _partition_primal(pots: HsmmPotentials, lengths, forward_scan):
+    """logZ through the forward-only scan over the forward model."""
+    lengths = _clamped(lengths, pots.emit.device)
+    alphas = forward_scan(
+        pots.trans.contiguous(), pots.init.contiguous(),
+        _durations(pots.lens).contiguous(), pots.emit.contiguous(),
+    )
+    return _log_partition(alphas, lengths, pots.end_mask)
+
+
+def hsmm_partition_fb(trans, init, lens, emit, end_mask, lengths, kernels=KERNELS):
+    """Log partition (B,), the value of ``ops.hsmm.hsmm_partition``.
+
+    Differentiable through ``HsmmPartitionFB`` when grad mode is on and
+    an input requires grad; otherwise the forward-only scan alone."""
+    inputs = (trans, init, lens, emit, end_mask)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+        return HsmmPartitionFB.apply(*inputs, lengths, kernels)
+    return _partition_primal(HsmmPotentials(*inputs), lengths, kernels.forward_scan)
+
+
+def hsmm_partition_fast(pots: HsmmPotentials, lengths, kernels=KERNELS):
+    """``hsmm_partition_fb`` taking an HsmmPotentials bundle."""
+    return hsmm_partition_fb(
+        pots.trans, pots.init, pots.lens, pots.emit, pots.end_mask, lengths, kernels
+    )
+
+
+def hsmm_frame_marginals_fast(pots: HsmmPotentials, lengths, kernels=KERNELS):
+    """Posterior per-frame class marginals through the forward/backward
+    pair: d logZ / d emit[t, c] = E[frame t has class c]; (B, T, C).
+    The kernel sibling of ``ops.hsmm.hsmm_frame_marginals``."""
+    pots = HsmmPotentials(*(x.detach() for x in pots))
+    emit = pots.emit.requires_grad_(True)
+    with torch.enable_grad():
+        total = hsmm_partition_fast(pots._replace(emit=emit), lengths, kernels).sum()
+        return torch.autograd.grad(total, emit)[0]

@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's decode path on one card and check it.
+"""Drive the PyTorch/CUDA port's decode and training paths on one card
+and check them.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -8,18 +9,38 @@ Phases, one or more lines each; any failure ends the run with a non-zero
 exit and no result line:
 
   1. device  — card name, count, and nvidia-smi's name and power limit;
-  2. build   — both kernels from action_segmentation_torch/csrc with nvcc
-               for sm_90a, printing ptxas' register/smem/spill lines;
-  3. kernels — each kernel against its plain PyTorch version on the card
-               at the serving width (B=18, T=1024, C=19, K=20, D=300) and
-               at the edge cases (ragged lengths down to 1 with bucket
+  2. build   — the three kernel sources from action_segmentation_torch/csrc
+               with nvcc for sm_90a, all at once, printing ptxas'
+               register/smem/spill lines;
+  3. kernels — each decode kernel against its plain PyTorch version on the
+               card at the serving width (B=18, T=1024, C=19, K=20, D=300)
+               and at the edge cases (ragged lengths down to 1 with bucket
                padding, a BIG_NEG end mask, C=128, K=1, T=12,000); and
                the kernels' labels against the traceback Viterbi;
+  3b. kernels (train) — the log scan (gamma, alphas), its forward-only
+               form (alphas) and the band gradient (qg, sa, st, lg) against
+               their plain versions at rtol 1e-5 / atol 1e-4, and logZ and
+               the five gradients of the kernel forward/backward against
+               the same Function through the plain versions (float32) at
+               rtol 2e-3 / atol 2e-4, at the serving width and the same
+               edge cases plus the masked-transition case; the Function
+               against autograd of the plain partition at rtol 2e-3 /
+               atol 2e-4, in float32 with unit-scale emissions over 256
+               frames and in float64 at the full serving shape; and the
+               frame-marginal sums' gap from 1 at the serving shape;
   4. slice   — synthetic corpus, closed-form fit, SemiMarkovModel.predict
                and Segmenter.segment_many at batch 18, Accuracy MoF; the
-               launch counters must show both kernels on both paths;
+               launch counters must show both decode kernels on both paths;
+  4b. train slice — on the same corpus: an unsupervised fit of 3 epochs
+               (its epoch loss must fall) and a closed-then-gradient
+               discriminative fit of 2 epochs (MoF above 10x chance), each
+               launching the log scan and the band gradient once per
+               training batch; a no-grad partition through the forward-only
+               scan; Segmenter.segment_with_marginals on 3 videos, whose
+               labels must equal segment_many's;
   5. times   — CUDA-event kernel and plain-version times at the serving
-               shape beside the roofline bound, and segment_many frames/s.
+               shape beside the roofline bound, segment_many frames/s, one
+               training step's time and the fit's frames/s.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -42,8 +63,11 @@ N_TIMED = 50
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32 op/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
-# tolerances of the JAX package's own tests (tests/test_hsmm_pallas.py)
+# tolerances of the JAX package's own tests: scores (tests/test_hsmm_pallas.py)
+# and the partition's gradients (tests/test_hsmm_grad.py)
 RTOL, ATOL = 1e-5, 1e-4
+GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
+GRAD_NAMES = ("logZ", "trans", "init", "lens", "emit", "end_mask")
 TPU_FILE = "action_segmentation_tpu/ops/hsmm_pallas.py"
 
 
@@ -101,13 +125,67 @@ def max_err(a, b):
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def assert_close(name, got, want):
+def assert_close(name, got, want, rtol=RTOL, atol=ATOL):
     import torch
 
+    check(bool(torch.isfinite(got).all()), name + ": non-finite values")
     try:
-        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
     except AssertionError as e:
         raise RuntimeError("{}: kernel disagrees with its plain version\n{}".format(name, e))
+
+
+def unit_pots(rng, b, t, c, k, device, lengths=None, end_mask=None):
+    """Potentials as the JAX package's gradient tests draw them:
+    log-softmax transitions and initial scores, unit normal durations
+    and emissions. Float32 holds the partition's gradient to the
+    gradient tolerance over a few hundred frames at this scale."""
+    import torch
+
+    from action_segmentation_torch.ops.hsmm import HsmmPotentials
+
+    dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    trans = torch.log_softmax(dev(rng.randn(b, c, c).astype(np.float32)), dim=1)
+    init = torch.log_softmax(dev(rng.randn(b, c).astype(np.float32)), dim=1)
+    lens = rng.randn(b, k, c).astype(np.float32)
+    lens[:, 0] = -1e9
+    emit = rng.randn(b, t, c).astype(np.float32)
+    if lengths is None:
+        lengths = np.full(b, t, np.int32)
+    if end_mask is None:
+        end_mask = np.zeros((b, c), np.float32)
+    return HsmmPotentials(trans, init, dev(lens), dev(emit), dev(end_mask)), dev(lengths)
+
+
+def value_and_grads(pots, partition):
+    """[logZ, d/dtrans, d/dinit, d/dlens, d/demit, d/dend_mask] of
+    partition(the five potentials).sum()."""
+    xs = [x.detach().clone().requires_grad_(True) for x in pots]
+    z = partition(*xs)
+    z.sum().backward()
+    return [z.detach()] + [x.grad for x in xs]
+
+
+def partition_grads(pots, lengths, kernels=None):
+    """value_and_grads of the kernel forward/backward, or of the same
+    Function through `kernels` (the plain versions: ``PLAIN``)."""
+    from action_segmentation_torch.ops.hsmm_grad import KERNELS, hsmm_partition_fb
+
+    return value_and_grads(
+        pots, lambda *xs: hsmm_partition_fb(*xs, lengths, kernels or KERNELS))
+
+
+def autograd_grads(pots, lengths):
+    """value_and_grads of autograd through the plain partition."""
+    from action_segmentation_torch.ops.hsmm import HsmmPotentials, hsmm_partition
+
+    return value_and_grads(pots, lambda *xs: hsmm_partition(HsmmPotentials(*xs), lengths))
+
+
+def assert_grads_close(name, got, want):
+    for n, g, w in zip(GRAD_NAMES, got, want):
+        assert_close("{} {}".format(name, n), g, w, GRAD_RTOL, GRAD_ATOL)
+    return max(max_err(g, w) for g, w in zip(got, want))
 
 
 def check_labels(name, pots, lengths, got, want, got_scores, want_scores):
@@ -191,6 +269,313 @@ def kernel_case(name, pots, lengths):
         ),
     )
     return errs, scan_in, band_in
+
+
+def train_case(name, pots, lengths):
+    """The three training kernels and the kernel forward/backward against
+    their plain versions on the same inputs; returns max abs errors and
+    the serving inputs of each kernel."""
+    import torch
+
+    from action_segmentation_torch.ops.hsmm_cuda import (
+        _band_grad_plain,
+        _forward_scan_plain,
+        _grad_band_inputs,
+        _log_scan_plain,
+        _stack_fwd_rev,
+        hsmm_band_grad,
+        hsmm_forward_scan,
+        hsmm_log_scan,
+    )
+    from action_segmentation_torch.ops.hsmm_grad import PLAIN, _log_partition
+
+    B = pots.emit.shape[0]
+    L = lengths.long().clamp(min=1)
+    scan_in = _stack_fwd_rev(pots, L)
+    gamma_k, alphas_k = hsmm_log_scan(*scan_in)
+    gamma_p, alphas_p = _log_scan_plain(*scan_in)
+    torch.cuda.synchronize()
+    assert_close(name + " log scan gamma", gamma_k, gamma_p)
+    assert_close(name + " log scan alphas", alphas_k, alphas_p)
+
+    fwd_in = tuple(x[:B] for x in scan_in)  # the primal's forward chains
+    af_k = hsmm_forward_scan(*fwd_in)
+    af_p = _forward_scan_plain(*fwd_in)
+    torch.cuda.synchronize()
+    assert_close(name + " forward scan alphas", af_k, af_p)
+
+    logZ = _log_partition(alphas_k[:B], L, pots.end_mask)
+    grad_in = _grad_band_inputs(pots, L, gamma_k, logZ)
+    bg_k = hsmm_band_grad(*grad_in)
+    bg_p = _band_grad_plain(*grad_in)
+    torch.cuda.synchronize()
+    for n, k, p in zip(("qg", "sa", "st", "lg"), bg_k, bg_p):
+        assert_close("{} band grad {}".format(name, n), k, p)
+
+    fb_kernel = partition_grads(pots, lengths)
+    fb_err = assert_grads_close(name + " partition_fb kernels vs plain", fb_kernel,
+                                partition_grads(pots, lengths, PLAIN))
+    errs = {
+        "log_scan": max(max_err(gamma_k, gamma_p), max_err(alphas_k, alphas_p)),
+        "forward_scan": max_err(af_k, af_p),
+        "band_grad": max(max_err(k, p) for k, p in zip(bg_k, bg_p)),
+        "partition_fb": fb_err,
+    }
+    phase(
+        "kernels (train)",
+        "{}: B={} T={} C={} K={} log scan max_abs_err={:g} forward scan {:g} band grad "
+        "{:g}; logZ and grads kernels vs plain max_abs_err={:g}; kernel path's "
+        "max |sum_c marginal - 1| {:g}, max |d logZ / d emit| {:g}".format(
+            name, B, pots.emit.shape[1], pots.emit.shape[2], pots.lens.shape[1],
+            errs["log_scan"], errs["forward_scan"], errs["band_grad"], fb_err,
+            marginal_gap(fb_kernel[4], lengths), float(fb_kernel[4].abs().max()),
+        ),
+    )
+    return errs, scan_in, fwd_in, grad_in
+
+
+def masked_transition_pots(device):
+    """The JAX package's test_grads_finite_with_masked_transitions case:
+    two confident segments whose boundary wants the forbidden 0 -> 1."""
+    import torch
+
+    from action_segmentation_torch.ops.hsmm import HsmmPotentials
+
+    b, t, c, k = 1, 20, 3, 6
+    trans = np.full((b, c, c), np.log(0.5), np.float32)
+    trans[:, 1, 0] = -1e9
+    lens = np.zeros((b, k, c), np.float32)
+    lens[:, 0] = -1e9
+    emit = np.full((b, t, c), -200.0, np.float32)
+    emit[:, :10, 0] = 0.0
+    emit[:, 10:, 1] = 0.0
+    zeros = np.zeros((b, c), np.float32)
+    dev = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    pots = HsmmPotentials(dev(trans), dev(zeros), dev(lens), dev(emit), dev(zeros))
+    return pots, dev(np.full(b, t, np.int32))
+
+
+def marginal_gap(marg, lengths):
+    """max over real frames of |sum_c marginal - 1|."""
+    gaps = [(marg[b, :L].sum(dim=-1) - 1).abs().max() for b, L in
+            enumerate(lengths.long().clamp(min=1).tolist())]
+    return float(max(gaps))
+
+
+def run_train_kernels(device):
+    """Phase 3b; returns the serving case's errors and kernel inputs, and
+    the marginal-sum gaps."""
+    import torch
+
+    from action_segmentation_torch.ops.hsmm import hsmm_frame_marginals
+    from action_segmentation_torch.ops.hsmm_grad import PLAIN, hsmm_frame_marginals_fast
+
+    rng = np.random.RandomState(10)
+    pots, lengths = serving_pots(rng, B, T, C, K, device)
+    serving = train_case("serving", pots, lengths)
+    rl = rng.randint(1, T + 1, size=B).astype(np.int32)
+    rl[[0, 5]] = 1
+    rl[1] = T
+    train_case("ragged", *serving_pots(rng, B, T + 32, C, K, device, lengths=rl))
+    end = np.zeros((B, C), np.float32)
+    end[:, rng.rand(C) < 0.5] = -1e9
+    end[:, 0] = 0.0
+    train_case("end_mask", *serving_pots(rng, B, T, C, K, device, end_mask=end))
+    train_case("C=128", *serving_pots(rng, 4, T, 128, K, device))
+    train_case("K=1", *serving_pots(rng, B, T, C, 1, device))
+    train_case("T=12000", *serving_pots(
+        rng, 2, 12000, C, K, device, lengths=np.array([12000, 7001], np.int32)))
+    train_case("masked transitions", *masked_transition_pots(device))
+
+    # the Function against autograd of the plain partition: float32 where
+    # float32 holds (unit-scale emissions, 256 frames), float64 at the full
+    # serving shape and scale
+    t_cut = 256
+    rl = rng.randint(1, t_cut + 1, size=B).astype(np.int32)
+    rl[[0, 5]] = 1
+    rl[1] = t_cut
+    end = np.zeros((B, C), np.float32)
+    end[:, rng.rand(C) < 0.5] = -1e9
+    end[:, 0] = 0.0
+    cases = [
+        ("serving width", unit_pots(rng, B, t_cut, C, K, device, lengths=rl, end_mask=end)),
+        ("C=128", unit_pots(rng, 4, t_cut, 128, K, device)),
+        ("K=1", unit_pots(rng, B, t_cut, C, 2, device, lengths=rl)),
+        ("masked transitions", masked_transition_pots(device)),
+    ]
+    for name, (p, l) in cases:
+        err = assert_grads_close("{} partition_fb vs autograd (float32)".format(name),
+                                 partition_grads(p, l), autograd_grads(p, l))
+        phase("kernels (train)", "{}: B={} T={} C={} K={} logZ and grads vs autograd of "
+              "hsmm_partition, float32: max_abs_err={:g}".format(
+                  name, p.emit.shape[0], p.emit.shape[1], p.emit.shape[2],
+                  p.lens.shape[1], err))
+    pots64 = type(pots)(*(x.double() for x in pots))
+    err = assert_grads_close("serving partition_fb vs autograd (float64)",
+                             partition_grads(pots64, lengths, PLAIN),
+                             autograd_grads(pots64, lengths))
+    phase("kernels (train)", "serving: logZ and grads of the Function's plain path vs "
+          "autograd of hsmm_partition, float64: max_abs_err={:g}".format(err))
+
+    # finding: float32 cancellation at the D=300 emission scale
+    gaps = {
+        "kernel_fp32": marginal_gap(hsmm_frame_marginals_fast(pots, lengths), lengths),
+        "plain_fp32": marginal_gap(hsmm_frame_marginals_fast(pots, lengths, PLAIN), lengths),
+        "plain_fp64": marginal_gap(hsmm_frame_marginals_fast(pots64, lengths, PLAIN), lengths),
+        "autograd_fp32": marginal_gap(hsmm_frame_marginals(pots, lengths), lengths),
+    }
+    phase("kernels (train)", "serving: max |sum_c marginal - 1| over real frames: " + ", ".join(
+        "{} {:g}".format(k, v) for k, v in gaps.items()))
+    return serving, gaps
+
+
+def run_train_slice(device, num_videos, max_len, shift):
+    """Phase 4b: the two fits and the no-grad partition (the training
+    path), then segment_with_marginals; returns the e2e record and the
+    training path's launches of (log scan, forward scan, band grad)."""
+    import torch
+
+    from action_segmentation_torch.api import Segmenter
+    from action_segmentation_torch.data.batching import iter_batches
+    from action_segmentation_torch.data.synthetic import SyntheticDatasplit
+    from action_segmentation_torch.models.base import clip_grads, make_optimizer
+    from action_segmentation_torch.models.semimarkov import SemiMarkovModel
+    from action_segmentation_torch.ops.hsmm_cuda import (
+        hsmm_band_grad,
+        hsmm_forward_scan,
+        hsmm_log_scan,
+    )
+    from action_segmentation_torch.ops.hsmm_grad import PLAIN, hsmm_partition_fast
+
+    kw = dict(num_videos=num_videos, n_classes=C, max_len=max_len, span_k=K,
+              feature_dim=D, shift=shift)
+    train = SyntheticDatasplit(seed=0, **kw)
+    test = SyntheticDatasplit(seed=1, **kw)
+    n_batches = -(-num_videos // B)
+    frames = sum(int(train._samples[n]["features"].shape[0]) for n in train._samples)
+    kernels = (hsmm_log_scan, hsmm_forward_scan, hsmm_band_grad)
+    for k in kernels:
+        k.launches = 0
+
+    def counts():
+        return [k.launches for k in kernels]
+
+    # the process's first torch.optim.Adam pays PyTorch's lazy imports;
+    # timed apart from the fit
+    t0 = time.perf_counter()
+    torch.optim.Adam([torch.nn.Parameter(torch.zeros(1, device=device))])
+    optimizer_setup_s = time.perf_counter() - t0
+
+    # unsupervised: the marginal likelihood
+    unsup = SemiMarkovModel.from_args(sm_args(epochs=3), train, device=device)
+    losses, stamps = [], []
+
+    def on_epoch(epoch, stats):
+        losses.append(stats["train_loss"])  # the epoch's one fetch has synced
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    unsup.fit(train, use_labels=False, callback_fn=on_epoch)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steady = 2 * frames / (stamps[2] - stamps[0])  # epochs 2 and 3
+    n_unsup = counts()
+    phase("train slice", "unsupervised fit: 3 epochs x {} batches, epoch losses {}, "
+          "launches log/forward/band grad = {}, {:.3f} s = {:.0f} frames/s ({:.0f} frames/s "
+          "over epochs 2-3; the first Adam of the process took {:.3f} s before)".format(
+              n_batches, losses, n_unsup, fit_s, 3 * frames / fit_s, steady,
+              optimizer_setup_s))
+    check(n_unsup == [3 * n_batches, 0, 3 * n_batches],
+          "unsupervised fit launches {} != one log scan and band grad per batch".format(n_unsup))
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          "unsupervised epoch loss did not fall: {}".format(losses))
+
+    # discriminative, from the closed form
+    disc = SemiMarkovModel.from_args(
+        sm_args(epochs=2, sm_supervised_method="closed-then-gradient",
+                sm_train_discriminatively=True), train, device=device)
+    disc_losses = []
+    disc.fit(train, use_labels=True,
+             callback_fn=lambda e, s: e >= 0 and disc_losses.append(s["train_loss"]))
+    n_disc = [a - b for a, b in zip(counts(), n_unsup)]
+    mof_disc = mof(test, disc.predict(test))
+    phase("train slice", "closed-then-gradient discriminative fit: 2 epochs, epoch losses {}, "
+          "launches log/forward/band grad = {}, predict MoF {:.4f}".format(
+              disc_losses, n_disc, mof_disc))
+    check(n_disc == [2 * n_batches, 0, 2 * n_batches],
+          "discriminative fit launches {} != one log scan and band grad per batch".format(n_disc))
+    check(mof_disc > 10.0 / C, "discriminative MoF {:.4f} is not above 10x chance".format(mof_disc))
+
+    # the partition without gradients: the forward-only scan
+    names = sorted(test._samples)[:3]
+    feats = [test._samples[n]["features"] for n in names]
+    batch = next(iter_batches(test, batch_size=B, batch_by_task=True, shuffle=False))
+    dev = disc._training_batch(batch)
+    with torch.no_grad():
+        pots = disc.module.compute_potentials(dev[0], dev[2], dev[5], dev[6])
+        before = hsmm_forward_scan.launches
+        logZ = hsmm_partition_fast(pots, dev[1])
+        check(hsmm_forward_scan.launches == before + 1, "no-grad partition did not take K1")
+        assert_close("no-grad partition", logZ, hsmm_partition_fast(pots, dev[1], PLAIN))
+
+    # the training path ends here: both fits and the no-grad partition
+    launches = counts()
+    phase("train slice", "train path launches log/forward/band grad = {}".format(launches))
+
+    # labels and marginals from one serving entry point
+    seg = Segmenter(disc)
+    want = seg.segment_many(feats, batch_size=B)
+    gaps = []
+    for f, w in zip(feats, want):
+        labels, marg = seg.segment_with_marginals(f)
+        check(np.array_equal(labels, w), "segment_with_marginals labels != segment_many's")
+        check(marg.shape == (f.shape[0], C) and np.isfinite(marg).all(),
+              "segment_with_marginals marginals: shape {} or non-finite".format(marg.shape))
+        gaps.append(float(np.abs(marg.sum(axis=1) - 1).max()))
+    n_seg = [a - b for a, b in zip(counts(), launches)]
+    phase("train slice", "segment_with_marginals: 3 videos, labels == segment_many's, "
+          "max |sum marginal - 1| {}, launches log/forward/band grad = {}".format(gaps, n_seg))
+    check(n_seg == [3, 0, 3], "segment_with_marginals launches {} != one log scan and "
+          "band grad per video".format(n_seg))
+    e2e = {
+        "fit_frames_per_s": 3 * frames / fit_s,
+        "fit_steady_frames_per_s": steady,
+        "fit_s": fit_s,
+        "optimizer_setup_s": optimizer_setup_s,
+        "fit_frames": 3 * frames,
+        "unsup_epoch_losses": losses,
+        "disc_epoch_losses": disc_losses,
+        "mof_disc_predict": mof_disc,
+        "segment_with_marginals_sum_gap": max(gaps),
+    }
+
+    # one unsupervised training step on a serving batch already on the card
+    rng = np.random.RandomState(3)
+    step_batch = (
+        torch.from_numpy(rng.randn(B, T, D).astype(np.float32)).to(device),
+        torch.full((B,), T, dtype=torch.int32, device=device),
+        torch.arange(C, device=device),
+        torch.arange(C, device=device),
+        torch.zeros((B, T), dtype=torch.long, device=device),
+        torch.zeros((B, T, C), device=device),
+        torch.zeros((B, C), device=device),
+        torch.ones((B,), device=device),
+    )
+    params = list(unsup.module.parameters())
+    optimizer, _ = make_optimizer(unsup.args, params)
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        loss, _ = unsup._loss(*step_batch, use_labels=False)
+        loss.backward()
+        clip_grads(params, unsup.args.max_grad_norm)
+        optimizer.step()
+
+    torch.cuda.reset_peak_memory_stats()
+    e2e["train_step_ms"] = cuda_ms(step, 10)
+    e2e["train_step_peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    return e2e, launches
 
 
 def sm_args(**overrides):
@@ -296,10 +681,10 @@ def run_slice(device, num_videos, max_len, shift):
     return e2e, launches
 
 
-def cuda_ms(fn, n):
+def cuda_ms(fn, n, warmup=3):
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -325,10 +710,16 @@ def main():
         return 1
     from action_segmentation_torch.ops import _build
     from action_segmentation_torch.ops.hsmm_cuda import (
+        _band_grad_plain,
         _band_max_plain,
+        _forward_scan_plain,
         _gamma_scan_plain,
+        _log_scan_plain,
+        hsmm_band_grad,
         hsmm_band_max,
+        hsmm_forward_scan,
         hsmm_gamma_scan,
+        hsmm_log_scan,
     )
 
     device = torch.device("cuda")
@@ -345,9 +736,9 @@ def main():
         kind, count, torch.__version__, torch.version.cuda))
     print(smi, flush=True)
 
-    # 2. build: both nvcc processes at once
+    # 2. build: every nvcc process at once
     t0 = time.perf_counter()
-    logs = _build.build(["hsmm_scan", "band_max"])
+    logs = _build.build(["hsmm_scan", "band_max", "band_grad"])
     phase("build", "nvcc sm_90a, {:.1f} s".format(time.perf_counter() - t0))
     for name, log in logs.items():
         for line in log.splitlines():
@@ -386,8 +777,13 @@ def main():
     ties = check_labels("traceback", pots, lengths, labels_k, tb_labels, scores_k, tb_scores)
     phase("kernels", "traceback: B=4 T=300 kernel labels vs hsmm_viterbi, ties={}".format(ties))
 
-    # 4. the slice end to end (resets and reads the launch counters)
+    # 3b. the training kernels and the partition's gradient
+    (train_errs, log_in, fwd_in, grad_in), gaps = run_train_kernels(device)
+
+    # 4. the slices end to end (each resets and reads the launch counters)
     e2e, launches = run_slice(device, num_videos=36, max_len=T, shift=1.0)
+    train_e2e, train_launches = run_train_slice(device, num_videos=36, max_len=T, shift=1.0)
+    e2e.update(train_e2e, marginal_sum_gap=gaps)
 
     # 5. times at the serving shape
     N2 = 2 * B
@@ -406,6 +802,29 @@ def main():
     band_ops = G1.numel() * 4 * Km  # per r: H add + max, fold add + max
     g_bound, g_by = bound(gamma_bytes, gamma_ops)
     b_bound, b_by = bound(band_bytes, band_ops)
+
+    log_ms = cuda_ms(lambda: hsmm_log_scan(*log_in), N_TIMED)
+    log_plain_ms = cuda_ms(lambda: _log_scan_plain(*log_in), 2, warmup=1)
+    fwd_ms = cuda_ms(lambda: hsmm_forward_scan(*fwd_in), N_TIMED)
+    fwd_plain_ms = cuda_ms(lambda: _forward_scan_plain(*fwd_in), 2, warmup=1)
+    grad_ms = cuda_ms(lambda: hsmm_band_grad(*grad_in), N_TIMED)
+    grad_plain_ms = cuda_ms(lambda: _band_grad_plain(*grad_in), 10)
+
+    def scan_bound(n, n_out):
+        # per chain-step and class: the duration reduce (Km adds, maxes,
+        # subtracts, exps and sum adds, one log, one add), the transition
+        # combine (the same over C), the cum add and the W push
+        ops = n * T * C * (5 * Km + 5 * C + 6)
+        nbytes = 4 * (n * C * C + n * C + n * Km * C + (1 + n_out) * n * T * C)
+        return bound(nbytes, ops)
+
+    l_bound, l_by = scan_bound(N2, 2)
+    f_bound, f_by = scan_bound(B, 1)
+    G1m, G2pg, bandg = grad_in
+    # in: G1m, G2p, dur; out: qg, sa, st, lg. Per (t, c, r): x add,
+    # logaddexp (6), M add + exp, the sa, st and lg adds
+    grad_bytes = 4 * (G1m.numel() + G2pg.numel() + 2 * bandg.numel() + 3 * G1m.numel())
+    gr_bound, gr_by = bound(grad_bytes, G1m.numel() * Km * 12)
     kernels = [
         {
             "name": "hsmm_gamma_scan", "route": "cuda",
@@ -423,12 +842,40 @@ def main():
             "ms": band_ms, "kernel_ms": band_ms, "plain_ms": band_plain_ms,
             "bound_ms": b_bound, "bound_by": b_by, "library_ms": None,
         },
+        {
+            "name": "hsmm_log_scan", "route": "cuda",
+            "source": "action_segmentation_torch/csrc/hsmm_scan.cu",
+            "replaces": TPU_FILE + ":229", "semiring": "log, with alphas",
+            "launches": train_launches[0], "max_abs_err": train_errs["log_scan"],
+            "ms": log_ms, "kernel_ms": log_ms, "ms_per_step": log_ms / T,
+            "plain_ms": log_plain_ms, "bound_ms": l_bound, "bound_by": l_by,
+            "library_ms": None,
+        },
+        {
+            "name": "hsmm_forward_scan", "route": "cuda",
+            "source": "action_segmentation_torch/csrc/hsmm_scan.cu",
+            "replaces": TPU_FILE + ":156", "semiring": "log, alphas only",
+            "launches": train_launches[1], "max_abs_err": train_errs["forward_scan"],
+            "ms": fwd_ms, "kernel_ms": fwd_ms, "ms_per_step": fwd_ms / T,
+            "plain_ms": fwd_plain_ms, "bound_ms": f_bound, "bound_by": f_by,
+            "library_ms": None,
+        },
+        {
+            "name": "hsmm_band_grad", "route": "cuda",
+            "source": "action_segmentation_torch/csrc/band_grad.cu",
+            "replaces": TPU_FILE + ":771", "launches": train_launches[2],
+            "max_abs_err": train_errs["band_grad"], "ms": grad_ms, "kernel_ms": grad_ms,
+            "plain_ms": grad_plain_ms, "bound_ms": gr_bound, "bound_by": gr_by,
+            "library_ms": None,
+        },
     ]
     for k in kernels:
         check(all(isinstance(v, str) or v is None or math.isfinite(v)
                   for v in k.values()), "non-finite number in {}".format(k))
-    phase("times", "serving shape B={} T={} C={} K={}; {} launches each; "
-          "library call: none computes either function".format(B, T, C, K, N_TIMED))
+        check(k["launches"] > 0, "{} was not launched on its path".format(k["name"]))
+    phase("times", "serving shape B={} T={} C={} K={}; {} launches of each kernel; "
+          "plain versions of the scans 2 launches; library call: none computes any of "
+          "these functions".format(B, T, C, K, N_TIMED))
     print(json.dumps({"e2e": e2e, "card": smi}), flush=True)
     phase("done", "{:.1f} s".format(time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,4 @@
-"""The decode kernels against their plain versions, on the card.
+"""The kernels against their plain versions, on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports neither JAX nor the JAX package, so it runs where JAX is absent:
@@ -8,7 +8,9 @@ imports neither JAX nor the JAX package, so it runs where JAX is absent:
 (``--noconftest`` because tests/conftest.py sets up JAX). Kernel and plain
 version do the same float32 operations in the same order, so they are
 held to the JAX package's score tolerance (rtol 1e-5 / atol 1e-4,
-tests/test_hsmm_pallas.py) and labels must be equal.
+tests/test_hsmm_pallas.py) and labels must be equal. The partition's
+gradients are held to the JAX package's gradient tolerance (rtol 2e-3 /
+atol 2e-4, tests/test_hsmm_grad.py).
 """
 
 import numpy as np
@@ -17,9 +19,11 @@ import torch
 
 from action_segmentation_torch.ops import hsmm as th
 from action_segmentation_torch.ops import hsmm_cuda as hc
+from action_segmentation_torch.ops import hsmm_grad as hg
 
 pytestmark = pytest.mark.gpu
 RTOL, ATOL = 1e-5, 1e-4
+GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
 
 
 @pytest.fixture
@@ -29,12 +33,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def random_pots(rng, B, T, C, K, device):
+def random_pots(rng, B, T, C, K, device, unit=False):
+    """Potentials at the D=300 emission scale, or with unit-scale
+    emissions (where float32 holds the partition's gradient to the
+    gradient tolerance over a few hundred frames)."""
     trans = np.log(rng.dirichlet(np.ones(C), size=(B, C)).astype(np.float32)).transpose(0, 2, 1)
     init = rng.randn(B, C).astype(np.float32)
     lens = rng.randn(B, K, C).astype(np.float32)
     lens[:, 0] = -1e9
-    emit = (rng.randn(B, T, C) * 3 - 400).astype(np.float32)  # D=300-like scale
+    if unit:
+        emit = rng.randn(B, T, C).astype(np.float32)
+    else:
+        emit = (rng.randn(B, T, C) * 3 - 400).astype(np.float32)  # D=300-like scale
     end = np.zeros((B, C), np.float32)
     end[:, rng.rand(C) < 0.3] = -1e9
     end[:, 0] = 0.0
@@ -48,6 +58,9 @@ def random_pots(rng, B, T, C, K, device):
 
 
 SHAPES = [(3, 50, 5, 4), (18, 1024, 19, 20), (4, 300, 128, 20), (5, 200, 19, 1), (2, 64, 33, 40)]
+# the partition's gradients: K = 2 is the model's K = 1 table (one
+# duration), the raw one-row table has no representable segmentation
+FB_SHAPES = [(3, 50, 5, 4), (18, 1024, 19, 20), (4, 300, 128, 20), (5, 200, 19, 2), (2, 64, 33, 40)]
 
 
 @pytest.mark.parametrize("B,T,C,K", SHAPES)
@@ -101,3 +114,132 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         hc.hsmm_gamma_scan(torch.zeros((2, 129, 129), device=cuda),
                            torch.zeros((2, 129), device=cuda),
                            torch.zeros((2, 1, 129), device=cuda), wide)
+
+
+@pytest.mark.parametrize("B,T,C,K", SHAPES)
+def test_log_scans_match_plain(cuda, B, T, C, K):
+    pots, lengths = random_pots(np.random.RandomState(7 * B + T), B, T, C, K, cuda)
+    scan_in = hc._stack_fwd_rev(pots, lengths.long())
+    before = (hc.hsmm_log_scan.launches, hc.hsmm_forward_scan.launches)
+    gamma, alphas = hc.hsmm_log_scan(*scan_in)
+    fwd = hc.hsmm_forward_scan(*scan_in)
+    assert (hc.hsmm_log_scan.launches, hc.hsmm_forward_scan.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_gamma, want_alphas = hc._log_scan_plain(*scan_in)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(gamma, want_gamma, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(alphas, want_alphas, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(fwd, want_alphas, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("B,T,C,K", SHAPES)
+def test_band_grad_kernel_matches_plain(cuda, B, T, C, K):
+    pots, lengths = random_pots(np.random.RandomState(B + 5 * T), B, T, C, K, cuda)
+    lengths = lengths.long()
+    gamma, alphas = hc._log_scan_plain(*hc._stack_fwd_rev(pots, lengths))
+    logZ = hg._log_partition(alphas[:B], lengths, pots.end_mask)
+    band_in = hc._grad_band_inputs(pots, lengths, gamma, logZ)
+    before = hc.hsmm_band_grad.launches
+    got = hc.hsmm_band_grad(*band_in)
+    again = hc.hsmm_band_grad(*band_in)
+    assert hc.hsmm_band_grad.launches == before + 2
+    want = hc._band_grad_plain(*band_in)
+    torch.cuda.synchronize()
+    for name, g, a, w in zip(("qg", "sa", "st", "lg"), got, again, want):
+        assert torch.equal(g, a), name + ": two runs differ"
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=name)
+
+
+@pytest.mark.parametrize("B,T,C,K", [(3, 50, 5, 4), (18, 160, 19, 20), (4, 128, 128, 20),
+                                     (5, 90, 19, 2), (2, 64, 33, 40)])
+def test_partition_fb_grads_match_autograd(cuda, B, T, C, K):
+    """The kernel forward/backward against autograd of the plain
+    partition, in float32, at unit emission scale."""
+    pots, lengths = random_pots(np.random.RandomState(B * K + T), B, T, C, K, cuda, unit=True)
+
+    def grads(fn):
+        xs = [x.detach().clone().requires_grad_(True) for x in pots]
+        z = fn(xs)
+        z.sum().backward()
+        return z.detach(), [x.grad for x in xs]
+
+    before = (hc.hsmm_log_scan.launches, hc.hsmm_band_grad.launches)
+    got_z, got = grads(lambda xs: hg.hsmm_partition_fb(*xs, lengths))
+    assert (hc.hsmm_log_scan.launches, hc.hsmm_band_grad.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_z, want = grads(lambda xs: th.hsmm_partition(th.HsmmPotentials(*xs), lengths))
+    torch.testing.assert_close(got_z, want_z, rtol=RTOL, atol=ATOL)
+    for name, g, w in zip(("trans", "init", "lens", "emit", "end_mask"), got, want):
+        torch.testing.assert_close(g, w, rtol=GRAD_RTOL, atol=GRAD_ATOL, msg=name)
+    # the primal: the forward-only scan
+    before = hc.hsmm_forward_scan.launches
+    with torch.no_grad():
+        primal = hg.hsmm_partition_fb(*pots, lengths)
+    assert hc.hsmm_forward_scan.launches == before + 1
+    torch.testing.assert_close(primal, got_z, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("B,T,C,K", FB_SHAPES)
+def test_partition_fb_kernels_match_plain(cuda, B, T, C, K):
+    """The kernel forward/backward against the same Function through the
+    plain versions, in float32, at the D=300 emission scale."""
+    pots, lengths = random_pots(np.random.RandomState(B + T + K), B, T, C, K, cuda)
+
+    def grads(kernels):
+        xs = [x.detach().clone().requires_grad_(True) for x in pots]
+        z = hg.hsmm_partition_fb(*xs, lengths, kernels)
+        z.sum().backward()
+        return [z.detach()] + [x.grad for x in xs]
+
+    for name, g, w in zip(("logZ", "trans", "init", "lens", "emit", "end_mask"),
+                          grads(hg.KERNELS), grads(hg.PLAIN)):
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, w, rtol=GRAD_RTOL, atol=GRAD_ATOL, msg=name)
+
+
+def test_training_kernels_reject_what_they_do_not_take(cuda):
+    pots, lengths = random_pots(np.random.RandomState(1), 2, 16, 5, 4, cuda)
+    trans, init, dur, emit = hc._stack_fwd_rev(pots, lengths.long())
+    for scan in (hc.hsmm_log_scan, hc.hsmm_forward_scan):
+        with pytest.raises(TypeError):
+            scan(trans, init, dur, emit.double())
+        with pytest.raises(ValueError):
+            scan(trans.cpu(), init, dur, emit)
+        with pytest.raises(ValueError):
+            scan(trans, init, dur[:, :0].contiguous(), emit)
+        with pytest.raises(ValueError):
+            scan(trans[:, :, :4].contiguous(), init, dur, emit)
+    G1m, G2p, band = hc._band_inputs(pots, lengths.long(), hc._log_scan_plain(
+        trans, init, dur, emit)[0])
+    with pytest.raises(TypeError):
+        hc.hsmm_band_grad(G1m.double(), G2p, band)
+    with pytest.raises(ValueError):
+        hc.hsmm_band_grad(G1m, G2p.cpu(), band)
+    with pytest.raises(ValueError):
+        hc.hsmm_band_grad(G1m, G2p[:, :17].contiguous(), band)
+    with pytest.raises(ValueError):
+        hc.hsmm_band_grad(G1m.transpose(1, 2).contiguous().transpose(1, 2), G2p, band)
+
+
+def test_wide_class_tables_raise_on_the_card(cuda):
+    """A model with more classes than the kernels take raises on the card
+    (decode, training loss, marginals); no plain version runs there."""
+    from argparse import Namespace
+
+    from action_segmentation_torch.api import Segmenter
+    from action_segmentation_torch.models.semimarkov import GaussianHsmm, SemiMarkovModel
+
+    C, D, T = hc.MAX_CLASSES + 1, 4, 8
+    args = Namespace(sm_max_span_length=4)
+    model = SemiMarkovModel(args, C, D, GaussianHsmm(args, C, D, device=cuda), cuda)
+    feats = torch.zeros((1, T, D), device=cuda)
+    lengths = torch.full((1,), T, device=cuda)
+    vc = torch.arange(C, device=cuda)
+    cons, ends = torch.zeros((1, T, C), device=cuda), torch.zeros((1, C), device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model._decode(feats, lengths, vc, cons, ends)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model._loss(feats, lengths, vc, None, None, cons, ends,
+                    torch.ones(1, device=cuda), use_labels=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Segmenter(model).segment_with_marginals(np.zeros((T, D), np.float32))

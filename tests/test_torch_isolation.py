@@ -20,6 +20,7 @@ from action_segmentation_torch.ops.hsmm_cuda import (
     MAX_CLASSES,
     hsmm_band_max,
     hsmm_gamma_scan,
+    kernel_path,
     kernels_supported,
 )
 from tests.conftest import make_sm_args
@@ -63,7 +64,7 @@ def test_port_file_imports_no_jax(path):
 def test_port_has_files():
     # the scan above must see the whole package, not an empty glob
     names = {p.name for p in PORT_FILES}
-    assert {"hsmm_cuda.py", "semimarkov.py", "api.py", "chip_smoke.py"} <= names
+    assert {"hsmm_cuda.py", "hsmm_grad.py", "semimarkov.py", "api.py", "chip_smoke.py"} <= names
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -109,3 +110,14 @@ def test_kernel_gate_and_other_devices():
     hsmm_band_max(torch.zeros(2, 4, 3), torch.zeros(2, 6, 3), torch.zeros(2, 1, 3))
     assert g.shape == (2, 4, 3)
     assert (hsmm_gamma_scan.launches, hsmm_band_max.launches) == before
+
+
+def test_kernel_path_chooses_by_device():
+    """CUDA tensors always take the kernel chain, and a class count the
+    kernels do not take raises there; only CPU tensors fall back to the
+    plain traceback and autograd paths above C = 128."""
+    cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
+    assert kernel_path(MAX_CLASSES, cpu) and not kernel_path(MAX_CLASSES + 1, cpu)
+    assert kernel_path(MAX_CLASSES, cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernel_path(MAX_CLASSES + 1, cuda)

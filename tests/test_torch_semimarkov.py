@@ -180,13 +180,16 @@ def test_class_shape_bucket_parity():
 
 
 def test_unported_paths_raise():
+    """Data parallelism, checkpoints and resume, profiling, the
+    constraint flags and the component model raise until their slices."""
     train, _ = splits(TSplit, n_train=4)
-    args = make_sm_args(sm_supervised_method="gradient-based")
-    model = TModel.from_args(args, train, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        model.fit(train, use_labels=True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        model.fit(train, use_labels=False)
+    for flag, value in (("data_parallel", True), ("checkpoint_dir", "ckpt"),
+                        ("resume", True), ("profile_dir", "trace")):
+        args = make_sm_args(sm_supervised_method="gradient-based", **{flag: value})
+        model = TModel.from_args(args, train, device="cpu")
+        for use_labels in (True, False):
+            with pytest.raises(NotImplementedError, match="slice"):
+                model.fit(train, use_labels=use_labels)
     for flag in ("sm_constrain_transitions", "sm_component_model", "sm_feature_projection",
                  "annotate_background_with_previous"):
         with pytest.raises(NotImplementedError, match="slice"):
