@@ -10,13 +10,16 @@ Example:
     batches = seg.segment_many([f1, f2, ...])   # list of (T_i, D)
     labels, marginals = seg.segment_with_marginals(features)
 
-Loading a pickled model and the per-task end masks of constrained models
-come with later slices (ROADMAP.md §1).
+A model trained with canonical-order constraints decodes with the same
+per-video end masks as ``predict`` (``Segmenter(model, valid_classes,
+task=...)``). Loading a pickled model comes with the CLI slice
+(ROADMAP.md §1).
 """
 
 import numpy as np
 import torch
 
+from action_segmentation_torch import BIG_NEG
 from action_segmentation_torch.data.batching import pad_length_to_bucket
 from action_segmentation_torch.models.semimarkov import SemiMarkovModel, upload
 from action_segmentation_torch.ops.hsmm import hsmm_frame_marginals
@@ -28,12 +31,44 @@ from action_segmentation_torch.utils.drain import DeferredLabelDrain
 class Segmenter:
     """Serving wrapper around a fitted SemiMarkovModel."""
 
-    def __init__(self, model, valid_classes=None):
+    def __init__(self, model, valid_classes=None, task=None):
         assert isinstance(model, SemiMarkovModel), type(model)
         self.model = model
         if valid_classes is None:
             valid_classes = np.arange(model.n_classes, dtype=np.int64)
         self.valid_classes = np.asarray(valid_classes, np.int64)
+        # a model with canonical-order constraints decodes with predict()'s
+        # end masks, whose short-video exception (a video shorter than
+        # its step sequence may end mid-order) is per task and per length
+        allowed_ends = model.module.allowed_ends
+        self._task = task
+        self._per_video_ends = (
+            allowed_ends is not None and model.ordered_indices_by_task is not None
+        )
+        if self._per_video_ends and task is None:
+            raise ValueError(
+                "this model was trained with canonical-ordering constraints; "
+                "Segmenter needs task=<task name> to build the per-video end "
+                "masks predict() uses"
+            )
+        self._end_row = np.zeros(len(self.valid_classes), np.float32)
+        if allowed_ends is not None:
+            mask = np.isin(self.valid_classes, sorted(allowed_ends))
+            if not self._per_video_ends and not mask.any():
+                raise ValueError(
+                    "no allowed end classes within valid_classes: every decode "
+                    "would argmax over BIG_NEG-saturated scores"
+                )
+            self._end_row = np.where(mask, 0.0, BIG_NEG).astype(np.float32)
+
+    def _end_rows(self, lengths):
+        """(B, C) end masks, the rows predict() builds."""
+        if self._per_video_ends:
+            return np.stack([
+                self.model._end_mask_row(self.valid_classes, self._task, L)
+                for L in lengths
+            ])
+        return np.broadcast_to(self._end_row, (len(lengths), len(self.valid_classes))).copy()
 
     def segment_many(self, feature_list, batch_size=16):
         """Segment a list of (T_i, D) float arrays -> list of (T_i,) labels.
@@ -60,9 +95,9 @@ class Segmenter:
             for row, i in enumerate(idxs):
                 feats[row, : lengths[row]] = feature_list[i]
             cons = torch.zeros((len(idxs), Tpad, C), dtype=torch.float32, device=device)
-            ends = torch.zeros((len(idxs), C), dtype=torch.float32, device=device)
             labels, _ = model._decode(
-                upload(feats, device), upload(lengths, device), vc, cons, ends
+                upload(feats, device), upload(lengths, device), vc, cons,
+                upload(self._end_rows(lengths), device),
             )
             drain.add((idxs, lengths), labels)
 
@@ -97,12 +132,14 @@ class Segmenter:
         lengths = upload(np.array([T], np.int32), device)
         vc = upload(self.valid_classes, device)
         cons = torch.zeros(feats.shape[:2] + (C,), dtype=torch.float32, device=device)
-        ends = torch.zeros((1, C), dtype=torch.float32, device=device)
+        ends = upload(self._end_rows([T]), device)
         labels, _ = model._decode(feats, lengths, vc, cons, ends)
         with torch.no_grad():
             pots = model.module.compute_potentials(feats, vc, cons, ends)
+        # the marginals gate on the segmenter's width, as JAX's do
         marginals_fn = (
-            hsmm_frame_marginals_fast if kernel_path(C, device) else hsmm_frame_marginals
+            hsmm_frame_marginals_fast if kernel_path(C, C, device).partition == "kernels"
+            else hsmm_frame_marginals
         )
         marg_sub = marginals_fn(pots, lengths)
         # scatter the subset's columns into global class ids, like labels

@@ -6,7 +6,10 @@ shares `valid_classes`. The same buckets as the JAX package keep the two
 packages' padded shapes, and so their decodes, identical.
 """
 
+import itertools
 import random
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -64,9 +67,9 @@ def make_batch_keys(videos_by_task, batch_size, batch_by_task=True, shuffle=Fals
 def collate(samples, bucket=True):
     """Pad a list of per-video sample dicts into dense numpy arrays.
 
-    Pads 'features' (T, D) -> (B, Tpad, D) and 'gt_single' (T,) -> (B, Tpad);
-    passes through names/indices. Padding value is 0 everywhere.
-    (Narration constraint matrices come with the narration slice.)
+    Pads 'features' (T, D) -> (B, Tpad, D), 'gt_single' (T,) -> (B, Tpad),
+    'constraints' (T, K) -> (B, Tpad, K); passes through names/indices.
+    Padding value is 0 everywhere.
     """
     samples = [s for s in samples if s is not None]
     lengths = np.array([s["features"].shape[0] for s in samples], np.int32)
@@ -95,6 +98,21 @@ def collate(samples, bucket=True):
         if "gt_with_background" in samples[0]:
             out["gt_with_background"] = [s["gt_with_background"] for s in samples]
 
+    # narration coverage can be mixed within a batch (the constraint CSVs
+    # are per video): a video without a matrix gets ONES over its real
+    # frames, "every step allowed", i.e. no penalty after the model's
+    # 1 - x inversion, while its batchmates keep their penalties
+    have_cons = [s.get("constraints") is not None for s in samples]
+    if any(have_cons):
+        Kc = next(
+            s["constraints"].shape[1]
+            for s, h in zip(samples, have_cons) if h
+        )
+        cons = np.zeros((B, Tpad, Kc), np.float32)
+        for i, (s, h) in enumerate(zip(samples, have_cons)):
+            cons[i, : lengths[i]] = s["constraints"] if h else 1.0
+        out["constraints"] = cons
+
     return out
 
 
@@ -103,7 +121,10 @@ def iter_batches(datasplit, batch_size, batch_by_task, shuffle, seed=1, bucket=T
     """Yield collated batches from a Datasplit-like object.
 
     The datasplit must expose `videos_by_task` (task -> {name: ...}) and
-    `__getitem__((task, name)) -> sample dict`.
+    `__getitem__((task, name)) -> sample dict`. A datasplit whose
+    `loader_workers` is positive (the command line's --workers, which
+    comes with the CLI slice) loads and collates batches ahead on that
+    many threads, in order (numpy's .npy reads release the GIL).
     """
     length_of = None
     if sort_by_length:
@@ -124,8 +145,28 @@ def iter_batches(datasplit, batch_size, batch_by_task, shuffle, seed=1, bucket=T
         datasplit.videos_by_task, batch_size, batch_by_task, shuffle, seed,
         length_of=length_of,
     )
-    for keys in keys_batches:
+
+    def load(keys):
         samples = [datasplit[key] for key in keys]
         samples = [s for s in samples if s is not None]
-        if samples:
-            yield collate(samples, bucket=bucket)
+        return collate(samples, bucket=bucket) if samples else None
+
+    workers = getattr(datasplit, "loader_workers", 0)
+    if not workers or workers <= 0:
+        for keys in keys_batches:
+            batch = load(keys)
+            if batch is not None:
+                yield batch
+        return
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        pending = deque()
+        it = iter(keys_batches)
+        for keys in itertools.islice(it, 2 * workers):
+            pending.append(pool.submit(load, keys))
+        while pending:
+            batch = pending.popleft().result()
+            keys = next(it, None)
+            if keys is not None:
+                pending.append(pool.submit(load, keys))
+            if batch is not None:
+                yield batch

@@ -1,28 +1,30 @@
 """Hidden semi-Markov segmentation model, PyTorch.
 
-Twin of ``action_segmentation_tpu/models/semimarkov.py`` for the decode
-and training slices:
+Twin of ``action_segmentation_tpu/models/semimarkov.py`` for the decode,
+training and exact-spans slices:
 
 * ``GaussianHsmm`` is an ``nn.Module`` holding the Poisson log-rates,
   Gaussian means, tied diagonal covariance (a frozen buffer) and the
   transition/init logits; it builds batched ``HsmmPotentials`` for a
-  set of valid classes, and fits itself in closed form;
-* ``SemiMarkovModel`` batches a datasplit, fits it (closed form,
-  gradient-based supervised, generative or discriminative, closed form
-  then gradient, or unsupervised by the marginal likelihood) and decodes
-  it, streaming batches to the device with every label tensor kept there
-  until one stacked copy at the end.
+  set of valid classes, with the canonical-order start and transition
+  masks and the background merge map as device-side gathers and masks,
+  and fits itself in closed form;
+* ``SemiMarkovModel`` batches a datasplit (narration penalties and
+  per-video end masks included), fits it (closed form, gradient-based
+  supervised, generative or discriminative, closed form then gradient,
+  or unsupervised by the marginal likelihood) and decodes it, streaming
+  batches to the device with every label tensor kept there until one
+  stacked copy at the end.
 
-On the card, decode goes through the decode kernels of
-``ops/hsmm_cuda.py`` and training's partition through the kernel
-forward/backward of ``ops/hsmm_grad.py``; a model with more classes than
-the kernels take raises there. On the CPU the same chains run as the
-kernels' plain versions for C <= 128 and, above that, the traceback
-``hsmm_viterbi`` and autograd of ``hsmm_partition`` (``kernel_path``).
-Transition and end constraints, narration, class merging, flows, the
-compound model, the resident corpus, data parallelism, checkpoints and
-profiling raise ``NotImplementedError``: they come with later slices
-(ROADMAP.md §1).
+The chains follow ``hsmm_cuda.kernel_path``. Decode takes the labels
+kernels (K2-max and K3) for a model of <= 128 classes and the exact-spans
+kernels (K6 and its traceback) above, on both devices (plain versions on
+the CPU). Training's partition runs the kernel forward/backward of
+``ops/hsmm_grad.py`` on the card; on the CPU, autograd of
+``hsmm_partition`` above 128 classes. On the card only a DP wider than
+128 classes raises. Flows, the compound model, the resident corpus, data
+parallelism, checkpoints and profiling raise ``NotImplementedError``:
+they come with later slices (ROADMAP.md §1).
 """
 
 import itertools
@@ -52,11 +54,11 @@ from action_segmentation_torch.ops.hsmm import (
     HsmmPotentials,
     hsmm_gold_score,
     hsmm_partition,
-    hsmm_viterbi,
 )
 from action_segmentation_torch.ops.hsmm_cuda import (
     MAX_CLASSES,
     hsmm_viterbi_labels,
+    hsmm_viterbi_spans,
     kernel_path,
 )
 from action_segmentation_torch.ops.hsmm_grad import hsmm_partition_fast
@@ -70,8 +72,6 @@ _LATER = "is not ported yet; it comes with a later slice (ROADMAP.md §1)"
 # flags of the JAX package's SemiMarkovModel whose paths are not ported;
 # from_args refuses them rather than decode something else
 _UNPORTED_FLAGS = (
-    "sm_constrain_transitions",
-    "sm_constrain_with_narration",
     "sm_component_model",
     "sm_feature_projection",
     "sm_init_non_projection_parameters_from",
@@ -90,15 +90,32 @@ def upload(x, device):
     return t.to(device)
 
 
+def _constraint_buffers(n_classes, allowed_starts, allowed_transitions, allowed_ends):
+    """Boolean disallowed-masks from allowed sets (semimarkov_modules.py:169-193)."""
+    if allowed_starts is None:
+        return None, None, None
+    init_dis = np.ones(n_classes, bool)
+    init_dis[sorted(allowed_starts)] = False
+    trans_dis = np.ones((n_classes, n_classes), bool)
+    for src, targets in allowed_transitions.items():
+        for tgt in targets:
+            trans_dis[tgt, src] = False
+    return init_dis, trans_dis, allowed_ends
+
+
 class GaussianHsmm(nn.Module):
     """Gaussian-emission HSMM parameterization.
 
     Parameters carry the JAX package's ``GaussianHsmm.params`` names, so
     a params dict from either side loads into the other
-    (``bridge.gaussian_hsmm_params_from_numpy``)."""
+    (``bridge.gaussian_hsmm_params_from_numpy``). The constraint masks
+    and the merge map are corpus structure, not weights: non-persistent
+    buffers, rebuilt from the datasplit by ``SemiMarkovModel.from_args``
+    and absent from the state dict."""
 
     def __init__(self, args, n_classes, n_dims, allow_self_transitions=False,
-                 seed=0, device=None):
+                 allowed_starts=None, allowed_transitions=None, allowed_ends=None,
+                 merge_classes=None, seed=0, device=None):
         super().__init__()
         device = resolve_device(device)
         self.args = args
@@ -109,6 +126,21 @@ class GaussianHsmm(nn.Module):
         self.max_k = (
             1 if getattr(args, "sm_hidden_markov", False) else args.sm_max_span_length
         )
+        init_dis, trans_dis, self.allowed_ends = _constraint_buffers(
+            n_classes, allowed_starts, allowed_transitions, allowed_ends
+        )
+        merge_map = None
+        if merge_classes is not None:
+            merge_map = np.arange(n_classes)
+            for src, sink in merge_classes.items():
+                merge_map[src] = sink
+
+        def buffer(x):
+            return None if x is None else torch.as_tensor(x, device=device)
+
+        self.register_buffer("init_dis", buffer(init_dis), persistent=False)
+        self.register_buffer("trans_dis", buffer(trans_dis), persistent=False)
+        self.register_buffer("merge_map", buffer(merge_map), persistent=False)
         gen = torch.Generator().manual_seed(int(seed))
         f32 = dict(dtype=torch.float32, device=device)
         self.poisson_log_rates = nn.Parameter(torch.zeros(n_classes, **f32))
@@ -139,15 +171,22 @@ class GaussianHsmm(nn.Module):
         B = features.shape[0]
         pad = vc < 0
         vcs = vc.clamp(min=0)
-        init = initial_log_probs(self.init_logits[vcs], pad)
+        mvc = vcs if self.merge_map is None else self.merge_map[vcs]
+        init_mask = pad
+        if self.init_dis is not None:
+            init_mask = init_mask | self.init_dis[vcs]
+        init = initial_log_probs(self.init_logits[vcs], init_mask)
+        trans_mask = pad[:, None] | pad[None, :]
+        if self.trans_dis is not None:
+            trans_mask = trans_mask | self.trans_dis[vcs][:, vcs]
         trans = transition_log_probs(
             self.transition_logits[vcs][:, vcs],
-            pad[:, None] | pad[None, :],
+            trans_mask,
             self.allow_self_transitions,
         )
-        lens = poisson_length_log_probs(self.poisson_log_rates[vcs], self.max_k)
+        lens = poisson_length_log_probs(self.poisson_log_rates[mvc], self.max_k)
         emit = gaussian_emission_log_probs(
-            features, self.gaussian_means[vcs], self.gaussian_cov
+            features, self.gaussian_means[mvc], self.gaussian_cov
         )
         return HsmmPotentials(
             trans=trans.expand((B,) + trans.shape),
@@ -169,10 +208,21 @@ class GaussianHsmm(nn.Module):
 
     @torch.no_grad()
     def fit_supervised(self, feature_list, label_list):
-        """Smoothed closed-form MLE from span and Gaussian moments."""
+        """Smoothed closed-form MLE from span and Gaussian moments. With
+        merged classes the durations and Gaussians come from the merged
+        labels, the start and transition counts from the unmerged ones."""
+        if self.trans_dis is not None or self.init_dis is not None:
+            raise NotImplementedError("closed-form fit with constrained transitions")
         stats = semimarkov_sufficient_stats(
             feature_list, label_list, n_classes=self.n_classes, max_k=self.max_k
         )
+        stats_merged = stats
+        if self.merge_map is not None:
+            merge_map = self.merge_map.cpu().numpy()
+            stats_merged = semimarkov_sufficient_stats(
+                feature_list, [merge_map[np.asarray(lab)] for lab in label_list],
+                n_classes=self.n_classes, max_k=self.max_k,
+            )
         ss = self.args.sm_supervised_state_smoothing
         ls = self.args.sm_supervised_length_smoothing
 
@@ -183,15 +233,17 @@ class GaussianHsmm(nn.Module):
         smoothed = stats["span_transition_counts"] + ss
         trans_probs = smoothed / smoothed.sum(axis=0)[None, :]
         trans_probs[np.isnan(trans_probs)] = 0
-        mean_lengths = (stats["span_lengths"] + ls) / (stats["span_counts"] + ls)
+        mean_lengths = (stats_merged["span_lengths"] + ls) / (
+            stats_merged["span_counts"] + ls
+        )
         with np.errstate(divide="ignore"):
             values = {
                 "init_logits": np.log(init_probs),
                 "transition_logits": np.log(trans_probs),
                 "poisson_log_rates": np.log(mean_lengths),
             }
-        values["gaussian_means"] = stats["gaussian_means"]
-        values["gaussian_cov"] = stats["gaussian_cov"]
+        values["gaussian_means"] = stats_merged["gaussian_means"]
+        values["gaussian_cov"] = stats_merged["gaussian_cov"]
         for name, value in values.items():
             getattr(self, name).copy_(torch.as_tensor(value, dtype=torch.float32))
 
@@ -215,6 +267,14 @@ class SemiMarkovModel(Model):
             choices=["closed-form", "gradient-based", "closed-then-gradient"],
             default="closed-form",
         )
+        parser.add_argument("--sm_constrain_transitions", action="store_true")
+        parser.add_argument(
+            "--sm_constrain_with_narration",
+            choices=["train", "test"],
+            nargs="*",
+            default=[],
+        )
+        parser.add_argument("--sm_constrain_narration_weight", type=float, default=-1e4)
         parser.add_argument("--sm_train_discriminatively", action="store_true")
         parser.add_argument(
             "--sm_hidden_markov",
@@ -228,35 +288,65 @@ class SemiMarkovModel(Model):
         for flag in _UNPORTED_FLAGS:
             if getattr(args, flag, None):
                 raise NotImplementedError("--{} {}".format(flag, _LATER))
+        assert args.sm_max_span_length is not None
+        n_classes = train_data.corpus.n_classes
+        ordered_indices_by_task = None
+        allowed_starts = allowed_transitions = allowed_ends = None
+        if getattr(args, "sm_constrain_transitions", False):
+            (allowed_starts, allowed_transitions, allowed_ends,
+             ordered_indices_by_task) = train_data.get_allowed_starts_and_transitions()
+            for src in range(n_classes):  # self-transitions are allowed
+                allowed_transitions.setdefault(src, set()).add(src)
+
+        merge_classes = None
         if getattr(args, "annotate_background_with_previous", False) and not getattr(
             args, "no_merge_classes", False
         ):
-            raise NotImplementedError("merging background classes " + _LATER)
-        assert args.sm_max_span_length is not None
-        n_classes = train_data.corpus.n_classes
+            # every background of a task shares its first background's
+            # durations and Gaussian
+            corpus = train_data.corpus
+            merge_classes = {}
+            for indices in corpus._indices_by_task.values():
+                bkg = [ix for ix in indices if ix in corpus._background_indices]
+                for ix in indices:
+                    sink = bkg[0] if ix in bkg else ix
+                    assert merge_classes.get(ix, sink) == sink
+                    merge_classes[ix] = sink
+
         module = GaussianHsmm(
             args,
             n_classes,
             train_data.feature_dim,
             allow_self_transitions=True,
+            allowed_starts=allowed_starts,
+            allowed_transitions=allowed_transitions,
+            allowed_ends=allowed_ends,
+            merge_classes=merge_classes,
             seed=getattr(args, "seed", 0) or 0,
             device=device,
         )
-        return SemiMarkovModel(args, n_classes, train_data.feature_dim, module, device)
+        return SemiMarkovModel(args, n_classes, train_data.feature_dim, module, device,
+                               ordered_indices_by_task)
 
-    def __init__(self, args, n_classes, feature_dim, module, device=None):
+    def __init__(self, args, n_classes, feature_dim, module, device=None,
+                 ordered_indices_by_task=None):
         self.args = args
         self.n_classes = n_classes
         self.feature_dim = feature_dim
         self.module = module
         self.device = resolve_device(device)
+        self.ordered_indices_by_task = ordered_indices_by_task
 
     # ----- host-side batch preparation -----
 
-    def _batch_device_args(self, batch):
+    def _batch_device_args(self, batch, datasplit=None, use_narration=False):
         """Shared valid classes and dense per-batch numpy arrays
         (vc, inv_map, cons, end_allowed), class-bucket padded; inv_map
-        maps a global class id to its column among the valid classes."""
+        maps a global class id to its column among the valid classes.
+        cons carries the narration penalties when `use_narration` and the
+        batch has constraints; end_allowed each video's end mask when the
+        model has allowed ends."""
+        tasks = batch["task_name"]
         assert all_equal(
             tuple(ti.tolist()) for ti in batch["task_indices"]
         ), "batch must share valid_classes"
@@ -265,8 +355,15 @@ class SemiMarkovModel(Model):
         B, T = batch["features"].shape[:2]
         inv_map = np.zeros(self.n_classes, np.int64)
         inv_map[vc] = np.arange(C_sub)
-        cons = np.zeros((B, T, C_sub), np.float32)
+        if use_narration and "constraints" in batch:
+            cons = self._expand_constraints(datasplit, tasks[0], vc, batch["constraints"])
+            cons = (cons * self.args.sm_constrain_narration_weight).astype(np.float32)
+        else:
+            cons = np.zeros((B, T, C_sub), np.float32)
         end_allowed = np.zeros((B, C_sub), np.float32)
+        if self.module.allowed_ends is not None:
+            for i in range(B):
+                end_allowed[i] = self._end_mask_row(vc, tasks[i], batch["lengths"][i])
 
         # class-count bucketing: pad the valid-class set with -1
         # sentinels (masked to BIG_NEG in compute_potentials), exactly as
@@ -282,6 +379,43 @@ class SemiMarkovModel(Model):
                 end_allowed, ((0, 0), (0, extra)), constant_values=BIG_NEG
             )
         return vc, inv_map, cons, end_allowed
+
+    def _expand_constraints(self, datasplit, task, vc, constraints):
+        """(B, T, K_steps) narration 0/1 -> (B, T, C_sub) penalties of
+        (1 - constraint) at each step's column (semimarkov.py:149-157)."""
+        vc_list = list(vc)
+        step_indices = datasplit.get_ordered_indices_no_background()[task]
+        B, T, Ks = constraints.shape
+        assert Ks == len(step_indices), (Ks, len(step_indices))
+        expanded = np.zeros((B, T, len(vc_list)), np.float32)
+        for index, label in enumerate(step_indices):
+            expanded[:, :, vc_list.index(label)] = 1.0 - constraints[:, :, index]
+        return expanded
+
+    def _end_mask_row(self, vc, task, length):
+        """The 0/BIG_NEG end-mask row of one video over valid classes `vc`:
+        the allowed ends plus the mid-canonical-order end of a video
+        shorter than its step sequence. Shared by batching and
+        ``Segmenter``."""
+        addl = self._make_additional_allowed_ends([task], [length])[0]
+        allowed = set(self.module.allowed_ends) | set(addl)
+        mask = np.array([ix in allowed for ix in vc])
+        assert mask.any(), "no allowed end classes for instance"
+        return np.where(mask, 0.0, BIG_NEG).astype(np.float32)
+
+    def _make_additional_allowed_ends(self, tasks, lengths):
+        """Allow ending mid-canonical-order for videos shorter than the
+        step sequence (semimarkov.py:135-147)."""
+        if self.ordered_indices_by_task is None:
+            return [[] for _ in tasks]
+        addl = []
+        for task, length in zip(tasks, lengths):
+            ord_indices = self.ordered_indices_by_task[task]
+            if int(length) < len(ord_indices):
+                addl.append([ord_indices[int(length) - 1]])
+            else:
+                addl.append([])
+        return addl
 
     def _pad_batch_rows(self, features, lengths, gt, cons, end_allowed):
         """Pad the batch to --batch_size rows (weight-0, length-1 dummies)
@@ -312,10 +446,11 @@ class SemiMarkovModel(Model):
         Launches work and returns without waiting for it."""
         lengths = lengths.long().clamp(min=1)
         pots = self.module.compute_potentials(features, vc, cons, end_allowed)
-        if kernel_path(self.n_classes, features.device):
+        path = kernel_path(self.n_classes, pots.emit.shape[-1], features.device)
+        if path.decode == "labels":
             labels_sub, scores = hsmm_viterbi_labels(pots, lengths)
         else:
-            spans_sub, scores = hsmm_viterbi(pots, lengths)
+            spans_sub, scores = hsmm_viterbi_spans(pots, lengths)
             t = torch.arange(features.shape[1], device=features.device)[None, :]
             labels_sub = torch.where(t < lengths[:, None], spans_to_labels(spans_sub), -1)
         labels = torch.where(labels_sub >= 0, vc[labels_sub.clamp(min=0)], -1)
@@ -339,10 +474,8 @@ class SemiMarkovModel(Model):
             return (x * weights).sum() / denom
 
         pots = self.module.compute_potentials(features, vc, cons, end_allowed)
-        partition = (
-            hsmm_partition_fast if kernel_path(self.n_classes, features.device)
-            else hsmm_partition
-        )
+        path = kernel_path(self.n_classes, pots.emit.shape[-1], features.device)
+        partition = hsmm_partition_fast if path.partition == "kernels" else hsmm_partition
         if use_labels:
             spans = labels_to_spans(inv_map[gt], self.module.max_k)
             gold = hsmm_gold_score(pots, lengths, spans)
@@ -357,10 +490,12 @@ class SemiMarkovModel(Model):
         zero = torch.zeros((), dtype=nll.dtype, device=nll.device)
         return nll, {"nll": nll.detach(), "kl": zero, "log_det": zero}
 
-    def _training_batch(self, batch):
+    def _training_batch(self, batch, datasplit=None, use_narration=False):
         """One collated batch as padded tensors on the device: (features,
         lengths, vc, inv_map, gt, cons, end_allowed, weights)."""
-        vc, inv_map, cons, end_allowed = self._batch_device_args(batch)
+        vc, inv_map, cons, end_allowed = self._batch_device_args(
+            batch, datasplit, use_narration
+        )
         gt = batch.get("gt_single", np.zeros(batch["features"].shape[:2], np.int64))
         features, lengths, gt, cons, end_allowed, weights = self._pad_batch_rows(
             batch["features"], batch["lengths"], gt, cons, end_allowed
@@ -385,6 +520,7 @@ class SemiMarkovModel(Model):
     # ----- public API -----
 
     def fit_supervised(self, train_data):
+        assert not getattr(self.args, "sm_constrain_transitions", False)
         features, labels = [], []
         for batch in iter_batches(
             train_data, batch_size=1, batch_by_task=False, shuffle=False, bucket=False
@@ -410,6 +546,9 @@ class SemiMarkovModel(Model):
         for flag in _UNPORTED_FIT_FLAGS:
             if getattr(args, flag, None):
                 raise NotImplementedError("--{} {}".format(flag, _LATER))
+        if use_labels:
+            assert not getattr(args, "sm_constrain_transitions", False)
+        use_narration = "train" in getattr(args, "sm_constrain_with_narration", [])
         method = args.sm_supervised_method
         if use_labels and method in ("closed-form", "closed-then-gradient"):
             self.fit_supervised(train_data)
@@ -444,7 +583,10 @@ class SemiMarkovModel(Model):
                 B = len(batch["lengths"])
                 num_videos += B
                 num_frames += int(batch["lengths"].sum())
-                loss, aux = self._loss(*self._training_batch(batch), use_labels=use_labels)
+                loss, aux = self._loss(
+                    *self._training_batch(batch, train_data, use_narration),
+                    use_labels=use_labels,
+                )
                 loss.backward()
                 stats = fold_stats(stats, loss.detach(), aux, float(B))
                 losses.append(loss.detach())
@@ -507,6 +649,7 @@ class SemiMarkovModel(Model):
         }
 
     def predict(self, test_data):
+        use_narration = "test" in getattr(self.args, "sm_constrain_with_narration", [])
         drain = DeferredLabelDrain()
         for batch in iter_batches(
             test_data,
@@ -515,7 +658,9 @@ class SemiMarkovModel(Model):
             shuffle=False,
             sort_by_length=True,
         ):
-            vc, _, cons, end_allowed = self._batch_device_args(batch)
+            vc, _, cons, end_allowed = self._batch_device_args(
+                batch, test_data, use_narration
+            )
             B = len(batch["lengths"])
             # fixed-B decode shapes; padded rows are dropped by the drain
             features, lengths, _, cons, end_allowed, _ = self._pad_batch_rows(

@@ -1,7 +1,7 @@
 """The banded semi-Markov DP's hand-written CUDA kernels and their chains.
 
-Twin of ``action_segmentation_tpu/ops/hsmm_pallas.py``. Five kernels, from
-three sources:
+Twin of ``action_segmentation_tpu/ops/hsmm_pallas.py``. Seven kernels,
+from four sources:
 
   * ``hsmm_gamma_scan`` (csrc/hsmm_scan.cu, max semiring) — the forward
     scan over the forward model and the time-reversed model stacked on
@@ -16,22 +16,35 @@ three sources:
     max-marginals; decode;
   * ``hsmm_band_grad`` (csrc/band_grad.cu) — the log-semiring band sweep
     that turns them into the span posteriors' start, stop and duration
-    masses; the training backward (ops/hsmm_grad.py).
+    masses; the training backward (ops/hsmm_grad.py);
+  * ``hsmm_viterbi_scan`` (csrc/hsmm_viterbi.cu) — the max scan that
+    writes packed backpointer codes, and ``hsmm_viterbi_traceback``
+    (the same source), which walks them into spans on the card; the
+    exact-spans decode.
 
 Each wrapper takes its kernel's plain PyTorch version (``_gamma_scan_plain``
-and its log forms, ``_band_max_plain``, ``_band_grad_plain``) only for
-tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
-``launches`` on each wrapper counts the kernel launches, so a run can show
-that its path went through them.
+and its log forms, ``_band_max_plain``, ``_band_grad_plain``,
+``_viterbi_scan_plain``, ``_traceback_plain``) only for tensors on the
+CPU; for a CUDA tensor it launches the kernel or raises. ``launches`` on
+each wrapper counts the kernel launches, so a run can show that its path
+went through them.
 
-In the max semiring the "marginal" of a span is the score of the best
-path through it; the best path's spans attain the global best, so
-labels[t] = argmax_c (best span score covering t with class c). No
-traceback, so decode cost does not grow with the segment count.
+Decode has two chains, chosen as the JAX package's ``_decode_core``
+chooses, by the model's class count (``kernel_path``):
+
+  * the labels chain (``hsmm_viterbi_labels``, <= 128 classes). In the
+    max semiring the "marginal" of a span is the score of the best path
+    through it; the best path's spans attain the global best, so
+    labels[t] = argmax_c (best span score covering t with class c). No
+    traceback, so decode cost does not grow with the segment count;
+  * the spans chain (``hsmm_viterbi_spans``, above 128 classes, where
+    each task's DP stays narrow): the backpointer scan, the finals, and
+    the traceback.
 """
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -42,6 +55,7 @@ from action_segmentation_torch.ops.hsmm import (
     _clamped,
     _durations,
     _emission_cumsum,
+    _finals,
     reverse_within_length,
 )
 
@@ -55,36 +69,50 @@ def kernels_supported(n_classes):
     return n_classes <= MAX_CLASSES
 
 
-def kernel_path(n_classes, device):
-    """Whether a model-level call on `device` takes the kernel chain.
+class KernelPath(NamedTuple):
+    """The chains a model-level call takes."""
 
-    CUDA tensors always do: a class count the kernels do not take raises
-    there, and no plain version runs on the card. CPU tensors take the
-    chain (as the kernels' plain versions) for C <= 128 and, like the JAX
-    package's lane gate (pallas_supported), the traceback ``hsmm_viterbi``
-    and autograd of ``hsmm_partition`` above it."""
-    if device.type != "cuda":
-        return kernels_supported(n_classes)
-    if not kernels_supported(n_classes):
+    decode: str  # "labels" (K2-max + K3) or "spans" (K6 + traceback)
+    partition: str  # "kernels" (HsmmPartitionFB) or "autograd" (of hsmm_partition)
+
+
+def kernel_path(n_classes, width, device):
+    """The chains a model-level call on `device` takes, for a model of
+    `n_classes` classes whose DP is `width` classes wide (the padded
+    valid-class count, ``pots.emit.shape[-1]``).
+
+    Decode chooses by the model's class count on both devices, as JAX's
+    ``_decode_core``: the labels chain at <= 128 classes, the spans chain
+    above. The partition runs its kernel forward/backward on the card;
+    on the CPU it keeps the JAX package's lane gate (the kernels' plain
+    versions at <= 128 classes, autograd of ``hsmm_partition`` above).
+    On the card only a DP wider than the kernels take raises: no plain
+    version runs there."""
+    if device.type == "cuda" and not kernels_supported(width):
         raise NotImplementedError(
-            "{} classes on the card: the kernels take at most {}; wider class "
-            "tables are not ported yet (ROADMAP.md §2)".format(n_classes, MAX_CLASSES)
+            "a DP {} classes wide on the card: the kernels take at most {}; "
+            "wider DPs are not ported yet (ROADMAP.md §2)".format(width, MAX_CLASSES)
         )
-    return True
+    narrow_model = kernels_supported(n_classes)
+    return KernelPath(
+        "labels" if narrow_model else "spans",
+        "kernels" if narrow_model or device.type == "cuda" else "autograd",
+    )
 
 
 def _stream_args(t):
     return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_cuda(name, tensors, shapes):
-    """Device, dtype, shape and contiguity checks before a launch."""
+def _check_cuda(name, tensors, shapes, dtypes=None):
+    """Device, dtype (float32 unless `dtypes` says), shape and contiguity
+    checks before a launch."""
     device = tensors[0].device
-    for t, shape in zip(tensors, shapes):
+    for t, shape, dtype in zip(tensors, shapes, dtypes or (torch.float32,) * len(tensors)):
         if t.device != device:
             raise ValueError("{}: tensors on {} and {}".format(name, device, t.device))
-        if t.dtype != torch.float32:
-            raise TypeError("{}: the kernel takes float32, got {}".format(name, t.dtype))
+        if t.dtype != dtype:
+            raise TypeError("{}: the kernel takes {}, got {}".format(name, dtype, t.dtype))
         if tuple(t.shape) != tuple(shape):
             raise ValueError("{}: shape {} != {}".format(name, tuple(t.shape), shape))
         if not t.is_contiguous():
@@ -181,9 +209,9 @@ def _forward_scan_plain(trans, init, dur, emit):
     return _gamma_scan_plain(trans, init, dur, emit, True, "log")[1]
 
 
-def _launch_scan(name, symbol, trans, init, dur, emit, outputs):
-    """Checks, then one launch of csrc/hsmm_scan.cu's `symbol` (one block
-    per chain) writing `outputs` (tensors, or None where not stored)."""
+def _launch_scan(name, symbol, trans, init, dur, emit, outputs, lib="hsmm_scan"):
+    """Checks, then one launch of csrc/<lib>.cu's `symbol` (one block per
+    chain) writing `outputs` (tensors, or None where not stored)."""
     N, T, C = emit.shape
     Km = dur.shape[1]
     if not kernels_supported(C):
@@ -193,8 +221,7 @@ def _launch_scan(name, symbol, trans, init, dur, emit, outputs):
     _check_cuda(
         name, (emit, trans, init, dur), ((N, T, C), (N, C, C), (N, C), (N, Km, C))
     )
-    err = _call("hsmm_scan", symbol, [trans, init, dur, emit, *outputs],
-                [N, T, C, Km], emit)
+    err = _call(lib, symbol, [trans, init, dur, emit, *outputs], [N, T, C, Km], emit)
     _raise_on_error(name, err)
 
 
@@ -459,3 +486,144 @@ def hsmm_viterbi_labels_plain(pots: HsmmPotentials, lengths):
     device and dtype (float64 included): the yardstick the kernels are
     held against."""
     return _viterbi_labels(pots, lengths, _gamma_scan_plain, _band_max_plain)
+
+
+# ---- (d) exact spans: the backpointer scan and the traceback ---------------
+
+# the class radix of a backpointer code, bp = bp_d * CODE_RADIX + bp_c
+# (JAX's LANES); C <= 128 keeps bp_c below it
+CODE_RADIX = 128
+
+
+def _viterbi_scan_plain(trans, init, dur, emit):
+    """Plain PyTorch version of the backpointer scan (any device, any
+    float dtype).
+
+    trans (N, C, C) [to, from]; init (N, C); dur (N, Km, C), row j
+    scoring duration j+1; emit (N, T, C). Returns (alphas (N, T, C), bp
+    (N, T, C) int32): alphas[:, t] is the best score of frames [0, t]
+    whose last span ends at t, bp[:, t, c] = bp_d * 128 + bp_c with bp_d
+    the argmax duration row of that span and bp_c the argmax previous
+    class at boundary t + 1 given next class c. First maxima (argmax), the
+    kernel's float operations in its order.
+    """
+    N, T, C = emit.shape
+    Km = dur.shape[1]
+    W = torch.full((N, Km, C), BIG_NEG, dtype=emit.dtype, device=emit.device)
+    W[:, 0] = init
+    cum = torch.zeros((N, C), dtype=emit.dtype, device=emit.device)
+    alphas, codes = [], []
+    for t in range(T):
+        cum = cum + emit[:, t]
+        span = W + dur
+        alpha = span.amax(dim=1) + cum
+        arrivals = trans + alpha[:, None, :]
+        gamma = arrivals.amax(dim=2)
+        codes.append(span.argmax(dim=1) * CODE_RADIX + arrivals.argmax(dim=2))
+        W = torch.cat([(gamma - cum)[:, None], W[:, :-1]], dim=1)
+        alphas.append(alpha)
+    if not T:
+        return emit.new_empty((N, 0, C)), torch.empty((N, 0, C), dtype=torch.int32,
+                                                       device=emit.device)
+    return torch.stack(alphas, dim=1), torch.stack(codes, dim=1).to(torch.int32)
+
+
+def _traceback_plain(bp, lengths, c_last):
+    """Plain PyTorch version of the traceback (any device): spans (N, T)
+    int64, the class at each span start and -1 elsewhere.
+
+    Walks every video at once, as JAX's vmapped while-loop: from
+    (t = length, c = c_last), d = bp_d + 1 at (t - 1, c), s = t - d,
+    spans[s] = c, and for s > 0 the previous class is bp_c at (s - 1, c).
+    A start before frame 0 (only on an impossible, BIG_NEG path) wraps
+    like a negative index and ends that video's walk."""
+    N, T, _ = bp.shape
+    device = bp.device
+    spans = torch.full((N, T), -1, dtype=torch.long, device=device)
+    rows = torch.arange(N, device=device)
+    codes = bp.long()
+    t, c = lengths.long().clone(), c_last.long().clone()
+    while bool((t > 0).any()):
+        active = t > 0
+        d = codes[rows, (t - 1).clamp(min=0), c] // CODE_RADIX + 1
+        s = t - d
+        w = torch.where(s >= 0, s, s + T)
+        write = active & (w >= 0)
+        spans[rows[write], w[write]] = c[write]
+        c_prev = codes[rows, (s - 1).clamp(min=0), c] % CODE_RADIX
+        c = torch.where(active & (s > 0), c_prev, c)
+        t = torch.where(active, s, t)
+    return spans
+
+
+def hsmm_viterbi_scan(trans, init, dur, emit):
+    """The backpointer scan: (alphas (N, T, C), bp (N, T, C) int32); see
+    ``_viterbi_scan_plain`` for the function.
+
+    On CUDA tensors (float32, contiguous, C <= 128) it launches
+    csrc/hsmm_viterbi.cu, one block per video; on CPU tensors it runs the
+    plain version."""
+    if _device_type(emit) == "cpu":
+        return _viterbi_scan_plain(trans, init, dur, emit)
+    alphas = torch.empty_like(emit)
+    bp = torch.empty(emit.shape, dtype=torch.int32, device=emit.device)
+    _launch_scan("hsmm_viterbi_scan", "hsmm_viterbi_scan", trans, init, dur, emit,
+                 [alphas, bp], lib="hsmm_viterbi")
+    hsmm_viterbi_scan.launches += 1
+    return alphas, bp
+
+
+hsmm_viterbi_scan.launches = 0
+
+
+def hsmm_viterbi_traceback(bp, lengths, c_last):
+    """Spans (N, T) int64 from the scan's codes; see ``_traceback_plain``.
+
+    bp (N, T, C) int32; lengths (N,) int64 in [1, T]; c_last (N,) int64.
+    On CUDA tensors (contiguous, C <= 128) it launches csrc/hsmm_viterbi.cu,
+    one block per video walking its codes on the card; on CPU tensors it
+    runs the plain version."""
+    if _device_type(bp) == "cpu":
+        return _traceback_plain(bp, lengths, c_last)
+    N, T, C = bp.shape
+    if not kernels_supported(C):
+        raise ValueError("hsmm_viterbi_traceback: C={} > {}".format(C, MAX_CLASSES))
+    _check_cuda("hsmm_viterbi_traceback", (bp, lengths, c_last), ((N, T, C), (N,), (N,)),
+                (torch.int32, torch.int64, torch.int64))
+    spans = torch.empty((N, T), dtype=torch.long, device=bp.device)
+    err = _call("hsmm_viterbi", "hsmm_viterbi_traceback", [bp, lengths, c_last, spans],
+                [N, T, C], bp)
+    _raise_on_error("hsmm_viterbi_traceback", err)
+    hsmm_viterbi_traceback.launches += 1
+    return spans
+
+
+hsmm_viterbi_traceback.launches = 0
+
+
+def _viterbi_spans(pots: HsmmPotentials, lengths, scan, traceback):
+    lengths = _clamped(lengths, pots.emit.device)
+    alphas, bp = scan(
+        pots.trans.contiguous(), pots.init.contiguous(),
+        _durations(pots.lens).contiguous(), pots.emit.contiguous(),
+    )
+    # the finals stay outside the kernels, as in JAX
+    fin = _finals(alphas, lengths, pots.end_mask)
+    spans = traceback(bp, lengths, fin.argmax(dim=-1))  # first maximum
+    return spans, fin.amax(dim=-1)
+
+
+def hsmm_viterbi_spans(pots: HsmmPotentials, lengths):
+    """Exact Viterbi spans: (spans (B, T) int64, the class at each span
+    start and -1 on continuations and past each length; scores (B,)).
+    The contract of ``ops.hsmm.hsmm_viterbi`` and JAX's
+    ``hsmm_viterbi_pallas``. Both kernels on CUDA tensors, their plain
+    versions on CPU tensors. Requires C <= 128."""
+    return _viterbi_spans(pots, lengths, hsmm_viterbi_scan, hsmm_viterbi_traceback)
+
+
+def hsmm_viterbi_spans_plain(pots: HsmmPotentials, lengths):
+    """``hsmm_viterbi_spans`` through the plain versions only, on any
+    device and dtype (float64 included): the yardstick the kernels are
+    held against."""
+    return _viterbi_spans(pots, lengths, _viterbi_scan_plain, _traceback_plain)

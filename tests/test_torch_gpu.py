@@ -8,7 +8,8 @@ imports neither JAX nor the JAX package, so it runs where JAX is absent:
 (``--noconftest`` because tests/conftest.py sets up JAX). Kernel and plain
 version do the same float32 operations in the same order, so they are
 held to the JAX package's score tolerance (rtol 1e-5 / atol 1e-4,
-tests/test_hsmm_pallas.py) and labels must be equal. The partition's
+tests/test_hsmm_pallas.py) and labels, backpointer codes and spans must
+be equal. The partition's
 gradients are held to the JAX package's gradient tolerance (rtol 2e-3 /
 atol 2e-4, tests/test_hsmm_grad.py).
 """
@@ -243,3 +244,90 @@ def test_wide_class_tables_raise_on_the_card(cuda):
                     torch.ones(1, device=cuda), use_labels=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Segmenter(model).segment_with_marginals(np.zeros((T, D), np.float32))
+
+
+# the exact-spans kernels: K = 2 is the model's K = 1 table
+VITERBI_SHAPES = [(3, 50, 5, 4), (18, 1024, 19, 20), (4, 300, 128, 20), (5, 200, 19, 2)]
+
+
+@pytest.mark.parametrize("B,T,C,K", VITERBI_SHAPES)
+def test_viterbi_kernels_match_plain(cuda, B, T, C, K):
+    """K6's scan (alphas, codes) and the traceback against their plain
+    versions on the same inputs, and the whole spans chain."""
+    pots, lengths = random_pots(np.random.RandomState(11 * B + T), B, T, C, K, cuda)
+    L = lengths.long()
+    scan_in = (pots.trans.contiguous(), pots.init.contiguous(),
+               th._durations(pots.lens).contiguous(), pots.emit.contiguous())
+    before = (hc.hsmm_viterbi_scan.launches, hc.hsmm_viterbi_traceback.launches)
+    alphas, bp = hc.hsmm_viterbi_scan(*scan_in)
+    want_alphas, want_bp = hc._viterbi_scan_plain(*scan_in)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(alphas, want_alphas, rtol=RTOL, atol=ATOL)
+    assert torch.equal(bp, want_bp)
+    c_last = th._finals(alphas, L, pots.end_mask).argmax(dim=-1)
+    spans = hc.hsmm_viterbi_traceback(bp, L, c_last)
+    assert (hc.hsmm_viterbi_scan.launches, hc.hsmm_viterbi_traceback.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(spans, hc._traceback_plain(bp, L, c_last))
+    got, got_scores = hc.hsmm_viterbi_spans(pots, lengths)
+    want, want_scores = hc.hsmm_viterbi_spans_plain(pots, lengths)
+    torch.testing.assert_close(got_scores, want_scores, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, want)
+
+
+def test_viterbi_kernels_reject_what_they_do_not_take(cuda):
+    pots, lengths = random_pots(np.random.RandomState(2), 2, 16, 5, 4, cuda)
+    scan_in = (pots.trans.contiguous(), pots.init.contiguous(),
+               th._durations(pots.lens).contiguous(), pots.emit.contiguous())
+    with pytest.raises(TypeError):
+        hc.hsmm_viterbi_scan(*scan_in[:3], scan_in[3].double())
+    with pytest.raises(ValueError):
+        hc.hsmm_viterbi_scan(scan_in[0].cpu(), *scan_in[1:])
+    _, bp = hc.hsmm_viterbi_scan(*scan_in)
+    L, c = lengths.long(), torch.zeros(2, dtype=torch.long, device=cuda)
+    with pytest.raises(TypeError):
+        hc.hsmm_viterbi_traceback(bp, L.int(), c)
+    with pytest.raises(ValueError):
+        hc.hsmm_viterbi_traceback(bp, L[:1].contiguous(), c)
+    with pytest.raises(ValueError):
+        hc.hsmm_viterbi_traceback(torch.zeros((2, 4, 129), dtype=torch.int32, device=cuda),
+                                  L, c)
+
+
+def test_wide_model_with_a_narrow_task_runs_on_the_card(cuda):
+    """A 342-class model (18 CrossTask tasks of 19 classes) whose batch is
+    one task, 20 classes wide after the class bucket: decode takes the
+    exact-spans kernels, and the unsupervised loss the training kernels,
+    with no NotImplementedError."""
+    from argparse import Namespace
+
+    from action_segmentation_torch.models.semimarkov import GaussianHsmm, SemiMarkovModel
+
+    C, D, T, B = 342, 6, 96, 3
+    args = Namespace(sm_max_span_length=10)
+    model = SemiMarkovModel(args, C, D, GaussianHsmm(args, C, D, device=cuda), cuda)
+    with torch.no_grad():
+        model.module.gaussian_means.normal_(generator=torch.Generator(cuda).manual_seed(0))
+    vc = torch.cat([torch.arange(19, 38, device=cuda), torch.full((1,), -1, device=cuda)])
+    feats = torch.randn((B, T, D), generator=torch.Generator(cuda).manual_seed(1),
+                        device=cuda)
+    lengths = torch.tensor([T, 50, 1], device=cuda)
+    cons, ends = torch.zeros((B, T, 20), device=cuda), torch.zeros((B, 20), device=cuda)
+    ends[:, -1] = -1e9
+    kernels = (hc.hsmm_viterbi_scan, hc.hsmm_viterbi_traceback, hc.hsmm_gamma_scan,
+               hc.hsmm_band_max, hc.hsmm_log_scan, hc.hsmm_band_grad)
+    before = [k.launches for k in kernels]
+    labels, scores = model._decode(feats, lengths, vc, cons, ends)
+    with torch.no_grad():
+        pots = model.module.compute_potentials(feats, vc, cons, ends)
+    spans, want_scores = hc.hsmm_viterbi_spans_plain(pots, lengths)
+    torch.testing.assert_close(scores, want_scores, rtol=RTOL, atol=ATOL)
+    real = labels[labels >= 0]
+    assert ((real >= 19) & (real < 38)).all()
+    assert (labels[2, 1:] == -1).all() and (labels[1, 50:] == -1).all()
+    loss, _ = model._loss(feats, lengths, vc, None, None, cons, ends,
+                          torch.ones(B, device=cuda), use_labels=False)
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 0, 0, 1, 1]

@@ -64,7 +64,11 @@ def test_port_file_imports_no_jax(path):
 def test_port_has_files():
     # the scan above must see the whole package, not an empty glob
     names = {p.name for p in PORT_FILES}
-    assert {"hsmm_cuda.py", "hsmm_grad.py", "semimarkov.py", "api.py", "chip_smoke.py"} <= names
+    assert {"hsmm_cuda.py", "hsmm_grad.py", "semimarkov.py", "api.py", "chip_smoke.py",
+            "corpus.py", "crosstask.py", "breakfast.py", "minigen.py", "features.py",
+            "batching.py", "f1.py", "main.py"} <= names
+    sources = {p.name for p in (ROOT / "action_segmentation_torch" / "csrc").glob("*.cu")}
+    assert {"hsmm_scan.cu", "band_max.cu", "band_grad.cu", "hsmm_viterbi.cu"} <= sources
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -113,11 +117,16 @@ def test_kernel_gate_and_other_devices():
 
 
 def test_kernel_path_chooses_by_device():
-    """CUDA tensors always take the kernel chain, and a class count the
-    kernels do not take raises there; only CPU tensors fall back to the
-    plain traceback and autograd paths above C = 128."""
+    """Decode chooses its chain by the model's class count on both devices
+    (the labels kernels at <= 128 classes, the exact-spans kernels above);
+    on the card every call runs kernels and only a DP WIDER than 128
+    raises. The 342-class CrossTask model, whose tasks are 20 wide, takes
+    the spans chain and the partition's kernels on the card."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
-    assert kernel_path(MAX_CLASSES, cpu) and not kernel_path(MAX_CLASSES + 1, cpu)
-    assert kernel_path(MAX_CLASSES, cuda)
+    assert kernel_path(MAX_CLASSES, MAX_CLASSES, cpu) == ("labels", "kernels")
+    assert kernel_path(MAX_CLASSES + 1, MAX_CLASSES + 1, cpu) == ("spans", "autograd")
+    assert kernel_path(342, 20, cpu) == ("spans", "autograd")
+    assert kernel_path(MAX_CLASSES, MAX_CLASSES, cuda) == ("labels", "kernels")
+    assert kernel_path(342, 20, cuda) == ("spans", "kernels")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernel_path(MAX_CLASSES + 1, cuda)
+        kernel_path(MAX_CLASSES + 1, MAX_CLASSES + 1, cuda)

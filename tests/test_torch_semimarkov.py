@@ -180,8 +180,9 @@ def test_class_shape_bucket_parity():
 
 
 def test_unported_paths_raise():
-    """Data parallelism, checkpoints and resume, profiling, the
-    constraint flags and the component model raise until their slices."""
+    """Data parallelism, checkpoints and resume, profiling, the flow and
+    the component model raise until their slices. (The constraint and
+    merge flags are ported: tests/test_torch_constrained.py.)"""
     train, _ = splits(TSplit, n_train=4)
     for flag, value in (("data_parallel", True), ("checkpoint_dir", "ckpt"),
                         ("resume", True), ("profile_dir", "trace")):
@@ -190,13 +191,12 @@ def test_unported_paths_raise():
         for use_labels in (True, False):
             with pytest.raises(NotImplementedError, match="slice"):
                 model.fit(train, use_labels=use_labels)
-    for flag in ("sm_constrain_transitions", "sm_component_model", "sm_feature_projection",
-                 "annotate_background_with_previous"):
+    for flag in ("sm_component_model", "sm_feature_projection"):
         with pytest.raises(NotImplementedError, match="slice"):
             TModel.from_args(make_sm_args(**{flag: True}), train, device="cpu")
     with pytest.raises(NotImplementedError, match="slice"):
-        TModel.from_args(make_sm_args(sm_constrain_with_narration=["test"]), train,
-                         device="cpu")
+        TModel.from_args(make_sm_args(sm_init_non_projection_parameters_from="m.pkl"),
+                         train, device="cpu")
 
 
 def test_initial_params_and_moment_init_match_jax():
