@@ -1,10 +1,11 @@
 """PyTorch/CUDA port of the action-segmentation framework.
 
 A PyTorch twin of ``action_segmentation_tpu`` for one NVIDIA H100:
-hidden semi-Markov models over pre-extracted video frame features. The
-decode path (potentials -> Viterbi frame labels) runs through two CUDA
-kernels written by hand for Hopper (``csrc/``); everything around them
-is plain PyTorch.
+hidden semi-Markov models over pre-extracted video frame features.
+Decode (potentials -> Viterbi frame labels or exact spans) and the
+training forward/backward run through seven CUDA kernels written by hand
+for Hopper, from four sources and one scan template (``csrc/``);
+everything around them is plain PyTorch.
 
 Layout (each file has one twin in the JAX package):
   ops/         span codec, semi-Markov DP (plain torch + CUDA kernels),

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with
 a plain C interface, loaded with ``ctypes``. The library lands in the
 package's ``build/`` directory under a name keyed on a hash of the
-source and the compiler flags, so the first use after a change rebuilds
-it and later uses load it. Nothing builds at import time.
+source, every shared header (``csrc/*.cuh``) and the compiler flags, so
+the first use after a change to any of them rebuilds it and later uses
+load it. Nothing builds at import time.
 """
 
 import ctypes
@@ -41,9 +42,13 @@ def _nvcc():
 
 
 def library_path(name):
-    """Content-keyed path of the built library for csrc/<name>.cu."""
-    src = CSRC / "{}.cu".format(name)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Content-keyed path of the built library for csrc/<name>.cu: the
+    key covers the source, every csrc/*.cuh header (by name and bytes,
+    whether or not this source includes it) and the flags."""
+    digest = hashlib.sha256((CSRC / "{}.cu".format(name)).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / "lib{}-{}.so".format(name, digest.hexdigest()[:16])
 
 

@@ -22,6 +22,10 @@ from four sources:
     (the same source), which walks them into spans on the card; the
     exact-spans decode.
 
+The three scans (both gamma scans and the backpointer scan) are
+instances of one template, csrc/hsmm_scan_core.cuh, compiled for buckets
+of C and Km; ``scan_instance`` picks the instance a shape launches.
+
 Each wrapper takes its kernel's plain PyTorch version (``_gamma_scan_plain``
 and its log forms, ``_band_max_plain``, ``_band_grad_plain``,
 ``_viterbi_scan_plain``, ``_traceback_plain``) only for tensors on the
@@ -59,9 +63,56 @@ from action_segmentation_torch.ops.hsmm import (
     reverse_within_length,
 )
 
-# The kernels put one class per thread of a block and the transposed
-# transition table in shared memory, so they take C <= 128 classes.
+# The kernels put one class per thread of a block (in the scans at most
+# four warps a chain), so they take C <= 128 classes.
 MAX_CLASSES = 128
+
+# The scans' instances: csrc/hsmm_scan_core.cuh's template is compiled for
+# warps per chain by C, one warp's trans row in ROW_BUCKETS registers, and
+# the carry's newest SCAN_CARRY rows in registers with (Km > SCAN_CARRY)
+# or without a shared-memory tail for the older rows. ``scan_instance``
+# picks one and the launch passes it on. SCAN_WINDOW is the emission
+# window's slot count.
+SCAN_WINDOW = 16
+SCAN_CARRY = 24
+ROW_BUCKETS = (24, 32)
+# an H100 block's limits: threads, and dynamic shared memory once opted in
+MAX_BLOCK_THREADS = 1024
+MAX_BLOCK_SMEM = 232448
+
+
+class ScanInstance(NamedTuple):
+    """The scan kernel instance a (C, Km) launches."""
+
+    warps: int  # per chain (one block)
+    row: int  # one warp: its trans row's register bucket; else 0
+    # Km > SCAN_CARRY: the carry's older rows in a shared-memory tail, their
+    # duration scores staged in shared memory (1) or, where that would not
+    # fit a block, read from global memory (2); else 0
+    tail: int
+    threads: int
+    smem_bytes: int
+
+
+def scan_instance(C, Km):
+    """The instance of the scan template (K1, K2 max and log, K6) that C
+    classes and Km duration rows launch, and its dynamic shared memory
+    (the kernel's layout): one warp at C <= 32, its trans row in 24 or 32
+    registers and alpha exchanged through two shared rows of 32; two warps
+    at <= 64 and four at <= 128, with trans and alpha in shared memory.
+    Every instance holds the carry's newest 24 rows in registers and
+    stages the emissions in a shared window; the rows past 24 take a
+    shared-memory ring, beside their duration scores where both fit."""
+    warps = 1 if C <= 32 else 2 if C <= 64 else 4
+    row = next(b for b in ROW_BUCKETS if C <= b) if warps == 1 else 0
+    floats = 2 * 32 if row else C * C + 2 * C  # alpha rows; or trans and alpha
+    floats += SCAN_WINDOW * 32 * warps
+    tail = 0
+    if Km > SCAN_CARRY:
+        floats += (Km - SCAN_CARRY) * C  # the ring
+        tail = 1 if 4 * (floats + (Km - SCAN_CARRY) * C) <= MAX_BLOCK_SMEM else 2
+        floats += (Km - SCAN_CARRY) * C if tail == 1 else 0  # the staged durations
+    return ScanInstance(warps, row, tail, 32 * warps, 4 * floats)
 
 
 def kernels_supported(n_classes):
@@ -211,17 +262,23 @@ def _forward_scan_plain(trans, init, dur, emit):
 
 def _launch_scan(name, symbol, trans, init, dur, emit, outputs, lib="hsmm_scan"):
     """Checks, then one launch of csrc/<lib>.cu's `symbol` (one block per
-    chain) writing `outputs` (tensors, or None where not stored)."""
+    chain, the instance ``scan_instance(C, Km)`` picks) writing `outputs`
+    (tensors, or None where not stored)."""
     N, T, C = emit.shape
     Km = dur.shape[1]
     if not kernels_supported(C):
         raise ValueError("{}: C={} > {}".format(name, C, MAX_CLASSES))
-    if Km < 1:  # the carry's ring buffer needs a row (see _durations)
+    if Km < 1:  # the carry needs a row (see _durations)
         raise ValueError("{}: dur needs at least one row".format(name))
+    inst = scan_instance(C, Km)
+    if inst.smem_bytes > MAX_BLOCK_SMEM:
+        raise ValueError("{}: Km={} at C={} overflows the shared-memory carry".format(
+            name, Km, C))
     _check_cuda(
         name, (emit, trans, init, dur), ((N, T, C), (N, C, C), (N, C), (N, Km, C))
     )
-    err = _call(lib, symbol, [trans, init, dur, emit, *outputs], [N, T, C, Km], emit)
+    err = _call(lib, symbol, [trans, init, dur, emit, *outputs],
+                [N, T, C, Km, inst.warps, inst.row, inst.tail, inst.smem_bytes], emit)
     _raise_on_error(name, err)
 
 

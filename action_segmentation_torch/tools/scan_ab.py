@@ -1,0 +1,330 @@
+"""Time the port's scan kernels against an earlier version of their sources
+on one card, in turns, with the SM clock read while they run.
+
+The earlier sources are a directory holding ``hsmm_scan.cu`` and
+``hsmm_viterbi.cu`` (and any header they include) whose scan entry points
+take (pointers, N, T, C, Km, device, stream): the interface before the
+launch took the wrapper's instance. For example a commit's files from
+``git show <commit>:action_segmentation_torch/csrc/<file>``, written into
+a directory that .gitignore lists. Run from the repository root on a
+machine with a CUDA card:
+
+    python3 -m action_segmentation_torch.tools.scan_ab --old_csrc OLD_DIR [--out ab.json]
+
+Both versions build with the port's nvcc flags. For each shape and scan
+(the max gamma scan, the log scan with alphas, the forward-only log scan,
+the backpointer scan) it checks that the two versions' outputs are equal,
+then times them with CUDA events in the order old, new, new, old, each
+window about `--window_ms` long, and prints ms and us per step. The
+shapes are chip_smoke.py's kernel cases, two warps a chain (C=33) and
+the shared-memory tail's (Km past the carry's 24 register rows). It also times the max gamma scan and the
+backpointer scan at one common chain count (18 and 36 chains).
+
+A thread reads the SM clock through NVML every 5 ms; each result lists
+the readings taken inside its timed windows, old and new apart. Prints the
+card's name and power limit first.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from action_segmentation_torch.ops import _build
+from action_segmentation_torch.ops import hsmm_cuda as hc
+from action_segmentation_torch.ops.distributions import (
+    gaussian_emission_log_probs,
+    initial_log_probs,
+    poisson_length_log_probs,
+    transition_log_probs,
+)
+from action_segmentation_torch.ops.hsmm import HsmmPotentials, _durations
+
+SOURCES = ("hsmm_scan", "hsmm_viterbi")
+D = 300  # feature width of the serving shape
+# (name, B, T, C, K, lengths): K the longest span, Km = K - 1 rows
+SHAPES = [
+    ("serving", 18, 1024, 19, 20, None),
+    ("ragged", 18, 1056, 19, 20, "ragged"),
+    ("C=128", 4, 1024, 128, 20, None),
+    ("K=1", 18, 1024, 19, 1, None),
+    ("T=12000", 2, 12000, 19, 20, [12000, 7001]),
+    ("C=33", 8, 1024, 33, 20, None),
+    # the shared-memory tail: one row past the carry's 24 registers, and more
+    ("tail Km=25", 18, 1024, 19, 26, None),
+    ("tail Km=64", 18, 1024, 19, 65, None),
+    ("tail Km=100", 18, 1024, 19, 101, None),
+    ("tail C=33 Km=25", 8, 1024, 33, 26, None),
+    ("tail C=128 Km=100", 4, 1024, 128, 101, None),
+    # a tail whose durations do not fit beside it: read from global memory
+    ("global tail C=1", 2, 64, 1, 28901, None),
+]
+# (scan, symbol, library, outputs: "g" gamma, "a" alphas, "b" codes, "-" none)
+SCANS = [
+    ("max", "hsmm_gamma_scan_max", "hsmm_scan", "g-"),
+    ("log", "hsmm_gamma_scan_log", "hsmm_scan", "ga"),
+    ("forward", "hsmm_forward_scan_log", "hsmm_scan", "a"),
+    ("viterbi", "hsmm_viterbi_scan", "hsmm_viterbi", "ab"),
+]
+
+
+class SmClock:
+    """The card's SM clock in MHz through NVML, read every `period` s on a
+    thread: (perf_counter, MHz) pairs. No readings if NVML does not load."""
+
+    def __init__(self, index=0, period=0.005):
+        self.samples, self.period = [], period
+        self._stop = threading.Event()
+        try:
+            nvml = ctypes.CDLL("libnvidia-ml.so.1")
+            handle = ctypes.c_void_p()
+            if nvml.nvmlInit_v2() or nvml.nvmlDeviceGetHandleByIndex_v2(
+                    index, ctypes.byref(handle)):
+                raise OSError("NVML did not start")
+            self._read = lambda out: nvml.nvmlDeviceGetClockInfo(handle, 1, ctypes.byref(out))
+        except OSError as e:
+            print("scan_ab: SM clock not read ({})".format(e), flush=True)
+            self._read = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        mhz = ctypes.c_uint()
+        while not self._stop.wait(self.period):
+            if self._read(mhz) == 0:  # NVML_CLOCK_SM
+                self.samples.append((time.perf_counter(), mhz.value))
+
+    def __enter__(self):
+        if self._read is not None:
+            self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout=5)
+
+    def within(self, windows):
+        return [m for t, m in self.samples if any(a <= t <= b for a, b in windows)]
+
+
+def clock_summary(mhz):
+    if not mhz:
+        return {"n": 0}
+    return {"n": len(mhz), "min": min(mhz), "median": statistics.median(mhz), "max": max(mhz)}
+
+
+def build_old(csrc, out_dir):
+    """nvcc of each earlier source, all at once, with the port's flags."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in SOURCES:
+        so = out_dir / "lib{}.so".format(name)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(csrc / (name + ".cu"))]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed for the earlier {}:\n{}".format(name, out))
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
+
+
+def bind(lib, symbol, n_ptr, n_int):
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (n_int + 1) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def potentials(rng, B, T, C, K, lengths, device):
+    """Potentials as the port's Gaussian HSMM makes them at D=300 (random
+    features, means, covariance, transition, initial and length
+    parameters), emissions zeroed past each length."""
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)  # noqa: E731
+    feats, means = rng.randn(B, T, D), rng.randn(C, D)
+    cov = np.abs(rng.randn(D).astype(np.float32)) + 0.5
+    trans_logits, init_logits = rng.randn(C, C), rng.randn(C)
+    log_rates = rng.randn(C).astype(np.float32) * 0.3 + 1.5
+    emit = gaussian_emission_log_probs(t(feats), t(means), t(cov))
+    L = torch.from_numpy(lengths).to(device)
+    emit = emit * (torch.arange(T, device=device)[None, :, None] < L[:, None, None])
+    lens = poisson_length_log_probs(t(log_rates), K)
+    pots = HsmmPotentials(
+        trans=transition_log_probs(t(trans_logits)).expand(B, C, C),
+        init=initial_log_probs(t(init_logits)).expand(B, C),
+        lens=lens.expand((B,) + lens.shape),
+        emit=emit.contiguous(),
+        end_mask=torch.zeros(B, C, device=device),
+    )
+    return pots, L
+
+
+def scan_inputs(B, T, C, K, lengths, rng, device):
+    """(the forward and reversed chains stacked, as decode and training
+    give the gamma scans; the forward chains, as the spans chain gives
+    the backpointer scan)."""
+    if lengths == "ragged":
+        lengths = rng.randint(1, T - 31, size=B)
+        lengths[[0, 5]] = 1
+        lengths[1] = T - 32
+    elif lengths is None:
+        lengths = np.full(B, T)
+    pots, L = potentials(rng, B, T, C, K, np.asarray(lengths, np.int64), device)
+    stacked = hc._stack_fwd_rev(pots, L.clamp(min=1))
+    forward = (pots.trans.contiguous(), pots.init.contiguous(),
+               _durations(pots.lens).contiguous(), pots.emit.contiguous())
+    return stacked, forward
+
+
+def launcher(fn, outs, inputs, new):
+    """One launch of `fn` on `inputs`; the new interface also takes the
+    instance ``scan_instance`` picks."""
+    trans, init, dur, emit = inputs
+    N, T, C = emit.shape
+    Km = dur.shape[1]
+    ints = [N, T, C, Km]
+    if new:
+        inst = hc.scan_instance(C, Km)
+        ints += [inst.warps, inst.row, inst.tail, inst.smem_bytes]
+    device, stream = emit.device.index, torch.cuda.current_stream().cuda_stream
+    ptrs = [x.data_ptr() for x in inputs] + [None if o is None else o.data_ptr() for o in outs]
+
+    def run():
+        err = fn(*ptrs, *ints, device, stream)
+        if err:
+            raise RuntimeError("launch failed with CUDA error {}".format(err))
+    return run
+
+
+def outputs_for(kind, emit):
+    outs = []
+    for k in kind:
+        if k == "b":
+            outs.append(torch.empty(emit.shape, dtype=torch.int32, device=emit.device))
+        elif k == "-":
+            outs.append(None)
+        else:
+            outs.append(torch.empty_like(emit))
+    return outs
+
+
+def event_ms(run, n):
+    """Mean ms of `n` launches and the host window that holds them."""
+    run()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, (t0, time.perf_counter())
+
+
+def compare(fns, kind, inputs, window_ms, clock):
+    """Equal outputs, then ms in the order old, new, new, old, and the SM
+    clock readings inside each version's timed windows."""
+    outs = {v: outputs_for(kind, inputs[3]) for v in fns}
+    runs = {v: launcher(fns[v], outs[v], inputs, v == "new") for v in fns}
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+    for a, b in zip(outs["old"], outs["new"]):
+        if a is not None and not torch.equal(a, b):
+            raise RuntimeError("old and new outputs differ at {} of {} entries".format(
+                int((a != b).sum()), a.numel()))
+    fastest = min(event_ms(run, 1)[0] for run in runs.values())
+    n = int(min(1000, max(3, window_ms / fastest)))
+    timed = [(v, *event_ms(runs[v], n)) for v in ("old", "new", "new", "old")]
+    r = {"launches": n}
+    for v in ("old", "new"):
+        r[v + "_ms"] = [ms for w, ms, _ in timed if w == v]
+        r[v + "_sm_mhz"] = clock_summary(clock.within([win for w, _, win in timed if w == v]))
+    return r
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--old_csrc", required=True, type=Path)
+    parser.add_argument("--out", type=Path, default=None)
+    parser.add_argument("--window_ms", type=float, default=100.0)
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("scan_ab: no CUDA device is available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    old_libs = build_old(args.old_csrc, args.old_csrc / "build")
+    _build.build(list(SOURCES))
+    new_libs = {name: _build.load_library(name) for name in SOURCES}
+    print("built both versions in {:.1f} s".format(time.perf_counter() - t0), flush=True)
+
+    device = torch.device("cuda")
+    rng = np.random.RandomState(args.seed)
+    results = []
+
+    def record(r, shape, scan, inputs):
+        N, T, C = inputs[3].shape
+        old, new = np.mean(r["old_ms"]), np.mean(r["new_ms"])
+        r.update(shape=shape, scan=scan, chains=N, T=T, C=C, Km=inputs[2].shape[1],
+                 old_us_per_step=1e3 * old / T, new_us_per_step=1e3 * new / T,
+                 speedup=old / new)
+        results.append(r)
+        clk = lambda s: "{}-{} MHz ({} readings)".format(  # noqa: E731
+            s.get("min"), s.get("max"), s["n"])
+        print("{:18s} {:8s} N={:2d} T={:5d} C={:3d} Km={:3d}: old {} ms, new {} ms; "
+              "{:.4f} -> {:.4f} us/step, x{:.2f}; SM clock old {}, new {}".format(
+                  shape, scan, N, T, C, r["Km"],
+                  ["{:.4f}".format(x) for x in r["old_ms"]],
+                  ["{:.4f}".format(x) for x in r["new_ms"]],
+                  r["old_us_per_step"], r["new_us_per_step"], r["speedup"],
+                  clk(r["old_sm_mhz"]), clk(r["new_sm_mhz"])), flush=True)
+
+    with SmClock(device.index or 0) as clock:
+        for shape, B, T, C, K, lengths in SHAPES:
+            stacked, forward = scan_inputs(B, T, C, K, lengths, rng, device)
+            for scan, symbol, lib, kind in SCANS:
+                inputs = stacked if scan in ("max", "log") else forward
+                fns = {"old": bind(old_libs[lib], symbol, 4 + len(kind), 4),
+                       "new": bind(new_libs[lib], symbol, 4 + len(kind), 8)}
+                record(compare(fns, kind, inputs, args.window_ms, clock), shape, scan, inputs)
+            if shape != "serving":
+                continue
+            # the max gamma scan and the backpointer scan at one chain count
+            for N in (B, 2 * B):
+                for scan, symbol, lib, kind, base in (
+                        ("max", "hsmm_gamma_scan_max", "hsmm_scan", "g-", stacked),
+                        ("viterbi", "hsmm_viterbi_scan", "hsmm_viterbi", "ab", forward)):
+                    inputs = tuple(torch.cat([x, x])[:N].contiguous() for x in base)
+                    fns = {"old": bind(old_libs[lib], symbol, 4 + len(kind), 4),
+                           "new": bind(new_libs[lib], symbol, 4 + len(kind), 8)}
+                    record(compare(fns, kind, inputs, args.window_ms, clock),
+                           "common chain count", scan, inputs)
+    out = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+           "results": results}
+    if args.out is not None:
+        os.makedirs(args.out.parent, exist_ok=True)
+        args.out.write_text(json.dumps(out, indent=1))
+    print(json.dumps({"scan_ab": [{k: r[k] for k in ("shape", "scan", "chains", "Km",
+                                                     "old_us_per_step", "new_us_per_step")}
+                                  for r in results]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,232 @@
+"""The serial floor of the port's scan kernels: per step, the longest chain
+of dependent instructions that one step of the time loop hands to the
+next, worked out from the compiled code.
+
+A scan's T steps run one after another, so no kernel of this design can
+take less than T x that chain. The script reads the SASS of the built
+scan libraries (`cuobjdump -sass`), takes one instance's time loop (the
+innermost loop that waits on the emission window, `DEPBAR`), and builds
+the loop's dependence graph over registers and predicates (a guarded
+write also reads its old value; a shared-memory load depends on the
+step's earlier shared store). The chain is the loop's largest cycle mean
+over the values it carries from one step to the next, with the assumed
+latencies of LATENCY. Beside it, the issue floor: one warp issues at most
+one instruction a cycle, and a MUFU takes its quarter of the SM's 16
+special-function units for 8 cycles a warp.
+
+The latencies are assumptions for Hopper, not measurements (no profiler
+reads them on the card's machine): fixed-latency integer and float
+arithmetic 4 cycles, MUFU 20, shared and constant loads 30, a shared load
+behind a shared store 4 more. Cycles turn into time at the card's
+largest SM clock (`nvidia-smi --query-gpu=clocks.max.sm`), so the floor is
+a lower bound.
+
+Run from the repository root on a machine with the CUDA toolkit:
+
+    python3 -m action_segmentation_torch.tools.scan_floor [--C 19] [--Km 19] [--T 1024] [--sass-dir DIR]
+
+With `--sass-dir`, DIR holds `hsmm_scan.sass` and `hsmm_viterbi.sass`
+(cuobjdump's output) and nothing is built. Prints one line per serving
+instance and a JSON object last.
+"""
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+from action_segmentation_torch.ops import _build
+from action_segmentation_torch.ops.hsmm_cuda import scan_instance
+
+# assumed latencies in cycles, by opcode (the part before the first dot)
+LATENCY = {"MUFU": 20, "LDS": 30, "LDC": 30, "ULDC": 30, "S2R": 20, "S2UR": 20,
+           "SHFL": 30, "LDG": 500, "BRA": 0, "DEPBAR": 0, "LDGDEPBAR": 0, "NOP": 0,
+           "WARPSYNC": 0, "BAR": 0}
+DEFAULT_LATENCY = 4
+STORE_TO_LOAD = 4  # a shared load after the step's shared store
+MUFU_ISSUE = 8  # cycles a warp's MUFU holds its quarter's 4 units
+NO_DEST = {"STS", "STG", "ST", "STL", "RED", "LDGSTS", "BRA", "EXIT", "DEPBAR",
+           "LDGDEPBAR", "BAR", "NOP", "WARPSYNC", "BSYNC", "BSSY", "MEMBAR", "YIELD",
+           "CCTL", "ERRBAR"}
+SEMIRINGS = {"max": ("hsmm_scan", 0), "log": ("hsmm_scan", 1), "argmax": ("hsmm_viterbi", 2)}
+
+LINE = re.compile(r"/\*([0-9a-f]+)\*/\s+(@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+REG = re.compile(r"(?<![\w.])(UR\d+|R\d+|UP\d|P\d)(\.64|\.128)?(?![\w])")
+
+
+def parse_function(sass, mangled_prefix):
+    """[(address, guard, opcode, operands)] of the function whose mangled
+    name starts with `mangled_prefix`."""
+    out, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = line.split("Function :")[1].strip().startswith(mangled_prefix)
+            continue
+        if not inside:
+            continue
+        m = LINE.search(line)
+        if m:
+            ops = [o.strip() for o in m.group(4).split(",")] if m.group(4).strip() else []
+            out.append((int(m.group(1), 16), (m.group(2) or "").strip(), m.group(3), ops))
+    return out
+
+
+def time_loop(insts):
+    """The innermost backward branch whose body holds the window's DEPBAR."""
+    best = None
+    for i, (addr, _, op, ops) in enumerate(insts):
+        if op != "BRA" or not ops:
+            continue
+        target = int(ops[-1], 16) if ops[-1].startswith("0x") else None
+        if target is None or target >= addr:
+            continue
+        start = next(k for k, ins in enumerate(insts) if ins[0] >= target)
+        body = insts[start:i + 1]
+        if any(ins[2].startswith("DEPBAR") for ins in body):
+            if best is None or len(body) < len(best):
+                best = body
+    if best is None:
+        raise ValueError("no time loop found")
+    return best
+
+
+def regs(operand, width_hint=1):
+    names = []
+    for m in REG.finditer(operand):
+        name, width = m.group(1), m.group(2)
+        n = {".64": 2, ".128": 4}.get(width, width_hint)
+        if name.startswith("R") and n > 1:
+            base = int(name[1:])
+            names += ["R{}".format(base + k) for k in range(n)]
+        else:
+            names.append(name)
+    return names
+
+
+def dests_and_sources(guard, op, ops):
+    base = op.split(".")[0]
+    width = 4 if ".128" in op else 2 if (".64" in op or ".WIDE" in op) else 1
+    srcs = regs(guard)
+    dests = []
+    if base in NO_DEST or not ops:
+        for o in ops:
+            srcs += regs(o)
+        return dests, srcs
+    dests = regs(ops[0], width)
+    rest = ops[1:]
+    if rest and re.fullmatch(r"(P\d|PT|UP\d|UPT)", rest[0]):
+        dests += regs(rest[0])
+        rest = rest[1:]
+    for o in rest:
+        srcs += regs(o)
+    if guard:  # a guarded write may keep the old value
+        srcs += dests
+    return dests, srcs
+
+
+def chain_cycles(body):
+    """(largest cycle mean of the loop-carried graph, its carried values)."""
+    insts = [dests_and_sources(g, op, ops) + (op,) for _, g, op, ops in body]
+    written, read_first = set(), set()  # values a step takes from the one before
+    for dests, srcs, _ in insts:
+        read_first |= set(srcs) - written
+        written |= set(dests)
+    carried = sorted(read_first & written)
+    lat = [LATENCY.get(op.split(".")[0], DEFAULT_LATENCY) for _, _, op in insts]
+    edges = {}
+    for a in carried:  # longest path from a's value at the step's start
+        ready = {a: 0.0}
+        last_store = None
+        for i, (dests, srcs, op) in enumerate(insts):
+            t = max((ready[s] for s in srcs if s in ready), default=None)
+            if op.startswith("LDS") and last_store is not None:
+                t = last_store if t is None else max(t, last_store)
+            if t is None:
+                for d in dests:
+                    ready.pop(d, None)
+                continue
+            done = t + lat[i]
+            if op.startswith("STS"):
+                last_store = t + STORE_TO_LOAD
+            for d in dests:
+                ready[d] = done
+        for b in carried:
+            if b in ready:
+                edges[(a, b)] = ready[b]
+    # Karp's largest cycle mean
+    nodes = carried
+    n = len(nodes)
+    neg = float("-inf")
+    D = [{v: 0.0 for v in nodes}]
+    for k in range(1, n + 1):
+        Dk = {v: neg for v in nodes}
+        for (a, b), w in edges.items():
+            if D[k - 1][a] > neg and D[k - 1][a] + w > Dk[b]:
+                Dk[b] = D[k - 1][a] + w
+        D.append(Dk)
+    best = neg
+    for v in nodes:
+        if D[n][v] == neg:
+            continue
+        worst = min((D[n][v] - D[k][v]) / (n - k) for k in range(n) if D[k][v] > neg)
+        best = max(best, worst)
+    return best, len(carried)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--C", type=int, default=19)
+    parser.add_argument("--Km", type=int, default=19)
+    parser.add_argument("--T", type=int, default=1024)
+    parser.add_argument("--sass-dir", type=Path, default=None)
+    parser.add_argument("--clock-mhz", type=float, default=None,
+                        help="SM clock for the floor in time (default: nvidia-smi's max)")
+    args = parser.parse_args()
+
+    sass = {}
+    for lib in ("hsmm_scan", "hsmm_viterbi"):
+        if args.sass_dir is not None:
+            sass[lib] = (args.sass_dir / (lib + ".sass")).read_text()
+            continue
+        _build.build([lib])
+        sass[lib] = subprocess.run(
+            ["cuobjdump", "-sass", str(_build.library_path(lib))],
+            capture_output=True, text=True, check=True).stdout
+    clock = args.clock_mhz
+    if clock is None:
+        clock = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+
+    inst = scan_instance(args.C, args.Km)
+    results = {}
+    for name, (lib, code) in SEMIRINGS.items():
+        prefix = "_ZN9hsmm_scan11scan_kernelILNS_8SemiringE{}ELi{}ELi{}ELb{}E".format(
+            code, inst.warps, inst.row, inst.tail)
+        body = time_loop(parse_function(sass[lib], prefix))
+        chain, n_carried = chain_cycles(body)
+        issue = sum(1 for ins in body if ins[2] != "NOP")
+        mufu = sum(1 for ins in body if ins[2].startswith("MUFU"))
+        results[name] = {
+            "instance": "scan_kernel<{}, {} warps, row {}, tail {}>".format(
+                name, inst.warps, inst.row, inst.tail),
+            "chain_cycles": chain, "issue_cycles": issue, "mufu": mufu,
+            "mufu_cycles": MUFU_ISSUE * mufu, "carried_values": n_carried,
+            "chain_us_per_step": chain / clock, "issue_us_per_step": issue / clock,
+            "chain_floor_ms": args.T * chain / clock * 1e-3,
+            "issue_floor_ms": args.T * issue / clock * 1e-3,
+        }
+        r = results[name]
+        print("{}: chain {:.0f} cycles a step ({:.4f} us, T={} -> {:.4f} ms); {} instructions "
+              "a step ({:.4f} us -> {:.4f} ms); {} MUFU ({} cycles)".format(
+                  r["instance"], chain, r["chain_us_per_step"], args.T, r["chain_floor_ms"],
+                  issue, r["issue_us_per_step"], r["issue_floor_ms"], mufu, r["mufu_cycles"]))
+    print(json.dumps({"scan_floor": results, "C": args.C, "Km": args.Km, "T": args.T,
+                      "clock_mhz": clock}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -66,6 +66,7 @@ is {"ok": true, "device": {...}}. Imports nothing of JAX.
 import argparse
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -1003,6 +1004,45 @@ def cuda_ms(fn, n, warmup=3):
     return start.elapsed_time(end) / n
 
 
+# the scan template's semirings (csrc/hsmm_scan_core.cuh), in its enum's order
+SCAN_SEMIRINGS = ("max", "log", "argmax")
+
+
+def scan_kernel_name(semiring, warps, row, tail):
+    return "scan_kernel<{}, {} warps, row {}, tail {}>".format(semiring, warps, row, tail)
+
+
+def kernel_name(mangled):
+    """A readable name for an entry function's mangled name: the scan
+    template's instances as scan_kernel<semiring, warps, row, tail>."""
+    m = re.search(r"scan_kernelILNS_8SemiringE(\d)ELi(\d)ELi(\d+)ELb([01])E", mangled)
+    if m:
+        return scan_kernel_name(SCAN_SEMIRINGS[int(m.group(1))], *m.group(2, 3, 4))
+    for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
+        ident = m.group(2)[:int(m.group(1))]
+        if ident.endswith("_kernel"):
+            return ident
+    return mangled
+
+
+def ptxas_entries(log):
+    """(kernel, registers, spill line) for each entry function in an
+    `nvcc -Xptxas -v` log."""
+    entries, fn, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = kernel_name(m.group(1))
+        elif "spill stores" in line:
+            spills = line.strip()
+        else:
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn is not None:
+                entries.append((fn, int(m.group(1)), spills))
+                fn = None
+    return entries
+
+
 def bound(nbytes, ops):
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -1030,6 +1070,7 @@ def main():
         hsmm_log_scan,
         hsmm_viterbi_scan,
         hsmm_viterbi_traceback,
+        scan_instance,
     )
 
     device = torch.device("cuda")
@@ -1050,10 +1091,16 @@ def main():
     t0 = time.perf_counter()
     logs = _build.build(["hsmm_scan", "band_max", "band_grad", "hsmm_viterbi"])
     phase("build", "nvcc sm_90a, {:.1f} s".format(time.perf_counter() - t0))
+    ptxas = {}
     for name, log in logs.items():
-        for line in log.splitlines():
-            if any(w in line for w in ("registers", "spill", "smem")):
-                phase("build", "{}: {}".format(name, line.strip()))
+        for fn, regs, spills in ptxas_entries(log):
+            ptxas[fn] = spills
+            phase("build", "{}: {}: {} registers, {}".format(name, fn, regs, spills))
+    inst = scan_instance(C, K - 1)
+    for semiring in SCAN_SEMIRINGS:  # the serving instance
+        serving = scan_kernel_name(semiring, inst.warps, inst.row, inst.tail)
+        check("0 bytes spill stores, 0 bytes spill loads" in ptxas.get(serving, ""),
+              "{} spills or was not built: {!r}".format(serving, ptxas.get(serving)))
 
     # 3. kernels against their plain versions
     rng = np.random.RandomState(0)
@@ -1154,6 +1201,12 @@ def main():
     # writes the spans; lengths and final classes in
     n_segments = int((hsmm_viterbi_traceback(*tb_in) >= 0).sum())
     tb_bound, tb_by = bound(8 * B * T + 8 * n_segments + 16 * B, 4 * n_segments)
+    # the max gamma scan and the backpointer scan at one common chain count
+    # (decode stacks 2B chains for the gamma scan; the spans chain runs B)
+    gamma_b_in = tuple(x[:B] for x in scan_in)  # the forward chains
+    gamma_b_ms = cuda_ms(lambda: hsmm_gamma_scan(*gamma_b_in), N_TIMED)
+    vit_2b_in = tuple(torch.cat([x, x]) for x in vit_in)
+    vit_2b_ms = cuda_ms(lambda: hsmm_viterbi_scan(*vit_2b_in), N_TIMED)
     kernels = [
         {
             "name": "hsmm_gamma_scan", "route": "cuda",
@@ -1221,6 +1274,16 @@ def main():
     phase("times", "serving shape B={} T={} C={} K={}; {} launches of each kernel; "
           "plain versions of the scans and the traceback 2 launches; library call: none "
           "computes any of these functions".format(B, T, C, K, N_TIMED))
+    phase("times", "us per scan step: gamma max {:.4f}, log {:.4f}, forward {:.4f}, viterbi "
+          "{:.4f}".format(*(1e3 * k["ms_per_step"] for k in kernels if "ms_per_step" in k)))
+    phase("times", "at one chain count, us per step: {} chains gamma max {:.4f}, viterbi {:.4f};"
+          " {} chains gamma max {:.4f}, viterbi {:.4f}".format(
+              B, 1e3 * gamma_b_ms / T, 1e3 * vit_ms / T, 2 * B, 1e3 * gamma_ms / T,
+              1e3 * vit_2b_ms / T))
+    e2e["common_chain_us_per_step"] = {
+        "gamma_max": {str(B): 1e3 * gamma_b_ms / T, str(2 * B): 1e3 * gamma_ms / T},
+        "viterbi": {str(B): 1e3 * vit_ms / T, str(2 * B): 1e3 * vit_2b_ms / T},
+    }
     phase("times", "viterbi scan {:.4f} ms ({:.3f} us per step, bound {:.5f} ms), traceback "
           "{:.4f} ms over {} segments (bound {:.5f} ms); crosstask predict {:.0f} frames/s".format(
               vit_ms, 1e3 * vit_ms / T, v_bound, tb_ms, n_segments, tb_bound,

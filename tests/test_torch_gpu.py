@@ -331,3 +331,116 @@ def test_wide_model_with_a_narrow_task_runs_on_the_card(cuda):
     loss.backward()
     assert torch.isfinite(loss)
     assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 0, 0, 1, 1]
+
+
+# ---- the scan template's instances (csrc/hsmm_scan_core.cuh) ----------------
+# C and Km at every instance boundary: one warp a chain with its trans row
+# in 24 or 32 registers, two and four warps; the carry's 24 register rows,
+# one past them (a one-row shared-memory tail) and longer tails. Kernel
+# and plain version do the same float32 operations in the same order, so
+# every output is held equal.
+
+CLASS_EDGES = (1, 2, 24, 25, 31, 32, 33, 64, 65, 128)
+KM_EDGES = (1, 19, 24, 25, 64, 100)
+
+
+def scan_inputs(rng, N, T, C, Km, device):
+    """(trans, init, dur, emit) at the D=300 emission scale, with some
+    BIG_NEG durations and transitions."""
+    trans = np.log(rng.dirichlet(np.ones(C), size=(N, C)).astype(np.float32))
+    trans[rng.rand(N, C, C) < 0.1] = -1e9
+    init = rng.randn(N, C).astype(np.float32)
+    dur = rng.randn(N, Km, C).astype(np.float32)
+    dur[rng.rand(N, Km, C) < 0.1] = -1e9
+    emit = (rng.randn(N, T, C) * 3 - 400).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                 for x in (trans, init, dur, emit))
+
+
+def assert_scans_equal_plain(scan_in):
+    """The four scan entry points against their plain versions, equal."""
+    gamma, alphas = hc.hsmm_gamma_scan(*scan_in, with_alphas=True)
+    gamma_only, none = hc.hsmm_gamma_scan(*scan_in)
+    log_gamma, log_alphas = hc.hsmm_log_scan(*scan_in)
+    fwd = hc.hsmm_forward_scan(*scan_in)
+    vit_alphas, bp = hc.hsmm_viterbi_scan(*scan_in)
+    want = hc._gamma_scan_plain(*scan_in, with_alphas=True)
+    want_log = hc._log_scan_plain(*scan_in)
+    want_vit = hc._viterbi_scan_plain(*scan_in)
+    torch.cuda.synchronize()
+    assert none is None
+    for name, got, exp in (("gamma", gamma, want[0]), ("alphas", alphas, want[1]),
+                           ("gamma only", gamma_only, want[0]),
+                           ("log gamma", log_gamma, want_log[0]),
+                           ("log alphas", log_alphas, want_log[1]),
+                           ("forward alphas", fwd, want_log[1]),
+                           ("viterbi alphas", vit_alphas, want_vit[0]),
+                           ("codes", bp, want_vit[1])):
+        assert torch.equal(got, exp), "{}: {} of {} differ".format(
+            name, int((got != exp).sum()), got.numel())
+    return bp
+
+
+@pytest.mark.parametrize("C", CLASS_EDGES)
+@pytest.mark.parametrize("Km", KM_EDGES)
+def test_scan_instances_bit_exact_with_plain(cuda, C, Km):
+    scan_in = scan_inputs(np.random.RandomState(131 * C + Km), 3, 40, C, Km, cuda)
+    kernels = (hc.hsmm_gamma_scan, hc.hsmm_log_scan, hc.hsmm_forward_scan,
+               hc.hsmm_viterbi_scan)
+    before = [k.launches for k in kernels]
+    assert_scans_equal_plain(scan_in)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 1, 1, 1]
+
+
+@pytest.mark.parametrize("case,C,Km", [
+    ("ragged", 19, 19), ("ragged", 128, 65), ("end_mask", 19, 19), ("end_mask", 33, 64),
+    ("ragged", 30, 28), ("all_tie", 19, 19), ("all_tie", 25, 25), ("all_tie", 65, 100),
+    ("all_tie", 1, 33), ("short", 19, 19), ("short", 128, 100),
+    ("global_tail", 1, 28900), ("global_tail", 9, 3222),
+])
+def test_scan_instances_edge_cases(cuda, case, C, Km):
+    """Ragged lengths down to 1 and a BIG_NEG end mask (the stacked
+    forward and reversed chains, as decode and training build them), and
+    constant inputs, where every transition term ties and the duration
+    terms tie from the first row: the first maximum is code 0. And three
+    steps, fewer than the emission window stages ahead. And bands so long
+    that the tail reads its durations from global memory."""
+    B, T = 5, 60
+    if case == "global_tail":
+        assert hc.scan_instance(C, Km).tail == 2
+        assert_scans_equal_plain(scan_inputs(np.random.RandomState(C), 2, 30, C, Km, cuda))
+        return
+    if case == "short":
+        assert_scans_equal_plain(scan_inputs(np.random.RandomState(C), B, 3, C, Km, cuda))
+        return
+    if case == "all_tie":
+        zeros = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
+        bp = assert_scans_equal_plain((zeros(B, C, C), zeros(B, C), zeros(B, Km, C),
+                                       zeros(B, T, C)))
+        assert (bp == 0).all()
+        return
+    pots, lengths = random_pots(np.random.RandomState(C + Km), B, T, C, Km + 1, cuda)
+    lengths[1] = 1
+    if case == "end_mask":
+        lengths[:] = T
+        assert (pots.end_mask < -1e8).any()
+    scan_in = hc._stack_fwd_rev(pots, lengths.long())
+    assert_scans_equal_plain(scan_in)
+
+
+def test_scan_launch_refuses_an_instance_too_small(cuda):
+    """The launch takes the instance the wrapper picked; one whose threads
+    or trans row cannot hold the shape, or whose tail does not match Km,
+    is refused, not run."""
+    scan_in = scan_inputs(np.random.RandomState(7), 2, 8, 33, 25, cuda)
+    gamma = torch.empty_like(scan_in[3])
+    inst = hc.scan_instance(33, 25)
+    for warps, row, tail in ((1, 32, 1), (2, 0, 0), (2, 32, 1)):
+        err = hc._call("hsmm_scan", "hsmm_gamma_scan_max", [*scan_in, gamma, None],
+                       [2, 8, 33, 25, warps, row, tail, inst.smem_bytes], gamma)
+        assert err != 0, (warps, row, tail)
+    err = hc._call("hsmm_scan", "hsmm_gamma_scan_max", [*scan_in, gamma, None],
+                   [2, 8, 33, 25, inst.warps, inst.row, inst.tail, inst.smem_bytes], gamma)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(gamma, hc._gamma_scan_plain(*scan_in)[0])
