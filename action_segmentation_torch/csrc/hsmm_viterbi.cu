@@ -26,13 +26,32 @@
 // maximum. Every float operation is the plain version's, so alphas and
 // codes are bit-exact with it.
 //
-// Traceback, per video: every thread fills the spans row with -1, then
-// thread 0 walks from (t = length, c = the best final class): d = bp_d + 1
-// at (t - 1, c), s = t - d, spans[s] = c, and for s > 0 the previous class
-// is bp_c at (s - 1, c). No copy to the host, no per-segment launch.
+// Traceback, per video (one block): the walk from (t = length, c = the
+// best final class) reads d = bp_d + 1 at (t - 1, c), sets s = t - d,
+// spans[s] = c, and for s > 0 takes the previous class bp_c at (s - 1, c)
+// and that class's duration from the same row. The walk only moves back in
+// time, so the block stages the code rows it can still reach, [0, length),
+// in shared memory, in tiles of R rows from the top down (R from
+// ops/hsmm_cuda.py `traceback_tile`). One thread issues a tile's
+// contiguous R * C codes as a 1-D bulk copy (cp.async.bulk, completing on
+// an mbarrier; the at most 3 + 3 words outside its 16-byte-aligned body
+// by plain loads). Then the block's 16 staging warps rewrite each row r
+// in place into the pair the walk needs,
+//   g(r, c) = (c' = bp_c(r, c), d' = bp_d(r, c') + 1),
+// a gather within the row. Warp 0 does nothing but walk, on one lane: in
+// state (u = s - 1, c) it reads g(u, c), stores spans[u + 1 - d'] = c' and
+// moves to (u - d', c'). The first segment reads its code from global
+// memory while tile 0 lands. Two buffers: while the walker runs in one
+// tile, the staging warps fill the other with the tile below; a jump that
+// lands below it costs one round in which the wanted tile is staged and
+// the walker waits. Each hand-off is a named barrier over the block
+// (bar 1); the staging warps meet on their own (bar 2), never with the
+// walker mid-tile. Every thread fills the spans row with -1 first, and
+// the span stores are fire-and-forget.
 //
 // Codes: bp_c < 128 because C <= 128, and bp_d < Km; the code stays in
-// int32 for every Km the shared-memory tail admits.
+// int32 for every Km the shared-memory tail admits. g keeps d' << 9 and
+// c' << 2 (the walker's byte offset) in one int32.
 //
 // What bounds it: like the gamma scans, not bytes (emit in, alphas and
 // codes out: about 4 MB at the serving shape) but the T dependent steps,
@@ -44,13 +63,19 @@
 // keeps the argmax off the step's
 // dependent chain: the index search reads the max but feeds only the
 // code's store. What it adds is instructions to issue (one warp issues
-// at most one a cycle). The traceback is a serial chain of dependent
-// global reads, two per segment: it is latency-bound, one block per
-// video.
+// at most one a cycle). The traceback is a serial chain too, one link a
+// segment: a shared-memory load of g, a shift and a subtract for u, a
+// clamp into the tile and the next address (u * 4C + 4c'). The next load
+// issues before the span's store and the tile check, so that in-order
+// issue keeps their instructions off the chain (behind them it took 123
+// cycles a segment, not 82). So the video with the most segments, times
+// that chain's latency, bounds it, plus staging its first tile
+// (tools/scan_floor.py reads the chain from the SASS: 46 cycles at its
+// assumed latencies).
 //
 // ptxas (-Xptxas -v, sm_90a): the serving instance (one warp, row 24,
-// no tail) takes 133 registers, no spills; chip_smoke.py's build phase
-// prints every instance.
+// no tail) takes 133 registers, the traceback 41, no spills;
+// chip_smoke.py's build phase prints every kernel.
 
 #include "hsmm_scan_core.cuh"
 
@@ -58,32 +83,258 @@ namespace {
 
 constexpr int kLanes = hsmm_scan::kCodeRadix;
 
-__global__ void viterbi_traceback_kernel(const int32_t* __restrict__ bp,
-                                         const int64_t* __restrict__ lengths,
-                                         const int64_t* __restrict__ c_last,
-                                         int64_t* __restrict__ spans, int T,
-                                         int C) {
-  const int b = blockIdx.x;
-  int64_t* row = spans + (size_t)b * T;
-  for (int t = threadIdx.x; t < T; t += blockDim.x) row[t] = -1;
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  const int32_t* plane = bp + (size_t)b * T * C;
-  int t = (int)lengths[b];
-  int c = (int)c_last[b];
-  while (t > 0) {
-    const int d = plane[(size_t)(t - 1) * C + c] / kLanes + 1;
-    const int s = t - d;
-    // a start before frame 0 can only come from an impossible (BIG_NEG)
-    // path; it wraps like the reference's negative index and ends the walk
-    const int w = s >= 0 ? s : s + T;
-    if (w >= 0) row[w] = c;
-    if (s > 0) c = plane[(size_t)(s - 1) * C + c] % kLanes;
-    t = s;
+// the traceback's block: warp 0 walks, kStageWarps warps stage
+constexpr int kStageWarps = 16;
+constexpr int kStageThreads = 32 * kStageWarps;
+constexpr int kTracebackThreads = 32 + kStageThreads;
+// dynamic shared memory: the mbarrier and two hand-off slots, then two
+// tile buffers of buffer_words(R, C) words each
+constexpr int kHeaderBytes = 16;
+// named barriers (0 is __syncthreads)
+constexpr int kHandoff = 1;  // the whole block, between rounds
+constexpr int kStaged = 2;   // the staging warps, once a tile has landed
+
+// a tile of R rows, placed 0-3 words in so that its 16-byte-aligned body
+// lands 16-byte-aligned, in a buffer that keeps the next one aligned
+__host__ __device__ constexpr int buffer_words(int rows, int C) {
+  return (rows * C + 3 + 3) & ~3;
+}
+
+__host__ __device__ constexpr int traceback_smem(int rows, int C) {
+  return kHeaderBytes + 2 * 4 * buffer_words(rows, C);
+}
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ int ld_shared(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("barrier.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbarrier_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_arrive_expect_tx(uint32_t bar,
+                                                          int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
 
-constexpr int kTracebackThreads = 256;
+// a fire-and-forget store of `value` to `p`, skipped unless `ok`: a
+// predicated store with no branch around it
+__device__ __forceinline__ void store_if(int64_t* p, int64_t value, bool ok) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@p st.global.b64 [%0], %1;\n"
+      "}\n" ::"l"(p),
+      "l"(value), "r"((int)ok)
+      : "memory");
+}
+
+// global -> shared, `bytes` a multiple of 16 from 16-byte-aligned
+// addresses, counted against the mbarrier's expected bytes
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// the words a tile of `plane` starting at row `lo` sits in from its buffer
+__device__ __forceinline__ int tile_pad(const int32_t* plane, int lo, int C) {
+  return (int)((reinterpret_cast<uintptr_t>(plane + (size_t)lo * C) >> 2) & 3);
+}
+
+__global__ void __launch_bounds__(kTracebackThreads)
+    viterbi_traceback_kernel(const int32_t* __restrict__ bp,
+                             const int64_t* __restrict__ lengths,
+                             const int64_t* __restrict__ c_last,
+                             int64_t* __restrict__ spans, int T, int C,
+                             int R) {
+  // (not `smem`: the scan template's kernel declares that one as float)
+  extern __shared__ __align__(16) unsigned char tb_smem[];
+  const uint32_t bar = shared_addr(tb_smem);
+  volatile int* need = reinterpret_cast<volatile int*>(tb_smem + 8);
+  int32_t* const buf0 = reinterpret_cast<int32_t*>(tb_smem + kHeaderBytes);
+  const int words = buffer_words(R, C);
+
+  const int b = blockIdx.x;
+  const int32_t* plane = bp + (size_t)b * T * C;
+  int64_t* row = spans + (size_t)b * T;
+  const int length = (int)lengths[b];
+  const int lane = threadIdx.x & 31;
+  const bool walker = threadIdx.x < 32;
+  const int st = threadIdx.x - 32;  // the staging thread's index
+  // tile k holds rows [lo(k), length - k R)
+  auto tile_lo = [&](int k) { return max(0, length - (k + 1) * R); };
+
+  for (int t = threadIdx.x; t < T; t += kTracebackThreads) row[t] = -1;
+  if (st == 0) mbarrier_init(bar);
+  __syncthreads();
+
+  // staging: this lane's entries in a group of whole rows (at most 128
+  // entries, 4 a lane) and their rows' first entries
+  const int per = (kLanes / C) * C;
+  int eq[4], rq[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    eq[q] = lane + 32 * q;
+    rq[q] = eq[q] / C * C;
+  }
+  uint32_t parity = 0;
+  auto stage = [&](int k, int32_t* buf) {
+    const int lo = tile_lo(k);
+    const int n = (length - k * R - lo) * C;
+    const int32_t* src = plane + (size_t)lo * C;
+    const int pad = tile_pad(plane, lo, C);
+    int32_t* tile = buf + pad;
+    const int head = min(n, (4 - pad) & 3);
+    const int body = (n - head) & ~3;
+    if (st == 0) {
+      if (body > 0) {
+        mbarrier_arrive_expect_tx(bar, 4 * body);
+        bulk_copy(shared_addr(tile + head), src + head, 4 * body, bar);
+      } else {
+        mbarrier_arrive(bar);
+      }
+    }
+    if (st < head) tile[st] = src[st];
+    if (st >= 32 && head + body + st - 32 < n)
+      tile[head + body + st - 32] = src[head + body + st - 32];
+    mbarrier_wait(bar, parity);
+    parity ^= 1;
+    named_sync(kStaged, kStageThreads);
+    // g in place, a warp per group of rows: every lane reads its entries
+    // and their gathers before any lane of the warp writes
+    for (int base = (st >> 5) * per; base < n; base += kStageWarps * per) {
+      int g[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int e = base + eq[q];
+        if (eq[q] < per && e < n) {
+          const int cp = tile[e] & (kLanes - 1);
+          const int d = tile[base + rq[q] + cp] / kLanes + 1;
+          g[q] = d << 9 | cp << 2;
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int e = base + eq[q];
+        if (eq[q] < per && e < n) tile[e] = g[q];
+      }
+    }
+    // these generic writes come before the bulk copy that next fills it
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  };
+
+  // the walker's state (lane 0): row u = s - 1 of the segment that starts
+  // at s, its class as a byte offset c4 = 4c; done when u < 0
+  int u = -1, c4 = 0;
+  auto put = [&](int s, int c) {
+    // a start before frame 0 can only come from an impossible (BIG_NEG)
+    // path; it wraps like the reference's negative index and ends the walk
+    const int w = s >= 0 ? s : s + T;
+    store_if(row + w, c, w >= 0);
+  };
+  auto wanted = [&]() { return u < 0 ? -1 : (length - 1 - u) / R; };
+
+  // round 0: tile 0 lands while the walker takes the first segment from
+  // global memory
+  int slot = 0;
+  if (walker) {
+    if (lane == 0) {
+      if (length > 0) {
+        const int c = (int)c_last[b];
+        const int s = length - (plane[(size_t)(length - 1) * C + c] / kLanes + 1);
+        put(s, c);
+        u = s - 1;
+        c4 = 4 * c;
+      }
+      need[slot] = wanted();
+    }
+    __syncwarp();
+  } else if (length > 0) {
+    stage(0, buf0);
+  }
+  named_sync(kHandoff, kTracebackThreads);
+
+  // each round: the walker walks the tile it wants if the last round
+  // staged it, while the staging warps fill the other buffer with the
+  // tile below it (or, if not, with the tile it wants)
+  int staged = 0, sb = 0;
+  for (;;) {
+    const int want = need[slot];
+    slot ^= 1;
+    if (want < 0) break;
+    const bool ready = want == staged;
+    const int next = !ready ? want : tile_lo(want) > 0 ? want + 1 : -1;
+    if (walker) {
+      if (lane == 0) {
+        if (ready) {
+          const int lo = tile_lo(want);
+          const uint32_t rowb = 4 * C;
+          const uint32_t base =
+              shared_addr(buf0 + sb * words + tile_pad(plane, lo, C)) -
+              (uint32_t)lo * rowb;
+          // one link a segment: the next load issues before the span
+          // store and the exit test (in-order issue would otherwise put
+          // their instructions on the chain); past the tile's bottom it
+          // reads row lo, unused
+          int v = ld_shared(base + (uint32_t)u * rowb + c4);
+          for (;;) {
+            u -= v >> 9;
+            c4 = v & (4 * kLanes - 4);
+            v = ld_shared(base + (uint32_t)max(u, lo) * rowb + c4);
+            put(u + 1, c4 >> 2);
+            if (u < lo) break;
+          }
+        }
+        need[slot] = wanted();
+      }
+      __syncwarp();
+    } else if (next >= 0) {
+      stage(next, buf0 + (sb ^ 1) * words);
+    }
+    named_sync(kHandoff, kTracebackThreads);
+    staged = next;
+    sb ^= 1;
+  }
+}
 
 }  // namespace
 
@@ -106,16 +357,29 @@ int hsmm_viterbi_scan(const void* trans, const void* init, const void* dur,
 
 // bp (N, T, C) int32 from hsmm_viterbi_scan; lengths (N,) int64, each in
 // [1, T]; c_last (N,) int64, the best final class; spans (N, T) int64 out:
-// the class at each span start, -1 elsewhere.
+// the class at each span start, -1 elsewhere. rows is the tile's code rows
+// and smem its dynamic shared memory in bytes, as ops/hsmm_cuda.py
+// `traceback_tile` gives them; a launch whose smem cannot hold two tiles
+// of rows is refused.
 int hsmm_viterbi_traceback(const void* bp, const void* lengths,
                            const void* c_last, void* spans, int N, int T,
-                           int C, int device, void* stream) {
+                           int C, int rows, int smem, int device,
+                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (C < 1 || C > kLanes || rows < 1 || smem < traceback_smem(rows, C))
+    return (int)cudaErrorInvalidValue;
   if (N == 0 || T == 0) return 0;
-  viterbi_traceback_kernel<<<N, kTracebackThreads, 0, (cudaStream_t)stream>>>(
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(viterbi_traceback_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  viterbi_traceback_kernel<<<N, kTracebackThreads, smem,
+                             (cudaStream_t)stream>>>(
       (const int32_t*)bp, (const int64_t*)lengths, (const int64_t*)c_last,
-      (int64_t*)spans, T, C);
+      (int64_t*)spans, T, C, rows);
   return (int)cudaGetLastError();
 }
 

@@ -633,15 +633,40 @@ def hsmm_viterbi_scan(trans, init, dur, emit):
 hsmm_viterbi_scan.launches = 0
 
 
-def hsmm_viterbi_traceback(bp, lengths, c_last):
-    """Spans (N, T) int64 from the scan's codes; see ``_traceback_plain``.
+class TracebackTile(NamedTuple):
+    """The traceback's tile: code rows a tile and the launch's dynamic
+    shared memory."""
 
-    bp (N, T, C) int32; lengths (N,) int64 in [1, T]; c_last (N,) int64.
-    On CUDA tensors (contiguous, C <= 128) it launches csrc/hsmm_viterbi.cu,
-    one block per video walking its codes on the card; on CPU tensors it
-    runs the plain version."""
-    if _device_type(bp) == "cpu":
-        return _traceback_plain(bp, lengths, c_last)
+    rows: int
+    smem_bytes: int
+
+
+# the traceback's shared memory: a 16-byte header (the tile's mbarrier and
+# two hand-off slots), then two tile buffers of _tile_words(rows, C)
+TRACEBACK_HEADER = 16
+
+
+def _tile_words(rows, C):
+    # rows * C codes placed up to 3 words in (so that their 16-byte-aligned
+    # body lands aligned), rounded up to 16 bytes
+    return (rows * C + 6) // 4 * 4
+
+
+def traceback_tile(T, C, max_rows=None):
+    """The tile the traceback of a (T, C) code plane launches with: the
+    most rows (at most T, and at most `max_rows` where given) for which
+    two tile buffers fit an H100 block's shared memory, and that memory
+    (the kernel's layout). A video's whole plane is one tile up to 29,049
+    codes (T=1024 at C <= 28); past that the walk goes through tiles of
+    rows from the top down."""
+    words = (MAX_BLOCK_SMEM - TRACEBACK_HEADER) // 8 // 4 * 4
+    rows = max(1, min(T, (words - 3) // C, max_rows or T))
+    return TracebackTile(rows, TRACEBACK_HEADER + 8 * _tile_words(rows, C))
+
+
+def _launch_traceback(bp, lengths, c_last, tile):
+    """Checks, then one launch of csrc/hsmm_viterbi.cu's traceback with
+    `tile`'s rows and shared memory; returns the spans."""
     N, T, C = bp.shape
     if not kernels_supported(C):
         raise ValueError("hsmm_viterbi_traceback: C={} > {}".format(C, MAX_CLASSES))
@@ -649,8 +674,21 @@ def hsmm_viterbi_traceback(bp, lengths, c_last):
                 (torch.int32, torch.int64, torch.int64))
     spans = torch.empty((N, T), dtype=torch.long, device=bp.device)
     err = _call("hsmm_viterbi", "hsmm_viterbi_traceback", [bp, lengths, c_last, spans],
-                [N, T, C], bp)
+                [N, T, C, tile.rows, tile.smem_bytes], bp)
     _raise_on_error("hsmm_viterbi_traceback", err)
+    return spans
+
+
+def hsmm_viterbi_traceback(bp, lengths, c_last):
+    """Spans (N, T) int64 from the scan's codes; see ``_traceback_plain``.
+
+    bp (N, T, C) int32; lengths (N,) int64 in [1, T]; c_last (N,) int64.
+    On CUDA tensors (contiguous, C <= 128) it launches csrc/hsmm_viterbi.cu,
+    one block per video walking its codes in shared memory, in the tiles
+    ``traceback_tile`` sizes; on CPU tensors it runs the plain version."""
+    if _device_type(bp) == "cpu":
+        return _traceback_plain(bp, lengths, c_last)
+    spans = _launch_traceback(bp, lengths, c_last, traceback_tile(*bp.shape[1:]))
     hsmm_viterbi_traceback.launches += 1
     return spans
 

@@ -1,15 +1,17 @@
-"""Time the port's scan kernels against an earlier version of their sources
-on one card, in turns, with the SM clock read while they run.
+"""Time the port's scan kernels and the traceback against an earlier
+version of their sources on one card, in turns, with the SM clock read
+while they run.
 
 The earlier sources are a directory holding ``hsmm_scan.cu`` and
-``hsmm_viterbi.cu`` (and any header they include) whose scan entry points
-take (pointers, N, T, C, Km, device, stream): the interface before the
-launch took the wrapper's instance. For example a commit's files from
-``git show <commit>:action_segmentation_torch/csrc/<file>``, written into
-a directory that .gitignore lists. Run from the repository root on a
+``hsmm_viterbi.cu`` (and any header they include), for example a commit's
+files from ``git show <commit>:action_segmentation_torch/csrc/<file>``,
+written into a directory that .gitignore lists. Their scan entry points
+take the wrapper's instance, as the current ones do; their traceback
+takes (pointers, N, T, C, device, stream), the interface before the
+launch took the wrapper's tile. Run from the repository root on a
 machine with a CUDA card:
 
-    python3 -m action_segmentation_torch.tools.scan_ab --old_csrc OLD_DIR [--out ab.json]
+    python3 -m action_segmentation_torch.tools.scan_ab --old_csrc OLD_DIR [--kernels all|scans|traceback] [--out ab.json]
 
 Both versions build with the port's nvcc flags. For each shape and scan
 (the max gamma scan, the log scan with alphas, the forward-only log scan,
@@ -19,6 +21,13 @@ window about `--window_ms` long, and prints ms and us per step. The
 shapes are chip_smoke.py's kernel cases, two warps a chain (C=33) and
 the shared-memory tail's (Km past the carry's 24 register rows). It also times the max gamma scan and the
 backpointer scan at one common chain count (18 and 36 chains).
+
+The traceback is timed the same way, but from a CUDA graph of the
+launches replayed (no host time between them), on the codes the current
+backpointer scan writes, at the serving shape, K=1, C=128, T=12,000 and the
+global-memory tail's shape (C=1, Km=28,900, T=64), with the spans held
+equal; it prints ms, the segments (all videos and the longest video's)
+and us a segment of the longest video's walk, which sets the time.
 
 A thread reads the SM clock through NVML every 5 ms; each result lists
 the readings taken inside its timed windows, old and new apart. Prints the
@@ -47,7 +56,7 @@ from action_segmentation_torch.ops.distributions import (
     poisson_length_log_probs,
     transition_log_probs,
 )
-from action_segmentation_torch.ops.hsmm import HsmmPotentials, _durations
+from action_segmentation_torch.ops.hsmm import HsmmPotentials, _durations, _finals
 
 SOURCES = ("hsmm_scan", "hsmm_viterbi")
 D = 300  # feature width of the serving shape
@@ -66,6 +75,14 @@ SHAPES = [
     ("tail C=33 Km=25", 8, 1024, 33, 26, None),
     ("tail C=128 Km=100", 4, 1024, 128, 101, None),
     # a tail whose durations do not fit beside it: read from global memory
+    ("global tail C=1", 2, 64, 1, 28901, None),
+]
+# the traceback's shapes: (name, B, T, C, K, lengths)
+TRACEBACK_SHAPES = [
+    ("serving", 18, 1024, 19, 20, None),
+    ("K=1", 18, 1024, 19, 1, None),
+    ("C=128", 4, 1024, 128, 20, None),
+    ("T=12000", 2, 12000, 19, 20, [12000, 7001]),
     ("global tail C=1", 2, 64, 1, 28901, None),
 ]
 # (scan, symbol, library, outputs: "g" gamma, "a" alphas, "b" codes, "-" none)
@@ -187,16 +204,26 @@ def scan_inputs(B, T, C, K, lengths, rng, device):
     return stacked, forward
 
 
-def launcher(fn, outs, inputs, new):
-    """One launch of `fn` on `inputs`; the new interface also takes the
-    instance ``scan_instance`` picks."""
+def traceback_inputs(B, T, C, K, lengths, rng, device):
+    """(bp, lengths, c_last) as the spans chain gives the traceback: the
+    codes of the current backpointer scan and the best final classes."""
+    if lengths is None:
+        lengths = np.full(B, T)
+    pots, L = potentials(rng, B, T, C, K, np.asarray(lengths, np.int64), device)
+    alphas, bp = hc.hsmm_viterbi_scan(pots.trans.contiguous(), pots.init.contiguous(),
+                                      _durations(pots.lens).contiguous(), pots.emit.contiguous())
+    c_last = _finals(alphas, L, pots.end_mask).argmax(dim=-1)
+    return bp, L, c_last
+
+
+def launcher(fn, outs, inputs):
+    """One launch of `fn` on `inputs` with the instance ``scan_instance``
+    picks."""
     trans, init, dur, emit = inputs
     N, T, C = emit.shape
     Km = dur.shape[1]
-    ints = [N, T, C, Km]
-    if new:
-        inst = hc.scan_instance(C, Km)
-        ints += [inst.warps, inst.row, inst.tail, inst.smem_bytes]
+    inst = hc.scan_instance(C, Km)
+    ints = [N, T, C, Km, inst.warps, inst.row, inst.tail, inst.smem_bytes]
     device, stream = emit.device.index, torch.cuda.current_stream().cuda_stream
     ptrs = [x.data_ptr() for x in inputs] + [None if o is None else o.data_ptr() for o in outs]
 
@@ -233,11 +260,52 @@ def event_ms(run, n):
     return start.elapsed_time(end) / n, (t0, time.perf_counter())
 
 
+def graph_ms(run, n):
+    """Mean ms of `n` launches captured in one CUDA graph and replayed (no
+    host time between them), and the host window of the replay."""
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            run()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, (t0, time.perf_counter())
+
+
+def traceback_launcher(fn, spans, inputs, new):
+    """One launch of a traceback `fn` on (bp, lengths, c_last); the new
+    interface also takes the tile ``traceback_tile`` sizes."""
+    bp = inputs[0]
+    N, T, C = bp.shape
+    ints = [N, T, C, *(hc.traceback_tile(T, C) if new else ())]
+    ptrs = [x.data_ptr() for x in (*inputs, spans)]
+
+    def run():  # on the current stream, which a graph's capture replaces
+        err = fn(*ptrs, *ints, bp.device.index, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError("launch failed with CUDA error {}".format(err))
+    return run
+
+
 def compare(fns, kind, inputs, window_ms, clock):
     """Equal outputs, then ms in the order old, new, new, old, and the SM
-    clock readings inside each version's timed windows."""
-    outs = {v: outputs_for(kind, inputs[3]) for v in fns}
-    runs = {v: launcher(fns[v], outs[v], inputs, v == "new") for v in fns}
+    clock readings inside each version's timed windows. Scans by `kind`;
+    kind "t" is the traceback on (bp, lengths, c_last)."""
+    if kind == "t":
+        outs = {v: [torch.empty(inputs[0].shape[:2], dtype=torch.long,
+                                device=inputs[0].device)] for v in fns}
+        runs = {v: traceback_launcher(fns[v], outs[v][0], inputs, v == "new") for v in fns}
+    else:
+        outs = {v: outputs_for(kind, inputs[3]) for v in fns}
+        runs = {v: launcher(fns[v], outs[v], inputs) for v in fns}
     for run in runs.values():
         run()
     torch.cuda.synchronize()
@@ -247,7 +315,10 @@ def compare(fns, kind, inputs, window_ms, clock):
                 int((a != b).sum()), a.numel()))
     fastest = min(event_ms(run, 1)[0] for run in runs.values())
     n = int(min(1000, max(3, window_ms / fastest)))
-    timed = [(v, *event_ms(runs[v], n)) for v in ("old", "new", "new", "old")]
+    # the traceback from a replayed graph: a short kernel launched one by
+    # one would read the host's launch time
+    timer = graph_ms if kind == "t" else event_ms
+    timed = [(v, *timer(runs[v], n)) for v in ("old", "new", "new", "old")]
     r = {"launches": n}
     for v in ("old", "new"):
         r[v + "_ms"] = [ms for w, ms, _ in timed if w == v]
@@ -258,6 +329,7 @@ def compare(fns, kind, inputs, window_ms, clock):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--old_csrc", required=True, type=Path)
+    parser.add_argument("--kernels", choices=("all", "scans", "traceback"), default="all")
     parser.add_argument("--out", type=Path, default=None)
     parser.add_argument("--window_ms", type=float, default=100.0)
     parser.add_argument("--seed", type=int, default=0)
@@ -276,7 +348,10 @@ def main():
 
     device = torch.device("cuda")
     rng = np.random.RandomState(args.seed)
-    results = []
+    results, tb_results = [], []
+
+    def clk(s):
+        return "{}-{} MHz ({} readings)".format(s.get("min"), s.get("max"), s["n"])
 
     def record(r, shape, scan, inputs):
         N, T, C = inputs[3].shape
@@ -285,8 +360,6 @@ def main():
                  old_us_per_step=1e3 * old / T, new_us_per_step=1e3 * new / T,
                  speedup=old / new)
         results.append(r)
-        clk = lambda s: "{}-{} MHz ({} readings)".format(  # noqa: E731
-            s.get("min"), s.get("max"), s["n"])
         print("{:18s} {:8s} N={:2d} T={:5d} C={:3d} Km={:3d}: old {} ms, new {} ms; "
               "{:.4f} -> {:.4f} us/step, x{:.2f}; SM clock old {}, new {}".format(
                   shape, scan, N, T, C, r["Km"],
@@ -296,12 +369,12 @@ def main():
                   clk(r["old_sm_mhz"]), clk(r["new_sm_mhz"])), flush=True)
 
     with SmClock(device.index or 0) as clock:
-        for shape, B, T, C, K, lengths in SHAPES:
+        for shape, B, T, C, K, lengths in SHAPES if args.kernels != "traceback" else ():
             stacked, forward = scan_inputs(B, T, C, K, lengths, rng, device)
             for scan, symbol, lib, kind in SCANS:
                 inputs = stacked if scan in ("max", "log") else forward
-                fns = {"old": bind(old_libs[lib], symbol, 4 + len(kind), 4),
-                       "new": bind(new_libs[lib], symbol, 4 + len(kind), 8)}
+                fns = {v: bind(libs[lib], symbol, 4 + len(kind), 8)
+                       for v, libs in (("old", old_libs), ("new", new_libs))}
                 record(compare(fns, kind, inputs, args.window_ms, clock), shape, scan, inputs)
             if shape != "serving":
                 continue
@@ -311,18 +384,48 @@ def main():
                         ("max", "hsmm_gamma_scan_max", "hsmm_scan", "g-", stacked),
                         ("viterbi", "hsmm_viterbi_scan", "hsmm_viterbi", "ab", forward)):
                     inputs = tuple(torch.cat([x, x])[:N].contiguous() for x in base)
-                    fns = {"old": bind(old_libs[lib], symbol, 4 + len(kind), 4),
-                           "new": bind(new_libs[lib], symbol, 4 + len(kind), 8)}
+                    fns = {v: bind(libs[lib], symbol, 4 + len(kind), 8)
+                           for v, libs in (("old", old_libs), ("new", new_libs))}
                     record(compare(fns, kind, inputs, args.window_ms, clock),
                            "common chain count", scan, inputs)
+        if args.kernels != "scans":
+            fns = {"old": bind(old_libs["hsmm_viterbi"], "hsmm_viterbi_traceback", 4, 3),
+                   "new": bind(new_libs["hsmm_viterbi"], "hsmm_viterbi_traceback", 4, 5)}
+            for shape, B, T, C, K, lengths in TRACEBACK_SHAPES:
+                inputs = traceback_inputs(B, T, C, K, lengths, rng, device)
+                r = compare(fns, "t", inputs, args.window_ms, clock)
+                spans = hc._traceback_plain(*inputs)
+                if not torch.equal(hc.hsmm_viterbi_traceback(*inputs), spans):
+                    raise RuntimeError("{}: the traceback's spans differ from the plain "
+                                       "version's".format(shape))
+                per_video = (spans >= 0).sum(dim=1)
+                old, new = np.mean(r["old_ms"]), np.mean(r["new_ms"])
+                r.update(shape=shape, kernel="traceback", videos=B, T=T, C=C,
+                         Km=max(K - 1, 1), segments=int(per_video.sum()),
+                         segments_longest_video=int(per_video.max()),
+                         old_us_per_segment=1e3 * old / int(per_video.max()),
+                         new_us_per_segment=1e3 * new / int(per_video.max()),
+                         speedup=old / new)
+                tb_results.append(r)
+                print("{:18s} traceback N={:2d} T={:5d} C={:3d}: old {} ms, new {} ms; {} segments,"
+                      " longest video {}: {:.5f} -> {:.5f} us a segment, x{:.2f}; SM clock old "
+                      "{}, new {}".format(
+                          shape, B, T, C, ["{:.5f}".format(x) for x in r["old_ms"]],
+                          ["{:.5f}".format(x) for x in r["new_ms"]], r["segments"],
+                          r["segments_longest_video"], r["old_us_per_segment"],
+                          r["new_us_per_segment"], r["speedup"], clk(r["old_sm_mhz"]),
+                          clk(r["new_sm_mhz"])), flush=True)
     out = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-           "results": results}
+           "results": results, "traceback": tb_results}
     if args.out is not None:
         os.makedirs(args.out.parent, exist_ok=True)
         args.out.write_text(json.dumps(out, indent=1))
     print(json.dumps({"scan_ab": [{k: r[k] for k in ("shape", "scan", "chains", "Km",
                                                      "old_us_per_step", "new_us_per_step")}
-                                  for r in results]}))
+                                  for r in results],
+                      "traceback_ab": [{k: r[k] for k in (
+                          "shape", "old_ms", "new_ms", "segments", "segments_longest_video",
+                          "old_us_per_segment", "new_us_per_segment")} for r in tb_results]}))
     return 0
 
 

@@ -1,18 +1,22 @@
-"""The serial floor of the port's scan kernels: per step, the longest chain
-of dependent instructions that one step of the time loop hands to the
-next, worked out from the compiled code.
+"""The serial floor of the port's scan kernels and of the traceback: the
+longest chain of dependent instructions that one step of a scan's time
+loop, or one segment of the traceback's walk, hands to the next, worked
+out from the compiled code.
 
 A scan's T steps run one after another, so no kernel of this design can
-take less than T x that chain. The script reads the SASS of the built
-scan libraries (`cuobjdump -sass`), takes one instance's time loop (the
-innermost loop that waits on the emission window, `DEPBAR`), and builds
-the loop's dependence graph over registers and predicates (a guarded
-write also reads its old value; a shared-memory load depends on the
-step's earlier shared store). The chain is the loop's largest cycle mean
-over the values it carries from one step to the next, with the assumed
-latencies of LATENCY. Beside it, the issue floor: one warp issues at most
-one instruction a cycle, and a MUFU takes its quarter of the SM's 16
-special-function units for 8 cycles a warp.
+take less than T x that chain; the traceback's walk takes one link a
+segment, so no walk can take less than the most segments in one video x
+its chain. The script reads the SASS of the built libraries (`cuobjdump
+-sass`), takes one scan instance's time loop (the innermost loop that
+waits on the emission window, `DEPBAR`) and the traceback's walk (the
+innermost loop that loads shared memory and stores to global memory), and
+builds the loop's dependence graph over registers and predicates (a
+guarded write also reads its old value; a shared-memory load depends on
+the step's earlier shared store). The chain is the loop's largest cycle
+mean over the values it carries from one step to the next, with the
+assumed latencies of LATENCY. Beside it, the issue floor: one warp issues
+at most one instruction a cycle, and a MUFU takes its quarter of the SM's
+16 special-function units for 8 cycles a warp.
 
 The latencies are assumptions for Hopper, not measurements (no profiler
 reads them on the card's machine): fixed-latency integer and float
@@ -23,11 +27,12 @@ a lower bound.
 
 Run from the repository root on a machine with the CUDA toolkit:
 
-    python3 -m action_segmentation_torch.tools.scan_floor [--C 19] [--Km 19] [--T 1024] [--sass-dir DIR]
+    python3 -m action_segmentation_torch.tools.scan_floor [--C 19] [--Km 19] [--T 1024] [--segments 760] [--sass-dir DIR]
 
 With `--sass-dir`, DIR holds `hsmm_scan.sass` and `hsmm_viterbi.sass`
-(cuobjdump's output) and nothing is built. Prints one line per serving
-instance and a JSON object last.
+(cuobjdump's output) and nothing is built. `--segments` is the most
+segments in one video for the traceback's floor in time. Prints one line
+per serving instance, one for the traceback, and a JSON object last.
 """
 
 import argparse
@@ -56,13 +61,13 @@ LINE = re.compile(r"/\*([0-9a-f]+)\*/\s+(@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)\s*(
 REG = re.compile(r"(?<![\w.])(UR\d+|R\d+|UP\d|P\d)(\.64|\.128)?(?![\w])")
 
 
-def parse_function(sass, mangled_prefix):
+def parse_function(sass, mangled_part):
     """[(address, guard, opcode, operands)] of the function whose mangled
-    name starts with `mangled_prefix`."""
+    name holds `mangled_part`."""
     out, inside = [], False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = line.split("Function :")[1].strip().startswith(mangled_prefix)
+            inside = mangled_part in line.split("Function :")[1]
             continue
         if not inside:
             continue
@@ -73,8 +78,8 @@ def parse_function(sass, mangled_prefix):
     return out
 
 
-def time_loop(insts):
-    """The innermost backward branch whose body holds the window's DEPBAR."""
+def innermost_loop(insts, wanted, what):
+    """The innermost backward branch whose body `wanted` accepts."""
     best = None
     for i, (addr, _, op, ops) in enumerate(insts):
         if op != "BRA" or not ops:
@@ -84,12 +89,31 @@ def time_loop(insts):
             continue
         start = next(k for k, ins in enumerate(insts) if ins[0] >= target)
         body = insts[start:i + 1]
-        if any(ins[2].startswith("DEPBAR") for ins in body):
+        if wanted({ins[2].split(".")[0] for ins in body}):
             if best is None or len(body) < len(best):
                 best = body
     if best is None:
-        raise ValueError("no time loop found")
+        raise ValueError("no {} found".format(what))
     return best
+
+
+def time_loop(insts):
+    """A scan's time loop: the innermost one that holds the window's DEPBAR."""
+    return innermost_loop(insts, lambda ops: "DEPBAR" in ops, "time loop")
+
+
+def walk_loop(insts):
+    """The traceback's walk: the innermost loop that loads shared memory
+    and stores to global memory, with no barrier in it."""
+    return innermost_loop(insts, lambda ops: {"LDS", "STG"} <= ops and "BAR" not in ops,
+                          "walk loop")
+
+
+def traceback_floor(sass):
+    """(chain cycles, instructions) of one segment of the traceback's walk
+    in csrc/hsmm_viterbi.cu's SASS."""
+    body = walk_loop(parse_function(sass, "viterbi_traceback_kernel"))
+    return chain_cycles(body)[0], sum(1 for ins in body if ins[2] != "NOP")
 
 
 def regs(operand, width_hint=1):
@@ -175,11 +199,29 @@ def chain_cycles(body):
     return best, len(carried)
 
 
+def built_sass(lib):
+    """cuobjdump's SASS of csrc/<lib>.cu's library, building it first."""
+    _build.build([lib])
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    return subprocess.run(
+        [str(cuobjdump) if cuobjdump.exists() else "cuobjdump", "-sass",
+         str(_build.library_path(lib))], capture_output=True, text=True, check=True).stdout
+
+
+def max_sm_clock_mhz():
+    """The card's largest SM clock, from nvidia-smi."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--C", type=int, default=19)
     parser.add_argument("--Km", type=int, default=19)
     parser.add_argument("--T", type=int, default=1024)
+    parser.add_argument("--segments", type=int, default=None,
+                        help="the most segments in one video, for the traceback's floor in time")
     parser.add_argument("--sass-dir", type=Path, default=None)
     parser.add_argument("--clock-mhz", type=float, default=None,
                         help="SM clock for the floor in time (default: nvidia-smi's max)")
@@ -189,16 +231,9 @@ def main():
     for lib in ("hsmm_scan", "hsmm_viterbi"):
         if args.sass_dir is not None:
             sass[lib] = (args.sass_dir / (lib + ".sass")).read_text()
-            continue
-        _build.build([lib])
-        sass[lib] = subprocess.run(
-            ["cuobjdump", "-sass", str(_build.library_path(lib))],
-            capture_output=True, text=True, check=True).stdout
-    clock = args.clock_mhz
-    if clock is None:
-        clock = float(subprocess.run(
-            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-            capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+        else:
+            sass[lib] = built_sass(lib)
+    clock = args.clock_mhz or max_sm_clock_mhz()
 
     inst = scan_instance(args.C, args.Km)
     results = {}
@@ -223,8 +258,17 @@ def main():
               "a step ({:.4f} us -> {:.4f} ms); {} MUFU ({} cycles)".format(
                   r["instance"], chain, r["chain_us_per_step"], args.T, r["chain_floor_ms"],
                   issue, r["issue_us_per_step"], r["issue_floor_ms"], mufu, r["mufu_cycles"]))
-    print(json.dumps({"scan_floor": results, "C": args.C, "Km": args.Km, "T": args.T,
-                      "clock_mhz": clock}))
+    chain, issue = traceback_floor(sass["hsmm_viterbi"])
+    tb = {"chain_cycles": chain, "issue_cycles": issue,
+          "chain_us_per_segment": chain / clock, "issue_us_per_segment": issue / clock}
+    line = "traceback walk: chain {:.0f} cycles a segment ({:.5f} us); {} instructions".format(
+        chain, tb["chain_us_per_segment"], issue)
+    if args.segments:
+        tb["chain_floor_ms"] = args.segments * chain / clock * 1e-3
+        line += "; {} segments -> {:.5f} ms".format(args.segments, tb["chain_floor_ms"])
+    print(line)
+    print(json.dumps({"scan_floor": results, "traceback_floor": tb, "C": args.C, "Km": args.Km,
+                      "T": args.T, "clock_mhz": clock}))
     return 0
 
 

@@ -55,9 +55,13 @@ exit and no result line:
                narration at train, its loss must fall, the training kernels
                once per batch) and a decode with narration at test;
   5. times   — CUDA-event kernel and plain-version times at the serving
-               shape beside the roofline bound, segment_many frames/s, one
-               training step's time, the fit's frames/s and the CrossTask
-               predict's frames/s.
+               shape beside the roofline bound, the traceback's also beside
+               its serial floor (the longest video's segments x one
+               segment's dependent chain, read from the kernel's SASS by
+               tools/scan_floor.py) and at each CrossTask predict batch
+               (spans equal to the plain version's there too),
+               segment_many frames/s, one training step's time, the fit's
+               frames/s and the CrossTask predict's frames/s.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -801,6 +805,25 @@ def run_viterbi_kernels(device):
     return serving
 
 
+def capture_traceback_inputs(fn):
+    """Runs fn() with the traceback's launch keeping a copy of the inputs
+    of each launch; returns them."""
+    from action_segmentation_torch.ops import hsmm_cuda
+
+    kept, launch = [], hsmm_cuda._launch_traceback
+
+    def keep(bp, lengths, c_last, tile):
+        kept.append((bp.clone(), lengths.clone(), c_last.clone()))
+        return launch(bp, lengths, c_last, tile)
+
+    hsmm_cuda._launch_traceback = keep  # the wrapper looks it up at each call
+    try:
+        fn()
+    finally:
+        hsmm_cuda._launch_traceback = launch
+    return kept
+
+
 def crosstask_args(root, *extra):
     """The S6 flags on the release under `root`, the model's and the
     training flags' defaults, and `extra`."""
@@ -821,7 +844,8 @@ def run_crosstask_slice(device):
     through the exact-spans kernels -> MoF/F1, Segmenter(task=), then the
     constrained unsupervised fit of CT_FIT_TASKS tasks and a decode with
     narration at test. Returns the e2e record and the decode path's
-    launches of (viterbi scan, traceback)."""
+    launches of (viterbi scan, traceback), and the traceback's inputs at
+    each predict batch."""
     import torch
 
     from action_segmentation_torch import main as port_main
@@ -897,6 +921,9 @@ def run_crosstask_slice(device):
         predict_s = time.perf_counter() - t0  # predict's drain ends in a sync
         launches = counts(decode_kernels)
         frames = sum(lengths)
+        # the traceback's inputs at each predict batch, timed in phase 5
+        tb_batches = capture_traceback_inputs(
+            lambda: [model.predict(val) for _, model, _, val in models])
 
         # 4. MoF and F1 per task by the datasplit's accuracy_corpus
         correct = total = 0
@@ -985,7 +1012,7 @@ def run_crosstask_slice(device):
         "crosstask_mean_f1": float(np.mean(f1s)),
         "crosstask_unsup_epoch_losses": [u[2] for u in unsup],
     }
-    return e2e, launches[:2]
+    return e2e, launches[:2], tb_batches
 
 
 def cuda_ms(fn, n, warmup=3):
@@ -999,6 +1026,29 @@ def cuda_ms(fn, n, warmup=3):
     start.record()
     for _ in range(n):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, n):
+    """Device ms of one call of fn: a CUDA graph of n calls, replayed, so
+    that no host time falls between the launches (a kernel shorter than
+    the host's time to launch it reads that time under cuda_ms)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
@@ -1072,6 +1122,11 @@ def main():
         hsmm_viterbi_traceback,
         scan_instance,
     )
+    from action_segmentation_torch.tools.scan_floor import (
+        built_sass,
+        max_sm_clock_mhz,
+        traceback_floor,
+    )
 
     device = torch.device("cuda")
     t_start = time.perf_counter()
@@ -1143,7 +1198,7 @@ def main():
     # 4. the slices end to end (each resets and reads the launch counters)
     e2e, launches = run_slice(device, num_videos=36, max_len=T, shift=1.0)
     train_e2e, train_launches = run_train_slice(device, num_videos=36, max_len=T, shift=1.0)
-    ct_e2e, ct_launches = run_crosstask_slice(device)
+    ct_e2e, ct_launches, ct_tb_in = run_crosstask_slice(device)
     e2e.update(train_e2e)
     e2e.update(ct_e2e, marginal_sum_gap=gaps)
 
@@ -1190,7 +1245,8 @@ def main():
 
     vit_ms = cuda_ms(lambda: hsmm_viterbi_scan(*vit_in), N_TIMED)
     vit_plain_ms = cuda_ms(lambda: _viterbi_scan_plain(*vit_in), 2, warmup=1)
-    tb_ms = cuda_ms(lambda: hsmm_viterbi_traceback(*tb_in), N_TIMED)
+    tb_ms = graph_ms(lambda: hsmm_viterbi_traceback(*tb_in), N_TIMED)
+    tb_stream_ms = cuda_ms(lambda: hsmm_viterbi_traceback(*tb_in), N_TIMED)
     tb_plain_ms = cuda_ms(lambda: _traceback_plain(*tb_in), 2, warmup=1)
     # in: trans, init, dur, emit; out: alphas (float32) and codes (int32).
     # Per step and class: the duration reduce (Km adds and compare-selects),
@@ -1199,8 +1255,26 @@ def main():
     v_bound, v_by = bound(vit_bytes, B * T * (2 * Km * C + 2 * C * C + 3 * C))
     # the walk reads two codes per segment of this run's best paths and
     # writes the spans; lengths and final classes in
-    n_segments = int((hsmm_viterbi_traceback(*tb_in) >= 0).sum())
+    per_video = (hsmm_viterbi_traceback(*tb_in) >= 0).sum(dim=1)
+    n_segments, longest = int(per_video.sum()), int(per_video.max())
     tb_bound, tb_by = bound(8 * B * T + 8 * n_segments + 16 * B, 4 * n_segments)
+    # the walk's serial floor: the longest video's segments, one chain each
+    chain, _ = traceback_floor(built_sass("hsmm_viterbi"))
+    clock_mhz = max_sm_clock_mhz()
+    tb_floor_ms = longest * chain / clock_mhz * 1e-3
+    # the traceback at the CrossTask predict batches: the launches the
+    # spans chain's main path makes
+    ct_tb = []
+    for ct_in in ct_tb_in:
+        spans = hsmm_viterbi_traceback(*ct_in)
+        check(torch.equal(spans, _traceback_plain(*ct_in)), "crosstask batch traceback spans "
+              "differ from the plain version's")
+        videos = (spans >= 0).sum(dim=1)
+        ct_tb.append((graph_ms(lambda: hsmm_viterbi_traceback(*ct_in), N_TIMED),
+                      int(videos.sum()), int(videos.max()), ct_in[0].shape,
+                      cuda_ms(lambda: hsmm_viterbi_traceback(*ct_in), N_TIMED)))
+    ct_tb_ms = float(np.mean([x[0] for x in ct_tb]))
+    ct_longest = max(x[2] for x in ct_tb)
     # the max gamma scan and the backpointer scan at one common chain count
     # (decode stacks 2B chains for the gamma scan; the spans chain runs B)
     gamma_b_in = tuple(x[:B] for x in scan_in)  # the forward chains
@@ -1263,13 +1337,23 @@ def main():
             "source": "action_segmentation_torch/csrc/hsmm_viterbi.cu",
             "replaces": TPU_FILE + ":440", "launches": ct_launches[1],
             "max_abs_err": vit_errs["traceback"], "ms": tb_ms, "kernel_ms": tb_ms,
-            "segments": n_segments, "plain_ms": tb_plain_ms, "bound_ms": tb_bound,
-            "bound_by": tb_by, "library_ms": None,
+            "stream_ms": tb_stream_ms,
+            "segments": n_segments, "segments_longest_video": longest,
+            "us_per_segment": 1e3 * tb_ms / longest, "plain_ms": tb_plain_ms,
+            "bound_ms": tb_bound, "bound_by": tb_by, "floor_ms": tb_floor_ms,
+            "floor_cycles_per_segment": chain, "library_ms": None,
+            "crosstask_batch_ms": ct_tb_ms,
+            "crosstask_batch_ms_range": [min(x[0] for x in ct_tb), max(x[0] for x in ct_tb)],
+            "crosstask_batch_stream_ms": float(np.mean([x[4] for x in ct_tb])),
+            "crosstask_batch_segments": float(np.mean([x[1] for x in ct_tb])),
+            "crosstask_batch_longest_video": ct_longest,
+            "crosstask_batch_floor_ms": ct_longest * chain / clock_mhz * 1e-3,
         },
     ]
     for k in kernels:
         check(all(isinstance(v, str) or v is None or math.isfinite(v)
-                  for v in k.values()), "non-finite number in {}".format(k))
+                  for x in k.values() for v in (x if isinstance(x, list) else [x])),
+              "non-finite number in {}".format(k))
         check(k["launches"] > 0, "{} was not launched on its path".format(k["name"]))
     phase("times", "serving shape B={} T={} C={} K={}; {} launches of each kernel; "
           "plain versions of the scans and the traceback 2 launches; library call: none "
@@ -1285,9 +1369,20 @@ def main():
         "viterbi": {str(B): 1e3 * vit_ms / T, str(2 * B): 1e3 * vit_2b_ms / T},
     }
     phase("times", "viterbi scan {:.4f} ms ({:.3f} us per step, bound {:.5f} ms), traceback "
-          "{:.4f} ms over {} segments (bound {:.5f} ms); crosstask predict {:.0f} frames/s".format(
-              vit_ms, 1e3 * vit_ms / T, v_bound, tb_ms, n_segments, tb_bound,
+          "{:.5f} ms (a CUDA graph of {} launches; {:.5f} launched one by one) over {} "
+          "segments, the longest video {} ({:.5f} us a segment; bound {:.5f} ms, serial floor "
+          "{:.5f} ms: {:.0f} cycles a segment at {:.0f} MHz); crosstask predict {:.0f} "
+          "frames/s".format(
+              vit_ms, 1e3 * vit_ms / T, v_bound, tb_ms, N_TIMED, tb_stream_ms, n_segments,
+              longest, 1e3 * tb_ms / longest, tb_bound, tb_floor_ms, chain, clock_mhz,
               e2e["crosstask_predict_frames_per_s"]))
+    phase("times", "traceback at the {} crosstask predict batches: {:.5f} ms a launch ({:.5f}-"
+          "{:.5f}; {:.5f} launched from the host one by one), {:.1f} segments a batch, the "
+          "longest video {} (floor {:.5f} ms); shapes {}".format(
+              len(ct_tb), ct_tb_ms, min(x[0] for x in ct_tb), max(x[0] for x in ct_tb),
+              float(np.mean([x[4] for x in ct_tb])), float(np.mean([x[1] for x in ct_tb])),
+              ct_longest, ct_longest * chain / clock_mhz * 1e-3,
+              sorted({tuple(x[3]) for x in ct_tb})))
     print(json.dumps({"e2e": e2e, "card": smi}), flush=True)
     phase("done", "{:.1f} s".format(time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}), flush=True)

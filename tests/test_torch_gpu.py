@@ -295,6 +295,114 @@ def test_viterbi_kernels_reject_what_they_do_not_take(cuda):
                                   L, c)
 
 
+# the traceback (csrc/hsmm_viterbi.cu): codes staged in shared memory in
+# tiles of rows from the top down, walked one shared-memory load a segment.
+# Every case holds the spans equal to the plain version's.
+
+
+def assert_traceback_equal_plain(bp, L, c_last, max_rows=None):
+    """The kernel's spans, in the wrapper's tiles or in tiles of at most
+    `max_rows` rows, equal to the plain traceback's; returns them."""
+    N, T, C = bp.shape
+    before = hc.hsmm_viterbi_traceback.launches
+    if max_rows is None:
+        spans = hc.hsmm_viterbi_traceback(bp, L, c_last)
+        assert hc.hsmm_viterbi_traceback.launches == before + 1
+    else:
+        spans = hc._launch_traceback(bp, L, c_last, hc.traceback_tile(T, C, max_rows))
+    want = hc._traceback_plain(bp, L, c_last)
+    torch.cuda.synchronize()
+    assert torch.equal(spans, want), "spans differ at {} frames".format(
+        int((spans != want).sum()))
+    return spans
+
+
+@pytest.mark.parametrize("case,B,T,C,K,max_rows", [
+    ("K=1", 18, 1024, 19, 2, None),  # the model's K = 1: every segment one frame
+    ("C=128", 4, 1024, 128, 20, None),  # 5 tiles of 226 rows
+    ("T=12000", 2, 12000, 19, 20, None),  # 8 tiles of 1,528 rows
+    ("global tail", 2, 64, 1, 28901, None),
+    ("global tail, 7-row tiles", 2, 64, 1, 28901, 7),  # Km > R
+    ("ragged", 18, 1056, 19, 20, None),
+    ("Km=100, 32-row tiles", 5, 600, 19, 101, 32),
+    ("serving, 1-row tiles", 18, 1024, 19, 20, 1),
+])
+def test_traceback_kernel_matches_plain(cuda, case, B, T, C, K, max_rows):
+    """On the plain scan's codes: one tile a video, several, and tiles
+    shorter than the longest duration, with ragged lengths down to 1."""
+    pots, lengths = random_pots(np.random.RandomState(T + C + K), B, T, C, K, cuda)
+    if case == "T=12000":
+        lengths = torch.tensor([12000, 7001], device=cuda)
+    elif B > 2:
+        lengths[1] = 1
+    L = lengths.long()
+    alphas, bp = hc._viterbi_scan_plain(pots.trans.contiguous(), pots.init.contiguous(),
+                                        th._durations(pots.lens).contiguous(),
+                                        pots.emit.contiguous())
+    c_last = th._finals(alphas, L, pots.end_mask).argmax(dim=-1)
+    spans = assert_traceback_equal_plain(bp, L, c_last, max_rows)
+    if case == "K=1":
+        assert (spans[0] >= 0).all()  # 1,024 segments in one video
+
+
+@pytest.mark.parametrize("C,Km,max_rows", [(1, 600, 7), (19, 100, 16), (128, 40, 3),
+                                           (5, 1000, 50), (33, 20, None)])
+def test_traceback_kernel_on_random_codes(cuda, C, Km, max_rows):
+    """Codes with uniform random durations and classes: jumps that land
+    several tiles below, and walks that end before frame 0 (wrapped or
+    dropped), at lengths T, 1, 2 and around a tile's edge."""
+    rng = np.random.RandomState(C + Km)
+    N, T = 8, 500
+    codes = rng.randint(0, Km, size=(N, T, C)) * hc.CODE_RADIX + rng.randint(0, C, size=(N, T, C))
+    rows = max_rows or T
+    lengths = np.minimum([T, 1, 2, rows, rows + 1, 2 * rows + 1, T - 1, T // 2], T)
+    bp = torch.from_numpy(codes.astype(np.int32)).to(cuda)
+    c_last = torch.from_numpy(rng.randint(0, C, size=N)).to(cuda)
+    assert_traceback_equal_plain(bp, torch.from_numpy(lengths).to(cuda), c_last, max_rows)
+
+
+def test_traceback_kernel_wraps_an_impossible_start(cuda):
+    """A segment that starts before frame 0 (only an impossible, BIG_NEG
+    path gives one) is written at its index + T and ends the walk; one
+    that starts before -T is dropped. At the first segment and mid-walk,
+    in one tile and in 4-row tiles."""
+    T, C = 40, 3
+    codes = np.zeros((4, T, C), np.int64)  # one-frame segments, class 0
+    codes[0, 9, 2] = 12 * hc.CODE_RADIX  # length 10: starts at -3 -> frame 37
+    codes[1, 9, 1] = (10 + T + 4) * hc.CODE_RADIX  # starts at -T - 5: dropped
+    codes[2, 29, 0] = 1  # before frame 30 comes class 1 ...
+    codes[2, 29, 1] = 31 * hc.CODE_RADIX  # ... whose span starts at -2 -> frame 38
+    bp = torch.from_numpy(codes.astype(np.int32)).to(cuda)
+    L = torch.tensor([10, 10, T, 1], device=cuda)
+    c_last = torch.tensor([2, 1, 0, 1], device=cuda)
+    for max_rows in (None, 4):
+        spans = assert_traceback_equal_plain(bp, L, c_last, max_rows)
+        assert spans[0, T - 3] == 2 and int((spans[0] >= 0).sum()) == 1
+        assert int((spans[1] >= 0).sum()) == 0
+        assert spans[2, T - 2] == 1 and (spans[2, 30:T - 2] == 0).all()
+        assert (spans[2, :30] == -1).all()
+        assert spans[3].tolist() == [1] + [-1] * (T - 1)
+
+
+def test_traceback_launch_refuses_too_little_shared_memory(cuda):
+    """The launch takes the wrapper's tile; shared memory that cannot hold
+    two tiles of its rows is refused, not run."""
+    bp = torch.zeros((2, 64, 19), dtype=torch.int32, device=cuda)
+    L = torch.full((2,), 64, device=cuda)
+    c = torch.zeros(2, dtype=torch.long, device=cuda)
+    spans = torch.empty((2, 64), dtype=torch.long, device=cuda)
+    tile = hc.traceback_tile(64, 19)
+    for rows, smem in ((tile.rows, tile.smem_bytes - 16), (0, tile.smem_bytes)):
+        err = hc._call("hsmm_viterbi", "hsmm_viterbi_traceback", [bp, L, c, spans],
+                       [2, 64, 19, rows, smem], bp)
+        assert err != 0, (rows, smem)
+    err = hc._call("hsmm_viterbi", "hsmm_viterbi_traceback", [bp, L, c, spans],
+                   [2, 64, 19, *tile], bp)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(spans, hc._traceback_plain(bp, L, c))
+
+
 def test_wide_model_with_a_narrow_task_runs_on_the_card(cuda):
     """A 342-class model (18 CrossTask tasks of 19 classes) whose batch is
     one task, 20 classes wide after the class bucket: decode takes the

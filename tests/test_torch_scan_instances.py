@@ -1,4 +1,5 @@
-"""The scan kernels' instances, and the build cache's key, on the CPU.
+"""The scan kernels' instances, the traceback's tile, and the build
+cache's key, on the CPU.
 
 ``hsmm_cuda.scan_instance(C, Km)`` picks the instance of the scan
 template (csrc/hsmm_scan_core.cuh) that a shape launches and sizes its
@@ -7,6 +8,8 @@ against an H100 block's limits at every instance boundary and at every
 shape the earlier shared-memory scans (one layout for every shape:
 C*C + 2*Km*C + 2*C floats within the block's shared memory) took.
 """
+
+import pytest
 
 from action_segmentation_torch.ops import _build
 from action_segmentation_torch.ops import hsmm_cuda as hc
@@ -44,6 +47,33 @@ def test_serving_shape_takes_the_register_instance():
     assert hc.scan_instance(19, 19) == (1, 24, 0, 32, serving)
     assert hc.scan_instance(20, 19) == (1, 24, 0, 32, serving)
     assert hc.scan_instance(19, 25) == (1, 24, 1, 32, serving + 4 * 2 * 19)
+
+
+@pytest.mark.parametrize("C", (1, 19, 20, 128))
+@pytest.mark.parametrize("T", (1, 19, 100, 834, 1024, 12000, 28900))
+def test_traceback_tile_fits_the_block(C, T):
+    """The traceback's tile (``hsmm_cuda.traceback_tile``) at the widths
+    and lengths the kernels take (T up to the longest band, Km = 28,900,
+    since the walk handles a jump of any length): at least one row and
+    at most T, two buffers of rows * C codes (each up to 3 words in, for
+    the bulk copy's alignment) beside the 16-byte header within 232,448
+    bytes, with as many rows as fit."""
+    tile = hc.traceback_tile(T, C)
+    words = hc._tile_words(tile.rows, C)  # one buffer
+    assert 1 <= tile.rows <= T
+    assert words >= tile.rows * C + 3 and words % 4 == 0
+    assert tile.smem_bytes == hc.TRACEBACK_HEADER + 2 * 4 * words <= hc.MAX_BLOCK_SMEM
+    if tile.rows < T:  # the most rows that fit
+        assert hc.TRACEBACK_HEADER + 8 * hc._tile_words(tile.rows + 1, C) > hc.MAX_BLOCK_SMEM
+    assert hc.traceback_tile(T, C, max_rows=7).rows == min(7, tile.rows)
+
+
+def test_serving_and_crosstask_planes_are_one_tile():
+    """A serving video (T=1024, C=19) and a CrossTask batch's (T up to
+    1056 after the bucket, C=20) walk one tile staged in one copy."""
+    assert hc.traceback_tile(1024, 19) == (1024, 16 + 2 * 4 * (1024 * 19 + 4))
+    assert hc.traceback_tile(1056, 20).rows == 1056
+    assert hc.traceback_tile(12000, 19).rows == 1528
 
 
 def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):

@@ -100,6 +100,27 @@ def test_long_sequence_spans_match_jax():
     assert_spans_like_jax(arrays, lengths, atol=1e-3)
 
 
+def test_one_frame_segments_match_jax():
+    """The model's K = 1 (one duration row; K = 2 here, row 0 being
+    unreachable): every segment is one frame, as many segments as frames,
+    the most a walk takes; spans equal JAX's."""
+    arrays, lengths = random_inputs(np.random.RandomState(13), 3, 64, 5, 2)
+    spans = assert_spans_like_jax(arrays, lengths).numpy()
+    for row, length in zip(spans, lengths):
+        assert (row[:length] >= 0).all() and (row[length:] == -1).all()
+
+
+def test_long_band_spans_match_jax():
+    """A long band (K = 60) whose durations below 33 frames score -1000:
+    the walk jumps 33-59 frames a segment, past what a small tile of code
+    rows holds; spans equal JAX's."""
+    arrays, lengths = random_inputs(np.random.RandomState(17), 2, 200, 4, 60)
+    arrays[2][:, 1:33] = -1000.0
+    spans = assert_spans_like_jax(arrays, lengths).numpy()
+    jumps = [np.diff(np.flatnonzero(row >= 0)).max() for row in spans]
+    assert max(jumps) > 32, jumps
+
+
 def test_cross_chunk_spans_match_jax(monkeypatch):
     """The spans half of test_cross_chunk_carry: JAX's kernel over a
     five-chunk time grid (chunk shrunk to 64) against the port's one
