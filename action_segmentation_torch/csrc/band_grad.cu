@@ -20,135 +20,183 @@
 // in JAX's order of operations: r from Km - 1 down to 0, qg folded by
 // jnp.logaddexp's formula (max + log1p(exp(-|a - b|))), each sum from 0.
 //
-// A block owns `rows` whole time rows of one video, one thread per (t, c).
-// The stop mass of frame i gathers spans that started r + 1 rows earlier,
-// possibly in an earlier block: the thread recomputes those M from G1m and
-// its own G2p[i] (the same two adds and expf, so the same bits) instead of
-// exchanging a halo. lg is a reduction over T across blocks: each block
-// writes its per-(r, c) partial (a fixed-order sum over its rows through
-// shared memory), and a second pass sums the partials in block order, so
-// two runs give the same bits (no float atomics).
+// A block owns a tile of `rows` whole time rows of one video, one thread
+// per (t, c); `hsmm_cuda.band_grad_tile` sizes the tile (so that the
+// launch's warps spread evenly over the SMs) and the slab. Each thread
+// runs the duration loop with no barrier in it: q and the start and stop
+// sums stay in registers, and each M goes to a shared slab of `slab`
+// durations. At a slab's end the block crosses one barrier, its threads
+// sum the slab's (r, c) pairs over the tile's rows in parallel (each in
+// row order from row 0) into the tile's lg partial in device memory, and
+// a second barrier frees the slab. The stop mass of frame i gathers spans
+// that started r + 1 rows earlier, possibly in an earlier tile: the
+// thread recomputes those M from G1m and its own G2p[i] (the same two
+// adds and expf, so the same bits) instead of exchanging a halo.
 //
-// What bounds it: device-memory bytes (G1m, G2p and three (B, T, C)
-// outputs once each, about 7 MB at the serving shape) against about
-// 2 Km expf per output; at the serving shape both are a few microseconds.
+// lg across a video's tiles, in the same launch: each tile writes its
+// partial, fences, and one thread takes a ticket on the video's counter;
+// the block that takes the last ticket sums the partials in tile order,
+// writes lg and sets the counter back to 0 for the next launch. Two runs
+// give the same bits (no float atomics).
+//
+// What bounds it: the special-function units. A (t, c, r) term of the
+// function takes three transcendentals (the exp and the log1p of the
+// logaddexp, the exp of M; the stop's recomputed M is another term's),
+// at 16 a clock per SM: about 4.8 us at the serving shape, above the
+// ~2 us of device-memory bytes. The kernel issues more than that: 87
+// instructions a duration (log1pf alone about 30), so the schedulers'
+// issue is its floor (tools/scan_floor.py `band_grad_floor`). Under the
+// 32-register cap every address in the duration loop is an int offset
+// from a kernel parameter, one multiply-add each; 64-bit pointers held
+// across the loop spilled, and rebuilt from the block index they cost
+// a quarter more instructions. The offsets are why the entry refuses
+// planes of 2^31 floats or more.
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 
 namespace {
 
 constexpr float kBigNeg = -1e9f;
-constexpr int kMaxThreads = 512;
-
-int rows_per_block(int C) { return C >= kMaxThreads ? 1 : kMaxThreads / C; }
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxSmem = 232448;  // an H100 block's dynamic shared memory
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float log_add_exp(float a, float b) {
   const float m = fmaxf(a, b);
   return m + log1pf(expf(-fabsf(a - b)));
 }
 
-__global__ void band_grad_kernel(const float* __restrict__ g1m,
-                                 const float* __restrict__ g2p,
-                                 const float* __restrict__ dur,
-                                 float* __restrict__ qg,
-                                 float* __restrict__ sa,
-                                 float* __restrict__ st,
-                                 float* __restrict__ lg_part, int T, int T2,
-                                 int C, int Km, int rows) {
-  extern __shared__ float m_s[];  // [rows][C]: this r's M of the block
+// At most 32 registers a thread, so that two blocks of 1,024 threads fit
+// an SM: hsmm_cuda.band_grad_tile assumes it (BAND_GRAD_REGS).
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    band_grad_kernel(const float* __restrict__ g1m,
+                     const float* __restrict__ g2p,
+                     const float* __restrict__ dur, float* __restrict__ qg,
+                     float* __restrict__ sa, float* __restrict__ st,
+                     float* __restrict__ lg, float* __restrict__ lg_part,
+                     unsigned int* __restrict__ tickets, int T, int T2, int C,
+                     int Km, int rows, int slab) {
+  extern __shared__ float m_s[];  // [slab][rows * C]: the slab's M
+  __shared__ bool last;
   const int b = blockIdx.y;
-  const int i = threadIdx.x;  // blockDim.x == rows * C
+  const int tile = blockIdx.x;
+  const int tiles = gridDim.x;
+  const int n = blockDim.x;  // rows * C
+  const int i = threadIdx.x;
   const int c = i % C;
-  const int t = blockIdx.x * rows + i / C;
+  const int t = tile * rows + i / C;
   const bool live = t < T;
-  const int f = t * C + c;
-  g1m += (size_t)b * T * C;
-  g2p += (size_t)b * T2 * C;
-  dur += (size_t)b * Km * C;
-  lg_part += (size_t)(b * gridDim.x + blockIdx.x) * Km * C;
+  // a row past T computes row T - 1's terms, stores no output and puts 0
+  // in the slab
+  const int tl = live ? t : T - 1;
+  const int f = tl * C + c;
+  // int offsets (the entry refuses planes of 2^31 floats or more): G1m at
+  // start t, G2p at boundary t, and dur's row r at od + (r + 1) * C
+  const int o1 = b * T * C + f;
+  const int o2 = b * T2 * C + f;
+  const int od = b * Km * C + c - C;
 
-  const float g1 = live ? g1m[f] : 0.f;
-  const float g2_here = live ? g2p[f] : 0.f;  // boundary e = t
+  const float g1 = g1m[o1];
+  const float g2_here = g2p[o2];  // boundary e = t
   float q = kBigNeg, start = 0.f, stop = 0.f;
-  for (int r = Km - 1; r >= 0; --r) {
-    const float d = dur[r * C + c];
-    float m = 0.f;
-    if (live) {
+  for (int hi = Km; hi > 0; hi -= slab) {
+    const int lo = max(hi - slab, 0);
+#pragma unroll 1
+    for (int r = hi - 1; r >= lo; --r) {
+      const int rc = (r + 1) * C;
+      const float d = dur[od + rc];
       // the span that starts at t with duration r + 1
-      const float x = d + g2p[f + (r + 1) * C];
+      const float x = d + g2p[o2 + rc];
       q = log_add_exp(q, x);
-      m = expf(g1 + x);
+      const float m = expf(g1 + x);
       start += m;
       // the span of duration r + 1 that stops at boundary t
-      if (t - r - 1 >= 0) stop += expf(g1m[f - (r + 1) * C] + (d + g2_here));
-    }
-    m_s[i] = m;
-    __syncthreads();
-    if (i < C) {
-      float sum = m_s[i];
-      for (int row = 1; row < rows; ++row) sum += m_s[row * C + i];
-      lg_part[r * C + i] = sum;
+      if (r < tl) stop += expf(g1m[o1 - rc] + (d + g2_here));
+      m_s[(r - lo) * n + i] = live ? m : 0.f;
     }
     __syncthreads();
+    // the slab's (r, c) pairs, each summed over the tile's rows from row 0
+    float* part = lg_part + ((size_t)b * tiles + tile) * Km * C + lo * C;
+    for (int k = i; k < (hi - lo) * C; k += n) {
+      const float* col = m_s + (k / C) * n + k % C;
+      float sum = col[0];
+      for (int row = 1; row < rows; ++row) sum += col[row * C];
+      part[k] = sum;
+    }
+    if (hi - slab > 0) __syncthreads();
   }
   if (live) {
-    const size_t o = (size_t)b * T * C + f;
-    qg[o] = q;
-    sa[o] = start;
-    st[o] = stop;
+    qg[o1] = q;
+    sa[o1] = start;
+    st[o1] = stop;
   }
-}
+  if (Km == 0) return;
 
-// lg[b, k] = sum over blocks, in block order, of lg_part[b, blk, k]
-__global__ void lg_reduce_kernel(const float* __restrict__ lg_part,
-                                 float* __restrict__ lg, int nblk, int KmC) {
-  const int b = blockIdx.y;
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= KmC) return;
-  const float* p = lg_part + (size_t)b * nblk * KmC + k;
-  float s = p[0];
-  for (int j = 1; j < nblk; ++j) s += p[(size_t)j * KmC];
-  lg[(size_t)b * KmC + k] = s;
+  // the partials of the video's tiles, summed by the block that comes last
+  if (i < slab * C) __threadfence();  // the threads that wrote partials
+  __syncthreads();  // every partial of the tile is written and fenced
+  if (i == 0) {
+    last = atomicAdd(tickets + b, 1u) == (unsigned int)tiles - 1;
+    if (last) {
+      tickets[b] = 0;  // every tile has taken its ticket
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  if (!last) return;
+  const int KmC = Km * C;
+  const float* p = lg_part + (size_t)b * tiles * KmC;
+  for (int k = i; k < KmC; k += n) {
+    float s = __ldcg(p + k);
+#pragma unroll 8
+    for (int j = 1; j < tiles; ++j) s += __ldcg(p + (size_t)j * KmC + k);
+    lg[(size_t)b * KmC + k] = s;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Thread blocks along T for C classes: the scratch `lg_part` holds
-// (B, blocks, Km, C) floats.
-int hsmm_band_grad_blocks(int T, int C) {
-  const int rows = rows_per_block(C);
-  return (T + rows - 1) / rows;
-}
-
 // g1m (B, T, C); g2p (B, T2, C) with T2 >= T + Km; dur (B, Km, C);
 // qg, sa, st (B, T, C) out; lg (B, Km, C) out; lg_part scratch of
-// B * hsmm_band_grad_blocks(T, C) * Km * C floats. All float32,
-// contiguous, on `device`; C <= 1024. Launches on `stream`; returns the
-// CUDA error code of the launches (0 on success).
+// B * tiles * Km * C floats, tiles = ceil(T / rows); tickets B uint32
+// counters, all 0 (each launch leaves them 0). All float32, contiguous,
+// on `device`, each plane under 2^31 floats. The tile from hsmm_cuda.band_grad_tile: `rows` time rows a
+// block (rows * C <= 1024 threads), M staged in slabs of `slab`
+// durations (>= 1 when Km > 0) in `smem` bytes of shared memory, which
+// must hold slab * rows * C floats. Launches one kernel on `stream`;
+// returns the CUDA error code (cudaErrorInvalidValue for a tile that does
+// not fit; 0 on success).
 int hsmm_band_grad(const void* g1m, const void* g2p, const void* dur,
                    void* qg, void* sa, void* st, void* lg, void* lg_part,
-                   int B, int T, int T2, int C, int Km, int device,
-                   void* stream) {
+                   void* tickets, int B, int T, int T2, int C, int Km,
+                   int rows, int slab, int smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || T == 0 || C == 0) return 0;
-  const int rows = rows_per_block(C);
-  const int nblk = hsmm_band_grad_blocks(T, C);
-  const size_t smem = sizeof(float) * (size_t)rows * C;
-  band_grad_kernel<<<dim3(nblk, B), rows * C, smem, (cudaStream_t)stream>>>(
+  if (C < 0 || rows < 1 || (long)rows * C > kMaxThreads ||
+      (long)B * T2 * C > INT_MAX || (long)B * Km * C > INT_MAX ||
+      slab < (Km > 0 ? 1 : 0) || smem > kMaxSmem ||
+      (long)smem < 4L * slab * rows * C || device < 0 || device >= kMaxDevices)
+    return (int)cudaErrorInvalidValue;
+  // the opt-in past 48 KB, once per device and size
+  static int opted[kMaxDevices];
+  if (smem > 48 * 1024 && smem > opted[device]) {
+    err = cudaFuncSetAttribute(band_grad_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    opted[device] = smem;
+  }
+  const int tiles = (T + rows - 1) / rows;
+  band_grad_kernel<<<dim3(tiles, B), rows * C, smem, (cudaStream_t)stream>>>(
       (const float*)g1m, (const float*)g2p, (const float*)dur, (float*)qg,
-      (float*)sa, (float*)st, (float*)lg_part, T, T2, C, Km, rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || Km == 0) return (int)err;
-  const int KmC = Km * C;
-  const int threads = 256;
-  lg_reduce_kernel<<<dim3((KmC + threads - 1) / threads, B), threads, 0,
-                     (cudaStream_t)stream>>>((const float*)lg_part,
-                                             (float*)lg, nblk, KmC);
+      (float*)sa, (float*)st, (float*)lg, (float*)lg_part,
+      (unsigned int*)tickets, T, T2, C, Km, rows, slab);
   return (int)cudaGetLastError();
 }
 

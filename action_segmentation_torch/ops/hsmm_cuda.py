@@ -418,27 +418,127 @@ def _band_grad_plain(G1m, G2p, dur):
     return qg, sa, st, lg
 
 
+class BandGradTile(NamedTuple):
+    """K4's tile: time rows a block (one thread a (row, class)), the
+    durations a shared slab of M holds and its bytes, and where the
+    launch's blocks land (for the record)."""
+
+    rows: int
+    threads: int
+    slab: int
+    smem_bytes: int
+    tiles: int  # a video's
+    blocks_per_sm: int  # resident at once
+    waves: int  # B * tiles over the card's resident blocks
+    filling: float  # the launch's blocks over the waves' resident slots
+    balance: float  # the mean SM's warps over the busiest SM's
+
+
+# an H100 SM's limits, and the registers csrc/band_grad.cu's launch bounds
+# allow a thread
+H100_SMS = 132
+SM_THREADS = 2048
+SM_BLOCKS = 32
+SM_REGS = 65536
+SM_SMEM = 233472  # 228 KB, of which each resident block also holds 1 KB
+SM_SMEM_PER_BLOCK = 1024
+BAND_GRAD_REGS = 32
+# the fewest threads a block of K4 takes (where the video has them): the
+# block that comes last sums its video's tile partials with its threads
+BAND_GRAD_MIN_THREADS = 256
+
+
+@functools.cache
+def band_grad_tile(B, T, C, Km, sms=H100_SMS):
+    """The tile K4 (csrc/band_grad.cu) launches a (B, T, C) plane with Km
+    duration rows on `sms` SMs.
+
+    A block runs every duration of its rows, so a block's time follows its
+    warps, and an SM's the warps it is given: the rule takes the rows
+    (at most 1,024 threads a block, at least BAND_GRAD_MIN_THREADS where
+    T allows) for which the busiest SM, given ceil(blocks / sms) of the
+    launch's blocks, holds the fewest warps; among equals the fewest
+    tiles. The slab holds every duration (Km) where that leaves room for
+    the blocks an SM keeps resident by threads and registers, else the
+    most that does. ``filling`` is the launch's blocks over the resident
+    slots of the waves it takes, ``balance`` the mean SM's warps over the
+    busiest SM's."""
+    C = max(C, 1)
+    hi = max(1, min(T, MAX_BLOCK_THREADS // C))
+    lo = min(hi, -(-BAND_GRAD_MIN_THREADS // C))
+    reg_warps = SM_REGS // (32 * -(-BAND_GRAD_REGS // 8) * 8)
+    best = None
+    for rows in range(lo, hi + 1):
+        threads = rows * C
+        warps = -(-threads // 32)
+        tiles = -(-T // rows)
+        busiest = max(1, -(-B * tiles // sms)) * warps
+        if best is None or (busiest, tiles) < best[:2]:
+            best = (busiest, tiles, rows, threads, warps)
+    busiest, tiles, rows, threads, warps = best
+    per_sm = min(SM_BLOCKS, SM_THREADS // threads, reg_warps // warps)
+    resident = sms * per_sm
+    waves = max(1, -(-B * tiles // resident))
+    room = min(MAX_BLOCK_SMEM, SM_SMEM // per_sm - SM_SMEM_PER_BLOCK) // (4 * threads)
+    slab = min(Km, max(1, room))
+    return BandGradTile(rows, threads, slab, 4 * slab * threads, tiles, per_sm, waves,
+                        B * tiles / (waves * resident),
+                        B * T * C / (32 * sms * busiest))
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# K4's per-video counters, one int32 tensor a device, all 0 between launches
+# (the block that takes a video's last ticket sets it back). Launches on one
+# device share them, so they must not overlap: one stream at a time.
+_TICKETS = {}
+
+
+def _tickets(device, B):
+    tickets = _TICKETS.get(device)
+    if tickets is None or tickets.numel() < B:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("hsmm_band_grad: launch B={} once before capturing a CUDA graph, "
+                               "so that its counters exist outside the graph".format(B))
+        tickets = torch.zeros(max(B, 64), dtype=torch.int32, device=device)
+        _TICKETS[device] = tickets
+    return tickets
+
+
+def _launch_band_grad(G1m, G2p, dur, tile):
+    """One launch of csrc/band_grad.cu in `tile`; returns (qg, sa, st, lg),
+    the first three views of one (3, B, T, C) tensor."""
+    B, T, C = G1m.shape
+    T2, Km = G2p.shape[1], dur.shape[1]
+    qg, sa, st = G1m.new_empty((3, B, T, C)).unbind(0)
+    lg = G1m.new_empty((B, Km, C))
+    partials = G1m.new_empty((B * tile.tiles * Km * C,))
+    err = _call("band_grad", "hsmm_band_grad",
+                [G1m, G2p, dur, qg, sa, st, lg, partials, _tickets(G1m.device, B)],
+                [B, T, T2, C, Km, tile.rows, tile.slab, tile.smem_bytes], G1m)
+    _raise_on_error("hsmm_band_grad", err)
+    return qg, sa, st, lg
+
+
 def hsmm_band_grad(G1m, G2p, dur):
     """Span-posterior masses (qg, sa, st, lg); see ``_band_grad_plain``.
 
     On CUDA tensors (float32, contiguous, C <= 128) it launches
-    csrc/band_grad.cu, which streams T in row tiles and reduces lg over
-    the tiles in a fixed order (two runs give the same bits); on CPU
-    tensors it runs the plain version."""
+    csrc/band_grad.cu once, in the tile ``band_grad_tile`` sizes, which
+    reduces lg over the tiles in a fixed order (two runs give the same
+    bits); on CPU tensors it runs the plain version."""
     if _device_type(G1m) == "cpu":
         return _band_grad_plain(G1m, G2p, dur)
     B, T, T2, C, Km = _band_shapes("hsmm_band_grad", G1m, G2p, dur)
     if not kernels_supported(C):
         raise ValueError("hsmm_band_grad: C={} > {}".format(C, MAX_CLASSES))
-    blocks = _bound("band_grad", "hsmm_band_grad_blocks", (ctypes.c_int, ctypes.c_int))(T, C)
-    qg, sa, st = (torch.empty_like(G1m) for _ in range(3))
-    lg = G1m.new_empty((B, Km, C))
-    partials = G1m.new_empty((B * blocks * Km * C,))
-    err = _call("band_grad", "hsmm_band_grad", [G1m, G2p, dur, qg, sa, st, lg, partials],
-                [B, T, T2, C, Km], G1m)
-    _raise_on_error("hsmm_band_grad", err)
+    tile = band_grad_tile(B, T, C, Km, _sm_count(G1m.device.index))
+    out = _launch_band_grad(G1m, G2p, dur, tile)
     hsmm_band_grad.launches += 1
-    return qg, sa, st, lg
+    return out
 
 
 hsmm_band_grad.launches = 0

@@ -1,17 +1,20 @@
-"""Time the port's scan kernels and the traceback against an earlier
-version of their sources on one card, in turns, with the SM clock read
-while they run.
+"""Time the port's scan kernels, the traceback and the band gradient (K4)
+against an earlier version of their sources on one card, in turns, with
+the SM clock read while they run.
 
 The earlier sources are a directory holding ``hsmm_scan.cu`` and
-``hsmm_viterbi.cu`` (and any header they include), for example a commit's
-files from ``git show <commit>:action_segmentation_torch/csrc/<file>``,
-written into a directory that .gitignore lists. Their scan entry points
-take the wrapper's instance, as the current ones do; their traceback
-takes (pointers, N, T, C, device, stream), the interface before the
-launch took the wrapper's tile. Run from the repository root on a
-machine with a CUDA card:
+``hsmm_viterbi.cu`` (and any header they include), or ``band_grad.cu``
+for ``--kernels band_grad``, for example a commit's files from ``git show
+<commit>:action_segmentation_torch/csrc/<file>``, written into a
+directory that .gitignore lists. Their scan entry points take the
+wrapper's instance, as the current ones do; their traceback takes
+(pointers, N, T, C, device, stream), the interface before the launch took
+the wrapper's tile; their band gradient is the two-launch form before
+the tile (pointers to qg, sa, st, lg and a (B, blocks, Km, C) scratch
+sized by ``hsmm_band_grad_blocks``; B, T, T2, C, Km). Run from the
+repository root on a machine with a CUDA card:
 
-    python3 -m action_segmentation_torch.tools.scan_ab --old_csrc OLD_DIR [--kernels all|scans|traceback] [--out ab.json]
+    python3 -m action_segmentation_torch.tools.scan_ab --old_csrc OLD_DIR [--kernels all|scans|traceback|band_grad] [--out ab.json]
 
 Both versions build with the port's nvcc flags. For each shape and scan
 (the max gamma scan, the log scan with alphas, the forward-only log scan,
@@ -28,6 +31,16 @@ backpointer scan writes, at the serving shape, K=1, C=128, T=12,000 and the
 global-memory tail's shape (C=1, Km=28,900, T=64), with the spans held
 equal; it prints ms, the segments (all videos and the longest video's)
 and us a segment of the longest video's walk, which sets the time.
+
+The band gradient (``--kernels band_grad``, never with the others) is
+timed from replayed CUDA graphs too, old, new, new, old, and each version
+also launched one by one, at the serving shape (first, the earlier
+kernel alone both ways), a CrossTask fit batch (B=5, T=1,056, C=20,
+K=20), T=12,000 (B=2), C=128 (B=4) and Km=100, on the band inputs the
+current log scan gives. It checks that qg, sa and st are equal between
+the versions, that the new lg is the same in two runs and within rtol
+1e-5 / atol 1e-4 of the plain version (equal to the earlier lg where
+the tile keeps its 512 // C rows), and prints the new tile.
 
 A thread reads the SM clock through NVML every 5 ms; each result lists
 the readings taken inside its timed windows, old and new apart. Prints the
@@ -57,6 +70,7 @@ from action_segmentation_torch.ops.distributions import (
     transition_log_probs,
 )
 from action_segmentation_torch.ops.hsmm import HsmmPotentials, _durations, _finals
+from action_segmentation_torch.ops.hsmm_grad import _log_partition
 
 SOURCES = ("hsmm_scan", "hsmm_viterbi")
 D = 300  # feature width of the serving shape
@@ -85,6 +99,15 @@ TRACEBACK_SHAPES = [
     ("T=12000", 2, 12000, 19, 20, [12000, 7001]),
     ("global tail C=1", 2, 64, 1, 28901, None),
 ]
+# the band gradient's shapes: (name, B, T, C, K, lengths)
+BAND_GRAD_SHAPES = [
+    ("serving", 18, 1024, 19, 20, None),
+    ("crosstask fit batch", 5, 1056, 20, 20, [1056, 1001, 900, 808, 612]),
+    ("T=12000", 2, 12000, 19, 20, [12000, 7001]),
+    ("C=128", 4, 1024, 128, 20, None),
+    ("Km=100", 18, 1024, 19, 101, None),
+]
+RTOL, ATOL = 1e-5, 1e-4
 # (scan, symbol, library, outputs: "g" gamma, "a" alphas, "b" codes, "-" none)
 SCANS = [
     ("max", "hsmm_gamma_scan_max", "hsmm_scan", "g-"),
@@ -139,11 +162,12 @@ def clock_summary(mhz):
     return {"n": len(mhz), "min": min(mhz), "median": statistics.median(mhz), "max": max(mhz)}
 
 
-def build_old(csrc, out_dir):
-    """nvcc of each earlier source, all at once, with the port's flags."""
+def build_old(csrc, out_dir, names=SOURCES):
+    """nvcc of each earlier source, all at once, with the port's flags;
+    prints the compiler's register and spill lines."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in SOURCES:
+    for name in names:
         so = out_dir / "lib{}.so".format(name)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(csrc / (name + ".cu"))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -153,8 +177,15 @@ def build_old(csrc, out_dir):
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed for the earlier {}:\n{}".format(name, out))
+        print_ptxas("old " + name, out)
         libs[name] = ctypes.CDLL(str(so))
     return libs
+
+
+def print_ptxas(what, log):
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "registers" in line or "spill" in line:
+            print("{}: {}".format(what, line.strip()), flush=True)
 
 
 def bind(lib, symbol, n_ptr, n_int):
@@ -295,6 +326,96 @@ def traceback_launcher(fn, spans, inputs, new):
     return run
 
 
+def band_grad_inputs(B, T, C, K, lengths, rng, device):
+    """(G1m, G2p, band) as the partition's backward gives the band
+    gradient: from the current log scan's gamma and logZ."""
+    if lengths is None:
+        lengths = np.full(B, T)
+    pots, L = potentials(rng, B, T, C, K, np.asarray(lengths, np.int64), device)
+    gamma, alphas = hc.hsmm_log_scan(*hc._stack_fwd_rev(pots, L))
+    logZ = _log_partition(alphas[:B], L, pots.end_mask)
+    return hc._grad_band_inputs(pots, L, gamma, logZ)
+
+
+def band_grad_launchers(fns, old_blocks, inputs):
+    """{version: (run, (qg, sa, st, lg))}: one launch of each version's
+    band gradient into outputs of its own, the new one in the tile
+    ``band_grad_tile`` sizes for this card."""
+    G1m, G2p, dur = inputs
+    B, T, C = G1m.shape
+    T2, Km = G2p.shape[1], dur.shape[1]
+    tile = hc.band_grad_tile(B, T, C, Km, hc._sm_count(G1m.device.index))
+    scratch = {"old": B * old_blocks(T, C) * Km * C, "new": B * tile.tiles * Km * C}
+    tickets = hc._tickets(G1m.device, B)
+    out = {}
+    for v, fn in fns.items():
+        outs = [torch.empty_like(G1m) for _ in range(3)] + [G1m.new_empty((B, Km, C))]
+        held = [*inputs, *outs, G1m.new_empty((scratch[v],))]  # alive while `run` is
+        ints = [B, T, T2, C, Km]
+        if v == "new":
+            held.append(tickets)
+            ints += [tile.rows, tile.slab, tile.smem_bytes]
+
+        def run(fn=fn, held=held, ints=ints):
+            err = fn(*[x.data_ptr() for x in held], *ints, G1m.device.index,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError("launch failed with CUDA error {}".format(err))
+        out[v] = (run, outs)
+    return out, tile
+
+
+def compare_band_grad(fns, old_blocks, inputs, window_ms, clock, step0=False):
+    """The outputs' checks, then ms from replayed graphs in the order old,
+    new, new, old, and each version launched one by one; with `step0`, the
+    earlier kernel alone both ways first."""
+    runs, tile = band_grad_launchers(fns, old_blocks, inputs)
+    r = {"tile": tile._asdict()}
+    if step0:
+        run = runs["old"][0]
+        n = int(min(1000, max(3, window_ms / event_ms(run, 1)[0])))
+        r["step0_old_graph_ms"] = graph_ms(run, n)[0]
+        r["step0_old_stream_ms"] = event_ms(run, n)[0]
+        print("step 0, the earlier kernel alone at this shape: {:.5f} ms from a replayed graph "
+              "of {} launches, {:.5f} ms launched one by one".format(
+                  r["step0_old_graph_ms"], n, r["step0_old_stream_ms"]), flush=True)
+    for run, _ in runs.values():
+        run()
+    torch.cuda.synchronize()
+    old, new = runs["old"][1], runs["new"][1]
+    new_lg = new[3].clone()
+    runs["new"][0]()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("qg", "sa", "st"), old, new):
+        if not torch.equal(a, b):
+            raise RuntimeError("{}: old and new differ at {} of {} entries".format(
+                name, int((a != b).sum()), a.numel()))
+    if not torch.equal(new_lg, new[3]):
+        raise RuntimeError("lg: two runs of the new kernel differ")
+    plain = hc._band_grad_plain(*inputs)
+    r["differ_plain"] = {name: int((a != b).sum()) for name, a, b in zip(
+        ("qg", "sa", "st"), new, plain)}
+    for name, a, b in zip(("qg", "sa", "st", "lg"), new, plain):
+        try:
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+        except AssertionError as e:
+            raise RuntimeError("{}: the new kernel against the plain version\n{}".format(name, e))
+    r["lg_max_abs_err_plain"] = float((new[3].double() - plain[3].double()).abs().max()) \
+        if new[3].numel() else 0.0
+    r["lg_equal_old"] = bool(torch.equal(old[3], new[3]))
+    if tile.rows == 512 // inputs[0].shape[2] and not r["lg_equal_old"]:
+        raise RuntimeError("lg: the tile keeps the earlier rows, but lg differs")
+    fastest = min(event_ms(run, 1)[0] for run, _ in runs.values())
+    n = int(min(1000, max(3, window_ms / fastest)))
+    timed = [(v, *graph_ms(runs[v][0], n)) for v in ("old", "new", "new", "old")]
+    r["launches"] = n
+    for v in ("old", "new"):
+        r[v + "_ms"] = [ms for w, ms, _ in timed if w == v]
+        r[v + "_sm_mhz"] = clock_summary(clock.within([win for w, _, win in timed if w == v]))
+        r[v + "_stream_ms"] = event_ms(runs[v][0], n)[0]
+    return r
+
+
 def compare(fns, kind, inputs, window_ms, clock):
     """Equal outputs, then ms in the order old, new, new, old, and the SM
     clock readings inside each version's timed windows. Scans by `kind`;
@@ -329,7 +450,8 @@ def compare(fns, kind, inputs, window_ms, clock):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--old_csrc", required=True, type=Path)
-    parser.add_argument("--kernels", choices=("all", "scans", "traceback"), default="all")
+    parser.add_argument("--kernels", choices=("all", "scans", "traceback", "band_grad"),
+                        default="all")
     parser.add_argument("--out", type=Path, default=None)
     parser.add_argument("--window_ms", type=float, default=100.0)
     parser.add_argument("--seed", type=int, default=0)
@@ -341,14 +463,16 @@ def main():
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    old_libs = build_old(args.old_csrc, args.old_csrc / "build")
-    _build.build(list(SOURCES))
-    new_libs = {name: _build.load_library(name) for name in SOURCES}
+    sources = ("band_grad",) if args.kernels == "band_grad" else SOURCES
+    old_libs = build_old(args.old_csrc, args.old_csrc / "build", sources)
+    for name, log in _build.build(list(sources)).items():
+        print_ptxas("new " + name, log)
+    new_libs = {name: _build.load_library(name) for name in sources}
     print("built both versions in {:.1f} s".format(time.perf_counter() - t0), flush=True)
 
     device = torch.device("cuda")
     rng = np.random.RandomState(args.seed)
-    results, tb_results = [], []
+    results, tb_results, bg_results = [], [], []
 
     def clk(s):
         return "{}-{} MHz ({} readings)".format(s.get("min"), s.get("max"), s["n"])
@@ -369,7 +493,32 @@ def main():
                   clk(r["old_sm_mhz"]), clk(r["new_sm_mhz"])), flush=True)
 
     with SmClock(device.index or 0) as clock:
-        for shape, B, T, C, K, lengths in SHAPES if args.kernels != "traceback" else ():
+        if args.kernels == "band_grad":
+            fns = {"old": bind(old_libs["band_grad"], "hsmm_band_grad", 8, 5),
+                   "new": bind(new_libs["band_grad"], "hsmm_band_grad", 9, 8)}
+            old_blocks = old_libs["band_grad"].hsmm_band_grad_blocks
+            old_blocks.argtypes, old_blocks.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+            for shape, B, T, C, K, lengths in BAND_GRAD_SHAPES:
+                inputs = band_grad_inputs(B, T, C, K, lengths, rng, device)
+                r = compare_band_grad(fns, old_blocks, inputs, args.window_ms, clock,
+                                      step0=shape == "serving")
+                old, new = np.mean(r["old_ms"]), np.mean(r["new_ms"])
+                r.update(shape=shape, B=B, T=T, C=C, Km=K - 1, speedup=old / new)
+                bg_results.append(r)
+                t = r["tile"]
+                print("{:20s} band grad B={:2d} T={:5d} C={:3d} Km={:3d}: old {} ms, new {} ms "
+                      "(graphs), x{:.2f}; one by one old {:.5f}, new {:.5f} ms; tile {} rows, "
+                      "{} threads, slab {}, {} tiles a video, {} blocks an SM, {} waves, filling "
+                      "{:.3f}, balance {:.3f}; qg/sa/st equal old, entries differing from plain {}; lg max abs err "
+                      "vs plain {:.3g}, equal old {}; SM clock old {}, new {}".format(
+                          shape, B, T, C, K - 1, ["{:.5f}".format(x) for x in r["old_ms"]],
+                          ["{:.5f}".format(x) for x in r["new_ms"]], r["speedup"],
+                          r["old_stream_ms"], r["new_stream_ms"], t["rows"], t["threads"],
+                          t["slab"], t["tiles"], t["blocks_per_sm"], t["waves"], t["filling"],
+                          t["balance"], r["differ_plain"], r["lg_max_abs_err_plain"],
+                          r["lg_equal_old"], clk(r["old_sm_mhz"]), clk(r["new_sm_mhz"])),
+                      flush=True)
+        for shape, B, T, C, K, lengths in (SHAPES if args.kernels in ("all", "scans") else ()):
             stacked, forward = scan_inputs(B, T, C, K, lengths, rng, device)
             for scan, symbol, lib, kind in SCANS:
                 inputs = stacked if scan in ("max", "log") else forward
@@ -388,7 +537,7 @@ def main():
                            for v, libs in (("old", old_libs), ("new", new_libs))}
                     record(compare(fns, kind, inputs, args.window_ms, clock),
                            "common chain count", scan, inputs)
-        if args.kernels != "scans":
+        if args.kernels in ("all", "traceback"):
             fns = {"old": bind(old_libs["hsmm_viterbi"], "hsmm_viterbi_traceback", 4, 3),
                    "new": bind(new_libs["hsmm_viterbi"], "hsmm_viterbi_traceback", 4, 5)}
             for shape, B, T, C, K, lengths in TRACEBACK_SHAPES:
@@ -416,7 +565,7 @@ def main():
                           r["new_us_per_segment"], r["speedup"], clk(r["old_sm_mhz"]),
                           clk(r["new_sm_mhz"])), flush=True)
     out = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-           "results": results, "traceback": tb_results}
+           "results": results, "traceback": tb_results, "band_grad": bg_results}
     if args.out is not None:
         os.makedirs(args.out.parent, exist_ok=True)
         args.out.write_text(json.dumps(out, indent=1))
@@ -425,7 +574,10 @@ def main():
                                   for r in results],
                       "traceback_ab": [{k: r[k] for k in (
                           "shape", "old_ms", "new_ms", "segments", "segments_longest_video",
-                          "old_us_per_segment", "new_us_per_segment")} for r in tb_results]}))
+                          "old_us_per_segment", "new_us_per_segment")} for r in tb_results],
+                      "band_grad_ab": [{k: r[k] for k in (
+                          "shape", "old_ms", "new_ms", "old_stream_ms", "new_stream_ms",
+                          "speedup")} for r in bg_results]}))
     return 0
 
 

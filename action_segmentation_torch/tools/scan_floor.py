@@ -1,7 +1,8 @@
 """The serial floor of the port's scan kernels and of the traceback: the
 longest chain of dependent instructions that one step of a scan's time
 loop, or one segment of the traceback's walk, hands to the next, worked
-out from the compiled code.
+out from the compiled code; and the issue floor of the band gradient
+(K4), whose duration loop runs in every thread of the launch at once.
 
 A scan's T steps run one after another, so no kernel of this design can
 take less than T x that chain; the traceback's walk takes one link a
@@ -25,14 +26,22 @@ behind a shared store 4 more. Cycles turn into time at the card's
 largest SM clock (`nvidia-smi --query-gpu=clocks.max.sm`), so the floor is
 a lower bound.
 
+K4 (csrc/band_grad.cu) has no serial chain across its launch: every
+warp runs the same duration loop (the loop of `band_grad_kernel` with no
+barrier that holds the terms' MUFU.EX2, one duration an iteration). Its floor is the loop's instructions x Km x the launch's
+warps, issued by the SMs' 4 schedulers, one warp-instruction a clock
+each.
+
 Run from the repository root on a machine with the CUDA toolkit:
 
-    python3 -m action_segmentation_torch.tools.scan_floor [--C 19] [--Km 19] [--T 1024] [--segments 760] [--sass-dir DIR]
+    python3 -m action_segmentation_torch.tools.scan_floor [--B 18] [--C 19] [--Km 19] [--T 1024] [--segments 760] [--sass-dir DIR]
 
-With `--sass-dir`, DIR holds `hsmm_scan.sass` and `hsmm_viterbi.sass`
-(cuobjdump's output) and nothing is built. `--segments` is the most
-segments in one video for the traceback's floor in time. Prints one line
-per serving instance, one for the traceback, and a JSON object last.
+With `--sass-dir`, DIR holds `hsmm_scan.sass`, `hsmm_viterbi.sass` and
+`band_grad.sass` (cuobjdump's output) and nothing is built. `--segments`
+is the most segments in one video for the traceback's floor in time; B,
+T, C and Km size K4's launch (its tile from `hsmm_cuda.band_grad_tile`).
+Prints one line per serving instance, one for the traceback, one for
+K4, and a JSON object last.
 """
 
 import argparse
@@ -43,7 +52,7 @@ import sys
 from pathlib import Path
 
 from action_segmentation_torch.ops import _build
-from action_segmentation_torch.ops.hsmm_cuda import scan_instance
+from action_segmentation_torch.ops.hsmm_cuda import H100_SMS, band_grad_tile, scan_instance
 
 # assumed latencies in cycles, by opcode (the part before the first dot)
 LATENCY = {"MUFU": 20, "LDS": 30, "LDC": 30, "ULDC": 30, "S2R": 20, "S2UR": 20,
@@ -55,6 +64,7 @@ MUFU_ISSUE = 8  # cycles a warp's MUFU holds its quarter's 4 units
 NO_DEST = {"STS", "STG", "ST", "STL", "RED", "LDGSTS", "BRA", "EXIT", "DEPBAR",
            "LDGDEPBAR", "BAR", "NOP", "WARPSYNC", "BSYNC", "BSSY", "MEMBAR", "YIELD",
            "CCTL", "ERRBAR"}
+SCHEDULERS = 4  # an SM's warp schedulers, one warp-instruction a clock each
 SEMIRINGS = {"max": ("hsmm_scan", 0), "log": ("hsmm_scan", 1), "argmax": ("hsmm_viterbi", 2)}
 
 LINE = re.compile(r"/\*([0-9a-f]+)\*/\s+(@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
@@ -78,9 +88,9 @@ def parse_function(sass, mangled_part):
     return out
 
 
-def innermost_loop(insts, wanted, what):
-    """The innermost backward branch whose body `wanted` accepts."""
-    best = None
+def loops(insts, wanted):
+    """The bodies of the backward branches whose body `wanted` accepts."""
+    found = []
     for i, (addr, _, op, ops) in enumerate(insts):
         if op != "BRA" or not ops:
             continue
@@ -90,11 +100,16 @@ def innermost_loop(insts, wanted, what):
         start = next(k for k, ins in enumerate(insts) if ins[0] >= target)
         body = insts[start:i + 1]
         if wanted({ins[2].split(".")[0] for ins in body}):
-            if best is None or len(body) < len(best):
-                best = body
-    if best is None:
+            found.append(body)
+    return found
+
+
+def innermost_loop(insts, wanted, what):
+    """The innermost backward branch whose body `wanted` accepts."""
+    found = loops(insts, wanted)
+    if not found:
         raise ValueError("no {} found".format(what))
-    return best
+    return min(found, key=len)
 
 
 def time_loop(insts):
@@ -114,6 +129,33 @@ def traceback_floor(sass):
     in csrc/hsmm_viterbi.cu's SASS."""
     body = walk_loop(parse_function(sass, "viterbi_traceback_kernel"))
     return chain_cycles(body)[0], sum(1 for ins in body if ins[2] != "NOP")
+
+
+def duration_loop(insts):
+    """K4's duration loop: the loop with no barrier that holds the expf
+    of its terms (MUFU.EX2; an integer division's MUFU.RCP does not
+    count); where the compiler made several versions of it, the longest."""
+    found = [body for body in loops(insts, lambda ops: "MUFU" in ops and "BAR" not in ops)
+             if sum(1 for ins in body if ins[2] == "MUFU.EX2") >= 2]
+    if not found:
+        raise ValueError("no duration loop found")
+    return max(found, key=len)
+
+
+def band_grad_floor(sass):
+    """(instructions, MUFU) of one iteration (one duration) of K4's
+    duration loop in csrc/band_grad.cu's SASS."""
+    body = duration_loop(parse_function(sass, "band_grad_kernel"))
+    return (sum(1 for ins in body if ins[2] != "NOP"),
+            sum(1 for ins in body if ins[2].startswith("MUFU")))
+
+
+def band_grad_issue_ms(instructions, B, T, C, Km, clock_mhz, sms=H100_SMS):
+    """K4's issue floor in ms: the loop's instructions x Km x the launch's
+    warps (B x tiles x warps a block), over `sms` SMs of 4 schedulers."""
+    tile = band_grad_tile(B, T, C, Km, sms)
+    warps = B * tile.tiles * -(-tile.threads // 32)
+    return instructions * Km * warps / (sms * SCHEDULERS) / clock_mhz * 1e-3
 
 
 def regs(operand, width_hint=1):
@@ -217,6 +259,7 @@ def max_sm_clock_mhz():
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--B", type=int, default=18)
     parser.add_argument("--C", type=int, default=19)
     parser.add_argument("--Km", type=int, default=19)
     parser.add_argument("--T", type=int, default=1024)
@@ -228,7 +271,7 @@ def main():
     args = parser.parse_args()
 
     sass = {}
-    for lib in ("hsmm_scan", "hsmm_viterbi"):
+    for lib in ("hsmm_scan", "hsmm_viterbi", "band_grad"):
         if args.sass_dir is not None:
             sass[lib] = (args.sass_dir / (lib + ".sass")).read_text()
         else:
@@ -267,8 +310,15 @@ def main():
         tb["chain_floor_ms"] = args.segments * chain / clock * 1e-3
         line += "; {} segments -> {:.5f} ms".format(args.segments, tb["chain_floor_ms"])
     print(line)
-    print(json.dumps({"scan_floor": results, "traceback_floor": tb, "C": args.C, "Km": args.Km,
-                      "T": args.T, "clock_mhz": clock}))
+    insts, mufu = band_grad_floor(sass["band_grad"])
+    bg = {"instructions_per_duration": insts, "mufu_per_duration": mufu, "B": args.B,
+          "tile": band_grad_tile(args.B, args.T, args.C, args.Km)._asdict(),
+          "issue_floor_ms": band_grad_issue_ms(insts, args.B, args.T, args.C, args.Km, clock)}
+    print("band grad duration loop: {} instructions ({} MUFU) a duration; B={} T={} C={} Km={} "
+          "-> issue floor {:.5f} ms".format(insts, mufu, args.B, args.T, args.C, args.Km,
+                                            bg["issue_floor_ms"]))
+    print(json.dumps({"scan_floor": results, "traceback_floor": tb, "band_grad_floor": bg,
+                      "C": args.C, "Km": args.Km, "T": args.T, "clock_mhz": clock}))
     return 0
 
 

@@ -11,7 +11,9 @@ exit and no result line:
   1. device  — card name, count, and nvidia-smi's name and power limit;
   2. build   — the four kernel sources from action_segmentation_torch/csrc
                with nvcc for sm_90a, all at once, printing ptxas'
-               register/smem/spill lines;
+               register/smem/spill lines (a serving scan instance or the
+               band gradient that spills, or a band gradient above the
+               registers its tile rule assumes, fails the run);
   3. kernels — each decode kernel against its plain PyTorch version on the
                card at the serving width (B=18, T=1024, C=19, K=20, D=300)
                and at the edge cases (ragged lengths down to 1 with bucket
@@ -53,15 +55,24 @@ exit and no result line:
                above 10x chance), Segmenter(task=).segment_many equal to
                predict, a constrained unsupervised fit (ordering and
                narration at train, its loss must fall, the training kernels
-               once per batch) and a decode with narration at test;
+               once per batch; the band gradient's inputs kept at each of
+               its launches) and a decode with narration at test;
   5. times   — CUDA-event kernel and plain-version times at the serving
                shape beside the roofline bound, the traceback's also beside
                its serial floor (the longest video's segments x one
                segment's dependent chain, read from the kernel's SASS by
                tools/scan_floor.py) and at each CrossTask predict batch
-               (spans equal to the plain version's there too),
-               segment_many frames/s, one training step's time, the fit's
-               frames/s and the CrossTask predict's frames/s.
+               (spans equal to the plain version's there too); the band
+               gradient from a replayed CUDA graph and launched one by
+               one, with its wrapper's host time a call, beside its bound
+               (the larger of bytes, fp32 operations and the special-
+               function units' three transcendentals a term) and its issue
+               floor (the duration loop's instructions from the SASS x Km
+               x the launch's warps over the SMs' schedulers), at the
+               serving shape and at each batch of the constrained
+               CrossTask fit (checked against the plain version there
+               too); segment_many frames/s, one training step's time, the
+               fit's frames/s and the CrossTask predict's frames/s.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -84,9 +95,12 @@ import numpy as np
 # CrossTask-length video, 18 videos per batch
 B, T, C, K, D = 18, 1024, 19, 20, 300
 N_TIMED = 50
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32 op/s
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32 op/s;
+# special-function-unit operations a clock per SM (CUDA programming guide,
+# compute capability 9.0)
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+SFU_PER_SM_CLOCK = 16
 # tolerances of the JAX package's own tests: scores (tests/test_hsmm_pallas.py)
 # and the partition's gradients (tests/test_hsmm_grad.py)
 RTOL, ATOL = 1e-5, 1e-4
@@ -805,23 +819,25 @@ def run_viterbi_kernels(device):
     return serving
 
 
-def capture_traceback_inputs(fn):
-    """Runs fn() with the traceback's launch keeping a copy of the inputs
-    of each launch; returns them."""
+def capture_launch_inputs(launch_name, fn):
+    """Runs fn() with hsmm_cuda.<launch_name> (the traceback's or the band
+    gradient's launch, which the wrapper looks up at each call) keeping a
+    copy of the tensor inputs of each launch (all but the tile); returns
+    them and fn's result."""
     from action_segmentation_torch.ops import hsmm_cuda
 
-    kept, launch = [], hsmm_cuda._launch_traceback
+    kept, launch = [], getattr(hsmm_cuda, launch_name)
 
-    def keep(bp, lengths, c_last, tile):
-        kept.append((bp.clone(), lengths.clone(), c_last.clone()))
-        return launch(bp, lengths, c_last, tile)
+    def keep(*args):
+        kept.append(tuple(a.clone() for a in args[:-1]))
+        return launch(*args)
 
-    hsmm_cuda._launch_traceback = keep  # the wrapper looks it up at each call
+    setattr(hsmm_cuda, launch_name, keep)
     try:
-        fn()
+        out = fn()
     finally:
-        hsmm_cuda._launch_traceback = launch
-    return kept
+        setattr(hsmm_cuda, launch_name, launch)
+    return kept, out
 
 
 def crosstask_args(root, *extra):
@@ -844,8 +860,8 @@ def run_crosstask_slice(device):
     through the exact-spans kernels -> MoF/F1, Segmenter(task=), then the
     constrained unsupervised fit of CT_FIT_TASKS tasks and a decode with
     narration at test. Returns the e2e record and the decode path's
-    launches of (viterbi scan, traceback), and the traceback's inputs at
-    each predict batch."""
+    launches of (viterbi scan, traceback), the traceback's inputs at each
+    predict batch and the band gradient's at each batch of the fit."""
     import torch
 
     from action_segmentation_torch import main as port_main
@@ -922,8 +938,8 @@ def run_crosstask_slice(device):
         launches = counts(decode_kernels)
         frames = sum(lengths)
         # the traceback's inputs at each predict batch, timed in phase 5
-        tb_batches = capture_traceback_inputs(
-            lambda: [model.predict(val) for _, model, _, val in models])
+        tb_batches, _ = capture_launch_inputs(
+            "_launch_traceback", lambda: [model.predict(val) for _, model, _, val in models])
 
         # 4. MoF and F1 per task by the datasplit's accuracy_corpus
         correct = total = 0
@@ -965,17 +981,23 @@ def run_crosstask_slice(device):
         reset(train_kernels)
         fit_batches = 0
         unsup = []
+
+        def fit_tasks():
+            for _, _, train, val in models[:CT_FIT_TASKS]:
+                model = SemiMarkovModel.from_args(uargs, train, device=device)
+                losses = []
+                model.fit(train, use_labels=False,
+                          callback_fn=lambda e, s, losses=losses: losses.append(s["train_loss"]))
+                check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+                      "constrained unsupervised epoch loss did not fall: {}".format(losses))
+                unsup.append((model, val, losses))
+
+        # the band gradient's inputs at each batch of the fit, timed in phase 5
         t0 = time.perf_counter()
-        for _, _, train, val in models[:CT_FIT_TASKS]:
-            model = SemiMarkovModel.from_args(uargs, train, device=device)
-            losses = []
-            model.fit(train, use_labels=False,
-                      callback_fn=lambda e, s, losses=losses: losses.append(s["train_loss"]))
-            check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
-                  "constrained unsupervised epoch loss did not fall: {}".format(losses))
-            fit_batches += 2 * -(-len(train._tasks_and_video_names) // uargs.batch_size)
-            unsup.append((model, val, losses))
+        bg_batches, _ = capture_launch_inputs("_launch_band_grad", fit_tasks)
         unsup_s = time.perf_counter() - t0
+        for _, _, train, _ in models[:CT_FIT_TASKS]:
+            fit_batches += 2 * -(-len(train._tasks_and_video_names) // uargs.batch_size)
         n_train = counts(train_kernels)
         phase("crosstask slice", "constrained unsupervised fit (ordering, narration at train): "
               "{} tasks x 2 epochs, {} batches in {:.3f} s, epoch losses {}, launches log/"
@@ -1012,7 +1034,7 @@ def run_crosstask_slice(device):
         "crosstask_mean_f1": float(np.mean(f1s)),
         "crosstask_unsup_epoch_losses": [u[2] for u in unsup],
     }
-    return e2e, launches[:2], tb_batches
+    return e2e, launches[:2], tb_batches, bg_batches
 
 
 def cuda_ms(fn, n, warmup=3):
@@ -1029,6 +1051,22 @@ def cuda_ms(fn, n, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def host_ms(fn, n, warmup=3):
+    """Host ms of one call of fn: n calls enqueued back to back on the
+    host clock, without waiting for the card (its queue holds them)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds * 1e3 / n
 
 
 def graph_ms(fn, n):
@@ -1098,6 +1136,25 @@ def bound(nbytes, ops):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def band_grad_bound(grad_in, sms, clock_mhz):
+    """The band gradient's bound in ms, "bytes" or "operations", and which
+    limit sets it ("bytes", "fp32" or "sfu") with the three times. In:
+    G1m, G2p, dur; out: qg, sa, st, lg. A (t, c, r) term takes 12 fp32
+    operations (x add, logaddexp 6, M add and exp, the sa, st and lg
+    adds) and 3 transcendentals on the special-function units (the exp
+    and log1p of the logaddexp, the exp of M)."""
+    G1m, G2p, dur = grad_in
+    terms = G1m.numel() * dur.shape[1]
+    times = {
+        "bytes": 4 * (G1m.numel() + G2p.numel() + 2 * dur.numel() + 3 * G1m.numel()) / PEAK_BYTES,
+        "fp32": 12 * terms / PEAK_FP32,
+        "sfu": 3 * terms / (sms * SFU_PER_SM_CLOCK * clock_mhz * 1e6),
+    }
+    kind = max(times, key=times.get)
+    return (times[kind] * 1e3, "bytes" if kind == "bytes" else "operations", kind,
+            {k: v * 1e3 for k, v in times.items()})
+
+
 def main():
     import torch
 
@@ -1122,7 +1179,10 @@ def main():
         hsmm_viterbi_traceback,
         scan_instance,
     )
+    from action_segmentation_torch.ops import hsmm_cuda
     from action_segmentation_torch.tools.scan_floor import (
+        band_grad_floor,
+        band_grad_issue_ms,
         built_sass,
         max_sm_clock_mhz,
         traceback_floor,
@@ -1147,15 +1207,21 @@ def main():
     logs = _build.build(["hsmm_scan", "band_max", "band_grad", "hsmm_viterbi"])
     phase("build", "nvcc sm_90a, {:.1f} s".format(time.perf_counter() - t0))
     ptxas = {}
+    no_spills = "0 bytes spill stores, 0 bytes spill loads"
     for name, log in logs.items():
         for fn, regs, spills in ptxas_entries(log):
-            ptxas[fn] = spills
+            ptxas[fn] = (regs, spills)
             phase("build", "{}: {}: {} registers, {}".format(name, fn, regs, spills))
     inst = scan_instance(C, K - 1)
     for semiring in SCAN_SEMIRINGS:  # the serving instance
         serving = scan_kernel_name(semiring, inst.warps, inst.row, inst.tail)
-        check("0 bytes spill stores, 0 bytes spill loads" in ptxas.get(serving, ""),
+        check(no_spills in ptxas.get(serving, (0, ""))[1],
               "{} spills or was not built: {!r}".format(serving, ptxas.get(serving)))
+    bg_regs, bg_spills = ptxas.get("band_grad_kernel", (None, ""))
+    check(no_spills in bg_spills and bg_regs is not None
+          and bg_regs <= hsmm_cuda.BAND_GRAD_REGS,
+          "band_grad_kernel spills, was not built or takes more than the {} registers its tile "
+          "rule assumes: {!r}".format(hsmm_cuda.BAND_GRAD_REGS, ptxas.get("band_grad_kernel")))
 
     # 3. kernels against their plain versions
     rng = np.random.RandomState(0)
@@ -1198,7 +1264,7 @@ def main():
     # 4. the slices end to end (each resets and reads the launch counters)
     e2e, launches = run_slice(device, num_videos=36, max_len=T, shift=1.0)
     train_e2e, train_launches = run_train_slice(device, num_videos=36, max_len=T, shift=1.0)
-    ct_e2e, ct_launches, ct_tb_in = run_crosstask_slice(device)
+    ct_e2e, ct_launches, ct_tb_in, ct_bg_in = run_crosstask_slice(device)
     e2e.update(train_e2e)
     e2e.update(ct_e2e, marginal_sum_gap=gaps)
 
@@ -1224,7 +1290,11 @@ def main():
     log_plain_ms = cuda_ms(lambda: _log_scan_plain(*log_in), 2, warmup=1)
     fwd_ms = cuda_ms(lambda: hsmm_forward_scan(*fwd_in), N_TIMED)
     fwd_plain_ms = cuda_ms(lambda: _forward_scan_plain(*fwd_in), 2, warmup=1)
-    grad_ms = cuda_ms(lambda: hsmm_band_grad(*grad_in), N_TIMED)
+    # the band gradient is shorter than its wrapper's host time: timed from
+    # a replayed CUDA graph, and launched one by one beside it
+    grad_ms = graph_ms(lambda: hsmm_band_grad(*grad_in), N_TIMED)
+    grad_stream_ms = cuda_ms(lambda: hsmm_band_grad(*grad_in), N_TIMED)
+    grad_host_ms = host_ms(lambda: hsmm_band_grad(*grad_in), N_TIMED)
     grad_plain_ms = cuda_ms(lambda: _band_grad_plain(*grad_in), 10)
 
     def scan_bound(n, n_out):
@@ -1237,11 +1307,34 @@ def main():
 
     l_bound, l_by = scan_bound(N2, 2)
     f_bound, f_by = scan_bound(B, 1)
-    G1m, G2pg, bandg = grad_in
-    # in: G1m, G2p, dur; out: qg, sa, st, lg. Per (t, c, r): x add,
-    # logaddexp (6), M add + exp, the sa, st and lg adds
-    grad_bytes = 4 * (G1m.numel() + G2pg.numel() + 2 * bandg.numel() + 3 * G1m.numel())
-    gr_bound, gr_by = bound(grad_bytes, G1m.numel() * Km * 12)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = max_sm_clock_mhz()
+    gr_bound, gr_by, gr_kind, gr_times = band_grad_bound(grad_in, sms, clock_mhz)
+    # the issue floor: the duration loop's instructions from the SASS
+    bg_insts, bg_mufu = band_grad_floor(built_sass("band_grad"))
+
+    def bg_floor(grad_in):
+        Bn, Tn, Cn = grad_in[0].shape
+        return band_grad_issue_ms(bg_insts, Bn, Tn, Cn, grad_in[2].shape[1], clock_mhz, sms)
+
+    bg_tile = hsmm_cuda.band_grad_tile(B, T, C, Km, sms)
+    # the band gradient at the constrained CrossTask fit's batches: the
+    # launches the training path makes there
+    ct_bg = []
+    for bg_in in ct_bg_in:
+        got, want = hsmm_band_grad(*bg_in), _band_grad_plain(*bg_in)
+        torch.cuda.synchronize()
+        for n, k, p in zip(("qg", "sa", "st", "lg"), got, want):
+            assert_close("crosstask fit batch band grad " + n, k, p)
+        Bn, Tn, Cn = bg_in[0].shape
+        tile = hsmm_cuda.band_grad_tile(Bn, Tn, Cn, bg_in[2].shape[1], sms)
+        ct_bg.append((graph_ms(lambda: hsmm_band_grad(*bg_in), N_TIMED),
+                      cuda_ms(lambda: hsmm_band_grad(*bg_in), N_TIMED), bg_floor(bg_in),
+                      band_grad_bound(bg_in, sms, clock_mhz)[0], (Bn, Tn, Cn),
+                      (tile.rows, Bn * tile.tiles, tile.waves)))
+    check(len(ct_bg) > 0, "the constrained CrossTask fit launched no band gradient")
+    ct_mean = {k: float(np.mean([x[i] for x in ct_bg]))
+               for i, k in enumerate(("ms", "stream_ms", "floor_ms", "bound_ms"))}
 
     vit_ms = cuda_ms(lambda: hsmm_viterbi_scan(*vit_in), N_TIMED)
     vit_plain_ms = cuda_ms(lambda: _viterbi_scan_plain(*vit_in), 2, warmup=1)
@@ -1260,7 +1353,6 @@ def main():
     tb_bound, tb_by = bound(8 * B * T + 8 * n_segments + 16 * B, 4 * n_segments)
     # the walk's serial floor: the longest video's segments, one chain each
     chain, _ = traceback_floor(built_sass("hsmm_viterbi"))
-    clock_mhz = max_sm_clock_mhz()
     tb_floor_ms = longest * chain / clock_mhz * 1e-3
     # the traceback at the CrossTask predict batches: the launches the
     # spans chain's main path makes
@@ -1321,8 +1413,21 @@ def main():
             "source": "action_segmentation_torch/csrc/band_grad.cu",
             "replaces": TPU_FILE + ":771", "launches": train_launches[2],
             "max_abs_err": train_errs["band_grad"], "ms": grad_ms, "kernel_ms": grad_ms,
+            "graph_ms": grad_ms, "stream_ms": grad_stream_ms, "host_ms": grad_host_ms,
             "plain_ms": grad_plain_ms, "bound_ms": gr_bound, "bound_by": gr_by,
+            "bound_limit": gr_kind, "bytes_ms": gr_times["bytes"], "fp32_ms": gr_times["fp32"],
+            "sfu_ms": gr_times["sfu"], "floor_ms": bg_floor(grad_in),
+            "floor_instructions_per_duration": bg_insts, "floor_mufu_per_duration": bg_mufu,
+            "registers": bg_regs, "rows": bg_tile.rows, "slab": bg_tile.slab,
+            "blocks": B * bg_tile.tiles, "blocks_per_sm": bg_tile.blocks_per_sm,
+            "waves": bg_tile.waves, "filling": bg_tile.filling, "balance": bg_tile.balance,
             "library_ms": None,
+            "crosstask_fit_batches": len(ct_bg),
+            "crosstask_fit_batch_ms": ct_mean["ms"],
+            "crosstask_fit_batch_ms_range": [min(x[0] for x in ct_bg), max(x[0] for x in ct_bg)],
+            "crosstask_fit_batch_stream_ms": ct_mean["stream_ms"],
+            "crosstask_fit_batch_floor_ms": ct_mean["floor_ms"],
+            "crosstask_fit_batch_bound_ms": ct_mean["bound_ms"],
         },
         {
             "name": "hsmm_viterbi_scan", "route": "cuda",
@@ -1383,6 +1488,20 @@ def main():
               float(np.mean([x[4] for x in ct_tb])), float(np.mean([x[1] for x in ct_tb])),
               ct_longest, ct_longest * chain / clock_mhz * 1e-3,
               sorted({tuple(x[3]) for x in ct_tb})))
+    phase("times", "band grad {:.5f} ms (a CUDA graph of {} launches; {:.5f} launched one by "
+          "one; the wrapper's host time {:.5f} a call), bound {:.5f} ms by {} (bytes {:.5f}, fp32 {:.5f}, sfu {:.5f} at {:.0f} MHz), "
+          "issue floor {:.5f} ms ({} instructions, {} MUFU a duration, {} registers); tile {} "
+          "rows, slab {}, {} blocks, {} an SM, {} waves, filling {:.3f}, balance {:.3f}".format(
+              grad_ms, N_TIMED, grad_stream_ms, grad_host_ms, gr_bound, gr_kind, gr_times["bytes"],
+              gr_times["fp32"], gr_times["sfu"], clock_mhz, bg_floor(grad_in), bg_insts, bg_mufu,
+              bg_regs, bg_tile.rows, bg_tile.slab, B * bg_tile.tiles, bg_tile.blocks_per_sm,
+              bg_tile.waves, bg_tile.filling, bg_tile.balance))
+    phase("times", "band grad at the {} constrained crosstask fit batches: {:.5f} ms a launch "
+          "({:.5f}-{:.5f}; {:.5f} launched one by one), bound {:.5f} ms, issue floor {:.5f} ms; "
+          "shapes {}, (rows, blocks, waves) {}".format(
+              len(ct_bg), ct_mean["ms"], min(x[0] for x in ct_bg), max(x[0] for x in ct_bg),
+              ct_mean["stream_ms"], ct_mean["bound_ms"], ct_mean["floor_ms"],
+              sorted({x[4] for x in ct_bg}), sorted({x[5] for x in ct_bg})))
     print(json.dumps({"e2e": e2e, "card": smi}), flush=True)
     phase("done", "{:.1f} s".format(time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -133,13 +133,28 @@ def test_log_scans_match_plain(cuda, B, T, C, K):
     torch.testing.assert_close(fwd, want_alphas, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("B,T,C,K", SHAPES)
-def test_band_grad_kernel_matches_plain(cuda, B, T, C, K):
-    pots, lengths = random_pots(np.random.RandomState(B + 5 * T), B, T, C, K, cuda)
+# the band gradient (csrc/band_grad.cu) beyond SHAPES (which hold K=1,
+# Km = 0): several slabs (Km past the slab), a video shorter than the
+# serving shape's 47-row tile, T not a multiple of the tile, C=1, and one
+# long video
+BAND_GRAD_SHAPES = SHAPES + [(4, 300, 19, 101), (2, 100, 128, 65), (3, 30, 19, 20),
+                             (18, 1000, 19, 20), (3, 100, 1, 20), (1, 12000, 19, 20)]
+
+
+def band_grad_inputs(B, T, C, K, device, seed):
+    """(G1m, G2p, band) as the partition's backward builds them."""
+    pots, lengths = random_pots(np.random.RandomState(seed), B, T, C, K, device)
     lengths = lengths.long()
     gamma, alphas = hc._log_scan_plain(*hc._stack_fwd_rev(pots, lengths))
     logZ = hg._log_partition(alphas[:B], lengths, pots.end_mask)
-    band_in = hc._grad_band_inputs(pots, lengths, gamma, logZ)
+    return hc._grad_band_inputs(pots, lengths, gamma, logZ)
+
+
+def assert_band_grad_matches_plain(band_in):
+    """Two launches: qg, sa and st equal to the plain version's (the same
+    float32 operations in the same order), lg the same in both runs and
+    within the score tolerance of the plain sum (its association over T
+    is the kernel's tiles)."""
     before = hc.hsmm_band_grad.launches
     got = hc.hsmm_band_grad(*band_in)
     again = hc.hsmm_band_grad(*band_in)
@@ -148,7 +163,51 @@ def test_band_grad_kernel_matches_plain(cuda, B, T, C, K):
     torch.cuda.synchronize()
     for name, g, a, w in zip(("qg", "sa", "st", "lg"), got, again, want):
         assert torch.equal(g, a), name + ": two runs differ"
-        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=name)
+        if name == "lg":
+            torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL, msg=name)
+        else:
+            assert torch.equal(g, w), "{}: {} of {} differ from the plain version".format(
+                name, int((g != w).sum()), g.numel())
+
+
+@pytest.mark.parametrize("B,T,C,K", BAND_GRAD_SHAPES)
+def test_band_grad_kernel_matches_plain(cuda, B, T, C, K):
+    band_in = band_grad_inputs(B, T, C, K, cuda, B + 5 * T)
+    tile = hc.band_grad_tile(B, T, C, K - 1, hc._sm_count(cuda.index or 0))
+    if K == 101:
+        assert tile.slab < K - 1  # several slabs
+    if (T, C) == (1000, 19):
+        assert T % tile.rows != 0
+    assert_band_grad_matches_plain(band_in)
+
+
+def test_band_grad_counters_return_to_zero(cuda):
+    """K4's per-video counters: 18 videos, then 3, then 18 again, each lg
+    right; every counter is back at 0 after each launch."""
+    for i, B in enumerate((18, 3, 18)):
+        band_in = band_grad_inputs(B, 256, 19, 20, cuda, 100 + i)
+        assert_band_grad_matches_plain(band_in)
+        assert int(hc._TICKETS[band_in[0].device].abs().sum()) == 0
+
+
+def test_band_grad_launch_refuses_a_tile_that_does_not_fit(cuda):
+    """The launch takes the wrapper's tile; shared memory that cannot hold
+    a slab of its rows, more than 1,024 threads, or no slab for a band
+    is refused, not run."""
+    band_in = band_grad_inputs(2, 64, 19, 20, cuda, 7)
+    tile = hc.band_grad_tile(2, 64, 19, 19)
+    for bad in (tile._replace(smem_bytes=tile.smem_bytes - 4),
+                tile._replace(rows=54, tiles=2),
+                tile._replace(slab=0, smem_bytes=0),
+                tile._replace(smem_bytes=hc.MAX_BLOCK_SMEM + 4)):
+        with pytest.raises(RuntimeError, match="hsmm_band_grad"):
+            hc._launch_band_grad(*band_in, bad)
+    got = hc._launch_band_grad(*band_in, tile)
+    want = hc._band_grad_plain(*band_in)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    torch.testing.assert_close(got[3], want[3], rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("B,T,C,K", [(3, 50, 5, 4), (18, 160, 19, 20), (4, 128, 128, 20),

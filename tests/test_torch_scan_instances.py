@@ -1,5 +1,5 @@
-"""The scan kernels' instances, the traceback's tile, and the build
-cache's key, on the CPU.
+"""The scan kernels' instances, the traceback's tile, the band
+gradient's tile, and the build cache's key, on the CPU.
 
 ``hsmm_cuda.scan_instance(C, Km)`` picks the instance of the scan
 template (csrc/hsmm_scan_core.cuh) that a shape launches and sizes its
@@ -74,6 +74,63 @@ def test_serving_and_crosstask_planes_are_one_tile():
     assert hc.traceback_tile(1024, 19) == (1024, 16 + 2 * 4 * (1024 * 19 + 4))
     assert hc.traceback_tile(1056, 20).rows == 1056
     assert hc.traceback_tile(12000, 19).rows == 1528
+
+
+@pytest.mark.parametrize("Km", (0, 1, 19, 64, 100))
+@pytest.mark.parametrize("T", (1, 19, 100, 1024, 12000))
+@pytest.mark.parametrize("C", (1, 19, 20, 33, 128))
+def test_band_grad_tile_fits_the_block(C, T, Km):
+    """K4's tile (``hsmm_cuda.band_grad_tile``) for 18 videos on 132 SMs:
+    at least one row and at most T, at most 1,024 threads, a slab of M
+    (slab x threads floats) within a block's 232,448 bytes and, beside a
+    KB each, within an SM's shared memory for the blocks it keeps
+    resident, which fit its 64 warps and its registers at the kernel's
+    32 a thread. The slab covers the band: all of it, or as many
+    durations as that room holds (no slab at Km = 0). The tile's rows
+    leave the busiest SM the fewest warps of any allowed rows."""
+    B, sms = 18, 132
+    tile = hc.band_grad_tile(B, T, C, Km, sms)
+    warps = -(-tile.threads // 32)
+    assert 1 <= tile.rows <= T
+    assert tile.threads == tile.rows * C <= hc.MAX_BLOCK_THREADS
+    assert tile.tiles == -(-T // tile.rows)
+    assert tile.smem_bytes == 4 * tile.slab * tile.threads <= hc.MAX_BLOCK_SMEM
+    assert tile.blocks_per_sm * (tile.smem_bytes + hc.SM_SMEM_PER_BLOCK) <= hc.SM_SMEM
+    assert tile.blocks_per_sm * warps <= 64
+    assert tile.blocks_per_sm * warps * 32 * hc.BAND_GRAD_REGS <= hc.SM_REGS
+    room = min(hc.MAX_BLOCK_SMEM,
+               hc.SM_SMEM // tile.blocks_per_sm - hc.SM_SMEM_PER_BLOCK) // (4 * tile.threads)
+    assert (tile.slab >= 1) == (Km > 0)
+    assert tile.slab == Km or tile.slab == room < Km
+    assert tile.waves == -(-B * tile.tiles // (sms * tile.blocks_per_sm))
+    assert 0 < tile.filling <= 1 and 0 < tile.balance <= 1
+    lo = min(T, -(-hc.BAND_GRAD_MIN_THREADS // C))
+    busiest = [-(-B * -(-T // rows) // sms) * -(-rows * C // 32)
+               for rows in range(lo, min(T, hc.MAX_BLOCK_THREADS // C) + 1)]
+    assert -(-B * tile.tiles // sms) * warps == min(busiest)
+
+
+def test_band_grad_tile_at_the_serving_shape_and_crosstask_fit():
+    """At the serving shape (B=18, T=1024, C=19, Km=19) one slab holds
+    every duration, so a block crosses two barriers in its sweep, and the
+    launch fills its waves and spreads its warps at least as well as the
+    earlier kernel's 512 // C = 26 rows (720 blocks of 494 threads, 4 an
+    SM: 2 waves of 528 slots, 0.68 filled; the busiest SM 6 blocks of 16
+    warps). At the CrossTask fit's batches (5 videos of up to 1,056 frames,
+    C=20; a batch of 1) the tile leaves no SM more than one block."""
+    serving = hc.band_grad_tile(18, 1024, 19, 19)
+    assert serving.slab == 19 and serving.smem_bytes == 4 * 19 * serving.threads
+    ideal = 18 * 1024 * 19 / 32 / 132
+    assert serving.filling >= 720 / (2 * 528)
+    assert serving.balance >= ideal / (6 * 16)
+    assert serving == (47, 893, 19, 67868, 22, 2, 2, 0.75, ideal / (3 * 28))
+    for B, T in ((5, 1056), (5, 808), (1, 1056)):
+        fit = hc.band_grad_tile(B, T, 20, 19)
+        assert fit.slab == 19 and fit.waves == 1 and B * fit.tiles <= 132, (B, T, fit)
+    assert hc.band_grad_tile(0, 0, 19, 19).filling == 0  # an empty plane launches nothing
+    # the rule follows the card's SM count
+    assert hc.band_grad_tile(5, 1056, 20, 19, sms=66).tiles != hc.band_grad_tile(
+        5, 1056, 20, 19).tiles
 
 
 def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
