@@ -368,18 +368,137 @@ def _band_shapes(name, G1, G2p, dur):
     return B, T, T2, C, Km
 
 
+class BandTile(NamedTuple):
+    """A band kernel's tile (K3, K4): time rows a block (one thread a
+    (row, class)), the durations a shared slab holds and the launch's
+    shared memory, and where the launch's blocks land (for the record)."""
+
+    rows: int
+    threads: int
+    slab: int
+    smem_bytes: int
+    tiles: int  # a video's
+    blocks_per_sm: int  # resident at once
+    waves: int  # B * tiles over the card's resident blocks
+    filling: float  # the launch's blocks over the waves' resident slots
+    balance: float  # the mean SM's warps over the busiest SM's
+
+
+# an H100 SM's limits, and the registers csrc/band_max.cu's and
+# csrc/band_grad.cu's launch bounds allow a thread
+H100_SMS = 132
+SM_THREADS = 2048
+SM_BLOCKS = 32
+SM_REGS = 65536
+SM_SMEM = 233472  # 228 KB, of which each resident block also holds 1 KB
+SM_SMEM_PER_BLOCK = 1024
+BAND_MAX_REGS = 32
+BAND_GRAD_REGS = 32
+# the fewest threads a block of K4 takes (where the video has them): the
+# block that comes last sums its video's tile partials with its threads
+BAND_GRAD_MIN_THREADS = 256
+
+
+def _blocks_per_sm(threads, regs):
+    """Blocks of `threads` that an SM keeps resident by threads, block
+    count and registers (`regs` a thread, allocated 8 at a time)."""
+    reg_warps = SM_REGS // (32 * -(-regs // 8) * 8)
+    return min(SM_BLOCKS, SM_THREADS // threads, reg_warps // -(-threads // 32))
+
+
+def _band_tile(B, T, C, rows, busiest, slab, smem_bytes, per_sm, sms):
+    tiles = -(-T // rows)
+    resident = sms * per_sm
+    waves = max(1, -(-B * tiles // resident))
+    return BandTile(rows, rows * C, slab, smem_bytes, tiles, per_sm, waves,
+                    B * tiles / (waves * resident), B * T * C / (32 * sms * busiest))
+
+
+def _fewest_rows(B, T, C, sms, lo_threads, cost):
+    """A band tile's rows: of the rows allowed (at most 1,024 threads a
+    block, at least `lo_threads` where T allows), those for which the
+    busiest SM, given ceil(blocks / sms) of the launch's blocks, costs
+    the least, a block costing cost(warps, tiles); among equals the
+    fewest tiles. Returns the rows and the busiest SM's warps."""
+    C = max(C, 1)
+    hi = max(1, min(T, MAX_BLOCK_THREADS // C))
+    best = None
+    for rows in range(min(hi, -(-lo_threads // C)), hi + 1):
+        tiles, warps = -(-T // rows), -(-rows * C // 32)
+        blocks = max(1, -(-B * tiles // sms))
+        key = (blocks * cost(warps, tiles), tiles)
+        if best is None or key < best[0]:
+            best = (key, rows, blocks * warps)
+    return best[1:]
+
+
+# a halo start's issue against a tile row's in K3: a start runs its span
+# terms through every duration (10 instructions a duration in the SASS
+# that tools/scan_floor.py reads) and an output folds them (3.75); a halo
+# start runs Km / 2 durations on average and folds nothing
+BAND_MAX_HALO_SHARE = 3 / 8
+
+
+@functools.cache
+def band_max_tile(B, T, C, Km, sms=H100_SMS, halo_share=BAND_MAX_HALO_SHARE):
+    """The tile K3 (csrc/band_max.cu) launches a (B, T, C) plane with Km
+    duration rows on `sms` SMs.
+
+    A block costs its warps and, where a video has more than one tile,
+    `halo_share` of the warps that hold its halo, the starts of the Km - 1
+    rows before the tile; the rows are those that leave the busiest SM
+    the least (``_fewest_rows``; a halo share of 0 counts warps alone, as
+    K4's rule does). The slab holds every duration (Km) where that leaves
+    room for the blocks an SM keeps resident by threads and registers;
+    else the most that does beside the carry of the starts' running
+    maxima, min(rows + Km - 1, T) * C floats. Where not even one duration
+    fits beside the carry, the tile says so by a shared memory past an
+    H100 block's (the wrapper raises)."""
+    C = max(C, 1)
+    halo_warps = -(-min(max(Km - 1, 0), T) * C // 32)
+    rows, busiest = _fewest_rows(
+        B, T, C, sms, 1, lambda warps, tiles: warps + halo_share * halo_warps * (tiles > 1))
+    threads = rows * C
+    per_sm = _blocks_per_sm(threads, BAND_MAX_REGS)
+    room = min(MAX_BLOCK_SMEM, SM_SMEM // per_sm - SM_SMEM_PER_BLOCK) // 4  # floats
+    carry = 0
+    if Km * threads > room:
+        carry = min(rows + Km - 1, T) * C
+        slab = max(1, (room - carry) // threads)
+    else:
+        slab = Km
+    return _band_tile(B, T, C, rows, busiest, slab, 4 * (slab * threads + carry), per_sm,
+                      sms)
+
+
+def _launch_band_max(G1, G2p, dur, tile):
+    """One launch of csrc/band_max.cu in `tile`; returns fm."""
+    B, T, C = G1.shape
+    T2, Km = G2p.shape[1], dur.shape[1]
+    fm = torch.empty_like(G1)
+    err = _call("band_max", "hsmm_band_max", [G1, G2p, dur, fm],
+                [B, T, T2, C, Km, tile.rows, tile.slab, tile.smem_bytes], G1)
+    _raise_on_error("hsmm_band_max", err)
+    return fm
+
+
 def hsmm_band_max(G1, G2p, dur):
     """Per-frame max-marginals fm (B, T, C); see ``_band_max_plain``.
 
-    On CUDA tensors (float32, contiguous) it launches csrc/band_max.cu,
-    which streams T in tiles (one kernel for any T); on CPU tensors it
-    runs the plain version."""
+    On CUDA tensors (float32, contiguous, C <= 128) it launches
+    csrc/band_max.cu once, in the tile ``band_max_tile`` sizes, which
+    streams T in tiles of whole rows (one kernel for any T) and gives the
+    plain version's bits; on CPU tensors it runs the plain version."""
     if _device_type(G1) == "cpu":
         return _band_max_plain(G1, G2p, dur)
     B, T, T2, C, Km = _band_shapes("hsmm_band_max", G1, G2p, dur)
-    fm = torch.empty_like(G1)
-    err = _call("band_max", "hsmm_band_max", [G1, G2p, dur, fm], [B, T, T2, C, Km], G1)
-    _raise_on_error("hsmm_band_max", err)
+    if not kernels_supported(C):
+        raise ValueError("hsmm_band_max: C={} > {}".format(C, MAX_CLASSES))
+    tile = band_max_tile(B, T, C, Km, _sm_count(G1.device.index))
+    if tile.smem_bytes > MAX_BLOCK_SMEM:
+        raise ValueError("hsmm_band_max: Km={} at C={} overflows the shared-memory carry".format(
+            Km, C))
+    fm = _launch_band_max(G1, G2p, dur, tile)
     hsmm_band_max.launches += 1
     return fm
 
@@ -418,36 +537,6 @@ def _band_grad_plain(G1m, G2p, dur):
     return qg, sa, st, lg
 
 
-class BandGradTile(NamedTuple):
-    """K4's tile: time rows a block (one thread a (row, class)), the
-    durations a shared slab of M holds and its bytes, and where the
-    launch's blocks land (for the record)."""
-
-    rows: int
-    threads: int
-    slab: int
-    smem_bytes: int
-    tiles: int  # a video's
-    blocks_per_sm: int  # resident at once
-    waves: int  # B * tiles over the card's resident blocks
-    filling: float  # the launch's blocks over the waves' resident slots
-    balance: float  # the mean SM's warps over the busiest SM's
-
-
-# an H100 SM's limits, and the registers csrc/band_grad.cu's launch bounds
-# allow a thread
-H100_SMS = 132
-SM_THREADS = 2048
-SM_BLOCKS = 32
-SM_REGS = 65536
-SM_SMEM = 233472  # 228 KB, of which each resident block also holds 1 KB
-SM_SMEM_PER_BLOCK = 1024
-BAND_GRAD_REGS = 32
-# the fewest threads a block of K4 takes (where the video has them): the
-# block that comes last sums its video's tile partials with its threads
-BAND_GRAD_MIN_THREADS = 256
-
-
 @functools.cache
 def band_grad_tile(B, T, C, Km, sms=H100_SMS):
     """The tile K4 (csrc/band_grad.cu) launches a (B, T, C) plane with Km
@@ -463,27 +552,12 @@ def band_grad_tile(B, T, C, Km, sms=H100_SMS):
     most that does. ``filling`` is the launch's blocks over the resident
     slots of the waves it takes, ``balance`` the mean SM's warps over the
     busiest SM's."""
-    C = max(C, 1)
-    hi = max(1, min(T, MAX_BLOCK_THREADS // C))
-    lo = min(hi, -(-BAND_GRAD_MIN_THREADS // C))
-    reg_warps = SM_REGS // (32 * -(-BAND_GRAD_REGS // 8) * 8)
-    best = None
-    for rows in range(lo, hi + 1):
-        threads = rows * C
-        warps = -(-threads // 32)
-        tiles = -(-T // rows)
-        busiest = max(1, -(-B * tiles // sms)) * warps
-        if best is None or (busiest, tiles) < best[:2]:
-            best = (busiest, tiles, rows, threads, warps)
-    busiest, tiles, rows, threads, warps = best
-    per_sm = min(SM_BLOCKS, SM_THREADS // threads, reg_warps // warps)
-    resident = sms * per_sm
-    waves = max(1, -(-B * tiles // resident))
+    rows, busiest = _fewest_rows(B, T, C, sms, BAND_GRAD_MIN_THREADS, lambda warps, tiles: warps)
+    threads = rows * C
+    per_sm = _blocks_per_sm(threads, BAND_GRAD_REGS)
     room = min(MAX_BLOCK_SMEM, SM_SMEM // per_sm - SM_SMEM_PER_BLOCK) // (4 * threads)
     slab = min(Km, max(1, room))
-    return BandGradTile(rows, threads, slab, 4 * slab * threads, tiles, per_sm, waves,
-                        B * tiles / (waves * resident),
-                        B * T * C / (32 * sms * busiest))
+    return _band_tile(B, T, C, rows, busiest, slab, 4 * slab * threads, per_sm, sms)
 
 
 @functools.cache
@@ -594,8 +668,9 @@ def _band_inputs(pots: HsmmPotentials, lengths, gamma):
     S2 = torch.gather(gammaR, 1, idx)
     S2 = torch.where(e_col == L, pots.end_mask[:, None, :], S2)
     S2 = torch.where((e_col >= 1) & (e_col <= L), S2, torch.full_like(S2, BIG_NEG))
-    # K - 1 BIG_NEG rows past e = T: spans ending beyond the buffer
-    G2p = torch.cat([cum + S2, torch.full_like(S2[:, : K - 1], BIG_NEG)], dim=1)
+    # K - 1 BIG_NEG rows past e = T: spans ending beyond the buffer (whole
+    # rows whatever T is: a batch shorter than the band needs them too)
+    G2p = torch.cat([cum + S2, S2.new_full((B, K - 1, C), BIG_NEG)], dim=1)
     # K == 1 has no representable duration: an empty band (all BIG_NEG)
     band = pots.lens[:, 1:, :]
     return G1.contiguous(), G2p.contiguous(), band.contiguous()

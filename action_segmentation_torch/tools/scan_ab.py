@@ -3,18 +3,20 @@ against an earlier version of their sources on one card, in turns, with
 the SM clock read while they run.
 
 The earlier sources are a directory holding ``hsmm_scan.cu`` and
-``hsmm_viterbi.cu`` (and any header they include), or ``band_grad.cu``
-for ``--kernels band_grad``, for example a commit's files from ``git show
+``hsmm_viterbi.cu`` (and any header they include), ``band_grad.cu`` for
+``--kernels band_grad`` or ``band_max.cu`` for ``--kernels band_max``,
+for example a commit's files from ``git show
 <commit>:action_segmentation_torch/csrc/<file>``, written into a
 directory that .gitignore lists. Their scan entry points take the
 wrapper's instance, as the current ones do; their traceback takes
 (pointers, N, T, C, device, stream), the interface before the launch took
 the wrapper's tile; their band gradient is the two-launch form before
 the tile (pointers to qg, sa, st, lg and a (B, blocks, Km, C) scratch
-sized by ``hsmm_band_grad_blocks``; B, T, T2, C, Km). Run from the
-repository root on a machine with a CUDA card:
+sized by ``hsmm_band_grad_blocks``; B, T, T2, C, Km); their band max
+the form before the tile (pointers to G1, G2p, dur, fm; B, T, T2, C,
+Km). Run from the repository root on a machine with a CUDA card:
 
-    python3 -m action_segmentation_torch.tools.scan_ab --old_csrc OLD_DIR [--kernels all|scans|traceback|band_grad] [--out ab.json]
+    python3 -m action_segmentation_torch.tools.scan_ab --old_csrc OLD_DIR [--kernels all|scans|traceback|band_grad|band_max] [--out ab.json]
 
 Both versions build with the port's nvcc flags. For each shape and scan
 (the max gamma scan, the log scan with alphas, the forward-only log scan,
@@ -41,6 +43,22 @@ current log scan gives. It checks that qg, sa and st are equal between
 the versions, that the new lg is the same in two runs and within rtol
 1e-5 / atol 1e-4 of the plain version (equal to the earlier lg where
 the tile keeps its 512 // C rows), and prints the new tile.
+
+The band max (``--kernels band_max``, never with the others) starts
+with step 0: the earlier kernel alone at the serving shape, from a
+replayed CUDA graph of 50 launches and launched one by one (raw
+launches, outputs made once), then through the earlier wrapper's code
+(checks, the output's allocation, the ctypes call) one by one and from a
+graph, and that wrapper's host time a call. Then old, new, new, old
+from replayed graphs, and each version launched one by one, at the
+serving shape, a synthetic decode batch (B=18, lengths 20-1,024 padded
+to the 1,056 bucket), T=12,000 (B=2), C=128 (B=4), Km=100 and K=1, on
+the band inputs the current max gamma scan gives; fm must be equal
+between the versions and to the plain version's, and it prints the new
+tile. Last, at shapes where ``band_max_tile``'s halo share changes its
+pick, the new kernel in that tile against the tile of the rows that
+count warps alone, rule, warps, warps, rule from graphs, fm equal to
+the plain version's in both.
 
 A thread reads the SM clock through NVML every 5 ms; each result lists
 the readings taken inside its timed windows, old and new apart. Prints the
@@ -71,6 +89,7 @@ from action_segmentation_torch.ops.distributions import (
 )
 from action_segmentation_torch.ops.hsmm import HsmmPotentials, _durations, _finals
 from action_segmentation_torch.ops.hsmm_grad import _log_partition
+from chip_smoke import host_ms
 
 SOURCES = ("hsmm_scan", "hsmm_viterbi")
 D = 300  # feature width of the serving shape
@@ -107,6 +126,23 @@ BAND_GRAD_SHAPES = [
     ("C=128", 4, 1024, 128, 20, None),
     ("Km=100", 18, 1024, 19, 101, None),
 ]
+# the band max's shapes: (name, B, T, C, K, lengths)
+BAND_MAX_SHAPES = [
+    ("serving", 18, 1024, 19, 20, None),
+    ("synthetic decode batch", 18, 1056, 19, 20, "synthetic"),
+    ("T=12000", 2, 12000, 19, 20, [12000, 7001]),
+    ("C=128", 4, 1024, 128, 20, None),
+    ("Km=100", 18, 1024, 19, 101, None),
+    ("K=1", 18, 1024, 19, 1, None),
+]
+# shapes where band_max_tile's halo share moves its pick off the rows that
+# count warps alone (K4's rule without its thread minimum)
+BAND_MAX_RULE_SHAPES = [
+    ("T=12000", 2, 12000, 19, 20, [12000, 7001]),
+    ("B=9", 9, 1024, 19, 20, None),
+    ("C=48", 18, 1024, 48, 20, None),
+]
+N_GRAPH = 50  # step 0's launches in one graph
 RTOL, ATOL = 1e-5, 1e-4
 # (scan, symbol, library, outputs: "g" gamma, "a" alphas, "b" codes, "-" none)
 SCANS = [
@@ -416,6 +452,134 @@ def compare_band_grad(fns, old_blocks, inputs, window_ms, clock, step0=False):
     return r
 
 
+def band_max_inputs(B, T, C, K, lengths, rng, device):
+    """(G1, G2p, band) as the labels chain gives the band max: from the
+    current max gamma scan. Lengths "synthetic": a synthetic slice's
+    decode batch, 20-1,024 frames padded to T."""
+    if lengths == "synthetic":
+        lengths = rng.randint(20, 1025, size=B)
+        lengths[0] = 1024
+    elif lengths is None:
+        lengths = np.full(B, T)
+    pots, L = potentials(rng, B, T, C, K, np.asarray(lengths, np.int64), device)
+    gamma, _ = hc.hsmm_gamma_scan(*hc._stack_fwd_rev(pots, L))
+    return hc._band_inputs(pots, L, gamma)
+
+
+def band_max_launchers(fns, inputs, tile=None):
+    """{version: (run, fm)}: one launch of each version's band max into
+    an output of its own, the new one in `tile` (by default the tile
+    ``band_max_tile`` sizes for this card); and the tile."""
+    G1, G2p, dur = inputs
+    B, T, C = G1.shape
+    T2, Km = G2p.shape[1], dur.shape[1]
+    if tile is None:
+        tile = hc.band_max_tile(B, T, C, Km, hc._sm_count(G1.device.index))
+    out = {}
+    for v, fn in fns.items():
+        fm = torch.empty_like(G1)
+        held = [*inputs, fm]  # alive while `run` is
+        ints = [B, T, T2, C, Km] + ([tile.rows, tile.slab, tile.smem_bytes] if v == "new" else [])
+
+        def run(fn=fn, held=held, ints=ints):
+            err = fn(*[x.data_ptr() for x in held], *ints, G1.device.index,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError("launch failed with CUDA error {}".format(err))
+        out[v] = (run, fm)
+    return out, tile
+
+
+def earlier_band_max_wrapper(fn):
+    """The earlier ``hsmm_band_max``'s code on the card bound to the
+    earlier kernel: the checks, the output's allocation, one ctypes call
+    with the stream's arguments, the error check."""
+    def call(G1, G2p, dur):
+        B, T, T2, C, Km = hc._band_shapes("hsmm_band_max", G1, G2p, dur)
+        fm = torch.empty_like(G1)
+        err = fn(*[x.data_ptr() for x in (G1, G2p, dur, fm)], B, T, T2, C, Km,
+                 *hc._stream_args(G1))
+        hc._raise_on_error("hsmm_band_max", err)
+        return fm
+    return call
+
+
+def band_max_step0(fn, inputs):
+    """Step 0: the earlier kernel alone, raw from a replayed graph of
+    N_GRAPH launches and one by one, then through the earlier wrapper's
+    code one by one and from a graph, and the wrapper's host time."""
+    runs, _ = band_max_launchers({"old": fn}, inputs)
+    run = runs["old"][0]
+    wrapper = earlier_band_max_wrapper(fn)
+    r = {"step0_old_graph_ms": graph_ms(run, N_GRAPH)[0],
+         "step0_old_stream_ms": event_ms(run, N_GRAPH)[0],
+         "step0_old_wrapper_stream_ms": event_ms(lambda: wrapper(*inputs), N_GRAPH)[0],
+         "step0_old_wrapper_graph_ms": graph_ms(lambda: wrapper(*inputs), N_GRAPH)[0],
+         "step0_old_wrapper_host_ms": host_ms(lambda: wrapper(*inputs), N_GRAPH)}
+    print("step 0, the earlier band max alone at this shape ({} launches): {:.5f} ms from a "
+          "replayed graph, {:.5f} ms launched one by one; through its wrapper {:.5f} ms one by "
+          "one, {:.5f} ms from a graph, the wrapper's host time {:.5f} ms a call".format(
+              N_GRAPH, r["step0_old_graph_ms"], r["step0_old_stream_ms"],
+              r["step0_old_wrapper_stream_ms"], r["step0_old_wrapper_graph_ms"],
+              r["step0_old_wrapper_host_ms"]), flush=True)
+    return r
+
+
+def compare_band_max(fns, inputs, window_ms, clock):
+    """fm equal between the versions and to the plain version's, then ms
+    from replayed graphs in the order old, new, new, old, and each version
+    launched one by one."""
+    runs, tile = band_max_launchers(fns, inputs)
+    r = {"tile": tile._asdict()}
+    for run, _ in runs.values():
+        run()
+    torch.cuda.synchronize()
+    old, new = runs["old"][1], runs["new"][1]
+    plain = hc._band_max_plain(*inputs)
+    for name, a, b in (("old and new", old, new), ("new and plain", new, plain)):
+        if not torch.equal(a, b):
+            raise RuntimeError("fm: {} differ at {} of {} entries".format(
+                name, int((a != b).sum()), a.numel()))
+    fastest = min(event_ms(run, 1)[0] for run, _ in runs.values())
+    n = int(min(1000, max(3, window_ms / fastest)))
+    timed = [(v, *graph_ms(runs[v][0], n)) for v in ("old", "new", "new", "old")]
+    r["launches"] = n
+    for v in ("old", "new"):
+        r[v + "_ms"] = [ms for w, ms, _ in timed if w == v]
+        r[v + "_sm_mhz"] = clock_summary(clock.within([win for w, _, win in timed if w == v]))
+        r[v + "_stream_ms"] = event_ms(runs[v][0], n)[0]
+    return r
+
+
+def compare_band_max_rule(fn, inputs, window_ms, clock):
+    """The new band max in ``band_max_tile``'s tile ("rule") against the
+    tile of the rows that count warps alone (halo share 0, "warps"): fm
+    equal to the plain version's in both, then ms from replayed graphs in
+    the order rule, warps, warps, rule."""
+    G1, G2p, dur = inputs
+    B, T, C = G1.shape
+    sms = hc._sm_count(G1.device.index)
+    tiles = {"rule": hc.band_max_tile(B, T, C, dur.shape[1], sms),
+             "warps": hc.band_max_tile(B, T, C, dur.shape[1], sms, halo_share=0)}
+    runs = {k: band_max_launchers({"new": fn}, inputs, tile)[0]["new"]
+            for k, tile in tiles.items()}
+    plain = hc._band_max_plain(*inputs)
+    for k, (run, fm) in runs.items():
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(fm, plain):
+            raise RuntimeError("fm in the {} tile differs from plain at {} of {} entries".format(
+                k, int((fm != plain).sum()), fm.numel()))
+    n = int(min(1000, max(3, window_ms / min(event_ms(run, 1)[0] for run, _ in runs.values()))))
+    timed = [(v, *graph_ms(runs[v][0], n)) for v in ("rule", "warps", "warps", "rule")]
+    r = {"launches": n}
+    for v, tile in tiles.items():
+        r[v + "_rows"], r[v + "_blocks"] = tile.rows, B * tile.tiles
+        r[v + "_ms"] = [ms for w, ms, _ in timed if w == v]
+        r[v + "_sm_mhz"] = clock_summary(clock.within([win for w, _, win in timed if w == v]))
+    return r
+
+
 def compare(fns, kind, inputs, window_ms, clock):
     """Equal outputs, then ms in the order old, new, new, old, and the SM
     clock readings inside each version's timed windows. Scans by `kind`;
@@ -450,8 +614,8 @@ def compare(fns, kind, inputs, window_ms, clock):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--old_csrc", required=True, type=Path)
-    parser.add_argument("--kernels", choices=("all", "scans", "traceback", "band_grad"),
-                        default="all")
+    parser.add_argument("--kernels", choices=("all", "scans", "traceback", "band_grad",
+                                              "band_max"), default="all")
     parser.add_argument("--out", type=Path, default=None)
     parser.add_argument("--window_ms", type=float, default=100.0)
     parser.add_argument("--seed", type=int, default=0)
@@ -463,7 +627,7 @@ def main():
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    sources = ("band_grad",) if args.kernels == "band_grad" else SOURCES
+    sources = (args.kernels,) if args.kernels in ("band_grad", "band_max") else SOURCES
     old_libs = build_old(args.old_csrc, args.old_csrc / "build", sources)
     for name, log in _build.build(list(sources)).items():
         print_ptxas("new " + name, log)
@@ -472,7 +636,7 @@ def main():
 
     device = torch.device("cuda")
     rng = np.random.RandomState(args.seed)
-    results, tb_results, bg_results = [], [], []
+    results, tb_results, bg_results, bm_results, rule_results = [], [], [], [], []
 
     def clk(s):
         return "{}-{} MHz ({} readings)".format(s.get("min"), s.get("max"), s["n"])
@@ -493,6 +657,43 @@ def main():
                   clk(r["old_sm_mhz"]), clk(r["new_sm_mhz"])), flush=True)
 
     with SmClock(device.index or 0) as clock:
+        if args.kernels == "band_max":
+            fns = {"old": bind(old_libs["band_max"], "hsmm_band_max", 4, 5),
+                   "new": bind(new_libs["band_max"], "hsmm_band_max", 4, 8)}
+            for shape, B, T, C, K, lengths in BAND_MAX_SHAPES:
+                inputs = band_max_inputs(B, T, C, K, lengths, rng, device)
+                # Km: the band's rows (the model's K=1 table has one duration)
+                r = {"shape": shape, "B": B, "T": T, "C": C, "Km": inputs[2].shape[1]}
+                if shape == "serving":
+                    r.update(band_max_step0(fns["old"], inputs))
+                r.update(compare_band_max(fns, inputs, args.window_ms, clock))
+                r["speedup"] = np.mean(r["old_ms"]) / np.mean(r["new_ms"])
+                bm_results.append(r)
+                t = r["tile"]
+                print("{:22s} band max B={:2d} T={:5d} C={:3d} Km={:3d}: old {} ms, new {} ms "
+                      "(graphs), x{:.2f}; one by one old {:.5f}, new {:.5f} ms; tile {} rows, "
+                      "{} threads, slab {}, {} tiles a video, {} blocks an SM, {} waves, filling "
+                      "{:.3f}, balance {:.3f}; fm equal old and plain; SM clock old {}, "
+                      "new {}".format(
+                          shape, B, T, C, r["Km"], ["{:.5f}".format(x) for x in r["old_ms"]],
+                          ["{:.5f}".format(x) for x in r["new_ms"]], r["speedup"],
+                          r["old_stream_ms"], r["new_stream_ms"], t["rows"], t["threads"],
+                          t["slab"], t["tiles"], t["blocks_per_sm"], t["waves"], t["filling"],
+                          t["balance"], clk(r["old_sm_mhz"]), clk(r["new_sm_mhz"])), flush=True)
+            for shape, B, T, C, K, lengths in BAND_MAX_RULE_SHAPES:
+                inputs = band_max_inputs(B, T, C, K, lengths, rng, device)
+                r = {"shape": shape, "B": B, "T": T, "C": C, "Km": K - 1}
+                r.update(compare_band_max_rule(fns["new"], inputs, args.window_ms, clock))
+                r["speedup"] = np.mean(r["warps_ms"]) / np.mean(r["rule_ms"])
+                rule_results.append(r)
+                print("{:22s} band max tile rule B={:2d} T={:5d} C={:3d}: {} rows ({} blocks) "
+                      "{} ms, warps alone {} rows ({} blocks) {} ms (graphs), x{:.2f}; fm equal "
+                      "plain in both; SM clock {}, {}".format(
+                          shape, B, T, C, r["rule_rows"], r["rule_blocks"],
+                          ["{:.5f}".format(x) for x in r["rule_ms"]], r["warps_rows"],
+                          r["warps_blocks"], ["{:.5f}".format(x) for x in r["warps_ms"]],
+                          r["speedup"], clk(r["rule_sm_mhz"]), clk(r["warps_sm_mhz"])),
+                      flush=True)
         if args.kernels == "band_grad":
             fns = {"old": bind(old_libs["band_grad"], "hsmm_band_grad", 8, 5),
                    "new": bind(new_libs["band_grad"], "hsmm_band_grad", 9, 8)}
@@ -565,7 +766,8 @@ def main():
                           r["new_us_per_segment"], r["speedup"], clk(r["old_sm_mhz"]),
                           clk(r["new_sm_mhz"])), flush=True)
     out = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-           "results": results, "traceback": tb_results, "band_grad": bg_results}
+           "results": results, "traceback": tb_results, "band_grad": bg_results,
+           "band_max": bm_results, "band_max_rule": rule_results}
     if args.out is not None:
         os.makedirs(args.out.parent, exist_ok=True)
         args.out.write_text(json.dumps(out, indent=1))
@@ -577,7 +779,11 @@ def main():
                           "old_us_per_segment", "new_us_per_segment")} for r in tb_results],
                       "band_grad_ab": [{k: r[k] for k in (
                           "shape", "old_ms", "new_ms", "old_stream_ms", "new_stream_ms",
-                          "speedup")} for r in bg_results]}))
+                          "speedup")} for r in bg_results],
+                      "band_max_ab": [{k: v for k, v in r.items() if k not in (
+                          "tile", "old_sm_mhz", "new_sm_mhz")} for r in bm_results],
+                      "band_max_rule": [{k: v for k, v in r.items() if k not in (
+                          "rule_sm_mhz", "warps_sm_mhz")} for r in rule_results]}))
     return 0
 
 

@@ -1,8 +1,8 @@
 """The serial floor of the port's scan kernels and of the traceback: the
 longest chain of dependent instructions that one step of a scan's time
 loop, or one segment of the traceback's walk, hands to the next, worked
-out from the compiled code; and the issue floor of the band gradient
-(K4), whose duration loop runs in every thread of the launch at once.
+out from the compiled code; and the issue floor of the band kernels (K3
+and K4), whose duration loops run in every thread of the launch at once.
 
 A scan's T steps run one after another, so no kernel of this design can
 take less than T x that chain; the traceback's walk takes one link a
@@ -32,16 +32,27 @@ barrier that holds the terms' MUFU.EX2, one duration an iteration). Its floor is
 warps, issued by the SMs' 4 schedulers, one warp-instruction a clock
 each.
 
+K3 (csrc/band_max.cu) has three duration loops, none with a barrier in
+it: a start's (the loop that loads dur and G2p and stores the slab's
+entry, STS), its twin above the tile (no store), and an output's fold
+(the loop of shared loads and maxima). Its instructions a duration are
+the loop's over the durations it runs a turn (one STS, FMNMX or LDS
+each; the compiler unrolls two of them). Its floor is those instructions x the durations
+each loop runs at the launch's shape (the starts of each tile and its
+halo, r from Km - 1 down; the outputs' r <= t), over 32 lanes a warp,
+issued by the SMs' 4 schedulers.
+
 Run from the repository root on a machine with the CUDA toolkit:
 
     python3 -m action_segmentation_torch.tools.scan_floor [--B 18] [--C 19] [--Km 19] [--T 1024] [--segments 760] [--sass-dir DIR]
 
-With `--sass-dir`, DIR holds `hsmm_scan.sass`, `hsmm_viterbi.sass` and
-`band_grad.sass` (cuobjdump's output) and nothing is built. `--segments`
-is the most segments in one video for the traceback's floor in time; B,
-T, C and Km size K4's launch (its tile from `hsmm_cuda.band_grad_tile`).
-Prints one line per serving instance, one for the traceback, one for
-K4, and a JSON object last.
+With `--sass-dir`, DIR holds `hsmm_scan.sass`, `hsmm_viterbi.sass`,
+`band_grad.sass` and `band_max.sass` (cuobjdump's output) and nothing is
+built. `--segments` is the most segments in one video for the
+traceback's floor in time; B, T, C and Km size the band kernels'
+launches (their tiles from `hsmm_cuda.band_grad_tile` and
+`band_max_tile`). Prints one line per serving instance, one for the
+traceback, one for K4, one for K3, and a JSON object last.
 """
 
 import argparse
@@ -52,7 +63,12 @@ import sys
 from pathlib import Path
 
 from action_segmentation_torch.ops import _build
-from action_segmentation_torch.ops.hsmm_cuda import H100_SMS, band_grad_tile, scan_instance
+from action_segmentation_torch.ops.hsmm_cuda import (
+    H100_SMS,
+    band_grad_tile,
+    band_max_tile,
+    scan_instance,
+)
 
 # assumed latencies in cycles, by opcode (the part before the first dot)
 LATENCY = {"MUFU": 20, "LDS": 30, "LDC": 30, "ULDC": 30, "S2R": 20, "S2UR": 20,
@@ -156,6 +172,85 @@ def band_grad_issue_ms(instructions, B, T, C, Km, clock_mhz, sms=H100_SMS):
     tile = band_grad_tile(B, T, C, Km, sms)
     warps = B * tile.tiles * -(-tile.threads // 32)
     return instructions * Km * warps / (sms * SCHEDULERS) / clock_mhz * 1e-3
+
+
+def innermost_loops(insts):
+    """Every loop body (a backward branch's) that holds no other."""
+    bodies = loops(insts, lambda ops: True)
+    spans = [(body[0][0], body[-1][0]) for body in bodies]
+    return [body for body, (a, b) in zip(bodies, spans)
+            if not any((a, b) != (c, d) and a <= c and d <= b for c, d in spans)]
+
+
+# K3's duration loops: (name, the body's opcodes it needs, those it must
+# not hold, the opcode that marks one duration)
+BAND_MAX_LOOPS = (
+    ("start", {"LDG", "STS"}, set(), "STS"),  # the span terms stored to the slab
+    ("update", {"LDG", "FMNMX"}, {"STS"}, "FMNMX"),  # the starts' durations above the tile
+    ("fold", {"LDS", "FMNMX"}, {"STS", "LDG"}, "LDS"),  # the outputs' fold
+)
+
+
+# K3's instances: (name, its template argument in the mangled name)
+BAND_MAX_INSTANCES = (("one slab", "band_max_kernelILb0E"), ("slabs", "band_max_kernelILb1E"))
+
+
+def band_max_floor(sass):
+    """{instance: {loop: instructions a duration}} of K3's three duration
+    loops in each instance of csrc/band_max.cu's kernel (one slab, or
+    several): where the compiler made several versions of a loop
+    (unrolled and not; for the first, middle and last slab), those over
+    the most durations, their mean. Raises if a loop is missing or holds
+    a barrier."""
+    return {name: _band_max_loops(parse_function(sass, mangled))
+            for name, mangled in BAND_MAX_INSTANCES}
+
+
+def _band_max_loops(insts):
+    bodies = [(body, [ins[2].split(".")[0] for ins in body]) for body in innermost_loops(insts)]
+    out = {}
+    for name, needs, refuses, mark in BAND_MAX_LOOPS:
+        found = [(body, ops) for body, ops in bodies
+                 if needs <= set(ops) and not refuses & set(ops)]
+        if not found:
+            raise ValueError("no {} loop found in band_max_kernel".format(name))
+        if any("BAR" in ops for _, ops in found):
+            raise ValueError("a barrier in band_max_kernel's {} loop".format(name))
+        most = max(ops.count(mark) for _, ops in found)
+        rates = [(len(ops) - ops.count("NOP")) / most for _, ops in found
+                 if ops.count(mark) == most]
+        out[name] = sum(rates) / len(rates)
+    return out
+
+
+def band_max_durations(T, Km, rows):
+    """(start, update, fold) durations a (video, class) at K3's tile of
+    `rows`: each start of each tile, halo included, runs r from Km - 1
+    down to the least that reaches the tile, storing where its output row
+    s + r is in the tile (start) and not above it (update); each output t
+    folds r <= min(t, Km - 1)."""
+    start = update = 0
+    for t0 in range(0, T, rows):
+        t_end = min(t0 + rows, T)
+        for s in range(max(t0 - Km + 1, 0), t_end):
+            r_end = max(0, t0 - s)
+            r_top = min(Km, t_end - s) - 1
+            update += max(0, Km - 1 - max(r_top, r_end - 1))
+            start += max(0, r_top - r_end + 1)
+    fold = sum(min(t + 1, Km) for t in range(T))
+    return start, update, fold
+
+
+def band_max_issue_ms(floor, B, T, C, Km, clock_mhz, sms=H100_SMS):
+    """K3's issue floor in ms: each duration loop's instructions (of the
+    instance the tile ``band_max_tile`` picks, in ``band_max_floor``'s
+    `floor`) x the durations it runs at this shape (``band_max_durations``)
+    x B x C lanes, 32 a warp, over `sms` SMs of 4 schedulers."""
+    tile = band_max_tile(B, T, C, Km, sms)
+    loops = floor["slabs" if tile.slab < Km else "one slab"]
+    counts = band_max_durations(T, Km, tile.rows)
+    lanes = sum(loops[name] * n for (name, *_), n in zip(BAND_MAX_LOOPS, counts))
+    return B * C * lanes / 32 / (sms * SCHEDULERS) / clock_mhz * 1e-3
 
 
 def regs(operand, width_hint=1):
@@ -271,7 +366,7 @@ def main():
     args = parser.parse_args()
 
     sass = {}
-    for lib in ("hsmm_scan", "hsmm_viterbi", "band_grad"):
+    for lib in ("hsmm_scan", "hsmm_viterbi", "band_grad", "band_max"):
         if args.sass_dir is not None:
             sass[lib] = (args.sass_dir / (lib + ".sass")).read_text()
         else:
@@ -317,7 +412,18 @@ def main():
     print("band grad duration loop: {} instructions ({} MUFU) a duration; B={} T={} C={} Km={} "
           "-> issue floor {:.5f} ms".format(insts, mufu, args.B, args.T, args.C, args.Km,
                                             bg["issue_floor_ms"]))
+    bm_loops = band_max_floor(sass["band_max"])
+    bm = {"instructions_per_duration": bm_loops, "B": args.B,
+          "tile": band_max_tile(args.B, args.T, args.C, args.Km)._asdict(),
+          "issue_floor_ms": band_max_issue_ms(bm_loops, args.B, args.T, args.C, args.Km, clock)}
+    print("band max duration loops (no barrier), instructions a duration: {}; B={} T={} C={} "
+          "Km={} -> issue floor {:.5f} ms".format(
+              "; ".join("{}: {}".format(inst, ", ".join(
+                  "{} {:.2f}".format(k, v) for k, v in loops.items()))
+                  for inst, loops in bm_loops.items()),
+              args.B, args.T, args.C, args.Km, bm["issue_floor_ms"]))
     print(json.dumps({"scan_floor": results, "traceback_floor": tb, "band_grad_floor": bg,
+                      "band_max_floor": bm,
                       "C": args.C, "Km": args.Km, "T": args.T, "clock_mhz": clock}))
     return 0
 

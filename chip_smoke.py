@@ -11,14 +11,16 @@ exit and no result line:
   1. device  — card name, count, and nvidia-smi's name and power limit;
   2. build   — the four kernel sources from action_segmentation_torch/csrc
                with nvcc for sm_90a, all at once, printing ptxas'
-               register/smem/spill lines (a serving scan instance or the
-               band gradient that spills, or a band gradient above the
+               register/smem/spill lines (a serving scan instance or a
+               band kernel that spills, or a band kernel above the
                registers its tile rule assumes, fails the run);
   3. kernels — each decode kernel against its plain PyTorch version on the
                card at the serving width (B=18, T=1024, C=19, K=20, D=300)
                and at the edge cases (ragged lengths down to 1 with bucket
-               padding, a BIG_NEG end mask, C=128, K=1, T=12,000); and
-               the kernels' labels against the traceback Viterbi;
+               padding, a BIG_NEG end mask, C=128, K=1, T=12,000, a batch
+               shorter than the band): the gamma scan at rtol 1e-5 / atol
+               1e-4, the band max's fm equal; and the kernels' labels
+               against the traceback Viterbi;
   3b. kernels (train) — the log scan (gamma, alphas), its forward-only
                form (alphas) and the band gradient (qg, sa, st, lg) against
                their plain versions at rtol 1e-5 / atol 1e-4, and logZ and
@@ -39,7 +41,8 @@ exit and no result line:
                and D=300-scale emissions and at the edge cases;
   4. slice   — synthetic corpus, closed-form fit, SemiMarkovModel.predict
                and Segmenter.segment_many at batch 18, Accuracy MoF; the
-               launch counters must show both decode kernels on both paths;
+               launch counters must show both decode kernels on both paths
+               (the band max's inputs kept at each of its launches);
   4b. train slice — on the same corpus: an unsupervised fit of 3 epochs
                (its epoch loss must fall) and a closed-then-gradient
                discriminative fit of 2 epochs (MoF above 10x chance), each
@@ -71,8 +74,13 @@ exit and no result line:
                x the launch's warps over the SMs' schedulers), at the
                serving shape and at each batch of the constrained
                CrossTask fit (checked against the plain version there
-               too); segment_many frames/s, one training step's time, the
-               fit's frames/s and the CrossTask predict's frames/s.
+               too); the band max the same way (its issue floor from its
+               two duration loops' instructions, read from the SASS, which
+               must hold no barrier), at the serving shape and at each
+               predict and segment_many batch of the synthetic slice (fm
+               equal to the plain version's there too); segment_many
+               frames/s, one training step's time, the fit's frames/s and
+               the CrossTask predict's frames/s.
 
 The line before the last is one JSON object {"kernels": [...]}; the last
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -180,6 +188,13 @@ def assert_close(name, got, want, rtol=RTOL, atol=ATOL):
         torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
     except AssertionError as e:
         raise RuntimeError("{}: kernel disagrees with its plain version\n{}".format(name, e))
+
+
+def check_equal(name, got, want):
+    import torch
+
+    check(torch.equal(got, want), "{}: {} of {} entries differ from the plain version".format(
+        name, int((got != want).sum()), got.numel()))
 
 
 def unit_pots(rng, b, t, c, k, device, lengths=None, end_mask=None):
@@ -302,7 +317,7 @@ def kernel_case(name, pots, lengths):
     fm_k = hsmm_band_max(*band_in)
     fm_p = _band_max_plain(*band_in)
     torch.cuda.synchronize()
-    assert_close(name + " band max", fm_k, fm_p)
+    check_equal(name + " band max", fm_k, fm_p)
 
     labels_k, scores_k = hsmm_viterbi_labels(pots, lengths)
     labels_p, scores_p = hsmm_viterbi_labels_plain(pots, lengths)
@@ -653,7 +668,8 @@ def mof(datasplit, predictions):
 
 def run_slice(device, num_videos, max_len, shift):
     """Closed-form fit, predict and segment_many on synthetic CrossTask-
-    width data; returns the e2e record and the main path's launches."""
+    width data; returns the e2e record, the main path's launches and the
+    band max's inputs at each of its predict and segment_many batches."""
     import torch
 
     from action_segmentation_torch.api import Segmenter
@@ -691,6 +707,10 @@ def run_slice(device, num_videos, max_len, shift):
     seconds = time.perf_counter() - t0
     mof_segment = mof(test, dict(zip(names, labels)))
     frames = sum(f.shape[0] for f in feats)
+    # the band max's inputs at each decode batch, timed in phase 5
+    bm_batches = {path: capture_launch_inputs("_launch_band_max", fn)[0] for path, fn in (
+        ("predict", lambda: model.predict(test)),
+        ("segment_many", lambda: seg.segment_many(feats, batch_size=B)))}
     phase("slice", "predict: {} videos, launches gamma/band = {}, MoF {:.4f}".format(
         len(preds), n_predict, mof_predict))
     phase("slice", "segment_many: launches gamma/band = {}, MoF {:.4f}, {} frames "
@@ -726,7 +746,7 @@ def run_slice(device, num_videos, max_len, shift):
         )
         e2e["decode_batch_ms"] = cuda_ms(lambda: model._decode(*batch), 20)
     launches = [a + b for a, b in zip(n_predict, n_segment)]
-    return e2e, launches
+    return e2e, launches, bm_batches
 
 
 def viterbi_case(name, pots, lengths):
@@ -820,8 +840,8 @@ def run_viterbi_kernels(device):
 
 
 def capture_launch_inputs(launch_name, fn):
-    """Runs fn() with hsmm_cuda.<launch_name> (the traceback's or the band
-    gradient's launch, which the wrapper looks up at each call) keeping a
+    """Runs fn() with hsmm_cuda.<launch_name> (the traceback's or a band
+    kernel's launch, which the wrapper looks up at each call) keeping a
     copy of the tensor inputs of each launch (all but the tile); returns
     them and fn's result."""
     from action_segmentation_torch.ops import hsmm_cuda
@@ -1100,12 +1120,20 @@ def scan_kernel_name(semiring, warps, row, tail):
     return "scan_kernel<{}, {} warps, row {}, tail {}>".format(semiring, warps, row, tail)
 
 
+# the band max's instances (csrc/band_max.cu): one pass, or several slabs
+BAND_MAX_KERNELS = ("band_max_kernel<one slab>", "band_max_kernel<slabs>")
+
+
 def kernel_name(mangled):
     """A readable name for an entry function's mangled name: the scan
-    template's instances as scan_kernel<semiring, warps, row, tail>."""
+    template's instances as scan_kernel<semiring, warps, row, tail>, the
+    band max's as band_max_kernel<one slab> or <slabs>."""
     m = re.search(r"scan_kernelILNS_8SemiringE(\d)ELi(\d)ELi(\d+)ELb([01])E", mangled)
     if m:
         return scan_kernel_name(SCAN_SEMIRINGS[int(m.group(1))], *m.group(2, 3, 4))
+    m = re.search(r"band_max_kernelILb([01])E", mangled)
+    if m:
+        return BAND_MAX_KERNELS[int(m.group(1))]
     for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
         ident = m.group(2)[:int(m.group(1))]
         if ident.endswith("_kernel"):
@@ -1129,6 +1157,17 @@ def ptxas_entries(log):
                 entries.append((fn, int(m.group(1)), spills))
                 fn = None
     return entries
+
+
+def numbers(x):
+    """Every number in a kernels entry, through its lists and dicts."""
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, list):
+        for v in x:
+            yield from numbers(v)
+    elif not isinstance(x, str) and x is not None:
+        yield x
 
 
 def bound(nbytes, ops):
@@ -1183,6 +1222,8 @@ def main():
     from action_segmentation_torch.tools.scan_floor import (
         band_grad_floor,
         band_grad_issue_ms,
+        band_max_floor,
+        band_max_issue_ms,
         built_sass,
         max_sm_clock_mhz,
         traceback_floor,
@@ -1217,11 +1258,15 @@ def main():
         serving = scan_kernel_name(semiring, inst.warps, inst.row, inst.tail)
         check(no_spills in ptxas.get(serving, (0, ""))[1],
               "{} spills or was not built: {!r}".format(serving, ptxas.get(serving)))
-    bg_regs, bg_spills = ptxas.get("band_grad_kernel", (None, ""))
-    check(no_spills in bg_spills and bg_regs is not None
-          and bg_regs <= hsmm_cuda.BAND_GRAD_REGS,
-          "band_grad_kernel spills, was not built or takes more than the {} registers its tile "
-          "rule assumes: {!r}".format(hsmm_cuda.BAND_GRAD_REGS, ptxas.get("band_grad_kernel")))
+    for fn, cap in ((BAND_MAX_KERNELS[0], hsmm_cuda.BAND_MAX_REGS),
+                    (BAND_MAX_KERNELS[1], hsmm_cuda.BAND_MAX_REGS),
+                    ("band_grad_kernel", hsmm_cuda.BAND_GRAD_REGS)):
+        regs, spills = ptxas.get(fn, (None, ""))
+        check(no_spills in spills and regs is not None and regs <= cap,
+              "{} spills, was not built or takes more than the {} registers its tile rule "
+              "assumes: {!r}".format(fn, cap, ptxas.get(fn)))
+    bm_regs = [ptxas[fn][0] for fn in BAND_MAX_KERNELS]
+    bg_regs = ptxas["band_grad_kernel"][0]
 
     # 3. kernels against their plain versions
     rng = np.random.RandomState(0)
@@ -1241,6 +1286,8 @@ def main():
     kernel_case("K=1", *serving_pots(rng, B, T, C, 1, device))
     kernel_case("T=12000", *serving_pots(
         rng, 2, 12000, C, K, device, lengths=np.array([12000, 7001], np.int32)))
+    kernel_case("short batch", *serving_pots(  # T + 1 < K - 1
+        rng, 3, 7, C, K, device, lengths=np.array([7, 5, 1], np.int32)))
     # an independent reference: the traceback Viterbi of ops/hsmm.py
     from action_segmentation_torch.ops.hsmm import hsmm_viterbi
     from action_segmentation_torch.ops.hsmm_cuda import hsmm_viterbi_labels
@@ -1262,7 +1309,7 @@ def main():
     vit_errs, vit_in, tb_in = run_viterbi_kernels(device)
 
     # 4. the slices end to end (each resets and reads the launch counters)
-    e2e, launches = run_slice(device, num_videos=36, max_len=T, shift=1.0)
+    e2e, launches, bm_batches = run_slice(device, num_videos=36, max_len=T, shift=1.0)
     train_e2e, train_launches = run_train_slice(device, num_videos=36, max_len=T, shift=1.0)
     ct_e2e, ct_launches, ct_tb_in, ct_bg_in = run_crosstask_slice(device)
     e2e.update(train_e2e)
@@ -1273,7 +1320,11 @@ def main():
     Km = K - 1
     gamma_ms = cuda_ms(lambda: hsmm_gamma_scan(*scan_in), N_TIMED)
     gamma_plain_ms = cuda_ms(lambda: _gamma_scan_plain(*scan_in), N_TIMED)
-    band_ms = cuda_ms(lambda: hsmm_band_max(*band_in), N_TIMED)
+    # the band max is shorter than its wrapper's host time: timed from a
+    # replayed CUDA graph, and launched one by one beside it
+    band_ms = graph_ms(lambda: hsmm_band_max(*band_in), N_TIMED)
+    band_stream_ms = cuda_ms(lambda: hsmm_band_max(*band_in), N_TIMED)
+    band_host_ms = host_ms(lambda: hsmm_band_max(*band_in), N_TIMED)
     band_plain_ms = cuda_ms(lambda: _band_max_plain(*band_in), N_TIMED)
     # bytes: every input read once, every output written once
     gamma_bytes = 4 * (N2 * C * C + N2 * C + N2 * Km * C + 2 * N2 * T * C)
@@ -1282,7 +1333,7 @@ def main():
     gamma_ops = N2 * T * (2 * Km * C + 2 * C * C + 3 * C)
     G1, G2p, band = band_in
     band_bytes = 4 * (G1.numel() + G2p.numel() + band.numel() + G1.numel())
-    band_ops = G1.numel() * 4 * Km  # per r: H add + max, fold add + max
+    band_ops = G1.numel() * 4 * Km  # per r: H add + max, A add, fold max
     g_bound, g_by = bound(gamma_bytes, gamma_ops)
     b_bound, b_by = bound(band_bytes, band_ops)
 
@@ -1318,6 +1369,29 @@ def main():
         return band_grad_issue_ms(bg_insts, Bn, Tn, Cn, grad_in[2].shape[1], clock_mhz, sms)
 
     bg_tile = hsmm_cuda.band_grad_tile(B, T, C, Km, sms)
+    # the band max's issue floor from its duration loops in the SASS (which
+    # raises if one of them holds a barrier)
+    bm_loops = band_max_floor(built_sass("band_max"))
+
+    def bm_floor(band_in):
+        Bn, Tn, Cn = band_in[0].shape
+        return band_max_issue_ms(bm_loops, Bn, Tn, Cn, band_in[2].shape[1], clock_mhz, sms)
+
+    bm_tile = hsmm_cuda.band_max_tile(B, T, C, Km, sms)
+    # the band max at the synthetic slice's decode batches: the launches the
+    # labels chain's main path makes
+    slice_bm = []
+    for path, batches in bm_batches.items():
+        for bm_in in batches:
+            check_equal("{} batch band max".format(path), hsmm_band_max(*bm_in),
+                        _band_max_plain(*bm_in))
+            Bn, Tn, Cn = bm_in[0].shape
+            tile = hsmm_cuda.band_max_tile(Bn, Tn, Cn, bm_in[2].shape[1], sms)
+            slice_bm.append((graph_ms(lambda: hsmm_band_max(*bm_in), N_TIMED),
+                             cuda_ms(lambda: hsmm_band_max(*bm_in), N_TIMED), bm_floor(bm_in),
+                             path, (Bn, Tn, Cn), (tile.rows, Bn * tile.tiles, tile.waves)))
+    check(all(bm_batches.values()), "a decode path of the slice launched no band max")
+
     # the band gradient at the constrained CrossTask fit's batches: the
     # launches the training path makes there
     ct_bg = []
@@ -1387,8 +1461,19 @@ def main():
             "source": "action_segmentation_torch/csrc/band_max.cu",
             "replaces": TPU_FILE + ":726", "also_replaces": TPU_FILE + ":605",
             "launches": launches[1], "max_abs_err": errs["band"],
-            "ms": band_ms, "kernel_ms": band_ms, "plain_ms": band_plain_ms,
-            "bound_ms": b_bound, "bound_by": b_by, "library_ms": None,
+            "ms": band_ms, "kernel_ms": band_ms, "graph_ms": band_ms,
+            "stream_ms": band_stream_ms, "host_ms": band_host_ms, "plain_ms": band_plain_ms,
+            "bound_ms": b_bound, "bound_by": b_by, "floor_ms": bm_floor(band_in),
+            "floor_instructions_per_duration": bm_loops, "registers": bm_regs,
+            "rows": bm_tile.rows, "slab": bm_tile.slab, "blocks": B * bm_tile.tiles,
+            "blocks_per_sm": bm_tile.blocks_per_sm, "waves": bm_tile.waves,
+            "filling": bm_tile.filling, "balance": bm_tile.balance, "library_ms": None,
+            "slice_batches": len(slice_bm),
+            "slice_batches_graph_ms": float(np.mean([x[0] for x in slice_bm])),
+            "slice_batches_graph_ms_range": [min(x[0] for x in slice_bm),
+                                             max(x[0] for x in slice_bm)],
+            "slice_batches_stream_ms": float(np.mean([x[1] for x in slice_bm])),
+            "slice_batches_floor_ms": float(np.mean([x[2] for x in slice_bm])),
         },
         {
             "name": "hsmm_log_scan", "route": "cuda",
@@ -1456,9 +1541,7 @@ def main():
         },
     ]
     for k in kernels:
-        check(all(isinstance(v, str) or v is None or math.isfinite(v)
-                  for x in k.values() for v in (x if isinstance(x, list) else [x])),
-              "non-finite number in {}".format(k))
+        check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
         check(k["launches"] > 0, "{} was not launched on its path".format(k["name"]))
     phase("times", "serving shape B={} T={} C={} K={}; {} launches of each kernel; "
           "plain versions of the scans and the traceback 2 launches; library call: none "
@@ -1496,6 +1579,20 @@ def main():
               gr_times["fp32"], gr_times["sfu"], clock_mhz, bg_floor(grad_in), bg_insts, bg_mufu,
               bg_regs, bg_tile.rows, bg_tile.slab, B * bg_tile.tiles, bg_tile.blocks_per_sm,
               bg_tile.waves, bg_tile.filling, bg_tile.balance))
+    phase("times", "band max {:.5f} ms (a CUDA graph of {} launches; {:.5f} launched one by "
+          "one; the wrapper's host time {:.5f} a call), bound {:.5f} ms by {}, issue floor "
+          "{:.5f} ms (instructions a duration {}, {} registers); tile {} rows, slab {}, {} "
+          "blocks, {} an SM, {} waves, filling {:.3f}, balance {:.3f}".format(
+              band_ms, N_TIMED, band_stream_ms, band_host_ms, b_bound, b_by, bm_floor(band_in),
+              bm_loops, bm_regs, bm_tile.rows, bm_tile.slab, B * bm_tile.tiles,
+              bm_tile.blocks_per_sm, bm_tile.waves, bm_tile.filling, bm_tile.balance))
+    phase("times", "band max at the {} synthetic decode batches (predict, segment_many): "
+          "{:.5f} ms a launch ({:.5f}-{:.5f}; {:.5f} launched one by one), issue floor {:.5f} "
+          "ms; shapes {}, (rows, blocks, waves) {}; fm equal to the plain version's".format(
+              len(slice_bm), float(np.mean([x[0] for x in slice_bm])),
+              min(x[0] for x in slice_bm), max(x[0] for x in slice_bm),
+              float(np.mean([x[1] for x in slice_bm])), float(np.mean([x[2] for x in slice_bm])),
+              sorted({x[4] for x in slice_bm}), sorted({x[5] for x in slice_bm})))
     phase("times", "band grad at the {} constrained crosstask fit batches: {:.5f} ms a launch "
           "({:.5f}-{:.5f}; {:.5f} launched one by one), bound {:.5f} ms, issue floor {:.5f} ms; "
           "shapes {}, (rows, blocks, waves) {}".format(

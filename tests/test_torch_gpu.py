@@ -9,7 +9,7 @@ imports neither JAX nor the JAX package, so it runs where JAX is absent:
 version do the same float32 operations in the same order, so they are
 held to the JAX package's score tolerance (rtol 1e-5 / atol 1e-4,
 tests/test_hsmm_pallas.py) and labels, backpointer codes and spans must
-be equal. The partition's
+be equal, as must K3's fm and K4's qg, sa and st at these shapes. The partition's
 gradients are held to the JAX package's gradient tolerance (rtol 2e-3 /
 atol 2e-4, tests/test_hsmm_grad.py).
 """
@@ -77,17 +77,64 @@ def test_gamma_kernel_matches_plain(cuda, B, T, C, K):
     torch.testing.assert_close(alphas, want_alphas, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("B,T,C,K", SHAPES)
-def test_band_kernel_matches_plain(cuda, B, T, C, K):
-    pots, lengths = random_pots(np.random.RandomState(B * T), B, T, C, K, cuda)
+# batches shorter than the band (T + 1 < K - 1): G2p still carries K - 1
+# whole BIG_NEG rows past e = T
+SHORT_SHAPES = [(2, 5, 4, 20), (2, 7, 19, 20)]
+# the band max (csrc/band_max.cu) beyond SHAPES (which hold K=1, Km = 0):
+# several slabs (Km past the slab), T not a multiple of the serving
+# shape's 47-row tile, a video shorter than one tile, C=1, one long video
+BAND_MAX_SHAPES = SHAPES + SHORT_SHAPES + [
+    (4, 300, 19, 101), (2, 100, 128, 65), (18, 1000, 19, 20), (3, 30, 19, 20),
+    (3, 100, 1, 20), (1, 12000, 19, 20)]
+
+
+def band_max_inputs(B, T, C, K, device, seed):
+    """(G1, G2p, band) as the labels chain builds them."""
+    pots, lengths = random_pots(np.random.RandomState(seed), B, T, C, K, device)
     lengths = lengths.long()
     gamma, _ = hc._gamma_scan_plain(*hc._stack_fwd_rev(pots, lengths))
-    band_in = hc._band_inputs(pots, lengths, gamma)
+    return hc._band_inputs(pots, lengths, gamma)
+
+
+@pytest.mark.parametrize("B,T,C,K", BAND_MAX_SHAPES)
+def test_band_kernel_matches_plain(cuda, B, T, C, K):
+    """The kernel's fm equal to the plain version's: the same float32 adds
+    and maxima, whatever the tile and slab."""
+    band_in = band_max_inputs(B, T, C, K, cuda, B * T)
+    tile = hc.band_max_tile(B, T, C, K - 1, hc._sm_count(cuda.index or 0))
+    if K == 101 or (C, K) == (128, 65):
+        assert tile.slab < K - 1  # several slabs
+    if (T, C) == (1000, 19):
+        assert T % tile.rows != 0
     before = hc.hsmm_band_max.launches
     got = hc.hsmm_band_max(*band_in)
     assert hc.hsmm_band_max.launches == before + 1
+    want = hc._band_max_plain(*band_in)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, hc._band_max_plain(*band_in), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, want), "{} of {} differ from the plain version".format(
+        int((got != want).sum()), got.numel())
+
+
+def test_band_max_launch_refuses_a_tile_that_does_not_fit(cuda):
+    """The launch takes the wrapper's tile; shared memory that cannot hold
+    a slab of its rows or, with several slabs, the carry beside it, more
+    than 1,024 threads, or no slab for a band is refused, not run."""
+    band_in = band_max_inputs(2, 64, 19, 20, cuda, 7)
+    long_in = band_max_inputs(2, 64, 19, 101, cuda, 8)
+    tile = hc.band_max_tile(2, 64, 19, 19)
+    several = hc.band_max_tile(2, 64, 19, 100)
+    assert several.slab < 100
+    for args, bad in ((band_in, tile._replace(smem_bytes=tile.smem_bytes - 4)),
+                      (band_in, tile._replace(rows=54, threads=54 * 19, tiles=2)),
+                      (band_in, tile._replace(slab=0, smem_bytes=0)),
+                      (band_in, tile._replace(smem_bytes=hc.MAX_BLOCK_SMEM + 4)),
+                      (long_in, several._replace(smem_bytes=several.smem_bytes - 4))):
+        with pytest.raises(RuntimeError, match="hsmm_band_max"):
+            hc._launch_band_max(*args, bad)
+    for args, good in ((band_in, tile), (long_in, several)):
+        got = hc._launch_band_max(*args, good)
+        torch.cuda.synchronize()
+        assert torch.equal(got, hc._band_max_plain(*args))
 
 
 @pytest.mark.parametrize("B,T,C,K", SHAPES)
@@ -134,11 +181,12 @@ def test_log_scans_match_plain(cuda, B, T, C, K):
 
 
 # the band gradient (csrc/band_grad.cu) beyond SHAPES (which hold K=1,
-# Km = 0): several slabs (Km past the slab), a video shorter than the
-# serving shape's 47-row tile, T not a multiple of the tile, C=1, and one
-# long video
-BAND_GRAD_SHAPES = SHAPES + [(4, 300, 19, 101), (2, 100, 128, 65), (3, 30, 19, 20),
-                             (18, 1000, 19, 20), (3, 100, 1, 20), (1, 12000, 19, 20)]
+# Km = 0): batches shorter than the band, several slabs (Km past the
+# slab), a video shorter than the serving shape's 47-row tile, T not a
+# multiple of the tile, C=1, and one long video
+BAND_GRAD_SHAPES = SHAPES + SHORT_SHAPES + [
+    (4, 300, 19, 101), (2, 100, 128, 65), (3, 30, 19, 20), (18, 1000, 19, 20), (3, 100, 1, 20),
+    (1, 12000, 19, 20)]
 
 
 def band_grad_inputs(B, T, C, K, device, seed):

@@ -1,5 +1,5 @@
-"""The scan kernels' instances, the traceback's tile, the band
-gradient's tile, and the build cache's key, on the CPU.
+"""The scan kernels' instances, the traceback's tile, the band max's
+and the band gradient's tiles, and the build cache's key, on the CPU.
 
 ``hsmm_cuda.scan_instance(C, Km)`` picks the instance of the scan
 template (csrc/hsmm_scan_core.cuh) that a shape launches and sizes its
@@ -131,6 +131,68 @@ def test_band_grad_tile_at_the_serving_shape_and_crosstask_fit():
     # the rule follows the card's SM count
     assert hc.band_grad_tile(5, 1056, 20, 19, sms=66).tiles != hc.band_grad_tile(
         5, 1056, 20, 19).tiles
+
+
+@pytest.mark.parametrize("Km", (0, 1, 19, 64, 100))
+@pytest.mark.parametrize("T", (1, 5, 19, 100, 1024, 12000))
+@pytest.mark.parametrize("C", (1, 19, 20, 33, 128))
+def test_band_max_tile_fits_the_block(C, T, Km):
+    """K3's tile (``hsmm_cuda.band_max_tile``) for 18 videos on 132 SMs:
+    at least one row and at most T, at most 1,024 threads, a slab of span
+    terms (slab x threads floats) and, where the slab is short of the
+    band, the carry of the starts' running maxima (min(rows + Km - 1, T)
+    x C floats) within a block's 232,448 bytes and, beside a KB each,
+    within an SM's shared memory for the blocks it keeps resident, which
+    fit its 64 warps and its registers at the kernel's 32 a thread. The
+    slab covers the band, or is the most durations that fit beside the
+    carry, a whole number of them a pass (none at Km = 0)."""
+    B, sms = 18, 132
+    tile = hc.band_max_tile(B, T, C, Km, sms)
+    warps = -(-tile.threads // 32)
+    assert 1 <= tile.rows <= T
+    assert tile.threads == tile.rows * C <= hc.MAX_BLOCK_THREADS
+    assert tile.tiles == -(-T // tile.rows)
+    carry = min(tile.rows + Km - 1, T) * C if tile.slab < Km else 0
+    assert tile.smem_bytes == 4 * (tile.slab * tile.threads + carry) <= hc.MAX_BLOCK_SMEM
+    assert tile.blocks_per_sm * (tile.smem_bytes + hc.SM_SMEM_PER_BLOCK) <= hc.SM_SMEM
+    assert tile.blocks_per_sm * warps <= 64
+    assert tile.blocks_per_sm * warps * 32 * hc.BAND_MAX_REGS <= hc.SM_REGS
+    room = min(hc.MAX_BLOCK_SMEM,
+               hc.SM_SMEM // tile.blocks_per_sm - hc.SM_SMEM_PER_BLOCK) // 4
+    assert (tile.slab >= 1) == (Km > 0)
+    assert tile.slab == Km <= room // tile.threads or (
+        1 <= tile.slab == (room - carry) // tile.threads < Km)
+    assert tile.waves == -(-B * tile.tiles // (sms * tile.blocks_per_sm))
+    assert 0 < tile.filling <= 1 and 0 < tile.balance <= 1
+
+
+def test_band_max_tile_at_the_serving_shape():
+    """At the serving shape (B=18, T=1024, C=19, Km=19) K3 takes 47 rows
+    (893 threads, 28 warps), 22 tiles a video, 396 blocks, 2 resident an
+    SM, the busiest SM 3 blocks; one slab holds every duration, so a block
+    crosses two barriers where the earlier kernel crossed 38 (684 blocks
+    of 512 threads). A band longer than the room takes several slabs with
+    the carry beside them; a band too long for even one duration beside
+    the carry asks for more than a block's shared memory (the wrapper
+    raises), as the earlier kernel's (Km - 1) x C halo did. Where a
+    video has several tiles, the halo's share moves the pick off the rows
+    that count warps alone, to the rows timed faster on the card
+    (tools/scan_ab.py --kernels band_max)."""
+    serving = hc.band_max_tile(18, 1024, 19, 19)
+    assert serving == (47, 893, 19, 4 * 19 * 893, 22, 2, 2, 0.75,
+                       18 * 1024 * 19 / 32 / 132 / (3 * 28))
+    assert serving == hc.band_max_tile(18, 1024, 19, 19, halo_share=0)
+    for shape, rows, warps_alone in (((2, 12000, 19, 19), 47, 37), ((9, 1024, 19, 19), 37, 5),
+                                     ((18, 1024, 48, 19), 21, 4), ((4, 360, 128, 19), 6, 1)):
+        assert hc.band_max_tile(*shape).rows == rows
+        assert hc.band_max_tile(*shape, halo_share=0).rows == warps_alone
+    long_band = hc.band_max_tile(18, 1024, 19, 100)
+    assert long_band.slab < 100 and long_band.smem_bytes == 4 * (
+        long_band.slab * long_band.threads + (long_band.rows + 99) * 19)
+    assert hc.band_max_tile(18, 1024, 19, 0).smem_bytes == 0
+    assert hc.band_max_tile(4, 1024, 128, 600).smem_bytes > hc.MAX_BLOCK_SMEM
+    # a batch shorter than the band: one tile, no halo
+    assert hc.band_max_tile(2, 5, 4, 19).tiles == 1
 
 
 def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
