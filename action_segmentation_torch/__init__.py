@@ -8,11 +8,14 @@ for Hopper, from four sources and one scan template (``csrc/``);
 everything around them is plain PyTorch.
 
 Layout (each file has one twin in the JAX package):
+  main.py      the command line (python -m action_segmentation_torch.main)
+  api.py       the serving surface (Segmenter, Segmenter.load)
+  checkpoint.py  pickles, train-state checkpoints, the reference state dict
   ops/         span codec, semi-Markov DP (plain torch + CUDA kernels),
                emission/duration/transition distributions, sufficient stats
-  models/      model classes (semimarkov)
-  data/        synthetic corpus and host-side batching
-  evaluation/  Hungarian-matched accuracy metrics
+  models/      model classes (semimarkov; the baselines' flags)
+  data/        synthetic, CrossTask and Breakfast corpora, PCA, batching
+  evaluation/  Hungarian-matched accuracy metrics, F1
   utils/       logging, the deferred label drain, small helpers
 
 Entry points run on the card unless the caller passes ``device="cpu"``.

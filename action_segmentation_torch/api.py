@@ -12,14 +12,16 @@ Example:
 
 A model trained with canonical-order constraints decodes with the same
 per-video end masks as ``predict`` (``Segmenter(model, valid_classes,
-task=...)``). Loading a pickled model comes with the CLI slice
-(ROADMAP.md §1).
+task=...)``). ``Segmenter.load(path, device=...)`` serves a model the
+command line pickled (``--model_output_path``), on the card unless the
+caller asks for the CPU.
 """
 
 import numpy as np
 import torch
 
 from action_segmentation_torch import BIG_NEG
+from action_segmentation_torch.checkpoint import load_pickle
 from action_segmentation_torch.data.batching import pad_length_to_bucket
 from action_segmentation_torch.models.semimarkov import SemiMarkovModel, upload
 from action_segmentation_torch.ops.hsmm import hsmm_frame_marginals
@@ -60,6 +62,12 @@ class Segmenter:
                     "would argmax over BIG_NEG-saturated scores"
                 )
             self._end_row = np.where(mask, 0.0, BIG_NEG).astype(np.float32)
+
+    @classmethod
+    def load(cls, path, valid_classes=None, device=None):
+        """A Segmenter over the model pickled at `path`, put on `device`
+        (None: the card, which raises when no card is present)."""
+        return cls(load_pickle(path, device=device), valid_classes=valid_classes)
 
     def _end_rows(self, lengths):
         """(B, C) end masks, the rows predict() builds."""

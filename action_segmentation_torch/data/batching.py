@@ -122,8 +122,7 @@ def iter_batches(datasplit, batch_size, batch_by_task, shuffle, seed=1, bucket=T
 
     The datasplit must expose `videos_by_task` (task -> {name: ...}) and
     `__getitem__((task, name)) -> sample dict`. A datasplit whose
-    `loader_workers` is positive (the command line's --workers, which
-    comes with the CLI slice) loads and collates batches ahead on that
+    `loader_workers` is positive (the command line's --workers) loads and collates batches ahead on that
     many threads, in order (numpy's .npy reads release the GIL).
     """
     length_of = None

@@ -3,9 +3,9 @@
 4-fold participant splits (s1-s4), mapping.txt label index, per-camera
 annotation parsing with the reference's 9-video blacklist for
 feature/label length mismatches, fisher-vector features with the
-first-row/column drop (breakfast.py:315-319). Twin of the JAX
-package's module; its PCA export (``pca_and_serialize_features`` and the
-``__main__`` CLI) comes with the CLI slice.
+first-row/column drop (breakfast.py:315-319), and the PCA CLI. Twin of
+the JAX package's module; the PCA export runs on the card unless the
+caller passes ``device="cpu"``.
 """
 
 import os
@@ -15,6 +15,7 @@ from collections import Counter
 import numpy as np
 
 from action_segmentation_torch.data.corpus import Corpus, Datasplit, GroundTruth, Video
+from action_segmentation_torch.data.features import grouped_pca
 from action_segmentation_torch.utils import all_equal, logger
 
 MISMATCH_BLACKLIST = [
@@ -202,6 +203,26 @@ class BreakfastCorpus(Corpus):
         )
 
 
+def datasets_by_task(
+    mapping_file,
+    feature_root,
+    label_root,
+    remove_background,
+    task_ids=None,
+    splits=None,
+    full=True,
+):
+    if task_ids is None:
+        task_ids = BreakfastCorpus.TASKS
+    if splits is None:
+        splits = list(BreakfastCorpus.DATASPLITS.keys())
+    corpus = BreakfastCorpus(mapping_file, feature_root, label_root)
+    return {
+        task_id: corpus.get_datasplit(remove_background, [task_id], splits, full)
+        for task_id in task_ids
+    }
+
+
 class BreakfastGroundTruth(GroundTruth):
     def __init__(self, corpus, task_names, p_files, remove_background):
         self._p_files = set(p_files)
@@ -281,3 +302,65 @@ def extract_feature_groups(corpus):
             continue
         grouped["reduced_64"][instance["video_name"]] = instance["features"][:, 0:64]
     return grouped
+
+
+def pca_and_serialize_features(
+    mapping_file,
+    feature_root,
+    label_root,
+    output_feature_root,
+    remove_background,
+    pca_components_per_group=64,
+    by_task=True,
+    task_ids=None,
+    device=None,
+):
+    """Fit per-task PCA and write per-video .npy files; the PCA runs on
+    `device` (None: the card)."""
+    all_splits = list(BreakfastCorpus.DATASPLITS.keys())
+    if by_task:
+        grouped_datasets = datasets_by_task(
+            mapping_file, feature_root, label_root, remove_background,
+            task_ids=task_ids, splits=all_splits, full=True,
+        )
+    else:
+        corpus = BreakfastCorpus(mapping_file, feature_root, label_root)
+        grouped_datasets = {"all": corpus.get_datasplit(remove_background, splits=all_splits)}
+
+    os.makedirs(output_feature_root, exist_ok=True)
+    for corpora_group, dataset in grouped_datasets.items():
+        logger.debug("saving features for task: {}".format(corpora_group))
+        grouped_features = extract_feature_groups(dataset)
+        transformed, _ = grouped_pca(grouped_features, pca_components_per_group, device=device)
+        for feature_group, vid_dict in transformed.items():
+            feature_group_dir = os.path.join(output_feature_root, feature_group)
+            os.makedirs(feature_group_dir, exist_ok=True)
+            for vid, features in vid_dict.items():
+                np.save(os.path.join(feature_group_dir, "{}.npy".format(vid)), features)
+
+
+if __name__ == "__main__":
+    # DATA_ROOT env overrides the reference's hardcoded ./data layout
+    # (reference breakfast.py:362-377); see crosstask.py __main__
+    _root = os.environ.get("DATA_ROOT", "data")
+    _mapping_file = os.path.join(_root, "breakfast/mapping.txt")
+    _feature_root = os.path.join(_root, "breakfast/reduced_fv_64")
+    _label_root = os.path.join(_root, "breakfast/BreakfastII_15fps_qvga_sync")
+    _components = 64
+    for _remove_background in [False, True]:
+        _output_feature_root = os.path.join(
+            _root, "breakfast/breakfast_processed/breakfast_pca-{}_{}_{}"
+        ).format(
+            _components,
+            "no-bkg" if _remove_background else "with-bkg",
+            "by-task",
+        )
+        pca_and_serialize_features(
+            _mapping_file,
+            _feature_root,
+            _label_root,
+            _output_feature_root,
+            _remove_background,
+            pca_components_per_group=_components,
+            by_task=True,
+        )

@@ -16,11 +16,16 @@ permutation, and the per-task accuracy/F1 evaluation loop
   module-level functions producing the fixed-shape numpy batch inputs
   the models consume;
 * label/component interning is a reusable ``_Interner``;
-* the evaluation loop is decomposed into per-task helpers.
+* the evaluation loop is decomposed into per-task helpers with the
+  comparison-folder machinery isolated in ``_ComparisonPredictions``.
 
 Quirks that are parity-load-bearing (return_stat overwritten per task,
-gt2label capture order) are kept and labeled inline.
+the comparison-stat key set, gt2label capture order) are kept and
+labeled inline.
 """
+
+import json
+import os
 
 import numpy as np
 
@@ -402,72 +407,129 @@ class Datasplit:
 
     # ----- evaluation loop ---------------------------------------------
 
-    def accuracy_corpus(self, optimal_assignment, prediction_function, prefix="",
-                        verbose=True):
-        """Per-task Accuracy + F1 evaluation (reference corpus.py:405-604).
-        Scoring a prior run's exported predictions (the command line's
-        --compare_to_prediction_folder) comes with the CLI slice."""
+    def accuracy_corpus(
+        self,
+        optimal_assignment,
+        prediction_function,
+        prefix="",
+        verbose=True,
+        compare_to_folder=None,
+    ):
+        """Per-task Accuracy + F1 evaluation (reference corpus.py:405-604)."""
         stats_by_task = {}
+        comparison = (
+            _ComparisonPredictions(compare_to_folder)
+            if compare_to_folder is not None
+            else None
+        )
         for task in self._videos_by_task:
             if verbose:
                 logger.debug("computing accuracy for task {}".format(task))
             stats_by_task[task] = self._evaluate_task(
-                task, optimal_assignment, prediction_function, prefix, verbose
+                task, optimal_assignment, prediction_function, prefix,
+                verbose, comparison,
             )
         return stats_by_task
 
-    def _evaluate_task(self, task, optimal_assignment, prediction_function, prefix, verbose):
+    def _evaluate_task(
+        self, task, optimal_assignment, prediction_function, prefix, verbose,
+        comparison,
+    ):
         videos = self._videos_by_task[task]
         accuracy = Accuracy(verbose=verbose, corpus=self._corpus)
         f1_score = F1Score(
             K=self._K_by_task[task], n_videos=len(videos), verbose=verbose
         )
-        for video in videos.values():
-            gt, pred = self._model_gt_and_pred(video, prediction_function)
-            accuracy.add_gt_labels(gt)
-            accuracy.add_predicted_labels(pred)
+        if prediction_function is not None:
+            for video_name, video in videos.items():
+                gt, pred = self._model_gt_and_pred(video, prediction_function)
+                accuracy.add_gt_labels(gt)
+                accuracy.add_predicted_labels(pred)
 
-        accuracy.mof(
-            optimal_assignment,
-            possible_gt_labels=self.corpus.indices_by_task(task),
-        )
-        # the Hungarian gt->cluster map feeds F1 and the per-class
-        # prediction export (reference corpus.py:528-541)
-        self._gt2label = accuracy._gt2cluster
-        self._label2gt = {
-            val[0]: key
-            for key, val in self._gt2label.items()
-            if len(val)
-        }
-        if verbose:
-            logger.debug("%s Task: %s" % (prefix, task))
-            logger.debug("%s MoF val: " % prefix + str(accuracy.mof_val()))
-        accuracy.mof_classes()
-        accuracy.iou_classes()
-        accuracy.levenshtein()
-        accuracy.single_step_recall()
+        compare_accuracy = None
+        if comparison is not None:
+            compare_accuracy = Accuracy(verbose=verbose, corpus=self._corpus)
+            comparison.accumulate(task, videos, compare_accuracy)
+
+        named_accuracies = []
+        if prediction_function is not None:
+            named_accuracies.append(("model", accuracy))
+            accuracy_to_return = accuracy
+        else:
+            assert compare_accuracy is not None, (
+                "accuracy_corpus needs a prediction_function or a "
+                "compare_to_folder — with neither there is nothing to score"
+            )
+            accuracy_to_return = compare_accuracy
+        if comparison is not None:
+            named_accuracies.append(
+                ("comparison: {}".format(comparison.folder), compare_accuracy)
+            )
+
+        for acc_name, acc in named_accuracies:
+            acc.mof(
+                optimal_assignment,
+                possible_gt_labels=self.corpus.indices_by_task(task),
+            )
+            if acc_name == "model":
+                # the Hungarian gt->cluster map feeds F1 and the
+                # per-class prediction export (reference corpus.py:528-541)
+                self._gt2label = acc._gt2cluster
+                self._label2gt = {
+                    val[0]: key
+                    for key, val in self._gt2label.items()
+                    if len(val)
+                }
+            if verbose:
+                logger.debug("%s Task: %s" % (prefix, task))
+                logger.debug("%s MoF val: " % prefix + str(acc.mof_val()))
+            acc.mof_classes()
+            acc.iou_classes()
+            acc.levenshtein()
+            acc.single_step_recall()
 
         # QUIRK (reference corpus.py:569): return_stat is overwritten
         # every task — after the loop it holds the LAST task's stats
-        self.return_stat = accuracy.stat()
+        self.return_stat = accuracy_to_return.stat()
 
-        # the accumulator's cached flats ARE long_gt's first labels /
-        # long_pr in the same per-video order (reference corpus.py:528-541
-        # rebuilt both as Python lists)
-        f1_score.set_gt_single(accuracy.gt_labels)
-        f1_score.set_pr(accuracy.predicted_labels)
-        f1_score.set_gt2pr(self._gt2label)
-        f1_score.f1()
-        for key, val in f1_score.stat().items():
-            self.return_stat[key] = val
+        if prediction_function is not None:
+            # the accumulator's cached flats ARE long_gt's first labels /
+            # long_pr in the same per-video order (reference
+            # corpus.py:528-541 rebuilt both as Python lists)
+            f1_score.set_gt_single(accuracy.gt_labels)
+            f1_score.set_pr(accuracy.predicted_labels)
+            f1_score.set_gt2pr(self._gt2label)
+            f1_score.f1()
+            for key, val in f1_score.stat().items():
+                self.return_stat[key] = val
 
         # SUBTLE (reference corpus.py:586-603): stat() returns the
-        # accumulator's OWN dict, so the F1 keys written into return_stat
-        # above and num_videos here land in the dict the final stat() call
-        # returns
-        stats = accuracy.stat()
+        # accumulator's OWN dict, so attaching num_videos and the
+        # comparison_* keys here mutates the very dict the final stat()
+        # call returns — and the F1 keys written into return_stat above
+        # land there too. The mutation order is parity-load-bearing.
+        stats = accuracy_to_return.stat()
         stats["num_videos"] = np.array([len(videos), 1])
-        return accuracy.stat()
+        if comparison is not None:
+            comparison_stats = compare_accuracy.stat()
+            for k in (
+                "mof",
+                "mof_bg",
+                "mof_non_bg",
+                "step_recall_non_bg",
+                "mean_normed_levenshtein",
+                "f1",
+                "f1_non_bg",
+                "pred_background",
+            ):
+                stats["comparison_{}".format(k)] = comparison_stats[k]
+            # QUIRK (reference corpus.py:599): the reference fills the
+            # center-step header from the PLAIN step recall — preserved
+            # verbatim so comparison rows match its outputs
+            stats["comparison_center_step_recall_non_bg"] = comparison_stats[
+                "step_recall_non_bg"
+            ]
+        return accuracy_to_return.stat()
 
     def _model_gt_and_pred(self, video, prediction_function):
         """One video's (gt, pred) label streams for the model accuracy:
@@ -489,6 +551,65 @@ class Datasplit:
             ]
             pred = [self.canonicalize_background(ix) for ix in pred]
         return gt, pred
+
+
+class _ComparisonPredictions:
+    """Loads a prior run's exported predictions (--compare_load_splits)
+    and scores them through the same Accuracy machinery.
+
+    Supports all three export layouts: one y_true/y_pred JSON pair for
+    the whole corpus, per-video .npy pairs, or per-video JSON files.
+    """
+
+    def __init__(self, folder):
+        self.folder = folder
+        self._y_true = self._y_pred = None
+        bulk = os.path.join(folder, "y_true.json")
+        if os.path.exists(bulk):
+            with open(bulk) as f:
+                self._y_true = json.load(f)
+            with open(os.path.join(folder, "y_pred.json")) as f:
+                self._y_pred = json.load(f)
+
+    def load(self, task, video_name):
+        if self._y_true is not None:
+            return (
+                np.array(self._y_true[str(task)][video_name]),
+                np.array(self._y_pred[str(task)][video_name]),
+            )
+        npy = os.path.join(self.folder, "{}_y_true.npy".format(video_name))
+        if os.path.exists(npy):
+            return (
+                np.load(npy),
+                np.load(
+                    os.path.join(self.folder, "{}_y_pred.npy".format(video_name))
+                ),
+            )
+        with open(os.path.join(self.folder, "{}.json".format(video_name))) as f:
+            data = {k: np.array(v) for k, v in json.load(f).items()}
+        return data["y_true"], data["y_pred"]
+
+    def accumulate(self, task, videos, compare_accuracy):
+        """Two passes, as in the reference (corpus.py:499-527): first
+        build the exported-index -> gt-label mapping from every video's
+        y_true one-hots (asserting consistency), then feed the mapped
+        streams into the comparison Accuracy."""
+        task_mapping = {}
+        for video_name, video in videos.items():
+            trues = self.load(task, video_name)[0].argmax(axis=1)
+            gts = video.gt()
+            assert len(trues) == len(gts)
+            for t, gt_t in zip(trues, gts):
+                seen = task_mapping.setdefault(t, gt_t[0])
+                assert seen == gt_t[0]
+        for video_name, video in videos.items():
+            y_true, y_pred = self.load(task, video_name)
+            trues = y_true.argmax(axis=1)
+            preds = y_pred.argmax(axis=1)
+            compare_accuracy.add_gt_labels([[task_mapping[t]] for t in trues])
+            compare_accuracy.add_predicted_labels(
+                [task_mapping[p] for p in preds]
+            )
 
 
 # ----- corpus-level label bookkeeping -----------------------------------

@@ -5,10 +5,10 @@ related task sets, videos.csv / videos_val.csv splits plus seeded
 cross-validation splits, CSV step annotations expanded to per-frame
 (possibly multi-) labels with background handling (optionally
 previous-step-specific background classes), narration constraint
-matrices, canonical-ordering transition constraints, and grouped
-i3d/resnet/audio feature loading. Twin of the JAX package's module; its
-PCA export (``pca_and_serialize_features`` and the ``__main__`` CLI)
-comes with the CLI slice.
+matrices, canonical-ordering transition constraints, grouped
+i3d/resnet/audio feature loading, and PCA preprocessing. Twin of the JAX
+package's module; the PCA export runs on the card unless the caller
+passes ``device="cpu"``.
 """
 
 import glob
@@ -21,6 +21,7 @@ from collections import defaultdict, namedtuple
 import numpy as np
 
 from action_segmentation_torch.data.corpus import Corpus, Datasplit, GroundTruth, Video
+from action_segmentation_torch.data.features import grouped_pca
 from action_segmentation_torch.utils import load_pickle, logger
 
 CrosstaskTask = namedtuple("CrosstaskTask", ["index", "title", "url", "n_steps", "steps"])
@@ -134,6 +135,47 @@ def load_videos_by_task(release_root, split="train", cv_n_train=30):
         return vids_by_task
     assert split == "train"
     return train_videos_by_task
+
+
+def datasets_by_task(
+    release_root,
+    feature_root,
+    constraints_root,
+    remove_background,
+    task_sets=None,
+    split="train",
+    task_ids=None,
+    full=True,
+):
+    if task_sets is None:
+        task_sets = list(CrosstaskCorpus.TASK_SET_PATHS.keys())
+    if task_ids is None:
+        task_ids = [
+            task_id
+            for task_set in task_sets
+            for task_id in CrosstaskCorpus.TASK_IDS_BY_SET[task_set]
+        ]
+    corpus = CrosstaskCorpus(
+        release_root,
+        feature_root,
+        use_secondary="related" in task_sets,
+        load_constraints=True,
+        constraints_root=constraints_root,
+    )
+    if not os.path.exists(os.path.join(corpus._release_root, "frame_counts.pkl")):
+        corpus.get_datasplit(
+            remove_background,
+            task_sets=CrosstaskCorpus.TASK_SET_PATHS.keys(),
+            split="all",
+            task_ids=None,
+            full=full,
+        )
+    return {
+        task_id: corpus.get_datasplit(
+            remove_background, task_sets=task_sets, split=split, task_ids=[task_id], full=full
+        )
+        for task_id in task_ids
+    }
 
 
 class CrosstaskDatasplit(Datasplit):
@@ -594,3 +636,83 @@ def extract_feature_groups(corpus, narration_feature_dirs=None):
             grouped["narration"][video_name] = task_feats[video_name]
             last_task = task
     return grouped
+
+
+def pca_and_serialize_features(
+    release_root,
+    raw_feature_root,
+    output_feature_root,
+    constraints_root,
+    remove_background,
+    pca_components_per_group=200,
+    by_task=True,
+    task_sets=None,
+    narration_feature_dirs=None,
+    device=None,
+):
+    """Fit per-task per-group PCA and write per-video .npy files
+    (crosstask.py:619-649); directory naming matches the reference. The
+    PCA runs on `device` (None: the card)."""
+    if by_task:
+        grouped_datasets = datasets_by_task(
+            release_root,
+            raw_feature_root,
+            constraints_root,
+            remove_background,
+            split="all",
+            task_sets=task_sets,
+            full=True,
+        )
+    else:
+        corpus = CrosstaskCorpus(
+            release_root,
+            raw_feature_root,
+            use_secondary="related" in (task_sets or []),
+            load_constraints=True,
+            constraints_root=constraints_root,
+        )
+        grouped_datasets = {
+            "all": corpus.get_datasplit(remove_background, split="all", task_sets=task_sets)
+        }
+
+    os.makedirs(output_feature_root, exist_ok=True)
+    for corpora_group, dataset in grouped_datasets.items():
+        logger.debug("saving features for task: {}".format(corpora_group))
+        grouped_features = extract_feature_groups(dataset, narration_feature_dirs)
+        transformed, _ = grouped_pca(grouped_features, pca_components_per_group, device=device)
+        for feature_group, vid_dict in transformed.items():
+            feature_group_dir = os.path.join(output_feature_root, feature_group)
+            os.makedirs(feature_group_dir, exist_ok=True)
+            for vid, features in vid_dict.items():
+                np.save(os.path.join(feature_group_dir, "{}.npy".format(vid)), features)
+
+
+if __name__ == "__main__":
+    # DATA_ROOT env overrides the reference's hardcoded ./data layout
+    # (reference crosstask.py:652-693) so the readiness kit can point
+    # the whole pipeline at a mounted corpus root
+    _root = os.environ.get("DATA_ROOT", "data")
+    _release_root = os.path.join(_root, "crosstask/crosstask_release")
+    _raw_feature_root = os.path.join(_root, "crosstask/crosstask_features")
+    _constraints_root = os.path.join(_root, "crosstask/crosstask_constraints")
+    _components = 200
+    _task_sets = ["primary"]
+    for _remove_background in [False]:
+        _output_feature_root = (
+            os.path.join(_root, "crosstask/crosstask_processed/crosstask_{}_pca-{}_{}_{}").format(
+                "+".join(_task_sets),
+                _components,
+                "no-bkg" if _remove_background else "with-bkg",
+                "by-task",
+            )
+        )
+        pca_and_serialize_features(
+            _release_root,
+            _raw_feature_root,
+            _output_feature_root,
+            _constraints_root,
+            _remove_background,
+            pca_components_per_group=_components,
+            by_task=True,
+            task_sets=_task_sets,
+        )

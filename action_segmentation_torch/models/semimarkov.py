@@ -22,19 +22,26 @@ kernels (K6 and its traceback) above, on both devices (plain versions on
 the CPU). Training's partition runs the kernel forward/backward of
 ``ops/hsmm_grad.py`` on the card; on the CPU, autograd of
 ``hsmm_partition`` above 128 classes. On the card only a DP wider than
-128 classes raises. Flows, the compound model, the resident corpus, data
-parallelism, checkpoints and profiling raise ``NotImplementedError``:
-they come with later slices (ROADMAP.md §1).
+128 classes raises. ``fit`` writes and resumes train-state checkpoints
+(--checkpoint_dir, --checkpoint_every, --resume) and traces its first
+epoch with ``torch.profiler`` (--profile_dir); a model pickles onto the
+CPU and unpickles onto the device its loader asks for. Flows, the
+compound model and data parallelism raise ``NotImplementedError``, and
+the resident corpus is not ported (every batch streams): they come with
+later slices (ROADMAP.md §1).
 """
 
+import contextlib
+import copy
 import itertools
+import os
 import time
 
 import numpy as np
 import torch
 from torch import nn
 
-from action_segmentation_torch import BIG_NEG, resolve_device
+from action_segmentation_torch import BIG_NEG, checkpoint, resolve_device
 from action_segmentation_torch.data.batching import iter_batches, pad_class_width
 from action_segmentation_torch.models.base import (
     Model,
@@ -43,6 +50,7 @@ from action_segmentation_torch.models.base import (
     make_optimizer,
     mask_grads,
     set_lr,
+    unpickling_device,
 )
 from action_segmentation_torch.ops.distributions import (
     gaussian_emission_log_probs,
@@ -77,7 +85,7 @@ _UNPORTED_FLAGS = (
     "sm_init_non_projection_parameters_from",
 )
 # training flags of paths not ported yet; fit refuses them
-_UNPORTED_FIT_FLAGS = ("data_parallel", "checkpoint_dir", "resume", "profile_dir")
+_UNPORTED_FIT_FLAGS = ("data_parallel",)
 
 
 def upload(x, device):
@@ -260,6 +268,15 @@ class SemiMarkovModel(Model):
             "(padded classes are exactly masked out), so tasks with "
             "different step counts share one batch shape; 1 disables",
         )
+        parser.add_argument(
+            "--sm_device_resident_mb",
+            type=int,
+            default=1024,
+            help="HBM budget (MB) for a device-resident datasplit in the JAX "
+            "package; the port streams every batch (the resident corpus is "
+            "not ported yet, ROADMAP.md §1 item 11), with the same batches "
+            "and results",
+        )
         parser.add_argument("--sm_supervised_state_smoothing", type=float, default=1e-2)
         parser.add_argument("--sm_supervised_length_smoothing", type=float, default=1e-1)
         parser.add_argument(
@@ -267,6 +284,30 @@ class SemiMarkovModel(Model):
             choices=["closed-form", "gradient-based", "closed-then-gradient"],
             default="closed-form",
         )
+        # the flow's and the compound model's flags: declared so the
+        # command line takes every flag of the JAX package's; from_args
+        # refuses the three that select them (_UNPORTED_FLAGS)
+        parser.add_argument("--sm_feature_projection", action="store_true", help="use a flow")
+        parser.add_argument("--sm_init_non_projection_parameters_from")
+        parser.add_argument("--flow_hidden_layers", type=int, default=1)
+        parser.add_argument("--flow_hidden_units", type=int, default=100)
+        parser.add_argument("--flow_couple_layers", type=int, default=4)
+        parser.add_argument("--flow_scale", action="store_true")
+        parser.add_argument("--flow_scale_no_zero", action="store_true")
+        parser.add_argument("--sm_component_decompose_steps", action="store_true")
+        parser.add_argument("--sm_component_mean_layers", type=int, default=2)
+        parser.add_argument("--sm_component_length_layers", type=int, default=2)
+        parser.add_argument("--sm_component_embedding_dim", type=int, default=100)
+        parser.add_argument("--sm_component_z_dim", type=int, default=0)
+        parser.add_argument("--sm_component_z_hidden_dim", type=int, default=100)
+        parser.add_argument(
+            "--no_sm_compound_structure",
+            action="store_false",
+            dest="sm_compound_structure",
+        )
+        parser.add_argument("--seq_num_layers_component", type=int, default=2)
+        parser.add_argument("--sm_reference_pooling", action="store_true")
+        parser.add_argument("--sm_component_model", action="store_true")
         parser.add_argument("--sm_constrain_transitions", action="store_true")
         parser.add_argument(
             "--sm_constrain_with_narration",
@@ -281,6 +322,8 @@ class SemiMarkovModel(Model):
             action="store_true",
             help="train as hidden markov model (fix K=1)",
         )
+        # declared by the JAX package and read by neither
+        parser.add_argument("--sm_predict_single", action="store_true")
 
     @classmethod
     def from_args(cls, args, train_data, device=None):
@@ -336,6 +379,23 @@ class SemiMarkovModel(Model):
         self.module = module
         self.device = resolve_device(device)
         self.ordered_indices_by_task = ordered_indices_by_task
+
+    # pickling: args, bookkeeping and the module's weights, on the CPU;
+    # no device, optimizer or plateau controller. The unpickler chooses
+    # the device (checkpoint.load_pickle; None: the card)
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        del state["device"]
+        state.pop("_scheduler", None)
+        # a CPU copy: the live module stays where it is; args are shared
+        # with the model, not copied
+        state["module"] = copy.deepcopy(self.module, {id(self.args): self.args}).cpu()
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.device = resolve_device(unpickling_device())
+        self.module.to(self.device)
 
     # ----- host-side batch preparation -----
 
@@ -541,11 +601,23 @@ class SemiMarkovModel(Model):
         clip, and the plateau controller after the epoch.
         ``callback_fn(epoch, stats)`` gets the epoch's train_loss,
         train_nll_frame_avg, train_kl_vid_avg and train_recon_bound. The
-        losses stay on the device until one fetch per epoch."""
+        losses stay on the device until one fetch per epoch.
+
+        With --checkpoint_dir the train state is written after every
+        --checkpoint_every-th epoch (``checkpoint.save_checkpoint``);
+        --resume restores the latest one (params, Adam's moments, the
+        plateau controller) and starts at the epoch after it, whose
+        batches are those the uninterrupted run had. --profile_dir
+        traces the first epoch run with ``torch.profiler``."""
         args = self.args
         for flag in _UNPORTED_FIT_FLAGS:
             if getattr(args, flag, None):
                 raise NotImplementedError("--{} {}".format(flag, _LATER))
+        if getattr(args, "model_parallel", 1) not in (None, 1):
+            raise NotImplementedError(
+                "--model_parallel > 1 was retired in the JAX package; use "
+                "--data_parallel"
+            )
         if use_labels:
             assert not getattr(args, "sm_constrain_transitions", False)
         use_narration = "train" in getattr(args, "sm_constrain_with_narration", [])
@@ -560,60 +632,132 @@ class SemiMarkovModel(Model):
             self._moment_init(train_data)
 
         named = list(self.module.named_parameters())
-        params = [p for _, p in named]
-        trainable = self.module.trainable_mask
-        optimizer, scheduler = make_optimizer(args, params)
+        optimizer, scheduler = make_optimizer(args, [p for _, p in named])
+        # exposed for tests (resume restores its lr, best and num_bad)
+        self._scheduler = scheduler
         lr = args.lr
-        seed = getattr(args, "seed", 1) or 1
-        window = max(1, args.batch_accumulation)
-        for epoch in range(args.epochs):
-            start_time = time.time()
-            num_frames = num_videos = 0
-            stats = torch.zeros(5, device=self.device)
-            losses, log_rows = [], []
-            pending = 0
-            optimizer.zero_grad(set_to_none=True)
-            batches = iter_batches(
-                train_data, batch_size=args.batch_size, batch_by_task=True,
-                shuffle=True, seed=seed + epoch,
-            )
-            if args.train_limit:
-                batches = itertools.islice(batches, args.train_limit)
-            for batch_ix, batch in enumerate(batches):
-                B = len(batch["lengths"])
-                num_videos += B
-                num_frames += int(batch["lengths"].sum())
-                loss, aux = self._loss(
-                    *self._training_batch(batch, train_data, use_narration),
-                    use_labels=use_labels,
+        start_epoch = 0
+        ckpt_dir = getattr(args, "checkpoint_dir", None)
+        if ckpt_dir and getattr(args, "resume", False):
+            step = checkpoint.latest_step(ckpt_dir)
+            if step is not None:
+                lr = self._restore(ckpt_dir, step, optimizer, scheduler, lr)
+                start_epoch = step + 1
+                logger.debug("resumed from {} at epoch {} (lr {})".format(
+                    ckpt_dir, start_epoch, lr))
+        profile_dir = getattr(args, "profile_dir", None)
+        for epoch in range(start_epoch, args.epochs):
+            with self._profiled(profile_dir if epoch == start_epoch else None, epoch):
+                epoch_stats = self._train_epoch(
+                    train_data, epoch, optimizer, named, lr, use_labels, use_narration
                 )
-                loss.backward()
-                stats = fold_stats(stats, loss.detach(), aux, float(B))
-                losses.append(loss.detach())
-                pending += 1
-                if pending < window:
-                    continue
-                if pending > 1:  # the window's mean gradient
-                    for p in params:
-                        if p.grad is not None:
-                            p.grad.div_(pending)
-                mask_grads(named, trainable)
-                gnorm = clip_grads(params, args.max_grad_norm)
-                optimizer.step()
-                optimizer.zero_grad(set_to_none=True)
-                pending = 0
-                if args.print_every and batch_ix % args.print_every == 0:
-                    log_rows.append((batch_ix, num_videos, num_frames,
-                                     torch.stack([gnorm.detach().float(), stats[2],
-                                                  stats[3], stats[4]])))
-            epoch_stats = self._finish_epoch(
-                epoch, lr, stats, losses, log_rows, num_videos, num_frames, start_time
-            )
+            new_lr = lr
             if scheduler is not None:
-                lr = scheduler.step(epoch_stats["train_loss"])
-                set_lr(optimizer, lr)
+                new_lr = scheduler.step(epoch_stats["train_loss"])
+            if ckpt_dir and epoch % getattr(args, "checkpoint_every", 5) == 0:
+                # the rate this epoch ran at, and the plateau controller's
+                # post-step state, which governs the next epoch
+                checkpoint.save_checkpoint(
+                    {"params": self.module.state_dict(), "opt_state": optimizer.state_dict()},
+                    args, epoch, ckpt_dir, lr=lr,
+                    sched_state=None if scheduler is None else vars(scheduler),
+                )
+            lr = new_lr
+            set_lr(optimizer, lr)
             if callback_fn:
                 callback_fn(epoch, epoch_stats)
+
+    def _restore(self, ckpt_dir, step, optimizer, scheduler, lr):
+        """Load the train state of checkpoint `step` into the module, the
+        optimizer and the plateau controller; returns the learning rate
+        the next epoch runs at."""
+        state, _, _ = checkpoint.load_checkpoint(ckpt_dir, step)
+        self.module.load_state_dict(state["params"])
+        optimizer.load_state_dict(state["opt_state"])
+        meta = checkpoint.load_meta(ckpt_dir, step) or {}
+        if meta.get("sched") is not None and scheduler is not None:
+            # the post-step plateau state: the resumed epoch sees the
+            # best/num_bad the uninterrupted run had, not a reset that
+            # would skip a pending cut
+            sched = meta["sched"]
+            scheduler.lr, scheduler.best, scheduler.num_bad = (
+                float(sched["lr"]), float(sched["best"]), int(sched["num_bad"]))
+            lr = scheduler.lr
+        elif meta.get("lr") is not None:
+            lr = float(meta["lr"])
+            if scheduler is not None:
+                scheduler.lr = lr
+        set_lr(optimizer, lr)
+        return lr
+
+    @contextlib.contextmanager
+    def _profiled(self, profile_dir, epoch):
+        """Trace the block with ``torch.profiler`` (the host and, on the
+        card, its kernels) into one Chrome trace in `profile_dir`; a
+        no-op when `profile_dir` is None."""
+        if not profile_dir:
+            yield
+            return
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(profile_dir, exist_ok=True)
+        with torch.profiler.profile(activities=activities) as prof:
+            yield
+        path = os.path.join(profile_dir, "epoch_{}.pt.trace.json".format(epoch))
+        prof.export_chrome_trace(path)
+        logger.debug("wrote a profiler trace of epoch {} to {}".format(epoch, path))
+
+    def _train_epoch(self, train_data, epoch, optimizer, named, lr, use_labels,
+                     use_narration):
+        """One epoch of Adam steps at rate `lr`; returns the callback stats."""
+        args = self.args
+        params = [p for _, p in named]
+        trainable = self.module.trainable_mask
+        window = max(1, args.batch_accumulation)
+        seed = getattr(args, "seed", 1) or 1
+        start_time = time.time()
+        num_frames = num_videos = 0
+        stats = torch.zeros(5, device=self.device)
+        losses, log_rows = [], []
+        pending = 0
+        optimizer.zero_grad(set_to_none=True)
+        batches = iter_batches(
+            train_data, batch_size=args.batch_size, batch_by_task=True,
+            shuffle=True, seed=seed + epoch,
+        )
+        if args.train_limit:
+            batches = itertools.islice(batches, args.train_limit)
+        for batch_ix, batch in enumerate(batches):
+            B = len(batch["lengths"])
+            num_videos += B
+            num_frames += int(batch["lengths"].sum())
+            loss, aux = self._loss(
+                *self._training_batch(batch, train_data, use_narration),
+                use_labels=use_labels,
+            )
+            loss.backward()
+            stats = fold_stats(stats, loss.detach(), aux, float(B))
+            losses.append(loss.detach())
+            pending += 1
+            if pending < window:
+                continue
+            if pending > 1:  # the window's mean gradient
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.div_(pending)
+            mask_grads(named, trainable)
+            gnorm = clip_grads(params, args.max_grad_norm)
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+            pending = 0
+            if args.print_every and batch_ix % args.print_every == 0:
+                log_rows.append((batch_ix, num_videos, num_frames,
+                                 torch.stack([gnorm.detach().float(), stats[2],
+                                              stats[3], stats[4]])))
+        return self._finish_epoch(
+            epoch, lr, stats, losses, log_rows, num_videos, num_frames, start_time
+        )
 
     def _finish_epoch(self, epoch, lr, stats, losses, log_rows, num_videos,
                       num_frames, start_time):

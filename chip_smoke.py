@@ -1,5 +1,5 @@
 """Drive the PyTorch/CUDA port's decode, training and exact-spans paths
-on one card and check them.
+and its command line on one card and check them.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -60,6 +60,20 @@ exit and no result line:
                narration at train, its loss must fall, the training kernels
                once per batch; the band gradient's inputs kept at each of
                its launches) and a decode with narration at test;
+  4d. cli    — the port's command line, action_segmentation_torch.main.main
+               in process on the card, on 4c's release: the S6 closed-form
+               command with model and prediction output (stats equal to
+               4c's, a pickle a task, a prediction file a val video, the
+               exact-spans kernels once a val batch); decoding from the
+               saved models (the same stats; a pickle loads onto the card,
+               and onto the CPU when asked); an unsupervised --mix_tasks
+               run checkpointed every epoch, --epochs 2 then --epochs 3
+               --resume, against an uninterrupted --epochs 3 (the resumed
+               run runs epoch 2 alone; its loss and final parameters at
+               rtol 1e-5; the log scan and band gradient launched; a
+               --profile_dir trace naming both kernels); a Breakfast
+               release at the fisher vectors' width (D=64) through the
+               labels chain; each leg's wall time and frames/s;
   5. times   — CUDA-event kernel and plain-version times at the serving
                shape beside the roofline bound, the traceback's also beside
                its serial floor (the longest video's segments x one
@@ -87,8 +101,12 @@ is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 import argparse
+import contextlib
+import io
 import json
+import logging
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -875,13 +893,15 @@ def crosstask_args(root, *extra):
                               str(CT_DIM_PER_GROUP), *extra])
 
 
-def run_crosstask_slice(device):
-    """Phase 4c: on-disk corpus -> loader -> closed-form fit -> decode
-    through the exact-spans kernels -> MoF/F1, Segmenter(task=), then the
-    constrained unsupervised fit of CT_FIT_TASKS tasks and a decode with
-    narration at test. Returns the e2e record and the decode path's
-    launches of (viterbi scan, traceback), the traceback's inputs at each
-    predict batch and the band gradient's at each batch of the fit."""
+def run_crosstask_slice(device, root):
+    """Phase 4c: on-disk corpus (written under `root`) -> loader ->
+    closed-form fit -> decode through the exact-spans kernels -> MoF/F1,
+    Segmenter(task=), then the constrained unsupervised fit of
+    CT_FIT_TASKS tasks and a decode with narration at test. Returns the
+    e2e record, the decode path's launches of (viterbi scan, traceback),
+    the traceback's inputs at each predict batch, the band gradient's at
+    each batch of the fit, and the closed-form models' per-split stats
+    ({split: {task: stats}}, F1 sampled from numpy's seed 0)."""
     import torch
 
     from action_segmentation_torch import main as port_main
@@ -913,138 +933,137 @@ def run_crosstask_slice(device):
     tasks = {task_id: ["step{}".format(i) for i in range(CT_STEPS)]
              for task_id in CrosstaskCorpus.TASK_IDS_BY_SET["primary"]}
     n_classes = len(tasks) * (2 * CT_STEPS + 1)
-    root = tempfile.mkdtemp(prefix="chip_smoke_crosstask_")
-    try:
-        t0 = time.perf_counter()
-        minigen.write_mini_crosstask(
-            root, np.random.RandomState(0), tasks=tasks, related_tasks={}, n_train=CT_TRAIN,
-            n_val=CT_VAL, dim_per_group=CT_DIM_PER_GROUP, **CT_RANGES)
-        write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    minigen.write_mini_crosstask(
+        root, np.random.RandomState(0), tasks=tasks, related_tasks={}, n_train=CT_TRAIN,
+        n_val=CT_VAL, dim_per_group=CT_DIM_PER_GROUP, **CT_RANGES)
+    write_s = time.perf_counter() - t0
 
-        # 1-2. the S6 flags' splits (one per task), a closed-form model each
-        args = crosstask_args(root)
-        t0 = time.perf_counter()
-        splits = port_main.make_data_splits(args)
-        load_s = time.perf_counter() - t0
-        check(len(splits) == len(tasks), "{} splits for {} tasks".format(len(splits), len(tasks)))
-        models = []
-        t0 = time.perf_counter()
-        for train, _, val in splits.values():
-            model = SemiMarkovModel.from_args(args, train, device=device)
-            check(model.n_classes == n_classes, "{} classes, not {}".format(
-                model.n_classes, n_classes))
-            model.fit(train, use_labels=True)
-            models.append((val._tasks_and_video_names[0][0], model, train, val))
-        fit_s = time.perf_counter() - t0
-        lengths = [len(val[key]["gt_single"]) for *_, val in models
-                   for key in val._tasks_and_video_names]
-        widths = {len(val[val._tasks_and_video_names[0]]["task_indices"]) for *_, val in models}
-        phase("crosstask slice", "{} tasks x {} steps, {} classes, task widths {}; {} train + "
-              "{} val videos a task, val frames {}-{}, D={}; written in {:.2f} s, loaded in "
-              "{:.2f} s; 18 closed-form fits in {:.2f} s".format(
-                  len(tasks), CT_STEPS, n_classes, sorted(widths), CT_TRAIN, CT_VAL,
-                  min(lengths), max(lengths), 3 * CT_DIM_PER_GROUP, write_s, load_s, fit_s))
-        check(widths == {2 * CT_STEPS + 1}, "task widths {}".format(widths))
+    # 1-2. the S6 flags' splits (one per task), a closed-form model each
+    args = crosstask_args(root)
+    t0 = time.perf_counter()
+    splits = port_main.make_data_splits(args)
+    load_s = time.perf_counter() - t0
+    check(len(splits) == len(tasks), "{} splits for {} tasks".format(len(splits), len(tasks)))
+    models = []
+    t0 = time.perf_counter()
+    for train, _, val in splits.values():
+        model = SemiMarkovModel.from_args(args, train, device=device)
+        check(model.n_classes == n_classes, "{} classes, not {}".format(
+            model.n_classes, n_classes))
+        model.fit(train, use_labels=True)
+        models.append((val._tasks_and_video_names[0][0], model, train, val))
+    fit_s = time.perf_counter() - t0
+    lengths = [len(val[key]["gt_single"]) for *_, val in models
+               for key in val._tasks_and_video_names]
+    widths = {len(val[val._tasks_and_video_names[0]]["task_indices"]) for *_, val in models}
+    phase("crosstask slice", "{} tasks x {} steps, {} classes, task widths {}; {} train + "
+          "{} val videos a task, val frames {}-{}, D={}; written in {:.2f} s, loaded in "
+          "{:.2f} s; 18 closed-form fits in {:.2f} s".format(
+              len(tasks), CT_STEPS, n_classes, sorted(widths), CT_TRAIN, CT_VAL,
+              min(lengths), max(lengths), 3 * CT_DIM_PER_GROUP, write_s, load_s, fit_s))
+    check(widths == {2 * CT_STEPS + 1}, "task widths {}".format(widths))
 
-        # 3. predict on val: the exact-spans kernels only
-        n_batches = sum(-(-len(val._tasks_and_video_names) // args.batch_size)
-                        for *_, val in models)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        reset(decode_kernels)
-        t0 = time.perf_counter()
-        preds = [model.predict(val) for _, model, _, val in models]
-        predict_s = time.perf_counter() - t0  # predict's drain ends in a sync
-        launches = counts(decode_kernels)
-        frames = sum(lengths)
-        # the traceback's inputs at each predict batch, timed in phase 5
-        tb_batches, _ = capture_launch_inputs(
-            "_launch_traceback", lambda: [model.predict(val) for _, model, _, val in models])
+    # 3. predict on val: the exact-spans kernels only
+    n_batches = sum(-(-len(val._tasks_and_video_names) // args.batch_size)
+                    for *_, val in models)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    reset(decode_kernels)
+    t0 = time.perf_counter()
+    preds = [model.predict(val) for _, model, _, val in models]
+    predict_s = time.perf_counter() - t0  # predict's drain ends in a sync
+    launches = counts(decode_kernels)
+    frames = sum(lengths)
+    # the traceback's inputs at each predict batch, timed in phase 5
+    tb_batches, _ = capture_launch_inputs(
+        "_launch_traceback", lambda: [model.predict(val) for _, model, _, val in models])
 
-        # 4. MoF and F1 per task by the datasplit's accuracy_corpus
-        correct = total = 0
-        f1s = []
-        for (task, _, _, val), pred in zip(models, preds):
-            stats = val.accuracy_corpus(False, lambda v: pred[v.name], verbose=False)[task]
-            correct += float(stats["mof"][0])
-            total += float(stats["mof"][1])
-            f1s.append(float(stats["f1"][0]) / max(float(stats["f1"][1]), 1e-12))
-        mof_val = correct / total
-        phase("crosstask slice", "predict: {} batches, {} frames in {:.4f} s = {:.0f} frames/s, "
-              "launches viterbi scan/traceback/gamma scan/band max = {}; MoF {:.4f} (chance "
-              "{:.4f}), mean F1 {:.4f}".format(
-                  n_batches, frames, predict_s, frames / predict_s, launches, mof_val,
-                  1.0 / (2 * CT_STEPS + 1), float(np.mean(f1s))))
-        if device.type == "cuda":
-            check(launches == [n_batches, n_batches, 0, 0],
-                  "crosstask predict launches {} != one viterbi scan and traceback per batch "
-                  "and no labels chain".format(launches))
-        check(mof_val > 10.0 / (2 * CT_STEPS + 1),
-              "crosstask MoF {:.4f} is not above 10x chance".format(mof_val))
+    # 4. MoF and F1 per task by the datasplit's accuracy_corpus
+    correct = total = 0
+    f1s = []
+    stats_by_split = {}
+    for split, (task, _, _, val), pred in zip(splits, models, preds):
+        np.random.seed(0)  # F1 samples frames from numpy's global stream
+        stats = val.accuracy_corpus(False, lambda v: pred[v.name], verbose=False)[task]
+        stats_by_split[split] = {task: stats}
+        correct += float(stats["mof"][0])
+        total += float(stats["mof"][1])
+        f1s.append(float(stats["f1"][0]) / max(float(stats["f1"][1]), 1e-12))
+    mof_val = correct / total
+    phase("crosstask slice", "predict: {} batches, {} frames in {:.4f} s = {:.0f} frames/s, "
+          "launches viterbi scan/traceback/gamma scan/band max = {}; MoF {:.4f} (chance "
+          "{:.4f}), mean F1 {:.4f}".format(
+              n_batches, frames, predict_s, frames / predict_s, launches, mof_val,
+              1.0 / (2 * CT_STEPS + 1), float(np.mean(f1s))))
+    if device.type == "cuda":
+        check(launches == [n_batches, n_batches, 0, 0],
+              "crosstask predict launches {} != one viterbi scan and traceback per batch "
+              "and no labels chain".format(launches))
+    check(mof_val > 10.0 / (2 * CT_STEPS + 1),
+          "crosstask MoF {:.4f} is not above 10x chance".format(mof_val))
 
-        # 5. the serving entry point on one task's videos
-        task, model, _, val = models[0]
-        names = [name for _, name in val._tasks_and_video_names]
-        vc = val[(task, names[0])]["task_indices"]
-        seg = Segmenter(model, valid_classes=vc, task=task)
-        got = seg.segment_many([val[(task, n)]["features"] for n in names],
-                               batch_size=args.batch_size)
-        for name, labels in zip(names, got):
-            check(np.array_equal(labels, preds[0][name]),
-                  "Segmenter(task=).segment_many labels != predict's for " + name)
-        phase("crosstask slice", "Segmenter(model, valid_classes, task={}).segment_many: {} "
-              "videos, labels == predict's".format(task, len(names)))
+    # 5. the serving entry point on one task's videos
+    task, model, _, val = models[0]
+    names = [name for _, name in val._tasks_and_video_names]
+    vc = val[(task, names[0])]["task_indices"]
+    seg = Segmenter(model, valid_classes=vc, task=task)
+    got = seg.segment_many([val[(task, n)]["features"] for n in names],
+                           batch_size=args.batch_size)
+    for name, labels in zip(names, got):
+        check(np.array_equal(labels, preds[0][name]),
+              "Segmenter(task=).segment_many labels != predict's for " + name)
+    phase("crosstask slice", "Segmenter(model, valid_classes, task={}).segment_many: {} "
+          "videos, labels == predict's".format(task, len(names)))
 
-        # 6. the constrained unsupervised fit, through the training kernels
-        uargs = crosstask_args(root, "--sm_constrain_transitions",
-                               "--sm_constrain_with_narration", "train", "--epochs", "2")
-        reset(train_kernels)
-        fit_batches = 0
-        unsup = []
+    # 6. the constrained unsupervised fit, through the training kernels
+    uargs = crosstask_args(root, "--sm_constrain_transitions",
+                           "--sm_constrain_with_narration", "train", "--epochs", "2")
+    reset(train_kernels)
+    fit_batches = 0
+    unsup = []
 
-        def fit_tasks():
-            for _, _, train, val in models[:CT_FIT_TASKS]:
-                model = SemiMarkovModel.from_args(uargs, train, device=device)
-                losses = []
-                model.fit(train, use_labels=False,
-                          callback_fn=lambda e, s, losses=losses: losses.append(s["train_loss"]))
-                check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
-                      "constrained unsupervised epoch loss did not fall: {}".format(losses))
-                unsup.append((model, val, losses))
+    def fit_tasks():
+        for _, _, train, val in models[:CT_FIT_TASKS]:
+            model = SemiMarkovModel.from_args(uargs, train, device=device)
+            losses = []
+            model.fit(train, use_labels=False,
+                      callback_fn=lambda e, s, losses=losses: losses.append(s["train_loss"]))
+            check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+                  "constrained unsupervised epoch loss did not fall: {}".format(losses))
+            unsup.append((model, val, losses))
 
-        # the band gradient's inputs at each batch of the fit, timed in phase 5
-        t0 = time.perf_counter()
-        bg_batches, _ = capture_launch_inputs("_launch_band_grad", fit_tasks)
-        unsup_s = time.perf_counter() - t0
-        for _, _, train, _ in models[:CT_FIT_TASKS]:
-            fit_batches += 2 * -(-len(train._tasks_and_video_names) // uargs.batch_size)
-        n_train = counts(train_kernels)
-        phase("crosstask slice", "constrained unsupervised fit (ordering, narration at train): "
-              "{} tasks x 2 epochs, {} batches in {:.3f} s, epoch losses {}, launches log/"
-              "forward/band grad = {}".format(CT_FIT_TASKS, fit_batches, unsup_s,
-                                              [u[2] for u in unsup], n_train))
-        if device.type == "cuda":
-            check(n_train == [fit_batches, 0, fit_batches],
-                  "constrained fit launches {} != one log scan and band grad per batch".format(
-                      n_train))
+    # the band gradient's inputs at each batch of the fit, timed in phase 5
+    t0 = time.perf_counter()
+    bg_batches, _ = capture_launch_inputs("_launch_band_grad", fit_tasks)
+    unsup_s = time.perf_counter() - t0
+    for _, _, train, _ in models[:CT_FIT_TASKS]:
+        fit_batches += 2 * -(-len(train._tasks_and_video_names) // uargs.batch_size)
+    n_train = counts(train_kernels)
+    phase("crosstask slice", "constrained unsupervised fit (ordering, narration at train): "
+          "{} tasks x 2 epochs, {} batches in {:.3f} s, epoch losses {}, launches log/"
+          "forward/band grad = {}".format(CT_FIT_TASKS, fit_batches, unsup_s,
+                                          [u[2] for u in unsup], n_train))
+    if device.type == "cuda":
+        check(n_train == [fit_batches, 0, fit_batches],
+              "constrained fit launches {} != one log scan and band grad per batch".format(
+                  n_train))
 
-        # 7. narration at test
-        model, val, _ = unsup[0]
-        model.args.sm_constrain_with_narration = ["test"]
-        reset(decode_kernels)
-        pred = model.predict(val)
-        n_test = counts(decode_kernels)
-        n_val_batches = -(-len(val._tasks_and_video_names) // uargs.batch_size)
-        allowed = set(val[val._tasks_and_video_names[0]]["task_indices"].tolist())
-        check(all(set(p.tolist()) <= allowed for p in pred.values()),
-              "narration-at-test labels outside the task's classes")
-        phase("crosstask slice", "decode with narration at test: {} videos, launches viterbi "
-              "scan/traceback/gamma scan/band max = {}".format(len(pred), n_test))
-        if device.type == "cuda":
-            check(n_test == [n_val_batches, n_val_batches, 0, 0],
-                  "narration-at-test decode launches {}".format(n_test))
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    # 7. narration at test
+    model, val, _ = unsup[0]
+    model.args.sm_constrain_with_narration = ["test"]
+    reset(decode_kernels)
+    pred = model.predict(val)
+    n_test = counts(decode_kernels)
+    n_val_batches = -(-len(val._tasks_and_video_names) // uargs.batch_size)
+    allowed = set(val[val._tasks_and_video_names[0]]["task_indices"].tolist())
+    check(all(set(p.tolist()) <= allowed for p in pred.values()),
+          "narration-at-test labels outside the task's classes")
+    phase("crosstask slice", "decode with narration at test: {} videos, launches viterbi "
+          "scan/traceback/gamma scan/band max = {}".format(len(pred), n_test))
+    if device.type == "cuda":
+        check(n_test == [n_val_batches, n_val_batches, 0, 0],
+              "narration-at-test decode launches {}".format(n_test))
     e2e = {
         "crosstask_predict_frames_per_s": frames / predict_s,
         "crosstask_predict_s": predict_s,
@@ -1054,7 +1073,241 @@ def run_crosstask_slice(device):
         "crosstask_mean_f1": float(np.mean(f1s)),
         "crosstask_unsup_epoch_losses": [u[2] for u in unsup],
     }
-    return e2e, launches[:2], tb_batches, bg_batches
+    return e2e, launches[:2], tb_batches, bg_batches, stats_by_split
+
+
+def assert_stats_equal(name, got, want):
+    """{split: {task: stats}} equal, numerators and denominators."""
+    check(list(got) == list(want), "{}: splits {} != {}".format(name, list(got), list(want)))
+    for split in want:
+        for task, w in want[split].items():
+            g = got[split].get(task)
+            check(g is not None and g.keys() == w.keys(), "{}: {} {} stat keys".format(
+                name, split, task))
+            for key in w:
+                check(np.array_equal(np.asarray(g[key]), np.asarray(w[key])),
+                      "{}: {} {} {}: {} != {}".format(name, split, task, key, g[key], w[key]))
+
+
+@contextlib.contextmanager
+def cli_recorder(port_main, model_cls):
+    """Run the command line with two pass-through shims: every test() call
+    starts numpy's global stream at seed 0 (F1 samples frames from it, so
+    two runs that consumed it differently draw the same samples), and
+    every fit's epoch callback is recorded as (epoch, train_loss). The
+    port's debug log (per-task accuracy tables, epoch lines) is held
+    back meanwhile."""
+    from action_segmentation_torch.utils import logger
+
+    test, fit, level = port_main.test, model_cls.fit, logger.level
+    epochs = []
+
+    def seeded_test(*args, **kwargs):
+        np.random.seed(0)
+        return test(*args, **kwargs)
+
+    def recorded_fit(self, train_data, use_labels, callback_fn=None):
+        def callback(epoch, stats):
+            epochs.append((epoch, stats.get("train_loss")))
+            if callback_fn:
+                callback_fn(epoch, stats)
+        return fit(self, train_data, use_labels, callback_fn=callback)
+
+    port_main.test, model_cls.fit = seeded_test, recorded_fit
+    logger.setLevel(logging.INFO)
+    try:
+        yield epochs
+    finally:
+        port_main.test, model_cls.fit = test, fit
+        logger.setLevel(level)
+
+
+def run_cli_slice(root, ct_stats, smi):
+    """Phase 4d: the port's command line, action_segmentation_torch.main.main
+    in process with no device (so on the card), on phase 4c's CrossTask
+    release under `root`: (1) the S6 closed-form command with model and
+    prediction output, (2) decoding from the saved models, (3) an
+    unsupervised --mix_tasks run checkpointed, resumed and profiled
+    against an uninterrupted one, (4) a Breakfast release at the fisher
+    vectors' width. Each leg resets the kernels' launch counters before
+    it and reads them after. Returns the e2e record."""
+    import torch
+
+    from action_segmentation_torch import checkpoint
+    from action_segmentation_torch import main as port_main
+    from action_segmentation_torch.data import minigen
+    from action_segmentation_torch.models.semimarkov import SemiMarkovModel
+    from action_segmentation_torch.ops.hsmm_cuda import (
+        hsmm_band_grad,
+        hsmm_band_max,
+        hsmm_forward_scan,
+        hsmm_gamma_scan,
+        hsmm_log_scan,
+        hsmm_viterbi_scan,
+        hsmm_viterbi_traceback,
+    )
+
+    kernels = (hsmm_viterbi_scan, hsmm_viterbi_traceback, hsmm_gamma_scan, hsmm_band_max,
+               hsmm_log_scan, hsmm_band_grad, hsmm_forward_scan)
+    names = ("viterbi scan", "traceback", "gamma scan", "band max", "log scan", "band grad",
+             "forward scan")
+    legs = {}
+    cli_launches = {k.__name__: 0 for k in kernels}
+
+    def run(leg, argv):
+        """main.main(argv) with the counters reset before and read after;
+        returns (stats, launches by kernel name, recorded epochs, stdout)."""
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with cli_recorder(port_main, SemiMarkovModel) as epochs, \
+                contextlib.redirect_stdout(io.StringIO()) as out:
+            stats = port_main.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(zip(names, (k.launches for k in kernels)))
+        for k in kernels:
+            cli_launches[k.__name__] += k.launches
+        legs.setdefault(leg, {"s": 0.0, "runs": 0})
+        legs[leg]["s"] += seconds
+        legs[leg]["runs"] += 1
+        return stats, launches, epochs, out.getvalue()
+
+    def leg_line(leg, frames, what):
+        s = legs[leg]["s"]
+        legs[leg].update(frames=frames, frames_per_s=frames / s)
+        phase("cli", "{}: {} main.main run(s) in {:.3f} s, {} {} = {:.0f} frames/s; {}".format(
+            leg, legs[leg]["runs"], s, frames, what, frames / s, smi))
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        s6 = ["--classifier", "semimarkov", "--training", "supervised", *S6_FLAGS,
+              "--data_root", root, "--pca_components_per_group", str(CT_DIM_PER_GROUP)]
+        with contextlib.redirect_stdout(io.StringIO()):
+            splits = port_main.make_data_splits(port_main.build_parser().parse_args(s6))
+        val_names = sorted(n for *_, val in splits.values()
+                           for _, n in val._tasks_and_video_names)
+        val_frames = sum(len(val[key]["gt_single"]) for *_, val in splits.values()
+                         for key in val._tasks_and_video_names)
+        batch = port_main.build_parser().parse_args(s6).batch_size
+        val_batches = sum(-(-len(val._tasks_and_video_names) // batch)
+                          for *_, val in splits.values())
+
+        # 1. the stage-3 S6 command: closed form, pickles and predictions
+        models, preds = os.path.join(out_dir, "s6"), os.path.join(out_dir, "pred")
+        stats, n, _, _ = run("s6 closed form", s6 + ["--model_output_path", models,
+                                                     "--prediction_output_path", preds])
+        assert_stats_equal("s6 closed form vs phase 4c", stats, ct_stats)
+        check(sorted(os.listdir(models)) == sorted("{}.pkl".format(k) for k in splits),
+              "one pickle a task: {}".format(sorted(os.listdir(models))))
+        check(sorted(os.listdir(preds)) == val_names, "one prediction file a val video")
+        check([n[k] for k in names[:4]] == [val_batches, val_batches, 0, 0],
+              "s6 launches {}: one viterbi scan and traceback a val batch ({}), no labels "
+              "chain".format(n, val_batches))
+        leg_line("s6 closed form", val_frames, "val frames decoded")
+        phase("cli", "s6 closed form: {} splits, stats == phase 4c's, {} pickles, {} "
+              "prediction files, launches {}".format(len(stats), len(splits), len(val_names), n))
+
+        # 2. decode from the saved models, on the card
+        decoded, n, _, printed = run("s6 from saved models", s6 + ["--model_input_path", models])
+        assert_stats_equal("decode from saved models", decoded, stats)
+        check("serialized model args differ" in printed, "no args-differ warning")
+        check([n[k] for k in names[:4]] == [val_batches, val_batches, 0, 0],
+              "decode from saved models launches {}".format(n))
+        one = os.path.join(models, sorted(os.listdir(models))[0])
+        on_card = checkpoint.load_pickle(one)
+        on_cpu = checkpoint.load_pickle(one, device="cpu")
+        check(on_card.device.type == "cuda" and all(
+            t.is_cuda for t in on_card.module.state_dict().values()), "a pickle not on the card")
+        check(on_cpu.device.type == "cpu" and all(
+            torch.equal(t, on_card.module.state_dict()[k].cpu())
+            for k, t in on_cpu.module.state_dict().items()), "the pickle on the CPU differs")
+        leg_line("s6 from saved models", val_frames, "val frames decoded")
+        phase("cli", "s6 from saved models: stats == leg 1's, launches {}; a pickle written on "
+              "the card loads onto it by default and with device='cpu' onto the CPU".format(n))
+
+        # 3. unsupervised, checkpointed every epoch, resumed, profiled
+        unsup = [a if a != "supervised" else "unsupervised" for a in s6] + [
+            "--mix_tasks", "--sm_constrain_transitions", "--sm_constrain_with_narration",
+            "train", "--checkpoint_every", "1"]
+        ck, whole, trace = (os.path.join(out_dir, d) for d in ("ck", "ck_whole", "trace"))
+        leg = "unsupervised, resumed"
+        _, n_first, first, _ = run(leg, unsup + ["--epochs", "2", "--checkpoint_dir", ck,
+                                                 "--profile_dir", trace])
+        _, n_resumed, resumed, _ = run(leg, unsup + ["--epochs", "3", "--resume",
+                                                     "--checkpoint_dir", ck,
+                                                     "--profile_dir", trace])
+        _, n_whole, uninterrupted, _ = run(leg, unsup + ["--epochs", "3",
+                                                         "--checkpoint_dir", whole])
+        check([e for e, _ in first] == [0, 1] and [e for e, _ in resumed] == [2]
+              and [e for e, _ in uninterrupted] == [0, 1, 2],
+              "epochs run: {}, resumed {}, uninterrupted {}".format(first, resumed, uninterrupted))
+        loss_diff = abs(resumed[0][1] - uninterrupted[2][1])
+        check(loss_diff <= 1e-5 * abs(uninterrupted[2][1]),
+              "resumed epoch-2 loss {} != uninterrupted {}".format(resumed[0][1],
+                                                                  uninterrupted[2][1]))
+        got, _, _ = checkpoint.load_checkpoint(ck, 2)
+        want, _, _ = checkpoint.load_checkpoint(whole, 2)
+        param_diff = 0.0
+        for k, w in want["params"].items():
+            g = got["params"][k]
+            check(torch.allclose(g, w, rtol=1e-5, atol=0), "resumed param {} differs".format(k))
+            param_diff = max(param_diff, float((g - w).abs().max()))
+        for k in ("log scan", "band grad"):
+            check(min(n_first[k], n_resumed[k], n_whole[k]) > 0,
+                  "{} not launched: {} {} {}".format(k, n_first, n_resumed, n_whole))
+        traces = sorted(os.listdir(trace))
+        check(traces == ["epoch_0.pt.trace.json", "epoch_2.pt.trace.json"],
+              "traces {}".format(traces))
+        with open(os.path.join(trace, traces[0])) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        named = {k: sum(k in str(e.get("name", "")) for e in events)
+                 for k in ("scan_kernel", "band_grad_kernel")}
+        check(all(named.values()), "the trace names no scan or band-gradient kernel: "
+              "{}".format(named))
+        # the card's busy share of the traced epoch: its kernels' time over
+        # the trace's span (the epoch's host and device events)
+        kernel_us = sum(float(e.get("dur", 0)) for e in events if e.get("cat") == "kernel")
+        span_us = (max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+                   - min(float(e["ts"]) for e in events))
+        train_frames = sum(len(train[key]["gt_single"]) for train, *_ in splits.values()
+                           for key in train._tasks_and_video_names)
+        leg_line(leg, 6 * train_frames, "train frames over 6 epochs, with the per-epoch "
+                 "train and dev decodes")
+        phase("cli", "unsupervised --mix_tasks: epochs {} then --resume {} against {}; epoch-2 "
+              "loss {:.6f} vs {:.6f} (|diff| {:.3g}), params' largest |diff| {:.3g}, both at "
+              "rtol 1e-5; launches log scan/band grad {}/{}, {}/{}, {}/{}; trace events naming "
+              "{}; the traced epoch 0: kernels {:.3f} ms of a {:.3f} ms span, the card busy "
+              "{:.4f} of it".format(
+                  [e for e, _ in first], [e for e, _ in resumed], [e for e, _ in uninterrupted],
+                  resumed[0][1], uninterrupted[2][1], loss_diff, param_diff, n_first["log scan"],
+                  n_first["band grad"], n_resumed["log scan"], n_resumed["band grad"],
+                  n_whole["log scan"], n_whole["band grad"], named, kernel_us / 1e3,
+                  span_us / 1e3, kernel_us / span_us))
+
+        # 4. Breakfast at the fisher vectors' published width
+        bf_root = os.path.join(out_dir, "bf")
+        minigen.write_mini_breakfast(bf_root, np.random.RandomState(0), dim=64)
+        bf = ["--classifier", "semimarkov", "--training", "supervised", "--dataset",
+              "breakfast", "--features", "raw", "--data_root", bf_root]
+        bf_stats, n, _, _ = run("breakfast", bf)
+        correct = sum(float(s["mof"][0]) for by in bf_stats.values() for s in by.values())
+        total = sum(float(s["mof"][1]) for by in bf_stats.values() for s in by.values())
+        check(correct / total >= 0.9, "breakfast MoF {:.4f}".format(correct / total))
+        check(n["gamma scan"] > 0 and n["band max"] > 0 and n["viterbi scan"] == 0,
+              "breakfast launches {}: not the labels chain".format(n))
+        leg_line("breakfast", int(total), "test frames decoded")
+        phase("cli", "breakfast (D=64, {} held-out splits): MoF {:.4f} (chance 1/3 a task: "
+              "10x chance is above 1, so the leg asks for 0.9), launches {}".format(
+                  len(bf_stats), correct / total, n))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"cli_legs": legs, "cli_launches": cli_launches,
+            "cli_resume_loss_abs_diff": loss_diff, "cli_resume_param_max_abs_diff": param_diff,
+            "cli_traced_epoch_kernel_ms": kernel_us / 1e3, "cli_traced_epoch_span_ms":
+            span_us / 1e3, "cli_traced_epoch_busy_share": kernel_us / span_us,
+            "cli_breakfast_mof": correct / total}
 
 
 def cuda_ms(fn, n, warmup=3):
@@ -1311,7 +1564,12 @@ def main():
     # 4. the slices end to end (each resets and reads the launch counters)
     e2e, launches, bm_batches = run_slice(device, num_videos=36, max_len=T, shift=1.0)
     train_e2e, train_launches = run_train_slice(device, num_videos=36, max_len=T, shift=1.0)
-    ct_e2e, ct_launches, ct_tb_in, ct_bg_in = run_crosstask_slice(device)
+    root = tempfile.mkdtemp(prefix="chip_smoke_crosstask_")
+    try:
+        ct_e2e, ct_launches, ct_tb_in, ct_bg_in, ct_stats = run_crosstask_slice(device, root)
+        e2e.update(run_cli_slice(root, ct_stats, smi))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     e2e.update(train_e2e)
     e2e.update(ct_e2e, marginal_sum_gap=gaps)
 
@@ -1541,6 +1799,9 @@ def main():
         },
     ]
     for k in kernels:
+        # the launches on phase 4d's command-line legs, summed (4d resets the
+        # counters before each leg and reads them after)
+        k["cli_launches"] = e2e["cli_launches"][k["name"]]
         check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
         check(k["launches"] > 0, "{} was not launched on its path".format(k["name"]))
     phase("times", "serving shape B={} T={} C={} K={}; {} launches of each kernel; "

@@ -548,6 +548,43 @@ def test_wide_model_with_a_narrow_task_runs_on_the_card(cuda):
     assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 0, 0, 1, 1]
 
 
+def test_card_pickle_loads_on_either_device(cuda, tmp_path):
+    """A model trained on the card pickles onto the CPU (no device, no
+    optimizer); checkpoint.load_pickle puts it back on the card by
+    default and on the CPU when asked, and the three decode equal labels
+    (the card's through the labels kernels)."""
+    from argparse import Namespace
+
+    from action_segmentation_torch import checkpoint
+    from action_segmentation_torch.api import Segmenter
+    from action_segmentation_torch.data.synthetic import SyntheticDatasplit
+    from action_segmentation_torch.models.semimarkov import SemiMarkovModel
+
+    args = Namespace(sm_max_span_length=8, sm_class_shape_bucket=4, batch_size=5, lr=1e-2,
+                     epochs=1, batch_accumulation=1, max_grad_norm=10, print_every=0,
+                     no_reduce_plateau=False, reduce_plateau_factor=0.2,
+                     reduce_plateau_patience=1, reduce_plateau_min_lr=1e-4, train_limit=None,
+                     seed=1, sm_supervised_method="gradient-based",
+                     sm_supervised_state_smoothing=1e-2, sm_supervised_length_smoothing=1e-1)
+    train = SyntheticDatasplit(num_videos=10, n_classes=3, max_len=30, span_k=4, seed=0)
+    model = SemiMarkovModel.from_args(args, train, device=cuda)
+    model.fit(train, use_labels=True)
+    path = str(tmp_path / "model.pkl")
+    checkpoint.save_pickle(model, path)
+    on_card, on_cpu = checkpoint.load_pickle(path), checkpoint.load_pickle(path, device="cpu")
+    assert on_card.device.type == "cuda" and on_cpu.device.type == "cpu"
+    for k, v in model.module.state_dict().items():
+        assert torch.equal(on_card.module.state_dict()[k], v)
+        assert torch.equal(on_cpu.module.state_dict()[k], v.cpu())
+    feats = [train._samples[n]["features"] for n in sorted(train._samples)]
+    before = hc.hsmm_band_max.launches
+    want = Segmenter(model).segment_many(feats)
+    assert hc.hsmm_band_max.launches > before
+    for seg in (Segmenter(on_card), Segmenter.load(path, device="cpu")):
+        for got, w in zip(seg.segment_many(feats), want):
+            np.testing.assert_array_equal(got, w)
+
+
 # ---- the scan template's instances (csrc/hsmm_scan_core.cuh) ----------------
 # C and Km at every instance boundary: one warp a chain with its trans row
 # in 24 or 32 registers, two and four warps; the carry's 24 register rows,

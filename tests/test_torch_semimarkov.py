@@ -180,12 +180,12 @@ def test_class_shape_bucket_parity():
 
 
 def test_unported_paths_raise():
-    """Data parallelism, checkpoints and resume, profiling, the flow and
-    the component model raise until their slices. (The constraint and
-    merge flags are ported: tests/test_torch_constrained.py.)"""
+    """Data parallelism, the flow and the component model raise until
+    their slices. (The constraint and merge flags are ported:
+    tests/test_torch_constrained.py; checkpoints, resume and profiling:
+    tests/test_torch_checkpoint.py and tests/test_torch_cli.py.)"""
     train, _ = splits(TSplit, n_train=4)
-    for flag, value in (("data_parallel", True), ("checkpoint_dir", "ckpt"),
-                        ("resume", True), ("profile_dir", "trace")):
+    for flag, value in (("data_parallel", True),):
         args = make_sm_args(sm_supervised_method="gradient-based", **{flag: value})
         model = TModel.from_args(args, train, device="cpu")
         for use_labels in (True, False):
