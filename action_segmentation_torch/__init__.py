@@ -13,7 +13,8 @@ Layout (each file has one twin in the JAX package):
   checkpoint.py  pickles, train-state checkpoints, the reference state dict
   ops/         span codec, semi-Markov DP (plain torch + CUDA kernels),
                emission/duration/transition distributions, sufficient stats
-  models/      model classes (semimarkov; the baselines' flags)
+  models/      model classes (semimarkov, the compound model, the flow,
+               the BiLSTM encoder; the baselines' flags)
   data/        synthetic, CrossTask and Breakfast corpora, PCA, batching
   evaluation/  Hungarian-matched accuracy metrics, F1
   utils/       logging, the deferred label drain, small helpers

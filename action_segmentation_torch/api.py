@@ -127,7 +127,8 @@ class Segmenter:
         c under the HSMM (zero for classes outside this segmenter's valid
         set), d logZ / d emit through the kernel forward/backward pair
         (ops/hsmm_grad.py). Labels come from the decode kernels, as in
-        ``segment_many``, on the same potentials.
+        ``segment_many``, on the same potentials (a compound model's z at
+        its mean).
         """
         model = self.model
         device = model.device
@@ -143,7 +144,7 @@ class Segmenter:
         ends = upload(self._end_rows([T]), device)
         labels, _ = model._decode(feats, lengths, vc, cons, ends)
         with torch.no_grad():
-            pots = model.module.compute_potentials(feats, vc, cons, ends)
+            pots, _, _ = model.module.compute_potentials(feats, lengths, vc, cons, ends)
         # the marginals gate on the segmenter's width, as JAX's do
         marginals_fn = (
             hsmm_frame_marginals_fast if kernel_path(C, C, device).partition == "kernels"

@@ -15,11 +15,13 @@ Twin of the JAX package's ``checkpoint.py``:
   beside it the same sidecar as JAX's: the step, the JSON-able args, the
   learning rate, and the plateau controller's post-step state.
 * ``init_subset_from`` is the reference's strict-filtered warm start.
-* ``params_from_reference_state_dict`` and
-  ``reference_state_dict_from_params`` convert a Gaussian HSMM between
-  the port's state dict and the reference's parameter names, so a model
-  trained by either package decodes in the other. The flow, compound and
-  LSTM weights come with the compound model (ROADMAP.md §1 item 7).
+* ``params_from_reference_state_dict``,
+  ``compound_params_from_reference_state_dict`` and
+  ``reference_state_dict_from_params`` convert a Gaussian HSMM or a
+  compound model, with its flow and its encoder, between the port's
+  state dict and the reference's parameter names, so a model trained by
+  either package decodes in the other. The port's modules carry the
+  reference's names; only the covariance changes shape.
 """
 
 import json
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from action_segmentation_torch import resolve_device
-from action_segmentation_torch.bridge import gaussian_hsmm_params_from_numpy
+from action_segmentation_torch.bridge import tensors
 from action_segmentation_torch.models.base import unpickle_device
 
 
@@ -157,22 +159,14 @@ REFERENCE_PARAM_KEYS = (
 )
 # constraint masks are derived from args/corpus on this side, not weights
 REFERENCE_BUFFER_KEYS = ("init_constraints", "transition_constraints")
-# top-level names of the flow's, the compound model's and its VAE
-# encoder's weights
-_ITEM7_NAMES = frozenset((
-    "feature_projector", "initial_embeddings", "transition_embeddings",
-    "emission_embeddings", "length_embeddings", "initial_weights",
-    "transition_weights", "emission_mean_mlp", "length_mlp", "emission_mean_bias",
-    "initial_bias", "transition_bias", "length_bias", "encoder", "encoder_to_params",
-))
+FLOW_PREFIX = "feature_projector."
+LSTM_PREFIX = "encoder.encoder."
 
 
-def _refuse_compound(name):
-    if name.split(".")[0] in _ITEM7_NAMES:
-        raise NotImplementedError(
-            "{}: flow, compound and LSTM weights are not ported yet; they come "
-            "with the compound model (ROADMAP.md §1 item 7)".format(name)
-        )
+def _strip(state_dict):
+    """{name without a 'model.' prefix: float32 numpy}."""
+    return {(k[len("model."):] if k.startswith("model.") else k): _numpy(v)
+            for k, v in state_dict.items()}
 
 
 def _numpy(val):
@@ -191,36 +185,131 @@ def _diag_from_reference_cov(val):
     return np.diag(val).copy()
 
 
+def _indices(names, pattern):
+    """Sorted ints that `pattern`'s first group matches in `names`."""
+    pat = re.compile(pattern)
+    return sorted({int(m.group(1)) for m in map(pat.match, names) if m})
+
+
+def flow_params_from_reference_state_dict(sd, prefix=FLOW_PREFIX):
+    """The reference NICETrans weights (flow.py:59-126) under `prefix` of
+    a numpy state dict: (weights {name: array} under the port's names,
+    which are the reference's, and the flow's flags {flow_couple_layers,
+    flow_hidden_units, flow_hidden_layers, flow_scale}). The
+    architectures are the same; the port's ``NiceFlow`` loads the
+    weights by name."""
+    names = [k[len(prefix):] for k in sd if k.startswith(prefix)]
+    cells = _indices(names, r"cell(\d+)\.")
+    assert cells == list(range(len(cells))) and cells, "no flow cells under " + prefix
+    hidden = _indices([n[len("cell0."):] for n in names if n.startswith("cell0.")],
+                      r"cell(\d+)\.")
+    flags = {
+        "flow_couple_layers": len(cells),
+        "flow_hidden_units": int(sd[prefix + "cell0.in_layer.weight"].shape[0]),
+        "flow_hidden_layers": len(hidden),
+        "flow_scale": bool(_indices(names, r"scale_cell(\d+)\.")),
+    }
+    return {k: v for k, v in sd.items() if k.startswith(prefix)}, flags
+
+
+def lstm_params_from_reference_state_dict(sd, prefix=LSTM_PREFIX):
+    """The torch nn.LSTM weights under `prefix` of a numpy state dict:
+    (weights, {layers, hidden_per_dir}). The port's
+    encoder is the reference's nn.LSTM (the JAX package's scan LSTM has
+    its equations and i/f/g/o gate order, and transposes these), so the
+    weights load by name."""
+    layers = _indices([k[len(prefix):] for k in sd if k.startswith(prefix)],
+                      r"weight_ih_l(\d+)$")
+    assert layers == list(range(len(layers))) and layers, "no LSTM layers under " + prefix
+    shape = {
+        "layers": len(layers),
+        "hidden_per_dir": int(sd[prefix + "weight_hh_l0"].shape[1]),
+    }
+    return {k: v for k, v in sd.items() if k.startswith(prefix)}, shape
+
+
 def params_from_reference_state_dict(state_dict, device=None):
     """Map a reference SemiMarkovModule state_dict (torch tensors or
     numpy arrays, an optional 'model.' prefix) to a ``GaussianHsmm``
-    state dict on `device` (None: the card). Returns (params,
-    skipped_keys); the constraint buffers are skipped."""
-    params = {}
-    skipped = []
-    for key, val in state_dict.items():
-        name = key[len("model."):] if key.startswith("model.") else key
-        _refuse_compound(name)
+    state dict on `device` (None: the card), the flow's weights
+    (``feature_projector.*``) included. Returns (params, skipped_keys);
+    the constraint buffers and any other name are skipped."""
+    sd = _strip(state_dict)
+    params, skipped = {}, []
+    for key, name in zip(state_dict, sd):
+        val = sd[name]
         if name in REFERENCE_PARAM_KEYS:
-            val = _numpy(val)
             if name == "gaussian_cov" and val.ndim == 2:
                 val = _diag_from_reference_cov(val)
             params[name] = val
-        else:
+        elif not name.startswith(FLOW_PREFIX):
             skipped.append(key)
     missing = [k for k in REFERENCE_PARAM_KEYS if k not in params]
     assert not missing, "state_dict missing reference params: {}".format(missing)
-    return gaussian_hsmm_params_from_numpy(params, resolve_device(device)), skipped
+    if any(name.startswith(FLOW_PREFIX) for name in sd):
+        params.update(flow_params_from_reference_state_dict(sd)[0])
+    return tensors(params, resolve_device(device)), skipped
+
+
+def compound_params_from_reference_state_dict(state_dict, device=None):
+    """Map a reference ComponentSemiMarkovModule state_dict
+    (semimarkov_modules.py:755-812) to a ``ComponentHsmm`` state dict on
+    `device` (None: the card). The port's module carries the reference's
+    names (its EmbeddingBag tables, Linear layers, residual-MLP
+    Sequentials, the encoder's nn.LSTM and the flow), so the weights map
+    by name; the (D, D) diagonal covariance becomes its diagonal, and
+    constraint buffers are dropped.
+
+    Returns (params, meta): meta holds the architecture the shapes imply
+    (n_components, embedding_dim, mean_layers, length_layers,
+    feature_dim, n_classes (None without per-class biases),
+    per_class_bias, z_dim, z_hidden_dim, encoder_layers,
+    compound_structure) and, with a flow, its flags under "flow"."""
+    sd = _strip(state_dict)
+    params = {k: v for k, v in sd.items() if k not in REFERENCE_BUFFER_KEYS}
+    if params["gaussian_cov"].ndim == 2:
+        params["gaussian_cov"] = _diag_from_reference_cov(params["gaussian_cov"])
+
+    def residual_layers(prefix):
+        return len(_indices(sd, re.escape(prefix) + r"\.(\d+)\.")) - 2
+
+    emb = sd["initial_embeddings.weight"]
+    per_class_bias = "initial_bias" in sd
+    meta = {
+        "n_components": emb.shape[0],
+        "embedding_dim": emb.shape[1],
+        "mean_layers": residual_layers("emission_mean_mlp"),
+        "length_layers": residual_layers("length_mlp"),
+        "feature_dim": sd["emission_mean_bias"].shape[0],
+        "n_classes": sd["initial_bias"].shape[0] if per_class_bias else None,
+        "per_class_bias": per_class_bias,
+        "z_dim": 0, "z_hidden_dim": 0, "encoder_layers": 0,
+        "compound_structure": True,
+    }
+    if any(k.startswith(LSTM_PREFIX) for k in sd):
+        _, shape = lstm_params_from_reference_state_dict(sd)
+        meta["z_dim"] = sd["encoder_to_params.weight"].shape[0] // 2
+        meta["z_hidden_dim"] = 2 * shape["hidden_per_dir"]
+        meta["encoder_layers"] = shape["layers"]
+        # --no_sm_compound_structure takes z out of the structure heads:
+        # their input is e wide, not e + z
+        meta["compound_structure"] = (
+            sd["initial_weights.weight"].shape[1] == emb.shape[1] + meta["z_dim"])
+    if any(k.startswith(FLOW_PREFIX) for k in sd):
+        meta["flow"] = flow_params_from_reference_state_dict(sd)[1]
+    return tensors(params, resolve_device(device)), meta
 
 
 def reference_state_dict_from_params(params):
-    """Inverse of ``params_from_reference_state_dict``: a Gaussian HSMM's
-    state dict (tensors or numpy arrays) as a reference-named numpy
-    state_dict that the reference's own ``load_state_dict`` accepts (the
-    tied diagonal covariance as its (D, D) matrix)."""
-    for name in params:
-        _refuse_compound(name)
-    sd = {name: _numpy(params[name]) for name in REFERENCE_PARAM_KEYS}
+    """Inverse of the imports: a Gaussian HSMM's or a compound model's
+    state dict (tensors or numpy arrays), the flow and the encoder
+    included, as a reference-named numpy state_dict that the reference's
+    own ``load_state_dict`` accepts (the tied diagonal covariance as its
+    (D, D) matrix)."""
+    sd = {name: _numpy(val) for name, val in params.items()}
+    if "initial_embeddings.weight" not in sd:
+        missing = [k for k in REFERENCE_PARAM_KEYS if k not in sd]
+        assert not missing, "params missing reference params: {}".format(missing)
     cov = sd["gaussian_cov"]
     sd["gaussian_cov"] = np.diag(cov) if cov.ndim == 1 else cov
     return sd

@@ -64,9 +64,13 @@ constexpr int kMaxThreads = 1024;
 constexpr int kMaxSmem = 232448;  // an H100 block's dynamic shared memory
 constexpr int kMaxDevices = 64;
 
+// Every add that takes a transcendental's result is __fadd_rn: left to
+// itself the compiler contracts the add with the last multiply of expf or
+// log1pf into one FFMA, whose single rounding differs from the plain
+// version's where the product is denormal (a span posterior under 2^-126).
 __device__ __forceinline__ float log_add_exp(float a, float b) {
   const float m = fmaxf(a, b);
-  return m + log1pf(expf(-fabsf(a - b)));
+  return __fadd_rn(m, log1pf(expf(-fabsf(a - b))));
 }
 
 // At most 32 registers a thread, so that two blocks of 1,024 threads fit
@@ -112,9 +116,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
       const float x = d + g2p[o2 + rc];
       q = log_add_exp(q, x);
       const float m = expf(g1 + x);
-      start += m;
+      start = __fadd_rn(start, m);
       // the span of duration r + 1 that stops at boundary t
-      if (r < tl) stop += expf(g1m[o1 - rc] + (d + g2_here));
+      if (r < tl) stop = __fadd_rn(stop, expf(g1m[o1 - rc] + (d + g2_here)));
       m_s[(r - lo) * n + i] = live ? m : 0.f;
     }
     __syncthreads();

@@ -1,20 +1,21 @@
 """Hidden semi-Markov segmentation model, PyTorch.
 
-Twin of ``action_segmentation_tpu/models/semimarkov.py`` for the decode,
-training and exact-spans slices:
+Twin of ``action_segmentation_tpu/models/semimarkov.py``:
 
 * ``GaussianHsmm`` is an ``nn.Module`` holding the Poisson log-rates,
-  Gaussian means, tied diagonal covariance (a frozen buffer) and the
-  transition/init logits; it builds batched ``HsmmPotentials`` for a
-  set of valid classes, with the canonical-order start and transition
-  masks and the background merge map as device-side gathers and masks,
-  and fits itself in closed form;
+  Gaussian means, tied diagonal covariance (a frozen buffer), the
+  transition/init logits and, with --sm_feature_projection, the NICE
+  flow over the features (``models/flow.py``); it builds batched
+  ``HsmmPotentials`` for a set of valid classes, with the canonical-order
+  start and transition masks and the background merge map as device-side
+  gathers and masks, and fits itself in closed form. The compound model
+  (``models/compound.py``, --sm_component_model) is a subclass;
 * ``SemiMarkovModel`` batches a datasplit (narration penalties and
   per-video end masks included), fits it (closed form, gradient-based
   supervised, generative or discriminative, closed form then gradient,
-  or unsupervised by the marginal likelihood) and decodes it, streaming
-  batches to the device with every label tensor kept there until one
-  stacked copy at the end.
+  or unsupervised by the marginal likelihood, with the flow's log-det
+  and the latent's KL) and decodes it, streaming batches to the device
+  with every label tensor kept there until one stacked copy at the end.
 
 The chains follow ``hsmm_cuda.kernel_path``. Decode takes the labels
 kernels (K2-max and K3) for a model of <= 128 classes and the exact-spans
@@ -25,10 +26,11 @@ the CPU). Training's partition runs the kernel forward/backward of
 128 classes raises. ``fit`` writes and resumes train-state checkpoints
 (--checkpoint_dir, --checkpoint_every, --resume) and traces its first
 epoch with ``torch.profiler`` (--profile_dir); a model pickles onto the
-CPU and unpickles onto the device its loader asks for. Flows, the
-compound model and data parallelism raise ``NotImplementedError``, and
-the resident corpus is not ported (every batch streams): they come with
-later slices (ROADMAP.md §1).
+CPU and unpickles onto the device its loader asks for.
+``semimarkov_from_reference_state_dict`` builds a model from a
+reference-trained state dict. Data parallelism raises
+``NotImplementedError``, and the resident corpus is not ported (every
+batch streams): they come with later slices (ROADMAP.md §1).
 """
 
 import contextlib
@@ -43,6 +45,7 @@ from torch import nn
 
 from action_segmentation_torch import BIG_NEG, checkpoint, resolve_device
 from action_segmentation_torch.data.batching import iter_batches, pad_class_width
+from action_segmentation_torch.models import flow as nice_flow
 from action_segmentation_torch.models.base import (
     Model,
     clip_grads,
@@ -77,13 +80,6 @@ from action_segmentation_torch.utils.drain import DeferredLabelDrain
 
 _LATER = "is not ported yet; it comes with a later slice (ROADMAP.md §1)"
 
-# flags of the JAX package's SemiMarkovModel whose paths are not ported;
-# from_args refuses them rather than decode something else
-_UNPORTED_FLAGS = (
-    "sm_component_model",
-    "sm_feature_projection",
-    "sm_init_non_projection_parameters_from",
-)
 # training flags of paths not ported yet; fit refuses them
 _UNPORTED_FIT_FLAGS = ("data_parallel",)
 
@@ -114,8 +110,9 @@ def _constraint_buffers(n_classes, allowed_starts, allowed_transitions, allowed_
 class GaussianHsmm(nn.Module):
     """Gaussian-emission HSMM parameterization.
 
-    Parameters carry the JAX package's ``GaussianHsmm.params`` names, so
-    a params dict from either side loads into the other
+    Parameters carry the JAX package's ``GaussianHsmm.params`` names (the
+    flow's under ``feature_projector``, by the reference's names), so a
+    params dict from either side loads into the other
     (``bridge.gaussian_hsmm_params_from_numpy``). The constraint masks
     and the merge map are corpus structure, not weights: non-persistent
     buffers, rebuilt from the datasplit by ``SemiMarkovModel.from_args``
@@ -149,8 +146,14 @@ class GaussianHsmm(nn.Module):
         self.register_buffer("init_dis", buffer(init_dis), persistent=False)
         self.register_buffer("trans_dis", buffer(trans_dis), persistent=False)
         self.register_buffer("merge_map", buffer(merge_map), persistent=False)
-        gen = torch.Generator().manual_seed(int(seed))
+        self.init_params(torch.Generator().manual_seed(int(seed)), device)
+        path = getattr(args, "sm_init_non_projection_parameters_from", None)
+        if path:
+            self._load_nonprojection_params(path)
+
+    def init_params(self, gen, device):
         f32 = dict(dtype=torch.float32, device=device)
+        n_classes, n_dims = self.n_classes, self.feature_dim
         self.poisson_log_rates = nn.Parameter(torch.zeros(n_classes, **f32))
         self.gaussian_means = nn.Parameter(torch.zeros(n_classes, n_dims, **f32))
         # frozen: the covariance is set by moments, never by gradients
@@ -159,17 +162,50 @@ class GaussianHsmm(nn.Module):
         self.init_logits = nn.Parameter(
             torch.rand(n_classes, generator=gen, dtype=torch.float32).to(device)
         )
+        self._init_projector(gen, device)
+
+    def _init_projector(self, gen, device):
+        """The NICE flow over the features, with --sm_feature_projection."""
+        self.feature_projector = None
+        if getattr(self.args, "sm_feature_projection", False):
+            self.feature_projector = nice_flow.NiceFlow(self.args, self.feature_dim, gen, device)
+
+    def _load_nonprojection_params(self, path):
+        """Warm-start every non-flow weight from a pickled model
+        (semimarkov_modules.py:90-94, :125-129)."""
+        logger.debug("loading all non-flow parameters from {}".format(path))
+        other = checkpoint.load_pickle(path, device=self.gaussian_cov.device)
+        src = other.module.state_dict() if hasattr(other, "module") else other
+        self.load_state_dict(checkpoint.init_subset_from(self.state_dict(), src))
 
     @property
     def trainable_mask(self):
         """{name: trainable} over the state dict: the covariance is frozen."""
         return {name: name != "gaussian_cov" for name in self.state_dict()}
 
-    def compute_potentials(self, features, vc, constraints_add, end_allowed):
-        """Batched HsmmPotentials for valid classes `vc` (C_sub,).
+    def project_features(self, features, lengths=None):
+        """(features through the flow, log_det (B,)); without the flow the
+        features themselves and zeros. For a (B, T, D) batch with
+        `lengths`, log_det sums over each video's real frames only: with
+        --flow_scale a padded frame's scale outputs are not zero, and the
+        loss would depend on the length bucket."""
+        if self.feature_projector is None:
+            return features, features.new_zeros(features.shape[0])
+        if features.ndim == 3 and lengths is not None:
+            h, steps = self.feature_projector(features, per_step=True)
+            real = torch.arange(features.shape[1], device=features.device)[None, :] < lengths[:, None]
+            return h, (steps * real).sum(dim=1)
+        return self.feature_projector(features)
 
-        features (B, T, D); constraints_add (B, T, C_sub) additive
-        emission penalties; end_allowed (B, C_sub) additive end mask.
+    def compute_potentials(self, features, lengths, vc, constraints_add, end_allowed,
+                           generator=None, use_mean_z=True):
+        """(pots, log_det (B,), kl (B,)) for valid classes `vc` (C_sub,).
+
+        features (B, T, D); lengths (B,) >= 1; constraints_add (B, T,
+        C_sub) additive emission penalties; end_allowed (B, C_sub)
+        additive end mask. `generator` and `use_mean_z` are the compound
+        model's latent (its noise and whether z sits at its mean); this
+        module draws nothing and its kl is zero.
 
         vc entries of -1 are shape padding (class-count bucketing): their
         initial/transition rows are masked to BIG_NEG before every
@@ -193,22 +229,32 @@ class GaussianHsmm(nn.Module):
             self.allow_self_transitions,
         )
         lens = poisson_length_log_probs(self.poisson_log_rates[mvc], self.max_k)
-        emit = gaussian_emission_log_probs(
-            features, self.gaussian_means[mvc], self.gaussian_cov
-        )
-        return HsmmPotentials(
+        feats, log_det = self.project_features(features, lengths)
+        emit = gaussian_emission_log_probs(feats, self.gaussian_means[mvc], self.gaussian_cov)
+        pots = HsmmPotentials(
             trans=trans.expand((B,) + trans.shape),
             init=init.expand((B,) + init.shape),
             lens=lens.expand((B,) + lens.shape),
             emit=emit + constraints_add,
             end_mask=end_allowed,
         )
+        return pots, log_det, features.new_zeros(B)
+
+    def _projected_numpy(self, feature_list):
+        """The concatenated (N, D) features, through the flow if any."""
+        feats = np.concatenate([np.asarray(f) for f in feature_list], axis=0)
+        if self.feature_projector is None:
+            return feats
+        with torch.no_grad():
+            h, _ = self.feature_projector(torch.as_tensor(feats, device=self.gaussian_cov.device))
+        return h.cpu().numpy()
 
     @torch.no_grad()
     def initialize_gaussian(self, feature_list):
-        """Mean/variance moment init: every class gets the corpus mean,
-        the covariance is the per-dimension sample variance."""
-        feats = np.concatenate([np.asarray(f) for f in feature_list], axis=0)
+        """Mean/variance moment init, of the projected features with the
+        flow: every class gets the corpus mean, the covariance is the
+        per-dimension sample variance."""
+        feats = self._projected_numpy(feature_list)
         mean = torch.as_tensor(feats.mean(axis=0), dtype=torch.float32)
         var = torch.as_tensor(feats.var(axis=0, ddof=1), dtype=torch.float32)
         self.gaussian_means.copy_(mean.expand(self.n_classes, self.feature_dim))
@@ -219,6 +265,8 @@ class GaussianHsmm(nn.Module):
         """Smoothed closed-form MLE from span and Gaussian moments. With
         merged classes the durations and Gaussians come from the merged
         labels, the start and transition counts from the unmerged ones."""
+        if self.feature_projector is not None:
+            raise NotImplementedError("closed-form fit with feature projector")
         if self.trans_dis is not None or self.init_dis is not None:
             raise NotImplementedError("closed-form fit with constrained transitions")
         stats = semimarkov_sufficient_stats(
@@ -284,29 +332,12 @@ class SemiMarkovModel(Model):
             choices=["closed-form", "gradient-based", "closed-then-gradient"],
             default="closed-form",
         )
-        # the flow's and the compound model's flags: declared so the
-        # command line takes every flag of the JAX package's; from_args
-        # refuses the three that select them (_UNPORTED_FLAGS)
         parser.add_argument("--sm_feature_projection", action="store_true", help="use a flow")
         parser.add_argument("--sm_init_non_projection_parameters_from")
-        parser.add_argument("--flow_hidden_layers", type=int, default=1)
-        parser.add_argument("--flow_hidden_units", type=int, default=100)
-        parser.add_argument("--flow_couple_layers", type=int, default=4)
-        parser.add_argument("--flow_scale", action="store_true")
-        parser.add_argument("--flow_scale_no_zero", action="store_true")
-        parser.add_argument("--sm_component_decompose_steps", action="store_true")
-        parser.add_argument("--sm_component_mean_layers", type=int, default=2)
-        parser.add_argument("--sm_component_length_layers", type=int, default=2)
-        parser.add_argument("--sm_component_embedding_dim", type=int, default=100)
-        parser.add_argument("--sm_component_z_dim", type=int, default=0)
-        parser.add_argument("--sm_component_z_hidden_dim", type=int, default=100)
-        parser.add_argument(
-            "--no_sm_compound_structure",
-            action="store_false",
-            dest="sm_compound_structure",
-        )
-        parser.add_argument("--seq_num_layers_component", type=int, default=2)
-        parser.add_argument("--sm_reference_pooling", action="store_true")
+        nice_flow.add_args(parser)
+        from action_segmentation_torch.models.compound import ComponentHsmm
+
+        ComponentHsmm.add_args(parser)
         parser.add_argument("--sm_component_model", action="store_true")
         parser.add_argument("--sm_constrain_transitions", action="store_true")
         parser.add_argument(
@@ -328,9 +359,6 @@ class SemiMarkovModel(Model):
     @classmethod
     def from_args(cls, args, train_data, device=None):
         device = resolve_device(device)
-        for flag in _UNPORTED_FLAGS:
-            if getattr(args, flag, None):
-                raise NotImplementedError("--{} {}".format(flag, _LATER))
         assert args.sm_max_span_length is not None
         n_classes = train_data.corpus.n_classes
         ordered_indices_by_task = None
@@ -356,10 +384,7 @@ class SemiMarkovModel(Model):
                     assert merge_classes.get(ix, sink) == sink
                     merge_classes[ix] = sink
 
-        module = GaussianHsmm(
-            args,
-            n_classes,
-            train_data.feature_dim,
+        structure = dict(
             allow_self_transitions=True,
             allowed_starts=allowed_starts,
             allowed_transitions=allowed_transitions,
@@ -368,6 +393,22 @@ class SemiMarkovModel(Model):
             seed=getattr(args, "seed", 0) or 0,
             device=device,
         )
+        if getattr(args, "sm_component_model", False):
+            from action_segmentation_torch.models.compound import ComponentHsmm
+
+            if args.sm_component_decompose_steps:
+                n_components = train_data.corpus.n_components
+                class_to_components = dict(train_data.corpus.label_indices2component_indices)
+            else:
+                n_components = n_classes
+                class_to_components = {c: {c} for c in range(n_classes)}
+            module = ComponentHsmm(
+                args, n_classes, n_components=n_components,
+                class_to_components=class_to_components,
+                feature_dim=train_data.feature_dim, **structure,
+            )
+        else:
+            module = GaussianHsmm(args, n_classes, train_data.feature_dim, **structure)
         return SemiMarkovModel(args, n_classes, train_data.feature_dim, module, device,
                                ordered_indices_by_task)
 
@@ -505,7 +546,9 @@ class SemiMarkovModel(Model):
         scores (B,)); every argument a tensor on the model's device.
         Launches work and returns without waiting for it."""
         lengths = lengths.long().clamp(min=1)
-        pots = self.module.compute_potentials(features, vc, cons, end_allowed)
+        pots, _, _ = self.module.compute_potentials(
+            features, lengths, vc, cons, end_allowed, use_mean_z=True
+        )
         path = kernel_path(self.n_classes, pots.emit.shape[-1], features.device)
         if path.decode == "labels":
             labels_sub, scores = hsmm_viterbi_labels(pots, lengths)
@@ -519,21 +562,26 @@ class SemiMarkovModel(Model):
     # ----- training -----
 
     def _loss(self, features, lengths, vc, inv_map, gt, cons, end_allowed,
-              weights, use_labels):
+              weights, use_labels, generator=None):
         """(loss, aux) of one batch, the JAX package's ``_build_loss_fn``.
 
         Generative supervised: -wmean(gold score); discriminative:
-        -wmean(gold - logZ); unsupervised: -wmean(logZ). Every mean is
-        weighted by `weights` (padded rows weigh 0 and have length 1), so
-        padding never changes the loss. The partition goes through the
-        kernel forward/backward (``kernel_path``)."""
+        -wmean(gold - logZ); unsupervised: -wmean(logZ). The flow's
+        -wmean(log_det) is added, and unsupervised the latent's
+        wmean(kl), whose z is drawn from `generator` (supervised, z sits
+        at its mean). Every mean is weighted by `weights` (padded rows
+        weigh 0 and have length 1), so padding never changes the loss.
+        The partition goes through the kernel forward/backward
+        (``kernel_path``)."""
         lengths = lengths.long().clamp(min=1)
         denom = weights.sum().clamp(min=1.0)
 
         def wmean(x):
             return (x * weights).sum() / denom
 
-        pots = self.module.compute_potentials(features, vc, cons, end_allowed)
+        pots, log_det, kl = self.module.compute_potentials(
+            features, lengths, vc, cons, end_allowed, generator, use_mean_z=use_labels
+        )
         path = kernel_path(self.n_classes, pots.emit.shape[-1], features.device)
         partition = hsmm_partition_fast if path.partition == "kernels" else hsmm_partition
         if use_labels:
@@ -546,9 +594,11 @@ class SemiMarkovModel(Model):
         else:
             ll = wmean(partition(pots, lengths))
         nll = -ll
-        # the Gaussian module has no flow log-det and no KL term
-        zero = torch.zeros((), dtype=nll.dtype, device=nll.device)
-        return nll, {"nll": nll.detach(), "kl": zero, "log_det": zero}
+        loss = nll - wmean(log_det)
+        if not use_labels:
+            loss = loss + wmean(kl)
+        return loss, {"nll": nll.detach(), "kl": wmean(kl).detach(),
+                      "log_det": wmean(log_det).detach()}
 
     def _training_batch(self, batch, datasplit=None, use_narration=False):
         """One collated batch as padded tensors on the device: (features,
@@ -734,7 +784,8 @@ class SemiMarkovModel(Model):
             num_frames += int(batch["lengths"].sum())
             loss, aux = self._loss(
                 *self._training_batch(batch, train_data, use_narration),
-                use_labels=use_labels,
+                use_labels=use_labels, generator=self._noise_generator(epoch, batch_ix,
+                                                                        use_labels),
             )
             loss.backward()
             stats = fold_stats(stats, loss.detach(), aux, float(B))
@@ -758,6 +809,18 @@ class SemiMarkovModel(Model):
         return self._finish_epoch(
             epoch, lr, stats, losses, log_rows, num_videos, num_frames, start_time
         )
+
+    def _noise_generator(self, epoch, batch_ix, use_labels):
+        """The generator of one training batch's latent noise, on the
+        model's device, seeded from (--seed, epoch, batch): never a
+        running stream, so a resumed epoch draws what the uninterrupted
+        run drew. None where nothing is drawn (no latent, or supervised,
+        where z sits at its mean)."""
+        if use_labels or getattr(self.module, "z_dim", 0) == 0:
+            return None
+        seed = int(getattr(self.args, "seed", 0) or 0)
+        seed = (seed * 1_000_003 + epoch) * 1_000_003 + batch_ix + 1
+        return torch.Generator(device=self.device).manual_seed(seed % (1 << 63))
 
     def _finish_epoch(self, epoch, lr, stats, losses, log_rows, num_videos,
                       num_frames, start_time):
@@ -826,3 +889,72 @@ class SemiMarkovModel(Model):
                 assert (preds >= 0).all() and (preds < self.n_classes).all()
                 predictions[video] = preds
         return predictions
+
+
+def _set_flow_args(args, flow_flags):
+    """Set the NICE flow's flags from an imported flow's shapes (None: no
+    flow), so the pickled args stay coherent with the weights."""
+    args.sm_feature_projection = flow_flags is not None
+    if flow_flags is not None:
+        for key, value in flow_flags.items():
+            setattr(args, key, value)
+        args.flow_scale_no_zero = getattr(args, "flow_scale_no_zero", False)
+
+
+def semimarkov_from_reference_state_dict(args, state_dict, device=None):
+    """A serving-ready SemiMarkovModel on `device` (None: the card) from a
+    reference-trained state_dict (torch or numpy leaves): a Gaussian
+    SemiMarkovModule or a ComponentSemiMarkovModule (told apart by the
+    embedding tables), with a flow and a VAE encoder where it has them.
+
+    A compound model's components map to classes one for one (the
+    reference's default, semimarkov.py:85-90): a
+    --sm_component_decompose_steps model carries corpus structure that a
+    state dict does not hold. Transition and end constraints are corpus
+    structure too: rebuild them through SemiMarkovModel.from_args to
+    decode with --sm_constrain_transitions."""
+    device = resolve_device(device)
+    names = {k[len("model."):] if k.startswith("model.") else k for k in state_dict}
+    if "initial_embeddings.weight" in names:
+        from action_segmentation_torch.models.compound import ComponentHsmm
+
+        params, meta = checkpoint.compound_params_from_reference_state_dict(
+            state_dict, device=device)
+        n_classes = meta["n_classes"] or meta["n_components"]
+        assert meta["n_components"] == n_classes, (
+            "a decomposed-steps compound model needs the corpus's component structure")
+        if meta["n_classes"] is None:
+            logger.debug(
+                "WARNING: compound state_dict has no per-class biases; assuming the "
+                "identity class->component structure (n_classes = n_components = {})"
+                .format(n_classes))
+        args.sm_component_model = True
+        args.sm_component_embedding_dim = meta["embedding_dim"]
+        args.sm_component_mean_layers = meta["mean_layers"]
+        args.sm_component_length_layers = meta["length_layers"]
+        args.sm_component_z_dim = meta["z_dim"]
+        args.sm_compound_structure = meta["compound_structure"]
+        if meta["z_dim"] > 0:
+            args.sm_component_z_hidden_dim = meta["z_hidden_dim"]
+            args.seq_num_layers_component = meta["encoder_layers"]
+        _set_flow_args(args, meta.get("flow"))
+        feature_dim = meta["feature_dim"]
+        module = ComponentHsmm(
+            args, n_classes, n_components=meta["n_components"],
+            class_to_components={c: {c} for c in range(n_classes)},
+            feature_dim=feature_dim, allow_self_transitions=True,
+            per_class_bias=meta["per_class_bias"], device=device,
+        )
+    else:
+        params, skipped = checkpoint.params_from_reference_state_dict(state_dict, device=device)
+        if skipped:
+            logger.debug("import: skipping non-parameter keys {}".format(skipped))
+        n_classes, feature_dim = params["gaussian_means"].shape
+        flow = None
+        if any(k.startswith(checkpoint.FLOW_PREFIX) for k in params):
+            flow = checkpoint.flow_params_from_reference_state_dict(params)[1]
+        _set_flow_args(args, flow)
+        module = GaussianHsmm(args, n_classes, feature_dim, allow_self_transitions=True,
+                              device=device)
+    module.load_state_dict(params)
+    return SemiMarkovModel(args, n_classes, feature_dim, module, device)

@@ -12,7 +12,8 @@ wrapper's instance, as the current ones do; their traceback takes
 (pointers, N, T, C, device, stream), the interface before the launch took
 the wrapper's tile; their band gradient is the two-launch form before
 the tile (pointers to qg, sa, st, lg and a (B, blocks, Km, C) scratch
-sized by ``hsmm_band_grad_blocks``; B, T, T2, C, Km); their band max
+sized by ``hsmm_band_grad_blocks``; B, T, T2, C, Km) or the current
+one (told apart by that export); their band max
 the form before the tile (pointers to G1, G2p, dur, fm; B, T, T2, C,
 Km). Run from the repository root on a machine with a CUDA card:
 
@@ -39,10 +40,15 @@ timed from replayed CUDA graphs too, old, new, new, old, and each version
 also launched one by one, at the serving shape (first, the earlier
 kernel alone both ways), a CrossTask fit batch (B=5, T=1,056, C=20,
 K=20), T=12,000 (B=2), C=128 (B=4) and Km=100, on the band inputs the
-current log scan gives. It checks that qg, sa and st are equal between
-the versions, that the new lg is the same in two runs and within rtol
-1e-5 / atol 1e-4 of the plain version (equal to the earlier lg where
-the tile keeps its 512 // C rows), and prints the new tile.
+current log scan gives. It checks that wherever qg, sa or st differ
+between the versions the new one equals the plain version's, that the
+new lg is the same in two runs and within rtol 1e-5 / atol 1e-4 of the
+plain version (equal to the earlier lg where the tile keeps its 512 // C
+rows, or where the earlier source takes the current interface), and
+prints the new tile, each version's entries of qg, sa and st that
+differ from the plain version's (and how many of those the plain version
+holds as denormal), and each version's duration loop from the SASS,
+counted by opcode (FFMA, FADD, FMUL, MUFU, ...).
 
 The band max (``--kernels band_max``, never with the others) starts
 with step 0: the earlier kernel alone at the serving shape, from a
@@ -66,6 +72,7 @@ card's name and power limit first.
 """
 
 import argparse
+import collections
 import ctypes
 import json
 import os
@@ -89,7 +96,13 @@ from action_segmentation_torch.ops.distributions import (
 )
 from action_segmentation_torch.ops.hsmm import HsmmPotentials, _durations, _finals
 from action_segmentation_torch.ops.hsmm_grad import _log_partition
-from chip_smoke import host_ms
+from action_segmentation_torch.tools.scan_floor import (
+    built_sass,
+    duration_loop,
+    library_sass,
+    parse_function,
+)
+from action_segmentation_torch.utils.misc import host_ms
 
 SOURCES = ("hsmm_scan", "hsmm_viterbi")
 D = 300  # feature width of the serving shape
@@ -216,6 +229,12 @@ def build_old(csrc, out_dir, names=SOURCES):
         print_ptxas("old " + name, out)
         libs[name] = ctypes.CDLL(str(so))
     return libs
+
+
+def loop_opcodes(sass):
+    """{opcode: count} of the instructions of K4's duration loop."""
+    body = duration_loop(parse_function(sass, "band_grad_kernel"))
+    return dict(collections.Counter(ins[2].split(".")[0] for ins in body if ins[2] != "NOP"))
 
 
 def print_ptxas(what, log):
@@ -376,19 +395,21 @@ def band_grad_inputs(B, T, C, K, lengths, rng, device):
 def band_grad_launchers(fns, old_blocks, inputs):
     """{version: (run, (qg, sa, st, lg))}: one launch of each version's
     band gradient into outputs of its own, the new one in the tile
-    ``band_grad_tile`` sizes for this card."""
+    ``band_grad_tile`` sizes for this card; the old one too where
+    `old_blocks` is None (an earlier source of the current interface)."""
     G1m, G2p, dur = inputs
     B, T, C = G1m.shape
     T2, Km = G2p.shape[1], dur.shape[1]
     tile = hc.band_grad_tile(B, T, C, Km, hc._sm_count(G1m.device.index))
-    scratch = {"old": B * old_blocks(T, C) * Km * C, "new": B * tile.tiles * Km * C}
+    tiled = {"old": old_blocks is None, "new": True}
+    scratch = {v: B * (tile.tiles if tiled[v] else old_blocks(T, C)) * Km * C for v in tiled}
     tickets = hc._tickets(G1m.device, B)
     out = {}
     for v, fn in fns.items():
         outs = [torch.empty_like(G1m) for _ in range(3)] + [G1m.new_empty((B, Km, C))]
         held = [*inputs, *outs, G1m.new_empty((scratch[v],))]  # alive while `run` is
         ints = [B, T, T2, C, Km]
-        if v == "new":
+        if tiled[v]:
             held.append(tickets)
             ints += [tile.rows, tile.slab, tile.smem_bytes]
 
@@ -422,15 +443,22 @@ def compare_band_grad(fns, old_blocks, inputs, window_ms, clock, step0=False):
     new_lg = new[3].clone()
     runs["new"][0]()
     torch.cuda.synchronize()
-    for name, a, b in zip(("qg", "sa", "st"), old, new):
-        if not torch.equal(a, b):
-            raise RuntimeError("{}: old and new differ at {} of {} entries".format(
-                name, int((a != b).sum()), a.numel()))
     if not torch.equal(new_lg, new[3]):
         raise RuntimeError("lg: two runs of the new kernel differ")
     plain = hc._band_grad_plain(*inputs)
-    r["differ_plain"] = {name: int((a != b).sum()) for name, a, b in zip(
-        ("qg", "sa", "st"), new, plain)}
+    tiny = torch.finfo(torch.float32).tiny
+    # per version and output: [entries unequal to plain, of them denormal in plain]
+    r["differ_plain"] = {v: {name: [int((a != p).sum()),
+                                    int(((a != p) & (p != 0) & (p.abs() < tiny)).sum())]
+                             for name, a, p in zip(("qg", "sa", "st"), outs, plain)}
+                         for v, (_, outs) in runs.items()}
+    r["plain_st_denormals"] = int(((plain[2] != 0) & (plain[2].abs() < tiny)).sum())
+    for name, a, b, p in zip(("qg", "sa", "st"), old, new, plain):
+        moved = (a != b) & (b != p)
+        if moved.any():
+            raise RuntimeError("{}: at {} of {} entries the versions differ and the new one "
+                               "is not the plain version's".format(name, int(moved.sum()),
+                                                                    a.numel()))
     for name, a, b in zip(("qg", "sa", "st", "lg"), new, plain):
         try:
             torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
@@ -439,7 +467,8 @@ def compare_band_grad(fns, old_blocks, inputs, window_ms, clock, step0=False):
     r["lg_max_abs_err_plain"] = float((new[3].double() - plain[3].double()).abs().max()) \
         if new[3].numel() else 0.0
     r["lg_equal_old"] = bool(torch.equal(old[3], new[3]))
-    if tile.rows == 512 // inputs[0].shape[2] and not r["lg_equal_old"]:
+    same_rows = old_blocks is None or tile.rows == 512 // inputs[0].shape[2]
+    if same_rows and not r["lg_equal_old"]:
         raise RuntimeError("lg: the tile keeps the earlier rows, but lg differs")
     fastest = min(event_ms(run, 1)[0] for run, _ in runs.values())
     n = int(min(1000, max(3, window_ms / fastest)))
@@ -637,6 +666,7 @@ def main():
     device = torch.device("cuda")
     rng = np.random.RandomState(args.seed)
     results, tb_results, bg_results, bm_results, rule_results = [], [], [], [], []
+    bg_opcodes = {}
 
     def clk(s):
         return "{}-{} MHz ({} readings)".format(s.get("min"), s.get("max"), s["n"])
@@ -695,10 +725,19 @@ def main():
                           r["speedup"], clk(r["rule_sm_mhz"]), clk(r["warps_sm_mhz"])),
                       flush=True)
         if args.kernels == "band_grad":
-            fns = {"old": bind(old_libs["band_grad"], "hsmm_band_grad", 8, 5),
+            # the two-launch form exports its scratch's size; the current one does not
+            old_blocks = getattr(old_libs["band_grad"], "hsmm_band_grad_blocks", None)
+            if old_blocks is not None:
+                old_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+                old_blocks.restype = ctypes.c_int
+            fns = {"old": bind(old_libs["band_grad"], "hsmm_band_grad",
+                               *((8, 5) if old_blocks is not None else (9, 8))),
                    "new": bind(new_libs["band_grad"], "hsmm_band_grad", 9, 8)}
-            old_blocks = old_libs["band_grad"].hsmm_band_grad_blocks
-            old_blocks.argtypes, old_blocks.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+            bg_opcodes = {"old": loop_opcodes(library_sass(args.old_csrc / "build" /
+                                                           "libband_grad.so")),
+                          "new": loop_opcodes(built_sass("band_grad"))}
+            print("band grad duration loop, instructions by opcode: {}".format(
+                json.dumps(bg_opcodes)), flush=True)
             for shape, B, T, C, K, lengths in BAND_GRAD_SHAPES:
                 inputs = band_grad_inputs(B, T, C, K, lengths, rng, device)
                 r = compare_band_grad(fns, old_blocks, inputs, args.window_ms, clock,
@@ -710,7 +749,7 @@ def main():
                 print("{:20s} band grad B={:2d} T={:5d} C={:3d} Km={:3d}: old {} ms, new {} ms "
                       "(graphs), x{:.2f}; one by one old {:.5f}, new {:.5f} ms; tile {} rows, "
                       "{} threads, slab {}, {} tiles a video, {} blocks an SM, {} waves, filling "
-                      "{:.3f}, balance {:.3f}; qg/sa/st equal old, entries differing from plain {}; lg max abs err "
+                      "{:.3f}, balance {:.3f}; qg/sa/st entries differing from plain (of them denormal there) {}; lg max abs err "
                       "vs plain {:.3g}, equal old {}; SM clock old {}, new {}".format(
                           shape, B, T, C, K - 1, ["{:.5f}".format(x) for x in r["old_ms"]],
                           ["{:.5f}".format(x) for x in r["new_ms"]], r["speedup"],
@@ -767,6 +806,7 @@ def main():
                           clk(r["new_sm_mhz"])), flush=True)
     out = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
            "results": results, "traceback": tb_results, "band_grad": bg_results,
+           "band_grad_loop_opcodes": bg_opcodes,
            "band_max": bm_results, "band_max_rule": rule_results}
     if args.out is not None:
         os.makedirs(args.out.parent, exist_ok=True)
@@ -779,7 +819,7 @@ def main():
                           "old_us_per_segment", "new_us_per_segment")} for r in tb_results],
                       "band_grad_ab": [{k: r[k] for k in (
                           "shape", "old_ms", "new_ms", "old_stream_ms", "new_stream_ms",
-                          "speedup")} for r in bg_results],
+                          "speedup", "differ_plain", "plain_st_denormals")} for r in bg_results],
                       "band_max_ab": [{k: v for k, v in r.items() if k not in (
                           "tile", "old_sm_mhz", "new_sm_mhz")} for r in bm_results],
                       "band_max_rule": [{k: v for k, v in r.items() if k not in (

@@ -339,10 +339,14 @@ def chain_cycles(body):
 def built_sass(lib):
     """cuobjdump's SASS of csrc/<lib>.cu's library, building it first."""
     _build.build([lib])
+    return library_sass(_build.library_path(lib))
+
+
+def library_sass(so):
+    """cuobjdump's SASS of the built library `so`."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    return subprocess.run(
-        [str(cuobjdump) if cuobjdump.exists() else "cuobjdump", "-sass",
-         str(_build.library_path(lib))], capture_output=True, text=True, check=True).stdout
+    return subprocess.run([str(cuobjdump) if cuobjdump.exists() else "cuobjdump", "-sass",
+                           str(so)], capture_output=True, text=True, check=True).stdout
 
 
 def max_sm_clock_mhz():

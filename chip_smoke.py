@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's decode, training and exact-spans paths
-and its command line on one card and check them.
+"""Drive the PyTorch/CUDA port's decode, training and exact-spans paths,
+its command line and its compound model on one card and check them.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -21,9 +21,11 @@ exit and no result line:
                shorter than the band): the gamma scan at rtol 1e-5 / atol
                1e-4, the band max's fm equal; and the kernels' labels
                against the traceback Viterbi;
-  3b. kernels (train) — the log scan (gamma, alphas), its forward-only
-               form (alphas) and the band gradient (qg, sa, st, lg) against
-               their plain versions at rtol 1e-5 / atol 1e-4, and logZ and
+  3b. kernels (train) — the log scan (gamma, alphas) and its forward-only
+               form (alphas) against their plain versions at rtol 1e-5 /
+               atol 1e-4, the band gradient's qg, sa and st equal to its
+               plain version's (denormal sums included) and its lg at
+               rtol 1e-5 / atol 1e-4 (summed over T by tiles), and logZ and
                the five gradients of the kernel forward/backward against
                the same Function through the plain versions (float32) at
                rtol 2e-3 / atol 2e-4, at the serving width and the same
@@ -74,6 +76,22 @@ exit and no result line:
                --profile_dir trace naming both kernels); a Breakfast
                release at the fisher vectors' width (D=64) through the
                labels chain; each leg's wall time and frames/s;
+  4e. u7     — the compound model: the paper's U7 command (the compound
+               HSMM, unsupervised, canonical ordering and narration at
+               train; 342 classes at D=300) through main.main on 4c's
+               release, 2 epochs a task (finite losses whose mean falls,
+               K2-log and K4 at least once a training batch, every decode
+               through K6 and its traceback, MoF finite on each split, a
+               compound pickle a task); decoding from those pickles on the
+               card (stats equal); the U7 flags with --mix_tasks, --epochs 1
+               then --epochs 2 --resume against an uninterrupted --epochs 2
+               (the resumed epoch's loss and parameters bit for bit; a
+               --profile_dir trace naming both training kernels); and the
+               compound model with a 16-wide latent and the scaled flow on
+               the synthetic corpus, 2 epochs through K2-log and K4 then a
+               decode through K2-max and K3, and its resume bit-equal to
+               the uninterrupted fit; each leg's wall time and launches,
+               and the phase's;
   5. times   — CUDA-event kernel and plain-version times at the serving
                shape beside the roofline bound, the traceback's also beside
                its serial floor (the longest video's segments x one
@@ -88,7 +106,8 @@ exit and no result line:
                x the launch's warps over the SMs' schedulers), at the
                serving shape and at each batch of the constrained
                CrossTask fit (checked against the plain version there
-               too); the band max the same way (its issue floor from its
+               too, qg, sa and st equal to the plain version's); the band
+               max the same way (its issue floor from its
                two duration loops' instructions, read from the SASS, which
                must hold no barrier), at the serving shape and at each
                predict and segment_many batch of the synthetic slice (fm
@@ -213,6 +232,15 @@ def check_equal(name, got, want):
 
     check(torch.equal(got, want), "{}: {} of {} entries differ from the plain version".format(
         name, int((got != want).sum()), got.numel()))
+
+
+def check_band_grad(name, got, want):
+    """K4's qg, sa and st equal to the plain version's (the same float32
+    operations in the same order, denormal sums included); lg within the
+    score tolerance (its sum over T is associated by the kernel's tiles)."""
+    for n, k, p in zip(("qg", "sa", "st"), got, want):
+        check_equal("{} {}".format(name, n), k, p)
+    assert_close(name + " lg", got[3], want[3])
 
 
 def unit_pots(rng, b, t, c, k, device, lengths=None, end_mask=None):
@@ -390,8 +418,7 @@ def train_case(name, pots, lengths):
     bg_k = hsmm_band_grad(*grad_in)
     bg_p = _band_grad_plain(*grad_in)
     torch.cuda.synchronize()
-    for n, k, p in zip(("qg", "sa", "st", "lg"), bg_k, bg_p):
-        assert_close("{} band grad {}".format(name, n), k, p)
+    check_band_grad("{} band grad".format(name), bg_k, bg_p)
 
     fb_kernel = partition_grads(pots, lengths)
     fb_err = assert_grads_close(name + " partition_fb kernels vs plain", fb_kernel,
@@ -594,7 +621,7 @@ def run_train_slice(device, num_videos, max_len, shift):
     batch = next(iter_batches(test, batch_size=B, batch_by_task=True, shuffle=False))
     dev = disc._training_batch(batch)
     with torch.no_grad():
-        pots = disc.module.compute_potentials(dev[0], dev[2], dev[5], dev[6])
+        pots, _, _ = disc.module.compute_potentials(dev[0], dev[1], dev[2], dev[5], dev[6])
         before = hsmm_forward_scan.launches
         logZ = hsmm_partition_fast(pots, dev[1])
         check(hsmm_forward_scan.launches == before + 1, "no-grad partition did not take K1")
@@ -1122,6 +1149,67 @@ def cli_recorder(port_main, model_cls):
         logger.setLevel(level)
 
 
+# the kernels' wrappers as the command-line phases name them
+CLI_KERNELS = ("viterbi scan", "traceback", "gamma scan", "band max", "log scan", "band grad",
+               "forward scan")
+
+
+def cli_runner(legs, totals):
+    """run(leg, argv): the port's command line, main.main(argv) in process
+    with no device (so on the card), with every kernel's launch counter
+    reset before it and read after. Adds the run's wall time to
+    legs[leg] and its launches to totals (by wrapper name); returns
+    (stats, launches by CLI_KERNELS name, the recorded (epoch,
+    train_loss) pairs, stdout)."""
+    import torch
+
+    from action_segmentation_torch import main as port_main
+    from action_segmentation_torch.models.semimarkov import SemiMarkovModel
+    from action_segmentation_torch.ops import hsmm_cuda as hc
+
+    kernels = (hc.hsmm_viterbi_scan, hc.hsmm_viterbi_traceback, hc.hsmm_gamma_scan,
+               hc.hsmm_band_max, hc.hsmm_log_scan, hc.hsmm_band_grad, hc.hsmm_forward_scan)
+    for k in kernels:
+        totals.setdefault(k.__name__, 0)
+
+    def run(leg, argv):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with cli_recorder(port_main, SemiMarkovModel) as epochs, \
+                contextlib.redirect_stdout(io.StringIO()) as out:
+            stats = port_main.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(zip(CLI_KERNELS, (k.launches for k in kernels)))
+        for k in kernels:
+            totals[k.__name__] += k.launches
+        legs.setdefault(leg, {"s": 0.0, "runs": 0})
+        legs[leg]["s"] += seconds
+        legs[leg]["runs"] += 1
+        return stats, launches, epochs, out.getvalue()
+
+    return run
+
+
+def trace_kernels(trace_dir, first):
+    """The kernels of the Chrome trace `first` in `trace_dir`: (events
+    naming scan_kernel and band_grad_kernel, kernel us, span us)."""
+    with open(os.path.join(trace_dir, first)) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    named = {k: sum(k in str(e.get("name", "")) for e in events)
+             for k in ("scan_kernel", "band_grad_kernel")}
+    check(all(named.values()), "the trace names no scan or band-gradient kernel: "
+          "{}".format(named))
+    # the card's busy share of the traced epoch: its kernels' time over
+    # the trace's span (the epoch's host and device events)
+    kernel_us = sum(float(e.get("dur", 0)) for e in events if e.get("cat") == "kernel")
+    span_us = (max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+               - min(float(e["ts"]) for e in events))
+    return named, kernel_us, span_us
+
+
 def run_cli_slice(root, ct_stats, smi):
     """Phase 4d: the port's command line, action_segmentation_torch.main.main
     in process with no device (so on the card), on phase 4c's CrossTask
@@ -1136,43 +1224,10 @@ def run_cli_slice(root, ct_stats, smi):
     from action_segmentation_torch import checkpoint
     from action_segmentation_torch import main as port_main
     from action_segmentation_torch.data import minigen
-    from action_segmentation_torch.models.semimarkov import SemiMarkovModel
-    from action_segmentation_torch.ops.hsmm_cuda import (
-        hsmm_band_grad,
-        hsmm_band_max,
-        hsmm_forward_scan,
-        hsmm_gamma_scan,
-        hsmm_log_scan,
-        hsmm_viterbi_scan,
-        hsmm_viterbi_traceback,
-    )
 
-    kernels = (hsmm_viterbi_scan, hsmm_viterbi_traceback, hsmm_gamma_scan, hsmm_band_max,
-               hsmm_log_scan, hsmm_band_grad, hsmm_forward_scan)
-    names = ("viterbi scan", "traceback", "gamma scan", "band max", "log scan", "band grad",
-             "forward scan")
-    legs = {}
-    cli_launches = {k.__name__: 0 for k in kernels}
-
-    def run(leg, argv):
-        """main.main(argv) with the counters reset before and read after;
-        returns (stats, launches by kernel name, recorded epochs, stdout)."""
-        for k in kernels:
-            k.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with cli_recorder(port_main, SemiMarkovModel) as epochs, \
-                contextlib.redirect_stdout(io.StringIO()) as out:
-            stats = port_main.main(argv)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = dict(zip(names, (k.launches for k in kernels)))
-        for k in kernels:
-            cli_launches[k.__name__] += k.launches
-        legs.setdefault(leg, {"s": 0.0, "runs": 0})
-        legs[leg]["s"] += seconds
-        legs[leg]["runs"] += 1
-        return stats, launches, epochs, out.getvalue()
+    names = CLI_KERNELS
+    legs, cli_launches = {}, {}
+    run = cli_runner(legs, cli_launches)
 
     def leg_line(leg, frames, what):
         s = legs[leg]["s"]
@@ -1260,17 +1315,7 @@ def run_cli_slice(root, ct_stats, smi):
         traces = sorted(os.listdir(trace))
         check(traces == ["epoch_0.pt.trace.json", "epoch_2.pt.trace.json"],
               "traces {}".format(traces))
-        with open(os.path.join(trace, traces[0])) as f:
-            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-        named = {k: sum(k in str(e.get("name", "")) for e in events)
-                 for k in ("scan_kernel", "band_grad_kernel")}
-        check(all(named.values()), "the trace names no scan or band-gradient kernel: "
-              "{}".format(named))
-        # the card's busy share of the traced epoch: its kernels' time over
-        # the trace's span (the epoch's host and device events)
-        kernel_us = sum(float(e.get("dur", 0)) for e in events if e.get("cat") == "kernel")
-        span_us = (max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
-                   - min(float(e["ts"]) for e in events))
+        named, kernel_us, span_us = trace_kernels(trace, traces[0])
         train_frames = sum(len(train[key]["gt_single"]) for train, *_ in splits.values()
                            for key in train._tasks_and_video_names)
         leg_line(leg, 6 * train_frames, "train frames over 6 epochs, with the per-epoch "
@@ -1310,6 +1355,203 @@ def run_cli_slice(root, ct_stats, smi):
             "cli_breakfast_mof": correct / total}
 
 
+def run_u7_slice(device, root, smi):
+    """Phase 4e: the compound model. (1) The paper's U7 command (the
+    compound HSMM, unsupervised, canonical ordering and narration at
+    train) through main.main on the card on phase 4c's CrossTask release,
+    at D=300 and 342 classes, --epochs 2, with model output; (2) decoding
+    from its compound pickles; (3) the U7 flags --mix_tasks, --epochs 1
+    then --epochs 2 --resume against an uninterrupted --epochs 2 (the
+    resumed epoch's loss and parameters bit for bit, a --profile_dir
+    trace naming both training kernels); (4) on the synthetic corpus
+    (19 classes, D=300), the compound model with a 16-wide latent and
+    the scaled flow, 2 unsupervised epochs through K2-log and K4, then a
+    decode through K2-max and K3, and --epochs 1 then 2 --resume of it
+    against the uninterrupted fit (bit for bit: the latent's noise and
+    the cuDNN LSTM's gradients). Each leg resets the launch counters
+    before it and reads them after. Returns the e2e record."""
+    import torch
+
+    from action_segmentation_torch import checkpoint
+    from action_segmentation_torch import main as port_main
+    from action_segmentation_torch.data.synthetic import SyntheticDatasplit
+    from action_segmentation_torch.models.compound import ComponentHsmm
+    from action_segmentation_torch.models.semimarkov import SemiMarkovModel
+    from action_segmentation_torch.ops import hsmm_cuda as hc
+
+    legs, totals = {}, {}
+    run = cli_runner(legs, totals)
+    t_phase = time.perf_counter()
+
+    def leg_line(leg, what):
+        phase("u7", "{}: {} run(s) in {:.3f} s; {}; {}".format(
+            leg, legs[leg]["runs"], legs[leg]["s"], what, smi))
+
+    def fell(epochs):
+        """Per model (epoch 0, then 1, ...): the epoch losses, finite."""
+        runs = []
+        for epoch, loss in epochs:
+            check(loss is not None and math.isfinite(loss), "epoch loss {}".format(loss))
+            if epoch == 0:
+                runs.append([])
+            runs[-1].append(loss)
+        return runs
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_u7_")
+    try:
+        u7 = ["--classifier", "semimarkov", "--training", "unsupervised", *S6_FLAGS,
+              "--data_root", root, "--pca_components_per_group", str(CT_DIM_PER_GROUP),
+              "--sm_constrain_transitions", "--sm_component_model",
+              "--sm_constrain_with_narration", "train"]
+        args = port_main.build_parser().parse_args(u7)
+        with contextlib.redirect_stdout(io.StringIO()):
+            splits = port_main.make_data_splits(args)
+        train_batches = sum(-(-len(train._tasks_and_video_names) // args.batch_size)
+                            for train, *_ in splits.values())
+
+        # 1. the U7 command: 18 per-task compound models, 2 epochs each
+        models = os.path.join(out_dir, "u7")
+        stats, n, epochs, _ = run("u7", u7 + ["--epochs", "2", "--model_output_path", models])
+        losses = fell(epochs)
+        check(len(losses) == len(splits) and all(len(x) == 2 for x in losses),
+              "u7 epochs {}".format(epochs))
+        falls = sum(x[1] < x[0] for x in losses)
+        mean0, mean1 = (float(np.mean([x[i] for x in losses])) for i in (0, 1))
+        check(mean1 < mean0, "u7 mean epoch loss {} -> {}: did not fall".format(mean0, mean1))
+        check(min(n["log scan"], n["band grad"]) >= 2 * train_batches,
+              "u7 launches {}: below one log scan and band grad a batch ({} batches)".format(
+                  n, 2 * train_batches))
+        check(n["viterbi scan"] > 0 and n["viterbi scan"] == n["traceback"]
+              and n["gamma scan"] == n["band max"] == 0,
+              "u7 launches {}: not the exact-spans decode".format(n))
+        mofs = {(split, task): float(s["mof"][0]) / float(s["mof"][1])
+                for split, by in stats.items() for task, s in by.items()}
+        check(all(math.isfinite(v) for v in mofs.values()), "u7 MoF {}".format(mofs))
+        pickles = sorted(f for f in os.listdir(models) if "_epoch-" not in f)
+        check(pickles == sorted("{}.pkl".format(k) for k in splits),
+              "one pickle a task: {}".format(pickles))
+        leg_line("u7", "{} models, mean epoch loss {:.4f} -> {:.4f} ({} of {} fell), "
+                 "launches {}, {} train batches an epoch, MoF {:.4f}-{:.4f} over {} "
+                 "split-tasks".format(len(losses), mean0, mean1, falls, len(losses), n,
+                                      train_batches, min(mofs.values()), max(mofs.values()),
+                                      len(mofs)))
+
+        # 2. decode from the compound pickles, written and read on the card
+        decoded, n, _, _ = run("u7 from saved models", u7 + ["--model_input_path", models])
+        assert_stats_equal("u7 decode from saved models", decoded, stats)
+        check(n["viterbi scan"] > 0 and n["gamma scan"] == 0 and n["log scan"] == 0,
+              "u7 decode launches {}".format(n))
+        one = checkpoint.load_pickle(os.path.join(models, pickles[0]))
+        check(isinstance(one.module, ComponentHsmm) and all(
+            t.is_cuda for t in one.module.state_dict().values()),
+              "the pickle is not a compound model on the card")
+        leg_line("u7 from saved models", "stats equal to leg u7's, launches {}".format(n))
+
+        # 3. resume, one model over every task
+        mixed = u7 + ["--mix_tasks", "--checkpoint_every", "1"]
+        ck, whole, trace = (os.path.join(out_dir, d) for d in ("ck", "whole", "trace"))
+        leg = "u7 resumed"
+        _, n_first, first, _ = run(leg, mixed + ["--epochs", "1", "--checkpoint_dir", ck,
+                                                 "--profile_dir", trace])
+        _, n_resumed, resumed, _ = run(leg, mixed + ["--epochs", "2", "--resume",
+                                                     "--checkpoint_dir", ck])
+        _, n_whole, uninterrupted, _ = run(leg, mixed + ["--epochs", "2",
+                                                         "--checkpoint_dir", whole])
+        check([e for e, _ in first] == [0] and [e for e, _ in resumed] == [1]
+              and [e for e, _ in uninterrupted] == [0, 1],
+              "epochs run: {}, resumed {}, uninterrupted {}".format(first, resumed,
+                                                                    uninterrupted))
+        check(resumed[0][1] == uninterrupted[1][1], "resumed epoch-1 loss {} != "
+              "uninterrupted {}".format(resumed[0][1], uninterrupted[1][1]))
+        got, _, _ = checkpoint.load_checkpoint(ck, 1)
+        want, _, _ = checkpoint.load_checkpoint(whole, 1)
+        check(sorted(got["params"]) == sorted(want["params"]), "checkpoint keys differ")
+        differ = [k for k, w in want["params"].items() if not torch.equal(got["params"][k], w)]
+        check(not differ, "resumed params differ from the uninterrupted run's: {}".format(differ))
+        for k in ("log scan", "band grad"):
+            check(min(n_first[k], n_resumed[k], n_whole[k]) > 0,
+                  "{} not launched: {} {} {}".format(k, n_first, n_resumed, n_whole))
+        named, kernel_us, span_us = trace_kernels(trace, "epoch_0.pt.trace.json")
+        leg_line(leg, "epochs {} then --resume {} against {}; epoch-1 loss {!r} == {!r}, {} "
+                 "parameter tensors equal; trace events naming {}; the traced epoch 0: "
+                 "kernels {:.3f} ms of a {:.3f} ms span, the card busy {:.4f} of it".format(
+                     [e for e, _ in first], [e for e, _ in resumed],
+                     [e for e, _ in uninterrupted], resumed[0][1], uninterrupted[1][1],
+                     len(want["params"]), named, kernel_us / 1e3, span_us / 1e3,
+                     kernel_us / span_us))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # 4. the latent and the flow on the synthetic corpus, <= 128 classes
+    kernels = (hc.hsmm_log_scan, hc.hsmm_band_grad, hc.hsmm_gamma_scan, hc.hsmm_band_max)
+    for k in kernels:
+        k.launches = 0
+    kw = dict(num_videos=36, n_classes=C, max_len=T, span_k=K, feature_dim=D, shift=1.0)
+    train, test = SyntheticDatasplit(seed=0, **kw), SyntheticDatasplit(seed=1, **kw)
+    syn_dir = tempfile.mkdtemp(prefix="chip_smoke_u7_synthetic_")
+
+    def fit(epochs, ck, *extra):
+        args = port_main.build_parser().parse_args([
+            "--classifier", "semimarkov", "--training", "unsupervised", "--sm_component_model",
+            "--sm_component_z_dim", "16", "--sm_feature_projection", "--flow_scale",
+            "--batch_size", str(B), "--epochs", str(epochs), "--checkpoint_every", "1",
+            "--checkpoint_dir", os.path.join(syn_dir, ck), *extra])
+        model = SemiMarkovModel.from_args(args, train, device=device)
+        stats = []
+        model.fit(train, use_labels=False, callback_fn=lambda e, st: stats.append(
+            (e, st["train_loss"], st["train_kl_vid_avg"])))
+        return model, stats
+
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, syn_losses = fit(2, "whole")
+        n_fit = [k.launches for k in kernels]
+        preds = model.predict(test)
+        torch.cuda.synchronize()
+        syn_s = time.perf_counter() - t0
+        n_all = [k.launches for k in kernels]
+        # the latent's noise and the cuDNN LSTM across a resume
+        fit(1, "split")
+        _, syn_resumed = fit(2, "split", "--resume")
+        got, _, _ = checkpoint.load_checkpoint(os.path.join(syn_dir, "split"), 1)
+        want, _, _ = checkpoint.load_checkpoint(os.path.join(syn_dir, "whole"), 1)
+    finally:
+        shutil.rmtree(syn_dir, ignore_errors=True)
+    n_batches = -(-kw["num_videos"] // B)
+    check(all(math.isfinite(x) for e in syn_losses for x in e[1:]) and
+          [e[0] for e in syn_losses] == [0, 1], "synthetic compound losses {}".format(syn_losses))
+    check(n_fit == [2 * n_batches, 2 * n_batches, 0, 0],
+          "synthetic compound fit launches {}: not one log scan and band grad a batch".format(
+              n_fit))
+    check(n_all[2:] == [n_batches, n_batches],
+          "synthetic compound decode launches {}: not one gamma scan and band max a "
+          "batch".format(n_all))
+    check([e[0] for e in syn_resumed] == [1] and syn_resumed[0][1] == syn_losses[1][1],
+          "synthetic resumed epoch {} != uninterrupted {}".format(syn_resumed, syn_losses))
+    differ = [k for k, w in want["params"].items() if not torch.equal(got["params"][k], w)]
+    check(not differ and sorted(got["params"]) == sorted(want["params"]),
+          "synthetic resumed params differ: {}".format(differ))
+    for k, count in zip(kernels, n_all):
+        totals[k.__name__] += count
+    syn_mof = mof(test, preds)
+    check(math.isfinite(syn_mof) and len(preds) == kw["num_videos"], "synthetic MoF")
+    legs["synthetic z and flow"] = {"s": syn_s, "runs": 1}
+    phase("u7", "synthetic z and flow: 2 epochs x {} batches then predict in {:.3f} s; "
+          "(epoch, loss, kl a video) {}; launches log scan/band grad/gamma scan/band max {}; "
+          "MoF {:.4f}; resumed epoch 1 {!r} == {!r}, {} parameter tensors equal (the encoder's "
+          "LSTM among them); {}".format(n_batches, syn_s, syn_losses, n_all, syn_mof,
+                                        syn_resumed[0][1], syn_losses[1][1],
+                                        len(want["params"]), smi))
+    phase_s = time.perf_counter() - t_phase
+    phase("u7", "phase 4e: {:.3f} s".format(phase_s))
+    return {"u7_legs": legs, "u7_launches": totals, "u7_phase_s": phase_s,
+            "u7_epoch_losses": losses, "u7_resume_loss": resumed[0][1],
+            "u7_traced_epoch_busy_share": kernel_us / span_us,
+            "u7_synthetic_launches": n_all, "u7_synthetic_mof": syn_mof,
+            "u7_synthetic_losses": syn_losses}
+
+
 def cuda_ms(fn, n, warmup=3):
     import torch
 
@@ -1324,22 +1566,6 @@ def cuda_ms(fn, n, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
-
-
-def host_ms(fn, n, warmup=3):
-    """Host ms of one call of fn: n calls enqueued back to back on the
-    host clock, without waiting for the card (its queue holds them)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    seconds = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return seconds * 1e3 / n
 
 
 def graph_ms(fn, n):
@@ -1481,6 +1707,7 @@ def main():
         max_sm_clock_mhz,
         traceback_floor,
     )
+    from action_segmentation_torch.utils.misc import host_ms
 
     device = torch.device("cuda")
     t_start = time.perf_counter()
@@ -1568,6 +1795,7 @@ def main():
     try:
         ct_e2e, ct_launches, ct_tb_in, ct_bg_in, ct_stats = run_crosstask_slice(device, root)
         e2e.update(run_cli_slice(root, ct_stats, smi))
+        e2e.update(run_u7_slice(device, root, smi))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     e2e.update(train_e2e)
@@ -1656,8 +1884,7 @@ def main():
     for bg_in in ct_bg_in:
         got, want = hsmm_band_grad(*bg_in), _band_grad_plain(*bg_in)
         torch.cuda.synchronize()
-        for n, k, p in zip(("qg", "sa", "st", "lg"), got, want):
-            assert_close("crosstask fit batch band grad " + n, k, p)
+        check_band_grad("crosstask fit batch band grad", got, want)
         Bn, Tn, Cn = bg_in[0].shape
         tile = hsmm_cuda.band_grad_tile(Bn, Tn, Cn, bg_in[2].shape[1], sms)
         ct_bg.append((graph_ms(lambda: hsmm_band_grad(*bg_in), N_TIMED),
@@ -1802,6 +2029,7 @@ def main():
         # the launches on phase 4d's command-line legs, summed (4d resets the
         # counters before each leg and reads them after)
         k["cli_launches"] = e2e["cli_launches"][k["name"]]
+        k["u7_launches"] = e2e["u7_launches"][k["name"]]
         check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
         check(k["launches"] > 0, "{} was not launched on its path".format(k["name"]))
     phase("times", "serving shape B={} T={} C={} K={}; {} launches of each kernel; "

@@ -119,14 +119,22 @@ def test_resume_restores_plateau_state(tmp_path):
     assert (st.lr, st.best, st.num_bad) == (sched["lr"], sched["best"], sched["num_bad"])
 
 
-@pytest.mark.parametrize("use_labels", [False, True], ids=["unsupervised", "supervised"])
-def test_resumed_run_matches_uninterrupted(tmp_path, use_labels):
+COMPOUND_Z = dict(sm_component_model=True, sm_component_embedding_dim=8,
+                  sm_component_z_dim=4, sm_component_z_hidden_dim=8)
+
+
+@pytest.mark.parametrize("use_labels,model", [(False, {}), (True, {}), (False, COMPOUND_Z)],
+                         ids=["unsupervised", "supervised", "compound with z"])
+def test_resumed_run_matches_uninterrupted(tmp_path, use_labels, model):
     """--epochs 2 then --epochs 3 --resume gives the uninterrupted 3-epoch
     run's epoch-2 loss and final parameters (rtol 1e-6); a patience of 0
-    moves the learning rate inside the run."""
+    moves the learning rate inside the run. The compound model with a
+    latent draws each batch's noise from (seed, epoch, batch), so its
+    resumed epoch draws what the uninterrupted one drew."""
     train = TSplit(**TRAIN)
     common = dict(sm_max_span_length=8, sm_supervised_method="gradient-based", lr=5e-2,
-                  checkpoint_every=1, reduce_plateau_patience=0, reduce_plateau_min_lr=1e-5)
+                  checkpoint_every=1, reduce_plateau_patience=0, reduce_plateau_min_lr=1e-5,
+                  **model)
 
     def run(ck_dir, epochs, resume=False):
         model = TModel.from_args(
@@ -218,18 +226,6 @@ def test_reference_state_dict_port_to_jax():
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("key", ["feature_projector.cell0.in_layer.weight",
-                                 "initial_embeddings.weight", "emission_mean_bias",
-                                 "encoder.encoder.weight_ih_l0"])
-def test_reference_state_dict_refuses_item7_weights(key):
-    tm = _closed_form(TSplit, TModel, device=CPU)
-    sd = ckpt.reference_state_dict_from_params(tm.module.state_dict())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ckpt.params_from_reference_state_dict({**sd, key: np.zeros(2)}, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ckpt.reference_state_dict_from_params({**sd, key.split(".")[0]: np.zeros(2)})
-
-
 def test_pickle_holds_no_device(tmp_path, monkeypatch):
     """A fitted model pickles its weights on the CPU with no device,
     optimizer or plateau controller; it unpickles onto the device its
@@ -313,3 +309,170 @@ def test_checkpoint_sidecar_matches_jax(tmp_path):
         assert json.load(f) == json.load(g)
     assert ckpt.latest_step(str(tmp_path / "t")) == 4
     assert ckpt.latest_step(str(tmp_path / "none")) is None
+
+
+# ---- the compound model and the flow through the reference state dict ------
+
+FLOW = dict(sm_feature_projection=True, flow_scale=True, flow_scale_no_zero=True,
+            flow_couple_layers=2, flow_hidden_units=8)
+REF_VARIANTS = {
+    "gaussian with flow": dict(FLOW),
+    "compound": dict(sm_component_model=True, sm_component_embedding_dim=8),
+    "compound with z and flow": dict(sm_component_model=True, sm_component_embedding_dim=8,
+                                     sm_component_z_dim=4, sm_component_z_hidden_dim=8,
+                                     **FLOW),
+}
+
+
+def _reference_state_dict(variant):
+    """A reference-style state dict (reference names, torch tensors, the
+    (D, D) covariance, a 'model.' prefix and a constraint buffer), from a
+    JAX model's weights moved off its init."""
+    train = JSplit(num_videos=12, n_classes=3, max_len=30, span_k=5, feature_dim=6, seed=0)
+    jm = JModel.from_args(make_args(sm_max_span_length=8, **REF_VARIANTS[variant]), train)
+    rng = np.random.RandomState(5)
+    params = jax.tree_util.tree_map(
+        lambda x: np.asarray(x) + 0.2 * rng.randn(*np.shape(x)).astype(np.float32),
+        jax.tree_util.tree_map(np.asarray, jm.module.params))
+    params["gaussian_cov"] = np.abs(params["gaussian_cov"]) + 0.5
+    sd = jckpt.reference_state_dict_from_params(params)
+    assert sd["gaussian_cov"].ndim == 2
+    ref = {"model." + k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    ref["model.init_constraints"] = torch.zeros(3)
+    return ref, sd
+
+
+def _fresh_args():
+    return make_args(sm_max_span_length=8)
+
+
+@pytest.mark.parametrize("variant", sorted(REF_VARIANTS))
+def test_reference_state_dict_compound_and_flow_both_ways(variant):
+    """A reference-style state dict imports in the port and in JAX to the
+    same weights (the port's state dict equals JAX's params carried by
+    ``bridge.py``), both decode the same labels, and the port exports it
+    back to the same dict (and to JAX's export of its own import)."""
+    from action_segmentation_torch import bridge
+    from action_segmentation_torch.models.semimarkov import (
+        semimarkov_from_reference_state_dict as t_import,
+    )
+    from action_segmentation_tpu.models.semimarkov import (
+        semimarkov_from_reference_state_dict as j_import,
+    )
+
+    ref, sd = _reference_state_dict(variant)
+    tm = t_import(_fresh_args(), ref, device=CPU)
+    jm = j_import(_fresh_args(), {k: v.numpy() for k, v in ref.items()})
+    assert type(tm.module).__name__ == type(jm.module).__name__
+    for flag in ("sm_component_model", "sm_feature_projection", "flow_scale",
+                 "flow_couple_layers", "flow_hidden_units", "sm_component_z_dim",
+                 "sm_compound_structure", "sm_component_embedding_dim"):
+        assert getattr(tm.args, flag, None) == getattr(jm.args, flag, None), flag
+    jparams = jax.tree_util.tree_map(np.asarray, jm.module.params)
+    convert = (bridge.compound_hsmm_params_from_numpy if "initial_embeddings" in jparams
+               else bridge.gaussian_hsmm_params_from_numpy)
+    want = convert(jparams, CPU)
+    got = tm.module.state_dict()
+    assert sorted(got) == sorted(want)
+    for k, v in got.items():
+        np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=1e-5, err_msg=k)
+
+    test = TSplit(num_videos=6, n_classes=3, max_len=40, span_k=5, feature_dim=6, seed=1)
+    feats = [test._samples[n]["features"] for n in sorted(test._samples)]
+    for g, w in zip(TSegmenter(tm).segment_many(feats, batch_size=4),
+                    JSegmenter(jm).segment_many(feats, batch_size=4)):
+        np.testing.assert_array_equal(g, w)
+
+    back = ckpt.reference_state_dict_from_params(tm.module.state_dict())
+    jback = jckpt.reference_state_dict_from_params(jm.module.params)
+    assert sorted(back) == sorted(sd) == sorted(jback)
+    for k in sd:
+        np.testing.assert_array_equal(back[k], sd[k], err_msg=k)
+        np.testing.assert_allclose(back[k], jback[k], rtol=1e-6, err_msg=k)
+
+
+def test_compound_state_dict_meta_matches_jax():
+    """The architecture read off a compound state dict, as JAX reads it."""
+    ref, _ = _reference_state_dict("compound with z and flow")
+    _, meta = ckpt.compound_params_from_reference_state_dict(ref, device=CPU)
+    _, jmeta = jckpt.compound_params_from_reference_state_dict(ref)
+    flow = meta.pop("flow")
+    assert meta == jmeta
+    assert flow == {"flow_couple_layers": 2, "flow_hidden_units": 8, "flow_hidden_layers": 1,
+                    "flow_scale": True}
+
+
+def test_import_reference_state_dict(tmp_path):
+    """Twin of tests/test_checkpoint.py::test_import_reference_state_dict:
+    a reference-trained SemiMarkovModule state dict (torch tensors,
+    reference names and constraint buffers) imports through the port's
+    tool into a pickle whose decode matches a model built with the same
+    weights; the export tool writes the reference's dict back."""
+    from action_segmentation_torch.models.semimarkov import semimarkov_from_reference_state_dict
+    from action_segmentation_torch.tools.export_reference_model import main as export_main
+    from action_segmentation_torch.tools.import_reference_model import main as import_main
+
+    Cn, D = 4, 6
+    rng = np.random.RandomState(0)
+    sd = {
+        "poisson_log_rates": torch.tensor(rng.randn(Cn).astype(np.float32)),
+        "gaussian_means": torch.tensor(rng.randn(Cn, D).astype(np.float32) * 2),
+        "gaussian_cov": torch.tensor(np.abs(rng.randn(D)).astype(np.float32) + 0.5),
+        "transition_logits": torch.tensor(rng.randn(Cn, Cn).astype(np.float32)),
+        "init_logits": torch.tensor(rng.randn(Cn).astype(np.float32)),
+        "init_constraints": torch.zeros(Cn),  # a buffer: skipped
+        "transition_constraints": torch.zeros(Cn, Cn),
+    }
+    sd_path = str(tmp_path / "ref_module.pt")
+    torch.save(sd, sd_path)
+    out_path = str(tmp_path / "imported.pkl")
+    import_main(["--state_dict", sd_path, "--output", out_path], device="cpu")
+
+    seg = TSegmenter.load(out_path, device="cpu")
+    feats = rng.randn(30, D).astype(np.float32) + 0.5
+    got = seg.segment(feats)
+    native = semimarkov_from_reference_state_dict(make_args(), {k: v.numpy() for k, v in
+                                                                sd.items()}, device=CPU)
+    np.testing.assert_array_equal(got, TSegmenter(native).segment(feats))
+    assert got.shape == (30,)
+
+    exported = str(tmp_path / "exported.pt")
+    export_main(["--model", out_path, "--output", exported], device="cpu")
+    back = torch.load(exported, weights_only=True)
+    assert sorted(back) == sorted(ckpt.REFERENCE_PARAM_KEYS)
+    for k in ckpt.REFERENCE_PARAM_KEYS:
+        want = torch.diag(sd[k]) if k == "gaussian_cov" else sd[k]
+        assert torch.equal(back[k], want), k
+
+
+def test_compound_pickle_roundtrip_through_the_tools(tmp_path, monkeypatch):
+    """A compound model with a latent and a flow: its reference dict
+    through the import tool into a pickle, which decodes the labels of the
+    in-memory import and exports back to the same dict. Without
+    device="cpu" both tools ask for the card, and raise without one."""
+    from action_segmentation_torch.models.semimarkov import semimarkov_from_reference_state_dict
+    from action_segmentation_torch.tools.export_reference_model import main as export_main
+    from action_segmentation_torch.tools.import_reference_model import main as import_main
+
+    ref, sd = _reference_state_dict("compound with z and flow")
+    sd_path, pkl, out = (str(tmp_path / n) for n in ("ref.pt", "m.pkl", "back.pt"))
+    torch.save(ref, sd_path)
+    import_main(["--state_dict", sd_path, "--output", pkl, "--sm_max_span_length", "8"],
+                device="cpu")
+    loaded = ckpt.load_pickle(pkl, device="cpu")
+    native = semimarkov_from_reference_state_dict(_fresh_args(), ref, device=CPU)
+    test = TSplit(num_videos=5, n_classes=3, max_len=40, span_k=5, feature_dim=6, seed=2)
+    feats = [test._samples[n]["features"] for n in sorted(test._samples)]
+    for g, w in zip(TSegmenter(loaded).segment_many(feats), TSegmenter(native).segment_many(feats)):
+        np.testing.assert_array_equal(g, w)
+    export_main(["--model", pkl, "--output", out], device="cpu")
+    back = torch.load(out, weights_only=True)
+    assert sorted(back) == sorted(sd)
+    for k in sd:
+        np.testing.assert_array_equal(back[k].numpy(), sd[k], err_msg=k)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        import_main(["--state_dict", sd_path, "--output", pkl, "--sm_max_span_length", "8"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_main(["--model", pkl, "--output", out])

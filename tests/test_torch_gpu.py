@@ -9,7 +9,7 @@ imports neither JAX nor the JAX package, so it runs where JAX is absent:
 version do the same float32 operations in the same order, so they are
 held to the JAX package's score tolerance (rtol 1e-5 / atol 1e-4,
 tests/test_hsmm_pallas.py) and labels, backpointer codes and spans must
-be equal, as must K3's fm and K4's qg, sa and st at these shapes. The partition's
+be equal, as must K3's fm and K4's qg, sa and st, denormal sums included. The partition's
 gradients are held to the JAX package's gradient tolerance (rtol 2e-3 /
 atol 2e-4, tests/test_hsmm_grad.py).
 """
@@ -226,6 +226,47 @@ def test_band_grad_kernel_matches_plain(cuda, B, T, C, K):
         assert tile.slab < K - 1  # several slabs
     if (T, C) == (1000, 19):
         assert T % tile.rows != 0
+    assert_band_grad_matches_plain(band_in)
+
+
+def gaussian_band_inputs(B, T, C, K, device, seed, D=300):
+    """Band inputs from D=300 Gaussian emissions (features, means and
+    covariance drawn as bench.build_inputs draws them), whose span
+    posteriors spread over hundreds of nats: many st sums are denormal."""
+    from action_segmentation_torch.ops.distributions import (
+        gaussian_emission_log_probs,
+        initial_log_probs,
+        poisson_length_log_probs,
+        transition_log_probs,
+    )
+
+    rng = np.random.RandomState(seed)
+    dev = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    emit = gaussian_emission_log_probs(
+        dev(rng.randn(B, T, D).astype(np.float32)), dev(rng.randn(C, D).astype(np.float32)),
+        dev(np.abs(rng.randn(D).astype(np.float32)) + 0.5))
+    trans = transition_log_probs(dev(rng.randn(C, C).astype(np.float32)))
+    init = initial_log_probs(dev(rng.randn(C).astype(np.float32)))
+    lens = poisson_length_log_probs(dev(rng.randn(C).astype(np.float32) * 0.3 + 1.5), K)
+    pots = th.HsmmPotentials(trans.expand(B, C, C), init.expand(B, C),
+                             lens.expand((B,) + lens.shape), emit.contiguous(),
+                             torch.zeros(B, C, device=device))
+    lengths = torch.full((B,), T, dtype=torch.long, device=device)
+    gamma, alphas = hc._log_scan_plain(*hc._stack_fwd_rev(pots, lengths))
+    logZ = hg._log_partition(alphas[:B], lengths, pots.end_mask)
+    return hc._grad_band_inputs(pots, lengths, gamma, logZ)
+
+
+@pytest.mark.parametrize("B,T,C,K", [(18, 1024, 19, 20), (5, 1056, 20, 20)])
+def test_band_grad_matches_plain_on_denormal_st(cuda, B, T, C, K):
+    """The serving shape and a CrossTask fit batch at the D=300 scale:
+    the plain st holds denormal sums, and the kernel's qg, sa and st
+    still equal the plain version's (each add of an expf or log1pf result
+    rounds on its own, as the plain version's does)."""
+    band_in = gaussian_band_inputs(B, T, C, K, cuda, 10)
+    st = hc._band_grad_plain(*band_in)[2]
+    tiny = torch.finfo(torch.float32).tiny
+    assert int(((st != 0) & (st.abs() < tiny)).sum()) > 0
     assert_band_grad_matches_plain(band_in)
 
 
@@ -535,7 +576,7 @@ def test_wide_model_with_a_narrow_task_runs_on_the_card(cuda):
     before = [k.launches for k in kernels]
     labels, scores = model._decode(feats, lengths, vc, cons, ends)
     with torch.no_grad():
-        pots = model.module.compute_potentials(feats, vc, cons, ends)
+        pots, _, _ = model.module.compute_potentials(feats, lengths, vc, cons, ends)
     spans, want_scores = hc.hsmm_viterbi_spans_plain(pots, lengths)
     torch.testing.assert_close(scores, want_scores, rtol=RTOL, atol=ATOL)
     real = labels[labels >= 0]

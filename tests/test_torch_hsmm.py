@@ -137,3 +137,99 @@ def test_span_codec_matches_jax(max_k):
     np.testing.assert_array_equal(back, labels)
     lengths = np.full(labels.shape[0], labels.shape[1])
     assert tsc.rle_spans(got, lengths) == jsc.rle_spans(want, lengths)
+
+
+# ---- twins of tests/test_hsmm_core.py's brute-force checks -----------------
+
+
+def _one(*per_instance):
+    return th.HsmmPotentials(*[torch.from_numpy(np.asarray(x))[None] for x in per_instance])
+
+
+def test_partition_and_viterbi_vs_bruteforce():
+    """Twin of tests/test_hsmm_core.py::test_partition_and_viterbi_vs_bruteforce
+    on the port's DP: every segmentation and labelling of tiny sequences
+    enumerated in numpy; logZ, the best score and the best spans, and the
+    gold score of the best path. The plain decode chains
+    (``hsmm_viterbi_labels`` and ``hsmm_viterbi_spans``) give its labels."""
+    from action_segmentation_torch.ops import hsmm_cuda as hc
+    from tests.test_hsmm_core import brute_force, path_to_spans, random_potentials
+
+    rng = np.random.RandomState(0)
+    for trial in range(6):
+        C, K, T = rng.randint(2, 4), rng.randint(2, 5), rng.randint(2, 7)
+        length = T if trial % 2 == 0 else max(1, T - 1)
+        arrays = random_potentials(rng, C, K, T, constrained_end=trial % 3 == 0)
+        want_logZ, want_best, best_path = brute_force(*arrays[:4], length, arrays[4])
+        pots = _one(*arrays)
+        lengths = torch.tensor([length])
+        assert abs(float(th.hsmm_partition(pots, lengths)[0]) - want_logZ) < 1e-3, trial
+        spans, score = th.hsmm_viterbi(pots, lengths)
+        assert abs(float(score[0]) - want_best) < 1e-3
+        want_spans = path_to_spans(*best_path, T)
+        got = spans[0].numpy()
+        assert (got[:length] == want_spans[:length]).all(), (got, want_spans)
+        assert (got[length:] == -1).all()
+        gold = th.hsmm_gold_score(pots, lengths, torch.from_numpy(want_spans)[None].long())
+        assert abs(float(gold[0]) - want_best) < 1e-3
+        want_labels = tsc.spans_to_labels(torch.from_numpy(want_spans)[None].long())[0, :length]
+        labels, _ = hc.hsmm_viterbi_labels(pots, lengths)
+        np.testing.assert_array_equal(labels[0, :length].numpy(), want_labels.numpy())
+        chain_spans, _ = hc.hsmm_viterbi_spans(pots, lengths)
+        np.testing.assert_array_equal(chain_spans[0, :length].numpy(), want_spans[:length])
+
+
+def test_gold_score_random_paths():
+    """Twin of tests/test_hsmm_core.py::test_gold_score_random_paths: the
+    port's gold score of hand-built paths against a sum in numpy."""
+    from tests.test_hsmm_core import path_to_spans, random_potentials
+
+    rng = np.random.RandomState(1)
+    C, K, T = 3, 4, 6
+    trans, init, lens, emit, end_mask = random_potentials(rng, C, K, T)
+    pots = _one(trans, init, lens, emit, end_mask)
+    length = 5
+    for durs in [(1, 1, 3), (3, 2), (2, 2, 1), (1, 1, 1, 1, 1)]:
+        classes = tuple(rng.randint(C) for _ in durs)
+        spans = path_to_spans(durs, classes, T)
+        want, t = 0.0, 0
+        for i, (c, d) in enumerate(zip(classes, durs)):
+            want += lens[d, c] + emit[t : t + d, c].sum()
+            want += init[c] if i == 0 else trans[c, classes[i - 1]]
+            t += d
+        want += end_mask[classes[-1]]
+        got = float(th.hsmm_gold_score(pots, torch.tensor([length]),
+                                       torch.from_numpy(spans)[None].long())[0])
+        assert abs(got - want) < 1e-3, (durs, classes, got, want)
+
+
+def test_constructed_periodic_decode():
+    """Twin of tests/test_hsmm_core.py::test_constructed_periodic_decode (the
+    reference's constructed-potentials decode, src/models/test_semimarkov.py
+    :266-323): a forced periodic segmentation, decoded by the port's
+    traceback Viterbi and by the plain exact-spans chain. (The labels
+    chain is left out: the BIG_NEG emissions' prefix sums reach -1e10,
+    where float32 absorbs the +1 a frame, so every path ties.)"""
+    from action_segmentation_torch.ops import hsmm_cuda as hc
+
+    b, C, N, K, step = 4, 4, 40, 6, 4
+    padded = N + 2 * step
+    lengths = np.full(b, N)
+    lengths[0] = padded
+    init = np.full(C, BIG_NEG, np.float32)
+    init[0] = 0.0
+    emit = np.full((b, padded, C), BIG_NEG, np.float32)
+    for n in range(padded):
+        emit[:, n, (n // step) % C] = 1.0
+    lens = np.full((K, C), BIG_NEG, np.float32)
+    lens[step] = 0.0
+    pots = th.HsmmPotentials(
+        torch.zeros(C, C).expand(b, C, C), torch.from_numpy(init).expand(b, C),
+        torch.from_numpy(lens).expand(b, K, C), torch.from_numpy(emit), torch.zeros(b, C))
+    lengths = torch.from_numpy(lengths)
+    spans, _ = th.hsmm_viterbi(pots, lengths)
+    chain_spans, _ = hc.hsmm_viterbi_spans(pots, lengths)
+    for labels in (tsc.spans_to_labels(spans), tsc.spans_to_labels(chain_spans)):
+        for i in range(b):
+            want = (np.arange(int(lengths[i])) // step) % C
+            np.testing.assert_array_equal(labels[i, : int(lengths[i])].numpy(), want)

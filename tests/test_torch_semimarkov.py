@@ -142,7 +142,7 @@ def test_bridge_loads_jax_params_and_decodes_the_same(closed_form):
     for name in want:
         np.testing.assert_array_equal(got[name], want[name])
     with pytest.raises(KeyError):
-        gaussian_hsmm_params_from_numpy({**params, "feature_projector": 0}, "cpu")
+        gaussian_hsmm_params_from_numpy({**params, "initial_embeddings": 0}, "cpu")
     with pytest.raises(KeyError):
         gaussian_hsmm_params_from_numpy({"init_logits": params["init_logits"]}, "cpu")
 
@@ -180,10 +180,11 @@ def test_class_shape_bucket_parity():
 
 
 def test_unported_paths_raise():
-    """Data parallelism, the flow and the component model raise until
-    their slices. (The constraint and merge flags are ported:
-    tests/test_torch_constrained.py; checkpoints, resume and profiling:
-    tests/test_torch_checkpoint.py and tests/test_torch_cli.py.)"""
+    """Data parallelism raises until its slice. (The constraint and merge
+    flags are ported: tests/test_torch_constrained.py; checkpoints, resume
+    and profiling: tests/test_torch_checkpoint.py and tests/test_torch_cli.py;
+    the flow and the compound model: tests/test_torch_flow.py and
+    tests/test_torch_compound.py.)"""
     train, _ = splits(TSplit, n_train=4)
     for flag, value in (("data_parallel", True),):
         args = make_sm_args(sm_supervised_method="gradient-based", **{flag: value})
@@ -191,12 +192,6 @@ def test_unported_paths_raise():
         for use_labels in (True, False):
             with pytest.raises(NotImplementedError, match="slice"):
                 model.fit(train, use_labels=use_labels)
-    for flag in ("sm_component_model", "sm_feature_projection"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            TModel.from_args(make_sm_args(**{flag: True}), train, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        TModel.from_args(make_sm_args(sm_init_non_projection_parameters_from="m.pkl"),
-                         train, device="cpu")
 
 
 def test_initial_params_and_moment_init_match_jax():
