@@ -4,8 +4,9 @@ A PyTorch twin of ``action_segmentation_tpu`` for one NVIDIA H100:
 hidden semi-Markov models over pre-extracted video frame features.
 Decode (potentials -> Viterbi frame labels or exact spans) and the
 training forward/backward run through seven CUDA kernels written by hand
-for Hopper, from four sources and one scan template (``csrc/``);
-everything around them is plain PyTorch.
+for Hopper, from four sources and one scan template (``csrc/``); the
+edit distance of the metrics is a host C++ library built with g++
+(``csrc/editdistance.cpp``); everything else is plain PyTorch.
 
 Layout (each file has one twin in the JAX package):
   main.py      the command line (python -m action_segmentation_torch.main)
@@ -14,9 +15,9 @@ Layout (each file has one twin in the JAX package):
   ops/         span codec, semi-Markov DP (plain torch + CUDA kernels),
                emission/duration/transition distributions, sufficient stats
   models/      model classes (semimarkov, the compound model, the flow,
-               the BiLSTM encoder; the baselines' flags)
+               the BiLSTM encoder; the framewise and sequential baselines)
   data/        synthetic, CrossTask and Breakfast corpora, PCA, batching
-  evaluation/  Hungarian-matched accuracy metrics, F1
+  evaluation/  Hungarian-matched accuracy metrics, F1, the edit distance
   utils/       logging, the deferred label drain, small helpers
 
 Entry points run on the card unless the caller passes ``device="cpu"``.

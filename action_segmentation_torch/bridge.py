@@ -7,6 +7,8 @@ the same weights:
 
     module.load_state_dict(gaussian_hsmm_params_from_numpy(params, device))
     module.load_state_dict(compound_hsmm_params_from_numpy(params, device))
+    model.mlp.load_state_dict(framewise_params_from_numpy(params, device))
+    model.tagger.load_state_dict(sequential_params_from_numpy(params, device))
 
 The JAX package nests its layers (``res``, ``cells``, ``scale_cells``,
 ``layers`` lists) and stores every linear and LSTM weight as (in, out);
@@ -137,4 +139,24 @@ def compound_hsmm_params_from_numpy(params, device):
         flat.update(lstm_params_from_numpy(params["encoder"]))
     if "feature_projector" in params:
         flat.update(flow_params_from_numpy(params["feature_projector"]))
+    return tensors(flat, device)
+
+
+def framewise_params_from_numpy(params, device):
+    """The JAX framewise tagger's MLP ({layers: [{w, b}, ...]}) -> an
+    ``nn.MLP`` state dict (``layers.{i}.weight`` (out, in), ...) on
+    `device`."""
+    _check_keys("MLP", params, ("layers",))
+    flat = {}
+    for i, layer in enumerate(params["layers"]):
+        flat.update(_linear(layer, "layers.{}".format(i)))
+    return tensors(flat, device)
+
+
+def sequential_params_from_numpy(params, device):
+    """The JAX BiLSTM tagger ({encoder, proj}) -> a ``SequentialTagger``
+    state dict (``encoder.encoder.*``, ``proj.*``) on `device`."""
+    _check_keys("SequentialTagger", params, ("encoder", "proj"))
+    flat = lstm_params_from_numpy(params["encoder"])
+    flat.update(_linear(params["proj"], "proj"))
     return tensors(flat, device)

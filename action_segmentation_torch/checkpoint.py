@@ -5,9 +5,10 @@ Twin of the JAX package's ``checkpoint.py``:
 
 * ``save_pickle`` / ``load_pickle`` keep the pickle-with-args format the
   command line writes (``--model_output_path``). A model pickles its
-  args, its bookkeeping and its module's weights on the CPU
-  (``SemiMarkovModel.__getstate__``); ``load_pickle(path, device)`` puts
-  it on `device`, the card unless the caller asks for the CPU.
+  args, its bookkeeping and its weights on the CPU
+  (``models/base.DeviceModel``, which every model class extends);
+  ``load_pickle(path, device)`` puts it on `device`, the card unless the
+  caller asks for the CPU.
 * ``save_checkpoint`` / ``latest_step`` / ``load_checkpoint`` /
   ``load_meta`` take the place of the JAX package's orbax checkpoints:
   ``step_<N>.pt`` holds the train state (``torch.save`` of the module's

@@ -1,15 +1,41 @@
 """Levenshtein distance over integer token sequences.
 
 Plain unit-cost edit distance, matching the reference's
-``editdistance.eval``. The sequences are segment label runs (tens of
-tokens), so a numpy row DP is enough.
+``editdistance.eval``. ``eval`` runs the native two-row DP of
+``csrc/editdistance.cpp``, which ``g++`` builds into the package's
+``build/`` directory at first use (``ops/_build.py``); it raises if that
+build or load fails. ``_eval_plain`` is the numpy row DP it is held
+against.
 """
 
+import ctypes
+import functools
+
 import numpy as np
+
+from action_segmentation_torch.ops import _build
+
+_INT64_P = ctypes.POINTER(ctypes.c_int64)
+
+
+@functools.cache
+def _native():
+    fn = _build.load_host_library("editdistance").edit_distance
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [_INT64_P, ctypes.c_int64, _INT64_P, ctypes.c_int64]
+    return fn
 
 
 def eval(a, b):
     """Edit distance between two integer sequences."""
+    fn = _native()
+    a = np.ascontiguousarray(a, np.int64)
+    b = np.ascontiguousarray(b, np.int64)
+    return int(fn(a.ctypes.data_as(_INT64_P), len(a), b.ctypes.data_as(_INT64_P), len(b)))
+
+
+def _eval_plain(a, b):
+    """The numpy row DP: the same distance, a Python loop per cell."""
     a = np.asarray(a, np.int64)
     b = np.asarray(b, np.int64)
     if len(a) == 0:
@@ -21,8 +47,7 @@ def eval(a, b):
         cur = np.empty_like(prev)
         cur[0] = i
         sub = prev[:-1] + (a[i - 1] != b)
-        # running dependency on cur[j-1] forces a scalar loop; arrays here
-        # are short segment sequences so this is cheap
+        # cur[j] depends on cur[j - 1], so the row runs cell by cell
         for j in range(1, len(b) + 1):
             cur[j] = min(sub[j - 1], prev[j] + 1, cur[j - 1] + 1)
         prev = cur

@@ -13,8 +13,8 @@ no device flag, as the JAX package has none):
 
     python -m action_segmentation_torch.main --classifier semimarkov ...
 
-Only ``--classifier semimarkov`` is ported; the baselines' flags are
-accepted and their ``from_args`` raises (ROADMAP.md §1 item 9).
+Every classifier of the JAX package runs: the semi-Markov models and
+the seven baselines (``models/framewise.py``, ``models/sequential.py``).
 """
 
 import argparse

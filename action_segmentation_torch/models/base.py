@@ -12,9 +12,13 @@ port fetches the epoch loss once per epoch and steps the host controller.
 """
 
 import contextlib
+import copy
 import threading
 
+import numpy as np
 import torch
+
+from action_segmentation_torch import resolve_device
 
 
 def add_training_args(parser):
@@ -80,6 +84,25 @@ class ReduceLROnPlateau:
                 self.lr = max(self.lr * self.factor, self.min_lr)
                 self.num_bad = 0
         return self.lr
+
+
+def upload(x, device):
+    """Host array -> tensor on `device`. CUDA copies go through pinned
+    memory without blocking the host, so a decode loop never waits for
+    the card between batches."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def batch_generator(seed, epoch, batch_ix, device):
+    """The generator of one training batch's random draws (a latent's
+    noise, a dropout mask) on `device`, seeded from (--seed, epoch,
+    batch): never a running stream, so a resumed epoch draws what the
+    uninterrupted run drew."""
+    seed = (int(seed or 0) * 1_000_003 + epoch) * 1_000_003 + batch_ix + 1
+    return torch.Generator(device=device).manual_seed(seed % (1 << 63))
 
 
 def make_optimizer(args, params):
@@ -182,3 +205,33 @@ def unpickle_device(device):
 def unpickling_device():
     """The device a model being unpickled goes to (None: the card)."""
     return getattr(_unpickling, "device", None)
+
+
+class DeviceModel(Model):
+    """A model whose weights live on ``self.device``. It pickles its args,
+    its bookkeeping and a CPU copy of every tensor and module it holds,
+    and no device, optimizer or attribute named in ``TRANSIENT``;
+    unpickled, they land on ``unpickling_device()`` (None: the card,
+    which raises when no card is present)."""
+
+    TRANSIENT = ()
+
+    def __getstate__(self):
+        state = {k: v for k, v in self.__dict__.items()
+                 if k != "device" and k not in self.TRANSIENT}
+        args = getattr(self, "args", None)
+        for key, value in state.items():
+            if isinstance(value, torch.nn.Module):
+                # a CPU copy, the live module staying where it is; a module
+                # that holds the model's args shares them, not a copy
+                state[key] = copy.deepcopy(value, {id(args): args}).cpu()
+            elif isinstance(value, torch.Tensor):
+                state[key] = value.detach().cpu()
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.device = resolve_device(unpickling_device())
+        for key, value in state.items():
+            if isinstance(value, (torch.nn.Module, torch.Tensor)):
+                setattr(self, key, value.to(self.device))

@@ -34,7 +34,6 @@ batch streams): they come with later slices (ROADMAP.md §1).
 """
 
 import contextlib
-import copy
 import itertools
 import os
 import time
@@ -47,13 +46,14 @@ from action_segmentation_torch import BIG_NEG, checkpoint, resolve_device
 from action_segmentation_torch.data.batching import iter_batches, pad_class_width
 from action_segmentation_torch.models import flow as nice_flow
 from action_segmentation_torch.models.base import (
-    Model,
+    DeviceModel,
+    batch_generator,
     clip_grads,
     fold_stats,
     make_optimizer,
     mask_grads,
     set_lr,
-    unpickling_device,
+    upload,
 )
 from action_segmentation_torch.ops.distributions import (
     gaussian_emission_log_probs,
@@ -82,16 +82,6 @@ _LATER = "is not ported yet; it comes with a later slice (ROADMAP.md §1)"
 
 # training flags of paths not ported yet; fit refuses them
 _UNPORTED_FIT_FLAGS = ("data_parallel",)
-
-
-def upload(x, device):
-    """Host array -> tensor on `device`. CUDA copies go through pinned
-    memory without blocking the host, so a decode loop never waits for
-    the card between batches."""
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 
 def _constraint_buffers(n_classes, allowed_starts, allowed_transitions, allowed_ends):
@@ -304,7 +294,10 @@ class GaussianHsmm(nn.Module):
             getattr(self, name).copy_(torch.as_tensor(value, dtype=torch.float32))
 
 
-class SemiMarkovModel(Model):
+class SemiMarkovModel(DeviceModel):
+    # pickled without the plateau controller (models/base.DeviceModel)
+    TRANSIENT = ("_scheduler",)
+
     @classmethod
     def add_args(cls, parser):
         parser.add_argument("--sm_max_span_length", type=int, default=20)
@@ -420,23 +413,6 @@ class SemiMarkovModel(Model):
         self.module = module
         self.device = resolve_device(device)
         self.ordered_indices_by_task = ordered_indices_by_task
-
-    # pickling: args, bookkeeping and the module's weights, on the CPU;
-    # no device, optimizer or plateau controller. The unpickler chooses
-    # the device (checkpoint.load_pickle; None: the card)
-    def __getstate__(self):
-        state = dict(self.__dict__)
-        del state["device"]
-        state.pop("_scheduler", None)
-        # a CPU copy: the live module stays where it is; args are shared
-        # with the model, not copied
-        state["module"] = copy.deepcopy(self.module, {id(self.args): self.args}).cpu()
-        return state
-
-    def __setstate__(self, state):
-        self.__dict__.update(state)
-        self.device = resolve_device(unpickling_device())
-        self.module.to(self.device)
 
     # ----- host-side batch preparation -----
 
@@ -818,9 +794,7 @@ class SemiMarkovModel(Model):
         where z sits at its mean)."""
         if use_labels or getattr(self.module, "z_dim", 0) == 0:
             return None
-        seed = int(getattr(self.args, "seed", 0) or 0)
-        seed = (seed * 1_000_003 + epoch) * 1_000_003 + batch_ix + 1
-        return torch.Generator(device=self.device).manual_seed(seed % (1 << 63))
+        return batch_generator(getattr(self.args, "seed", 0), epoch, batch_ix, self.device)
 
     def _finish_epoch(self, epoch, lr, stats, losses, log_rows, num_videos,
                       num_frames, start_time):

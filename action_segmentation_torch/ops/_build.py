@@ -1,11 +1,14 @@
-"""Build and bind the port's CUDA kernels.
+"""Build and bind the port's CUDA kernels and its host library.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with
 a plain C interface, loaded with ``ctypes``. The library lands in the
 package's ``build/`` directory under a name keyed on a hash of the
 source, every shared header (``csrc/*.cuh``) and the compiler flags, so
 the first use after a change to any of them rebuilds it and later uses
-load it. Nothing builds at import time.
+load it. The host C++ sources (``csrc/<name>.cpp``, the edit distance)
+build the same way with ``g++`` (``load_host_library``). A library is
+written to a temporary file and renamed into place, so processes that
+build it at once never load half a file. Nothing builds at import time.
 """
 
 import ctypes
@@ -20,6 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -98,3 +102,37 @@ def load_library(name):
     """The ctypes handle of csrc/<name>.cu, building it first if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def _gxx():
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError(
+            "g++ not found on PATH; it builds the host library sources in {}".format(CSRC)
+        )
+    return found
+
+
+def host_library_path(name):
+    """Content-keyed path of the built library for csrc/<name>.cpp: the
+    key covers the source and the flags."""
+    digest = hashlib.sha256((CSRC / "{}.cpp".format(name)).read_bytes())
+    digest.update(" ".join(GXX_FLAGS).encode())
+    return BUILD / "lib{}-{}.so".format(name, digest.hexdigest()[:16])
+
+
+@functools.cache
+def load_host_library(name):
+    """The ctypes handle of csrc/<name>.cpp, built with g++ first if
+    needed. Raises if the compiler is missing or the build fails."""
+    so = host_library_path(name)
+    if not so.exists():
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name("{}.{}.tmp".format(so.name, os.getpid()))
+        cmd = [_gxx(), *GXX_FLAGS, "-o", str(tmp), str(CSRC / "{}.cpp".format(name))]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("g++ failed for {} (exit {}):\n{}".format(
+                name, proc.returncode, proc.stdout))
+        os.replace(tmp, so)
+    return ctypes.CDLL(str(so))

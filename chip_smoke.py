@@ -92,6 +92,20 @@ exit and no result line:
                decode through K2-max and K3, and its resume bit-equal to
                the uninterrupted fit; each leg's wall time and launches,
                and the phase's;
+  4f. baselines — the seven baselines through main.main on 4c's release:
+               the Gaussian mixture with each --gm_covariance under the S6
+               flags against the same command with device='cpu' (labels
+               equal but at float64 near-ties, stats, the failed fp32
+               Cholesky factors equal on both sides, cuSOLVER's verdicts
+               printed beside them); the linear, 2-hidden-layer and BiLSTM
+               taggers, 2 epochs, pickled and decoded (stats equal),
+               parameters and Adam's moments on the card, the first step's
+               loss (rtol 1e-5) and gradients (rtol 2e-3 / atol 2e-4)
+               against the CPU's; the five host baselines under the JAX
+               fixture's data flags against the CPU (the oracle's MoF 1.0);
+               the mixture on a D=64 Breakfast release; every edit distance
+               the phase computed against the numpy DP; accuracy_corpus
+               native against plain; no kernel may launch;
   5. times   — CUDA-event kernel and plain-version times at the serving
                shape beside the roofline bound, the traceback's also beside
                its serial floor (the longest video's segments x one
@@ -1552,6 +1566,403 @@ def run_u7_slice(device, root, smi):
             "u7_synthetic_losses": syn_losses}
 
 
+# the JAX package's CrossTask fixture's data flags (tests/test_crosstask_pipeline.py):
+# one background class a task, which the canonical and constraint baselines need
+FIXTURE_FLAGS = ("--dataset", "crosstask", "--features", "pca", "--task_specific_steps",
+                 "--mix_tasks")
+GM_COVARIANCES = ("tied_diag", "diag", "full", "tied")
+
+
+@contextlib.contextmanager
+def baseline_recorder(port_main, cls):
+    """Run the command line with pass-through shims on `cls`: test() seeds
+    numpy's global stream at 0 (F1 and the sampled framewise baseline
+    draw from it), and every fit and predict is recorded as (model,
+    [(epoch, train_loss)]) and (model, datasplit, predictions); the
+    optimizers the taggers build are kept. The debug log is held back."""
+    from action_segmentation_torch.models import framewise, sequential
+    from action_segmentation_torch.utils import logger
+
+    test, fit, predict, level = port_main.test, cls.fit, cls.predict, logger.level
+    makers = {mod: mod.make_optimizer for mod in (framewise, sequential)}
+    rec = {"fits": [], "predicts": [], "optimizers": []}
+
+    def seeded_test(*args, **kwargs):
+        np.random.seed(0)
+        return test(*args, **kwargs)
+
+    def recorded_fit(self, train_data, use_labels, callback_fn=None):
+        epochs = []
+        rec["fits"].append((self, epochs))
+
+        def callback(epoch, stats):
+            epochs.append((epoch, stats.get("train_loss")))
+            if callback_fn:
+                callback_fn(epoch, stats)
+        return fit(self, train_data, use_labels, callback_fn=callback)
+
+    def recorded_predict(self, test_data):
+        out = predict(self, test_data)
+        rec["predicts"].append((self, test_data, out))
+        return out
+
+    def recorded_maker(mod):
+        def make(*args, **kwargs):
+            optimizer, scheduler = makers[mod](*args, **kwargs)
+            rec["optimizers"].append(optimizer)
+            return optimizer, scheduler
+        return make
+
+    port_main.test, cls.fit, cls.predict = seeded_test, recorded_fit, recorded_predict
+    for mod in makers:
+        mod.make_optimizer = recorded_maker(mod)
+    logger.setLevel(logging.INFO)
+    try:
+        yield rec
+    finally:
+        port_main.test, cls.fit, cls.predict = test, fit, predict
+        for mod, make in makers.items():
+            mod.make_optimizer = make
+        logger.setLevel(level)
+
+
+def gmm_labels_agree(name, card_calls, cpu_calls):
+    """The Gaussian mixture's labels on the card equal the CPU's except at
+    frames where both picks are within the score tolerance of the
+    float64 best (the CPU model's parameters, cast, with its log priors,
+    over the video's classes). Returns (frames, differing frames)."""
+    import torch
+
+    frames = differ = 0
+    check(len(card_calls) == len(cpu_calls), "{}: {} predicts on the card, {} on the CPU".format(
+        name, len(card_calls), len(cpu_calls)))
+    for (_, data, got), (model, _, want) in zip(card_calls, cpu_calls):
+        check(got.keys() == want.keys(), name + ": predicted videos differ")
+        m64 = type(model)(model.args, model.n_classes, model.feature_dim, device="cpu")
+        m64.means, m64.cov = model.means.double().cpu(), model.cov.double().cpu()
+        for key in data._tasks_and_video_names:
+            a, b = np.asarray(got[key[1]]), np.asarray(want[key[1]])
+            frames += len(b)
+            idx = np.flatnonzero(a != b)
+            if len(idx) == 0:
+                continue
+            differ += len(idx)
+            sample = data[key]
+            lp = m64.log_likelihoods(torch.from_numpy(sample["features"][idx]).double())
+            lp = lp + model.log_priors.double().cpu()
+            valid = np.zeros(lp.shape[1], bool)
+            valid[np.asarray(sample["task_indices"])] = True
+            lp[:, ~valid] = -np.inf
+            best = lp.max(dim=1).values
+            tol = RTOL * best.abs() + ATOL
+            rows = torch.arange(len(idx))
+            for picks in (a[idx], b[idx]):
+                gap = best - lp[rows, torch.from_numpy(picks)]
+                check(bool((gap <= tol).all()), "{}: {} frames of {} differ, float64 gaps {} "
+                      "(tolerance {})".format(name, len(idx), key[1], gap[:8].tolist(),
+                                              tol[:8].tolist()))
+    return frames, differ
+
+
+def module_of(model):
+    """A tagger's nn.Module (the MLP or the BiLSTM tagger)."""
+    import torch
+
+    return next(m for m in vars(model).values() if isinstance(m, torch.nn.Module))
+
+
+def failed_factors(calls, where="host"):
+    """{(model index, class)} whose fp32 Cholesky failed, over the recorded
+    full- or tied-covariance models: factored on the host, as
+    ops.distributions.fullcov_factors does, or (where="device") on the
+    model's device, by cuSOLVER on the card."""
+    from action_segmentation_torch.ops.distributions import cholesky_or_nan
+
+    failed = set()
+    for i, (model, _, _) in enumerate(calls):
+        cov = model.cov.cpu() if where == "host" else model.cov
+        info = cholesky_or_nan(cov)[1].reshape(-1).cpu().numpy()
+        failed |= {(i, int(c)) for c in np.flatnonzero(info)}
+    return failed
+
+
+def run_baselines_slice(root, smi, card=None):
+    """Phase 4f: the seven baselines through main.main on the card (no
+    device; `card` stands in for it in a rehearsal on the CPU), on phase
+    4c's CrossTask release under `root`: (1) the Gaussian mixture with each
+    of the four covariance types under the S6 flags, against the same
+    command with device='cpu'; (2) the framewise tagger (linear and two
+    hidden layers) and the BiLSTM tagger, 2 epochs, pickled, then decoded
+    from the pickles, and their first training step against the CPU's;
+    (3) the host baselines under the JAX fixture's data flags, against
+    the CPU; (4) the Gaussian mixture on a D=64 Breakfast release. Every
+    edit distance the phase's test() calls computed is checked against
+    the numpy DP, accuracy_corpus is timed with each, and no kernel may
+    launch. Returns the e2e record."""
+    import platform
+
+    import torch
+
+    from action_segmentation_torch import checkpoint
+    from action_segmentation_torch import main as port_main
+    from action_segmentation_torch.data import minigen
+    from action_segmentation_torch.data.batching import iter_batches
+    from action_segmentation_torch.evaluation import accuracy, editdistance
+    from action_segmentation_torch.models.framewise import (
+        FramewiseBaseline,
+        FramewiseDiscriminative,
+        FramewiseGaussianMixture,
+    )
+    from action_segmentation_torch.models.sequential import SequentialDiscriminative
+    from action_segmentation_torch.ops import hsmm_cuda as hc
+
+    on_card = card is None or torch.device(card).type == "cuda"
+    kernels = (hc.hsmm_viterbi_scan, hc.hsmm_viterbi_traceback, hc.hsmm_gamma_scan,
+               hc.hsmm_band_max, hc.hsmm_log_scan, hc.hsmm_band_grad, hc.hsmm_forward_scan)
+    for k in kernels:
+        k.launches = 0
+    pairs = set()
+    native_eval = editdistance.eval
+
+    def recording_eval(a, b):
+        pairs.add((tuple(int(x) for x in a), tuple(int(x) for x in b)))
+        return native_eval(a, b)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    legs = {}
+
+    def run(leg, argv, cls, side="card"):
+        """main.main(argv) on the card, or with device='cpu' (`side`), with
+        `cls` recorded; returns (stats, record). Adds the wall time to
+        the leg."""
+        sync()
+        t0 = time.perf_counter()
+        with baseline_recorder(port_main, cls) as rec, \
+                contextlib.redirect_stdout(io.StringIO()):
+            stats = port_main.main(argv, device=card if side == "card" else "cpu")
+        sync()
+        legs.setdefault(leg, {"card_s": 0.0, "cpu_s": 0.0, "runs": 0})
+        legs[leg][side + "_s"] += time.perf_counter() - t0
+        legs[leg]["runs"] += 1
+        return stats, rec
+
+    def leg_line(leg, what):
+        phase("baselines", "{}: {} main.main run(s), {:.3f} s on the card and {:.3f} s on the "
+              "CPU; {}; {}".format(leg, legs[leg]["runs"], legs[leg]["card_s"],
+                                   legs[leg]["cpu_s"], what, smi))
+
+    def mof_of(stats, key="mof"):
+        n = sum(float(s[key][0]) for by in stats.values() for s in by.values())
+        d = sum(float(s[key][1]) for by in stats.values() for s in by.values())
+        return n / d
+
+    s6 = ["--training", "supervised", *S6_FLAGS, "--data_root", root,
+          "--pca_components_per_group", str(CT_DIM_PER_GROUP)]
+    fixture = [*FIXTURE_FLAGS, "--data_root", root, "--pca_components_per_group",
+               str(CT_DIM_PER_GROUP)]
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_baselines_")
+    accuracy.editdistance.eval = recording_eval
+    t_phase = time.perf_counter()
+    try:
+        # 1. the Gaussian mixture, four covariance types, card against CPU
+        for cov in GM_COVARIANCES:
+            argv = ["--classifier", "framewise_gaussian_mixture", "--gm_covariance", cov, *s6]
+            leg = "gmm " + cov
+            got, card_rec = run(leg, argv, FramewiseGaussianMixture)
+            want, cpu_rec = run(leg, argv, FramewiseGaussianMixture, "cpu")
+            what = ""
+            if cov in ("full", "tied"):
+                # the port factors on the host on both sides; cuSOLVER's
+                # verdicts on the card's matrices are read beside them
+                fails = [failed_factors(r["predicts"]) for r in (card_rec, cpu_rec)]
+                solver = failed_factors(card_rec["predicts"], where="device")
+                what = ("factors failed (info != 0) {} on the card's run, {} on the CPU's, "
+                        "of {} factors; cuSOLVER on the card's matrices would fail {} ({} not "
+                        "among the host's, {} of the host's not)".format(
+                            len(fails[0]), len(fails[1]), len(card_rec["predicts"]) * (
+                                card_rec["predicts"][0][0].n_classes if cov == "full" else 1),
+                            len(solver), len(solver - fails[0]), len(fails[0] - solver)))
+                phase("baselines", "{}: {}".format(leg, what))
+                check(fails[0] == fails[1], "{}: the failed factors differ, card only {}, CPU "
+                      "only {}".format(leg, sorted(fails[0] - fails[1])[:8],
+                                       sorted(fails[1] - fails[0])[:8]))
+            frames, differ = gmm_labels_agree(leg, card_rec["predicts"], cpu_rec["predicts"])
+            what = "{} val frames, {} labels differ (each a float64 near-tie){}".format(
+                frames, differ, "; " + what if what else "")
+            if differ == 0:
+                assert_stats_equal(leg, got, want)
+                what += ", stats equal"
+            check(all(m.cov.device.type == ("cuda" if on_card else "cpu")
+                      for m, _, _ in card_rec["predicts"]), leg + ": a model not on the card")
+            leg_line(leg, "MoF {:.4f}; {}".format(mof_of(got), what))
+
+        # 2. the trained taggers, 2 epochs, pickled and decoded from the pickles
+        taggers = (
+            ("framewise linear", FramewiseDiscriminative,
+             ["--classifier", "framewise_discriminative"]),
+            ("framewise 2 hidden", FramewiseDiscriminative,
+             ["--classifier", "framewise_discriminative", "--ff_hidden_layers", "2"]),
+            ("bilstm", SequentialDiscriminative,
+             ["--classifier", "sequential_discriminative", "--seq_hidden_size", "200",
+              "--seq_num_layers", "2"]),
+        )
+        step_errs, first_train = {}, None
+        for leg, cls, flags in taggers:
+            argv = [*flags, *s6, "--epochs", "2"]
+            models = os.path.join(out_dir, leg.replace(" ", "_"))
+            stats, rec = run(leg, argv + ["--model_output_path", models], cls)
+            check(len(rec["fits"]) == len(stats), "{}: {} fits".format(leg, len(rec["fits"])))
+            first, last = [], []
+            for model, epochs in rec["fits"]:
+                check([e for e, _ in epochs] == [0, 1] and all(
+                    math.isfinite(x) for _, x in epochs), "{} epochs {}".format(leg, epochs))
+                first.append(epochs[0][1])
+                last.append(epochs[1][1])
+                check(all(p.is_cuda == on_card for p in module_of(model).parameters()),
+                      leg + ": a parameter off the card")
+            moments = [t for opt in rec["optimizers"] for state in opt.state.values()
+                       for k, t in state.items() if k != "step"]
+            check(moments and all(t.is_cuda == on_card for t in moments),
+                  leg + ": Adam's moments off the card")
+            fell = sum(b < a for a, b in zip(first, last))
+            mean0, mean1 = float(np.mean(first)), float(np.mean(last))
+            check(mean1 < mean0, "{}: mean epoch loss {} -> {} did not fall".format(
+                leg, mean0, mean1))
+            decoded, _ = run(leg, argv + ["--model_input_path", models], cls)
+            assert_stats_equal(leg + " from its pickles", decoded, stats)
+
+            # the first training batch: one step's loss and gradients, card and CPU
+            args = port_main.build_parser().parse_args(argv)
+            if first_train is None:  # the taggers share the S6 data flags
+                with contextlib.redirect_stdout(io.StringIO()):
+                    first_train = next(iter(port_main.make_data_splits(args).values()))[0]
+            train = first_train
+            size = 1 if cls is FramewiseDiscriminative else args.batch_size
+            batch = next(iter(iter_batches(train, batch_size=size, batch_by_task=False,
+                                           shuffle=True, seed=(args.seed or 1))))
+            losses, grads = [], []
+            for device in (card, "cpu"):
+                model = cls.from_args(args, train, device=device)
+                module = module_of(model)
+                loss = model.loss(batch)  # dropout off: the two devices' streams differ
+                loss.backward()
+                losses.append(loss.item())
+                grads.append({k: p.grad.cpu() for k, p in module.named_parameters()})
+            check(abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1]),
+                  "{}: first-step loss {} on the card, {} on the CPU".format(leg, *losses))
+            err = 0.0
+            for k, g in grads[1].items():
+                check(torch.allclose(grads[0][k], g, rtol=GRAD_RTOL, atol=GRAD_ATOL),
+                      "{}: first-step gradient {} differs".format(leg, k))
+                err = max(err, float((grads[0][k] - g).abs().max()))
+            step_errs[leg] = (losses, err)
+            leg_line(leg, "{} models, mean epoch loss {:.4f} -> {:.4f} ({} fell), MoF {:.4f}; "
+                     "decoded from its pickles: stats equal; first step (batch of {}) loss {!r} "
+                     "on the card, {!r} on the CPU, gradients' largest |diff| {:.3g} (rtol "
+                     "2e-3 / atol 2e-4); parameters and Adam's moments on the card".format(
+                         len(first), mean0, mean1, fell, mof_of(stats), len(batch["lengths"]),
+                         losses[0], losses[1], err))
+
+        # 3. the host baselines under the fixture's data flags
+        host = (
+            ("majority class", FramewiseBaseline,
+             ["--classifier", "framewise_baseline", "--framewise_baseline_type",
+              "majority_class"]),
+            ("sampled classes", FramewiseBaseline,
+             ["--classifier", "framewise_baseline", "--framewise_baseline_type",
+              "sample_class_distribution"]),
+            ("canonical", None, ["--classifier", "sequential_canonical_baseline"]),
+            ("constraints", None, ["--classifier", "sequential_predict_constraints"]),
+            ("oracle", None, ["--classifier", "sequential_ground_truth"]),
+        )
+        host_mof = {}
+        for leg, cls, flags in host:
+            cls = cls or port_main.CLASSIFIERS[flags[1]]
+            argv = [*flags, *fixture]
+            got, _ = run(leg, argv, cls)
+            want, _ = run(leg, argv, cls, "cpu")
+            assert_stats_equal(leg, got, want)
+            host_mof[leg] = (mof_of(got), mof_of(got, "mof_non_bg"))
+            leg_line(leg, "stats equal to the CPU's, MoF {:.4f}, non-background MoF {:.4f}".format(
+                *host_mof[leg]))
+        check(host_mof["oracle"][0] == 1.0, "oracle MoF {}".format(host_mof["oracle"][0]))
+
+        # 4. Breakfast at the fisher vectors' width
+        bf_root = os.path.join(out_dir, "bf")
+        minigen.write_mini_breakfast(bf_root, np.random.RandomState(0), dim=64)
+        bf = ["--classifier", "framewise_gaussian_mixture", "--dataset", "breakfast",
+              "--features", "raw", "--data_root", bf_root, "--epochs", "1"]
+        bf_got, _ = run("breakfast", bf, FramewiseGaussianMixture)
+        bf_want, _ = run("breakfast", bf, FramewiseGaussianMixture, "cpu")
+        assert_stats_equal("breakfast", bf_got, bf_want)
+        check(sorted(bf_got) == ["s1", "s2", "s3", "s4"], "breakfast splits")
+        leg_line("breakfast", "{} held-out splits, MoF {:.4f}, stats equal to the CPU's".format(
+            len(bf_got), mof_of(bf_got)))
+    finally:
+        accuracy.editdistance.eval = native_eval
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # every edit distance the phase computed, native against the numpy DP
+    t0 = time.perf_counter()
+    bad = [(a, b) for a, b in pairs if native_eval(a, b) != editdistance._eval_plain(a, b)]
+    check(not bad, "native edit distance differs from the numpy DP on {} of {} pairs".format(
+        len(bad), len(pairs)))
+    longest = max(max(len(a), len(b)) for a, b in pairs)
+    phase("baselines", "edit distance: {} distinct (gt, predicted) segment sequences from the "
+          "phase's test() calls, native == numpy DP on all (the longest {} segments; checked "
+          "in {:.3f} s)".format(len(pairs), longest, time.perf_counter() - t0))
+
+    # accuracy_corpus on one split, native against the numpy DP, in turns
+    args = port_main.build_parser().parse_args(
+        ["--classifier", "framewise_gaussian_mixture", *fixture])
+    with contextlib.redirect_stdout(io.StringIO()):
+        train, _, val = next(iter(port_main.make_data_splits(args).values()))
+    model = FramewiseGaussianMixture.from_args(args, train, device=card)
+    model.fit(train, use_labels=True)
+    preds = model.predict(val)
+    times = {"native": [], "plain": []}
+    results = {}
+    for kind in ("plain", "native", "native", "plain"):
+        accuracy.editdistance.eval = native_eval if kind == "native" else \
+            editdistance._eval_plain
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                results[kind] = val.accuracy_corpus(False, lambda v: preds[v.name],
+                                                    prefix="val", verbose=False)
+        finally:
+            accuracy.editdistance.eval = native_eval
+        times[kind].append(time.perf_counter() - t0)
+    assert_stats_equal("accuracy_corpus native vs plain", {"val": results["native"]},
+                       {"val": results["plain"]})
+    cpu_name = platform.processor() or platform.machine()
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            names = [l.split(":", 1)[1].strip() for l in f if l.startswith("model name")]
+        cpu_name = "{} ({} logical CPUs)".format(names[0] if names else cpu_name, len(names))
+    n_segments = sum(len(a) + len(b) for a, b in pairs)
+    phase("baselines", "accuracy_corpus over {} val videos (the mixed split, the tied-diagonal "
+          "mixture's labels): {:.4f} s with the native edit distance, {:.4f} s with the numpy "
+          "DP (each the mean of two runs in turns, plain/native/native/plain; equal stats); "
+          "host {}".format(len(preds), float(np.mean(times["native"])),
+                           float(np.mean(times["plain"])), cpu_name))
+
+    launches = {k.__name__: k.launches for k in kernels}
+    check(not any(launches.values()), "a baseline launched an HSMM kernel: {}".format(launches))
+    phase_s = time.perf_counter() - t_phase
+    phase("baselines", "kernel launches over the phase {} (all 0); phase 4f: {:.3f} s".format(
+        launches, phase_s))
+    return {"baseline_legs": legs, "baseline_launches": launches, "baseline_phase_s": phase_s,
+            "baseline_step": step_errs, "baseline_host_mof": host_mof,
+            "editdistance_pairs": len(pairs), "editdistance_segments": n_segments,
+            "accuracy_corpus_native_s": float(np.mean(times["native"])),
+            "accuracy_corpus_plain_s": float(np.mean(times["plain"])), "host_cpu": cpu_name}
+
+
 def cuda_ms(fn, n, warmup=3):
     import torch
 
@@ -1796,6 +2207,7 @@ def main():
         ct_e2e, ct_launches, ct_tb_in, ct_bg_in, ct_stats = run_crosstask_slice(device, root)
         e2e.update(run_cli_slice(root, ct_stats, smi))
         e2e.update(run_u7_slice(device, root, smi))
+        e2e.update(run_baselines_slice(root, smi))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     e2e.update(train_e2e)
@@ -2030,6 +2442,9 @@ def main():
         # counters before each leg and reads them after)
         k["cli_launches"] = e2e["cli_launches"][k["name"]]
         k["u7_launches"] = e2e["u7_launches"][k["name"]]
+        # phase 4f's: no baseline reaches the HSMM chain
+        k["baseline_launches"] = e2e["baseline_launches"][k["name"]]
+        check(k["baseline_launches"] == 0, "{} launched by a baseline".format(k["name"]))
         check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
         check(k["launches"] > 0, "{} was not launched on its path".format(k["name"]))
     phase("times", "serving shape B={} T={} C={} K={}; {} launches of each kernel; "

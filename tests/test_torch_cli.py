@@ -8,8 +8,9 @@ default per-task loop and the cross-validation split; stats equal,
 numerators and denominators, since every decoded label is equal here),
 the model round trip, the prediction files (the same bytes), the
 comparison folder in its three layouts, ``pca_and_serialize_features``
-(rtol 1e-5), ``path_logger``, a ``--profile_dir`` trace, and the
-baseline classifiers, which raise until they are ported.
+(rtol 1e-5), ``path_logger``, a ``--profile_dir`` trace, and each
+baseline classifier fitting on the CPU (``test_torch_baselines.py``
+holds them against the JAX package).
 """
 
 import functools
@@ -96,11 +97,24 @@ def test_parser_defaults_match_jax(classifier):
 
 
 @pytest.mark.parametrize("classifier", sorted(set(jmain.CLASSIFIERS) - {"semimarkov"}))
-def test_baseline_classifiers_raise(classifier):
-    args = tmain.build_parser().parse_args(["--classifier", classifier])
-    train = TSplit(num_videos=2, n_classes=3, max_len=10, span_k=3)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmain.CLASSIFIERS[classifier].from_args(args, train, device=CPU)
+def test_baseline_classifier_fits_on_cpu(full_crosstask, classifier):
+    """Each baseline builds on the CPU from the command line's args, fits
+    one epoch and labels every test video within its task's classes."""
+    argv = _argv(full_crosstask, ["--mix_tasks", "--framewise_baseline_type", "majority_class",
+                                  "--seq_hidden_size", "8", "--seq_num_layers", "1"])
+    argv[argv.index("semimarkov")] = classifier
+    args = tmain.build_parser().parse_args(argv)
+    train, _, test = next(iter(tmain.make_data_splits(args).values()))
+    model = tmain.CLASSIFIERS[classifier].from_args(args, train, device=CPU)
+    assert model.device == CPU
+    model.fit(train, use_labels=True)
+    predictions = model.predict(test)
+    assert sorted(predictions) == sorted(n for _, n in test._tasks_and_video_names)
+    for task, name in test._tasks_and_video_names:
+        sample = test[(task, name)]
+        pred = np.asarray(predictions[name])
+        assert pred.shape == sample["gt_single"].shape, name
+        assert np.isin(pred, sample["task_indices"]).all(), name
 
 
 def test_model_parallel_raises():

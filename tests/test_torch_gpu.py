@@ -1,4 +1,4 @@
-"""The kernels against their plain versions, on the card.
+"""The kernels against their plain versions, and the baselines, on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports neither JAX nor the JAX package, so it runs where JAX is absent:
@@ -624,6 +624,113 @@ def test_card_pickle_loads_on_either_device(cuda, tmp_path):
     for seg in (Segmenter(on_card), Segmenter.load(path, device="cpu")):
         for got, w in zip(seg.segment_many(feats), want):
             np.testing.assert_array_equal(got, w)
+
+
+# ---- the baselines: fp32 emissions, Cholesky and GEMMs on the card ----------
+
+
+def _gaussian_stats(rng, D=64, C=6, few=8):
+    """Moments of a labelled corpus at scale 10: class C - 1 has `few` < D
+    frames, so its fp32 full covariance is not positive definite."""
+    from action_segmentation_torch.ops.stats import semimarkov_sufficient_stats
+
+    feats = [(10 * rng.randn(200, D) + 5).astype(np.float32) for _ in range(3)]
+    labels = [rng.randint(0, C - 1, 200) for _ in range(3)]
+    labels[2][:few] = C - 1
+    return {kind: semimarkov_sufficient_stats(feats, labels, C, covariance_type=kind)
+            for kind in ("tied_diag", "full", "tied")}
+
+
+@pytest.mark.parametrize("kind", ["diag", "tied", "full"])
+def test_baseline_emissions_on_the_card(cuda, kind):
+    """The per-class diagonal and the full-covariance emissions (cuSOLVER's
+    Cholesky, the triangular solve and the GEMMs) on the card against the
+    CPU at rtol 1e-5 / atol 1e-4, NaN columns in the same places (the
+    few-frame class's failed factor) and equal argmax labels."""
+    from action_segmentation_torch.ops import distributions as td
+
+    rng = np.random.RandomState(0)
+    stats = _gaussian_stats(rng)
+    key = {"diag": ("tied_diag", "gaussian_cov_diag"), "tied": ("tied", "gaussian_cov_tied"),
+           "full": ("full", "gaussian_cov_full")}[kind]
+    means, cov = stats[key[0]]["gaussian_means"], stats[key[0]][key[1]]
+    fn = (td.gaussian_emission_log_probs_diag if kind == "diag"
+          else td.gaussian_emission_log_probs_fullcov)
+    x = (10 * rng.randn(2, 300, means.shape[1]) + 5).astype(np.float32)
+    out = [fn(*(torch.from_numpy(a).to(dev) for a in (x, means, cov))).cpu()
+           for dev in ("cpu", cuda)]
+    nan = [torch.isnan(o) for o in out]
+    assert torch.equal(nan[0], nan[1])
+    if kind == "full":
+        failed = [td.cholesky_or_nan(torch.from_numpy(cov).to(d))[1].cpu() for d in ("cpu", cuda)]
+        assert torch.equal(failed[0] != 0, failed[1] != 0) and bool(failed[0][-1])
+        assert nan[0][..., -1].all()
+    torch.testing.assert_close(out[1][~nan[1]], out[0][~nan[0]], rtol=RTOL, atol=ATOL)
+    assert torch.equal(out[0].argmax(-1), out[1].argmax(-1))
+
+
+def _baseline_args(**overrides):
+    import argparse
+
+    from action_segmentation_torch.models.base import add_training_args
+    from action_segmentation_torch.models.framewise import (
+        FramewiseDiscriminative,
+        FramewiseGaussianMixture,
+    )
+    from action_segmentation_torch.models.sequential import SequentialDiscriminative
+
+    parser = argparse.ArgumentParser()
+    for cls in (FramewiseDiscriminative, FramewiseGaussianMixture, SequentialDiscriminative):
+        cls.add_args(parser)
+    add_training_args(parser)
+    parser.add_argument("--batch_size", type=int, default=4)
+    args = parser.parse_args([])
+    for k, v in overrides.items():
+        setattr(args, k, v)
+    return args
+
+
+def test_taggers_live_on_the_card(cuda):
+    """Both taggers' parameters are on the card after from_args, and one
+    epoch keeps them and Adam's state there."""
+    from action_segmentation_torch.data.synthetic import SyntheticDatasplit
+    from action_segmentation_torch.models.framewise import FramewiseDiscriminative
+    from action_segmentation_torch.models.sequential import SequentialDiscriminative
+
+    train = SyntheticDatasplit(num_videos=4, n_classes=3, max_len=20, span_k=4, seed=0)
+    args = _baseline_args(epochs=1, ff_hidden_layers=1, seq_hidden_size=8)
+    for cls, attr in ((FramewiseDiscriminative, "mlp"), (SequentialDiscriminative, "tagger")):
+        model = cls.from_args(args, train)
+        assert model.device.type == "cuda"
+        params = list(getattr(model, attr).parameters())
+        assert params and all(p.is_cuda for p in params)
+        model.fit(train, use_labels=True)
+        assert all(p.is_cuda for p in getattr(model, attr).parameters())
+        preds = model.predict(train)
+        assert len(preds) == 4
+
+
+def test_baseline_pickle_loads_on_either_device(cuda, tmp_path):
+    """A Gaussian mixture fitted on the card pickles onto the CPU (no
+    device); checkpoint.load_pickle puts it on the card by default and
+    on the CPU when asked, and all three predict equal labels."""
+    from action_segmentation_torch import checkpoint
+    from action_segmentation_torch.data.synthetic import SyntheticDatasplit
+    from action_segmentation_torch.models.framewise import FramewiseGaussianMixture
+
+    train = SyntheticDatasplit(num_videos=10, n_classes=3, max_len=30, span_k=4, seed=0)
+    model = FramewiseGaussianMixture.from_args(_baseline_args(gm_covariance="full"), train)
+    model.fit(train, use_labels=True)
+    assert model.cov.is_cuda
+    path = str(tmp_path / "gmm.pkl")
+    checkpoint.save_pickle(model, path)
+    on_card, on_cpu = checkpoint.load_pickle(path), checkpoint.load_pickle(path, device="cpu")
+    assert on_card.cov.is_cuda and on_cpu.cov.device.type == "cpu"
+    assert torch.equal(on_cpu.cov, model.cov.cpu()) and torch.equal(on_card.cov, model.cov)
+    want = model.predict(train)
+    for loaded in (on_card, on_cpu):
+        got = loaded.predict(train)
+        assert all(np.array_equal(got[k], want[k]) for k in want)
 
 
 # ---- the scan template's instances (csrc/hsmm_scan_core.cuh) ----------------

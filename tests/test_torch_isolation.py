@@ -66,9 +66,11 @@ def test_port_has_files():
     names = {p.name for p in PORT_FILES}
     assert {"hsmm_cuda.py", "hsmm_grad.py", "semimarkov.py", "api.py", "chip_smoke.py",
             "corpus.py", "crosstask.py", "breakfast.py", "minigen.py", "features.py",
-            "batching.py", "f1.py", "main.py"} <= names
-    sources = {p.name for p in (ROOT / "action_segmentation_torch" / "csrc").glob("*.cu")}
-    assert {"hsmm_scan.cu", "band_max.cu", "band_grad.cu", "hsmm_viterbi.cu"} <= sources
+            "batching.py", "f1.py", "main.py", "framewise.py", "sequential.py",
+            "editdistance.py", "stats.py", "distributions.py"} <= names
+    sources = {p.name for p in (ROOT / "action_segmentation_torch" / "csrc").glob("*.c*")}
+    assert {"hsmm_scan.cu", "band_max.cu", "band_grad.cu", "hsmm_viterbi.cu",
+            "editdistance.cpp"} <= sources
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -86,6 +88,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     model = SemiMarkovModel.from_args(args, train, device="cpu")
     assert model.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("classifier", ["framewise_discriminative",
+                                        "framewise_gaussian_mixture", "framewise_baseline",
+                                        "sequential_discriminative", "sequential_ground_truth"])
+def test_baselines_raise_without_cuda(monkeypatch, classifier):
+    """The baselines' entry point is the card too; device='cpu' runs them
+    on the CPU. (The canonical and constraint baselines need a CrossTask
+    split; test_torch_baselines.py covers their pickles' loads.)"""
+    from action_segmentation_torch import main as tmain
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    train = SyntheticDatasplit(num_videos=2, n_classes=3, max_len=10, span_k=3)
+    args = tmain.build_parser().parse_args(["--classifier", classifier])
+    cls = tmain.CLASSIFIERS[classifier]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls.from_args(args, train)
+    assert cls.from_args(args, train, device="cpu").device == torch.device("cpu")
 
 
 def test_precision_pins():
