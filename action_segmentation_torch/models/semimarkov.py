@@ -14,8 +14,13 @@ Twin of ``action_segmentation_tpu/models/semimarkov.py``:
   per-video end masks included), fits it (closed form, gradient-based
   supervised, generative or discriminative, closed form then gradient,
   or unsupervised by the marginal likelihood, with the flow's log-det
-  and the latent's KL) and decodes it, streaming batches to the device
-  with every label tensor kept there until one stacked copy at the end.
+  and the latent's KL) and decodes it, with every label tensor kept on
+  the device until one stacked copy at the end. Within
+  --sm_device_resident_mb a split goes to the device once
+  (``data/resident.py``, cached per split) and each batch is gathered
+  there by row index; a split over the budget, with narration on some
+  videos only, or a fit with --batch_accumulation above 1 streams its
+  batches from the host instead. Both give the same tensors a batch.
 
 The chains follow ``hsmm_cuda.kernel_path``. Decode takes the labels
 kernels (K2-max and K3) for a model of <= 128 classes and the exact-spans
@@ -29,14 +34,15 @@ epoch with ``torch.profiler`` (--profile_dir); a model pickles onto the
 CPU and unpickles onto the device its loader asks for.
 ``semimarkov_from_reference_state_dict`` builds a model from a
 reference-trained state dict. Data parallelism raises
-``NotImplementedError``, and the resident corpus is not ported (every
-batch streams): they come with later slices (ROADMAP.md §1).
+``NotImplementedError``: it comes with a later slice (ROADMAP.md §1).
 """
 
 import contextlib
 import itertools
 import os
 import time
+import weakref
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -44,6 +50,10 @@ from torch import nn
 
 from action_segmentation_torch import BIG_NEG, checkpoint, resolve_device
 from action_segmentation_torch.data.batching import iter_batches, pad_class_width
+from action_segmentation_torch.data.resident import (
+    build_resident_corpus,
+    gather_resident_rows,
+)
 from action_segmentation_torch.models import flow as nice_flow
 from action_segmentation_torch.models.base import (
     DeviceModel,
@@ -294,9 +304,14 @@ class GaussianHsmm(nn.Module):
             getattr(self, name).copy_(torch.as_tensor(value, dtype=torch.float32))
 
 
+# the resident corpora a model keeps at most (least recently used out first)
+RESIDENT_LRU = 4
+
+
 class SemiMarkovModel(DeviceModel):
-    # pickled without the plateau controller (models/base.DeviceModel)
-    TRANSIENT = ("_scheduler",)
+    # pickled without the plateau controller and the resident corpora
+    # (models/base.DeviceModel)
+    TRANSIENT = ("_scheduler", "_resident_cache", "_resident_pins", "_resident_failed")
 
     @classmethod
     def add_args(cls, parser):
@@ -313,10 +328,10 @@ class SemiMarkovModel(DeviceModel):
             "--sm_device_resident_mb",
             type=int,
             default=1024,
-            help="HBM budget (MB) for a device-resident datasplit in the JAX "
-            "package; the port streams every batch (the resident corpus is "
-            "not ported yet, ROADMAP.md §1 item 11), with the same batches "
-            "and results",
+            help="device memory budget (MB) shared by the datasplits kept on "
+            "the device, each uploaded once and batched there by row index; "
+            "a split over it streams its batches from the host (the same "
+            "batches and results); 0 streams every split",
         )
         parser.add_argument("--sm_supervised_state_smoothing", type=float, default=1e-2)
         parser.add_argument("--sm_supervised_length_smoothing", type=float, default=1e-1)
@@ -514,6 +529,86 @@ class SemiMarkovModel(DeviceModel):
         gt = None if gt is None else padz(gt)
         return padz(features), lengths, gt, padz(cons), padz(end_allowed), weights
 
+    # ----- the resident corpus -----
+
+    def _resident_key(self, datasplit, use_narration):
+        """Cache key: the datasplit's identity and every argument the built
+        tensors bake in (the narration weight, the class bucket, the
+        allowed ends), so a fit after changing one of them rebuilds."""
+        ends = self.module.allowed_ends
+        return (
+            id(datasplit),
+            bool(use_narration),
+            (
+                float(getattr(self.args, "sm_constrain_narration_weight", 1.0))
+                if use_narration
+                else None
+            ),
+            int(getattr(self.args, "sm_class_shape_bucket", 1) or 1),
+            None if ends is None else tuple(sorted(ends)),
+        )
+
+    def _get_resident(self, datasplit, use_narration):
+        """The resident corpus of `datasplit` (data/resident.py), or None
+        where the split streams: --sm_device_resident_mb 0, over the
+        budget, narration on some videos only, or an empty split.
+
+        An entry keeps its datasplit alive while its id() keys the cache,
+        which holds at most RESIDENT_LRU splits, least recently used out
+        first but never a pinned one (a running fit's). The budget bounds
+        the live entries together: eviction runs before the budget left is
+        reckoned. A build that failed only because other entries hold the
+        budget is not cached; a watermark (the budget left then, with a
+        weak reference to its split, since an id() may be reused) keeps
+        the split from being read again until more is free. Errors raise."""
+        budget = getattr(self.args, "sm_device_resident_mb", 0) or 0
+        if budget <= 0:
+            logger.debug("resident corpus: --sm_device_resident_mb {}; streaming".format(budget))
+            return None
+        if not hasattr(self, "_resident_cache"):
+            self._resident_cache = OrderedDict()
+            self._resident_pins = set()
+            self._resident_failed = {}
+        key = self._resident_key(datasplit, use_narration)
+        if key in self._resident_cache:
+            self._resident_cache.move_to_end(key)
+            return self._resident_cache[key][1]
+        for old in list(self._resident_cache):
+            if len(self._resident_cache) < RESIDENT_LRU:
+                break
+            if old not in self._resident_pins:
+                self._resident_cache.pop(old)
+        held = sum(res.nbytes for _, res in self._resident_cache.values() if res is not None)
+        remaining_mb = budget - held / float(1 << 20)
+        failed = self._resident_failed.get(key)
+        if failed is not None:
+            ref, failed_at = failed
+            if ref() is not datasplit:
+                # a dead or another referent: the mark was some other split's
+                self._resident_failed.pop(key, None)
+            elif remaining_mb <= failed_at:
+                logger.debug("resident corpus: still over the {:.1f} MB left; "
+                             "streaming".format(remaining_mb))
+                return None
+        reason = {}
+        built = build_resident_corpus(
+            self, datasplit, use_narration, remaining_mb, reason_out=reason
+        )
+        if built is None and reason.get("why") == "budget" and remaining_mb < budget:
+            self._resident_failed[key] = (weakref.ref(datasplit), remaining_mb)
+            return None
+        self._resident_failed.pop(key, None)
+        self._resident_cache[key] = (datasplit, built)
+        return built
+
+    def _pin_resident(self, datasplit, use_narration):
+        if hasattr(self, "_resident_pins"):
+            self._resident_pins.add(self._resident_key(datasplit, use_narration))
+
+    def _unpin_resident(self, datasplit, use_narration):
+        if hasattr(self, "_resident_pins"):
+            self._resident_pins.discard(self._resident_key(datasplit, use_narration))
+
     # ----- decode -----
 
     @torch.no_grad()
@@ -634,7 +729,12 @@ class SemiMarkovModel(DeviceModel):
         --resume restores the latest one (params, Adam's moments, the
         plateau controller) and starts at the epoch after it, whose
         batches are those the uninterrupted run had. --profile_dir
-        traces the first epoch run with ``torch.profiler``."""
+        traces the first epoch run with ``torch.profiler``.
+
+        Without --batch_accumulation the batches come from the split's
+        resident corpus where it has one (``_get_resident``): the same
+        batches in the same order, gathered on the device, pinned in the
+        cache while the epochs run."""
         args = self.args
         for flag in _UNPORTED_FIT_FLAGS:
             if getattr(args, flag, None):
@@ -662,6 +762,12 @@ class SemiMarkovModel(DeviceModel):
         # exposed for tests (resume restores its lr, best and num_bad)
         self._scheduler = scheduler
         lr = args.lr
+        resident = None
+        if args.batch_accumulation > 1:
+            logger.debug("resident corpus: --batch_accumulation {}; streaming".format(
+                args.batch_accumulation))
+        else:
+            resident = self._get_resident(train_data, use_narration)
         start_epoch = 0
         ckpt_dir = getattr(args, "checkpoint_dir", None)
         if ckpt_dir and getattr(args, "resume", False):
@@ -672,26 +778,34 @@ class SemiMarkovModel(DeviceModel):
                 logger.debug("resumed from {} at epoch {} (lr {})".format(
                     ckpt_dir, start_epoch, lr))
         profile_dir = getattr(args, "profile_dir", None)
-        for epoch in range(start_epoch, args.epochs):
-            with self._profiled(profile_dir if epoch == start_epoch else None, epoch):
-                epoch_stats = self._train_epoch(
-                    train_data, epoch, optimizer, named, lr, use_labels, use_narration
-                )
-            new_lr = lr
-            if scheduler is not None:
-                new_lr = scheduler.step(epoch_stats["train_loss"])
-            if ckpt_dir and epoch % getattr(args, "checkpoint_every", 5) == 0:
-                # the rate this epoch ran at, and the plateau controller's
-                # post-step state, which governs the next epoch
-                checkpoint.save_checkpoint(
-                    {"params": self.module.state_dict(), "opt_state": optimizer.state_dict()},
-                    args, epoch, ckpt_dir, lr=lr,
-                    sched_state=None if scheduler is None else vars(scheduler),
-                )
-            lr = new_lr
-            set_lr(optimizer, lr)
-            if callback_fn:
-                callback_fn(epoch, epoch_stats)
+        if resident is not None:
+            # held for the whole fit: an eviction would count its memory free
+            self._pin_resident(train_data, use_narration)
+        try:
+            for epoch in range(start_epoch, args.epochs):
+                with self._profiled(profile_dir if epoch == start_epoch else None, epoch):
+                    epoch_stats = self._train_epoch(
+                        train_data, epoch, optimizer, named, lr, use_labels, use_narration,
+                        resident,
+                    )
+                new_lr = lr
+                if scheduler is not None:
+                    new_lr = scheduler.step(epoch_stats["train_loss"])
+                if ckpt_dir and epoch % getattr(args, "checkpoint_every", 5) == 0:
+                    # the rate this epoch ran at, and the plateau controller's
+                    # post-step state, which governs the next epoch
+                    checkpoint.save_checkpoint(
+                        {"params": self.module.state_dict(),
+                         "opt_state": optimizer.state_dict()},
+                        args, epoch, ckpt_dir, lr=lr,
+                        sched_state=None if scheduler is None else vars(scheduler),
+                    )
+                lr = new_lr
+                set_lr(optimizer, lr)
+                if callback_fn:
+                    callback_fn(epoch, epoch_stats)
+        finally:
+            self._unpin_resident(train_data, use_narration)
 
     def _restore(self, ckpt_dir, step, optimizer, scheduler, lr):
         """Load the train state of checkpoint `step` into the module, the
@@ -735,33 +849,31 @@ class SemiMarkovModel(DeviceModel):
         logger.debug("wrote a profiler trace of epoch {} to {}".format(epoch, path))
 
     def _train_epoch(self, train_data, epoch, optimizer, named, lr, use_labels,
-                     use_narration):
-        """One epoch of Adam steps at rate `lr`; returns the callback stats."""
+                     use_narration, resident=None):
+        """One epoch of Adam steps at rate `lr`, its batches streamed from
+        `train_data` or gathered from its `resident` corpus; returns the
+        callback stats."""
         args = self.args
         params = [p for _, p in named]
         trainable = self.module.trainable_mask
         window = max(1, args.batch_accumulation)
-        seed = getattr(args, "seed", 1) or 1
+        seed = (getattr(args, "seed", 1) or 1) + epoch
         start_time = time.time()
         num_frames = num_videos = 0
         stats = torch.zeros(5, device=self.device)
         losses, log_rows = [], []
         pending = 0
         optimizer.zero_grad(set_to_none=True)
-        batches = iter_batches(
-            train_data, batch_size=args.batch_size, batch_by_task=True,
-            shuffle=True, seed=seed + epoch,
-        )
-        if args.train_limit:
-            batches = itertools.islice(batches, args.train_limit)
-        for batch_ix, batch in enumerate(batches):
-            B = len(batch["lengths"])
+        if resident is None:
+            batches = self._streamed_batches(train_data, seed, use_narration)
+        else:
+            batches = self._resident_batches(resident, seed)
+        for batch_ix, B, frames, batch in batches:
             num_videos += B
-            num_frames += int(batch["lengths"].sum())
+            num_frames += frames
             loss, aux = self._loss(
-                *self._training_batch(batch, train_data, use_narration),
-                use_labels=use_labels, generator=self._noise_generator(epoch, batch_ix,
-                                                                        use_labels),
+                *batch, use_labels=use_labels,
+                generator=self._noise_generator(epoch, batch_ix, use_labels),
             )
             loss.backward()
             stats = fold_stats(stats, loss.detach(), aux, float(B))
@@ -785,6 +897,29 @@ class SemiMarkovModel(DeviceModel):
         return self._finish_epoch(
             epoch, lr, stats, losses, log_rows, num_videos, num_frames, start_time
         )
+
+    def _streamed_batches(self, train_data, seed, use_narration):
+        """(batch index, videos, frames, _training_batch's tensors) of the
+        batches of iter_batches(shuffle=True, seed), at most --train_limit."""
+        batches = iter_batches(
+            train_data, batch_size=self.args.batch_size, batch_by_task=True,
+            shuffle=True, seed=seed,
+        )
+        if self.args.train_limit:
+            batches = itertools.islice(batches, self.args.train_limit)
+        for batch_ix, batch in enumerate(batches):
+            yield (batch_ix, len(batch["lengths"]), int(batch["lengths"].sum()),
+                   self._training_batch(batch, train_data, use_narration))
+
+    def _resident_batches(self, resident, seed):
+        """The same batches as ``_streamed_batches``, in the same order,
+        gathered from the resident corpus: the plan's matrices go to the
+        device in one copy; no batch copies or waits."""
+        plan = resident.make_plan(self.args.batch_size, shuffle=True, seed=seed,
+                                  limit=self.args.train_limit, global_order=True)
+        table = resident.upload_plan(plan)
+        for b in plan.batches():
+            yield b.bix, b.size, b.frames, gather_resident_rows(resident, table, b)
 
     def _noise_generator(self, epoch, batch_ix, use_labels):
         """The generator of one training batch's latent noise, on the
@@ -830,7 +965,13 @@ class SemiMarkovModel(DeviceModel):
         }
 
     def predict(self, test_data):
+        """{video name: labels} of every video of `test_data`, decoded in
+        length-sorted batches of --batch_size, from the split's resident
+        corpus where it has one (``_get_resident``), else streamed."""
         use_narration = "test" in getattr(self.args, "sm_constrain_with_narration", [])
+        resident = self._get_resident(test_data, use_narration)
+        if resident is not None:
+            return self._predict_resident(resident)
         drain = DeferredLabelDrain()
         for batch in iter_batches(
             test_data,
@@ -854,7 +995,28 @@ class SemiMarkovModel(DeviceModel):
                 features, lengths, upload(vc, self.device), cons, end_allowed
             )
             drain.add((batch["video_name"], batch["lengths"]), labels, n_rows=B)
+        return self._drained_predictions(drain)
 
+    def _predict_resident(self, resident):
+        """predict's batches gathered from the resident corpus: the plan
+        (sort_by_length, the streaming batches) goes to the device in one
+        copy, every batch decodes through ``_decode`` in the streaming
+        order, and the labels come back in one copy."""
+        plan = resident.make_plan(self.args.batch_size, shuffle=False, seed=1,
+                                  sort_by_length=True)
+        table = resident.upload_plan(plan)
+        drain = DeferredLabelDrain()
+        for b in plan.batches():
+            features, lengths, vc, _, _, cons, end_allowed, _ = gather_resident_rows(
+                resident, table, b, with_gt=False)
+            labels, _ = self._decode(features, lengths, vc, cons, end_allowed)
+            rows = [resident.row_of[key] for key in b.keys]
+            drain.add(([name for _, name in b.keys], resident.host_len[rows]), labels,
+                      n_rows=b.size)
+        return self._drained_predictions(drain)
+
+    def _drained_predictions(self, drain):
+        """{video name: labels over its length} from the drain's one copy."""
         predictions = {}
         for (names, lengths_np), all_labels in drain.drain():
             for i, video in enumerate(names):

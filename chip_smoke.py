@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's decode, training and exact-spans paths,
-its command line and its compound model on one card and check them.
+its command line, its compound model, its baselines and its resident
+corpus on one card and check them.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -106,6 +107,27 @@ exit and no result line:
                the mixture on a D=64 Breakfast release; every edit distance
                the phase computed against the numpy DP; accuracy_corpus
                native against plain; no kernel may launch;
+  4g. resident — the resident corpus on 4c's release. Step 0: the
+               streaming path (--sm_device_resident_mb 0), its host time a
+               batch split by time.perf_counter into the datasplit reads,
+               collation and padding, _batch_device_args and upload, and the
+               card's busy share (the kernels' time from a torch.profiler
+               rerun over the unprofiled wall time), for predict of the 18 S6
+               models over val, the constrained fit, one --mix_tasks
+               command-line epoch and the U7 fit on the --mix_tasks train
+               split; then the same cases resident. (a) The constrained and U7
+               fits, resident against streaming: epoch losses and parameters
+               bit for bit, K2-log and K4 once a training batch; (b) predict:
+               labels equal on every val frame, K6 and its traceback once a
+               batch; (c) a resident --mix_tasks main.main run --epochs 2,
+               then --epochs 3 --resume, against an uninterrupted --epochs 3
+               (the resumed epoch's loss and parameters bit for bit); (d)
+               --sm_device_resident_mb 1 streams and gives (c)'s first run's
+               losses and stats; (e) the profiled resident U7 fit copies its
+               corpus to the card once and, after it, no batch (no copy the
+               size of a batch's features, fewer copies than batches); (f)
+               streaming against resident: wall time, frames/s, busy share,
+               the builds' time and bytes;
   5. times   — CUDA-event kernel and plain-version times at the serving
                shape beside the roofline bound, the traceback's also beside
                its serial floor (the longest video's segments x one
@@ -129,8 +151,10 @@ exit and no result line:
                frames/s, one training step's time, the fit's frames/s and
                the CrossTask predict's frames/s.
 
-The line before the last is one JSON object {"kernels": [...]}; the last
-is {"ok": true, "device": {...}}. Imports nothing of JAX.
+The line before the last is one JSON object {"kernels": [...]} (each
+kernel's launches on the slices' paths, and its cli_, u7_, baseline_ and
+resident_launches on phases 4d-4g); the last is {"ok": true, "device":
+{...}}. Imports nothing of JAX.
 """
 
 import argparse
@@ -1114,7 +1138,7 @@ def run_crosstask_slice(device, root):
         "crosstask_mean_f1": float(np.mean(f1s)),
         "crosstask_unsup_epoch_losses": [u[2] for u in unsup],
     }
-    return e2e, launches[:2], tb_batches, bg_batches, stats_by_split
+    return e2e, launches[:2], tb_batches, bg_batches, stats_by_split, models
 
 
 def assert_stats_equal(name, got, want):
@@ -1168,6 +1192,14 @@ CLI_KERNELS = ("viterbi scan", "traceback", "gamma scan", "band max", "log scan"
                "forward scan")
 
 
+def cli_kernel_wrappers():
+    """The kernels' wrappers in CLI_KERNELS's order."""
+    from action_segmentation_torch.ops import hsmm_cuda as hc
+
+    return (hc.hsmm_viterbi_scan, hc.hsmm_viterbi_traceback, hc.hsmm_gamma_scan,
+            hc.hsmm_band_max, hc.hsmm_log_scan, hc.hsmm_band_grad, hc.hsmm_forward_scan)
+
+
 def cli_runner(legs, totals):
     """run(leg, argv): the port's command line, main.main(argv) in process
     with no device (so on the card), with every kernel's launch counter
@@ -1181,8 +1213,7 @@ def cli_runner(legs, totals):
     from action_segmentation_torch.models.semimarkov import SemiMarkovModel
     from action_segmentation_torch.ops import hsmm_cuda as hc
 
-    kernels = (hc.hsmm_viterbi_scan, hc.hsmm_viterbi_traceback, hc.hsmm_gamma_scan,
-               hc.hsmm_band_max, hc.hsmm_log_scan, hc.hsmm_band_grad, hc.hsmm_forward_scan)
+    kernels = cli_kernel_wrappers()
     for k in kernels:
         totals.setdefault(k.__name__, 0)
 
@@ -1962,6 +1993,415 @@ def run_baselines_slice(root, smi, card=None):
             "accuracy_corpus_native_s": float(np.mean(times["native"])),
             "accuracy_corpus_plain_s": float(np.mean(times["plain"])), "host_cpu": cpu_name}
 
+# the host parts of a batch that phase 4g times: the streaming path's four
+# (step 0) and the resident path's two
+HOST_PARTS = ("reads", "collation", "device args", "upload", "build", "gather")
+
+
+@contextlib.contextmanager
+def host_split(regions):
+    """Pass-through time.perf_counter timers on the host parts of a batch:
+    the datasplit reads (Datasplit.__getitem__, with the .npy loads),
+    collation and padding (batching.collate, SemiMarkovModel._pad_batch_rows),
+    SemiMarkovModel._batch_device_args (the constraint expansion and the end
+    masks), upload, the resident corpus's build (build_resident_corpus, its
+    reads included) and its gathers (gather_resident_rows), each counted
+    only inside a region (a call of one of the SemiMarkovModel methods named
+    in `regions`) and outside the other parts. Yields the record: each
+    part's seconds, the regions' seconds (whose rest is potentials, launches,
+    glue and the region's closing wait for the card) and each region's, the
+    batches and frames the regions trained (SemiMarkovModel._finish_epoch)
+    and decoded (DeferredLabelDrain.add), and the corpora built and their
+    bytes."""
+    from action_segmentation_torch.data import batching, corpus
+    from action_segmentation_torch.models import semimarkov
+    from action_segmentation_torch.utils.drain import DeferredLabelDrain
+
+    sm = semimarkov.SemiMarkovModel
+    rec = dict.fromkeys(HOST_PARTS, 0.0)
+    rec.update(regions=0.0, walls=[], batches=0, frames=0, builds=0, built_bytes=0)
+    state = {"depth": 0, "in_part": False}
+
+    def part(fn, name):
+        def timed(*args, **kwargs):
+            if not state["depth"] or state["in_part"]:
+                return fn(*args, **kwargs)
+            state["in_part"] = True
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                rec[name] += time.perf_counter() - t0
+                state["in_part"] = False
+            if name == "build" and out is not None:
+                rec["builds"] += 1
+                rec["built_bytes"] += out.nbytes
+            return out
+        return timed
+
+    def region(fn, _):
+        def timed(*args, **kwargs):
+            state["depth"] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                state["depth"] -= 1
+                if not state["depth"]:
+                    rec["walls"].append(time.perf_counter() - t0)
+                    rec["regions"] += rec["walls"][-1]
+        return timed
+
+    def counted(fn, what):
+        def count(*args, **kwargs):
+            if state["depth"]:
+                if what == "trained":  # (self, epoch, lr, stats, losses, log_rows, videos, frames
+                    rec["batches"] += len(args[4])
+                    rec["frames"] += args[7]
+                else:  # (self, (names, lengths), labels, n_rows)
+                    n = kwargs.get("n_rows", args[3] if len(args) > 3 else None)
+                    rec["batches"] += 1
+                    rec["frames"] += int(np.asarray(args[1][1])[:n].sum())
+            return fn(*args, **kwargs)
+        return count
+
+    shims = [(corpus.Datasplit, "__getitem__", part, "reads"),
+             (batching, "collate", part, "collation"),
+             (sm, "_pad_batch_rows", part, "collation"),
+             (sm, "_batch_device_args", part, "device args"),
+             (semimarkov, "upload", part, "upload"),
+             (semimarkov, "build_resident_corpus", part, "build"),
+             (semimarkov, "gather_resident_rows", part, "gather"),
+             (sm, "_finish_epoch", counted, "trained"),
+             (DeferredLabelDrain, "add", counted, "decoded")]
+    shims += [(sm, name, region, None) for name in regions]
+    saved = [(obj, name, vars(obj)[name]) for obj, name, _, _ in shims]
+    try:
+        for (obj, name, wrap, what), (_, _, orig) in zip(shims, saved):
+            setattr(obj, name, wrap(orig, what))
+        yield rec
+    finally:
+        for obj, name, orig in saved:
+            setattr(obj, name, orig)
+
+
+def profiled(fn):
+    """fn() under torch.profiler (the host and the card), then a sync:
+    returns (fn's result, the kernels' summed us, the bytes of each Memcpy
+    HtoD in time order) from its Chrome trace."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernel_us = sum(float(e.get("dur", 0)) for e in events if e.get("cat") == "kernel")
+    htod = [int(e.get("args", {}).get("bytes", 0))
+            for e in sorted(events, key=lambda e: float(e["ts"]))
+            if "Memcpy HtoD" in str(e.get("name", ""))]
+    return out, kernel_us, htod
+
+
+def cli_argv(root, *extra):
+    """The S6 flags' unsupervised command on the release under `root` (phase
+    4d's third leg without its checkpoints)."""
+    return ["--classifier", "semimarkov", "--training", "unsupervised", *S6_FLAGS,
+            "--data_root", root, "--pca_components_per_group", str(CT_DIM_PER_GROUP),
+            "--mix_tasks", "--sm_constrain_transitions", "--sm_constrain_with_narration",
+            "train", *extra]
+
+
+def run_host_cases(device, root, models, mixed, smi, budget_mb):
+    """Phase 4g's cases at --sm_device_resident_mb `budget_mb` (0: the
+    streaming path, step 0; None: the default, resident), each split by
+    host_split with no profiler running, then run again under
+    torch.profiler for the card's busy share (the kernels' summed time over
+    the unprofiled regions' wall time) and its host-to-card copies: (1)
+    predict of the 18 S6 models over the val split (resident: the corpora
+    phase 4c built); (2) the constrained unsupervised fit of CT_FIT_TASKS
+    tasks, 2 epochs; (3) one unsupervised --mix_tasks epoch through
+    main.main (its fit and every predict of the run); (4) the U7 compound
+    fit of 2 epochs on the --mix_tasks train split `mixed`. Returns
+    {case: (record, the unprofiled run's result, the profiled run's
+    result, its launches by CLI_KERNELS name)}."""
+    import torch
+
+    from action_segmentation_torch import main as port_main
+    from action_segmentation_torch.models.semimarkov import SemiMarkovModel
+
+    mode = "streaming" if budget_mb == 0 else "resident"
+    budget = [] if budget_mb is None else ["--sm_device_resident_mb", str(budget_mb)]
+    kernels = cli_kernel_wrappers()
+    out = {}
+
+    def case(name, work, regions):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        with host_split(regions) as rec:
+            result = work()
+        launches = dict(zip(CLI_KERNELS, (k.launches for k in kernels)))
+        again, kernel_us, htod = profiled(work)
+        n, wall, frames = rec["batches"], rec["regions"], rec["frames"]
+        parts = {k: rec[k] for k in HOST_PARTS}
+        parts["rest"] = wall - sum(parts.values())
+        rec.update(mode=mode, wall_s=wall, frames_per_s=frames / wall,
+                   ms_a_batch={k: 1e3 * v / n for k, v in parts.items()},
+                   share={k: v / wall for k, v in parts.items()},
+                   kernel_ms=kernel_us / 1e3, busy_share=kernel_us / 1e6 / wall,
+                   htod=htod, htod_copies=len(htod), htod_bytes=sum(htod),
+                   htod_max=max(htod, default=0), case_s=time.perf_counter() - t0)
+        out[name] = (rec, result, again, launches)
+        phase("resident", "{}, {}: {} batches, {} frames in {:.4f} s ({:.0f} frames/s); host "
+              "ms a batch: {}; {} corpora built, {} bytes; the card busy {:.4f} ({:.3f} ms of "
+              "kernels); {} host-to-card copies, {} bytes (the largest {}); launches {}; the "
+              "case and its profiled run {:.1f} s; {}".format(
+                  mode, name, n, frames, wall, frames / wall, ", ".join(
+                      "{} {:.4f} ({:.1%})".format(k, rec["ms_a_batch"][k], rec["share"][k])
+                      for k in parts), rec["builds"], rec["built_bytes"], rec["busy_share"],
+                  rec["kernel_ms"], len(htod), sum(htod), rec["htod_max"], launches,
+                  rec["case_s"], smi))
+
+    # 1. predict over the val split
+    args = models[0][1].args
+    check(all(m.args is args for _, m, _, _ in models), "the S6 models share one args")
+    default = args.sm_device_resident_mb
+    args.sm_device_resident_mb = default if budget_mb is None else budget_mb
+    try:
+        case("predict", lambda: [m.predict(val) for _, m, _, val in models], ("predict",))
+    finally:
+        args.sm_device_resident_mb = default
+
+    def fit_tasks(fargs, splits):
+        fits = []
+        for train in splits:
+            model = SemiMarkovModel.from_args(fargs, train, device=device)
+            losses = []
+            model.fit(train, use_labels=False,
+                      callback_fn=lambda e, st, losses=losses: losses.append(st["train_loss"]))
+            fits.append((model, losses))
+        return fits
+
+    # 2. the constrained unsupervised fit's batches
+    uargs = crosstask_args(root, "--sm_constrain_transitions", "--sm_constrain_with_narration",
+                           "train", "--epochs", "2", *budget)
+    trains = [train for _, _, train, _ in models[:CT_FIT_TASKS]]
+    case("constrained fit", lambda: fit_tasks(uargs, trains), ("fit",))
+
+    # 3. one --mix_tasks epoch through the command line
+    argv = cli_argv(root, "--epochs", "1", *budget)
+
+    def cli_epoch():
+        with cli_recorder(port_main, SemiMarkovModel) as epochs, \
+                contextlib.redirect_stdout(io.StringIO()):
+            # no device, so the card (a CPU rehearsal passes its own)
+            stats = port_main.main(argv, device=None if device.type == "cuda" else device)
+        return stats, epochs
+
+    # the fit (moment init, epoch, its train and dev decodes), the closing test
+    case("cli --mix_tasks epoch", cli_epoch, ("fit", "predict"))
+
+    # 4. the U7 compound fit on the --mix_tasks train split
+    u7args = port_main.build_parser().parse_args(
+        cli_argv(root, "--sm_component_model", "--epochs", "2", *budget))
+    case("u7 fit", lambda: fit_tasks(u7args, [mixed]), ("fit",))
+    return out
+
+
+def fits_equal(name, got, want):
+    """Two fits' epoch losses and parameters bit for bit; returns the
+    parameter tensors compared."""
+    import torch
+
+    check(len(got) == len(want), name + ": fit counts differ")
+    for (gm, gl), (wm, wl) in zip(got, want):
+        check(gl == wl, "{}: epoch losses {} != {}".format(name, gl, wl))
+        gs, ws = gm.module.state_dict(), wm.module.state_dict()
+        differ = [k for k, w in ws.items() if not torch.equal(gs[k], w)]
+        check(sorted(gs) == sorted(ws) and not differ,
+              "{}: parameters differ: {}".format(name, differ))
+    return sum(len(m.module.state_dict()) for m, _ in got)
+
+
+def run_resident_slice(device, root, models, smi):
+    """Phase 4g: the resident corpus on phase 4c's release against the
+    streaming path. Step 0: run_host_cases with --sm_device_resident_mb 0;
+    then at the default budget. (a) The constrained fit and the U7 fit,
+    resident and streaming: losses and parameters bit-equal, K2-log and K4
+    once a training batch. (b) predict of the 18 S6 models: labels equal
+    on every val frame, K6 and its traceback once a batch. (c) An
+    unsupervised --mix_tasks main.main run --epochs 2, then --epochs 3
+    --resume, resident, against an uninterrupted --epochs 3: the resumed
+    epoch's loss and parameters bit for bit. (d) --sm_device_resident_mb 1
+    streams (no gather) and gives (c)'s first run's stats and losses. (e)
+    The profiled resident U7 fit: one corpus copy of its bytes, no copy a
+    batch the size of a batch's features, fewer copies than batches. (f)
+    Streaming against resident: wall, frames/s, busy share, builds.
+    Returns the e2e record."""
+    import torch
+
+    from action_segmentation_torch import checkpoint
+    from action_segmentation_torch import main as port_main
+
+    t_phase = time.perf_counter()
+    args = port_main.build_parser().parse_args(cli_argv(root))
+    with contextlib.redirect_stdout(io.StringIO()):
+        mixed = port_main.make_data_splits(args)["all"][0]
+    streamed = run_host_cases(device, root, models, mixed, smi, 0)
+    resident = run_host_cases(device, root, models, mixed, smi, None)
+    # every kernel's launches over the resident runs, by wrapper name
+    totals = {k: sum(r[3][k] for r in resident.values()) for k in CLI_KERNELS}
+    on_card = device.type == "cuda"  # a CPU rehearsal runs the plain versions
+
+    # (a) the fits bit-equal, K2-log and K4 once a training batch
+    n_params = {}
+    for name in ("constrained fit", "u7 fit"):
+        (rec, got, _, n), (_, want, _, _) = resident[name], streamed[name]
+        n_params[name] = fits_equal(name, got, want)
+        check(rec["builds"] == len(got) and rec["gather"] > 0 and rec["upload"] == 0,
+              "{}: not resident: {} builds, gather {} s, upload {} s".format(
+                  name, rec["builds"], rec["gather"], rec["upload"]))
+        check(not on_card or n["log scan"] == n["band grad"] == rec["batches"]
+              and n["forward scan"] == 0,
+              "{} launches {}: not one log scan and band grad a batch ({})".format(
+                  name, n, rec["batches"]))
+    phase("resident", "(a) constrained fit ({} tasks) and u7 fit (--mix_tasks), 2 epochs: "
+          "resident == streaming, epoch losses and {} parameter tensors bit for bit; launches "
+          "{} and {}".format(CT_FIT_TASKS, n_params, resident["constrained fit"][3],
+                             resident["u7 fit"][3]))
+
+    # (b) predict: labels equal on every val frame, K6 and its traceback a batch
+    (rec, got, _, n), (_, want, _, _) = resident["predict"], streamed["predict"]
+    frames = 0
+    for g, w in zip(got, want):
+        check(list(g) == list(w), "resident predict's videos differ")
+        for video in w:
+            check(np.array_equal(g[video], w[video]), "resident labels differ: " + video)
+            frames += len(w[video])
+    check((not on_card or n["viterbi scan"] == n["traceback"] == rec["batches"]
+           and n["gamma scan"] == 0) and rec["gather"] > 0 and rec["upload"] == 0
+          and rec["builds"] == 0,
+          "resident predict launches {}, gather {} s, upload {} s, builds {}".format(
+              n, rec["gather"], rec["upload"], rec["builds"]))
+    built = [m._get_resident(val, False) for _, m, _, val in models]
+    check(all(r is not None for r in built), "a val split has no resident corpus")
+    phase("resident", "(b) predict, 18 S6 models: resident labels == streaming on all {} val "
+          "frames; launches {} over {} batches; the 18 val corpora (built in phase 4c) {} "
+          "bytes in {:.4f} s".format(frames, n, rec["batches"], sum(r.nbytes for r in built),
+                                     sum(r.build_s for r in built)))
+
+    # (c) resume, resident; (d) a 1 MB budget streams with the same results
+    t_cli = time.perf_counter()
+    legs, cli_totals = {}, {}
+    run = cli_runner(legs, cli_totals)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_resident_")
+    try:
+        unsup = cli_argv(root, "--checkpoint_every", "1")
+        ck, whole, trace = (os.path.join(out_dir, d) for d in ("ck", "whole", "trace"))
+        stats_2, n_first, first, _ = run("resumed", unsup + [
+            "--epochs", "2", "--checkpoint_dir", ck, "--profile_dir", trace])
+        _, n_resumed, resumed, _ = run("resumed", unsup + [
+            "--epochs", "3", "--resume", "--checkpoint_dir", ck])
+        with host_split(("_train_epoch",)) as res_epochs:
+            _, n_whole, uninterrupted, _ = run("resumed", unsup + [
+                "--epochs", "3", "--checkpoint_dir", whole])
+        with host_split(("_train_epoch",)) as str_epochs:
+            stats_d, n_d, epochs_d, _ = run("streamed", unsup + [
+                "--epochs", "2", "--sm_device_resident_mb", "1"])
+        check([e for e, _ in first] == [0, 1] and [e for e, _ in resumed] == [2]
+              and [e for e, _ in uninterrupted] == [0, 1, 2],
+              "epochs run: {}, resumed {}, uninterrupted {}".format(first, resumed,
+                                                                    uninterrupted))
+        check(resumed[0][1] == uninterrupted[2][1], "resumed epoch-2 loss {!r} != "
+              "uninterrupted {!r}".format(resumed[0][1], uninterrupted[2][1]))
+        got, _, _ = checkpoint.load_checkpoint(ck, 2)
+        want, _, _ = checkpoint.load_checkpoint(whole, 2)
+        differ = [k for k, w in want["params"].items() if not torch.equal(got["params"][k], w)]
+        check(sorted(got["params"]) == sorted(want["params"]) and not differ,
+              "resumed params differ from the uninterrupted run's: {}".format(differ))
+        for k in ("log scan", "band grad", "viterbi scan", "traceback"):
+            check(not on_card or min(n_first[k], n_resumed[k], n_whole[k]) > 0,
+                  "{} not launched: {} {} {}".format(k, n_first, n_resumed, n_whole))
+        named, kernel_us, span_us = (trace_kernels(trace, "epoch_0.pt.trace.json") if on_card
+                                     else ({}, 0.0, 1.0))
+        for n in (n_first, n_resumed, n_whole):
+            for k in CLI_KERNELS:
+                totals[k] += n[k]
+        check(str_epochs["gather"] == 0 and str_epochs["builds"] == 0
+              and str_epochs["device args"] > 0, "--sm_device_resident_mb 1 did not stream")
+        check(epochs_d == first, "streamed epoch losses {} != resident {}".format(
+            epochs_d, first))
+        assert_stats_equal("--sm_device_resident_mb 1 vs resident", stats_d, stats_2)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    phase("resident", "(c) --mix_tasks, resident: epochs {} then --resume {} against {}; "
+          "epoch-2 loss {!r} == {!r}, {} parameter tensors equal; launches {}, {}, {}; trace "
+          "events naming {}; the traced epoch 0: kernels {:.3f} ms of a {:.3f} ms span, busy "
+          "{:.4f}; {}".format([e for e, _ in first], [e for e, _ in resumed],
+                              [e for e, _ in uninterrupted], resumed[0][1],
+                              uninterrupted[2][1], len(want["params"]), n_first, n_resumed,
+                              n_whole, named, kernel_us / 1e3, span_us / 1e3,
+                              kernel_us / span_us, smi))
+    phase("resident", "(d) --sm_device_resident_mb 1: streamed (no gather, no build), epoch "
+          "losses {} and stats == (c)'s first run's; launches {}; (c) and (d) {:.1f} s".format(
+              epochs_d, n_d, time.perf_counter() - t_cli))
+
+    # (e) the profiled resident U7 fit (the model built, its moment init,
+    # the corpus, 2 epochs): one corpus copy, after it no copy a batch
+    rec, _, again, _ = resident["u7 fit"]
+    model = again[0][0]
+    corpus = next(r for key, (_, r) in model._resident_cache.items() if key[0] == id(mixed))
+    batch_bytes = args.batch_size * 32 * corpus.feat.shape[2] * 4  # the least batch's features
+    at = [i for i, b in enumerate(rec["htod"]) if b == corpus.nbytes]
+    after = rec["htod"][at[-1] + 1:] if at else []
+    check(not on_card or len(at) == 1, "{} copies of the corpus's {} bytes".format(
+        len(at), corpus.nbytes))
+    check(max(after, default=0) < batch_bytes and len(after) < rec["batches"],
+          "resident fit: {} host-to-card copies after the corpus over {} batches, the largest "
+          "{} bytes (a batch's features: at least {})".format(
+              len(after), rec["batches"], max(after, default=0), batch_bytes))
+    srec = streamed["u7 fit"][0]
+    phase("resident", "(e) the profiled u7 fit, 2 epochs x {} batches: resident, {} host-to-card "
+          "copies: {} before the corpus (the model's parameters, the moment init), the corpus "
+          "once ({} bytes), {} after it of {} bytes; streaming, {} copies of {} bytes".format(
+              rec["batches"] // 2, len(rec["htod"]), at[0] if at else None, corpus.nbytes,
+              len(after), after, srec["htod_copies"], srec["htod_bytes"]))
+
+    # (f) streaming against resident
+    times = {}
+    for name in ("predict", "cli --mix_tasks epoch", "u7 fit"):
+        a, b = streamed[name][0], resident[name][0]
+        times[name] = {"streaming": a, "resident": b}
+        phase("resident", "(f) {}: wall {:.4f} -> {:.4f} s ({:.2f}x), {:.0f} -> {:.0f} "
+              "frames/s, busy {:.4f} -> {:.4f}; resident builds {} of {} bytes in {:.4f} s; "
+              "{}".format(name, a["wall_s"], b["wall_s"], a["wall_s"] / b["wall_s"],
+                          a["frames_per_s"], b["frames_per_s"], a["busy_share"],
+                          b["busy_share"], b["builds"], b["built_bytes"], b["build"], smi))
+    epochs = {"streaming": str_epochs["walls"], "resident": res_epochs["walls"]}
+    phase("resident", "(f) the --mix_tasks training epochs of (d) and (c)'s uninterrupted run "
+          "(wall s, no decodes): streaming {}, resident {}; epoch 1 {:.2f}x".format(
+              epochs["streaming"], epochs["resident"],
+              epochs["streaming"][1] / epochs["resident"][1]))
+    phase_s = time.perf_counter() - t_phase
+    phase("resident", "phase 4g: {:.3f} s".format(phase_s))
+
+    def summary(rec):
+        return {k: v for k, v in rec.items() if k not in ("htod", "walls")}
+
+    return {"resident_step0": {k: summary(v[0]) for k, v in streamed.items()},
+            "resident_cases": {k: summary(v[0]) for k, v in resident.items()},
+            "resident_cli_epochs_s": epochs,
+            "resident_launches": {k.__name__: totals[name] for name, k in zip(
+                CLI_KERNELS, cli_kernel_wrappers())},
+            "resident_u7_corpus_bytes": corpus.nbytes,
+            "resident_u7_htod_after_corpus": after, "resident_phase_s": phase_s}
+
 
 def cuda_ms(fn, n, warmup=3):
     import torch
@@ -2204,10 +2644,12 @@ def main():
     train_e2e, train_launches = run_train_slice(device, num_videos=36, max_len=T, shift=1.0)
     root = tempfile.mkdtemp(prefix="chip_smoke_crosstask_")
     try:
-        ct_e2e, ct_launches, ct_tb_in, ct_bg_in, ct_stats = run_crosstask_slice(device, root)
+        (ct_e2e, ct_launches, ct_tb_in, ct_bg_in, ct_stats,
+         ct_models) = run_crosstask_slice(device, root)
         e2e.update(run_cli_slice(root, ct_stats, smi))
         e2e.update(run_u7_slice(device, root, smi))
         e2e.update(run_baselines_slice(root, smi))
+        e2e.update(run_resident_slice(device, root, ct_models, smi))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     e2e.update(train_e2e)
@@ -2442,6 +2884,8 @@ def main():
         # counters before each leg and reads them after)
         k["cli_launches"] = e2e["cli_launches"][k["name"]]
         k["u7_launches"] = e2e["u7_launches"][k["name"]]
+        # phase 4g's resident runs (the cases and the resumed command line)
+        k["resident_launches"] = e2e["resident_launches"][k["name"]]
         # phase 4f's: no baseline reaches the HSMM chain
         k["baseline_launches"] = e2e["baseline_launches"][k["name"]]
         check(k["baseline_launches"] == 0, "{} launched by a baseline".format(k["name"]))

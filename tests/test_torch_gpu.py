@@ -744,6 +744,58 @@ CLASS_EDGES = (1, 2, 24, 25, 31, 32, 33, 64, 65, 128)
 KM_EDGES = (1, 19, 24, 25, 64, 100)
 
 
+@pytest.mark.parametrize("use_labels", [False, True], ids=["unsupervised", "discriminative"])
+def test_resident_fit_and_predict_on_the_card(cuda, use_labels):
+    """The resident corpus on the card: the fit's epoch stats, parameters
+    and the decode's labels bit-equal to --sm_device_resident_mb 0 on a
+    ragged corpus (several length buckets, a partial batch), the corpus
+    and every gathered batch on the card, and the kernels launched once a
+    batch on both paths (K2-log and K4 a training batch, K2-max and K3 a
+    decode batch)."""
+    import argparse
+
+    from action_segmentation_torch.data.synthetic import SyntheticDatasplit
+    from action_segmentation_torch.models.base import add_training_args
+    from action_segmentation_torch.models.semimarkov import SemiMarkovModel
+
+    train = SyntheticDatasplit(num_videos=14, n_classes=4, max_len=150, min_len=8, span_k=5,
+                               feature_dim=6, seed=3)
+    kernels = (hc.hsmm_log_scan, hc.hsmm_band_grad, hc.hsmm_gamma_scan, hc.hsmm_band_max)
+    runs = []
+    for budget in (1024, 0):
+        parser = argparse.ArgumentParser()
+        SemiMarkovModel.add_args(parser)
+        add_training_args(parser)
+        parser.add_argument("--batch_size", type=int, default=4)
+        args = parser.parse_args(["--sm_max_span_length", "8", "--epochs", "2", "--lr", "1e-2",
+                                  "--seed", "3", "--sm_device_resident_mb", str(budget),
+                                  "--sm_supervised_method", "gradient-based",
+                                  "--sm_train_discriminatively"])
+        model = SemiMarkovModel.from_args(args, train, device=cuda)
+        for k in kernels:
+            k.launches = 0
+        stats = []
+        model.fit(train, use_labels=use_labels, callback_fn=lambda e, s: stats.append(s))
+        trained = [k.launches for k in kernels]
+        preds = model.predict(train)
+        runs.append((model, stats, preds, trained, [k.launches for k in kernels]))
+    (res_model, *res), (str_model, *streamed) = runs
+    corpus = res_model._get_resident(train, False)
+    assert corpus is not None and corpus.feat.is_cuda and corpus.length.is_cuda
+    assert not getattr(str_model, "_resident_cache", None)
+    assert res[0] == streamed[0]
+    for k, v in res_model.module.state_dict().items():
+        assert torch.equal(v, str_model.module.state_dict()[k]), k
+    assert list(res[1]) == list(streamed[1])
+    for name in res[1]:
+        np.testing.assert_array_equal(res[1][name], streamed[1][name])
+    train_batches = 2 * sum(-(-len(v) // 4) for v in train.videos_by_task.values())
+    decode_batches = train_batches // 2
+    assert res[2] == streamed[2] == [train_batches, train_batches, 0, 0]
+    assert res[3] == streamed[3] == [train_batches, train_batches, decode_batches,
+                                     decode_batches]
+
+
 def scan_inputs(rng, N, T, C, Km, device):
     """(trans, init, dur, emit) at the D=300 emission scale, with some
     BIG_NEG durations and transitions."""
