@@ -18,6 +18,8 @@ Layout (each file has one twin in the JAX package):
                the BiLSTM encoder; the framewise and sequential baselines)
   data/        synthetic, CrossTask and Breakfast corpora, PCA, batching
   evaluation/  Hungarian-matched accuracy metrics, F1, the edit distance
+  parallel/    data parallelism over videos with torch.distributed
+  graft_entry.py  the flagship forward step and the multi-rank dry run
   utils/       logging, the deferred label drain, small helpers
 
 Entry points run on the card unless the caller passes ``device="cpu"``.

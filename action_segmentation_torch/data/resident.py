@@ -226,7 +226,7 @@ class ResidentCorpus:
         return torch.from_numpy(plan.table()).to(self.feat.device)
 
 
-def gather_resident_rows(res, table, b, with_gt=True):
+def gather_resident_rows(res, table, b, with_gt=True, rows=None):
     """Batch `b` of a plan gathered on the card from the resident corpus
     `res`, with `table` the plan's matrices there (``upload_plan``):
     (features, lengths, vc, inv_map, gt, cons, end_allowed, weights), the
@@ -234,35 +234,41 @@ def gather_resident_rows(res, table, b, with_gt=True):
     and equal to them: the batch's own length bucket and its task's padded
     class width, rows padded to Bp with the streaming dummies (zero
     features, cons and end row, length 1, weight 0). gt is None when not
-    `with_gt` (a decode). Every tensor is fresh: none aliases the corpus.
-    Slice widths are host integers; nothing waits for the card."""
-    B, Tw, Cw = b.size, b.t_width, b.c_width
+    `with_gt` (a decode). `rows` (start, stop) gathers only those rows of
+    the plan's Bp, a rank's slice under data parallelism (JAX replicates
+    the corpus and each device gathers its rows the same way). Every
+    tensor is fresh: none aliases the corpus. Slice widths are host
+    integers; nothing waits for the card."""
+    Tw, Cw = b.t_width, b.c_width
     c_max = res.c_max
     Bp = table.shape[1] - c_max - res.n_classes
+    start, stop = (0, Bp) if rows is None else rows
     row = table[b.row]
-    rows = row[:B]
-    pad = Bp - B
+    # the plan puts a batch's real rows first
+    B = min(max(b.size - start, 0), stop - start)
+    real = row[start: start + B]
+    pad = stop - start - B
 
     def padded(x, fill=0):
         if not pad:
             return x
         return torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
 
-    features = padded(res.feat[:, :Tw].index_select(0, rows))
-    lengths = padded(res.length.index_select(0, rows), fill=1)
-    gt = padded(res.gt[:, :Tw].index_select(0, rows).long()) if with_gt else None
+    features = padded(res.feat[:, :Tw].index_select(0, real))
+    lengths = padded(res.length.index_select(0, real), fill=1)
+    gt = padded(res.gt[:, :Tw].index_select(0, real).long()) if with_gt else None
     if res.with_cons:
-        cons = padded(res.cons[:, :Tw, :Cw].index_select(0, rows))
+        cons = padded(res.cons[:, :Tw, :Cw].index_select(0, real))
     else:
-        cons = res.feat.new_zeros((Bp, Tw, Cw))
+        cons = res.feat.new_zeros((stop - start, Tw, Cw))
     if res.with_end:
-        end = padded(res.end[:, :Cw].index_select(0, rows))
+        end = padded(res.end[:, :Cw].index_select(0, real))
     else:
-        end = res.feat.new_zeros((Bp, Cw))
+        end = res.feat.new_zeros((stop - start, Cw))
         end[:B, b.n_sub:] = BIG_NEG
     vc = row[Bp: Bp + Cw]
     inv_map = row[Bp + c_max:]
-    weights = (row[:Bp] >= 0).float()
+    weights = (row[start:stop] >= 0).float()
     return features, lengths, vc, inv_map, gt, cons, end, weights
 
 

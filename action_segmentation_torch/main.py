@@ -15,6 +15,15 @@ no device flag, as the JAX package has none):
 
 Every classifier of the JAX package runs: the semi-Markov models and
 the seven baselines (``models/framewise.py``, ``models/sequential.py``).
+
+Data parallelism over cards: one process a card, started by torchrun,
+each on cuda:LOCAL_RANK, with --data_parallel (``parallel/mesh.py``):
+
+    torchrun --nproc_per_node 4 -m action_segmentation_torch.main \
+        --classifier semimarkov --data_parallel ...
+
+Every rank returns the same stats; rank 0 alone writes the pickles,
+checkpoints, prediction files and traces.
 """
 
 import argparse
@@ -43,6 +52,7 @@ from action_segmentation_torch.models.sequential import (
     SequentialGroundTruth,
     SequentialPredictConstraints,
 )
+from action_segmentation_torch.parallel.mesh import write_on_rank0
 from action_segmentation_torch.utils import logger
 
 STAT_KEYS = [
@@ -175,7 +185,8 @@ def test(args, model, test_data, test_data_name, verbose=True, prediction_output
         prediction_function = None
     if prediction_output_path is not None:
         assert model is not None
-        write_predictions(test_data, predictions_by_video, prediction_output_path)
+        write_on_rank0(write_predictions, test_data, predictions_by_video,
+                       prediction_output_path)
     return test_data.accuracy_corpus(
         optimal_assignment,
         prediction_function,
@@ -264,12 +275,11 @@ def train(args, train_data, dev_data, split_name, verbose=False, train_sub_data=
         for e in [e for e in models_by_epoch if e not in keep]:
             del models_by_epoch[e]
         if args.model_output_path and epoch % 5 == 0:
-            os.makedirs(args.model_output_path, exist_ok=True)
             model_fname = os.path.join(
                 args.model_output_path, "{}_epoch-{}.pkl".format(split_name, epoch)
             )
             logger.debug("writing model to {}".format(model_fname))
-            checkpoint.save_pickle(model, model_fname)
+            write_on_rank0(checkpoint.save_pickle, model, model_fname)
 
     model.fit(train_data, use_labels=use_labels, callback_fn=callback_fn)
 
@@ -297,10 +307,9 @@ def train(args, train_data, dev_data, split_name, verbose=False, train_sub_data=
         best_model = model
 
     if args.model_output_path:
-        os.makedirs(args.model_output_path, exist_ok=True)
         model_fname = make_model_path(args.model_output_path, split_name)
         logger.debug("writing model to {}".format(model_fname))
-        checkpoint.save_pickle(best_model, model_fname)
+        write_on_rank0(checkpoint.save_pickle, best_model, model_fname)
 
     return best_model
 
@@ -467,9 +476,13 @@ def build_parser():
 
 def main(argv=None, device=None):
     """Run the command line `argv` (None: ``sys.argv``) on `device`
-    (None: the card); returns the per-split, per-task stats."""
+    (None: the card, cuda:LOCAL_RANK under torchrun); returns the
+    per-split, per-task stats. Under a process group every rank runs it
+    and returns the same stats; rank 0 alone writes files."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    if device is None and "LOCAL_RANK" in os.environ:
+        device = "cuda:{}".format(int(os.environ["LOCAL_RANK"]))
 
     print(" ".join(sys.argv))
     pprint.pprint(vars(args))

@@ -50,7 +50,9 @@ def add_training_args(parser):
     parser.add_argument(
         "--data_parallel",
         action="store_true",
-        help="shard training batches over all devices (not ported yet)",
+        help="shard every training and decode batch's videos over the ranks "
+        "of a process group (torchrun, one rank a card); without a group, "
+        "one device runs the single path and several cards raise",
     )
     parser.add_argument(
         "--model_parallel",
@@ -154,17 +156,6 @@ def clip_grads(params, max_norm):
     if max_norm is None:
         return global_norm(grads)
     return torch.nn.utils.clip_grad_norm_(params, max_norm)
-
-
-def fold_stats(stats, loss, aux, bw):
-    """Epoch-stats fold (count, loss_sum, nll*B, kl*B, log_det*B) as a
-    5-element device tensor carried through the batch loop, so the epoch
-    summary and the log lines read it without a fetch per batch."""
-    terms = torch.stack([
-        torch.ones_like(loss), loss, aux["nll"] * bw, aux["kl"] * bw,
-        aux["log_det"] * bw,
-    ])
-    return stats + terms.detach()
 
 
 class Model:

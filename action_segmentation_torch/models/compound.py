@@ -30,6 +30,7 @@ from action_segmentation_torch.ops.distributions import (
     poisson_length_log_probs,
 )
 from action_segmentation_torch.ops.hsmm import HsmmPotentials
+from action_segmentation_torch.parallel.mesh import batch_max, shard_noise, whole_batch
 
 EMBEDDINGS = ("initial", "transition", "emission", "length")
 
@@ -145,11 +146,13 @@ class ComponentHsmm(GaussianHsmm):
             raise ValueError("a sampled z needs a generator (or use_mean_z=True)")
         return torch.randn((batch, self.z_dim), generator=generator, device=device)
 
-    def _get_z_and_kl(self, features, lengths, generator, use_mean):
+    def _get_z_and_kl(self, features, lengths, generator, use_mean, shard=None):
         """(z (B, z_dim), kl (B,)) of the encoder's posterior; z is its
         mean with `use_mean`, else one draw from `generator`. Without a
-        latent, (zeros (B, 1), zeros (B,))."""
+        latent, (zeros (B, 1), zeros (B,)). `shard`: this rank's rows of
+        the batch under data parallelism (None: every row, ``whole_batch``)."""
         B, T = features.shape[:2]
+        shard = shard or whole_batch(B, features.device)
         if self.z_dim == 0:
             return features.new_zeros((B, 1)), features.new_zeros((B,))
         encoded = self.encoder(features, lengths)
@@ -157,8 +160,10 @@ class ComponentHsmm(GaussianHsmm):
         if getattr(self.args, "sm_reference_pooling", False):
             # the reference max-pools over frames zero-filled up to the
             # batch's longest video (semimarkov_modules.py:843-858), which
-            # clamps a shorter video's pooled activations at >= 0
-            outside = t >= lengths.max()
+            # clamps a shorter video's pooled activations at >= 0; under
+            # data parallelism the batch's longest over every rank (JAX's
+            # pmax, compound.py:219-221)
+            outside = t >= batch_max(shard, lengths.max())
         else:
             outside = t >= lengths[:, None, None]
         pooled = encoded.masked_fill(outside, -float("inf")).amax(dim=1)
@@ -167,7 +172,12 @@ class ComponentHsmm(GaussianHsmm):
         if use_mean:
             z = mean
         else:
-            z = torch.exp(0.5 * logvar) * self._noise(B, generator, features.device) + mean
+            # the single path's draw, this rank's rows of it: a video's noise
+            # does not depend on the ranks (JAX folds each video's key with
+            # its global index, compound.py:233-237; torch's first rows of a
+            # larger draw need not equal a smaller one)
+            eps = shard_noise(shard, self._noise(shard.single, generator, features.device))
+            z = torch.exp(0.5 * logvar) * eps + mean
         kl = -0.5 * torch.sum(logvar - mean**2 - torch.exp(logvar) + 1.0, dim=1)
         return z, kl
 
@@ -184,7 +194,7 @@ class ComponentHsmm(GaussianHsmm):
     # ----- factors ------------------------------------------------------
 
     def compute_potentials(self, features, lengths, vc, constraints_add, end_allowed,
-                           generator=None, use_mean_z=True):
+                           generator=None, use_mean_z=True, shard=None):
         """GaussianHsmm.compute_potentials's contract. With z in the
         structure, init, trans and lens are per video; z encodes the RAW
         features, before the flow (the reference sets z before its
@@ -195,7 +205,7 @@ class ComponentHsmm(GaussianHsmm):
         vcs = vc.clamp(min=0)
         mvc = vcs if self.merge_map is None else self.merge_map[vcs]
         feats, log_det = self.project_features(features, lengths)
-        z, kl = self._get_z_and_kl(features, lengths, generator, use_mean_z)
+        z, kl = self._get_z_and_kl(features, lengths, generator, use_mean_z, shard)
         with_z = self.structure_uses_z
 
         # initial: w . embed(class) (+ class bias), masked log-softmax

@@ -33,8 +33,18 @@ the CPU). Training's partition runs the kernel forward/backward of
 epoch with ``torch.profiler`` (--profile_dir); a model pickles onto the
 CPU and unpickles onto the device its loader asks for.
 ``semimarkov_from_reference_state_dict`` builds a model from a
-reference-trained state dict. Data parallelism raises
-``NotImplementedError``: it comes with a later slice (ROADMAP.md §1).
+reference-trained state dict.
+
+With --data_parallel and a process group (``parallel/mesh.py``), each
+rank holds a replica of the parameters (rank 0's, broadcast before the
+first step) and fits and decodes its rows of every batch, padded to a
+multiple of the world size at least --batch_size: its loss is its
+weighted sums over the batch's count of real videos, the gradients are
+summed over the ranks once a step (once a window under
+--batch_accumulation) before the mask, the clip and Adam, the epoch's
+loss terms once an epoch, and a decode's labels once a batch. Without a
+group on one device --data_parallel takes the single path; with several
+visible cards it raises.
 """
 
 import contextlib
@@ -59,7 +69,6 @@ from action_segmentation_torch.models.base import (
     DeviceModel,
     batch_generator,
     clip_grads,
-    fold_stats,
     make_optimizer,
     mask_grads,
     set_lr,
@@ -85,13 +94,22 @@ from action_segmentation_torch.ops.hsmm_cuda import (
 from action_segmentation_torch.ops.hsmm_grad import hsmm_partition_fast
 from action_segmentation_torch.ops.span_codec import labels_to_spans, spans_to_labels
 from action_segmentation_torch.ops.stats import semimarkov_sufficient_stats
+from action_segmentation_torch.parallel.mesh import (
+    Shard,
+    all_reduce_grads,
+    combine_rows,
+    data_parallel_mesh,
+    pad_batch_for_mesh,
+    process_rank,
+    reduce_terms,
+    replicate_module,
+    shard_rows,
+    single_mesh,
+    terms_to_loss_aux,
+    write_on_rank0,
+)
 from action_segmentation_torch.utils import all_equal, logger
 from action_segmentation_torch.utils.drain import DeferredLabelDrain
-
-_LATER = "is not ported yet; it comes with a later slice (ROADMAP.md §1)"
-
-# training flags of paths not ported yet; fit refuses them
-_UNPORTED_FIT_FLAGS = ("data_parallel",)
 
 
 def _constraint_buffers(n_classes, allowed_starts, allowed_transitions, allowed_ends):
@@ -198,13 +216,15 @@ class GaussianHsmm(nn.Module):
         return self.feature_projector(features)
 
     def compute_potentials(self, features, lengths, vc, constraints_add, end_allowed,
-                           generator=None, use_mean_z=True):
+                           generator=None, use_mean_z=True, shard=None):
         """(pots, log_det (B,), kl (B,)) for valid classes `vc` (C_sub,).
 
         features (B, T, D); lengths (B,) >= 1; constraints_add (B, T,
         C_sub) additive emission penalties; end_allowed (B, C_sub)
-        additive end mask. `generator` and `use_mean_z` are the compound
-        model's latent (its noise and whether z sits at its mean); this
+        additive end mask. `generator`, `use_mean_z` and `shard` (a
+        rank's rows under data parallelism, ``parallel.mesh.Shard``) are
+        the compound model's latent (its noise, whether z sits at its
+        mean, and the batch its draws and pooling window span); this
         module draws nothing and its kl is zero.
 
         vc entries of -1 are shape padding (class-count bucketing): their
@@ -509,26 +529,6 @@ class SemiMarkovModel(DeviceModel):
                 addl.append([])
         return addl
 
-    def _pad_batch_rows(self, features, lengths, gt, cons, end_allowed):
-        """Pad the batch to --batch_size rows (weight-0, length-1 dummies)
-        so every batch has one shape; returns the padded arrays (`gt` may
-        be None, as for a decode) and the row weights (Bp,). The drain
-        drops the dummy rows of a decode, and every mean of the training
-        loss is weighted."""
-        B = len(lengths)
-        Bp = max(int(getattr(self.args, "batch_size", B) or B), B)
-        weights = np.zeros(Bp, np.float32)
-        weights[:B] = 1.0
-        if Bp == B:
-            return features, lengths, gt, cons, end_allowed, weights
-
-        def padz(arr):
-            return np.pad(arr, [(0, Bp - B)] + [(0, 0)] * (arr.ndim - 1))
-
-        lengths = np.concatenate([lengths, np.ones(Bp - B, lengths.dtype)])
-        gt = None if gt is None else padz(gt)
-        return padz(features), lengths, gt, padz(cons), padz(end_allowed), weights
-
     # ----- the resident corpus -----
 
     def _resident_key(self, datasplit, use_narration):
@@ -612,13 +612,14 @@ class SemiMarkovModel(DeviceModel):
     # ----- decode -----
 
     @torch.no_grad()
-    def _decode(self, features, lengths, vc, cons, end_allowed):
+    def _decode(self, features, lengths, vc, cons, end_allowed, shard=None):
         """(labels (B, T) global class ids with -1 past each length,
-        scores (B,)); every argument a tensor on the model's device.
-        Launches work and returns without waiting for it."""
+        scores (B,)); every argument a tensor on the model's device, the
+        rows of `shard` under data parallelism. Launches work and returns
+        without waiting for it."""
         lengths = lengths.long().clamp(min=1)
         pots, _, _ = self.module.compute_potentials(
-            features, lengths, vc, cons, end_allowed, use_mean_z=True
+            features, lengths, vc, cons, end_allowed, use_mean_z=True, shard=shard
         )
         path = kernel_path(self.n_classes, pots.emit.shape[-1], features.device)
         if path.decode == "labels":
@@ -633,58 +634,87 @@ class SemiMarkovModel(DeviceModel):
     # ----- training -----
 
     def _loss(self, features, lengths, vc, inv_map, gt, cons, end_allowed,
-              weights, use_labels, generator=None):
-        """(loss, aux) of one batch, the JAX package's ``_build_loss_fn``.
+              weights, use_labels, generator=None, denom=None, shard=None):
+        """(loss, aux) of one batch, the JAX package's ``_build_loss_fn``
+        and, over a rank's rows, its data-parallel ``_make_local_loss``.
 
         Generative supervised: -wmean(gold score); discriminative:
         -wmean(gold - logZ); unsupervised: -wmean(logZ). The flow's
         -wmean(log_det) is added, and unsupervised the latent's
         wmean(kl), whose z is drawn from `generator` (supervised, z sits
-        at its mean). Every mean is weighted by `weights` (padded rows
-        weigh 0 and have length 1), so padding never changes the loss.
-        The partition goes through the kernel forward/backward
-        (``kernel_path``)."""
+        at its mean). Every mean is a sum weighted by `weights` (padded
+        rows weigh 0 and have length 1) over `denom`, the batch's count
+        of real videos (None: the weights' sum), so padding never changes
+        the loss. Under data parallelism (`shard`, a rank's rows) the
+        loss is this rank's share of the batch's, whose gradient the
+        ranks sum. aux holds the means and ``terms``, the weighted sums
+        (nll, kl, log_det) the epoch's stats reduce. The partition goes
+        through the kernel forward/backward (``kernel_path``)."""
         lengths = lengths.long().clamp(min=1)
-        denom = weights.sum().clamp(min=1.0)
+        if denom is None:
+            denom = weights.sum().clamp(min=1.0)
+        else:
+            denom = torch.full((), max(float(denom), 1.0), device=weights.device)
 
-        def wmean(x):
-            return (x * weights).sum() / denom
+        def wsum(x):
+            return (x * weights).sum()
 
         pots, log_det, kl = self.module.compute_potentials(
-            features, lengths, vc, cons, end_allowed, generator, use_mean_z=use_labels
+            features, lengths, vc, cons, end_allowed, generator, use_mean_z=use_labels,
+            shard=shard,
         )
         path = kernel_path(self.n_classes, pots.emit.shape[-1], features.device)
         partition = hsmm_partition_fast if path.partition == "kernels" else hsmm_partition
         if use_labels:
             spans = labels_to_spans(inv_map[gt], self.module.max_k)
-            gold = hsmm_gold_score(pots, lengths, spans)
+            ll = hsmm_gold_score(pots, lengths, spans)
             if getattr(self.args, "sm_train_discriminatively", False):
-                ll = wmean(gold - partition(pots, lengths))
-            else:
-                ll = wmean(gold)
+                ll = ll - partition(pots, lengths)
         else:
-            ll = wmean(partition(pots, lengths))
-        nll = -ll
-        loss = nll - wmean(log_det)
+            ll = partition(pots, lengths)
+        nll_s, kl_s, log_det_s = wsum(-ll), wsum(kl), wsum(log_det)
+        loss = (nll_s - log_det_s) / denom
         if not use_labels:
-            loss = loss + wmean(kl)
-        return loss, {"nll": nll.detach(), "kl": wmean(kl).detach(),
-                      "log_det": wmean(log_det).detach()}
+            loss = loss + kl_s / denom
+        terms = torch.stack([nll_s, kl_s, log_det_s]).detach()
+        return loss, {"nll": terms[0] / denom, "kl": terms[1] / denom,
+                      "log_det": terms[2] / denom, "terms": terms}
 
-    def _training_batch(self, batch, datasplit=None, use_narration=False):
+    def _training_batch(self, batch, datasplit=None, use_narration=False, mesh=None):
         """One collated batch as padded tensors on the device: (features,
-        lengths, vc, inv_map, gt, cons, end_allowed, weights)."""
+        lengths, vc, inv_map, gt, cons, end_allowed, weights), this rank's
+        rows of it under data parallelism (`mesh`; None: this process's
+        ``single_mesh``, every row)."""
         vc, inv_map, cons, end_allowed = self._batch_device_args(
             batch, datasplit, use_narration
         )
         gt = batch.get("gt_single", np.zeros(batch["features"].shape[:2], np.int64))
         features, lengths, gt, cons, end_allowed, weights = self._pad_batch_rows(
-            batch["features"], batch["lengths"], gt, cons, end_allowed
-        )
+            mesh or single_mesh(self.device), batch["features"], batch["lengths"], gt, cons,
+            end_allowed)
         return tuple(
             upload(x, self.device)
             for x in (features, lengths, vc, inv_map, gt, cons, end_allowed, weights)
         )
+
+    def _pad_batch_rows(self, mesh, features, lengths, *rest):
+        """This rank's rows of a batch padded as JAX pads it for its mesh
+        (``pad_batch_for_mesh`` to --batch_size rows, rounded up to the
+        world: weight-0, length-1 dummies, so every batch has one shape):
+        (features, lengths, *rest, weights (rows,)). The drain drops the
+        dummy rows of a decode, and every sum of the training loss is
+        weighted."""
+        B = len(lengths)
+        padded, weights = pad_batch_for_mesh(mesh, [features, lengths, *rest], B,
+                                             pad_to=getattr(self.args, "batch_size", None))
+        padded[1][B:] = 1
+        return tuple(shard_rows(mesh, x) for x in (*padded, weights))
+
+    def _batch_shard(self, mesh, size):
+        """This rank's Shard of a batch of `size` real videos: the single
+        path's --batch_size rows (at least `size`), padded to the world."""
+        single = max(int(getattr(self.args, "batch_size", None) or 0), size)
+        return Shard(mesh, -(-single // mesh.world) * mesh.world, single)
 
     def _moment_init(self, train_data):
         """Moment-match the emissions on the first shuffled 100-video batch."""
@@ -734,11 +764,12 @@ class SemiMarkovModel(DeviceModel):
         Without --batch_accumulation the batches come from the split's
         resident corpus where it has one (``_get_resident``): the same
         batches in the same order, gathered on the device, pinned in the
-        cache while the epochs run."""
+        cache while the epochs run.
+
+        With --data_parallel under a process group every rank runs this
+        loop on its rows of each batch (``_data_parallel_mesh``); rank 0
+        alone writes checkpoints and traces."""
         args = self.args
-        for flag in _UNPORTED_FIT_FLAGS:
-            if getattr(args, flag, None):
-                raise NotImplementedError("--{} {}".format(flag, _LATER))
         if getattr(args, "model_parallel", 1) not in (None, 1):
             raise NotImplementedError(
                 "--model_parallel > 1 was retired in the JAX package; use "
@@ -746,11 +777,13 @@ class SemiMarkovModel(DeviceModel):
             )
         if use_labels:
             assert not getattr(args, "sm_constrain_transitions", False)
+        mesh = self._data_parallel_mesh()
         use_narration = "train" in getattr(args, "sm_constrain_with_narration", [])
         method = args.sm_supervised_method
         if use_labels and method in ("closed-form", "closed-then-gradient"):
             self.fit_supervised(train_data)
             if method == "closed-form":
+                replicate_module(mesh, self.module)
                 return
             if callback_fn:
                 callback_fn(-1, {})
@@ -777,7 +810,12 @@ class SemiMarkovModel(DeviceModel):
                 start_epoch = step + 1
                 logger.debug("resumed from {} at epoch {} (lr {})".format(
                     ckpt_dir, start_epoch, lr))
-        profile_dir = getattr(args, "profile_dir", None)
+        # the ranks start from rank 0's parameters (after the moment init,
+        # the closed form or the resume) and stay equal
+        replicate_module(mesh, self.module)
+        if mesh.world > 1:
+            logger.debug("data-parallel training over {} ranks".format(mesh.world))
+        profile_dir = getattr(args, "profile_dir", None) if process_rank() == 0 else None
         if resident is not None:
             # held for the whole fit: an eviction would count its memory free
             self._pin_resident(train_data, use_narration)
@@ -786,7 +824,7 @@ class SemiMarkovModel(DeviceModel):
                 with self._profiled(profile_dir if epoch == start_epoch else None, epoch):
                     epoch_stats = self._train_epoch(
                         train_data, epoch, optimizer, named, lr, use_labels, use_narration,
-                        resident,
+                        resident, mesh,
                     )
                 new_lr = lr
                 if scheduler is not None:
@@ -794,7 +832,8 @@ class SemiMarkovModel(DeviceModel):
                 if ckpt_dir and epoch % getattr(args, "checkpoint_every", 5) == 0:
                     # the rate this epoch ran at, and the plateau controller's
                     # post-step state, which governs the next epoch
-                    checkpoint.save_checkpoint(
+                    write_on_rank0(
+                        checkpoint.save_checkpoint,
                         {"params": self.module.state_dict(),
                          "opt_state": optimizer.state_dict()},
                         args, epoch, ckpt_dir, lr=lr,
@@ -848,11 +887,20 @@ class SemiMarkovModel(DeviceModel):
         prof.export_chrome_trace(path)
         logger.debug("wrote a profiler trace of epoch {} to {}".format(epoch, path))
 
+    def _data_parallel_mesh(self):
+        """The Mesh of --data_parallel (``parallel.mesh.data_parallel_mesh``);
+        without the flag, this process's world-1 ``single_mesh``."""
+        if not getattr(self.args, "data_parallel", False):
+            return single_mesh(self.device)
+        return data_parallel_mesh(self.device)
+
     def _train_epoch(self, train_data, epoch, optimizer, named, lr, use_labels,
-                     use_narration, resident=None):
+                     use_narration, resident, mesh):
         """One epoch of Adam steps at rate `lr`, its batches streamed from
-        `train_data` or gathered from its `resident` corpus; returns the
-        callback stats."""
+        `train_data` or gathered from its `resident` corpus, this rank's
+        rows of each under a `mesh`; returns the callback stats. The
+        gradients are summed over the ranks before the mask, the clip and
+        Adam, so the logged norm is the global one."""
         args = self.args
         params = [p for _, p in named]
         trainable = self.module.trainable_mask
@@ -860,27 +908,28 @@ class SemiMarkovModel(DeviceModel):
         seed = (getattr(args, "seed", 1) or 1) + epoch
         start_time = time.time()
         num_frames = num_videos = 0
-        stats = torch.zeros(5, device=self.device)
-        losses, log_rows = [], []
+        terms, sizes, log_rows = [], [], []
         pending = 0
         optimizer.zero_grad(set_to_none=True)
         if resident is None:
-            batches = self._streamed_batches(train_data, seed, use_narration)
+            batches = self._streamed_batches(train_data, seed, use_narration, mesh)
         else:
-            batches = self._resident_batches(resident, seed)
-        for batch_ix, B, frames, batch in batches:
+            batches = self._resident_batches(resident, seed, mesh)
+        for batch_ix, B, frames, batch, shard in batches:
             num_videos += B
             num_frames += frames
             loss, aux = self._loss(
                 *batch, use_labels=use_labels,
                 generator=self._noise_generator(epoch, batch_ix, use_labels),
+                denom=B, shard=shard,
             )
             loss.backward()
-            stats = fold_stats(stats, loss.detach(), aux, float(B))
-            losses.append(loss.detach())
+            terms.append(aux["terms"])
+            sizes.append(float(B))
             pending += 1
             if pending < window:
                 continue
+            all_reduce_grads(mesh, params)
             if pending > 1:  # the window's mean gradient
                 for p in params:
                     if p.grad is not None:
@@ -891,16 +940,34 @@ class SemiMarkovModel(DeviceModel):
             optimizer.zero_grad(set_to_none=True)
             pending = 0
             if args.print_every and batch_ix % args.print_every == 0:
-                log_rows.append((batch_ix, num_videos, num_frames,
-                                 torch.stack([gnorm.detach().float(), stats[2],
-                                              stats[3], stats[4]])))
+                log_rows.append((batch_ix, num_videos, num_frames, len(terms) - 1,
+                                 gnorm.detach().float().reshape(1)))
+        stats, losses, log_rows = self._epoch_stats(terms, sizes, log_rows, use_labels, mesh)
         return self._finish_epoch(
             epoch, lr, stats, losses, log_rows, num_videos, num_frames, start_time
         )
 
-    def _streamed_batches(self, train_data, seed, use_narration):
-        """(batch index, videos, frames, _training_batch's tensors) of the
-        batches of iter_batches(shuffle=True, seed), at most --train_limit."""
+    def _epoch_stats(self, terms, sizes, log_rows, use_labels, mesh):
+        """The epoch's stats fold (count, loss_sum, nll*B, kl*B, log_det*B),
+        its per-batch losses and its log lines' vectors (|GParam| and the
+        fold's nll, kl and log_det at the line's batch), from the batches'
+        loss terms summed over the ranks in one collective, all on the
+        device."""
+        if not terms:
+            return torch.zeros(5, device=self.device), torch.zeros(0, device=self.device), []
+        summed = reduce_terms(mesh, torch.stack(terms))
+        bw = torch.tensor(sizes, device=self.device)
+        loss, aux = terms_to_loss_aux(summed, bw, use_labels)
+        fold = torch.stack([torch.ones_like(loss), loss, aux["nll"] * bw, aux["kl"] * bw,
+                            aux["log_det"] * bw], dim=1).cumsum(dim=0)
+        rows = [(bix, nvid, nfrm, torch.cat([gnorm, fold[i, 2:]]))
+                for bix, nvid, nfrm, i, gnorm in log_rows]
+        return fold[-1], loss, rows
+
+    def _streamed_batches(self, train_data, seed, use_narration, mesh):
+        """(batch index, videos, frames, _training_batch's tensors, this
+        rank's Shard) of the batches of iter_batches(shuffle=True, seed),
+        at most --train_limit."""
         batches = iter_batches(
             train_data, batch_size=self.args.batch_size, batch_by_task=True,
             shuffle=True, seed=seed,
@@ -908,18 +975,25 @@ class SemiMarkovModel(DeviceModel):
         if self.args.train_limit:
             batches = itertools.islice(batches, self.args.train_limit)
         for batch_ix, batch in enumerate(batches):
-            yield (batch_ix, len(batch["lengths"]), int(batch["lengths"].sum()),
-                   self._training_batch(batch, train_data, use_narration))
+            B = len(batch["lengths"])
+            yield (batch_ix, B, int(batch["lengths"].sum()),
+                   self._training_batch(batch, train_data, use_narration, mesh),
+                   self._batch_shard(mesh, B))
 
-    def _resident_batches(self, resident, seed):
+    def _resident_batches(self, resident, seed, mesh):
         """The same batches as ``_streamed_batches``, in the same order,
-        gathered from the resident corpus: the plan's matrices go to the
-        device in one copy; no batch copies or waits."""
+        gathered from the resident corpus (this rank's rows under a
+        `mesh`): the plan's matrices go to the device in one copy; no
+        batch copies or waits."""
         plan = resident.make_plan(self.args.batch_size, shuffle=True, seed=seed,
-                                  limit=self.args.train_limit, global_order=True)
+                                  limit=self.args.train_limit, global_order=True,
+                                  pad_rows_to=mesh.world)
         table = resident.upload_plan(plan)
         for b in plan.batches():
-            yield b.bix, b.size, b.frames, gather_resident_rows(resident, table, b)
+            shard = self._batch_shard(mesh, b.size)
+            yield (b.bix, b.size, b.frames,
+                   gather_resident_rows(resident, table, b, rows=(shard.start, shard.stop)),
+                   shard)
 
     def _noise_generator(self, epoch, batch_ix, use_labels):
         """The generator of one training batch's latent noise, on the
@@ -936,8 +1010,7 @@ class SemiMarkovModel(DeviceModel):
         """The epoch's one fetch: stats, per-batch losses and log lines in
         one stacked copy; logs non-finite losses and the print_every
         lines; returns the callback stats."""
-        parts = [stats] + [loss[None] for loss in losses] + [v for *_, v in log_rows]
-        flat = torch.cat(parts).tolist()
+        flat = torch.cat([stats, losses] + [v for *_, v in log_rows]).tolist()
         elapsed = max(time.time() - start_time, 1e-9)
         for bix, loss in enumerate(flat[5 : 5 + len(losses)]):
             if not np.isfinite(loss):
@@ -967,11 +1040,14 @@ class SemiMarkovModel(DeviceModel):
     def predict(self, test_data):
         """{video name: labels} of every video of `test_data`, decoded in
         length-sorted batches of --batch_size, from the split's resident
-        corpus where it has one (``_get_resident``), else streamed."""
+        corpus where it has one (``_get_resident``), else streamed. With
+        --data_parallel under a process group each rank decodes its rows of
+        every batch and every rank gets the whole batch's labels."""
         use_narration = "test" in getattr(self.args, "sm_constrain_with_narration", [])
+        mesh = self._data_parallel_mesh()
         resident = self._get_resident(test_data, use_narration)
         if resident is not None:
-            return self._predict_resident(resident)
+            return self._predict_resident(resident, mesh)
         drain = DeferredLabelDrain()
         for batch in iter_batches(
             test_data,
@@ -985,31 +1061,36 @@ class SemiMarkovModel(DeviceModel):
             )
             B = len(batch["lengths"])
             # fixed-B decode shapes; padded rows are dropped by the drain
-            features, lengths, _, cons, end_allowed, _ = self._pad_batch_rows(
-                batch["features"], batch["lengths"], None, cons, end_allowed
-            )
+            shard = self._batch_shard(mesh, B)
+            features, lengths, cons, end_allowed, _ = self._pad_batch_rows(
+                mesh, batch["features"], batch["lengths"], cons, end_allowed)
             features, lengths, cons, end_allowed = (
                 upload(x, self.device) for x in (features, lengths, cons, end_allowed)
             )
             labels, _ = self._decode(
-                features, lengths, upload(vc, self.device), cons, end_allowed
+                features, lengths, upload(vc, self.device), cons, end_allowed, shard
             )
+            labels = combine_rows(mesh, labels, shard.padded)
             drain.add((batch["video_name"], batch["lengths"]), labels, n_rows=B)
         return self._drained_predictions(drain)
 
-    def _predict_resident(self, resident):
+    def _predict_resident(self, resident, mesh):
         """predict's batches gathered from the resident corpus: the plan
         (sort_by_length, the streaming batches) goes to the device in one
         copy, every batch decodes through ``_decode`` in the streaming
-        order, and the labels come back in one copy."""
+        order (this rank's rows under a `mesh`, then the batch's labels
+        combined), and the labels come back in one copy."""
         plan = resident.make_plan(self.args.batch_size, shuffle=False, seed=1,
-                                  sort_by_length=True)
+                                  sort_by_length=True,
+                                  pad_rows_to=mesh.world)
         table = resident.upload_plan(plan)
         drain = DeferredLabelDrain()
         for b in plan.batches():
+            shard = self._batch_shard(mesh, b.size)
             features, lengths, vc, _, _, cons, end_allowed, _ = gather_resident_rows(
-                resident, table, b, with_gt=False)
-            labels, _ = self._decode(features, lengths, vc, cons, end_allowed)
+                resident, table, b, with_gt=False, rows=(shard.start, shard.stop))
+            labels, _ = self._decode(features, lengths, vc, cons, end_allowed, shard)
+            labels = combine_rows(mesh, labels, shard.padded)
             rows = [resident.row_of[key] for key in b.keys]
             drain.add(([name for _, name in b.keys], resident.host_len[rows]), labels,
                       n_rows=b.size)

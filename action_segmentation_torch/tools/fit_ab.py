@@ -1,0 +1,113 @@
+"""Time the single path's host-bound legs of this tree against another
+checkout's on one card, in turns.
+
+The legs are ``chip_smoke.py`` phase 4g's cases (``run_host_cases``):
+predict of the 18 S6 models over the val split, the constrained fit of 3
+tasks, one ``--mix_tasks`` epoch through ``main.main`` and the U7 fit,
+each streaming (``--sm_device_resident_mb 0``) and resident, none with
+--data_parallel. Run from the repository root on a machine with a CUDA
+card:
+
+    python3 -m action_segmentation_torch.tools.fit_ab --old_tree OLD_DIR [--rounds N] [--out ab.json]
+
+OLD_DIR is a checkout of an earlier commit, for example ``git archive
+<commit> | tar -x -C OLD_DIR`` into a directory that .gitignore lists; its
+``chip_smoke.py`` must have ``run_crosstask_slice`` and
+``run_host_cases(device, root, models, mixed, smi, budget_mb)``, as from
+the resident corpus's commit on. Each turn is a fresh process in one tree,
+in the order old, new, new, old, `--rounds` times over: it builds the
+tree's kernels, writes phase 4c's release and fits its 18 S6 models
+(``run_crosstask_slice``), pays Adam's lazy imports, then runs the cases
+streaming and resident and
+prints one JSON line of each case's wall seconds, frames/s and busy share
+(the kernels' time from a ``torch.profiler`` rerun over the wall). The
+tool prints each case's walls by turn and the new/old ratios of the two
+trees' mean and least walls, with the card's name and power limit.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+_TURN = r"""
+import contextlib, io, json, shutil, sys, tempfile
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from action_segmentation_torch import main as port_main
+from action_segmentation_torch.ops import _build
+
+device = torch.device("cuda")
+_build.build(["hsmm_scan", "band_max", "band_grad", "hsmm_viterbi"])
+root = tempfile.mkdtemp(prefix="fit_ab_")
+out = {}
+try:
+    with contextlib.redirect_stdout(sys.stderr):
+        ct = cs.run_crosstask_slice(device, root)
+        args = port_main.build_parser().parse_args(cs.cli_argv(root))
+        with contextlib.redirect_stdout(io.StringIO()):
+            mixed = port_main.make_data_splits(args)["all"][0]
+        torch.optim.Adam([torch.zeros(1, requires_grad=True)])
+        for budget in (0, None):
+            cases = cs.run_host_cases(device, root, ct[-1], mixed, "", budget)
+            for name, (rec, *_) in cases.items():
+                out["{}, {}".format(rec["mode"], name)] = {
+                    k: rec[k] for k in ("wall_s", "frames_per_s", "busy_share")}
+finally:
+    shutil.rmtree(root, ignore_errors=True)
+print("FIT_AB " + json.dumps(out), flush=True)
+"""
+
+
+def turn(tree):
+    """One turn in `tree`: {case: {wall_s, frames_per_s, busy_share}}."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+    proc = subprocess.run([sys.executable, "-c", _TURN], cwd=tree, env=env,
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("turn in {} failed ({}):\n{}".format(
+            tree, proc.returncode, proc.stderr[-4000:]))
+    line = [l for l in proc.stdout.splitlines() if l.startswith("FIT_AB ")][-1]
+    return json.loads(line[len("FIT_AB "):])
+
+
+def main(argv=None):
+    cli = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    cli.add_argument("--old_tree", required=True)
+    cli.add_argument("--rounds", type=int, default=1)
+    cli.add_argument("--out", default=None)
+    opts = cli.parse_args(argv)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    smi = smi.strip()
+    order = [("old", opts.old_tree), ("new", "."), ("new", "."),
+             ("old", opts.old_tree)] * opts.rounds
+    turns = []
+    for which, tree in order:
+        rec = turn(tree)
+        turns.append((which, rec))
+        print(which, json.dumps(rec), flush=True)
+    summary = {}
+    for case in turns[0][1]:
+        walls = {w: [rec[case]["wall_s"] for which, rec in turns if which == w]
+                 for w in ("old", "new")}
+        means = {w: sum(v) / len(v) for w, v in walls.items()}
+        summary[case] = {"old_wall_s": walls["old"], "new_wall_s": walls["new"],
+                         "new_over_old": means["new"] / means["old"],
+                         "least_new_over_old": min(walls["new"]) / min(walls["old"]),
+                         "busy": {w: [rec[case]["busy_share"] for which, rec in turns
+                                      if which == w] for w in ("old", "new")}}
+        print("{}: old {} s, new {} s, new/old {:.4f} (means), {:.4f} (least); {}".format(
+            case, ["{:.4f}".format(x) for x in walls["old"]],
+            ["{:.4f}".format(x) for x in walls["new"]], summary[case]["new_over_old"],
+            summary[case]["least_new_over_old"], smi), flush=True)
+    if opts.out:
+        with open(opts.out, "w") as f:
+            json.dump({"device": smi, "order": [w for w, _ in order], "turns": turns,
+                       "summary": summary}, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's decode, training and exact-spans paths,
-its command line, its compound model, its baselines and its resident
-corpus on one card and check them.
+its command line, its compound model, its baselines, its resident
+corpus and its data parallelism on one card and check them.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -128,6 +128,38 @@ exit and no result line:
                size of a batch's features, fewer copies than batches); (f)
                streaming against resident: wall time, frames/s, busy share,
                the builds' time and bytes;
+  4h. dp     — data parallelism over videos (parallel/mesh.py) on 4c's
+               release. Step 0: two gloo ranks spawned on the card (NCCL
+               refuses one card twice) and an NCCL group of one each
+               all_reduce (SUM and MAX) and broadcast CUDA tensors. (a)
+               World 1 under NCCL: 4d's unsupervised --mix_tasks command,
+               --epochs 2, with --data_parallel against the same command
+               without it: epoch losses, the last checkpoint's parameters,
+               the pickled models' val labels and the stats bit for bit;
+               K2-log and K4 once a training batch, K6 and its traceback
+               once a decode batch. (b) Two gloo ranks on the card against
+               4g's single resident runs: the first unsupervised step of
+               the constrained and U7 fits (bit-equal to the two ranks'
+               shares summed in one process; against the whole batch,
+               loss rtol 1e-5, each gradient tensor within 1e-4 of its
+               norm, which a rank's share alone is not), the constrained
+               fit (3 tasks x 2 epochs) and the U7 fit (each epoch's loss
+               within rtol 1e-4 or twice the single path's own spread over
+               two fits whose batches sum their videos in another order;
+               each rank's parameters bit-equal to rank 0's), the
+               constrained fit DP
+               resident against DP streaming bit for bit, predict of the 18
+               S6 models (labels equal on every val frame), the kernels
+               once a batch on each rank. (c) A two-rank main.main
+               --mix_tasks epoch with pickles and predictions: only rank 0
+               writes, the ranks' stats equal, the epoch loss at rtol 1e-4
+               and MoF/F1 within 0.05 of 4g's single run. (d)
+               graft_entry.dryrun_multichip(2) on the card (every stage
+               OK, the labels and training kernels launched) and
+               graft_entry.entry's forward step (K1 once, logZ against the
+               plain partition). (e) Each leg's wall, frames/s and busy
+               share at 1 rank (4g's) and 2 ranks, and the collectives'
+               share of each rank's wall;
   5. times   — CUDA-event kernel and plain-version times at the serving
                shape beside the roofline bound, the traceback's also beside
                its serial floor (the longest video's segments x one
@@ -152,9 +184,9 @@ exit and no result line:
                the CrossTask predict's frames/s.
 
 The line before the last is one JSON object {"kernels": [...]} (each
-kernel's launches on the slices' paths, and its cli_, u7_, baseline_ and
-resident_launches on phases 4d-4g); the last is {"ok": true, "device":
-{...}}. Imports nothing of JAX.
+kernel's launches on the slices' paths, and its cli_, u7_, baseline_,
+resident_ and dp_launches on phases 4d-4h, dp_ every rank's summed); the
+last is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 import argparse
@@ -2019,7 +2051,8 @@ def host_split(regions):
 
     sm = semimarkov.SemiMarkovModel
     rec = dict.fromkeys(HOST_PARTS, 0.0)
-    rec.update(regions=0.0, walls=[], batches=0, frames=0, builds=0, built_bytes=0)
+    rec.update(regions=0.0, walls=[], batches=0, frames=0, builds=0, built_bytes=0,
+               trained=0, decoded=0)
     state = {"depth": 0, "in_part": False}
 
     def part(fn, name):
@@ -2057,10 +2090,12 @@ def host_split(regions):
             if state["depth"]:
                 if what == "trained":  # (self, epoch, lr, stats, losses, log_rows, videos, frames
                     rec["batches"] += len(args[4])
+                    rec["trained"] += len(args[4])
                     rec["frames"] += args[7]
                 else:  # (self, (names, lengths), labels, n_rows)
                     n = kwargs.get("n_rows", args[3] if len(args) > 3 else None)
                     rec["batches"] += 1
+                    rec["decoded"] += 1
                     rec["frames"] += int(np.asarray(args[1][1])[:n].sum())
             return fn(*args, **kwargs)
         return count
@@ -2091,10 +2126,13 @@ def profiled(fn):
     HtoD in time order) from its Chrome trace."""
     import torch
 
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():  # a CPU rehearsal traces the host alone
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as prof:
         out = fn()
-        torch.cuda.synchronize()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
@@ -2243,7 +2281,8 @@ def run_resident_slice(device, root, models, smi):
     The profiled resident U7 fit: one corpus copy of its bytes, no copy a
     batch the size of a batch's features, fewer copies than batches. (f)
     Streaming against resident: wall, frames/s, busy share, builds.
-    Returns the e2e record."""
+    Returns the e2e record, the resident cases (run_host_cases's) and the
+    --mix_tasks train split."""
     import torch
 
     from action_segmentation_torch import checkpoint
@@ -2400,7 +2439,631 @@ def run_resident_slice(device, root, models, smi):
             "resident_launches": {k.__name__: totals[name] for name, k in zip(
                 CLI_KERNELS, cli_kernel_wrappers())},
             "resident_u7_corpus_bytes": corpus.nbytes,
-            "resident_u7_htod_after_corpus": after, "resident_phase_s": phase_s}
+            "resident_u7_htod_after_corpus": after, "resident_phase_s": phase_s}, resident, mixed
+
+
+# ----- phase 4h: data parallelism over videos -----
+
+# the legs phase 4h times at 1 rank (phase 4g's resident cases) and 2 ranks
+DP_LEGS = ("constrained fit", "u7 fit", "predict", "cli --mix_tasks epoch")
+# the training legs and their single resident fits in phase 4g
+DP_FITS = {"constrained fit": "constrained fit", "constrained fit, streaming": "constrained fit",
+           "u7 fit": "u7 fit"}
+
+
+# phase 4h(b): a first step's gradient tensors against the whole batch's, by
+# relative norm |g - w| / |w|. Two ranks sum their shares in another order
+# than one process sums the batch (U7's first step: about 1e-5 of the norm on
+# an H100); a rank's share alone (the sum over ranks skipped) is the planted
+# fault the limit must catch.
+DP_GRAD_NORM_RTOL = 1e-4
+
+
+def rel_norm(got, want):
+    """|got - want| / |want| in float64 (0 where both are 0)."""
+    got, want = got.double(), want.double()
+    den = float(want.norm())
+    num = float((got - want).norm())
+    return num / den if den > 0 else num
+
+
+@contextlib.contextmanager
+def process_group(backend, device=None):
+    """A process group of one rank in this process (`backend` over a
+    ``file://`` store in a temporary directory), destroyed on exit;
+    yields its Mesh."""
+    import torch.distributed as dist
+
+    from action_segmentation_torch.parallel.mesh import COLLECTIVE_TIMEOUT, make_mesh
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_group_") as tmp:
+        dist.init_process_group(backend, init_method="file://" + os.path.join(tmp, "store"),
+                                rank=0, world_size=1, timeout=COLLECTIVE_TIMEOUT)
+        try:
+            yield make_mesh(1, device=device)
+        finally:
+            dist.destroy_process_group()
+
+
+def transports(mesh):
+    """Step 0 on one rank: an all_reduce SUM, an all_reduce MAX and a
+    broadcast of tensors on the rank's device, each against its known
+    result; returns the group's backend, the tensors' device and whether
+    all three held."""
+    import torch
+    import torch.distributed as dist
+
+    from action_segmentation_torch.parallel.mesh import all_reduce
+
+    base = torch.arange(4, dtype=torch.float32, device=mesh.device)
+    x = base + mesh.rank
+    total = all_reduce(mesh, x.clone())
+    top = all_reduce(mesh, x.clone(), dist.ReduceOp.MAX)
+    sent = x.clone()
+    dist.broadcast(sent, src=0, group=mesh.group)
+    ok = (torch.equal(total, base * mesh.world + sum(range(mesh.world)))
+          and torch.equal(top, base + mesh.world - 1) and torch.equal(sent, base))
+    return {"backend": dist.get_backend(), "device": str(total.device), "world": mesh.world,
+            "ok": bool(ok)}
+
+
+@contextlib.contextmanager
+def collective_timer():
+    """Pass-through time.perf_counter shims on torch.distributed's all_reduce
+    and broadcast, the port's two collectives: yields {"s", "calls"}. Under
+    gloo on CUDA tensors a call blocks the host until its sum is back, so
+    its time is the collective's, waits for the other rank included."""
+    import torch.distributed as dist
+
+    rec = {"s": 0.0, "calls": 0}
+    saved = dist.all_reduce, dist.broadcast
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                rec["s"] += time.perf_counter() - t0
+                rec["calls"] += 1
+        return call
+
+    dist.all_reduce, dist.broadcast = timed(saved[0]), timed(saved[1])
+    try:
+        yield rec
+    finally:
+        dist.all_reduce, dist.broadcast = saved
+
+
+def first_step(model, train, mesh):
+    """The first unsupervised batch of `model`'s fit on `train` (the moment
+    init, rank 0's parameters, epoch 0's first batch, this rank's rows of
+    it): (the batch's loss, its gradients by name and its loss-term sums on
+    the CPU, its videos), summed over the mesh's ranks. A Mesh without a
+    group, as a process makes one up for rank r of a world, sums nothing:
+    that rank's share alone."""
+    import torch
+
+    from action_segmentation_torch.parallel.mesh import (
+        all_reduce_grads,
+        reduce_terms,
+        replicate_module,
+        terms_to_loss_aux,
+    )
+
+    model._moment_init(train)
+    replicate_module(mesh, model.module)
+    use_narration = "train" in model.args.sm_constrain_with_narration
+    resident = model._get_resident(train, use_narration)
+    seed = (model.args.seed or 1) + 0
+    batches = (model._resident_batches(resident, seed, mesh) if resident is not None
+               else model._streamed_batches(train, seed, use_narration, mesh))
+    bix, size, _, batch, shard = next(iter(batches))
+    loss, aux = model._loss(*batch, use_labels=False,
+                            generator=model._noise_generator(0, bix, False), denom=size,
+                            shard=shard)
+    loss.backward()
+    all_reduce_grads(mesh, list(model.module.parameters()))
+    terms = reduce_terms(mesh, aux["terms"].clone())
+    total, _ = terms_to_loss_aux(terms, torch.tensor(float(size), device=loss.device), False)
+    grads = {n: p.grad.cpu() for n, p in model.module.named_parameters() if p.grad is not None}
+    return total.item(), grads, terms.cpu(), size
+
+
+def dp_fits(fargs, trains, device, mesh=None):
+    """Unsupervised fits of `fargs` on each split: [(epoch losses, the
+    parameters on the CPU, the state tensors unequal to rank 0's)]."""
+    from action_segmentation_torch.models.semimarkov import SemiMarkovModel
+    from action_segmentation_torch.parallel.mesh import replicas_differ
+
+    out = []
+    for train in trains:
+        model = SemiMarkovModel.from_args(fargs, train, device=device)
+        losses = []
+        model.fit(train, use_labels=False,
+                  callback_fn=lambda e, st, losses=losses: losses.append(st["train_loss"]))
+        out.append((losses, {k: v.detach().cpu() for k, v in model.module.state_dict().items()},
+                    None if mesh is None else replicas_differ(mesh, model.module)))
+    return out
+
+
+def counted_cli(argv, device):
+    """main.main(argv) on `device` under cli_recorder (numpy seeded at each
+    test(), the epoch losses recorded, the log held back), counting the
+    pickles and prediction sets this process wrote: (stats, epochs,
+    writes)."""
+    from action_segmentation_torch import checkpoint
+    from action_segmentation_torch import main as port_main
+    from action_segmentation_torch.models.semimarkov import SemiMarkovModel
+
+    writes = {"pickles": 0, "predictions": 0}
+    saved = checkpoint.save_pickle, port_main.write_predictions
+
+    def counted(fn, what):
+        def call(*args, **kwargs):
+            writes[what] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    checkpoint.save_pickle = counted(saved[0], "pickles")
+    port_main.write_predictions = counted(saved[1], "predictions")
+    try:
+        with cli_recorder(port_main, SemiMarkovModel) as epochs, \
+                contextlib.redirect_stdout(io.StringIO()):
+            stats = port_main.main(argv, device=device)
+    finally:
+        checkpoint.save_pickle, port_main.write_predictions = saved
+    return stats, list(epochs), writes
+
+
+def timed_leg(work, regions, device):
+    """work() with every kernel's launch counter reset before it, under
+    host_split(regions) and collective_timer, ended by a sync: (result,
+    record: the regions' wall s, frames, trained and decoded batches,
+    launches by CLI_KERNELS name, the collectives' s and calls)."""
+    import torch
+
+    kernels = cli_kernel_wrappers()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    with host_split(regions) as rec, collective_timer() as coll:
+        result = work()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return result, {"wall_s": rec["regions"], "frames": rec["frames"],
+                    "trained": rec["trained"], "decoded": rec["decoded"],
+                    "launches": dict(zip(CLI_KERNELS, (k.launches for k in kernels))),
+                    "collective_s": coll["s"], "collective_calls": coll["calls"]}
+
+
+def dp_rank(mesh, root, model_paths, out_dir, dim_per_group):
+    """Phase 4h's rank body (spawned by parallel.mesh.run_ranks): step 0's
+    transports, then (b) the first unsupervised steps of the constrained
+    and U7 fits, the constrained fit of CT_FIT_TASKS tasks resident and
+    streaming, the U7 fit on the --mix_tasks train split and predict of the
+    18 S6 models (phase 4c's, from their pickles), and (c) one --mix_tasks
+    main.main epoch with pickles and predictions, all with --data_parallel;
+    each leg timed and counted (timed_leg), then run again under
+    torch.profiler for the kernels' time. Returns CPU tensors and plain
+    values. `dim_per_group` is the release's
+    (a CPU rehearsal writes a narrower one), set in this fresh process."""
+    import torch
+
+    from action_segmentation_torch import checkpoint
+    from action_segmentation_torch import main as port_main
+    from action_segmentation_torch.models.semimarkov import SemiMarkovModel
+
+    global CT_DIM_PER_GROUP
+    CT_DIM_PER_GROUP = dim_per_group
+    device = mesh.device
+    out = {"transports": transports(mesh)}
+    with contextlib.redirect_stdout(io.StringIO()):
+        splits = port_main.make_data_splits(crosstask_args(root))
+        mixed = port_main.make_data_splits(
+            port_main.build_parser().parse_args(cli_argv(root)))["all"][0]
+    trains = [train for train, _, _ in list(splits.values())[:CT_FIT_TASKS]]
+    vals = [val for _, _, val in splits.values()]
+    flags = ("--sm_constrain_transitions", "--sm_constrain_with_narration", "train",
+             "--epochs", "2", "--data_parallel")
+    uargs = crosstask_args(root, *flags)
+    sargs = crosstask_args(root, *flags, "--sm_device_resident_mb", "0")
+    u7args = port_main.build_parser().parse_args(
+        cli_argv(root, "--sm_component_model", "--epochs", "2", "--data_parallel"))
+    out["first_steps"] = {
+        "constrained": first_step(SemiMarkovModel.from_args(uargs, trains[0], device=device),
+                                  trains[0], mesh),
+        "u7": first_step(SemiMarkovModel.from_args(u7args, mixed, device=device), mixed, mesh)}
+    models = [checkpoint.load_pickle(path, device=device) for path in model_paths]
+    for model in models:
+        model.args.data_parallel = True
+    cli_dir = os.path.join(out_dir, "cli")
+    argv = cli_argv(root, "--epochs", "1", "--data_parallel", "--model_output_path",
+                    os.path.join(cli_dir, "models"), "--prediction_output_path",
+                    os.path.join(cli_dir, "predictions"))
+    legs = {
+        "constrained fit": (lambda: dp_fits(uargs, trains, device, mesh), ("fit",)),
+        "constrained fit, streaming": (lambda: dp_fits(sargs, trains, device, mesh), ("fit",)),
+        "u7 fit": (lambda: dp_fits(u7args, [mixed], device, mesh), ("fit",)),
+        "predict": (lambda: [m.predict(val) for m, val in zip(models, vals)], ("predict",)),
+        "cli --mix_tasks epoch": (lambda: counted_cli(argv, device), ("fit", "predict")),
+    }
+    # as phase 4g found them in the single process: the val corpora built
+    # (phase 4c) and Adam's lazy imports paid
+    legs["predict"][0]()
+    torch.optim.Adam([torch.zeros(1, requires_grad=True)])
+    for name, (work, regions) in legs.items():
+        out[name] = timed_leg(work, regions, device)
+    for name in DP_LEGS:
+        _, kernel_us, _ = profiled(legs[name][0])
+        out[name][1]["kernel_us"] = kernel_us
+    return out
+
+
+@contextlib.contextmanager
+def reordered_batches(order):
+    """Every resident batch of a fit gathers its real videos in the order
+    ``order(B)`` (a permutation of range(B), on the CPU) gives: the same
+    sums in another order, so a fit under it differs from the plain one
+    by the single path's own float32 spread. For a model whose loss draws
+    no noise a row (U7 has no latent)."""
+    from action_segmentation_torch.models import semimarkov
+
+    saved = semimarkov.gather_resident_rows
+
+    def gather(res, table, b, with_gt=True, rows=None):
+        table = table.clone()
+        perm = order(b.size).to(table.device)
+        table[b.row, :b.size] = table[b.row, :b.size][perm]
+        return saved(res, table, b, with_gt, rows)
+
+    semimarkov.gather_resident_rows = gather
+    try:
+        yield
+    finally:
+        semimarkov.gather_resident_rows = saved
+
+
+def run_dp_slice(device, root, models, resident_cases, mixed, smi):
+    """Phase 4h: data parallelism over videos on phase 4c's release. Step 0:
+    the transports, two gloo ranks sharing the card (spawned) and an NCCL
+    group of one. (a) World 1 under NCCL: 4d's unsupervised --mix_tasks
+    command, --epochs 2, with --data_parallel against the same command
+    without it, bit for bit (epoch losses, the last checkpoint's
+    parameters, the pickled models' val labels, the stats), K2-log and K4
+    once a training batch, K6 and its traceback once a decode batch. (b)
+    Two gloo ranks on the card (dp_rank) against phase 4g's single resident
+    runs: the first steps bit-equal to the shares' sum, their losses (rtol
+    1e-5) and gradients (each tensor within DP_GRAD_NORM_RTOL of its norm,
+    a rank's share alone not), the fits' epoch losses (rtol 1e-4, or twice
+    the single path's spread under reordered_batches), the ranks' parameters
+    bit-equal, predict's labels equal on every val frame, DP resident
+    equal to DP streaming, the kernels once a batch on each rank. (c) A
+    two-rank main.main epoch: only rank 0 writes, the ranks' stats equal,
+    within tolerance of 4g's. (d) graft_entry.dryrun_multichip(2) on the
+    card and graft_entry.entry (K1). (e) Each leg's wall and frames/s at 1
+    and 2 ranks, the card's busy share at each, the collectives' share.
+    Returns the e2e record with every kernel's dp_launches."""
+    import torch
+
+    from action_segmentation_torch import checkpoint, graft_entry
+    from action_segmentation_torch import main as port_main
+    from action_segmentation_torch.ops.hsmm import hsmm_partition
+    from action_segmentation_torch.ops.hsmm_cuda import hsmm_forward_scan
+    from action_segmentation_torch.parallel.mesh import (
+        Mesh,
+        run_ranks,
+        single_mesh,
+        terms_to_loss_aux,
+    )
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    names = dict(zip(CLI_KERNELS, (k.__name__ for k in cli_kernel_wrappers())))
+    dp_launches = dict.fromkeys(names.values(), 0)
+
+    def add_launches(launches):
+        for k, n in launches.items():
+            dp_launches[names.get(k, k)] += n
+
+    def once_a_batch(name, rec):
+        n = rec["launches"]
+        check(not on_card or (n["log scan"] == n["band grad"] == rec["trained"]
+                              and n["viterbi scan"] == n["traceback"] == rec["decoded"]
+                              and n["forward scan"] == 0),
+              "{}: launches {} against {} training and {} decode batches".format(
+                  name, n, rec["trained"], rec["decoded"]))
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        # (a) world 1 under NCCL, against the same command without the flag
+        t0 = time.perf_counter()
+        argv = cli_argv(root, "--epochs", "2", "--checkpoint_every", "1")
+        runs = {}
+        with process_group("nccl" if on_card else "gloo", device=device) as mesh:
+            nccl = transports(mesh)
+            runs["dp"] = timed_leg(lambda: counted_cli(argv + [
+                "--data_parallel", "--model_output_path", os.path.join(out_dir, "a_dp"),
+                "--checkpoint_dir", os.path.join(out_dir, "a_dp_ck")], device),
+                ("fit", "predict"), device)
+        runs["single"] = timed_leg(lambda: counted_cli(argv + [
+            "--model_output_path", os.path.join(out_dir, "a_single"),
+            "--checkpoint_dir", os.path.join(out_dir, "a_single_ck")], device),
+            ("fit", "predict"), device)
+        check(nccl["ok"], "the NCCL group of one: {}".format(nccl))
+        (dp_stats, dp_epochs, _), dp_rec = runs["dp"]
+        (single_stats, single_epochs, _), single_rec = runs["single"]
+        check(dp_epochs == single_epochs and len(dp_epochs) == 2,
+              "world 1 epoch losses {} != {}".format(dp_epochs, single_epochs))
+        assert_stats_equal("world 1 vs single", dp_stats, single_stats)
+        got, _, _ = checkpoint.load_checkpoint(os.path.join(out_dir, "a_dp_ck"), 1)
+        want, _, _ = checkpoint.load_checkpoint(os.path.join(out_dir, "a_single_ck"), 1)
+        differ = [k for k, w in want["params"].items() if not torch.equal(got["params"][k], w)]
+        check(sorted(got["params"]) == sorted(want["params"]) and not differ,
+              "world 1 parameters differ: {}".format(differ))
+        with contextlib.redirect_stdout(io.StringIO()):
+            mixed_val = port_main.make_data_splits(
+                port_main.build_parser().parse_args(cli_argv(root)))["all"][2]
+        labels = [checkpoint.load_pickle(os.path.join(out_dir, d, "all.pkl"),
+                                         device=device).predict(mixed_val)
+                  for d in ("a_dp", "a_single")]
+        check(list(labels[0]) == list(labels[1]) and all(
+            np.array_equal(labels[0][v], labels[1][v]) for v in labels[1]),
+            "world 1 pickled model's val labels differ")
+        for name in ("dp", "single"):
+            once_a_batch("(a) " + name, runs[name][1])
+        add_launches(dp_rec["launches"])
+        phase("dp", "step 0: an NCCL group of one on {}: all_reduce SUM and MAX and broadcast "
+              "of CUDA tensors held ({}; NCCL never stages through the host)".format(
+                  nccl["device"], nccl["backend"]))
+        phase("dp", "(a) world 1 under NCCL, --mix_tasks --epochs 2 with --data_parallel == "
+              "without it: epoch losses {}, {} parameter tensors, the pickled models' labels "
+              "on {} val videos and the stats bit for bit; launches {} over {} training and {} "
+              "decode batches; {:.3f} s, without the flag {:.3f} s; {:.1f} s".format(
+                  dp_epochs, len(want["params"]), len(labels[1]), dp_rec["launches"],
+                  dp_rec["trained"], dp_rec["decoded"], dp_rec["wall_s"],
+                  single_rec["wall_s"], time.perf_counter() - t0))
+
+        # (b), (c) and (e): two gloo ranks sharing the card
+        t0 = time.perf_counter()
+        paths = []
+        for i, (_, model, _, _) in enumerate(models):
+            paths.append(os.path.join(out_dir, "s6", "{}.pkl".format(i)))
+            checkpoint.save_pickle(model, paths[-1])
+        ranks = run_ranks(dp_rank, 2, root, paths, out_dir, CT_DIM_PER_GROUP, device=device,
+                          backend="gloo", timeout=900)
+        spawn_s = time.perf_counter() - t0
+        for rank, r in enumerate(ranks):
+            check(r["transports"]["ok"] and r["transports"]["backend"] == "gloo",
+                  "rank {} transports: {}".format(rank, r["transports"]))
+        phase("dp", "step 0: two gloo ranks spawned on {}: all_reduce SUM and MAX and broadcast "
+              "of CUDA tensors held on both (gloo took the CUDA tensors directly; no staging "
+              "by the port)".format(ranks[0]["transports"]["device"]))
+
+        # the first steps against the single path's
+        trains = [train for _, _, train, _ in models[:CT_FIT_TASKS]]
+        uargs = crosstask_args(root, "--sm_constrain_transitions",
+                               "--sm_constrain_with_narration", "train", "--epochs", "2")
+        u7args = port_main.build_parser().parse_args(
+            cli_argv(root, "--sm_component_model", "--epochs", "2"))
+        from action_segmentation_torch.models.semimarkov import SemiMarkovModel
+
+        first = {"constrained": (uargs, trains[0]), "u7": (u7args, mixed)}
+        step_errs, fault_errs = {}, {}
+        for name, (fargs, train) in first.items():
+            want_loss, want_grads, _, size = first_step(
+                SemiMarkovModel.from_args(fargs, train, device=device), train,
+                single_mesh(device))
+            # the two ranks' shares in this process, summed here: what the
+            # ranks' all_reduce must give, bit for bit
+            shares = [first_step(SemiMarkovModel.from_args(fargs, train, device=device), train,
+                                 Mesh(None, r, 2, device)) for r in (0, 1)]
+            emu_loss = terms_to_loss_aux(shares[0][2] + shares[1][2],
+                                         torch.tensor(float(size)), False)[0].item()
+            emu = {k: shares[0][1][k] + shares[1][1][k] for k in shares[0][1]}
+            # the planted fault: each rank's share alone, as if the sum were
+            # skipped; the check must catch it on some rank
+            flat = [torch.cat([g[k].reshape(-1) for k in sorted(want_grads)])
+                    for g in (shares[0][1], shares[1][1], want_grads)]
+            fault_errs[name] = [rel_norm(f, flat[2]) for f in flat[:2]]
+            check(max(fault_errs[name]) > DP_GRAD_NORM_RTOL,
+                  "{} first step: each rank's share alone is within {} of the whole batch's "
+                  "gradients ({})".format(name, DP_GRAD_NORM_RTOL, fault_errs[name]))
+            for rank, r in enumerate(ranks):
+                loss, grads, _, _ = r["first_steps"][name]
+                check(loss == emu_loss and sorted(grads) == sorted(emu) and all(
+                    torch.equal(grads[k], emu[k]) for k in emu),
+                      "{} first step, rank {}: not the two shares' sum".format(name, rank))
+                check(abs(loss - want_loss) <= 1e-5 * abs(want_loss),
+                      "{} first step, rank {}: loss {} != {}".format(name, rank, loss,
+                                                                    want_loss))
+                check(sorted(grads) == sorted(want_grads), name + ": gradients' names")
+                for k, w in want_grads.items():
+                    err = rel_norm(grads[k], w)
+                    check(err <= DP_GRAD_NORM_RTOL,
+                          "{} first step, rank {}: gradient {} off by {} of its norm".format(
+                              name, rank, k, err))
+                    step_errs[name] = max(step_errs.get(name, 0.0), err)
+
+        # the fits against phase 4g's single resident fits, every epoch at
+        # rtol 1e-4 or, where the single path's own float32 spread is wider,
+        # within twice that spread: the largest gap of two single fits whose
+        # batches sum their videos in another order (reversed, rotated by
+        # one). Adam carries the first step's rounding on (U7's gradients
+        # reach 1e5, so their sums round in units), and DP's two shares are
+        # one more such order. The ranks' parameters equal.
+        orders = {"reversed": lambda n: torch.arange(n - 1, -1, -1),
+                  "rotated": lambda n: torch.roll(torch.arange(n), 1)}
+        spread = {}
+        for name, single in DP_FITS.items():
+            if single in spread:
+                continue
+            fargs, trains_of = ((uargs, trains) if single == "constrained fit"
+                                else (u7args, [mixed]))
+            want = resident_cases[single][1]
+            gaps = []
+            for order in orders.values():
+                with reordered_batches(order):
+                    fits = dp_fits(fargs, trains_of, device)
+                for (losses, _, _), (_, want_losses) in zip(fits, want):
+                    gaps.append([abs(a - b) / abs(b) for a, b in zip(losses, want_losses)])
+            spread[single] = np.max(gaps, axis=0).tolist()
+        loss_gaps = {}
+        for name, single in DP_FITS.items():
+            want = resident_cases[single][1]
+            limit = np.maximum(1e-4, 2.0 * np.asarray(spread[single]))
+            for rank, r in enumerate(ranks):
+                fits, rec = r[name]
+                once_a_batch("(b) {}, rank {}".format(name, rank), rec)
+                check(len(fits) == len(want), name + ": fit count")
+                for (losses, params, differ), (_, want_losses), (_, params0, _) in zip(
+                        fits, want, ranks[0][name][0]):
+                    gap = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
+                    loss_gaps[name] = np.maximum(loss_gaps.get(name, 0.0), gap).tolist()
+                    check(len(losses) == len(want_losses) and all(np.asarray(gap) <= limit),
+                          "{}, rank {}: epoch losses {} vs single {}: gaps {} over {} (the "
+                          "single path's spread {})".format(
+                              name, rank, losses, want_losses, gap, limit.tolist(),
+                              spread[single]))
+                    check(differ == [] and all(torch.equal(params[k], params0[k])
+                                               for k in params0),
+                          "{}, rank {}: parameters differ from rank 0's: {}".format(
+                              name, rank, differ))
+        for rank, r in enumerate(ranks):
+            for (l_res, p_res, _), (l_str, p_str, _) in zip(
+                    r["constrained fit"][0], r["constrained fit, streaming"][0]):
+                check(l_res == l_str and all(torch.equal(p_res[k], p_str[k]) for k in p_res),
+                      "rank {}: DP resident fit != DP streaming fit".format(rank))
+        # predict: labels equal on every val frame
+        want = resident_cases["predict"][1]
+        frames = 0
+        for rank, r in enumerate(ranks):
+            got, rec = r["predict"]
+            once_a_batch("(b) predict, rank {}".format(rank), rec)
+            for g, w in zip(got, want):
+                check(list(g) == list(w), "DP predict's videos differ")
+                for video in w:
+                    check(np.array_equal(g[video], w[video]),
+                          "rank {}: DP labels differ: {}".format(rank, video))
+                    frames += len(w[video]) if rank == 0 else 0
+        for r in ranks:
+            for name in ("constrained fit", "constrained fit, streaming", "u7 fit", "predict"):
+                add_launches(r[name][1]["launches"])
+        phase("dp", "(b) two gloo ranks on the card against phase 4g's single resident runs: "
+              "the first steps bit-equal to the two shares' sum taken in this process, and "
+              "against the whole batch: losses at rtol 1e-5, each gradient tensor within {} "
+              "of its norm (largest {}; each rank's share alone, the planted fault, {}); the "
+              "constrained fit ({} tasks) and the U7 fit, 2 epochs, each epoch's loss within "
+              "rtol 1e-4 or twice the single path's spread under reordered batches (gaps by "
+              "epoch {}; spread {}; constrained {} vs {}; u7 {} vs {}), each rank's "
+              "parameters bit-equal to rank 0's; DP resident == DP streaming bit for bit; "
+              "predict of the 18 S6 models: labels equal on all {} val frames; launches on "
+              "rank 0: {}".format(
+                  DP_GRAD_NORM_RTOL, step_errs, fault_errs, CT_FIT_TASKS, loss_gaps, spread,
+                  ranks[0]["constrained fit"][0][0][0],
+                  resident_cases["constrained fit"][1][0][1], ranks[0]["u7 fit"][0][0][0],
+                  resident_cases["u7 fit"][1][0][1],
+                  frames, {k: ranks[0][k][1]["launches"] for k in DP_FITS}))
+
+        # (c) the two-rank command line
+        (s0, e0, w0), rec0 = ranks[0]["cli --mix_tasks epoch"]
+        (s1, e1, w1), rec1 = ranks[1]["cli --mix_tasks epoch"]
+        assert_stats_equal("the two ranks' command line", s1, s0)
+        check(e0 == e1, "the ranks' epoch losses {} != {}".format(e0, e1))
+        check(w0["pickles"] > 0 and w0["predictions"] > 0
+              and w1 == {"pickles": 0, "predictions": 0},
+              "writes: rank 0 {}, rank 1 {}".format(w0, w1))
+        cli_dir = os.path.join(out_dir, "cli")
+        pickles = sorted(os.listdir(os.path.join(cli_dir, "models")))
+        written = len(os.listdir(os.path.join(cli_dir, "predictions")))
+        n_val = len(mixed_val._tasks_and_video_names)
+        check(pickles == ["all.pkl", "all_epoch-0.pkl"] and written == n_val,
+              "the command line wrote {} and {} prediction files ({} val videos)".format(
+                  pickles, written, n_val))
+        (want_stats, want_epochs) = resident_cases["cli --mix_tasks epoch"][1]
+        check(np.allclose([l for _, l in e0], [l for _, l in want_epochs], rtol=1e-4, atol=0),
+              "two-rank epoch loss {} vs single {}".format(e0, want_epochs))
+        gaps = []
+        for task, w in want_stats["all"].items():
+            for key in ("mof", "f1"):
+                a, b = s0["all"][task][key], w[key]
+                gaps.append(abs(float(a[0]) / float(a[1]) - float(b[0]) / float(b[1])))
+        check(max(gaps) < 0.05, "two-rank MoF/F1 off the single run's by {}".format(max(gaps)))
+        once_a_batch("(c) rank 0", rec0)
+        for r in ranks:
+            add_launches(r["cli --mix_tasks epoch"][1]["launches"])
+        phase("dp", "(c) two-rank main.main --mix_tasks epoch: the ranks' stats equal, epoch "
+              "loss {} (single {}), MoF/F1 within {:.4f} of the single run's; rank 0 wrote {} "
+              "({} pickles, {} prediction sets), rank 1 nothing; launches {}; the ranks' "
+              "run {:.1f} s with their spawn and loads".format(
+                  e0, want_epochs, max(gaps), pickles, w0["pickles"], w0["predictions"],
+                  rec0["launches"], spawn_s))
+
+        # (d) the dry run on the card and the entry's forward step (K1)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as dry_out:
+            dry = graft_entry.dryrun_multichip(2, device=device)
+        stages = [line for line in dry_out.getvalue().splitlines() if line.startswith("dryrun")]
+        check(len(stages) == 6 and all(" OK" in line for line in stages),
+              "dry run: {}".format(stages))
+        for launches in dry["launches"]:
+            check(not on_card or (launches["hsmm_gamma_scan"] > 0 and
+                                  launches["hsmm_band_max"] > 0 and
+                                  launches["hsmm_log_scan"] == launches["hsmm_band_grad"] > 0),
+                  "dry run launches {}".format(launches))
+            add_launches(launches)
+        hsmm_forward_scan.launches = 0
+        fn, example = graft_entry.entry(device)
+        logz = fn(*example)
+        k1 = hsmm_forward_scan.launches
+        with torch.no_grad():
+            pots, log_det, _ = example[0].compute_potentials(*example[1:])
+            want_logz = hsmm_partition(pots, example[2]) + log_det
+        assert_close("entry forward", logz, want_logz)
+        check(not on_card or k1 == 1, "entry launched the forward scan {} times".format(k1))
+        add_launches({"forward scan": k1})
+        for line in stages:
+            phase("dp", "(d) " + line)
+        phase("dp", "(d) the dry run's ranks launched {}; graft_entry.entry: logZ + log_det "
+              "{} against the plain partition at rtol 1e-5 / atol 1e-4, the forward scan "
+              "(K1) {} time; {:.1f} s".format(dry["launches"], logz.tolist(), k1,
+                                              time.perf_counter() - t0))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # (e) times at 1 rank (phase 4g's resident cases) and 2 ranks
+    times = {}
+    for name in DP_LEGS:
+        one = resident_cases[name][0]
+        recs = [r[name][1] for r in ranks]
+        wall = max(rec["wall_s"] for rec in recs)
+        kernel_us = sum(rec["kernel_us"] for rec in recs)
+        times[name] = {
+            "one_rank": {"wall_s": one["wall_s"], "frames_per_s": one["frames_per_s"],
+                         "busy_share": one["busy_share"]},
+            "two_ranks": {"wall_s": wall, "frames_per_s": recs[0]["frames"] / wall,
+                          "busy_share": kernel_us / 1e6 / wall,
+                          "kernel_ms": kernel_us / 1e3,
+                          "collective_share": [rec["collective_s"] / rec["wall_s"]
+                                               for rec in recs],
+                          "collective_calls": recs[0]["collective_calls"],
+                          "batches": recs[0]["trained"] + recs[0]["decoded"]}}
+        two = times[name]["two_ranks"]
+        phase("dp", "(e) {}: 1 rank {:.4f} s, {:.0f} frames/s, busy {:.4f}; 2 gloo ranks on the "
+              "card {:.4f} s ({:.2f}x), {:.0f} frames/s, busy {:.4f} ({:.3f} ms of kernels, both "
+              "ranks); the collectives {} calls, {} of each rank's wall; {}".format(
+                  name, one["wall_s"], one["frames_per_s"], one["busy_share"], wall,
+                  one["wall_s"] / wall, two["frames_per_s"], two["busy_share"],
+                  two["kernel_ms"], two["collective_calls"],
+                  ["{:.4f}".format(x) for x in two["collective_share"]], smi))
+    phase_s = time.perf_counter() - t_phase
+    phase("dp", "phase 4h: {:.3f} s".format(phase_s))
+    return {"dp_times": times, "dp_launches": dp_launches, "dp_world1_s": {
+        "dp": dp_rec["wall_s"], "single": single_rec["wall_s"]},
+        "dp_first_step_grad_rel_norm": step_errs, "dp_planted_fault_rel_norm": fault_errs,
+        "dp_single_spread": spread, "dp_epoch_loss_max_rel_gap":
+        loss_gaps, "dp_phase_s": phase_s}
 
 
 def cuda_ms(fn, n, warmup=3):
@@ -2649,7 +3312,9 @@ def main():
         e2e.update(run_cli_slice(root, ct_stats, smi))
         e2e.update(run_u7_slice(device, root, smi))
         e2e.update(run_baselines_slice(root, smi))
-        e2e.update(run_resident_slice(device, root, ct_models, smi))
+        resident_e2e, resident_cases, mixed = run_resident_slice(device, root, ct_models, smi)
+        e2e.update(resident_e2e)
+        e2e.update(run_dp_slice(device, root, ct_models, resident_cases, mixed, smi))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     e2e.update(train_e2e)
@@ -2889,6 +3554,9 @@ def main():
         # phase 4f's: no baseline reaches the HSMM chain
         k["baseline_launches"] = e2e["baseline_launches"][k["name"]]
         check(k["baseline_launches"] == 0, "{} launched by a baseline".format(k["name"]))
+        # phase 4h's data-parallel runs, every rank's summed
+        k["dp_launches"] = e2e["dp_launches"][k["name"]]
+        check(k["dp_launches"] > 0, "{} was not launched on phase 4h's ranks".format(k["name"]))
         check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
         check(k["launches"] > 0, "{} was not launched on its path".format(k["name"]))
     phase("times", "serving shape B={} T={} C={} K={}; {} launches of each kernel; "

@@ -31,6 +31,7 @@ from action_segmentation_torch.data.synthetic import SyntheticDatasplit as TSpli
 from action_segmentation_torch.models import base as tbase
 from action_segmentation_torch.models import semimarkov as tsm
 from action_segmentation_torch.models.semimarkov import SemiMarkovModel as TModel
+from action_segmentation_torch.parallel.mesh import single_mesh
 from action_segmentation_tpu.data import resident as jres
 from action_segmentation_tpu.data.synthetic import SyntheticDatasplit as JSplit
 from action_segmentation_tpu.models.semimarkov import SemiMarkovModel as JModel
@@ -480,8 +481,8 @@ def test_resident_tensors_match_jax(ct_root):
 def streaming_decode_batch(model, batch, split, use_narration):
     """The padded tensors predict's streaming path decodes for `batch`."""
     vc, _, cons, end = model._batch_device_args(batch, split, use_narration)
-    features, lengths, _, cons, end, _ = model._pad_batch_rows(
-        batch["features"], batch["lengths"], None, cons, end)
+    features, lengths, cons, end, _ = model._pad_batch_rows(
+        single_mesh("cpu"), batch["features"], batch["lengths"], cons, end)
     return tuple(torch.from_numpy(np.ascontiguousarray(x))
                  for x in (features, lengths, vc, cons, end))
 

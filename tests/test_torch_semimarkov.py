@@ -180,18 +180,31 @@ def test_class_shape_bucket_parity():
 
 
 def test_unported_paths_raise():
-    """Data parallelism raises until its slice. (The constraint and merge
-    flags are ported: tests/test_torch_constrained.py; checkpoints, resume
-    and profiling: tests/test_torch_checkpoint.py and tests/test_torch_cli.py;
+    """Every path is ported: only the retired --model_parallel > 1 raises,
+    and --data_parallel with no process group on one device runs the
+    single path, equal to the run without the flag. (Data parallelism
+    under a group: tests/test_torch_parallel.py; the constraint and merge
+    flags: tests/test_torch_constrained.py; checkpoints, resume and
+    profiling: tests/test_torch_checkpoint.py and tests/test_torch_cli.py;
     the flow and the compound model: tests/test_torch_flow.py and
     tests/test_torch_compound.py.)"""
     train, _ = splits(TSplit, n_train=4)
-    for flag, value in (("data_parallel", True),):
-        args = make_sm_args(sm_supervised_method="gradient-based", **{flag: value})
-        model = TModel.from_args(args, train, device="cpu")
-        for use_labels in (True, False):
-            with pytest.raises(NotImplementedError, match="slice"):
-                model.fit(train, use_labels=use_labels)
+    for use_labels in (True, False):
+        fits = []
+        for dp in (False, True):
+            args = make_sm_args(sm_supervised_method="gradient-based", epochs=2,
+                                data_parallel=dp)
+            model = TModel.from_args(args, train, device="cpu")
+            losses = []
+            model.fit(train, use_labels=use_labels,
+                      callback_fn=lambda e, s: losses.append(s["train_loss"]))
+            fits.append((losses, model.module.state_dict()))
+        assert fits[0][0] == fits[1][0]
+        for k, v in fits[0][1].items():
+            assert torch.equal(v, fits[1][1][k]), k
+    args = make_sm_args(sm_supervised_method="gradient-based", model_parallel=2)
+    with pytest.raises(NotImplementedError, match="model_parallel"):
+        TModel.from_args(args, train, device="cpu").fit(train, use_labels=True)
 
 
 def test_initial_params_and_moment_init_match_jax():
