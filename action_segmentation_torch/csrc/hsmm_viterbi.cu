@@ -53,6 +53,13 @@
 // int32 for every Km the shared-memory tail admits. g keeps d' << 9 and
 // c' << 2 (the walker's byte offset) in one int32.
 //
+// A wide DP (128 < C <= 1024, csrc/hsmm_scan_wide.cu's codes) packs its
+// codes at radix 1024: the same walk, instanced on the radix
+// (`traceback_wide_kernel`). A staging group is then up to 1,024 codes,
+// 32 a lane, and g keeps d' << 12 beside c' << 2 (c' < 1024, so 4c' <
+// 4096); the wrapper refuses a plane of T >= 2^19 rows there, where d'
+// could reach the sign bit.
+//
 // What bounds it: like the gamma scans, not bytes (emit in, alphas and
 // codes out: about 4 MB at the serving shape) but the T dependent steps,
 // each one chain of dependent instructions; the earlier shared-memory
@@ -82,6 +89,7 @@
 namespace {
 
 constexpr int kLanes = hsmm_scan::kCodeRadix;
+constexpr int kWideRadix = 1024;  // a wide DP's code radix (C <= 1024)
 
 // the traceback's block: warp 0 walks, kStageWarps warps stage
 constexpr int kStageWarps = 16;
@@ -179,12 +187,20 @@ __device__ __forceinline__ int tile_pad(const int32_t* plane, int lo, int C) {
   return (int)((reinterpret_cast<uintptr_t>(plane + (size_t)lo * C) >> 2) & 3);
 }
 
-__global__ void __launch_bounds__(kTracebackThreads)
-    viterbi_traceback_kernel(const int32_t* __restrict__ bp,
-                             const int64_t* __restrict__ lengths,
-                             const int64_t* __restrict__ c_last,
-                             int64_t* __restrict__ spans, int T, int C,
-                             int R) {
+// log2 of the walker's g shift: 4 * kRadix, the byte offsets' span
+__host__ __device__ constexpr int shift_of(int radix) {
+  return radix == 1 ? 2 : 1 + shift_of(radix / 2);
+}
+
+// The walk with codes at radix kRadix (bp = bp_d * kRadix + bp_c).
+template <int kRadix>
+__device__ __forceinline__ void traceback(const int32_t* __restrict__ bp,
+                                          const int64_t* __restrict__ lengths,
+                                          const int64_t* __restrict__ c_last,
+                                          int64_t* __restrict__ spans, int T,
+                                          int C, int R) {
+  constexpr int kPerLane = kRadix / 32;  // a staging group's codes a lane
+  constexpr int kShift = shift_of(kRadix);
   // (not `smem`: the scan template's kernel declares that one as float)
   extern __shared__ __align__(16) unsigned char tb_smem[];
   const uint32_t bar = shared_addr(tb_smem);
@@ -206,15 +222,23 @@ __global__ void __launch_bounds__(kTracebackThreads)
   if (st == 0) mbarrier_init(bar);
   __syncthreads();
 
-  // staging: this lane's entries in a group of whole rows (at most 128
-  // entries, 4 a lane) and their rows' first entries
-  const int per = (kLanes / C) * C;
-  int eq[4], rq[4];
+  // staging: this lane's entries in a group of whole rows (at most kRadix
+  // entries, kPerLane a lane) and their rows' first entries (at radix 1024
+  // worked out as needed, not held in 32 registers)
+  const int per = (kRadix / C) * C;
+  int eq[kPerLane], rq[kPerLane <= 4 ? kPerLane : 1];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
+  for (int q = 0; q < kPerLane; ++q) {
     eq[q] = lane + 32 * q;
-    rq[q] = eq[q] / C * C;
+    if constexpr (kPerLane <= 4) rq[q] = eq[q] / C * C;
   }
+  auto row_first = [&](int q) {
+    if constexpr (kPerLane <= 4) {
+      return rq[q];
+    } else {
+      return eq[q] / C * C;
+    }
+  };
   uint32_t parity = 0;
   auto stage = [&](int k, int32_t* buf) {
     const int lo = tile_lo(k);
@@ -241,19 +265,19 @@ __global__ void __launch_bounds__(kTracebackThreads)
     // g in place, a warp per group of rows: every lane reads its entries
     // and their gathers before any lane of the warp writes
     for (int base = (st >> 5) * per; base < n; base += kStageWarps * per) {
-      int g[4];
+      int g[kPerLane];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+      for (int q = 0; q < kPerLane; ++q) {
         const int e = base + eq[q];
         if (eq[q] < per && e < n) {
-          const int cp = tile[e] & (kLanes - 1);
-          const int d = tile[base + rq[q] + cp] / kLanes + 1;
-          g[q] = d << 9 | cp << 2;
+          const int cp = tile[e] & (kRadix - 1);
+          const int d = tile[base + row_first(q) + cp] / kRadix + 1;
+          g[q] = d << kShift | cp << 2;
         }
       }
       __syncwarp();
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+      for (int q = 0; q < kPerLane; ++q) {
         const int e = base + eq[q];
         if (eq[q] < per && e < n) tile[e] = g[q];
       }
@@ -280,7 +304,7 @@ __global__ void __launch_bounds__(kTracebackThreads)
     if (lane == 0) {
       if (length > 0) {
         const int c = (int)c_last[b];
-        const int s = length - (plane[(size_t)(length - 1) * C + c] / kLanes + 1);
+        const int s = length - (plane[(size_t)(length - 1) * C + c] / kRadix + 1);
         put(s, c);
         u = s - 1;
         c4 = 4 * c;
@@ -317,8 +341,8 @@ __global__ void __launch_bounds__(kTracebackThreads)
           // reads row lo, unused
           int v = ld_shared(base + (uint32_t)u * rowb + c4);
           for (;;) {
-            u -= v >> 9;
-            c4 = v & (4 * kLanes - 4);
+            u -= v >> kShift;
+            c4 = v & (4 * kRadix - 4);
             v = ld_shared(base + (uint32_t)max(u, lo) * rowb + c4);
             put(u + 1, c4 >> 2);
             if (u < lo) break;
@@ -334,6 +358,45 @@ __global__ void __launch_bounds__(kTracebackThreads)
     staged = next;
     sb ^= 1;
   }
+}
+
+__global__ void __launch_bounds__(kTracebackThreads)
+    viterbi_traceback_kernel(const int32_t* __restrict__ bp,
+                             const int64_t* __restrict__ lengths,
+                             const int64_t* __restrict__ c_last,
+                             int64_t* __restrict__ spans, int T, int C,
+                             int R) {
+  traceback<kLanes>(bp, lengths, c_last, spans, T, C, R);
+}
+
+__global__ void __launch_bounds__(kTracebackThreads)
+    traceback_wide_kernel(const int32_t* __restrict__ bp,
+                          const int64_t* __restrict__ lengths,
+                          const int64_t* __restrict__ c_last,
+                          int64_t* __restrict__ spans, int T, int C, int R) {
+  traceback<kWideRadix>(bp, lengths, c_last, spans, T, C, R);
+}
+
+// One launch of `kernel` over codes of at most `max_c` classes.
+int launch_traceback(void (*kernel)(const int32_t*, const int64_t*,
+                                    const int64_t*, int64_t*, int, int, int),
+                     int max_c, const void* bp, const void* lengths,
+                     const void* c_last, void* spans, int N, int T, int C,
+                     int rows, int smem, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (C < 1 || C > max_c || rows < 1 || smem < traceback_smem(rows, C))
+    return (int)cudaErrorInvalidValue;
+  if (N == 0 || T == 0) return 0;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<N, kTracebackThreads, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)bp, (const int64_t*)lengths, (const int64_t*)c_last,
+      (int64_t*)spans, T, C, rows);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -365,22 +428,18 @@ int hsmm_viterbi_traceback(const void* bp, const void* lengths,
                            const void* c_last, void* spans, int N, int T,
                            int C, int rows, int smem, int device,
                            void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (C < 1 || C > kLanes || rows < 1 || smem < traceback_smem(rows, C))
-    return (int)cudaErrorInvalidValue;
-  if (N == 0 || T == 0) return 0;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(viterbi_traceback_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  viterbi_traceback_kernel<<<N, kTracebackThreads, smem,
-                             (cudaStream_t)stream>>>(
-      (const int32_t*)bp, (const int64_t*)lengths, (const int64_t*)c_last,
-      (int64_t*)spans, T, C, rows);
-  return (int)cudaGetLastError();
+  return launch_traceback(viterbi_traceback_kernel, kLanes, bp, lengths,
+                          c_last, spans, N, T, C, rows, smem, device, stream);
+}
+
+// The same for a wide DP's codes (radix 1024, C <= 1024) from
+// csrc/hsmm_scan_wide.cu's `hsmm_wide_viterbi_scan`.
+int hsmm_viterbi_traceback_wide(const void* bp, const void* lengths,
+                                const void* c_last, void* spans, int N, int T,
+                                int C, int rows, int smem, int device,
+                                void* stream) {
+  return launch_traceback(traceback_wide_kernel, kWideRadix, bp, lengths,
+                          c_last, spans, N, T, C, rows, smem, device, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 """The banded semi-Markov DP's hand-written CUDA kernels and their chains.
 
 Twin of ``action_segmentation_tpu/ops/hsmm_pallas.py``. Seven kernels,
-from four sources:
+from four sources, for a DP of at most 128 classes:
 
   * ``hsmm_gamma_scan`` (csrc/hsmm_scan.cu, max semiring) — the forward
     scan over the forward model and the time-reversed model stacked on
@@ -25,6 +25,15 @@ from four sources:
 The three scans (both gamma scans and the backpointer scan) are
 instances of one template, csrc/hsmm_scan_core.cuh, compiled for buckets
 of C and Km; ``scan_instance`` picks the instance a shape launches.
+
+A DP wider than 128 classes (up to WIDE_MAX_CLASSES) takes the wide
+kernels, which the same wrappers launch by C: the three instances of
+csrc/hsmm_scan_wide.cu (``hsmm_viterbi_scan_wide``, ``hsmm_log_scan_wide``,
+``hsmm_forward_scan_wide``: one block a chain, one thread a class), the
+traceback's wide instance (``hsmm_viterbi_traceback_wide``, codes at
+radix WIDE_CODE_RADIX) and the band gradient as it is. Each wide kernel
+counts its own launches. The max gamma scan and the band max stay at
+<= 128 classes: the labels chain never sees a wide DP (``kernel_path``).
 
 Each wrapper takes its kernel's plain PyTorch version (``_gamma_scan_plain``
 and its log forms, ``_band_max_plain``, ``_band_grad_plain``,
@@ -66,6 +75,10 @@ from action_segmentation_torch.ops.hsmm import (
 # The kernels put one class per thread of a block (in the scans at most
 # four warps a chain), so they take C <= 128 classes.
 MAX_CLASSES = 128
+# The wide kernels (csrc/hsmm_scan_wide.cu, the traceback's wide instance
+# and the band gradient) put one class per thread of a 1,024-thread block:
+# a DP of MAX_CLASSES < C <= WIDE_MAX_CLASSES takes them.
+WIDE_MAX_CLASSES = 1024
 
 # The scans' instances: csrc/hsmm_scan_core.cuh's template is compiled for
 # warps per chain by C, one warp's trans row in ROW_BUCKETS registers, and
@@ -134,15 +147,18 @@ def kernel_path(n_classes, width, device):
 
     Decode chooses by the model's class count on both devices, as JAX's
     ``_decode_core``: the labels chain at <= 128 classes, the spans chain
-    above. The partition runs its kernel forward/backward on the card;
-    on the CPU it keeps the JAX package's lane gate (the kernels' plain
-    versions at <= 128 classes, autograd of ``hsmm_partition`` above).
-    On the card only a DP wider than the kernels take raises: no plain
-    version runs there."""
-    if device.type == "cuda" and not kernels_supported(width):
+    above. A DP is never wider than its model, so the labels chain (K2-max,
+    K3) never sees one wider than 128; the spans chain and the partition
+    launch the narrow kernels or, above 128 classes, the wide ones. The
+    partition runs its kernel forward/backward on the card; on the CPU it
+    keeps the JAX package's lane gate (the kernels' plain versions at
+    <= 128 classes, autograd of ``hsmm_partition`` above). On the card
+    only a DP wider than the wide kernels take raises: no plain version
+    runs there."""
+    if device.type == "cuda" and width > WIDE_MAX_CLASSES:
         raise NotImplementedError(
             "a DP {} classes wide on the card: the kernels take at most {}; "
-            "wider DPs are not ported yet (ROADMAP.md §2)".format(width, MAX_CLASSES)
+            "wider DPs are not ported yet (ROADMAP.md §2)".format(width, WIDE_MAX_CLASSES)
         )
     narrow_model = kernels_supported(n_classes)
     return KernelPath(
@@ -305,10 +321,13 @@ def hsmm_log_scan(trans, init, dur, emit):
     """Log-semiring scan with the alphas plane (the training forward):
     (gamma (N, T, C), alphas (N, T, C)).
 
-    Same inputs and checks as ``hsmm_gamma_scan``; on CPU tensors it runs
-    ``_log_scan_plain``."""
+    Same inputs and checks as ``hsmm_gamma_scan``; above 128 classes it
+    launches the wide kernel (``hsmm_log_scan_wide``); on CPU tensors it
+    runs ``_log_scan_plain``."""
     if _device_type(emit) == "cpu":
         return _log_scan_plain(trans, init, dur, emit)
+    if emit.shape[-1] > MAX_CLASSES:
+        return hsmm_log_scan_wide(trans, init, dur, emit)
     gamma, alphas = torch.empty_like(emit), torch.empty_like(emit)
     _launch_scan("hsmm_log_scan", "hsmm_gamma_scan_log", trans, init, dur, emit,
                  [gamma, alphas])
@@ -322,10 +341,13 @@ hsmm_log_scan.launches = 0
 def hsmm_forward_scan(trans, init, dur, emit):
     """Forward-only log scan (the partition's primal): alphas (N, T, C).
 
-    The kernel of ``hsmm_log_scan`` with the gamma store skipped. On CPU
+    The kernel of ``hsmm_log_scan`` with the gamma store skipped; above
+    128 classes the wide kernel (``hsmm_forward_scan_wide``). On CPU
     tensors it runs ``_forward_scan_plain``."""
     if _device_type(emit) == "cpu":
         return _forward_scan_plain(trans, init, dur, emit)
+    if emit.shape[-1] > MAX_CLASSES:
+        return hsmm_forward_scan_wide(trans, init, dur, emit)
     alphas = torch.empty_like(emit)
     _launch_scan("hsmm_forward_scan", "hsmm_forward_scan_log", trans, init, dur, emit,
                  [alphas])
@@ -334,6 +356,83 @@ def hsmm_forward_scan(trans, init, dur, emit):
 
 
 hsmm_forward_scan.launches = 0
+
+
+# ---- (a') the wide scans: 128 < C <= 1024 -----------------------------------
+
+
+class WideScan(NamedTuple):
+    """A wide scan's launch: threads a block (C in whole warps), where the
+    carry's ring lives ("shared", or "global" in a scratch the wrapper
+    allocates) and the dynamic shared memory."""
+
+    threads: int
+    ring: str
+    smem_bytes: int
+
+
+def wide_scan_instance(C, Km):
+    """The launch of csrc/hsmm_scan_wide.cu for C classes and Km duration
+    rows (the kernel's layout): the double-buffered alpha row, 2 * C
+    floats, and the ring of Km * C floats beside it where both fit a
+    block's shared memory, else the ring in global memory."""
+    alpha = 2 * C
+    ring = "shared" if 4 * (alpha + Km * C) <= MAX_BLOCK_SMEM else "global"
+    return WideScan(32 * -(-C // 32), ring, 4 * (alpha + Km * C * (ring == "shared")))
+
+
+def _launch_wide_scan(name, symbol, trans, init, dur, emit, outputs, ints=()):
+    """Checks, then one launch of csrc/hsmm_scan_wide.cu's `symbol` (one
+    block per chain) writing `outputs`; `ints` (the code radix) follow
+    the shape's."""
+    N, T, C = emit.shape
+    Km = dur.shape[1]
+    if not MAX_CLASSES < C <= WIDE_MAX_CLASSES:
+        raise ValueError("{}: C={} outside ({}, {}]".format(
+            name, C, MAX_CLASSES, WIDE_MAX_CLASSES))
+    if Km < 1:  # the carry needs a row (see _durations)
+        raise ValueError("{}: dur needs at least one row".format(name))
+    _check_cuda(
+        name, (emit, trans, init, dur), ((N, T, C), (N, C, C), (N, C), (N, Km, C))
+    )
+    inst = wide_scan_instance(C, Km)
+    ring = emit.new_empty((N, Km, C)) if inst.ring == "global" else None
+    trans_t = trans.transpose(1, 2).contiguous()  # [from][to]: coalesced loads
+    err = _call("hsmm_scan_wide", symbol, [trans_t, init, dur, emit, *outputs, ring],
+                [N, T, C, Km, *ints, inst.smem_bytes], emit)
+    _raise_on_error(name, err)
+
+
+def hsmm_log_scan_wide(trans, init, dur, emit):
+    """``hsmm_log_scan`` for a DP of 128 < C <= 1024 classes: (gamma,
+    alphas). On CUDA tensors it launches csrc/hsmm_scan_wide.cu's log
+    instance; on CPU tensors it runs ``_log_scan_plain``."""
+    if _device_type(emit) == "cpu":
+        return _log_scan_plain(trans, init, dur, emit)
+    gamma, alphas = torch.empty_like(emit), torch.empty_like(emit)
+    _launch_wide_scan("hsmm_log_scan_wide", "hsmm_wide_log_scan", trans, init, dur, emit,
+                      [gamma, alphas])
+    hsmm_log_scan_wide.launches += 1
+    return gamma, alphas
+
+
+hsmm_log_scan_wide.launches = 0
+
+
+def hsmm_forward_scan_wide(trans, init, dur, emit):
+    """``hsmm_forward_scan`` for a DP of 128 < C <= 1024 classes: alphas.
+    On CUDA tensors it launches csrc/hsmm_scan_wide.cu's forward
+    instance; on CPU tensors it runs ``_forward_scan_plain``."""
+    if _device_type(emit) == "cpu":
+        return _forward_scan_plain(trans, init, dur, emit)
+    alphas = torch.empty_like(emit)
+    _launch_wide_scan("hsmm_forward_scan_wide", "hsmm_wide_forward_scan", trans, init, dur,
+                      emit, [alphas])
+    hsmm_forward_scan_wide.launches += 1
+    return alphas
+
+
+hsmm_forward_scan_wide.launches = 0
 
 
 # ---- (b) the band max ------------------------------------------------------
@@ -600,15 +699,16 @@ def _launch_band_grad(G1m, G2p, dur, tile):
 def hsmm_band_grad(G1m, G2p, dur):
     """Span-posterior masses (qg, sa, st, lg); see ``_band_grad_plain``.
 
-    On CUDA tensors (float32, contiguous, C <= 128) it launches
+    On CUDA tensors (float32, contiguous, C <= 1024: one thread a (row,
+    class), so a wide DP takes the same kernel) it launches
     csrc/band_grad.cu once, in the tile ``band_grad_tile`` sizes, which
     reduces lg over the tiles in a fixed order (two runs give the same
     bits); on CPU tensors it runs the plain version."""
     if _device_type(G1m) == "cpu":
         return _band_grad_plain(G1m, G2p, dur)
     B, T, T2, C, Km = _band_shapes("hsmm_band_grad", G1m, G2p, dur)
-    if not kernels_supported(C):
-        raise ValueError("hsmm_band_grad: C={} > {}".format(C, MAX_CLASSES))
+    if C > WIDE_MAX_CLASSES:
+        raise ValueError("hsmm_band_grad: C={} > {}".format(C, WIDE_MAX_CLASSES))
     tile = band_grad_tile(B, T, C, Km, _sm_count(G1m.device.index))
     out = _launch_band_grad(G1m, G2p, dur, tile)
     hsmm_band_grad.launches += 1
@@ -722,25 +822,48 @@ def hsmm_viterbi_labels_plain(pots: HsmmPotentials, lengths):
 
 # ---- (d) exact spans: the backpointer scan and the traceback ---------------
 
-# the class radix of a backpointer code, bp = bp_d * CODE_RADIX + bp_c
-# (JAX's LANES); C <= 128 keeps bp_c below it
+# the class radix of a backpointer code, bp = bp_d * radix + bp_c: JAX's
+# LANES for C <= 128 (the narrow kernels' compiled radix), and for a wide
+# DP a power of two >= C (the wide kernels take WIDE_CODE_RADIX)
 CODE_RADIX = 128
+WIDE_CODE_RADIX = 1024
 
 
-def _viterbi_scan_plain(trans, init, dur, emit):
+def code_radix(C):
+    """The radix of C classes' backpointer codes: CODE_RADIX at C <= 128,
+    else the larger of WIDE_CODE_RADIX and the least power of two >= C."""
+    if C <= MAX_CLASSES:
+        return CODE_RADIX
+    return max(WIDE_CODE_RADIX, 1 << (C - 1).bit_length())
+
+
+def _scan_radix(name, C, Km):
+    """``code_radix(C)``, raising where Km duration rows would carry a
+    code past int32."""
+    radix = code_radix(C)
+    if Km * radix > 2 ** 31:
+        raise ValueError("{}: Km={} rows at radix {} overflow the int32 codes".format(
+            name, Km, radix))
+    return radix
+
+
+def _viterbi_scan_plain(trans, init, dur, emit, radix=None):
     """Plain PyTorch version of the backpointer scan (any device, any
     float dtype).
 
     trans (N, C, C) [to, from]; init (N, C); dur (N, Km, C), row j
     scoring duration j+1; emit (N, T, C). Returns (alphas (N, T, C), bp
     (N, T, C) int32): alphas[:, t] is the best score of frames [0, t]
-    whose last span ends at t, bp[:, t, c] = bp_d * 128 + bp_c with bp_d
-    the argmax duration row of that span and bp_c the argmax previous
-    class at boundary t + 1 given next class c. First maxima (argmax), the
-    kernel's float operations in its order.
+    whose last span ends at t, bp[:, t, c] = bp_d * radix + bp_c with
+    bp_d the argmax duration row of that span and bp_c the argmax
+    previous class at boundary t + 1 given next class c; `radix` defaults
+    to ``code_radix(C)``. First maxima (argmax), the kernel's float
+    operations in its order.
     """
     N, T, C = emit.shape
     Km = dur.shape[1]
+    if radix is None:
+        radix = _scan_radix("_viterbi_scan_plain", C, Km)
     W = torch.full((N, Km, C), BIG_NEG, dtype=emit.dtype, device=emit.device)
     W[:, 0] = init
     cum = torch.zeros((N, C), dtype=emit.dtype, device=emit.device)
@@ -751,7 +874,7 @@ def _viterbi_scan_plain(trans, init, dur, emit):
         alpha = span.amax(dim=1) + cum
         arrivals = trans + alpha[:, None, :]
         gamma = arrivals.amax(dim=2)
-        codes.append(span.argmax(dim=1) * CODE_RADIX + arrivals.argmax(dim=2))
+        codes.append(span.argmax(dim=1) * radix + arrivals.argmax(dim=2))
         W = torch.cat([(gamma - cum)[:, None], W[:, :-1]], dim=1)
         alphas.append(alpha)
     if not T:
@@ -760,16 +883,19 @@ def _viterbi_scan_plain(trans, init, dur, emit):
     return torch.stack(alphas, dim=1), torch.stack(codes, dim=1).to(torch.int32)
 
 
-def _traceback_plain(bp, lengths, c_last):
+def _traceback_plain(bp, lengths, c_last, radix=None):
     """Plain PyTorch version of the traceback (any device): spans (N, T)
     int64, the class at each span start and -1 elsewhere.
 
     Walks every video at once, as JAX's vmapped while-loop: from
     (t = length, c = c_last), d = bp_d + 1 at (t - 1, c), s = t - d,
-    spans[s] = c, and for s > 0 the previous class is bp_c at (s - 1, c).
-    A start before frame 0 (only on an impossible, BIG_NEG path) wraps
-    like a negative index and ends that video's walk."""
-    N, T, _ = bp.shape
+    spans[s] = c, and for s > 0 the previous class is bp_c at (s - 1, c),
+    with the codes at `radix` (default ``code_radix(C)``). A start before
+    frame 0 (only on an impossible, BIG_NEG path) wraps like a negative
+    index and ends that video's walk."""
+    N, T, C = bp.shape
+    if radix is None:
+        radix = code_radix(C)
     device = bp.device
     spans = torch.full((N, T), -1, dtype=torch.long, device=device)
     rows = torch.arange(N, device=device)
@@ -777,12 +903,12 @@ def _traceback_plain(bp, lengths, c_last):
     t, c = lengths.long().clone(), c_last.long().clone()
     while bool((t > 0).any()):
         active = t > 0
-        d = codes[rows, (t - 1).clamp(min=0), c] // CODE_RADIX + 1
+        d = codes[rows, (t - 1).clamp(min=0), c] // radix + 1
         s = t - d
         w = torch.where(s >= 0, s, s + T)
         write = active & (w >= 0)
         spans[rows[write], w[write]] = c[write]
-        c_prev = codes[rows, (s - 1).clamp(min=0), c] % CODE_RADIX
+        c_prev = codes[rows, (s - 1).clamp(min=0), c] % radix
         c = torch.where(active & (s > 0), c_prev, c)
         t = torch.where(active, s, t)
     return spans
@@ -792,11 +918,15 @@ def hsmm_viterbi_scan(trans, init, dur, emit):
     """The backpointer scan: (alphas (N, T, C), bp (N, T, C) int32); see
     ``_viterbi_scan_plain`` for the function.
 
-    On CUDA tensors (float32, contiguous, C <= 128) it launches
-    csrc/hsmm_viterbi.cu, one block per video; on CPU tensors it runs the
-    plain version."""
+    On CUDA tensors (float32, contiguous) it launches csrc/hsmm_viterbi.cu,
+    one block per video, at C <= 128, and the wide kernel
+    (``hsmm_viterbi_scan_wide``) above; on CPU tensors it runs the plain
+    version. Raises where the codes would overflow int32."""
+    radix = _scan_radix("hsmm_viterbi_scan", emit.shape[-1], dur.shape[1])
     if _device_type(emit) == "cpu":
-        return _viterbi_scan_plain(trans, init, dur, emit)
+        return _viterbi_scan_plain(trans, init, dur, emit, radix)
+    if emit.shape[-1] > MAX_CLASSES:
+        return hsmm_viterbi_scan_wide(trans, init, dur, emit)
     alphas = torch.empty_like(emit)
     bp = torch.empty(emit.shape, dtype=torch.int32, device=emit.device)
     _launch_scan("hsmm_viterbi_scan", "hsmm_viterbi_scan", trans, init, dur, emit,
@@ -806,6 +936,25 @@ def hsmm_viterbi_scan(trans, init, dur, emit):
 
 
 hsmm_viterbi_scan.launches = 0
+
+
+def hsmm_viterbi_scan_wide(trans, init, dur, emit):
+    """``hsmm_viterbi_scan`` for a DP of 128 < C <= 1024 classes: (alphas,
+    bp) with the codes at ``code_radix(C)``. On CUDA tensors it launches
+    csrc/hsmm_scan_wide.cu's max instance; on CPU tensors it runs the
+    plain version."""
+    radix = _scan_radix("hsmm_viterbi_scan_wide", emit.shape[-1], dur.shape[1])
+    if _device_type(emit) == "cpu":
+        return _viterbi_scan_plain(trans, init, dur, emit, radix)
+    alphas = torch.empty_like(emit)
+    bp = torch.empty(emit.shape, dtype=torch.int32, device=emit.device)
+    _launch_wide_scan("hsmm_viterbi_scan_wide", "hsmm_wide_viterbi_scan", trans, init, dur,
+                      emit, [alphas, bp], [radix])
+    hsmm_viterbi_scan_wide.launches += 1
+    return alphas, bp
+
+
+hsmm_viterbi_scan_wide.launches = 0
 
 
 class TracebackTile(NamedTuple):
@@ -839,36 +988,66 @@ def traceback_tile(T, C, max_rows=None):
     return TracebackTile(rows, TRACEBACK_HEADER + 8 * _tile_words(rows, C))
 
 
+# the wide traceback keeps a duration d' < T shifted by 12 bits in an int32
+WIDE_TRACEBACK_MAX_T = 2 ** 19 - 1
+
+
 def _launch_traceback(bp, lengths, c_last, tile):
     """Checks, then one launch of csrc/hsmm_viterbi.cu's traceback with
-    `tile`'s rows and shared memory; returns the spans."""
+    `tile`'s rows and shared memory (its wide instance above 128
+    classes); returns the spans."""
     N, T, C = bp.shape
-    if not kernels_supported(C):
-        raise ValueError("hsmm_viterbi_traceback: C={} > {}".format(C, MAX_CLASSES))
-    _check_cuda("hsmm_viterbi_traceback", (bp, lengths, c_last), ((N, T, C), (N,), (N,)),
+    name, symbol = "hsmm_viterbi_traceback", "hsmm_viterbi_traceback"
+    if C > MAX_CLASSES:
+        name, symbol = "hsmm_viterbi_traceback_wide", "hsmm_viterbi_traceback_wide"
+        if C > WIDE_MAX_CLASSES or T > WIDE_TRACEBACK_MAX_T:
+            raise ValueError("{}: C={} > {} or T={} > {}".format(
+                name, C, WIDE_MAX_CLASSES, T, WIDE_TRACEBACK_MAX_T))
+    _check_cuda(name, (bp, lengths, c_last), ((N, T, C), (N,), (N,)),
                 (torch.int32, torch.int64, torch.int64))
     spans = torch.empty((N, T), dtype=torch.long, device=bp.device)
-    err = _call("hsmm_viterbi", "hsmm_viterbi_traceback", [bp, lengths, c_last, spans],
+    err = _call("hsmm_viterbi", symbol, [bp, lengths, c_last, spans],
                 [N, T, C, tile.rows, tile.smem_bytes], bp)
-    _raise_on_error("hsmm_viterbi_traceback", err)
+    _raise_on_error(name, err)
     return spans
 
 
 def hsmm_viterbi_traceback(bp, lengths, c_last):
     """Spans (N, T) int64 from the scan's codes; see ``_traceback_plain``.
 
-    bp (N, T, C) int32; lengths (N,) int64 in [1, T]; c_last (N,) int64.
-    On CUDA tensors (contiguous, C <= 128) it launches csrc/hsmm_viterbi.cu,
-    one block per video walking its codes in shared memory, in the tiles
-    ``traceback_tile`` sizes; on CPU tensors it runs the plain version."""
+    bp (N, T, C) int32 at ``code_radix(C)``; lengths (N,) int64 in [1, T];
+    c_last (N,) int64. On CUDA tensors (contiguous) it launches
+    csrc/hsmm_viterbi.cu, one block per video walking its codes in shared
+    memory, in the tiles ``traceback_tile`` sizes: at C <= 128 its narrow
+    instance, above it the wide one (``hsmm_viterbi_traceback_wide``). On
+    CPU tensors it runs the plain version."""
     if _device_type(bp) == "cpu":
-        return _traceback_plain(bp, lengths, c_last)
+        return _traceback_plain(bp, lengths, c_last, code_radix(bp.shape[-1]))
+    if bp.shape[-1] > MAX_CLASSES:
+        return hsmm_viterbi_traceback_wide(bp, lengths, c_last)
     spans = _launch_traceback(bp, lengths, c_last, traceback_tile(*bp.shape[1:]))
     hsmm_viterbi_traceback.launches += 1
     return spans
 
 
 hsmm_viterbi_traceback.launches = 0
+
+
+def hsmm_viterbi_traceback_wide(bp, lengths, c_last):
+    """``hsmm_viterbi_traceback`` for a DP of 128 < C <= 1024 classes
+    (codes at WIDE_CODE_RADIX): the traceback's wide instance on CUDA
+    tensors, the plain version on CPU tensors."""
+    if _device_type(bp) == "cpu":
+        return _traceback_plain(bp, lengths, c_last, code_radix(bp.shape[-1]))
+    if not MAX_CLASSES < bp.shape[-1]:
+        raise ValueError("hsmm_viterbi_traceback_wide: C={} <= {}".format(
+            bp.shape[-1], MAX_CLASSES))
+    spans = _launch_traceback(bp, lengths, c_last, traceback_tile(*bp.shape[1:]))
+    hsmm_viterbi_traceback_wide.launches += 1
+    return spans
+
+
+hsmm_viterbi_traceback_wide.launches = 0
 
 
 def _viterbi_spans(pots: HsmmPotentials, lengths, scan, traceback):
@@ -887,8 +1066,9 @@ def hsmm_viterbi_spans(pots: HsmmPotentials, lengths):
     """Exact Viterbi spans: (spans (B, T) int64, the class at each span
     start and -1 on continuations and past each length; scores (B,)).
     The contract of ``ops.hsmm.hsmm_viterbi`` and JAX's
-    ``hsmm_viterbi_pallas``. Both kernels on CUDA tensors, their plain
-    versions on CPU tensors. Requires C <= 128."""
+    ``hsmm_viterbi_pallas``. Both kernels on CUDA tensors (the wide ones
+    above 128 classes, up to WIDE_MAX_CLASSES), their plain versions on
+    CPU tensors."""
     return _viterbi_spans(pots, lengths, hsmm_viterbi_scan, hsmm_viterbi_traceback)
 
 

@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's decode, training and exact-spans paths,
 its command line, its compound model, its baselines, its resident
-corpus and its data parallelism on one card and check them.
+corpus, its data parallelism and its wide DP on one card and check them.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -10,11 +10,11 @@ Phases, one or more lines each; any failure ends the run with a non-zero
 exit and no result line:
 
   1. device  — card name, count, and nvidia-smi's name and power limit;
-  2. build   — the four kernel sources from action_segmentation_torch/csrc
+  2. build   — the five kernel sources from action_segmentation_torch/csrc
                with nvcc for sm_90a, all at once, printing ptxas'
-               register/smem/spill lines (a serving scan instance or a
-               band kernel that spills, or a band kernel above the
-               registers its tile rule assumes, fails the run);
+               register/smem/spill lines (a serving scan instance, a wide
+               kernel or a band kernel that spills, or a band kernel above
+               the registers its tile rule assumes, fails the run);
   3. kernels — each decode kernel against its plain PyTorch version on the
                card at the serving width (B=18, T=1024, C=19, K=20, D=300)
                and at the edge cases (ragged lengths down to 1 with bucket
@@ -160,6 +160,28 @@ exit and no result line:
                plain partition). (e) Each leg's wall, frames/s and busy
                share at 1 rank (4g's) and 2 ranks, and the collectives'
                share of each rank's wall;
+  4i. wide   — a DP wider than 128 classes: (a) the wide kernels (the
+               three instances of csrc/hsmm_scan_wide.cu, the traceback's
+               wide instance) and K4 at C = 129, 342 and 1,024, Km = 1,
+               19, 25 and 64, ragged lengths down to 1, and at the S6
+               shape (B=18, T=1024, C=342, K=20; the log scans' plain
+               versions at its first 256 frames), each equal to its plain
+               version; (b) the S6 model over all 342 classes (the S6
+               flags with --mix_tasks on 4c's release, closed form,
+               pickled) served by Segmenter.load with no valid_classes:
+               segment_many over every val video equal to the same
+               Segmenter on the CPU but at float64-verified ties, through
+               the wide kernels only; segment_with_marginals on 3 videos
+               (labels equal, marginals against the PLAIN Function on
+               the card at rtol 2e-3 / atol 2e-4, the sums' gap from 1
+               reported); (c) an unsupervised 2-epoch fit at a 160-wide
+               DP (its first step's loss at rtol 1e-5 and gradients at
+               rtol 2e-3 / atol 2e-4 against the CPU's autograd path,
+               falling losses, the wide log scan and K4 once a batch)
+               and a no-grad partition through the wide forward scan;
+               (d) each wide kernel's and K4's time at the S6 shape
+               beside its plain version's and its bound, and the phase's
+               seconds;
   5. times   — CUDA-event kernel and plain-version times at the serving
                shape beside the roofline bound, the traceback's also beside
                its serial floor (the longest video's segments x one
@@ -185,8 +207,10 @@ exit and no result line:
 
 The line before the last is one JSON object {"kernels": [...]} (each
 kernel's launches on the slices' paths, and its cli_, u7_, baseline_,
-resident_ and dp_launches on phases 4d-4h, dp_ every rank's summed); the
-last is {"ok": true, "device": {...}}. Imports nothing of JAX.
+resident_ and dp_launches on phases 4d-4h, dp_ every rank's summed; the
+wide kernels' launches are phase 4i's, and K4's wide_ keys its time and
+launches there); the last is {"ok": true, "device": {...}}. Imports
+nothing of JAX.
 """
 
 import argparse
@@ -3066,6 +3090,441 @@ def run_dp_slice(device, root, models, resident_cases, mixed, smi):
         loss_gaps, "dp_phase_s": phase_s}
 
 
+# ----- phase 4i: a DP wider than 128 classes -----
+
+# the wide kernels' cases, (C, Km) with Km = K - 1 duration rows, at B_WIDE
+# videos of T_WIDE[C] frames, ragged down to 1: the plain log scan is a
+# Python loop over C, so the log scans' cases stay at T <= 256 (they are
+# checked at the S6 shape at T_S6_LOG)
+WIDE_CLASSES = (129, 342, 1024)
+WIDE_KMS = (1, 19, 25, 64)
+B_WIDE = 4
+T_WIDE = {129: 256, 342: 128, 1024: 64}
+# the S6 model's classes: 18 tasks x (2 x 9 steps + 1)
+C_S6 = 342
+T_S6_LOG = 256
+# phase 4i(c): the backward at a wide DP on the synthetic corpus
+WIDE_FIT = dict(num_videos=36, n_classes=160, max_len=200, span_k=K, feature_dim=16, shift=1.0)
+WIDE_KERNEL_NAMES = ("hsmm_viterbi_scan_wide", "hsmm_viterbi_traceback_wide",
+                     "hsmm_log_scan_wide", "hsmm_forward_scan_wide")
+# the narrow kernels a wide leg must not launch
+NARROW_NAMES = ("hsmm_viterbi_scan", "hsmm_viterbi_traceback", "hsmm_gamma_scan",
+                "hsmm_band_max", "hsmm_log_scan", "hsmm_forward_scan")
+
+
+def wide_counters():
+    """{name: wrapper} of the wide kernels, K4 and the narrow kernels."""
+    from action_segmentation_torch.ops import hsmm_cuda as hc
+
+    return {n: getattr(hc, n) for n in WIDE_KERNEL_NAMES + ("hsmm_band_grad",) + NARROW_NAMES}
+
+
+def counted(fn):
+    """(fn()'s result, {kernel name: launches}) with every wide, K4 and
+    narrow counter set to 0 just before fn and read just after."""
+    import torch
+
+    wrappers = wide_counters()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: w.launches for n, w in wrappers.items()}
+
+
+def wide_kernel_case(name, pots, lengths, log_cut=None):
+    """The wide kernels (W1's three instances, W2) and K4 at C > 128
+    against their plain versions on the same inputs, each equal: the
+    backpointer scan (alphas and codes) and the traceback on the forward
+    model; the log scan (gamma, alphas) on the stacked forward and
+    reversed chains and the forward scan on the forward half (the plain
+    forward scan is that half of the plain log scan's alphas); K4 on the
+    kernel log scan's band inputs (qg, sa, st equal, lg at the score
+    tolerance). With `log_cut`, the log scans are compared on the first
+    `log_cut` frames (the plain log scan's Python loop over C) and K4
+    runs on the full-length kernel planes. Returns the errors and the
+    inputs of each kernel."""
+    import torch
+
+    from action_segmentation_torch.ops.hsmm import _durations, _finals
+    from action_segmentation_torch.ops.hsmm_cuda import (
+        _band_grad_plain,
+        _grad_band_inputs,
+        _log_scan_plain,
+        _stack_fwd_rev,
+        _traceback_plain,
+        _viterbi_scan_plain,
+        hsmm_band_grad,
+        hsmm_forward_scan_wide,
+        hsmm_log_scan_wide,
+        hsmm_viterbi_scan_wide,
+        hsmm_viterbi_traceback_wide,
+    )
+    from action_segmentation_torch.ops.hsmm_grad import _log_partition
+
+    Bn, Tn, Cn = pots.emit.shape
+    L = lengths.long().clamp(min=1)
+    vit_in = (pots.trans.contiguous(), pots.init.contiguous(),
+              _durations(pots.lens).contiguous(), pots.emit.contiguous())
+    alphas_k, bp_k = hsmm_viterbi_scan_wide(*vit_in)
+    alphas_p, bp_p = _viterbi_scan_plain(*vit_in)
+    torch.cuda.synchronize()
+    check_equal(name + " wide viterbi scan alphas", alphas_k, alphas_p)
+    check_equal(name + " wide viterbi scan codes", bp_k, bp_p)
+    tb_in = (bp_k, L, _finals(alphas_k, L, pots.end_mask).argmax(dim=-1))
+    spans_k = hsmm_viterbi_traceback_wide(*tb_in)
+    spans_p = _traceback_plain(*tb_in)
+    torch.cuda.synchronize()
+    check_equal(name + " wide traceback spans", spans_k, spans_p)
+
+    scan_in = _stack_fwd_rev(pots, L)
+    gamma_k, alphas2_k = hsmm_log_scan_wide(*scan_in)
+    cut = scan_in if log_cut is None else (*scan_in[:3], scan_in[3][:, :log_cut].contiguous())
+    cut_k = hsmm_log_scan_wide(*cut) if log_cut is not None else (gamma_k, alphas2_k)
+    gamma_p, alphas2_p = _log_scan_plain(*cut)
+    fwd_in = tuple(x[:Bn] for x in cut)
+    af_k = hsmm_forward_scan_wide(*fwd_in)
+    torch.cuda.synchronize()
+    check_equal(name + " wide log scan gamma", cut_k[0], gamma_p)
+    check_equal(name + " wide log scan alphas", cut_k[1], alphas2_p)
+    check_equal(name + " wide forward scan alphas", af_k, alphas2_p[:Bn])
+
+    logZ = _log_partition(alphas2_k[:Bn], L, pots.end_mask)
+    grad_in = _grad_band_inputs(pots, L, gamma_k, logZ)
+    bg_k = hsmm_band_grad(*grad_in)
+    bg_p = _band_grad_plain(*grad_in)
+    torch.cuda.synchronize()
+    check_band_grad(name + " band grad", bg_k, bg_p)
+    errs = {"viterbi_scan": max_err(alphas_k, alphas_p), "traceback": 0.0,
+            "log_scan": max(max_err(cut_k[0], gamma_p), max_err(cut_k[1], alphas2_p)),
+            "forward_scan": max_err(af_k, alphas2_p[:Bn]),
+            "band_grad": max(max_err(k, p) for k, p in zip(bg_k, bg_p))}
+    phase("wide", "(a) {}: B={} T={} C={} Km={} lengths {}-{}: viterbi scan alphas and codes, "
+          "traceback spans ({} segments), log scan gamma and alphas{} and forward alphas "
+          "equal to the plain versions; band grad qg/sa/st equal, lg max_abs_err {:g}".format(
+              name, Bn, Tn, Cn, vit_in[2].shape[1], int(L.min()), int(L.max()),
+              int((spans_k >= 0).sum()), "" if log_cut is None else " (first {} frames)".format(
+                  log_cut), errs["band_grad"]))
+    return errs, vit_in, tb_in, scan_in, fwd_in, grad_in
+
+
+def labels_or_ties(name, pots, lengths, got, want):
+    """Card labels `got` against CPU labels `want` (B, T) on the card's
+    potentials: equal but at frames where float64 shows a genuine tie
+    (check_labels; the spans chain's scores through the kernels against
+    its plain version). Returns the tie frames."""
+    from action_segmentation_torch.ops.hsmm_cuda import (
+        hsmm_viterbi_spans,
+        hsmm_viterbi_spans_plain,
+    )
+
+    _, got_scores = hsmm_viterbi_spans(pots, lengths)
+    _, want_scores = hsmm_viterbi_spans_plain(pots, lengths)
+    return check_labels(name, pots, lengths, got, want, got_scores, want_scores,
+                        few_ties=False)
+
+
+def video_pots(seg, features, device):
+    """(potentials, lengths) of one (T, D) video as Segmenter's calls
+    build them: padded to its length bucket, every valid class, no
+    constraint, the segmenter's end row."""
+    import torch
+
+    from action_segmentation_torch.data.batching import pad_length_to_bucket
+    from action_segmentation_torch.models.semimarkov import upload
+
+    Tn = features.shape[0]
+    x = np.zeros((1, pad_length_to_bucket(Tn), features.shape[1]), np.float32)
+    x[0, :Tn] = features
+    lengths = upload(np.array([Tn], np.int32), device)
+    Cn = len(seg.valid_classes)
+    with torch.no_grad():
+        pots, _, _ = seg.model.module.compute_potentials(
+            upload(x, device), lengths, upload(seg.valid_classes, device),
+            torch.zeros((1, x.shape[1], Cn), device=device),
+            upload(seg._end_rows([Tn]), device))
+    return pots, lengths
+
+
+def run_wide_slice(device, root, smi):
+    """Phase 4i: a DP wider than 128 classes. (a) The wide kernels and K4
+    at C = 129, 342 and 1,024 and Km = 1, 19, 25 and 64 (ragged lengths
+    down to 1) and at the S6 shape, each equal to its plain version. (b)
+    The S6 model over all 342 classes: the S6 flags with --mix_tasks on
+    phase 4c's release, a closed-form fit, pickled, served by
+    Segmenter.load(pickle) with no valid_classes and no task:
+    segment_many over every val video against the same Segmenter on the
+    CPU (labels equal but at float64-verified ties), the wide kernels only;
+    segment_with_marginals on 3 videos (labels equal to segment_many's,
+    marginals against hsmm_frame_marginals_fast through PLAIN on the card,
+    the marginal sums' gap from 1 reported). (c) The backward at a 160-wide
+    DP: an unsupervised 2-epoch fit on the synthetic corpus, its first
+    step's loss and gradients against the CPU path (autograd of the plain
+    partition), falling losses, then a no-grad partition through the wide
+    forward scan. (d) Each wide kernel's and K4's time at the S6 shape
+    beside its plain version's and its bound. Returns the e2e record and
+    the kernels line's entries."""
+    import torch
+
+    from action_segmentation_torch import checkpoint
+    from action_segmentation_torch import main as port_main
+    from action_segmentation_torch.api import Segmenter
+    from action_segmentation_torch.data.batching import iter_batches
+    from action_segmentation_torch.data.synthetic import SyntheticDatasplit
+    from action_segmentation_torch.models.semimarkov import SemiMarkovModel, upload
+    from action_segmentation_torch.ops import hsmm_cuda as hc
+    from action_segmentation_torch.ops.hsmm_grad import (
+        PLAIN,
+        hsmm_frame_marginals_fast,
+        hsmm_partition_fast,
+    )
+    from action_segmentation_torch.parallel.mesh import single_mesh
+    from action_segmentation_torch.tools.scan_floor import max_sm_clock_mhz
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    # (a) the kernels against their plain versions
+    rng = np.random.RandomState(15)
+    errs = {}
+    for Cn in WIDE_CLASSES:
+        for Km in WIDE_KMS:
+            Tn = T_WIDE[Cn]
+            rl = rng.randint(1, Tn + 1, size=B_WIDE).astype(np.int32)
+            rl[0], rl[1] = Tn, 1
+            case, *_ = wide_kernel_case("C={} Km={}".format(Cn, Km), *serving_pots(
+                rng, B_WIDE, Tn, Cn, Km + 1, device, lengths=rl))
+            for k, v in case.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+    check(hc.wide_scan_instance(1024, 64).ring == "global"
+          and hc.wide_scan_instance(C_S6, K - 1).ring == "shared",
+          "the cases do not take both ring layouts")
+    rl = rng.randint(1, T + 1, size=B).astype(np.int32)
+    rl[0], rl[1] = T, 1
+    s6_pots = serving_pots(rng, B, T, C_S6, K, device, lengths=rl)
+    case, vit_in, tb_in, scan_in, fwd_in, grad_in = wide_kernel_case(
+        "S6 shape", *s6_pots, log_cut=T_S6_LOG)
+    for k, v in case.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    a_s = time.perf_counter() - t_phase
+
+    # (b) the S6 model over all 342 classes, served by Segmenter.load
+    args = crosstask_args(root, "--mix_tasks")
+    with contextlib.redirect_stdout(io.StringIO()):
+        splits = port_main.make_data_splits(args)
+    check(list(splits) == ["all"], "--mix_tasks splits {}".format(list(splits)))
+    train, _, val = splits["all"]
+    model = SemiMarkovModel.from_args(args, train, device=device)
+    check(model.n_classes == C_S6, "{} classes, not {}".format(model.n_classes, C_S6))
+    model.fit(train, use_labels=True)
+    seen = np.zeros(C_S6, bool)
+    for key in train._tasks_and_video_names:
+        seen[train[key]["gt_single"]] = True
+    check(seen.all(), "{} of {} classes have no training frames".format(
+        int((~seen).sum()), C_S6))
+    pkl = os.path.join(root, "wide", "s6_mix_tasks.pkl")
+    checkpoint.save_pickle(model, pkl)
+    seg = Segmenter.load(pkl)
+    seg_cpu = Segmenter.load(pkl, device="cpu")
+    check(len(seg.valid_classes) == C_S6 and seg.model.device.type == device.type,
+          "Segmenter.load: {} classes on {}".format(len(seg.valid_classes), seg.model.device))
+    keys = list(val._tasks_and_video_names)
+    feats = [val[key]["features"] for key in keys]
+    frames = sum(f.shape[0] for f in feats)
+    pots0, _ = video_pots(seg, feats[0], device)
+    check(all(bool(torch.isfinite(p).all()) for p in pots0) and pots0.emit.shape[-1] == C_S6,
+          "the S6 model's potentials over all 342 classes are not finite")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, n_seg = counted(lambda: seg.segment_many(feats, batch_size=args.batch_size))
+    seg_s = time.perf_counter() - t0
+    n_batches = -(-len(feats) // args.batch_size)
+    card = device.type == "cuda"  # (a rehearsal on the CPU counts no launch)
+    check(not card or n_seg["hsmm_viterbi_scan_wide"] == n_seg["hsmm_viterbi_traceback_wide"] == n_batches
+          and all(n_seg[k] == 0 for k in NARROW_NAMES) and n_seg["hsmm_band_grad"] == 0,
+          "segment_many launches {}: not the wide kernels once a batch".format(n_seg))
+    t0 = time.perf_counter()
+    want = seg_cpu.segment_many(feats, batch_size=args.batch_size)
+    cpu_s = time.perf_counter() - t0
+    ties = 0
+    for key, f, g, w in zip(keys, feats, got, want):
+        check(g.shape == (f.shape[0],) and set(g.tolist()) <= set(range(C_S6)),
+              "segment_many labels of {}".format(key))
+        if not np.array_equal(g, w):  # the card's potentials, float64 on the ties
+            pots, lb = video_pots(seg, f, device)
+            pad = np.full((1, pots.emit.shape[1]), -1, np.int64)
+            gg, ww = pad.copy(), pad.copy()
+            gg[0, :f.shape[0]], ww[0, :f.shape[0]] = g, w
+            ties += labels_or_ties("segment_many {}".format(key[1]), pots, lb,
+                                   upload(gg, device), upload(ww, device))
+    phase("wide", "(b) S6 --mix_tasks closed form: {} classes, all with training frames, "
+          "potentials finite; Segmenter.load(pickle) over all {}: segment_many of {} val "
+          "videos ({} frames, {} batches) in {:.4f} s = {:.0f} frames/s on the card, {:.3f} s "
+          "on the CPU; labels equal to the CPU's but at {} float64-verified tie frames; "
+          "launches {}".format(C_S6, C_S6, len(feats), frames, n_batches, seg_s, frames / seg_s,
+                               cpu_s, ties, {k: v for k, v in n_seg.items() if v}))
+
+    order = np.argsort([f.shape[0] for f in feats])[:3]
+    gaps, marg_errs, marg_frames = [], [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marg_out, n_marg = counted(lambda: [seg.segment_with_marginals(feats[i]) for i in order])
+    marg_s = time.perf_counter() - t0
+    for i, (labels, marg) in zip(order, marg_out):
+        f = feats[i]
+        marg_frames += f.shape[0]
+        check(np.array_equal(labels, got[i]), "segment_with_marginals labels != "
+              "segment_many's for {}".format(keys[i]))
+        check(marg.shape == (f.shape[0], C_S6) and np.isfinite(marg).all(),
+              "segment_with_marginals marginals of {}".format(keys[i]))
+        pots, lb = video_pots(seg, f, device)
+        plain = hsmm_frame_marginals_fast(pots, lb, PLAIN)[0, :f.shape[0]]
+        assert_close("segment_with_marginals {} vs PLAIN".format(keys[i][1]),
+                     torch.from_numpy(marg).to(device), plain, GRAD_RTOL, GRAD_ATOL)
+        marg_errs.append(max_err(torch.from_numpy(marg).to(device), plain))
+        gaps.append(float(np.abs(marg.sum(axis=1) - 1).max()))
+    check(not card or n_marg["hsmm_log_scan_wide"] == n_marg["hsmm_band_grad"] == 3
+          and n_marg["hsmm_viterbi_scan_wide"] == n_marg["hsmm_viterbi_traceback_wide"] == 3
+          and all(n_marg[k] == 0 for k in NARROW_NAMES),
+          "segment_with_marginals launches {}".format(n_marg))
+    phase("wide", "(b) segment_with_marginals on the 3 shortest val videos ({} frames) in "
+          "{:.4f} s = {:.0f} frames/s: labels == segment_many's, marginals vs PLAIN on the "
+          "card max_abs_err {} (rtol {} / atol {}), max |sum_c marginal - 1| {} (reported, "
+          "not gated); launches {}".format(
+              marg_frames, marg_s, marg_frames / marg_s, marg_errs, GRAD_RTOL, GRAD_ATOL, gaps,
+              {k: v for k, v in n_marg.items() if v}))
+
+    # (c) the backward at a 160-wide DP
+    fit_train = SyntheticDatasplit(seed=0, **WIDE_FIT)
+    fargs = sm_args(epochs=2)
+    card_step = first_step(SemiMarkovModel.from_args(fargs, fit_train, device=device),
+                           fit_train, single_mesh(device))
+    cpu_step = first_step(SemiMarkovModel.from_args(fargs, fit_train, device=cpu),
+                          fit_train, single_mesh(cpu))
+    check(abs(card_step[0] - cpu_step[0]) <= RTOL * abs(cpu_step[0]),
+          "wide first step loss {} vs the CPU's {}".format(card_step[0], cpu_step[0]))
+    check(card_step[1].keys() == cpu_step[1].keys(), "first step gradients' names")
+    for n in cpu_step[1]:
+        assert_close("wide first step grad " + n, card_step[1][n], cpu_step[1][n], GRAD_RTOL,
+                     GRAD_ATOL)
+    step_err = max(max_err(card_step[1][n], cpu_step[1][n]) for n in cpu_step[1])
+    fit_model = SemiMarkovModel.from_args(fargs, fit_train, device=device)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, n_fit = counted(lambda: fit_model.fit(
+        fit_train, use_labels=False, callback_fn=lambda e, s: losses.append(s["train_loss"])))
+    fit_s = time.perf_counter() - t0
+    check(len(losses) == 2 and all(math.isfinite(v) for v in losses) and losses[1] < losses[0],
+          "the wide fit's epoch losses did not fall: {}".format(losses))
+    fit_batches = 2 * -(-WIDE_FIT["num_videos"] // fargs.batch_size)
+    check(not card or n_fit["hsmm_log_scan_wide"] == n_fit["hsmm_band_grad"] == fit_batches
+          and all(n_fit[k] == 0 for k in NARROW_NAMES),
+          "the wide fit's launches {}: not the wide log scan and K4 once a batch".format(n_fit))
+    # the partition without gradients: the wide forward scan
+    batch = next(iter_batches(fit_train, batch_size=fargs.batch_size, batch_by_task=True,
+                              shuffle=False))
+    dev = fit_model._training_batch(batch)
+    with torch.no_grad():
+        pots, _, _ = fit_model.module.compute_potentials(dev[0], dev[1], dev[2], dev[5], dev[6])
+        logZ, n_fwd = counted(lambda: hsmm_partition_fast(pots, dev[1]))
+        assert_close("wide no-grad partition", logZ, hsmm_partition_fast(pots, dev[1], PLAIN))
+    check(not card or n_fwd["hsmm_forward_scan_wide"] == 1 and all(n_fwd[k] == 0 for k in NARROW_NAMES),
+          "the no-grad partition's launches {}".format(n_fwd))
+    fit_frames = 2 * sum(int(fit_train._samples[n]["features"].shape[0])
+                         for n in fit_train._samples)
+    phase("wide", "(c) unsupervised fit at a {}-wide DP (synthetic, {} videos of <= {} frames, "
+          "D={}): first step loss {:.6f} vs the CPU's {:.6f} (autograd of the plain partition; "
+          "rtol {}), gradients max_abs_err {:g} (rtol {} / atol {}); 2 epochs, losses {}, in "
+          "{:.3f} s = {:.0f} frames/s; launches {}; no-grad partition through the wide forward "
+          "scan".format(WIDE_FIT["n_classes"], WIDE_FIT["num_videos"], WIDE_FIT["max_len"],
+                        WIDE_FIT["feature_dim"], card_step[0], cpu_step[0], RTOL, step_err,
+                        GRAD_RTOL, GRAD_ATOL, losses, fit_s, fit_frames / fit_s,
+                        {k: v for k, v in n_fit.items() if v}))
+    launches = {k: n_seg[k] + n_marg[k] + n_fit[k] + n_fwd[k]
+                for k in WIDE_KERNEL_NAMES + ("hsmm_band_grad",)}
+
+    # (d) times at the S6 shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = max_sm_clock_mhz()
+    Km = K - 1
+    n2 = 2 * B
+    vit_bytes = 4 * (B * C_S6 * C_S6 + B * C_S6 + B * Km * C_S6 + 3 * B * T * C_S6)
+    vit_ops = B * T * (2 * Km * C_S6 + 2 * C_S6 * C_S6 + 3 * C_S6)
+
+    def scan_bound(n, n_out):
+        # per chain-step and class: the duration reduce (Km adds, maxes,
+        # subtracts, exps and sum adds, one log, one add), the transition
+        # combine (the same over C), the cum add and the W push
+        ops = n * T * C_S6 * (5 * Km + 5 * C_S6 + 6)
+        nbytes = 4 * (n * C_S6 * C_S6 + n * C_S6 + n * Km * C_S6 + (1 + n_out) * n * T * C_S6)
+        return bound(nbytes, ops)
+
+    per_video = (hc.hsmm_viterbi_traceback_wide(*tb_in) >= 0).sum(dim=1)
+    n_segments = int(per_video.sum())
+    times = {
+        "hsmm_viterbi_scan_wide": (
+            cuda_ms(lambda: hc.hsmm_viterbi_scan_wide(*vit_in), 10),
+            cuda_ms(lambda: hc._viterbi_scan_plain(*vit_in), 1, warmup=1),
+            bound(vit_bytes, vit_ops), vit_in[3].shape),
+        "hsmm_viterbi_traceback_wide": (
+            graph_ms(lambda: hc.hsmm_viterbi_traceback_wide(*tb_in), N_TIMED),
+            cuda_ms(lambda: hc._traceback_plain(*tb_in), 1, warmup=1),
+            bound(8 * B * T + 8 * n_segments + 16 * B, 4 * n_segments), tb_in[0].shape),
+        "hsmm_log_scan_wide": (
+            cuda_ms(lambda: hc.hsmm_log_scan_wide(*scan_in), 10),
+            cuda_ms(lambda: hc._log_scan_plain(*scan_in), 1, warmup=0),
+            scan_bound(n2, 2), scan_in[3].shape),
+        "hsmm_forward_scan_wide": (
+            cuda_ms(lambda: hc.hsmm_forward_scan_wide(*(x[:B] for x in scan_in)), 10),
+            cuda_ms(lambda: hc._forward_scan_plain(*(x[:B] for x in scan_in)), 1, warmup=0),
+            scan_bound(B, 1), scan_in[3][:B].shape),
+    }
+    bg_ms = graph_ms(lambda: hc.hsmm_band_grad(*grad_in), N_TIMED)
+    bg_plain_ms = cuda_ms(lambda: hc._band_grad_plain(*grad_in), 3)
+    bg_bound, bg_by, bg_kind, _ = band_grad_bound(grad_in, sms, clock_mhz)
+    wide_source = "action_segmentation_torch/csrc/hsmm_scan_wide.cu"
+    sources = {"hsmm_viterbi_scan_wide": (wide_source, TPU_FILE + ":110"),
+               "hsmm_viterbi_traceback_wide": ("action_segmentation_torch/csrc/hsmm_viterbi.cu",
+                                               TPU_FILE + ":440"),
+               "hsmm_log_scan_wide": (wide_source, TPU_FILE + ":229"),
+               "hsmm_forward_scan_wide": (wide_source, TPU_FILE + ":156")}
+    err_of = {"hsmm_viterbi_scan_wide": errs["viterbi_scan"],
+              "hsmm_viterbi_traceback_wide": errs["traceback"],
+              "hsmm_log_scan_wide": errs["log_scan"], "hsmm_forward_scan_wide": errs["forward_scan"]}
+    entries = []
+    for name, (ms, plain_ms, (b_ms, b_by), shape) in times.items():
+        entries.append({
+            "name": name, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1], "launches": launches[name],
+            "max_abs_err": err_of[name], "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": list(shape), "bound_ratio": ms / b_ms,
+        })
+        phase("wide", "(d) {} at {}: {:.5f} ms{} (plain {:.4f} ms), bound {:.6f} ms by {} "
+              "({:.0f}x), launches on the slice {}; {}".format(
+                  name, tuple(shape), ms, " (a CUDA graph of {})".format(N_TIMED)
+                  if "traceback" in name else "", plain_ms, b_ms, b_by, ms / b_ms,
+                  launches[name], smi))
+    phase("wide", "(d) hsmm_band_grad at {}: {:.5f} ms (a CUDA graph of {}; plain {:.4f} ms), "
+          "bound {:.6f} ms by {} ({:.0f}x), launches on the slice {}; {}".format(
+              tuple(grad_in[0].shape), bg_ms, N_TIMED, bg_plain_ms, bg_bound, bg_kind,
+              bg_ms / bg_bound, launches["hsmm_band_grad"], smi))
+    phase_s = time.perf_counter() - t_phase
+    phase("wide", "phase 4i: {:.3f} s ((a) {:.3f} s)".format(phase_s, a_s))
+    e2e = {"wide_segment_many_frames_per_s": frames / seg_s,
+           "wide_segment_many_cpu_s": cpu_s, "wide_segment_many_ties": ties,
+           "wide_marginals_frames_per_s": marg_frames / marg_s,
+           "wide_marginal_sum_gap": max(gaps), "wide_fit_losses": losses,
+           "wide_fit_frames_per_s": fit_frames / fit_s, "wide_phase_s": phase_s,
+           "wide_launches": launches}
+    k4 = {"wide_launches": launches["hsmm_band_grad"], "wide_ms": bg_ms,
+          "wide_plain_ms": bg_plain_ms, "wide_bound_ms": bg_bound, "wide_bound_by": bg_by,
+          "wide_shape": list(grad_in[0].shape), "wide_max_abs_err": errs["band_grad"]}
+    return e2e, entries, k4
+
+
 def cuda_ms(fn, n, warmup=3):
     import torch
 
@@ -3115,18 +3574,27 @@ def scan_kernel_name(semiring, warps, row, tail):
 
 # the band max's instances (csrc/band_max.cu): one pass, or several slabs
 BAND_MAX_KERNELS = ("band_max_kernel<one slab>", "band_max_kernel<slabs>")
+# the wide scan's instances (csrc/hsmm_scan_wide.cu, in its enum's order)
+# and the traceback's wide instance (csrc/hsmm_viterbi.cu)
+WIDE_SCANS = ("viterbi", "log", "forward")
+WIDE_KERNELS = tuple("wide_scan_kernel<{}>".format(s) for s in WIDE_SCANS) + (
+    "traceback_wide_kernel",)
 
 
 def kernel_name(mangled):
     """A readable name for an entry function's mangled name: the scan
     template's instances as scan_kernel<semiring, warps, row, tail>, the
-    band max's as band_max_kernel<one slab> or <slabs>."""
+    band max's as band_max_kernel<one slab> or <slabs>, the wide scan's as
+    wide_scan_kernel<viterbi>, <log> or <forward>."""
     m = re.search(r"scan_kernelILNS_8SemiringE(\d)ELi(\d)ELi(\d+)ELb([01])E", mangled)
     if m:
         return scan_kernel_name(SCAN_SEMIRINGS[int(m.group(1))], *m.group(2, 3, 4))
     m = re.search(r"band_max_kernelILb([01])E", mangled)
     if m:
         return BAND_MAX_KERNELS[int(m.group(1))]
+    m = re.search(r"wide_scan_kernelILNS_\d+ScanE(\d)E", mangled)
+    if m:
+        return "wide_scan_kernel<{}>".format(WIDE_SCANS[int(m.group(1))])
     for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
         ident = m.group(2)[:int(m.group(1))]
         if ident.endswith("_kernel"):
@@ -3239,7 +3707,7 @@ def main():
 
     # 2. build: every nvcc process at once
     t0 = time.perf_counter()
-    logs = _build.build(["hsmm_scan", "band_max", "band_grad", "hsmm_viterbi"])
+    logs = _build.build(["hsmm_scan", "band_max", "band_grad", "hsmm_viterbi", "hsmm_scan_wide"])
     phase("build", "nvcc sm_90a, {:.1f} s".format(time.perf_counter() - t0))
     ptxas = {}
     no_spills = "0 bytes spill stores, 0 bytes spill loads"
@@ -3252,6 +3720,9 @@ def main():
         serving = scan_kernel_name(semiring, inst.warps, inst.row, inst.tail)
         check(no_spills in ptxas.get(serving, (0, ""))[1],
               "{} spills or was not built: {!r}".format(serving, ptxas.get(serving)))
+    for fn in WIDE_KERNELS:  # the wide DP's scans and traceback
+        check(no_spills in ptxas.get(fn, (0, ""))[1],
+              "{} spills or was not built: {!r}".format(fn, ptxas.get(fn)))
     for fn, cap in ((BAND_MAX_KERNELS[0], hsmm_cuda.BAND_MAX_REGS),
                     (BAND_MAX_KERNELS[1], hsmm_cuda.BAND_MAX_REGS),
                     ("band_grad_kernel", hsmm_cuda.BAND_GRAD_REGS)):
@@ -3315,6 +3786,8 @@ def main():
         resident_e2e, resident_cases, mixed = run_resident_slice(device, root, ct_models, smi)
         e2e.update(resident_e2e)
         e2e.update(run_dp_slice(device, root, ct_models, resident_cases, mixed, smi))
+        wide_e2e, wide_kernels, wide_k4 = run_wide_slice(device, root, smi)
+        e2e.update(wide_e2e)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     e2e.update(train_e2e)
@@ -3559,6 +4032,13 @@ def main():
         check(k["dp_launches"] > 0, "{} was not launched on phase 4h's ranks".format(k["name"]))
         check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
         check(k["launches"] > 0, "{} was not launched on its path".format(k["name"]))
+    # phase 4i: K4 at the wide DP, and the wide kernels, whose path is 4i's
+    next(k for k in kernels if k["name"] == "hsmm_band_grad").update(wide_k4)
+    check(wide_k4["wide_launches"] > 0, "hsmm_band_grad was not launched at phase 4i's wide DP")
+    for k in wide_kernels:
+        check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
+        check(k["launches"] > 0, "{} was not launched on phase 4i's path".format(k["name"]))
+    kernels.extend(wide_kernels)
     phase("times", "serving shape B={} T={} C={} K={}; {} launches of each kernel; "
           "plain versions of the scans and the traceback 2 launches; library call: none "
           "computes any of these functions".format(B, T, C, K, N_TIMED))

@@ -21,6 +21,7 @@ import torch
 from action_segmentation_torch.ops import hsmm as th
 from action_segmentation_torch.ops import hsmm_cuda as hc
 from action_segmentation_torch.ops import hsmm_grad as hg
+from action_segmentation_torch.ops.span_codec import spans_to_labels
 
 pytestmark = pytest.mark.gpu
 RTOL, ATOL = 1e-5, 1e-4
@@ -371,14 +372,14 @@ def test_training_kernels_reject_what_they_do_not_take(cuda):
 
 
 def test_wide_class_tables_raise_on_the_card(cuda):
-    """A model with more classes than the kernels take raises on the card
-    (decode, training loss, marginals); no plain version runs there."""
+    """A model with more classes than the wide kernels take raises on the
+    card (decode, training loss, marginals); no plain version runs there."""
     from argparse import Namespace
 
     from action_segmentation_torch.api import Segmenter
     from action_segmentation_torch.models.semimarkov import GaussianHsmm, SemiMarkovModel
 
-    C, D, T = hc.MAX_CLASSES + 1, 4, 8
+    C, D, T = hc.WIDE_MAX_CLASSES + 1, 4, 8
     args = Namespace(sm_max_span_length=4)
     model = SemiMarkovModel(args, C, D, GaussianHsmm(args, C, D, device=cuda), cuda)
     feats = torch.zeros((1, T, D), device=cuda)
@@ -439,7 +440,7 @@ def test_viterbi_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         hc.hsmm_viterbi_traceback(bp, L[:1].contiguous(), c)
     with pytest.raises(ValueError):
-        hc.hsmm_viterbi_traceback(torch.zeros((2, 4, 129), dtype=torch.int32, device=cuda),
+        hc.hsmm_viterbi_traceback(torch.zeros((2, 4, 1025), dtype=torch.int32, device=cuda),
                                   L, c)
 
 
@@ -896,3 +897,200 @@ def test_scan_launch_refuses_an_instance_too_small(cuda):
     torch.cuda.synchronize()
     assert err == 0
     assert torch.equal(gamma, hc._gamma_scan_plain(*scan_in)[0])
+
+
+# ---- a DP wider than 128 classes: the wide scans (csrc/hsmm_scan_wide.cu),
+# the traceback's wide instance and K4, each equal to its plain version
+
+WIDE_CLASSES = (129, 342, 1024)
+WIDE_KMS = (1, 19, 25, 64)
+WIDE_KERNELS = (hc.hsmm_viterbi_scan_wide, hc.hsmm_log_scan_wide, hc.hsmm_forward_scan_wide,
+                hc.hsmm_viterbi_traceback_wide)
+NARROW_KERNELS = (hc.hsmm_gamma_scan, hc.hsmm_log_scan, hc.hsmm_forward_scan,
+                  hc.hsmm_viterbi_scan, hc.hsmm_viterbi_traceback, hc.hsmm_band_max)
+
+
+def launches(kernels):
+    return [k.launches for k in kernels]
+
+
+def assert_wide_scans_equal_plain(scan_in):
+    """The three wide instances through the public wrappers, each launched
+    once, against their plain versions: equal."""
+    before, narrow = launches(WIDE_KERNELS), launches(NARROW_KERNELS)
+    vit_alphas, bp = hc.hsmm_viterbi_scan(*scan_in)
+    log_gamma, log_alphas = hc.hsmm_log_scan(*scan_in)
+    fwd = hc.hsmm_forward_scan(*scan_in)
+    assert [a - b for a, b in zip(launches(WIDE_KERNELS), before)] == [1, 1, 1, 0]
+    assert launches(NARROW_KERNELS) == narrow
+    want_vit = hc._viterbi_scan_plain(*scan_in, radix=hc.WIDE_CODE_RADIX)
+    want_log = hc._log_scan_plain(*scan_in)
+    torch.cuda.synchronize()
+    for name, got, exp in (("viterbi alphas", vit_alphas, want_vit[0]),
+                           ("codes", bp, want_vit[1]),
+                           ("log gamma", log_gamma, want_log[0]),
+                           ("log alphas", log_alphas, want_log[1]),
+                           ("forward alphas", fwd, want_log[1])):
+        assert torch.equal(got, exp), "{}: {} of {} differ".format(
+            name, int((got != exp).sum()), got.numel())
+    return bp
+
+
+@pytest.mark.parametrize("C", WIDE_CLASSES)
+@pytest.mark.parametrize("Km", WIDE_KMS)
+def test_wide_scans_bit_exact_with_plain(cuda, C, Km):
+    """Each layout: the ring in shared memory and (C = 1024, Km = 64) in
+    global memory."""
+    T = 24 if C > 342 else 40  # the plain log scan is a Python loop over C
+    assert_wide_scans_equal_plain(scan_inputs(np.random.RandomState(C + Km), 2, T, C, Km, cuda))
+
+
+@pytest.mark.parametrize("case,C,Km", [("ragged", 129, 19), ("ragged", 342, 19),
+                                       ("all_tie", 342, 19), ("all_tie", 1024, 64),
+                                       ("short", 200, 25)])
+def test_wide_scans_edge_cases(cuda, case, C, Km):
+    """The stacked forward and reversed chains with ragged lengths down to
+    1; constant inputs, where every term ties and the first maximum is
+    code 0; and three steps."""
+    if case == "all_tie":
+        zeros = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
+        bp = assert_wide_scans_equal_plain((zeros(3, C, C), zeros(3, C), zeros(3, Km, C),
+                                            zeros(3, 8, C)))
+        assert (bp == 0).all()
+        return
+    if case == "short":
+        assert_wide_scans_equal_plain(scan_inputs(np.random.RandomState(C), 3, 3, C, Km, cuda))
+        return
+    pots, lengths = random_pots(np.random.RandomState(C + Km), 3, 30, C, Km + 1, cuda)
+    lengths[1] = 1
+    assert_wide_scans_equal_plain(hc._stack_fwd_rev(pots, lengths.long()))
+
+
+@pytest.mark.parametrize("C", WIDE_CLASSES)
+@pytest.mark.parametrize("max_rows", (None, 3))
+def test_wide_traceback_matches_plain(cuda, C, max_rows):
+    """The traceback's wide instance on the plain scan's codes (one tile a
+    video, or 3-row tiles) and on uniform random codes at radix 1024,
+    with lengths down to 1: spans equal."""
+    pots, lengths = random_pots(np.random.RandomState(C), 4, 60, C, 20, cuda)
+    lengths[1] = 1
+    L = lengths.long()
+    alphas, bp = hc._viterbi_scan_plain(pots.trans.contiguous(), pots.init.contiguous(),
+                                        th._durations(pots.lens).contiguous(),
+                                        pots.emit.contiguous())
+    c_last = th._finals(alphas, L, pots.end_mask).argmax(dim=-1)
+    before = hc.hsmm_viterbi_traceback_wide.launches
+    if max_rows is None:
+        spans = hc.hsmm_viterbi_traceback(bp, L, c_last)
+        assert hc.hsmm_viterbi_traceback_wide.launches == before + 1
+    else:
+        spans = hc._launch_traceback(bp, L, c_last, hc.traceback_tile(60, C, max_rows))
+    torch.cuda.synchronize()
+    assert torch.equal(spans, hc._traceback_plain(bp, L, c_last))
+    rng = np.random.RandomState(C + 1)
+    N, T, Km = 6, 300, 40
+    codes = rng.randint(0, Km, size=(N, T, C)) * hc.WIDE_CODE_RADIX + rng.randint(
+        0, C, size=(N, T, C))
+    bp = torch.from_numpy(codes.astype(np.int32)).to(cuda)
+    L = torch.tensor([T, 1, 2, 29, T - 1, T // 2], device=cuda)
+    c_last = torch.from_numpy(rng.randint(0, C, size=N)).to(cuda)
+    tile = hc.traceback_tile(T, C, max_rows)
+    spans = hc._launch_traceback(bp, L, c_last, tile)
+    torch.cuda.synchronize()
+    assert torch.equal(spans, hc._traceback_plain(bp, L, c_last))
+
+
+@pytest.mark.parametrize("C", WIDE_CLASSES)
+@pytest.mark.parametrize("K", (2, 20, 26, 65))
+def test_wide_band_grad_matches_plain(cuda, C, K):
+    """K4 at a wide DP (one or a few rows a block), its counters back at
+    0 after each launch."""
+    band_in = band_grad_inputs(3, 48, C, K, cuda, C + K)
+    assert_band_grad_matches_plain(band_in)
+    assert int(hc._TICKETS[band_in[0].device].abs().sum()) == 0
+
+
+def test_wide_launches_refuse_what_they_do_not_take(cuda):
+    """Above 1,024 classes the scans, the traceback and K4 raise; the wide
+    scan's launch refuses too little shared memory or a radix below C."""
+    scan_in = scan_inputs(np.random.RandomState(1), 1, 4, 1025, 2, cuda)
+    for scan in (hc.hsmm_viterbi_scan, hc.hsmm_log_scan, hc.hsmm_forward_scan):
+        with pytest.raises(ValueError):
+            scan(*scan_in)
+    with pytest.raises(ValueError):
+        hc.hsmm_band_grad(torch.zeros((1, 4, 1025), device=cuda),
+                          torch.zeros((1, 6, 1025), device=cuda),
+                          torch.zeros((1, 1, 1025), device=cuda))
+    scan_in = scan_inputs(np.random.RandomState(2), 2, 8, 200, 19, cuda)
+    trans_t = scan_in[0].transpose(1, 2).contiguous()
+    alphas = torch.empty_like(scan_in[3])
+    bp = torch.empty(alphas.shape, dtype=torch.int32, device=cuda)
+    inst = hc.wide_scan_instance(200, 19)
+    for radix, smem in ((1024, inst.smem_bytes - 4), (128, inst.smem_bytes)):
+        err = hc._call("hsmm_scan_wide", "hsmm_wide_viterbi_scan",
+                       [trans_t, *scan_in[1:], alphas, bp, None],
+                       [2, 8, 200, 19, radix, smem], alphas)
+        assert err != 0, (radix, smem)
+
+
+def test_wide_partition_fb_kernels_match_plain(cuda):
+    """The kernel forward/backward at a 160-wide DP (wide log scan, K4)
+    against the same Function through the plain versions, and its primal
+    through the wide forward scan."""
+    pots, lengths = random_pots(np.random.RandomState(160), 3, 64, 160, 12, cuda, unit=True)
+
+    def grads(kernels):
+        xs = [x.detach().clone().requires_grad_(True) for x in pots]
+        z = hg.hsmm_partition_fb(*xs, lengths, kernels)
+        z.sum().backward()
+        return [z.detach()] + [x.grad for x in xs]
+
+    before = launches((hc.hsmm_log_scan_wide, hc.hsmm_band_grad, hc.hsmm_log_scan))
+    got = grads(hg.KERNELS)
+    assert [a - b for a, b in zip(launches((hc.hsmm_log_scan_wide, hc.hsmm_band_grad,
+                                             hc.hsmm_log_scan)), before)] == [1, 1, 0]
+    for name, g, w in zip(("logZ", "trans", "init", "lens", "emit", "end_mask"), got,
+                          grads(hg.PLAIN)):
+        torch.testing.assert_close(g, w, rtol=GRAD_RTOL, atol=GRAD_ATOL, msg=name)
+    before = hc.hsmm_forward_scan_wide.launches
+    with torch.no_grad():
+        primal = hg.hsmm_partition_fb(*pots, lengths)
+    assert hc.hsmm_forward_scan_wide.launches == before + 1
+    torch.testing.assert_close(primal, got[0], rtol=RTOL, atol=ATOL)
+
+
+def test_wide_model_decodes_and_trains_on_the_card(cuda):
+    """A 160-class model over all its classes: decode through the wide
+    scan and traceback (labels equal to the plain spans chain's), the
+    unsupervised loss through the wide log scan and K4; no narrow kernel."""
+    from argparse import Namespace
+
+    from action_segmentation_torch.models.semimarkov import GaussianHsmm, SemiMarkovModel
+
+    C, D, T, B = 160, 6, 96, 3
+    args = Namespace(sm_max_span_length=10)
+    model = SemiMarkovModel(args, C, D, GaussianHsmm(args, C, D, device=cuda), cuda)
+    with torch.no_grad():
+        model.module.gaussian_means.normal_(generator=torch.Generator(cuda).manual_seed(0))
+    vc = torch.arange(C, device=cuda)
+    feats = torch.randn((B, T, D), generator=torch.Generator(cuda).manual_seed(1),
+                        device=cuda)
+    lengths = torch.tensor([T, 50, 1], device=cuda)
+    cons, ends = torch.zeros((B, T, C), device=cuda), torch.zeros((B, C), device=cuda)
+    before, narrow = launches(WIDE_KERNELS), launches(NARROW_KERNELS)
+    grad_before = hc.hsmm_band_grad.launches
+    labels, scores = model._decode(feats, lengths, vc, cons, ends)
+    with torch.no_grad():
+        pots, _, _ = model.module.compute_potentials(feats, lengths, vc, cons, ends)
+    spans, want_scores = hc.hsmm_viterbi_spans_plain(pots, lengths)
+    torch.testing.assert_close(scores, want_scores, rtol=RTOL, atol=ATOL)
+    want = torch.where(torch.arange(T, device=cuda)[None, :] < lengths[:, None],
+                       spans_to_labels(spans), -1)
+    assert torch.equal(labels, want)
+    loss, _ = model._loss(feats, lengths, vc, None, None, cons, ends,
+                          torch.ones(B, device=cuda), use_labels=False)
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert [a - b for a, b in zip(launches(WIDE_KERNELS), before)] == [1, 1, 0, 1]
+    assert hc.hsmm_band_grad.launches == grad_before + 1
+    assert launches(NARROW_KERNELS) == narrow

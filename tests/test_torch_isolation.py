@@ -18,6 +18,7 @@ from action_segmentation_torch.data.synthetic import SyntheticDatasplit
 from action_segmentation_torch.models.semimarkov import GaussianHsmm, SemiMarkovModel
 from action_segmentation_torch.ops.hsmm_cuda import (
     MAX_CLASSES,
+    WIDE_MAX_CLASSES,
     hsmm_band_max,
     hsmm_gamma_scan,
     kernel_path,
@@ -139,14 +140,17 @@ def test_kernel_gate_and_other_devices():
 def test_kernel_path_chooses_by_device():
     """Decode chooses its chain by the model's class count on both devices
     (the labels kernels at <= 128 classes, the exact-spans kernels above);
-    on the card every call runs kernels and only a DP WIDER than 128
-    raises. The 342-class CrossTask model, whose tasks are 20 wide, takes
-    the spans chain and the partition's kernels on the card."""
+    on the card every call runs kernels and only a DP WIDER than the wide
+    kernels' 1,024 classes raises. The 342-class CrossTask model takes the
+    spans chain and the partition's kernels on the card, whether its DP
+    is a task's 20 classes or all 342."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
     assert kernel_path(MAX_CLASSES, MAX_CLASSES, cpu) == ("labels", "kernels")
     assert kernel_path(MAX_CLASSES + 1, MAX_CLASSES + 1, cpu) == ("spans", "autograd")
     assert kernel_path(342, 20, cpu) == ("spans", "autograd")
     assert kernel_path(MAX_CLASSES, MAX_CLASSES, cuda) == ("labels", "kernels")
     assert kernel_path(342, 20, cuda) == ("spans", "kernels")
+    assert kernel_path(342, 342, cuda) == ("spans", "kernels")
+    assert kernel_path(MAX_CLASSES + 1, MAX_CLASSES + 1, cuda) == ("spans", "kernels")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernel_path(MAX_CLASSES + 1, MAX_CLASSES + 1, cuda)
+        kernel_path(WIDE_MAX_CLASSES + 1, WIDE_MAX_CLASSES + 1, cuda)

@@ -1,0 +1,206 @@
+"""A DP wider than 128 classes (128 < C <= 1024) on the CPU, against the
+JAX package.
+
+Above 128 classes the JAX package runs its jnp DPs (ops/hsmm.py: the
+Viterbi keeps bp_d and bp_c in two planes, the partition and the
+marginals by autograd). The port packs a wide DP's backpointer codes at
+``hsmm_cuda.code_radix(C)`` (1024 up to 1,024 classes, not the narrow
+kernels' 128, which a class index >= 128 would carry into the duration),
+and its wrappers run their kernels' plain versions on CPU tensors. Same
+numpy inputs on both sides. Tolerances are the JAX package's: scores
+and logZ rtol 1e-5 / atol 1e-4 (tests/test_hsmm_pallas.py), gradients
+and marginals rtol 2e-3 / atol 2e-4 (tests/test_hsmm_grad.py); spans and
+labels equal. The launch rules of the wide kernels are checked against
+an H100 block's limits; the kernels themselves run on the card
+(tests/test_torch_gpu.py, chip_smoke.py phase 4i).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from action_segmentation_torch.api import Segmenter as TSegmenter
+from action_segmentation_torch.ops import hsmm as th
+from action_segmentation_torch.ops import hsmm_cuda as hc
+from action_segmentation_torch.ops import hsmm_grad as hg
+from action_segmentation_tpu.api import Segmenter as JSegmenter
+from action_segmentation_tpu.ops import hsmm as jh
+from tests.conftest import make_sm_args
+from tests.test_hsmm_grad import random_pots_arrays
+from tests.test_torch_semimarkov import fitted
+
+RTOL, ATOL = 1e-5, 1e-4
+GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
+NAMES = ("trans", "init", "lens", "emit", "end_mask")
+WIDE_KERNELS = (hc.hsmm_viterbi_scan_wide, hc.hsmm_viterbi_traceback_wide,
+                hc.hsmm_log_scan_wide, hc.hsmm_forward_scan_wide)
+
+
+def wide_arrays(rng, B, T, C, K):
+    """Potentials whose best paths visit the classes at and above 128:
+    their emissions get a bonus, so that a code's class index past the
+    narrow radix is read on the walk. (arrays, lengths ragged down to 1)."""
+    trans = rng.randn(B, C, C).astype(np.float32)
+    init = rng.randn(B, C).astype(np.float32)
+    lens = rng.randn(B, K, C).astype(np.float32)
+    lens[:, 0] = -1e9
+    emit = rng.randn(B, T, C).astype(np.float32)
+    emit[:, :, 128:] += 1.5
+    end_mask = np.zeros((B, C), np.float32)
+    lengths = rng.randint(T // 2, T + 1, size=B).astype(np.int32)
+    lengths[0], lengths[-1] = T, 1
+    return (trans, init, lens, emit, end_mask), lengths
+
+
+@pytest.mark.parametrize("C", (129, 200, 342))
+def test_wide_viterbi_spans_match_jax(C):
+    """``hsmm_viterbi_spans`` (the plain scan and traceback at the wide
+    radix) against JAX's jnp ``hsmm_viterbi``: spans equal."""
+    arrays, lengths = wide_arrays(np.random.RandomState(C), 3, 24, C, 8)
+    want_spans, want_scores = jh.hsmm_viterbi(
+        jh.HsmmPotentials(*map(jnp.asarray, arrays)), jnp.asarray(lengths))
+    before = [k.launches for k in WIDE_KERNELS]
+    got_spans, got_scores = hc.hsmm_viterbi_spans(
+        th.HsmmPotentials(*map(torch.from_numpy, arrays)), torch.from_numpy(lengths))
+    assert [k.launches for k in WIDE_KERNELS] == before  # plain versions on the CPU
+    np.testing.assert_allclose(got_scores.numpy(), np.asarray(want_scores), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_array_equal(got_spans.numpy(), np.asarray(want_spans))
+    assert (got_spans.numpy() >= 128).any()  # the walk read a class past 127
+
+
+def test_code_radix_and_its_overflow():
+    """128 at the narrow widths (the narrow kernels' compiled radix), 1024
+    over the wide kernels' range, a power of two >= C past it; a band
+    whose codes would pass int32 is refused."""
+    assert [hc.code_radix(C) for C in (1, 128, 129, 342, 1024, 1025, 3000)] == [
+        128, 128, 1024, 1024, 1024, 2048, 4096]
+    z = torch.zeros
+    band = z(1, 1, 200).expand(1, 2 ** 21 + 1, 200)  # a view: no memory
+    with pytest.raises(ValueError, match="overflow"):
+        hc.hsmm_viterbi_scan(z(1, 200, 200), z(1, 200), band, z(1, 0, 200))
+
+
+@pytest.fixture(scope="module")
+def wide_model():
+    """A closed-form 160-class synthetic model (JAX's and the port's)."""
+    args = make_sm_args(sm_max_span_length=20, sm_supervised_method="closed-form")
+    return fitted(args, n_classes=160)
+
+
+@pytest.mark.parametrize("order", ["default", "reversed"])
+def test_wide_segmenter_matches_jax(wide_model, order):
+    """``Segmenter`` over every class of a 160-class model, in the model's
+    order and reversed (a DP index is then 159 - class, so the frequent
+    low classes sit past index 127): labels equal to JAX's Segmenter."""
+    jm, tm, _, ttest = wide_model
+    valid = None if order == "default" else np.arange(160)[::-1]
+    feats = [ttest._samples[name]["features"] for name in sorted(ttest._samples)]
+    want = JSegmenter(jm, valid_classes=valid).segment_many(feats, batch_size=5)
+    got = TSegmenter(tm, valid_classes=valid).segment_many(feats, batch_size=5)
+    for f, g, w in zip(feats, got, want):
+        assert g.shape == (f.shape[0],)
+        np.testing.assert_array_equal(g, w)
+
+
+def test_wide_segment_with_marginals_matches_jax(wide_model):
+    """``segment_with_marginals`` at 160 classes: labels equal to JAX's,
+    marginals at the gradient tolerance."""
+    jm, tm, _, ttest = wide_model
+    features = ttest._samples[sorted(ttest._samples)[0]]["features"]
+    want_labels, want = JSegmenter(jm).segment_with_marginals(features)
+    got_labels, got = TSegmenter(tm).segment_with_marginals(features)
+    np.testing.assert_array_equal(got_labels, want_labels)
+    assert got.shape == want.shape == (features.shape[0], 160)
+    np.testing.assert_allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("C", (160, 200))
+def test_wide_partition_fb_plain_matches_jax(C):
+    """``HsmmPartitionFB`` through the PLAIN kernels (the card route's
+    twin: the stacked log scan, the band sweep) against autograd of JAX's
+    jnp ``hsmm_partition``: logZ and the five gradients."""
+    arrays = [np.array(a) for a in random_pots_arrays(
+        np.random.RandomState(C), 2, 12, C, 5)]
+    arrays, lengths = arrays[:5], arrays[5]
+    xs = [jnp.asarray(a) for a in arrays]
+
+    def total(*xs):
+        return jh.hsmm_partition(jh.HsmmPotentials(*xs), jnp.asarray(lengths)).sum()
+
+    want_z = jh.hsmm_partition(jh.HsmmPotentials(*xs), jnp.asarray(lengths))
+    want = jax.grad(total, argnums=(0, 1, 2, 3, 4))(*xs)
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    z = hg.hsmm_partition_fb(*ts, torch.from_numpy(lengths), kernels=hg.PLAIN)
+    z.sum().backward()
+    np.testing.assert_allclose(z.detach().numpy(), np.asarray(want_z), rtol=RTOL, atol=ATOL)
+    for name, t, w in zip(NAMES, ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=name)
+
+
+def test_kernel_path_on_the_card_takes_wide_dps():
+    """On the card a DP of up to WIDE_MAX_CLASSES classes takes the
+    kernels (the spans chain above 128 model classes, the kernel
+    partition); a wider one raises, naming ROADMAP."""
+    cuda = torch.device("cuda")  # a device type: nothing runs
+    for width in (129, 342, 1024):
+        assert hc.kernel_path(342 if width <= 342 else width, width, cuda) == ("spans", "kernels")
+    assert hc.kernel_path(128, 128, cuda) == ("labels", "kernels")
+    assert hc.WIDE_MAX_CLASSES == 1024
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        hc.kernel_path(1025, 1025, cuda)
+
+
+WIDE_CLASSES = (129, 342, 1024)
+WIDE_KMS = (1, 19, 64, 100)
+
+
+@pytest.mark.parametrize("C", WIDE_CLASSES)
+@pytest.mark.parametrize("Km", WIDE_KMS)
+def test_wide_scan_launch_fits_the_block(C, Km):
+    """csrc/hsmm_scan_wide.cu's launch (``wide_scan_instance``): one
+    thread a class in whole warps within 1,024 threads; the alpha rows
+    and, where both fit 232,448 bytes, the carry's ring in shared memory,
+    else the ring in global memory."""
+    inst = hc.wide_scan_instance(C, Km)
+    assert C <= inst.threads <= hc.MAX_BLOCK_THREADS and inst.threads % 32 == 0
+    assert inst.threads - C < 32
+    fits = 4 * (2 * C + Km * C) <= hc.MAX_BLOCK_SMEM
+    assert inst.ring == ("shared" if fits else "global")
+    assert inst.smem_bytes == 4 * (2 * C + (Km * C if fits else 0)) <= hc.MAX_BLOCK_SMEM
+    # the serving width's ring (Km = 19 at C = 342) and 1,024 classes at
+    # Km = 64 (past the block's shared memory) take each layout
+    assert hc.wide_scan_instance(342, 19).ring == "shared"
+    assert hc.wide_scan_instance(1024, 64).ring == "global"
+
+
+@pytest.mark.parametrize("C", WIDE_CLASSES)
+@pytest.mark.parametrize("Km", WIDE_KMS)
+def test_wide_band_grad_and_traceback_tiles_fit_the_block(C, Km):
+    """K4's tile and the traceback's at a wide DP: K4 one or more whole
+    rows of C threads with its slab within a block's and an SM's shared memory (at 18 videos of 1,024
+    frames 5 rows at C = 129, 2 at 342, 1 at 1,024); the traceback two
+    buffers of rows * C codes in a block's (84 rows at C = 342, 28 at
+    1,024). The
+    codes' radix holds C and the traceback's d' << 12 fits int32 up to
+    its T limit."""
+    for B, T in ((18, 1024), (1, 1056), (4, 200)):
+        tile = hc.band_grad_tile(B, T, C, Km)
+        warps = -(-tile.threads // 32)
+        assert 1 <= tile.rows <= T and tile.threads == tile.rows * C <= hc.MAX_BLOCK_THREADS
+        assert tile.smem_bytes == 4 * tile.slab * tile.threads <= hc.MAX_BLOCK_SMEM
+        assert tile.blocks_per_sm * (tile.smem_bytes + hc.SM_SMEM_PER_BLOCK) <= hc.SM_SMEM
+        assert tile.blocks_per_sm * warps * 32 * hc.BAND_GRAD_REGS <= hc.SM_REGS
+        assert 1 <= tile.slab <= Km
+        tb = hc.traceback_tile(T, C)
+        assert 1 <= tb.rows <= T
+        assert tb.smem_bytes == hc.TRACEBACK_HEADER + 8 * hc._tile_words(tb.rows, C)
+        assert tb.smem_bytes <= hc.MAX_BLOCK_SMEM
+    assert hc.traceback_tile(1024, C).rows == {129: 225, 342: 84, 1024: 28}[C]
+    assert hc.band_grad_tile(18, 1024, C, Km).rows == {129: 5, 342: 2, 1024: 1}[C]
+    radix = hc.code_radix(C)
+    assert radix >= C and (Km * radix) < 2 ** 31
+    assert (hc.WIDE_TRACEBACK_MAX_T << 12) < 2 ** 31
