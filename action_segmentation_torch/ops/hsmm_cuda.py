@@ -29,7 +29,10 @@ of C and Km; ``scan_instance`` picks the instance a shape launches.
 A DP wider than 128 classes (up to WIDE_MAX_CLASSES) takes the wide
 kernels, which the same wrappers launch by C: the three instances of
 csrc/hsmm_scan_wide.cu (``hsmm_viterbi_scan_wide``, ``hsmm_log_scan_wide``,
-``hsmm_forward_scan_wide``: one block a chain, one thread a class), the
+``hsmm_forward_scan_wide``: one thread a class, on one of two routes that
+``wide_scan_instance`` picks by shape: up to WIDE_CLUSTER_MAX_CLASSES a
+cluster of 1-8 blocks a chain holding its transition table in shared
+memory, past it one block a chain reading the table from L2), the
 traceback's wide instance (``hsmm_viterbi_traceback_wide``, codes at
 radix WIDE_CODE_RADIX) and the band gradient as it is. Each wide kernel
 counts its own launches. The max gamma scan and the band max stay at
@@ -76,7 +79,8 @@ from action_segmentation_torch.ops.hsmm import (
 # four warps a chain), so they take C <= 128 classes.
 MAX_CLASSES = 128
 # The wide kernels (csrc/hsmm_scan_wide.cu, the traceback's wide instance
-# and the band gradient) put one class per thread of a 1,024-thread block:
+# and the band gradient) put one class per thread, in one block of at most
+# 1,024 threads or (the wide scans' cluster route) in a cluster of blocks:
 # a DP of MAX_CLASSES < C <= WIDE_MAX_CLASSES takes them.
 WIDE_MAX_CLASSES = 1024
 
@@ -362,29 +366,106 @@ hsmm_forward_scan.launches = 0
 
 
 class WideScan(NamedTuple):
-    """A wide scan's launch: threads a block (C in whole warps), where the
-    carry's ring lives ("shared", or "global" in a scratch the wrapper
-    allocates) and the dynamic shared memory."""
+    """A wide scan's launch (csrc/hsmm_scan_wide.cu). `route` "cluster":
+    `cluster` blocks a chain, each holding the transition table's rows of
+    its `slab` classes in shared memory for the whole scan, the ring
+    beside them; "l2" (past the cluster route): one block a chain
+    (`cluster` 1, `slab` C) reading the table from L2, the carry's ring in
+    shared memory or, where it does not fit beside the alpha rows, in a
+    global scratch the wrapper allocates (`ring` "global"). `threads` a
+    block (one a class of its slab, in whole warps) and `smem_bytes` a
+    block's dynamic shared memory."""
 
+    route: str
+    cluster: int
+    slab: int
     threads: int
     ring: str
     smem_bytes: int
 
 
-def wide_scan_instance(C, Km):
-    """The launch of csrc/hsmm_scan_wide.cu for C classes and Km duration
-    rows (the kernel's layout): the double-buffered alpha row, 2 * C
-    floats, and the ring of Km * C floats beside it where both fit a
-    block's shared memory, else the ring in global memory."""
+# the cluster route's largest cluster (the portable size) and block
+# (csrc/hsmm_scan_wide.cu's __launch_bounds__)
+WIDE_MAX_CLUSTER = 8
+WIDE_SLAB_THREADS = 256
+# the widest C the cluster route takes, at any Km: a portable cluster of 8
+# blocks of 83 classes at Km = 1 (the least ring), 230,092 bytes a block;
+# at 665 a slab of 84 takes 232,832 (``wide_scan_instance``)
+WIDE_CLUSTER_MAX_CLASSES = 664
+
+
+def _alpha_stride(C):
+    """The alpha row's stride in floats: C rounded up to 16 bytes."""
+    return -(-C // 4) * 4
+
+
+def _table_stride(C):
+    """A class's row of the table in the cluster route, in floats: the
+    alpha stride rounded up to 4 past a multiple of 32 (its 16-byte loads
+    free of bank conflicts)."""
+    return _alpha_stride(C) + (36 - _alpha_stride(C) % 32) % 32
+
+
+def wide_cluster_smem(C, Km, slab):
+    """A cluster-route block's shared memory in bytes (the kernel's
+    layout): the two alpha rows' mbarriers (16 bytes), two alpha rows of
+    every class, the table's row of each of the slab's classes and the
+    ring's Km rows of the slab."""
+    return 4 * (4 + 2 * _alpha_stride(C) + min(slab, C) * _table_stride(C) + Km * slab)
+
+
+def wide_l2_instance(C, Km):
+    """The L2 route's launch for C classes and Km duration rows: the
+    double-buffered alpha row, 2 * C floats, and the ring of Km * C
+    floats beside it where both fit a block's shared memory, else the
+    ring in global memory."""
     alpha = 2 * C
     ring = "shared" if 4 * (alpha + Km * C) <= MAX_BLOCK_SMEM else "global"
-    return WideScan(32 * -(-C // 32), ring, 4 * (alpha + Km * C * (ring == "shared")))
+    return WideScan("l2", 1, C, 32 * -(-C // 32), ring,
+                    4 * (alpha + Km * C * (ring == "shared")))
 
 
-def _launch_wide_scan(name, symbol, trans, init, dur, emit, outputs, ints=()):
-    """Checks, then one launch of csrc/hsmm_scan_wide.cu's `symbol` (one
-    block per chain) writing `outputs`; `ints` (the code radix) follow
-    the shape's."""
+def wide_scan_instance(C, Km):
+    """The launch of csrc/hsmm_scan_wide.cu for C classes and Km duration
+    rows: the cluster route with the smallest cluster (1 to 8 blocks) whose
+    blocks each hold their slab's table, its ring and the alpha rows within
+    a block's shared memory, the slab in whole warps where that fits, else
+    C split evenly; past that (above WIDE_CLUSTER_MAX_CLASSES, or a ring
+    too deep) the L2 route (``wide_l2_instance``)."""
+    for cluster in range(1, WIDE_MAX_CLUSTER + 1):
+        even = -(-C // cluster)
+        for slab in (32 * -(-even // 32), even):
+            smem = wide_cluster_smem(C, Km, slab)
+            if smem <= MAX_BLOCK_SMEM and slab <= WIDE_SLAB_THREADS:
+                return WideScan("cluster", -(-C // slab), slab, 32 * -(-slab // 32),
+                                "shared", smem)
+    return wide_l2_instance(C, Km)
+
+
+# the wide scans' instances in csrc/hsmm_scan_wide.cu's order
+WIDE_SCAN_INDEX = {"viterbi": 0, "log": 1, "forward": 2}
+
+
+def wide_max_active_clusters(scan, C, Km, device=0):
+    """cudaOccupancyMaxActiveClusters of the wide `scan` instance
+    ("viterbi", "log" or "forward") on the cluster route at (C, Km): the
+    chains the card runs at once. Raises on the L2 route or a CUDA error."""
+    inst = wide_scan_instance(C, Km)
+    if inst.route != "cluster":
+        raise ValueError("C={} Km={} takes the L2 route".format(C, Km))
+    fn = _bound("hsmm_scan_wide", "hsmm_wide_max_active_clusters",
+                (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
+    out = ctypes.c_int(0)
+    err = fn(WIDE_SCAN_INDEX[scan], inst.cluster, inst.slab, inst.smem_bytes, device,
+             ctypes.byref(out))
+    _raise_on_error("wide_max_active_clusters", err)
+    return out.value
+
+
+def _launch_wide_scan(name, symbol, trans, init, dur, emit, outputs, ints=(), inst=None):
+    """Checks, then one launch of csrc/hsmm_scan_wide.cu's `symbol` on the
+    route `inst` gives (by default ``wide_scan_instance``) writing
+    `outputs`; `ints` (the code radix) follow the shape's."""
     N, T, C = emit.shape
     Km = dur.shape[1]
     if not MAX_CLASSES < C <= WIDE_MAX_CLASSES:
@@ -395,18 +476,21 @@ def _launch_wide_scan(name, symbol, trans, init, dur, emit, outputs, ints=()):
     _check_cuda(
         name, (emit, trans, init, dur), ((N, T, C), (N, C, C), (N, C), (N, Km, C))
     )
-    inst = wide_scan_instance(C, Km)
+    if inst is None:
+        inst = wide_scan_instance(C, Km)
     ring = emit.new_empty((N, Km, C)) if inst.ring == "global" else None
-    trans_t = trans.transpose(1, 2).contiguous()  # [from][to]: coalesced loads
+    cluster = inst.cluster if inst.route == "cluster" else 0
+    trans_t = trans.transpose(1, 2).contiguous()  # [from][to]: a c' row's classes contiguous
     err = _call("hsmm_scan_wide", symbol, [trans_t, init, dur, emit, *outputs, ring],
-                [N, T, C, Km, *ints, inst.smem_bytes], emit)
+                [N, T, C, Km, *ints, cluster, inst.slab, inst.smem_bytes], emit)
     _raise_on_error(name, err)
 
 
 def hsmm_log_scan_wide(trans, init, dur, emit):
     """``hsmm_log_scan`` for a DP of 128 < C <= 1024 classes: (gamma,
     alphas). On CUDA tensors it launches csrc/hsmm_scan_wide.cu's log
-    instance; on CPU tensors it runs ``_log_scan_plain``."""
+    instance on the route ``wide_scan_instance`` picks; on CPU tensors it
+    runs ``_log_scan_plain``."""
     if _device_type(emit) == "cpu":
         return _log_scan_plain(trans, init, dur, emit)
     gamma, alphas = torch.empty_like(emit), torch.empty_like(emit)
@@ -422,7 +506,8 @@ hsmm_log_scan_wide.launches = 0
 def hsmm_forward_scan_wide(trans, init, dur, emit):
     """``hsmm_forward_scan`` for a DP of 128 < C <= 1024 classes: alphas.
     On CUDA tensors it launches csrc/hsmm_scan_wide.cu's forward
-    instance; on CPU tensors it runs ``_forward_scan_plain``."""
+    instance on the route ``wide_scan_instance`` picks; on CPU tensors it
+    runs ``_forward_scan_plain``."""
     if _device_type(emit) == "cpu":
         return _forward_scan_plain(trans, init, dur, emit)
     alphas = torch.empty_like(emit)
@@ -941,8 +1026,9 @@ hsmm_viterbi_scan.launches = 0
 def hsmm_viterbi_scan_wide(trans, init, dur, emit):
     """``hsmm_viterbi_scan`` for a DP of 128 < C <= 1024 classes: (alphas,
     bp) with the codes at ``code_radix(C)``. On CUDA tensors it launches
-    csrc/hsmm_scan_wide.cu's max instance; on CPU tensors it runs the
-    plain version."""
+    csrc/hsmm_scan_wide.cu's max instance on the route
+    ``wide_scan_instance`` picks; on CPU tensors it runs the plain
+    version."""
     radix = _scan_radix("hsmm_viterbi_scan_wide", emit.shape[-1], dur.shape[1])
     if _device_type(emit) == "cpu":
         return _viterbi_scan_plain(trans, init, dur, emit, radix)

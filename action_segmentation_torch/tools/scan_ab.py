@@ -17,7 +17,7 @@ one (told apart by that export); their band max
 the form before the tile (pointers to G1, G2p, dur, fm; B, T, T2, C,
 Km). Run from the repository root on a machine with a CUDA card:
 
-    python3 -m action_segmentation_torch.tools.scan_ab --old_csrc OLD_DIR [--kernels all|scans|traceback|band_grad|band_max] [--out ab.json]
+    python3 -m action_segmentation_torch.tools.scan_ab --old_csrc OLD_DIR [--kernels all|scans|traceback|band_grad|band_max|wide] [--step0] [--out ab.json]
 
 Both versions build with the port's nvcc flags. For each shape and scan
 (the max gamma scan, the log scan with alphas, the forward-only log scan,
@@ -66,6 +66,27 @@ pick, the new kernel in that tile against the tile of the rows that
 count warps alone, rule, warps, warps, rule from graphs, fm equal to
 the plain version's in both.
 
+The wide scans (``--kernels wide``, never with the others) take an
+earlier ``hsmm_scan_wide.cu`` of one block a chain (the form before the
+cluster route: ``git show f3ba4a7:action_segmentation_torch/csrc/hsmm_scan_wide.cu``): pointers
+(trans transposed, init, dur, emit, the outputs, the ring's scratch or
+null) and N, T, C, Km, [radix,] smem, on ``hsmm_cuda.wide_l2_instance``'s
+launch. Step 0 comes first: the earlier kernels' floors from their SASS
+(``scan_floor.wide_floors``) at each shape. With ``--step0`` nothing of
+the current source is built and each earlier kernel is timed alone
+(old, old). Otherwise the current kernels, on the route
+``wide_scan_instance`` picks (and on the L2 route where that is another),
+are checked equal to the earlier ones and timed old, new, new, old with
+CUDA events launched one by one (a launch is milliseconds), at the S6
+shape (18 chains of 1,024 frames at C = 342, K = 20; 36 stacked chains
+for the log scan), C = 129, the cluster sizes 2, 5 and 8 (C = 236, 500,
+648, and 664 at K = 2; 256 frames), C = 1,024 (4 chains of 256 frames) and
+the two batches of chip_smoke.py's 160-wide fit (36 stacked chains of 208
+frames, ragged; the log scan); it prints ms and us a step, the floors of
+both versions and the ratio of each time to its floor. The transposition
+of trans, which the wrapper makes each call, is made once, outside the
+timed windows.
+
 A thread reads the SM clock through NVML every 5 ms; each result lists
 the readings taken inside its timed windows, old and new apart. Prints the
 card's name and power limit first.
@@ -100,7 +121,9 @@ from action_segmentation_torch.tools.scan_floor import (
     built_sass,
     duration_loop,
     library_sass,
+    max_sm_clock_mhz,
     parse_function,
+    wide_floors,
 )
 from action_segmentation_torch.utils.misc import host_ms
 
@@ -155,6 +178,28 @@ BAND_MAX_RULE_SHAPES = [
     ("B=9", 9, 1024, 19, 20, None),
     ("C=48", 18, 1024, 48, 20, None),
 ]
+# the wide scans' shapes: (name, B, T, C, K, lengths, scans); the log scan
+# runs on the 2B stacked chains
+WIDE_SHAPES = [
+    ("S6", 18, 1024, 342, 20, None, ("viterbi", "log", "forward")),
+    ("C=129", 18, 1024, 129, 20, None, ("viterbi", "log", "forward")),
+    # the cluster route's sizes 2, 5 and 8 (at 18 chains a cluster of 8
+    # needs 144 SMs: a second wave), and its widest C (Km = 1)
+    ("C=236", 18, 256, 236, 20, None, ("viterbi", "log", "forward")),
+    ("C=500", 18, 256, 500, 20, None, ("viterbi", "log", "forward")),
+    ("C=648", 18, 256, 648, 20, None, ("viterbi", "log", "forward")),
+    ("C=664 Km=1", 18, 256, 664, 2, None, ("viterbi", "log", "forward")),
+    ("C=1024", 4, 256, 1024, 20, None, ("viterbi", "log", "forward")),
+    # chip_smoke.py's 160-wide fit (phase 4i(c)): its two batches of 18
+    ("fit batch 1", 18, 208, 160, 20, [200, 44, 181, 176, 194, 79, 50, 144, 75, 184, 28, 156,
+                                       92, 159, 145, 156, 143, 79], ("log",)),
+    ("fit batch 2", 18, 208, 160, 20, [193, 88, 53, 21, 22, 86, 139, 59, 173, 134, 34, 141,
+                                       144, 174, 55, 85, 64, 111], ("log",)),
+]
+# (scan, symbol, outputs: "g" gamma, "a" alphas, "b" codes)
+WIDE_SCANS = [("viterbi", "hsmm_wide_viterbi_scan", "ab"),
+              ("log", "hsmm_wide_log_scan", "ga"),
+              ("forward", "hsmm_wide_forward_scan", "a")]
 N_GRAPH = 50  # step 0's launches in one graph
 RTOL, ATOL = 1e-5, 1e-4
 # (scan, symbol, library, outputs: "g" gamma, "a" alphas, "b" codes, "-" none)
@@ -640,11 +685,120 @@ def compare(fns, kind, inputs, window_ms, clock):
     return r
 
 
+def wide_launcher(fn, inputs, kind, inst, old):
+    """(run, outputs): one launch of a wide scan `fn` on (trans, init, dur,
+    emit) with trans transposed once here, on `inst`'s launch; the earlier
+    interface has no cluster and slab arguments."""
+    trans, init, dur, emit = inputs
+    N, T, C = emit.shape
+    Km = dur.shape[1]
+    trans_t = trans.transpose(1, 2).contiguous()
+    outs = outputs_for(kind, emit)
+    ring = emit.new_empty((N, Km, C)) if inst.ring == "global" else None
+    ints = [N, T, C, Km] + ([hc.code_radix(C)] if "b" in kind else [])
+    if not old:
+        ints += [inst.cluster if inst.route == "cluster" else 0, inst.slab]
+    ints.append(inst.smem_bytes)
+    held = [trans_t, init, dur, emit, *outs, ring]  # alive while `run` is
+
+    def run():
+        err = fn(*[None if x is None else x.data_ptr() for x in held], *ints,
+                 emit.device.index, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError("launch failed with CUDA error {}".format(err))
+    return run, outs
+
+
+def compare_wide(runs, window_ms, clock, order):
+    """Outputs equal across the versions, then ms from CUDA events over
+    `order`'s turns, each window about `window_ms`, and the SM clock
+    readings inside each version's windows."""
+    for run, _ in runs.values():
+        run()
+    torch.cuda.synchronize()
+    names = list(runs)
+    for v in names[1:]:
+        for a, b in zip(runs[names[0]][1], runs[v][1]):
+            if not torch.equal(a, b):
+                raise RuntimeError("{} and {} differ at {} of {} entries".format(
+                    names[0], v, int((a != b).sum()), a.numel()))
+    fastest = min(event_ms(run, 1)[0] for run, _ in runs.values())
+    n = int(min(1000, max(3, window_ms / fastest)))
+    timed = [(v, *event_ms(runs[v][0], n)) for v in order]
+    r = {"launches": n}
+    for v in names:
+        r[v + "_ms"] = [ms for w, ms, _ in timed if w == v]
+        r[v + "_sm_mhz"] = clock_summary(clock.within([win for w, _, win in timed if w == v]))
+    return r
+
+
+def run_wide(old_lib, new_lib, window_ms, clock, rng, device, old_sass, new_sass):
+    """The wide scans at WIDE_SHAPES: step 0's floors of the earlier
+    kernels (and the current ones'); with `new_lib` None the earlier
+    kernels alone, old, old; else old, new, new, old on the route
+    ``wide_scan_instance`` picks, and the current L2 route beside it where
+    that is another. Returns the results."""
+    mhz = max_sm_clock_mhz()
+    results = []
+    for shape, B, T, C, K, lengths, scans in WIDE_SHAPES:
+        stacked, forward = scan_inputs(B, T, C, K, lengths, rng, device)
+        Km = K - 1
+        old_floor = wide_floors(old_sass, C, Km, T, B, mhz, l2_only=True)
+        new_floor = wide_floors(new_sass, C, Km, T, B, mhz) if new_sass else {}
+        for scan, symbol, kind in WIDE_SCANS:
+            if scan not in scans:
+                continue
+            inputs = stacked if scan == "log" else forward
+            n_ptr = 5 + len(kind)
+            old_inst = hc.wide_l2_instance(C, Km)
+            runs = {"old": wide_launcher(bind(old_lib, symbol, n_ptr, 5 + (kind == "ab")),
+                                         inputs, kind, old_inst, old=True)}
+            inst = hc.wide_scan_instance(C, Km)
+            if new_lib is not None:
+                fn = bind(new_lib, symbol, n_ptr, 7 + (kind == "ab"))
+                runs["new"] = wide_launcher(fn, inputs, kind, inst, old=False)
+                if inst.route != "l2":
+                    runs["new l2"] = wide_launcher(fn, inputs, kind, old_inst, old=False)
+                order = ["old", "new", "new", "old"] + (
+                    ["new l2", "new l2"] if "new l2" in runs else [])
+            else:
+                order = ["old", "old"]
+            r = compare_wide(runs, window_ms, clock, order)
+            N = inputs[3].shape[0]
+            r.update(shape=shape, scan=scan, chains=N, T=T, C=C, Km=Km,
+                     route=inst.route, cluster=inst.cluster, slab=inst.slab,
+                     old_floor_ms=old_floor["{} l2".format(scan)]["floor_ms"])
+            for v in runs:
+                r[v.replace(" ", "_") + "_us_per_step"] = 1e3 * np.mean(r[v + "_ms"]) / T
+            if new_floor:
+                key = "{} {}".format(scan, inst.route)
+                r["new_floor_ms"] = new_floor[key]["floor_ms"]
+                r["new_floor_ratio"] = np.mean(r["new_ms"]) / r["new_floor_ms"]
+                r["speedup"] = np.mean(r["old_ms"]) / np.mean(r["new_ms"])
+            r["old_floor_ratio"] = np.mean(r["old_ms"]) / r["old_floor_ms"]
+            results.append(r)
+            print("{:12s} wide {:8s} N={:2d} T={:5d} C={:4d} Km={:2d}, {} (cluster {}, slab {}): "
+                  "{}; outputs equal; floors old {:.4f} ms{}; SM clock {}".format(
+                      shape, scan, N, T, C, Km, inst.route, inst.cluster, inst.slab,
+                      "; ".join("{} {} ms ({:.3f} us a step)".format(
+                          v, ["{:.4f}".format(x) for x in r[v + "_ms"]],
+                          r[v.replace(" ", "_") + "_us_per_step"]) for v in runs),
+                      r["old_floor_ms"], "" if not new_floor else
+                      ", new {:.4f} ms; new x{:.2f} its floor, x{:.2f} faster".format(
+                          r["new_floor_ms"], r["new_floor_ratio"], r["speedup"]),
+                      "; ".join("{} {}-{} MHz ({} readings)".format(
+                          v, r[v + "_sm_mhz"].get("min"), r[v + "_sm_mhz"].get("max"),
+                          r[v + "_sm_mhz"]["n"]) for v in runs)), flush=True)
+    return results
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--old_csrc", required=True, type=Path)
     parser.add_argument("--kernels", choices=("all", "scans", "traceback", "band_grad",
-                                              "band_max"), default="all")
+                                              "band_max", "wide"), default="all")
+    parser.add_argument("--step0", action="store_true",
+                        help="--kernels wide: the earlier kernels alone, nothing current built")
     parser.add_argument("--out", type=Path, default=None)
     parser.add_argument("--window_ms", type=float, default=100.0)
     parser.add_argument("--seed", type=int, default=0)
@@ -657,15 +811,20 @@ def main():
     print(smi, flush=True)
     t0 = time.perf_counter()
     sources = (args.kernels,) if args.kernels in ("band_grad", "band_max") else SOURCES
+    if args.kernels == "wide":
+        sources = ("hsmm_scan_wide",)
     old_libs = build_old(args.old_csrc, args.old_csrc / "build", sources)
-    for name, log in _build.build(list(sources)).items():
-        print_ptxas("new " + name, log)
-    new_libs = {name: _build.load_library(name) for name in sources}
+    new_libs = {}
+    if not args.step0:
+        for name, log in _build.build(list(sources)).items():
+            print_ptxas("new " + name, log)
+        new_libs = {name: _build.load_library(name) for name in sources}
     print("built both versions in {:.1f} s".format(time.perf_counter() - t0), flush=True)
 
     device = torch.device("cuda")
     rng = np.random.RandomState(args.seed)
     results, tb_results, bg_results, bm_results, rule_results = [], [], [], [], []
+    wide_results = []
     bg_opcodes = {}
 
     def clk(s):
@@ -687,6 +846,12 @@ def main():
                   clk(r["old_sm_mhz"]), clk(r["new_sm_mhz"])), flush=True)
 
     with SmClock(device.index or 0) as clock:
+        if args.kernels == "wide":
+            old_sass = library_sass(args.old_csrc / "build" / "libhsmm_scan_wide.so")
+            wide_results = run_wide(
+                old_libs["hsmm_scan_wide"], new_libs.get("hsmm_scan_wide"), args.window_ms,
+                clock, rng, device, old_sass,
+                None if args.step0 else built_sass("hsmm_scan_wide"))
         if args.kernels == "band_max":
             fns = {"old": bind(old_libs["band_max"], "hsmm_band_max", 4, 5),
                    "new": bind(new_libs["band_max"], "hsmm_band_max", 4, 8)}
@@ -807,7 +972,7 @@ def main():
     out = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
            "results": results, "traceback": tb_results, "band_grad": bg_results,
            "band_grad_loop_opcodes": bg_opcodes,
-           "band_max": bm_results, "band_max_rule": rule_results}
+           "band_max": bm_results, "band_max_rule": rule_results, "wide": wide_results}
     if args.out is not None:
         os.makedirs(args.out.parent, exist_ok=True)
         args.out.write_text(json.dumps(out, indent=1))
@@ -823,7 +988,9 @@ def main():
                       "band_max_ab": [{k: v for k, v in r.items() if k not in (
                           "tile", "old_sm_mhz", "new_sm_mhz")} for r in bm_results],
                       "band_max_rule": [{k: v for k, v in r.items() if k not in (
-                          "rule_sm_mhz", "warps_sm_mhz")} for r in rule_results]}))
+                          "rule_sm_mhz", "warps_sm_mhz")} for r in rule_results],
+                      "wide_ab": [{k: v for k, v in r.items() if not k.endswith("_sm_mhz")}
+                                  for r in wide_results]}))
     return 0
 
 

@@ -42,17 +42,46 @@ each loop runs at the launch's shape (the starts of each tile and its
 halo, r from Km - 1 down; the outputs' r <= t), over 32 lanes a warp,
 issued by the SMs' 4 schedulers.
 
+The wide scans (csrc/hsmm_scan_wide.cu: `wide_cluster_scan_kernel`,
+the cluster route, and `wide_scan_kernel`, the L2 route; three instances
+each) have no emission window, and their time loop holds loops of its
+own (the cluster route's template is compiled for a cluster of one block
+and for more). Their time loop is the innermost loop that holds a barrier
+(the alpha row's `BAR.SYNC`, or the wait on its mbarrier, `SYNCS`) and,
+whole inside it, a duration loop and the combine's loops: on the cluster
+route the loops with no global load (the table's and the alpha row's
+shared loads), on the L2 route the loops with a shared load (alpha's,
+beside the table's `LDG`). Every other loop inside it that loads is a
+duration loop (the `LDG` of dur). A loop holding `MUFU.EX2` is the log
+semiring's second pass (the ordered sum), one expf a term; a first pass
+has one compare a term (`FMNMX`, or the argmax's `FSETP`). Of each kind
+of loop (combine or duration, first pass or sum) the version with the most
+terms an iteration (the compiler's unrolled body, not its remainder)
+gives its instructions and its chain a term (the loop's largest cycle
+mean over the terms of an iteration). A step issues the time loop's
+instructions outside its inner loops plus, for each kind, C (combine)
+or Km (duration) terms; its chain is the kinds' chains a term times
+their terms, one after another (a pass needs the last one's result),
+without the barrier's latency, which the SASS does not show. The floor
+a step is the larger of the chain and the instructions times the warps
+each scheduler issues for at the launch (its blocks over the SMs); a
+scan's floor is T steps of it.
+
 Run from the repository root on a machine with the CUDA toolkit:
 
-    python3 -m action_segmentation_torch.tools.scan_floor [--B 18] [--C 19] [--Km 19] [--T 1024] [--segments 760] [--sass-dir DIR]
+    python3 -m action_segmentation_torch.tools.scan_floor [--B 18] [--C 19] [--Km 19] [--T 1024] [--segments 760] [--wide-C 342] [--sass-dir DIR]
 
 With `--sass-dir`, DIR holds `hsmm_scan.sass`, `hsmm_viterbi.sass`,
-`band_grad.sass` and `band_max.sass` (cuobjdump's output) and nothing is
-built. `--segments` is the most segments in one video for the
-traceback's floor in time; B, T, C and Km size the band kernels'
-launches (their tiles from `hsmm_cuda.band_grad_tile` and
-`band_max_tile`). Prints one line per serving instance, one for the
-traceback, one for K4, one for K3, and a JSON object last.
+`band_grad.sass`, `band_max.sass` and `hsmm_scan_wide.sass` (cuobjdump's
+output) and nothing is built. The wide scans' floors are at B chains
+(2B for the log scan, the stacked forward and reversed chains) of T
+steps, `--wide-C` classes and Km rows, on the route
+``hsmm_cuda.wide_scan_instance`` picks, and on the L2 route. `--segments`
+is the most segments in one video for the traceback's floor in time; B,
+T, C and Km size the band kernels' launches (their tiles from
+`hsmm_cuda.band_grad_tile` and `band_max_tile`). Prints one line per serving instance, one for the
+traceback, one for K4, one for K3, one per wide instance and route, and
+a JSON object last.
 """
 
 import argparse
@@ -65,9 +94,14 @@ from pathlib import Path
 from action_segmentation_torch.ops import _build
 from action_segmentation_torch.ops.hsmm_cuda import (
     H100_SMS,
+    MAX_BLOCK_THREADS,
+    SM_SMEM,
+    SM_SMEM_PER_BLOCK,
     band_grad_tile,
     band_max_tile,
     scan_instance,
+    wide_l2_instance,
+    wide_scan_instance,
 )
 
 # assumed latencies in cycles, by opcode (the part before the first dot)
@@ -253,6 +287,172 @@ def band_max_issue_ms(floor, B, T, C, Km, clock_mhz, sms=H100_SMS):
     return B * C * lanes / 32 / (sms * SCHEDULERS) / clock_mhz * 1e-3
 
 
+# the wide scans' kernels (csrc/hsmm_scan_wide.cu) by route, and their
+# instances in the Scan enum's order
+WIDE_KERNELS = {"cluster": "wide_cluster_scan_kernel", "l2": "wide_scan_kernel"}
+WIDE_SCANS = ("viterbi", "log", "forward")
+
+
+def wide_mangled(route, scan, multi=False):
+    """The mangled name's part of a wide instance: the kernel's name and
+    its template arguments (the cluster route's: the scan, and whether the
+    cluster has more than one block)."""
+    name = WIDE_KERNELS[route]
+    part = "{}{}ILNS_4ScanE{}E".format(len(name), name, WIDE_SCANS.index(scan))
+    return part + ("Lb{}E".format(int(multi)) if route == "cluster" else "")
+
+
+def is_barrier(op):
+    """A block's or a cluster's barrier, or an mbarrier's wait (SYNCS)."""
+    base = op.split(".")[0]
+    return base in ("BAR", "SYNCS") or "CGABAR" in base
+
+
+def loop_ranges(insts):
+    """[(first, last) index] of each loop: a backward branch's target up
+    to the last backward branch to it."""
+    index = {ins[0]: k for k, ins in enumerate(insts)}
+    ends = {}
+    for i, (addr, _, op, ops) in enumerate(insts):
+        if op != "BRA" or not ops or not ops[-1].startswith("0x"):
+            continue
+        target = int(ops[-1], 16)
+        if target < addr and target in index:
+            ends[index[target]] = max(ends.get(index[target], i), i)
+    return sorted(ends.items())
+
+
+def wide_loops(insts, route):
+    """(time loop, [(kind, pass, body)]) of a wide scan: the time loop is
+    the innermost loop that holds a barrier (or an mbarrier's wait), a
+    combine loop and a duration loop, each whole inside it (a wait's retry
+    path placed past the loop's end makes a backward branch that overlaps
+    it, and is no loop of a step); its innermost loops are "combine" or
+    "duration" loops (see the module's docstring), pass "max" or "sum"
+    (holding MUFU.EX2), or neither (the alpha row's pushes to the other
+    blocks), which count with the rest."""
+    ranges = loop_ranges(insts)
+
+    def ops_of(a, b):
+        return [ins[2] for ins in insts[a:b + 1]]
+
+    def kind(a, b):
+        ops = {op.split(".")[0] for op in ops_of(a, b)}
+        if route == "cluster":
+            return "duration" if "LDG" in ops else "combine" if "LDS" in ops else None
+        return "combine" if "LDS" in ops else "duration" if "LDG" in ops else None
+
+    times = []
+    for a, b in ranges:
+        inner = [(c, d) for c, d in ranges if a <= c and d <= b and (c, d) != (a, b)]
+        has_bar = any(is_barrier(op) for op in ops_of(a, b))
+        kinds = {kind(c, d) for c, d in inner}
+        if has_bar and {"combine", "duration"} <= kinds:
+            times.append((a, b, inner))
+    if not times:
+        raise ValueError("no wide time loop found")
+    a, b, inner = min(times, key=lambda t: t[1] - t[0])
+    inner = [(c, d) for c, d in inner  # the innermost only
+             if not any((c, d) != (e, f) and c <= e and f <= d for e, f in inner)]
+    loops = []
+    for c, d in inner:
+        k = kind(c, d)
+        if k is not None:
+            body = insts[c:d + 1]
+            loops.append((k, "sum" if "MUFU.EX2" in ops_of(c, d) else "max", body))
+    return insts[a:b + 1], loops
+
+
+def loop_terms(body):
+    """Terms an iteration of a wide scan's inner loop: its expf (MUFU.EX2)
+    in a sum's loop, else its compares (a max's FMNMX, an argmax's FSETP)."""
+    ops = [ins[2] for ins in body]
+    ex2 = sum(1 for op in ops if op.startswith("MUFU.EX2"))
+    return ex2 or sum(1 for op in ops if op.split(".")[0] in ("FMNMX", "FSETP"))
+
+
+def wide_step(sass, route, scan, multi=False):
+    """{instructions and chain a step by kind} of a wide instance from its
+    SASS: per kind and pass ("combine max", "combine sum", "duration max",
+    "duration sum"), the instructions and chain cycles a term of its most
+    unrolled loop; `rest`, the time loop's instructions outside its inner
+    loops."""
+    insts = parse_function(sass, wide_mangled(route, scan, multi))
+    time_body, loops = wide_loops(insts, route)
+    inner = {ins[0] for _, _, body in loops for ins in body}
+    rest = sum(1 for ins in time_body if ins[0] not in inner and ins[2] != "NOP")
+    per = {}
+    for kind, pss, body in loops:
+        terms = loop_terms(body)
+        if terms == 0:
+            continue
+        key = "{} {}".format(kind, pss)
+        if key in per and per[key]["terms_per_iteration"] >= terms:
+            continue
+        n = sum(1 for ins in body if ins[2] != "NOP")
+        per[key] = {"terms_per_iteration": terms, "instructions_per_term": n / terms,
+                    "chain_per_term": chain_cycles(body)[0] / terms,
+                    "mufu_per_term": sum(1 for ins in body if ins[2].startswith("MUFU")) / terms}
+    if not any(k.startswith("combine") for k in per):
+        raise ValueError("no combine loop in {} {}".format(route, scan))
+    return {"rest": rest, "loops": per}
+
+
+def wide_warps_per_scheduler(blocks, threads, smem, sms=H100_SMS):
+    """Warps each scheduler of the busiest SM issues for: the launch's
+    blocks over `sms` SMs, as many an SM as its shared memory and threads
+    let stay resident (a second wave counts as more blocks), 4 schedulers."""
+    resident = max(1, min(SM_SMEM // (smem + SM_SMEM_PER_BLOCK),
+                          2 * MAX_BLOCK_THREADS // threads))
+    per_sm = -(-blocks // sms)
+    waves = -(-per_sm // resident)
+    warps = min(per_sm, resident) * -(-threads // 32)
+    return -(-warps // SCHEDULERS), waves
+
+
+def wide_floor(step, C, Km, T, N, inst, clock_mhz, sms=H100_SMS):
+    """A wide instance's floor at N chains of T steps on `inst`'s launch:
+    per step a thread's instructions (the rest plus each kind's terms: the
+    combine's C, the duration loop's Km) and chain (each kind's, in turn),
+    the warps a scheduler; the floor a step is the larger of the chain and
+    instructions x warps a scheduler."""
+    terms = {"combine": C, "duration": Km}
+    issue = step["rest"] + sum(v["instructions_per_term"] * terms[k.split()[0]]
+                               for k, v in step["loops"].items())
+    chain = sum(v["chain_per_term"] * terms[k.split()[0]] for k, v in step["loops"].items())
+    mufu = sum(v["mufu_per_term"] * terms[k.split()[0]] for k, v in step["loops"].items())
+    per_sched, waves = wide_warps_per_scheduler(N * inst.cluster, inst.threads,
+                                                inst.smem_bytes, sms)
+    floor = max(chain, issue * per_sched)
+    return {"route": inst.route, "cluster": inst.cluster, "slab": inst.slab,
+            "threads": inst.threads, "chains": N, "instructions_per_step": issue,
+            "chain_cycles_per_step": chain, "mufu_per_step": mufu,
+            "warps_per_scheduler": per_sched, "waves": waves,
+            "floor_us_per_step": waves * floor / clock_mhz,
+            "floor_ms": T * waves * floor / clock_mhz * 1e-3,
+            "bound_by": "chain" if chain >= issue * per_sched else "issue"}
+
+
+def wide_floors(sass, C, Km, T, B, clock_mhz, sms=H100_SMS, l2_only=False):
+    """{"<scan> <route>": floor} of each wide instance at B chains (2B for
+    the log scan) on the route ``wide_scan_instance`` picks and on the L2
+    route (with `l2_only`, on the L2 route alone: an earlier source that
+    has no cluster route)."""
+    routes = [wide_scan_instance(C, Km)]
+    if l2_only:
+        routes = [wide_l2_instance(C, Km)]
+    elif routes[0].route != "l2":
+        routes.append(wide_l2_instance(C, Km))
+    out = {}
+    for scan in WIDE_SCANS:
+        N = 2 * B if scan == "log" else B
+        for inst in routes:
+            step = wide_step(sass, inst.route, scan, multi=inst.cluster > 1)
+            out["{} {}".format(scan, inst.route)] = dict(
+                wide_floor(step, C, Km, T, N, inst, clock_mhz, sms), step=step)
+    return out
+
+
 def regs(operand, width_hint=1):
     names = []
     for m in REG.finditer(operand):
@@ -364,13 +564,15 @@ def main():
     parser.add_argument("--T", type=int, default=1024)
     parser.add_argument("--segments", type=int, default=None,
                         help="the most segments in one video, for the traceback's floor in time")
+    parser.add_argument("--wide-C", type=int, default=342,
+                        help="the wide scans' classes (their B, T and Km are the band kernels')")
     parser.add_argument("--sass-dir", type=Path, default=None)
     parser.add_argument("--clock-mhz", type=float, default=None,
                         help="SM clock for the floor in time (default: nvidia-smi's max)")
     args = parser.parse_args()
 
     sass = {}
-    for lib in ("hsmm_scan", "hsmm_viterbi", "band_grad", "band_max"):
+    for lib in ("hsmm_scan", "hsmm_viterbi", "band_grad", "band_max", "hsmm_scan_wide"):
         if args.sass_dir is not None:
             sass[lib] = (args.sass_dir / (lib + ".sass")).read_text()
         else:
@@ -426,8 +628,20 @@ def main():
                   "{} {:.2f}".format(k, v) for k, v in loops.items()))
                   for inst, loops in bm_loops.items()),
               args.B, args.T, args.C, args.Km, bm["issue_floor_ms"]))
+    wide = wide_floors(sass["hsmm_scan_wide"], args.wide_C, args.Km, args.T, args.B, clock)
+    for name, w in wide.items():
+        print("wide {} (cluster {}, slab {}, {} threads), {} chains: {:.0f} instructions a step "
+              "({:.0f} MUFU), chain {:.0f} cycles, {} warps a scheduler, {} wave(s) -> floor "
+              "{:.4f} us a step, T={} C={} Km={} -> {:.4f} ms ({}); a term: {}".format(
+                  name, w["cluster"], w["slab"], w["threads"], w["chains"],
+                  w["instructions_per_step"], w["mufu_per_step"], w["chain_cycles_per_step"],
+                  w["warps_per_scheduler"], w["waves"], w["floor_us_per_step"], args.T,
+                  args.wide_C, args.Km, w["floor_ms"], w["bound_by"],
+                  "; ".join("{} {:.2f} instructions, chain {:.2f}".format(
+                      k, v["instructions_per_term"], v["chain_per_term"])
+                      for k, v in w["step"]["loops"].items())))
     print(json.dumps({"scan_floor": results, "traceback_floor": tb, "band_grad_floor": bg,
-                      "band_max_floor": bm,
+                      "band_max_floor": bm, "wide_floor": wide, "wide_C": args.wide_C,
                       "C": args.C, "Km": args.Km, "T": args.T, "clock_mhz": clock}))
     return 0
 

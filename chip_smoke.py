@@ -390,12 +390,14 @@ def assert_grads_close(name, got, want):
     return max(max_err(g, w) for g, w in zip(got, want))
 
 
-def check_labels(name, pots, lengths, got, want, got_scores, want_scores, few_ties=True):
+def check_labels(name, pots, lengths, got, want, got_scores, want_scores, few_ties=True,
+                 gaps=None):
     """Labels equal except at frames where the two are a genuine tie:
     their float64 max-marginals (the plain chain rerun in float64 on the
     same potentials) differ by less than the score tolerance; with
     `few_ties`, at most max(2, length // 200) such frames a video. Scores
-    within RTOL/ATOL. Returns the number of tie frames."""
+    within RTOL/ATOL. Returns the number of tie frames; each tie frame's
+    (float64 gap, tolerance) is appended to the list `gaps` where given."""
     import torch
 
     from action_segmentation_torch.ops.hsmm_cuda import (
@@ -419,6 +421,8 @@ def check_labels(name, pots, lengths, got, want, got_scores, want_scores, few_ti
     picked = fm64[b_idx, t_idx, got[b_idx, t_idx]]
     gap = best - picked
     tol = RTOL * best.abs() + ATOL
+    if gaps is not None:
+        gaps.extend(zip(gap.tolist(), tol.tolist()))
     per_video = mism.sum(dim=1)
     bound = torch.clamp(lengths.long() // 200, min=2)
     check(
@@ -3095,11 +3099,12 @@ def run_dp_slice(device, root, models, resident_cases, mixed, smi):
 # the wide kernels' cases, (C, Km) with Km = K - 1 duration rows, at B_WIDE
 # videos of T_WIDE[C] frames, ragged down to 1: the plain log scan is a
 # Python loop over C, so the log scans' cases stay at T <= 256 (they are
-# checked at the S6 shape at T_S6_LOG)
-WIDE_CLASSES = (129, 342, 1024)
+# checked at the S6 shape at T_S6_LOG). 664 and 665 are the widest DP the
+# wide scans' cluster route takes (at Km = 1) and the next, on the L2 route
+WIDE_CLASSES = (129, 342, 664, 665, 1024)
 WIDE_KMS = (1, 19, 25, 64)
 B_WIDE = 4
-T_WIDE = {129: 256, 342: 128, 1024: 64}
+T_WIDE = {129: 256, 342: 128, 664: 64, 665: 64, 1024: 64}
 # the S6 model's classes: 18 tasks x (2 x 9 steps + 1)
 C_S6 = 342
 T_S6_LOG = 256
@@ -3150,15 +3155,19 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
     from action_segmentation_torch.ops.hsmm_cuda import (
         _band_grad_plain,
         _grad_band_inputs,
+        _launch_wide_scan,
         _log_scan_plain,
         _stack_fwd_rev,
         _traceback_plain,
         _viterbi_scan_plain,
+        code_radix,
         hsmm_band_grad,
         hsmm_forward_scan_wide,
         hsmm_log_scan_wide,
         hsmm_viterbi_scan_wide,
         hsmm_viterbi_traceback_wide,
+        wide_l2_instance,
+        wide_scan_instance,
     )
     from action_segmentation_torch.ops.hsmm_grad import _log_partition
 
@@ -3188,6 +3197,24 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
     check_equal(name + " wide log scan gamma", cut_k[0], gamma_p)
     check_equal(name + " wide log scan alphas", cut_k[1], alphas2_p)
     check_equal(name + " wide forward scan alphas", af_k, alphas2_p[:Bn])
+    inst = wide_scan_instance(Cn, vit_in[2].shape[1])
+    on_l2 = inst.route != "l2" and pots.emit.is_cuda
+    if on_l2:  # the same cases on the L2 route
+        l2 = wide_l2_instance(Cn, vit_in[2].shape[1])
+        alphas_l, bp_l = torch.empty_like(alphas_k), torch.empty_like(bp_k)
+        _launch_wide_scan("l2", "hsmm_wide_viterbi_scan", *vit_in, [alphas_l, bp_l],
+                          [code_radix(Cn)], inst=l2)
+        gamma_l, alphas2_l = torch.empty_like(cut_k[0]), torch.empty_like(cut_k[1])
+        _launch_wide_scan("l2", "hsmm_wide_log_scan", *cut, [gamma_l, alphas2_l], inst=l2)
+        af_l = torch.empty_like(af_k)
+        _launch_wide_scan("l2", "hsmm_wide_forward_scan", *fwd_in, [af_l], inst=l2)
+        torch.cuda.synchronize()
+        for what, got, want in (("viterbi scan alphas", alphas_l, alphas_p),
+                                ("viterbi scan codes", bp_l, bp_p),
+                                ("log scan gamma", gamma_l, gamma_p),
+                                ("log scan alphas", alphas2_l, alphas2_p),
+                                ("forward scan alphas", af_l, alphas2_p[:Bn])):
+            check_equal("{} wide {} on the L2 route".format(name, what), got, want)
 
     logZ = _log_partition(alphas2_k[:Bn], L, pots.end_mask)
     grad_in = _grad_band_inputs(pots, L, gamma_k, logZ)
@@ -3199,20 +3226,23 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
             "log_scan": max(max_err(cut_k[0], gamma_p), max_err(cut_k[1], alphas2_p)),
             "forward_scan": max_err(af_k, alphas2_p[:Bn]),
             "band_grad": max(max_err(k, p) for k, p in zip(bg_k, bg_p))}
-    phase("wide", "(a) {}: B={} T={} C={} Km={} lengths {}-{}: viterbi scan alphas and codes, "
-          "traceback spans ({} segments), log scan gamma and alphas{} and forward alphas "
-          "equal to the plain versions; band grad qg/sa/st equal, lg max_abs_err {:g}".format(
-              name, Bn, Tn, Cn, vit_in[2].shape[1], int(L.min()), int(L.max()),
+    phase("wide", "(a) {}: B={} T={} C={} Km={} lengths {}-{}: {} route (cluster {}, slab {}){}: "
+          "viterbi scan alphas and codes, traceback spans ({} segments), log scan gamma and "
+          "alphas{} and forward alphas equal to the plain versions; band grad qg/sa/st equal, "
+          "lg max_abs_err {:g}".format(
+              name, Bn, Tn, Cn, vit_in[2].shape[1], int(L.min()), int(L.max()), inst.route,
+              inst.cluster, inst.slab, ", and the L2 route" if on_l2 else "",
               int((spans_k >= 0).sum()), "" if log_cut is None else " (first {} frames)".format(
                   log_cut), errs["band_grad"]))
     return errs, vit_in, tb_in, scan_in, fwd_in, grad_in
 
 
-def labels_or_ties(name, pots, lengths, got, want):
+def labels_or_ties(name, pots, lengths, got, want, gaps=None):
     """Card labels `got` against CPU labels `want` (B, T) on the card's
     potentials: equal but at frames where float64 shows a genuine tie
     (check_labels; the spans chain's scores through the kernels against
-    its plain version). Returns the tie frames."""
+    its plain version). Returns the tie frames; their (float64 gap,
+    tolerance) pairs go to `gaps`."""
     from action_segmentation_torch.ops.hsmm_cuda import (
         hsmm_viterbi_spans,
         hsmm_viterbi_spans_plain,
@@ -3221,7 +3251,7 @@ def labels_or_ties(name, pots, lengths, got, want):
     _, got_scores = hsmm_viterbi_spans(pots, lengths)
     _, want_scores = hsmm_viterbi_spans_plain(pots, lengths)
     return check_labels(name, pots, lengths, got, want, got_scores, want_scores,
-                        few_ties=False)
+                        few_ties=False, gaps=gaps)
 
 
 def video_pots(seg, features, device):
@@ -3279,7 +3309,11 @@ def run_wide_slice(device, root, smi):
         hsmm_partition_fast,
     )
     from action_segmentation_torch.parallel.mesh import single_mesh
-    from action_segmentation_torch.tools.scan_floor import max_sm_clock_mhz
+    from action_segmentation_torch.tools.scan_floor import (
+        built_sass,
+        max_sm_clock_mhz,
+        wide_floors,
+    )
 
     t_phase = time.perf_counter()
     cpu = torch.device("cpu")
@@ -3296,9 +3330,27 @@ def run_wide_slice(device, root, smi):
                 rng, B_WIDE, Tn, Cn, Km + 1, device, lengths=rl))
             for k, v in case.items():
                 errs[k] = max(errs.get(k, 0.0), v)
-    check(hc.wide_scan_instance(1024, 64).ring == "global"
-          and hc.wide_scan_instance(C_S6, K - 1).ring == "shared",
-          "the cases do not take both ring layouts")
+    widest = hc.WIDE_CLUSTER_MAX_CLASSES
+    check(WIDE_CLASSES[2:4] == (widest, widest + 1)
+          and hc.wide_scan_instance(widest, 1).route == "cluster"
+          and hc.wide_scan_instance(widest + 1, 1).route == "l2"
+          and hc.wide_scan_instance(1024, 64)[::4] == ("l2", "global")
+          and hc.wide_scan_instance(1024, 19)[::4] == ("l2", "shared")
+          and hc.wide_scan_instance(C_S6, K - 1)[:2] == ("cluster", 3),
+          "the cases do not take both routes, both L2 ring layouts and the S6 shape's cluster")
+    routes = {}
+    for Cn in WIDE_CLASSES:
+        for Km in WIDE_KMS:
+            inst = hc.wide_scan_instance(Cn, Km)
+            routes["C={} Km={}".format(Cn, Km)] = "{} {}".format(inst.route, inst.cluster)
+    s6 = hc.wide_scan_instance(C_S6, K - 1)
+    active = {scan: hc.wide_max_active_clusters(scan, C_S6, K - 1, device.index or 0)
+              if device.type == "cuda" else None for scan in hc.WIDE_SCAN_INDEX}
+    phase("wide", "(a) routes (route, blocks a chain): {}; the S6 shape (C={}, Km={}): {} "
+          "route, clusters of {} blocks of {} classes ({} threads, {} bytes of shared memory a "
+          "block); cudaOccupancyMaxActiveClusters {} (the log scan's {} chains need {}, the max "
+          "and forward scans' {})".format(routes, C_S6, K - 1, s6.route, s6.cluster, s6.slab,
+                                          s6.threads, s6.smem_bytes, active, 2 * B, 2 * B, B))
     rl = rng.randint(1, T + 1, size=B).astype(np.int32)
     rl[0], rl[1] = T, 1
     s6_pots = serving_pots(rng, B, T, C_S6, K, device, lengths=rl)
@@ -3347,7 +3399,7 @@ def run_wide_slice(device, root, smi):
     t0 = time.perf_counter()
     want = seg_cpu.segment_many(feats, batch_size=args.batch_size)
     cpu_s = time.perf_counter() - t0
-    ties = 0
+    ties, tie_gaps = 0, []
     for key, f, g, w in zip(keys, feats, got, want):
         check(g.shape == (f.shape[0],) and set(g.tolist()) <= set(range(C_S6)),
               "segment_many labels of {}".format(key))
@@ -3357,13 +3409,19 @@ def run_wide_slice(device, root, smi):
             gg, ww = pad.copy(), pad.copy()
             gg[0, :f.shape[0]], ww[0, :f.shape[0]] = g, w
             ties += labels_or_ties("segment_many {}".format(key[1]), pots, lb,
-                                   upload(gg, device), upload(ww, device))
+                                   upload(gg, device), upload(ww, device), tie_gaps)
     phase("wide", "(b) S6 --mix_tasks closed form: {} classes, all with training frames, "
           "potentials finite; Segmenter.load(pickle) over all {}: segment_many of {} val "
           "videos ({} frames, {} batches) in {:.4f} s = {:.0f} frames/s on the card, {:.3f} s "
           "on the CPU; labels equal to the CPU's but at {} float64-verified tie frames; "
           "launches {}".format(C_S6, C_S6, len(feats), frames, n_batches, seg_s, frames / seg_s,
                                cpu_s, ties, {k: v for k, v in n_seg.items() if v}))
+    phase("wide", "(b) segment_many's {} tie frames: float64 score gap (best class's max-marginal "
+          "less the card label's) of each, {}; the largest {:.6g}, at most {:.4g} of its "
+          "tolerance (rtol {} / atol {})".format(
+              len(tie_gaps), ["{:.3g}".format(g) for g, _ in tie_gaps],
+              max((g for g, _ in tie_gaps), default=0.0),
+              max((g / t for g, t in tie_gaps), default=0.0), RTOL, ATOL))
 
     order = np.argsort([f.shape[0] for f in feats])[:3]
     gaps, marg_errs, marg_frames = [], [], 0
@@ -3481,6 +3539,29 @@ def run_wide_slice(device, root, smi):
             cuda_ms(lambda: hc._forward_scan_plain(*(x[:B] for x in scan_in)), 1, warmup=0),
             scan_bound(B, 1), scan_in[3][:B].shape),
     }
+    # the scans' L2 route (one block a chain) at the same inputs, and the
+    # floors from the SASS (tools/scan_floor.py) of the route each takes
+    l2 = hc.wide_l2_instance(C_S6, Km)
+
+    def on_l2(symbol, inputs, outs, ints=()):
+        return lambda: hc._launch_wide_scan("l2", symbol, *inputs, outs, ints, inst=l2)
+
+    fwd6 = tuple(x[:B] for x in scan_in)
+    l2_ms = {} if not card else {
+        "hsmm_viterbi_scan_wide": cuda_ms(on_l2(
+            "hsmm_wide_viterbi_scan", vit_in, [torch.empty_like(vit_in[3]), torch.empty(
+                vit_in[3].shape, dtype=torch.int32, device=device)],
+            [hc.code_radix(C_S6)]), 3, warmup=1),
+        "hsmm_log_scan_wide": cuda_ms(on_l2(
+            "hsmm_wide_log_scan", scan_in, [torch.empty_like(scan_in[3]),
+                                            torch.empty_like(scan_in[3])]), 3, warmup=1),
+        "hsmm_forward_scan_wide": cuda_ms(on_l2(
+            "hsmm_wide_forward_scan", fwd6, [torch.empty_like(fwd6[3])]), 3, warmup=1),
+    }
+    floors = wide_floors(built_sass("hsmm_scan_wide"), C_S6, Km, T, B, clock_mhz, sms) \
+        if card else {}
+    floor_of = {"hsmm_viterbi_scan_wide": "viterbi", "hsmm_log_scan_wide": "log",
+                "hsmm_forward_scan_wide": "forward"}
     bg_ms = graph_ms(lambda: hc.hsmm_band_grad(*grad_in), N_TIMED)
     bg_plain_ms = cuda_ms(lambda: hc._band_grad_plain(*grad_in), 3)
     bg_bound, bg_by, bg_kind, _ = band_grad_bound(grad_in, sms, clock_mhz)
@@ -3495,17 +3576,30 @@ def run_wide_slice(device, root, smi):
               "hsmm_log_scan_wide": errs["log_scan"], "hsmm_forward_scan_wide": errs["forward_scan"]}
     entries = []
     for name, (ms, plain_ms, (b_ms, b_by), shape) in times.items():
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
             "max_abs_err": err_of[name], "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": list(shape), "bound_ratio": ms / b_ms,
-        })
-        phase("wide", "(d) {} at {}: {:.5f} ms{} (plain {:.4f} ms), bound {:.6f} ms by {} "
+        }
+        extra = ""
+        if name in floor_of and card:
+            fl = floors["{} {}".format(floor_of[name], s6.route)]
+            entry.update(scan_route=s6.route, cluster=s6.cluster, floor_ms=fl["floor_ms"],
+                         floor_ratio=ms / fl["floor_ms"], l2_route_ms=l2_ms[name],
+                         l2_floor_ms=floors["{} l2".format(floor_of[name])]["floor_ms"])
+            extra = (", {} route of {} blocks a chain, {:.4f} us a step; floor {:.5f} ms "
+                     "({:.2f}x; {} instructions a step, chain {:.0f} cycles, {} warp(s) a "
+                     "scheduler); the L2 route {:.4f} ms (floor {:.5f} ms)".format(
+                         s6.route, s6.cluster, 1e3 * ms / T, fl["floor_ms"], ms / fl["floor_ms"],
+                         round(fl["instructions_per_step"]), fl["chain_cycles_per_step"],
+                         fl["warps_per_scheduler"], l2_ms[name], entry["l2_floor_ms"]))
+        entries.append(entry)
+        phase("wide", "(d) {} at {}: {:.5f} ms{}{} (plain {:.4f} ms), bound {:.6f} ms by {} "
               "({:.0f}x), launches on the slice {}; {}".format(
                   name, tuple(shape), ms, " (a CUDA graph of {})".format(N_TIMED)
-                  if "traceback" in name else "", plain_ms, b_ms, b_by, ms / b_ms,
+                  if "traceback" in name else "", extra, plain_ms, b_ms, b_by, ms / b_ms,
                   launches[name], smi))
     phase("wide", "(d) hsmm_band_grad at {}: {:.5f} ms (a CUDA graph of {}; plain {:.4f} ms), "
           "bound {:.6f} ms by {} ({:.0f}x), launches on the slice {}; {}".format(
@@ -3515,6 +3609,8 @@ def run_wide_slice(device, root, smi):
     phase("wide", "phase 4i: {:.3f} s ((a) {:.3f} s)".format(phase_s, a_s))
     e2e = {"wide_segment_many_frames_per_s": frames / seg_s,
            "wide_segment_many_cpu_s": cpu_s, "wide_segment_many_ties": ties,
+           "wide_tie_gap_max": max((g for g, _ in tie_gaps), default=0.0),
+           "wide_routes": routes, "wide_max_active_clusters": active,
            "wide_marginals_frames_per_s": marg_frames / marg_s,
            "wide_marginal_sum_gap": max(gaps), "wide_fit_losses": losses,
            "wide_fit_frames_per_s": fit_frames / fit_s, "wide_phase_s": phase_s,
@@ -3577,21 +3673,28 @@ BAND_MAX_KERNELS = ("band_max_kernel<one slab>", "band_max_kernel<slabs>")
 # the wide scan's instances (csrc/hsmm_scan_wide.cu, in its enum's order)
 # and the traceback's wide instance (csrc/hsmm_viterbi.cu)
 WIDE_SCANS = ("viterbi", "log", "forward")
-WIDE_KERNELS = tuple("wide_scan_kernel<{}>".format(s) for s in WIDE_SCANS) + (
-    "traceback_wide_kernel",)
+WIDE_KERNELS = tuple("wide_cluster_scan_kernel<{}, {}>".format(s, b) for s in WIDE_SCANS
+                     for b in ("one block", "cluster")) + tuple(
+    "wide_scan_kernel<{}>".format(s) for s in WIDE_SCANS) + ("traceback_wide_kernel",)
 
 
 def kernel_name(mangled):
     """A readable name for an entry function's mangled name: the scan
     template's instances as scan_kernel<semiring, warps, row, tail>, the
-    band max's as band_max_kernel<one slab> or <slabs>, the wide scan's as
-    wide_scan_kernel<viterbi>, <log> or <forward>."""
+    band max's as band_max_kernel<one slab> or <slabs>, the wide scans' as
+    wide_cluster_scan_kernel<viterbi, one block> (the cluster route: the
+    scan, log or forward; one block a chain, or a cluster of more) and
+    wide_scan_kernel<viterbi> (the L2 route)."""
     m = re.search(r"scan_kernelILNS_8SemiringE(\d)ELi(\d)ELi(\d+)ELb([01])E", mangled)
     if m:
         return scan_kernel_name(SCAN_SEMIRINGS[int(m.group(1))], *m.group(2, 3, 4))
     m = re.search(r"band_max_kernelILb([01])E", mangled)
     if m:
         return BAND_MAX_KERNELS[int(m.group(1))]
+    m = re.search(r"wide_cluster_scan_kernelILNS_\d+ScanE(\d)ELb([01])E", mangled)
+    if m:
+        return "wide_cluster_scan_kernel<{}, {}>".format(
+            WIDE_SCANS[int(m.group(1))], ("one block", "cluster")[int(m.group(2))])
     m = re.search(r"wide_scan_kernelILNS_\d+ScanE(\d)E", mangled)
     if m:
         return "wide_scan_kernel<{}>".format(WIDE_SCANS[int(m.group(1))])

@@ -1025,12 +1025,13 @@ def test_wide_launches_refuse_what_they_do_not_take(cuda):
     trans_t = scan_in[0].transpose(1, 2).contiguous()
     alphas = torch.empty_like(scan_in[3])
     bp = torch.empty(alphas.shape, dtype=torch.int32, device=cuda)
-    inst = hc.wide_scan_instance(200, 19)
-    for radix, smem in ((1024, inst.smem_bytes - 4), (128, inst.smem_bytes)):
-        err = hc._call("hsmm_scan_wide", "hsmm_wide_viterbi_scan",
-                       [trans_t, *scan_in[1:], alphas, bp, None],
-                       [2, 8, 200, 19, radix, smem], alphas)
-        assert err != 0, (radix, smem)
+    for inst in (hc.wide_scan_instance(200, 19), hc.wide_l2_instance(200, 19)):
+        cluster = inst.cluster if inst.route == "cluster" else 0
+        for radix, smem in ((1024, inst.smem_bytes - 4), (128, inst.smem_bytes)):
+            err = hc._call("hsmm_scan_wide", "hsmm_wide_viterbi_scan",
+                           [trans_t, *scan_in[1:], alphas, bp, None],
+                           [2, 8, 200, 19, radix, cluster, inst.slab, smem], alphas)
+            assert err != 0, (inst.route, radix, smem)
 
 
 def test_wide_partition_fb_kernels_match_plain(cuda):
@@ -1094,3 +1095,94 @@ def test_wide_model_decodes_and_trains_on_the_card(cuda):
     assert [a - b for a, b in zip(launches(WIDE_KERNELS), before)] == [1, 1, 0, 1]
     assert hc.hsmm_band_grad.launches == grad_before + 1
     assert launches(NARROW_KERNELS) == narrow
+
+
+# ---- the wide scans' two routes (csrc/hsmm_scan_wide.cu): the cluster
+# route (the table in the shared memory of a chain's blocks) and the L2 route
+
+ROUTE_CLASSES = (129, 236, 342, hc.WIDE_CLUSTER_MAX_CLASSES, hc.WIDE_CLUSTER_MAX_CLASSES + 1,
+                 1024)
+ROUTE_KMS = (1, 19, 25, 64)
+WIDE_SCAN_CALLS = (("hsmm_wide_viterbi_scan", "ab"), ("hsmm_wide_log_scan", "ga"),
+                   ("hsmm_wide_forward_scan", "a"))
+
+
+def wide_outputs(kind, emit):
+    return [torch.empty(emit.shape, dtype=torch.int32, device=emit.device) if k == "b"
+            else torch.empty_like(emit) for k in kind]
+
+
+@pytest.mark.parametrize("C", ROUTE_CLASSES)
+@pytest.mark.parametrize("Km", ROUTE_KMS)
+def test_wide_scans_equal_plain_on_each_route(cuda, C, Km):
+    """Each wide instance on the route ``wide_scan_instance`` picks and on
+    the L2 route, on the stacked forward and reversed chains with ragged
+    lengths down to 1: outputs equal to the plain versions'. The widths
+    hold each cluster size the rule gives (1 at C = 129, 2 at 236, 3 at
+    342, 8 at the cluster route's widest C at Km = 1) and the L2 route
+    past it."""
+    T = 24 if C > 342 else 40  # the plain log scan is a Python loop over C
+    pots, lengths = random_pots(np.random.RandomState(C + 7 * Km), 3, T, C, Km + 1, cuda)
+    lengths[1] = 1
+    scan_in = hc._stack_fwd_rev(pots, lengths.long())
+    want_vit = hc._viterbi_scan_plain(*scan_in)
+    want_log = hc._log_scan_plain(*scan_in)
+    want = {"hsmm_wide_viterbi_scan": want_vit, "hsmm_wide_log_scan": want_log,
+            "hsmm_wide_forward_scan": want_log[1:]}
+    insts = {hc.wide_scan_instance(C, Km), hc.wide_l2_instance(C, Km)}
+    for inst in insts:
+        for symbol, kind in WIDE_SCAN_CALLS:
+            outs = wide_outputs(kind, scan_in[3])
+            radix = [hc.code_radix(C)] if "b" in kind else []
+            hc._launch_wide_scan(symbol, symbol, *scan_in, outs, radix, inst=inst)
+            torch.cuda.synchronize()
+            for got, exp in zip(outs, want[symbol]):
+                assert torch.equal(got, exp), "{} on {}: {} of {} differ".format(
+                    symbol, inst, int((got != exp).sum()), got.numel())
+
+
+def test_wide_scans_at_the_s6_shape_equal_plain(cuda):
+    """The S6 shape (342 classes, K = 20, 1,024 frames, 18 videos) on the
+    cluster route (3 blocks a chain): the max scan's alphas and codes and
+    the forward scan's alphas (the first 64 frames: the plain log scan is
+    a Python loop over C) equal to the plain versions'."""
+    pots, lengths = random_pots(np.random.RandomState(342), 18, 1024, 342, 20, cuda)
+    vit_in = (pots.trans.contiguous(), pots.init.contiguous(),
+              th._durations(pots.lens).contiguous(), pots.emit.contiguous())
+    assert hc.wide_scan_instance(342, 19)[:2] == ("cluster", 3)
+    alphas, bp = hc.hsmm_viterbi_scan(*vit_in)
+    want = hc._viterbi_scan_plain(*vit_in)
+    fwd_in = (*vit_in[:3], vit_in[3][:, :64].contiguous())
+    fwd = hc.hsmm_forward_scan(*fwd_in)
+    torch.cuda.synchronize()
+    assert torch.equal(alphas, want[0]) and torch.equal(bp, want[1])
+    assert torch.equal(fwd, hc._forward_scan_plain(*fwd_in))
+
+
+def test_wide_cluster_launch_refused_raises(cuda, monkeypatch):
+    """A cluster the card does not take (16 blocks, past the portable 8,
+    without the non-portable opt-in) is refused at the launch: the wrapper
+    raises and counts no launch; the rule never asks for one."""
+    C, Km = 342, 19
+    slab = -(-C // 16)
+    refused = hc.WideScan("cluster", 16, slab, 32 * -(-slab // 32), "shared",
+                          hc.wide_cluster_smem(C, Km, slab))
+    monkeypatch.setattr(hc, "wide_scan_instance", lambda *_: refused)
+    scan_in = scan_inputs(np.random.RandomState(16), 2, 8, C, Km, cuda)
+    before = launches(WIDE_KERNELS)
+    for scan in (hc.hsmm_viterbi_scan_wide, hc.hsmm_log_scan_wide, hc.hsmm_forward_scan_wide):
+        with pytest.raises(RuntimeError):
+            scan(*scan_in)
+    assert launches(WIDE_KERNELS) == before
+
+
+def test_wide_max_active_clusters_at_the_s6_shape(cuda):
+    """cudaOccupancyMaxActiveClusters of each instance at the S6 shape: at
+    least one cluster of 3, at most one a 3 SMs; the L2 route raises."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for scan in hc.WIDE_SCAN_INDEX:
+        n = hc.wide_max_active_clusters(scan, 342, 19, cuda.index or 0)
+        assert 1 <= n <= sms // 3, (scan, n)
+    with pytest.raises(ValueError):
+        hc.wide_max_active_clusters("log", 1024, 19)
+

@@ -161,20 +161,34 @@ WIDE_KMS = (1, 19, 64, 100)
 @pytest.mark.parametrize("C", WIDE_CLASSES)
 @pytest.mark.parametrize("Km", WIDE_KMS)
 def test_wide_scan_launch_fits_the_block(C, Km):
-    """csrc/hsmm_scan_wide.cu's launch (``wide_scan_instance``): one
-    thread a class in whole warps within 1,024 threads; the alpha rows
-    and, where both fit 232,448 bytes, the carry's ring in shared memory,
-    else the ring in global memory."""
+    """csrc/hsmm_scan_wide.cu's launch (``wide_scan_instance``). On the
+    cluster route: at most 8 blocks a chain, each of at most 256 threads
+    (its slab of classes in whole warps), the slabs covering C with none
+    empty, and a block's alpha rows, table columns and ring within 232,448
+    bytes. On the L2 route: one thread a class in whole warps within 1,024
+    threads; the alpha rows and, where both fit, the carry's ring in
+    shared memory, else the ring in global memory."""
     inst = hc.wide_scan_instance(C, Km)
-    assert C <= inst.threads <= hc.MAX_BLOCK_THREADS and inst.threads % 32 == 0
-    assert inst.threads - C < 32
-    fits = 4 * (2 * C + Km * C) <= hc.MAX_BLOCK_SMEM
-    assert inst.ring == ("shared" if fits else "global")
-    assert inst.smem_bytes == 4 * (2 * C + (Km * C if fits else 0)) <= hc.MAX_BLOCK_SMEM
-    # the serving width's ring (Km = 19 at C = 342) and 1,024 classes at
-    # Km = 64 (past the block's shared memory) take each layout
-    assert hc.wide_scan_instance(342, 19).ring == "shared"
-    assert hc.wide_scan_instance(1024, 64).ring == "global"
+    assert inst.smem_bytes <= hc.MAX_BLOCK_SMEM
+    if inst.route == "cluster":
+        assert 1 <= inst.cluster <= hc.WIDE_MAX_CLUSTER and inst.ring == "shared"
+        assert (inst.cluster - 1) * inst.slab < C <= inst.cluster * inst.slab
+        assert inst.threads == 32 * -(-inst.slab // 32) <= hc.WIDE_SLAB_THREADS
+        assert inst.smem_bytes == hc.wide_cluster_smem(C, Km, inst.slab)
+        assert inst.smem_bytes >= 4 * (2 * C + min(inst.slab, C) * C + Km * inst.slab)
+    else:
+        assert inst.route == "l2" and (inst.cluster, inst.slab) == (1, C)
+        assert C <= inst.threads <= hc.MAX_BLOCK_THREADS and inst.threads % 32 == 0
+        assert inst.threads - C < 32
+        fits = 4 * (2 * C + Km * C) <= hc.MAX_BLOCK_SMEM
+        assert inst.ring == ("shared" if fits else "global")
+        assert inst.smem_bytes == 4 * (2 * C + (Km * C if fits else 0))
+    # the serving width's table over 3 blocks (Km = 19 at C = 342), and
+    # 1,024 classes on the L2 route at Km = 64 (the ring past a block's
+    # shared memory) and at Km = 19 (the ring in it)
+    assert hc.wide_scan_instance(342, 19)[:2] == ("cluster", 3)
+    assert hc.wide_scan_instance(1024, 64)[::4] == ("l2", "global")
+    assert hc.wide_scan_instance(1024, 19)[::4] == ("l2", "shared")
 
 
 @pytest.mark.parametrize("C", WIDE_CLASSES)
