@@ -54,11 +54,36 @@
 // c' << 2 (the walker's byte offset) in one int32.
 //
 // A wide DP (128 < C <= 1024, csrc/hsmm_scan_wide.cu's codes) packs its
-// codes at radix 1024: the same walk, instanced on the radix
-// (`traceback_wide_kernel`). A staging group is then up to 1,024 codes,
-// 32 a lane, and g keeps d' << 12 beside c' << 2 (c' < 1024, so 4c' <
-// 4096); the wrapper refuses a plane of T >= 2^19 rows there, where d'
-// could reach the sign bit.
+// codes at radix 1024 and takes its own traceback, `traceback_wide_kernel`
+// (W2), two warps a video. A video's plane is then up to 1,024 times as
+// many codes as the walk reads (350,208 at 342 classes and 1,024 frames
+// for about 900 segments), so rewriting each code into g, as the narrow
+// kernel does, cost more than the walk: W2 reads the raw codes. In state
+// (u, c) the walker loads bp(u, c), whose class part is c', then bp(u, c')
+// in the same row, whose duration part gives d'; two dependent
+// shared-memory loads a segment and no pass over the plane. The rows it
+// can reach, [0, length - 1) (the first segment reads row length - 1 from
+// global memory while the first tiles land), stream from the top down
+// through a ring of S slots of R rows (R and S from ops/hsmm_cuda.py
+// `wide_traceback_tile`). Each tile is one cp.async.bulk, widened to the
+// 16-byte lines around its rows so that it needs no fix-up loads (the
+// codes tensor is 16-byte aligned, so the widened copy stays within it),
+// onto its slot's `full` mbarrier. One lane of warp 1 issues them: the
+// first S at once, then tile j once the walker has arrived on the `empty`
+// mbarrier of tile j - S's slot (the usual producer and consumer pair: the
+// arrive orders the walker's reads before the copy, with no proxy fence).
+// The walker, lane 0 of warp 0, waits on a tile's `full` mbarrier only
+// when it enters that tile; a jump longer than a tile leaves the tiles it
+// passes over once they have landed, so that each mbarrier moves one
+// round at a time. The other lanes only fill the spans row with -1. In
+// the walk loop the next load's address is bp(u, c')'s address less d'
+// rows, and the load is predicated on the next row being in the tile, a
+// compare of the code itself against (u - lo) << 10 beside the address's
+// arithmetic; a segment's span is stored one link later, while the next
+// loads are in flight, and only the last, which alone can start before
+// frame 0, takes the wrap. The chain is then the two loads, a mask and a
+// multiply-add for c', a shift and a multiply-add for the next address.
+// Nothing is packed, so W2 takes any T.
 //
 // What bounds it: like the gamma scans, not bytes (emit in, alphas and
 // codes out: about 4 MB at the serving shape) but the T dependent steps,
@@ -78,7 +103,8 @@
 // cycles a segment, not 82). So the video with the most segments, times
 // that chain's latency, bounds it, plus staging its first tile
 // (tools/scan_floor.py reads the chain from the SASS: 46 cycles at its
-// assumed latencies).
+// assumed latencies). W2 is bound the same way, by its longest video's
+// segments times its two-load chain, plus its first tile's arrival.
 //
 // ptxas (-Xptxas -v, sm_90a): the serving instance (one warp, row 24,
 // no tail) takes 133 registers, the traceback 41, no spills;
@@ -369,12 +395,188 @@ __global__ void __launch_bounds__(kTracebackThreads)
   traceback<kLanes>(bp, lengths, c_last, spans, T, C, R);
 }
 
-__global__ void __launch_bounds__(kTracebackThreads)
+// ---- W2: the wide traceback (codes at radix 1024), one warp a video ----
+
+constexpr int kWideShift = 10;  // log2 kWideRadix
+// W2's block: warp 0's lane 0 walks, warp 1's lane 0 issues the copies
+constexpr int kWideThreads = 64;
+constexpr int kWideMaxStages = 16;
+
+// a slot: R rows of C codes widened to the 16-byte lines around them
+__host__ __device__ constexpr long long wide_slot_words(long long rows,
+                                                        long long C) {
+  return (rows * C + 6) & ~3LL;
+}
+
+// dynamic shared memory: two mbarriers a slot, then the S slots
+__host__ __device__ constexpr long long wide_header_bytes(long long stages) {
+  return 16 * stages;
+}
+
+__host__ __device__ constexpr long long wide_traceback_smem(long long rows,
+                                                            long long stages,
+                                                            long long C) {
+  return wide_header_bytes(stages) + stages * 4 * wide_slot_words(rows, C);
+}
+
+__device__ __forceinline__ void mbarrier_wait_round(uint32_t bar, int round) {
+  mbarrier_wait(bar, (uint32_t)round & 1);
+}
+
+// v = the shared word at `addr` if code < lim, else v unchanged: the walk's
+// next load, issued only when the next row is in the tile
+__device__ __forceinline__ int ld_shared_if_below(int v, uint32_t addr,
+                                                  int code, int lim) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.lt.s32 p, %2, %3;\n"
+      "@p ld.shared.b32 %0, [%1];\n"
+      "}\n"
+      : "+r"(v)
+      : "r"(addr), "r"(code), "r"(lim));
+  return v;
+}
+
+// a plain store of a span, in program order with the walk's loads
+__device__ __forceinline__ void store_span(int64_t* p, int64_t value) {
+  asm volatile("st.global.b64 [%0], %1;" ::"l"(p), "l"(value) : "memory");
+}
+
+__global__ void __launch_bounds__(kWideThreads)
     traceback_wide_kernel(const int32_t* __restrict__ bp,
                           const int64_t* __restrict__ lengths,
                           const int64_t* __restrict__ c_last,
-                          int64_t* __restrict__ spans, int T, int C, int R) {
-  traceback<kWideRadix>(bp, lengths, c_last, spans, T, C, R);
+                          int64_t* __restrict__ spans, int T, int C, int R,
+                          int S) {
+  extern __shared__ __align__(16) unsigned char tb_smem[];
+  // slot i's mbarriers: `full` at 8i (its tile landed), `empty` at 8(S + i)
+  // (the walker left it)
+  const uint32_t full = shared_addr(tb_smem);
+  const uint32_t empty = full + 8 * S;
+  const uint32_t ring = full + (uint32_t)wide_header_bytes(S);
+  const uint32_t slot_bytes = 4 * (uint32_t)wide_slot_words(R, C);
+  const uint32_t row_bytes = 4 * (uint32_t)C;
+  const uint32_t neg_row = 0u - row_bytes;
+
+  const int b = blockIdx.x;
+  const int32_t* plane = bp + (size_t)b * T * C;
+  int64_t* row = spans + (size_t)b * T;
+  const int length = (int)lengths[b];
+  // the shared walk reads rows [0, top): tile k holds rows [max(0, hi - R),
+  // hi) with hi = top - k R, in slot k mod S
+  const int top = length - 1;
+  const int tiles = top > 0 ? (top + R - 1) / R : 0;
+  // the plane from the 16-byte line it starts in: row r's codes start at
+  // word r C + off of `lines`
+  const int off = (int)((reinterpret_cast<uintptr_t>(plane) >> 2) & 3);
+  const int32_t* lines = plane - off;
+  const bool walker = threadIdx.x == 0, producer = threadIdx.x == 32;
+  // the tile below row hi into slot `s`: one bulk copy of its rows' lines
+  auto issue = [&](int hi, int s) {
+    const long long first = ((long long)max(0, hi - R) * C + off) & ~3LL;
+    const int bytes = (int)(4 * ((((long long)hi * C + off + 3) & ~3LL) - first));
+    mbarrier_arrive_expect_tx(full + 8 * s, bytes);
+    bulk_copy(ring + s * slot_bytes, lines + first, bytes, full + 8 * s);
+  };
+
+  // the producer issues the first S tiles at once, the walker takes the
+  // first segment's code from global memory while they land, and every
+  // thread fills the spans row with -1
+  int c = (int)c_last[b], code0 = 0;
+  int issued = 0, ihi = top;  // the producer's next tile and its top row
+  if (producer && length > 0) {
+    for (int s = 0; s < S; ++s) {
+      mbarrier_init(full + 8 * s);
+      mbarrier_init(empty + 8 * s);
+    }
+    for (; issued < min(S, tiles); ++issued, ihi -= R) issue(ihi, issued);
+  }
+  if (walker && length > 0) code0 = plane[(size_t)top * C + c];
+  for (int t = threadIdx.x; t < T; t += kWideThreads) row[t] = -1;
+  __syncthreads();  // the mbarriers and the fill before any use
+  if (length <= 0 || !(walker || producer)) return;
+  if (producer) {
+    // tile j into slot j mod S once the walker has left tile j - S
+    for (int is = issued % S, ir = issued / S; issued < tiles; ++issued, ihi -= R) {
+      mbarrier_wait_round(empty + 8 * is, ir - 1);
+      issue(ihi, is);
+      if (++is == S) is = 0, ++ir;
+    }
+    return;
+  }
+
+  // the walk's state: u = s - 1 for the segment that starts at s with
+  // class c; that segment's span is stored one link later (when the loads
+  // of the next are in flight), and the last one's, which alone can start
+  // before frame 0, after the walk
+  int u = length - (code0 >> kWideShift) - 2;
+  int64_t* pending = row + (u + 1);
+  int64_t pending_c = c;
+  // the walker's tile: its index, top row, slot and round, and whether it
+  // has waited for it
+  int k = 0, hi = top, ks = 0, kr = 0;
+  bool landed = false;
+  // leave tile k: free its slot (a tile jumped over once it has landed,
+  // so that each slot's mbarriers move one round at a time)
+  auto leave = [&]() {
+    if (!landed) mbarrier_wait_round(full + 8 * ks, kr);
+    mbarrier_arrive(empty + 8 * ks);
+    landed = false;
+    ++k;
+    hi -= R;
+    if (++ks == S) ks = 0, ++kr;
+  };
+  while (u >= 0) {
+    while (u < max(0, hi - R)) leave();
+    if (!landed) mbarrier_wait_round(full + 8 * ks, kr);
+    landed = true;
+    // walk tile k: a1 is bp(u, c)'s shared address (row lo sits 0-3 words
+    // into the slot)
+    const int lo = max(0, hi - R);
+    const uint32_t base =
+        ring + ks * slot_bytes + 4 * (((uint32_t)lo * (uint32_t)C + off) & 3);
+    uint32_t a1 = base + (uint32_t)(u - lo) * row_bytes + 4 * c;
+    int v1 = ld_shared(a1);
+    for (;;) {
+      // c' from bp(u, c), then d' from bp(u, c') in the same row: the
+      // mask and a multiply-add (PTX, so that it stays two steps)
+      uint32_t a2;
+      asm("{\n"
+          ".reg .b32 m;\n"
+          "and.b32 m, %1, 1023;\n"
+          "mad.lo.s32 %0, m, 4, %2;\n"
+          "}\n"
+          : "=r"(a2)
+          : "r"(v1), "r"(a1 - 4 * c));
+      const int v2 = ld_shared(a2);
+      store_span(pending, pending_c);
+      // the next row u - d' is in the tile iff v2 < (u - lo) << 10; the
+      // next load, bp(u - d', c') at a2 less d' rows (a shift and a
+      // multiply-add by -4C), issues before the exit test
+      const int lim = (u - lo) << kWideShift;
+      c = v1 & (kWideRadix - 1);
+      asm("{\n"
+          ".reg .s32 d;\n"
+          "shr.s32 d, %1, 10;\n"
+          "mad.lo.s32 %0, d, %2, %3;\n"
+          "}\n"
+          : "=r"(a1)
+          : "r"(v2), "r"(neg_row), "r"(a2 + neg_row));
+      v1 = ld_shared_if_below(v1, a1, v2, lim);
+      u -= (v2 >> kWideShift) + 1;
+      pending = row + (u + 1);
+      pending_c = c;
+      if (v2 >= lim) break;
+    }
+  }
+  // the last span: a start before frame 0 can only come from an impossible
+  // (BIG_NEG) path; it wraps like the reference's negative index
+  const int w = u + 1 >= 0 ? u + 1 : u + 1 + T;
+  store_if(row + w, pending_c, w >= 0);
+  // leave every tile left, so that the producer issues them all and each
+  // copy lands before the block exits
+  while (k < tiles) leave();
 }
 
 // One launch of `kernel` over codes of at most `max_c` classes.
@@ -432,14 +634,32 @@ int hsmm_viterbi_traceback(const void* bp, const void* lengths,
                           c_last, spans, N, T, C, rows, smem, device, stream);
 }
 
-// The same for a wide DP's codes (radix 1024, C <= 1024) from
-// csrc/hsmm_scan_wide.cu's `hsmm_wide_viterbi_scan`.
+// The same for a wide DP's codes (radix 1024, 128 < C <= 1024) from
+// csrc/hsmm_scan_wide.cu's `hsmm_wide_viterbi_scan`, by W2: rows and stages
+// are the ring's slot rows and slot count and smem its dynamic shared
+// memory in bytes, as ops/hsmm_cuda.py `wide_traceback_tile` gives them.
+// bp must be 16-byte aligned (each tile is copied in whole 16-byte lines);
+// a launch whose smem cannot hold the ring is refused.
 int hsmm_viterbi_traceback_wide(const void* bp, const void* lengths,
                                 const void* c_last, void* spans, int N, int T,
-                                int C, int rows, int smem, int device,
-                                void* stream) {
-  return launch_traceback(traceback_wide_kernel, kWideRadix, bp, lengths,
-                          c_last, spans, N, T, C, rows, smem, device, stream);
+                                int C, int rows, int stages, int smem,
+                                int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (C <= kLanes || C > kWideRadix || rows < 1 || stages < 1 ||
+      stages > kWideMaxStages || (reinterpret_cast<uintptr_t>(bp) & 15) ||
+      smem < wide_traceback_smem(rows, stages, C))
+    return (int)cudaErrorInvalidValue;
+  if (N == 0 || T == 0) return 0;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(traceback_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  traceback_wide_kernel<<<N, kWideThreads, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)bp, (const int64_t*)lengths, (const int64_t*)c_last,
+      (int64_t*)spans, T, C, rows, stages);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

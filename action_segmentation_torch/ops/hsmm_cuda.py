@@ -32,10 +32,13 @@ csrc/hsmm_scan_wide.cu (``hsmm_viterbi_scan_wide``, ``hsmm_log_scan_wide``,
 ``hsmm_forward_scan_wide``: one thread a class, on one of two routes that
 ``wide_scan_instance`` picks by shape: up to WIDE_CLUSTER_MAX_CLASSES a
 cluster of 1-8 blocks a chain holding its transition table in shared
-memory, past it one block a chain reading the table from L2), the
-traceback's wide instance (``hsmm_viterbi_traceback_wide``, codes at
-radix WIDE_CODE_RADIX) and the band gradient as it is. Each wide kernel
-counts its own launches. The max gamma scan and the band max stay at
+memory, past it one block a chain reading the table from L2), the wide
+traceback (``hsmm_viterbi_traceback_wide``, W2, codes at radix
+WIDE_CODE_RADIX: two warps a video, one walking the raw codes with two
+shared-memory loads a segment, the other streaming the plane from the top
+down through a ring of tiles that ``wide_traceback_tile`` sizes, one bulk
+copy a tile) and the band gradient as it is. Each wide kernel counts its
+own launches. The max gamma scan and the band max stay at
 <= 128 classes: the labels chain never sees a wide DP (``kernel_path``).
 
 Each wrapper takes its kernel's plain PyTorch version (``_gamma_scan_plain``
@@ -1074,26 +1077,60 @@ def traceback_tile(T, C, max_rows=None):
     return TracebackTile(rows, TRACEBACK_HEADER + 8 * _tile_words(rows, C))
 
 
-# the wide traceback keeps a duration d' < T shifted by 12 bits in an int32
-WIDE_TRACEBACK_MAX_T = 2 ** 19 - 1
+class WideTracebackTile(NamedTuple):
+    """The wide traceback's ring: code rows a slot, slots, and the
+    launch's dynamic shared memory."""
+
+    rows: int
+    stages: int
+    smem_bytes: int
+
+
+# the wide traceback's ring: at most WIDE_TRACEBACK_STAGES slots (the
+# kernel takes up to 16), each tile one bulk copy of its rows widened to
+# the 16-byte lines around them; the slots follow two mbarriers a slot
+WIDE_TRACEBACK_STAGES = 4
+
+
+def _wide_slot_words(rows, C):
+    # rows * C codes and up to 3 words of line on either side, in whole lines
+    return (rows * C + 6) // 4 * 4
+
+
+def _wide_traceback_header(stages):
+    return 16 * stages
+
+
+def wide_traceback_tile(T, C, max_rows=None, stages=WIDE_TRACEBACK_STAGES):
+    """The ring the wide traceback (W2) of a (T, C) code plane launches
+    with: the most rows a slot (at most T, and at most `max_rows` where
+    given) for which `stages` slots fit an H100 block's shared memory;
+    no more slots than the plane's shared rows (T - 1) make tiles of;
+    and that memory (the kernel's layout). At 342 classes 4 slots of 42
+    rows, at 1,024 4 of 14."""
+    words = (MAX_BLOCK_SMEM - _wide_traceback_header(stages)) // (4 * stages) // 4 * 4
+    rows = max(1, min(T, (words - 3) // C, max_rows or T))
+    stages = max(1, min(stages, -(-(T - 1) // rows)))
+    return WideTracebackTile(rows, stages, _wide_traceback_header(stages)
+                             + stages * 4 * _wide_slot_words(rows, C))
 
 
 def _launch_traceback(bp, lengths, c_last, tile):
     """Checks, then one launch of csrc/hsmm_viterbi.cu's traceback with
-    `tile`'s rows and shared memory (its wide instance above 128
-    classes); returns the spans."""
+    `tile` (a ``traceback_tile``; above 128 classes W2 with a
+    ``wide_traceback_tile``); returns the spans."""
     N, T, C = bp.shape
-    name, symbol = "hsmm_viterbi_traceback", "hsmm_viterbi_traceback"
+    name = "hsmm_viterbi_traceback"
     if C > MAX_CLASSES:
-        name, symbol = "hsmm_viterbi_traceback_wide", "hsmm_viterbi_traceback_wide"
-        if C > WIDE_MAX_CLASSES or T > WIDE_TRACEBACK_MAX_T:
-            raise ValueError("{}: C={} > {} or T={} > {}".format(
-                name, C, WIDE_MAX_CLASSES, T, WIDE_TRACEBACK_MAX_T))
+        name = "hsmm_viterbi_traceback_wide"
+        if C > WIDE_MAX_CLASSES:
+            raise ValueError("{}: C={} > {}".format(name, C, WIDE_MAX_CLASSES))
     _check_cuda(name, (bp, lengths, c_last), ((N, T, C), (N,), (N,)),
                 (torch.int32, torch.int64, torch.int64))
+    if C > MAX_CLASSES and bp.data_ptr() % 16:
+        raise ValueError("{}: the codes must be 16-byte aligned".format(name))
     spans = torch.empty((N, T), dtype=torch.long, device=bp.device)
-    err = _call("hsmm_viterbi", symbol, [bp, lengths, c_last, spans],
-                [N, T, C, tile.rows, tile.smem_bytes], bp)
+    err = _call("hsmm_viterbi", name, [bp, lengths, c_last, spans], [N, T, C, *tile], bp)
     _raise_on_error(name, err)
     return spans
 
@@ -1121,14 +1158,15 @@ hsmm_viterbi_traceback.launches = 0
 
 def hsmm_viterbi_traceback_wide(bp, lengths, c_last):
     """``hsmm_viterbi_traceback`` for a DP of 128 < C <= 1024 classes
-    (codes at WIDE_CODE_RADIX): the traceback's wide instance on CUDA
-    tensors, the plain version on CPU tensors."""
+    (codes at WIDE_CODE_RADIX): W2 on CUDA tensors, one warp a video
+    walking the raw codes through a ring of tiles in shared memory that
+    ``wide_traceback_tile`` sizes; the plain version on CPU tensors."""
     if _device_type(bp) == "cpu":
         return _traceback_plain(bp, lengths, c_last, code_radix(bp.shape[-1]))
     if not MAX_CLASSES < bp.shape[-1]:
         raise ValueError("hsmm_viterbi_traceback_wide: C={} <= {}".format(
             bp.shape[-1], MAX_CLASSES))
-    spans = _launch_traceback(bp, lengths, c_last, traceback_tile(*bp.shape[1:]))
+    spans = _launch_traceback(bp, lengths, c_last, wide_traceback_tile(*bp.shape[1:]))
     hsmm_viterbi_traceback_wide.launches += 1
     return spans
 

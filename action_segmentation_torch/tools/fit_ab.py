@@ -8,7 +8,16 @@ each streaming (``--sm_device_resident_mb 0``) and resident, none with
 --data_parallel. Run from the repository root on a machine with a CUDA
 card:
 
-    python3 -m action_segmentation_torch.tools.fit_ab --old_tree OLD_DIR [--rounds N] [--out ab.json]
+    python3 -m action_segmentation_torch.tools.fit_ab --old_tree OLD_DIR [--rounds N] [--wide [--repeats 3]] [--out ab.json]
+
+With ``--wide`` the legs are instead ``chip_smoke.py`` phase 4i(b)'s
+serving over all 342 S6 classes: phase 4c's release, the S6 flags with
+--mix_tasks, a closed-form fit, pickled and served by ``Segmenter.load``
+with no valid_classes, ``segment_many`` over every val video once to warm
+up and then `--repeats` times, each timed on the host clock to a device
+sync; each turn prints the walls, frames/s and the wide kernels' launches
+(the old tree's ``chip_smoke.py`` must have ``crosstask_args`` and phase
+4c's constants, as from the wide DP's commit on).
 
 OLD_DIR is a checkout of an earlier commit, for example ``git archive
 <commit> | tar -x -C OLD_DIR`` into a directory that .gitignore lists; its
@@ -61,10 +70,66 @@ print("FIT_AB " + json.dumps(out), flush=True)
 """
 
 
-def turn(tree):
-    """One turn in `tree`: {case: {wall_s, frames_per_s, busy_share}}."""
+_WIDE_TURN = r"""
+import contextlib, io, json, os, shutil, sys, tempfile, time
+import numpy as np
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from action_segmentation_torch import checkpoint
+from action_segmentation_torch import main as port_main
+from action_segmentation_torch.api import Segmenter
+from action_segmentation_torch.data import minigen
+from action_segmentation_torch.data.crosstask import CrosstaskCorpus
+from action_segmentation_torch.models.semimarkov import SemiMarkovModel
+from action_segmentation_torch.ops import _build
+from action_segmentation_torch.ops import hsmm_cuda as hc
+
+device = torch.device("cuda")
+_build.build(["hsmm_scan_wide", "hsmm_viterbi"])
+root = tempfile.mkdtemp(prefix="fit_ab_")
+wide = ("hsmm_viterbi_scan_wide", "hsmm_viterbi_traceback_wide")
+try:
+    with contextlib.redirect_stdout(sys.stderr):
+        tasks = {t: ["step{}".format(i) for i in range(cs.CT_STEPS)]
+                 for t in CrosstaskCorpus.TASK_IDS_BY_SET["primary"]}
+        minigen.write_mini_crosstask(
+            root, np.random.RandomState(0), tasks=tasks, related_tasks={}, n_train=cs.CT_TRAIN,
+            n_val=cs.CT_VAL, dim_per_group=cs.CT_DIM_PER_GROUP, **cs.CT_RANGES)
+        args = cs.crosstask_args(root, "--mix_tasks")
+        with contextlib.redirect_stdout(io.StringIO()):
+            train, _, val = port_main.make_data_splits(args)["all"]
+        model = SemiMarkovModel.from_args(args, train, device=device)
+        model.fit(train, use_labels=True)
+        pkl = os.path.join(root, "s6_mix_tasks.pkl")
+        checkpoint.save_pickle(model, pkl)
+        seg = Segmenter.load(pkl)
+        feats = [val[k]["features"] for k in val._tasks_and_video_names]
+        frames = sum(f.shape[0] for f in feats)
+        seg.segment_many(feats, batch_size=args.batch_size)
+        walls = []
+        for _ in range(int(sys.argv[1])):
+            for n in wide:
+                getattr(hc, n).launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seg.segment_many(feats, batch_size=args.batch_size)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out = {"segment_many": {"wall_s": min(walls), "walls_s": walls,
+                                "frames_per_s": frames / min(walls),
+                                "launches": {n: getattr(hc, n).launches for n in wide}}}
+finally:
+    shutil.rmtree(root, ignore_errors=True)
+print("FIT_AB " + json.dumps(out), flush=True)
+"""
+
+
+def turn(tree, wide=False, repeats=3):
+    """One turn in `tree`: {case: {wall_s, frames_per_s, ...}}."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
-    proc = subprocess.run([sys.executable, "-c", _TURN], cwd=tree, env=env,
+    code = [_WIDE_TURN, str(repeats)] if wide else [_TURN]
+    proc = subprocess.run([sys.executable, "-c", *code], cwd=tree, env=env,
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError("turn in {} failed ({}):\n{}".format(
@@ -77,6 +142,9 @@ def main(argv=None):
     cli = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     cli.add_argument("--old_tree", required=True)
     cli.add_argument("--rounds", type=int, default=1)
+    cli.add_argument("--wide", action="store_true",
+                     help="phase 4i(b)'s segment_many over all 342 S6 classes")
+    cli.add_argument("--repeats", type=int, default=3)
     cli.add_argument("--out", default=None)
     opts = cli.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -86,7 +154,7 @@ def main(argv=None):
              ("old", opts.old_tree)] * opts.rounds
     turns = []
     for which, tree in order:
-        rec = turn(tree)
+        rec = turn(tree, opts.wide, opts.repeats)
         turns.append((which, rec))
         print(which, json.dumps(rec), flush=True)
     summary = {}
@@ -97,7 +165,7 @@ def main(argv=None):
         summary[case] = {"old_wall_s": walls["old"], "new_wall_s": walls["new"],
                          "new_over_old": means["new"] / means["old"],
                          "least_new_over_old": min(walls["new"]) / min(walls["old"]),
-                         "busy": {w: [rec[case]["busy_share"] for which, rec in turns
+                         "busy": {w: [rec[case].get("busy_share") for which, rec in turns
                                       if which == w] for w in ("old", "new")}}
         print("{}: old {} s, new {} s, new/old {:.4f} (means), {:.4f} (least); {}".format(
             case, ["{:.4f}".format(x) for x in walls["old"]],

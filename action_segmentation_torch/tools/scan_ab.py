@@ -8,9 +8,11 @@ The earlier sources are a directory holding ``hsmm_scan.cu`` and
 for example a commit's files from ``git show
 <commit>:action_segmentation_torch/csrc/<file>``, written into a
 directory that .gitignore lists. Their scan entry points take the
-wrapper's instance, as the current ones do; their traceback takes
-(pointers, N, T, C, device, stream), the interface before the launch took
-the wrapper's tile; their band gradient is the two-launch form before
+wrapper's instance, as the current ones do; their traceback takes the
+tile ``traceback_tile`` sizes (rows, smem), the staged traceback's
+interface, and so does their wide traceback (one rule for both, before
+W2's ring); their band
+gradient is the two-launch form before
 the tile (pointers to qg, sa, st, lg and a (B, blocks, Km, C) scratch
 sized by ``hsmm_band_grad_blocks``; B, T, T2, C, Km) or the current
 one (told apart by that export); their band max
@@ -33,7 +35,24 @@ launches replayed (no host time between them), on the codes the current
 backpointer scan writes, at the serving shape, K=1, C=128, T=12,000 and the
 global-memory tail's shape (C=1, Km=28,900, T=64), with the spans held
 equal; it prints ms, the segments (all videos and the longest video's)
-and us a segment of the longest video's walk, which sets the time.
+and us a segment of the longest video's walk, which sets the time. Above
+128 classes the wide traceback (W2; the earlier one from ``git show
+b8d2282:action_segmentation_torch/csrc/hsmm_viterbi.cu``, with the
+``hsmm_scan_core.cuh`` it includes) at the S6 shape (18 videos of 1,024
+frames at C = 342, K = 20, lengths drawn as chip_smoke.py's phase 4i
+draws them), C = 129, 664 and 1,024, and C = 342 at T = 12,000 (B = 2,
+lengths 12,000 and 7,001), on the wide scan's codes, with each version's
+floor from its SASS (``scan_floor.traceback_wide_floor``: the longest
+video's segments x the walk's chain, plus the first tile's bytes at the
+card's memory rate). At the S6 shape it also splits each version's time:
+the staging stream alone (the same lengths, every code a span of one
+tile, so the walk visits every tile in one segment each), the walk alone
+(a plane of 84 rows, one earlier tile, less its one-segment twin, as
+cycles a segment), and a copy probe (one block a video copying tiles of
+the earlier and of W2's rows by cp.async.bulk one after another: bytes a
+us through one SM); then W2's ring at 2, 3, 4, 6 and 8 slots, in turns.
+With ``--step0`` only the earlier wide traceback runs (the wide shapes,
+its floor, its split and the probe).
 
 The band gradient (``--kernels band_grad``, never with the others) is
 timed from replayed CUDA graphs too, old, new, new, old, and each version
@@ -123,6 +142,9 @@ from action_segmentation_torch.tools.scan_floor import (
     library_sass,
     max_sm_clock_mhz,
     parse_function,
+    traceback_wide_floor,
+    traceback_wide_floor_ms,
+    wide_first_tile_bytes,
     wide_floors,
 )
 from action_segmentation_torch.utils.misc import host_ms
@@ -146,14 +168,27 @@ SHAPES = [
     # a tail whose durations do not fit beside it: read from global memory
     ("global tail C=1", 2, 64, 1, 28901, None),
 ]
-# the traceback's shapes: (name, B, T, C, K, lengths)
+# the traceback's shapes: (name, B, T, C, K, lengths); above 128 classes
+# W2, the wide traceback, on the wide backpointer scan's codes ("phase 4i":
+# lengths drawn as chip_smoke.py's phase 4i draws the S6 shape's, uniform
+# in [1, T] with the first T and the second 1)
 TRACEBACK_SHAPES = [
     ("serving", 18, 1024, 19, 20, None),
     ("K=1", 18, 1024, 19, 1, None),
     ("C=128", 4, 1024, 128, 20, None),
     ("T=12000", 2, 12000, 19, 20, [12000, 7001]),
     ("global tail C=1", 2, 64, 1, 28901, None),
+    ("wide S6", 18, 1024, 342, 20, "phase 4i"),
+    ("wide C=129", 18, 1024, 129, 20, None),
+    ("wide C=664", 18, 1024, 664, 20, None),
+    ("wide C=1024", 18, 1024, 1024, 20, None),
+    ("wide T=12000", 2, 12000, 342, 20, [12000, 7001]),  # a plane of 16 MB a video
 ]
+# W2's ring at the S6 shape: the rule's slot count against these
+WIDE_TRACEBACK_RING_STAGES = (2, 3, 4, 6, 8)
+# W2's split (step 0 and after): the walk alone on a plane that fits one of
+# the earlier kernel's tiles (84 rows at C = 342)
+WALK_T = 84
 # the band gradient's shapes: (name, B, T, C, K, lengths)
 BAND_GRAD_SHAPES = [
     ("serving", 18, 1024, 19, 20, None),
@@ -337,9 +372,13 @@ def scan_inputs(B, T, C, K, lengths, rng, device):
 
 def traceback_inputs(B, T, C, K, lengths, rng, device):
     """(bp, lengths, c_last) as the spans chain gives the traceback: the
-    codes of the current backpointer scan and the best final classes."""
+    codes of the current backpointer scan (the wide one above 128
+    classes) and the best final classes."""
     if lengths is None:
         lengths = np.full(B, T)
+    elif isinstance(lengths, str):  # "phase 4i"
+        lengths = rng.randint(1, T + 1, size=B)
+        lengths[0], lengths[1] = T, 1
     pots, L = potentials(rng, B, T, C, K, np.asarray(lengths, np.int64), device)
     alphas, bp = hc.hsmm_viterbi_scan(pots.trans.contiguous(), pots.init.contiguous(),
                                       _durations(pots.lens).contiguous(), pots.emit.contiguous())
@@ -411,12 +450,24 @@ def graph_ms(run, n):
     return start.elapsed_time(end) / n, (t0, time.perf_counter())
 
 
-def traceback_launcher(fn, spans, inputs, new):
-    """One launch of a traceback `fn` on (bp, lengths, c_last); the new
-    interface also takes the tile ``traceback_tile`` sizes."""
+def traceback_tile_of(version, T, C, stages=None):
+    """The tile a traceback version launches with: ``traceback_tile``
+    (rows, smem) for the narrow kernel of both versions and the earlier
+    wide one; ``wide_traceback_tile`` (rows, stages, smem) for W2, with
+    `stages` slots where given."""
+    if C > hc.MAX_CLASSES and version == "new":
+        if stages is None:
+            return hc.wide_traceback_tile(T, C)
+        return hc.wide_traceback_tile(T, C, stages=stages)
+    return hc.traceback_tile(T, C)
+
+
+def traceback_launcher(fn, spans, inputs, tile):
+    """One launch of a traceback `fn` on (bp, lengths, c_last) with
+    `tile` (``traceback_tile_of``)."""
     bp = inputs[0]
     N, T, C = bp.shape
-    ints = [N, T, C, *(hc.traceback_tile(T, C) if new else ())]
+    ints = [N, T, C, *tile]
     ptrs = [x.data_ptr() for x in (*inputs, spans)]
 
     def run():  # on the current stream, which a graph's capture replaces
@@ -424,6 +475,136 @@ def traceback_launcher(fn, spans, inputs, new):
         if err:
             raise RuntimeError("launch failed with CUDA error {}".format(err))
     return run
+
+
+def bind_traceback(libs, version, C):
+    """`version`'s traceback entry for C classes: the narrow one, or above
+    128 classes the wide one (the earlier takes rows and smem, W2 rows,
+    stages and smem)."""
+    if C <= hc.MAX_CLASSES:
+        return bind(libs["hsmm_viterbi"], "hsmm_viterbi_traceback", 4, 5)
+    return bind(libs["hsmm_viterbi"], "hsmm_viterbi_traceback_wide", 4,
+                6 if version == "new" else 5)
+
+
+def one_segment_a_tile(inputs, rows):
+    """(bp, lengths, c_last) with every code a span of `rows` frames: the
+    walk takes one segment a tile of that many rows and visits every tile,
+    so its time is the tiles' staging (copy and, in the earlier kernel,
+    rewrite) with almost no walk."""
+    bp, L, c_last = inputs
+    fill = (rows - 1) * hc.WIDE_CODE_RADIX + torch.arange(bp.shape[-1], device=bp.device)
+    return fill.to(torch.int32).expand(bp.shape).contiguous(), L, c_last
+
+
+def segments_longest(spans):
+    per_video = (spans >= 0).sum(dim=1)
+    return int(per_video.sum()), int(per_video.max())
+
+
+# one block a video copies its plane's first `tiles` tiles of `bytes` into
+# shared memory one after another, each a cp.async.bulk waited on before
+# the next: the earlier W2's copy without its rewrite
+COPY_PROBE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+namespace {
+__global__ void copy_probe_kernel(const int32_t* src, int stride_words, int bytes,
+                                  int tiles) {
+  extern __shared__ __align__(16) unsigned char buf[];
+  if (threadIdx.x != 0) return;
+  const uint32_t bar = (uint32_t)__cvta_generic_to_shared(buf);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  const int32_t* base = src + (size_t)blockIdx.x * stride_words;
+  for (int t = 0; t < tiles; ++t) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                 "r"(bytes) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                 "[%0], [%1], %2, [%3];" ::"r"(bar + 16), "l"(base + (size_t)t * (bytes / 4)),
+                 "r"(bytes), "r"(bar) : "memory");
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                   "selp.u32 %0, 1, 0, p;\n}\n" : "=r"(done) : "r"(bar), "r"(t & 1) : "memory");
+    }
+  }
+}
+}  // namespace
+extern "C" int copy_probe(const void* src, int blocks, int stride_words, int bytes, int tiles,
+                          int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = 16 + bytes;
+  err = cudaFuncSetAttribute(copy_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  copy_probe_kernel<<<blocks, 32, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)src, stride_words, bytes, tiles);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def build_copy_probe(out_dir):
+    """nvcc of COPY_PROBE with the port's flags; its ``copy_probe``."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src, so = out_dir / "copy_probe.cu", out_dir / "libcopy_probe.so"
+    src.write_text(COPY_PROBE)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)], check=True,
+                   capture_output=True, text=True)
+    return bind(ctypes.CDLL(str(so)), "copy_probe", 1, 4)
+
+
+def copy_rate(probe, bp, rows):
+    """One block a video copying tiles of `rows` rows one after another
+    from a replayed graph: (us a tile, bytes a us through one SM) from the
+    launch with one tile and with as many as fit the plane, less the
+    launch with none."""
+    N, T, C = bp.shape
+    nbytes = rows * C * 4 // 16 * 16
+    most = T * C * 4 // nbytes
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def ms(tiles):
+        def run():
+            err = probe(bp.data_ptr(), N, T * C, nbytes, tiles, bp.device.index, stream())
+            if err:
+                raise RuntimeError("copy probe failed with CUDA error {}".format(err))
+        return graph_ms(run, N_GRAPH)[0]
+    empty, one, full = ms(0), ms(1), ms(most)
+    return {"rows": rows, "bytes_a_tile": nbytes, "tiles": most, "empty_ms": empty,
+            "one_tile_us": 1e3 * (one - empty), "tiles_us": 1e3 * (full - empty),
+            "bytes_per_us_one": nbytes / (1e3 * (one - empty)),
+            "bytes_per_us_stream": most * nbytes / (1e3 * (full - empty))}
+
+
+def traceback_split(fn, version, inputs, walk_inputs):
+    """Where a version's time at the S6 shape goes, from replayed graphs:
+    its time on `inputs`; the same lengths with codes of one segment a
+    tile (the staging stream alone); and on `walk_inputs` (a plane of
+    WALK_T rows, one earlier tile) the real walk less its one-segment
+    twin, as us and cycles a segment of the longest video."""
+    def timed(inp, rows=None):
+        N, T, C = inp[0].shape
+        tile = traceback_tile_of(version, T, C)
+        if rows is not None:
+            inp = one_segment_a_tile(inp, tile.rows)
+        spans = torch.empty(inp[0].shape[:2], dtype=torch.long, device=inp[0].device)
+        run = traceback_launcher(fn, spans, inp, tile)
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(spans, hc._traceback_plain(*inp)):
+            raise RuntimeError("{} traceback's spans differ from plain".format(version))
+        return graph_ms(run, N_GRAPH)[0], segments_longest(spans)
+    full, (_, longest) = timed(inputs)
+    stream, _ = timed(inputs, rows=True)
+    walk, (_, walk_longest) = timed(walk_inputs)
+    walk_one, (_, one_longest) = timed(walk_inputs, rows=True)
+    per = (walk - walk_one) / (walk_longest - one_longest)
+    return {"ms": full, "longest": longest, "stream_ms": stream, "walk_T": WALK_T,
+            "walk_ms": walk, "walk_one_segment_ms": walk_one,
+            "walk_segments_longest": walk_longest, "walk_us_per_segment": 1e3 * per}
 
 
 def band_grad_inputs(B, T, C, K, lengths, rng, device):
@@ -661,7 +842,9 @@ def compare(fns, kind, inputs, window_ms, clock):
     if kind == "t":
         outs = {v: [torch.empty(inputs[0].shape[:2], dtype=torch.long,
                                 device=inputs[0].device)] for v in fns}
-        runs = {v: traceback_launcher(fns[v], outs[v][0], inputs, v == "new") for v in fns}
+        T, C = inputs[0].shape[1:]
+        runs = {v: traceback_launcher(fns[v], outs[v][0], inputs, traceback_tile_of(v, T, C))
+                for v in fns}
     else:
         outs = {v: outputs_for(kind, inputs[3]) for v in fns}
         runs = {v: launcher(fns[v], outs[v], inputs) for v in fns}
@@ -683,6 +866,132 @@ def compare(fns, kind, inputs, window_ms, clock):
         r[v + "_ms"] = [ms for w, ms, _ in timed if w == v]
         r[v + "_sm_mhz"] = clock_summary(clock.within([win for w, _, win in timed if w == v]))
     return r
+
+
+def run_traceback(old_libs, new_libs, probe, window_ms, clock, rng, device, old_sass,
+                  new_sass):
+    """The traceback at TRACEBACK_SHAPES, spans equal to the plain
+    version's: old, new, new, old from replayed graphs, or with no
+    `new_libs` (step 0) the earlier kernel alone at the wide shapes. At
+    the wide shapes each version's floor from its SASS; at the S6 shape
+    each version's split (``traceback_split``), the copy probe's rate at
+    the earlier tile and at W2's slot, and (not in step 0) W2's ring at
+    WIDE_TRACEBACK_RING_STAGES slots, in turns."""
+    mhz = max_sm_clock_mhz()
+    versions = {"old": old_libs, **({"new": new_libs} if new_libs else {})}
+    chains = {"old": traceback_wide_floor(old_sass)[0]}
+    if new_libs:
+        chains["new"] = traceback_wide_floor(new_sass)[0]
+    results = []
+    for shape, B, T, C, K, lengths in TRACEBACK_SHAPES:
+        wide = C > hc.MAX_CLASSES
+        if not new_libs and not wide:
+            continue
+        inputs = traceback_inputs(B, T, C, K, lengths, rng, device)
+        spans = hc._traceback_plain(*inputs)
+        total, longest = segments_longest(spans)
+        fns = {v: bind_traceback(libs, v, C) for v, libs in versions.items()}
+        if new_libs:
+            if not torch.equal(hc.hsmm_viterbi_traceback(*inputs), spans):
+                raise RuntimeError("{}: the traceback's spans differ from the plain "
+                                   "version's".format(shape))
+            r = compare(fns, "t", inputs, window_ms, clock)
+        else:
+            out = torch.empty_like(spans)
+            run = traceback_launcher(fns["old"], out, inputs, traceback_tile_of("old", T, C))
+            run()
+            torch.cuda.synchronize()
+            if not torch.equal(out, spans):
+                raise RuntimeError("{}: the earlier traceback's spans differ from the plain "
+                                   "version's".format(shape))
+            timed = [graph_ms(run, N_GRAPH) for _ in range(2)]
+            r = {"launches": N_GRAPH, "old_ms": [ms for ms, _ in timed],
+                 "old_sm_mhz": clock_summary(clock.within([w for _, w in timed]))}
+        r.update(shape=shape, kernel="traceback", videos=B, T=T, C=C, Km=max(K - 1, 1),
+                 segments=total, segments_longest_video=longest)
+        for v in versions:
+            r[v + "_us_per_segment"] = 1e3 * np.mean(r[v + "_ms"]) / longest
+        if new_libs:
+            r["speedup"] = np.mean(r["old_ms"]) / np.mean(r["new_ms"])
+        if wide:
+            tiles = {"old": hc.traceback_tile(T, C), "new": hc.wide_traceback_tile(T, C)}
+            first = {"old": 4 * min(tiles["old"].rows, T) * C,
+                     "new": wide_first_tile_bytes(T, C)}
+            for v in versions:
+                r[v + "_tile"] = tiles[v]._asdict()
+                r[v + "_floor_ms"] = traceback_wide_floor_ms(chains[v], longest, first[v], mhz)
+                r[v + "_floor_ratio"] = np.mean(r[v + "_ms"]) / r[v + "_floor_ms"]
+                r[v + "_chain_cycles"] = chains[v]
+        if shape == "wide S6":
+            walk_in = traceback_inputs(B, WALK_T, C, K, None, rng, device)
+            for v in versions:
+                r[v + "_split"] = traceback_split(fns[v], v, inputs, walk_in)
+                r[v + "_split"]["walk_cycles_per_segment"] = (
+                    r[v + "_split"]["walk_us_per_segment"] * mhz)
+            r["copy_probe"] = [copy_rate(probe, inputs[0], rows) for rows in sorted(
+                {hc.traceback_tile(T, C).rows, hc.wide_traceback_tile(T, C).rows})]
+            if new_libs:
+                r["ring"] = compare_ring(fns["new"], inputs, clock)
+        results.append(r)
+        line = "{:18s} traceback N={:2d} T={:5d} C={:4d}: {} segments, longest video {}".format(
+            shape, B, T, C, total, longest)
+        for v in versions:
+            line += "; {} {} ms ({:.5f} us a segment{})".format(
+                v, ["{:.5f}".format(x) for x in r[v + "_ms"]], r[v + "_us_per_segment"],
+                ", floor {:.5f} ms, x{:.2f}".format(r[v + "_floor_ms"], r[v + "_floor_ratio"])
+                if wide else "")
+        if new_libs:
+            line += "; x{:.2f}".format(r["speedup"])
+        line += "; SM clock " + ", ".join("{} {}-{} MHz ({} readings)".format(
+            v, r[v + "_sm_mhz"].get("min"), r[v + "_sm_mhz"].get("max"), r[v + "_sm_mhz"]["n"])
+            for v in versions)
+        print(line, flush=True)
+        for v in versions:
+            if v + "_split" in r:
+                sp = r[v + "_split"]
+                print("  {} split at the S6 shape: {:.5f} ms in all; the staging stream alone "
+                      "(one segment a tile) {:.5f} ms; the walk alone at T={} ({} segments, the "
+                      "one-segment twin {:.5f} ms): {:.5f} us = {:.1f} cycles a segment at {:.0f} "
+                      "MHz".format(v, sp["ms"], sp["stream_ms"], WALK_T,
+                                   sp["walk_segments_longest"], sp["walk_one_segment_ms"],
+                                   sp["walk_us_per_segment"], sp["walk_cycles_per_segment"],
+                                   mhz), flush=True)
+        for cp in r.get("copy_probe", ()):
+            print("  copy probe, tiles of {} rows ({} bytes) through one SM a video: one tile "
+                  "{:.3f} us ({:.0f} bytes a us), {} tiles one after another {:.3f} us ({:.0f} "
+                  "bytes a us); an empty launch {:.5f} ms".format(
+                      cp["rows"], cp["bytes_a_tile"], cp["one_tile_us"], cp["bytes_per_us_one"],
+                      cp["tiles"], cp["tiles_us"], cp["bytes_per_us_stream"], cp["empty_ms"]),
+                  flush=True)
+        if "ring" in r:
+            print("  W2's ring at the S6 shape, slots (rows): {}".format("; ".join(
+                "{} ({}) {} ms".format(k["stages"], k["rows"], ["{:.5f}".format(x)
+                                                                for x in k["ms"]])
+                for k in r["ring"])), flush=True)
+    return results
+
+
+def compare_ring(fn, inputs, clock):
+    """W2 with WIDE_TRACEBACK_RING_STAGES slots (the most rows that fit
+    each), spans equal to the plain version's, timed from replayed graphs
+    in turns (each count once, then again in the reverse order)."""
+    N, T, C = inputs[0].shape
+    plain = hc._traceback_plain(*inputs)
+    runs = {}
+    for st in WIDE_TRACEBACK_RING_STAGES:
+        tile = traceback_tile_of("new", T, C, stages=st)
+        spans = torch.empty_like(plain)
+        runs[st] = (traceback_launcher(fn, spans, inputs, tile), tile)
+        runs[st][0]()
+        torch.cuda.synchronize()
+        if not torch.equal(spans, plain):
+            raise RuntimeError("W2 with {} slots: spans differ from plain".format(st))
+    order = list(WIDE_TRACEBACK_RING_STAGES)
+    timed = [(st, *graph_ms(runs[st][0], N_GRAPH)) for st in order + order[::-1]]
+    return [{"stages": st, "rows": runs[st][1].rows, "smem_bytes": runs[st][1].smem_bytes,
+             "ms": [ms for w, ms, _ in timed if w == st],
+             "sm_mhz": clock_summary(clock.within([win for w, _, win in timed if w == st]))}
+            for st in order]
 
 
 def wide_launcher(fn, inputs, kind, inst, old):
@@ -798,11 +1107,14 @@ def main():
     parser.add_argument("--kernels", choices=("all", "scans", "traceback", "band_grad",
                                               "band_max", "wide"), default="all")
     parser.add_argument("--step0", action="store_true",
-                        help="--kernels wide: the earlier kernels alone, nothing current built")
+                        help="--kernels wide or traceback: the earlier kernels alone, nothing "
+                             "current built")
     parser.add_argument("--out", type=Path, default=None)
     parser.add_argument("--window_ms", type=float, default=100.0)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
+    if args.step0 and args.kernels not in ("wide", "traceback"):
+        parser.error("--step0 takes --kernels wide or traceback")
     if not torch.cuda.is_available():
         print("scan_ab: no CUDA device is available", file=sys.stderr)
         return 1
@@ -943,32 +1255,11 @@ def main():
                     record(compare(fns, kind, inputs, args.window_ms, clock),
                            "common chain count", scan, inputs)
         if args.kernels in ("all", "traceback"):
-            fns = {"old": bind(old_libs["hsmm_viterbi"], "hsmm_viterbi_traceback", 4, 3),
-                   "new": bind(new_libs["hsmm_viterbi"], "hsmm_viterbi_traceback", 4, 5)}
-            for shape, B, T, C, K, lengths in TRACEBACK_SHAPES:
-                inputs = traceback_inputs(B, T, C, K, lengths, rng, device)
-                r = compare(fns, "t", inputs, args.window_ms, clock)
-                spans = hc._traceback_plain(*inputs)
-                if not torch.equal(hc.hsmm_viterbi_traceback(*inputs), spans):
-                    raise RuntimeError("{}: the traceback's spans differ from the plain "
-                                       "version's".format(shape))
-                per_video = (spans >= 0).sum(dim=1)
-                old, new = np.mean(r["old_ms"]), np.mean(r["new_ms"])
-                r.update(shape=shape, kernel="traceback", videos=B, T=T, C=C,
-                         Km=max(K - 1, 1), segments=int(per_video.sum()),
-                         segments_longest_video=int(per_video.max()),
-                         old_us_per_segment=1e3 * old / int(per_video.max()),
-                         new_us_per_segment=1e3 * new / int(per_video.max()),
-                         speedup=old / new)
-                tb_results.append(r)
-                print("{:18s} traceback N={:2d} T={:5d} C={:3d}: old {} ms, new {} ms; {} segments,"
-                      " longest video {}: {:.5f} -> {:.5f} us a segment, x{:.2f}; SM clock old "
-                      "{}, new {}".format(
-                          shape, B, T, C, ["{:.5f}".format(x) for x in r["old_ms"]],
-                          ["{:.5f}".format(x) for x in r["new_ms"]], r["segments"],
-                          r["segments_longest_video"], r["old_us_per_segment"],
-                          r["new_us_per_segment"], r["speedup"], clk(r["old_sm_mhz"]),
-                          clk(r["new_sm_mhz"])), flush=True)
+            old_sass = library_sass(args.old_csrc / "build" / "libhsmm_viterbi.so")
+            probe = build_copy_probe(args.old_csrc / "build")
+            tb_results = run_traceback(
+                old_libs, new_libs, probe, args.window_ms, clock, rng, device, old_sass,
+                built_sass("hsmm_viterbi") if new_libs else None)
     out = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
            "results": results, "traceback": tb_results, "band_grad": bg_results,
            "band_grad_loop_opcodes": bg_opcodes,
@@ -981,7 +1272,8 @@ def main():
                                   for r in results],
                       "traceback_ab": [{k: r[k] for k in (
                           "shape", "old_ms", "new_ms", "segments", "segments_longest_video",
-                          "old_us_per_segment", "new_us_per_segment")} for r in tb_results],
+                          "old_us_per_segment", "new_us_per_segment", "old_floor_ms",
+                          "new_floor_ms") if k in r} for r in tb_results],
                       "band_grad_ab": [{k: r[k] for k in (
                           "shape", "old_ms", "new_ms", "old_stream_ms", "new_stream_ms",
                           "speedup", "differ_plain", "plain_st_denormals")} for r in bg_results],

@@ -69,7 +69,7 @@ scan's floor is T steps of it.
 
 Run from the repository root on a machine with the CUDA toolkit:
 
-    python3 -m action_segmentation_torch.tools.scan_floor [--B 18] [--C 19] [--Km 19] [--T 1024] [--segments 760] [--wide-C 342] [--sass-dir DIR]
+    python3 -m action_segmentation_torch.tools.scan_floor [--B 18] [--C 19] [--Km 19] [--T 1024] [--segments 720] [--wide-C 342] [--wide-segments 760] [--sass-dir DIR]
 
 With `--sass-dir`, DIR holds `hsmm_scan.sass`, `hsmm_viterbi.sass`,
 `band_grad.sass`, `band_max.sass` and `hsmm_scan_wide.sass` (cuobjdump's
@@ -77,11 +77,15 @@ output) and nothing is built. The wide scans' floors are at B chains
 (2B for the log scan, the stacked forward and reversed chains) of T
 steps, `--wide-C` classes and Km rows, on the route
 ``hsmm_cuda.wide_scan_instance`` picks, and on the L2 route. `--segments`
-is the most segments in one video for the traceback's floor in time; B,
-T, C and Km size the band kernels' launches (their tiles from
-`hsmm_cuda.band_grad_tile` and `band_max_tile`). Prints one line per serving instance, one for the
-traceback, one for K4, one for K3, one per wide instance and route, and
-a JSON object last.
+is the most segments in one video for the traceback's floor in time, and
+`--wide-segments` the same for W2, the wide traceback (the same walk
+reader on `traceback_wide_kernel`, whose walk takes two shared loads a
+segment), at T and `--wide-C`; W2's floor adds its first tile's arrival,
+that tile's bytes at the card's memory rate. B, T, C and Km size the band
+kernels' launches (their tiles from `hsmm_cuda.band_grad_tile` and
+`band_max_tile`). Prints one line per serving instance, one for the
+traceback, one for W2, one for K4, one for K3, one per wide instance and
+route, and a JSON object last.
 """
 
 import argparse
@@ -102,6 +106,7 @@ from action_segmentation_torch.ops.hsmm_cuda import (
     scan_instance,
     wide_l2_instance,
     wide_scan_instance,
+    wide_traceback_tile,
 )
 
 # assumed latencies in cycles, by opcode (the part before the first dot)
@@ -115,6 +120,7 @@ NO_DEST = {"STS", "STG", "ST", "STL", "RED", "LDGSTS", "BRA", "EXIT", "DEPBAR",
            "LDGDEPBAR", "BAR", "NOP", "WARPSYNC", "BSYNC", "BSSY", "MEMBAR", "YIELD",
            "CCTL", "ERRBAR"}
 SCHEDULERS = 4  # an SM's warp schedulers, one warp-instruction a clock each
+H100_BYTES_PER_S = 3.35e12  # the card's memory rate (NVIDIA's data sheet, SXM)
 SEMIRINGS = {"max": ("hsmm_scan", 0), "log": ("hsmm_scan", 1), "argmax": ("hsmm_viterbi", 2)}
 
 LINE = re.compile(r"/\*([0-9a-f]+)\*/\s+(@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
@@ -174,11 +180,31 @@ def walk_loop(insts):
                           "walk loop")
 
 
-def traceback_floor(sass):
+def traceback_floor(sass, kernel="viterbi_traceback_kernel"):
     """(chain cycles, instructions) of one segment of the traceback's walk
-    in csrc/hsmm_viterbi.cu's SASS."""
-    body = walk_loop(parse_function(sass, "viterbi_traceback_kernel"))
+    in csrc/hsmm_viterbi.cu's SASS; `kernel` "traceback_wide_kernel" reads
+    W2's (two shared loads a segment)."""
+    body = walk_loop(parse_function(sass, kernel))
     return chain_cycles(body)[0], sum(1 for ins in body if ins[2] != "NOP")
+
+
+def traceback_wide_floor(sass):
+    """(chain cycles, instructions) of one segment of W2's walk."""
+    return traceback_floor(sass, "traceback_wide_kernel")
+
+
+def wide_first_tile_bytes(T, C):
+    """The codes of W2's first tile on a (T, C) plane: the ring's slot
+    rows, at most the T - 1 rows the shared walk reads."""
+    return 4 * min(wide_traceback_tile(T, C).rows, max(T - 1, 0)) * C
+
+
+def traceback_wide_floor_ms(chain, segments, first_tile_bytes, clock_mhz):
+    """A wide traceback's floor in ms: the longest video's `segments`
+    links of `chain` cycles, plus its first tile's arrival, that tile's
+    bytes at the card's memory rate (H100_BYTES_PER_S), a lower bound on
+    the copy."""
+    return segments * chain / clock_mhz * 1e-3 + first_tile_bytes / H100_BYTES_PER_S * 1e3
 
 
 def duration_loop(insts):
@@ -564,6 +590,9 @@ def main():
     parser.add_argument("--T", type=int, default=1024)
     parser.add_argument("--segments", type=int, default=None,
                         help="the most segments in one video, for the traceback's floor in time")
+    parser.add_argument("--wide-segments", type=int, default=None,
+                        help="the most segments in one video at --wide-C and --T, for W2's "
+                             "floor in time")
     parser.add_argument("--wide-C", type=int, default=342,
                         help="the wide scans' classes (their B, T and Km are the band kernels')")
     parser.add_argument("--sass-dir", type=Path, default=None)
@@ -611,6 +640,19 @@ def main():
         tb["chain_floor_ms"] = args.segments * chain / clock * 1e-3
         line += "; {} segments -> {:.5f} ms".format(args.segments, tb["chain_floor_ms"])
     print(line)
+    chain, issue = traceback_wide_floor(sass["hsmm_viterbi"])
+    tbw = {"chain_cycles": chain, "issue_cycles": issue,
+           "chain_us_per_segment": chain / clock, "issue_us_per_segment": issue / clock,
+           "tile": wide_traceback_tile(args.T, args.wide_C)._asdict()}
+    line = ("traceback wide walk (W2): chain {:.0f} cycles a segment ({:.5f} us); {} "
+            "instructions; ring of {} slots of {} rows at T={} C={}").format(
+                chain, tbw["chain_us_per_segment"], issue, tbw["tile"]["stages"],
+                tbw["tile"]["rows"], args.T, args.wide_C)
+    if args.wide_segments:
+        tbw["floor_ms"] = traceback_wide_floor_ms(
+            chain, args.wide_segments, wide_first_tile_bytes(args.T, args.wide_C), clock)
+        line += "; {} segments -> {:.5f} ms".format(args.wide_segments, tbw["floor_ms"])
+    print(line)
     insts, mufu = band_grad_floor(sass["band_grad"])
     bg = {"instructions_per_duration": insts, "mufu_per_duration": mufu, "B": args.B,
           "tile": band_grad_tile(args.B, args.T, args.C, args.Km)._asdict(),
@@ -640,7 +682,8 @@ def main():
                   "; ".join("{} {:.2f} instructions, chain {:.2f}".format(
                       k, v["instructions_per_term"], v["chain_per_term"])
                       for k, v in w["step"]["loops"].items())))
-    print(json.dumps({"scan_floor": results, "traceback_floor": tb, "band_grad_floor": bg,
+    print(json.dumps({"scan_floor": results, "traceback_floor": tb,
+                      "traceback_wide_floor": tbw, "band_grad_floor": bg,
                       "band_max_floor": bm, "wide_floor": wide, "wide_C": args.wide_C,
                       "C": args.C, "Km": args.Km, "T": args.T, "clock_mhz": clock}))
     return 0

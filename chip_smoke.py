@@ -180,8 +180,12 @@ exit and no result line:
                falling losses, the wide log scan and K4 once a batch)
                and a no-grad partition through the wide forward scan;
                (d) each wide kernel's and K4's time at the S6 shape
-               beside its plain version's and its bound, and the phase's
-               seconds;
+               beside its plain version's and its bound, W2's also beside
+               its floor (the longest video's segments x its walk's chain
+               from the SASS, plus its first tile's bytes at the memory
+               rate), its ring's slots and rows and the earlier kernel's
+               time, and the
+               phase's seconds;
   5. times   — CUDA-event kernel and plain-version times at the serving
                shape beside the roofline bound, the traceback's also beside
                its serial floor (the longest video's segments x one
@@ -3110,6 +3114,10 @@ C_S6 = 342
 T_S6_LOG = 256
 # phase 4i(c): the backward at a wide DP on the synthetic corpus
 WIDE_FIT = dict(num_videos=36, n_classes=160, max_len=200, span_k=K, feature_dim=16, shift=1.0)
+# W2 as of commit b8d2282 (every code staged and rewritten by 16 warps) at
+# the S6 shape, from a replayed graph of 50 (PERF.md §6, NVIDIA H100 80GB
+# HBM3, 700 W), printed beside the current kernel's time
+W2_EARLIER_MS = 0.18801
 WIDE_KERNEL_NAMES = ("hsmm_viterbi_scan_wide", "hsmm_viterbi_traceback_wide",
                      "hsmm_log_scan_wide", "hsmm_forward_scan_wide")
 # the narrow kernels a wide leg must not launch
@@ -3312,6 +3320,9 @@ def run_wide_slice(device, root, smi):
     from action_segmentation_torch.tools.scan_floor import (
         built_sass,
         max_sm_clock_mhz,
+        traceback_wide_floor,
+        traceback_wide_floor_ms,
+        wide_first_tile_bytes,
         wide_floors,
     )
 
@@ -3520,7 +3531,7 @@ def run_wide_slice(device, root, smi):
         return bound(nbytes, ops)
 
     per_video = (hc.hsmm_viterbi_traceback_wide(*tb_in) >= 0).sum(dim=1)
-    n_segments = int(per_video.sum())
+    n_segments, longest = int(per_video.sum()), int(per_video.max())
     times = {
         "hsmm_viterbi_scan_wide": (
             cuda_ms(lambda: hc.hsmm_viterbi_scan_wide(*vit_in), 10),
@@ -3560,6 +3571,12 @@ def run_wide_slice(device, root, smi):
     }
     floors = wide_floors(built_sass("hsmm_scan_wide"), C_S6, Km, T, B, clock_mhz, sms) \
         if card else {}
+    # W2's floor: the longest video's walk at its chain from the SASS, plus
+    # its first tile's arrival
+    ring = hc.wide_traceback_tile(T, C_S6)
+    tb_chain = traceback_wide_floor(built_sass("hsmm_viterbi"))[0] if card else None
+    tb_floor = traceback_wide_floor_ms(tb_chain, longest, wide_first_tile_bytes(T, C_S6),
+                                       clock_mhz) if card else None
     floor_of = {"hsmm_viterbi_scan_wide": "viterbi", "hsmm_log_scan_wide": "log",
                 "hsmm_forward_scan_wide": "forward"}
     bg_ms = graph_ms(lambda: hc.hsmm_band_grad(*grad_in), N_TIMED)
@@ -3584,6 +3601,16 @@ def run_wide_slice(device, root, smi):
             "shape": list(shape), "bound_ratio": ms / b_ms,
         }
         extra = ""
+        if name == "hsmm_viterbi_traceback_wide" and card:
+            entry.update(floor_ms=tb_floor, floor_ratio=ms / tb_floor,
+                         floor_cycles_per_segment=tb_chain, segments=n_segments,
+                         segments_longest_video=longest, ring_rows=ring.rows,
+                         ring_stages=ring.stages)
+            extra = (", {} segments, the longest video {} ({:.5f} us a segment); floor {:.5f} "
+                     "ms ({:.2f}x; {:.0f} cycles a segment); a ring of {} slots of {} rows; the "
+                     "earlier kernel (b8d2282) {} ms (PERF.md, {:.2f}x this)".format(
+                         n_segments, longest, 1e3 * ms / longest, tb_floor, ms / tb_floor,
+                         tb_chain, ring.stages, ring.rows, W2_EARLIER_MS, W2_EARLIER_MS / ms))
         if name in floor_of and card:
             fl = floors["{} {}".format(floor_of[name], s6.route)]
             entry.update(scan_route=s6.route, cluster=s6.cluster, floor_ms=fl["floor_ms"],

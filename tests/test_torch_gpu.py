@@ -966,12 +966,37 @@ def test_wide_scans_edge_cases(cuda, case, C, Km):
     assert_wide_scans_equal_plain(hc._stack_fwd_rev(pots, lengths.long()))
 
 
+def assert_wide_traceback_equal_plain(bp, L, c_last, tile=None):
+    """W2's spans, through the wrapper (its launch counted) or in `tile`
+    (a ``wide_traceback_tile``), equal to the plain traceback's; returns
+    them."""
+    before = hc.hsmm_viterbi_traceback_wide.launches
+    if tile is None:
+        spans = hc.hsmm_viterbi_traceback(bp, L, c_last)
+        assert hc.hsmm_viterbi_traceback_wide.launches == before + 1
+    else:
+        spans = hc._launch_traceback(bp, L, c_last, tile)
+    want = hc._traceback_plain(bp, L, c_last)
+    torch.cuda.synchronize()
+    assert torch.equal(spans, want), "spans differ at {} frames".format(
+        int((spans != want).sum()))
+    return spans
+
+
+def wide_random_codes(rng, N, T, C, Km, device):
+    """Codes at radix 1024 with uniform random durations (up to Km rows)
+    and classes."""
+    codes = rng.randint(0, Km, size=(N, T, C)) * hc.WIDE_CODE_RADIX + rng.randint(
+        0, C, size=(N, T, C))
+    return torch.from_numpy(codes.astype(np.int32)).to(device)
+
+
 @pytest.mark.parametrize("C", WIDE_CLASSES)
 @pytest.mark.parametrize("max_rows", (None, 3))
 def test_wide_traceback_matches_plain(cuda, C, max_rows):
-    """The traceback's wide instance on the plain scan's codes (one tile a
-    video, or 3-row tiles) and on uniform random codes at radix 1024,
-    with lengths down to 1: spans equal."""
+    """W2 on the plain scan's codes (the wrapper's ring, or 3-row tiles)
+    and on uniform random codes at radix 1024, with lengths down to 1:
+    spans equal."""
     pots, lengths = random_pots(np.random.RandomState(C), 4, 60, C, 20, cuda)
     lengths[1] = 1
     L = lengths.long()
@@ -979,25 +1004,118 @@ def test_wide_traceback_matches_plain(cuda, C, max_rows):
                                         th._durations(pots.lens).contiguous(),
                                         pots.emit.contiguous())
     c_last = th._finals(alphas, L, pots.end_mask).argmax(dim=-1)
-    before = hc.hsmm_viterbi_traceback_wide.launches
-    if max_rows is None:
-        spans = hc.hsmm_viterbi_traceback(bp, L, c_last)
-        assert hc.hsmm_viterbi_traceback_wide.launches == before + 1
-    else:
-        spans = hc._launch_traceback(bp, L, c_last, hc.traceback_tile(60, C, max_rows))
-    torch.cuda.synchronize()
-    assert torch.equal(spans, hc._traceback_plain(bp, L, c_last))
+    tile = None if max_rows is None else hc.wide_traceback_tile(60, C, max_rows)
+    assert_wide_traceback_equal_plain(bp, L, c_last, tile)
     rng = np.random.RandomState(C + 1)
     N, T, Km = 6, 300, 40
-    codes = rng.randint(0, Km, size=(N, T, C)) * hc.WIDE_CODE_RADIX + rng.randint(
-        0, C, size=(N, T, C))
-    bp = torch.from_numpy(codes.astype(np.int32)).to(cuda)
+    bp = wide_random_codes(rng, N, T, C, Km, cuda)
     L = torch.tensor([T, 1, 2, 29, T - 1, T // 2], device=cuda)
     c_last = torch.from_numpy(rng.randint(0, C, size=N)).to(cuda)
-    tile = hc.traceback_tile(T, C, max_rows)
-    spans = hc._launch_traceback(bp, L, c_last, tile)
+    assert_wide_traceback_equal_plain(bp, L, c_last, hc.wide_traceback_tile(T, C, max_rows))
+
+
+def test_wide_traceback_wraps_an_impossible_start(cuda):
+    """W2's twin of test_traceback_kernel_wraps_an_impossible_start: a
+    segment that starts before frame 0 is written at its index + T and
+    ends the walk, one that starts before -T is dropped; at the first
+    segment and mid-walk, in the wrapper's ring and in 4-row tiles of 1-3
+    slots."""
+    T, C, radix = 40, 129, hc.WIDE_CODE_RADIX
+    codes = np.zeros((4, T, C), np.int64)  # one-frame segments, class 0
+    codes[0, 9, 2] = 12 * radix  # length 10: starts at -3 -> frame 37
+    codes[1, 9, 1] = (10 + T + 4) * radix  # starts at -T - 5: dropped
+    codes[2, 29, 0] = 128  # before frame 30 comes class 128 ...
+    codes[2, 29, 128] = 31 * radix  # ... whose span starts at -2 -> frame 38
+    bp = torch.from_numpy(codes.astype(np.int32)).to(cuda)
+    L = torch.tensor([10, 10, T, 1], device=cuda)
+    c_last = torch.tensor([2, 1, 0, 1], device=cuda)
+    tiles = [None] + [hc.wide_traceback_tile(T, C, 4, stages) for stages in (1, 2, 3)]
+    for tile in tiles:
+        spans = assert_wide_traceback_equal_plain(bp, L, c_last, tile)
+        assert spans[0, T - 3] == 2 and int((spans[0] >= 0).sum()) == 1
+        assert int((spans[1] >= 0).sum()) == 0
+        assert spans[2, T - 2] == 128 and (spans[2, 30:T - 2] == 0).all()
+        assert (spans[2, :30] == -1).all()
+        assert spans[3].tolist() == [1] + [-1] * (T - 1)
+
+
+@pytest.mark.parametrize("stages", (1, 2, 4))
+def test_wide_traceback_at_tile_and_ring_edges(cuda, stages):
+    """Lengths around a tile's edge and the ring's (R - 1, R, R + 1 and
+    S R - 1 to S R + 2 rows the walk reads, which is length - 1), on
+    one-frame segments (every row walked) and on random codes, in slots
+    of 5 rows."""
+    C, R, T = 200, 5, 64
+    tile = hc.wide_traceback_tile(T, C, R, stages)
+    assert (tile.rows, tile.stages) == (R, stages)
+    reads = [R - 1, R, R + 1, stages * R - 1, stages * R, stages * R + 1, stages * R + 2,
+             2 * stages * R + 1, T - 1]
+    L = torch.tensor([r + 1 for r in reads], device=cuda)
+    rng = np.random.RandomState(stages)
+    c_last = torch.from_numpy(rng.randint(0, C, size=len(reads))).to(cuda)
+    ones = torch.from_numpy(rng.randint(0, C, size=(len(reads), T, C)).astype(np.int32)).to(cuda)
+    spans = assert_wide_traceback_equal_plain(ones, L, c_last, tile)
+    assert all(bool((spans[i, :n] >= 0).all()) for i, n in enumerate(L.tolist()))
+    assert_wide_traceback_equal_plain(wide_random_codes(rng, len(reads), T, C, 4, cuda), L,
+                                      c_last, tile)
+
+
+@pytest.mark.parametrize("C,Km,R,stages", [(129, 100, 2, 2), (342, 64, 3, 4), (1024, 64, 14, 4),
+                                           (700, 30, 1, 3)])
+def test_wide_traceback_jumps_longer_than_a_tile(cuda, C, Km, R, stages):
+    """Durations up to Km rows, above the R rows of a slot (and above the
+    ring's S R): the walk skips tiles, which are copied all the same."""
+    rng = np.random.RandomState(C + Km)
+    N, T = 5, 160
+    bp = wide_random_codes(rng, N, T, C, Km, cuda)
+    L = torch.tensor([T, 1, 2, R + 2, T - 7], device=cuda)
+    c_last = torch.from_numpy(rng.randint(0, C, size=N)).to(cuda)
+    assert_wide_traceback_equal_plain(bp, L, c_last, hc.wide_traceback_tile(T, C, R, stages))
+
+
+def test_wide_traceback_at_t12000(cuda):
+    """C = 342 at T = 12,000 (a plane of 16 MB a video, 72 tiles of the
+    wrapper's ring): the wide scan's codes and random ones."""
+    rng = np.random.RandomState(12000)
+    scan_in = scan_inputs(rng, 2, 12000, 342, 19, cuda)
+    alphas, bp = hc.hsmm_viterbi_scan(*scan_in)
+    L = torch.tensor([12000, 7001], device=cuda)
+    c_last = alphas[torch.arange(2, device=cuda), L - 1].argmax(dim=-1)
+    spans = assert_wide_traceback_equal_plain(bp, L, c_last)
+    assert int((spans[0] >= 0).sum()) > 1000
+    assert_wide_traceback_equal_plain(wide_random_codes(rng, 2, 12000, 342, 30, cuda), L, c_last)
+
+
+def test_wide_traceback_launch_refuses_what_it_does_not_take(cuda):
+    """W2's entry refuses shared memory that cannot hold the ring, no
+    slots or more than 16, C outside (128, 1024] and codes not 16-byte
+    aligned; the wrapper raises on the last."""
+    bp = wide_random_codes(np.random.RandomState(3), 2, 64, 200, 5, cuda)
+    L = torch.full((2,), 64, device=cuda)
+    c = torch.zeros(2, dtype=torch.long, device=cuda)
+    spans = torch.empty((2, 64), dtype=torch.long, device=cuda)
+    tile = hc.wide_traceback_tile(64, 200, 8, 4)
+    for ptr, C, (rows, stages, smem) in (
+            (bp, 200, (tile.rows, tile.stages, tile.smem_bytes - 16)),
+            (bp, 200, (tile.rows, 0, tile.smem_bytes)), (bp, 200, (tile.rows, 17, 1 << 17)),
+            (bp, 200, (0, tile.stages, tile.smem_bytes)), (bp, 128, tile),
+            (bp, 1025, (tile.rows, tile.stages, 1 << 17))):
+        err = hc._call("hsmm_viterbi", "hsmm_viterbi_traceback_wide", [ptr, L, c, spans],
+                       [2, 64, C, rows, stages, smem], bp)
+        assert err != 0, (C, rows, stages, smem)
+    flat = wide_random_codes(np.random.RandomState(4), 1, 2 * 64 * 200 + 1, 1, 5, cuda)
+    shifted = flat.view(-1)[1:].view(2, 64, 200)  # contiguous, 4 bytes past a line
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    err = hc._call("hsmm_viterbi", "hsmm_viterbi_traceback_wide", [shifted, L, c, spans],
+                   [2, 64, 200, *tile], bp)
+    assert err != 0
+    with pytest.raises(ValueError):
+        hc.hsmm_viterbi_traceback(shifted, L, c)
+    err = hc._call("hsmm_viterbi", "hsmm_viterbi_traceback_wide", [bp, L, c, spans],
+                   [2, 64, 200, *tile], bp)
     torch.cuda.synchronize()
-    assert torch.equal(spans, hc._traceback_plain(bp, L, c_last))
+    assert err == 0
+    assert torch.equal(spans, hc._traceback_plain(bp, L, c))
 
 
 @pytest.mark.parametrize("C", WIDE_CLASSES)

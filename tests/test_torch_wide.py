@@ -195,12 +195,11 @@ def test_wide_scan_launch_fits_the_block(C, Km):
 @pytest.mark.parametrize("Km", WIDE_KMS)
 def test_wide_band_grad_and_traceback_tiles_fit_the_block(C, Km):
     """K4's tile and the traceback's at a wide DP: K4 one or more whole
-    rows of C threads with its slab within a block's and an SM's shared memory (at 18 videos of 1,024
-    frames 5 rows at C = 129, 2 at 342, 1 at 1,024); the traceback two
-    buffers of rows * C codes in a block's (84 rows at C = 342, 28 at
-    1,024). The
-    codes' radix holds C and the traceback's d' << 12 fits int32 up to
-    its T limit."""
+    rows of C threads with its slab within a block's and an SM's shared
+    memory (at 18 videos of 1,024 frames 5 rows at C = 129, 2 at 342, 1
+    at 1,024); the narrow traceback's rule two buffers of rows * C codes
+    in a block's; W2's ring 4 slots of 112 rows at C = 129, 42 at 342,
+    14 at 1,024. The codes' radix holds C."""
     for B, T in ((18, 1024), (1, 1056), (4, 200)):
         tile = hc.band_grad_tile(B, T, C, Km)
         warps = -(-tile.threads // 32)
@@ -214,7 +213,58 @@ def test_wide_band_grad_and_traceback_tiles_fit_the_block(C, Km):
         assert tb.smem_bytes == hc.TRACEBACK_HEADER + 8 * hc._tile_words(tb.rows, C)
         assert tb.smem_bytes <= hc.MAX_BLOCK_SMEM
     assert hc.traceback_tile(1024, C).rows == {129: 225, 342: 84, 1024: 28}[C]
+    assert hc.wide_traceback_tile(1024, C)[:2] == {129: (112, 4), 342: (42, 4), 1024: (14, 4)}[C]
     assert hc.band_grad_tile(18, 1024, C, Km).rows == {129: 5, 342: 2, 1024: 1}[C]
     radix = hc.code_radix(C)
     assert radix >= C and (Km * radix) < 2 ** 31
-    assert (hc.WIDE_TRACEBACK_MAX_T << 12) < 2 ** 31
+
+
+def wide_traceback_copies(T, C, length, tile, off):
+    """W2's tiles as the kernel cuts them (csrc/hsmm_viterbi.cu
+    `traceback_wide_kernel`) for a video of `length` frames whose plane
+    starts `off` words into a 16-byte line: (first, end) words of each
+    tile's bulk copy, counted from that line, and its rows."""
+    top = length - 1
+    tiles = -(-top // tile.rows) if top > 0 else 0
+    out = []
+    for k in range(tiles):
+        lo, hi = max(0, top - (k + 1) * tile.rows), top - k * tile.rows
+        first, end = (lo * C + off) // 4 * 4, (hi * C + off + 3) // 4 * 4
+        out.append((first, end, lo, hi))
+    return out
+
+
+@pytest.mark.parametrize("C", (129, 342, 664, 665, 1024))
+@pytest.mark.parametrize("T", (1, 3, 84, 1024, 12000))
+@pytest.mark.parametrize("Km", (1, 19, 25, 64))
+def test_wide_traceback_ring_fits_the_block(C, T, Km):
+    """W2's ring (``wide_traceback_tile``): at least one row a slot and no
+    more than T; 4 slots, or as many as the plane's T - 1 shared rows make
+    tiles of; each slot whole 16-byte lines after a header of whole lines
+    (so every tile's body lands aligned); the ring within an H100 block's
+    shared memory, and one more row a slot would not fit. Each tile's copy,
+    widened to whole lines, fits its slot, stays within the plane, and the
+    tiles cover the rows the walk reads; so do tiles cut shorter than a
+    jump of Km + 1 rows (the wrapper's ring, then slots of Km // 2 rows)."""
+    for max_rows in (None, max(1, Km // 2)):
+        tile = hc.wide_traceback_tile(T, C, max_rows)
+        assert 1 <= tile.rows <= min(T, max_rows or T)
+        tiles = -(-(T - 1) // tile.rows)
+        assert tile.stages == max(1, min(hc.WIDE_TRACEBACK_STAGES, tiles))
+        header = hc._wide_traceback_header(tile.stages)
+        slot = 4 * hc._wide_slot_words(tile.rows, C)
+        assert header == 16 * tile.stages and slot % 16 == 0  # two mbarriers a slot
+        assert tile.smem_bytes == header + tile.stages * slot <= hc.MAX_BLOCK_SMEM
+        if max_rows is None and tile.rows < T:
+            full = hc._wide_traceback_header(hc.WIDE_TRACEBACK_STAGES)
+            assert full + hc.WIDE_TRACEBACK_STAGES * 4 * hc._wide_slot_words(
+                tile.rows + 1, C) > hc.MAX_BLOCK_SMEM
+        for length in sorted({1, min(2, T), T // 2 + 1, T}):
+            for off in range(4):
+                copies = wide_traceback_copies(T, C, length, tile, off)
+                rows = set()
+                for first, end, lo, hi in copies:
+                    assert first % 4 == 0 and end % 4 == 0 and 16 <= 4 * (end - first) <= slot
+                    assert 0 <= first and end <= off + T * C
+                    rows |= set(range(lo, hi))
+                assert rows == set(range(length - 1))
