@@ -20,9 +20,13 @@
 // in JAX's order of operations: r from Km - 1 down to 0, qg folded by
 // jnp.logaddexp's formula (max + log1p(exp(-|a - b|))), each sum from 0.
 //
-// A block owns a tile of `rows` whole time rows of one video, one thread
-// per (t, c); `hsmm_cuda.band_grad_tile` sizes the tile (so that the
-// launch's warps spread evenly over the SMs) and the slab. Each thread
+// A block owns a tile of `rows` whole time rows of one video and one chunk
+// of at most 1,024 classes (all C where C <= 1,024; past that C split
+// evenly, two chunks of 789 and 788 at 1,577 classes, on the grid's third
+// axis), one thread per (t, c); `hsmm_cuda.band_grad_tile` sizes the tile
+// (so that the launch's warps spread evenly over the SMs), the chunk and
+// the slab. No term of a class reads another class, so a chunk runs on
+// its own. Each thread
 // runs the duration loop with no barrier in it: q and the start and stop
 // sums stay in registers, and each M goes to a shared slab of `slab`
 // durations. At a slab's end the block crosses one barrier, its threads
@@ -34,10 +38,11 @@
 // adds and expf, so the same bits) instead of exchanging a halo.
 //
 // lg across a video's tiles, in the same launch: each tile writes its
-// partial, fences, and one thread takes a ticket on the video's counter;
-// the block that takes the last ticket sums the partials in tile order,
-// writes lg and sets the counter back to 0 for the next launch. Two runs
-// give the same bits (no float atomics).
+// chunk's columns of the partial, fences, and one thread takes a ticket
+// on the (video, chunk)'s counter; the block that takes the last ticket
+// sums the chunk's partials in tile order, writes them to lg and sets the
+// counter back to 0 for the next launch. Two runs give the same bits (no
+// float atomics).
 //
 // What bounds it: the special-function units. A (t, c, r) term of the
 // function takes three transcendentals (the exp and the log1p of the
@@ -82,26 +87,28 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
                      float* __restrict__ sa, float* __restrict__ st,
                      float* __restrict__ lg, float* __restrict__ lg_part,
                      unsigned int* __restrict__ tickets, int T, int T2, int C,
-                     int Km, int rows, int slab) {
-  extern __shared__ float m_s[];  // [slab][rows * C]: the slab's M
+                     int Km, int rows, int slab, int W) {
+  extern __shared__ float m_s[];  // [slab][rows * W]: the slab's M
   __shared__ bool last;
   const int b = blockIdx.y;
   const int tile = blockIdx.x;
   const int tiles = gridDim.x;
-  const int n = blockDim.x;  // rows * C
+  const int c0 = blockIdx.z * W;  // the chunk's classes [c0, c0 + W)
+  const int n = blockDim.x;  // rows * W
   const int i = threadIdx.x;
-  const int c = i % C;
-  const int t = tile * rows + i / C;
-  const bool live = t < T;
-  // a row past T computes row T - 1's terms, stores no output and puts 0
-  // in the slab
-  const int tl = live ? t : T - 1;
-  const int f = tl * C + c;
+  const int t = tile * rows + i / W;
+  const int c = c0 + i % W;
+  const bool live = t < T && c < C;
+  // a row past T computes row T - 1's terms, a class past C class C - 1's;
+  // neither stores an output, and both put 0 in the slab
+  const int tl = t < T ? t : T - 1;
+  const int cc = c < C ? c : C - 1;
+  const int f = tl * C + cc;
   // int offsets (the entry refuses planes of 2^31 floats or more): G1m at
   // start t, G2p at boundary t, and dur's row r at od + (r + 1) * C
   const int o1 = b * T * C + f;
   const int o2 = b * T2 * C + f;
-  const int od = b * Km * C + c - C;
+  const int od = b * Km * C + cc - C;
 
   const float g1 = g1m[o1];
   const float g2_here = g2p[o2];  // boundary e = t
@@ -122,13 +129,15 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
       m_s[(r - lo) * n + i] = live ? m : 0.f;
     }
     __syncthreads();
-    // the slab's (r, c) pairs, each summed over the tile's rows from row 0
-    float* part = lg_part + ((size_t)b * tiles + tile) * Km * C + lo * C;
-    for (int k = i; k < (hi - lo) * C; k += n) {
-      const float* col = m_s + (k / C) * n + k % C;
+    // the slab's (r, c) pairs of the chunk, each summed over the tile's
+    // rows from row 0
+    float* part = lg_part + ((size_t)b * tiles + tile) * Km * C + lo * C + c0;
+    for (int k = i; k < (hi - lo) * W; k += n) {
+      const int kc = k % W;
+      const float* col = m_s + (k / W) * n + kc;
       float sum = col[0];
-      for (int row = 1; row < rows; ++row) sum += col[row * C];
-      part[k] = sum;
+      for (int row = 1; row < rows; ++row) sum += col[row * W];
+      if (c0 + kc < C) part[(k / W) * C + kc] = sum;
     }
     if (hi - slab > 0) __syncthreads();
   }
@@ -139,13 +148,15 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   }
   if (Km == 0) return;
 
-  // the partials of the video's tiles, summed by the block that comes last
-  if (i < slab * C) __threadfence();  // the threads that wrote partials
+  // the partials of the (video, chunk)'s tiles, summed by the block that
+  // comes last
+  if (i < slab * W) __threadfence();  // the threads that wrote partials
   __syncthreads();  // every partial of the tile is written and fenced
   if (i == 0) {
-    last = atomicAdd(tickets + b, 1u) == (unsigned int)tiles - 1;
+    unsigned int* ticket = tickets + (size_t)b * gridDim.z + blockIdx.z;
+    last = atomicAdd(ticket, 1u) == (unsigned int)tiles - 1;
     if (last) {
-      tickets[b] = 0;  // every tile has taken its ticket
+      *ticket = 0;  // every tile has taken its ticket
       __threadfence();
     }
   }
@@ -153,11 +164,14 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   if (!last) return;
   const int KmC = Km * C;
   const float* p = lg_part + (size_t)b * tiles * KmC;
-  for (int k = i; k < KmC; k += n) {
-    float s = __ldcg(p + k);
+  for (int k = i; k < Km * W; k += n) {
+    const int kc = c0 + k % W;
+    if (kc >= C) continue;
+    const int at = (k / W) * C + kc;
+    float s = __ldcg(p + at);
 #pragma unroll 8
-    for (int j = 1; j < tiles; ++j) s += __ldcg(p + (size_t)j * KmC + k);
-    lg[(size_t)b * KmC + k] = s;
+    for (int j = 1; j < tiles; ++j) s += __ldcg(p + (size_t)j * KmC + at);
+    lg[(size_t)b * KmC + at] = s;
   }
 }
 
@@ -167,25 +181,29 @@ extern "C" {
 
 // g1m (B, T, C); g2p (B, T2, C) with T2 >= T + Km; dur (B, Km, C);
 // qg, sa, st (B, T, C) out; lg (B, Km, C) out; lg_part scratch of
-// B * tiles * Km * C floats, tiles = ceil(T / rows); tickets B uint32
-// counters, all 0 (each launch leaves them 0). All float32, contiguous,
-// on `device`, each plane under 2^31 floats. The tile from hsmm_cuda.band_grad_tile: `rows` time rows a
-// block (rows * C <= 1024 threads), M staged in slabs of `slab`
-// durations (>= 1 when Km > 0) in `smem` bytes of shared memory, which
-// must hold slab * rows * C floats. Launches one kernel on `stream`;
-// returns the CUDA error code (cudaErrorInvalidValue for a tile that does
-// not fit; 0 on success).
+// B * tiles * Km * C floats, tiles = ceil(T / rows); tickets B * chunks
+// uint32 counters, chunks = ceil(C / chunk), all 0 (each launch leaves
+// them 0). All float32, contiguous, on `device`, each plane under 2^31
+// floats. The tile from hsmm_cuda.band_grad_tile: `rows` time rows and
+// `chunk` classes a block (rows * chunk <= 1024 threads), M staged in
+// slabs of `slab` durations (>= 1 when Km > 0) in `smem` bytes of shared
+// memory, which must hold slab * rows * chunk floats. Launches one kernel
+// on `stream`; returns the CUDA error code (cudaErrorInvalidValue for a
+// tile that does not fit; 0 on success).
 int hsmm_band_grad(const void* g1m, const void* g2p, const void* dur,
                    void* qg, void* sa, void* st, void* lg, void* lg_part,
                    void* tickets, int B, int T, int T2, int C, int Km,
-                   int rows, int slab, int smem, int device, void* stream) {
+                   int rows, int slab, int smem, int chunk, int device,
+                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || T == 0 || C == 0) return 0;
-  if (C < 0 || rows < 1 || (long)rows * C > kMaxThreads ||
+  if (C < 0 || rows < 1 || chunk < 1 || (long)rows * chunk > kMaxThreads ||
+      (C + chunk - 1) / chunk > 65535 ||
       (long)B * T2 * C > INT_MAX || (long)B * Km * C > INT_MAX ||
       slab < (Km > 0 ? 1 : 0) || smem > kMaxSmem ||
-      (long)smem < 4L * slab * rows * C || device < 0 || device >= kMaxDevices)
+      (long)smem < 4L * slab * rows * chunk || device < 0 ||
+      device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
   // the opt-in past 48 KB, once per device and size
   static int opted[kMaxDevices];
@@ -197,10 +215,12 @@ int hsmm_band_grad(const void* g1m, const void* g2p, const void* dur,
     opted[device] = smem;
   }
   const int tiles = (T + rows - 1) / rows;
-  band_grad_kernel<<<dim3(tiles, B), rows * C, smem, (cudaStream_t)stream>>>(
+  const int chunks = (C + chunk - 1) / chunk;
+  band_grad_kernel<<<dim3(tiles, B, chunks), rows * chunk, smem,
+                     (cudaStream_t)stream>>>(
       (const float*)g1m, (const float*)g2p, (const float*)dur, (float*)qg,
       (float*)sa, (float*)st, (float*)lg, (float*)lg_part,
-      (unsigned int*)tickets, T, T2, C, Km, rows, slab);
+      (unsigned int*)tickets, T, T2, C, Km, rows, slab, chunk);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // The banded semi-Markov forward scan for a DP wider than the narrow
-// template's 128 classes (128 < C <= 1024): two routes, each one template
-// with three instances.
+// template's 128 classes: two routes, each one template with three
+// instances.
 //
 // Replaces, for a wide DP, the functions of
 // action_segmentation_tpu/ops/hsmm_pallas.py `_viterbi_kernel` (K6: the
@@ -68,15 +68,27 @@
 //
 // The L2 route (`wide_scan_kernel`, past the cluster route: a table a
 // portable cluster of 8 does not hold, or a ring that does not fit
-// beside it): one block a chain, one thread a class (C rounded up to
-// whole warps; the threads past C only cross the barriers). Thread c owns
-// column c of the ring, in shared memory where it fits beside the alpha
-// rows, else in a global scratch the wrapper allocates (the same code
-// through a generic pointer). alpha goes through a double-buffered
-// shared row, one barrier a step. The combine reads trans transposed
+// beside it): one block a chain of min(C, 1,024) threads in whole warps;
+// thread j owns the classes c = j + k * blockDim.x, ceil(C / blockDim.x)
+// of them (two at 1,577 classes), and runs each one's duration reduce and
+// transition combine in turn. Each class's emission prefix sum (cum) and
+// duration argmax (carried across the step's barrier) sit in shared
+// memory beside the double-buffered alpha row, and its column of the
+// ring too where it fits, else in a global scratch the wrapper allocates
+// (the same code through a generic pointer); only the class's thread
+// touches them. One barrier a step. The combine reads trans transposed
 // from global memory, so that a warp's loads of one c' are one coalesced
-// line; the table stays in L2 across the steps, and a step waits on
-// each thread's C dependent-latency L2 loads, about eight in flight.
+// line; the table stays in L2 across the steps, and a step waits on each
+// thread's C dependent-latency L2 loads a class, about eight in flight.
+// Past 14,528 classes the alpha rows and the per-class state do not fit
+// a block's shared memory, and the entry refuses the launch.
+//
+// A chain's table: `group` chains share one, chain n reading table
+// n / group of trans_t (1: a table a chain; N: every chain one table, as
+// a model's expanded transition view gives it, so that one copy of a
+// wide table stays in L2 for the whole batch: at 18 chains of 1,577
+// classes on an H100 the max scan ran 1.75x faster so than with a table a
+// chain, which streams 179 MB a step from HBM; PERF.md section 6).
 
 #include <cuda_runtime.h>
 
@@ -89,7 +101,7 @@ namespace {
 
 constexpr float kBigNeg = -1e9f;
 constexpr float kNegInf = -std::numeric_limits<float>::infinity();
-constexpr int kMaxClasses = 1024;
+constexpr int kMaxThreads = 1024;  // the L2 route's block
 constexpr int kMaxSmem = 232448;  // an H100 block's dynamic shared memory
 // the cluster route's slab: at most 256 classes a block (a cluster of one
 // holds at most 228 classes' table; a wider DP splits it over blocks)
@@ -303,7 +315,7 @@ __global__ void __launch_bounds__(kMaxSlabThreads, 1)
                              float* __restrict__ gamma,
                              float* __restrict__ alphas,
                              int32_t* __restrict__ bp, int T, int C, int Km,
-                             int radix, int cluster, int slab) {
+                             int radix, int cluster, int slab, int group) {
   extern __shared__ __align__(16) float smem[];
   const int Cp = alpha_stride(C);
   const int rs = table_stride(C);
@@ -321,7 +333,7 @@ __global__ void __launch_bounds__(kMaxSlabThreads, 1)
   // the transposed table's column c), once; a thread reads back only its
   // own row and ring column
   if (live) {
-    const float* const src = trans_t + (size_t)n * C * C + c;
+    const float* const src = trans_t + (size_t)(n / group) * C * C + c;
     float* const row = trans_s + (size_t)j * rs;
 #pragma unroll 8
     for (int k = 0; k < C; ++k) row[k] = src[(size_t)k * C];
@@ -392,80 +404,86 @@ __global__ void __launch_bounds__(kMaxSlabThreads, 1)
 
 // The L2 route. trans_t, init, dur, emit, gamma, alphas, bp as above;
 // ring_g (N, Km, C) float32 scratch, or null for the ring in shared memory.
+// Shared memory (in floats): [2][C] alpha rows, [C] cum, [C] duration
+// argmax (int), then the ring's [Km][C] where ring_g is null.
 template <Scan kS>
-__global__ void __launch_bounds__(kMaxClasses, 1)
+__global__ void __launch_bounds__(kMaxThreads, 1)
     wide_scan_kernel(const float* __restrict__ trans_t,
                      const float* __restrict__ init,
                      const float* __restrict__ dur,
                      const float* __restrict__ emit, float* __restrict__ gamma,
                      float* __restrict__ alphas, int32_t* __restrict__ bp,
                      float* __restrict__ ring_g, int T, int C, int Km,
-                     int radix) {
+                     int radix, int group) {
   extern __shared__ float smem[];
-  float* const alpha_s = smem;  // [2][C]
+  float* const alpha_s = smem;          // [2][C]
+  float* const cum_s = smem + 2 * C;    // [C]
+  int* const bd_s = reinterpret_cast<int*>(smem + 3 * C);  // [C]
   const int n = blockIdx.x;
-  const int c = threadIdx.x;
-  const bool live = c < C;
+  const int step = blockDim.x;
   float* const ring =
-      ring_g != nullptr ? ring_g + (size_t)n * Km * C : smem + 2 * C;
-  const float* const tr = trans_t + (size_t)n * C * C + c;  // column c
-  const float* const du = dur + (size_t)n * Km * C + c;
+      ring_g != nullptr ? ring_g + (size_t)n * Km * C : smem + 4 * C;
+  const float* const table = trans_t + (size_t)(n / group) * C * C;
+  const float* const du = dur + (size_t)n * Km * C;
   const size_t plane = (size_t)n * T * C;
-  const float* const e_col = emit + plane + c;
 
   // the ring: logical row j at physical (head + j) mod Km
-  if (live) {
+  for (int c = threadIdx.x; c < C; c += step) {
     ring[c] = init[(size_t)n * C + c];
-    for (int j = 1; j < Km; ++j) ring[j * C + c] = kBigNeg;
+    for (int j = 1; j < Km; ++j) ring[(size_t)j * C + c] = kBigNeg;
+    cum_s[c] = 0.f;
   }
-  float e_next = live && T > 0 ? e_col[0] : 0.f;
-  float cum = 0.f;
   int head = 0;
   for (int t = 0; t < T; ++t) {
     float* const a_buf = alpha_s + (t & 1) * C;
-    int bd = 0;
-    if (live) {
-      cum += e_next;
-      if (t + 1 < T) e_next = e_col[(size_t)(t + 1) * C];
-      const float alpha =
-          duration_reduce<kS>(ring + c, C, du, C, Km, head, bd) + cum;
-      alphas[plane + (size_t)t * C + c] = alpha;
+    const size_t at = plane + (size_t)t * C;
+    for (int c = threadIdx.x; c < C; c += step) {
+      int bd = 0;
+      const float e = emit[at + c];
+      const float r = duration_reduce<kS>(ring + c, C, du + c, C, Km, head, bd);
+      const float cum = cum_s[c] + e;
+      cum_s[c] = cum;
+      const float alpha = r + cum;
+      alphas[at + c] = alpha;
       a_buf[c] = alpha;
+      if constexpr (kS == Scan::kViterbi) bd_s[c] = bd;
     }
     __syncthreads();
-    if (!live) continue;
 
-    // the transition combine, c' ascending
-    float m = kNegInf;
-    int bc = 0;
-#pragma unroll 8
-    for (int k = 0; k < C; ++k) {
-      const float x = tr[(size_t)k * C] + a_buf[k];
-      if constexpr (kS == Scan::kViterbi) {
-        if (x > m) {
-          m = x;
-          bc = k;
-        }
-      } else {
-        m = fmaxf(m, x);
-      }
-    }
-    float g = m;
-    if constexpr (kS != Scan::kViterbi) {
-      float s = 0.f;
-#pragma unroll 8
-      for (int k = 0; k < C; ++k) s += expf(tr[(size_t)k * C] + a_buf[k] - m);
-      g = m + logf(s);
-    }
-    const size_t at = plane + (size_t)t * C + c;
-    if constexpr (kS == Scan::kViterbi) {
-      bp[at] = bd * radix + bc;
-    } else if constexpr (kS == Scan::kLog) {
-      gamma[at] = g;
-    }
     // the push: the oldest row's slot becomes logical row 0
-    head = head == 0 ? Km - 1 : head - 1;
-    ring[head * C + c] = g - cum;
+    const int next = head == 0 ? Km - 1 : head - 1;
+    for (int c = threadIdx.x; c < C; c += step) {
+      const float* const tr = table + c;  // column c: trans[c, c'] over c'
+      // the transition combine, c' ascending
+      float m = kNegInf;
+      int bc = 0;
+#pragma unroll 8
+      for (int k = 0; k < C; ++k) {
+        const float x = tr[(size_t)k * C] + a_buf[k];
+        if constexpr (kS == Scan::kViterbi) {
+          if (x > m) {
+            m = x;
+            bc = k;
+          }
+        } else {
+          m = fmaxf(m, x);
+        }
+      }
+      float g = m;
+      if constexpr (kS != Scan::kViterbi) {
+        float s = 0.f;
+#pragma unroll 8
+        for (int k = 0; k < C; ++k) s += expf(tr[(size_t)k * C] + a_buf[k] - m);
+        g = m + logf(s);
+      }
+      if constexpr (kS == Scan::kViterbi) {
+        bp[at + c] = bd_s[c] * radix + bc;
+      } else if constexpr (kS == Scan::kLog) {
+        gamma[at + c] = g;
+      }
+      ring[(size_t)next * C + c] = g - cum_s[c];
+    }
+    head = next;
   }
 }
 
@@ -481,14 +499,14 @@ template <Scan kS>
 int launch(const void* trans_t, const void* init, const void* dur,
            const void* emit, void* gamma, void* alphas, void* bp, void* ring,
            int N, int T, int C, int Km, int radix, int cluster, int slab,
-           int smem, int device, void* stream) {
+           int smem, int group, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool clustered = cluster > 0;
   const long need =
       clustered ? cluster_smem(C, Km, slab)
-                : 4L * (2L * C + (ring == nullptr ? (long)Km * C : 0L));
-  if (C < 1 || C > kMaxClasses || Km < 1 || cluster < 0 || smem < need ||
+                : 4L * (4L * C + (ring == nullptr ? (long)Km * C : 0L));
+  if (C < 1 || Km < 1 || cluster < 0 || group < 1 || smem < need ||
       smem > kMaxSmem ||
       (clustered &&
        (ring != nullptr || slab < 1 || slab > kMaxSlabThreads ||
@@ -503,11 +521,11 @@ int launch(const void* trans_t, const void* init, const void* dur,
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return (int)err;
     }
-    const int threads = (C + 31) / 32 * 32;
+    const int threads = C < kMaxThreads ? (C + 31) / 32 * 32 : kMaxThreads;
     kernel<<<N, threads, smem, (cudaStream_t)stream>>>(
         (const float*)trans_t, (const float*)init, (const float*)dur,
         (const float*)emit, (float*)gamma, (float*)alphas, (int32_t*)bp,
-        (float*)ring, T, C, Km, radix);
+        (float*)ring, T, C, Km, radix, group);
     return (int)cudaGetLastError();
   }
   auto kernel = cluster > 1 ? wide_cluster_scan_kernel<kS, true>
@@ -530,7 +548,7 @@ int launch(const void* trans_t, const void* init, const void* dur,
   err = cudaLaunchKernelEx(&config, kernel, (const float*)trans_t,
                            (const float*)init, (const float*)dur,
                            (const float*)emit, (float*)gamma, (float*)alphas,
-                           (int32_t*)bp, T, C, Km, radix, cluster, slab);
+                           (int32_t*)bp, T, C, Km, radix, cluster, slab, group);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -563,48 +581,49 @@ int max_active_clusters(int cluster, int slab, int smem, int device,
 
 extern "C" {
 
-// trans_t (N, C, C) [from][to] (trans transposed); init (N, C); dur (N, Km,
-// C); emit (N, T, C); alphas (N, T, C) out; all float32. bp (N, T, C)
-// int32 out, bp = bp_d * radix + bp_c (radix >= C, Km * radix in int32).
-// cluster > 0: the cluster route, `cluster` blocks of `slab` classes a
-// chain ((cluster - 1) * slab < C <= cluster * slab, slab <= 256), ring
-// null, smem the shared memory of a block (2 * alpha_stride(C) + (C + Km)
-// * slab floats). cluster 0: the L2 route, slab ignored; ring (N, Km, C)
-// float32 scratch, or null for the ring in shared memory; smem 2 * C
-// floats plus, with no scratch, the ring's Km * C (ops/hsmm_cuda.py
-// `wide_scan_instance` sizes both). All contiguous, on `device`, 1 <= C <=
-// 1024. Launches on `stream`; returns the CUDA error code
-// (cudaErrorInvalidValue for arguments it does not take, the launch's
-// error where CUDA refuses the cluster; 0 on success).
+// trans_t (G, C, C) [from][to] (trans transposed), G = ceil(N / group):
+// chain n reads table n / group; init (N, C); dur (N, Km, C); emit (N, T,
+// C); alphas (N, T, C) out; all float32. bp (N, T, C) int32 out, bp =
+// bp_d * radix + bp_c (radix >= C, Km * radix in int32). cluster > 0: the
+// cluster route, `cluster` blocks of `slab` classes a chain ((cluster - 1)
+// * slab < C <= cluster * slab, slab <= 256), ring null, smem the shared
+// memory of a block (2 * alpha_stride(C) + (C + Km) * slab floats).
+// cluster 0: the L2 route, slab ignored; ring (N, Km, C) float32 scratch,
+// or null for the ring in shared memory; smem 4 * C floats plus, with no
+// scratch, the ring's Km * C (ops/hsmm_cuda.py `wide_scan_instance` sizes
+// both), at most a block's 232,448 bytes. All contiguous, on `device`.
+// Launches on `stream`; returns the CUDA error code (cudaErrorInvalidValue
+// for arguments it does not take, the launch's error where CUDA refuses
+// the cluster; 0 on success).
 int hsmm_wide_viterbi_scan(const void* trans_t, const void* init,
                            const void* dur, const void* emit, void* alphas,
                            void* bp, void* ring, int N, int T, int C, int Km,
                            int radix, int cluster, int slab, int smem,
-                           int device, void* stream) {
+                           int group, int device, void* stream) {
   return launch<Scan::kViterbi>(trans_t, init, dur, emit, nullptr, alphas, bp,
                                 ring, N, T, C, Km, radix, cluster, slab, smem,
-                                device, stream);
+                                group, device, stream);
 }
 
 // The log semiring with the same inputs: gamma and alphas (N, T, C) out.
 int hsmm_wide_log_scan(const void* trans_t, const void* init, const void* dur,
                        const void* emit, void* gamma, void* alphas, void* ring,
                        int N, int T, int C, int Km, int cluster, int slab,
-                       int smem, int device, void* stream) {
+                       int smem, int group, int device, void* stream) {
   return launch<Scan::kLog>(trans_t, init, dur, emit, gamma, alphas, nullptr,
-                            ring, N, T, C, Km, 0, cluster, slab, smem, device,
-                            stream);
+                            ring, N, T, C, Km, 0, cluster, slab, smem, group,
+                            device, stream);
 }
 
 // The log semiring's alphas alone (the partition's primal).
 int hsmm_wide_forward_scan(const void* trans_t, const void* init,
                            const void* dur, const void* emit, void* alphas,
                            void* ring, int N, int T, int C, int Km,
-                           int cluster, int slab, int smem, int device,
-                           void* stream) {
+                           int cluster, int slab, int smem, int group,
+                           int device, void* stream) {
   return launch<Scan::kForward>(trans_t, init, dur, emit, nullptr, alphas,
                                 nullptr, ring, N, T, C, Km, 0, cluster, slab,
-                                smem, device, stream);
+                                smem, group, device, stream);
 }
 
 // cudaOccupancyMaxActiveClusters of instance `scan` (0 kViterbi, 1 kLog,

@@ -53,9 +53,14 @@
 // int32 for every Km the shared-memory tail admits. g keeps d' << 9 and
 // c' << 2 (the walker's byte offset) in one int32.
 //
-// A wide DP (128 < C <= 1024, csrc/hsmm_scan_wide.cu's codes) packs its
-// codes at radix 1024 and takes its own traceback, `traceback_wide_kernel`
-// (W2), two warps a video. A video's plane is then up to 1,024 times as
+// A wide DP (C > 128, csrc/hsmm_scan_wide.cu's codes) packs its codes at
+// a power-of-two radix >= C (ops/hsmm_cuda.py `code_radix`: 1,024 up to
+// 1,024 classes, 2,048 at 1,577) and takes its own traceback,
+// `traceback_wide_kernel` (W2), two warps a video, which takes the radix
+// as a launch argument, its log2 (`shift`), and decodes a code by that
+// shift and a mask: one instance for every wide radix, the walk's chain
+// unchanged (the shift and the mask sit in registers, not in the
+// instructions' immediates). A video's plane is then up to 1,024 times as
 // many codes as the walk reads (350,208 at 342 classes and 1,024 frames
 // for about 900 segments), so rewriting each code into g, as the narrow
 // kernel does, cost more than the walk: W2 reads the raw codes. In state
@@ -81,7 +86,9 @@
 // compare of the code itself against (u - lo) << 10 beside the address's
 // arithmetic; a segment's span is stored one link later, while the next
 // loads are in flight, and only the last, which alone can start before
-// frame 0, takes the wrap. The chain is then the two loads, a mask and a
+// frame 0, takes the wrap. A slot holds at least one row: past 14,521
+// classes a row of codes does not fit one of 4 slots, and the wrapper
+// refuses the plane. The chain is then the two loads, a mask and a
 // multiply-add for c', a shift and a multiply-add for the next address.
 // Nothing is packed, so W2 takes any T.
 //
@@ -110,12 +117,13 @@
 // no tail) takes 133 registers, the traceback 41, no spills;
 // chip_smoke.py's build phase prints every kernel.
 
+#include <climits>
+
 #include "hsmm_scan_core.cuh"
 
 namespace {
 
 constexpr int kLanes = hsmm_scan::kCodeRadix;
-constexpr int kWideRadix = 1024;  // a wide DP's code radix (C <= 1024)
 
 // the traceback's block: warp 0 walks, kStageWarps warps stage
 constexpr int kStageWarps = 16;
@@ -395,9 +403,8 @@ __global__ void __launch_bounds__(kTracebackThreads)
   traceback<kLanes>(bp, lengths, c_last, spans, T, C, R);
 }
 
-// ---- W2: the wide traceback (codes at radix 1024), one warp a video ----
+// ---- W2: the wide traceback (codes at radix 1 << shift), one warp a video ----
 
-constexpr int kWideShift = 10;  // log2 kWideRadix
 // W2's block: warp 0's lane 0 walks, warp 1's lane 0 issues the copies
 constexpr int kWideThreads = 64;
 constexpr int kWideMaxStages = 16;
@@ -448,7 +455,7 @@ __global__ void __launch_bounds__(kWideThreads)
                           const int64_t* __restrict__ lengths,
                           const int64_t* __restrict__ c_last,
                           int64_t* __restrict__ spans, int T, int C, int R,
-                          int S) {
+                          int S, int shift) {
   extern __shared__ __align__(16) unsigned char tb_smem[];
   // slot i's mbarriers: `full` at 8i (its tile landed), `empty` at 8(S + i)
   // (the walker left it)
@@ -458,6 +465,7 @@ __global__ void __launch_bounds__(kWideThreads)
   const uint32_t slot_bytes = 4 * (uint32_t)wide_slot_words(R, C);
   const uint32_t row_bytes = 4 * (uint32_t)C;
   const uint32_t neg_row = 0u - row_bytes;
+  const int mask = (1 << shift) - 1;  // a code's class part
 
   const int b = blockIdx.x;
   const int32_t* plane = bp + (size_t)b * T * C;
@@ -510,7 +518,7 @@ __global__ void __launch_bounds__(kWideThreads)
   // class c; that segment's span is stored one link later (when the loads
   // of the next are in flight), and the last one's, which alone can start
   // before frame 0, after the walk
-  int u = length - (code0 >> kWideShift) - 2;
+  int u = length - (code0 >> shift) - 2;
   int64_t* pending = row + (u + 1);
   int64_t pending_c = c;
   // the walker's tile: its index, top row, slot and round, and whether it
@@ -544,27 +552,27 @@ __global__ void __launch_bounds__(kWideThreads)
       uint32_t a2;
       asm("{\n"
           ".reg .b32 m;\n"
-          "and.b32 m, %1, 1023;\n"
+          "and.b32 m, %1, %3;\n"
           "mad.lo.s32 %0, m, 4, %2;\n"
           "}\n"
           : "=r"(a2)
-          : "r"(v1), "r"(a1 - 4 * c));
+          : "r"(v1), "r"(a1 - 4 * c), "r"(mask));
       const int v2 = ld_shared(a2);
       store_span(pending, pending_c);
-      // the next row u - d' is in the tile iff v2 < (u - lo) << 10; the
+      // the next row u - d' is in the tile iff v2 < (u - lo) << shift; the
       // next load, bp(u - d', c') at a2 less d' rows (a shift and a
       // multiply-add by -4C), issues before the exit test
-      const int lim = (u - lo) << kWideShift;
-      c = v1 & (kWideRadix - 1);
+      const int lim = (u - lo) << shift;
+      c = v1 & mask;
       asm("{\n"
           ".reg .s32 d;\n"
-          "shr.s32 d, %1, 10;\n"
+          "shr.s32 d, %1, %4;\n"
           "mad.lo.s32 %0, d, %2, %3;\n"
           "}\n"
           : "=r"(a1)
-          : "r"(v2), "r"(neg_row), "r"(a2 + neg_row));
+          : "r"(v2), "r"(neg_row), "r"(a2 + neg_row), "r"(shift));
       v1 = ld_shared_if_below(v1, a1, v2, lim);
-      u -= (v2 >> kWideShift) + 1;
+      u -= (v2 >> shift) + 1;
       pending = row + (u + 1);
       pending_c = c;
       if (v2 >= lim) break;
@@ -634,19 +642,21 @@ int hsmm_viterbi_traceback(const void* bp, const void* lengths,
                           c_last, spans, N, T, C, rows, smem, device, stream);
 }
 
-// The same for a wide DP's codes (radix 1024, 128 < C <= 1024) from
+// The same for a wide DP's codes (C > 128, radix 1 << shift >= C) from
 // csrc/hsmm_scan_wide.cu's `hsmm_wide_viterbi_scan`, by W2: rows and stages
 // are the ring's slot rows and slot count and smem its dynamic shared
 // memory in bytes, as ops/hsmm_cuda.py `wide_traceback_tile` gives them.
 // bp must be 16-byte aligned (each tile is copied in whole 16-byte lines);
-// a launch whose smem cannot hold the ring is refused.
+// a launch whose smem cannot hold the ring, whose radix is below C, or
+// whose slot rows at that radix pass int32 is refused.
 int hsmm_viterbi_traceback_wide(const void* bp, const void* lengths,
                                 const void* c_last, void* spans, int N, int T,
                                 int C, int rows, int stages, int smem,
-                                int device, void* stream) {
+                                int shift, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (C <= kLanes || C > kWideRadix || rows < 1 || stages < 1 ||
+  if (C <= kLanes || shift < 0 || shift > 30 || (1LL << shift) < C ||
+      rows < 1 || ((long long)rows << shift) > INT_MAX || stages < 1 ||
       stages > kWideMaxStages || (reinterpret_cast<uintptr_t>(bp) & 15) ||
       smem < wide_traceback_smem(rows, stages, C))
     return (int)cudaErrorInvalidValue;
@@ -658,7 +668,7 @@ int hsmm_viterbi_traceback_wide(const void* bp, const void* lengths,
   }
   traceback_wide_kernel<<<N, kWideThreads, smem, (cudaStream_t)stream>>>(
       (const int32_t*)bp, (const int64_t*)lengths, (const int64_t*)c_last,
-      (int64_t*)spans, T, C, rows, stages);
+      (int64_t*)spans, T, C, rows, stages, shift);
   return (int)cudaGetLastError();
 }
 

@@ -37,11 +37,14 @@ def write_mini_crosstask(
     bkg_range=(2, 5),
     step_range=(3, 8),
     gap_range=(1, 4),
+    related_counts=None,
 ):
     """Write the mini release under `root`; returns {video: gt frame labels}.
 
     Durations are drawn per segment from the given [lo, hi) ranges, so
     larger ranges produce longer videos (for throughput-oriented runs).
+    `related_counts` (n_train, n_val) gives the related tasks' videos
+    their own counts (by default n_train and n_val, as the primary's).
     """
     tasks = TASKS if tasks is None else tasks
     related_tasks = RELATED_TASKS if related_tasks is None else related_tasks
@@ -71,10 +74,12 @@ def write_mini_crosstask(
     val_videos = []
     gt_frames = {}
     for task_id, steps in {**tasks, **related_tasks}.items():
-        for i in range(n_train + n_val):
+        n_tr, n_va = (related_counts if related_counts is not None and task_id in related_tasks
+                      else (n_train, n_val))
+        for i in range(n_tr + n_va):
             vid = f"v{task_id}_{i}"
             videos.append((task_id, vid))
-            if i >= n_train:
+            if i >= n_tr:
                 val_videos.append((task_id, vid))
             # segments: bkg, step1, bkg, step2, ... with random durations
             rows = []

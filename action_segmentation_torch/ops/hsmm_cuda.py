@@ -26,20 +26,26 @@ The three scans (both gamma scans and the backpointer scan) are
 instances of one template, csrc/hsmm_scan_core.cuh, compiled for buckets
 of C and Km; ``scan_instance`` picks the instance a shape launches.
 
-A DP wider than 128 classes (up to WIDE_MAX_CLASSES) takes the wide
-kernels, which the same wrappers launch by C: the three instances of
+A DP wider than 128 classes, of any width, takes the wide kernels, which
+the same wrappers launch by C: the three instances of
 csrc/hsmm_scan_wide.cu (``hsmm_viterbi_scan_wide``, ``hsmm_log_scan_wide``,
-``hsmm_forward_scan_wide``: one thread a class, on one of two routes that
-``wide_scan_instance`` picks by shape: up to WIDE_CLUSTER_MAX_CLASSES a
-cluster of 1-8 blocks a chain holding its transition table in shared
-memory, past it one block a chain reading the table from L2), the wide
-traceback (``hsmm_viterbi_traceback_wide``, W2, codes at radix
-WIDE_CODE_RADIX: two warps a video, one walking the raw codes with two
+``hsmm_forward_scan_wide``, on one of two routes that ``wide_scan_instance``
+picks by shape: up to WIDE_CLUSTER_MAX_CLASSES a cluster of 1-8 blocks a
+chain holding its transition table in shared memory, one thread a class;
+past it one block a chain reading the table from L2, each thread
+ceil(C / 1,024) classes), the wide traceback
+(``hsmm_viterbi_traceback_wide``, W2, codes at ``code_radix(C)``, passed
+to the launch: two warps a video, one walking the raw codes with two
 shared-memory loads a segment, the other streaming the plane from the top
 down through a ring of tiles that ``wide_traceback_tile`` sizes, one bulk
-copy a tile) and the band gradient as it is. Each wide kernel counts its
-own launches. The max gamma scan and the band max stay at
-<= 128 classes: the labels chain never sees a wide DP (``kernel_path``).
+copy a tile) and the band gradient, whose blocks take at most 1,024
+classes (``band_grad_tile``'s chunk). Each wide kernel counts its own
+launches. What bounds the width: the codes' int32 (``_scan_radix``, on
+both devices) and, on the card, a block's shared memory, which holds the
+L2 route's alpha rows and per-class state up to 14,528 classes and W2's
+4 slots a row of up to 14,521 codes; past those the wrappers raise. The
+max gamma scan and the band max stay at <= 128 classes: the labels chain
+never sees a wide DP (``kernel_path``).
 
 Each wrapper takes its kernel's plain PyTorch version (``_gamma_scan_plain``
 and its log forms, ``_band_max_plain``, ``_band_grad_plain``,
@@ -79,13 +85,10 @@ from action_segmentation_torch.ops.hsmm import (
 )
 
 # The kernels put one class per thread of a block (in the scans at most
-# four warps a chain), so they take C <= 128 classes.
+# four warps a chain), so they take C <= 128 classes; a wider DP takes the
+# wide kernels (csrc/hsmm_scan_wide.cu, the traceback's wide instance and
+# the band gradient in chunks of classes).
 MAX_CLASSES = 128
-# The wide kernels (csrc/hsmm_scan_wide.cu, the traceback's wide instance
-# and the band gradient) put one class per thread, in one block of at most
-# 1,024 threads or (the wide scans' cluster route) in a cluster of blocks:
-# a DP of MAX_CLASSES < C <= WIDE_MAX_CLASSES takes them.
-WIDE_MAX_CLASSES = 1024
 
 # The scans' instances: csrc/hsmm_scan_core.cuh's template is compiled for
 # warps per chain by C, one warp's trans row in ROW_BUCKETS registers, and
@@ -157,16 +160,11 @@ def kernel_path(n_classes, width, device):
     above. A DP is never wider than its model, so the labels chain (K2-max,
     K3) never sees one wider than 128; the spans chain and the partition
     launch the narrow kernels or, above 128 classes, the wide ones. The
-    partition runs its kernel forward/backward on the card; on the CPU it
-    keeps the JAX package's lane gate (the kernels' plain versions at
-    <= 128 classes, autograd of ``hsmm_partition`` above). On the card
-    only a DP wider than the wide kernels take raises: no plain version
-    runs there."""
-    if device.type == "cuda" and width > WIDE_MAX_CLASSES:
-        raise NotImplementedError(
-            "a DP {} classes wide on the card: the kernels take at most {}; "
-            "wider DPs are not ported yet (ROADMAP.md §2)".format(width, WIDE_MAX_CLASSES)
-        )
+    partition runs its kernel forward/backward on the card at any width
+    (no plain version runs there); on the CPU it keeps the JAX package's
+    lane gate (the kernels' plain versions at <= 128 classes, autograd of
+    ``hsmm_partition`` above). `width` chooses nothing: the wrappers
+    launch by the tensors' C."""
     narrow_model = kernels_supported(n_classes)
     return KernelPath(
         "labels" if narrow_model else "spans",
@@ -349,15 +347,16 @@ def hsmm_forward_scan(trans, init, dur, emit):
     """Forward-only log scan (the partition's primal): alphas (N, T, C).
 
     The kernel of ``hsmm_log_scan`` with the gamma store skipped; above
-    128 classes the wide kernel (``hsmm_forward_scan_wide``). On CPU
-    tensors it runs ``_forward_scan_plain``."""
+    128 classes the wide kernel (``hsmm_forward_scan_wide``, which gives
+    the chains of an expanded trans one table). trans may be an expanded
+    view. On CPU tensors it runs ``_forward_scan_plain``."""
     if _device_type(emit) == "cpu":
         return _forward_scan_plain(trans, init, dur, emit)
     if emit.shape[-1] > MAX_CLASSES:
         return hsmm_forward_scan_wide(trans, init, dur, emit)
     alphas = torch.empty_like(emit)
-    _launch_scan("hsmm_forward_scan", "hsmm_forward_scan_log", trans, init, dur, emit,
-                 [alphas])
+    _launch_scan("hsmm_forward_scan", "hsmm_forward_scan_log", trans.contiguous(), init, dur,
+                 emit, [alphas])
     hsmm_forward_scan.launches += 1
     return alphas
 
@@ -365,7 +364,7 @@ def hsmm_forward_scan(trans, init, dur, emit):
 hsmm_forward_scan.launches = 0
 
 
-# ---- (a') the wide scans: 128 < C <= 1024 -----------------------------------
+# ---- (a') the wide scans: C > 128 ---------------------------------------
 
 
 class WideScan(NamedTuple):
@@ -374,10 +373,11 @@ class WideScan(NamedTuple):
     its `slab` classes in shared memory for the whole scan, the ring
     beside them; "l2" (past the cluster route): one block a chain
     (`cluster` 1, `slab` C) reading the table from L2, the carry's ring in
-    shared memory or, where it does not fit beside the alpha rows, in a
-    global scratch the wrapper allocates (`ring` "global"). `threads` a
-    block (one a class of its slab, in whole warps) and `smem_bytes` a
-    block's dynamic shared memory."""
+    shared memory or, where it does not fit beside the alpha rows and the
+    per-class state, in a global scratch the wrapper allocates (`ring`
+    "global"). `threads` a block (one a class of its slab in whole warps;
+    on the L2 route at most 1,024, each thread ceil(C / threads) classes)
+    and `smem_bytes` a block's dynamic shared memory."""
 
     route: str
     cluster: int
@@ -418,14 +418,17 @@ def wide_cluster_smem(C, Km, slab):
 
 
 def wide_l2_instance(C, Km):
-    """The L2 route's launch for C classes and Km duration rows: the
-    double-buffered alpha row, 2 * C floats, and the ring of Km * C
-    floats beside it where both fit a block's shared memory, else the
-    ring in global memory."""
-    alpha = 2 * C
-    ring = "shared" if 4 * (alpha + Km * C) <= MAX_BLOCK_SMEM else "global"
-    return WideScan("l2", 1, C, 32 * -(-C // 32), ring,
-                    4 * (alpha + Km * C * (ring == "shared")))
+    """The L2 route's launch for C classes and Km duration rows: a block
+    of min(C, 1,024) threads in whole warps; in shared memory the
+    double-buffered alpha row and each class's emission prefix sum and
+    duration argmax, 4 * C words, and the ring of Km * C floats beside
+    them where both fit a block's shared memory, else the ring in global
+    memory. Past 14,528 classes the 4 * C words alone pass a block's
+    (the launch raises)."""
+    state = 4 * C
+    ring = "shared" if 4 * (state + Km * C) <= MAX_BLOCK_SMEM else "global"
+    return WideScan("l2", 1, C, min(MAX_BLOCK_THREADS, 32 * -(-C // 32)), ring,
+                    4 * (state + Km * C * (ring == "shared")))
 
 
 def wide_scan_instance(C, Km):
@@ -468,30 +471,39 @@ def wide_max_active_clusters(scan, C, Km, device=0):
 def _launch_wide_scan(name, symbol, trans, init, dur, emit, outputs, ints=(), inst=None):
     """Checks, then one launch of csrc/hsmm_scan_wide.cu's `symbol` on the
     route `inst` gives (by default ``wide_scan_instance``) writing
-    `outputs`; `ints` (the code radix) follow the shape's."""
+    `outputs`; `ints` (the code radix) follow the shape's. trans may be
+    any (N, C, C) view: where its chains share one table (batch stride 0,
+    as a model's expanded table), the kernel gets that table alone and
+    every chain reads it (a group of N chains), else a table a chain."""
     N, T, C = emit.shape
     Km = dur.shape[1]
-    if not MAX_CLASSES < C <= WIDE_MAX_CLASSES:
-        raise ValueError("{}: C={} outside ({}, {}]".format(
-            name, C, MAX_CLASSES, WIDE_MAX_CLASSES))
+    if C <= MAX_CLASSES:
+        raise ValueError("{}: C={} <= {}".format(name, C, MAX_CLASSES))
     if Km < 1:  # the carry needs a row (see _durations)
         raise ValueError("{}: dur needs at least one row".format(name))
-    _check_cuda(
-        name, (emit, trans, init, dur), ((N, T, C), (N, C, C), (N, C), (N, Km, C))
-    )
+    if tuple(trans.shape) != (N, C, C):
+        raise ValueError("{}: trans shape {} != {}".format(name, tuple(trans.shape), (N, C, C)))
     if inst is None:
         inst = wide_scan_instance(C, Km)
+    if inst.smem_bytes > MAX_BLOCK_SMEM:
+        raise ValueError("{}: C={} at Km={}: the alpha rows and the per-class state take {} "
+                         "bytes, past a block's {}".format(name, C, Km, inst.smem_bytes,
+                                                            MAX_BLOCK_SMEM))
+    group = N if N > 1 and trans.stride(0) == 0 else 1
+    # [from][to]: a c' row's classes contiguous
+    trans_t = trans[::group].transpose(1, 2).contiguous()
+    _check_cuda(name, (emit, trans_t, init, dur),
+                ((N, T, C), (-(-N // group), C, C), (N, C), (N, Km, C)))
     ring = emit.new_empty((N, Km, C)) if inst.ring == "global" else None
     cluster = inst.cluster if inst.route == "cluster" else 0
-    trans_t = trans.transpose(1, 2).contiguous()  # [from][to]: a c' row's classes contiguous
     err = _call("hsmm_scan_wide", symbol, [trans_t, init, dur, emit, *outputs, ring],
-                [N, T, C, Km, *ints, cluster, inst.slab, inst.smem_bytes], emit)
+                [N, T, C, Km, *ints, cluster, inst.slab, inst.smem_bytes, group], emit)
     _raise_on_error(name, err)
 
 
 def hsmm_log_scan_wide(trans, init, dur, emit):
-    """``hsmm_log_scan`` for a DP of 128 < C <= 1024 classes: (gamma,
-    alphas). On CUDA tensors it launches csrc/hsmm_scan_wide.cu's log
+    """``hsmm_log_scan`` for a DP of C > 128 classes: (gamma, alphas).
+    On CUDA tensors it launches csrc/hsmm_scan_wide.cu's log
     instance on the route ``wide_scan_instance`` picks; on CPU tensors it
     runs ``_log_scan_plain``."""
     if _device_type(emit) == "cpu":
@@ -507,8 +519,8 @@ hsmm_log_scan_wide.launches = 0
 
 
 def hsmm_forward_scan_wide(trans, init, dur, emit):
-    """``hsmm_forward_scan`` for a DP of 128 < C <= 1024 classes: alphas.
-    On CUDA tensors it launches csrc/hsmm_scan_wide.cu's forward
+    """``hsmm_forward_scan`` for a DP of C > 128 classes: alphas. On
+    CUDA tensors it launches csrc/hsmm_scan_wide.cu's forward
     instance on the route ``wide_scan_instance`` picks; on CPU tensors it
     runs ``_forward_scan_plain``."""
     if _device_type(emit) == "cpu":
@@ -556,19 +568,22 @@ def _band_shapes(name, G1, G2p, dur):
 
 
 class BandTile(NamedTuple):
-    """A band kernel's tile (K3, K4): time rows a block (one thread a
-    (row, class)), the durations a shared slab holds and the launch's
-    shared memory, and where the launch's blocks land (for the record)."""
+    """A band kernel's tile (K3, K4): time rows and classes (`chunk`: all
+    C, or for K4 past 1,024 classes an even split of them) a block (one
+    thread a (row, class)), the durations a shared slab holds and the
+    launch's shared memory, and where the launch's blocks land (for the
+    record)."""
 
     rows: int
     threads: int
     slab: int
     smem_bytes: int
-    tiles: int  # a video's
+    tiles: int  # a video's (each chunk's)
     blocks_per_sm: int  # resident at once
     waves: int  # B * tiles over the card's resident blocks
     filling: float  # the launch's blocks over the waves' resident slots
     balance: float  # the mean SM's warps over the busiest SM's
+    chunk: int  # classes a block
 
 
 # an H100 SM's limits, and the registers csrc/band_max.cu's and
@@ -594,11 +609,12 @@ def _blocks_per_sm(threads, regs):
 
 
 def _band_tile(B, T, C, rows, busiest, slab, smem_bytes, per_sm, sms):
+    # B the planes (videos, or for K4 video chunks) and C their classes
     tiles = -(-T // rows)
     resident = sms * per_sm
     waves = max(1, -(-B * tiles // resident))
     return BandTile(rows, rows * C, slab, smem_bytes, tiles, per_sm, waves,
-                    B * tiles / (waves * resident), B * T * C / (32 * sms * busiest))
+                    B * tiles / (waves * resident), B * T * C / (32 * sms * busiest), C)
 
 
 def _fewest_rows(B, T, C, sms, lo_threads, cost):
@@ -729,8 +745,11 @@ def band_grad_tile(B, T, C, Km, sms=H100_SMS):
     """The tile K4 (csrc/band_grad.cu) launches a (B, T, C) plane with Km
     duration rows on `sms` SMs.
 
-    A block runs every duration of its rows, so a block's time follows its
-    warps, and an SM's the warps it is given: the rule takes the rows
+    The classes go in chunks of at most 1,024 (one chunk up to 1,024
+    classes, else C split evenly over ceil(C / 1,024)), each chunk a
+    plane of its own for the rule below. A block runs every duration of
+    its rows, so a block's time follows its warps, and an SM's the warps
+    it is given: the rule takes the rows
     (at most 1,024 threads a block, at least BAND_GRAD_MIN_THREADS where
     T allows) for which the busiest SM, given ceil(blocks / sms) of the
     launch's blocks, holds the fewest warps; among equals the fewest
@@ -739,12 +758,16 @@ def band_grad_tile(B, T, C, Km, sms=H100_SMS):
     most that does. ``filling`` is the launch's blocks over the resident
     slots of the waves it takes, ``balance`` the mean SM's warps over the
     busiest SM's."""
-    rows, busiest = _fewest_rows(B, T, C, sms, BAND_GRAD_MIN_THREADS, lambda warps, tiles: warps)
-    threads = rows * C
+    chunks = max(1, -(-C // MAX_BLOCK_THREADS))
+    chunk = -(-C // chunks)
+    rows, busiest = _fewest_rows(B * chunks, T, chunk, sms, BAND_GRAD_MIN_THREADS,
+                                 lambda warps, tiles: warps)
+    threads = rows * chunk
     per_sm = _blocks_per_sm(threads, BAND_GRAD_REGS)
     room = min(MAX_BLOCK_SMEM, SM_SMEM // per_sm - SM_SMEM_PER_BLOCK) // (4 * threads)
     slab = min(Km, max(1, room))
-    return _band_tile(B, T, C, rows, busiest, slab, 4 * slab * threads, per_sm, sms)
+    return _band_tile(B * chunks, T, chunk, rows, busiest, slab, 4 * slab * threads, per_sm,
+                      sms)
 
 
 @functools.cache
@@ -777,9 +800,10 @@ def _launch_band_grad(G1m, G2p, dur, tile):
     qg, sa, st = G1m.new_empty((3, B, T, C)).unbind(0)
     lg = G1m.new_empty((B, Km, C))
     partials = G1m.new_empty((B * tile.tiles * Km * C,))
+    chunks = -(-C // max(tile.chunk, 1))
     err = _call("band_grad", "hsmm_band_grad",
-                [G1m, G2p, dur, qg, sa, st, lg, partials, _tickets(G1m.device, B)],
-                [B, T, T2, C, Km, tile.rows, tile.slab, tile.smem_bytes], G1m)
+                [G1m, G2p, dur, qg, sa, st, lg, partials, _tickets(G1m.device, B * chunks)],
+                [B, T, T2, C, Km, tile.rows, tile.slab, tile.smem_bytes, tile.chunk], G1m)
     _raise_on_error("hsmm_band_grad", err)
     return qg, sa, st, lg
 
@@ -787,16 +811,15 @@ def _launch_band_grad(G1m, G2p, dur, tile):
 def hsmm_band_grad(G1m, G2p, dur):
     """Span-posterior masses (qg, sa, st, lg); see ``_band_grad_plain``.
 
-    On CUDA tensors (float32, contiguous, C <= 1024: one thread a (row,
-    class), so a wide DP takes the same kernel) it launches
-    csrc/band_grad.cu once, in the tile ``band_grad_tile`` sizes, which
-    reduces lg over the tiles in a fixed order (two runs give the same
-    bits); on CPU tensors it runs the plain version."""
+    On CUDA tensors (float32, contiguous, any C: one thread a (row,
+    class), a block at most 1,024 of them, so a wide DP takes the same
+    kernel) it launches csrc/band_grad.cu once, in the tile
+    ``band_grad_tile`` sizes, which reduces lg over the tiles in a fixed
+    order (two runs give the same bits); on CPU tensors it runs the plain
+    version."""
     if _device_type(G1m) == "cpu":
         return _band_grad_plain(G1m, G2p, dur)
     B, T, T2, C, Km = _band_shapes("hsmm_band_grad", G1m, G2p, dur)
-    if C > WIDE_MAX_CLASSES:
-        raise ValueError("hsmm_band_grad: C={} > {}".format(C, WIDE_MAX_CLASSES))
     tile = band_grad_tile(B, T, C, Km, _sm_count(G1m.device.index))
     out = _launch_band_grad(G1m, G2p, dur, tile)
     hsmm_band_grad.launches += 1
@@ -912,7 +935,8 @@ def hsmm_viterbi_labels_plain(pots: HsmmPotentials, lengths):
 
 # the class radix of a backpointer code, bp = bp_d * radix + bp_c: JAX's
 # LANES for C <= 128 (the narrow kernels' compiled radix), and for a wide
-# DP a power of two >= C (the wide kernels take WIDE_CODE_RADIX)
+# DP a power of two >= C, at least WIDE_CODE_RADIX (the wide kernels take
+# it as an argument)
 CODE_RADIX = 128
 WIDE_CODE_RADIX = 1024
 
@@ -1006,10 +1030,12 @@ def hsmm_viterbi_scan(trans, init, dur, emit):
     """The backpointer scan: (alphas (N, T, C), bp (N, T, C) int32); see
     ``_viterbi_scan_plain`` for the function.
 
-    On CUDA tensors (float32, contiguous) it launches csrc/hsmm_viterbi.cu,
-    one block per video, at C <= 128, and the wide kernel
-    (``hsmm_viterbi_scan_wide``) above; on CPU tensors it runs the plain
-    version. Raises where the codes would overflow int32."""
+    On CUDA tensors (float32, contiguous but trans, which may be an
+    expanded view) it launches csrc/hsmm_viterbi.cu, one block per video,
+    at C <= 128, and the wide kernel (``hsmm_viterbi_scan_wide``, which
+    gives the chains of an expanded trans one table) above; on CPU
+    tensors it runs the plain version. Raises where the codes would
+    overflow int32."""
     radix = _scan_radix("hsmm_viterbi_scan", emit.shape[-1], dur.shape[1])
     if _device_type(emit) == "cpu":
         return _viterbi_scan_plain(trans, init, dur, emit, radix)
@@ -1017,7 +1043,7 @@ def hsmm_viterbi_scan(trans, init, dur, emit):
         return hsmm_viterbi_scan_wide(trans, init, dur, emit)
     alphas = torch.empty_like(emit)
     bp = torch.empty(emit.shape, dtype=torch.int32, device=emit.device)
-    _launch_scan("hsmm_viterbi_scan", "hsmm_viterbi_scan", trans, init, dur, emit,
+    _launch_scan("hsmm_viterbi_scan", "hsmm_viterbi_scan", trans.contiguous(), init, dur, emit,
                  [alphas, bp], lib="hsmm_viterbi")
     hsmm_viterbi_scan.launches += 1
     return alphas, bp
@@ -1027,8 +1053,8 @@ hsmm_viterbi_scan.launches = 0
 
 
 def hsmm_viterbi_scan_wide(trans, init, dur, emit):
-    """``hsmm_viterbi_scan`` for a DP of 128 < C <= 1024 classes: (alphas,
-    bp) with the codes at ``code_radix(C)``. On CUDA tensors it launches
+    """``hsmm_viterbi_scan`` for a DP of C > 128 classes: (alphas, bp)
+    with the codes at ``code_radix(C)``. On CUDA tensors it launches
     csrc/hsmm_scan_wide.cu's max instance on the route
     ``wide_scan_instance`` picks; on CPU tensors it runs the plain
     version."""
@@ -1107,7 +1133,8 @@ def wide_traceback_tile(T, C, max_rows=None, stages=WIDE_TRACEBACK_STAGES):
     given) for which `stages` slots fit an H100 block's shared memory;
     no more slots than the plane's shared rows (T - 1) make tiles of;
     and that memory (the kernel's layout). At 342 classes 4 slots of 42
-    rows, at 1,024 4 of 14."""
+    rows, at 1,024 4 of 14, at 1,577 4 of 9; past 14,521 classes not
+    one row fits a slot (the launch raises)."""
     words = (MAX_BLOCK_SMEM - _wide_traceback_header(stages)) // (4 * stages) // 4 * 4
     rows = max(1, min(T, (words - 3) // C, max_rows or T))
     stages = max(1, min(stages, -(-(T - 1) // rows)))
@@ -1118,19 +1145,24 @@ def wide_traceback_tile(T, C, max_rows=None, stages=WIDE_TRACEBACK_STAGES):
 def _launch_traceback(bp, lengths, c_last, tile):
     """Checks, then one launch of csrc/hsmm_viterbi.cu's traceback with
     `tile` (a ``traceback_tile``; above 128 classes W2 with a
-    ``wide_traceback_tile``); returns the spans."""
+    ``wide_traceback_tile`` and the log2 of ``code_radix(C)``); returns
+    the spans."""
     N, T, C = bp.shape
     name = "hsmm_viterbi_traceback"
+    ints = [N, T, C, *tile]
     if C > MAX_CLASSES:
         name = "hsmm_viterbi_traceback_wide"
-        if C > WIDE_MAX_CLASSES:
-            raise ValueError("{}: C={} > {}".format(name, C, WIDE_MAX_CLASSES))
+        ints.append(code_radix(C).bit_length() - 1)
+    if tile.smem_bytes > MAX_BLOCK_SMEM:
+        raise ValueError("{}: a row of C={} codes does not fit the ring's slot ({} bytes of "
+                         "shared memory, past a block's {})".format(name, C, tile.smem_bytes,
+                                                                    MAX_BLOCK_SMEM))
     _check_cuda(name, (bp, lengths, c_last), ((N, T, C), (N,), (N,)),
                 (torch.int32, torch.int64, torch.int64))
     if C > MAX_CLASSES and bp.data_ptr() % 16:
         raise ValueError("{}: the codes must be 16-byte aligned".format(name))
     spans = torch.empty((N, T), dtype=torch.long, device=bp.device)
-    err = _call("hsmm_viterbi", name, [bp, lengths, c_last, spans], [N, T, C, *tile], bp)
+    err = _call("hsmm_viterbi", name, [bp, lengths, c_last, spans], ints, bp)
     _raise_on_error(name, err)
     return spans
 
@@ -1157,10 +1189,12 @@ hsmm_viterbi_traceback.launches = 0
 
 
 def hsmm_viterbi_traceback_wide(bp, lengths, c_last):
-    """``hsmm_viterbi_traceback`` for a DP of 128 < C <= 1024 classes
-    (codes at WIDE_CODE_RADIX): W2 on CUDA tensors, one warp a video
-    walking the raw codes through a ring of tiles in shared memory that
-    ``wide_traceback_tile`` sizes; the plain version on CPU tensors."""
+    """``hsmm_viterbi_traceback`` for a DP of C > 128 classes (codes at
+    ``code_radix(C)``): W2 on CUDA tensors, one warp a video walking the
+    raw codes through a ring of tiles in shared memory that
+    ``wide_traceback_tile`` sizes, the radix passed to the launch; the
+    plain version on CPU tensors. Raises where a row of C codes does not
+    fit a slot of the ring (past 14,521 classes)."""
     if _device_type(bp) == "cpu":
         return _traceback_plain(bp, lengths, c_last, code_radix(bp.shape[-1]))
     if not MAX_CLASSES < bp.shape[-1]:
@@ -1177,7 +1211,7 @@ hsmm_viterbi_traceback_wide.launches = 0
 def _viterbi_spans(pots: HsmmPotentials, lengths, scan, traceback):
     lengths = _clamped(lengths, pots.emit.device)
     alphas, bp = scan(
-        pots.trans.contiguous(), pots.init.contiguous(),
+        pots.trans, pots.init.contiguous(),
         _durations(pots.lens).contiguous(), pots.emit.contiguous(),
     )
     # the finals stay outside the kernels, as in JAX
@@ -1191,8 +1225,7 @@ def hsmm_viterbi_spans(pots: HsmmPotentials, lengths):
     start and -1 on continuations and past each length; scores (B,)).
     The contract of ``ops.hsmm.hsmm_viterbi`` and JAX's
     ``hsmm_viterbi_pallas``. Both kernels on CUDA tensors (the wide ones
-    above 128 classes, up to WIDE_MAX_CLASSES), their plain versions on
-    CPU tensors."""
+    above 128 classes), their plain versions on CPU tensors."""
     return _viterbi_spans(pots, lengths, hsmm_viterbi_scan, hsmm_viterbi_traceback)
 
 

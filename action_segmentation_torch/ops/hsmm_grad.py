@@ -148,10 +148,11 @@ class HsmmPartitionFB(torch.autograd.Function):
 
 
 def _partition_primal(pots: HsmmPotentials, lengths, forward_scan):
-    """logZ through the forward-only scan over the forward model."""
+    """logZ through the forward-only scan over the forward model (trans
+    as given: an expanded table goes to a wide scan once)."""
     lengths = _clamped(lengths, pots.emit.device)
     alphas = forward_scan(
-        pots.trans.contiguous(), pots.init.contiguous(),
+        pots.trans, pots.init.contiguous(),
         _durations(pots.lens).contiguous(), pots.emit.contiguous(),
     )
     return _log_partition(alphas, lengths, pots.end_mask)

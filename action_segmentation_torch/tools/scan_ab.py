@@ -468,6 +468,8 @@ def traceback_launcher(fn, spans, inputs, tile):
     bp = inputs[0]
     N, T, C = bp.shape
     ints = [N, T, C, *tile]
+    if isinstance(tile, hc.WideTracebackTile):  # W2 takes the radix's log2
+        ints.append(hc.code_radix(C).bit_length() - 1)
     ptrs = [x.data_ptr() for x in (*inputs, spans)]
 
     def run():  # on the current stream, which a graph's capture replaces
@@ -480,11 +482,11 @@ def traceback_launcher(fn, spans, inputs, tile):
 def bind_traceback(libs, version, C):
     """`version`'s traceback entry for C classes: the narrow one, or above
     128 classes the wide one (the earlier takes rows and smem, W2 rows,
-    stages and smem)."""
+    stages, smem and the radix's log2)."""
     if C <= hc.MAX_CLASSES:
         return bind(libs["hsmm_viterbi"], "hsmm_viterbi_traceback", 4, 5)
     return bind(libs["hsmm_viterbi"], "hsmm_viterbi_traceback_wide", 4,
-                6 if version == "new" else 5)
+                7 if version == "new" else 5)
 
 
 def one_segment_a_tile(inputs, rows):
@@ -629,7 +631,7 @@ def band_grad_launchers(fns, old_blocks, inputs):
     tile = hc.band_grad_tile(B, T, C, Km, hc._sm_count(G1m.device.index))
     tiled = {"old": old_blocks is None, "new": True}
     scratch = {v: B * (tile.tiles if tiled[v] else old_blocks(T, C)) * Km * C for v in tiled}
-    tickets = hc._tickets(G1m.device, B)
+    tickets = hc._tickets(G1m.device, B * -(-C // tile.chunk))
     out = {}
     for v, fn in fns.items():
         outs = [torch.empty_like(G1m) for _ in range(3)] + [G1m.new_empty((B, Km, C))]
@@ -637,7 +639,7 @@ def band_grad_launchers(fns, old_blocks, inputs):
         ints = [B, T, T2, C, Km]
         if tiled[v]:
             held.append(tickets)
-            ints += [tile.rows, tile.slab, tile.smem_bytes]
+            ints += [tile.rows, tile.slab, tile.smem_bytes] + ([tile.chunk] if v == "new" else [])
 
         def run(fn=fn, held=held, ints=ints):
             err = fn(*[x.data_ptr() for x in held], *ints, G1m.device.index,
@@ -996,8 +998,9 @@ def compare_ring(fn, inputs, clock):
 
 def wide_launcher(fn, inputs, kind, inst, old):
     """(run, outputs): one launch of a wide scan `fn` on (trans, init, dur,
-    emit) with trans transposed once here, on `inst`'s launch; the earlier
-    interface has no cluster and slab arguments."""
+    emit) with trans transposed once here (a table a chain), on `inst`'s
+    launch; the earlier interface has no cluster, slab and group
+    arguments."""
     trans, init, dur, emit = inputs
     N, T, C = emit.shape
     Km = dur.shape[1]
@@ -1008,6 +1011,8 @@ def wide_launcher(fn, inputs, kind, inst, old):
     if not old:
         ints += [inst.cluster if inst.route == "cluster" else 0, inst.slab]
     ints.append(inst.smem_bytes)
+    if not old:
+        ints.append(1)  # a table a chain
     held = [trans_t, init, dur, emit, *outs, ring]  # alive while `run` is
 
     def run():
@@ -1064,7 +1069,7 @@ def run_wide(old_lib, new_lib, window_ms, clock, rng, device, old_sass, new_sass
                                          inputs, kind, old_inst, old=True)}
             inst = hc.wide_scan_instance(C, Km)
             if new_lib is not None:
-                fn = bind(new_lib, symbol, n_ptr, 7 + (kind == "ab"))
+                fn = bind(new_lib, symbol, n_ptr, 8 + (kind == "ab"))
                 runs["new"] = wide_launcher(fn, inputs, kind, inst, old=False)
                 if inst.route != "l2":
                     runs["new l2"] = wide_launcher(fn, inputs, kind, old_inst, old=False)
@@ -1209,7 +1214,7 @@ def main():
                 old_blocks.restype = ctypes.c_int
             fns = {"old": bind(old_libs["band_grad"], "hsmm_band_grad",
                                *((8, 5) if old_blocks is not None else (9, 8))),
-                   "new": bind(new_libs["band_grad"], "hsmm_band_grad", 9, 8)}
+                   "new": bind(new_libs["band_grad"], "hsmm_band_grad", 9, 9)}
             bg_opcodes = {"old": loop_opcodes(library_sass(args.old_csrc / "build" /
                                                            "libband_grad.so")),
                           "new": loop_opcodes(built_sass("band_grad"))}

@@ -65,7 +65,9 @@ their terms, one after another (a pass needs the last one's result),
 without the barrier's latency, which the SASS does not show. The floor
 a step is the larger of the chain and the instructions times the warps
 each scheduler issues for at the launch (its blocks over the SMs); a
-scan's floor is T steps of it.
+scan's floor is T steps of it. On the L2 route past 1,024 classes a
+thread runs ceil(C / 1,024) classes in turn, so its instructions and its
+chain a step count that many times.
 
 Run from the repository root on a machine with the CUDA toolkit:
 
@@ -228,9 +230,10 @@ def band_grad_floor(sass):
 
 def band_grad_issue_ms(instructions, B, T, C, Km, clock_mhz, sms=H100_SMS):
     """K4's issue floor in ms: the loop's instructions x Km x the launch's
-    warps (B x tiles x warps a block), over `sms` SMs of 4 schedulers."""
+    warps (B x class chunks x tiles x warps a block), over `sms` SMs of 4
+    schedulers."""
     tile = band_grad_tile(B, T, C, Km, sms)
-    warps = B * tile.tiles * -(-tile.threads // 32)
+    warps = B * -(-C // max(tile.chunk, 1)) * tile.tiles * -(-tile.threads // 32)
     return instructions * Km * warps / (sms * SCHEDULERS) / clock_mhz * 1e-3
 
 
@@ -440,18 +443,22 @@ def wide_floor(step, C, Km, T, N, inst, clock_mhz, sms=H100_SMS):
     """A wide instance's floor at N chains of T steps on `inst`'s launch:
     per step a thread's instructions (the rest plus each kind's terms: the
     combine's C, the duration loop's Km) and chain (each kind's, in turn),
-    the warps a scheduler; the floor a step is the larger of the chain and
-    instructions x warps a scheduler."""
+    each times the classes a thread owns (the L2 route's ceil(C / threads)
+    past 1,024 classes, else 1), the warps a scheduler; the floor a step
+    is the larger of the chain and instructions x warps a scheduler."""
     terms = {"combine": C, "duration": Km}
-    issue = step["rest"] + sum(v["instructions_per_term"] * terms[k.split()[0]]
-                               for k, v in step["loops"].items())
-    chain = sum(v["chain_per_term"] * terms[k.split()[0]] for k, v in step["loops"].items())
-    mufu = sum(v["mufu_per_term"] * terms[k.split()[0]] for k, v in step["loops"].items())
+    per = -(-inst.slab // inst.threads)
+    issue = per * (step["rest"] + sum(v["instructions_per_term"] * terms[k.split()[0]]
+                                      for k, v in step["loops"].items()))
+    chain = per * sum(v["chain_per_term"] * terms[k.split()[0]]
+                      for k, v in step["loops"].items())
+    mufu = per * sum(v["mufu_per_term"] * terms[k.split()[0]] for k, v in step["loops"].items())
     per_sched, waves = wide_warps_per_scheduler(N * inst.cluster, inst.threads,
                                                 inst.smem_bytes, sms)
     floor = max(chain, issue * per_sched)
     return {"route": inst.route, "cluster": inst.cluster, "slab": inst.slab,
-            "threads": inst.threads, "chains": N, "instructions_per_step": issue,
+            "threads": inst.threads, "classes_per_thread": per, "chains": N,
+            "instructions_per_step": issue,
             "chain_cycles_per_step": chain, "mufu_per_step": mufu,
             "warps_per_scheduler": per_sched, "waves": waves,
             "floor_us_per_step": waves * floor / clock_mhz,

@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's decode, training and exact-spans paths,
 its command line, its compound model, its baselines, its resident
-corpus, its data parallelism and its wide DP on one card and check them.
+corpus, its data parallelism and its wide DP (to 342 classes, and past
+1,024) on one card and check them.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -186,6 +187,28 @@ exit and no result line:
                rate), its ring's slots and rows and the earlier kernel's
                time, and the
                phase's seconds;
+  4j. past1024 — a DP wider than 1,024 classes: (a) the wide kernels
+               (W1 on the L2 route, two or more classes a thread; W2 at
+               radix 2,048 and 4,096) and K4 (classes in chunks of at
+               most 1,024) at C = 1,025, 1,577, 2,048 and 3,000, Km = 1,
+               20 and 64, ragged lengths down to 1, each equal to its
+               plain version; (b) a release of the 18 primary and 65
+               related tasks (2 training videos a related task, none for
+               val) written by data/minigen.py, the S6 flags with
+               --mix_tasks --crosstask_training_data primary related
+               through main.main (closed form, val decoded within each
+               video's task, pickled: 1,577 classes), Segmenter.load of the pickle with no
+               valid_classes: segment_many over every val video against
+               the same Segmenter's plain chain on the card and, on the 3
+               shortest, the CPU Segmenter (labels equal but at float64-
+               verified ties), the wide kernels only;
+               segment_with_marginals on the 3 shortest against the PLAIN
+               Function on the card; (c) at B=18, T=1024, C=1,577, K=20
+               each of those kernels' time beside its plain version's
+               (the log and forward scans' at 128 frames), its bound and
+               its floor from the SASS, and the max and forward scans
+               with the batch's one expanded table and with a table
+               copied a chain, bit-equal, in turns;
   5. times   — CUDA-event kernel and plain-version times at the serving
                shape beside the roofline bound, the traceback's also beside
                its serial floor (the longest video's segments x one
@@ -213,8 +236,8 @@ The line before the last is one JSON object {"kernels": [...]} (each
 kernel's launches on the slices' paths, and its cli_, u7_, baseline_,
 resident_ and dp_launches on phases 4d-4h, dp_ every rank's summed; the
 wide kernels' launches are phase 4i's, and K4's wide_ keys its time and
-launches there); the last is {"ok": true, "device": {...}}. Imports
-nothing of JAX.
+launches there; each wide kernel's and K4's past_1024_ keys are phase
+4j's); the last is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 import argparse
@@ -3648,6 +3671,403 @@ def run_wide_slice(device, root, smi):
     return e2e, entries, k4
 
 
+# ----- phase 4j: a DP wider than 1,024 classes -----
+
+# the wide kernels' cases past 1,024 classes, (C, Km) at B_WIDE videos of
+# T_PAST[C] frames, ragged down to 1 (the plain log scan is a Python loop
+# over C): one class past 1,024, the 1,577 of every CrossTask task, 2,048
+# and 3,000 (codes at radix 4,096); Km = 1 and 20 hold the L2 route's ring
+# in shared memory at 1,577 classes, Km = 64 and the widest in global memory
+PAST_CLASSES = (1025, 1577, 2048, 3000)
+PAST_KMS = (1, 20, 64)
+T_PAST = {1025: 64, 1577: 64, 2048: 48, 3000: 32}
+# the primary + related model: 83 tasks x (2 x 9 steps + 1)
+C_ALL = 1577
+# the related tasks' training videos (they have no val videos)
+CT_RELATED_TRAIN = 2
+# the frames at which the plain log and forward scans are timed (a Python
+# loop over C a step) beside the kernels at T
+T_PLAIN_LOG = 128
+ALL_TASKS_FLAGS = ("--mix_tasks", "--crosstask_training_data", "primary", "related")
+
+
+def alternating_ms(runs, n):
+    """{name: [ms, ms]}: each of two callables timed by CUDA events over n
+    calls in the order a, b, b, a (after one warm call each)."""
+    (a, fa), (b, fb) = runs.items()
+    fa(), fb()
+    out = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        out[name].append(cuda_ms(fn, n, warmup=0))
+    return out
+
+
+def run_past_1024_slice(device, root, smi):
+    """Phase 4j: a DP wider than 1,024 classes. (a) The wide kernels (W1's
+    three instances on the L2 route, a thread two or more classes; W2 at
+    radix 2,048 and 4,096) and K4 (classes in chunks of at most 1,024) at
+    C = 1,025, 1,577, 2,048 and 3,000 and Km = 1, 20 and 64, ragged
+    lengths down to 1, each equal to its plain version. (b) The S6 flags
+    with --mix_tasks --crosstask_training_data primary related on a
+    release of the 18 primary and 65 related tasks written under `root`:
+    main.main fits the 1,577-class model in closed form, decodes val
+    (each video within its task's classes) and pickles it; Segmenter.load(pickle) with no valid_classes:
+    segment_many over every val video against the same Segmenter's plain
+    chain on the card and, on the 3 shortest, against the CPU Segmenter
+    (labels equal but at float64-verified ties), through the wide kernels
+    only; segment_with_marginals on the 3 shortest against the PLAIN
+    Function on the card. (c) At B=18, T=1024, C=1,577, K=20 each wide
+    kernel's and K4's time beside its plain version's, its bound and its
+    floor from the SASS; the max and forward scans with the chains'
+    shared (expanded) table and with a table copied a chain, bit-equal,
+    in turn. Returns the e2e record and, by kernel name, the entries the
+    kernels line adds to each wide kernel's and K4's."""
+    import torch
+    from unittest import mock
+
+    from action_segmentation_torch import main as port_main
+    from action_segmentation_torch.api import Segmenter
+    from action_segmentation_torch.data import minigen
+    from action_segmentation_torch.data.crosstask import CrosstaskCorpus
+    from action_segmentation_torch.models import semimarkov
+    from action_segmentation_torch.models.semimarkov import SemiMarkovModel, upload
+    from action_segmentation_torch.ops import hsmm_cuda as hc
+    from action_segmentation_torch.ops.hsmm import _durations, _finals
+    from action_segmentation_torch.ops.hsmm_grad import (
+        PLAIN,
+        _log_partition,
+        hsmm_frame_marginals_fast,
+    )
+    from action_segmentation_torch.tools.scan_floor import (
+        band_grad_floor,
+        band_grad_issue_ms,
+        built_sass,
+        max_sm_clock_mhz,
+        traceback_wide_floor,
+        traceback_wide_floor_ms,
+        wide_first_tile_bytes,
+        wide_floors,
+    )
+
+    t_phase = time.perf_counter()
+    card = device.type == "cuda"
+    path_names = WIDE_KERNEL_NAMES + ("hsmm_band_grad",)
+
+    # (a) the kernels against their plain versions past 1,024 classes
+    rng = np.random.RandomState(18)
+    errs, layouts = {}, {}
+    for Cn in PAST_CLASSES:
+        for Km in PAST_KMS:
+            Tn = T_PAST[Cn]
+            rl = rng.randint(1, Tn + 1, size=B_WIDE).astype(np.int32)
+            rl[0], rl[1] = Tn, 1
+            inputs = serving_pots(rng, B_WIDE, Tn, Cn, Km + 1, device, lengths=rl)
+            (case, *_), n = counted(lambda: wide_kernel_case(
+                "C={} Km={}".format(Cn, Km), *inputs))
+            check(not card or all(n[k] > 0 for k in path_names),
+                  "C={} Km={}: launches {}".format(Cn, Km, n))
+            for k, v in case.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            inst = hc.wide_scan_instance(Cn, Km)
+            layouts["C={} Km={}".format(Cn, Km)] = "{} ring, {} threads, {} classes a thread, " \
+                "radix {}, K4 chunk {}".format(inst.ring, inst.threads, -(-Cn // inst.threads),
+                                               hc.code_radix(Cn),
+                                               hc.band_grad_tile(B_WIDE, Tn, Cn, Km).chunk)
+    check(not card or all(hc.wide_scan_instance(Cn, Km).route == "l2" for Cn in PAST_CLASSES
+              for Km in PAST_KMS)
+          and {hc.wide_scan_instance(Cn, Km).ring for Cn in PAST_CLASSES for Km in PAST_KMS}
+          == {"shared", "global"} and hc.code_radix(3000) == 4096,
+          "the cases do not take the L2 route with both ring layouts and radix 4,096")
+    phase("past1024", "(a) layouts: {}".format(layouts))
+    a_s = time.perf_counter() - t_phase
+
+    # (b) the primary + related model over all 1,577 classes
+    root2 = os.path.join(root, "all_tasks")
+    steps = ["step{}".format(i) for i in range(CT_STEPS)]
+    t0 = time.perf_counter()
+    minigen.write_mini_crosstask(
+        root2, np.random.RandomState(18),
+        tasks={t: steps for t in CrosstaskCorpus.TASK_IDS_BY_SET["primary"]},
+        related_tasks={t: steps for t in CrosstaskCorpus.TASK_IDS_BY_SET["related"]},
+        n_train=CT_TRAIN, n_val=CT_VAL, dim_per_group=CT_DIM_PER_GROUP,
+        related_counts=(CT_RELATED_TRAIN, 0), **CT_RANGES)
+    write_s = time.perf_counter() - t0
+    args = crosstask_args(root2, *ALL_TASKS_FLAGS)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        splits = port_main.make_data_splits(args)
+    load_s = time.perf_counter() - t0
+    check(list(splits) == ["all"], "--mix_tasks splits {}".format(list(splits)))
+    train, _, val = splits["all"]
+    n_tasks = len({task for task, _ in train._tasks_and_video_names})
+    check(n_tasks == 83, "the training split holds {} tasks, not 83".format(n_tasks))
+    seen = np.zeros(C_ALL, bool)
+    for key in train._tasks_and_video_names:
+        seen[train[key]["gt_single"]] = True
+    check(seen.all(), "{} of {} classes have no training frames".format(
+        int((~seen).sum()), C_ALL))
+    keys = list(val._tasks_and_video_names)
+    check(len(keys) == 18 * CT_VAL, "{} val videos".format(len(keys)))
+    feats = [val[key]["features"] for key in keys]
+    frames = sum(f.shape[0] for f in feats)
+
+    # main.main: the closed-form fit, val decoded (each video within its
+    # task's classes, so through the narrow spans kernels), the model pickled
+    models_dir = os.path.join(root2, "models")
+    argv = ["--classifier", "semimarkov", "--training", "supervised", *S6_FLAGS,
+            "--data_root", root2, "--pca_components_per_group", str(CT_DIM_PER_GROUP),
+            *ALL_TASKS_FLAGS, "--model_output_path", models_dir]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with cli_recorder(port_main, SemiMarkovModel), \
+            contextlib.redirect_stdout(io.StringIO()):
+        stats, n_cli = counted(lambda: port_main.main(argv))
+    cli_s = time.perf_counter() - t0
+    n_batches = -(-len(feats) // args.batch_size)
+    per_task = {}
+    for task, _ in keys:
+        per_task[task] = per_task.get(task, 0) + 1
+    task_batches = sum(-(-n // args.batch_size) for n in per_task.values())
+    check(not card or n_cli["hsmm_viterbi_scan"] == n_cli["hsmm_viterbi_traceback"]
+          == task_batches and all(n_cli[k] == 0 for k in path_names),
+          "main.main's launches {}: not the narrow spans kernels once a task's val batch "
+          "({})".format(n_cli, task_batches))
+    check(list(stats) == ["all"], "main.main's splits {}".format(list(stats)))
+    mof = (sum(float(s["mof"][0]) for s in stats["all"].values())
+           / sum(float(s["mof"][1]) for s in stats["all"].values()))
+    check(0 <= mof <= 1, "main.main's val MoF {}".format(mof))
+    pkl = os.path.join(models_dir, "all.pkl")
+    seg = Segmenter.load(pkl)
+    seg_cpu = Segmenter.load(pkl, device="cpu")
+    check(len(seg.valid_classes) == C_ALL and seg.model.n_classes == C_ALL
+          and seg.model.device.type == device.type,
+          "Segmenter.load: {} classes on {}".format(len(seg.valid_classes), seg.model.device))
+    pots0, _ = video_pots(seg, feats[0], device)
+    check(all(bool(torch.isfinite(p).all()) for p in pots0) and pots0.emit.shape[-1] == C_ALL,
+          "the model's potentials over all {} classes are not finite".format(C_ALL))
+    phase("past1024", "(b) release of 18 primary and 65 related tasks ({} training, {} val "
+          "videos) written in {:.3f} s, loaded in {:.3f} s; main.main {} closed form: {} "
+          "classes, all with training "
+          "frames, MoF {:.4f} on {} val videos (each within its task's classes) in {:.3f} s, "
+          "launches {}; pickle loaded on the card and the CPU".format(
+              len(train._tasks_and_video_names), len(keys), write_s, load_s,
+              " ".join(ALL_TASKS_FLAGS),
+              C_ALL, mof, len(keys), cli_s, {k: v for k, v in n_cli.items() if v}))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, n_seg = counted(lambda: seg.segment_many(feats, batch_size=args.batch_size))
+    seg_s = time.perf_counter() - t0
+    check(not card or n_seg["hsmm_viterbi_scan_wide"] == n_seg["hsmm_viterbi_traceback_wide"]
+          == n_batches and all(n_seg[k] == 0 for k in NARROW_NAMES)
+          and n_seg["hsmm_band_grad"] == 0,
+          "segment_many launches {}: not the wide kernels once a batch".format(n_seg))
+    # the same Segmenter's plain chain on the card
+    with mock.patch.object(semimarkov, "hsmm_viterbi_spans", hc.hsmm_viterbi_spans_plain):
+        t0 = time.perf_counter()
+        want, n_plain = counted(lambda: seg.segment_many(feats, batch_size=args.batch_size))
+        plain_s = time.perf_counter() - t0
+    check(all(v == 0 for v in n_plain.values()), "the plain chain launched {}".format(n_plain))
+    ties, tie_gaps = 0, []
+
+    def compare(what, g, w, f, key):
+        check(g.shape == (f.shape[0],) and set(g.tolist()) <= set(range(C_ALL)),
+              "{} labels of {}".format(what, key))
+        if np.array_equal(g, w):
+            return 0
+        pots, lb = video_pots(seg, f, device)  # the card's potentials, float64 on the ties
+        pad = np.full((1, pots.emit.shape[1]), -1, np.int64)
+        gg, ww = pad.copy(), pad.copy()
+        gg[0, :f.shape[0]], ww[0, :f.shape[0]] = g, w
+        return labels_or_ties("{} {}".format(what, key[1]), pots, lb, upload(gg, device),
+                              upload(ww, device), tie_gaps)
+
+    for key, f, g, w in zip(keys, feats, got, want):
+        ties += compare("segment_many vs the plain chain", g, w, f, key)
+    order = np.argsort([f.shape[0] for f in feats])[:3]
+    t0 = time.perf_counter()
+    on_cpu = seg_cpu.segment_many([feats[i] for i in order], batch_size=args.batch_size)
+    cpu_s = time.perf_counter() - t0
+    cpu_ties = 0
+    for i, w in zip(order, on_cpu):
+        cpu_ties += compare("segment_many vs the CPU", got[i], w, feats[i], keys[i])
+    phase("past1024", "(b) Segmenter.load(pickle) over all {}: segment_many of {} val videos "
+          "({} frames, {} batches) in {:.4f} s = {:.0f} frames/s on the card; labels equal to "
+          "the same Segmenter's plain chain on the card ({:.3f} s) but at {} and to the CPU "
+          "Segmenter's on the 3 shortest ({:.3f} s) but at {} float64-verified tie frames "
+          "(gaps {}); launches {}".format(
+              C_ALL, len(feats), frames, n_batches, seg_s, frames / seg_s, plain_s, ties,
+              cpu_s, cpu_ties, ["{:.3g}".format(g) for g, _ in tie_gaps],
+              {k: v for k, v in n_seg.items() if v}))
+
+    marg_errs, gaps, marg_frames = [], [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marg_out, n_marg = counted(lambda: [seg.segment_with_marginals(feats[i]) for i in order])
+    marg_s = time.perf_counter() - t0
+    for i, (labels, marg) in zip(order, marg_out):
+        f = feats[i]
+        marg_frames += f.shape[0]
+        check(np.array_equal(labels, got[i]), "segment_with_marginals labels != "
+              "segment_many's for {}".format(keys[i]))
+        check(marg.shape == (f.shape[0], C_ALL) and np.isfinite(marg).all(),
+              "segment_with_marginals marginals of {}".format(keys[i]))
+        # on the Segmenter's own potentials: at D=300 scale the marginals'
+        # fp32 cancellation (ROADMAP §3) magnifies any other rounding of them
+        pots, lb = video_pots(seg, f, device)
+        plain = hsmm_frame_marginals_fast(pots, lb, PLAIN)[0, :f.shape[0]]
+        assert_close("segment_with_marginals {} vs PLAIN".format(keys[i][1]),
+                     torch.from_numpy(marg).to(device), plain, GRAD_RTOL, GRAD_ATOL)
+        marg_errs.append(max_err(torch.from_numpy(marg).to(device), plain))
+        gaps.append(float(np.abs(marg.sum(axis=1) - 1).max()))
+    check(not card or n_marg["hsmm_log_scan_wide"] == n_marg["hsmm_band_grad"] == 3
+          and n_marg["hsmm_viterbi_scan_wide"] == n_marg["hsmm_viterbi_traceback_wide"] == 3
+          and all(n_marg[k] == 0 for k in NARROW_NAMES),
+          "segment_with_marginals launches {}".format(n_marg))
+    phase("past1024", "(b) segment_with_marginals on the 3 shortest val videos ({} frames) in "
+          "{:.4f} s = {:.0f} frames/s: labels == segment_many's, marginals vs PLAIN on the card "
+          "max_abs_err {} (rtol {} / atol {}), max |sum_c marginal - 1| {} (reported, not "
+          "gated); launches {}".format(marg_frames, marg_s, marg_frames / marg_s, marg_errs,
+                                       GRAD_RTOL, GRAD_ATOL, gaps,
+                                       {k: v for k, v in n_marg.items() if v}))
+    launches = {k: n_seg[k] + n_marg[k] for k in path_names}
+    for k in ("hsmm_viterbi_scan_wide", "hsmm_viterbi_traceback_wide", "hsmm_log_scan_wide",
+              "hsmm_band_grad"):
+        check(not card or launches[k] > 0, "{} was not launched on phase 4j's path".format(k))
+    b_s = time.perf_counter() - t_phase - a_s
+
+    # (c) times at B=18, T=1024, C=1,577, K=20
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = max_sm_clock_mhz()
+    Km = K - 1
+    rl = rng.randint(1, T + 1, size=B).astype(np.int32)
+    rl[0], rl[1] = T, 1
+    pots, L = serving_pots(rng, B, T, C_ALL, K, device, lengths=rl)
+    L = L.long()
+    dur = _durations(pots.lens).contiguous()
+    shared_in = (pots.trans, pots.init.contiguous(), dur, pots.emit)  # one expanded table
+    copied_in = (pots.trans.contiguous(), *shared_in[1:])  # a table a chain
+    vit_s, vit_c = hc.hsmm_viterbi_scan_wide(*shared_in), hc.hsmm_viterbi_scan_wide(*copied_in)
+    fwd_s, fwd_c = (hc.hsmm_forward_scan_wide(*shared_in),
+                    hc.hsmm_forward_scan_wide(*copied_in))
+    vit_p = hc._viterbi_scan_plain(*copied_in)
+    torch.cuda.synchronize()
+    for what, a, b in (("alphas", vit_s[0], vit_c[0]), ("codes", vit_s[1], vit_c[1]),
+                       ("forward alphas", fwd_s, fwd_c)):
+        check_equal("shared table vs a table a chain: " + what, a, b)
+    check_equal("C={} viterbi scan alphas".format(C_ALL), vit_s[0], vit_p[0])
+    check_equal("C={} viterbi scan codes".format(C_ALL), vit_s[1], vit_p[1])
+    vit_ab = alternating_ms({"shared": lambda: hc.hsmm_viterbi_scan_wide(*shared_in),
+                             "copied": lambda: hc.hsmm_viterbi_scan_wide(*copied_in)}, 2)
+    fwd_ab = alternating_ms({"shared": lambda: hc.hsmm_forward_scan_wide(*shared_in),
+                             "copied": lambda: hc.hsmm_forward_scan_wide(*copied_in)}, 2)
+    tb_in = (vit_s[1], L, _finals(vit_s[0], L, pots.end_mask).argmax(dim=-1))
+    spans = hc.hsmm_viterbi_traceback_wide(*tb_in)
+    check_equal("C={} traceback spans".format(C_ALL), spans, hc._traceback_plain(*tb_in))
+    per_video = (spans >= 0).sum(dim=1)
+    n_segments, longest = int(per_video.sum()), int(per_video.max())
+    scan_in = hc._stack_fwd_rev(pots, L)
+    gamma_k, alphas_k = hc.hsmm_log_scan_wide(*scan_in)
+    cut = (*scan_in[:3], scan_in[3][:, :T_PLAIN_LOG].contiguous())
+    cut_k = hc.hsmm_log_scan_wide(*cut)
+    cut_p = hc._log_scan_plain(*cut)
+    torch.cuda.synchronize()
+    check_equal("C={} log scan gamma (first {} frames)".format(C_ALL, T_PLAIN_LOG), cut_k[0],
+                cut_p[0])
+    check_equal("C={} log scan alphas (first {} frames)".format(C_ALL, T_PLAIN_LOG), cut_k[1],
+                cut_p[1])
+    fwd_cut = tuple(x[:B] for x in cut)
+    logZ = _log_partition(alphas_k[:B], L, pots.end_mask)
+    grad_in = hc._grad_band_inputs(pots, L, gamma_k, logZ)
+    bg_k, bg_p = hc.hsmm_band_grad(*grad_in), hc._band_grad_plain(*grad_in)
+    torch.cuda.synchronize()
+    check_band_grad("C={} band grad".format(C_ALL), bg_k, bg_p)
+
+    def scan_bound(n, n_out):
+        # per chain-step and class: the duration reduce (Km adds, maxes,
+        # subtracts, exps and sum adds, one log, one add), the transition
+        # combine (the same over C), the cum add and the W push; the table
+        # read once a chain
+        ops = n * T * C_ALL * (5 * Km + 5 * C_ALL + 6)
+        nbytes = 4 * (n * C_ALL * C_ALL + n * C_ALL + n * Km * C_ALL + (1 + n_out) * n * T * C_ALL)
+        return bound(nbytes, ops)
+
+    vit_bytes = 4 * (B * C_ALL * C_ALL + B * C_ALL + B * Km * C_ALL + 3 * B * T * C_ALL)
+    vit_ops = B * T * (2 * Km * C_ALL + 2 * C_ALL * C_ALL + 3 * C_ALL)
+    floors = wide_floors(built_sass("hsmm_scan_wide"), C_ALL, Km, T, B, clock_mhz, sms) \
+        if card else {}
+    tb_chain = traceback_wide_floor(built_sass("hsmm_viterbi"))[0] if card else None
+    tb_floor = traceback_wide_floor_ms(tb_chain, longest, wide_first_tile_bytes(T, C_ALL),
+                                       clock_mhz) if card else None
+    bg_insts = band_grad_floor(built_sass("band_grad"))[0] if card else None
+    bg_floor = band_grad_issue_ms(bg_insts, B, T, C_ALL, Km, clock_mhz, sms) if card else None
+    bg_bound, bg_by, bg_kind, _ = band_grad_bound(grad_in, sms, clock_mhz)
+    times = {
+        "hsmm_viterbi_scan_wide": (
+            min(vit_ab["shared"]), cuda_ms(lambda: hc._viterbi_scan_plain(*copied_in), 1,
+                                           warmup=0), T,
+            bound(vit_bytes, vit_ops), floors.get("viterbi l2", {}).get("floor_ms"),
+            tuple(copied_in[3].shape)),
+        "hsmm_viterbi_traceback_wide": (
+            graph_ms(lambda: hc.hsmm_viterbi_traceback_wide(*tb_in), 20),
+            cuda_ms(lambda: hc._traceback_plain(*tb_in), 1, warmup=1), T,
+            bound(8 * B * T + 8 * n_segments + 16 * B, 4 * n_segments), tb_floor,
+            tuple(tb_in[0].shape)),
+        "hsmm_log_scan_wide": (
+            cuda_ms(lambda: hc.hsmm_log_scan_wide(*scan_in), 2, warmup=0),
+            cuda_ms(lambda: hc._log_scan_plain(*cut), 1, warmup=0), T_PLAIN_LOG,
+            scan_bound(2 * B, 2), floors.get("log l2", {}).get("floor_ms"),
+            tuple(scan_in[3].shape)),
+        "hsmm_forward_scan_wide": (
+            min(fwd_ab["shared"]), cuda_ms(lambda: hc._forward_scan_plain(*fwd_cut), 1,
+                                           warmup=0), T_PLAIN_LOG,
+            scan_bound(B, 1), floors.get("forward l2", {}).get("floor_ms"),
+            tuple(copied_in[3].shape)),
+        "hsmm_band_grad": (
+            graph_ms(lambda: hc.hsmm_band_grad(*grad_in), 10),
+            cuda_ms(lambda: hc._band_grad_plain(*grad_in), 3), T, (bg_bound, bg_by), bg_floor,
+            tuple(grad_in[0].shape)),
+    }
+    err_of = {"hsmm_viterbi_scan_wide": errs["viterbi_scan"], "hsmm_viterbi_traceback_wide": 0.0,
+              "hsmm_log_scan_wide": errs["log_scan"],
+              "hsmm_forward_scan_wide": errs["forward_scan"], "hsmm_band_grad": errs["band_grad"]}
+    entries = {}
+    for name, (ms, plain_ms, plain_t, (b_ms, b_by), floor_ms, shape) in times.items():
+        entries[name] = {
+            "past_1024_launches": launches[name], "past_1024_max_abs_err": err_of[name],
+            "past_1024_ms": ms, "past_1024_plain_ms": plain_ms, "past_1024_plain_T": plain_t,
+            "past_1024_bound_ms": b_ms, "past_1024_bound_by": b_by,
+            "past_1024_floor_ms": floor_ms, "past_1024_shape": list(shape)}
+        extra = ""
+        if name in ("hsmm_viterbi_scan_wide", "hsmm_forward_scan_wide"):
+            ab = vit_ab if name == "hsmm_viterbi_scan_wide" else fwd_ab
+            entries[name].update(past_1024_shared_table_ms=ab["shared"],
+                                 past_1024_table_a_chain_ms=ab["copied"])
+            extra = "; one shared table {} ms, a table a chain {} ms (turns a, b, b, a)".format(
+                ["{:.4f}".format(x) for x in ab["shared"]],
+                ["{:.4f}".format(x) for x in ab["copied"]])
+        if name == "hsmm_viterbi_traceback_wide":
+            extra = "; {} segments, the longest video {}".format(n_segments, longest)
+        phase("past1024", "(c) {} at {}: {:.5f} ms, {:.4f} us a step, plain {:.4f} ms (at {} "
+              "frames), bound {:.6f} ms by {} ({:.0f}x), floor {}, launches on the phase's "
+              "path {}{}; {}".format(
+                  name, shape, ms, 1e3 * ms / T, plain_ms, plain_t, b_ms, b_by, ms / b_ms,
+                  "{:.5f} ms".format(floor_ms) if floor_ms is not None else "not measured",
+                  launches[name], extra, smi))
+    phase_s = time.perf_counter() - t_phase
+    phase("past1024", "phase 4j: {:.3f} s ((a) {:.3f} s, (b) {:.3f} s)".format(phase_s, a_s, b_s))
+    e2e = {"past_1024_segment_many_frames_per_s": frames / seg_s,
+           "past_1024_segment_many_s": seg_s, "past_1024_plain_chain_s": plain_s,
+           "past_1024_ties": ties, "past_1024_cpu_ties": cpu_ties,
+           "past_1024_tie_gap_max": max((g for g, _ in tie_gaps), default=0.0),
+           "past_1024_cli_s": cli_s, "past_1024_mof": mof, "past_1024_write_s": write_s,
+           "past_1024_marginals_frames_per_s": marg_frames / marg_s,
+           "past_1024_marginal_sum_gap": max(gaps), "past_1024_marginal_err": max(marg_errs),
+           "past_1024_layouts": layouts, "past_1024_phase_s": phase_s,
+           "past_1024_launches": launches}
+    return e2e, entries
+
+
 def cuda_ms(fn, n, warmup=3):
     import torch
 
@@ -3918,6 +4338,8 @@ def main():
         e2e.update(run_dp_slice(device, root, ct_models, resident_cases, mixed, smi))
         wide_e2e, wide_kernels, wide_k4 = run_wide_slice(device, root, smi)
         e2e.update(wide_e2e)
+        past_e2e, past_entries = run_past_1024_slice(device, root, smi)
+        e2e.update(past_e2e)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     e2e.update(train_e2e)
@@ -4169,6 +4591,11 @@ def main():
         check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
         check(k["launches"] > 0, "{} was not launched on phase 4i's path".format(k["name"]))
     kernels.extend(wide_kernels)
+    # phase 4j: the same kernels past 1,024 classes, whose path is 4j's
+    for k in kernels:
+        if k["name"] in past_entries:
+            k.update(past_entries[k["name"]])
+            check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
     phase("times", "serving shape B={} T={} C={} K={}; {} launches of each kernel; "
           "plain versions of the scans and the traceback 2 launches; library call: none "
           "computes any of these functions".format(B, T, C, K, N_TIMED))

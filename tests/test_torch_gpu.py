@@ -372,27 +372,49 @@ def test_training_kernels_reject_what_they_do_not_take(cuda):
 
 
 def test_wide_class_tables_raise_on_the_card(cuda):
-    """A model with more classes than the wide kernels take raises on the
-    card (decode, training loss, marginals); no plain version runs there."""
+    """A model of 1,025 classes, past the 1,024 that the wide kernels once
+    took, no longer raises on the card: decode, the training loss and the
+    marginals run through the wide kernels (no narrow one), the labels
+    equal to the plain spans chain's and the marginals to the plain
+    Function's."""
     from argparse import Namespace
 
     from action_segmentation_torch.api import Segmenter
+    from action_segmentation_torch.data.batching import pad_length_to_bucket
     from action_segmentation_torch.models.semimarkov import GaussianHsmm, SemiMarkovModel
 
-    C, D, T = hc.WIDE_MAX_CLASSES + 1, 4, 8
+    C, D, T = 1025, 4, 8
     args = Namespace(sm_max_span_length=4)
     model = SemiMarkovModel(args, C, D, GaussianHsmm(args, C, D, device=cuda), cuda)
-    feats = torch.zeros((1, T, D), device=cuda)
+    with torch.no_grad():
+        model.module.gaussian_means.normal_(generator=torch.Generator(cuda).manual_seed(2))
+    feats = torch.randn((1, T, D), generator=torch.Generator(cuda).manual_seed(3), device=cuda)
     lengths = torch.full((1,), T, device=cuda)
     vc = torch.arange(C, device=cuda)
     cons, ends = torch.zeros((1, T, C), device=cuda), torch.zeros((1, C), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model._decode(feats, lengths, vc, cons, ends)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model._loss(feats, lengths, vc, None, None, cons, ends,
-                    torch.ones(1, device=cuda), use_labels=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Segmenter(model).segment_with_marginals(np.zeros((T, D), np.float32))
+    before, narrow = launches(WIDE_KERNELS), launches(NARROW_KERNELS)
+    labels, _ = model._decode(feats, lengths, vc, cons, ends)
+    with torch.no_grad():
+        pots, _, _ = model.module.compute_potentials(feats, lengths, vc, cons, ends)
+    spans, _ = hc.hsmm_viterbi_spans_plain(pots, lengths)
+    assert torch.equal(labels, spans_to_labels(spans))
+    loss, _ = model._loss(feats, lengths, vc, None, None, cons, ends,
+                          torch.ones(1, device=cuda), use_labels=False)
+    assert torch.isfinite(loss)
+    seg = Segmenter(model)
+    _, marg = seg.segment_with_marginals(feats[0].cpu().numpy())
+    # the Segmenter's potentials: its length bucket and its end row
+    x = torch.zeros((1, pad_length_to_bucket(T), D), device=cuda)
+    x[:, :T] = feats
+    with torch.no_grad():
+        pots, _, _ = model.module.compute_potentials(
+            x, lengths, vc, torch.zeros((1, x.shape[1], C), device=cuda),
+            torch.from_numpy(seg._end_rows([T])).to(cuda))
+    want = hg.hsmm_frame_marginals_fast(pots, lengths, hg.PLAIN)[0, :T]
+    torch.testing.assert_close(torch.from_numpy(marg).to(cuda), want, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+    assert [a - b for a, b in zip(launches(WIDE_KERNELS), before)] == [2, 2, 0, 2]
+    assert launches(NARROW_KERNELS) == narrow
 
 
 # the exact-spans kernels: K = 2 is the model's K = 1 table
@@ -439,9 +461,10 @@ def test_viterbi_kernels_reject_what_they_do_not_take(cuda):
         hc.hsmm_viterbi_traceback(bp, L.int(), c)
     with pytest.raises(ValueError):
         hc.hsmm_viterbi_traceback(bp, L[:1].contiguous(), c)
-    with pytest.raises(ValueError):
-        hc.hsmm_viterbi_traceback(torch.zeros((2, 4, 1025), dtype=torch.int32, device=cuda),
-                                  L, c)
+    # a row of codes wider than a slot of W2's ring of 4 (past 14,521 classes)
+    with pytest.raises(ValueError, match="14522"):
+        hc.hsmm_viterbi_traceback(torch.zeros((2, 8, 14522), dtype=torch.int32, device=cuda),
+                                  L.clamp(max=8), c)
 
 
 # the traceback (csrc/hsmm_viterbi.cu): codes staged in shared memory in
@@ -902,7 +925,7 @@ def test_scan_launch_refuses_an_instance_too_small(cuda):
 # ---- a DP wider than 128 classes: the wide scans (csrc/hsmm_scan_wide.cu),
 # the traceback's wide instance and K4, each equal to its plain version
 
-WIDE_CLASSES = (129, 342, 1024)
+WIDE_CLASSES = (129, 342, 1024, 1025, 1577, 2048)
 WIDE_KMS = (1, 19, 25, 64)
 WIDE_KERNELS = (hc.hsmm_viterbi_scan_wide, hc.hsmm_log_scan_wide, hc.hsmm_forward_scan_wide,
                 hc.hsmm_viterbi_traceback_wide)
@@ -923,7 +946,7 @@ def assert_wide_scans_equal_plain(scan_in):
     fwd = hc.hsmm_forward_scan(*scan_in)
     assert [a - b for a, b in zip(launches(WIDE_KERNELS), before)] == [1, 1, 1, 0]
     assert launches(NARROW_KERNELS) == narrow
-    want_vit = hc._viterbi_scan_plain(*scan_in, radix=hc.WIDE_CODE_RADIX)
+    want_vit = hc._viterbi_scan_plain(*scan_in, radix=hc.code_radix(scan_in[3].shape[-1]))
     want_log = hc._log_scan_plain(*scan_in)
     torch.cuda.synchronize()
     for name, got, exp in (("viterbi alphas", vit_alphas, want_vit[0]),
@@ -939,8 +962,9 @@ def assert_wide_scans_equal_plain(scan_in):
 @pytest.mark.parametrize("C", WIDE_CLASSES)
 @pytest.mark.parametrize("Km", WIDE_KMS)
 def test_wide_scans_bit_exact_with_plain(cuda, C, Km):
-    """Each layout: the ring in shared memory and (C = 1024, Km = 64) in
-    global memory."""
+    """Each layout: the ring in shared memory and (C = 1024, Km = 64; past
+    1,024 classes from Km = 25) in global memory; past 1,024 classes two
+    classes a thread."""
     T = 24 if C > 342 else 40  # the plain log scan is a Python loop over C
     assert_wide_scans_equal_plain(scan_inputs(np.random.RandomState(C + Km), 2, T, C, Km, cuda))
 
@@ -984,9 +1008,9 @@ def assert_wide_traceback_equal_plain(bp, L, c_last, tile=None):
 
 
 def wide_random_codes(rng, N, T, C, Km, device):
-    """Codes at radix 1024 with uniform random durations (up to Km rows)
-    and classes."""
-    codes = rng.randint(0, Km, size=(N, T, C)) * hc.WIDE_CODE_RADIX + rng.randint(
+    """Codes at ``code_radix(C)`` (1024 up to 1,024 classes) with uniform
+    random durations (up to Km rows) and classes."""
+    codes = rng.randint(0, Km, size=(N, T, C)) * hc.code_radix(C) + rng.randint(
         0, C, size=(N, T, C))
     return torch.from_numpy(codes.astype(np.int32)).to(device)
 
@@ -995,8 +1019,8 @@ def wide_random_codes(rng, N, T, C, Km, device):
 @pytest.mark.parametrize("max_rows", (None, 3))
 def test_wide_traceback_matches_plain(cuda, C, max_rows):
     """W2 on the plain scan's codes (the wrapper's ring, or 3-row tiles)
-    and on uniform random codes at radix 1024, with lengths down to 1:
-    spans equal."""
+    and on uniform random codes at ``code_radix(C)`` (2,048 at 1,025 and
+    1,577 classes), with lengths down to 1: spans equal."""
     pots, lengths = random_pots(np.random.RandomState(C), 4, 60, C, 20, cuda)
     lengths[1] = 1
     L = lengths.long()
@@ -1088,31 +1112,38 @@ def test_wide_traceback_at_t12000(cuda):
 
 def test_wide_traceback_launch_refuses_what_it_does_not_take(cuda):
     """W2's entry refuses shared memory that cannot hold the ring, no
-    slots or more than 16, C outside (128, 1024] and codes not 16-byte
-    aligned; the wrapper raises on the last."""
+    slots or more than 16, C <= 128, a radix below C (1,025 classes at
+    1,024) and codes not 16-byte aligned; the wrapper raises on the last,
+    and on a row of codes wider than a slot of its ring of 4 (14,522
+    classes)."""
     bp = wide_random_codes(np.random.RandomState(3), 2, 64, 200, 5, cuda)
     L = torch.full((2,), 64, device=cuda)
     c = torch.zeros(2, dtype=torch.long, device=cuda)
     spans = torch.empty((2, 64), dtype=torch.long, device=cuda)
     tile = hc.wide_traceback_tile(64, 200, 8, 4)
-    for ptr, C, (rows, stages, smem) in (
-            (bp, 200, (tile.rows, tile.stages, tile.smem_bytes - 16)),
-            (bp, 200, (tile.rows, 0, tile.smem_bytes)), (bp, 200, (tile.rows, 17, 1 << 17)),
-            (bp, 200, (0, tile.stages, tile.smem_bytes)), (bp, 128, tile),
-            (bp, 1025, (tile.rows, tile.stages, 1 << 17))):
+    for ptr, C, (rows, stages, smem), shift in (
+            (bp, 200, (tile.rows, tile.stages, tile.smem_bytes - 16), 10),
+            (bp, 200, (tile.rows, 0, tile.smem_bytes), 10),
+            (bp, 200, (tile.rows, 17, 1 << 17), 10),
+            (bp, 200, (0, tile.stages, tile.smem_bytes), 10), (bp, 128, tile, 10),
+            (bp, 1025, (tile.rows, tile.stages, 1 << 17), 10),
+            (bp, 200, tile, 7), (bp, 200, tile, 31)):
         err = hc._call("hsmm_viterbi", "hsmm_viterbi_traceback_wide", [ptr, L, c, spans],
-                       [2, 64, C, rows, stages, smem], bp)
-        assert err != 0, (C, rows, stages, smem)
+                       [2, 64, C, rows, stages, smem, shift], bp)
+        assert err != 0, (C, rows, stages, smem, shift)
     flat = wide_random_codes(np.random.RandomState(4), 1, 2 * 64 * 200 + 1, 1, 5, cuda)
     shifted = flat.view(-1)[1:].view(2, 64, 200)  # contiguous, 4 bytes past a line
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
     err = hc._call("hsmm_viterbi", "hsmm_viterbi_traceback_wide", [shifted, L, c, spans],
-                   [2, 64, 200, *tile], bp)
+                   [2, 64, 200, *tile, 10], bp)
     assert err != 0
     with pytest.raises(ValueError):
         hc.hsmm_viterbi_traceback(shifted, L, c)
+    wide = torch.zeros((1, 8, 14522), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="14522"):
+        hc.hsmm_viterbi_traceback(wide, L[:1].clamp(max=8), c[:1])
     err = hc._call("hsmm_viterbi", "hsmm_viterbi_traceback_wide", [bp, L, c, spans],
-                   [2, 64, 200, *tile], bp)
+                   [2, 64, 200, *tile, 10], bp)
     torch.cuda.synchronize()
     assert err == 0
     assert torch.equal(spans, hc._traceback_plain(bp, L, c))
@@ -1129,27 +1160,29 @@ def test_wide_band_grad_matches_plain(cuda, C, K):
 
 
 def test_wide_launches_refuse_what_they_do_not_take(cuda):
-    """Above 1,024 classes the scans, the traceback and K4 raise; the wide
-    scan's launch refuses too little shared memory or a radix below C."""
-    scan_in = scan_inputs(np.random.RandomState(1), 1, 4, 1025, 2, cuda)
+    """Past 14,528 classes (the L2 route's alpha rows and per-class state
+    past a block's shared memory) the scans raise, naming the width, and
+    launch nothing; the wide scan's launch refuses too little shared
+    memory, a radix below C or no chains a table."""
+    C = 14529
+    z = lambda *shape: torch.zeros(shape[-1:], device=cuda).expand(shape)  # noqa: E731
+    before = launches(WIDE_KERNELS)
     for scan in (hc.hsmm_viterbi_scan, hc.hsmm_log_scan, hc.hsmm_forward_scan):
-        with pytest.raises(ValueError):
-            scan(*scan_in)
-    with pytest.raises(ValueError):
-        hc.hsmm_band_grad(torch.zeros((1, 4, 1025), device=cuda),
-                          torch.zeros((1, 6, 1025), device=cuda),
-                          torch.zeros((1, 1, 1025), device=cuda))
+        with pytest.raises(ValueError, match=str(C)):
+            scan(z(1, C, C), z(1, C), z(1, 2, C), z(1, 4, C))
+    assert launches(WIDE_KERNELS) == before
     scan_in = scan_inputs(np.random.RandomState(2), 2, 8, 200, 19, cuda)
     trans_t = scan_in[0].transpose(1, 2).contiguous()
     alphas = torch.empty_like(scan_in[3])
     bp = torch.empty(alphas.shape, dtype=torch.int32, device=cuda)
     for inst in (hc.wide_scan_instance(200, 19), hc.wide_l2_instance(200, 19)):
         cluster = inst.cluster if inst.route == "cluster" else 0
-        for radix, smem in ((1024, inst.smem_bytes - 4), (128, inst.smem_bytes)):
+        for radix, smem, group in ((1024, inst.smem_bytes - 4, 1), (128, inst.smem_bytes, 1),
+                                   (1024, inst.smem_bytes, 0)):
             err = hc._call("hsmm_scan_wide", "hsmm_wide_viterbi_scan",
                            [trans_t, *scan_in[1:], alphas, bp, None],
-                           [2, 8, 200, 19, radix, cluster, inst.slab, smem], alphas)
-            assert err != 0, (inst.route, radix, smem)
+                           [2, 8, 200, 19, radix, cluster, inst.slab, smem, group], alphas)
+            assert err != 0, (inst.route, radix, smem, group)
 
 
 def test_wide_partition_fb_kernels_match_plain(cuda):
@@ -1219,7 +1252,7 @@ def test_wide_model_decodes_and_trains_on_the_card(cuda):
 # route (the table in the shared memory of a chain's blocks) and the L2 route
 
 ROUTE_CLASSES = (129, 236, 342, hc.WIDE_CLUSTER_MAX_CLASSES, hc.WIDE_CLUSTER_MAX_CLASSES + 1,
-                 1024)
+                 1024, 1025, 1577)
 ROUTE_KMS = (1, 19, 25, 64)
 WIDE_SCAN_CALLS = (("hsmm_wide_viterbi_scan", "ab"), ("hsmm_wide_log_scan", "ga"),
                    ("hsmm_wide_forward_scan", "a"))
@@ -1275,6 +1308,37 @@ def test_wide_scans_at_the_s6_shape_equal_plain(cuda):
     torch.cuda.synchronize()
     assert torch.equal(alphas, want[0]) and torch.equal(bp, want[1])
     assert torch.equal(fwd, hc._forward_scan_plain(*fwd_in))
+
+
+@pytest.mark.parametrize("C,Km", [(342, 19), (1577, 19), (1577, 64)])
+def test_wide_scans_share_an_expanded_table(cuda, C, Km):
+    """A batch whose transition table is one expanded view (batch stride
+    0, as a model's potentials give it) goes to the kernel as one table
+    that every chain reads: each instance's outputs equal to those of the
+    same table copied a chain, on the route ``wide_scan_instance`` picks
+    and on the L2 route."""
+    rng = np.random.RandomState(C + Km)
+    N, T = 4, 16
+    trans1, init, dur, emit = scan_inputs(rng, 1, T, C, Km, cuda)
+    init, dur, emit = (x.expand((N,) + x.shape[1:]).contiguous() + 0.5 * torch.arange(
+        N, device=cuda).view((N,) + (1,) * (x.ndim - 1)) for x in (init, dur, emit))
+    shared = trans1.expand(N, C, C)
+    copied = shared.contiguous()
+    for inst in {hc.wide_scan_instance(C, Km), hc.wide_l2_instance(C, Km)}:
+        for symbol, kind in WIDE_SCAN_CALLS:
+            radix = [hc.code_radix(C)] if "b" in kind else []
+            outs = {}
+            for name, trans in (("shared", shared), ("copied", copied)):
+                outs[name] = wide_outputs(kind, emit)
+                hc._launch_wide_scan(symbol, symbol, trans, init, dur, emit, outs[name], radix,
+                                     inst=inst)
+            torch.cuda.synchronize()
+            for got, exp in zip(outs["shared"], outs["copied"]):
+                assert torch.equal(got, exp), (symbol, inst)
+    alphas, bp = hc.hsmm_viterbi_scan(shared, init, dur, emit)
+    want = hc._viterbi_scan_plain(copied, init, dur, emit)
+    torch.cuda.synchronize()
+    assert torch.equal(alphas, want[0]) and torch.equal(bp, want[1])
 
 
 def test_wide_cluster_launch_refused_raises(cuda, monkeypatch):

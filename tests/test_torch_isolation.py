@@ -18,7 +18,6 @@ from action_segmentation_torch.data.synthetic import SyntheticDatasplit
 from action_segmentation_torch.models.semimarkov import GaussianHsmm, SemiMarkovModel
 from action_segmentation_torch.ops.hsmm_cuda import (
     MAX_CLASSES,
-    WIDE_MAX_CLASSES,
     hsmm_band_max,
     hsmm_gamma_scan,
     kernel_path,
@@ -140,10 +139,10 @@ def test_kernel_gate_and_other_devices():
 def test_kernel_path_chooses_by_device():
     """Decode chooses its chain by the model's class count on both devices
     (the labels kernels at <= 128 classes, the exact-spans kernels above);
-    on the card every call runs kernels and only a DP WIDER than the wide
-    kernels' 1,024 classes raises. The 342-class CrossTask model takes the
-    spans chain and the partition's kernels on the card, whether its DP
-    is a task's 20 classes or all 342."""
+    on the card every call runs kernels, at any width. The 342-class
+    CrossTask model takes the spans chain and the partition's kernels on
+    the card, whether its DP is a task's 20 classes or all 342, and so
+    does the 1,577-class model of all 83 tasks."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
     assert kernel_path(MAX_CLASSES, MAX_CLASSES, cpu) == ("labels", "kernels")
     assert kernel_path(MAX_CLASSES + 1, MAX_CLASSES + 1, cpu) == ("spans", "autograd")
@@ -152,5 +151,6 @@ def test_kernel_path_chooses_by_device():
     assert kernel_path(342, 20, cuda) == ("spans", "kernels")
     assert kernel_path(342, 342, cuda) == ("spans", "kernels")
     assert kernel_path(MAX_CLASSES + 1, MAX_CLASSES + 1, cuda) == ("spans", "kernels")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernel_path(WIDE_MAX_CLASSES + 1, WIDE_MAX_CLASSES + 1, cuda)
+    assert kernel_path(1577, 1577, cuda) == ("spans", "kernels")
+    assert kernel_path(1577, 19, cuda) == ("spans", "kernels")
+    assert kernel_path(1577, 1577, cpu) == ("spans", "autograd")

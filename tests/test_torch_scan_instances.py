@@ -123,7 +123,7 @@ def test_band_grad_tile_at_the_serving_shape_and_crosstask_fit():
     ideal = 18 * 1024 * 19 / 32 / 132
     assert serving.filling >= 720 / (2 * 528)
     assert serving.balance >= ideal / (6 * 16)
-    assert serving == (47, 893, 19, 67868, 22, 2, 2, 0.75, ideal / (3 * 28))
+    assert serving == (47, 893, 19, 67868, 22, 2, 2, 0.75, ideal / (3 * 28), 19)
     for B, T in ((5, 1056), (5, 808), (1, 1056)):
         fit = hc.band_grad_tile(B, T, 20, 19)
         assert fit.slab == 19 and fit.waves == 1 and B * fit.tiles <= 132, (B, T, fit)
@@ -180,7 +180,7 @@ def test_band_max_tile_at_the_serving_shape():
     (tools/scan_ab.py --kernels band_max)."""
     serving = hc.band_max_tile(18, 1024, 19, 19)
     assert serving == (47, 893, 19, 4 * 19 * 893, 22, 2, 2, 0.75,
-                       18 * 1024 * 19 / 32 / 132 / (3 * 28))
+                       18 * 1024 * 19 / 32 / 132 / (3 * 28), 19)
     assert serving == hc.band_max_tile(18, 1024, 19, 19, halo_share=0)
     for shape, rows, warps_alone in (((2, 12000, 19, 19), 47, 37), ((9, 1024, 19, 19), 37, 5),
                                      ((18, 1024, 48, 19), 21, 4), ((4, 360, 128, 19), 6, 1)):

@@ -1,12 +1,12 @@
-"""A DP wider than 128 classes (128 < C <= 1024) on the CPU, against the
-JAX package.
+"""A DP wider than 128 classes on the CPU, against the JAX package.
 
 Above 128 classes the JAX package runs its jnp DPs (ops/hsmm.py: the
 Viterbi keeps bp_d and bp_c in two planes, the partition and the
 marginals by autograd). The port packs a wide DP's backpointer codes at
 ``hsmm_cuda.code_radix(C)`` (1024 up to 1,024 classes, not the narrow
-kernels' 128, which a class index >= 128 would carry into the duration),
-and its wrappers run their kernels' plain versions on CPU tensors. Same
+kernels' 128, which a class index >= 128 would carry into the duration;
+past 1,024 the least power of two >= C, 2048 at 1,577 classes), and its
+wrappers run their kernels' plain versions on CPU tensors. Same
 numpy inputs on both sides. Tolerances are the JAX package's: scores
 and logZ rtol 1e-5 / atol 1e-4 (tests/test_hsmm_pallas.py), gradients
 and marginals rtol 2e-3 / atol 2e-4 (tests/test_hsmm_grad.py); spans and
@@ -38,26 +38,35 @@ WIDE_KERNELS = (hc.hsmm_viterbi_scan_wide, hc.hsmm_viterbi_traceback_wide,
                 hc.hsmm_log_scan_wide, hc.hsmm_forward_scan_wide)
 
 
+def past_radix(C):
+    """The first class index past the radix below ``code_radix(C)``: 128
+    (the narrow radix) up to 1,024 classes, 1,024 past them."""
+    return 128 if C <= 1024 else 1024
+
+
 def wide_arrays(rng, B, T, C, K):
-    """Potentials whose best paths visit the classes at and above 128:
-    their emissions get a bonus, so that a code's class index past the
-    narrow radix is read on the walk. (arrays, lengths ragged down to 1)."""
+    """Potentials whose best paths visit the classes at and above
+    ``past_radix(C)``: their emissions get a bonus, so that a code's class
+    index past the narrow radix (past 1,024 classes: past the radix of
+    1,024 classes) is read on the walk. (arrays, lengths ragged down to
+    1)."""
     trans = rng.randn(B, C, C).astype(np.float32)
     init = rng.randn(B, C).astype(np.float32)
     lens = rng.randn(B, K, C).astype(np.float32)
     lens[:, 0] = -1e9
     emit = rng.randn(B, T, C).astype(np.float32)
-    emit[:, :, 128:] += 1.5
+    emit[:, :, past_radix(C):] += 1.5
     end_mask = np.zeros((B, C), np.float32)
     lengths = rng.randint(T // 2, T + 1, size=B).astype(np.int32)
     lengths[0], lengths[-1] = T, 1
     return (trans, init, lens, emit, end_mask), lengths
 
 
-@pytest.mark.parametrize("C", (129, 200, 342))
+@pytest.mark.parametrize("C", (129, 200, 342, 1100, 1577))
 def test_wide_viterbi_spans_match_jax(C):
     """``hsmm_viterbi_spans`` (the plain scan and traceback at the wide
-    radix) against JAX's jnp ``hsmm_viterbi``: spans equal."""
+    radix) against JAX's jnp ``hsmm_viterbi``: spans equal, the walk
+    reading classes past 127 (past 1,023 above 1,024 classes)."""
     arrays, lengths = wide_arrays(np.random.RandomState(C), 3, 24, C, 8)
     want_spans, want_scores = jh.hsmm_viterbi(
         jh.HsmmPotentials(*map(jnp.asarray, arrays)), jnp.asarray(lengths))
@@ -68,7 +77,7 @@ def test_wide_viterbi_spans_match_jax(C):
     np.testing.assert_allclose(got_scores.numpy(), np.asarray(want_scores), rtol=RTOL,
                                atol=ATOL)
     np.testing.assert_array_equal(got_spans.numpy(), np.asarray(want_spans))
-    assert (got_spans.numpy() >= 128).any()  # the walk read a class past 127
+    assert (got_spans.numpy() >= past_radix(C)).any()  # the walk read a class past the radix
 
 
 def test_code_radix_and_its_overflow():
@@ -117,7 +126,7 @@ def test_wide_segment_with_marginals_matches_jax(wide_model):
     np.testing.assert_allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
-@pytest.mark.parametrize("C", (160, 200))
+@pytest.mark.parametrize("C", (160, 200, 1100))
 def test_wide_partition_fb_plain_matches_jax(C):
     """``HsmmPartitionFB`` through the PLAIN kernels (the card route's
     twin: the stacked log scan, the band sweep) against autograd of JAX's
@@ -142,19 +151,56 @@ def test_wide_partition_fb_plain_matches_jax(C):
 
 
 def test_kernel_path_on_the_card_takes_wide_dps():
-    """On the card a DP of up to WIDE_MAX_CLASSES classes takes the
-    kernels (the spans chain above 128 model classes, the kernel
-    partition); a wider one raises, naming ROADMAP."""
+    """On the card a DP of any width above 128 classes takes the kernels
+    (the spans chain above 128 model classes, the kernel partition):
+    1,025, the 1,577 of all 83 CrossTask tasks and 4,096 as 342 do."""
     cuda = torch.device("cuda")  # a device type: nothing runs
-    for width in (129, 342, 1024):
+    for width in (129, 342, 1024, 1025, 1577, 4096):
         assert hc.kernel_path(342 if width <= 342 else width, width, cuda) == ("spans", "kernels")
     assert hc.kernel_path(128, 128, cuda) == ("labels", "kernels")
-    assert hc.WIDE_MAX_CLASSES == 1024
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hc.kernel_path(1025, 1025, cuda)
 
 
-WIDE_CLASSES = (129, 342, 1024)
+@pytest.fixture(scope="module")
+def model_past_1024():
+    """A 1,100-class model (JAX's and the port's) with the same seeded
+    random parameters on both sides (a closed-form fit on the synthetic
+    corpus sees its first classes only), and test videos drawn from its
+    classes' means, a third of their spans in the classes past 1,023."""
+    C, D = 1100, 16
+    args = make_sm_args(sm_max_span_length=6, sm_supervised_method="closed-form")
+    jm, tm, _, _ = fitted(args, n_classes=C, feature_dim=D, n_train=4, n_test=1, max_len=12)
+    rng = np.random.RandomState(1100)
+    params = {"gaussian_means": 3 * rng.randn(C, D), "gaussian_cov": np.ones(D),
+              "transition_logits": rng.randn(C, C), "init_logits": rng.randn(C),
+              "poisson_log_rates": np.log(1 + 4 * rng.rand(C))}
+    params = {k: v.astype(np.float32) for k, v in params.items()}
+    jm.module.params = {k: jnp.asarray(v) for k, v in params.items()}
+    tm.module.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
+    feats = []
+    for length in (20, 13, 1, 17):
+        labels = []
+        while len(labels) < length:
+            cls = rng.randint(1024, C) if rng.rand() < 1 / 3 else rng.randint(0, 1024)
+            labels += [cls] * rng.randint(1, 5)
+        means = params["gaussian_means"][labels[:length]]
+        feats.append((means + 0.3 * rng.randn(length, D)).astype(np.float32))
+    return jm, tm, feats
+
+
+def test_wide_segmenter_past_1024_classes_matches_jax(model_past_1024):
+    """``Segmenter.segment_many`` over every class of a 1,100-class model
+    (a DP whose codes are at radix 2,048): labels equal to JAX's
+    Segmenter, classes past 1,023 among them."""
+    jm, tm, feats = model_past_1024
+    want = JSegmenter(jm).segment_many(feats, batch_size=2)
+    got = TSegmenter(tm).segment_many(feats, batch_size=2)
+    for f, g, w in zip(feats, got, want):
+        assert g.shape == (f.shape[0],)
+        np.testing.assert_array_equal(g, w)
+    assert max(int(g.max()) for g in got) >= 1024
+
+
+WIDE_CLASSES = (129, 342, 1024, 1025, 1577, 2048)
 WIDE_KMS = (1, 19, 64, 100)
 
 
@@ -165,9 +211,10 @@ def test_wide_scan_launch_fits_the_block(C, Km):
     cluster route: at most 8 blocks a chain, each of at most 256 threads
     (its slab of classes in whole warps), the slabs covering C with none
     empty, and a block's alpha rows, table columns and ring within 232,448
-    bytes. On the L2 route: one thread a class in whole warps within 1,024
-    threads; the alpha rows and, where both fit, the carry's ring in
-    shared memory, else the ring in global memory."""
+    bytes. On the L2 route: C threads in whole warps, at most 1,024, each
+    then ceil(C / threads) classes; the alpha rows, each class's prefix sum
+    and duration argmax (4 C words) and, where both fit, the carry's ring
+    in shared memory, else the ring in global memory."""
     inst = hc.wide_scan_instance(C, Km)
     assert inst.smem_bytes <= hc.MAX_BLOCK_SMEM
     if inst.route == "cluster":
@@ -178,11 +225,13 @@ def test_wide_scan_launch_fits_the_block(C, Km):
         assert inst.smem_bytes >= 4 * (2 * C + min(inst.slab, C) * C + Km * inst.slab)
     else:
         assert inst.route == "l2" and (inst.cluster, inst.slab) == (1, C)
-        assert C <= inst.threads <= hc.MAX_BLOCK_THREADS and inst.threads % 32 == 0
-        assert inst.threads - C < 32
-        fits = 4 * (2 * C + Km * C) <= hc.MAX_BLOCK_SMEM
+        assert inst.threads <= hc.MAX_BLOCK_THREADS and inst.threads % 32 == 0
+        assert inst.threads == hc.MAX_BLOCK_THREADS or 0 <= inst.threads - C < 32
+        per = -(-C // inst.threads)
+        assert per == (1 if C <= 1024 else 2)
+        fits = 4 * (4 * C + Km * C) <= hc.MAX_BLOCK_SMEM
         assert inst.ring == ("shared" if fits else "global")
-        assert inst.smem_bytes == 4 * (2 * C + (Km * C if fits else 0))
+        assert inst.smem_bytes == 4 * (4 * C + (Km * C if fits else 0))
     # the serving width's table over 3 blocks (Km = 19 at C = 342), and
     # 1,024 classes on the L2 route at Km = 64 (the ring past a block's
     # shared memory) and at Km = 19 (the ring in it)
@@ -195,15 +244,20 @@ def test_wide_scan_launch_fits_the_block(C, Km):
 @pytest.mark.parametrize("Km", WIDE_KMS)
 def test_wide_band_grad_and_traceback_tiles_fit_the_block(C, Km):
     """K4's tile and the traceback's at a wide DP: K4 one or more whole
-    rows of C threads with its slab within a block's and an SM's shared
-    memory (at 18 videos of 1,024 frames 5 rows at C = 129, 2 at 342, 1
-    at 1,024); the narrow traceback's rule two buffers of rows * C codes
-    in a block's; W2's ring 4 slots of 112 rows at C = 129, 42 at 342,
-    14 at 1,024. The codes' radix holds C."""
+    rows of a chunk of classes (all C up to 1,024, else C split evenly
+    into chunks of at most 1,024: 513 at 1,025, 789 at 1,577) with its
+    slab within a block's and an SM's shared memory (at 18 videos of
+    1,024 frames 5 rows at C = 129, 2 at 342, 1 from 1,024); the narrow
+    traceback's rule two buffers of rows * C codes in a block's; W2's
+    ring 4 slots of 112 rows at C = 129, 42 at 342, 14 at 1,024, 9 at
+    1,577. The codes' radix holds C."""
+    chunks = -(-C // 1024)
     for B, T in ((18, 1024), (1, 1056), (4, 200)):
         tile = hc.band_grad_tile(B, T, C, Km)
         warps = -(-tile.threads // 32)
-        assert 1 <= tile.rows <= T and tile.threads == tile.rows * C <= hc.MAX_BLOCK_THREADS
+        assert tile.chunk == -(-C // chunks) and (chunks - 1) * tile.chunk < C
+        assert 1 <= tile.rows <= T and tile.threads == tile.rows * tile.chunk
+        assert tile.threads <= hc.MAX_BLOCK_THREADS
         assert tile.smem_bytes == 4 * tile.slab * tile.threads <= hc.MAX_BLOCK_SMEM
         assert tile.blocks_per_sm * (tile.smem_bytes + hc.SM_SMEM_PER_BLOCK) <= hc.SM_SMEM
         assert tile.blocks_per_sm * warps * 32 * hc.BAND_GRAD_REGS <= hc.SM_REGS
@@ -212,11 +266,16 @@ def test_wide_band_grad_and_traceback_tiles_fit_the_block(C, Km):
         assert 1 <= tb.rows <= T
         assert tb.smem_bytes == hc.TRACEBACK_HEADER + 8 * hc._tile_words(tb.rows, C)
         assert tb.smem_bytes <= hc.MAX_BLOCK_SMEM
-    assert hc.traceback_tile(1024, C).rows == {129: 225, 342: 84, 1024: 28}[C]
-    assert hc.wide_traceback_tile(1024, C)[:2] == {129: (112, 4), 342: (42, 4), 1024: (14, 4)}[C]
-    assert hc.band_grad_tile(18, 1024, C, Km).rows == {129: 5, 342: 2, 1024: 1}[C]
+    assert hc.traceback_tile(1024, C).rows == {129: 225, 342: 84, 1024: 28, 1025: 28,
+                                               1577: 18, 2048: 14}[C]
+    assert hc.wide_traceback_tile(1024, C)[:2] == {129: (112, 4), 342: (42, 4), 1024: (14, 4),
+                                                   1025: (14, 4), 1577: (9, 4), 2048: (7, 4)}[C]
+    assert hc.band_grad_tile(18, 1024, C, Km).rows == {129: 5, 342: 2}.get(C, 1)
     radix = hc.code_radix(C)
     assert radix >= C and (Km * radix) < 2 ** 31
+    # a row of codes fits a slot of 4 up to 14,521 classes (past it the launch raises)
+    assert hc.wide_traceback_tile(8, 14521).smem_bytes <= hc.MAX_BLOCK_SMEM
+    assert hc.wide_traceback_tile(8, 14522).smem_bytes > hc.MAX_BLOCK_SMEM
 
 
 def wide_traceback_copies(T, C, length, tile, off):
@@ -234,7 +293,7 @@ def wide_traceback_copies(T, C, length, tile, off):
     return out
 
 
-@pytest.mark.parametrize("C", (129, 342, 664, 665, 1024))
+@pytest.mark.parametrize("C", (129, 342, 664, 665, 1024, 1025, 1577, 2048))
 @pytest.mark.parametrize("T", (1, 3, 84, 1024, 12000))
 @pytest.mark.parametrize("Km", (1, 19, 25, 64))
 def test_wide_traceback_ring_fits_the_block(C, T, Km):

@@ -47,8 +47,8 @@ def reckoned(C, Km):
 
 # (C, Km) -> (route, blocks a chain): one block to C = 228 (the table's
 # padded rows beside the alpha rows), two past it; the S6 shape's three;
-# the widest cluster C takes 8 at Km = 1 only; the next C and 1,024
-# classes take the L2 route
+# the widest cluster C takes 8 at Km = 1 only; the next C, 1,024 classes
+# and the widths past them (1,577: all 83 CrossTask tasks) the L2 route
 EXPECTED = {
     (129, 1): ("cluster", 1), (129, 19): ("cluster", 1), (129, 64): ("cluster", 1),
     (228, 1): ("cluster", 1), (228, 19): ("cluster", 1), (229, 1): ("cluster", 2),
@@ -58,6 +58,9 @@ EXPECTED = {
     (WIDEST, 1): ("cluster", 8), (WIDEST, 19): ("l2", 1), (WIDEST, 64): ("l2", 1),
     (WIDEST + 1, 1): ("l2", 1), (WIDEST + 1, 19): ("l2", 1), (WIDEST + 1, 64): ("l2", 1),
     (1024, 1): ("l2", 1), (1024, 19): ("l2", 1), (1024, 64): ("l2", 1),
+    (1025, 1): ("l2", 1), (1025, 19): ("l2", 1), (1025, 64): ("l2", 1),
+    (1577, 1): ("l2", 1), (1577, 19): ("l2", 1), (1577, 64): ("l2", 1),
+    (2048, 1): ("l2", 1), (2048, 19): ("l2", 1), (2048, 64): ("l2", 1),
 }
 
 
@@ -91,11 +94,15 @@ def test_widest_cluster_c_is_the_constant():
 @pytest.mark.parametrize("Km", (1, 2, 19, 64, 200))
 def test_never_cluster_above_the_constant(Km):
     """Above WIDE_CLUSTER_MAX_CLASSES every C takes the L2 route, its ring
-    in shared memory where it fits beside the alpha rows."""
-    for C in range(WIDEST + 1, hc.WIDE_MAX_CLASSES + 1):
+    in shared memory where it fits beside the alpha rows and the per-class
+    state (4 C words), in a block of at most 1,024 threads; to 14,528
+    classes, where the state alone fills a block's shared memory."""
+    for C in [*range(WIDEST + 1, 4097), 14528]:
         inst = hc.wide_scan_instance(C, Km)
         assert inst == hc.wide_l2_instance(C, Km)
         assert inst.route == "l2" and inst.smem_bytes <= hc.MAX_BLOCK_SMEM
+        assert inst.threads == min(1024, 32 * -(-C // 32))
+    assert hc.wide_l2_instance(14529, Km).smem_bytes > hc.MAX_BLOCK_SMEM
 
 
 @pytest.mark.parametrize("C", (129, 200, 342, 500, WIDEST))
@@ -109,22 +116,29 @@ def test_a_deeper_ring_never_takes_fewer_blocks(C, Km):
         assert b.cluster >= a.cluster
 
 
-@pytest.mark.parametrize("C,Km", [(200, 19), (342, 19), (1024, 19), (1024, 64)])
+@pytest.mark.parametrize("C,Km", [(200, 19), (342, 19), (1024, 19), (1024, 64), (1025, 19),
+                                  (1577, 19), (1577, 64), (2048, 19)])
 @pytest.mark.parametrize("symbol,kind", [("hsmm_wide_viterbi_scan", "ab"),
                                          ("hsmm_wide_log_scan", "ga"),
                                          ("hsmm_wide_forward_scan", "a")])
-def test_wide_launch_passes_the_route(monkeypatch, C, Km, symbol, kind):
+@pytest.mark.parametrize("shared", (False, True))
+def test_wide_launch_passes_the_route(monkeypatch, C, Km, symbol, kind, shared):
     """``_launch_wide_scan`` hands the kernel trans transposed ([from][to]),
     the outputs, a (N, Km, C) ring scratch only on the L2 route with its
     ring in global memory, and N, T, C, Km, [radix,] the blocks a chain (0
-    for the L2 route), the slab and the shared memory."""
+    for the L2 route), the slab, the shared memory and the chains a table:
+    1 for a table a chain, N for an expanded table (batch stride 0), which
+    goes to the kernel once."""
     calls = []
     monkeypatch.setattr(hc, "_check_cuda", lambda *a: None)
     monkeypatch.setattr(hc, "_call", lambda lib, sym, ptrs, ints, of: calls.append(
         (lib, sym, ptrs, ints)) or 0)
     rng = np.random.RandomState(C + Km)
     N, T = 2, 5
-    trans = torch.from_numpy(rng.randn(N, C, C).astype(np.float32))
+    if shared:
+        trans = torch.from_numpy(rng.randn(C, C).astype(np.float32)).expand(N, C, C)
+    else:
+        trans = torch.from_numpy(rng.randn(N, C, C).astype(np.float32))
     init = torch.zeros((N, C))
     dur = torch.zeros((N, Km, C))
     emit = torch.zeros((N, T, C))
@@ -134,7 +148,8 @@ def test_wide_launch_passes_the_route(monkeypatch, C, Km, symbol, kind):
     (lib, sym, ptrs, ints), = calls
     inst = hc.wide_scan_instance(C, Km)
     assert (lib, sym) == ("hsmm_scan_wide", symbol)
-    assert torch.equal(ptrs[0], trans.transpose(1, 2)) and ptrs[0].is_contiguous()
+    tables = trans[:1] if shared else trans
+    assert torch.equal(ptrs[0], tables.transpose(1, 2)) and ptrs[0].is_contiguous()
     assert ptrs[1:4] == [init, dur, emit] and ptrs[4:-1] == outs
     ring = ptrs[-1]
     if inst.ring == "global":
@@ -142,4 +157,4 @@ def test_wide_launch_passes_the_route(monkeypatch, C, Km, symbol, kind):
     else:
         assert ring is None
     cluster = inst.cluster if inst.route == "cluster" else 0
-    assert ints == [N, T, C, Km, *radix, cluster, inst.slab, inst.smem_bytes]
+    assert ints == [N, T, C, Km, *radix, cluster, inst.slab, inst.smem_bytes, N if shared else 1]
