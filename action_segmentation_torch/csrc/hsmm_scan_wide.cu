@@ -66,29 +66,57 @@
 // The template is compiled for a cluster of one block (kMulti false: the
 // alpha row stored locally, a block barrier a step) and of more.
 //
-// The L2 route (`wide_scan_kernel`, past the cluster route: a table a
-// portable cluster of 8 does not hold, or a ring that does not fit
-// beside it): one block a chain of min(C, 1,024) threads in whole warps;
-// thread j owns the classes c = j + k * blockDim.x, ceil(C / blockDim.x)
-// of them (two at 1,577 classes), and runs each one's duration reduce and
-// transition combine in turn. Each class's emission prefix sum (cum) and
-// duration argmax (carried across the step's barrier) sit in shared
-// memory beside the double-buffered alpha row, and its column of the
-// ring too where it fits, else in a global scratch the wrapper allocates
-// (the same code through a generic pointer); only the class's thread
-// touches them. One barrier a step. The combine reads trans transposed
-// from global memory, so that a warp's loads of one c' are one coalesced
-// line; the table stays in L2 across the steps, and a step waits on each
-// thread's C dependent-latency L2 loads a class, about eight in flight.
-// Past 14,528 classes the alpha rows and the per-class state do not fit
-// a block's shared memory, and the entry refuses the launch.
-//
+// The grid route (`wide_grid_scan_kernel`, past the cluster route: a
+// table a portable cluster of 8 does not hold, or a ring that does not fit
+// beside it) spreads a launch over every SM of the card: one cooperative
+// grid of at most one block an SM (cudaLaunchAttributeCooperative, so that
+// every block is resident at once or the launch is refused). Block b owns
+// the (chain, class) pairs of one group of `chains` consecutive chains and
+// one slab of `slab` classes; pair p is chain p / slab and class p % slab of
+// the block's, a thread taking the pairs p = tid, tid + blockDim.x, ...
+// (one at 1,577 classes and 18 chains). Where every chain of a block reads
+// one table and it fits, the block holds its slab's rows of that table in
+// shared memory for the whole scan (read once before the time loop);
+// otherwise the same code reads them from global memory (the table a
+// chain of a wide batch, which no card's shared memory holds). Rows are
+// trans[c, :] at table_stride(C), so that the combine is the cluster
+// route's `combine`, the same loads and the same bits. A step:
+//   (a) each pair's duration reduce; its alpha to the output plane and to
+//       the exchange row of its chain (xchg, [N][2][table_stride(C)]
+//       floats in global memory, double-buffered by the step's parity, so
+//       that the rows are 16-byte aligned where the plane's are not);
+//   (b) one grid barrier: after a block barrier, thread 0 adds 1 to the
+//       launch's step counter (`red.release.gpu`, the wrapper's scratch,
+//       zeroed by the launch on its stream) and spins (`ld.acquire.gpu`)
+//       until every block of the step has arrived;
+//   (c) the block's chains' alpha rows read back from the exchange rows
+//       (16-byte loads that bypass L1, `ld.global.cg`) into shared memory;
+//   (d) each pair's transition combine from shared memory (its table row,
+//       its chain's alpha row) and (e) its code or gamma stored and its
+//       ring pushed.
+// Each pair's emission prefix sum and duration argmax sit in shared memory
+// (across the barrier), and its column of the ring too where it fits, else
+// in a global scratch the wrapper allocates (a block's region), through
+// the same code. The exchange row of step t is written again at step t + 2
+// only after barrier t + 1, which no block passes before its reads of step
+// t; so one barrier a step suffices. What bounds it: a step's C terms a
+// pair, over every SM's schedulers, plus the barrier and the alpha rows'
+// bytes from L2 (tools/scan_floor.py reads the terms' instructions from
+// the SASS; tools/scan_ab.py's empty-step probe times the barrier alone).
+// ops/hsmm_cuda.py `wide_grid_instance` picks the tiling (the chains a
+// block, the slab, where the table and the ring live), the least of a
+// block's terms plus its bytes from L2 a step, and splits a batch whose
+// chains no grid holds over several launches.
+
 // A chain's table: `group` chains share one, chain n reading table
-// n / group of trans_t (1: a table a chain; N: every chain one table, as
-// a model's expanded transition view gives it, so that one copy of a
-// wide table stays in L2 for the whole batch: at 18 chains of 1,577
-// classes on an H100 the max scan ran 1.75x faster so than with a table a
-// chain, which streams 179 MB a step from HBM; PERF.md section 6).
+// n / group (1: a table a chain; N: every chain one table, as a model's
+// expanded transition view gives it; B of 2B: the stacked forward and
+// reversed chains' two). A shared table is read once: on the grid route
+// its slabs sit in the shared memory of the blocks whose chains read it,
+// where they fit beside the alpha rows; a table a chain at 1,577 classes
+// (179 MB for 18 chains) fits no card's shared memory, and its slabs
+// stream from HBM each step (the max scan 6.5x slower so on an H100,
+// PERF.md section 6).
 
 #include <cuda_runtime.h>
 
@@ -101,7 +129,7 @@ namespace {
 
 constexpr float kBigNeg = -1e9f;
 constexpr float kNegInf = -std::numeric_limits<float>::infinity();
-constexpr int kMaxThreads = 1024;  // the L2 route's block
+constexpr int kGridThreads = 512;  // the grid route's block at most
 constexpr int kMaxSmem = 232448;  // an H100 block's dynamic shared memory
 // the cluster route's slab: at most 256 classes a block (a cluster of one
 // holds at most 228 classes' table; a wider DP splits it over blocks)
@@ -115,7 +143,7 @@ enum class Scan { kViterbi, kLog, kForward };
 // and every 4-float group of it is 16-byte aligned
 __host__ __device__ inline int alpha_stride(int C) { return (C + 3) & ~3; }
 
-// a thread's row of the table in the cluster route: alpha_stride(C)
+// a class's row of the table (both routes): alpha_stride(C)
 // rounded up to 4 words past a multiple of 32, so that the 16-byte loads
 // of 8 lanes (one shared-memory wavefront) at one k fall in distinct banks
 __host__ __device__ inline int table_stride(int C) {
@@ -402,89 +430,147 @@ __global__ void __launch_bounds__(kMaxSlabThreads, 1)
   if constexpr (kMulti) cluster_sync();
 }
 
-// The L2 route. trans_t, init, dur, emit, gamma, alphas, bp as above;
-// ring_g (N, Km, C) float32 scratch, or null for the ring in shared memory.
-// Shared memory (in floats): [2][C] alpha rows, [C] cum, [C] duration
-// argmax (int), then the ring's [Km][C] where ring_g is null.
-template <Scan kS>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-    wide_scan_kernel(const float* __restrict__ trans_t,
-                     const float* __restrict__ init,
-                     const float* __restrict__ dur,
-                     const float* __restrict__ emit, float* __restrict__ gamma,
-                     float* __restrict__ alphas, int32_t* __restrict__ bp,
-                     float* __restrict__ ring_g, int T, int C, int Km,
-                     int radix, int group) {
-  extern __shared__ float smem[];
-  float* const alpha_s = smem;          // [2][C]
-  float* const cum_s = smem + 2 * C;    // [C]
-  int* const bd_s = reinterpret_cast<int*>(smem + 3 * C);  // [C]
-  const int n = blockIdx.x;
-  const int step = blockDim.x;
-  float* const ring =
-      ring_g != nullptr ? ring_g + (size_t)n * Km * C : smem + 4 * C;
-  const float* const table = trans_t + (size_t)(n / group) * C * C;
-  const float* const du = dur + (size_t)n * Km * C;
-  const size_t plane = (size_t)n * T * C;
-
-  // the ring: logical row j at physical (head + j) mod Km
-  for (int c = threadIdx.x; c < C; c += step) {
-    ring[c] = init[(size_t)n * C + c];
-    for (int j = 1; j < Km; ++j) ring[(size_t)j * C + c] = kBigNeg;
-    cum_s[c] = 0.f;
+// one arrival of the block at the grid barrier of step t (the counter's
+// target (t + 1) * gridDim.x): every thread's stores before it are seen by
+// every thread of every block after it
+__device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(counter)
+                 : "memory");
+    unsigned seen = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(seen)
+                   : "l"(counter)
+                   : "memory");
+    } while (seen < target);
   }
+  __syncthreads();
+}
+
+// The grid route. table (G, C, table_stride(C)): table g's rows trans[c, :]
+// ([to][from], padded); init, dur, emit, gamma, alphas, bp as above; xchg
+// (N, 2, table_stride(C)) float32 scratch; ring_g (gridDim.x, Km, chains *
+// slab) float32 scratch, or null for the ring in shared memory; counter one
+// uint32, 0 at the launch. kTableShared: the block's slab of its table in
+// shared memory (every chain of a block reads table n0 / group), else read
+// from global memory. Shared memory (in floats): the table slab's
+// [slab][rs] (kTableShared), the chains' alpha rows [chains][rs], each
+// pair's cum and duration argmax (int) [pairs] each, then the ring's
+// [Km][pairs] where ring_g is null.
+template <Scan kS, bool kTableShared>
+__global__ void __launch_bounds__(kGridThreads, 1)
+    wide_grid_scan_kernel(const float* __restrict__ table,
+                          const float* __restrict__ init,
+                          const float* __restrict__ dur,
+                          const float* __restrict__ emit,
+                          float* __restrict__ gamma,
+                          float* __restrict__ alphas,
+                          int32_t* __restrict__ bp, float* __restrict__ xchg,
+                          float* __restrict__ ring_g,
+                          unsigned* __restrict__ counter, int N, int T, int C,
+                          int Km, int radix, int slab, int chains, int group) {
+  extern __shared__ __align__(16) float smem[];
+  const int rs = table_stride(C);
+  const int q = rs / 4;  // a row's 16-byte words
+  const int slabs = (C + slab - 1) / slab;
+  const int n0 = (int)blockIdx.x / slabs * chains;
+  const int c0 = (int)blockIdx.x % slabs * slab;
+  const int pairs = chains * slab;
+  float* const trans_s = smem;  // [slab][rs] (kTableShared)
+  float* const alpha_s = smem + (kTableShared ? (size_t)slab * rs : 0);  // [chains][rs]
+  float* const cum_s = alpha_s + (size_t)chains * rs;  // [pairs]
+  int* const bd_s = reinterpret_cast<int*>(cum_s + pairs);  // [pairs]
+  float* const ring = ring_g != nullptr
+                          ? ring_g + (size_t)blockIdx.x * Km * pairs
+                          : cum_s + 2 * (size_t)pairs;  // [Km][pairs]
+  const int step = blockDim.x;
+
+  if constexpr (kTableShared) {  // the slab's rows of the block's table, once
+    const float4* const src = reinterpret_cast<const float4*>(
+        table + ((size_t)(n0 / group) * C + c0) * rs);
+    float4* const dst = reinterpret_cast<float4*>(trans_s);
+    const int rows = min(slab, C - c0);
+    for (int k = threadIdx.x; k < rows * q; k += step) dst[k] = src[k];
+  }
+  for (int p = threadIdx.x; p < pairs; p += step) {
+    const int n = n0 + p / slab, c = c0 + p % slab;
+    if (n >= N || c >= C) continue;
+    ring[p] = init[(size_t)n * C + c];
+    for (int j = 1; j < Km; ++j) ring[(size_t)j * pairs + p] = kBigNeg;
+    cum_s[p] = 0.f;
+  }
+  const int live_chains = min(chains, N - n0);
   int head = 0;
   for (int t = 0; t < T; ++t) {
-    float* const a_buf = alpha_s + (t & 1) * C;
-    const size_t at = plane + (size_t)t * C;
-    for (int c = threadIdx.x; c < C; c += step) {
+    const int b = t & 1;
+    // (a) the duration reduce; alpha to the plane and the exchange row
+    for (int p = threadIdx.x; p < pairs; p += step) {
+      const int n = n0 + p / slab, c = c0 + p % slab;
+      if (n >= N || c >= C) continue;
+      const size_t at = ((size_t)n * T + t) * C + c;
+      const float e = emit[at];
       int bd = 0;
-      const float e = emit[at + c];
-      const float r = duration_reduce<kS>(ring + c, C, du + c, C, Km, head, bd);
-      const float cum = cum_s[c] + e;
-      cum_s[c] = cum;
+      const float r = duration_reduce<kS>(ring + p, pairs,
+                                          dur + (size_t)n * Km * C + c, C, Km,
+                                          head, bd);
+      const float cum = cum_s[p] + e;
+      cum_s[p] = cum;
       const float alpha = r + cum;
-      alphas[at + c] = alpha;
-      a_buf[c] = alpha;
-      if constexpr (kS == Scan::kViterbi) bd_s[c] = bd;
+      alphas[at] = alpha;
+      xchg[((size_t)n * 2 + b) * rs + c] = alpha;
+      if constexpr (kS == Scan::kViterbi) bd_s[p] = bd;
+    }
+    // (b) every block's alphas of step t written
+    grid_barrier(counter, (unsigned)(t + 1) * gridDim.x);
+    // (c) the block's chains' alpha rows, past L1
+    {
+      const float4* const src =
+          reinterpret_cast<const float4*>(xchg + ((size_t)n0 * 2 + b) * rs);
+      float4* const dst = reinterpret_cast<float4*>(alpha_s);
+      const int words = live_chains * q;
+      int k = threadIdx.x;
+      for (; k + 3 * step < words; k += 4 * step) {  // four loads in flight
+        float4 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int w = k + u * step;
+          v[u] = __ldcg(src + (size_t)(w / q) * 2 * q + w % q);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) dst[k + u * step] = v[u];
+      }
+      for (; k < words; k += step) dst[k] = __ldcg(src + (size_t)(k / q) * 2 * q + k % q);
     }
     __syncthreads();
-
-    // the push: the oldest row's slot becomes logical row 0
+    // (d) the transition combine, (e) the outputs and the push
     const int next = head == 0 ? Km - 1 : head - 1;
-    for (int c = threadIdx.x; c < C; c += step) {
-      const float* const tr = table + c;  // column c: trans[c, c'] over c'
-      // the transition combine, c' ascending
-      float m = kNegInf;
+    for (int p = threadIdx.x; p < pairs; p += step) {
+      const int i = p / slab, j = p % slab;
+      const int n = n0 + i, c = c0 + j;
+      if (n >= N || c >= C) continue;
+      const float* const tr =
+          kTableShared ? trans_s + (size_t)j * rs
+                       : table + ((size_t)(n / group) * C + c) * rs;
       int bc = 0;
-#pragma unroll 8
-      for (int k = 0; k < C; ++k) {
-        const float x = tr[(size_t)k * C] + a_buf[k];
-        if constexpr (kS == Scan::kViterbi) {
-          if (x > m) {
-            m = x;
-            bc = k;
-          }
-        } else {
-          m = fmaxf(m, x);
-        }
-      }
-      float g = m;
-      if constexpr (kS != Scan::kViterbi) {
-        float s = 0.f;
-#pragma unroll 8
-        for (int k = 0; k < C; ++k) s += expf(tr[(size_t)k * C] + a_buf[k] - m);
-        g = m + logf(s);
-      }
+      const float g = combine<kS>(tr, alpha_s + (size_t)i * rs, C, bc);
+      const size_t at = ((size_t)n * T + t) * C + c;
       if constexpr (kS == Scan::kViterbi) {
-        bp[at + c] = bd_s[c] * radix + bc;
+        bp[at] = bd_s[p] * radix + bc;
       } else if constexpr (kS == Scan::kLog) {
-        gamma[at + c] = g;
+        gamma[at] = g;
       }
-      ring[(size_t)next * C + c] = g - cum_s[c];
+      ring[(size_t)next * pairs + p] = g - cum_s[p];
     }
     head = next;
   }
+}
+
+// T steps of the grid barrier alone (tools/scan_ab.py's empty-step probe)
+__global__ void __launch_bounds__(kGridThreads, 1)
+    grid_barrier_probe(unsigned* __restrict__ counter, int T) {
+  for (int t = 0; t < T; ++t) grid_barrier(counter, (unsigned)(t + 1) * gridDim.x);
 }
 
 // the cluster route's shared memory in bytes (the kernel's layout)
@@ -493,40 +579,97 @@ long cluster_smem(int C, int Km, int slab) {
                (long)(slab < C ? slab : C) * table_stride(C) + (long)Km * slab);
 }
 
+// the grid route's shared memory in bytes (the kernel's layout)
+long grid_smem(int C, int Km, int slab, int chains, bool table_shared,
+               bool ring_shared) {
+  const long pairs = (long)chains * slab;
+  return 4L * ((table_shared ? (long)slab * table_stride(C) : 0L) +
+               (long)chains * table_stride(C) + 2L * pairs +
+               (ring_shared ? (long)Km * pairs : 0L));
+}
+
+// the grid route's block: a thread a pair up to kGridThreads, in whole warps
+int grid_threads(int slab, int chains) {
+  const long pairs = (long)slab * chains;
+  return pairs < kGridThreads ? (int)(pairs + 31) / 32 * 32 : kGridThreads;
+}
+
+// a cooperative launch of `kernel` in `blocks` blocks, after zeroing the
+// step counter on the stream; refused (cudaErrorCooperativeLaunchTooLarge)
+// where the card does not hold every block at once
+template <typename... Params, typename... Args>
+int launch_cooperative(void (*kernel)(Params...), unsigned* counter,
+                       int blocks, int threads, int smem, int device,
+                       cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int per_sm = 0, sms = 0, coop = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop || blocks > per_sm * sms)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cudaMemsetAsync(counter, 0, sizeof(unsigned), stream);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)blocks);
+  config.blockDim = dim3((unsigned)threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // cluster > 0: the cluster route, `cluster` blocks of `slab` classes a
-// chain; 0: the L2 route (ring null for the ring in shared memory).
+// chain (table the transposed tables; xchg, ring and counter null); 0 and
+// -1: the grid route, blocks of `chains` chains and `slab` classes, the
+// table slab in shared memory (0) or read from global memory (-1).
 template <Scan kS>
-int launch(const void* trans_t, const void* init, const void* dur,
-           const void* emit, void* gamma, void* alphas, void* bp, void* ring,
-           int N, int T, int C, int Km, int radix, int cluster, int slab,
-           int smem, int group, int device, void* stream) {
+int launch(const void* table, const void* init, const void* dur,
+           const void* emit, void* gamma, void* alphas, void* bp, void* xchg,
+           void* ring, void* counter, int N, int T, int C, int Km, int radix,
+           int cluster, int slab, int chains, int smem, int group, int device,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool clustered = cluster > 0;
-  const long need =
-      clustered ? cluster_smem(C, Km, slab)
-                : 4L * (4L * C + (ring == nullptr ? (long)Km * C : 0L));
-  if (C < 1 || Km < 1 || cluster < 0 || group < 1 || smem < need ||
+  const bool table_shared = cluster == 0;
+  if (C < 1 || Km < 1 || cluster < -1 || group < 1 || slab < 1 ||
       smem > kMaxSmem ||
-      (clustered &&
-       (ring != nullptr || slab < 1 || slab > kMaxSlabThreads ||
-        (long)(cluster - 1) * slab >= C || (long)cluster * slab < C)) ||
       (kS == Scan::kViterbi && (radix < C || (long)Km * radix > INT_MAX)))
+    return (int)cudaErrorInvalidValue;
+  if (clustered &&
+      (ring != nullptr || xchg != nullptr || counter != nullptr ||
+       slab > kMaxSlabThreads || (long)(cluster - 1) * slab >= C ||
+       (long)cluster * slab < C || smem < cluster_smem(C, Km, slab)))
+    return (int)cudaErrorInvalidValue;
+  if (!clustered &&
+      (chains < 1 || xchg == nullptr || counter == nullptr ||
+       smem < grid_smem(C, Km, slab, chains, table_shared, ring == nullptr) ||
+       (table_shared && group < N && group % chains != 0)))
     return (int)cudaErrorInvalidValue;
   if (N == 0 || T == 0) return 0;
   if (!clustered) {
-    auto kernel = wide_scan_kernel<kS>;
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    const int threads = C < kMaxThreads ? (C + 31) / 32 * 32 : kMaxThreads;
-    kernel<<<N, threads, smem, (cudaStream_t)stream>>>(
-        (const float*)trans_t, (const float*)init, (const float*)dur,
-        (const float*)emit, (float*)gamma, (float*)alphas, (int32_t*)bp,
-        (float*)ring, T, C, Km, radix, group);
-    return (int)cudaGetLastError();
+    const int blocks = (N + chains - 1) / chains * ((C + slab - 1) / slab);
+    auto kernel = table_shared ? wide_grid_scan_kernel<kS, true>
+                               : wide_grid_scan_kernel<kS, false>;
+    return launch_cooperative(
+        kernel, (unsigned*)counter, blocks, grid_threads(slab, chains), smem,
+        device, (cudaStream_t)stream, (const float*)table, (const float*)init,
+        (const float*)dur, (const float*)emit, (float*)gamma, (float*)alphas,
+        (int32_t*)bp, (float*)xchg, (float*)ring, (unsigned*)counter, N, T, C,
+        Km, radix, slab, chains, group);
   }
   auto kernel = cluster > 1 ? wide_cluster_scan_kernel<kS, true>
                             : wide_cluster_scan_kernel<kS, false>;
@@ -545,7 +688,7 @@ int launch(const void* trans_t, const void* init, const void* dur,
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, kernel, (const float*)trans_t,
+  err = cudaLaunchKernelEx(&config, kernel, (const float*)table,
                            (const float*)init, (const float*)dur,
                            (const float*)emit, (float*)gamma, (float*)alphas,
                            (int32_t*)bp, T, C, Km, radix, cluster, slab, group);
@@ -581,49 +724,77 @@ int max_active_clusters(int cluster, int slab, int smem, int device,
 
 extern "C" {
 
-// trans_t (G, C, C) [from][to] (trans transposed), G = ceil(N / group):
-// chain n reads table n / group; init (N, C); dur (N, Km, C); emit (N, T,
-// C); alphas (N, T, C) out; all float32. bp (N, T, C) int32 out, bp =
-// bp_d * radix + bp_c (radix >= C, Km * radix in int32). cluster > 0: the
-// cluster route, `cluster` blocks of `slab` classes a chain ((cluster - 1)
-// * slab < C <= cluster * slab, slab <= 256), ring null, smem the shared
-// memory of a block (2 * alpha_stride(C) + (C + Km) * slab floats).
-// cluster 0: the L2 route, slab ignored; ring (N, Km, C) float32 scratch,
-// or null for the ring in shared memory; smem 4 * C floats plus, with no
-// scratch, the ring's Km * C (ops/hsmm_cuda.py `wide_scan_instance` sizes
-// both), at most a block's 232,448 bytes. All contiguous, on `device`.
-// Launches on `stream`; returns the CUDA error code (cudaErrorInvalidValue
-// for arguments it does not take, the launch's error where CUDA refuses
-// the cluster; 0 on success).
-int hsmm_wide_viterbi_scan(const void* trans_t, const void* init,
+// table: on the cluster route (cluster > 0) the tables transposed, (G, C,
+// C) [from][to]; on the grid route (cluster 0 or -1) the tables' rows, (G,
+// C, table_stride(C)) [to][from] padded; G = ceil(N / group): chain n
+// reads table n / group. init (N, C); dur (N, Km, C); emit (N, T, C);
+// alphas (N, T, C) out; all float32. bp (N, T, C) int32 out, bp = bp_d *
+// radix + bp_c (radix >= C, Km * radix in int32). cluster > 0: the cluster
+// route, `cluster` blocks of `slab` classes a chain ((cluster - 1) * slab <
+// C <= cluster * slab, slab <= 256), xchg, ring and counter null, `chains`
+// ignored, smem a block's shared memory (4 + 2 * alpha_stride(C) + min(slab,
+// C) * table_stride(C) + Km * slab floats). cluster 0 (the table slab in
+// shared memory; every block's chains on one table: group >= N or a
+// multiple of `chains`) or -1 (the table read from global memory): the
+// grid route, ceil(N / chains) * ceil(C / slab) blocks of `chains` chains
+// and `slab` classes, all resident at once; xchg (N, 2, table_stride(C))
+// float32 scratch; ring (blocks, Km, chains * slab) float32 scratch, or
+// null for the ring in shared memory; counter one uint32 of scratch (the
+// launch zeroes it on `stream`); smem as `grid_smem` (ops/hsmm_cuda.py
+// `wide_grid_instance` sizes all of it), at most a block's 232,448 bytes.
+// All contiguous, on `device`. Launches on `stream`; returns the CUDA
+// error code (cudaErrorInvalidValue for arguments it does not take,
+// cudaErrorCooperativeLaunchTooLarge for a grid the card does not hold at
+// once, the launch's error where CUDA refuses the cluster; 0 on success).
+int hsmm_wide_viterbi_scan(const void* table, const void* init,
                            const void* dur, const void* emit, void* alphas,
-                           void* bp, void* ring, int N, int T, int C, int Km,
-                           int radix, int cluster, int slab, int smem,
-                           int group, int device, void* stream) {
-  return launch<Scan::kViterbi>(trans_t, init, dur, emit, nullptr, alphas, bp,
-                                ring, N, T, C, Km, radix, cluster, slab, smem,
-                                group, device, stream);
+                           void* bp, void* xchg, void* ring, void* counter,
+                           int N, int T, int C, int Km, int radix, int cluster,
+                           int slab, int chains, int smem, int group,
+                           int device, void* stream) {
+  return launch<Scan::kViterbi>(table, init, dur, emit, nullptr, alphas, bp,
+                                xchg, ring, counter, N, T, C, Km, radix,
+                                cluster, slab, chains, smem, group, device,
+                                stream);
 }
 
 // The log semiring with the same inputs: gamma and alphas (N, T, C) out.
-int hsmm_wide_log_scan(const void* trans_t, const void* init, const void* dur,
-                       const void* emit, void* gamma, void* alphas, void* ring,
-                       int N, int T, int C, int Km, int cluster, int slab,
-                       int smem, int group, int device, void* stream) {
-  return launch<Scan::kLog>(trans_t, init, dur, emit, gamma, alphas, nullptr,
-                            ring, N, T, C, Km, 0, cluster, slab, smem, group,
-                            device, stream);
+int hsmm_wide_log_scan(const void* table, const void* init, const void* dur,
+                       const void* emit, void* gamma, void* alphas, void* xchg,
+                       void* ring, void* counter, int N, int T, int C, int Km,
+                       int cluster, int slab, int chains, int smem, int group,
+                       int device, void* stream) {
+  return launch<Scan::kLog>(table, init, dur, emit, gamma, alphas, nullptr,
+                            xchg, ring, counter, N, T, C, Km, 0, cluster, slab,
+                            chains, smem, group, device, stream);
 }
 
 // The log semiring's alphas alone (the partition's primal).
-int hsmm_wide_forward_scan(const void* trans_t, const void* init,
+int hsmm_wide_forward_scan(const void* table, const void* init,
                            const void* dur, const void* emit, void* alphas,
-                           void* ring, int N, int T, int C, int Km,
-                           int cluster, int slab, int smem, int group,
+                           void* xchg, void* ring, void* counter, int N, int T,
+                           int C, int Km, int cluster, int slab, int chains,
+                           int smem, int group, int device, void* stream) {
+  return launch<Scan::kForward>(table, init, dur, emit, nullptr, alphas,
+                                nullptr, xchg, ring, counter, N, T, C, Km, 0,
+                                cluster, slab, chains, smem, group, device,
+                                stream);
+}
+
+// T steps of the grid route's barrier alone, a cooperative launch of
+// `blocks` blocks of `threads` threads (counter one uint32 of scratch,
+// zeroed on `stream`): tools/scan_ab.py's empty-step probe. Returns the
+// CUDA error code.
+int hsmm_wide_grid_barrier(void* counter, int blocks, int threads, int T,
                            int device, void* stream) {
-  return launch<Scan::kForward>(trans_t, init, dur, emit, nullptr, alphas,
-                                nullptr, ring, N, T, C, Km, 0, cluster, slab,
-                                smem, group, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (counter == nullptr || blocks < 1 || threads < 1 ||
+      threads > kGridThreads || T < 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_cooperative(grid_barrier_probe, (unsigned*)counter, blocks,
+                            threads, 0, device, (cudaStream_t)stream,
+                            (unsigned*)counter, T);
 }
 
 // cudaOccupancyMaxActiveClusters of instance `scan` (0 kViterbi, 1 kLog,

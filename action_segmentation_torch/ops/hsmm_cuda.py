@@ -32,8 +32,10 @@ csrc/hsmm_scan_wide.cu (``hsmm_viterbi_scan_wide``, ``hsmm_log_scan_wide``,
 ``hsmm_forward_scan_wide``, on one of two routes that ``wide_scan_instance``
 picks by shape: up to WIDE_CLUSTER_MAX_CLASSES a cluster of 1-8 blocks a
 chain holding its transition table in shared memory, one thread a class;
-past it one block a chain reading the table from L2, each thread
-ceil(C / 1,024) classes), the wide traceback
+past it one cooperative grid over every SM, each block a slab of classes
+of a group of chains, its slab of the table in shared memory where the
+card's shared memory holds the batch's tables, one grid barrier a step),
+the wide traceback
 (``hsmm_viterbi_traceback_wide``, W2, codes at ``code_radix(C)``, passed
 to the launch: two warps a video, one walking the raw codes with two
 shared-memory loads a segment, the other streaming the plane from the top
@@ -41,9 +43,10 @@ down through a ring of tiles that ``wide_traceback_tile`` sizes, one bulk
 copy a tile) and the band gradient, whose blocks take at most 1,024
 classes (``band_grad_tile``'s chunk). Each wide kernel counts its own
 launches. What bounds the width: the codes' int32 (``_scan_radix``, on
-both devices) and, on the card, a block's shared memory, which holds the
-L2 route's alpha rows and per-class state up to 14,528 classes and W2's
-4 slots a row of up to 14,521 codes; past those the wrappers raise. The
+both devices) and, on the card, a block's shared memory, which holds one
+chain's alpha row on the grid route up to WIDE_GRID_MAX_CLASSES (57,220
+on 132 SMs) and W2's 4 slots a row of up to 14,521 codes; past those the
+wrappers raise. The
 max gamma scan and the band max stay at <= 128 classes: the labels chain
 never sees a wide DP (``kernel_path``).
 
@@ -99,9 +102,11 @@ MAX_CLASSES = 128
 SCAN_WINDOW = 16
 SCAN_CARRY = 24
 ROW_BUCKETS = (24, 32)
-# an H100 block's limits: threads, and dynamic shared memory once opted in
+# an H100 block's limits: threads, and dynamic shared memory once opted in;
+# the card's SMs
 MAX_BLOCK_THREADS = 1024
 MAX_BLOCK_SMEM = 232448
+H100_SMS = 132
 
 
 class ScanInstance(NamedTuple):
@@ -254,6 +259,7 @@ def _gamma_scan_plain(trans, init, dur, emit, with_alphas=False, semiring="max")
     """
     N, T, C = emit.shape
     Km = dur.shape[1]
+    trans = _dense_trans(trans)
     W = torch.full((N, Km, C), BIG_NEG, dtype=emit.dtype, device=emit.device)
     W[:, 0] = init
     cum = torch.zeros((N, C), dtype=emit.dtype, device=emit.device)
@@ -369,22 +375,29 @@ hsmm_forward_scan.launches = 0
 
 class WideScan(NamedTuple):
     """A wide scan's launch (csrc/hsmm_scan_wide.cu). `route` "cluster":
-    `cluster` blocks a chain, each holding the transition table's rows of
-    its `slab` classes in shared memory for the whole scan, the ring
-    beside them; "l2" (past the cluster route): one block a chain
-    (`cluster` 1, `slab` C) reading the table from L2, the carry's ring in
-    shared memory or, where it does not fit beside the alpha rows and the
-    per-class state, in a global scratch the wrapper allocates (`ring`
-    "global"). `threads` a block (one a class of its slab in whole warps;
-    on the L2 route at most 1,024, each thread ceil(C / threads) classes)
-    and `smem_bytes` a block's dynamic shared memory."""
+    `cluster` blocks a chain (N * cluster `blocks`), each holding the
+    transition table's rows of its `slab` classes in shared memory for the
+    whole scan, the ring beside them. "grid" (past the cluster route): one
+    cooperative grid of `blocks` blocks over the card's SMs, each the pairs
+    of `chains` chains and `slab` classes, its slab's table rows in shared
+    memory (`table` "shared") or read from global memory ("global"), the
+    pairs' ring in shared memory or in a global scratch (`ring`), a batch
+    of more chains than one grid holds split into launches of
+    `launch_chains`. `threads` a block (a thread a class of the slab, or a
+    pair, in whole warps; on the grid route at most GRID_THREADS, each
+    thread then its pairs in turn) and `smem_bytes` a block's dynamic
+    shared memory."""
 
     route: str
     cluster: int
     slab: int
+    chains: int
+    blocks: int
     threads: int
+    table: str
     ring: str
     smem_bytes: int
+    launch_chains: int
 
 
 # the cluster route's largest cluster (the portable size) and block
@@ -395,6 +408,8 @@ WIDE_SLAB_THREADS = 256
 # blocks of 83 classes at Km = 1 (the least ring), 230,092 bytes a block;
 # at 665 a slab of 84 takes 232,832 (``wide_scan_instance``)
 WIDE_CLUSTER_MAX_CLASSES = 664
+# the grid route's largest block (csrc/hsmm_scan_wide.cu's __launch_bounds__)
+GRID_THREADS = 512
 
 
 def _alpha_stride(C):
@@ -403,9 +418,10 @@ def _alpha_stride(C):
 
 
 def _table_stride(C):
-    """A class's row of the table in the cluster route, in floats: the
-    alpha stride rounded up to 4 past a multiple of 32 (its 16-byte loads
-    free of bank conflicts)."""
+    """A class's row of the table in shared memory, in floats: the alpha
+    stride rounded up to 4 past a multiple of 32 (its 16-byte loads free
+    of bank conflicts); on the grid route also the stride of the alpha
+    rows, of the exchange rows and of the table's rows in global memory."""
     return _alpha_stride(C) + (36 - _alpha_stride(C) % 32) % 32
 
 
@@ -417,35 +433,96 @@ def wide_cluster_smem(C, Km, slab):
     return 4 * (4 + 2 * _alpha_stride(C) + min(slab, C) * _table_stride(C) + Km * slab)
 
 
-def wide_l2_instance(C, Km):
-    """The L2 route's launch for C classes and Km duration rows: a block
-    of min(C, 1,024) threads in whole warps; in shared memory the
-    double-buffered alpha row and each class's emission prefix sum and
-    duration argmax, 4 * C words, and the ring of Km * C floats beside
-    them where both fit a block's shared memory, else the ring in global
-    memory. Past 14,528 classes the 4 * C words alone pass a block's
-    (the launch raises)."""
-    state = 4 * C
-    ring = "shared" if 4 * (state + Km * C) <= MAX_BLOCK_SMEM else "global"
-    return WideScan("l2", 1, C, min(MAX_BLOCK_THREADS, 32 * -(-C // 32)), ring,
-                    4 * (state + Km * C * (ring == "shared")))
+def wide_grid_smem(C, Km, slab, chains, table, ring):
+    """A grid-route block's shared memory in bytes (the kernel's layout):
+    its slab's table rows (`table` "shared"), its chains' alpha rows, each
+    pair's prefix sum and duration argmax, and (`ring` "shared") the
+    pairs' Km ring rows."""
+    pairs = chains * slab
+    return 4 * ((slab * _table_stride(C) if table == "shared" else 0)
+                + chains * _table_stride(C) + 2 * pairs
+                + (Km * pairs if ring == "shared" else 0))
 
 
-def wide_scan_instance(C, Km):
-    """The launch of csrc/hsmm_scan_wide.cu for C classes and Km duration
-    rows: the cluster route with the smallest cluster (1 to 8 blocks) whose
-    blocks each hold their slab's table, its ring and the alpha rows within
-    a block's shared memory, the slab in whole warps where that fits, else
-    C split evenly; past that (above WIDE_CLUSTER_MAX_CLASSES, or a ring
-    too deep) the L2 route (``wide_l2_instance``)."""
+def _grid_tiling(C, Km, n, group, N, sms, chains):
+    """The cheapest grid tiling of n chains (of the batch's N, `group` a
+    table), or None: for each chains-a-block g (or `chains`), ceil(n / g)
+    chain groups times the most slabs that leave at most one block an SM;
+    the table slab in shared memory where every block's chains read one
+    table and it fits, else in global memory; the ring in shared memory
+    where it fits beside. Its cost: a block's terms a step (pairs x C)
+    plus the floats it reads from L2 a step x 4 (its chains' alpha rows,
+    a global table slab's rows, a global ring's rows read and written),
+    both at about 64 a clock an SM."""
+    rs = _table_stride(C)
+    best = None
+    for g in ([chains] if chains else range(1, n + 1)):
+        groups = -(-n // g)
+        if groups > sms:
+            continue
+        slab = -(-C // (sms // groups))
+        pairs = g * slab
+        one_table = n == N and (group >= N or group % g == 0)
+        for table in ("shared", "global") if one_table else ("global",):
+            smem = wide_grid_smem(C, Km, slab, g, table, "global")
+            if smem > MAX_BLOCK_SMEM:
+                continue
+            ring = "shared" if wide_grid_smem(C, Km, slab, g, table, "shared") \
+                <= MAX_BLOCK_SMEM else "global"
+            reads = g * rs + (slab * rs if table == "global" else 0) + (
+                2 * Km * pairs if ring == "global" else 0)
+            cost = pairs * C + 4 * reads
+            if best is None or cost < best[0]:
+                blocks = groups * -(-C // slab)
+                best = (cost, WideScan(
+                    "grid", 0, slab, g, blocks, min(GRID_THREADS, 32 * -(-pairs // 32)), table,
+                    ring, wide_grid_smem(C, Km, slab, g, table, ring), n))
+            break  # the table in shared memory where it fits
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def wide_grid_instance(C, Km, N=1, group=1, sms=H100_SMS, chains=None):
+    """The grid route's launch for N chains (chain n reading table n //
+    `group`) of C classes and Km duration rows on a card of `sms` SMs
+    (``_grid_tiling``; `chains` fixes the chains a block), all N in one
+    launch where a tiling holds them, else the most chains a launch that
+    one holds (the table then read from global memory). Raises where not
+    even one chain fits a block: one alpha row and a slab's state past a
+    block's shared memory (WIDE_GRID_MAX_CLASSES at 132 SMs)."""
+    n = N
+    while n >= 1:
+        inst = _grid_tiling(C, Km, n, group, N, sms, chains)
+        if inst is not None:
+            return inst
+        n = n // 2 if chains is None else 0
+    raise ValueError("C={} at Km={} over {} chains: no grid-route block holds one chain's "
+                     "alpha row and its slab's state in {} bytes of shared memory".format(
+                         C, Km, N, MAX_BLOCK_SMEM))
+
+
+# the widest C the grid route takes on 132 SMs: one chain's alpha row and
+# the state of its slab of ceil(C / 132) classes in a block
+WIDE_GRID_MAX_CLASSES = 57220
+
+
+def wide_scan_instance(C, Km, N=1, group=1, sms=H100_SMS):
+    """The launch of csrc/hsmm_scan_wide.cu for N chains (`group` a table)
+    of C classes and Km duration rows: the cluster route with the smallest
+    cluster (1 to 8 blocks) whose blocks each hold their slab's table, its
+    ring and the alpha rows within a block's shared memory, the slab in
+    whole warps where that fits, else C split evenly; past that (above
+    WIDE_CLUSTER_MAX_CLASSES, or a ring too deep) the grid route
+    (``wide_grid_instance``)."""
     for cluster in range(1, WIDE_MAX_CLUSTER + 1):
         even = -(-C // cluster)
         for slab in (32 * -(-even // 32), even):
             smem = wide_cluster_smem(C, Km, slab)
             if smem <= MAX_BLOCK_SMEM and slab <= WIDE_SLAB_THREADS:
-                return WideScan("cluster", -(-C // slab), slab, 32 * -(-slab // 32),
-                                "shared", smem)
-    return wide_l2_instance(C, Km)
+                cluster = -(-C // slab)
+                return WideScan("cluster", cluster, slab, 1, N * cluster, 32 * -(-slab // 32),
+                                "shared", "shared", smem, N)
+    return wide_grid_instance(C, Km, N, group, sms)
 
 
 # the wide scans' instances in csrc/hsmm_scan_wide.cu's order
@@ -455,10 +532,10 @@ WIDE_SCAN_INDEX = {"viterbi": 0, "log": 1, "forward": 2}
 def wide_max_active_clusters(scan, C, Km, device=0):
     """cudaOccupancyMaxActiveClusters of the wide `scan` instance
     ("viterbi", "log" or "forward") on the cluster route at (C, Km): the
-    chains the card runs at once. Raises on the L2 route or a CUDA error."""
+    chains the card runs at once. Raises on the grid route or a CUDA error."""
     inst = wide_scan_instance(C, Km)
     if inst.route != "cluster":
-        raise ValueError("C={} Km={} takes the L2 route".format(C, Km))
+        raise ValueError("C={} Km={} takes the grid route".format(C, Km))
     fn = _bound("hsmm_scan_wide", "hsmm_wide_max_active_clusters",
                 (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
     out = ctypes.c_int(0)
@@ -468,37 +545,94 @@ def wide_max_active_clusters(scan, C, Km, device=0):
     return out.value
 
 
+def _wide_tables(name, trans, N, C):
+    """(tables (G, C, C) [to][from], chains a table) of a wide scan's
+    trans: (N, C, C), one table a chain or, where its chains share one
+    (batch stride 0, as a model's expanded table), that table for all N;
+    or (G, N / G, C, C) with the second axis expanded (``_stack_fwd_rev``'s
+    two tables of a wide expanded model), table g for N / G chains."""
+    if trans.dim() == 4:
+        G, group = trans.shape[:2]
+        if (G * group, *trans.shape[2:]) != (N, C, C) or (group > 1 and trans.stride(1) != 0):
+            raise ValueError("{}: trans shape {} is no (G, N / G, C, C) of expanded tables "
+                             "for N={} C={}".format(name, tuple(trans.shape), N, C))
+        return trans[:, 0], group
+    if tuple(trans.shape) != (N, C, C):
+        raise ValueError("{}: trans shape {} != {}".format(name, tuple(trans.shape), (N, C, C)))
+    group = N if N > 1 and trans.stride(0) == 0 else 1
+    return trans[::group], group
+
+
+def _grid_chunks(N, G, group, per_launch):
+    """The grid route's launches: (first chain, end, first table, end,
+    chains a table) of each. All N chains in one where `per_launch` holds
+    them; else at most `per_launch` chains a launch, none across a table
+    that several chains share."""
+    if per_launch >= N:
+        return [(0, N, 0, G, group)]
+    out, a = [], 0
+    while a < N:
+        b = min(a + per_launch, N)
+        if group == 1:
+            out.append((a, b, a, b, 1))
+        else:  # chains of one table, at most to its last
+            g = a // group
+            b = min(b, (g + 1) * group)
+            out.append((a, b, g, g + 1, b - a))
+        a = b
+    return out
+
+
 def _launch_wide_scan(name, symbol, trans, init, dur, emit, outputs, ints=(), inst=None):
-    """Checks, then one launch of csrc/hsmm_scan_wide.cu's `symbol` on the
-    route `inst` gives (by default ``wide_scan_instance``) writing
+    """Checks, then the launches of csrc/hsmm_scan_wide.cu's `symbol` on
+    the route `inst` gives (by default ``wide_scan_instance``) writing
     `outputs`; `ints` (the code radix) follow the shape's. trans may be
-    any (N, C, C) view: where its chains share one table (batch stride 0,
-    as a model's expanded table), the kernel gets that table alone and
-    every chain reads it (a group of N chains), else a table a chain."""
+    any (N, C, C) view, or ``_stack_fwd_rev``'s (G, N / G, C, C) tables
+    (``_wide_tables``): where chains share a table the kernel gets it
+    once. The cluster route takes the tables transposed ([from][to]), the
+    grid route their rows padded to ``_table_stride(C)``. Returns the
+    launches made (one unless the grid route splits the batch)."""
     N, T, C = emit.shape
     Km = dur.shape[1]
     if C <= MAX_CLASSES:
         raise ValueError("{}: C={} <= {}".format(name, C, MAX_CLASSES))
     if Km < 1:  # the carry needs a row (see _durations)
         raise ValueError("{}: dur needs at least one row".format(name))
-    if tuple(trans.shape) != (N, C, C):
-        raise ValueError("{}: trans shape {} != {}".format(name, tuple(trans.shape), (N, C, C)))
+    tables, group = _wide_tables(name, trans, N, C)
     if inst is None:
-        inst = wide_scan_instance(C, Km)
+        sms = _sm_count(emit.device.index) if emit.is_cuda else H100_SMS
+        inst = wide_scan_instance(C, Km, N, group, sms)
     if inst.smem_bytes > MAX_BLOCK_SMEM:
-        raise ValueError("{}: C={} at Km={}: the alpha rows and the per-class state take {} "
-                         "bytes, past a block's {}".format(name, C, Km, inst.smem_bytes,
-                                                            MAX_BLOCK_SMEM))
-    group = N if N > 1 and trans.stride(0) == 0 else 1
-    # [from][to]: a c' row's classes contiguous
-    trans_t = trans[::group].transpose(1, 2).contiguous()
-    _check_cuda(name, (emit, trans_t, init, dur),
-                ((N, T, C), (-(-N // group), C, C), (N, C), (N, Km, C)))
-    ring = emit.new_empty((N, Km, C)) if inst.ring == "global" else None
-    cluster = inst.cluster if inst.route == "cluster" else 0
-    err = _call("hsmm_scan_wide", symbol, [trans_t, init, dur, emit, *outputs, ring],
-                [N, T, C, Km, *ints, cluster, inst.slab, inst.smem_bytes, group], emit)
-    _raise_on_error(name, err)
+        raise ValueError("{}: C={} at Km={}: a block takes {} bytes of shared memory, past a "
+                         "block's {}".format(name, C, Km, inst.smem_bytes, MAX_BLOCK_SMEM))
+    G = tables.shape[0]
+    if inst.route == "cluster":
+        trans_t = tables.transpose(1, 2).contiguous()  # [from][to]: a c' row's classes contiguous
+        _check_cuda(name, (emit, trans_t, init, dur), ((N, T, C), (G, C, C), (N, C), (N, Km, C)))
+        err = _call("hsmm_scan_wide", symbol,
+                    [trans_t, init, dur, emit, *outputs, None, None, None],
+                    [N, T, C, Km, *ints, inst.cluster, inst.slab, 1, inst.smem_bytes, group], emit)
+        _raise_on_error(name, err)
+        return 1
+    rs = _table_stride(C)
+    table = emit.new_empty((G, C, rs))  # [to][from], each row padded
+    table[..., :C] = tables
+    _check_cuda(name, (emit, table, init, dur), ((N, T, C), (G, C, rs), (N, C), (N, Km, C)))
+    n_max = inst.launch_chains
+    xchg = emit.new_empty((n_max, 2, rs))
+    blocks = -(-n_max // inst.chains) * -(-C // inst.slab)
+    ring = emit.new_empty((blocks, Km, inst.chains * inst.slab)) if inst.ring == "global" \
+        else None
+    counter = torch.empty((1,), dtype=torch.int32, device=emit.device)
+    chunks = _grid_chunks(N, G, group, n_max)
+    for a, b, ta, tb, grp in chunks:
+        err = _call("hsmm_scan_wide", symbol,
+                    [table[ta:tb], init[a:b], dur[a:b], emit[a:b], *(o[a:b] for o in outputs),
+                     xchg, ring, counter],
+                    [b - a, T, C, Km, *ints, 0 if inst.table == "shared" else -1, inst.slab,
+                     inst.chains, inst.smem_bytes, grp], emit)
+        _raise_on_error(name, err)
+    return len(chunks)
 
 
 def hsmm_log_scan_wide(trans, init, dur, emit):
@@ -509,9 +643,8 @@ def hsmm_log_scan_wide(trans, init, dur, emit):
     if _device_type(emit) == "cpu":
         return _log_scan_plain(trans, init, dur, emit)
     gamma, alphas = torch.empty_like(emit), torch.empty_like(emit)
-    _launch_wide_scan("hsmm_log_scan_wide", "hsmm_wide_log_scan", trans, init, dur, emit,
-                      [gamma, alphas])
-    hsmm_log_scan_wide.launches += 1
+    hsmm_log_scan_wide.launches += _launch_wide_scan(
+        "hsmm_log_scan_wide", "hsmm_wide_log_scan", trans, init, dur, emit, [gamma, alphas])
     return gamma, alphas
 
 
@@ -526,9 +659,8 @@ def hsmm_forward_scan_wide(trans, init, dur, emit):
     if _device_type(emit) == "cpu":
         return _forward_scan_plain(trans, init, dur, emit)
     alphas = torch.empty_like(emit)
-    _launch_wide_scan("hsmm_forward_scan_wide", "hsmm_wide_forward_scan", trans, init, dur,
-                      emit, [alphas])
-    hsmm_forward_scan_wide.launches += 1
+    hsmm_forward_scan_wide.launches += _launch_wide_scan(
+        "hsmm_forward_scan_wide", "hsmm_wide_forward_scan", trans, init, dur, emit, [alphas])
     return alphas
 
 
@@ -588,7 +720,6 @@ class BandTile(NamedTuple):
 
 # an H100 SM's limits, and the registers csrc/band_max.cu's and
 # csrc/band_grad.cu's launch bounds allow a thread
-H100_SMS = 132
 SM_THREADS = 2048
 SM_BLOCKS = 32
 SM_REGS = 65536
@@ -839,13 +970,35 @@ def _stack_fwd_rev(pots: HsmmPotentials, lengths):
     By the HSMM's time symmetry the suffix boundary scores are the prefix
     boundary scores of the REVERSED model: emissions reversed within each
     length, transitions transposed, init and end_mask swapped. Every
-    chain starts at t = 0."""
-    trans = torch.cat([pots.trans, pots.trans.transpose(-1, -2)], dim=0)
+    chain starts at t = 0. Above 128 classes, where the B videos share one
+    table (an expanded view, batch stride 0, as a model's potentials give
+    it), trans is the two tables (the table and its transpose) as a (2, B,
+    C, C) view expanded over the videos: the wide scans read each once
+    (``_wide_tables``), the plain versions as the concatenated form."""
+    B, _, C = pots.emit.shape
+    if C > MAX_CLASSES and (B == 1 or pots.trans.stride(0) == 0):
+        table = pots.trans[0]
+        trans = torch.stack([table, table.transpose(0, 1)])[:, None].expand(2, B, C, C)
+    else:
+        trans = torch.cat([pots.trans, pots.trans.transpose(-1, -2)], dim=0).contiguous()
     init = torch.cat([pots.init, pots.end_mask], dim=0)
     dur = _durations(pots.lens)
     dur = torch.cat([dur, dur], dim=0)
     emit = torch.cat([pots.emit, reverse_within_length(pots.emit, lengths)], dim=0)
-    return tuple(x.contiguous() for x in (trans, init, dur, emit))
+    return (trans, *(x.contiguous() for x in (init, dur, emit)))
+
+
+def _forward_chains(scan_in, B):
+    """The forward model's B chains of ``_stack_fwd_rev``'s inputs: its
+    table (or tables) and the first B rows of the rest."""
+    trans, *rest = scan_in
+    return (trans[0] if trans.dim() == 4 else trans[:B], *(x[:B] for x in rest))
+
+
+def _dense_trans(trans):
+    """A scan's trans as (N, C, C): ``_stack_fwd_rev``'s (2, B, C, C) view
+    of two tables as the concatenated tables, (N, C, C) as it is."""
+    return trans.reshape(-1, *trans.shape[-2:]) if trans.dim() == 4 else trans
 
 
 def _band_inputs(pots: HsmmPotentials, lengths, gamma):
@@ -963,8 +1116,9 @@ def _viterbi_scan_plain(trans, init, dur, emit, radix=None):
     """Plain PyTorch version of the backpointer scan (any device, any
     float dtype).
 
-    trans (N, C, C) [to, from]; init (N, C); dur (N, Km, C), row j
-    scoring duration j+1; emit (N, T, C). Returns (alphas (N, T, C), bp
+    trans (N, C, C) [to, from] (or the (2, B, C, C) form, as
+    ``_gamma_scan_plain``); init (N, C); dur (N, Km, C), row j scoring
+    duration j+1; emit (N, T, C). Returns (alphas (N, T, C), bp
     (N, T, C) int32): alphas[:, t] is the best score of frames [0, t]
     whose last span ends at t, bp[:, t, c] = bp_d * radix + bp_c with
     bp_d the argmax duration row of that span and bp_c the argmax
@@ -976,6 +1130,7 @@ def _viterbi_scan_plain(trans, init, dur, emit, radix=None):
     Km = dur.shape[1]
     if radix is None:
         radix = _scan_radix("_viterbi_scan_plain", C, Km)
+    trans = _dense_trans(trans)
     W = torch.full((N, Km, C), BIG_NEG, dtype=emit.dtype, device=emit.device)
     W[:, 0] = init
     cum = torch.zeros((N, C), dtype=emit.dtype, device=emit.device)
@@ -1063,9 +1218,9 @@ def hsmm_viterbi_scan_wide(trans, init, dur, emit):
         return _viterbi_scan_plain(trans, init, dur, emit, radix)
     alphas = torch.empty_like(emit)
     bp = torch.empty(emit.shape, dtype=torch.int32, device=emit.device)
-    _launch_wide_scan("hsmm_viterbi_scan_wide", "hsmm_wide_viterbi_scan", trans, init, dur,
-                      emit, [alphas, bp], [radix])
-    hsmm_viterbi_scan_wide.launches += 1
+    hsmm_viterbi_scan_wide.launches += _launch_wide_scan(
+        "hsmm_viterbi_scan_wide", "hsmm_wide_viterbi_scan", trans, init, dur, emit, [alphas, bp],
+        [radix])
     return alphas, bp
 
 

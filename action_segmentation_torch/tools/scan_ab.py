@@ -86,25 +86,32 @@ count warps alone, rule, warps, warps, rule from graphs, fm equal to
 the plain version's in both.
 
 The wide scans (``--kernels wide``, never with the others) take an
-earlier ``hsmm_scan_wide.cu`` of one block a chain (the form before the
-cluster route: ``git show f3ba4a7:action_segmentation_torch/csrc/hsmm_scan_wide.cu``): pointers
-(trans transposed, init, dur, emit, the outputs, the ring's scratch or
-null) and N, T, C, Km, [radix,] smem, on ``hsmm_cuda.wide_l2_instance``'s
-launch. Step 0 comes first: the earlier kernels' floors from their SASS
-(``scan_floor.wide_floors``) at each shape. With ``--step0`` nothing of
-the current source is built and each earlier kernel is timed alone
-(old, old). Otherwise the current kernels, on the route
-``wide_scan_instance`` picks (and on the L2 route where that is another),
-are checked equal to the earlier ones and timed old, new, new, old with
-CUDA events launched one by one (a launch is milliseconds), at the S6
-shape (18 chains of 1,024 frames at C = 342, K = 20; 36 stacked chains
-for the log scan), C = 129, the cluster sizes 2, 5 and 8 (C = 236, 500,
-648, and 664 at K = 2; 256 frames), C = 1,024 (4 chains of 256 frames) and
-the two batches of chip_smoke.py's 160-wide fit (36 stacked chains of 208
-frames, ragged; the log scan); it prints ms and us a step, the floors of
-both versions and the ratio of each time to its floor. The transposition
-of trans, which the wrapper makes each call, is made once, outside the
-timed windows.
+earlier ``hsmm_scan_wide.cu`` whose past-the-cluster route is one block a
+chain (the L2 route: ``git show
+73d2b7b:action_segmentation_torch/csrc/hsmm_scan_wide.cu``, its entry
+points taking pointers to the transposed tables, init, dur, emit, the
+outputs and the ring's scratch or null, then N, T, C, Km, [radix,] 0 for
+that route, the slab, the shared memory and the chains a table), launched
+as ``scan_floor.earlier_l2_launch`` sizes it. Step 0 comes first: the
+earlier kernels' floors from their SASS (``scan_floor.wide_floors``) and
+each earlier kernel timed alone at each shape (old, old); with
+``--step0`` nothing current is built. Otherwise the empty-step probe
+times the current grid route's barrier alone (``hsmm_wide_grid_barrier``,
+T = 1,024 steps at one block an SM and at each shape's grid), then the
+current kernels on the route ``wide_scan_instance`` picks are checked
+equal to the earlier ones and timed old, new, new, old with CUDA events
+launched one by one (a launch is milliseconds), at C = 665, 1,024, 1,577
+(B = 18, T = 1,024, K = 20, the timed shape; at 1,577 a second tiling of
+the grid route, 18 chains a block, in turns beside it: new, alt, alt,
+new), 2,048 and 664 at Km = 19 (256 frames): the max and forward scans on
+18 chains of one expanded table, the log scan on the 36 stacked chains
+of two (the table and its transpose, ``_stack_fwd_rev``), both versions
+given the same tables. Last, as a finding, the grid route where the
+cluster route runs (C = 342 at the S6 shape, 664 at K = 2): cluster,
+grid, grid, cluster. It prints ms and us a step, each version's floor
+(the grid route's with the probe's barrier) and each time's ratio to it.
+The tables' layouts, which the wrapper makes each call, are made once,
+outside the timed windows.
 
 A thread reads the SM clock through NVML every 5 ms; each result lists
 the readings taken inside its timed windows, old and new apart. Prints the
@@ -139,6 +146,7 @@ from action_segmentation_torch.ops.hsmm_grad import _log_partition
 from action_segmentation_torch.tools.scan_floor import (
     built_sass,
     duration_loop,
+    earlier_l2_launch,
     library_sass,
     max_sm_clock_mhz,
     parse_function,
@@ -213,24 +221,19 @@ BAND_MAX_RULE_SHAPES = [
     ("B=9", 9, 1024, 19, 20, None),
     ("C=48", 18, 1024, 48, 20, None),
 ]
-# the wide scans' shapes: (name, B, T, C, K, lengths, scans); the log scan
-# runs on the 2B stacked chains
+# the wide scans' shapes past the cluster route: (name, B, T, C, K); the
+# log scan runs on the 2B stacked chains
 WIDE_SHAPES = [
-    ("S6", 18, 1024, 342, 20, None, ("viterbi", "log", "forward")),
-    ("C=129", 18, 1024, 129, 20, None, ("viterbi", "log", "forward")),
-    # the cluster route's sizes 2, 5 and 8 (at 18 chains a cluster of 8
-    # needs 144 SMs: a second wave), and its widest C (Km = 1)
-    ("C=236", 18, 256, 236, 20, None, ("viterbi", "log", "forward")),
-    ("C=500", 18, 256, 500, 20, None, ("viterbi", "log", "forward")),
-    ("C=648", 18, 256, 648, 20, None, ("viterbi", "log", "forward")),
-    ("C=664 Km=1", 18, 256, 664, 2, None, ("viterbi", "log", "forward")),
-    ("C=1024", 4, 256, 1024, 20, None, ("viterbi", "log", "forward")),
-    # chip_smoke.py's 160-wide fit (phase 4i(c)): its two batches of 18
-    ("fit batch 1", 18, 208, 160, 20, [200, 44, 181, 176, 194, 79, 50, 144, 75, 184, 28, 156,
-                                       92, 159, 145, 156, 143, 79], ("log",)),
-    ("fit batch 2", 18, 208, 160, 20, [193, 88, 53, 21, 22, 86, 139, 59, 173, 134, 34, 141,
-                                       144, 174, 55, 85, 64, 111], ("log",)),
+    ("C=665", 18, 1024, 665, 20),
+    ("C=1024", 18, 1024, 1024, 20),
+    ("timed C=1577", 18, 1024, 1577, 20),
+    ("C=2048", 18, 256, 2048, 20),
+    ("C=664 Km=19", 18, 256, 664, 20),  # past the cluster route's ring at Km = 19
 ]
+# the grid route where the cluster route runs (a finding): (name, B, T, C, K)
+WIDE_CLUSTER_SHAPES = [("S6 C=342", 18, 1024, 342, 20), ("C=664 Km=1", 18, 256, 664, 2)]
+# the timed shape's second tiling: chains a block (max and forward, log)
+WIDE_ALT_CHAINS = {"viterbi": 18, "forward": 18, "log": 9}
 # (scan, symbol, outputs: "g" gamma, "a" alphas, "b" codes)
 WIDE_SCANS = [("viterbi", "hsmm_wide_viterbi_scan", "ab"),
               ("log", "hsmm_wide_log_scan", "ga"),
@@ -998,22 +1001,33 @@ def compare_ring(fn, inputs, clock):
 
 def wide_launcher(fn, inputs, kind, inst, old):
     """(run, outputs): one launch of a wide scan `fn` on (trans, init, dur,
-    emit) with trans transposed once here (a table a chain), on `inst`'s
-    launch; the earlier interface has no cluster, slab and group
-    arguments."""
+    emit) on `inst`'s launch, the chains sharing tables as the inputs
+    give them (``hsmm_cuda._wide_tables``); the tables' layout (transposed
+    for the cluster route and the earlier L2 route, rows padded for the
+    grid route) and the scratch made once here. The earlier interface has
+    no exchange rows, counter or chains a block."""
     trans, init, dur, emit = inputs
     N, T, C = emit.shape
     Km = dur.shape[1]
-    trans_t = trans.transpose(1, 2).contiguous()
+    tables, group = hc._wide_tables("scan_ab", trans, N, C)
     outs = outputs_for(kind, emit)
-    ring = emit.new_empty((N, Km, C)) if inst.ring == "global" else None
-    ints = [N, T, C, Km] + ([hc.code_radix(C)] if "b" in kind else [])
-    if not old:
-        ints += [inst.cluster if inst.route == "cluster" else 0, inst.slab]
-    ints.append(inst.smem_bytes)
-    if not old:
-        ints.append(1)  # a table a chain
-    held = [trans_t, init, dur, emit, *outs, ring]  # alive while `run` is
+    radix = [hc.code_radix(C)] if "b" in kind else []
+    if old:  # the earlier L2 route: one block a chain
+        ring = emit.new_empty((N, Km, C)) if inst.ring == "global" else None
+        held = [tables.transpose(1, 2).contiguous(), init, dur, emit, *outs, ring]
+        ints = [N, T, C, Km, *radix, 0, C, inst.smem_bytes, group]
+    elif inst.route == "cluster":
+        held = [tables.transpose(1, 2).contiguous(), init, dur, emit, *outs, None, None, None]
+        ints = [N, T, C, Km, *radix, inst.cluster, inst.slab, 1, inst.smem_bytes, group]
+    else:
+        table = emit.new_zeros((tables.shape[0], C, hc._table_stride(C)))
+        table[..., :C] = tables
+        ring = emit.new_empty((inst.blocks, Km, inst.chains * inst.slab)) \
+            if inst.ring == "global" else None
+        held = [table, init, dur, emit, *outs, emit.new_empty((N, 2, hc._table_stride(C))), ring,
+                torch.zeros(1, dtype=torch.int32, device=emit.device)]
+        ints = [N, T, C, Km, *radix, 0 if inst.table == "shared" else -1, inst.slab,
+                inst.chains, inst.smem_bytes, group]
 
     def run():
         err = fn(*[None if x is None else x.data_ptr() for x in held], *ints,
@@ -1037,73 +1051,142 @@ def compare_wide(runs, window_ms, clock, order):
                 raise RuntimeError("{} and {} differ at {} of {} entries".format(
                     names[0], v, int((a != b).sum()), a.numel()))
     fastest = min(event_ms(run, 1)[0] for run, _ in runs.values())
-    n = int(min(1000, max(3, window_ms / fastest)))
+    n = int(min(1000, max(2, window_ms / fastest)))
     timed = [(v, *event_ms(runs[v][0], n)) for v in order]
     r = {"launches": n}
     for v in names:
-        r[v + "_ms"] = [ms for w, ms, _ in timed if w == v]
-        r[v + "_sm_mhz"] = clock_summary(clock.within([win for w, _, win in timed if w == v]))
+        r[v.replace(" ", "_") + "_ms"] = [ms for w, ms, _ in timed if w == v]
+        r[v.replace(" ", "_") + "_sm_mhz"] = clock_summary(
+            clock.within([win for w, _, win in timed if w == v]))
     return r
 
 
+def barrier_probe(lib, blocks, threads, T, clock):
+    """us a step of T grid barriers alone (``hsmm_wide_grid_barrier``) in a
+    cooperative grid of `blocks` blocks of `threads` threads, twice, and
+    the SM clock readings inside."""
+    fn = bind(lib, "hsmm_wide_grid_barrier", 1, 3)
+    counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def run():
+        err = fn(counter.data_ptr(), blocks, threads, T, counter.device.index,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError("barrier probe failed with CUDA error {}".format(err))
+    run()
+    timed = [event_ms(run, 20) for _ in range(2)]
+    return {"blocks": blocks, "threads": threads, "T": T,
+            "us_per_step": [1e3 * ms / T for ms, _ in timed],
+            "sm_mhz": clock_summary(clock.within([win for _, win in timed]))}
+
+
+def wide_inputs(B, T, C, K, rng, device):
+    """{scan: inputs}: the forward chains of one expanded table (the max
+    and forward scans, as the spans chain and the primal give them) and
+    the stacked forward and reversed chains of two (the log scan)."""
+    stacked, forward = scan_inputs(B, T, C, K, None, rng, device)
+    forward = (stacked[0][0], *forward[1:])  # the model's expanded table
+    return {"viterbi": forward, "forward": forward, "log": stacked}
+
+
 def run_wide(old_lib, new_lib, window_ms, clock, rng, device, old_sass, new_sass):
-    """The wide scans at WIDE_SHAPES: step 0's floors of the earlier
-    kernels (and the current ones'); with `new_lib` None the earlier
-    kernels alone, old, old; else old, new, new, old on the route
-    ``wide_scan_instance`` picks, and the current L2 route beside it where
-    that is another. Returns the results."""
+    """The wide scans: step 0's floors of the earlier kernels and their
+    times alone; with `new_lib` None nothing more. Else the barrier probe,
+    then at WIDE_SHAPES old, new, new, old on the route
+    ``wide_scan_instance`` picks (at the timed shape a second tiling
+    beside it), and at WIDE_CLUSTER_SHAPES the grid route against the
+    cluster route. Returns (results, probes)."""
     mhz = max_sm_clock_mhz()
-    results = []
-    for shape, B, T, C, K, lengths, scans in WIDE_SHAPES:
-        stacked, forward = scan_inputs(B, T, C, K, lengths, rng, device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    results, probes = [], []
+    if new_lib is not None:
+        for threads in (32, 224, 448):
+            probes.append(barrier_probe(new_lib, sms, threads, 1024, clock))
+            print("grid barrier probe: {} blocks of {} threads, {} us a step; SM clock {}".format(
+                sms, threads, ["{:.3f}".format(x) for x in probes[-1]["us_per_step"]],
+                probes[-1]["sm_mhz"]), flush=True)
+    for shape, B, T, C, K in WIDE_SHAPES + (WIDE_CLUSTER_SHAPES if new_lib else []):
+        inputs = wide_inputs(B, T, C, K, rng, device)
         Km = K - 1
-        old_floor = wide_floors(old_sass, C, Km, T, B, mhz, l2_only=True)
-        new_floor = wide_floors(new_sass, C, Km, T, B, mhz) if new_sass else {}
+        cluster_shape = (shape, B, T, C, K) in WIDE_CLUSTER_SHAPES
+        old_floor = {} if cluster_shape else wide_floors(old_sass, C, Km, T, B, mhz, sms,
+                                                         earlier=True)
         for scan, symbol, kind in WIDE_SCANS:
-            if scan not in scans:
-                continue
-            inputs = stacked if scan == "log" else forward
+            scan_in = inputs[scan]
+            N = scan_in[3].shape[0]
             n_ptr = 5 + len(kind)
-            old_inst = hc.wide_l2_instance(C, Km)
-            runs = {"old": wide_launcher(bind(old_lib, symbol, n_ptr, 5 + (kind == "ab")),
-                                         inputs, kind, old_inst, old=True)}
-            inst = hc.wide_scan_instance(C, Km)
+            inst = hc.wide_scan_instance(C, Km, N, B, sms)
+            grid = hc.wide_grid_instance(C, Km, N, B, sms)
+            runs, order = {}, []
+            if not cluster_shape:
+                runs["old"] = wide_launcher(bind(old_lib, symbol, n_ptr, 8 + (kind == "ab")),
+                                            scan_in, kind, earlier_l2_launch(C, Km), old=True)
             if new_lib is not None:
-                fn = bind(new_lib, symbol, n_ptr, 8 + (kind == "ab"))
-                runs["new"] = wide_launcher(fn, inputs, kind, inst, old=False)
-                if inst.route != "l2":
-                    runs["new l2"] = wide_launcher(fn, inputs, kind, old_inst, old=False)
-                order = ["old", "new", "new", "old"] + (
-                    ["new l2", "new l2"] if "new l2" in runs else [])
+                fn = bind(new_lib, symbol, n_ptr + 2, 9 + (kind == "ab"))
+                runs["new"] = wide_launcher(fn, scan_in, kind, inst, old=False)
+                if cluster_shape:
+                    runs["grid"] = wide_launcher(fn, scan_in, kind, grid, old=False)
+                    order = ["new", "grid", "grid", "new"]
+                else:
+                    order = ["old", "new", "new", "old"]
+                if shape.startswith("timed"):
+                    alt = hc.wide_grid_instance(C, Km, N, B, sms, chains=WIDE_ALT_CHAINS[scan])
+                    runs["alt"] = wide_launcher(fn, scan_in, kind, alt, old=False)
+                    order += ["new", "alt", "alt", "new"]
             else:
                 order = ["old", "old"]
             r = compare_wide(runs, window_ms, clock, order)
-            N = inputs[3].shape[0]
-            r.update(shape=shape, scan=scan, chains=N, T=T, C=C, Km=Km,
-                     route=inst.route, cluster=inst.cluster, slab=inst.slab,
-                     old_floor_ms=old_floor["{} l2".format(scan)]["floor_ms"])
+            r.update(shape=shape, scan=scan, chains=N, T=T, C=C, Km=Km, route=inst.route,
+                     cluster=inst.cluster, slab=inst.slab, chains_per_block=inst.chains,
+                     blocks=inst.blocks, threads=inst.threads, table=inst.table, ring=inst.ring)
+            if "alt" in runs:
+                r.update(alt_chains_per_block=alt.chains, alt_slab=alt.slab,
+                         alt_table=alt.table)
+            if "grid" in runs:
+                r.update(grid_chains_per_block=grid.chains, grid_slab=grid.slab,
+                         grid_blocks=grid.blocks, grid_table=grid.table)
+            if old_floor:
+                r["old_floor_ms"] = old_floor["{} l2".format(scan)]["floor_ms"]
+                r["old_floor_ratio"] = np.mean(r["old_ms"]) / r["old_floor_ms"]
             for v in runs:
-                r[v.replace(" ", "_") + "_us_per_step"] = 1e3 * np.mean(r[v + "_ms"]) / T
-            if new_floor:
-                key = "{} {}".format(scan, inst.route)
-                r["new_floor_ms"] = new_floor[key]["floor_ms"]
-                r["new_floor_ratio"] = np.mean(r["new_ms"]) / r["new_floor_ms"]
-                r["speedup"] = np.mean(r["old_ms"]) / np.mean(r["new_ms"])
-            r["old_floor_ratio"] = np.mean(r["old_ms"]) / r["old_floor_ms"]
+                r[v + "_us_per_step"] = 1e3 * np.mean(r[v + "_ms"]) / T
+            if new_sass is not None:
+                barrier = next((p["us_per_step"][-1] for p in probes
+                                if p["threads"] == inst.threads), None)
+                if barrier is None and probes:
+                    barrier = min(x for p in probes for x in p["us_per_step"])
+                try:
+                    floor = wide_floors(new_sass, C, Km, T, B, mhz, sms,
+                                        barrier_us=barrier or 0.0)["{} {}".format(scan, inst.route)]
+                except ValueError as e:  # a loop the reader does not recognise
+                    print("scan_ab: the new {} {}'s floor not read: {}".format(scan, inst.route, e),
+                          flush=True)
+                else:
+                    r.update(new_floor_ms=floor["floor_ms"],
+                             new_floor_ratio=np.mean(r["new_ms"]) / floor["floor_ms"],
+                             new_floor_barrier_us=floor["barrier_us_per_step"])
+                if "old" in runs:
+                    r["speedup"] = np.mean(r["old_ms"]) / np.mean(r["new_ms"])
             results.append(r)
-            print("{:12s} wide {:8s} N={:2d} T={:5d} C={:4d} Km={:2d}, {} (cluster {}, slab {}): "
-                  "{}; outputs equal; floors old {:.4f} ms{}; SM clock {}".format(
-                      shape, scan, N, T, C, Km, inst.route, inst.cluster, inst.slab,
+            print("{:14s} wide {:8s} N={:2d} T={:5d} C={:4d} Km={:2d}, {} (cluster {}, {} chains "
+                  "x {} classes a block, {} blocks of {} threads, table {}, ring {}): {}; outputs "
+                  "equal{}{}; SM clock {}".format(
+                      shape, scan, N, T, C, Km, inst.route, inst.cluster, inst.chains, inst.slab,
+                      inst.blocks, inst.threads, inst.table, inst.ring,
                       "; ".join("{} {} ms ({:.3f} us a step)".format(
                           v, ["{:.4f}".format(x) for x in r[v + "_ms"]],
-                          r[v.replace(" ", "_") + "_us_per_step"]) for v in runs),
-                      r["old_floor_ms"], "" if not new_floor else
-                      ", new {:.4f} ms; new x{:.2f} its floor, x{:.2f} faster".format(
-                          r["new_floor_ms"], r["new_floor_ratio"], r["speedup"]),
+                          r[v + "_us_per_step"]) for v in runs),
+                      "" if not old_floor else "; old floor {:.4f} ms (x{:.2f})".format(
+                          r["old_floor_ms"], r["old_floor_ratio"]),
+                      "" if "new_floor_ms" not in r else
+                      "; new floor {:.4f} ms with {:.3f} us a step of barrier (x{:.2f}){}".format(
+                          r["new_floor_ms"], r["new_floor_barrier_us"], r["new_floor_ratio"],
+                          "; x{:.2f} faster than old".format(r["speedup"]) if "speedup" in r
+                          else ""),
                       "; ".join("{} {}-{} MHz ({} readings)".format(
                           v, r[v + "_sm_mhz"].get("min"), r[v + "_sm_mhz"].get("max"),
                           r[v + "_sm_mhz"]["n"]) for v in runs)), flush=True)
-    return results
+    return results, probes
 
 
 def main():
@@ -1141,7 +1224,7 @@ def main():
     device = torch.device("cuda")
     rng = np.random.RandomState(args.seed)
     results, tb_results, bg_results, bm_results, rule_results = [], [], [], [], []
-    wide_results = []
+    wide_results, wide_probes = [], []
     bg_opcodes = {}
 
     def clk(s):
@@ -1165,7 +1248,7 @@ def main():
     with SmClock(device.index or 0) as clock:
         if args.kernels == "wide":
             old_sass = library_sass(args.old_csrc / "build" / "libhsmm_scan_wide.so")
-            wide_results = run_wide(
+            wide_results, wide_probes = run_wide(
                 old_libs["hsmm_scan_wide"], new_libs.get("hsmm_scan_wide"), args.window_ms,
                 clock, rng, device, old_sass,
                 None if args.step0 else built_sass("hsmm_scan_wide"))
@@ -1268,7 +1351,8 @@ def main():
     out = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
            "results": results, "traceback": tb_results, "band_grad": bg_results,
            "band_grad_loop_opcodes": bg_opcodes,
-           "band_max": bm_results, "band_max_rule": rule_results, "wide": wide_results}
+           "band_max": bm_results, "band_max_rule": rule_results, "wide": wide_results,
+           "wide_barrier_probe": wide_probes}
     if args.out is not None:
         os.makedirs(args.out.parent, exist_ok=True)
         args.out.write_text(json.dumps(out, indent=1))
@@ -1287,7 +1371,9 @@ def main():
                       "band_max_rule": [{k: v for k, v in r.items() if k not in (
                           "rule_sm_mhz", "warps_sm_mhz")} for r in rule_results],
                       "wide_ab": [{k: v for k, v in r.items() if not k.endswith("_sm_mhz")}
-                                  for r in wide_results]}))
+                                  for r in wide_results],
+                      "wide_barrier_probe": [{k: v for k, v in p.items() if k != "sm_mhz"}
+                                             for p in wide_probes]}))
     return 0
 
 

@@ -43,42 +43,52 @@ halo, r from Km - 1 down; the outputs' r <= t), over 32 lanes a warp,
 issued by the SMs' 4 schedulers.
 
 The wide scans (csrc/hsmm_scan_wide.cu: `wide_cluster_scan_kernel`,
-the cluster route, and `wide_scan_kernel`, the L2 route; three instances
-each) have no emission window, and their time loop holds loops of its
-own (the cluster route's template is compiled for a cluster of one block
-and for more). Their time loop is the innermost loop that holds a barrier
-(the alpha row's `BAR.SYNC`, or the wait on its mbarrier, `SYNCS`) and,
-whole inside it, a duration loop and the combine's loops: on the cluster
-route the loops with no global load (the table's and the alpha row's
-shared loads), on the L2 route the loops with a shared load (alpha's,
-beside the table's `LDG`). Every other loop inside it that loads is a
-duration loop (the `LDG` of dur). A loop holding `MUFU.EX2` is the log
-semiring's second pass (the ordered sum), one expf a term; a first pass
-has one compare a term (`FMNMX`, or the argmax's `FSETP`). Of each kind
-of loop (combine or duration, first pass or sum) the version with the most
-terms an iteration (the compiler's unrolled body, not its remainder)
-gives its instructions and its chain a term (the loop's largest cycle
-mean over the terms of an iteration). A step issues the time loop's
-instructions outside its inner loops plus, for each kind, C (combine)
-or Km (duration) terms; its chain is the kinds' chains a term times
-their terms, one after another (a pass needs the last one's result),
-without the barrier's latency, which the SASS does not show. The floor
-a step is the larger of the chain and the instructions times the warps
-each scheduler issues for at the launch (its blocks over the SMs); a
-scan's floor is T steps of it. On the L2 route past 1,024 classes a
-thread runs ceil(C / 1,024) classes in turn, so its instructions and its
-chain a step count that many times.
+the cluster route, and `wide_grid_scan_kernel`, the grid route, three
+instances each; an earlier source's `wide_scan_kernel`, the L2 route of
+one block a chain, is read the same way) have no emission window, and
+their time loop holds loops of its own (the cluster route's template is
+compiled for a cluster of one block and for more, the grid route's for
+its table slab in shared memory and not). Their time loop is the
+innermost loop that holds a barrier (the alpha row's `BAR.SYNC`, or the
+wait on its mbarrier, `SYNCS`) and, whole inside it, a duration loop and
+the combine's loops: on the cluster route the loops with no global load
+(the table's and the alpha row's shared loads), on the grid route the
+loops with 16-byte shared loads (`LDS.128`: the alpha rows, beside the
+table's) or shared loads and no global load (their remainders), on the L2
+route the loops with a shared load (alpha's, beside the table's `LDG`).
+Every other loop inside it that loads is a duration loop (the `LDG` of
+dur), or holds no term (the grid route's copy of the alpha rows, its
+barrier's spin). A loop holding `MUFU.EX2` is the log semiring's second
+pass (the ordered sum), one expf a term; a first pass has one compare a
+term (`FMNMX`, or the argmax's `FSETP`). Of each kind of loop (combine or
+duration, first pass or sum) the version with the most terms an
+iteration (the compiler's unrolled body, not its remainder) gives its
+instructions and its chain a term (the loop's largest cycle mean over the
+terms of an iteration). A step issues the time loop's instructions
+outside its inner loops plus, for each kind, C (combine) or Km
+(duration) terms; its chain is the kinds' chains a term times their
+terms, one after another (a pass needs the last one's result), without
+the barrier's latency, which the SASS does not show. The floor a step is
+the larger of the chain and the instructions times the warps each
+scheduler issues for at the launch (its blocks over the SMs); a scan's
+floor is T steps of it. A thread that owns several classes (the L2 route
+past 1,024 classes) or several (chain, class) pairs (the grid route's
+blocks past GRID_THREADS pairs) runs them in turn, so its instructions and
+its chain a step count that many times. On the grid route a step also
+waits at the grid barrier: its floor adds the barrier's time a step where
+it is given (`barrier_us`, tools/scan_ab.py's empty-step probe).
 
 Run from the repository root on a machine with the CUDA toolkit:
 
-    python3 -m action_segmentation_torch.tools.scan_floor [--B 18] [--C 19] [--Km 19] [--T 1024] [--segments 720] [--wide-C 342] [--wide-segments 760] [--sass-dir DIR]
+    python3 -m action_segmentation_torch.tools.scan_floor [--B 18] [--C 19] [--Km 19] [--T 1024] [--segments 720] [--wide-C 342] [--wide-segments 760] [--wide-barrier-us 0] [--sass-dir DIR]
 
 With `--sass-dir`, DIR holds `hsmm_scan.sass`, `hsmm_viterbi.sass`,
 `band_grad.sass`, `band_max.sass` and `hsmm_scan_wide.sass` (cuobjdump's
 output) and nothing is built. The wide scans' floors are at B chains
 (2B for the log scan, the stacked forward and reversed chains) of T
 steps, `--wide-C` classes and Km rows, on the route
-``hsmm_cuda.wide_scan_instance`` picks, and on the L2 route. `--segments`
+``hsmm_cuda.wide_scan_instance`` picks for one expanded table (the log
+scan's two). `--segments`
 is the most segments in one video for the traceback's floor in time, and
 `--wide-segments` the same for W2, the wide traceback (the same walk
 reader on `traceback_wide_kernel`, whose walk takes two shared loads a
@@ -100,13 +110,14 @@ from pathlib import Path
 from action_segmentation_torch.ops import _build
 from action_segmentation_torch.ops.hsmm_cuda import (
     H100_SMS,
+    MAX_BLOCK_SMEM,
     MAX_BLOCK_THREADS,
     SM_SMEM,
     SM_SMEM_PER_BLOCK,
+    WideScan,
     band_grad_tile,
     band_max_tile,
     scan_instance,
-    wide_l2_instance,
     wide_scan_instance,
     wide_traceback_tile,
 )
@@ -316,19 +327,34 @@ def band_max_issue_ms(floor, B, T, C, Km, clock_mhz, sms=H100_SMS):
     return B * C * lanes / 32 / (sms * SCHEDULERS) / clock_mhz * 1e-3
 
 
-# the wide scans' kernels (csrc/hsmm_scan_wide.cu) by route, and their
-# instances in the Scan enum's order
-WIDE_KERNELS = {"cluster": "wide_cluster_scan_kernel", "l2": "wide_scan_kernel"}
+# the wide scans' kernels (csrc/hsmm_scan_wide.cu) by route (the L2 route
+# an earlier source's, before the grid route), and their instances in the
+# Scan enum's order
+WIDE_KERNELS = {"cluster": "wide_cluster_scan_kernel", "grid": "wide_grid_scan_kernel",
+                "l2": "wide_scan_kernel"}
 WIDE_SCANS = ("viterbi", "log", "forward")
 
 
 def wide_mangled(route, scan, multi=False):
     """The mangled name's part of a wide instance: the kernel's name and
     its template arguments (the cluster route's: the scan, and whether the
-    cluster has more than one block)."""
+    cluster has more than one block; the grid route's: the scan, and
+    whether the table slab is in shared memory, `multi`)."""
     name = WIDE_KERNELS[route]
     part = "{}{}ILNS_4ScanE{}E".format(len(name), name, WIDE_SCANS.index(scan))
-    return part + ("Lb{}E".format(int(multi)) if route == "cluster" else "")
+    return part + ("Lb{}E".format(int(multi)) if route != "l2" else "")
+
+
+def earlier_l2_launch(C, Km):
+    """The launch of an earlier source's L2 route (commits f3ba4a7 to
+    73d2b7b: one block a chain of min(C, 1,024) threads, each then
+    ceil(C / 1,024) classes in turn), as a WideScan for a chain: its
+    double-buffered alpha row, each class's prefix sum and duration argmax
+    (4 C words) and the ring's Km * C floats where both fit a block's
+    shared memory, else the ring in a global scratch."""
+    ring = "shared" if 4 * (4 * C + Km * C) <= MAX_BLOCK_SMEM else "global"
+    return WideScan("l2", 1, C, 1, 1, min(MAX_BLOCK_THREADS, 32 * -(-C // 32)), "global", ring,
+                    4 * (4 * C + Km * C * (ring == "shared")), 1)
 
 
 def is_barrier(op):
@@ -366,9 +392,14 @@ def wide_loops(insts, route):
         return [ins[2] for ins in insts[a:b + 1]]
 
     def kind(a, b):
-        ops = {op.split(".")[0] for op in ops_of(a, b)}
+        full = set(ops_of(a, b))
+        ops = {op.split(".")[0] for op in full}
         if route == "cluster":
             return "duration" if "LDG" in ops else "combine" if "LDS" in ops else None
+        if route == "grid":
+            if any(op.startswith("LDS.128") for op in full) or ("LDS" in ops and "LDG" not in ops):
+                return "combine"
+            return "duration" if "LDG" in ops else None
         return "combine" if "LDS" in ops else "duration" if "LDG" in ops else None
 
     times = []
@@ -439,50 +470,54 @@ def wide_warps_per_scheduler(blocks, threads, smem, sms=H100_SMS):
     return -(-warps // SCHEDULERS), waves
 
 
-def wide_floor(step, C, Km, T, N, inst, clock_mhz, sms=H100_SMS):
+def wide_floor(step, C, Km, T, N, inst, clock_mhz, sms=H100_SMS, barrier_us=0.0):
     """A wide instance's floor at N chains of T steps on `inst`'s launch:
     per step a thread's instructions (the rest plus each kind's terms: the
     combine's C, the duration loop's Km) and chain (each kind's, in turn),
-    each times the classes a thread owns (the L2 route's ceil(C / threads)
-    past 1,024 classes, else 1), the warps a scheduler; the floor a step
-    is the larger of the chain and instructions x warps a scheduler."""
+    each times the classes or pairs a thread owns (the L2 route's ceil(C /
+    threads), the grid route's ceil(chains x slab / threads), else 1), the
+    warps a scheduler (the cluster route's N x cluster blocks, the L2
+    route's N, the grid route's own); the floor a step is the larger of
+    the chain and instructions x warps a scheduler, plus on the grid route
+    `barrier_us` (the grid barrier's time a step, where measured)."""
     terms = {"combine": C, "duration": Km}
-    per = -(-inst.slab // inst.threads)
+    if inst.route == "grid":
+        per, blocks = -(-inst.chains * inst.slab // inst.threads), inst.blocks
+    else:
+        per, blocks = -(-inst.slab // inst.threads), N * inst.cluster
     issue = per * (step["rest"] + sum(v["instructions_per_term"] * terms[k.split()[0]]
                                       for k, v in step["loops"].items()))
     chain = per * sum(v["chain_per_term"] * terms[k.split()[0]]
                       for k, v in step["loops"].items())
     mufu = per * sum(v["mufu_per_term"] * terms[k.split()[0]] for k, v in step["loops"].items())
-    per_sched, waves = wide_warps_per_scheduler(N * inst.cluster, inst.threads,
-                                                inst.smem_bytes, sms)
+    per_sched, waves = wide_warps_per_scheduler(blocks, inst.threads, inst.smem_bytes, sms)
     floor = max(chain, issue * per_sched)
+    barrier = barrier_us if inst.route == "grid" else 0.0
     return {"route": inst.route, "cluster": inst.cluster, "slab": inst.slab,
+            "chains_per_block": inst.chains, "blocks": blocks,
             "threads": inst.threads, "classes_per_thread": per, "chains": N,
             "instructions_per_step": issue,
             "chain_cycles_per_step": chain, "mufu_per_step": mufu,
-            "warps_per_scheduler": per_sched, "waves": waves,
-            "floor_us_per_step": waves * floor / clock_mhz,
-            "floor_ms": T * waves * floor / clock_mhz * 1e-3,
+            "warps_per_scheduler": per_sched, "waves": waves, "barrier_us_per_step": barrier,
+            "floor_us_per_step": waves * floor / clock_mhz + barrier,
+            "floor_ms": T * (waves * floor / clock_mhz + barrier) * 1e-3,
             "bound_by": "chain" if chain >= issue * per_sched else "issue"}
 
 
-def wide_floors(sass, C, Km, T, B, clock_mhz, sms=H100_SMS, l2_only=False):
-    """{"<scan> <route>": floor} of each wide instance at B chains (2B for
-    the log scan) on the route ``wide_scan_instance`` picks and on the L2
-    route (with `l2_only`, on the L2 route alone: an earlier source that
-    has no cluster route)."""
-    routes = [wide_scan_instance(C, Km)]
-    if l2_only:
-        routes = [wide_l2_instance(C, Km)]
-    elif routes[0].route != "l2":
-        routes.append(wide_l2_instance(C, Km))
+def wide_floors(sass, C, Km, T, B, clock_mhz, sms=H100_SMS, earlier=False, barrier_us=0.0):
+    """{"<scan> <route>": floor} of each wide instance at B chains of one
+    expanded table (the log scan's 2B stacked chains of its two) on the
+    route ``wide_scan_instance`` picks, with the grid route's barrier
+    `barrier_us` a step; with `earlier`, an earlier source's L2 route
+    alone (``earlier_l2_launch``)."""
     out = {}
     for scan in WIDE_SCANS:
         N = 2 * B if scan == "log" else B
-        for inst in routes:
-            step = wide_step(sass, inst.route, scan, multi=inst.cluster > 1)
-            out["{} {}".format(scan, inst.route)] = dict(
-                wide_floor(step, C, Km, T, N, inst, clock_mhz, sms), step=step)
+        inst = earlier_l2_launch(C, Km) if earlier else wide_scan_instance(C, Km, N, B, sms)
+        multi = inst.cluster > 1 if inst.route == "cluster" else inst.table == "shared"
+        step = wide_step(sass, inst.route, scan, multi=multi)
+        out["{} {}".format(scan, inst.route)] = dict(
+            wide_floor(step, C, Km, T, N, inst, clock_mhz, sms, barrier_us), step=step)
     return out
 
 
@@ -602,6 +637,9 @@ def main():
                              "floor in time")
     parser.add_argument("--wide-C", type=int, default=342,
                         help="the wide scans' classes (their B, T and Km are the band kernels')")
+    parser.add_argument("--wide-barrier-us", type=float, default=0.0,
+                        help="the grid route's barrier a step (tools/scan_ab.py's empty-step "
+                             "probe), added to its floor")
     parser.add_argument("--sass-dir", type=Path, default=None)
     parser.add_argument("--clock-mhz", type=float, default=None,
                         help="SM clock for the floor in time (default: nvidia-smi's max)")
@@ -677,14 +715,18 @@ def main():
                   "{} {:.2f}".format(k, v) for k, v in loops.items()))
                   for inst, loops in bm_loops.items()),
               args.B, args.T, args.C, args.Km, bm["issue_floor_ms"]))
-    wide = wide_floors(sass["hsmm_scan_wide"], args.wide_C, args.Km, args.T, args.B, clock)
+    wide = wide_floors(sass["hsmm_scan_wide"], args.wide_C, args.Km, args.T, args.B, clock,
+                       barrier_us=args.wide_barrier_us)
     for name, w in wide.items():
-        print("wide {} (cluster {}, slab {}, {} threads), {} chains: {:.0f} instructions a step "
-              "({:.0f} MUFU), chain {:.0f} cycles, {} warps a scheduler, {} wave(s) -> floor "
-              "{:.4f} us a step, T={} C={} Km={} -> {:.4f} ms ({}); a term: {}".format(
-                  name, w["cluster"], w["slab"], w["threads"], w["chains"],
+        print("wide {} (cluster {}, slab {}, {} chains a block, {} blocks of {} threads), {} "
+              "chains: {:.0f} instructions a step "
+              "({:.0f} MUFU), chain {:.0f} cycles, {} warps a scheduler, {} wave(s), barrier {} "
+              "us -> floor {:.4f} us a step, T={} C={} Km={} -> {:.4f} ms ({}); a term: {}".format(
+                  name, w["cluster"], w["slab"], w["chains_per_block"], w["blocks"], w["threads"],
+                  w["chains"],
                   w["instructions_per_step"], w["mufu_per_step"], w["chain_cycles_per_step"],
-                  w["warps_per_scheduler"], w["waves"], w["floor_us_per_step"], args.T,
+                  w["warps_per_scheduler"], w["waves"], w["barrier_us_per_step"],
+                  w["floor_us_per_step"], args.T,
                   args.wide_C, args.Km, w["floor_ms"], w["bound_by"],
                   "; ".join("{} {:.2f} instructions, chain {:.2f}".format(
                       k, v["instructions_per_term"], v["chain_per_term"])

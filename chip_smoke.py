@@ -167,7 +167,8 @@ exit and no result line:
                19, 25 and 64, ragged lengths down to 1, and at the S6
                shape (B=18, T=1024, C=342, K=20; the log scans' plain
                versions at its first 256 frames), each equal to its plain
-               version; (b) the S6 model over all 342 classes (the S6
+               version, W1 on the route it picks and on the grid route's
+               launches; (b) the S6 model over all 342 classes (the S6
                flags with --mix_tasks on 4c's release, closed form,
                pickled) served by Segmenter.load with no valid_classes:
                segment_many over every val video equal to the same
@@ -181,14 +182,17 @@ exit and no result line:
                falling losses, the wide log scan and K4 once a batch)
                and a no-grad partition through the wide forward scan;
                (d) each wide kernel's and K4's time at the S6 shape
-               beside its plain version's and its bound, W2's also beside
+               beside its plain version's and its bound, W1's also on the
+               grid route (a finding: the cluster route runs there), W2's also beside
                its floor (the longest video's segments x its walk's chain
                from the SASS, plus its first tile's bytes at the memory
                rate), its ring's slots and rows and the earlier kernel's
                time, and the
                phase's seconds;
   4j. past1024 — a DP wider than 1,024 classes: (a) the wide kernels
-               (W1 on the L2 route, two or more classes a thread; W2 at
+               (W1 on the grid route, by the rule and with its table
+               slab and ring in global memory and its chains over two
+               launches; W2 at
                radix 2,048 and 4,096) and K4 (classes in chunks of at
                most 1,024) at C = 1,025, 1,577, 2,048 and 3,000, Km = 1,
                20 and 64, ragged lengths down to 1, each equal to its
@@ -206,9 +210,11 @@ exit and no result line:
                Function on the card; (c) at B=18, T=1024, C=1,577, K=20
                each of those kernels' time beside its plain version's
                (the log and forward scans' at 128 frames), its bound and
-               its floor from the SASS, and the max and forward scans
-               with the batch's one expanded table and with a table
-               copied a chain, bit-equal, in turns;
+               its floor from the SASS (the grid route's with its
+               barrier alone, the empty-step probe), each scan's grid,
+               and the max and forward scans with the batch's one
+               expanded table, the log scan with its two, and each with
+               a table copied a chain, bit-equal, in turns;
   5. times   — CUDA-event kernel and plain-version times at the serving
                shape beside the roofline bound, the traceback's also beside
                its serial floor (the longest video's segments x one
@@ -3127,7 +3133,7 @@ def run_dp_slice(device, root, models, resident_cases, mixed, smi):
 # videos of T_WIDE[C] frames, ragged down to 1: the plain log scan is a
 # Python loop over C, so the log scans' cases stay at T <= 256 (they are
 # checked at the S6 shape at T_S6_LOG). 664 and 665 are the widest DP the
-# wide scans' cluster route takes (at Km = 1) and the next, on the L2 route
+# wide scans' cluster route takes (at Km = 1) and the next, on the grid route
 WIDE_CLASSES = (129, 342, 664, 665, 1024)
 WIDE_KMS = (1, 19, 25, 64)
 B_WIDE = 4
@@ -3168,23 +3174,50 @@ def counted(fn):
     return out, {n: w.launches for n, w in wrappers.items()}
 
 
+def grid_launches(trans, N, C, Km, device):
+    """The grid route's launches for N chains reading `trans` (any of the
+    wide scans' forms) on the card: the rule's (``wide_grid_instance``),
+    then that tiling with its table slab and its ring in global memory,
+    and with its chains split over two launches (N > 1)."""
+    import torch
+
+    from action_segmentation_torch.ops import hsmm_cuda as hc
+
+    _, group = hc._wide_tables("grid_launches", trans, N, C)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count \
+        if device.type == "cuda" else hc.H100_SMS
+    rule = hc.wide_grid_instance(C, Km, N, group, sms)
+    moved = rule._replace(table="global", ring="global", smem_bytes=hc.wide_grid_smem(
+        C, Km, rule.slab, rule.chains, "global", "global"))
+    out = [rule, moved]
+    if N > 1:
+        half = -(-N // 2)
+        out.append(moved._replace(launch_chains=half, blocks=-(-half // moved.chains) * -(
+            -C // moved.slab)))
+    return out
+
+
 def wide_kernel_case(name, pots, lengths, log_cut=None):
     """The wide kernels (W1's three instances, W2) and K4 at C > 128
     against their plain versions on the same inputs, each equal: the
     backpointer scan (alphas and codes) and the traceback on the forward
     model; the log scan (gamma, alphas) on the stacked forward and
-    reversed chains and the forward scan on the forward half (the plain
-    forward scan is that half of the plain log scan's alphas); K4 on the
-    kernel log scan's band inputs (qg, sa, st equal, lg at the score
-    tolerance). With `log_cut`, the log scans are compared on the first
-    `log_cut` frames (the plain log scan's Python loop over C) and K4
-    runs on the full-length kernel planes. Returns the errors and the
-    inputs of each kernel."""
+    reversed chains (an expanded table's two) and the forward scan on the
+    forward half (the plain forward scan is that half of the plain log
+    scan's alphas), each through its wrapper on the route it picks and,
+    on the card, on the grid route's launches (``grid_launches``: the
+    rule's where the cluster route runs, the table slab and ring in global
+    memory, the chains split); K4 on the kernel log scan's band inputs
+    (qg, sa, st equal, lg at the score tolerance). With `log_cut`, the log
+    scans are compared on the first `log_cut` frames (the plain log scan's
+    Python loop over C) and K4 runs on the full-length kernel planes.
+    Returns the errors and the inputs of each kernel."""
     import torch
 
     from action_segmentation_torch.ops.hsmm import _durations, _finals
     from action_segmentation_torch.ops.hsmm_cuda import (
         _band_grad_plain,
+        _forward_chains,
         _grad_band_inputs,
         _launch_wide_scan,
         _log_scan_plain,
@@ -3197,7 +3230,6 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
         hsmm_log_scan_wide,
         hsmm_viterbi_scan_wide,
         hsmm_viterbi_traceback_wide,
-        wide_l2_instance,
         wide_scan_instance,
     )
     from action_segmentation_torch.ops.hsmm_grad import _log_partition
@@ -3206,6 +3238,7 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
     L = lengths.long().clamp(min=1)
     vit_in = (pots.trans.contiguous(), pots.init.contiguous(),
               _durations(pots.lens).contiguous(), pots.emit.contiguous())
+    Km = vit_in[2].shape[1]
     alphas_k, bp_k = hsmm_viterbi_scan_wide(*vit_in)
     alphas_p, bp_p = _viterbi_scan_plain(*vit_in)
     torch.cuda.synchronize()
@@ -3222,30 +3255,31 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
     cut = scan_in if log_cut is None else (*scan_in[:3], scan_in[3][:, :log_cut].contiguous())
     cut_k = hsmm_log_scan_wide(*cut) if log_cut is not None else (gamma_k, alphas2_k)
     gamma_p, alphas2_p = _log_scan_plain(*cut)
-    fwd_in = tuple(x[:Bn] for x in cut)
+    fwd_in = _forward_chains(cut, Bn)
     af_k = hsmm_forward_scan_wide(*fwd_in)
     torch.cuda.synchronize()
     check_equal(name + " wide log scan gamma", cut_k[0], gamma_p)
     check_equal(name + " wide log scan alphas", cut_k[1], alphas2_p)
     check_equal(name + " wide forward scan alphas", af_k, alphas2_p[:Bn])
-    inst = wide_scan_instance(Cn, vit_in[2].shape[1])
-    on_l2 = inst.route != "l2" and pots.emit.is_cuda
-    if on_l2:  # the same cases on the L2 route
-        l2 = wide_l2_instance(Cn, vit_in[2].shape[1])
-        alphas_l, bp_l = torch.empty_like(alphas_k), torch.empty_like(bp_k)
-        _launch_wide_scan("l2", "hsmm_wide_viterbi_scan", *vit_in, [alphas_l, bp_l],
-                          [code_radix(Cn)], inst=l2)
-        gamma_l, alphas2_l = torch.empty_like(cut_k[0]), torch.empty_like(cut_k[1])
-        _launch_wide_scan("l2", "hsmm_wide_log_scan", *cut, [gamma_l, alphas2_l], inst=l2)
-        af_l = torch.empty_like(af_k)
-        _launch_wide_scan("l2", "hsmm_wide_forward_scan", *fwd_in, [af_l], inst=l2)
-        torch.cuda.synchronize()
-        for what, got, want in (("viterbi scan alphas", alphas_l, alphas_p),
-                                ("viterbi scan codes", bp_l, bp_p),
-                                ("log scan gamma", gamma_l, gamma_p),
-                                ("log scan alphas", alphas2_l, alphas2_p),
-                                ("forward scan alphas", af_l, alphas2_p[:Bn])):
-            check_equal("{} wide {} on the L2 route".format(name, what), got, want)
+    inst = wide_scan_instance(Cn, Km)
+    grids = 0
+    if pots.emit.is_cuda:  # the same cases on the grid route's launches
+        dev = pots.emit.device
+        for symbol, inputs, want, ints in (
+                ("hsmm_wide_viterbi_scan", vit_in, (alphas_p, bp_p), [code_radix(Cn)]),
+                ("hsmm_wide_log_scan", cut, (gamma_p, alphas2_p), []),
+                ("hsmm_wide_forward_scan", fwd_in, (alphas2_p[:Bn],), [])):
+            N = inputs[3].shape[0]
+            for grid in grid_launches(inputs[0], N, Cn, Km, dev):
+                outs = [torch.empty_like(w) for w in want]
+                _launch_wide_scan(symbol, symbol, *inputs, outs, ints, inst=grid)
+                torch.cuda.synchronize()
+                for k, (got, w) in enumerate(zip(outs, want)):
+                    check_equal("{} {} output {} on the grid route ({} chains x {} classes a "
+                                "block, table {}, ring {}, {} chains a launch)".format(
+                                    name, symbol, k, grid.chains, grid.slab, grid.table,
+                                    grid.ring, grid.launch_chains), got, w)
+                grids += 1
 
     logZ = _log_partition(alphas2_k[:Bn], L, pots.end_mask)
     grad_in = _grad_band_inputs(pots, L, gamma_k, logZ)
@@ -3257,12 +3291,12 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
             "log_scan": max(max_err(cut_k[0], gamma_p), max_err(cut_k[1], alphas2_p)),
             "forward_scan": max_err(af_k, alphas2_p[:Bn]),
             "band_grad": max(max_err(k, p) for k, p in zip(bg_k, bg_p))}
-    phase("wide", "(a) {}: B={} T={} C={} Km={} lengths {}-{}: {} route (cluster {}, slab {}){}: "
-          "viterbi scan alphas and codes, traceback spans ({} segments), log scan gamma and "
-          "alphas{} and forward alphas equal to the plain versions; band grad qg/sa/st equal, "
-          "lg max_abs_err {:g}".format(
-              name, Bn, Tn, Cn, vit_in[2].shape[1], int(L.min()), int(L.max()), inst.route,
-              inst.cluster, inst.slab, ", and the L2 route" if on_l2 else "",
+    phase("wide", "(a) {}: B={} T={} C={} Km={} lengths {}-{}: {} route (cluster {}, slab {}), "
+          "and {} grid-route launches: viterbi scan alphas and codes, traceback spans ({} "
+          "segments), log scan gamma and alphas{} and forward alphas equal to the plain "
+          "versions; band grad qg/sa/st equal, lg max_abs_err {:g}".format(
+              name, Bn, Tn, Cn, Km, int(L.min()), int(L.max()), inst.route,
+              inst.cluster, inst.slab, grids,
               int((spans_k >= 0).sum()), "" if log_cut is None else " (first {} frames)".format(
                   log_cut), errs["band_grad"]))
     return errs, vit_in, tb_in, scan_in, fwd_in, grad_in
@@ -3367,20 +3401,23 @@ def run_wide_slice(device, root, smi):
     widest = hc.WIDE_CLUSTER_MAX_CLASSES
     check(WIDE_CLASSES[2:4] == (widest, widest + 1)
           and hc.wide_scan_instance(widest, 1).route == "cluster"
-          and hc.wide_scan_instance(widest + 1, 1).route == "l2"
-          and hc.wide_scan_instance(1024, 64)[::4] == ("l2", "global")
-          and hc.wide_scan_instance(1024, 19)[::4] == ("l2", "shared")
+          and hc.wide_scan_instance(widest + 1, 1).route == "grid"
+          and hc.wide_scan_instance(1024, 19, B_WIDE, B_WIDE).route == "grid"
           and hc.wide_scan_instance(C_S6, K - 1)[:2] == ("cluster", 3),
-          "the cases do not take both routes, both L2 ring layouts and the S6 shape's cluster")
+          "the cases do not take both routes and the S6 shape's cluster")
     routes = {}
     for Cn in WIDE_CLASSES:
         for Km in WIDE_KMS:
-            inst = hc.wide_scan_instance(Cn, Km)
-            routes["C={} Km={}".format(Cn, Km)] = "{} {}".format(inst.route, inst.cluster)
+            inst = hc.wide_scan_instance(Cn, Km, B_WIDE, B_WIDE)
+            routes["C={} Km={}".format(Cn, Km)] = "{} {}".format(
+                inst.route, inst.cluster if inst.route == "cluster" else "{} blocks of {} x {}, "
+                "table {}, ring {}".format(inst.blocks, inst.chains, inst.slab, inst.table,
+                                           inst.ring))
     s6 = hc.wide_scan_instance(C_S6, K - 1)
     active = {scan: hc.wide_max_active_clusters(scan, C_S6, K - 1, device.index or 0)
               if device.type == "cuda" else None for scan in hc.WIDE_SCAN_INDEX}
-    phase("wide", "(a) routes (route, blocks a chain): {}; the S6 shape (C={}, Km={}): {} "
+    phase("wide", "(a) routes (route, blocks a chain or the grid: blocks of chains x classes, "
+          "the table's and the ring's memory): {}; the S6 shape (C={}, Km={}): {} "
           "route, clusters of {} blocks of {} classes ({} threads, {} bytes of shared memory a "
           "block); cudaOccupancyMaxActiveClusters {} (the log scan's {} chains need {}, the max "
           "and forward scans' {})".format(routes, C_S6, K - 1, s6.route, s6.cluster, s6.slab,
@@ -3569,28 +3606,29 @@ def run_wide_slice(device, root, smi):
             cuda_ms(lambda: hc._log_scan_plain(*scan_in), 1, warmup=0),
             scan_bound(n2, 2), scan_in[3].shape),
         "hsmm_forward_scan_wide": (
-            cuda_ms(lambda: hc.hsmm_forward_scan_wide(*(x[:B] for x in scan_in)), 10),
-            cuda_ms(lambda: hc._forward_scan_plain(*(x[:B] for x in scan_in)), 1, warmup=0),
+            cuda_ms(lambda: hc.hsmm_forward_scan_wide(*hc._forward_chains(scan_in, B)), 10),
+            cuda_ms(lambda: hc._forward_scan_plain(*hc._forward_chains(scan_in, B)), 1,
+                    warmup=0),
             scan_bound(B, 1), scan_in[3][:B].shape),
     }
-    # the scans' L2 route (one block a chain) at the same inputs, and the
-    # floors from the SASS (tools/scan_floor.py) of the route each takes
-    l2 = hc.wide_l2_instance(C_S6, Km)
+    # the scans on the grid route at the same inputs (a finding: the rule
+    # gives the cluster route here), and the floors from the SASS
+    # (tools/scan_floor.py) of the route each takes
+    def on_grid(symbol, inputs, outs, ints=()):
+        grid = grid_launches(inputs[0], inputs[3].shape[0], C_S6, Km, device)[0]
+        return lambda: hc._launch_wide_scan("grid", symbol, *inputs, outs, ints, inst=grid)
 
-    def on_l2(symbol, inputs, outs, ints=()):
-        return lambda: hc._launch_wide_scan("l2", symbol, *inputs, outs, ints, inst=l2)
-
-    fwd6 = tuple(x[:B] for x in scan_in)
-    l2_ms = {} if not card else {
-        "hsmm_viterbi_scan_wide": cuda_ms(on_l2(
+    fwd6 = hc._forward_chains(scan_in, B)
+    grid_ms = {} if not card else {
+        "hsmm_viterbi_scan_wide": cuda_ms(on_grid(
             "hsmm_wide_viterbi_scan", vit_in, [torch.empty_like(vit_in[3]), torch.empty(
                 vit_in[3].shape, dtype=torch.int32, device=device)],
-            [hc.code_radix(C_S6)]), 3, warmup=1),
-        "hsmm_log_scan_wide": cuda_ms(on_l2(
+            [hc.code_radix(C_S6)]), 10, warmup=1),
+        "hsmm_log_scan_wide": cuda_ms(on_grid(
             "hsmm_wide_log_scan", scan_in, [torch.empty_like(scan_in[3]),
-                                            torch.empty_like(scan_in[3])]), 3, warmup=1),
-        "hsmm_forward_scan_wide": cuda_ms(on_l2(
-            "hsmm_wide_forward_scan", fwd6, [torch.empty_like(fwd6[3])]), 3, warmup=1),
+                                            torch.empty_like(scan_in[3])]), 10, warmup=1),
+        "hsmm_forward_scan_wide": cuda_ms(on_grid(
+            "hsmm_wide_forward_scan", fwd6, [torch.empty_like(fwd6[3])]), 10, warmup=1),
     }
     floors = wide_floors(built_sass("hsmm_scan_wide"), C_S6, Km, T, B, clock_mhz, sms) \
         if card else {}
@@ -3637,14 +3675,13 @@ def run_wide_slice(device, root, smi):
         if name in floor_of and card:
             fl = floors["{} {}".format(floor_of[name], s6.route)]
             entry.update(scan_route=s6.route, cluster=s6.cluster, floor_ms=fl["floor_ms"],
-                         floor_ratio=ms / fl["floor_ms"], l2_route_ms=l2_ms[name],
-                         l2_floor_ms=floors["{} l2".format(floor_of[name])]["floor_ms"])
+                         floor_ratio=ms / fl["floor_ms"], grid_route_ms=grid_ms[name])
             extra = (", {} route of {} blocks a chain, {:.4f} us a step; floor {:.5f} ms "
                      "({:.2f}x; {} instructions a step, chain {:.0f} cycles, {} warp(s) a "
-                     "scheduler); the L2 route {:.4f} ms (floor {:.5f} ms)".format(
+                     "scheduler); the grid route {:.4f} ms ({:.2f}x the cluster route's)".format(
                          s6.route, s6.cluster, 1e3 * ms / T, fl["floor_ms"], ms / fl["floor_ms"],
                          round(fl["instructions_per_step"]), fl["chain_cycles_per_step"],
-                         fl["warps_per_scheduler"], l2_ms[name], entry["l2_floor_ms"]))
+                         fl["warps_per_scheduler"], grid_ms[name], grid_ms[name] / ms))
         entries.append(entry)
         phase("wide", "(d) {} at {}: {:.5f} ms{}{} (plain {:.4f} ms), bound {:.6f} ms by {} "
               "({:.0f}x), launches on the slice {}; {}".format(
@@ -3676,8 +3713,9 @@ def run_wide_slice(device, root, smi):
 # the wide kernels' cases past 1,024 classes, (C, Km) at B_WIDE videos of
 # T_PAST[C] frames, ragged down to 1 (the plain log scan is a Python loop
 # over C): one class past 1,024, the 1,577 of every CrossTask task, 2,048
-# and 3,000 (codes at radix 4,096); Km = 1 and 20 hold the L2 route's ring
-# in shared memory at 1,577 classes, Km = 64 and the widest in global memory
+# and 3,000 (codes at radix 4,096); the grid route's table slab and ring in
+# shared memory by the rule at these 4 videos, in global memory on the
+# launches beside it (``grid_launches``)
 PAST_CLASSES = (1025, 1577, 2048, 3000)
 PAST_KMS = (1, 20, 64)
 T_PAST = {1025: 64, 1577: 64, 2048: 48, 3000: 32}
@@ -3768,16 +3806,14 @@ def run_past_1024_slice(device, root, smi):
                   "C={} Km={}: launches {}".format(Cn, Km, n))
             for k, v in case.items():
                 errs[k] = max(errs.get(k, 0.0), v)
-            inst = hc.wide_scan_instance(Cn, Km)
-            layouts["C={} Km={}".format(Cn, Km)] = "{} ring, {} threads, {} classes a thread, " \
-                "radix {}, K4 chunk {}".format(inst.ring, inst.threads, -(-Cn // inst.threads),
-                                               hc.code_radix(Cn),
-                                               hc.band_grad_tile(B_WIDE, Tn, Cn, Km).chunk)
-    check(not card or all(hc.wide_scan_instance(Cn, Km).route == "l2" for Cn in PAST_CLASSES
-              for Km in PAST_KMS)
-          and {hc.wide_scan_instance(Cn, Km).ring for Cn in PAST_CLASSES for Km in PAST_KMS}
-          == {"shared", "global"} and hc.code_radix(3000) == 4096,
-          "the cases do not take the L2 route with both ring layouts and radix 4,096")
+            inst = hc.wide_scan_instance(Cn, Km, 2 * B_WIDE, B_WIDE)  # the log scan's
+            layouts["C={} Km={}".format(Cn, Km)] = "the log scan's {} blocks of {} chains x {} " \
+                "classes ({} threads), table {}, ring {}; radix {}, K4 chunk {}".format(
+                    inst.blocks, inst.chains, inst.slab, inst.threads, inst.table, inst.ring,
+                    hc.code_radix(Cn), hc.band_grad_tile(B_WIDE, Tn, Cn, Km).chunk)
+    check(not card or all(hc.wide_scan_instance(Cn, Km).route == "grid" for Cn in PAST_CLASSES
+              for Km in PAST_KMS) and hc.code_radix(3000) == 4096,
+          "the cases do not take the grid route and radix 4,096")
     phase("past1024", "(a) layouts: {}".format(layouts))
     a_s = time.perf_counter() - t_phase
 
@@ -3966,17 +4002,24 @@ def run_past_1024_slice(device, root, smi):
     check_equal("C={} traceback spans".format(C_ALL), spans, hc._traceback_plain(*tb_in))
     per_video = (spans >= 0).sum(dim=1)
     n_segments, longest = int(per_video.sum()), int(per_video.max())
-    scan_in = hc._stack_fwd_rev(pots, L)
+    scan_in = hc._stack_fwd_rev(pots, L)  # the two tables, each read by B chains
+    scan_copied = (hc._dense_trans(scan_in[0]).contiguous(), *scan_in[1:])  # a table a chain
     gamma_k, alphas_k = hc.hsmm_log_scan_wide(*scan_in)
+    log_c = hc.hsmm_log_scan_wide(*scan_copied)
     cut = (*scan_in[:3], scan_in[3][:, :T_PLAIN_LOG].contiguous())
     cut_k = hc.hsmm_log_scan_wide(*cut)
     cut_p = hc._log_scan_plain(*cut)
     torch.cuda.synchronize()
+    check_equal("two shared tables vs a table a chain: log gamma", gamma_k, log_c[0])
+    check_equal("two shared tables vs a table a chain: log alphas", alphas_k, log_c[1])
+    del log_c
+    log_ab = alternating_ms({"shared": lambda: hc.hsmm_log_scan_wide(*scan_in),
+                             "copied": lambda: hc.hsmm_log_scan_wide(*scan_copied)}, 1)
     check_equal("C={} log scan gamma (first {} frames)".format(C_ALL, T_PLAIN_LOG), cut_k[0],
                 cut_p[0])
     check_equal("C={} log scan alphas (first {} frames)".format(C_ALL, T_PLAIN_LOG), cut_k[1],
                 cut_p[1])
-    fwd_cut = tuple(x[:B] for x in cut)
+    fwd_cut = hc._forward_chains(cut, B)
     logZ = _log_partition(alphas_k[:B], L, pots.end_mask)
     grad_in = hc._grad_band_inputs(pots, L, gamma_k, logZ)
     bg_k, bg_p = hc.hsmm_band_grad(*grad_in), hc._band_grad_plain(*grad_in)
@@ -3994,8 +4037,24 @@ def run_past_1024_slice(device, root, smi):
 
     vit_bytes = 4 * (B * C_ALL * C_ALL + B * C_ALL + B * Km * C_ALL + 3 * B * T * C_ALL)
     vit_ops = B * T * (2 * Km * C_ALL + 2 * C_ALL * C_ALL + 3 * C_ALL)
-    floors = wide_floors(built_sass("hsmm_scan_wide"), C_ALL, Km, T, B, clock_mhz, sms) \
-        if card else {}
+    # the grid each scan takes, and its barrier alone (the empty-step probe)
+    grids = {"viterbi": hc.wide_scan_instance(C_ALL, Km, B, B, sms),
+             "log": hc.wide_scan_instance(C_ALL, Km, 2 * B, B, sms),
+             "forward": hc.wide_scan_instance(C_ALL, Km, B, B, sms)}
+    barrier_us = {scan: grid_barrier_us(device, g.blocks, g.threads) if card else 0.0
+                  for scan, g in grids.items()}
+    phase("past1024", "(c) the grids: {}; the grid barrier alone {} us a step".format(
+        {scan: "{} blocks of {} chains x {} classes ({} threads, {} bytes of shared memory), "
+         "table slab in {} memory, ring in {} memory".format(
+             g.blocks, g.chains, g.slab, g.threads, g.smem_bytes, g.table, g.ring)
+         for scan, g in grids.items()}, {k: round(v, 4) for k, v in barrier_us.items()}))
+    floors = {}
+    if card:
+        sass = built_sass("hsmm_scan_wide")
+        for scan in grids:
+            floors.update({k: v for k, v in wide_floors(
+                sass, C_ALL, Km, T, B, clock_mhz, sms, barrier_us=barrier_us[scan]).items()
+                if k.startswith(scan)})
     tb_chain = traceback_wide_floor(built_sass("hsmm_viterbi"))[0] if card else None
     tb_floor = traceback_wide_floor_ms(tb_chain, longest, wide_first_tile_bytes(T, C_ALL),
                                        clock_mhz) if card else None
@@ -4006,7 +4065,7 @@ def run_past_1024_slice(device, root, smi):
         "hsmm_viterbi_scan_wide": (
             min(vit_ab["shared"]), cuda_ms(lambda: hc._viterbi_scan_plain(*copied_in), 1,
                                            warmup=0), T,
-            bound(vit_bytes, vit_ops), floors.get("viterbi l2", {}).get("floor_ms"),
+            bound(vit_bytes, vit_ops), floors.get("viterbi grid", {}).get("floor_ms"),
             tuple(copied_in[3].shape)),
         "hsmm_viterbi_traceback_wide": (
             graph_ms(lambda: hc.hsmm_viterbi_traceback_wide(*tb_in), 20),
@@ -4014,14 +4073,13 @@ def run_past_1024_slice(device, root, smi):
             bound(8 * B * T + 8 * n_segments + 16 * B, 4 * n_segments), tb_floor,
             tuple(tb_in[0].shape)),
         "hsmm_log_scan_wide": (
-            cuda_ms(lambda: hc.hsmm_log_scan_wide(*scan_in), 2, warmup=0),
-            cuda_ms(lambda: hc._log_scan_plain(*cut), 1, warmup=0), T_PLAIN_LOG,
-            scan_bound(2 * B, 2), floors.get("log l2", {}).get("floor_ms"),
+            min(log_ab["shared"]), cuda_ms(lambda: hc._log_scan_plain(*cut), 1, warmup=0),
+            T_PLAIN_LOG, scan_bound(2 * B, 2), floors.get("log grid", {}).get("floor_ms"),
             tuple(scan_in[3].shape)),
         "hsmm_forward_scan_wide": (
             min(fwd_ab["shared"]), cuda_ms(lambda: hc._forward_scan_plain(*fwd_cut), 1,
                                            warmup=0), T_PLAIN_LOG,
-            scan_bound(B, 1), floors.get("forward l2", {}).get("floor_ms"),
+            scan_bound(B, 1), floors.get("forward grid", {}).get("floor_ms"),
             tuple(copied_in[3].shape)),
         "hsmm_band_grad": (
             graph_ms(lambda: hc.hsmm_band_grad(*grad_in), 10),
@@ -4039,13 +4097,24 @@ def run_past_1024_slice(device, root, smi):
             "past_1024_bound_ms": b_ms, "past_1024_bound_by": b_by,
             "past_1024_floor_ms": floor_ms, "past_1024_shape": list(shape)}
         extra = ""
-        if name in ("hsmm_viterbi_scan_wide", "hsmm_forward_scan_wide"):
-            ab = vit_ab if name == "hsmm_viterbi_scan_wide" else fwd_ab
-            entries[name].update(past_1024_shared_table_ms=ab["shared"],
-                                 past_1024_table_a_chain_ms=ab["copied"])
-            extra = "; one shared table {} ms, a table a chain {} ms (turns a, b, b, a)".format(
-                ["{:.4f}".format(x) for x in ab["shared"]],
-                ["{:.4f}".format(x) for x in ab["copied"]])
+        scan = {"hsmm_viterbi_scan_wide": "viterbi", "hsmm_log_scan_wide": "log",
+                "hsmm_forward_scan_wide": "forward"}.get(name)
+        if scan is not None:
+            ab = {"viterbi": vit_ab, "log": log_ab, "forward": fwd_ab}[scan]
+            g = grids[scan]
+            entries[name].update(
+                past_1024_shared_table_ms=ab["shared"], past_1024_table_a_chain_ms=ab["copied"],
+                past_1024_route=g.route, past_1024_blocks=g.blocks,
+                past_1024_chains_per_block=g.chains, past_1024_slab=g.slab,
+                past_1024_threads=g.threads, past_1024_table=g.table,
+                past_1024_barrier_us=barrier_us[scan])
+            extra = ("; {} route, {} blocks of {} chains x {} classes, table slab in {} memory; "
+                     "{} shared table(s) {} ms, a table a chain {} ms (turns a, b, b, a); the "
+                     "barrier alone {:.4f} us a step".format(
+                         g.route, g.blocks, g.chains, g.slab, g.table,
+                         "two" if scan == "log" else "one",
+                         ["{:.4f}".format(x) for x in ab["shared"]],
+                         ["{:.4f}".format(x) for x in ab["copied"]], barrier_us[scan]))
         if name == "hsmm_viterbi_traceback_wide":
             extra = "; {} segments, the longest video {}".format(n_segments, longest)
         phase("past1024", "(c) {} at {}: {:.5f} ms, {:.4f} us a step, plain {:.4f} ms (at {} "
@@ -4066,6 +4135,24 @@ def run_past_1024_slice(device, root, smi):
            "past_1024_layouts": layouts, "past_1024_phase_s": phase_s,
            "past_1024_launches": launches}
     return e2e, entries
+
+
+def grid_barrier_us(device, blocks, threads, T=1024):
+    """us a step of T grid barriers alone (csrc/hsmm_scan_wide.cu's
+    empty-step probe) in a cooperative grid of `blocks` blocks of `threads`
+    threads, the least of 3 launches."""
+    import torch
+
+    from action_segmentation_torch.ops import hsmm_cuda as hc
+
+    counter = torch.zeros(1, dtype=torch.int32, device=device)
+
+    def probe():
+        err = hc._call("hsmm_scan_wide", "hsmm_wide_grid_barrier", [counter], [blocks, threads, T],
+                       counter)
+        check(err == 0, "the grid barrier probe failed with CUDA error {}".format(err))
+
+    return min(cuda_ms(probe, 1, warmup=int(k == 0)) for k in range(3)) * 1e3 / T
 
 
 def cuda_ms(fn, n, warmup=3):
@@ -4117,12 +4204,14 @@ def scan_kernel_name(semiring, warps, row, tail):
 
 # the band max's instances (csrc/band_max.cu): one pass, or several slabs
 BAND_MAX_KERNELS = ("band_max_kernel<one slab>", "band_max_kernel<slabs>")
-# the wide scan's instances (csrc/hsmm_scan_wide.cu, in its enum's order)
-# and the traceback's wide instance (csrc/hsmm_viterbi.cu)
+# the wide scan's instances (csrc/hsmm_scan_wide.cu, in its enum's order),
+# the grid barrier's probe and the traceback's wide instance
+# (csrc/hsmm_viterbi.cu)
 WIDE_SCANS = ("viterbi", "log", "forward")
 WIDE_KERNELS = tuple("wide_cluster_scan_kernel<{}, {}>".format(s, b) for s in WIDE_SCANS
                      for b in ("one block", "cluster")) + tuple(
-    "wide_scan_kernel<{}>".format(s) for s in WIDE_SCANS) + ("traceback_wide_kernel",)
+    "wide_grid_scan_kernel<{}, table {}>".format(s, m) for s in WIDE_SCANS
+    for m in ("global", "shared")) + ("grid_barrier_probe", "traceback_wide_kernel")
 
 
 def kernel_name(mangled):
@@ -4131,7 +4220,8 @@ def kernel_name(mangled):
     band max's as band_max_kernel<one slab> or <slabs>, the wide scans' as
     wide_cluster_scan_kernel<viterbi, one block> (the cluster route: the
     scan, log or forward; one block a chain, or a cluster of more) and
-    wide_scan_kernel<viterbi> (the L2 route)."""
+    wide_grid_scan_kernel<viterbi, table shared> (the grid route: the
+    table slab in shared or global memory)."""
     m = re.search(r"scan_kernelILNS_8SemiringE(\d)ELi(\d)ELi(\d+)ELb([01])E", mangled)
     if m:
         return scan_kernel_name(SCAN_SEMIRINGS[int(m.group(1))], *m.group(2, 3, 4))
@@ -4142,12 +4232,13 @@ def kernel_name(mangled):
     if m:
         return "wide_cluster_scan_kernel<{}, {}>".format(
             WIDE_SCANS[int(m.group(1))], ("one block", "cluster")[int(m.group(2))])
-    m = re.search(r"wide_scan_kernelILNS_\d+ScanE(\d)E", mangled)
+    m = re.search(r"wide_grid_scan_kernelILNS_\d+ScanE(\d)ELb([01])E", mangled)
     if m:
-        return "wide_scan_kernel<{}>".format(WIDE_SCANS[int(m.group(1))])
+        return "wide_grid_scan_kernel<{}, table {}>".format(
+            WIDE_SCANS[int(m.group(1))], ("global", "shared")[int(m.group(2))])
     for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
         ident = m.group(2)[:int(m.group(1))]
-        if ident.endswith("_kernel"):
+        if ident.endswith("_kernel") or ident.endswith("_probe"):
             return ident
     return mangled
 

@@ -1160,29 +1160,64 @@ def test_wide_band_grad_matches_plain(cuda, C, K):
 
 
 def test_wide_launches_refuse_what_they_do_not_take(cuda):
-    """Past 14,528 classes (the L2 route's alpha rows and per-class state
-    past a block's shared memory) the scans raise, naming the width, and
-    launch nothing; the wide scan's launch refuses too little shared
-    memory, a radix below C or no chains a table."""
-    C = 14529
+    """Past WIDE_GRID_MAX_CLASSES (one chain's alpha row and its slab's
+    state past a grid-route block's shared memory on 132 SMs) the scans
+    raise, naming the width, and launch nothing; the wide scan's launch
+    refuses too little shared memory, a radix below C, no chains a table
+    and, on the grid route, a table slab in shared memory that the
+    block's chains do not share."""
+    C = hc.WIDE_GRID_MAX_CLASSES + 1
     z = lambda *shape: torch.zeros(shape[-1:], device=cuda).expand(shape)  # noqa: E731
     before = launches(WIDE_KERNELS)
-    for scan in (hc.hsmm_viterbi_scan, hc.hsmm_log_scan, hc.hsmm_forward_scan):
-        with pytest.raises(ValueError, match=str(C)):
-            scan(z(1, C, C), z(1, C), z(1, 2, C), z(1, 4, C))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if sms <= hc.H100_SMS:
+        for scan in (hc.hsmm_viterbi_scan, hc.hsmm_log_scan, hc.hsmm_forward_scan):
+            with pytest.raises(ValueError, match=str(C)):
+                scan(z(1, C, C), z(1, C), z(1, 2, C), z(1, 4, C))
     assert launches(WIDE_KERNELS) == before
     scan_in = scan_inputs(np.random.RandomState(2), 2, 8, 200, 19, cuda)
-    trans_t = scan_in[0].transpose(1, 2).contiguous()
     alphas = torch.empty_like(scan_in[3])
     bp = torch.empty(alphas.shape, dtype=torch.int32, device=cuda)
-    for inst in (hc.wide_scan_instance(200, 19), hc.wide_l2_instance(200, 19)):
-        cluster = inst.cluster if inst.route == "cluster" else 0
+    scratch = torch.zeros(1 << 20, device=cuda)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    cl = hc.wide_scan_instance(200, 19)
+    grid = hc.wide_grid_instance(200, 19, 2, 2, chains=2)
+    assert cl.route == "cluster" and grid.table == "shared"
+    for inst, ptrs, code in (
+            (cl, [None, None, None], cl.cluster),
+            (grid, [scratch, None, counter], 0)):
         for radix, smem, group in ((1024, inst.smem_bytes - 4, 1), (128, inst.smem_bytes, 1),
                                    (1024, inst.smem_bytes, 0)):
             err = hc._call("hsmm_scan_wide", "hsmm_wide_viterbi_scan",
-                           [trans_t, *scan_in[1:], alphas, bp, None],
-                           [2, 8, 200, 19, radix, cluster, inst.slab, smem, group], alphas)
+                           [scratch, *scan_in[1:], alphas, bp, *ptrs],
+                           [2, 8, 200, 19, radix, code, inst.slab, inst.chains, smem, group],
+                           alphas)
             assert err != 0, (inst.route, radix, smem, group)
+    # two chains a block on one table slab, but a table a chain
+    err = hc._call("hsmm_scan_wide", "hsmm_wide_viterbi_scan",
+                   [scratch, *scan_in[1:], alphas, bp, scratch, None, counter],
+                   [2, 8, 200, 19, 1024, 0, grid.slab, 2, grid.smem_bytes, 1], alphas)
+    assert err != 0
+
+
+def test_wide_grid_launch_that_cannot_be_resident_raises(cuda, monkeypatch):
+    """A grid-route launch whose blocks the card cannot hold at once (one
+    class and one chain a block, each asking for most of an SM's shared
+    memory) is refused before it runs (cudaErrorCooperativeLaunchTooLarge,
+    720): the wrappers raise and count no launch."""
+    C, Km, N = 700, 19, 2
+    inst = hc.wide_grid_instance(C, Km, N, 1, chains=1)._replace(
+        slab=1, blocks=N * C, threads=32, smem_bytes=200000)
+    # an SM holds one such block (hc.SM_SMEM), the card its SMs' worth
+    assert hc.SM_SMEM // (inst.smem_bytes + hc.SM_SMEM_PER_BLOCK) == 1
+    assert inst.blocks > torch.cuda.get_device_properties(cuda).multi_processor_count
+    monkeypatch.setattr(hc, "wide_scan_instance", lambda *_: inst)
+    scan_in = scan_inputs(np.random.RandomState(5), N, 8, C, Km, cuda)
+    before = launches(WIDE_KERNELS)
+    for scan in (hc.hsmm_viterbi_scan_wide, hc.hsmm_log_scan_wide, hc.hsmm_forward_scan_wide):
+        with pytest.raises(RuntimeError, match="error 720"):
+            scan(*scan_in)
+    assert launches(WIDE_KERNELS) == before
 
 
 def test_wide_partition_fb_kernels_match_plain(cuda):
@@ -1249,10 +1284,11 @@ def test_wide_model_decodes_and_trains_on_the_card(cuda):
 
 
 # ---- the wide scans' two routes (csrc/hsmm_scan_wide.cu): the cluster
-# route (the table in the shared memory of a chain's blocks) and the L2 route
+# route (the table in the shared memory of a chain's blocks) and the grid
+# route (one cooperative grid over every SM)
 
 ROUTE_CLASSES = (129, 236, 342, hc.WIDE_CLUSTER_MAX_CLASSES, hc.WIDE_CLUSTER_MAX_CLASSES + 1,
-                 1024, 1025, 1577)
+                 1024, 1025, 1577, 2048, 3000)
 ROUTE_KMS = (1, 19, 25, 64)
 WIDE_SCAN_CALLS = (("hsmm_wide_viterbi_scan", "ab"), ("hsmm_wide_log_scan", "ga"),
                    ("hsmm_wide_forward_scan", "a"))
@@ -1263,33 +1299,100 @@ def wide_outputs(kind, emit):
             else torch.empty_like(emit) for k in kind]
 
 
-@pytest.mark.parametrize("C", ROUTE_CLASSES)
-@pytest.mark.parametrize("Km", ROUTE_KMS)
-def test_wide_scans_equal_plain_on_each_route(cuda, C, Km):
-    """Each wide instance on the route ``wide_scan_instance`` picks and on
-    the L2 route, on the stacked forward and reversed chains with ragged
-    lengths down to 1: outputs equal to the plain versions'. The widths
-    hold each cluster size the rule gives (1 at C = 129, 2 at 236, 3 at
-    342, 8 at the cluster route's widest C at Km = 1) and the L2 route
-    past it."""
-    T = 24 if C > 342 else 40  # the plain log scan is a Python loop over C
-    pots, lengths = random_pots(np.random.RandomState(C + 7 * Km), 3, T, C, Km + 1, cuda)
-    lengths[1] = 1
-    scan_in = hc._stack_fwd_rev(pots, lengths.long())
+def grid_variants(C, Km, N, group, sms):
+    """The grid route's launches at (C, Km, N, group): the rule's; one
+    chain a block; the rule's tiling with its table, and then its ring,
+    moved to global memory; and its chains split over two launches."""
+    rule = hc.wide_grid_instance(C, Km, N, group, sms)
+    out = {rule, hc.wide_grid_instance(C, Km, N, group, sms, chains=1)}
+    moved = rule
+    for field in ("table", "ring"):
+        moved = moved._replace(**{field: "global"})
+        out.add(moved._replace(smem_bytes=hc.wide_grid_smem(C, Km, moved.slab, moved.chains,
+                                                             moved.table, moved.ring)))
+    if N > 1:
+        half = -(-N // 2)
+        out.add(moved._replace(launch_chains=half, blocks=-(-half // moved.chains) * -(
+            -C // moved.slab)))
+    return out
+
+
+def assert_wide_launches_equal_plain(scan_in, insts):
+    """Each wide instance on each launch of `insts`, against its plain
+    version: equal."""
     want_vit = hc._viterbi_scan_plain(*scan_in)
     want_log = hc._log_scan_plain(*scan_in)
     want = {"hsmm_wide_viterbi_scan": want_vit, "hsmm_wide_log_scan": want_log,
             "hsmm_wide_forward_scan": want_log[1:]}
-    insts = {hc.wide_scan_instance(C, Km), hc.wide_l2_instance(C, Km)}
     for inst in insts:
         for symbol, kind in WIDE_SCAN_CALLS:
             outs = wide_outputs(kind, scan_in[3])
-            radix = [hc.code_radix(C)] if "b" in kind else []
+            radix = [hc.code_radix(scan_in[3].shape[-1])] if "b" in kind else []
             hc._launch_wide_scan(symbol, symbol, *scan_in, outs, radix, inst=inst)
             torch.cuda.synchronize()
             for got, exp in zip(outs, want[symbol]):
                 assert torch.equal(got, exp), "{} on {}: {} of {} differ".format(
                     symbol, inst, int((got != exp).sum()), got.numel())
+
+
+@pytest.mark.parametrize("C", ROUTE_CLASSES)
+@pytest.mark.parametrize("Km", ROUTE_KMS)
+def test_wide_scans_equal_plain_on_each_route(cuda, C, Km):
+    """Each wide instance on the route ``wide_scan_instance`` picks and on
+    the grid route's launches (``grid_variants``), on the stacked forward
+    and reversed chains with ragged lengths down to 1: outputs equal to
+    the plain versions'. The widths hold each cluster size the rule gives
+    (1 at C = 129, 2 at 236, 3 at 342, 8 at the cluster route's widest C
+    at Km = 1) and the grid route past it (the table slab in shared
+    memory, in global memory; the ring in each)."""
+    T = 24 if C > 342 else 40  # the plain log scan is a Python loop over C
+    pots, lengths = random_pots(np.random.RandomState(C + 7 * Km), 3, T, C, Km + 1, cuda)
+    lengths[1] = 1
+    scan_in = hc._stack_fwd_rev(pots, lengths.long())
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    insts = {hc.wide_scan_instance(C, Km, 6, 1, sms)} | grid_variants(C, Km, 6, 1, sms)
+    assert_wide_launches_equal_plain(scan_in, insts)
+
+
+@pytest.mark.parametrize("C", (665, 1577))
+@pytest.mark.parametrize("N,group", [(1, 1), (2, 1), (2, 2), (18, 1), (18, 9), (18, 18),
+                                     (36, 1), (36, 18), (36, 36)])
+def test_wide_grid_chains_and_tables_equal_plain(cuda, C, N, group):
+    """The grid route at N = 1, 2, 18 and 36 chains, `group` of them a
+    table (a table a chain, the stacked forward and reversed chains' two,
+    one for all), ragged lengths down to 1: each instance on each launch
+    of ``grid_variants`` equal to its plain version on the same tables
+    copied a chain."""
+    Km, T = 19, 8
+    rng = np.random.RandomState(C + N + group)
+    trans1, init, dur, emit = scan_inputs(rng, -(-N // group), T, C, Km, cuda)
+    _, init, dur, emit = scan_inputs(rng, N, T, C, Km, cuda)
+    G = trans1.shape[0]
+    trans = trans1[:, None].expand(G, group, C, C) if group > 1 else trans1
+    if group == N:
+        trans = trans1.expand(N, C, C)
+    lengths = torch.from_numpy(rng.randint(1, T + 1, size=N)).to(cuda)
+    lengths[0], lengths[-1] = T, 1
+    emit = emit * (torch.arange(T, device=cuda)[None, :, None] < lengths[:, None, None])
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    insts = grid_variants(C, Km, N, group, sms)
+    assert_wide_launches_equal_plain((trans, init, dur, emit.contiguous()), insts)
+    assert torch.equal(hc._dense_trans(trans), trans1.repeat_interleave(group, 0)[:N])
+
+
+@pytest.mark.parametrize("C", (665, 1577, 3000))
+def test_wide_grid_at_one_step(cuda, C):
+    """T = 1 on the grid route (one barrier): equal to plain; and the grid
+    barrier alone over a full grid (tools/scan_ab.py's probe) counts every
+    block's every step."""
+    rng = np.random.RandomState(C)
+    scan_in = scan_inputs(rng, 4, 1, C, 19, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert_wide_launches_equal_plain(scan_in, grid_variants(C, 19, 4, 1, sms))
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    err = hc._call("hsmm_scan_wide", "hsmm_wide_grid_barrier", [counter], [sms, 256, 64], counter)
+    torch.cuda.synchronize()
+    assert err == 0 and int(counter) == 64 * sms
 
 
 def test_wide_scans_at_the_s6_shape_equal_plain(cuda):
@@ -1314,9 +1417,10 @@ def test_wide_scans_at_the_s6_shape_equal_plain(cuda):
 def test_wide_scans_share_an_expanded_table(cuda, C, Km):
     """A batch whose transition table is one expanded view (batch stride
     0, as a model's potentials give it) goes to the kernel as one table
-    that every chain reads: each instance's outputs equal to those of the
-    same table copied a chain, on the route ``wide_scan_instance`` picks
-    and on the L2 route."""
+    that every chain reads: each instance's outputs, on the route
+    ``wide_scan_instance`` picks and on the grid route's launches, equal
+    to those of the same table copied a chain through the wrappers (a
+    table a chain: on the grid route its slab read from global memory)."""
     rng = np.random.RandomState(C + Km)
     N, T = 4, 16
     trans1, init, dur, emit = scan_inputs(rng, 1, T, C, Km, cuda)
@@ -1324,16 +1428,17 @@ def test_wide_scans_share_an_expanded_table(cuda, C, Km):
         N, device=cuda).view((N,) + (1,) * (x.ndim - 1)) for x in (init, dur, emit))
     shared = trans1.expand(N, C, C)
     copied = shared.contiguous()
-    for inst in {hc.wide_scan_instance(C, Km), hc.wide_l2_instance(C, Km)}:
+    want = {"hsmm_wide_viterbi_scan": hc.hsmm_viterbi_scan_wide(copied, init, dur, emit),
+            "hsmm_wide_log_scan": hc.hsmm_log_scan_wide(copied, init, dur, emit),
+            "hsmm_wide_forward_scan": (hc.hsmm_forward_scan_wide(copied, init, dur, emit),)}
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for inst in {hc.wide_scan_instance(C, Km, N, N, sms)} | grid_variants(C, Km, N, N, sms):
         for symbol, kind in WIDE_SCAN_CALLS:
             radix = [hc.code_radix(C)] if "b" in kind else []
-            outs = {}
-            for name, trans in (("shared", shared), ("copied", copied)):
-                outs[name] = wide_outputs(kind, emit)
-                hc._launch_wide_scan(symbol, symbol, trans, init, dur, emit, outs[name], radix,
-                                     inst=inst)
+            outs = wide_outputs(kind, emit)
+            hc._launch_wide_scan(symbol, symbol, shared, init, dur, emit, outs, radix, inst=inst)
             torch.cuda.synchronize()
-            for got, exp in zip(outs["shared"], outs["copied"]):
+            for got, exp in zip(outs, want[symbol]):
                 assert torch.equal(got, exp), (symbol, inst)
     alphas, bp = hc.hsmm_viterbi_scan(shared, init, dur, emit)
     want = hc._viterbi_scan_plain(copied, init, dur, emit)
@@ -1347,8 +1452,8 @@ def test_wide_cluster_launch_refused_raises(cuda, monkeypatch):
     raises and counts no launch; the rule never asks for one."""
     C, Km = 342, 19
     slab = -(-C // 16)
-    refused = hc.WideScan("cluster", 16, slab, 32 * -(-slab // 32), "shared",
-                          hc.wide_cluster_smem(C, Km, slab))
+    refused = hc.WideScan("cluster", 16, slab, 1, 32, 32 * -(-slab // 32), "shared", "shared",
+                          hc.wide_cluster_smem(C, Km, slab), 2)
     monkeypatch.setattr(hc, "wide_scan_instance", lambda *_: refused)
     scan_in = scan_inputs(np.random.RandomState(16), 2, 8, C, Km, cuda)
     before = launches(WIDE_KERNELS)
@@ -1360,7 +1465,7 @@ def test_wide_cluster_launch_refused_raises(cuda, monkeypatch):
 
 def test_wide_max_active_clusters_at_the_s6_shape(cuda):
     """cudaOccupancyMaxActiveClusters of each instance at the S6 shape: at
-    least one cluster of 3, at most one a 3 SMs; the L2 route raises."""
+    least one cluster of 3, at most one a 3 SMs; the grid route raises."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for scan in hc.WIDE_SCAN_INDEX:
         n = hc.wide_max_active_clusters(scan, 342, 19, cuda.index or 0)

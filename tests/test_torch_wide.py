@@ -207,15 +207,17 @@ WIDE_KMS = (1, 19, 64, 100)
 @pytest.mark.parametrize("C", WIDE_CLASSES)
 @pytest.mark.parametrize("Km", WIDE_KMS)
 def test_wide_scan_launch_fits_the_block(C, Km):
-    """csrc/hsmm_scan_wide.cu's launch (``wide_scan_instance``). On the
-    cluster route: at most 8 blocks a chain, each of at most 256 threads
-    (its slab of classes in whole warps), the slabs covering C with none
-    empty, and a block's alpha rows, table columns and ring within 232,448
-    bytes. On the L2 route: C threads in whole warps, at most 1,024, each
-    then ceil(C / threads) classes; the alpha rows, each class's prefix sum
-    and duration argmax (4 C words) and, where both fit, the carry's ring
-    in shared memory, else the ring in global memory."""
-    inst = hc.wide_scan_instance(C, Km)
+    """csrc/hsmm_scan_wide.cu's launch (``wide_scan_instance``) for 18
+    chains of one expanded table. On the cluster route: at most 8 blocks a
+    chain, each of at most 256 threads (its slab of classes in whole
+    warps), the slabs covering C with none empty, and a block's alpha
+    rows, table columns and ring within 232,448 bytes. On the grid route:
+    at most one block an SM, the slabs and chain groups covering C and the
+    18 chains with none empty, a block's pairs in whole warps up to
+    GRID_THREADS (each thread then its pairs in turn), and its table slab,
+    alpha rows, each pair's prefix sum and duration argmax and, where they
+    fit, its ring rows within a block's shared memory."""
+    inst = hc.wide_scan_instance(C, Km, 18, 18)
     assert inst.smem_bytes <= hc.MAX_BLOCK_SMEM
     if inst.route == "cluster":
         assert 1 <= inst.cluster <= hc.WIDE_MAX_CLUSTER and inst.ring == "shared"
@@ -224,20 +226,79 @@ def test_wide_scan_launch_fits_the_block(C, Km):
         assert inst.smem_bytes == hc.wide_cluster_smem(C, Km, inst.slab)
         assert inst.smem_bytes >= 4 * (2 * C + min(inst.slab, C) * C + Km * inst.slab)
     else:
-        assert inst.route == "l2" and (inst.cluster, inst.slab) == (1, C)
-        assert inst.threads <= hc.MAX_BLOCK_THREADS and inst.threads % 32 == 0
-        assert inst.threads == hc.MAX_BLOCK_THREADS or 0 <= inst.threads - C < 32
-        per = -(-C // inst.threads)
-        assert per == (1 if C <= 1024 else 2)
-        fits = 4 * (4 * C + Km * C) <= hc.MAX_BLOCK_SMEM
-        assert inst.ring == ("shared" if fits else "global")
-        assert inst.smem_bytes == 4 * (4 * C + (Km * C if fits else 0))
+        assert inst.route == "grid" and inst.cluster == 0 and inst.launch_chains == 18
+        slabs, groups = -(-C // inst.slab), -(-18 // inst.chains)
+        assert (slabs - 1) * inst.slab < C and (groups - 1) * inst.chains < 18
+        assert inst.blocks == slabs * groups <= hc.H100_SMS
+        pairs = inst.chains * inst.slab
+        assert inst.threads == min(hc.GRID_THREADS, 32 * -(-pairs // 32))
+        assert inst.smem_bytes == hc.wide_grid_smem(C, Km, inst.slab, inst.chains, inst.table,
+                                                    inst.ring)
+        assert inst.smem_bytes >= 4 * (inst.chains * C + 2 * pairs
+                                       + inst.slab * C * (inst.table == "shared")
+                                       + Km * pairs * (inst.ring == "shared"))
     # the serving width's table over 3 blocks (Km = 19 at C = 342), and
-    # 1,024 classes on the L2 route at Km = 64 (the ring past a block's
-    # shared memory) and at Km = 19 (the ring in it)
+    # 1,577 classes on the grid route at Km = 64 (the ring past a block's
+    # shared memory beside the table slab) and at Km = 19 (the ring in it)
     assert hc.wide_scan_instance(342, 19)[:2] == ("cluster", 3)
-    assert hc.wide_scan_instance(1024, 64)[::4] == ("l2", "global")
-    assert hc.wide_scan_instance(1024, 19)[::4] == ("l2", "shared")
+    assert hc.wide_scan_instance(1577, 64, 18, 18)[::6] == ("grid", "shared")
+    assert hc.wide_scan_instance(1577, 64, 18, 18).ring == "global"
+    assert hc.wide_scan_instance(1577, 19, 18, 18).ring == "shared"
+
+
+@pytest.mark.parametrize("C", (200, 700))
+@pytest.mark.parametrize("B", (1, 3))
+def test_grouped_stack_plain_equals_concatenated(C, B):
+    """Above 128 classes a model's expanded table stacks as two tables
+    (the table and its transpose, a (2, B, C, C) view read by B chains
+    each): the plain scans' outputs on it are the concatenated form's
+    (a table a chain), bit for bit."""
+    rng = np.random.RandomState(C + B)
+    arrays, lengths = wide_arrays(rng, B, 12, C, 6)
+    pots = th.HsmmPotentials(*map(torch.from_numpy, arrays))
+    pots = pots._replace(trans=pots.trans[:1].expand(B, C, C))
+    L = torch.from_numpy(lengths).long()
+    grouped = hc._stack_fwd_rev(pots, L)
+    assert tuple(grouped[0].shape) == (2, B, C, C) and (B == 1 or grouped[0].stride(1) == 0)
+    dense = hc._dense_trans(grouped[0])
+    table = pots.trans[0]
+    assert torch.equal(dense, torch.cat([table.expand(B, C, C),
+                                         table.T.expand(B, C, C)]))
+    concat = (dense.contiguous(), *grouped[1:])
+    for fn in (hc._log_scan_plain, hc._viterbi_scan_plain):
+        for got, want in zip(fn(*grouped), fn(*concat)):
+            assert torch.equal(got, want), fn.__name__
+    assert torch.equal(hc._forward_scan_plain(*hc._forward_chains(grouped, B)),
+                       hc._forward_scan_plain(*hc._forward_chains(concat, B)))
+    assert torch.equal(hc._forward_chains(grouped, B)[0], pots.trans)
+    # at <= 128 classes, or a table a video, the stack stays concatenated
+    narrow = th.HsmmPotentials(*(x[..., :100, :100] if x.dim() == 3 and x.shape[-2] == C
+                                 else x[..., :100] for x in pots))
+    assert hc._stack_fwd_rev(narrow, L)[0].dim() == 3
+    if B > 1:
+        assert hc._stack_fwd_rev(pots._replace(trans=pots.trans.contiguous()), L)[0].dim() == 3
+
+
+@pytest.mark.parametrize("C", (700, 1100))
+def test_wide_frame_marginals_grouped_match_jax(C):
+    """The port's frame marginals (``hsmm_frame_marginals_fast`` through
+    the PLAIN Function: the stacked log scan on the two grouped tables, the
+    band sweep) against JAX's ``hsmm_frame_marginals`` (autograd of its jnp
+    partition) on two short videos with an expanded transition view."""
+    rng = np.random.RandomState(C)
+    B, T, K = 2, 20, 5
+    arrays = [np.array(a) for a in random_pots_arrays(rng, 1, T, C, K)][:5]
+    arrays = [np.repeat(a, B, axis=0) for a in arrays]
+    arrays[3] = rng.randn(B, T, C).astype(np.float32)  # a video's own emissions
+    lengths = np.array([T, 13], np.int32)
+    want = jh.hsmm_frame_marginals(jh.HsmmPotentials(*map(jnp.asarray, arrays)),
+                                   jnp.asarray(lengths))
+    ts = [torch.from_numpy(a) for a in arrays]
+    ts[0] = ts[0][:1].expand(B, C, C)  # the model's expanded table
+    pots = th.HsmmPotentials(*ts)
+    assert hc._stack_fwd_rev(pots, torch.from_numpy(lengths).long())[0].dim() == 4
+    got = hg.hsmm_frame_marginals_fast(pots, torch.from_numpy(lengths), hg.PLAIN)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=GRAD_RTOL, atol=GRAD_ATOL)
 
 
 @pytest.mark.parametrize("C", WIDE_CLASSES)
