@@ -40,10 +40,11 @@ the wide traceback
 to the launch: two warps a video, one walking the raw codes with two
 shared-memory loads a segment, the other streaming the plane from the top
 down through a ring of tiles that ``wide_traceback_tile`` sizes, one bulk
-copy a tile) and the band gradient, whose blocks take at most 1,024
-classes (``band_grad_tile``'s chunk). Each wide kernel counts its own
-launches. What bounds the width: the codes' int32 (``_scan_radix``, on
-both devices) and, on the card, a block's shared memory, which holds one
+copy a tile) and the wide band gradient (``hsmm_band_grad_wide``, its
+own kernel in csrc/band_grad.cu: blocks of 32 classes walking runs of
+time rows, enough runs a video to keep every resident block slot busy,
+``band_grad_wide_tile``). Each wide kernel counts its own launches. What
+bounds the width: the codes' int32 (``_scan_radix``, on both devices) and, on the card, a block's shared memory, which holds one
 chain's alpha row on the grid route up to WIDE_GRID_MAX_CLASSES (57,220
 on 132 SMs) and W2's 4 slots a row of up to 14,521 codes; past those the
 wrappers raise. The
@@ -90,7 +91,7 @@ from action_segmentation_torch.ops.hsmm import (
 # The kernels put one class per thread of a block (in the scans at most
 # four warps a chain), so they take C <= 128 classes; a wider DP takes the
 # wide kernels (csrc/hsmm_scan_wide.cu, the traceback's wide instance and
-# the band gradient in chunks of classes).
+# the band gradient's wide kernel).
 MAX_CLASSES = 128
 
 # The scans' instances: csrc/hsmm_scan_core.cuh's template is compiled for
@@ -852,7 +853,8 @@ def _band_grad_plain(G1m, G2p, dur):
     qg[s] = LSE_j dur[j] + G2p[s+j+1], sa[s] = sum_j M[s, j],
     st[i] = sum_j M[i-j-1, j], lg[j] = sum_s M[s, j]. The kernel's
     operations in its order (r descending, qg by jnp.logaddexp's formula);
-    lg's sum over T is associated per thread block on the card.
+    lg's sum over T is associated otherwise on the card: per thread
+    block (C <= 128), or per thread, block and run (``band_grad_wide_tile``).
     """
     B, T, C = G1m.shape
     Km = dur.shape[1]
@@ -873,8 +875,11 @@ def _band_grad_plain(G1m, G2p, dur):
 
 @functools.cache
 def band_grad_tile(B, T, C, Km, sms=H100_SMS):
-    """The tile K4 (csrc/band_grad.cu) launches a (B, T, C) plane with Km
-    duration rows on `sms` SMs.
+    """The tile K4's narrow kernel (csrc/band_grad.cu `band_grad_kernel`,
+    which ``hsmm_band_grad`` launches up to 128 classes) takes for a (B,
+    T, C) plane with Km duration rows on `sms` SMs. The kernel takes any
+    C, as it did for every width before the wide kernel; tools/scan_ab.py
+    launches an earlier source's kernel at wide C in this tile.
 
     The classes go in chunks of at most 1,024 (one chunk up to 1,024
     classes, else C split evenly over ceil(C / 1,024)), each chunk a
@@ -899,6 +904,72 @@ def band_grad_tile(B, T, C, Km, sms=H100_SMS):
     slab = min(Km, max(1, room))
     return _band_tile(B * chunks, T, chunk, rows, busiest, slab, 4 * slab * threads, per_sm,
                       sms)
+
+
+class WideBandTile(NamedTuple):
+    """K4's wide tile (C > 128, csrc/band_grad.cu `band_grad_wide_kernel`):
+    a block owns 32 classes (a group) and a run of `rows` time rows of one
+    video, which its `warps` warps walk a row each at a time; a pass
+    stages `slab` durations of each thread's lg column in shared memory."""
+
+    rows: int  # a run's time rows
+    warps: int
+    threads: int
+    slab: int
+    smem_bytes: int
+    tiles: int  # a video's runs
+    groups: int  # a video's blocks of 32 classes
+    blocks_per_sm: int  # resident at once
+    waves: int  # B * groups * tiles over the card's resident blocks
+    filling: float  # the launch's blocks over the waves' resident slots
+    scratch_bytes: int  # the lg partials: B * tiles * Km * C floats past one run
+
+
+BAND_GRAD_WIDE_CLASSES = 32
+BAND_GRAD_WIDE_WARPS = 8
+BAND_GRAD_WIDE_REGS = 32
+
+
+@functools.cache
+def band_grad_wide_tile(B, T, C, Km, sms=H100_SMS):
+    """The tile K4's wide kernel takes for a (B, T, C) plane with Km
+    duration rows on `sms` SMs.
+
+    Blocks of 8 warps over 32 classes, at most 32 registers a thread, so
+    that 8 blocks fit an SM by threads and registers; the slab holds
+    every duration where 8 blocks' slabs still fit an SM's shared memory
+    (Km <= 27), else as many as do (the kernel walks its run once a
+    slab). The runs a video: of the counts that keep the lg partials
+    within one plane (runs * Km <= T, so that B * runs * Km * C floats
+    are at most B * T * C), give every warp a row and, where any does,
+    give every resident block slot of the card a block (the duration loop
+    is latency-bound: an SM that holds fewer blocks runs each row
+    slower), the one whose launch costs the least, a launch costing its
+    rounds of resident blocks (ceil(blocks / slots)) times a run's rows
+    plus the Km rows of halo its windows of G1m and G2p reach past them;
+    among equals the fewest runs. One run needs no partials and no
+    ticket."""
+    groups = -(-C // BAND_GRAD_WIDE_CLASSES)
+    warps = BAND_GRAD_WIDE_WARPS
+    threads = 32 * warps
+    per_sm = _blocks_per_sm(threads, BAND_GRAD_WIDE_REGS)
+    room = (SM_SMEM // per_sm - SM_SMEM_PER_BLOCK) // (4 * threads)
+    slab = min(Km, max(1, room))
+    smem = 4 * slab * threads
+    per_sm = min(per_sm, SM_SMEM // (smem + SM_SMEM_PER_BLOCK))
+    resident = sms * per_sm
+    lines = max(B * groups, 1)
+    # the run counts that whole runs of rows give: ceil(T / ceil(T / n))
+    Tr = max(T, 1)
+    counts = sorted({-(-Tr // -(-Tr // n)) for n in range(1, max(1, T // max(Km, warps, 1)) + 1)})
+    filling = [n for n in counts if lines * n >= resident]
+    runs = min(filling or counts, key=lambda n: (-(-lines * n // resident) * (-(-Tr // n) + Km), n))
+    rows = -(-Tr // runs)
+    tiles = -(-T // rows)
+    waves = max(1, -(-B * groups * tiles // resident))
+    scratch = 4 * B * tiles * Km * C if tiles > 1 else 0
+    return WideBandTile(rows, warps, threads, slab, smem, tiles, groups, per_sm, waves,
+                        B * groups * tiles / (waves * resident), scratch)
 
 
 @functools.cache
@@ -942,14 +1013,16 @@ def _launch_band_grad(G1m, G2p, dur, tile):
 def hsmm_band_grad(G1m, G2p, dur):
     """Span-posterior masses (qg, sa, st, lg); see ``_band_grad_plain``.
 
-    On CUDA tensors (float32, contiguous, any C: one thread a (row,
-    class), a block at most 1,024 of them, so a wide DP takes the same
-    kernel) it launches csrc/band_grad.cu once, in the tile
-    ``band_grad_tile`` sizes, which reduces lg over the tiles in a fixed
-    order (two runs give the same bits); on CPU tensors it runs the plain
+    On CUDA tensors (float32, contiguous, C <= 128: one thread a (row,
+    class)) it launches csrc/band_grad.cu's narrow kernel once, in the
+    tile ``band_grad_tile`` sizes, which reduces lg over the tiles in a
+    fixed order (two runs give the same bits); above 128 classes the wide
+    kernel (``hsmm_band_grad_wide``); on CPU tensors it runs the plain
     version."""
     if _device_type(G1m) == "cpu":
         return _band_grad_plain(G1m, G2p, dur)
+    if G1m.shape[-1] > MAX_CLASSES:
+        return hsmm_band_grad_wide(G1m, G2p, dur)
     B, T, T2, C, Km = _band_shapes("hsmm_band_grad", G1m, G2p, dur)
     tile = band_grad_tile(B, T, C, Km, _sm_count(G1m.device.index))
     out = _launch_band_grad(G1m, G2p, dur, tile)
@@ -958,6 +1031,40 @@ def hsmm_band_grad(G1m, G2p, dur):
 
 
 hsmm_band_grad.launches = 0
+
+
+def _launch_band_grad_wide(G1m, G2p, dur, tile):
+    """One launch of csrc/band_grad.cu's wide kernel in `tile`; returns
+    (qg, sa, st, lg), the first three views of one (3, B, T, C) tensor."""
+    B, T, C = G1m.shape
+    T2, Km = G2p.shape[1], dur.shape[1]
+    qg, sa, st = G1m.new_empty((3, B, T, C)).unbind(0)
+    lg = G1m.new_empty((B, Km, C))
+    partials = G1m.new_empty((tile.scratch_bytes // 4,)) if tile.scratch_bytes else None
+    err = _call("band_grad", "hsmm_band_grad_wide",
+                [G1m, G2p, dur, qg, sa, st, lg, partials,
+                 _tickets(G1m.device, B * tile.groups)],
+                [B, T, T2, C, Km, tile.rows, tile.warps, tile.slab, tile.smem_bytes], G1m)
+    _raise_on_error("hsmm_band_grad_wide", err)
+    return qg, sa, st, lg
+
+
+def hsmm_band_grad_wide(G1m, G2p, dur):
+    """``hsmm_band_grad`` for a DP of C > 128 classes. On CUDA tensors
+    (float32, contiguous, any C) it launches csrc/band_grad.cu's wide
+    kernel once, in the tile ``band_grad_wide_tile`` sizes (lg the same
+    bits in two runs; its partials at most one (B, T, C) plane); on CPU
+    tensors it runs ``_band_grad_plain``."""
+    if _device_type(G1m) == "cpu":
+        return _band_grad_plain(G1m, G2p, dur)
+    B, T, T2, C, Km = _band_shapes("hsmm_band_grad_wide", G1m, G2p, dur)
+    tile = band_grad_wide_tile(B, T, C, Km, _sm_count(G1m.device.index))
+    out = _launch_band_grad_wide(G1m, G2p, dur, tile)
+    hsmm_band_grad_wide.launches += 1
+    return out
+
+
+hsmm_band_grad_wide.launches = 0
 
 
 # ---- the two directions and the band inputs --------------------------------

@@ -21,6 +21,11 @@ Km). Run from the repository root on a machine with a CUDA card:
 
     python3 -m action_segmentation_torch.tools.scan_ab --old_csrc OLD_DIR [--kernels all|scans|traceback|band_grad|band_max|wide] [--step0] [--out ab.json]
 
+For example, K4 against the source before its wide kernel:
+
+    mkdir -p _archive/k4_old && git show 39d6789:action_segmentation_torch/csrc/band_grad.cu > _archive/k4_old/band_grad.cu
+    python3 -m action_segmentation_torch.tools.scan_ab --old_csrc _archive/k4_old --kernels band_grad
+
 Both versions build with the port's nvcc flags. For each shape and scan
 (the max gamma scan, the log scan with alphas, the forward-only log scan,
 the backpointer scan) it checks that the two versions' outputs are equal,
@@ -58,16 +63,35 @@ The band gradient (``--kernels band_grad``, never with the others) is
 timed from replayed CUDA graphs too, old, new, new, old, and each version
 also launched one by one, at the serving shape (first, the earlier
 kernel alone both ways), a CrossTask fit batch (B=5, T=1,056, C=20,
-K=20), T=12,000 (B=2), C=128 (B=4) and Km=100, on the band inputs the
-current log scan gives. It checks that wherever qg, sa or st differ
-between the versions the new one equals the plain version's, that the
-new lg is the same in two runs and within rtol 1e-5 / atol 1e-4 of the
-plain version (equal to the earlier lg where the tile keeps its 512 // C
-rows, or where the earlier source takes the current interface), and
-prints the new tile, each version's entries of qg, sa and st that
-differ from the plain version's (and how many of those the plain version
-holds as denormal), and each version's duration loop from the SASS,
-counted by opcode (FFMA, FADD, FMUL, MUFU, ...).
+K=20), T=12,000 (B=2), C=128 (B=4), Km=100 and, past 128 classes, where
+the current wrapper takes the wide kernel (``hsmm_band_grad_wide`` in the
+tile ``band_grad_wide_tile`` sizes) and the earlier source its one kernel
+(in the tile ``band_grad_tile`` sizes), at B=18, T=1,024, K=20 over 342
+(the S6 shape), 664 and 1,577 classes and at T=12,000 (B=2) over 342, on
+the band inputs the current log scan gives. It checks that wherever qg,
+sa or st differ between the versions the new one equals the plain
+version's, that the new lg is the same in two runs and within rtol 1e-5
+/ atol 1e-4 of the plain version (equal to the earlier lg where the
+narrow tile keeps its 512 // C rows, or where the earlier source takes
+the current interface, up to 128 classes), and prints the new tile, each
+version's lg scratch (the partials' bytes) beside the (B, T, C) plane's,
+its issue floor and its cross-tile sum's floor (``scan_floor``), each
+version's entries of qg, sa and st that differ from the plain version's
+(and how many of those the plain version holds as denormal), and each
+version's duration loop from the SASS (the new narrow and wide kernels'
+both), counted by opcode (FFMA, FADD, MUFU, ...). The earlier source takes
+the current narrow interface with or without the chunk (its text says).
+At the wide shapes it also times the current wide
+kernel in the rule's tile beside tiles of other run counts a video
+(``BAND_GRAD_RUNS``), in turns from replayed graphs, lg held to the plain
+version's in each (a finding).
+With ``--step0`` only the earlier kernel runs: alone at the wide shapes
+(its outputs held to the plain version's, its scratch and floors), and
+at the S6 shape and at 1,577 classes beside scratch builds of its source
+that each cut one part (``BAND_GRAD_CUTS``: the last block's sum over
+the tiles, the partials' stores, the stop mass's recomputed expf, and
+the first two together), all in turns from replayed graphs (no output
+check for a cut build).
 
 The band max (``--kernels band_max``, never with the others) starts
 with step 0: the earlier kernel alone at the serving shape, from a
@@ -146,12 +170,18 @@ from action_segmentation_torch.ops.hsmm_grad import _log_partition
 from action_segmentation_torch.tools.scan_floor import (
     built_sass,
     duration_loop,
+    band_grad_floor,
+    band_grad_issue_ms,
+    band_grad_tail,
+    band_grad_wide_floor,
+    band_grad_wide_issue_ms,
     earlier_l2_launch,
     library_sass,
     max_sm_clock_mhz,
     parse_function,
     traceback_wide_floor,
     traceback_wide_floor_ms,
+    wide_duration_loop,
     wide_first_tile_bytes,
     wide_floors,
 )
@@ -204,7 +234,30 @@ BAND_GRAD_SHAPES = [
     ("T=12000", 2, 12000, 19, 20, [12000, 7001]),
     ("C=128", 4, 1024, 128, 20, None),
     ("Km=100", 18, 1024, 19, 101, None),
+    ("wide S6 C=342", 18, 1024, 342, 20, None),
+    ("wide C=664", 18, 1024, 664, 20, None),
+    ("wide C=1577", 18, 1024, 1577, 20, None),
+    ("wide T=12000 C=342", 2, 12000, 342, 20, [12000, 7001]),
 ]
+# step 0's split of the earlier K4 at these shapes: scratch builds of its
+# source, each with one part cut (an exact text of it replaced)
+BAND_GRAD_SPLIT_SHAPES = ("wide S6 C=342", "wide C=1577")
+# the current wide kernel at these shapes in other run counts than its
+# rule's, in turns beside it (a finding)
+BAND_GRAD_RUNS = {"wide S6 C=342": (2, 4, 6, 8, 10, 12, 16, 24, 32),
+                  "wide C=664": (1, 2, 4, 6, 9, 11, 16),
+                  "wide C=1577": (1, 2, 4, 8, 12, 16, 24, 41),
+                  "wide T=12000 C=342": (24, 96, 144, 192)}
+BAND_GRAD_CUTS = {
+    # the last block's sum over the tiles (the ticket stays)
+    "no tail sum": [("  if (!last) return;\n", "  return;\n")],
+    # the partials' stores (the slab's pair sums stay: a store never taken)
+    "no partial writes": [("if (c0 + kc < C) part[", "if (c0 + kc < C && sum == -1.f) part[")],
+    # the stop mass's recomputed expf (its load and adds stay)
+    "no stop expf": [("stop = __fadd_rn(stop, expf(g1m[o1 - rc] + (d + g2_here)));",
+                      "stop = __fadd_rn(stop, g1m[o1 - rc] + (d + g2_here));")],
+}
+BAND_GRAD_CUTS["loop alone"] = BAND_GRAD_CUTS["no tail sum"] + BAND_GRAD_CUTS["no partial writes"]
 # the band max's shapes: (name, B, T, C, K, lengths)
 BAND_MAX_SHAPES = [
     ("serving", 18, 1024, 19, 20, None),
@@ -314,9 +367,40 @@ def build_old(csrc, out_dir, names=SOURCES):
     return libs
 
 
-def loop_opcodes(sass):
-    """{opcode: count} of the instructions of K4's duration loop."""
-    body = duration_loop(parse_function(sass, "band_grad_kernel"))
+def build_cuts(csrc, out_dir, cuts=BAND_GRAD_CUTS):
+    """{cut: library} of scratch builds of the earlier ``band_grad.cu``,
+    each with its texts replaced (each must occur once), all nvcc at once."""
+    source = (csrc / "band_grad.cu").read_text()
+    procs = {}
+    for name, edits in cuts.items():
+        text = source
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError("cut {!r}: {!r} occurs {} times in the earlier band_grad.cu"
+                                   .format(name, old, text.count(old)))
+            text = text.replace(old, new)
+        d = out_dir / ("cut_" + name.replace(" ", "_"))
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "band_grad.cu").write_text(text)
+        so = d / "libband_grad.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(d / "band_grad.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed for the cut {!r}:\n{}".format(name, out))
+        print_ptxas("cut " + name, out)
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
+
+
+def loop_opcodes(sass, kernel="band_grad_kernel"):
+    """{opcode: count} of the instructions of K4's duration loop (of the
+    wide kernel's with `kernel` "band_grad_wide_kernel")."""
+    insts = parse_function(sass, kernel)
+    body = duration_loop(insts) if kernel == "band_grad_kernel" else wide_duration_loop(insts)
     return dict(collections.Counter(ins[2].split(".")[0] for ins in body if ins[2] != "NOP"))
 
 
@@ -623,42 +707,113 @@ def band_grad_inputs(B, T, C, K, lengths, rng, device):
     return hc._grad_band_inputs(pots, L, gamma, logZ)
 
 
-def band_grad_launchers(fns, old_blocks, inputs):
-    """{version: (run, (qg, sa, st, lg))}: one launch of each version's
-    band gradient into outputs of its own, the new one in the tile
-    ``band_grad_tile`` sizes for this card; the old one too where
-    `old_blocks` is None (an earlier source of the current interface)."""
+def band_grad_launchers(fns, old_blocks, inputs, old_chunk=True):
+    """({version: (run, (qg, sa, st, lg), scratch bytes)}, narrow tile,
+    wide tile): one launch of each version's band gradient into outputs
+    of its own. "new" past 128 classes is the wide entry
+    (``hsmm_band_grad_wide``) in the tile ``band_grad_wide_tile`` sizes for
+    this card; every other version the narrow entry in the tile
+    ``band_grad_tile`` sizes (with the chunk where `old_chunk`, as the
+    current one), but "old" the two-launch form where `old_blocks` is
+    given."""
     G1m, G2p, dur = inputs
     B, T, C = G1m.shape
     T2, Km = G2p.shape[1], dur.shape[1]
-    tile = hc.band_grad_tile(B, T, C, Km, hc._sm_count(G1m.device.index))
-    tiled = {"old": old_blocks is None, "new": True}
-    scratch = {v: B * (tile.tiles if tiled[v] else old_blocks(T, C)) * Km * C for v in tiled}
-    tickets = hc._tickets(G1m.device, B * -(-C // tile.chunk))
+    sms = hc._sm_count(G1m.device.index)
+    tile = hc.band_grad_tile(B, T, C, Km, sms)
+    wide = hc.band_grad_wide_tile(B, T, C, Km, sms)
     out = {}
     for v, fn in fns.items():
         outs = [torch.empty_like(G1m) for _ in range(3)] + [G1m.new_empty((B, Km, C))]
-        held = [*inputs, *outs, G1m.new_empty((scratch[v],))]  # alive while `run` is
         ints = [B, T, T2, C, Km]
-        if tiled[v]:
+        if v == "new" and C > hc.MAX_CLASSES:
+            floats, tickets = wide.scratch_bytes // 4, hc._tickets(G1m.device, B * wide.groups)
+            ints += [wide.rows, wide.warps, wide.slab, wide.smem_bytes]
+        elif v == "old" and old_blocks is not None:
+            floats, tickets = B * old_blocks(T, C) * Km * C, None
+        else:
+            floats = B * tile.tiles * Km * C
+            tickets = hc._tickets(G1m.device, B * -(-C // tile.chunk))
+            ints += [tile.rows, tile.slab, tile.smem_bytes] + (
+                [tile.chunk] if v == "new" or old_chunk else [])
+        # alive while `run` is
+        held = [*inputs, *outs, G1m.new_empty((floats,)) if floats else None]
+        if tickets is not None:
             held.append(tickets)
-            ints += [tile.rows, tile.slab, tile.smem_bytes] + ([tile.chunk] if v == "new" else [])
 
         def run(fn=fn, held=held, ints=ints):
-            err = fn(*[x.data_ptr() for x in held], *ints, G1m.device.index,
-                     torch.cuda.current_stream().cuda_stream)
+            err = fn(*[None if x is None else x.data_ptr() for x in held], *ints,
+                     G1m.device.index, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError("launch failed with CUDA error {}".format(err))
-        out[v] = (run, outs)
-    return out, tile
+        out[v] = (run, outs, 4 * floats)
+    return out, tile, wide
 
 
-def compare_band_grad(fns, old_blocks, inputs, window_ms, clock, step0=False):
+def band_grad_floors(B, T, C, Km, mhz, sms, insts, wide):
+    """A version's issue floor (its duration loop's `insts`) and its
+    cross-tile sum's (``scan_floor.band_grad_tail``) in its tile."""
+    issue = (band_grad_wide_issue_ms if wide else band_grad_issue_ms)(insts, B, T, C, Km, mhz, sms)
+    return {"issue_floor_ms": issue, "tail": band_grad_tail(B, T, C, Km, mhz, sms, wide=wide)}
+
+
+def check_band_grad_plain(name, outs, plain):
+    """qg, sa and st equal to the plain version's, lg within the score
+    tolerance; raises naming `name`."""
+    for out, a, p in zip(("qg", "sa", "st", "lg"), outs, plain):
+        if out != "lg" and not torch.equal(a, p):
+            raise RuntimeError("{} {}: {} of {} entries differ from the plain version".format(
+                name, out, int((a != p).sum()), a.numel()))
+        try:
+            torch.testing.assert_close(a, p, rtol=RTOL, atol=ATOL)
+        except AssertionError as e:
+            raise RuntimeError("{} {}: against the plain version\n{}".format(name, out, e))
+
+
+def band_grad_step0(fns, inputs, window_ms, clock, insts, split, old_chunk):
+    """Step 0 at a wide shape: the earlier kernel's outputs against the
+    plain version's, its scratch, floors and time alone from replayed
+    graphs; with `split`, beside the cut builds in `fns`, in turns (each
+    version, then each in reverse order)."""
+    runs, tile, _ = band_grad_launchers(fns, None, inputs, old_chunk)
+    B, T, C = inputs[0].shape
+    Km = inputs[2].shape[1]
+    sms = hc._sm_count(inputs[0].device.index)
+    runs["old"][0]()
+    torch.cuda.synchronize()
+    check_band_grad_plain("the earlier kernel", runs["old"][1], hc._band_grad_plain(*inputs))
+    r = {"tile": tile._asdict(), "old_scratch_bytes": runs["old"][2], "plane_bytes": 4 * B * T * C,
+         "old_floor": band_grad_floors(B, T, C, Km, max_sm_clock_mhz(), sms, insts, False)}
+    versions = list(runs) if split else ["old"]
+    n = int(min(1000, max(3, window_ms / event_ms(runs["old"][0], 1)[0])))
+    timed = [(v, *graph_ms(runs[v][0], n)) for v in versions + versions[::-1]]
+    r["launches"] = n
+    for v in versions:
+        key = v.replace(" ", "_")
+        r[key + "_ms"] = [ms for w, ms, _ in timed if w == v]
+        r[key + "_sm_mhz"] = clock_summary(clock.within([win for w, _, win in timed if w == v]))
+    return r
+
+
+def compare_band_grad(fns, old_blocks, inputs, window_ms, clock, insts, step0=False,
+                      old_chunk=True):
     """The outputs' checks, then ms from replayed graphs in the order old,
     new, new, old, and each version launched one by one; with `step0`, the
-    earlier kernel alone both ways first."""
-    runs, tile = band_grad_launchers(fns, old_blocks, inputs)
-    r = {"tile": tile._asdict()}
+    earlier kernel alone both ways first. Each version's scratch and
+    floors (its loop's instructions in `insts`: old, new, new wide)."""
+    runs, tile, wide = band_grad_launchers(fns, old_blocks, inputs, old_chunk)
+    G1m = inputs[0]
+    B, T, C = G1m.shape
+    Km = inputs[2].shape[1]
+    is_wide = C > hc.MAX_CLASSES
+    sms, mhz = hc._sm_count(G1m.device.index), max_sm_clock_mhz()
+    r = {"tile": tile._asdict(), "plane_bytes": 4 * B * T * C,
+         "old_scratch_bytes": runs["old"][2], "new_scratch_bytes": runs["new"][2],
+         "old_floor": band_grad_floors(B, T, C, Km, mhz, sms, insts["old"], False),
+         "new_floor": band_grad_floors(B, T, C, Km, mhz, sms,
+                                       insts["new wide" if is_wide else "new"], is_wide)}
+    if is_wide:
+        r["wide_tile"] = wide._asdict()
     if step0:
         run = runs["old"][0]
         n = int(min(1000, max(3, window_ms / event_ms(run, 1)[0])))
@@ -667,7 +822,7 @@ def compare_band_grad(fns, old_blocks, inputs, window_ms, clock, step0=False):
         print("step 0, the earlier kernel alone at this shape: {:.5f} ms from a replayed graph "
               "of {} launches, {:.5f} ms launched one by one".format(
                   r["step0_old_graph_ms"], n, r["step0_old_stream_ms"]), flush=True)
-    for run, _ in runs.values():
+    for run, _, _ in runs.values():
         run()
     torch.cuda.synchronize()
     old, new = runs["old"][1], runs["new"][1]
@@ -682,7 +837,7 @@ def compare_band_grad(fns, old_blocks, inputs, window_ms, clock, step0=False):
     r["differ_plain"] = {v: {name: [int((a != p).sum()),
                                     int(((a != p) & (p != 0) & (p.abs() < tiny)).sum())]
                              for name, a, p in zip(("qg", "sa", "st"), outs, plain)}
-                         for v, (_, outs) in runs.items()}
+                         for v, (_, outs, _) in runs.items()}
     r["plain_st_denormals"] = int(((plain[2] != 0) & (plain[2].abs() < tiny)).sum())
     for name, a, b, p in zip(("qg", "sa", "st"), old, new, plain):
         moved = (a != b) & (b != p)
@@ -698,10 +853,10 @@ def compare_band_grad(fns, old_blocks, inputs, window_ms, clock, step0=False):
     r["lg_max_abs_err_plain"] = float((new[3].double() - plain[3].double()).abs().max()) \
         if new[3].numel() else 0.0
     r["lg_equal_old"] = bool(torch.equal(old[3], new[3]))
-    same_rows = old_blocks is None or tile.rows == 512 // inputs[0].shape[2]
+    same_rows = not is_wide and (old_blocks is None or tile.rows == 512 // C)
     if same_rows and not r["lg_equal_old"]:
         raise RuntimeError("lg: the tile keeps the earlier rows, but lg differs")
-    fastest = min(event_ms(run, 1)[0] for run, _ in runs.values())
+    fastest = min(event_ms(run, 1)[0] for run, _, _ in runs.values())
     n = int(min(1000, max(3, window_ms / fastest)))
     timed = [(v, *graph_ms(runs[v][0], n)) for v in ("old", "new", "new", "old")]
     r["launches"] = n
@@ -710,6 +865,123 @@ def compare_band_grad(fns, old_blocks, inputs, window_ms, clock, step0=False):
         r[v + "_sm_mhz"] = clock_summary(clock.within([win for w, _, win in timed if w == v]))
         r[v + "_stream_ms"] = event_ms(runs[v][0], n)[0]
     return r
+
+
+def band_grad_runs(inputs, runs, window_ms, clock):
+    """The wide kernel in the rule's tile and in tiles of `runs` runs a
+    video (the rows and partials they give), from replayed graphs in
+    turns (the rule's, each other, then back); lg within the score
+    tolerance of the plain version in each."""
+    G1m = inputs[0]
+    B, T, C = G1m.shape
+    Km = inputs[2].shape[1]
+    rule = hc.band_grad_wide_tile(B, T, C, Km, hc._sm_count(G1m.device.index))
+    tiles = {"rule": rule}
+    for n in runs:
+        rows = -(-T // n)
+        n = -(-T // rows)
+        tiles["{} runs".format(n)] = rule._replace(
+            rows=rows, tiles=n, scratch_bytes=4 * B * n * Km * C if n > 1 else 0)
+    plain = hc._band_grad_plain(*inputs)
+    launches = {}
+    for name, tile in tiles.items():
+        outs = hc._launch_band_grad_wide(*inputs, tile)
+        torch.cuda.synchronize()
+        check_band_grad_plain("the wide kernel in " + name, outs, plain)
+        launches[name] = lambda tile=tile: hc._launch_band_grad_wide(*inputs, tile)
+    n = int(min(1000, max(3, window_ms / event_ms(launches["rule"], 1)[0])))
+    order = list(tiles) + list(tiles)[::-1]
+    timed = [(v, *graph_ms(launches[v], n)) for v in order]
+    r = {"runs_launches": n, "runs": {}}
+    for name, tile in tiles.items():
+        r["runs"][name] = {"runs": tile.tiles, "rows": tile.rows,
+                           "scratch_bytes": tile.scratch_bytes,
+                           "ms": [ms for w, ms, _ in timed if w == name],
+                           "sm_mhz": clock_summary(clock.within(
+                               [win for w, _, win in timed if w == name]))}
+    return r
+
+
+def run_band_grad(old_libs, new_libs, old_csrc, window_ms, clock, rng, device, step0):
+    """K4's comparison (``compare_band_grad`` at BAND_GRAD_SHAPES) or, with
+    `step0`, the earlier kernel alone at the wide shapes and its split
+    (``band_grad_step0``). Returns (results, loop opcodes by version)."""
+    # the two-launch form exports its scratch's size; the current one does not
+    old_blocks = getattr(old_libs["band_grad"], "hsmm_band_grad_blocks", None)
+    if old_blocks is not None:
+        old_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+        old_blocks.restype = ctypes.c_int
+    old_chunk = "int chunk" in (old_csrc / "band_grad.cu").read_text()
+    old_ints = (5 if old_blocks is not None else 8 + old_chunk)
+    fns = {"old": bind(old_libs["band_grad"], "hsmm_band_grad",
+                       8 if old_blocks is not None else 9, old_ints)}
+    old_sass = library_sass(old_csrc / "build" / "libband_grad.so")
+    opcodes = {"old": loop_opcodes(old_sass)}
+    insts = {"old": band_grad_floor(old_sass)[0]}
+    if not step0:
+        new_sass = built_sass("band_grad")
+        fns["new"] = bind(new_libs["band_grad"], "hsmm_band_grad", 9, 9)
+        fns["new wide"] = bind(new_libs["band_grad"], "hsmm_band_grad_wide", 9, 9)
+        opcodes.update({"new": loop_opcodes(new_sass),
+                        "new wide": loop_opcodes(new_sass, "band_grad_wide_kernel")})
+        insts.update({"new": band_grad_floor(new_sass)[0],
+                      "new wide": band_grad_wide_floor(new_sass)[0]})
+    print("band grad duration loop, instructions by opcode: {}".format(json.dumps(opcodes)),
+          flush=True)
+    results = []
+    cuts = {}
+    if step0:
+        cuts = {name: bind(lib, "hsmm_band_grad", 9, old_ints)
+                for name, lib in build_cuts(old_csrc, old_csrc / "build").items()}
+    for shape, B, T, C, K, lengths in BAND_GRAD_SHAPES:
+        if step0 and C <= hc.MAX_CLASSES:
+            continue
+        inputs = band_grad_inputs(B, T, C, K, lengths, rng, device)
+        if step0:
+            split = shape in BAND_GRAD_SPLIT_SHAPES
+            r = band_grad_step0({"old": fns["old"], **(cuts if split else {})}, inputs,
+                                window_ms, clock, insts["old"], split, old_chunk)
+            r.update(shape=shape, B=B, T=T, C=C, Km=K - 1)
+            results.append(r)
+            fl = r["old_floor"]
+            print("{:20s} step 0, band grad B={:2d} T={:5d} C={:4d} Km={:3d}: the earlier kernel "
+                  "{} ms (graphs of {}); outputs equal plain (lg at rtol {} / atol {}); tile {} "
+                  "rows x {} classes, {} tiles a video; scratch {} bytes (plane {}); issue floor "
+                  "{:.5f} ms, cross-tile sum floor {:.5f} ms ({}){}".format(
+                      shape, B, T, C, K - 1, ["{:.5f}".format(x) for x in r["old_ms"]],
+                      r["launches"], RTOL, ATOL, r["tile"]["rows"], r["tile"]["chunk"],
+                      r["tile"]["tiles"], r["old_scratch_bytes"], r["plane_bytes"],
+                      fl["issue_floor_ms"], fl["tail"]["floor_ms"], json.dumps(fl["tail"]),
+                      "".join("; {} {} ms".format(v, ["{:.5f}".format(x) for x in r[
+                          v.replace(" ", "_") + "_ms"]]) for v in cuts if split)), flush=True)
+            continue
+        new_fns = {"old": fns["old"],
+                   "new": fns["new wide" if C > hc.MAX_CLASSES else "new"]}
+        r = compare_band_grad(new_fns, old_blocks, inputs, window_ms, clock, insts,
+                              step0=shape == "serving", old_chunk=old_chunk)
+        if shape in BAND_GRAD_RUNS:
+            r.update(band_grad_runs(inputs, BAND_GRAD_RUNS[shape], window_ms, clock))
+            print("{:20s} band grad wide kernel by runs a video (graphs of {}, in turns): "
+                  "{}".format(shape, r["runs_launches"], json.dumps(
+                      {k: {f: v[f] for f in ("runs", "rows", "scratch_bytes", "ms")}
+                       for k, v in r["runs"].items()})), flush=True)
+        old, new = np.mean(r["old_ms"]), np.mean(r["new_ms"])
+        r.update(shape=shape, B=B, T=T, C=C, Km=K - 1, speedup=old / new)
+        results.append(r)
+        t = r.get("wide_tile", r["tile"])
+        print("{:20s} band grad B={:2d} T={:5d} C={:4d} Km={:3d}: old {} ms, new {} ms "
+              "(graphs), x{:.2f}; one by one old {:.5f}, new {:.5f} ms; new tile {}; scratch "
+              "old {} bytes, new {} (plane {}); floors old {}, new {}; qg/sa/st entries "
+              "differing from plain (of them denormal there) {}; lg max abs err vs plain {:.3g}, "
+              "equal old {}; SM clock old {}, new {}".format(
+                  shape, B, T, C, K - 1, ["{:.5f}".format(x) for x in r["old_ms"]],
+                  ["{:.5f}".format(x) for x in r["new_ms"]], r["speedup"],
+                  r["old_stream_ms"], r["new_stream_ms"], json.dumps(t),
+                  r["old_scratch_bytes"], r["new_scratch_bytes"], r["plane_bytes"],
+                  json.dumps(r["old_floor"]), json.dumps(r["new_floor"]), r["differ_plain"],
+                  r["lg_max_abs_err_plain"], r["lg_equal_old"], r["old_sm_mhz"],
+                  r["new_sm_mhz"]), flush=True)
+    return results, opcodes
 
 
 def band_max_inputs(B, T, C, K, lengths, rng, device):
@@ -1195,14 +1467,14 @@ def main():
     parser.add_argument("--kernels", choices=("all", "scans", "traceback", "band_grad",
                                               "band_max", "wide"), default="all")
     parser.add_argument("--step0", action="store_true",
-                        help="--kernels wide or traceback: the earlier kernels alone, nothing "
-                             "current built")
+                        help="--kernels wide, traceback or band_grad: the earlier kernels "
+                             "alone (band_grad: and its split), nothing current built")
     parser.add_argument("--out", type=Path, default=None)
     parser.add_argument("--window_ms", type=float, default=100.0)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
-    if args.step0 and args.kernels not in ("wide", "traceback"):
-        parser.error("--step0 takes --kernels wide or traceback")
+    if args.step0 and args.kernels not in ("wide", "traceback", "band_grad"):
+        parser.error("--step0 takes --kernels wide, traceback or band_grad")
     if not torch.cuda.is_available():
         print("scan_ab: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1290,39 +1562,8 @@ def main():
                           r["speedup"], clk(r["rule_sm_mhz"]), clk(r["warps_sm_mhz"])),
                       flush=True)
         if args.kernels == "band_grad":
-            # the two-launch form exports its scratch's size; the current one does not
-            old_blocks = getattr(old_libs["band_grad"], "hsmm_band_grad_blocks", None)
-            if old_blocks is not None:
-                old_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
-                old_blocks.restype = ctypes.c_int
-            fns = {"old": bind(old_libs["band_grad"], "hsmm_band_grad",
-                               *((8, 5) if old_blocks is not None else (9, 8))),
-                   "new": bind(new_libs["band_grad"], "hsmm_band_grad", 9, 9)}
-            bg_opcodes = {"old": loop_opcodes(library_sass(args.old_csrc / "build" /
-                                                           "libband_grad.so")),
-                          "new": loop_opcodes(built_sass("band_grad"))}
-            print("band grad duration loop, instructions by opcode: {}".format(
-                json.dumps(bg_opcodes)), flush=True)
-            for shape, B, T, C, K, lengths in BAND_GRAD_SHAPES:
-                inputs = band_grad_inputs(B, T, C, K, lengths, rng, device)
-                r = compare_band_grad(fns, old_blocks, inputs, args.window_ms, clock,
-                                      step0=shape == "serving")
-                old, new = np.mean(r["old_ms"]), np.mean(r["new_ms"])
-                r.update(shape=shape, B=B, T=T, C=C, Km=K - 1, speedup=old / new)
-                bg_results.append(r)
-                t = r["tile"]
-                print("{:20s} band grad B={:2d} T={:5d} C={:3d} Km={:3d}: old {} ms, new {} ms "
-                      "(graphs), x{:.2f}; one by one old {:.5f}, new {:.5f} ms; tile {} rows, "
-                      "{} threads, slab {}, {} tiles a video, {} blocks an SM, {} waves, filling "
-                      "{:.3f}, balance {:.3f}; qg/sa/st entries differing from plain (of them denormal there) {}; lg max abs err "
-                      "vs plain {:.3g}, equal old {}; SM clock old {}, new {}".format(
-                          shape, B, T, C, K - 1, ["{:.5f}".format(x) for x in r["old_ms"]],
-                          ["{:.5f}".format(x) for x in r["new_ms"]], r["speedup"],
-                          r["old_stream_ms"], r["new_stream_ms"], t["rows"], t["threads"],
-                          t["slab"], t["tiles"], t["blocks_per_sm"], t["waves"], t["filling"],
-                          t["balance"], r["differ_plain"], r["lg_max_abs_err_plain"],
-                          r["lg_equal_old"], clk(r["old_sm_mhz"]), clk(r["new_sm_mhz"])),
-                      flush=True)
+            bg_results, bg_opcodes = run_band_grad(old_libs, new_libs, args.old_csrc,
+                                                   args.window_ms, clock, rng, device, args.step0)
         for shape, B, T, C, K, lengths in (SHAPES if args.kernels in ("all", "scans") else ()):
             stacked, forward = scan_inputs(B, T, C, K, lengths, rng, device)
             for scan, symbol, lib, kind in SCANS:
@@ -1365,7 +1606,9 @@ def main():
                           "new_floor_ms") if k in r} for r in tb_results],
                       "band_grad_ab": [{k: r[k] for k in (
                           "shape", "old_ms", "new_ms", "old_stream_ms", "new_stream_ms",
-                          "speedup", "differ_plain", "plain_st_denormals")} for r in bg_results],
+                          "speedup", "differ_plain", "plain_st_denormals", "old_scratch_bytes",
+                          "new_scratch_bytes", "plane_bytes", "old_floor", "new_floor")
+                          if k in r} for r in bg_results],
                       "band_max_ab": [{k: v for k, v in r.items() if k not in (
                           "tile", "old_sm_mhz", "new_sm_mhz")} for r in bm_results],
                       "band_max_rule": [{k: v for k, v in r.items() if k not in (

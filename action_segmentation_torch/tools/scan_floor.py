@@ -30,7 +30,16 @@ K4 (csrc/band_grad.cu) has no serial chain across its launch: every
 warp runs the same duration loop (the loop of `band_grad_kernel` with no
 barrier that holds the terms' MUFU.EX2, one duration an iteration). Its floor is the loop's instructions x Km x the launch's
 warps, issued by the SMs' 4 schedulers, one warp-instruction a clock
-each.
+each. Its wide kernel (`band_grad_wide_kernel`, C > 128) runs the same
+loop inside the loop over its run's rows: its duration loop is the
+innermost loop that holds the expf, and its floor is the loop's
+instructions x Km x the launch's warp-rows (B x groups of 32 classes x
+T). Beside the loop, K4's cross-tile sum of lg (`band_grad_tail`): the
+partials' bytes, written and then read, at the card's memory rate, and
+the serial loads of the block that sums a (video, chunk)'s partials
+(each of its threads adds the tiles' partials of ceil(Km x chunk /
+threads) columns, one load each, the unrolled loop keeping
+TAIL_LOADS_IN_FLIGHT of them in flight at LATENCY's LDG).
 
 K3 (csrc/band_max.cu) has three duration loops, none with a barrier in
 it: a start's (the loop that loads dur and G2p and stores the slab's
@@ -95,9 +104,10 @@ reader on `traceback_wide_kernel`, whose walk takes two shared loads a
 segment), at T and `--wide-C`; W2's floor adds its first tile's arrival,
 that tile's bytes at the card's memory rate. B, T, C and Km size the band
 kernels' launches (their tiles from `hsmm_cuda.band_grad_tile` and
-`band_max_tile`). Prints one line per serving instance, one for the
-traceback, one for W2, one for K4, one for K3, one per wide instance and
-route, and a JSON object last.
+`band_max_tile`; K4's wide kernel's at `--wide-C` from
+`band_grad_wide_tile`). Prints one line per serving instance, one for
+the traceback, one for W2, one for K4, one for K4's wide kernel, one for
+K3, one per wide instance and route, and a JSON object last.
 """
 
 import argparse
@@ -114,8 +124,10 @@ from action_segmentation_torch.ops.hsmm_cuda import (
     MAX_BLOCK_THREADS,
     SM_SMEM,
     SM_SMEM_PER_BLOCK,
+    BAND_GRAD_WIDE_CLASSES,
     WideScan,
     band_grad_tile,
+    band_grad_wide_tile,
     band_max_tile,
     scan_instance,
     wide_scan_instance,
@@ -134,6 +146,7 @@ NO_DEST = {"STS", "STG", "ST", "STL", "RED", "LDGSTS", "BRA", "EXIT", "DEPBAR",
            "CCTL", "ERRBAR"}
 SCHEDULERS = 4  # an SM's warp schedulers, one warp-instruction a clock each
 H100_BYTES_PER_S = 3.35e12  # the card's memory rate (NVIDIA's data sheet, SXM)
+TAIL_LOADS_IN_FLIGHT = 8  # K4's cross-tile sum: its loop's `#pragma unroll 8`
 SEMIRINGS = {"max": ("hsmm_scan", 0), "log": ("hsmm_scan", 1), "argmax": ("hsmm_viterbi", 2)}
 
 LINE = re.compile(r"/\*([0-9a-f]+)\*/\s+(@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
@@ -246,6 +259,57 @@ def band_grad_issue_ms(instructions, B, T, C, Km, clock_mhz, sms=H100_SMS):
     tile = band_grad_tile(B, T, C, Km, sms)
     warps = B * -(-C // max(tile.chunk, 1)) * tile.tiles * -(-tile.threads // 32)
     return instructions * Km * warps / (sms * SCHEDULERS) / clock_mhz * 1e-3
+
+
+def wide_duration_loop(insts):
+    """K4's wide kernel's duration loop: of the innermost loops that hold
+    two expf or more (the loop over the run's rows around it holds them
+    too), the longest."""
+    body = max((b for b in innermost_loops(insts)
+                if sum(1 for ins in b if ins[2] == "MUFU.EX2") >= 2), key=len, default=None)
+    if body is None:
+        raise ValueError("no duration loop found in band_grad_wide_kernel")
+    return body
+
+
+def band_grad_wide_floor(sass):
+    """(instructions, MUFU) of one iteration (one duration) of the wide
+    kernel's duration loop in csrc/band_grad.cu's SASS."""
+    body = wide_duration_loop(parse_function(sass, "band_grad_wide_kernel"))
+    return (sum(1 for ins in body if ins[2] != "NOP"),
+            sum(1 for ins in body if ins[2].startswith("MUFU")))
+
+
+def band_grad_wide_issue_ms(instructions, B, T, C, Km, clock_mhz, sms=H100_SMS):
+    """The wide kernel's issue floor in ms: the loop's instructions x Km
+    x the launch's warp-rows (a warp runs a row of 32 classes at a time:
+    B x ceil(C / 32) x T of them), over `sms` SMs of 4 schedulers."""
+    warp_rows = B * -(-C // BAND_GRAD_WIDE_CLASSES) * T
+    return instructions * Km * warp_rows / (sms * SCHEDULERS) / clock_mhz * 1e-3
+
+
+def band_grad_tail(B, T, C, Km, clock_mhz, sms=H100_SMS, wide=False):
+    """K4's cross-tile sum of lg at a (B, T, C) plane with Km durations,
+    in the narrow kernel's tile (``band_grad_tile``: every tile writes a
+    partial) or the wide kernel's (``band_grad_wide_tile``: none at one
+    run a video). Returns the partials' bytes (`scratch_bytes`), their
+    write and read at the card's memory rate (`bytes_ms`), the loads a
+    thread of the block that sums a (video, chunk) adds in turn
+    (`loads_per_thread`: its ceil(Km x chunk / threads) columns, a load a
+    tile each) and their time at LATENCY's LDG with TAIL_LOADS_IN_FLIGHT
+    in flight (`serial_ms`), and the two summed (`floor_ms`)."""
+    if wide:
+        tile = band_grad_wide_tile(B, T, C, Km, sms)
+        cols, partials = BAND_GRAD_WIDE_CLASSES, tile.tiles > 1
+    else:
+        tile = band_grad_tile(B, T, C, Km, sms)
+        cols, partials = tile.chunk, True
+    scratch = 4 * B * tile.tiles * Km * C if partials and Km else 0
+    loads = -(-Km * cols // tile.threads) * tile.tiles if scratch else 0
+    bytes_ms = 2 * scratch / H100_BYTES_PER_S * 1e3
+    serial_ms = loads * LATENCY["LDG"] / TAIL_LOADS_IN_FLIGHT / clock_mhz * 1e-3
+    return {"tiles": tile.tiles, "scratch_bytes": scratch, "bytes_ms": bytes_ms,
+            "loads_per_thread": loads, "serial_ms": serial_ms, "floor_ms": bytes_ms + serial_ms}
 
 
 def innermost_loops(insts):
@@ -705,6 +769,20 @@ def main():
     print("band grad duration loop: {} instructions ({} MUFU) a duration; B={} T={} C={} Km={} "
           "-> issue floor {:.5f} ms".format(insts, mufu, args.B, args.T, args.C, args.Km,
                                             bg["issue_floor_ms"]))
+    bg["tail"] = band_grad_tail(args.B, args.T, args.C, args.Km, clock)
+    print("band grad cross-tile sum: {}".format(json.dumps(bg["tail"])))
+    insts, mufu = band_grad_wide_floor(sass["band_grad"])
+    bgw = {"instructions_per_duration": insts, "mufu_per_duration": mufu, "B": args.B,
+           "C": args.wide_C, "tile": band_grad_wide_tile(args.B, args.T, args.wide_C,
+                                                         args.Km)._asdict(),
+           "issue_floor_ms": band_grad_wide_issue_ms(insts, args.B, args.T, args.wide_C,
+                                                     args.Km, clock),
+           "tail": band_grad_tail(args.B, args.T, args.wide_C, args.Km, clock, wide=True),
+           "narrow_tail": band_grad_tail(args.B, args.T, args.wide_C, args.Km, clock)}
+    print("band grad wide duration loop: {} instructions ({} MUFU) a duration; B={} T={} C={} "
+          "Km={} -> issue floor {:.5f} ms; cross-tile sum {} (the narrow kernel's tile: "
+          "{})".format(insts, mufu, args.B, args.T, args.wide_C, args.Km, bgw["issue_floor_ms"],
+                       json.dumps(bgw["tail"]), json.dumps(bgw["narrow_tail"])))
     bm_loops = band_max_floor(sass["band_max"])
     bm = {"instructions_per_duration": bm_loops, "B": args.B,
           "tile": band_max_tile(args.B, args.T, args.C, args.Km)._asdict(),
@@ -733,6 +811,7 @@ def main():
                       for k, v in w["step"]["loops"].items())))
     print(json.dumps({"scan_floor": results, "traceback_floor": tb,
                       "traceback_wide_floor": tbw, "band_grad_floor": bg,
+                      "band_grad_wide_floor": bgw,
                       "band_max_floor": bm, "wide_floor": wide, "wide_C": args.wide_C,
                       "C": args.C, "Km": args.Km, "T": args.T, "clock_mhz": clock}))
     return 0

@@ -163,7 +163,7 @@ exit and no result line:
                share of each rank's wall;
   4i. wide   — a DP wider than 128 classes: (a) the wide kernels (the
                three instances of csrc/hsmm_scan_wide.cu, the traceback's
-               wide instance) and K4 at C = 129, 342 and 1,024, Km = 1,
+               wide instance, K4's wide kernel) at C = 129, 342 and 1,024, Km = 1,
                19, 25 and 64, ragged lengths down to 1, and at the S6
                shape (B=18, T=1024, C=342, K=20; the log scans' plain
                versions at its first 256 frames), each equal to its plain
@@ -179,10 +179,13 @@ exit and no result line:
                reported); (c) an unsupervised 2-epoch fit at a 160-wide
                DP (its first step's loss at rtol 1e-5 and gradients at
                rtol 2e-3 / atol 2e-4 against the CPU's autograd path,
-               falling losses, the wide log scan and K4 once a batch)
-               and a no-grad partition through the wide forward scan;
-               (d) each wide kernel's and K4's time at the S6 shape
-               beside its plain version's and its bound, W1's also on the
+               falling losses, the wide log scan and K4's wide kernel
+               once a batch) and a no-grad partition through the wide
+               forward scan; (d) each wide kernel's time at the S6 shape
+               beside its plain version's and its bound, K4's wide
+               kernel's also beside its lg scratch, its floor with the
+               cross-tile sum and the narrow kernel's time in its own
+               tile on the same inputs, W1's also on the
                grid route (a finding: the cluster route runs there), W2's also beside
                its floor (the longest video's segments x its walk's chain
                from the SASS, plus its first tile's bytes at the memory
@@ -193,8 +196,8 @@ exit and no result line:
                (W1 on the grid route, by the rule and with its table
                slab and ring in global memory and its chains over two
                launches; W2 at
-               radix 2,048 and 4,096) and K4 (classes in chunks of at
-               most 1,024) at C = 1,025, 1,577, 2,048 and 3,000, Km = 1,
+               radix 2,048 and 4,096; K4's wide kernel) at C = 1,025,
+               1,577, 2,048 and 3,000, Km = 1,
                20 and 64, ragged lengths down to 1, each equal to its
                plain version; (b) a release of the 18 primary and 65
                related tasks (2 training videos a related task, none for
@@ -210,7 +213,7 @@ exit and no result line:
                Function on the card; (c) at B=18, T=1024, C=1,577, K=20
                each of those kernels' time beside its plain version's
                (the log and forward scans' at 128 frames), its bound and
-               its floor from the SASS (the grid route's with its
+               its floor from the SASS (K4's as in 4i (d); the grid route's with its
                barrier alone, the empty-step probe), each scan's grid,
                and the max and forward scans with the batch's one
                expanded table, the log scan with its two, and each with
@@ -241,9 +244,9 @@ exit and no result line:
 The line before the last is one JSON object {"kernels": [...]} (each
 kernel's launches on the slices' paths, and its cli_, u7_, baseline_,
 resident_ and dp_launches on phases 4d-4h, dp_ every rank's summed; the
-wide kernels' launches are phase 4i's, and K4's wide_ keys its time and
-launches there; each wide kernel's and K4's past_1024_ keys are phase
-4j's); the last is {"ok": true, "device": {...}}. Imports nothing of JAX.
+wide kernels' launches, K4's wide kernel's among them, are phase 4i's;
+each wide kernel's past_1024_ keys are phase 4j's); the last is
+{"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 import argparse
@@ -3148,21 +3151,21 @@ WIDE_FIT = dict(num_videos=36, n_classes=160, max_len=200, span_k=K, feature_dim
 # HBM3, 700 W), printed beside the current kernel's time
 W2_EARLIER_MS = 0.18801
 WIDE_KERNEL_NAMES = ("hsmm_viterbi_scan_wide", "hsmm_viterbi_traceback_wide",
-                     "hsmm_log_scan_wide", "hsmm_forward_scan_wide")
+                     "hsmm_log_scan_wide", "hsmm_forward_scan_wide", "hsmm_band_grad_wide")
 # the narrow kernels a wide leg must not launch
 NARROW_NAMES = ("hsmm_viterbi_scan", "hsmm_viterbi_traceback", "hsmm_gamma_scan",
-                "hsmm_band_max", "hsmm_log_scan", "hsmm_forward_scan")
+                "hsmm_band_max", "hsmm_log_scan", "hsmm_forward_scan", "hsmm_band_grad")
 
 
 def wide_counters():
-    """{name: wrapper} of the wide kernels, K4 and the narrow kernels."""
+    """{name: wrapper} of the wide kernels and the narrow kernels."""
     from action_segmentation_torch.ops import hsmm_cuda as hc
 
-    return {n: getattr(hc, n) for n in WIDE_KERNEL_NAMES + ("hsmm_band_grad",) + NARROW_NAMES}
+    return {n: getattr(hc, n) for n in WIDE_KERNEL_NAMES + NARROW_NAMES}
 
 
 def counted(fn):
-    """(fn()'s result, {kernel name: launches}) with every wide, K4 and
+    """(fn()'s result, {kernel name: launches}) with every wide and
     narrow counter set to 0 just before fn and read just after."""
     import torch
 
@@ -3198,7 +3201,7 @@ def grid_launches(trans, N, C, Km, device):
 
 
 def wide_kernel_case(name, pots, lengths, log_cut=None):
-    """The wide kernels (W1's three instances, W2) and K4 at C > 128
+    """The wide kernels (W1's three instances, W2, K4's) at C > 128
     against their plain versions on the same inputs, each equal: the
     backpointer scan (alphas and codes) and the traceback on the forward
     model; the log scan (gamma, alphas) on the stacked forward and
@@ -3207,8 +3210,8 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
     scan's alphas), each through its wrapper on the route it picks and,
     on the card, on the grid route's launches (``grid_launches``: the
     rule's where the cluster route runs, the table slab and ring in global
-    memory, the chains split); K4 on the kernel log scan's band inputs
-    (qg, sa, st equal, lg at the score tolerance). With `log_cut`, the log
+    memory, the chains split); K4 (its wide kernel) on the kernel log
+    scan's band inputs (qg, sa, st equal, lg at the score tolerance). With `log_cut`, the log
     scans are compared on the first `log_cut` frames (the plain log scan's
     Python loop over C) and K4 runs on the full-length kernel planes.
     Returns the errors and the inputs of each kernel."""
@@ -3342,8 +3345,8 @@ def video_pots(seg, features, device):
 
 
 def run_wide_slice(device, root, smi):
-    """Phase 4i: a DP wider than 128 classes. (a) The wide kernels and K4
-    at C = 129, 342 and 1,024 and Km = 1, 19, 25 and 64 (ragged lengths
+    """Phase 4i: a DP wider than 128 classes. (a) The wide kernels (K4's
+    among them) at C = 129, 342 and 1,024 and Km = 1, 19, 25 and 64 (ragged lengths
     down to 1) and at the S6 shape, each equal to its plain version. (b)
     The S6 model over all 342 classes: the S6 flags with --mix_tasks on
     phase 4c's release, a closed-form fit, pickled, served by
@@ -3356,9 +3359,11 @@ def run_wide_slice(device, root, smi):
     DP: an unsupervised 2-epoch fit on the synthetic corpus, its first
     step's loss and gradients against the CPU path (autograd of the plain
     partition), falling losses, then a no-grad partition through the wide
-    forward scan. (d) Each wide kernel's and K4's time at the S6 shape
-    beside its plain version's and its bound. Returns the e2e record and
-    the kernels line's entries."""
+    forward scan. (d) Each wide kernel's time at the S6 shape beside its
+    plain version's and its bound; K4's wide kernel's with its lg scratch
+    and its floor with the cross-tile sum, beside the narrow kernel in
+    its own tile on the same inputs. Returns the e2e record and the
+    kernels line's entries."""
     import torch
 
     from action_segmentation_torch import checkpoint
@@ -3465,7 +3470,7 @@ def run_wide_slice(device, root, smi):
     n_batches = -(-len(feats) // args.batch_size)
     card = device.type == "cuda"  # (a rehearsal on the CPU counts no launch)
     check(not card or n_seg["hsmm_viterbi_scan_wide"] == n_seg["hsmm_viterbi_traceback_wide"] == n_batches
-          and all(n_seg[k] == 0 for k in NARROW_NAMES) and n_seg["hsmm_band_grad"] == 0,
+          and all(n_seg[k] == 0 for k in NARROW_NAMES) and n_seg["hsmm_band_grad_wide"] == 0,
           "segment_many launches {}: not the wide kernels once a batch".format(n_seg))
     t0 = time.perf_counter()
     want = seg_cpu.segment_many(feats, batch_size=args.batch_size)
@@ -3513,7 +3518,7 @@ def run_wide_slice(device, root, smi):
                      torch.from_numpy(marg).to(device), plain, GRAD_RTOL, GRAD_ATOL)
         marg_errs.append(max_err(torch.from_numpy(marg).to(device), plain))
         gaps.append(float(np.abs(marg.sum(axis=1) - 1).max()))
-    check(not card or n_marg["hsmm_log_scan_wide"] == n_marg["hsmm_band_grad"] == 3
+    check(not card or n_marg["hsmm_log_scan_wide"] == n_marg["hsmm_band_grad_wide"] == 3
           and n_marg["hsmm_viterbi_scan_wide"] == n_marg["hsmm_viterbi_traceback_wide"] == 3
           and all(n_marg[k] == 0 for k in NARROW_NAMES),
           "segment_with_marginals launches {}".format(n_marg))
@@ -3548,7 +3553,7 @@ def run_wide_slice(device, root, smi):
     check(len(losses) == 2 and all(math.isfinite(v) for v in losses) and losses[1] < losses[0],
           "the wide fit's epoch losses did not fall: {}".format(losses))
     fit_batches = 2 * -(-WIDE_FIT["num_videos"] // fargs.batch_size)
-    check(not card or n_fit["hsmm_log_scan_wide"] == n_fit["hsmm_band_grad"] == fit_batches
+    check(not card or n_fit["hsmm_log_scan_wide"] == n_fit["hsmm_band_grad_wide"] == fit_batches
           and all(n_fit[k] == 0 for k in NARROW_NAMES),
           "the wide fit's launches {}: not the wide log scan and K4 once a batch".format(n_fit))
     # the partition without gradients: the wide forward scan
@@ -3571,8 +3576,7 @@ def run_wide_slice(device, root, smi):
                         WIDE_FIT["feature_dim"], card_step[0], cpu_step[0], RTOL, step_err,
                         GRAD_RTOL, GRAD_ATOL, losses, fit_s, fit_frames / fit_s,
                         {k: v for k, v in n_fit.items() if v}))
-    launches = {k: n_seg[k] + n_marg[k] + n_fit[k] + n_fwd[k]
-                for k in WIDE_KERNEL_NAMES + ("hsmm_band_grad",)}
+    launches = {k: n_seg[k] + n_marg[k] + n_fit[k] + n_fwd[k] for k in WIDE_KERNEL_NAMES}
 
     # (d) times at the S6 shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3640,18 +3644,22 @@ def run_wide_slice(device, root, smi):
                                        clock_mhz) if card else None
     floor_of = {"hsmm_viterbi_scan_wide": "viterbi", "hsmm_log_scan_wide": "log",
                 "hsmm_forward_scan_wide": "forward"}
-    bg_ms = graph_ms(lambda: hc.hsmm_band_grad(*grad_in), N_TIMED)
-    bg_plain_ms = cuda_ms(lambda: hc._band_grad_plain(*grad_in), 3)
-    bg_bound, bg_by, bg_kind, _ = band_grad_bound(grad_in, sms, clock_mhz)
+    k4 = k4_wide_times(grad_in, sms, clock_mhz, card, N_TIMED)
+    times["hsmm_band_grad_wide"] = (k4["ms"], k4["plain_ms"], (k4["bound_ms"], k4["bound_by"]),
+                                    grad_in[0].shape)
     wide_source = "action_segmentation_torch/csrc/hsmm_scan_wide.cu"
     sources = {"hsmm_viterbi_scan_wide": (wide_source, TPU_FILE + ":110"),
                "hsmm_viterbi_traceback_wide": ("action_segmentation_torch/csrc/hsmm_viterbi.cu",
                                                TPU_FILE + ":440"),
                "hsmm_log_scan_wide": (wide_source, TPU_FILE + ":229"),
-               "hsmm_forward_scan_wide": (wide_source, TPU_FILE + ":156")}
+               "hsmm_forward_scan_wide": (wide_source, TPU_FILE + ":156"),
+               "hsmm_band_grad_wide": ("action_segmentation_torch/csrc/band_grad.cu",
+                                       TPU_FILE + ":771")}
     err_of = {"hsmm_viterbi_scan_wide": errs["viterbi_scan"],
               "hsmm_viterbi_traceback_wide": errs["traceback"],
-              "hsmm_log_scan_wide": errs["log_scan"], "hsmm_forward_scan_wide": errs["forward_scan"]}
+              "hsmm_log_scan_wide": errs["log_scan"],
+              "hsmm_forward_scan_wide": errs["forward_scan"],
+              "hsmm_band_grad_wide": errs["band_grad"]}
     entries = []
     for name, (ms, plain_ms, (b_ms, b_by), shape) in times.items():
         entry = {
@@ -3672,6 +3680,9 @@ def run_wide_slice(device, root, smi):
                      "earlier kernel (b8d2282) {} ms (PERF.md, {:.2f}x this)".format(
                          n_segments, longest, 1e3 * ms / longest, tb_floor, ms / tb_floor,
                          tb_chain, ring.stages, ring.rows, W2_EARLIER_MS, W2_EARLIER_MS / ms))
+        if name == "hsmm_band_grad_wide":
+            entry.update({k: v for k, v in k4.items() if k not in entry})
+            extra = k4_wide_line(k4)
         if name in floor_of and card:
             fl = floors["{} {}".format(floor_of[name], s6.route)]
             entry.update(scan_route=s6.route, cluster=s6.cluster, floor_ms=fl["floor_ms"],
@@ -3686,12 +3697,8 @@ def run_wide_slice(device, root, smi):
         phase("wide", "(d) {} at {}: {:.5f} ms{}{} (plain {:.4f} ms), bound {:.6f} ms by {} "
               "({:.0f}x), launches on the slice {}; {}".format(
                   name, tuple(shape), ms, " (a CUDA graph of {})".format(N_TIMED)
-                  if "traceback" in name else "", extra, plain_ms, b_ms, b_by, ms / b_ms,
-                  launches[name], smi))
-    phase("wide", "(d) hsmm_band_grad at {}: {:.5f} ms (a CUDA graph of {}; plain {:.4f} ms), "
-          "bound {:.6f} ms by {} ({:.0f}x), launches on the slice {}; {}".format(
-              tuple(grad_in[0].shape), bg_ms, N_TIMED, bg_plain_ms, bg_bound, bg_kind,
-              bg_ms / bg_bound, launches["hsmm_band_grad"], smi))
+                  if "traceback" in name or "band_grad" in name else "", extra, plain_ms, b_ms,
+                  b_by, ms / b_ms, launches[name], smi))
     phase_s = time.perf_counter() - t_phase
     phase("wide", "phase 4i: {:.3f} s ((a) {:.3f} s)".format(phase_s, a_s))
     e2e = {"wide_segment_many_frames_per_s": frames / seg_s,
@@ -3702,10 +3709,7 @@ def run_wide_slice(device, root, smi):
            "wide_marginal_sum_gap": max(gaps), "wide_fit_losses": losses,
            "wide_fit_frames_per_s": fit_frames / fit_s, "wide_phase_s": phase_s,
            "wide_launches": launches}
-    k4 = {"wide_launches": launches["hsmm_band_grad"], "wide_ms": bg_ms,
-          "wide_plain_ms": bg_plain_ms, "wide_bound_ms": bg_bound, "wide_bound_by": bg_by,
-          "wide_shape": list(grad_in[0].shape), "wide_max_abs_err": errs["band_grad"]}
-    return e2e, entries, k4
+    return e2e, entries
 
 
 # ----- phase 4j: a DP wider than 1,024 classes -----
@@ -3742,8 +3746,8 @@ def alternating_ms(runs, n):
 
 def run_past_1024_slice(device, root, smi):
     """Phase 4j: a DP wider than 1,024 classes. (a) The wide kernels (W1's
-    three instances on the L2 route, a thread two or more classes; W2 at
-    radix 2,048 and 4,096) and K4 (classes in chunks of at most 1,024) at
+    three instances on the grid route; W2 at radix 2,048 and 4,096; K4's
+    wide kernel) at
     C = 1,025, 1,577, 2,048 and 3,000 and Km = 1, 20 and 64, ragged
     lengths down to 1, each equal to its plain version. (b) The S6 flags
     with --mix_tasks --crosstask_training_data primary related on a
@@ -3755,11 +3759,13 @@ def run_past_1024_slice(device, root, smi):
     (labels equal but at float64-verified ties), through the wide kernels
     only; segment_with_marginals on the 3 shortest against the PLAIN
     Function on the card. (c) At B=18, T=1024, C=1,577, K=20 each wide
-    kernel's and K4's time beside its plain version's, its bound and its
-    floor from the SASS; the max and forward scans with the chains'
+    kernel's time (K4's wide kernel's among them, with its lg scratch and
+    its floor with the cross-tile sum, beside the narrow kernel in its own
+    tile) beside its plain version's, its bound and its floor from the
+    SASS; the max and forward scans with the chains'
     shared (expanded) table and with a table copied a chain, bit-equal,
     in turn. Returns the e2e record and, by kernel name, the entries the
-    kernels line adds to each wide kernel's and K4's."""
+    kernels line adds to each wide kernel's."""
     import torch
     from unittest import mock
 
@@ -3777,8 +3783,6 @@ def run_past_1024_slice(device, root, smi):
         hsmm_frame_marginals_fast,
     )
     from action_segmentation_torch.tools.scan_floor import (
-        band_grad_floor,
-        band_grad_issue_ms,
         built_sass,
         max_sm_clock_mhz,
         traceback_wide_floor,
@@ -3789,7 +3793,7 @@ def run_past_1024_slice(device, root, smi):
 
     t_phase = time.perf_counter()
     card = device.type == "cuda"
-    path_names = WIDE_KERNEL_NAMES + ("hsmm_band_grad",)
+    path_names = WIDE_KERNEL_NAMES
 
     # (a) the kernels against their plain versions past 1,024 classes
     rng = np.random.RandomState(18)
@@ -3807,10 +3811,12 @@ def run_past_1024_slice(device, root, smi):
             for k, v in case.items():
                 errs[k] = max(errs.get(k, 0.0), v)
             inst = hc.wide_scan_instance(Cn, Km, 2 * B_WIDE, B_WIDE)  # the log scan's
-            layouts["C={} Km={}".format(Cn, Km)] = "the log scan's {} blocks of {} chains x {} " \
-                "classes ({} threads), table {}, ring {}; radix {}, K4 chunk {}".format(
+            k4_tile = hc.band_grad_wide_tile(B_WIDE, Tn, Cn, Km)
+            layouts["C={} Km={}".format(Cn, Km)] = (
+                "the log scan's {} blocks of {} chains x {} classes ({} threads), table {}, "
+                "ring {}; radix {}, K4 {} runs of {} rows a video".format(
                     inst.blocks, inst.chains, inst.slab, inst.threads, inst.table, inst.ring,
-                    hc.code_radix(Cn), hc.band_grad_tile(B_WIDE, Tn, Cn, Km).chunk)
+                    hc.code_radix(Cn), k4_tile.tiles, k4_tile.rows))
     check(not card or all(hc.wide_scan_instance(Cn, Km).route == "grid" for Cn in PAST_CLASSES
               for Km in PAST_KMS) and hc.code_radix(3000) == 4096,
           "the cases do not take the grid route and radix 4,096")
@@ -3896,7 +3902,7 @@ def run_past_1024_slice(device, root, smi):
     seg_s = time.perf_counter() - t0
     check(not card or n_seg["hsmm_viterbi_scan_wide"] == n_seg["hsmm_viterbi_traceback_wide"]
           == n_batches and all(n_seg[k] == 0 for k in NARROW_NAMES)
-          and n_seg["hsmm_band_grad"] == 0,
+          and n_seg["hsmm_band_grad_wide"] == 0,
           "segment_many launches {}: not the wide kernels once a batch".format(n_seg))
     # the same Segmenter's plain chain on the card
     with mock.patch.object(semimarkov, "hsmm_viterbi_spans", hc.hsmm_viterbi_spans_plain):
@@ -3956,7 +3962,7 @@ def run_past_1024_slice(device, root, smi):
                      torch.from_numpy(marg).to(device), plain, GRAD_RTOL, GRAD_ATOL)
         marg_errs.append(max_err(torch.from_numpy(marg).to(device), plain))
         gaps.append(float(np.abs(marg.sum(axis=1) - 1).max()))
-    check(not card or n_marg["hsmm_log_scan_wide"] == n_marg["hsmm_band_grad"] == 3
+    check(not card or n_marg["hsmm_log_scan_wide"] == n_marg["hsmm_band_grad_wide"] == 3
           and n_marg["hsmm_viterbi_scan_wide"] == n_marg["hsmm_viterbi_traceback_wide"] == 3
           and all(n_marg[k] == 0 for k in NARROW_NAMES),
           "segment_with_marginals launches {}".format(n_marg))
@@ -3968,7 +3974,7 @@ def run_past_1024_slice(device, root, smi):
                                        {k: v for k, v in n_marg.items() if v}))
     launches = {k: n_seg[k] + n_marg[k] for k in path_names}
     for k in ("hsmm_viterbi_scan_wide", "hsmm_viterbi_traceback_wide", "hsmm_log_scan_wide",
-              "hsmm_band_grad"):
+              "hsmm_band_grad_wide"):
         check(not card or launches[k] > 0, "{} was not launched on phase 4j's path".format(k))
     b_s = time.perf_counter() - t_phase - a_s
 
@@ -4058,9 +4064,7 @@ def run_past_1024_slice(device, root, smi):
     tb_chain = traceback_wide_floor(built_sass("hsmm_viterbi"))[0] if card else None
     tb_floor = traceback_wide_floor_ms(tb_chain, longest, wide_first_tile_bytes(T, C_ALL),
                                        clock_mhz) if card else None
-    bg_insts = band_grad_floor(built_sass("band_grad"))[0] if card else None
-    bg_floor = band_grad_issue_ms(bg_insts, B, T, C_ALL, Km, clock_mhz, sms) if card else None
-    bg_bound, bg_by, bg_kind, _ = band_grad_bound(grad_in, sms, clock_mhz)
+    k4 = k4_wide_times(grad_in, sms, clock_mhz, card, 10)
     times = {
         "hsmm_viterbi_scan_wide": (
             min(vit_ab["shared"]), cuda_ms(lambda: hc._viterbi_scan_plain(*copied_in), 1,
@@ -4081,14 +4085,14 @@ def run_past_1024_slice(device, root, smi):
                                            warmup=0), T_PLAIN_LOG,
             scan_bound(B, 1), floors.get("forward grid", {}).get("floor_ms"),
             tuple(copied_in[3].shape)),
-        "hsmm_band_grad": (
-            graph_ms(lambda: hc.hsmm_band_grad(*grad_in), 10),
-            cuda_ms(lambda: hc._band_grad_plain(*grad_in), 3), T, (bg_bound, bg_by), bg_floor,
+        "hsmm_band_grad_wide": (
+            k4["ms"], k4["plain_ms"], T, (k4["bound_ms"], k4["bound_by"]), k4["floor_ms"],
             tuple(grad_in[0].shape)),
     }
     err_of = {"hsmm_viterbi_scan_wide": errs["viterbi_scan"], "hsmm_viterbi_traceback_wide": 0.0,
               "hsmm_log_scan_wide": errs["log_scan"],
-              "hsmm_forward_scan_wide": errs["forward_scan"], "hsmm_band_grad": errs["band_grad"]}
+              "hsmm_forward_scan_wide": errs["forward_scan"],
+              "hsmm_band_grad_wide": errs["band_grad"]}
     entries = {}
     for name, (ms, plain_ms, plain_t, (b_ms, b_by), floor_ms, shape) in times.items():
         entries[name] = {
@@ -4117,6 +4121,11 @@ def run_past_1024_slice(device, root, smi):
                          ["{:.4f}".format(x) for x in ab["copied"]], barrier_us[scan]))
         if name == "hsmm_viterbi_traceback_wide":
             extra = "; {} segments, the longest video {}".format(n_segments, longest)
+        if name == "hsmm_band_grad_wide":
+            entries[name].update({"past_1024_" + k: v for k, v in k4.items()
+                                  if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "floor_ms")})
+            extra = k4_wide_line(k4)
         phase("past1024", "(c) {} at {}: {:.5f} ms, {:.4f} us a step, plain {:.4f} ms (at {} "
               "frames), bound {:.6f} ms by {} ({:.0f}x), floor {}, launches on the phase's "
               "path {}{}; {}".format(
@@ -4296,6 +4305,59 @@ def band_grad_bound(grad_in, sms, clock_mhz):
             {k: v * 1e3 for k, v in times.items()})
 
 
+def k4_wide_times(grad_in, sms, clock_mhz, card, n):
+    """K4's wide kernel at a wide shape: its ms from a replayed CUDA graph
+    of `n`, the narrow kernel's in its own tile on the same inputs (the
+    route every width took before the wide kernel; from a graph of `n`,
+    launched directly, so no counter moves), the plain version's ms, the
+    bound, both tiles' lg scratch beside the (B, T, C) plane, and on the
+    card the wide kernel's issue floor from its SASS plus its cross-tile
+    sum's floor (tools/scan_floor.py), and the narrow tile's sum floor."""
+    from action_segmentation_torch.ops import hsmm_cuda as hc
+    from action_segmentation_torch.tools.scan_floor import (
+        band_grad_tail,
+        band_grad_wide_floor,
+        band_grad_wide_issue_ms,
+        built_sass,
+    )
+
+    B, T, C = grad_in[0].shape
+    Km = grad_in[2].shape[1]
+    wide = hc.band_grad_wide_tile(B, T, C, Km, sms)
+    narrow = hc.band_grad_tile(B, T, C, Km, sms)
+    b_ms, b_by, b_kind, _ = band_grad_bound(grad_in, sms, clock_mhz)
+    r = {"ms": graph_ms(lambda: hc.hsmm_band_grad_wide(*grad_in), n),
+         "narrow_route_ms": graph_ms(lambda: hc._launch_band_grad(*grad_in, narrow), n),
+         "plain_ms": cuda_ms(lambda: hc._band_grad_plain(*grad_in), 3),
+         "bound_ms": b_ms, "bound_by": b_by, "bound_limit": b_kind,
+         "scratch_bytes": wide.scratch_bytes,
+         "narrow_route_scratch_bytes": 4 * B * narrow.tiles * Km * C,
+         "plane_bytes": 4 * B * T * C, "runs": wide.tiles, "rows": wide.rows,
+         "blocks": B * wide.groups * wide.tiles, "floor_ms": None}
+    if card:
+        insts = band_grad_wide_floor(built_sass("band_grad"))[0]
+        tail = band_grad_tail(B, T, C, Km, clock_mhz, sms, wide=True)
+        r.update(issue_floor_ms=band_grad_wide_issue_ms(insts, B, T, C, Km, clock_mhz, sms),
+                 tail_floor_ms=tail["floor_ms"], floor_instructions_per_duration=insts,
+                 narrow_route_tail_floor_ms=band_grad_tail(B, T, C, Km, clock_mhz, sms)[
+                     "floor_ms"])
+        r["floor_ms"] = r["issue_floor_ms"] + r["tail_floor_ms"]
+    return r
+
+
+def k4_wide_line(k4):
+    """K4's wide kernel's scratch and floors, for a phase's line."""
+    return ("; {} runs a video of {} rows, {} blocks; lg scratch {} bytes (the narrow kernel's "
+            "tile {}; the plane {}); floor {} ms (issue {} + cross-tile sum {}; the narrow "
+            "tile's sum alone {}); the narrow kernel in its tile {:.5f} ms ({:.2f}x this)".format(
+                k4["runs"], k4["rows"], k4["blocks"], k4["scratch_bytes"],
+                k4["narrow_route_scratch_bytes"], k4["plane_bytes"],
+                "not measured" if k4["floor_ms"] is None else "{:.5f}".format(k4["floor_ms"]),
+                k4.get("issue_floor_ms"), k4.get("tail_floor_ms"),
+                k4.get("narrow_route_tail_floor_ms"), k4["narrow_route_ms"],
+                k4["narrow_route_ms"] / k4["ms"]))
+
+
 def main():
     import torch
 
@@ -4328,7 +4390,9 @@ def main():
         band_max_issue_ms,
         built_sass,
         max_sm_clock_mhz,
+        parse_function,
         traceback_floor,
+        wide_duration_loop,
     )
     from action_segmentation_torch.utils.misc import host_ms
 
@@ -4373,6 +4437,17 @@ def main():
               "assumes: {!r}".format(fn, cap, ptxas.get(fn)))
     bm_regs = [ptxas[fn][0] for fn in BAND_MAX_KERNELS]
     bg_regs = ptxas["band_grad_kernel"][0]
+    # K4's wide kernel: within the registers its tile rule assumes, and no
+    # local memory in its duration loop (ptxas spills a few bytes around
+    # it, in the loops over a run's rows and over the slabs)
+    regs, spills = ptxas.get("band_grad_wide_kernel", (None, ""))
+    wide_loop = wide_duration_loop(parse_function(built_sass("band_grad"),
+                                                  "band_grad_wide_kernel"))
+    check(regs is not None and regs <= hsmm_cuda.BAND_GRAD_WIDE_REGS
+          and not any(ins[2].startswith(("LDL", "STL")) for ins in wide_loop),
+          "band_grad_wide_kernel was not built, takes more than the {} registers its tile rule "
+          "assumes or spills in its duration loop: {!r}".format(
+              hsmm_cuda.BAND_GRAD_WIDE_REGS, ptxas.get("band_grad_wide_kernel")))
 
     # 3. kernels against their plain versions
     rng = np.random.RandomState(0)
@@ -4427,7 +4502,7 @@ def main():
         resident_e2e, resident_cases, mixed = run_resident_slice(device, root, ct_models, smi)
         e2e.update(resident_e2e)
         e2e.update(run_dp_slice(device, root, ct_models, resident_cases, mixed, smi))
-        wide_e2e, wide_kernels, wide_k4 = run_wide_slice(device, root, smi)
+        wide_e2e, wide_kernels = run_wide_slice(device, root, smi)
         e2e.update(wide_e2e)
         past_e2e, past_entries = run_past_1024_slice(device, root, smi)
         e2e.update(past_e2e)
@@ -4675,9 +4750,7 @@ def main():
         check(k["dp_launches"] > 0, "{} was not launched on phase 4h's ranks".format(k["name"]))
         check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
         check(k["launches"] > 0, "{} was not launched on its path".format(k["name"]))
-    # phase 4i: K4 at the wide DP, and the wide kernels, whose path is 4i's
-    next(k for k in kernels if k["name"] == "hsmm_band_grad").update(wide_k4)
-    check(wide_k4["wide_launches"] > 0, "hsmm_band_grad was not launched at phase 4i's wide DP")
+    # phase 4i: the wide kernels (K4's wide kernel among them), whose path is 4i's
     for k in wide_kernels:
         check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
         check(k["launches"] > 0, "{} was not launched on phase 4i's path".format(k["name"]))

@@ -190,24 +190,30 @@ BAND_GRAD_SHAPES = SHAPES + SHORT_SHAPES + [
     (1, 12000, 19, 20)]
 
 
-def band_grad_inputs(B, T, C, K, device, seed):
-    """(G1m, G2p, band) as the partition's backward builds them."""
+def band_grad_inputs(B, T, C, K, device, seed, scan=hc._log_scan_plain):
+    """(G1m, G2p, band) as the partition's backward builds them, from the
+    log scan `scan` (the plain version, or the kernel at a wide shape
+    whose plain scan is a long Python loop)."""
     pots, lengths = random_pots(np.random.RandomState(seed), B, T, C, K, device)
     lengths = lengths.long()
-    gamma, alphas = hc._log_scan_plain(*hc._stack_fwd_rev(pots, lengths))
+    gamma, alphas = scan(*hc._stack_fwd_rev(pots, lengths))
     logZ = hg._log_partition(alphas[:B], lengths, pots.end_mask)
     return hc._grad_band_inputs(pots, lengths, gamma, logZ)
 
 
 def assert_band_grad_matches_plain(band_in):
-    """Two launches: qg, sa and st equal to the plain version's (the same
+    """Two launches (of the narrow kernel up to 128 classes, of the wide
+    one past them): qg, sa and st equal to the plain version's (the same
     float32 operations in the same order), lg the same in both runs and
     within the score tolerance of the plain sum (its association over T
     is the kernel's tiles)."""
-    before = hc.hsmm_band_grad.launches
+    wide = band_in[0].shape[-1] > hc.MAX_CLASSES
+    counter, other = ((hc.hsmm_band_grad_wide, hc.hsmm_band_grad) if wide
+                      else (hc.hsmm_band_grad, hc.hsmm_band_grad_wide))
+    before = (counter.launches, other.launches)
     got = hc.hsmm_band_grad(*band_in)
     again = hc.hsmm_band_grad(*band_in)
-    assert hc.hsmm_band_grad.launches == before + 2
+    assert (counter.launches, other.launches) == (before[0] + 2, before[1])
     want = hc._band_grad_plain(*band_in)
     torch.cuda.synchronize()
     for name, g, a, w in zip(("qg", "sa", "st", "lg"), got, again, want):
@@ -930,7 +936,8 @@ WIDE_KMS = (1, 19, 25, 64)
 WIDE_KERNELS = (hc.hsmm_viterbi_scan_wide, hc.hsmm_log_scan_wide, hc.hsmm_forward_scan_wide,
                 hc.hsmm_viterbi_traceback_wide)
 NARROW_KERNELS = (hc.hsmm_gamma_scan, hc.hsmm_log_scan, hc.hsmm_forward_scan,
-                  hc.hsmm_viterbi_scan, hc.hsmm_viterbi_traceback, hc.hsmm_band_max)
+                  hc.hsmm_viterbi_scan, hc.hsmm_viterbi_traceback, hc.hsmm_band_max,
+                  hc.hsmm_band_grad)
 
 
 def launches(kernels):
@@ -1159,6 +1166,83 @@ def test_wide_band_grad_matches_plain(cuda, C, K):
     assert int(hc._TICKETS[band_in[0].device].abs().sum()) == 0
 
 
+# K4's wide kernel past the shapes above: the timed shapes (18 videos of
+# 1,024 frames over the S6 model's 342 classes, 664 and the primary +
+# related model's 1,577; 2 videos of 12,000 frames over 342), Km = 0, 1,
+# 64 and 100 (several slabs), a class past 128 and past 1,024, 3,000
+# classes, one frame, a video of a CrossTask fit's bucket, all ragged
+WIDE_BAND_GRAD_SHAPES = [
+    (18, 1024, 342, 20), (18, 1024, 664, 20), (18, 1024, 1577, 20), (2, 12000, 342, 20),
+    (3, 48, 129, 1), (3, 48, 129, 2), (4, 200, 342, 65), (4, 200, 342, 101),
+    (3, 200, 1025, 20), (2, 64, 3000, 20), (2, 1, 342, 20), (1, 1056, 342, 20)]
+
+
+@pytest.mark.parametrize("B,T,C,K", WIDE_BAND_GRAD_SHAPES)
+def test_wide_band_grad_route_matches_plain(cuda, B, T, C, K):
+    """The wide kernel in the tile ``band_grad_wide_tile`` sizes: qg, sa,
+    st equal to the plain version's and lg the same in two runs (within
+    the score tolerance of the plain sum), its partials within one plane,
+    its counters back at 0."""
+    band_in = band_grad_inputs(B, T, C, K, cuda, B + C + K, scan=hc.hsmm_log_scan)
+    tile = hc.band_grad_wide_tile(B, T, C, K - 1, hc._sm_count(cuda.index or 0))
+    assert tile.scratch_bytes <= 4 * B * T * C
+    if K == 101:
+        assert tile.slab < K - 1  # several slabs
+    assert_band_grad_matches_plain(band_in)
+    assert int(hc._TICKETS[band_in[0].device].abs().sum()) == 0
+
+
+def test_wide_band_grad_in_a_cuda_graph(cuda):
+    """The wide kernel captured in a CUDA graph (its counters made by a
+    launch before the capture), replayed twice: the plain version's
+    outputs (lg at the score tolerance), the same bits each replay."""
+    band_in = band_grad_inputs(2, 512, 342, 20, cuda, 11, scan=hc.hsmm_log_scan)
+    assert hc.band_grad_wide_tile(2, 512, 342, 19).tiles > 1  # the ticket runs
+    hc.hsmm_band_grad(*band_in)
+    torch.cuda.synchronize()
+    before = hc.hsmm_band_grad_wide.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = hc.hsmm_band_grad(*band_in)
+    assert hc.hsmm_band_grad_wide.launches == before + 1
+    want = hc._band_grad_plain(*band_in)
+    outs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append([x.clone() for x in got])
+    for name, a, b, w in zip(("qg", "sa", "st", "lg"), *outs, want):
+        assert torch.equal(a, b), name + ": two replays differ"
+        if name == "lg":
+            torch.testing.assert_close(a, w, rtol=RTOL, atol=ATOL)
+        else:
+            assert torch.equal(a, w), name
+    assert int(hc._TICKETS[band_in[0].device].abs().sum()) == 0
+
+
+def test_wide_band_grad_launch_refuses_a_tile_that_does_not_fit(cuda):
+    """The wide launch takes the wrapper's tile; too little shared memory
+    for its slab, more than 256 threads, no slab for a band, shared
+    memory past a block's, or no partials for more than one run is
+    refused, not run."""
+    band_in = band_grad_inputs(2, 256, 342, 20, cuda, 12, scan=hc.hsmm_log_scan)
+    tile = hc.band_grad_wide_tile(2, 256, 342, 19)
+    assert tile.tiles > 1
+    for bad in (tile._replace(smem_bytes=tile.smem_bytes - 4),
+                tile._replace(warps=9, threads=288),
+                tile._replace(slab=0, smem_bytes=0),
+                tile._replace(smem_bytes=hc.MAX_BLOCK_SMEM + 4),
+                tile._replace(scratch_bytes=0)):
+        with pytest.raises(RuntimeError, match="hsmm_band_grad_wide"):
+            hc._launch_band_grad_wide(*band_in, bad)
+    got = hc._launch_band_grad_wide(*band_in, tile)
+    want = hc._band_grad_plain(*band_in)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    torch.testing.assert_close(got[3], want[3], rtol=RTOL, atol=ATOL)
+
+
 def test_wide_launches_refuse_what_they_do_not_take(cuda):
     """Past WIDE_GRID_MAX_CLASSES (one chain's alpha row and its slab's
     state past a grid-route block's shared memory on 132 SMs) the scans
@@ -1232,10 +1316,12 @@ def test_wide_partition_fb_kernels_match_plain(cuda):
         z.sum().backward()
         return [z.detach()] + [x.grad for x in xs]
 
-    before = launches((hc.hsmm_log_scan_wide, hc.hsmm_band_grad, hc.hsmm_log_scan))
+    before = launches((hc.hsmm_log_scan_wide, hc.hsmm_band_grad_wide, hc.hsmm_log_scan,
+                       hc.hsmm_band_grad))
     got = grads(hg.KERNELS)
-    assert [a - b for a, b in zip(launches((hc.hsmm_log_scan_wide, hc.hsmm_band_grad,
-                                             hc.hsmm_log_scan)), before)] == [1, 1, 0]
+    assert [a - b for a, b in zip(launches((hc.hsmm_log_scan_wide, hc.hsmm_band_grad_wide,
+                                             hc.hsmm_log_scan, hc.hsmm_band_grad)),
+                                  before)] == [1, 1, 0, 0]
     for name, g, w in zip(("logZ", "trans", "init", "lens", "emit", "end_mask"), got,
                           grads(hg.PLAIN)):
         torch.testing.assert_close(g, w, rtol=GRAD_RTOL, atol=GRAD_ATOL, msg=name)
@@ -1265,7 +1351,7 @@ def test_wide_model_decodes_and_trains_on_the_card(cuda):
     lengths = torch.tensor([T, 50, 1], device=cuda)
     cons, ends = torch.zeros((B, T, C), device=cuda), torch.zeros((B, C), device=cuda)
     before, narrow = launches(WIDE_KERNELS), launches(NARROW_KERNELS)
-    grad_before = hc.hsmm_band_grad.launches
+    grad_before = hc.hsmm_band_grad_wide.launches
     labels, scores = model._decode(feats, lengths, vc, cons, ends)
     with torch.no_grad():
         pots, _, _ = model.module.compute_potentials(feats, lengths, vc, cons, ends)
@@ -1279,7 +1365,7 @@ def test_wide_model_decodes_and_trains_on_the_card(cuda):
     loss.backward()
     assert torch.isfinite(loss)
     assert [a - b for a, b in zip(launches(WIDE_KERNELS), before)] == [1, 1, 0, 1]
-    assert hc.hsmm_band_grad.launches == grad_before + 1
+    assert hc.hsmm_band_grad_wide.launches == grad_before + 1
     assert launches(NARROW_KERNELS) == narrow
 
 

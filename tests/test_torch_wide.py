@@ -304,25 +304,25 @@ def test_wide_frame_marginals_grouped_match_jax(C):
 @pytest.mark.parametrize("C", WIDE_CLASSES)
 @pytest.mark.parametrize("Km", WIDE_KMS)
 def test_wide_band_grad_and_traceback_tiles_fit_the_block(C, Km):
-    """K4's tile and the traceback's at a wide DP: K4 one or more whole
-    rows of a chunk of classes (all C up to 1,024, else C split evenly
-    into chunks of at most 1,024: 513 at 1,025, 789 at 1,577) with its
-    slab within a block's and an SM's shared memory (at 18 videos of
-    1,024 frames 5 rows at C = 129, 2 at 342, 1 from 1,024); the narrow
-    traceback's rule two buffers of rows * C codes in a block's; W2's
-    ring 4 slots of 112 rows at C = 129, 42 at 342, 14 at 1,024, 9 at
-    1,577. The codes' radix holds C."""
-    chunks = -(-C // 1024)
+    """K4's tile and the traceback's at a wide DP: K4's wide kernel
+    (``band_grad_wide_tile``) blocks of 8 warps over 32 classes, covering
+    C, walking runs of whole rows, with its slab within a block's and an
+    SM's shared memory and its lg partials within one plane (at 18
+    videos of 1,024 frames and Km = 19 23 runs a video at C = 129, 10 at
+    342, 7 at 1,024-1,577, 8 at 2,048); the narrow traceback's rule two
+    buffers of rows * C codes in a block's; W2's ring 4 slots of 112 rows
+    at C = 129, 42 at 342, 14 at 1,024, 9 at 1,577. The codes' radix
+    holds C."""
     for B, T in ((18, 1024), (1, 1056), (4, 200)):
-        tile = hc.band_grad_tile(B, T, C, Km)
-        warps = -(-tile.threads // 32)
-        assert tile.chunk == -(-C // chunks) and (chunks - 1) * tile.chunk < C
-        assert 1 <= tile.rows <= T and tile.threads == tile.rows * tile.chunk
-        assert tile.threads <= hc.MAX_BLOCK_THREADS
+        tile = hc.band_grad_wide_tile(B, T, C, Km)
+        assert tile.groups == -(-C // 32) and (tile.groups - 1) * 32 < C
+        assert 1 <= tile.rows <= T and tile.tiles == -(-T // tile.rows)
+        assert tile.threads == 32 * tile.warps <= hc.MAX_BLOCK_THREADS
         assert tile.smem_bytes == 4 * tile.slab * tile.threads <= hc.MAX_BLOCK_SMEM
         assert tile.blocks_per_sm * (tile.smem_bytes + hc.SM_SMEM_PER_BLOCK) <= hc.SM_SMEM
-        assert tile.blocks_per_sm * warps * 32 * hc.BAND_GRAD_REGS <= hc.SM_REGS
+        assert tile.blocks_per_sm * tile.threads * hc.BAND_GRAD_WIDE_REGS <= hc.SM_REGS
         assert 1 <= tile.slab <= Km
+        assert tile.scratch_bytes <= 4 * B * T * C
         tb = hc.traceback_tile(T, C)
         assert 1 <= tb.rows <= T
         assert tb.smem_bytes == hc.TRACEBACK_HEADER + 8 * hc._tile_words(tb.rows, C)
@@ -331,7 +331,8 @@ def test_wide_band_grad_and_traceback_tiles_fit_the_block(C, Km):
                                                1577: 18, 2048: 14}[C]
     assert hc.wide_traceback_tile(1024, C)[:2] == {129: (112, 4), 342: (42, 4), 1024: (14, 4),
                                                    1025: (14, 4), 1577: (9, 4), 2048: (7, 4)}[C]
-    assert hc.band_grad_tile(18, 1024, C, Km).rows == {129: 5, 342: 2}.get(C, 1)
+    assert hc.band_grad_wide_tile(18, 1024, C, 19).tiles == {
+        129: 23, 342: 10, 1024: 7, 1025: 7, 1577: 7, 2048: 8}[C]
     radix = hc.code_radix(C)
     assert radix >= C and (Km * radix) < 2 ** 31
     # a row of codes fits a slot of 4 up to 14,521 classes (past it the launch raises)
