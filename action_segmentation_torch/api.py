@@ -26,7 +26,10 @@ from action_segmentation_torch.data.batching import pad_length_to_bucket
 from action_segmentation_torch.models.semimarkov import SemiMarkovModel, upload
 from action_segmentation_torch.ops.hsmm import hsmm_frame_marginals
 from action_segmentation_torch.ops.hsmm_cuda import kernel_path
-from action_segmentation_torch.ops.hsmm_grad import hsmm_frame_marginals_fast
+from action_segmentation_torch.ops.hsmm_grad import (
+    centre_emissions,
+    hsmm_frame_marginals_fast,
+)
 from action_segmentation_torch.utils.drain import DeferredLabelDrain
 
 
@@ -126,9 +129,9 @@ class Segmenter:
         is the posterior probability that frame t belongs to GLOBAL class
         c under the HSMM (zero for classes outside this segmenter's valid
         set), d logZ / d emit through the kernel forward/backward pair
-        (ops/hsmm_grad.py). Labels come from the decode kernels, as in
-        ``segment_many``, on the same potentials (a compound model's z at
-        its mean).
+        (ops/hsmm_grad.py) over emissions centred frame by frame. Labels
+        come from the decode kernels, as in ``segment_many``, on the same
+        potentials (a compound model's z at its mean).
         """
         model = self.model
         device = model.device
@@ -150,7 +153,9 @@ class Segmenter:
             hsmm_frame_marginals_fast if kernel_path(C, C, device).partition == "kernels"
             else hsmm_frame_marginals
         )
-        marg_sub = marginals_fn(pots, lengths)
+        # the same posteriors, without float32's cancellation in the DP's
+        # prefix sums of emissions
+        marg_sub = marginals_fn(centre_emissions(pots, lengths)[0], lengths)
         # scatter the subset's columns into global class ids, like labels
         marg = np.zeros((T, model.n_classes), np.float32)
         marg[:, self.valid_classes] = marg_sub[0, :T].cpu().numpy()

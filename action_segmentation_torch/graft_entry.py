@@ -73,11 +73,12 @@ def entry(device=None):
     """(fn, example_args): the forward step of the flagship model,
     ``fn(*example_args)`` -> logZ + log_det (B,). It builds the HSMM
     potentials (masked softmaxes, Poisson durations, the batched Gaussian
-    emission matmul) and runs the log-semiring scan to the marginal
-    log-likelihood: the forward-only scan kernel (K1) on the card, its
+    emission matmul) and runs the log-semiring scan over the emissions
+    centred frame by frame (``ops.hsmm_grad.hsmm_partition_centred``) to the
+    marginal log-likelihood: the forward-only scan kernel (K1) on the card, its
     plain version on the CPU. example_args[0] is the module, whose weights
     a caller may replace (``bridge.gaussian_hsmm_params_from_numpy``)."""
-    from action_segmentation_torch.ops.hsmm_grad import hsmm_partition_fast
+    from action_segmentation_torch.ops.hsmm_grad import hsmm_partition_centred
 
     device = resolve_device(device)
     C, D, B, T = 12, 64, 4, 96
@@ -93,7 +94,7 @@ def entry(device=None):
     def forward(module, features, lengths, vc, cons, end_allowed):
         pots, log_det, _ = module.compute_potentials(
             features, lengths, vc, cons, end_allowed, use_mean_z=True)
-        return hsmm_partition_fast(pots, lengths) + log_det
+        return hsmm_partition_centred(pots, lengths) + log_det
 
     return forward, (module, features, lengths, vc, cons, end_allowed)
 

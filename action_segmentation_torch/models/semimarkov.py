@@ -91,7 +91,11 @@ from action_segmentation_torch.ops.hsmm_cuda import (
     hsmm_viterbi_spans,
     kernel_path,
 )
-from action_segmentation_torch.ops.hsmm_grad import hsmm_partition_fast
+from action_segmentation_torch.ops.hsmm_grad import (
+    centre_emissions,
+    hsmm_partition_centred,
+    hsmm_partition_fast,
+)
 from action_segmentation_torch.ops.span_codec import labels_to_spans, spans_to_labels
 from action_segmentation_torch.ops.stats import semimarkov_sufficient_stats
 from action_segmentation_torch.parallel.mesh import (
@@ -649,7 +653,11 @@ class SemiMarkovModel(DeviceModel):
         loss is this rank's share of the batch's, whose gradient the
         ranks sum. aux holds the means and ``terms``, the weighted sums
         (nll, kl, log_det) the epoch's stats reduce. The partition goes
-        through the kernel forward/backward (``kernel_path``)."""
+        through the kernel forward/backward (``kernel_path``) over
+        emissions centred frame by frame (``centre_emissions``): logZ is
+        the centred DP's plus the offset, and the discriminative loss
+        scores the gold path on the same centred emissions, whose offset
+        cancels logZ's."""
         lengths = lengths.long().clamp(min=1)
         if denom is None:
             denom = weights.sum().clamp(min=1.0)
@@ -667,11 +675,13 @@ class SemiMarkovModel(DeviceModel):
         partition = hsmm_partition_fast if path.partition == "kernels" else hsmm_partition
         if use_labels:
             spans = labels_to_spans(inv_map[gt], self.module.max_k)
-            ll = hsmm_gold_score(pots, lengths, spans)
             if getattr(self.args, "sm_train_discriminatively", False):
-                ll = ll - partition(pots, lengths)
+                centred, _ = centre_emissions(pots, lengths)  # the offsets cancel
+                ll = hsmm_gold_score(centred, lengths, spans) - partition(centred, lengths)
+            else:
+                ll = hsmm_gold_score(pots, lengths, spans)
         else:
-            ll = partition(pots, lengths)
+            ll = hsmm_partition_centred(pots, lengths, partition)
         nll_s, kl_s, log_det_s = wsum(-ll), wsum(kl), wsum(log_det)
         loss = (nll_s - log_det_s) / denom
         if not use_labels:

@@ -32,6 +32,11 @@ Each entry point takes ``kernels``: ``KERNELS`` (the default; the CUDA
 kernels on CUDA tensors, their plain versions on CPU tensors) or
 ``PLAIN`` (the plain versions on any device and dtype, the yardstick the
 kernels are held against).
+
+The model's calls (its loss, ``Segmenter.segment_with_marginals``, the
+entry point) go through ``centre_emissions``: the DP over emissions
+shifted frame by frame to a best class of 0, which float32 needs at the
+D=300 emission scale, with the shift's offset added back to logZ.
 """
 
 from typing import Callable, NamedTuple
@@ -174,6 +179,41 @@ def hsmm_partition_fast(pots: HsmmPotentials, lengths, kernels=KERNELS):
     return hsmm_partition_fb(
         pots.trans, pots.init, pots.lens, pots.emit, pots.end_mask, lengths, kernels
     )
+
+
+def centre_emissions(pots: HsmmPotentials, lengths):
+    """(centred potentials, offset (B,) float64): each frame's emissions
+    shifted down by c[b, t], their max over classes, so that
+    logZ(pots) = logZ(centred) + offset with offset = sum_{t < L} c[b, t].
+
+    Every segmentation emits each frame t < L exactly once, so the shift
+    moves every path score by the same offset and leaves every posterior
+    as it was. It keeps the DP's float32 prefix sums of emissions near the
+    best class's: uncentred, D=300 Gaussian emissions (about -500 nats a
+    frame) build sums of -5e5 over 1,024 frames, whose ulp (0.03-0.06
+    nats) a log posterior, a difference of such sums, inherits.
+
+    c is the max over the entries above BIG_NEG / 2 (0 where a frame has
+    none, so a frame masked everywhere stays masked) and 0 from each
+    length on (padding never enters the offset). It is detached: its
+    exact derivative, sum_c marginal - 1, is zero. trans, init, lens and
+    end_mask pass through as given (expanded views stay views); centre
+    before ``_stack_fwd_rev`` so that the reversed chain reads the same
+    emissions."""
+    emit = pots.emit
+    lengths = _clamped(lengths, emit.device)
+    c = emit.detach().amax(dim=-1)  # a live entry, where there is one, beats a masked one
+    t_idx = torch.arange(emit.shape[1], device=emit.device)[None, :]
+    c = torch.where((c > BIG_NEG / 2) & (t_idx < lengths[:, None]), c, torch.zeros_like(c))
+    return pots._replace(emit=emit - c[:, :, None]), c.double().sum(dim=1)
+
+
+def hsmm_partition_centred(pots: HsmmPotentials, lengths, partition=hsmm_partition_fast):
+    """logZ (B,) of ``partition(pots, lengths)`` (``hsmm_partition_fast``
+    or ``ops.hsmm.hsmm_partition``) through ``centre_emissions``: the
+    centred DP's logZ plus the offset, added in float64 and rounded once."""
+    centred, offset = centre_emissions(pots, lengths)
+    return (partition(centred, lengths).double() + offset).to(pots.emit.dtype)
 
 
 def hsmm_frame_marginals_fast(pots: HsmmPotentials, lengths, kernels=KERNELS):

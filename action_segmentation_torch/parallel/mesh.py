@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from action_segmentation_torch import resolve_device
 from action_segmentation_torch.utils import logger
 
 # a rank that waits longer than this in a collective raises
@@ -112,9 +113,12 @@ def make_mesh(n_devices=None, model_parallel=1, device=None):
     """The data-parallel Mesh of the process group the caller made, or of
     one built from torchrun's RANK, WORLD_SIZE and LOCAL_RANK (NCCL when
     the device is a card, gloo on the CPU). `device` is this rank's:
-    None takes cuda:LOCAL_RANK under NCCL and the CPU under gloo. Raises
-    when no group can be made, when the group does not have `n_devices`
-    ranks, and for ``model_parallel > 1`` (retired in the JAX package)."""
+    None takes cuda:LOCAL_RANK when this call makes the group (raising
+    without a card, as ``resolve_device`` does: a CPU rank passes
+    ``device="cpu"``), and in a group the caller made cuda under NCCL and
+    the CPU under gloo. Raises when no group can be made, when the group
+    does not have `n_devices` ranks, and for ``model_parallel > 1``
+    (retired in the JAX package)."""
     if model_parallel not in (None, 1):
         raise NotImplementedError(
             "model_parallel={}: tensor parallelism over class tables was "
@@ -128,8 +132,7 @@ def make_mesh(n_devices=None, model_parallel=1, device=None):
                 "torch.distributed.init_process_group first"
             )
         if device is None:
-            device = (torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-                      if torch.cuda.is_available() else torch.device("cpu"))
+            device = resolve_device(torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))))
         device = _indexed(device)
         if device.type == "cuda":
             torch.cuda.set_device(device)

@@ -8,7 +8,7 @@ each streaming (``--sm_device_resident_mb 0``) and resident, none with
 --data_parallel. Run from the repository root on a machine with a CUDA
 card:
 
-    python3 -m action_segmentation_torch.tools.fit_ab --old_tree OLD_DIR [--rounds N] [--wide [--repeats 3]] [--out ab.json]
+    python3 -m action_segmentation_torch.tools.fit_ab --old_tree OLD_DIR [--rounds N] [--wide [--repeats 3] | --step [--steps 20]] [--out ab.json]
 
 With ``--wide`` the legs are instead ``chip_smoke.py`` phase 4i(b)'s
 serving over all 342 S6 classes: phase 4c's release, the S6 flags with
@@ -18,6 +18,13 @@ up and then `--repeats` times, each timed on the host clock to a device
 sync; each turn prints the walls, frames/s and the wide kernels' launches
 (the old tree's ``chip_smoke.py`` must have ``crosstask_args`` and phase
 4c's constants, as from the wide DP's commit on).
+
+With ``--step`` the leg is instead ``chip_smoke.py`` phase 4b's training
+step: an unsupervised model of the synthetic corpus (C=19, K=20, D=300)
+taking forward, backward, clip and Adam steps on one serving batch (B=18,
+T=1024) already on the card, `--steps` steps a window on CUDA events,
+three windows, the least kept (the old tree's ``chip_smoke.py`` must have
+``sm_args`` and ``cuda_ms``, as from the training slice's commit on).
 
 OLD_DIR is a checkout of an earlier commit, for example ``git archive
 <commit> | tar -x -C OLD_DIR`` into a directory that .gitignore lists; its
@@ -125,10 +132,55 @@ print("FIT_AB " + json.dumps(out), flush=True)
 """
 
 
-def turn(tree, wide=False, repeats=3):
+_STEP_TURN = r"""
+import json, sys
+import numpy as np
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from action_segmentation_torch.data.synthetic import SyntheticDatasplit
+from action_segmentation_torch.models.base import clip_grads, make_optimizer
+from action_segmentation_torch.models.semimarkov import SemiMarkovModel
+from action_segmentation_torch.ops import _build
+
+device = torch.device("cuda")
+_build.build(["hsmm_scan", "band_grad"])
+train = SyntheticDatasplit(seed=0, num_videos=36, n_classes=cs.C, max_len=cs.T, span_k=cs.K,
+                           feature_dim=cs.D, shift=1.0)
+model = SemiMarkovModel.from_args(cs.sm_args(epochs=1), train, device=device)
+rng = np.random.RandomState(3)
+B, T, C = cs.B, cs.T, cs.C
+batch = (torch.from_numpy(rng.randn(B, T, cs.D).astype(np.float32)).to(device),
+         torch.full((B,), T, dtype=torch.int32, device=device),
+         torch.arange(C, device=device), torch.arange(C, device=device),
+         torch.zeros((B, T), dtype=torch.long, device=device),
+         torch.zeros((B, T, C), device=device), torch.zeros((B, C), device=device),
+         torch.ones((B,), device=device))
+params = list(model.module.parameters())
+optimizer, _ = make_optimizer(model.args, params)
+
+
+def step():
+    optimizer.zero_grad(set_to_none=True)
+    loss, _ = model._loss(*batch, use_labels=False)
+    loss.backward()
+    clip_grads(params, model.args.max_grad_norm)
+    optimizer.step()
+
+
+windows = [cs.cuda_ms(step, int(sys.argv[1])) for _ in range(3)]
+print("FIT_AB " + json.dumps({"train step": {"wall_s": min(windows) / 1e3, "ms": windows}}),
+      flush=True)
+"""
+
+
+def turn(tree, wide=False, repeats=3, step=False, steps=20):
     """One turn in `tree`: {case: {wall_s, frames_per_s, ...}}."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
-    code = [_WIDE_TURN, str(repeats)] if wide else [_TURN]
+    if step:
+        code = [_STEP_TURN, str(steps)]
+    else:
+        code = [_WIDE_TURN, str(repeats)] if wide else [_TURN]
     proc = subprocess.run([sys.executable, "-c", *code], cwd=tree, env=env,
                           capture_output=True, text=True)
     if proc.returncode != 0:
@@ -145,6 +197,9 @@ def main(argv=None):
     cli.add_argument("--wide", action="store_true",
                      help="phase 4i(b)'s segment_many over all 342 S6 classes")
     cli.add_argument("--repeats", type=int, default=3)
+    cli.add_argument("--step", action="store_true",
+                     help="phase 4b's unsupervised training step at the serving shape")
+    cli.add_argument("--steps", type=int, default=20)
     cli.add_argument("--out", default=None)
     opts = cli.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -154,7 +209,7 @@ def main(argv=None):
              ("old", opts.old_tree)] * opts.rounds
     turns = []
     for which, tree in order:
-        rec = turn(tree, opts.wide, opts.repeats)
+        rec = turn(tree, opts.wide, opts.repeats, opts.step, opts.steps)
         turns.append((which, rec))
         print(which, json.dumps(rec), flush=True)
     summary = {}

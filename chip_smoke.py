@@ -281,6 +281,10 @@ SFU_PER_SM_CLOCK = 16
 RTOL, ATOL = 1e-5, 1e-4
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
 GRAD_NAMES = ("logZ", "trans", "init", "lens", "emit", "end_mask")
+# the model's partition over centred emissions against float64 at the D=300
+# serving case (B=1, T=1024, C=19): max |sum_c marginal - 1| and the
+# gradients' max abs errors (tests/test_torch_centred_partition.py)
+CENTRED_BOUNDS = dict(gap=0.05, emit=0.05, trans=0.5, lens=1.0)
 TPU_FILE = "action_segmentation_tpu/ops/hsmm_pallas.py"
 # the crosstask slice: every primary CrossTask task with 9 steps; with
 # --annotate_background_with_previous a task has 2 * 9 + 1 = 19 classes
@@ -289,6 +293,10 @@ CT_STEPS, CT_TRAIN, CT_VAL, CT_DIM_PER_GROUP = 9, 6, 4, 100
 # tasks of the constrained unsupervised fit (one model each)
 CT_FIT_TASKS = 3
 CT_RANGES = dict(bkg_range=(10, 60), step_range=(30, 90), gap_range=(5, 30))
+# phase 4f's per-task legs (the Gaussian mixtures, the taggers) run on a
+# release written as phase 4c's with these training and val videos a task:
+# every task and its model's width stay, the legs take half the time
+BASELINE_TRAIN, BASELINE_VAL = 3, 2
 S6_FLAGS = ("--dataset", "crosstask", "--features", "pca", "--task_specific_steps",
             "--annotate_background_with_previous")
 
@@ -418,6 +426,58 @@ def autograd_grads(pots, lengths):
     from action_segmentation_torch.ops.hsmm import HsmmPotentials, hsmm_partition
 
     return value_and_grads(pots, lambda *xs: hsmm_partition(HsmmPotentials(*xs), lengths))
+
+
+def centred_grads(pots, lengths):
+    """value_and_grads of the model's partition: the kernel forward/backward
+    over emissions centred frame by frame, plus their offset
+    (``hsmm_partition_centred``)."""
+    from action_segmentation_torch.ops.hsmm import HsmmPotentials
+    from action_segmentation_torch.ops.hsmm_grad import hsmm_partition_centred
+
+    return value_and_grads(
+        pots, lambda *xs: hsmm_partition_centred(HsmmPotentials(*xs), lengths))
+
+
+def d300_case(device, b=1, t=1024, c=19, seed=10):
+    """The CPU tests' D=300 case (tests/test_torch_centred_partition.py,
+    B=1, T=1024, C=19, K=20, seed 10): the same numpy draws and the port's
+    distributions on the CPU, then copied to `device`; each video's own
+    rows."""
+    import torch
+
+    from action_segmentation_torch.ops.distributions import (
+        gaussian_emission_log_probs,
+        initial_log_probs,
+        poisson_length_log_probs,
+        transition_log_probs,
+    )
+    from action_segmentation_torch.ops.hsmm import HsmmPotentials
+
+    rng = np.random.RandomState(seed)
+    feats, means = rng.randn(b, t, D), rng.randn(c, D)
+    cov = np.abs(rng.randn(D)) + 0.5
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32))  # noqa: E731
+    pots = [
+        transition_log_probs(f32(rng.randn(c, c))).expand(b, c, c),
+        initial_log_probs(f32(rng.randn(c))).expand(b, c),
+        poisson_length_log_probs(f32(rng.randn(c) * 0.3 + 1.5), K).expand(b, K, c),
+        gaussian_emission_log_probs(f32(feats), f32(means), f32(cov)),
+        torch.zeros(b, c),
+    ]
+    return (HsmmPotentials(*(x.contiguous().to(device) for x in pots)),
+            torch.full((b,), t, dtype=torch.int32, device=device))
+
+
+def float64_errors(name, got, exact, lengths, finite=True):
+    """{"gap": max |sum_c marginal - 1|, and each gradient's max abs error
+    against `exact`} of `got` (value_and_grads lists); with `finite`,
+    every value of `got` must be finite."""
+    out = {"gap": marginal_gap(got[4], lengths)}
+    out.update((n, max_err(g, x)) for n, g, x in zip(GRAD_NAMES, got, exact))
+    check(not finite or all(bool(g.isfinite().all()) for g in got),
+          "{}: non-finite logZ or gradients".format(name))
+    return out
 
 
 def assert_grads_close(name, got, want):
@@ -610,7 +670,11 @@ def run_train_kernels(device):
     import torch
 
     from action_segmentation_torch.ops.hsmm import hsmm_frame_marginals
-    from action_segmentation_torch.ops.hsmm_grad import PLAIN, hsmm_frame_marginals_fast
+    from action_segmentation_torch.ops.hsmm_grad import (
+        PLAIN,
+        centre_emissions,
+        hsmm_frame_marginals_fast,
+    )
 
     rng = np.random.RandomState(10)
     pots, lengths = serving_pots(rng, B, T, C, K, device)
@@ -625,9 +689,13 @@ def run_train_kernels(device):
     train_case("end_mask", *serving_pots(rng, B, T, C, K, device, end_mask=end))
     train_case("C=128", *serving_pots(rng, 4, T, 128, K, device))
     train_case("K=1", *serving_pots(rng, B, T, C, 1, device))
-    train_case("T=12000", *serving_pots(
-        rng, 2, 12000, C, K, device, lengths=np.array([12000, 7001], np.int32)))
+    long_case = serving_pots(rng, 2, 12000, C, K, device,
+                             lengths=np.array([12000, 7001], np.int32))
+    train_case("T=12000", *long_case)
     train_case("masked transitions", *masked_transition_pots(device))
+    # the model's path: the same kernels on the serving batch's centred emissions
+    centred_pots = centre_emissions(pots, lengths)[0]
+    train_case("serving, centred", centred_pots, lengths)
 
     # the Function against autograd of the plain partition: float32 where
     # float32 holds (unit-scale emissions, 256 frames), float64 at the full
@@ -653,21 +721,47 @@ def run_train_kernels(device):
                   name, p.emit.shape[0], p.emit.shape[1], p.emit.shape[2],
                   p.lens.shape[1], err))
     pots64 = type(pots)(*(x.double() for x in pots))
-    err = assert_grads_close("serving partition_fb vs autograd (float64)",
-                             partition_grads(pots64, lengths, PLAIN),
+    exact = partition_grads(pots64, lengths, PLAIN)
+    err = assert_grads_close("serving partition_fb vs autograd (float64)", exact,
                              autograd_grads(pots64, lengths))
     phase("kernels (train)", "serving: logZ and grads of the Function's plain path vs "
           "autograd of hsmm_partition, float64: max_abs_err={:g}".format(err))
 
-    # finding: float32 cancellation at the D=300 emission scale
+    # finding: float32 cancellation at the D=300 emission scale, and its
+    # repair on the model's path (the DP over centred emissions)
+    t0 = time.perf_counter()
     gaps = {
         "kernel_fp32": marginal_gap(hsmm_frame_marginals_fast(pots, lengths), lengths),
         "plain_fp32": marginal_gap(hsmm_frame_marginals_fast(pots, lengths, PLAIN), lengths),
-        "plain_fp64": marginal_gap(hsmm_frame_marginals_fast(pots64, lengths, PLAIN), lengths),
+        "plain_fp64": marginal_gap(exact[4], lengths),
         "autograd_fp32": marginal_gap(hsmm_frame_marginals(pots, lengths), lengths),
+        "kernel_centred": marginal_gap(centred_grads(pots, lengths)[4], lengths),
     }
-    phase("kernels (train)", "serving: max |sum_c marginal - 1| over real frames: " + ", ".join(
-        "{} {:g}".format(k, v) for k, v in gaps.items()))
+    phase("kernels (train)", "serving batch (B={}): max |sum_c marginal - 1| over real frames: "
+          "{}".format(B, ", ".join("{} {:g}".format(k, v) for k, v in gaps.items())))
+    check(10 * gaps["kernel_centred"] <= gaps["kernel_fp32"],
+          "centring did not cut the serving batch's marginal gap tenfold: {}".format(gaps))
+    centred = {}
+    for name, (p, L) in (("serving case", d300_case(device)), ("T=12000", long_case)):
+        want = partition_grads(type(p)(*(x.double() for x in p)), L, PLAIN)
+        centred[name] = {
+            "centred": float64_errors(name + " centred", centred_grads(p, L), want, L),
+            "as is": float64_errors(name + " as is", partition_grads(p, L), want, L,
+                                    finite=False)}
+        phase("kernels (train)", "{} (B={} T={} C={} K={} D={}), the kernel path against the "
+              "plain path in float64: centred {}; as is {}".format(
+                  name, p.emit.shape[0], p.emit.shape[1], p.emit.shape[2], K, D,
+                  *("{" + ", ".join("{} {:g}".format(k, v) for k, v in centred[name][w].items())
+                    + "}" for w in ("centred", "as is"))))
+    serving_err = centred["serving case"]["centred"]
+    for name, bound in CENTRED_BOUNDS.items():
+        check(serving_err[name] <= bound, "the serving case's centred {} error {:g} is above "
+              "{:g}".format(name, serving_err[name], bound))
+    gaps.update(serving_case=serving_err["gap"], serving_case_as_is=centred[
+        "serving case"]["as is"]["gap"], t12000_centred=centred["T=12000"]["centred"]["gap"],
+        t12000_as_is=centred["T=12000"]["as is"]["gap"])
+    phase("kernels (train)", "centred: the serving case within {}, T=12000 gradients finite; "
+          "{:.1f} s".format(CENTRED_BOUNDS, time.perf_counter() - t0))
     return serving, gaps
 
 
@@ -687,7 +781,11 @@ def run_train_slice(device, num_videos, max_len, shift):
         hsmm_forward_scan,
         hsmm_log_scan,
     )
-    from action_segmentation_torch.ops.hsmm_grad import PLAIN, hsmm_partition_fast
+    from action_segmentation_torch.ops.hsmm_grad import (
+        PLAIN,
+        hsmm_partition_centred,
+        hsmm_partition_fast,
+    )
 
     kw = dict(num_videos=num_videos, n_classes=C, max_len=max_len, span_k=K,
               feature_dim=D, shift=shift)
@@ -732,6 +830,12 @@ def run_train_slice(device, num_videos, max_len, shift):
           "unsupervised fit launches {} != one log scan and band grad per batch".format(n_unsup))
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           "unsupervised epoch loss did not fall: {}".format(losses))
+    before = counts()
+    unsup_preds = unsup.predict(test)
+    mof_unsup = mof(test, unsup_preds, matched=True)
+    check(counts() == before, "predict launched a training kernel")
+    phase("train slice", "unsupervised fit: predict MoF {:.4f} Hungarian-matched, {:.4f} "
+          "unmatched (chance {:.4f})".format(mof_unsup, mof(test, unsup_preds), 1.0 / C))
 
     # discriminative, from the closed form
     disc = SemiMarkovModel.from_args(
@@ -749,7 +853,8 @@ def run_train_slice(device, num_videos, max_len, shift):
           "discriminative fit launches {} != one log scan and band grad per batch".format(n_disc))
     check(mof_disc > 10.0 / C, "discriminative MoF {:.4f} is not above 10x chance".format(mof_disc))
 
-    # the partition without gradients: the forward-only scan
+    # the partition without gradients: the forward-only scan over the
+    # centred emissions, as the loss takes it
     names = sorted(test._samples)[:3]
     feats = [test._samples[n]["features"] for n in names]
     batch = next(iter_batches(test, batch_size=B, batch_by_task=True, shuffle=False))
@@ -757,9 +862,10 @@ def run_train_slice(device, num_videos, max_len, shift):
     with torch.no_grad():
         pots, _, _ = disc.module.compute_potentials(dev[0], dev[1], dev[2], dev[5], dev[6])
         before = hsmm_forward_scan.launches
-        logZ = hsmm_partition_fast(pots, dev[1])
+        logZ = hsmm_partition_centred(pots, dev[1])
         check(hsmm_forward_scan.launches == before + 1, "no-grad partition did not take K1")
-        assert_close("no-grad partition", logZ, hsmm_partition_fast(pots, dev[1], PLAIN))
+        assert_close("no-grad partition", logZ, hsmm_partition_centred(
+            pots, dev[1], lambda p, L: hsmm_partition_fast(p, L, PLAIN)))
 
     # the training path ends here: both fits and the no-grad partition
     launches = counts()
@@ -789,6 +895,7 @@ def run_train_slice(device, num_videos, max_len, shift):
         "unsup_epoch_losses": losses,
         "disc_epoch_losses": disc_losses,
         "mof_disc_predict": mof_disc,
+        "mof_unsup_predict": mof_unsup,
         "segment_with_marginals_sum_gap": max(gaps),
     }
 
@@ -834,14 +941,17 @@ def sm_args(**overrides):
     return args
 
 
-def mof(datasplit, predictions):
+def mof(datasplit, predictions, matched=False):
+    """MoF of `predictions`, with `matched` after the Hungarian matching
+    of predicted to true classes (an unsupervised fit's classes are its
+    own)."""
     from action_segmentation_torch.evaluation.accuracy import Accuracy
 
     acc = Accuracy(verbose=False, corpus=datasplit.corpus)
     for name in sorted(predictions):
         acc.add_gt_labels(datasplit[(datasplit.task, name)]["gt"])
         acc.add_predicted_labels(predictions[name])
-    acc.mof(optimal_assignment=False)
+    acc.mof(optimal_assignment=matched)
     return acc.mof_val()
 
 
@@ -1067,8 +1177,6 @@ def run_crosstask_slice(device, root):
 
     from action_segmentation_torch import main as port_main
     from action_segmentation_torch.api import Segmenter
-    from action_segmentation_torch.data import minigen
-    from action_segmentation_torch.data.crosstask import CrosstaskCorpus
     from action_segmentation_torch.models.semimarkov import SemiMarkovModel
     from action_segmentation_torch.ops.hsmm_cuda import (
         hsmm_band_grad,
@@ -1091,13 +1199,9 @@ def run_crosstask_slice(device, root):
     def counts(kernels):
         return [k.launches for k in kernels]
 
-    tasks = {task_id: ["step{}".format(i) for i in range(CT_STEPS)]
-             for task_id in CrosstaskCorpus.TASK_IDS_BY_SET["primary"]}
-    n_classes = len(tasks) * (2 * CT_STEPS + 1)
     t0 = time.perf_counter()
-    minigen.write_mini_crosstask(
-        root, np.random.RandomState(0), tasks=tasks, related_tasks={}, n_train=CT_TRAIN,
-        n_val=CT_VAL, dim_per_group=CT_DIM_PER_GROUP, **CT_RANGES)
+    tasks = write_ct_release(root)
+    n_classes = len(tasks) * (2 * CT_STEPS + 1)
     write_s = time.perf_counter() - t0
 
     # 1-2. the S6 flags' splits (one per task), a closed-form model each
@@ -1813,19 +1917,35 @@ def failed_factors(calls, where="host"):
     return failed
 
 
+def write_ct_release(root, n_train=CT_TRAIN, n_val=CT_VAL):
+    """Phase 4c's CrossTask release under `root`: every primary task with
+    CT_STEPS steps, `n_train` training and `n_val` val videos a task, no
+    related tasks. Returns {task: steps}."""
+    from action_segmentation_torch.data import minigen
+    from action_segmentation_torch.data.crosstask import CrosstaskCorpus
+
+    tasks = {task_id: ["step{}".format(i) for i in range(CT_STEPS)]
+             for task_id in CrosstaskCorpus.TASK_IDS_BY_SET["primary"]}
+    minigen.write_mini_crosstask(
+        root, np.random.RandomState(0), tasks=tasks, related_tasks={}, n_train=n_train,
+        n_val=n_val, dim_per_group=CT_DIM_PER_GROUP, **CT_RANGES)
+    return tasks
+
+
 def run_baselines_slice(root, smi, card=None):
     """Phase 4f: the seven baselines through main.main on the card (no
-    device; `card` stands in for it in a rehearsal on the CPU), on phase
-    4c's CrossTask release under `root`: (1) the Gaussian mixture with each
-    of the four covariance types under the S6 flags, against the same
-    command with device='cpu'; (2) the framewise tagger (linear and two
-    hidden layers) and the BiLSTM tagger, 2 epochs, pickled, then decoded
-    from the pickles, and their first training step against the CPU's;
-    (3) the host baselines under the JAX fixture's data flags, against
-    the CPU; (4) the Gaussian mixture on a D=64 Breakfast release. Every
-    edit distance the phase's test() calls computed is checked against
-    the numpy DP, accuracy_corpus is timed with each, and no kernel may
-    launch. Returns the e2e record."""
+    device; `card` stands in for it in a rehearsal on the CPU): (1) the
+    Gaussian mixture with each of the four covariance types under the S6
+    flags, against the same command with device='cpu'; (2) the framewise
+    tagger (linear and two hidden layers) and the BiLSTM tagger, 2 epochs,
+    pickled, then decoded from the pickles, and their first training step
+    against the CPU's, (1) and (2) on a release written as phase 4c's with
+    BASELINE_TRAIN and BASELINE_VAL videos a task; (3) the host baselines
+    under the JAX fixture's data flags, against the CPU, on phase 4c's
+    release under `root`; (4) the Gaussian mixture on a D=64 Breakfast
+    release. Every edit distance the phase's test() calls computed is
+    checked against the numpy DP, accuracy_corpus is timed with each, and
+    no kernel may launch. Returns the e2e record."""
     import platform
 
     import torch
@@ -1886,11 +2006,13 @@ def run_baselines_slice(root, smi, card=None):
         d = sum(float(s[key][1]) for by in stats.values() for s in by.values())
         return n / d
 
-    s6 = ["--training", "supervised", *S6_FLAGS, "--data_root", root,
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_baselines_")
+    per_task = os.path.join(out_dir, "crosstask")
+    write_ct_release(per_task, BASELINE_TRAIN, BASELINE_VAL)
+    s6 = ["--training", "supervised", *S6_FLAGS, "--data_root", per_task,
           "--pca_components_per_group", str(CT_DIM_PER_GROUP)]
     fixture = [*FIXTURE_FLAGS, "--data_root", root, "--pca_components_per_group",
                str(CT_DIM_PER_GROUP)]
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_baselines_")
     accuracy.editdistance.eval = recording_eval
     t_phase = time.perf_counter()
     try:
@@ -2184,29 +2306,74 @@ def host_split(regions):
             setattr(obj, name, orig)
 
 
-def profiled(fn):
+# profiled's marks: host-to-card copies of sizes no case makes, PROFILE_LEAD
+# of the first before fn and one of the second after it, with idle before
+# the first and after the last (PROFILE_PADS_S, a try each). Late in a long
+# process the trace has been seen to drop the card's records of a stretch at
+# a run's start (the u7 fit's model and corpus copies, with every later copy
+# kept), so a marked run whose trace lacks either mark runs again
+PROFILE_MARKS = (4099, 4101)
+PROFILE_LEAD = 4
+PROFILE_PADS_S = (0.5, 4.0, 16.0)
+
+
+def profiled(fn, marked=False):
     """fn() under torch.profiler (the host and the card), then a sync:
     returns (fn's result, the kernels' summed us, the bytes of each Memcpy
-    HtoD in time order) from its Chrome trace."""
+    HtoD in time order) from its Chrome trace. `marked` (a single
+    process's run, which may run fn again) brackets fn by PROFILE_MARKS on
+    the card and returns the copies between the last first mark and the
+    second, running fn anew, with a longer pad, while the trace lacks a
+    mark."""
+    import numpy as np
     import torch
 
+    on_card = torch.cuda.is_available()  # a CPU rehearsal traces the host alone
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():  # a CPU rehearsal traces the host alone
+    if on_card:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        out = fn()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    kernel_us = sum(float(e.get("dur", 0)) for e in events if e.get("cat") == "kernel")
-    htod = [int(e.get("args", {}).get("bytes", 0))
-            for e in sorted(events, key=lambda e: float(e["ts"]))
-            if "Memcpy HtoD" in str(e.get("name", ""))]
-    return out, kernel_us, htod
+    marked = marked and on_card
+    first, last = PROFILE_MARKS
+
+    def mark(nbytes):
+        torch.from_numpy(np.zeros(nbytes, np.int8)).to("cuda")
+        torch.cuda.synchronize()
+
+    for pad in PROFILE_PADS_S if marked else (0.0,):
+        with torch.profiler.profile(activities=activities) as prof:
+            time.sleep(pad)
+            for _ in range(PROFILE_LEAD if marked else 0):
+                mark(first)
+            out = fn()
+            if on_card:
+                torch.cuda.synchronize()
+            if marked:
+                mark(last)
+            time.sleep(pad)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        events.sort(key=lambda e: float(e["ts"]))
+        kernel_us = sum(float(e.get("dur", 0)) for e in events if e.get("cat") == "kernel")
+        htod = [int(e.get("args", {}).get("bytes", 0)) for e in events
+                if "Memcpy HtoD" in str(e.get("name", ""))]
+        if not marked:
+            return out, kernel_us, htod
+        if first in htod and last in htod:
+            start = len(htod) - htod[::-1].index(first)
+            return out, kernel_us, htod[start:len(htod) - 1 - htod[::-1].index(last)]
+        card = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        print("[profiled] pad {} s: the trace lacks a mark: {} of {} first marks, {} second; "
+              "{} copies to the card ({}...), {} cudaMemcpyAsync calls; the card's first "
+              "record {} s after the trace's start".format(
+                  pad, htod.count(first), PROFILE_LEAD, htod.count(last), len(htod), htod[:6],
+                  sum(e.get("name") == "cudaMemcpyAsync" for e in events),
+                  (float(card[0]["ts"]) - float(events[0]["ts"])) / 1e6 if card else None),
+              flush=True)
+    check(False, "{} traces of one run each lacked a mark of {} bytes".format(
+        len(PROFILE_PADS_S), PROFILE_MARKS))
 
 
 def cli_argv(root, *extra):
@@ -2241,7 +2408,7 @@ def run_host_cases(device, root, models, mixed, smi, budget_mb):
     kernels = cli_kernel_wrappers()
     out = {}
 
-    def case(name, work, regions):
+    def case(name, work, regions, marked=False):
         t0 = time.perf_counter()
         torch.cuda.synchronize()
         for k in kernels:
@@ -2249,7 +2416,7 @@ def run_host_cases(device, root, models, mixed, smi, budget_mb):
         with host_split(regions) as rec:
             result = work()
         launches = dict(zip(CLI_KERNELS, (k.launches for k in kernels)))
-        again, kernel_us, htod = profiled(work)
+        again, kernel_us, htod = profiled(work, marked)
         n, wall, frames = rec["batches"], rec["regions"], rec["frames"]
         parts = {k: rec[k] for k in HOST_PARTS}
         parts["rest"] = wall - sum(parts.values())
@@ -2312,7 +2479,7 @@ def run_host_cases(device, root, models, mixed, smi, budget_mb):
     # 4. the U7 compound fit on the --mix_tasks train split
     u7args = port_main.build_parser().parse_args(
         cli_argv(root, "--sm_component_model", "--epochs", "2", *budget))
-    case("u7 fit", lambda: fit_tasks(u7args, [mixed]), ("fit",))
+    case("u7 fit", lambda: fit_tasks(u7args, [mixed]), ("fit",), marked=True)
     return out
 
 
@@ -3344,6 +3511,34 @@ def video_pots(seg, features, device):
     return pots, lengths
 
 
+def marginals_against_float64(seg, features, marg, device, uncentred=True):
+    """segment_with_marginals' marginals `marg` of one video (T, C) beside
+    the PLAIN path's in float64 on the Segmenter's potentials as they are
+    and, with `uncentred`, the PLAIN path's in float32 on them uncentred
+    (each slow at 1,577 classes: the plain log scan's combine is a Python
+    loop over C): {"frames", "gap": the repaired max |sum_c marginal - 1|,
+    "err_vs_fp64", "fp64_gap", "uncentred_fp32_gap", "s" (seconds)}."""
+    import torch
+
+    from action_segmentation_torch.ops.hsmm_grad import PLAIN, hsmm_frame_marginals_fast
+
+    t0 = time.perf_counter()
+    pots, lb = video_pots(seg, features, device)
+    Tn = features.shape[0]
+    exact = hsmm_frame_marginals_fast(type(pots)(*(x.double() for x in pots)), lb, PLAIN)
+    exact = exact[0, :Tn]
+    got = torch.from_numpy(marg).to(device)
+    out = {"frames": Tn, "gap": float(np.abs(marg.sum(axis=1) - 1).max()),
+           "err_vs_fp64": max_err(got, exact),
+           "fp64_gap": float((exact.sum(-1) - 1).abs().max())}
+    if uncentred:
+        plain = hsmm_frame_marginals_fast(pots, lb, PLAIN)[0, :Tn]
+        out["uncentred_fp32_gap"] = float((plain.sum(-1) - 1).abs().max())
+    check(out["fp64_gap"] < 1e-6, "float64 marginals do not sum to 1: {}".format(out))
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 def run_wide_slice(device, root, smi):
     """Phase 4i: a DP wider than 128 classes. (a) The wide kernels (K4's
     among them) at C = 129, 342 and 1,024 and Km = 1, 19, 25 and 64 (ragged lengths
@@ -3375,7 +3570,9 @@ def run_wide_slice(device, root, smi):
     from action_segmentation_torch.ops import hsmm_cuda as hc
     from action_segmentation_torch.ops.hsmm_grad import (
         PLAIN,
+        centre_emissions,
         hsmm_frame_marginals_fast,
+        hsmm_partition_centred,
         hsmm_partition_fast,
     )
     from action_segmentation_torch.parallel.mesh import single_mesh
@@ -3513,21 +3710,25 @@ def run_wide_slice(device, root, smi):
         check(marg.shape == (f.shape[0], C_S6) and np.isfinite(marg).all(),
               "segment_with_marginals marginals of {}".format(keys[i]))
         pots, lb = video_pots(seg, f, device)
-        plain = hsmm_frame_marginals_fast(pots, lb, PLAIN)[0, :f.shape[0]]
+        plain = hsmm_frame_marginals_fast(centre_emissions(pots, lb)[0], lb, PLAIN)
         assert_close("segment_with_marginals {} vs PLAIN".format(keys[i][1]),
-                     torch.from_numpy(marg).to(device), plain, GRAD_RTOL, GRAD_ATOL)
-        marg_errs.append(max_err(torch.from_numpy(marg).to(device), plain))
+                     torch.from_numpy(marg).to(device), plain[0, :f.shape[0]], GRAD_RTOL,
+                     GRAD_ATOL)
+        marg_errs.append(max_err(torch.from_numpy(marg).to(device), plain[0, :f.shape[0]]))
         gaps.append(float(np.abs(marg.sum(axis=1) - 1).max()))
     check(not card or n_marg["hsmm_log_scan_wide"] == n_marg["hsmm_band_grad_wide"] == 3
           and n_marg["hsmm_viterbi_scan_wide"] == n_marg["hsmm_viterbi_traceback_wide"] == 3
           and all(n_marg[k] == 0 for k in NARROW_NAMES),
           "segment_with_marginals launches {}".format(n_marg))
     phase("wide", "(b) segment_with_marginals on the 3 shortest val videos ({} frames) in "
-          "{:.4f} s = {:.0f} frames/s: labels == segment_many's, marginals vs PLAIN on the "
-          "card max_abs_err {} (rtol {} / atol {}), max |sum_c marginal - 1| {} (reported, "
-          "not gated); launches {}".format(
+          "{:.4f} s = {:.0f} frames/s: labels == segment_many's, marginals vs PLAIN (both "
+          "centred) on the card max_abs_err {} (rtol {} / atol {}), max |sum_c marginal - 1| "
+          "{}; launches {}".format(
               marg_frames, marg_s, marg_frames / marg_s, marg_errs, GRAD_RTOL, GRAD_ATOL, gaps,
               {k: v for k, v in n_marg.items() if v}))
+    marg_fp64 = marginals_against_float64(seg, feats[order[0]], marg_out[0][1], device)
+    phase("wide", "(b) segment_with_marginals over {} classes on the shortest val video against "
+          "the PLAIN path in float64: {}".format(C_S6, marg_fp64))
 
     # (c) the backward at a 160-wide DP
     fit_train = SyntheticDatasplit(seed=0, **WIDE_FIT)
@@ -3562,8 +3763,9 @@ def run_wide_slice(device, root, smi):
     dev = fit_model._training_batch(batch)
     with torch.no_grad():
         pots, _, _ = fit_model.module.compute_potentials(dev[0], dev[1], dev[2], dev[5], dev[6])
-        logZ, n_fwd = counted(lambda: hsmm_partition_fast(pots, dev[1]))
-        assert_close("wide no-grad partition", logZ, hsmm_partition_fast(pots, dev[1], PLAIN))
+        logZ, n_fwd = counted(lambda: hsmm_partition_centred(pots, dev[1]))
+        assert_close("wide no-grad partition", logZ, hsmm_partition_centred(
+            pots, dev[1], lambda p, L: hsmm_partition_fast(p, L, PLAIN)))
     check(not card or n_fwd["hsmm_forward_scan_wide"] == 1 and all(n_fwd[k] == 0 for k in NARROW_NAMES),
           "the no-grad partition's launches {}".format(n_fwd))
     fit_frames = 2 * sum(int(fit_train._samples[n]["features"].shape[0])
@@ -3702,6 +3904,7 @@ def run_wide_slice(device, root, smi):
     phase_s = time.perf_counter() - t_phase
     phase("wide", "phase 4i: {:.3f} s ((a) {:.3f} s)".format(phase_s, a_s))
     e2e = {"wide_segment_many_frames_per_s": frames / seg_s,
+           "wide_marginals_vs_fp64": marg_fp64,
            "wide_segment_many_cpu_s": cpu_s, "wide_segment_many_ties": ties,
            "wide_tie_gap_max": max((g for g, _ in tie_gaps), default=0.0),
            "wide_routes": routes, "wide_max_active_clusters": active,
@@ -3780,6 +3983,7 @@ def run_past_1024_slice(device, root, smi):
     from action_segmentation_torch.ops.hsmm_grad import (
         PLAIN,
         _log_partition,
+        centre_emissions,
         hsmm_frame_marginals_fast,
     )
     from action_segmentation_torch.tools.scan_floor import (
@@ -3954,24 +4158,28 @@ def run_past_1024_slice(device, root, smi):
               "segment_many's for {}".format(keys[i]))
         check(marg.shape == (f.shape[0], C_ALL) and np.isfinite(marg).all(),
               "segment_with_marginals marginals of {}".format(keys[i]))
-        # on the Segmenter's own potentials: at D=300 scale the marginals'
-        # fp32 cancellation (ROADMAP §3) magnifies any other rounding of them
+        # on the Segmenter's own potentials, centred as it centres them
         pots, lb = video_pots(seg, f, device)
-        plain = hsmm_frame_marginals_fast(pots, lb, PLAIN)[0, :f.shape[0]]
+        plain = hsmm_frame_marginals_fast(centre_emissions(pots, lb)[0], lb, PLAIN)
         assert_close("segment_with_marginals {} vs PLAIN".format(keys[i][1]),
-                     torch.from_numpy(marg).to(device), plain, GRAD_RTOL, GRAD_ATOL)
-        marg_errs.append(max_err(torch.from_numpy(marg).to(device), plain))
+                     torch.from_numpy(marg).to(device), plain[0, :f.shape[0]], GRAD_RTOL,
+                     GRAD_ATOL)
+        marg_errs.append(max_err(torch.from_numpy(marg).to(device), plain[0, :f.shape[0]]))
         gaps.append(float(np.abs(marg.sum(axis=1) - 1).max()))
     check(not card or n_marg["hsmm_log_scan_wide"] == n_marg["hsmm_band_grad_wide"] == 3
           and n_marg["hsmm_viterbi_scan_wide"] == n_marg["hsmm_viterbi_traceback_wide"] == 3
           and all(n_marg[k] == 0 for k in NARROW_NAMES),
           "segment_with_marginals launches {}".format(n_marg))
     phase("past1024", "(b) segment_with_marginals on the 3 shortest val videos ({} frames) in "
-          "{:.4f} s = {:.0f} frames/s: labels == segment_many's, marginals vs PLAIN on the card "
-          "max_abs_err {} (rtol {} / atol {}), max |sum_c marginal - 1| {} (reported, not "
-          "gated); launches {}".format(marg_frames, marg_s, marg_frames / marg_s, marg_errs,
-                                       GRAD_RTOL, GRAD_ATOL, gaps,
-                                       {k: v for k, v in n_marg.items() if v}))
+          "{:.4f} s = {:.0f} frames/s: labels == segment_many's, marginals vs PLAIN (both "
+          "centred) on the card max_abs_err {} (rtol {} / atol {}), max |sum_c marginal - 1| "
+          "{}; launches {}".format(marg_frames, marg_s, marg_frames / marg_s, marg_errs,
+                                   GRAD_RTOL, GRAD_ATOL, gaps,
+                                   {k: v for k, v in n_marg.items() if v}))
+    marg_fp64 = marginals_against_float64(seg, feats[order[0]], marg_out[0][1], device,
+                                          uncentred=False)
+    phase("past1024", "(b) segment_with_marginals over {} classes on the shortest val video "
+          "against the PLAIN path in float64: {}".format(C_ALL, marg_fp64))
     launches = {k: n_seg[k] + n_marg[k] for k in path_names}
     for k in ("hsmm_viterbi_scan_wide", "hsmm_viterbi_traceback_wide", "hsmm_log_scan_wide",
               "hsmm_band_grad_wide"):
@@ -4135,6 +4343,7 @@ def run_past_1024_slice(device, root, smi):
     phase_s = time.perf_counter() - t_phase
     phase("past1024", "phase 4j: {:.3f} s ((a) {:.3f} s, (b) {:.3f} s)".format(phase_s, a_s, b_s))
     e2e = {"past_1024_segment_many_frames_per_s": frames / seg_s,
+           "past_1024_marginals_vs_fp64": marg_fp64,
            "past_1024_segment_many_s": seg_s, "past_1024_plain_chain_s": plain_s,
            "past_1024_ties": ties, "past_1024_cpu_ties": cpu_ties,
            "past_1024_tie_gap_max": max((g for g, _ in tie_gaps), default=0.0),
@@ -4817,7 +5026,7 @@ def main():
               ct_mean["stream_ms"], ct_mean["bound_ms"], ct_mean["floor_ms"],
               sorted({x[4] for x in ct_bg}), sorted({x[5] for x in ct_bg})))
     print(json.dumps({"e2e": e2e, "card": smi}), flush=True)
-    phase("done", "{:.1f} s".format(time.perf_counter() - t_start))
+    phase("done", "wall time {:.1f} s".format(time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

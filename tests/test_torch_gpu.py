@@ -353,6 +353,44 @@ def test_partition_fb_kernels_match_plain(cuda, B, T, C, K):
         torch.testing.assert_close(g, w, rtol=GRAD_RTOL, atol=GRAD_ATOL, msg=name)
 
 
+@pytest.mark.parametrize("B,T,C,K", FB_SHAPES + [(2, 128, 342, 20)])
+def test_centred_partition_on_the_card(cuda, B, T, C, K):
+    """The model's partition, the DP over centred emissions plus their
+    offset (``hsmm_partition_centred``): through the kernels (the log scan
+    and K4 once each, the wide ones above 128 classes) against the same
+    through the plain versions in float32, and against the plain path in
+    float64 on the potentials as they are, its frame marginals summing to
+    1 within 0.05."""
+    pots, lengths = random_pots(np.random.RandomState(B + T + K), B, T, C, K, cuda)
+    wide = C > hc.MAX_CLASSES
+    counted = ((hc.hsmm_log_scan_wide, hc.hsmm_band_grad_wide) if wide
+               else (hc.hsmm_log_scan, hc.hsmm_band_grad))
+
+    def grads(pots, kernels, centred=True):
+        xs = [x.detach().clone().requires_grad_(True) for x in pots]
+        p = th.HsmmPotentials(*xs)
+        if centred:
+            z = hg.hsmm_partition_centred(
+                p, lengths, lambda q, L: hg.hsmm_partition_fast(q, L, kernels))
+        else:
+            z = hg.hsmm_partition_fast(p, lengths, kernels)
+        z.sum().backward()
+        return [z.detach()] + [x.grad for x in xs]
+
+    before = [k.launches for k in counted]
+    got = grads(pots, hg.KERNELS)
+    assert [k.launches - b for k, b in zip(counted, before)] == [1, 1]
+    names = ("logZ", "trans", "init", "lens", "emit", "end_mask")
+    for name, g, w in zip(names, got, grads(pots, hg.PLAIN)):
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, w, rtol=GRAD_RTOL, atol=GRAD_ATOL, msg=name)
+    exact = grads(th.HsmmPotentials(*(x.double() for x in pots)), hg.PLAIN, centred=False)
+    torch.testing.assert_close(got[0].double(), exact[0], rtol=RTOL, atol=ATOL)
+    real = torch.arange(T, device=cuda)[None, :] < lengths[:, None]
+    assert float((got[4].sum(-1) - 1)[real].abs().max()) <= 0.05
+    assert float((exact[4].sum(-1) - 1)[real].abs().max()) < 1e-6
+
+
 def test_training_kernels_reject_what_they_do_not_take(cuda):
     pots, lengths = random_pots(np.random.RandomState(1), 2, 16, 5, 4, cuda)
     trans, init, dur, emit = hc._stack_fwd_rev(pots, lengths.long())
@@ -382,7 +420,7 @@ def test_wide_class_tables_raise_on_the_card(cuda):
     took, no longer raises on the card: decode, the training loss and the
     marginals run through the wide kernels (no narrow one), the labels
     equal to the plain spans chain's and the marginals to the plain
-    Function's."""
+    Function's, both over centred emissions."""
     from argparse import Namespace
 
     from action_segmentation_torch.api import Segmenter
@@ -416,7 +454,9 @@ def test_wide_class_tables_raise_on_the_card(cuda):
         pots, _, _ = model.module.compute_potentials(
             x, lengths, vc, torch.zeros((1, x.shape[1], C), device=cuda),
             torch.from_numpy(seg._end_rows([T])).to(cuda))
-    want = hg.hsmm_frame_marginals_fast(pots, lengths, hg.PLAIN)[0, :T]
+    # centred as the Segmenter centres them
+    want = hg.hsmm_frame_marginals_fast(hg.centre_emissions(pots, lengths)[0], lengths,
+                                        hg.PLAIN)[0, :T]
     torch.testing.assert_close(torch.from_numpy(marg).to(cuda), want, rtol=GRAD_RTOL,
                                atol=GRAD_ATOL)
     assert [a - b for a, b in zip(launches(WIDE_KERNELS), before)] == [2, 2, 0, 2]

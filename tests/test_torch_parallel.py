@@ -476,6 +476,32 @@ def test_make_mesh_raises():
             tmesh.make_mesh(2)
 
 
+def test_make_mesh_without_a_card_raises(monkeypatch):
+    """Under torchrun's environment with no device given, make_mesh asks
+    for cuda:LOCAL_RANK and raises without a card, as resolve_device does,
+    before it joins a group; a CPU rank passes device="cpu"."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for key, value in dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                           MASTER_ADDR="localhost", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmesh.make_mesh()
+    assert not dist.is_initialized()
+    try:
+        mesh = tmesh.make_mesh(1, device="cpu")
+        assert (mesh.world, mesh.rank, mesh.device) == (1, 0, torch.device("cpu"))
+        assert dist.get_backend() == "gloo"
+    finally:
+        dist.destroy_process_group()
+
+
 def test_pickled_model_loads_on_one_process(tmp_path):
     """A model fitted under a group pickles without it and decodes alone."""
     job = fit_job("predict", True)
