@@ -15,7 +15,9 @@
 //
 // The recurrence and the kernel are csrc/hsmm_scan_core.cuh's template
 // (shared with K6 in csrc/hsmm_viterbi.cu); this file instantiates it for
-// the max and log semirings.
+// the max and log semirings. The log instances fold their carry every 64
+// steps and write the chain's offsets beside the planes (the template's
+// header says how).
 //
 // What bounds it: not bytes or FLOPs (about 6 MB and 55 M operations at
 // the serving shape, a couple of microseconds at the card's peaks) but
@@ -32,7 +34,7 @@
 // log semiring's remaining chain is its expf issue and the ordered sum.
 //
 // ptxas (-Xptxas -v, sm_90a): the serving instances (one warp, row 24,
-// no tail) take 118 (max) and 156 (log) registers, no spills;
+// no tail) take 118 (max) and 166 (log) registers, no spills;
 // chip_smoke.py's build phase prints every instance's registers and
 // spills.
 
@@ -54,29 +56,32 @@ int hsmm_gamma_scan_max(const void* trans, const void* init, const void* dur,
                         int T, int C, int Km, int warps, int row, int tail,
                         int smem, int device, void* stream) {
   return launch_scan<Semiring::kMax>(trans, init, dur, emit, gamma, alphas,
-                                     nullptr, N, T, C, Km, warps, row, tail,
-                                     smem, device, stream);
+                                     nullptr, nullptr, N, T, C, Km, warps, row,
+                                     tail, smem, device, stream);
 }
 
-// The log-semiring instance with the same arguments (alphas may be null).
+// The log-semiring instance with the same arguments (alphas may be null)
+// and offsets (N, ceil(T / 64)) float32 out.
 int hsmm_gamma_scan_log(const void* trans, const void* init, const void* dur,
-                        const void* emit, void* gamma, void* alphas, int N,
-                        int T, int C, int Km, int warps, int row, int tail,
-                        int smem, int device, void* stream) {
+                        const void* emit, void* gamma, void* alphas,
+                        void* offsets, int N, int T, int C, int Km, int warps,
+                        int row, int tail, int smem, int device,
+                        void* stream) {
   return launch_scan<Semiring::kLog>(trans, init, dur, emit, gamma, alphas,
-                                     nullptr, N, T, C, Km, warps, row, tail,
-                                     smem, device, stream);
+                                     nullptr, offsets, N, T, C, Km, warps, row,
+                                     tail, smem, device, stream);
 }
 
 // The forward-only form (the partition's primal): the log-semiring scan
-// writing alphas (N, T, C) and no gamma plane.
+// writing alphas (N, T, C) and offsets, and no gamma plane.
 int hsmm_forward_scan_log(const void* trans, const void* init,
                           const void* dur, const void* emit, void* alphas,
-                          int N, int T, int C, int Km, int warps, int row,
-                          int tail, int smem, int device, void* stream) {
+                          void* offsets, int N, int T, int C, int Km,
+                          int warps, int row, int tail, int smem, int device,
+                          void* stream) {
   return launch_scan<Semiring::kLog>(trans, init, dur, emit, nullptr, alphas,
-                                     nullptr, N, T, C, Km, warps, row, tail,
-                                     smem, device, stream);
+                                     nullptr, offsets, N, T, C, Km, warps, row,
+                                     tail, smem, device, stream);
 }
 
 }  // extern "C"

@@ -13,6 +13,24 @@
 // index order (j, then c'), or (K6) the max with its FIRST argmax, j in
 // logical duration order (j = 0 is duration 1) and c' ascending.
 //
+// The log semiring folds the carry every kFold steps: after step t with
+// t % kFold == kFold - 1 (and t + 1 < T) it takes s, the max of the step's
+// alpha row over the live classes (0 where none is above BIG_NEG / 2), sets
+// every carry row, the tail's included, to (W + cum) - s and cum to 0, and
+// writes s to offsets[n, (t + 1) / kFold] (column 0 is 0). So cum spans at
+// most kFold frames and the planes stay near 0 however long the video: a
+// plane's row t is relative to the chain's offset, the sum of its offsets'
+// columns 0 .. t / kFold, which the caller adds in float64. The steps run
+// in blocks of kFold with the fold between two blocks (the max semirings
+// in one block of T). Within a block a class folds alone, with no
+// barrier: where its cum lies outside [-kFoldLimit, kFoldLimit] after the
+// step's alpha, its carry rows (the tail's included) take it in, W +=
+// cum, and cum = 0, before the push. Emissions of 1e4 nats a frame (the
+// compound model's at its first steps) thus reach no carry row through a
+// prefix sum of thousands of frames (the branch is taken at 41% of a
+// class's steps there, tools/fold_sweep.py; rarely on the model's centred
+// emissions at the D=300 scale). The max semirings do not fold.
+//
 // Every chain is serial in t, so a step's dependent chain (and, with one
 // warp per chain, the step's instruction count) bounds the scan, not bytes
 // or FLOPs. The layout keeps both short:
@@ -67,7 +85,8 @@
 //
 // ptxas (-Xptxas -v, sm_90a; chip_smoke.py's build phase prints every
 // instance): the serving instances (C=19, Km=19: one warp, row 24, no
-// tail) take 118 (max), 156 (log) and 133 (argmax) registers, no spills.
+// tail) take 118 (max), 166 (log) and 133 (argmax) registers, no
+// spills.
 //
 // BIG_NEG (-1e9) stands for an impossible score in the inputs; -inf only
 // pads the reductions (-inf - -inf is NaN, but no real term is -inf).
@@ -88,6 +107,8 @@ constexpr int kCodeRadix = 128;  // bp = bp_d * 128 + bp_c (JAX's LANES)
 constexpr int kCarry = 24;       // carry rows in registers
 constexpr int kWindow = 16;      // emission window slots (a power of 2)
 constexpr int kMaxClasses = 128;
+constexpr int kFold = 64;        // the log scans' fold period (a power of 2)
+constexpr float kFoldLimit = 4096.f;  // the log scans' per-class fold bound
 
 enum class Semiring { kMax, kLog, kArgmax };
 
@@ -228,7 +249,8 @@ __device__ __forceinline__ float reduce_split(const float* v, int n, X&& x,
 // ---- the scan ----------------------------------------------------------------
 
 // trans (N, C, C) [to, from]; init (N, C); dur (N, Km, C); emit (N, T, C);
-// gamma, alphas (N, T, C) float32 or null; bp (N, T, C) int32 (kArgmax).
+// gamma, alphas (N, T, C) float32 or null; bp (N, T, C) int32 (kArgmax);
+// offsets (N, ceil(T / kFold)) float32 (kLog).
 // One block of 32 * kWarps threads per chain; kRow: the register bucket
 // of the trans row (one warp; else 0); kTail: Km > kCarry, the carry's
 // older rows in the shared-memory tail, their duration scores staged in
@@ -239,7 +261,8 @@ __global__ void __launch_bounds__(32 * kWarps, 1)
     scan_kernel(const float* __restrict__ trans, const float* __restrict__ init,
                 const float* __restrict__ dur, const float* __restrict__ emit,
                 float* __restrict__ gamma, float* __restrict__ alphas,
-                int32_t* __restrict__ bp, int T, int C, int Km, int tail) {
+                int32_t* __restrict__ bp, float* __restrict__ offsets, int T,
+                int C, int Km, int tail) {
   constexpr int kThreads = 32 * kWarps;
   constexpr bool kRowRegs = kRow > 0;
   static_assert(kRowRegs == (kWarps == 1), "a register row is one warp's");
@@ -289,6 +312,10 @@ __global__ void __launch_bounds__(32 * kWarps, 1)
   }
   W[0] = init[(size_t)n * C + cc];
   const float* dur_g = dur + kCarry * C + cc;  // logical row kCarry + k
+  const int n_blocks = (T + kFold - 1) / kFold;  // offsets' columns (kLog)
+  if constexpr (kS == Semiring::kLog) {
+    if (c == 0) offsets[(size_t)n * n_blocks] = 0.f;
+  }
   if constexpr (kTail) {
     if (live) {
       for (int k = 0; k < n_tail; ++k) {
@@ -312,93 +339,138 @@ __global__ void __launch_bounds__(32 * kWarps, 1)
 
   float cum = 0.f;
   int head = 0;  // the tail's physical row of logical row kCarry
-  for (int t = 0; t < T; ++t) {
-    cp_async_wait<kWindow - 2>();  // step t's copy has landed
-    cum += my_window[(t & (kWindow - 1)) * kThreads];
-    const int ahead = t + kWindow - 1;
-    if (ahead < T) {
-      cp_async4(my_window + (ahead & (kWindow - 1)) * kThreads,
-                e_col + (size_t)ahead * C);
-    }
-    cp_async_commit();
+  // the steps in blocks of kFold for the log semiring (the max semirings:
+  // one block of T), the fold between two blocks
+  constexpr bool kLogS = kS == Semiring::kLog;
+  const int block = kLogS ? kFold : T;
+  for (int t0 = 0; t0 < T; t0 += block) {
+    const int t_end = min(t0 + block, T);
+    for (int t = t0; t < t_end; ++t) {
+      cp_async_wait<kWindow - 2>();  // step t's copy has landed
+      cum += my_window[(t & (kWindow - 1)) * kThreads];
+      const int ahead = t + kWindow - 1;
+      if (ahead < T) {
+        cp_async4(my_window + (ahead & (kWindow - 1)) * kThreads,
+                  e_col + (size_t)ahead * C);
+      }
+      cp_async_commit();
 
-    // the duration reduce
-    int bd = 0;
-    float a;
-    if constexpr (kTail) {
-      float v[kCarry];
+      // the duration reduce
+      int bd = 0;
+      float a;
+      if constexpr (kTail) {
+        float v[kCarry];
 #pragma unroll
-      for (int j = 0; j < kCarry; ++j) v[j] = W[j] + D[j];
-      auto ring = [&](int k) {
-        int p = head + k;
-        if (p >= n_tail) p -= n_tail;
-        return tail_s[p * C + cc];
-      };
-      if (tail == 1) {
-        a = reduce_split<kS, kCarry>(
-            v, n_tail, [&](int k) { return ring(k) + dur_s[k * C + cc]; },
-            bd);
+        for (int j = 0; j < kCarry; ++j) v[j] = W[j] + D[j];
+        auto ring = [&](int k) {
+          int p = head + k;
+          if (p >= n_tail) p -= n_tail;
+          return tail_s[p * C + cc];
+        };
+        if (tail == 1) {
+          a = reduce_split<kS, kCarry>(
+              v, n_tail, [&](int k) { return ring(k) + dur_s[k * C + cc]; },
+              bd);
+        } else {
+          a = reduce_split<kS, kCarry>(
+              v, n_tail, [&](int k) { return ring(k) + dur_g[k * C]; }, bd);
+        }
       } else {
-        a = reduce_split<kS, kCarry>(
-            v, n_tail, [&](int k) { return ring(k) + dur_g[k * C]; }, bd);
+        a = reduce_unrolled<kS, kCarry>([&](int j) { return W[j] + D[j]; }, bd);
       }
-    } else {
-      a = reduce_unrolled<kS, kCarry>([&](int j) { return W[j] + D[j]; }, bd);
-    }
-    const float alpha = a + cum;
-    const size_t at = plane + (size_t)t * C + c;
-    if (alphas != nullptr && live) alphas[at] = alpha;
+      const float alpha = a + cum;
+      const size_t at = plane + (size_t)t * C + c;
+      if (alphas != nullptr && live) alphas[at] = alpha;
 
-    // the transition combine
-    int bc = 0;
-    float g;
-    if constexpr (kRowRegs) {
-      // alpha through a double-buffered shared row: one store, a warp
-      // barrier, kRow / 4 broadcast 16-byte loads
-      float* a_buf = alpha_s + (t & 1) * 32;
-      a_buf[c] = alpha;
-      __syncwarp();
-      float av[kRow];
+      // the transition combine
+      int bc = 0;
+      float g;
+      if constexpr (kRowRegs) {
+        // alpha through a double-buffered shared row: one store, a warp
+        // barrier, kRow / 4 broadcast 16-byte loads
+        float* a_buf = alpha_s + (t & 1) * 32;
+        a_buf[c] = alpha;
+        __syncwarp();
+        float av[kRow];
 #pragma unroll
-      for (int q = 0; q < kRow / 4; ++q) {
-        const float4 f = reinterpret_cast<const float4*>(a_buf)[q];
-        av[4 * q] = f.x;
-        av[4 * q + 1] = f.y;
-        av[4 * q + 2] = f.z;
-        av[4 * q + 3] = f.w;
+        for (int q = 0; q < kRow / 4; ++q) {
+          const float4 f = reinterpret_cast<const float4*>(a_buf)[q];
+          av[4 * q] = f.x;
+          av[4 * q + 1] = f.y;
+          av[4 * q + 2] = f.z;
+          av[4 * q + 3] = f.w;
+        }
+        g = reduce_unrolled<kS, kRow>([&](int j) { return tr[j] + av[j]; }, bc);
+      } else {
+        float* a_buf = alpha_s + (t & 1) * C;
+        if (live) a_buf[c] = alpha;
+        __syncthreads();
+        g = reduce_runtime<kS>(
+            C, [&](int j) { return transT[j * C + cc] + a_buf[j]; }, bc);
       }
-      g = reduce_unrolled<kS, kRow>([&](int j) { return tr[j] + av[j]; }, bc);
-    } else {
-      float* a_buf = alpha_s + (t & 1) * C;
-      if (live) a_buf[c] = alpha;
-      __syncthreads();
-      g = reduce_runtime<kS>(
-          C, [&](int j) { return transT[j * C + cc] + a_buf[j]; }, bc);
-    }
-    if (live) {
-      if constexpr (kS == Semiring::kArgmax) {
-        bp[at] = bd * kCodeRadix + bc;
-      } else if (gamma != nullptr) {
-        gamma[at] = g;
+      if (live) {
+        if constexpr (kS == Semiring::kArgmax) {
+          bp[at] = bd * kCodeRadix + bc;
+        } else if (gamma != nullptr) {
+          gamma[at] = g;
+        }
       }
+
+      // this class's fold (see the top): after its alpha, before the push
+      if constexpr (kLogS) {
+        if (fabsf(cum) > kFoldLimit) {
+#pragma unroll
+          for (int j = 0; j < kCarry; ++j) W[j] += cum;
+          if constexpr (kTail) {
+            if (live) {
+              for (int k = 0; k < n_tail; ++k) tail_s[k * C + c] += cum;
+            }
+          }
+          cum = 0.f;
+        }
+      }
+
+      // the push: the row leaving the registers becomes the tail's newest
+      if constexpr (kTail) {
+        head = head == 0 ? n_tail - 1 : head - 1;
+        if (live) tail_s[head * C + c] = W[kCarry - 1];
+      }
+#pragma unroll
+      for (int j = kCarry - 1; j > 0; --j) W[j] = W[j - 1];
+      W[0] = g - cum;
     }
 
-    // the push: the row leaving the registers becomes the tail's newest
-    if constexpr (kTail) {
-      head = head == 0 ? n_tail - 1 : head - 1;
-      if (live) tail_s[head * C + c] = W[kCarry - 1];
-    }
+    // the fold between two blocks: s, the max over the live classes of the
+    // last step's alpha row in the exchange (one warp: lanes past C stored
+    // there too, and are skipped; the next store to this row comes after
+    // the next step's barrier), cum and s into every carry row, the tail's
+    // ring included, and s to the offsets
+    if constexpr (kLogS) {
+      if (t_end == T) break;
+      const float* a_last = alpha_s + ((t_end - 1) & 1) * (kRowRegs ? 32 : C);
+      float s = kNegInf;
+      for (int j = 0; j < C; ++j) s = fmaxf(s, a_last[j]);
+      s = s > 0.5f * kBigNeg ? s : 0.f;  // no live alpha: cum alone
 #pragma unroll
-    for (int j = kCarry - 1; j > 0; --j) W[j] = W[j - 1];
-    W[0] = g - cum;
+      for (int j = 0; j < kCarry; ++j) W[j] = (W[j] + cum) - s;
+      if constexpr (kTail) {
+        if (live) {
+          for (int k = 0; k < n_tail; ++k) {
+            tail_s[k * C + c] = (tail_s[k * C + c] + cum) - s;
+          }
+        }
+      }
+      cum = 0.f;
+      if (c == 0) offsets[(size_t)n * n_blocks + t_end / kFold] = s;
+    }
   }
 }
 
 template <Semiring kS, int kWarps, int kRow, bool kTail>
 int launch_instance(const void* trans, const void* init, const void* dur,
                     const void* emit, void* gamma, void* alphas, void* bp,
-                    int N, int T, int C, int Km, int tail, size_t smem,
-                    cudaStream_t stream) {
+                    void* offsets, int N, int T, int C, int Km, int tail,
+                    size_t smem, cudaStream_t stream) {
   auto kernel = scan_kernel<kS, kWarps, kRow, kTail>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -407,33 +479,34 @@ int launch_instance(const void* trans, const void* init, const void* dur,
   }
   kernel<<<N, 32 * kWarps, smem, stream>>>(
       (const float*)trans, (const float*)init, (const float*)dur,
-      (const float*)emit, (float*)gamma, (float*)alphas, (int32_t*)bp, T, C,
-      Km, tail);
+      (const float*)emit, (float*)gamma, (float*)alphas, (int32_t*)bp,
+      (float*)offsets, T, C, Km, tail);
   return (int)cudaGetLastError();
 }
 
 // One launch of the instance (warps, row, tail: 0 none, 1 or 2 as the
 // kernel's) with `smem` bytes of dynamic shared memory, as
 // ops/hsmm_cuda.py `scan_instance` picks and sizes them for (C, Km);
-// returns the CUDA error code (0 on success).
+// the log semiring needs `offsets`. Returns the CUDA error code (0 on
+// success).
 template <Semiring kS>
 int launch_scan(const void* trans, const void* init, const void* dur,
-                const void* emit, void* gamma, void* alphas, void* bp, int N,
-                int T, int C, int Km, int warps, int row, int tail, int smem,
-                int device, void* stream_ptr) {
+                const void* emit, void* gamma, void* alphas, void* bp,
+                void* offsets, int N, int T, int C, int Km, int warps, int row,
+                int tail, int smem, int device, void* stream_ptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (C < 1 || C > kMaxClasses || Km < 1 || 32 * warps < C ||
       (row > 0 && row < C) || (tail != 0) != (Km > kCarry) || tail < 0 ||
-      tail > 2 || smem < 0)
+      tail > 2 || smem < 0 || (kS == Semiring::kLog && offsets == nullptr))
     return (int)cudaErrorInvalidValue;
   if (N == 0 || T == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream_ptr;
 #define HSMM_SCAN_CASE(W, R, K)                                        \
   if (warps == W && row == R && (tail != 0) == K)                      \
     return launch_instance<kS, W, R, K>(trans, init, dur, emit, gamma, \
-                                        alphas, bp, N, T, C, Km, tail, \
-                                        (size_t)smem, s);
+                                        alphas, bp, offsets, N, T, C, Km, \
+                                        tail, (size_t)smem, s);
   HSMM_SCAN_CASE(1, 24, false)
   HSMM_SCAN_CASE(1, 32, false)
   HSMM_SCAN_CASE(1, 24, true)

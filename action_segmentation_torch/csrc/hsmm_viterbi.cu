@@ -624,8 +624,8 @@ int hsmm_viterbi_scan(const void* trans, const void* init, const void* dur,
                       int C, int Km, int warps, int row, int tail, int smem,
                       int device, void* stream) {
   return hsmm_scan::launch_scan<hsmm_scan::Semiring::kArgmax>(
-      trans, init, dur, emit, nullptr, alphas, bp, N, T, C, Km, warps, row,
-      tail, smem, device, stream);
+      trans, init, dur, emit, nullptr, alphas, bp, nullptr, N, T, C, Km, warps,
+      row, tail, smem, device, stream);
 }
 
 // bp (N, T, C) int32 from hsmm_viterbi_scan; lengths (N,) int64, each in

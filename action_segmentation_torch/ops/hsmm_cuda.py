@@ -24,7 +24,11 @@ from four sources, for a DP of at most 128 classes:
 
 The three scans (both gamma scans and the backpointer scan) are
 instances of one template, csrc/hsmm_scan_core.cuh, compiled for buckets
-of C and Km; ``scan_instance`` picks the instance a shape launches.
+of C and Km; ``scan_instance`` picks the instance a shape launches. The
+two log scans fold their carry every SCAN_FOLD steps (``_scan_plain``):
+their planes are relative to each chain's running offset, which they
+return beside them (``offsets``), so that no float32 value of the scan
+grows with the video's length.
 
 A DP wider than 128 classes, of any width, takes the wide kernels, which
 the same wrappers launch by C: the three instances of
@@ -101,6 +105,25 @@ MAX_CLASSES = 128
 # picks one and the launch passes it on. SCAN_WINDOW is the emission
 # window's slot count.
 SCAN_WINDOW = 16
+# the log scans' fold period up to 128 classes (csrc/hsmm_scan_core.cuh's
+# kFold): every SCAN_FOLD steps the carry takes in the emission prefix sum
+# and gives up the step's best alpha, which the chain's offsets keep. At 64
+# the model's marginals meet tests/test_torch_long_video.py's float64 bounds
+# up to 12,000 frames; PERF.md §6 compares 32 and 128
+SCAN_FOLD = 64
+# and within a block each class on its own (kFoldLimit): where its prefix
+# sum leaves [-SCAN_FOLD_LIMIT, SCAN_FOLD_LIMIT], its carry rows take it in
+# after the step's alpha and before the push, so that emissions of 1e4
+# nats a frame (the compound model's) reach no carry row through a long
+# prefix sum (tools/fold_sweep.py; PERF.md §6)
+SCAN_FOLD_LIMIT = 4096.0
+# the band gradient's chunk up to 128 classes: the training backward's band
+# inputs are anchored per chunk of BAND_CHUNK rows from a video's first
+# frame, so that the float32 values K4 reads span one chunk's path score,
+# not the video's, and a video's anchors do not depend on its batch. 16
+# rows hold the compound model's first steps within 2.1e-4 of float64
+# (1,024: 0.058; tools/fold_sweep.py)
+BAND_CHUNK = 16
 SCAN_CARRY = 24
 ROW_BUCKETS = (24, 32)
 # an H100 block's limits: threads, and dynamic shared memory once opted in;
@@ -248,15 +271,31 @@ def _reduce(x, dim, semiring):
     return m + torch.log(s)
 
 
-def _gamma_scan_plain(trans, init, dur, emit, with_alphas=False, semiring="max"):
+def fold_blocks(T):
+    """The columns of a T-step log scan's offsets: ceil(T / SCAN_FOLD)."""
+    return -(-T // SCAN_FOLD)
+
+
+def _scan_plain(trans, init, dur, emit, semiring, fold=False):
     """Plain PyTorch version of the scan (any device, any float dtype).
 
     trans (N, C, C) [to, from]; init (N, C); dur (N, Km, C), row j scoring
-    duration j+1; emit (N, T, C). Returns (gamma (N, T, C), alphas or
-    None): alphas[:, t] is the semiring mass (max: the best score) of
-    frames [0, t] whose last span ends at t, gamma[:, t, c] =
-    reduce_c' trans[c, c'] + alpha[:, t, c']. The same fp32 operations in
-    the same order as the kernel.
+    duration j+1; emit (N, T, C). Returns (gamma (N, T, C), alphas (N, T,
+    C), offsets (N, ``fold_blocks(T)``)): alphas[:, t] is the semiring
+    mass (max: the best score) of frames [0, t] whose last span ends at t,
+    gamma[:, t, c] = reduce_c' trans[c, c'] + alpha[:, t, c']. The same
+    operations in the same order as the kernel.
+
+    With `fold` (the log scans up to 128 classes), after each step t with
+    t % SCAN_FOLD == SCAN_FOLD - 1 and t + 1 < T the carry takes in the
+    emission prefix sum and gives up s, the step's max alpha (0 where no
+    class has one above BIG_NEG / 2): W = (W + cum) - s, cum = 0, and
+    offsets[:, (t + 1) // SCAN_FOLD] = s. Row t of the planes is then
+    relative to the chain's offset, the sum of offsets[:, :t // SCAN_FOLD
+    + 1] (``chain_offsets``); without `fold` the offsets are 0. Within a
+    block, after step t's alpha and before its push, each class whose |cum|
+    exceeds SCAN_FOLD_LIMIT takes it into its own carry rows: W += cum,
+    cum = 0.
     """
     N, T, C = emit.shape
     Km = dur.shape[1]
@@ -264,28 +303,55 @@ def _gamma_scan_plain(trans, init, dur, emit, with_alphas=False, semiring="max")
     W = torch.full((N, Km, C), BIG_NEG, dtype=emit.dtype, device=emit.device)
     W[:, 0] = init
     cum = torch.zeros((N, C), dtype=emit.dtype, device=emit.device)
+    offsets = emit.new_zeros((N, fold_blocks(T)))
     gammas, alphas = [], []
     for t in range(T):
         cum = cum + emit[:, t]
         alpha = _reduce(W + dur, 1, semiring) + cum
         gamma = _reduce(trans + alpha[:, None, :], 2, semiring)
+        if fold:
+            big = cum.abs() > SCAN_FOLD_LIMIT
+            W = torch.where(big[:, None, :], W + cum[:, None, :], W)
+            cum = torch.where(big, torch.zeros_like(cum), cum)
         W = torch.cat([(gamma - cum)[:, None], W[:, :-1]], dim=1)
         gammas.append(gamma)
         alphas.append(alpha)
-    gamma = torch.stack(gammas, dim=1) if T else emit.new_empty((N, 0, C))
-    if not with_alphas:
-        return gamma, None
-    return gamma, torch.stack(alphas, dim=1) if T else emit.new_empty((N, 0, C))
+        if fold and t % SCAN_FOLD == SCAN_FOLD - 1 and t + 1 < T:
+            s = alpha.amax(dim=1)
+            s = torch.where(s > BIG_NEG / 2, s, torch.zeros_like(s))
+            W = (W + cum[:, None]) - s[:, None, None]
+            cum = torch.zeros_like(cum)
+            offsets[:, (t + 1) // SCAN_FOLD] = s
+    if not T:
+        return emit.new_empty((N, 0, C)), emit.new_empty((N, 0, C)), offsets
+    return torch.stack(gammas, dim=1), torch.stack(alphas, dim=1), offsets
+
+
+def _gamma_scan_plain(trans, init, dur, emit, with_alphas=False, semiring="max"):
+    """The scan without a fold (``_scan_plain``): (gamma, alphas or None).
+    The max gamma scan's plain version; in the log semiring the wide
+    scans' (``hsmm_log_scan_wide``)."""
+    gamma, alphas, _ = _scan_plain(trans, init, dur, emit, semiring)
+    return gamma, alphas if with_alphas else None
 
 
 def _log_scan_plain(trans, init, dur, emit):
-    """Plain version of ``hsmm_log_scan``: (gamma, alphas)."""
-    return _gamma_scan_plain(trans, init, dur, emit, True, "log")
+    """Plain version of ``hsmm_log_scan``: (gamma, alphas, offsets), folded
+    up to 128 classes."""
+    return _scan_plain(trans, init, dur, emit, "log", emit.shape[-1] <= MAX_CLASSES)
 
 
 def _forward_scan_plain(trans, init, dur, emit):
-    """Plain version of ``hsmm_forward_scan``: alphas."""
-    return _gamma_scan_plain(trans, init, dur, emit, True, "log")[1]
+    """Plain version of ``hsmm_forward_scan``: (alphas, offsets)."""
+    return _log_scan_plain(trans, init, dur, emit)[1:]
+
+
+def chain_offsets(offsets, t):
+    """Each chain's offset at step t, in float64: the sum of a log scan's
+    `offsets` (N, blocks) over the blocks up to t's. t: (N,) or (N, M)
+    int64 steps in [0, T); returns the same shape."""
+    total = torch.cumsum(offsets, dim=1, dtype=torch.float64)
+    return torch.gather(total, 1, (t // SCAN_FOLD).reshape(t.shape[0], -1)).reshape(t.shape)
 
 
 def _launch_scan(name, symbol, trans, init, dur, emit, outputs, lib="hsmm_scan"):
@@ -331,41 +397,46 @@ hsmm_gamma_scan.launches = 0
 
 def hsmm_log_scan(trans, init, dur, emit):
     """Log-semiring scan with the alphas plane (the training forward):
-    (gamma (N, T, C), alphas (N, T, C)).
+    (gamma (N, T, C), alphas (N, T, C), offsets (N, ``fold_blocks(T)``)),
+    the planes relative to each chain's offsets (``_scan_plain``).
 
     Same inputs and checks as ``hsmm_gamma_scan``; above 128 classes it
-    launches the wide kernel (``hsmm_log_scan_wide``); on CPU tensors it
-    runs ``_log_scan_plain``."""
+    launches the wide kernel (``hsmm_log_scan_wide``, no fold: zero
+    offsets); on CPU tensors it runs ``_log_scan_plain``."""
     if _device_type(emit) == "cpu":
         return _log_scan_plain(trans, init, dur, emit)
+    N, T, _ = emit.shape
     if emit.shape[-1] > MAX_CLASSES:
-        return hsmm_log_scan_wide(trans, init, dur, emit)
+        return (*hsmm_log_scan_wide(trans, init, dur, emit), emit.new_zeros((N, fold_blocks(T))))
     gamma, alphas = torch.empty_like(emit), torch.empty_like(emit)
+    offsets = emit.new_empty((N, fold_blocks(T)))
     _launch_scan("hsmm_log_scan", "hsmm_gamma_scan_log", trans, init, dur, emit,
-                 [gamma, alphas])
+                 [gamma, alphas, offsets])
     hsmm_log_scan.launches += 1
-    return gamma, alphas
+    return gamma, alphas, offsets
 
 
 hsmm_log_scan.launches = 0
 
 
 def hsmm_forward_scan(trans, init, dur, emit):
-    """Forward-only log scan (the partition's primal): alphas (N, T, C).
+    """Forward-only log scan (the partition's primal): (alphas (N, T, C),
+    offsets (N, ``fold_blocks(T)``)).
 
     The kernel of ``hsmm_log_scan`` with the gamma store skipped; above
     128 classes the wide kernel (``hsmm_forward_scan_wide``, which gives
-    the chains of an expanded trans one table). trans may be an expanded
-    view. On CPU tensors it runs ``_forward_scan_plain``."""
+    the chains of an expanded trans one table; zero offsets). trans may be
+    an expanded view. On CPU tensors it runs ``_forward_scan_plain``."""
     if _device_type(emit) == "cpu":
         return _forward_scan_plain(trans, init, dur, emit)
+    N, T, _ = emit.shape
     if emit.shape[-1] > MAX_CLASSES:
-        return hsmm_forward_scan_wide(trans, init, dur, emit)
-    alphas = torch.empty_like(emit)
+        return hsmm_forward_scan_wide(trans, init, dur, emit), emit.new_zeros((N, fold_blocks(T)))
+    alphas, offsets = torch.empty_like(emit), emit.new_empty((N, fold_blocks(T)))
     _launch_scan("hsmm_forward_scan", "hsmm_forward_scan_log", trans.contiguous(), init, dur,
-                 emit, [alphas])
+                 emit, [alphas, offsets])
     hsmm_forward_scan.launches += 1
-    return alphas
+    return alphas, offsets
 
 
 hsmm_forward_scan.launches = 0
@@ -637,12 +708,12 @@ def _launch_wide_scan(name, symbol, trans, init, dur, emit, outputs, ints=(), in
 
 
 def hsmm_log_scan_wide(trans, init, dur, emit):
-    """``hsmm_log_scan`` for a DP of C > 128 classes: (gamma, alphas).
-    On CUDA tensors it launches csrc/hsmm_scan_wide.cu's log
+    """``hsmm_log_scan`` for a DP of C > 128 classes: (gamma, alphas), no
+    fold. On CUDA tensors it launches csrc/hsmm_scan_wide.cu's log
     instance on the route ``wide_scan_instance`` picks; on CPU tensors it
-    runs ``_log_scan_plain``."""
+    runs ``_gamma_scan_plain`` in the log semiring."""
     if _device_type(emit) == "cpu":
-        return _log_scan_plain(trans, init, dur, emit)
+        return _gamma_scan_plain(trans, init, dur, emit, True, "log")
     gamma, alphas = torch.empty_like(emit), torch.empty_like(emit)
     hsmm_log_scan_wide.launches += _launch_wide_scan(
         "hsmm_log_scan_wide", "hsmm_wide_log_scan", trans, init, dur, emit, [gamma, alphas])
@@ -653,12 +724,12 @@ hsmm_log_scan_wide.launches = 0
 
 
 def hsmm_forward_scan_wide(trans, init, dur, emit):
-    """``hsmm_forward_scan`` for a DP of C > 128 classes: alphas. On
-    CUDA tensors it launches csrc/hsmm_scan_wide.cu's forward
+    """``hsmm_forward_scan`` for a DP of C > 128 classes: alphas, no fold.
+    On CUDA tensors it launches csrc/hsmm_scan_wide.cu's forward
     instance on the route ``wide_scan_instance`` picks; on CPU tensors it
-    runs ``_forward_scan_plain``."""
+    runs ``_gamma_scan_plain`` in the log semiring."""
     if _device_type(emit) == "cpu":
-        return _forward_scan_plain(trans, init, dur, emit)
+        return _gamma_scan_plain(trans, init, dur, emit, True, "log")[1]
     alphas = torch.empty_like(emit)
     hsmm_forward_scan_wide.launches += _launch_wide_scan(
         "hsmm_forward_scan_wide", "hsmm_wide_forward_scan", trans, init, dur, emit, [alphas])
@@ -1147,12 +1218,117 @@ def _band_inputs(pots: HsmmPotentials, lengths, gamma):
     return G1.contiguous(), G2p.contiguous(), band.contiguous()
 
 
-def _grad_band_inputs(pots: HsmmPotentials, lengths, gamma, logZ):
-    """(G1m, G2p, band) for the band gradient from the stacked log-semiring
-    gamma planes: ``_band_inputs`` with -logZ folded into G1, so that
-    G1m[s] + band[j] + G2p[s+j+1] is a log span posterior."""
-    G1, G2p, band = _band_inputs(pots, lengths, gamma)
-    return (G1 - logZ[:, None, None]).contiguous(), G2p, band
+class GradBand(NamedTuple):
+    """The band gradient's inputs and what the backward needs to read its
+    outputs (``_grad_band_inputs``)."""
+
+    G1m: torch.Tensor  # (B * chunks, rows, C)
+    G2p: torch.Tensor  # (B * chunks, rows + Km + 1, C)
+    band: torch.Tensor  # (B * chunks, Km, C)
+    chunks: int  # a video's chunks
+    chunk: int  # the rows a chunk owns (its G1m's past them are a halo)
+    x_shift: torch.Tensor  # (B, T) float64: Of(s - 1) - Fref(s's chunk); None: no fold
+    y_shift: torch.Tensor  # (B, T, C) float64: cum[s] - cum[s's chunk start]; None: no fold
+
+
+def _grad_band_inputs(pots: HsmmPotentials, lengths, gamma, offsets, lse):
+    """The band gradient's inputs (``GradBand``) from the stacked
+    log-semiring scan (gamma and offsets of its 2B chains) and the forward
+    chains' finals' LSE (B,), so that G1m[s] + band[j] + G2p[s+j+1] is a
+    log span posterior.
+
+    Where no block of the chains folded (above 128 classes, the wide
+    route, whose scans do not fold; or T <= SCAN_FOLD) one chunk:
+    ``_band_inputs`` with -lse (= -logZ) folded into G1, in float32, as
+    before the fold. Else the pieces come back to float64 with their
+    chains' offsets: G1 = F - cum and G2 = cum + S2 - logZ, F with the forward
+    chain's offset Of, S2 with the reversed chain's Or, logZ = lse + Of(L
+    - 1), the emission prefix sums cum taken in float64. A video's rows
+    split into chunks of BAND_CHUNK rows from its first frame, each a
+    video of the launch of its own rows and a halo of Km rows past them
+    (their G1m BIG_NEG: the chunks after it own those starts). A chunk
+    starting at t0 is anchored by A = cum[t0] - Fref (per class; Fref =
+    Of(t0), per video; A = 0 for the first chunk): G1m = G1 + A, G2p = G2
+    - A, each rounded once, so that the float32 values K4 reads are path
+    scores over a chunk, not over the video; their sum is the same
+    posterior. Masked rows are BIG_NEG as in ``_band_inputs``."""
+    B, T, C = pots.emit.shape
+    if C > MAX_CLASSES or T <= SCAN_FOLD:
+        G1, G2p, band = _band_inputs(pots, lengths, gamma)
+        return GradBand((G1 - lse[:, None, None]).contiguous(), G2p, band, 1, T, None, None)
+    dtype, Km = pots.emit.dtype, pots.lens.shape[1] - 1
+    N = BAND_CHUNK  # rows a chunk owns
+    n = max(1, -(-T // N))
+    L = lengths[:, None]
+    # every chain's offset at each step, and each row s's forward offset
+    # Of(s - 1) (F[0] = init has none)
+    steps = torch.cumsum(offsets, dim=1, dtype=torch.float64)
+    steps = steps.repeat_interleave(SCAN_FOLD, dim=1)[:, :T]
+    of = torch.nn.functional.pad(steps[:B, : T - 1], (1, 0))
+    logZ = lse.double() + steps[:B].gather(1, L - 1)[:, 0]
+    cum = torch.nn.functional.pad(torch.cumsum(pots.emit, dim=1, dtype=torch.float64),
+                                  (0, 0, 1, 0))  # (B, T + 1, C) exclusive prefix sums
+    F = torch.cat([pots.init[:, None], gamma[:B, : T - 1]], dim=1)
+    G1 = (F.double() + of[..., None]) - cum[:, :T]
+    # S2[e]: the reversed chain has consumed L - e frames at its step
+    # L - e - 1; row e == L carries end_mask (no offset)
+    e_idx = torch.arange(T + 1, device=pots.emit.device)[None, :]
+    idx = (L - e_idx - 1).clamp(0, T - 1)
+    S2 = (torch.gather(gamma[B:], 1, idx[..., None].expand(B, T + 1, C)).double()
+          + steps[B:].gather(1, idx)[..., None])
+    S2 = torch.where((e_idx == L)[..., None], pots.end_mask[:, None, :].double(), S2)
+    G2 = (cum + S2) - logZ[:, None, None]
+    live1 = e_idx[:, :T] < L
+    live2 = (e_idx >= 1) & (e_idx <= L)
+    band = pots.lens[:, 1:, :]
+
+    rows = N + Km
+    starts = torch.arange(0, n * N, N, device=pots.emit.device)  # the chunks' t0
+    fref = steps[:B, starts]  # (B, n)
+    cum0 = cum[:, starts]  # (B, n, C)
+    A = (cum0 - fref[..., None])[:, :, None, :]  # (B, n, 1, C)
+
+    def chunked(x, live, size, own):
+        """x's rows k * N .. k * N + size - 1 for each chunk k, anchored
+        (G1: + A; G2: - A) and rounded once; BIG_NEG where not live and,
+        for G1 (`own`), past the chunk's own rows."""
+        pad = (n - 1) * N + size - x.shape[1]
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad)).unfold(1, size, N).transpose(2, 3)
+        live = torch.nn.functional.pad(live, (0, pad)).unfold(1, size, N)
+        if own:
+            live = live & (torch.arange(size, device=live.device) < N)
+        x = (x + A if own else x - A).to(dtype)
+        return torch.where(live[..., None], x, BIG_NEG).reshape(B * n, size, C).contiguous()
+
+    chunk_of = torch.arange(T, device=pots.emit.device) // N  # each row's chunk
+    return GradBand(chunked(G1, live1, rows, True), chunked(G2, live2, rows + Km + 1, False),
+                    band[:, None].expand(B, n, Km, C).reshape(B * n, Km, C).contiguous(), n, N,
+                    of - fref[:, chunk_of], cum[:, :T] - cum0[:, chunk_of])
+
+
+def _band_grad_chunked(band_grad, gb: GradBand, T):
+    """(qg, sa, st (B, T, C), lg (B, Km, C)): ``band_grad`` launched once
+    over a ``GradBand``'s chunks, its outputs put back in place: qg and sa
+    from each chunk's own rows, st summed where a chunk's halo overlaps
+    the chunks after it (a halo of Km rows reaches ceil(Km / N) of them:
+    one slice-add each), lg summed over the chunks."""
+    qg, sa, st, lg = band_grad(gb.G1m, gb.G2p, gb.band)
+    n, N = gb.chunks, gb.chunk
+    if gb.x_shift is None:
+        return qg, sa, st, lg
+    B = qg.shape[0] // n
+    C = qg.shape[-1]
+    rows = st.shape[1]
+    own = lambda x: x.view(B, n, rows, C)[:, :, :N].reshape(B, n * N, C)[:, :T]  # noqa: E731
+    st = st.view(B, n, rows, C)
+    reach = -(-rows // N)  # the chunks a chunk's rows touch, its own included
+    total = torch.nn.functional.pad(st[:, :, :N].reshape(B, n * N, C),
+                                    (0, 0, 0, (reach - 1) * N))
+    for h in range(1, reach):
+        part = st[:, :, h * N: (h + 1) * N]  # chunk k's rows (k + h) * N ..
+        part = torch.nn.functional.pad(part, (0, 0, 0, N - part.shape[2]))
+        total[:, h * N: (h + n) * N] += part.reshape(B, n * N, C)
+    return own(qg), own(sa), total[:, :T].contiguous(), lg.view(B, n, -1, C).sum(dim=1)
 
 
 # ---- the labels chain ------------------------------------------------------

@@ -37,6 +37,16 @@ The model's calls (its loss, ``Segmenter.segment_with_marginals``, the
 entry point) go through ``centre_emissions``: the DP over emissions
 shifted frame by frame to a best class of 0, which float32 needs at the
 D=300 emission scale, with the shift's offset added back to logZ.
+
+Up to 128 classes the log scans fold their carry every SCAN_FOLD steps
+and return each chain's offsets beside planes relative to them
+(``hsmm_cuda._scan_plain``): logZ is the finals' LSE plus the forward
+chain's offset at the video's last frame, added in float64, and the
+backward forms its band inputs and exponents from float64 pieces
+anchored per chunk (``hsmm_cuda._grad_band_inputs``), so that no float32
+value grows with the video's length. Where no chain folds (above 128
+classes, where the scans keep zero offsets, or up to SCAN_FOLD frames)
+the backward keeps its float32 form.
 """
 
 from typing import Callable, NamedTuple
@@ -52,11 +62,13 @@ from action_segmentation_torch.ops.hsmm import (
     _finals,
 )
 from action_segmentation_torch.ops.hsmm_cuda import (
+    _band_grad_chunked,
     _band_grad_plain,
     _forward_scan_plain,
     _grad_band_inputs,
     _log_scan_plain,
     _stack_fwd_rev,
+    chain_offsets,
     hsmm_band_grad,
     hsmm_forward_scan,
     hsmm_log_scan,
@@ -66,8 +78,8 @@ from action_segmentation_torch.ops.hsmm_cuda import (
 class FbKernels(NamedTuple):
     """The three functions the partition's forward and backward call."""
 
-    log_scan: Callable  # (trans, init, dur, emit) -> (gamma, alphas)
-    forward_scan: Callable  # (trans, init, dur, emit) -> alphas
+    log_scan: Callable  # (trans, init, dur, emit) -> (gamma, alphas, offsets)
+    forward_scan: Callable  # (trans, init, dur, emit) -> (alphas, offsets)
     band_grad: Callable  # (G1m, G2p, dur) -> (qg, sa, st, lg)
 
 
@@ -75,46 +87,59 @@ KERNELS = FbKernels(hsmm_log_scan, hsmm_forward_scan, hsmm_band_grad)
 PLAIN = FbKernels(_log_scan_plain, _forward_scan_plain, _band_grad_plain)
 
 
-def _log_partition(alphas_f, lengths, end_mask):
-    return torch.logsumexp(_finals(alphas_f, lengths, end_mask), dim=-1)
+def _log_partition(alphas, offsets, lengths, end_mask):
+    """(lse (B,), logZ (B,) float64) of log-scan chains: the LSE of the
+    finals (relative to the chain's offset) and that plus the offset at
+    each length's last frame. The forward chains with end_mask give the
+    partition; the reversed chains of ``_stack_fwd_rev`` with init give
+    it too."""
+    lse = torch.logsumexp(_finals(alphas, lengths, end_mask), dim=-1)
+    return lse, lse.double() + chain_offsets(offsets, lengths - 1)
 
 
-def _cotangents(pots: HsmmPotentials, lengths, gamma, alphas_f, logZ, band_grad):
+def _cotangents(pots: HsmmPotentials, lengths, gamma, offsets, alphas_f, lse, band_grad):
     """The five cotangents of logZ (B,) from the forward's planes: one
     band sweep, then the closed form of JAX's ``_fb_bwd_packed``."""
     B, T, C = pots.emit.shape
-    G1m, G2p, band = _grad_band_inputs(pots, lengths, gamma, logZ)
-    qg, sa, st, lg = band_grad(G1m, G2p, band)
+    gb = _grad_band_inputs(pots, lengths, gamma, offsets, lse)
+    qg, sa, st, lg = _band_grad_chunked(band_grad, gb, T)
 
     # emit: frame marginals from the start/stop difference array
     emit_g = torch.cumsum(sa - st, dim=1)
     # lens: rows 1..K-1 are the per-duration posterior masses
     lens_g = torch.cat([lg.new_zeros((B, 1, C)), lg], dim=1)
 
-    # Q[s] = LSE_j body, the suffix mass from s without the transition
-    Q = qg - _emission_cumsum(pots.emit)[:, :T]
-
-    # trans: pair marginals over the interior boundaries s = 1..L-1.
-    # trans stays INSIDE the exponential: the full exponent is a log pair
-    # posterior (<= ~0, always representable under BIG_NEG masks), while
-    # pulling exp(trans) out overflows where a masked transition
-    # separates a dominant class from the class it cannot reach.
+    # trans: pair marginals over the interior boundaries s = 1..L-1, from
+    # the exponent X[s-1, c'] + trans[c, c'] + Y[s, c] - Z: the forward
+    # mass before s, and Q[s] = LSE_j body, the suffix mass from s without
+    # the transition. trans stays INSIDE the exponential: the full
+    # exponent is a log pair posterior (<= ~0, always representable under
+    # BIG_NEG masks), while pulling exp(trans) out overflows where a masked
+    # transition separates a dominant class from the class it cannot
+    # reach. Where the chains fold X and Y are anchored by the chunk's
+    # Fref and cum[t0] as K4's inputs are (Z = 0), each formed in float64
+    # and rounded before the (B, T, C, C) exponent; else X = alphas, Y = Q
+    # and Z = logZ in float32.
     t_idx = torch.arange(T, device=pots.emit.device)[None, :]
     interior = (t_idx >= 1) & (t_idx < lengths[:, None])
     af_sh = torch.cat([alphas_f.new_zeros((B, 1, C)), alphas_f[:, : T - 1]], dim=1)
-    expo = (
-        af_sh[:, :, None, :]
-        + pots.trans[:, None, :, :]
-        + Q[:, :, :, None]
-        - logZ[:, None, None, None]
-    )
+    if gb.x_shift is None:
+        X, Y, Z = af_sh, qg - _emission_cumsum(pots.emit)[:, :T], lse
+    else:
+        X = (af_sh.double() + gb.x_shift[..., None]).to(af_sh.dtype)
+        Y = (qg.double() - gb.y_shift).to(qg.dtype)
+        Z = None
+    expo = X[:, :, None, :] + pots.trans[:, None, :, :] + Y[:, :, :, None]
+    if Z is not None:
+        expo = expo - Z[:, None, None, None]
     pair = torch.exp(
         torch.where(interior[:, :, None, None], expo, torch.full_like(expo, BIG_NEG))
     )
     trans_g = pair.sum(dim=1)
 
-    init_g = torch.exp(pots.init + Q[:, 0] - logZ[:, None])
-    end_g = torch.exp(_finals(alphas_f, lengths, pots.end_mask) - logZ[:, None])
+    init_x = pots.init + Y[:, 0]
+    init_g = torch.exp(init_x if Z is None else init_x - Z[:, None])
+    end_g = torch.exp(_finals(alphas_f, lengths, pots.end_mask) - lse[:, None])
     return trans_g, init_g, lens_g, emit_g, end_g
 
 
@@ -128,22 +153,23 @@ class HsmmPartitionFB(torch.autograd.Function):
     def forward(ctx, trans, init, lens, emit, end_mask, lengths, kernels):
         pots = HsmmPotentials(trans, init, lens, emit, end_mask)
         lengths = _clamped(lengths, emit.device)
-        gamma, alphas = kernels.log_scan(*_stack_fwd_rev(pots, lengths))
-        alphas_f = alphas[: emit.shape[0]]  # the backward reads the forward half
-        logZ = _log_partition(alphas_f, lengths, end_mask)
-        ctx.save_for_backward(trans, init, lens, emit, end_mask, lengths, gamma,
-                              alphas_f, logZ)
+        gamma, alphas, offsets = kernels.log_scan(*_stack_fwd_rev(pots, lengths))
+        B = emit.shape[0]
+        alphas_f = alphas[:B]  # the backward reads the forward half
+        lse, logZ = _log_partition(alphas_f, offsets[:B], lengths, end_mask)
+        ctx.save_for_backward(trans, init, lens, emit, end_mask, lengths, gamma, offsets,
+                              alphas_f, lse)
         ctx.band_grad = kernels.band_grad
-        return logZ
+        return logZ.to(emit.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        trans, init, lens, emit, end_mask, lengths, gamma, alphas_f, logZ = (
+        trans, init, lens, emit, end_mask, lengths, gamma, offsets, alphas_f, lse = (
             ctx.saved_tensors
         )
         pots = HsmmPotentials(trans, init, lens, emit, end_mask)
         trans_g, init_g, lens_g, emit_g, end_g = _cotangents(
-            pots, lengths, gamma, alphas_f, logZ, ctx.band_grad
+            pots, lengths, gamma, offsets, alphas_f, lse, ctx.band_grad
         )
         gb = g[:, None, None]
         return (
@@ -156,11 +182,11 @@ def _partition_primal(pots: HsmmPotentials, lengths, forward_scan):
     """logZ through the forward-only scan over the forward model (trans
     as given: an expanded table goes to a wide scan once)."""
     lengths = _clamped(lengths, pots.emit.device)
-    alphas = forward_scan(
+    alphas, offsets = forward_scan(
         pots.trans, pots.init.contiguous(),
         _durations(pots.lens).contiguous(), pots.emit.contiguous(),
     )
-    return _log_partition(alphas, lengths, pots.end_mask)
+    return _log_partition(alphas, offsets, lengths, pots.end_mask)[1].to(pots.emit.dtype)
 
 
 def hsmm_partition_fb(trans, init, lens, emit, end_mask, lengths, kernels=KERNELS):

@@ -28,12 +28,19 @@ For example, K4 against the source before its wide kernel:
 
 Both versions build with the port's nvcc flags. For each shape and scan
 (the max gamma scan, the log scan with alphas, the forward-only log scan,
-the backpointer scan) it checks that the two versions' outputs are equal,
+the backpointer scan) it checks that the two versions' outputs are equal
+(the log scans of a source that folds their carry, whose header names
+``kFold``, write offsets too: each version's log scans are then held
+equal to the plain scan with or without the fold, ``hc._scan_plain``),
 then times them with CUDA events in the order old, new, new, old, each
 window about `--window_ms` long, and prints ms and us per step. The
-shapes are chip_smoke.py's kernel cases, two warps a chain (C=33) and
-the shared-memory tail's (Km past the carry's 24 register rows). It also times the max gamma scan and the
-backpointer scan at one common chain count (18 and 36 chains).
+shapes are chip_smoke.py's kernel cases, a CrossTask fit batch (B=5,
+T=1,056, C=20), two warps a chain (C=33, 48) and
+the shared-memory tail's (Km past the carry's 24 register rows), and three
+of them on centred emissions, as the model's partition takes them. It also
+times the max gamma scan and the backpointer scan at one common chain count
+(18 and 36 chains), and prints each log instance's time loop read from
+both versions' SASS (instructions, branches and chain cycles a step).
 
 The traceback is timed the same way, but from a CUDA graph of the
 launches replayed (no host time between them), on the codes the current
@@ -166,7 +173,7 @@ from action_segmentation_torch.ops.distributions import (
     transition_log_probs,
 )
 from action_segmentation_torch.ops.hsmm import HsmmPotentials, _durations, _finals
-from action_segmentation_torch.ops.hsmm_grad import _log_partition
+from action_segmentation_torch.ops.hsmm_grad import _log_partition, centre_emissions
 from action_segmentation_torch.tools.scan_floor import (
     built_sass,
     duration_loop,
@@ -175,10 +182,12 @@ from action_segmentation_torch.tools.scan_floor import (
     band_grad_tail,
     band_grad_wide_floor,
     band_grad_wide_issue_ms,
+    chain_cycles,
     earlier_l2_launch,
     library_sass,
     max_sm_clock_mhz,
     parse_function,
+    time_loop,
     traceback_wide_floor,
     traceback_wide_floor_ms,
     wide_duration_loop,
@@ -192,11 +201,19 @@ D = 300  # feature width of the serving shape
 # (name, B, T, C, K, lengths): K the longest span, Km = K - 1 rows
 SHAPES = [
     ("serving", 18, 1024, 19, 20, None),
+    ("crosstask fit batch", 5, 1056, 20, 20, [1056, 1001, 900, 808, 612]),
     ("ragged", 18, 1056, 19, 20, "ragged"),
     ("C=128", 4, 1024, 128, 20, None),
     ("K=1", 18, 1024, 19, 1, None),
     ("T=12000", 2, 12000, 19, 20, [12000, 7001]),
     ("C=33", 8, 1024, 33, 20, None),
+    ("C=48", 8, 1024, 48, 20, None),
+    # the model's path: the same draws centred frame by frame, as the loss and
+    # segment_with_marginals give the log scans (their per-class fold then
+    # all but idle)
+    ("serving, centred", 18, 1024, 19, 20, None),
+    ("C=48, centred", 8, 1024, 48, 20, None),
+    ("tail Km=25, centred", 18, 1024, 19, 26, None),
     # the shared-memory tail: one row past the carry's 24 registers, and more
     ("tail Km=25", 18, 1024, 19, 26, None),
     ("tail Km=64", 18, 1024, 19, 65, None),
@@ -293,13 +310,21 @@ WIDE_SCANS = [("viterbi", "hsmm_wide_viterbi_scan", "ab"),
               ("forward", "hsmm_wide_forward_scan", "a")]
 N_GRAPH = 50  # step 0's launches in one graph
 RTOL, ATOL = 1e-5, 1e-4
-# (scan, symbol, library, outputs: "g" gamma, "a" alphas, "b" codes, "-" none)
+# (scan, symbol, library, outputs: "g" gamma, "a" alphas, "b" codes, "-" none;
+# a source whose log scans fold also writes "o" offsets after them)
 SCANS = [
     ("max", "hsmm_gamma_scan_max", "hsmm_scan", "g-"),
     ("log", "hsmm_gamma_scan_log", "hsmm_scan", "ga"),
     ("forward", "hsmm_forward_scan_log", "hsmm_scan", "a"),
     ("viterbi", "hsmm_viterbi_scan", "hsmm_viterbi", "ab"),
 ]
+
+
+def folds(csrc):
+    """True where the scan template in `csrc` folds the log scans' carry
+    (and so takes their offsets output)."""
+    header = csrc / "hsmm_scan_core.cuh"
+    return header.exists() and "kFold" in header.read_text()
 
 
 class SmClock:
@@ -345,6 +370,35 @@ def clock_summary(mhz):
     if not mhz:
         return {"n": 0}
     return {"n": len(mhz), "min": min(mhz), "median": statistics.median(mhz), "max": max(mhz)}
+
+
+# the log scans' instances whose step loops ``step_loop_readings`` reads:
+# (warps, trans row registers, tail)
+LOG_INSTANCES = ((1, 24, False), (1, 32, False), (2, 0, False), (4, 0, False), (1, 24, True),
+                 (2, 0, True))
+
+
+def step_loop_readings(old_sass, new_sass):
+    """For each log-scan instance, each version's time loop from its SASS
+    (``scan_floor.time_loop``: the innermost loop holding the emission
+    window's DEPBAR, a runtime loop inside it counted once): instructions
+    (no NOP), branches and the dependent chain's cycles a step."""
+    out = []
+    for warps, row, tail in LOG_INSTANCES:
+        prefix = "_ZN9hsmm_scan11scan_kernelILNS_8SemiringE1ELi{}ELi{}ELb{}E".format(
+            warps, row, int(tail))
+        r = {"instance": "log, {} warps, row {}, tail {}".format(warps, row, tail)}
+        for version, sass in (("old", old_sass), ("new", new_sass)):
+            body = time_loop(parse_function(sass, prefix))
+            r[version + "_instructions"] = sum(1 for ins in body if ins[2] != "NOP")
+            r[version + "_branches"] = sum(1 for ins in body if ins[2] == "BRA")
+            r[version + "_chain_cycles"] = chain_cycles(body)[0]
+        print("step loop {}: old {} instructions ({} branches, chain {} cycles), new {} ({}, "
+              "{})".format(r["instance"], r["old_instructions"], r["old_branches"],
+                           r["old_chain_cycles"], r["new_instructions"], r["new_branches"],
+                           r["new_chain_cycles"]), flush=True)
+        out.append(r)
+    return out
 
 
 def build_old(csrc, out_dir, names=SOURCES):
@@ -440,10 +494,11 @@ def potentials(rng, B, T, C, K, lengths, device):
     return pots, L
 
 
-def scan_inputs(B, T, C, K, lengths, rng, device):
+def scan_inputs(B, T, C, K, lengths, rng, device, centred=False):
     """(the forward and reversed chains stacked, as decode and training
     give the gamma scans; the forward chains, as the spans chain gives
-    the backpointer scan)."""
+    the backpointer scan); `centred`: the emissions centred as the model's
+    partition takes them (``centre_emissions``)."""
     if lengths == "ragged":
         lengths = rng.randint(1, T - 31, size=B)
         lengths[[0, 5]] = 1
@@ -451,6 +506,8 @@ def scan_inputs(B, T, C, K, lengths, rng, device):
     elif lengths is None:
         lengths = np.full(B, T)
     pots, L = potentials(rng, B, T, C, K, np.asarray(lengths, np.int64), device)
+    if centred:
+        pots = centre_emissions(pots, L.clamp(min=1))[0]
     stacked = hc._stack_fwd_rev(pots, L.clamp(min=1))
     forward = (pots.trans.contiguous(), pots.init.contiguous(),
                _durations(pots.lens).contiguous(), pots.emit.contiguous())
@@ -498,9 +555,22 @@ def outputs_for(kind, emit):
             outs.append(torch.empty(emit.shape, dtype=torch.int32, device=emit.device))
         elif k == "-":
             outs.append(None)
+        elif k == "o":
+            outs.append(emit.new_empty((emit.shape[0], hc.fold_blocks(emit.shape[1]))))
         else:
             outs.append(torch.empty_like(emit))
     return outs
+
+
+def check_log_outputs(kinds, outs, inputs):
+    """Each version's log scan outputs equal to the plain scan's, folded
+    where the version writes offsets ("o" in its kind)."""
+    for v, kind in kinds.items():
+        want = dict(zip("gao", hc._scan_plain(*inputs, "log", fold="o" in kind)))
+        for k, out in zip(kind, outs[v]):
+            if out is not None and not torch.equal(out, want[k]):
+                raise RuntimeError("{}: {} differs from the plain scan at {} of {} entries".format(
+                    v, k, int((out != want[k]).sum()), out.numel()))
 
 
 def event_ms(run, n):
@@ -702,9 +772,10 @@ def band_grad_inputs(B, T, C, K, lengths, rng, device):
     if lengths is None:
         lengths = np.full(B, T)
     pots, L = potentials(rng, B, T, C, K, np.asarray(lengths, np.int64), device)
-    gamma, alphas = hc.hsmm_log_scan(*hc._stack_fwd_rev(pots, L))
-    logZ = _log_partition(alphas[:B], L, pots.end_mask)
-    return hc._grad_band_inputs(pots, L, gamma, logZ)
+    gamma, alphas, offsets = hc.hsmm_log_scan(*hc._stack_fwd_rev(pots, L))
+    lse, _ = _log_partition(alphas[:B], offsets[:B], L, pots.end_mask)
+    gb = hc._grad_band_inputs(pots, L, gamma, offsets, lse)
+    return gb.G1m, gb.G2p, gb.band
 
 
 def band_grad_launchers(fns, old_blocks, inputs, old_chunk=True):
@@ -1114,8 +1185,10 @@ def compare_band_max_rule(fn, inputs, window_ms, clock):
 
 def compare(fns, kind, inputs, window_ms, clock):
     """Equal outputs, then ms in the order old, new, new, old, and the SM
-    clock readings inside each version's timed windows. Scans by `kind`;
+    clock readings inside each version's timed windows. Scans by `kind`
+    (or {version: kind} where one version's log scan writes offsets);
     kind "t" is the traceback on (bp, lengths, c_last)."""
+    kinds = kind if isinstance(kind, dict) else None
     if kind == "t":
         outs = {v: [torch.empty(inputs[0].shape[:2], dtype=torch.long,
                                 device=inputs[0].device)] for v in fns}
@@ -1123,12 +1196,14 @@ def compare(fns, kind, inputs, window_ms, clock):
         runs = {v: traceback_launcher(fns[v], outs[v][0], inputs, traceback_tile_of(v, T, C))
                 for v in fns}
     else:
-        outs = {v: outputs_for(kind, inputs[3]) for v in fns}
+        outs = {v: outputs_for(kinds[v] if kinds else kind, inputs[3]) for v in fns}
         runs = {v: launcher(fns[v], outs[v], inputs) for v in fns}
     for run in runs.values():
         run()
     torch.cuda.synchronize()
-    for a, b in zip(outs["old"], outs["new"]):
+    if kinds:
+        check_log_outputs(kinds, outs, inputs)
+    for a, b in zip(outs["old"], outs["new"]) if not kinds else ():
         if a is not None and not torch.equal(a, b):
             raise RuntimeError("old and new outputs differ at {} of {} entries".format(
                 int((a != b).sum()), a.numel()))
@@ -1469,6 +1544,8 @@ def main():
     parser.add_argument("--step0", action="store_true",
                         help="--kernels wide, traceback or band_grad: the earlier kernels "
                              "alone (band_grad: and its split), nothing current built")
+    parser.add_argument("--shapes", nargs="+", default=None,
+                        help="--kernels scans: these SHAPES names only (default: all)")
     parser.add_argument("--out", type=Path, default=None)
     parser.add_argument("--window_ms", type=float, default=100.0)
     parser.add_argument("--seed", type=int, default=0)
@@ -1486,6 +1563,7 @@ def main():
     if args.kernels == "wide":
         sources = ("hsmm_scan_wide",)
     old_libs = build_old(args.old_csrc, args.old_csrc / "build", sources)
+    old_folds = folds(args.old_csrc)
     new_libs = {}
     if not args.step0:
         for name, log in _build.build(list(sources)).items():
@@ -1496,6 +1574,7 @@ def main():
     device = torch.device("cuda")
     rng = np.random.RandomState(args.seed)
     results, tb_results, bg_results, bm_results, rule_results = [], [], [], [], []
+    step_loops = []
     wide_results, wide_probes = [], []
     bg_opcodes = {}
 
@@ -1564,13 +1643,23 @@ def main():
         if args.kernels == "band_grad":
             bg_results, bg_opcodes = run_band_grad(old_libs, new_libs, args.old_csrc,
                                                    args.window_ms, clock, rng, device, args.step0)
-        for shape, B, T, C, K, lengths in (SHAPES if args.kernels in ("all", "scans") else ()):
-            stacked, forward = scan_inputs(B, T, C, K, lengths, rng, device)
+        if args.kernels in ("all", "scans"):
+            step_loops = step_loop_readings(
+                library_sass(args.old_csrc / "build" / "libhsmm_scan.so"),
+                built_sass("hsmm_scan"))
+        shapes = [s for s in SHAPES if args.shapes is None or s[0] in args.shapes]
+        for shape, B, T, C, K, lengths in (shapes if args.kernels in ("all", "scans") else ()):
+            stacked, forward = scan_inputs(B, T, C, K, lengths, rng, device,
+                                           centred=shape.endswith(", centred"))
             for scan, symbol, lib, kind in SCANS:
                 inputs = stacked if scan in ("max", "log") else forward
-                fns = {v: bind(libs[lib], symbol, 4 + len(kind), 8)
+                kinds = {"old": kind, "new": kind}
+                if scan in ("log", "forward"):
+                    kinds = {"old": kind + "o" * old_folds, "new": kind + "o"}
+                fns = {v: bind(libs[lib], symbol, 4 + len(kinds[v]), 8)
                        for v, libs in (("old", old_libs), ("new", new_libs))}
-                record(compare(fns, kind, inputs, args.window_ms, clock), shape, scan, inputs)
+                record(compare(fns, kinds if scan in ("log", "forward") else kind, inputs,
+                               args.window_ms, clock), shape, scan, inputs)
             if shape != "serving":
                 continue
             # the max gamma scan and the backpointer scan at one chain count
@@ -1590,7 +1679,8 @@ def main():
                 old_libs, new_libs, probe, args.window_ms, clock, rng, device, old_sass,
                 built_sass("hsmm_viterbi") if new_libs else None)
     out = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-           "results": results, "traceback": tb_results, "band_grad": bg_results,
+           "results": results, "step_loops": step_loops, "traceback": tb_results,
+           "band_grad": bg_results,
            "band_grad_loop_opcodes": bg_opcodes,
            "band_max": bm_results, "band_max_rule": rule_results, "wide": wide_results,
            "wide_barrier_probe": wide_probes}
@@ -1600,6 +1690,7 @@ def main():
     print(json.dumps({"scan_ab": [{k: r[k] for k in ("shape", "scan", "chains", "Km",
                                                      "old_us_per_step", "new_us_per_step")}
                                   for r in results],
+                      "step_loops": step_loops,
                       "traceback_ab": [{k: r[k] for k in (
                           "shape", "old_ms", "new_ms", "segments", "segments_longest_video",
                           "old_us_per_segment", "new_us_per_segment", "old_floor_ms",

@@ -53,7 +53,8 @@ exit and no result line:
                launching the log scan and the band gradient once per
                training batch; a no-grad partition through the forward-only
                scan; Segmenter.segment_with_marginals on 3 videos, whose
-               labels must equal segment_many's;
+               labels must equal segment's (segment_many of the one
+               video: the same potentials' bits);
   4c. crosstask slice — a CrossTask release on disk (the 18 primary
                tasks of 9 steps, D=300, written by data/minigen.py), the
                S6 flags through main.make_data_splits: per task a 342-class
@@ -143,7 +144,9 @@ exit and no result line:
                the constrained and U7 fits (bit-equal to the two ranks'
                shares summed in one process; against the whole batch,
                loss rtol 1e-5, each gradient tensor within 1e-4 of its
-               norm, which a rank's share alone is not), the constrained
+               norm, which a rank's share alone is not; the whole batch's
+               within 1e-3 of the same step with its partition in
+               float64), the constrained
                fit (3 tasks x 2 epochs) and the U7 fit (each epoch's loss
                within rtol 1e-4 or twice the single path's own spread over
                two fits whose batches sum their videos in another order;
@@ -282,9 +285,12 @@ RTOL, ATOL = 1e-5, 1e-4
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
 GRAD_NAMES = ("logZ", "trans", "init", "lens", "emit", "end_mask")
 # the model's partition over centred emissions against float64 at the D=300
-# serving case (B=1, T=1024, C=19): max |sum_c marginal - 1| and the
-# gradients' max abs errors (tests/test_torch_centred_partition.py)
-CENTRED_BOUNDS = dict(gap=0.05, emit=0.05, trans=0.5, lens=1.0)
+# serving case (B=1, T=1024, C=19) and at B=2, T=12,000 (serving_pots, seed
+# 0, lengths 12,000 and 7,001): max |sum_c marginal - 1| and the gradients'
+# max abs errors (tests/test_torch_centred_partition.py,
+# tests/test_torch_long_video.py)
+CENTRED_BOUNDS = {"serving case": dict(gap=0.01, emit=0.01, trans=0.5, lens=1.0),
+                  "T=12000": dict(gap=0.05, emit=0.05)}
 TPU_FILE = "action_segmentation_tpu/ops/hsmm_pallas.py"
 # the crosstask slice: every primary CrossTask task with 9 steps; with
 # --annotate_background_with_previous a task has 2 * 9 + 1 = 19 classes
@@ -370,6 +376,22 @@ def check_equal(name, got, want):
 
     check(torch.equal(got, want), "{}: {} of {} entries differ from the plain version".format(
         name, int((got != want).sum()), got.numel()))
+
+
+def grad_inputs(pots, lengths, gamma, alphas, offsets=None):
+    """K4's inputs (G1m, G2p, band) as the partition's backward forms them
+    (``_grad_band_inputs``: a launch over each video's chunks up to 128
+    classes) from a log scan's planes of the stacked chains and their
+    offsets (None: a wide scan's, which does not fold)."""
+    from action_segmentation_torch.ops.hsmm_cuda import _grad_band_inputs, fold_blocks
+    from action_segmentation_torch.ops.hsmm_grad import _log_partition
+
+    B = pots.emit.shape[0]
+    if offsets is None:
+        offsets = gamma.new_zeros((gamma.shape[0], fold_blocks(gamma.shape[1])))
+    lse, _ = _log_partition(alphas[:B], offsets[:B], lengths, pots.end_mask)
+    gb = _grad_band_inputs(pots, lengths, gamma, offsets, lse)
+    return gb.G1m, gb.G2p, gb.band
 
 
 def check_band_grad(name, got, want):
@@ -574,55 +596,62 @@ def kernel_case(name, pots, lengths):
     return errs, scan_in, band_in
 
 
-def train_case(name, pots, lengths):
-    """The three training kernels and the kernel forward/backward against
-    their plain versions on the same inputs; returns max abs errors and
-    the serving inputs of each kernel."""
+def log_scans_case(name, pots, lengths):
+    """K2 log and K1 against their plain versions on the same inputs,
+    gamma, alphas and offsets each equal (the fold included); returns
+    ((gamma, alphas, offsets) of K2 log, the stacked inputs, the forward
+    chains' inputs, {"log_scan", "forward_scan": max abs errors})."""
     import torch
 
     from action_segmentation_torch.ops.hsmm_cuda import (
-        _band_grad_plain,
         _forward_scan_plain,
-        _grad_band_inputs,
         _log_scan_plain,
         _stack_fwd_rev,
-        hsmm_band_grad,
         hsmm_forward_scan,
         hsmm_log_scan,
     )
-    from action_segmentation_torch.ops.hsmm_grad import PLAIN, _log_partition
+
+    B = pots.emit.shape[0]
+    scan_in = _stack_fwd_rev(pots, lengths.long().clamp(min=1))
+    got = hsmm_log_scan(*scan_in)
+    want = _log_scan_plain(*scan_in)
+    fwd_in = tuple(x[:B] for x in scan_in)  # the primal's forward chains
+    fwd_got = hsmm_forward_scan(*fwd_in)
+    fwd_want = _forward_scan_plain(*fwd_in)
+    torch.cuda.synchronize()
+    for what, k, p in zip(("gamma", "alphas", "offsets"), got, want):
+        check_equal("{} log scan {}".format(name, what), k, p)
+    for what, k, p in zip(("alphas", "offsets"), fwd_got, fwd_want):
+        check_equal("{} forward scan {}".format(name, what), k, p)
+    errs = {"log_scan": max(max_err(k, p) for k, p in zip(got, want)),
+            "forward_scan": max(max_err(k, p) for k, p in zip(fwd_got, fwd_want))}
+    return got, scan_in, fwd_in, errs
+
+
+def train_case(name, pots, lengths):
+    """The three training kernels and the kernel forward/backward against
+    their plain versions on the same inputs (the scans equal, K4 on each
+    video's chunks); returns max abs errors and the serving inputs of each
+    kernel."""
+    import torch
+
+    from action_segmentation_torch.ops.hsmm_cuda import _band_grad_plain, hsmm_band_grad
+    from action_segmentation_torch.ops.hsmm_grad import PLAIN
 
     B = pots.emit.shape[0]
     L = lengths.long().clamp(min=1)
-    scan_in = _stack_fwd_rev(pots, L)
-    gamma_k, alphas_k = hsmm_log_scan(*scan_in)
-    gamma_p, alphas_p = _log_scan_plain(*scan_in)
-    torch.cuda.synchronize()
-    assert_close(name + " log scan gamma", gamma_k, gamma_p)
-    assert_close(name + " log scan alphas", alphas_k, alphas_p)
-
-    fwd_in = tuple(x[:B] for x in scan_in)  # the primal's forward chains
-    af_k = hsmm_forward_scan(*fwd_in)
-    af_p = _forward_scan_plain(*fwd_in)
-    torch.cuda.synchronize()
-    assert_close(name + " forward scan alphas", af_k, af_p)
-
-    logZ = _log_partition(alphas_k[:B], L, pots.end_mask)
-    grad_in = _grad_band_inputs(pots, L, gamma_k, logZ)
+    (gamma_k, alphas_k, offsets_k), scan_in, fwd_in, errs = log_scans_case(name, pots, lengths)
+    grad_in = grad_inputs(pots, L, gamma_k, alphas_k, offsets_k)
     bg_k = hsmm_band_grad(*grad_in)
     bg_p = _band_grad_plain(*grad_in)
     torch.cuda.synchronize()
-    check_band_grad("{} band grad".format(name), bg_k, bg_p)
+    check_band_grad("{} band grad ({} chunks)".format(name, grad_in[0].shape[0] // B), bg_k,
+                    bg_p)
 
     fb_kernel = partition_grads(pots, lengths)
     fb_err = assert_grads_close(name + " partition_fb kernels vs plain", fb_kernel,
                                 partition_grads(pots, lengths, PLAIN))
-    errs = {
-        "log_scan": max(max_err(gamma_k, gamma_p), max_err(alphas_k, alphas_p)),
-        "forward_scan": max_err(af_k, af_p),
-        "band_grad": max(max_err(k, p) for k, p in zip(bg_k, bg_p)),
-        "partition_fb": fb_err,
-    }
+    errs.update(band_grad=max(max_err(k, p) for k, p in zip(bg_k, bg_p)), partition_fb=fb_err)
     phase(
         "kernels (train)",
         "{}: B={} T={} C={} K={} log scan max_abs_err={:g} forward scan {:g} band grad "
@@ -689,7 +718,15 @@ def run_train_kernels(device):
     train_case("end_mask", *serving_pots(rng, B, T, C, K, device, end_mask=end))
     train_case("C=128", *serving_pots(rng, 4, T, 128, K, device))
     train_case("K=1", *serving_pots(rng, B, T, C, 1, device))
-    long_case = serving_pots(rng, 2, 12000, C, K, device,
+    # the template's other instances under the fold: two warps, and the
+    # carry's tail past 24 rows (its durations staged in shared memory, and
+    # read from global memory where they do not fit beside the ring)
+    train_case("C=48", *serving_pots(rng, 8, T, 48, K, device))
+    train_case("tail Km=39", *serving_pots(rng, 8, T, C, 40, device))
+    train_case("C=48 tail Km=39", *serving_pots(rng, 8, T, 48, 40, device))
+    log_scans_case("global tail C=9 Km=3300", *serving_pots(rng, 2, 300, 9, 3301, device))
+    # the CPU tests' long videos (tests/test_torch_long_video.py): seed 0
+    long_case = serving_pots(np.random.RandomState(0), 2, 12000, C, K, device,
                              lengths=np.array([12000, 7001], np.int32))
     train_case("T=12000", *long_case)
     train_case("masked transitions", *masked_transition_pots(device))
@@ -727,8 +764,9 @@ def run_train_kernels(device):
     phase("kernels (train)", "serving: logZ and grads of the Function's plain path vs "
           "autograd of hsmm_partition, float64: max_abs_err={:g}".format(err))
 
-    # finding: float32 cancellation at the D=300 emission scale, and its
-    # repair on the model's path (the DP over centred emissions)
+    # float32 cancellation at the D=300 emission scale, and its repair on the
+    # model's path (the DP over centred emissions, the log scans' fold, the
+    # band inputs anchored per chunk)
     t0 = time.perf_counter()
     gaps = {
         "kernel_fp32": marginal_gap(hsmm_frame_marginals_fast(pots, lengths), lengths),
@@ -739,8 +777,11 @@ def run_train_kernels(device):
     }
     phase("kernels (train)", "serving batch (B={}): max |sum_c marginal - 1| over real frames: "
           "{}".format(B, ", ".join("{} {:g}".format(k, v) for k, v in gaps.items())))
-    check(10 * gaps["kernel_centred"] <= gaps["kernel_fp32"],
-          "centring did not cut the serving batch's marginal gap tenfold: {}".format(gaps))
+    batch_err = float64_errors("serving batch centred", centred_grads(pots, lengths), exact,
+                               lengths)
+    for name, bound in CENTRED_BOUNDS["serving case"].items():
+        check(batch_err[name] <= bound, "the serving batch's centred {} error {:g} against "
+              "float64 is above {:g}".format(name, batch_err[name], bound))
     centred = {}
     for name, (p, L) in (("serving case", d300_case(device)), ("T=12000", long_case)):
         want = partition_grads(type(p)(*(x.double() for x in p)), L, PLAIN)
@@ -753,15 +794,17 @@ def run_train_kernels(device):
                   name, p.emit.shape[0], p.emit.shape[1], p.emit.shape[2], K, D,
                   *("{" + ", ".join("{} {:g}".format(k, v) for k, v in centred[name][w].items())
                     + "}" for w in ("centred", "as is"))))
-    serving_err = centred["serving case"]["centred"]
-    for name, bound in CENTRED_BOUNDS.items():
-        check(serving_err[name] <= bound, "the serving case's centred {} error {:g} is above "
-              "{:g}".format(name, serving_err[name], bound))
-    gaps.update(serving_case=serving_err["gap"], serving_case_as_is=centred[
-        "serving case"]["as is"]["gap"], t12000_centred=centred["T=12000"]["centred"]["gap"],
-        t12000_as_is=centred["T=12000"]["as is"]["gap"])
-    phase("kernels (train)", "centred: the serving case within {}, T=12000 gradients finite; "
-          "{:.1f} s".format(CENTRED_BOUNDS, time.perf_counter() - t0))
+    for case, bounds in CENTRED_BOUNDS.items():
+        for name, bound in bounds.items():
+            err = centred[case]["centred"][name]
+            check(err <= bound, "the {}'s centred {} error {:g} is above {:g}".format(
+                case, name, err, bound))
+    gaps.update(serving_case=centred["serving case"]["centred"]["gap"],
+                serving_case_as_is=centred["serving case"]["as is"]["gap"],
+                t12000_centred=centred["T=12000"]["centred"]["gap"],
+                t12000_as_is=centred["T=12000"]["as is"]["gap"])
+    phase("kernels (train)", "centred against float64: the serving batch and case and T=12000 "
+          "within {}; {:.1f} s".format(CENTRED_BOUNDS, time.perf_counter() - t0))
     return serving, gaps
 
 
@@ -871,18 +914,21 @@ def run_train_slice(device, num_videos, max_len, shift):
     launches = counts()
     phase("train slice", "train path launches log/forward/band grad = {}".format(launches))
 
-    # labels and marginals from one serving entry point
+    # labels and marginals from one serving entry point, the labels held to
+    # segment's: a video alone, as segment_with_marginals takes it (in a
+    # batch of others its emissions' GEMM rounds otherwise, and the labels
+    # chain may pick another float32-tied class)
     seg = Segmenter(disc)
-    want = seg.segment_many(feats, batch_size=B)
+    want = [seg.segment(f) for f in feats]
     gaps = []
     for f, w in zip(feats, want):
         labels, marg = seg.segment_with_marginals(f)
-        check(np.array_equal(labels, w), "segment_with_marginals labels != segment_many's")
+        check(np.array_equal(labels, w), "segment_with_marginals labels != segment's")
         check(marg.shape == (f.shape[0], C) and np.isfinite(marg).all(),
               "segment_with_marginals marginals: shape {} or non-finite".format(marg.shape))
         gaps.append(float(np.abs(marg.sum(axis=1) - 1).max()))
     n_seg = [a - b for a, b in zip(counts(), launches)]
-    phase("train slice", "segment_with_marginals: 3 videos, labels == segment_many's, "
+    phase("train slice", "segment_with_marginals: 3 videos, labels == segment's, "
           "max |sum marginal - 1| {}, launches log/forward/band grad = {}".format(gaps, n_seg))
     check(n_seg == [3, 0, 3], "segment_with_marginals launches {} != one log scan and "
           "band grad per video".format(n_seg))
@@ -2311,10 +2357,11 @@ def host_split(regions):
 # the first and after the last (PROFILE_PADS_S, a try each). Late in a long
 # process the trace has been seen to drop the card's records of a stretch at
 # a run's start (the u7 fit's model and corpus copies, with every later copy
-# kept), so a marked run whose trace lacks either mark runs again
+# kept), so a marked run whose trace lacks either mark runs again (a pad of
+# 0.5 s lost the first marks of both U7 runs in every late run; 4 s kept them)
 PROFILE_MARKS = (4099, 4101)
 PROFILE_LEAD = 4
-PROFILE_PADS_S = (0.5, 4.0, 16.0)
+PROFILE_PADS_S = (4.0, 8.0, 16.0)
 
 
 def profiled(fn, marked=False):
@@ -2688,6 +2735,13 @@ DP_FITS = {"constrained fit": "constrained fit", "constrained fit, streaming": "
 # an H100); a rank's share alone (the sum over ranks skipped) is the planted
 # fault the limit must catch.
 DP_GRAD_NORM_RTOL = 1e-4
+# phase 4h(b): the whole batch's first step through the kernels against the
+# same step with its partition in float64 (``exact_partition``), each
+# gradient tensor by relative norm. On U7's emissions (about 1e4 nats a
+# frame) the float32 partition was 0.41 of its norm off before the log
+# scans' per-class fold and K4's chunks of 16 rows; the CPU's plain path on
+# an H100's U7 potentials gives 2.1e-4 after them (PERF.md §6)
+FP64_GRAD_NORM_BOUND = 1e-3
 
 
 def rel_norm(got, want):
@@ -2766,13 +2820,36 @@ def collective_timer():
         dist.all_reduce, dist.broadcast = saved
 
 
-def first_step(model, train, mesh):
+@contextlib.contextmanager
+def exact_partition():
+    """The model's partition (``semimarkov.hsmm_partition_fast``) through the
+    Function's PLAIN path in float64 on the model's float32 potentials,
+    rounded back: the exact gradient of the same loss, which phase 4h(b)
+    holds the kernels' first step against."""
+    from action_segmentation_torch.models import semimarkov
+    from action_segmentation_torch.ops.hsmm_grad import PLAIN
+
+    fast = semimarkov.hsmm_partition_fast
+
+    def partition(pots, lengths):
+        p64 = type(pots)(*(x.double() for x in pots))
+        return fast(p64, lengths, PLAIN).to(pots.emit.dtype)
+
+    semimarkov.hsmm_partition_fast = partition
+    try:
+        yield
+    finally:
+        semimarkov.hsmm_partition_fast = fast
+
+
+def first_step(model, train, mesh, exact=False):
     """The first unsupervised batch of `model`'s fit on `train` (the moment
     init, rank 0's parameters, epoch 0's first batch, this rank's rows of
     it): (the batch's loss, its gradients by name and its loss-term sums on
     the CPU, its videos), summed over the mesh's ranks. A Mesh without a
     group, as a process makes one up for rank r of a world, sums nothing:
-    that rank's share alone."""
+    that rank's share alone. `exact`: the partition in float64
+    (``exact_partition``) instead of the kernels."""
     import torch
 
     from action_segmentation_torch.parallel.mesh import (
@@ -2790,10 +2867,11 @@ def first_step(model, train, mesh):
     batches = (model._resident_batches(resident, seed, mesh) if resident is not None
                else model._streamed_batches(train, seed, use_narration, mesh))
     bix, size, _, batch, shard = next(iter(batches))
-    loss, aux = model._loss(*batch, use_labels=False,
-                            generator=model._noise_generator(0, bix, False), denom=size,
-                            shard=shard)
-    loss.backward()
+    with exact_partition() if exact else contextlib.nullcontext():
+        loss, aux = model._loss(*batch, use_labels=False,
+                                generator=model._noise_generator(0, bix, False), denom=size,
+                                shard=shard)
+        loss.backward()
     all_reduce_grads(mesh, list(model.module.parameters()))
     terms = reduce_terms(mesh, aux["terms"].clone())
     total, _ = terms_to_loss_aux(terms, torch.tensor(float(size), device=loss.device), False)
@@ -2967,7 +3045,9 @@ def run_dp_slice(device, root, models, resident_cases, mixed, smi):
     Two gloo ranks on the card (dp_rank) against phase 4g's single resident
     runs: the first steps bit-equal to the shares' sum, their losses (rtol
     1e-5) and gradients (each tensor within DP_GRAD_NORM_RTOL of its norm,
-    a rank's share alone not), the fits' epoch losses (rtol 1e-4, or twice
+    a rank's share alone not), the whole batch's within
+    FP64_GRAD_NORM_BOUND of the same step with its partition in float64
+    (``exact_partition``), the fits' epoch losses (rtol 1e-4, or twice
     the single path's spread under reordered_batches), the ranks' parameters
     bit-equal, predict's labels equal on every val frame, DP resident
     equal to DP streaming, the kernels once a batch on each rank. (c) A
@@ -3081,11 +3161,19 @@ def run_dp_slice(device, root, models, resident_cases, mixed, smi):
         from action_segmentation_torch.models.semimarkov import SemiMarkovModel
 
         first = {"constrained": (uargs, trains[0]), "u7": (u7args, mixed)}
-        step_errs, fault_errs = {}, {}
+        step_errs, fault_errs, fp64_errs = {}, {}, {}
         for name, (fargs, train) in first.items():
             want_loss, want_grads, _, size = first_step(
                 SemiMarkovModel.from_args(fargs, train, device=device), train,
                 single_mesh(device))
+            # the kernels' step against the same step with its partition exact
+            _, exact_grads, _, _ = first_step(
+                SemiMarkovModel.from_args(fargs, train, device=device), train,
+                single_mesh(device), exact=True)
+            fp64_errs[name] = max(rel_norm(want_grads[k], x) for k, x in exact_grads.items())
+            check(fp64_errs[name] <= FP64_GRAD_NORM_BOUND,
+                  "{} first step: a gradient {} of its norm off the float64 partition's "
+                  "(bound {})".format(name, fp64_errs[name], FP64_GRAD_NORM_BOUND))
             # the two ranks' shares in this process, summed here: what the
             # ranks' all_reduce must give, bit for bit
             shares = [first_step(SemiMarkovModel.from_args(fargs, train, device=device), train,
@@ -3185,13 +3273,16 @@ def run_dp_slice(device, root, models, resident_cases, mixed, smi):
               "the first steps bit-equal to the two shares' sum taken in this process, and "
               "against the whole batch: losses at rtol 1e-5, each gradient tensor within {} "
               "of its norm (largest {}; each rank's share alone, the planted fault, {}); the "
+              "whole batch's against its partition in float64, each gradient within {} of its "
+              "norm (largest {}); the "
               "constrained fit ({} tasks) and the U7 fit, 2 epochs, each epoch's loss within "
               "rtol 1e-4 or twice the single path's spread under reordered batches (gaps by "
               "epoch {}; spread {}; constrained {} vs {}; u7 {} vs {}), each rank's "
               "parameters bit-equal to rank 0's; DP resident == DP streaming bit for bit; "
               "predict of the 18 S6 models: labels equal on all {} val frames; launches on "
               "rank 0: {}".format(
-                  DP_GRAD_NORM_RTOL, step_errs, fault_errs, CT_FIT_TASKS, loss_gaps, spread,
+                  DP_GRAD_NORM_RTOL, step_errs, fault_errs, FP64_GRAD_NORM_BOUND, fp64_errs,
+                  CT_FIT_TASKS, loss_gaps, spread,
                   ranks[0]["constrained fit"][0][0][0],
                   resident_cases["constrained fit"][1][0][1], ranks[0]["u7 fit"][0][0][0],
                   resident_cases["u7 fit"][1][0][1],
@@ -3388,7 +3479,6 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
     from action_segmentation_torch.ops.hsmm_cuda import (
         _band_grad_plain,
         _forward_chains,
-        _grad_band_inputs,
         _launch_wide_scan,
         _log_scan_plain,
         _stack_fwd_rev,
@@ -3402,7 +3492,6 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
         hsmm_viterbi_traceback_wide,
         wide_scan_instance,
     )
-    from action_segmentation_torch.ops.hsmm_grad import _log_partition
 
     Bn, Tn, Cn = pots.emit.shape
     L = lengths.long().clamp(min=1)
@@ -3424,7 +3513,7 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
     gamma_k, alphas2_k = hsmm_log_scan_wide(*scan_in)
     cut = scan_in if log_cut is None else (*scan_in[:3], scan_in[3][:, :log_cut].contiguous())
     cut_k = hsmm_log_scan_wide(*cut) if log_cut is not None else (gamma_k, alphas2_k)
-    gamma_p, alphas2_p = _log_scan_plain(*cut)
+    gamma_p, alphas2_p, _ = _log_scan_plain(*cut)
     fwd_in = _forward_chains(cut, Bn)
     af_k = hsmm_forward_scan_wide(*fwd_in)
     torch.cuda.synchronize()
@@ -3451,8 +3540,7 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
                                     grid.ring, grid.launch_chains), got, w)
                 grids += 1
 
-    logZ = _log_partition(alphas2_k[:Bn], L, pots.end_mask)
-    grad_in = _grad_band_inputs(pots, L, gamma_k, logZ)
+    grad_in = grad_inputs(pots, L, gamma_k, alphas2_k)
     bg_k = hsmm_band_grad(*grad_in)
     bg_p = _band_grad_plain(*grad_in)
     torch.cuda.synchronize()
@@ -3982,7 +4070,6 @@ def run_past_1024_slice(device, root, smi):
     from action_segmentation_torch.ops.hsmm import _durations, _finals
     from action_segmentation_torch.ops.hsmm_grad import (
         PLAIN,
-        _log_partition,
         centre_emissions,
         hsmm_frame_marginals_fast,
     )
@@ -4234,8 +4321,7 @@ def run_past_1024_slice(device, root, smi):
     check_equal("C={} log scan alphas (first {} frames)".format(C_ALL, T_PLAIN_LOG), cut_k[1],
                 cut_p[1])
     fwd_cut = hc._forward_chains(cut, B)
-    logZ = _log_partition(alphas_k[:B], L, pots.end_mask)
-    grad_in = hc._grad_band_inputs(pots, L, gamma_k, logZ)
+    grad_in = grad_inputs(pots, L, gamma_k, alphas_k)
     bg_k, bg_p = hc.hsmm_band_grad(*grad_in), hc._band_grad_plain(*grad_in)
     torch.cuda.synchronize()
     check_band_grad("C={} band grad".format(C_ALL), bg_k, bg_p)
@@ -4774,6 +4860,23 @@ def main():
         return band_grad_issue_ms(bg_insts, Bn, Tn, Cn, grad_in[2].shape[1], clock_mhz, sms)
 
     bg_tile = hsmm_cuda.band_grad_tile(B, T, C, Km, sms)
+    # K4 at B=2, T=12,000 (phase 3b's long videos): the launch over each
+    # video's chunks that the backward makes, beside the same rows as one
+    # chunk (the launch before the chunks; timing only, unanchored)
+    long_pots, long_L = serving_pots(np.random.RandomState(0), 2, 12000, C, K, device,
+                                     lengths=np.array([12000, 7001], np.int32))
+    long_L = long_L.long()
+    long_scan = hsmm_log_scan(*hsmm_cuda._stack_fwd_rev(long_pots, long_L))
+    long_in = grad_inputs(long_pots, long_L, *long_scan)
+    one_in = hsmm_cuda._band_inputs(long_pots, long_L, long_scan[0])
+    long_k4 = {"chunks": long_in[0].shape[0] // 2, "rows": long_in[0].shape[1],
+               "ms": graph_ms(lambda: hsmm_band_grad(*long_in), N_TIMED),
+               "one_chunk_ms": graph_ms(lambda: hsmm_band_grad(*one_in), N_TIMED),
+               "floor_ms": bg_floor(long_in), "one_chunk_floor_ms": bg_floor(one_in),
+               "bound_ms": band_grad_bound(long_in, sms, clock_mhz)[0]}
+    phase("times", "K4 at B=2 T=12000: {chunks} chunks a video of {rows} rows, {ms:.5f} ms "
+          "from a graph (floor {floor_ms:.5f}, bound {bound_ms:.5f}); the same rows as one "
+          "chunk {one_chunk_ms:.5f} ms (floor {one_chunk_floor_ms:.5f})".format(**long_k4))
     # the band max's issue floor from its duration loops in the SASS (which
     # raises if one of them holds a barrier)
     bm_loops = band_max_floor(built_sass("band_max"))
@@ -4917,6 +5020,9 @@ def main():
             "crosstask_fit_batch_stream_ms": ct_mean["stream_ms"],
             "crosstask_fit_batch_floor_ms": ct_mean["floor_ms"],
             "crosstask_fit_batch_bound_ms": ct_mean["bound_ms"],
+            "t12000_chunks": long_k4["chunks"], "t12000_ms": long_k4["ms"],
+            "t12000_floor_ms": long_k4["floor_ms"], "t12000_bound_ms": long_k4["bound_ms"],
+            "t12000_one_chunk_ms": long_k4["one_chunk_ms"],
         },
         {
             "name": "hsmm_viterbi_scan", "route": "cuda",

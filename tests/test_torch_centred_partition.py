@@ -11,7 +11,10 @@ shift each frame's emissions by their max over classes first. Here they
 run through ``SemiMarkovModel._loss`` and the Segmenter with the module's
 potentials replaced by fixed leaves, and their float32 results are held
 against the same function in float64 (the Function's PLAIN path on the
-uncentred potentials, the exact answer). On the CPU the model takes the
+uncentred potentials, the exact answer). Up to 128 classes the log scans
+also fold their carry every 64 frames and the backward anchors its band
+inputs per chunk (ops/hsmm_cuda.py), which keeps a long video near
+float64 too (tests/test_torch_long_video.py). On the CPU the model takes the
 kernels' plain versions up to 128 classes, which the card's kernels equal
 (chip_smoke.py phase 3b), and autograd of the plain partition above.
 At unit scale the centred path stays within the JAX package's
@@ -54,9 +57,9 @@ from tests.test_torch_hsmm_grad import (
 
 K, D = 20, 300
 # (max |sum_c marginal - 1|, emit, trans, lens) bounds against float64:
-# the serving case's, and the long video's gap (191.9 uncentred)
-SERVING_BOUNDS = dict(gap=0.05, emit=0.05, trans=0.5, lens=1.0)
-LONG_GAP = 1.5
+# the serving case's, and the video four times as long's
+SERVING_BOUNDS = dict(gap=0.01, emit=0.01, trans=0.5, lens=1.0)
+LONG_BOUNDS = dict(gap=0.02, emit=0.02)
 
 
 @functools.lru_cache(maxsize=None)
@@ -176,7 +179,7 @@ def test_unsupervised_loss_and_grads_against_float64(T):
     if T == 1024:
         assert gaps["centred"] <= SERVING_BOUNDS["gap"] < gaps["uncentred"]
         for name in ("emit", "trans", "lens"):
-            assert err[name] <= SERVING_BOUNDS[name] < old_err[name], name
+            assert err[name] <= SERVING_BOUNDS[name] and err[name] < old_err[name], name
         # logZ: JAX's float32 value at the value tolerance, and nearer float64
         want_z = np.asarray(jg.hsmm_partition_fb(*map(jnp.asarray, arrays),
                                                  jnp.full(B, T, jnp.int32), True))
@@ -185,8 +188,9 @@ def test_unsupervised_loss_and_grads_against_float64(T):
                                                       abs(want_z - exact_z).max()))
         assert abs(got_z - exact_z).max() < abs(want_z - exact_z).max()
     else:
-        assert gaps["centred"] <= LONG_GAP < gaps["uncentred"]
-        assert err["emit"] <= LONG_GAP < old_err["emit"]
+        # both against float64: within the bounds, and nearer than uncentred
+        assert gaps["centred"] <= LONG_BOUNDS["gap"] and gaps["centred"] < gaps["uncentred"]
+        assert err["emit"] <= LONG_BOUNDS["emit"] and err["emit"] < old_err["emit"]
 
 
 @pytest.mark.parametrize("T", [1024, 4096])
@@ -212,7 +216,7 @@ def test_segment_with_marginals_against_float64(T):
     if T == 1024:
         assert g <= SERVING_BOUNDS["gap"] and err <= SERVING_BOUNDS["emit"]
     else:
-        assert g <= LONG_GAP and err <= LONG_GAP
+        assert g <= LONG_BOUNDS["gap"] and err <= LONG_BOUNDS["emit"]
     np.testing.assert_array_equal(labels, seg.segment(features))
 
 
@@ -283,7 +287,7 @@ def test_discriminative_loss_offsets_cancel():
           "uncentred errors {}".format(ll_err, old_ll_err, err, old_err))
     assert ll_err < old_ll_err
     for name in ("emit", "trans", "lens"):
-        assert err[name] <= SERVING_BOUNDS[name] < old_err[name], name
+        assert err[name] <= SERVING_BOUNDS[name] and err[name] < old_err[name], name
 
 
 def test_centring_keeps_masks_lengths_and_views():

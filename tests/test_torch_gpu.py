@@ -170,15 +170,17 @@ def test_log_scans_match_plain(cuda, B, T, C, K):
     pots, lengths = random_pots(np.random.RandomState(7 * B + T), B, T, C, K, cuda)
     scan_in = hc._stack_fwd_rev(pots, lengths.long())
     before = (hc.hsmm_log_scan.launches, hc.hsmm_forward_scan.launches)
-    gamma, alphas = hc.hsmm_log_scan(*scan_in)
+    got = hc.hsmm_log_scan(*scan_in)
     fwd = hc.hsmm_forward_scan(*scan_in)
     assert (hc.hsmm_log_scan.launches, hc.hsmm_forward_scan.launches) == (
         before[0] + 1, before[1] + 1)
-    want_gamma, want_alphas = hc._log_scan_plain(*scan_in)
+    want = hc._log_scan_plain(*scan_in)
     torch.cuda.synchronize()
-    torch.testing.assert_close(gamma, want_gamma, rtol=RTOL, atol=ATOL)
-    torch.testing.assert_close(alphas, want_alphas, rtol=RTOL, atol=ATOL)
-    torch.testing.assert_close(fwd, want_alphas, rtol=RTOL, atol=ATOL)
+    # gamma, alphas and offsets (the fold every SCAN_FOLD steps) equal
+    for name, g, w in zip(("gamma", "alphas", "offsets", "forward alphas", "forward offsets"),
+                          (*got, *fwd), (*want, *want[1:])):
+        assert torch.equal(g, w), "{}: {} of {} differ".format(name, int((g != w).sum()),
+                                                              g.numel())
 
 
 # the band gradient (csrc/band_grad.cu) beyond SHAPES (which hold K=1,
@@ -195,10 +197,17 @@ def band_grad_inputs(B, T, C, K, device, seed, scan=hc._log_scan_plain):
     log scan `scan` (the plain version, or the kernel at a wide shape
     whose plain scan is a long Python loop)."""
     pots, lengths = random_pots(np.random.RandomState(seed), B, T, C, K, device)
-    lengths = lengths.long()
-    gamma, alphas = scan(*hc._stack_fwd_rev(pots, lengths))
-    logZ = hg._log_partition(alphas[:B], lengths, pots.end_mask)
-    return hc._grad_band_inputs(pots, lengths, gamma, logZ)
+    return grad_inputs(pots, lengths.long(), scan)
+
+
+def grad_inputs(pots, lengths, scan=hc._log_scan_plain):
+    """(G1m, G2p, band): the band gradient's launch over each video's
+    chunks as ``hg._cotangents`` forms it from the log scan `scan`."""
+    gamma, alphas, offsets = scan(*hc._stack_fwd_rev(pots, lengths))
+    lse, _ = hg._log_partition(alphas[:pots.emit.shape[0]], offsets[:pots.emit.shape[0]],
+                               lengths, pots.end_mask)
+    gb = hc._grad_band_inputs(pots, lengths, gamma, offsets, lse)
+    return gb.G1m, gb.G2p, gb.band
 
 
 def assert_band_grad_matches_plain(band_in):
@@ -259,9 +268,7 @@ def gaussian_band_inputs(B, T, C, K, device, seed, D=300):
                              lens.expand((B,) + lens.shape), emit.contiguous(),
                              torch.zeros(B, C, device=device))
     lengths = torch.full((B,), T, dtype=torch.long, device=device)
-    gamma, alphas = hc._log_scan_plain(*hc._stack_fwd_rev(pots, lengths))
-    logZ = hg._log_partition(alphas[:B], lengths, pots.end_mask)
-    return hc._grad_band_inputs(pots, lengths, gamma, logZ)
+    return grad_inputs(pots, lengths)
 
 
 @pytest.mark.parametrize("B,T,C,K", [(18, 1024, 19, 20), (5, 1056, 20, 20)])
@@ -883,8 +890,8 @@ def assert_scans_equal_plain(scan_in):
     """The four scan entry points against their plain versions, equal."""
     gamma, alphas = hc.hsmm_gamma_scan(*scan_in, with_alphas=True)
     gamma_only, none = hc.hsmm_gamma_scan(*scan_in)
-    log_gamma, log_alphas = hc.hsmm_log_scan(*scan_in)
-    fwd = hc.hsmm_forward_scan(*scan_in)
+    log_gamma, log_alphas, log_offsets = hc.hsmm_log_scan(*scan_in)
+    fwd, fwd_offsets = hc.hsmm_forward_scan(*scan_in)
     vit_alphas, bp = hc.hsmm_viterbi_scan(*scan_in)
     want = hc._gamma_scan_plain(*scan_in, with_alphas=True)
     want_log = hc._log_scan_plain(*scan_in)
@@ -895,7 +902,9 @@ def assert_scans_equal_plain(scan_in):
                            ("gamma only", gamma_only, want[0]),
                            ("log gamma", log_gamma, want_log[0]),
                            ("log alphas", log_alphas, want_log[1]),
+                           ("log offsets", log_offsets, want_log[2]),
                            ("forward alphas", fwd, want_log[1]),
+                           ("forward offsets", fwd_offsets, want_log[2]),
                            ("viterbi alphas", vit_alphas, want_vit[0]),
                            ("codes", bp, want_vit[1])):
         assert torch.equal(got, exp), "{}: {} of {} differ".format(
@@ -950,6 +959,48 @@ def test_scan_instances_edge_cases(cuda, case, C, Km):
     assert_scans_equal_plain(scan_in)
 
 
+@pytest.mark.parametrize("C", CLASS_EDGES)
+@pytest.mark.parametrize("Km", (19, 40))
+def test_log_scans_fold_bit_exact_with_plain(cuda, C, Km):
+    """Past SCAN_FOLD steps (folds after steps 63, 127 and 191; at -400
+    nats a frame each class also folds on its own past SCAN_FOLD_LIMIT,
+    every 10-11 steps) on every instance, the tail's ring included: K2
+    log's gamma, alphas and offsets
+    and K1's alphas and offsets equal to the plain version's. A chain with
+    no live alpha at a fold (init masked: every alpha near BIG_NEG) folds
+    cum alone: its offsets 0, its planes below BIG_NEG / 2."""
+    scan_in = list(scan_inputs(np.random.RandomState(17 * C + Km), 3, 200, C, Km, cuda))
+    scan_in[1] = scan_in[1].clone()
+    scan_in[1][1] = -1e9
+    before = (hc.hsmm_log_scan.launches, hc.hsmm_forward_scan.launches)
+    got = hc.hsmm_log_scan(*scan_in)
+    fwd = hc.hsmm_forward_scan(*scan_in)
+    assert (hc.hsmm_log_scan.launches, hc.hsmm_forward_scan.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = hc._log_scan_plain(*scan_in)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("gamma", "alphas", "offsets", "forward alphas", "forward offsets"),
+                          (*got, *fwd), (*want, *want[1:])):
+        assert torch.equal(g, w), "{}: {} of {} differ".format(name, int((g != w).sum()),
+                                                              g.numel())
+    offsets = got[2]
+    assert offsets.shape == (3, 4) and (offsets[[0, 2], 1:] < -1e3).all()
+    assert (offsets[1] == 0).all() and (got[1][1] < -5e8).all()
+
+
+@pytest.mark.parametrize("C,Km", [(1, 28900), (9, 3222)])
+def test_log_scans_fold_the_global_tail(cuda, C, Km):
+    """The tail whose durations are read from global memory folds its ring
+    too: 200 steps, K2 log and K1 equal to the plain versions."""
+    assert hc.scan_instance(C, Km).tail == 2
+    scan_in = scan_inputs(np.random.RandomState(C), 2, 200, C, Km, cuda)
+    got, fwd = hc.hsmm_log_scan(*scan_in), hc.hsmm_forward_scan(*scan_in)
+    want = hc._log_scan_plain(*scan_in)
+    torch.cuda.synchronize()
+    for g, w in zip((*got, *fwd), (*want, *want[1:])):
+        assert torch.equal(g, w)
+
+
 def test_scan_launch_refuses_an_instance_too_small(cuda):
     """The launch takes the instance the wrapper picked; one whose threads
     or trans row cannot hold the shape, or whose tail does not match Km,
@@ -989,9 +1040,10 @@ def assert_wide_scans_equal_plain(scan_in):
     once, against their plain versions: equal."""
     before, narrow = launches(WIDE_KERNELS), launches(NARROW_KERNELS)
     vit_alphas, bp = hc.hsmm_viterbi_scan(*scan_in)
-    log_gamma, log_alphas = hc.hsmm_log_scan(*scan_in)
-    fwd = hc.hsmm_forward_scan(*scan_in)
+    log_gamma, log_alphas, log_offsets = hc.hsmm_log_scan(*scan_in)
+    fwd, fwd_offsets = hc.hsmm_forward_scan(*scan_in)
     assert [a - b for a, b in zip(launches(WIDE_KERNELS), before)] == [1, 1, 1, 0]
+    assert not log_offsets.any() and not fwd_offsets.any()  # the wide scans do not fold
     assert launches(NARROW_KERNELS) == narrow
     want_vit = hc._viterbi_scan_plain(*scan_in, radix=hc.code_radix(scan_in[3].shape[-1]))
     want_log = hc._log_scan_plain(*scan_in)
@@ -1533,10 +1585,10 @@ def test_wide_scans_at_the_s6_shape_equal_plain(cuda):
     alphas, bp = hc.hsmm_viterbi_scan(*vit_in)
     want = hc._viterbi_scan_plain(*vit_in)
     fwd_in = (*vit_in[:3], vit_in[3][:, :64].contiguous())
-    fwd = hc.hsmm_forward_scan(*fwd_in)
+    fwd, _ = hc.hsmm_forward_scan(*fwd_in)
     torch.cuda.synchronize()
     assert torch.equal(alphas, want[0]) and torch.equal(bp, want[1])
-    assert torch.equal(fwd, hc._forward_scan_plain(*fwd_in))
+    assert torch.equal(fwd, hc._forward_scan_plain(*fwd_in)[0])
 
 
 @pytest.mark.parametrize("C,Km", [(342, 19), (1577, 19), (1577, 64)])

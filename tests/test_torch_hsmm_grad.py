@@ -228,7 +228,9 @@ def test_log_scan_plain_matches_jax_planes(B, T, C, K, constrained):
     )
     Gf, pack = meta["Gf"], meta["pack"]
     tp = th.HsmmPotentials(*[torch.from_numpy(a) for a in arrays])
-    gamma, alphas = hc.hsmm_log_scan(*hc._stack_fwd_rev(tp, torch.from_numpy(lengths).long()))
+    gamma, alphas, offsets = hc.hsmm_log_scan(*hc._stack_fwd_rev(
+        tp, torch.from_numpy(lengths).long()))
+    assert offsets.shape == (2 * B, 1) and (offsets == 0).all()  # T < SCAN_FOLD: no fold
     for got, plane in ((gamma, gammas_p), (alphas, alphas_p)):
         want_f = np.asarray(hp._unpack_plane(plane[:Gf], B, T, C, pack))
         want_r = np.asarray(hp._unpack_plane(plane[Gf:], B, T, C, pack))
@@ -246,8 +248,9 @@ def test_forward_scan_plain_matches_jax_alphas():
     jp = jh.HsmmPotentials(*[jnp.asarray(a) for a in arrays])
     want_alphas, want_z = hp.hsmm_alphas_pallas(jp, jnp.asarray(lengths), interpret=True)
     tp = th.HsmmPotentials(*[torch.from_numpy(a) for a in arrays])
-    alphas = hc.hsmm_forward_scan(tp.trans, tp.init, th._durations(tp.lens).contiguous(),
-                                  tp.emit)
+    alphas, offsets = hc.hsmm_forward_scan(tp.trans, tp.init,
+                                           th._durations(tp.lens).contiguous(), tp.emit)
+    assert offsets.shape == (B, 1) and (offsets == 0).all()
     np.testing.assert_allclose(alphas.numpy(), np.asarray(want_alphas), rtol=RTOL, atol=ATOL)
     with torch.no_grad():
         z = hg.hsmm_partition_fast(tp, torch.from_numpy(lengths))
@@ -277,8 +280,9 @@ def test_band_grad_plain_matches_jax(B, T, C, K):
 
     tp = th.HsmmPotentials(*[torch.from_numpy(a) for a in arrays])
     L = torch.from_numpy(lengths).long()
-    gamma, _ = hc.hsmm_log_scan(*hc._stack_fwd_rev(tp, L))
-    got = hc.hsmm_band_grad(*hc._grad_band_inputs(tp, L, gamma, torch.from_numpy(np.array(logZ))))
+    gamma, _, offsets = hc.hsmm_log_scan(*hc._stack_fwd_rev(tp, L))
+    gb = hc._grad_band_inputs(tp, L, gamma, offsets, torch.from_numpy(np.array(logZ)))
+    got = hc.hsmm_band_grad(gb.G1m, gb.G2p, gb.band)
     for name, g, w in zip(("qg", "sa", "st", "lg"), got, want):
         np.testing.assert_allclose(g.numpy(), w, rtol=RTOL, atol=ATOL, err_msg=name)
 
@@ -341,10 +345,11 @@ def test_training_wrappers_take_cpu_or_cuda_only():
                           torch.empty((2, 1, 3), device="meta"))
     counters = (hc.hsmm_log_scan, hc.hsmm_forward_scan, hc.hsmm_band_grad)
     before = [k.launches for k in counters]
-    gamma, alphas = hc.hsmm_log_scan(torch.zeros(2, 3, 3), torch.zeros(2, 3),
-                                     torch.zeros(2, 1, 3), torch.zeros(2, 4, 3))
-    fwd = hc.hsmm_forward_scan(torch.zeros(2, 3, 3), torch.zeros(2, 3),
-                               torch.zeros(2, 1, 3), torch.zeros(2, 4, 3))
+    gamma, alphas, offsets = hc.hsmm_log_scan(torch.zeros(2, 3, 3), torch.zeros(2, 3),
+                                              torch.zeros(2, 1, 3), torch.zeros(2, 4, 3))
+    fwd, fwd_offsets = hc.hsmm_forward_scan(torch.zeros(2, 3, 3), torch.zeros(2, 3),
+                                            torch.zeros(2, 1, 3), torch.zeros(2, 4, 3))
+    assert offsets.shape == fwd_offsets.shape == (2, 1)
     qg, sa, st, lg = hc.hsmm_band_grad(torch.zeros(2, 4, 3), torch.zeros(2, 6, 3),
                                        torch.zeros(2, 2, 3))
     assert gamma.shape == alphas.shape == fwd.shape == qg.shape == st.shape == (2, 4, 3)
@@ -354,12 +359,13 @@ def test_training_wrappers_take_cpu_or_cuda_only():
 
 def test_partition_fb_tracks_jax_at_d300_scale():
     """At the serving scale (D=300 Gaussian emissions, about -600 nats per
-    frame, T=1024) both packages' float32 gradients lose the posterior to
-    cancellation (ROADMAP.md §3). Held against float64: the port's error
-    is JAX's error, not its own. logZ matches JAX's at the value
-    tolerance; every gradient of the port lies within a quarter of JAX's
-    own float64 error of JAX's; the frame marginals' worst gap from
-    summing to 1 is JAX's within 5%. Run with -s to print the numbers."""
+    frame, T=1024) JAX's float32 gradients lose the posterior to
+    cancellation (ROADMAP.md §3); the port's, whose log scans fold their
+    carry every SCAN_FOLD frames and whose backward forms its band inputs
+    in float64 (ops/hsmm_cuda.py), lose less. Held against float64: logZ
+    matches JAX's at the value tolerance; the frame marginals' worst gap
+    from summing to 1 and every gradient's error are no larger than JAX's.
+    Run with -s to print the numbers."""
     from action_segmentation_torch.ops.distributions import (
         gaussian_emission_log_probs,
         initial_log_probs,
@@ -395,9 +401,9 @@ def test_partition_fb_tracks_jax_at_d300_scale():
     gaps = {"port": gap(got[3]), "jax": gap(want[3]), "float64": gap(exact[3])}
     print("marginal-sum gap", gaps)
     assert gaps["float64"] < 1e-6
-    np.testing.assert_allclose(gaps["port"], gaps["jax"], rtol=0.05)
+    assert gaps["port"] <= gaps["jax"]
     for name, g, w, x in zip(NAMES, got, want, exact):
-        vs_jax, jax_err = np.abs(g - w).max(), np.abs(w - x).max()
+        port_err, jax_err = np.abs(g - x).max(), np.abs(w - x).max()
         print("{}: |port - jax| {:g}, |jax - float64| {:g}, |port - float64| {:g}".format(
-            name, vs_jax, jax_err, np.abs(g - x).max()))
-        assert vs_jax <= 0.25 * jax_err + GRAD_ATOL, name
+            name, np.abs(g - w).max(), jax_err, port_err))
+        assert port_err <= jax_err, name

@@ -268,8 +268,9 @@ def test_grouped_stack_plain_equals_concatenated(C, B):
     for fn in (hc._log_scan_plain, hc._viterbi_scan_plain):
         for got, want in zip(fn(*grouped), fn(*concat)):
             assert torch.equal(got, want), fn.__name__
-    assert torch.equal(hc._forward_scan_plain(*hc._forward_chains(grouped, B)),
-                       hc._forward_scan_plain(*hc._forward_chains(concat, B)))
+    for got, want in zip(hc._forward_scan_plain(*hc._forward_chains(grouped, B)),
+                         hc._forward_scan_plain(*hc._forward_chains(concat, B))):
+        assert torch.equal(got, want)
     assert torch.equal(hc._forward_chains(grouped, B)[0], pots.trans)
     # at <= 128 classes, or a table a video, the stack stays concatenated
     narrow = th.HsmmPotentials(*(x[..., :100, :100] if x.dim() == 3 and x.shape[-2] == C
