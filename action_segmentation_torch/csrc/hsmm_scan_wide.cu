@@ -20,12 +20,25 @@
 // index order packed as bp = bp_d * radix + bp_c, or in the log semiring
 // m + log(sum(exp(x - m))) with m the max and the sum taken in index
 // order. Every float operation is the plain version's
-// (ops/hsmm_cuda.py `_viterbi_scan_plain`, `_gamma_scan_plain`) in its
+// (ops/hsmm_cuda.py `_viterbi_scan_plain`, `_scan_plain`) in its
 // order, with expf/logf and no fast math, so the outputs are its bits.
 // A max is exact, so the combine takes it in four interleaved chains of
 // c' (k mod 4) and merges them, the equal maxima by the least index: the
 // same max and the same first argmax as one chain in index order. The
 // log semiring's sum stays one chain in index order.
+//
+// The log semiring (kLog, kForward) folds the carry as the narrow
+// template does (csrc/hsmm_scan_core.cuh, ops/hsmm_cuda.py `_scan_plain`
+// with fold): within a step, after the alpha and before the push, a class
+// whose |cum| exceeds kFoldLimit takes it into its own ring column (W +=
+// cum, cum = 0); after step t with t % kFold == kFold - 1 and t + 1 < T
+// the chain takes s, the max of the step's alphas over its C classes (0
+// where none is above BIG_NEG / 2), every ring row becomes (W + cum) - s,
+// cum = 0, and s goes to offsets[n, (t + 1) / kFold] (column 0 is 0). The
+// planes are then relative to the chain's offset, which the caller adds in
+// float64, and no float32 value of the scan grows with the video's length.
+// A max is exact, so every thread (every pair on the grid route) takes s
+// from the step's alpha row itself, the same bits in every block.
 //
 // What bounds it: the T dependent steps. A step is, on each thread, one
 // reduction of C transition terms (two passes in the log semiring: the
@@ -135,8 +148,13 @@ constexpr int kMaxSmem = 232448;  // an H100 block's dynamic shared memory
 // holds at most 228 classes' table; a wider DP splits it over blocks)
 constexpr int kMaxSlabThreads = 256;
 
+// the log scans' fold period (a power of 2) and per-class fold bound:
+// csrc/hsmm_scan_core.cuh's, ops/hsmm_cuda.py SCAN_FOLD, SCAN_FOLD_LIMIT
+constexpr int kFold = 64;
+constexpr float kFoldLimit = 4096.f;
+
 // kViterbi: alphas and codes (K6's function); kLog: gamma and alphas
-// (K2-log's); kForward: alphas only (K1's)
+// (K2-log's); kForward: alphas only (K1's). The last two fold.
 enum class Scan { kViterbi, kLog, kForward };
 
 // the alpha row's stride: C rounded up to 4 floats, so that every buffer
@@ -262,6 +280,48 @@ __device__ __forceinline__ float combine(const float* __restrict__ tr,
   return m + logf(s);
 }
 
+// the chain fold's s: the max of an alpha row's C values (16-byte aligned;
+// the padding past C is not read), 0 where none is above BIG_NEG / 2
+__device__ __forceinline__ float fold_shift(const float* __restrict__ a, int C) {
+  float m0 = kNegInf, m1 = kNegInf, m2 = kNegInf, m3 = kNegInf;
+  int k = 0;
+  for (; k + 4 <= C; k += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(a + k);
+    m0 = fmaxf(m0, v.x);
+    m1 = fmaxf(m1, v.y);
+    m2 = fmaxf(m2, v.z);
+    m3 = fmaxf(m3, v.w);
+  }
+  for (; k < C; ++k) m0 = fmaxf(m0, a[k]);
+  const float s = fmaxf(fmaxf(m0, m1), fmaxf(m2, m3));
+  return s > 0.5f * kBigNeg ? s : 0.f;  // no live alpha: cum alone
+}
+
+// a class's own fold, on its ring column (Km rows at stride rs), after its
+// alpha and before its push: where |cum| passes kFoldLimit, W += cum and
+// cum = 0
+template <typename Ring>
+__device__ __forceinline__ void fold_class(Ring ring, int rs, int Km, float& cum) {
+  if (fabsf(cum) > kFoldLimit) {
+    for (int r = 0; r < Km; ++r) ring[r * rs] += cum;
+    cum = 0.f;
+  }
+}
+
+// the chain's fold on a class's ring column, after the push of a fold
+// step: W = (W + cum) - s and cum = 0
+template <typename Ring>
+__device__ __forceinline__ void fold_chain(Ring ring, int rs, int Km, float& cum,
+                                           float s) {
+  for (int r = 0; r < Km; ++r) ring[r * rs] = (ring[r * rs] + cum) - s;
+  cum = 0.f;
+}
+
+// true after step t of T where the log scans fold the chain
+__device__ __forceinline__ bool fold_step(int t, int T) {
+  return (t & (kFold - 1)) == kFold - 1 && t + 1 < T;
+}
+
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
@@ -326,7 +386,8 @@ __device__ __forceinline__ void cluster_sync() {
 }
 
 // trans_t (N, C, C) [from][to]; init (N, C); dur (N, Km, C); emit (N, T, C);
-// gamma (kLog), alphas (N, T, C) float32; bp (N, T, C) int32 (kViterbi).
+// gamma (kLog), alphas (N, T, C) float32; bp (N, T, C) int32 (kViterbi);
+// offsets (N, ceil(T / kFold)) float32 (kLog, kForward).
 // Grid N * cluster blocks in clusters of `cluster`, ceil(slab / 32) warps
 // a block; shared memory (in floats): the two alpha rows' mbarriers (4),
 // [2][alpha_stride(C)] alpha rows, the table's rows of the block's
@@ -342,8 +403,10 @@ __global__ void __launch_bounds__(kMaxSlabThreads, 1)
                              const float* __restrict__ emit,
                              float* __restrict__ gamma,
                              float* __restrict__ alphas,
-                             int32_t* __restrict__ bp, int T, int C, int Km,
+                             int32_t* __restrict__ bp,
+                             float* __restrict__ offsets, int T, int C, int Km,
                              int radix, int cluster, int slab, int group) {
+  constexpr bool kFolds = kS != Scan::kViterbi;
   extern __shared__ __align__(16) float smem[];
   const int Cp = alpha_stride(C);
   const int rs = table_stride(C);
@@ -382,6 +445,8 @@ __global__ void __launch_bounds__(kMaxSlabThreads, 1)
     // no block pushes into another before its mbarriers are made
     cluster_sync();
   }
+  const int n_blocks = (T + kFold - 1) / kFold;  // offsets' columns
+  if (kFolds && c == 0) offsets[(size_t)n * n_blocks] = 0.f;
   float e_next = live && T > 0 ? e_col[0] : 0.f;
   float cum = 0.f;
   int head = 0;
@@ -423,9 +488,20 @@ __global__ void __launch_bounds__(kMaxSlabThreads, 1)
     } else if constexpr (kS == Scan::kLog) {
       gamma[at] = g;
     }
+    if constexpr (kFolds) fold_class(ring + j, slab, Km, cum);
     // the push: the oldest row's slot becomes logical row 0
     head = head == 0 ? Km - 1 : head - 1;
     ring[head * slab + j] = g - cum;
+    // the chain's fold: s from this step's alpha row, read before this
+    // thread's push of step t + 1 (the row's next writer is a push of
+    // step t + 2, which waits for it; see the top)
+    if constexpr (kFolds) {
+      if (fold_step(t, T)) {
+        const float s = fold_shift(alpha_s + buf, C);
+        fold_chain(ring + j, slab, Km, cum, s);
+        if (c == 0) offsets[(size_t)n * n_blocks + (t + 1) / kFold] = s;
+      }
+    }
   }
   if constexpr (kMulti) cluster_sync();
 }
@@ -450,7 +526,8 @@ __device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned target)
 }
 
 // The grid route. table (G, C, table_stride(C)): table g's rows trans[c, :]
-// ([to][from], padded); init, dur, emit, gamma, alphas, bp as above; xchg
+// ([to][from], padded); init, dur, emit, gamma, alphas, bp, offsets as
+// above (the block of class slab 0 writes its chains' offsets); xchg
 // (N, 2, table_stride(C)) float32 scratch; ring_g (gridDim.x, Km, chains *
 // slab) float32 scratch, or null for the ring in shared memory; counter one
 // uint32, 0 at the launch. kTableShared: the block's slab of its table in
@@ -467,10 +544,12 @@ __global__ void __launch_bounds__(kGridThreads, 1)
                           const float* __restrict__ emit,
                           float* __restrict__ gamma,
                           float* __restrict__ alphas,
-                          int32_t* __restrict__ bp, float* __restrict__ xchg,
+                          int32_t* __restrict__ bp,
+                          float* __restrict__ offsets, float* __restrict__ xchg,
                           float* __restrict__ ring_g,
                           unsigned* __restrict__ counter, int N, int T, int C,
                           int Km, int radix, int slab, int chains, int group) {
+  constexpr bool kFolds = kS != Scan::kViterbi;
   extern __shared__ __align__(16) float smem[];
   const int rs = table_stride(C);
   const int q = rs / 4;  // a row's 16-byte words
@@ -486,6 +565,7 @@ __global__ void __launch_bounds__(kGridThreads, 1)
                           ? ring_g + (size_t)blockIdx.x * Km * pairs
                           : cum_s + 2 * (size_t)pairs;  // [Km][pairs]
   const int step = blockDim.x;
+  const int n_blocks = (T + kFold - 1) / kFold;  // offsets' columns
 
   if constexpr (kTableShared) {  // the slab's rows of the block's table, once
     const float4* const src = reinterpret_cast<const float4*>(
@@ -500,6 +580,7 @@ __global__ void __launch_bounds__(kGridThreads, 1)
     ring[p] = init[(size_t)n * C + c];
     for (int j = 1; j < Km; ++j) ring[(size_t)j * pairs + p] = kBigNeg;
     cum_s[p] = 0.f;
+    if (kFolds && c == 0) offsets[(size_t)n * n_blocks] = 0.f;
   }
   const int live_chains = min(chains, N - n0);
   int head = 0;
@@ -544,8 +625,10 @@ __global__ void __launch_bounds__(kGridThreads, 1)
       for (; k < words; k += step) dst[k] = __ldcg(src + (size_t)(k / q) * 2 * q + k % q);
     }
     __syncthreads();
-    // (d) the transition combine, (e) the outputs and the push
+    // (d) the transition combine, (e) the outputs, the fold and the push
+    // (alpha_s is next written at (c) of step t + 1, past barrier t + 1)
     const int next = head == 0 ? Km - 1 : head - 1;
+    const bool folds = kFolds && fold_step(t, T);
     for (int p = threadIdx.x; p < pairs; p += step) {
       const int i = p / slab, j = p % slab;
       const int n = n0 + i, c = c0 + j;
@@ -561,7 +644,19 @@ __global__ void __launch_bounds__(kGridThreads, 1)
       } else if constexpr (kS == Scan::kLog) {
         gamma[at] = g;
       }
-      ring[(size_t)next * pairs + p] = g - cum_s[p];
+      if constexpr (kFolds) {
+        float cum = cum_s[p];
+        fold_class(ring + p, pairs, Km, cum);
+        ring[(size_t)next * pairs + p] = g - cum;
+        if (folds) {
+          const float s = fold_shift(alpha_s + (size_t)i * rs, C);
+          fold_chain(ring + p, pairs, Km, cum, s);
+          if (c == 0) offsets[(size_t)n * n_blocks + (t + 1) / kFold] = s;
+        }
+        cum_s[p] = cum;
+      } else {
+        ring[(size_t)next * pairs + p] = g - cum_s[p];
+      }
     }
     head = next;
   }
@@ -637,8 +732,9 @@ int launch_cooperative(void (*kernel)(Params...), unsigned* counter,
 // table slab in shared memory (0) or read from global memory (-1).
 template <Scan kS>
 int launch(const void* table, const void* init, const void* dur,
-           const void* emit, void* gamma, void* alphas, void* bp, void* xchg,
-           void* ring, void* counter, int N, int T, int C, int Km, int radix,
+           const void* emit, void* gamma, void* alphas, void* bp,
+           void* offsets, void* xchg, void* ring, void* counter, int N, int T,
+           int C, int Km, int radix,
            int cluster, int slab, int chains, int smem, int group, int device,
            void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -647,7 +743,8 @@ int launch(const void* table, const void* init, const void* dur,
   const bool table_shared = cluster == 0;
   if (C < 1 || Km < 1 || cluster < -1 || group < 1 || slab < 1 ||
       smem > kMaxSmem ||
-      (kS == Scan::kViterbi && (radix < C || (long)Km * radix > INT_MAX)))
+      (kS == Scan::kViterbi && (radix < C || (long)Km * radix > INT_MAX)) ||
+      (kS != Scan::kViterbi && offsets == nullptr))
     return (int)cudaErrorInvalidValue;
   if (clustered &&
       (ring != nullptr || xchg != nullptr || counter != nullptr ||
@@ -668,8 +765,8 @@ int launch(const void* table, const void* init, const void* dur,
         kernel, (unsigned*)counter, blocks, grid_threads(slab, chains), smem,
         device, (cudaStream_t)stream, (const float*)table, (const float*)init,
         (const float*)dur, (const float*)emit, (float*)gamma, (float*)alphas,
-        (int32_t*)bp, (float*)xchg, (float*)ring, (unsigned*)counter, N, T, C,
-        Km, radix, slab, chains, group);
+        (int32_t*)bp, (float*)offsets, (float*)xchg, (float*)ring,
+        (unsigned*)counter, N, T, C, Km, radix, slab, chains, group);
   }
   auto kernel = cluster > 1 ? wide_cluster_scan_kernel<kS, true>
                             : wide_cluster_scan_kernel<kS, false>;
@@ -691,7 +788,8 @@ int launch(const void* table, const void* init, const void* dur,
   err = cudaLaunchKernelEx(&config, kernel, (const float*)table,
                            (const float*)init, (const float*)dur,
                            (const float*)emit, (float*)gamma, (float*)alphas,
-                           (int32_t*)bp, T, C, Km, radix, cluster, slab, group);
+                           (int32_t*)bp, (float*)offsets, T, C, Km, radix,
+                           cluster, slab, group);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -724,12 +822,19 @@ int max_active_clusters(int cluster, int slab, int smem, int device,
 
 extern "C" {
 
+// The log scans' fold interval (kFold steps, the wrappers' SCAN_FOLD): a
+// build whose log scans fold exports it, an earlier one does not
+// (tools/scan_ab.py reads it to tell the two interfaces apart).
+extern const int hsmm_wide_fold_steps = kFold;
+
 // table: on the cluster route (cluster > 0) the tables transposed, (G, C,
 // C) [from][to]; on the grid route (cluster 0 or -1) the tables' rows, (G,
 // C, table_stride(C)) [to][from] padded; G = ceil(N / group): chain n
 // reads table n / group. init (N, C); dur (N, Km, C); emit (N, T, C);
 // alphas (N, T, C) out; all float32. bp (N, T, C) int32 out, bp = bp_d *
-// radix + bp_c (radix >= C, Km * radix in int32). cluster > 0: the cluster
+// radix + bp_c (radix >= C, Km * radix in int32); the log scans' offsets
+// (N, ceil(T / 64)) float32 out, their planes relative to them (the fold
+// at the top). cluster > 0: the cluster
 // route, `cluster` blocks of `slab` classes a chain ((cluster - 1) * slab <
 // C <= cluster * slab, slab <= 256), xchg, ring and counter null, `chains`
 // ignored, smem a block's shared memory (4 + 2 * alpha_stride(C) + min(slab,
@@ -753,32 +858,35 @@ int hsmm_wide_viterbi_scan(const void* table, const void* init,
                            int slab, int chains, int smem, int group,
                            int device, void* stream) {
   return launch<Scan::kViterbi>(table, init, dur, emit, nullptr, alphas, bp,
-                                xchg, ring, counter, N, T, C, Km, radix,
-                                cluster, slab, chains, smem, group, device,
-                                stream);
+                                nullptr, xchg, ring, counter, N, T, C, Km,
+                                radix, cluster, slab, chains, smem, group,
+                                device, stream);
 }
 
-// The log semiring with the same inputs: gamma and alphas (N, T, C) out.
+// The log semiring with the same inputs, folded: gamma and alphas (N, T, C)
+// relative to each chain's offsets, and the offsets (N, ceil(T / 64)) out.
 int hsmm_wide_log_scan(const void* table, const void* init, const void* dur,
-                       const void* emit, void* gamma, void* alphas, void* xchg,
-                       void* ring, void* counter, int N, int T, int C, int Km,
-                       int cluster, int slab, int chains, int smem, int group,
-                       int device, void* stream) {
+                       const void* emit, void* gamma, void* alphas,
+                       void* offsets, void* xchg, void* ring, void* counter,
+                       int N, int T, int C, int Km, int cluster, int slab,
+                       int chains, int smem, int group, int device,
+                       void* stream) {
   return launch<Scan::kLog>(table, init, dur, emit, gamma, alphas, nullptr,
-                            xchg, ring, counter, N, T, C, Km, 0, cluster, slab,
-                            chains, smem, group, device, stream);
+                            offsets, xchg, ring, counter, N, T, C, Km, 0,
+                            cluster, slab, chains, smem, group, device, stream);
 }
 
-// The log semiring's alphas alone (the partition's primal).
+// The log semiring's alphas and offsets alone (the partition's primal).
 int hsmm_wide_forward_scan(const void* table, const void* init,
                            const void* dur, const void* emit, void* alphas,
-                           void* xchg, void* ring, void* counter, int N, int T,
-                           int C, int Km, int cluster, int slab, int chains,
-                           int smem, int group, int device, void* stream) {
+                           void* offsets, void* xchg, void* ring,
+                           void* counter, int N, int T, int C, int Km,
+                           int cluster, int slab, int chains, int smem,
+                           int group, int device, void* stream) {
   return launch<Scan::kForward>(table, init, dur, emit, nullptr, alphas,
-                                nullptr, xchg, ring, counter, N, T, C, Km, 0,
-                                cluster, slab, chains, smem, group, device,
-                                stream);
+                                nullptr, offsets, xchg, ring, counter, N, T,
+                                C, Km, 0, cluster, slab, chains, smem, group,
+                                device, stream);
 }
 
 // T steps of the grid route's barrier alone, a cooperative launch of

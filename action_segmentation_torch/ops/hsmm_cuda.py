@@ -25,10 +25,10 @@ from four sources, for a DP of at most 128 classes:
 The three scans (both gamma scans and the backpointer scan) are
 instances of one template, csrc/hsmm_scan_core.cuh, compiled for buckets
 of C and Km; ``scan_instance`` picks the instance a shape launches. The
-two log scans fold their carry every SCAN_FOLD steps (``_scan_plain``):
-their planes are relative to each chain's running offset, which they
-return beside them (``offsets``), so that no float32 value of the scan
-grows with the video's length.
+two log scans, narrow and wide, fold their carry every SCAN_FOLD steps
+(``_scan_plain``): their planes are relative to each chain's running
+offset, which they return beside them (``offsets``), so that no float32
+value of the scan grows with the video's length.
 
 A DP wider than 128 classes, of any width, takes the wide kernels, which
 the same wrappers launch by C: the three instances of
@@ -105,11 +105,13 @@ MAX_CLASSES = 128
 # picks one and the launch passes it on. SCAN_WINDOW is the emission
 # window's slot count.
 SCAN_WINDOW = 16
-# the log scans' fold period up to 128 classes (csrc/hsmm_scan_core.cuh's
-# kFold): every SCAN_FOLD steps the carry takes in the emission prefix sum
-# and gives up the step's best alpha, which the chain's offsets keep. At 64
-# the model's marginals meet tests/test_torch_long_video.py's float64 bounds
-# up to 12,000 frames; PERF.md §6 compares 32 and 128
+# the log scans' fold period at every width (csrc/hsmm_scan_core.cuh's and
+# csrc/hsmm_scan_wide.cu's kFold): every SCAN_FOLD steps the carry takes in
+# the emission prefix sum and gives up the step's best alpha, which the
+# chain's offsets keep. At 64 the model's marginals meet
+# tests/test_torch_long_video.py's float64 bounds up to 12,000 frames and
+# tests/test_torch_wide_long_video.py's past 128 classes; PERF.md §6
+# compares 32 and 128
 SCAN_FOLD = 64
 # and within a block each class on its own (kFoldLimit): where its prefix
 # sum leaves [-SCAN_FOLD_LIMIT, SCAN_FOLD_LIMIT], its carry rows take it in
@@ -117,12 +119,13 @@ SCAN_FOLD = 64
 # nats a frame (the compound model's) reach no carry row through a long
 # prefix sum (tools/fold_sweep.py; PERF.md §6)
 SCAN_FOLD_LIMIT = 4096.0
-# the band gradient's chunk up to 128 classes: the training backward's band
-# inputs are anchored per chunk of BAND_CHUNK rows from a video's first
-# frame, so that the float32 values K4 reads span one chunk's path score,
-# not the video's, and a video's anchors do not depend on its batch. 16
-# rows hold the compound model's first steps within 2.1e-4 of float64
-# (1,024: 0.058; tools/fold_sweep.py)
+# the band gradient's chunk at every width (K4 and its wide kernel): the
+# training backward's band inputs are anchored per chunk of BAND_CHUNK rows
+# from a video's first frame, so that the float32 values K4 reads span one
+# chunk's path score, not the video's, and a video's anchors do not depend
+# on its batch or on the kernel that takes it. 16 rows hold the compound
+# model's first steps within 2.1e-4 of float64 (1,024: 0.058;
+# tools/fold_sweep.py)
 BAND_CHUNK = 16
 SCAN_CARRY = 24
 ROW_BUCKETS = (24, 32)
@@ -286,7 +289,7 @@ def _scan_plain(trans, init, dur, emit, semiring, fold=False):
     gamma[:, t, c] = reduce_c' trans[c, c'] + alpha[:, t, c']. The same
     operations in the same order as the kernel.
 
-    With `fold` (the log scans up to 128 classes), after each step t with
+    With `fold` (the log scans, at every width), after each step t with
     t % SCAN_FOLD == SCAN_FOLD - 1 and t + 1 < T the carry takes in the
     emission prefix sum and gives up s, the step's max alpha (0 where no
     class has one above BIG_NEG / 2): W = (W + cum) - s, cum = 0, and
@@ -327,22 +330,22 @@ def _scan_plain(trans, init, dur, emit, semiring, fold=False):
     return torch.stack(gammas, dim=1), torch.stack(alphas, dim=1), offsets
 
 
-def _gamma_scan_plain(trans, init, dur, emit, with_alphas=False, semiring="max"):
-    """The scan without a fold (``_scan_plain``): (gamma, alphas or None).
-    The max gamma scan's plain version; in the log semiring the wide
-    scans' (``hsmm_log_scan_wide``)."""
-    gamma, alphas, _ = _scan_plain(trans, init, dur, emit, semiring)
+def _gamma_scan_plain(trans, init, dur, emit, with_alphas=False):
+    """The max gamma scan's plain version (``_scan_plain`` in the max
+    semiring): (gamma, alphas or None)."""
+    gamma, alphas, _ = _scan_plain(trans, init, dur, emit, "max")
     return gamma, alphas if with_alphas else None
 
 
 def _log_scan_plain(trans, init, dur, emit):
-    """Plain version of ``hsmm_log_scan``: (gamma, alphas, offsets), folded
-    up to 128 classes."""
-    return _scan_plain(trans, init, dur, emit, "log", emit.shape[-1] <= MAX_CLASSES)
+    """Plain version of ``hsmm_log_scan`` and ``hsmm_log_scan_wide``:
+    (gamma, alphas, offsets), folded."""
+    return _scan_plain(trans, init, dur, emit, "log", fold=True)
 
 
 def _forward_scan_plain(trans, init, dur, emit):
-    """Plain version of ``hsmm_forward_scan``: (alphas, offsets)."""
+    """Plain version of ``hsmm_forward_scan`` and
+    ``hsmm_forward_scan_wide``: (alphas, offsets)."""
     return _log_scan_plain(trans, init, dur, emit)[1:]
 
 
@@ -401,13 +404,13 @@ def hsmm_log_scan(trans, init, dur, emit):
     the planes relative to each chain's offsets (``_scan_plain``).
 
     Same inputs and checks as ``hsmm_gamma_scan``; above 128 classes it
-    launches the wide kernel (``hsmm_log_scan_wide``, no fold: zero
-    offsets); on CPU tensors it runs ``_log_scan_plain``."""
+    launches the wide kernel (``hsmm_log_scan_wide``, which folds the
+    same way); on CPU tensors it runs ``_log_scan_plain``."""
     if _device_type(emit) == "cpu":
         return _log_scan_plain(trans, init, dur, emit)
-    N, T, _ = emit.shape
     if emit.shape[-1] > MAX_CLASSES:
-        return (*hsmm_log_scan_wide(trans, init, dur, emit), emit.new_zeros((N, fold_blocks(T))))
+        return hsmm_log_scan_wide(trans, init, dur, emit)
+    N, T, _ = emit.shape
     gamma, alphas = torch.empty_like(emit), torch.empty_like(emit)
     offsets = emit.new_empty((N, fold_blocks(T)))
     _launch_scan("hsmm_log_scan", "hsmm_gamma_scan_log", trans, init, dur, emit,
@@ -425,13 +428,13 @@ def hsmm_forward_scan(trans, init, dur, emit):
 
     The kernel of ``hsmm_log_scan`` with the gamma store skipped; above
     128 classes the wide kernel (``hsmm_forward_scan_wide``, which gives
-    the chains of an expanded trans one table; zero offsets). trans may be
-    an expanded view. On CPU tensors it runs ``_forward_scan_plain``."""
+    the chains of an expanded trans one table). trans may be an expanded
+    view. On CPU tensors it runs ``_forward_scan_plain``."""
     if _device_type(emit) == "cpu":
         return _forward_scan_plain(trans, init, dur, emit)
-    N, T, _ = emit.shape
     if emit.shape[-1] > MAX_CLASSES:
-        return hsmm_forward_scan_wide(trans, init, dur, emit), emit.new_zeros((N, fold_blocks(T)))
+        return hsmm_forward_scan_wide(trans, init, dur, emit)
+    N, T, _ = emit.shape
     alphas, offsets = torch.empty_like(emit), emit.new_empty((N, fold_blocks(T)))
     _launch_scan("hsmm_forward_scan", "hsmm_forward_scan_log", trans.contiguous(), init, dur,
                  emit, [alphas, offsets])
@@ -708,32 +711,37 @@ def _launch_wide_scan(name, symbol, trans, init, dur, emit, outputs, ints=(), in
 
 
 def hsmm_log_scan_wide(trans, init, dur, emit):
-    """``hsmm_log_scan`` for a DP of C > 128 classes: (gamma, alphas), no
-    fold. On CUDA tensors it launches csrc/hsmm_scan_wide.cu's log
-    instance on the route ``wide_scan_instance`` picks; on CPU tensors it
-    runs ``_gamma_scan_plain`` in the log semiring."""
+    """``hsmm_log_scan`` for a DP of C > 128 classes: (gamma, alphas,
+    offsets), folded as the narrow scan folds (``_scan_plain``). On CUDA
+    tensors it launches csrc/hsmm_scan_wide.cu's log instance on the route
+    ``wide_scan_instance`` picks; on CPU tensors it runs
+    ``_log_scan_plain``."""
     if _device_type(emit) == "cpu":
-        return _gamma_scan_plain(trans, init, dur, emit, True, "log")
+        return _log_scan_plain(trans, init, dur, emit)
     gamma, alphas = torch.empty_like(emit), torch.empty_like(emit)
+    offsets = emit.new_empty((emit.shape[0], fold_blocks(emit.shape[1])))
     hsmm_log_scan_wide.launches += _launch_wide_scan(
-        "hsmm_log_scan_wide", "hsmm_wide_log_scan", trans, init, dur, emit, [gamma, alphas])
-    return gamma, alphas
+        "hsmm_log_scan_wide", "hsmm_wide_log_scan", trans, init, dur, emit,
+        [gamma, alphas, offsets])
+    return gamma, alphas, offsets
 
 
 hsmm_log_scan_wide.launches = 0
 
 
 def hsmm_forward_scan_wide(trans, init, dur, emit):
-    """``hsmm_forward_scan`` for a DP of C > 128 classes: alphas, no fold.
-    On CUDA tensors it launches csrc/hsmm_scan_wide.cu's forward
-    instance on the route ``wide_scan_instance`` picks; on CPU tensors it
-    runs ``_gamma_scan_plain`` in the log semiring."""
+    """``hsmm_forward_scan`` for a DP of C > 128 classes: (alphas,
+    offsets), folded. On CUDA tensors it launches csrc/hsmm_scan_wide.cu's
+    forward instance on the route ``wide_scan_instance`` picks; on CPU
+    tensors it runs ``_forward_scan_plain``."""
     if _device_type(emit) == "cpu":
-        return _gamma_scan_plain(trans, init, dur, emit, True, "log")[1]
+        return _forward_scan_plain(trans, init, dur, emit)
     alphas = torch.empty_like(emit)
+    offsets = emit.new_empty((emit.shape[0], fold_blocks(emit.shape[1])))
     hsmm_forward_scan_wide.launches += _launch_wide_scan(
-        "hsmm_forward_scan_wide", "hsmm_wide_forward_scan", trans, init, dur, emit, [alphas])
-    return alphas
+        "hsmm_forward_scan_wide", "hsmm_wide_forward_scan", trans, init, dur, emit,
+        [alphas, offsets])
+    return alphas, offsets
 
 
 hsmm_forward_scan_wide.launches = 0
@@ -1231,20 +1239,21 @@ class GradBand(NamedTuple):
     y_shift: torch.Tensor  # (B, T, C) float64: cum[s] - cum[s's chunk start]; None: no fold
 
 
-def _grad_band_inputs(pots: HsmmPotentials, lengths, gamma, offsets, lse):
+def _grad_band_inputs(pots: HsmmPotentials, lengths, gamma, offsets, lse, chunk=BAND_CHUNK):
     """The band gradient's inputs (``GradBand``) from the stacked
     log-semiring scan (gamma and offsets of its 2B chains) and the forward
     chains' finals' LSE (B,), so that G1m[s] + band[j] + G2p[s+j+1] is a
-    log span posterior.
+    log span posterior, in chunks of `chunk` rows (the backward's
+    BAND_CHUNK; a card test takes T, one chunk a video, to reach K4 wide's
+    runs that meet by tickets).
 
-    Where no block of the chains folded (above 128 classes, the wide
-    route, whose scans do not fold; or T <= SCAN_FOLD) one chunk:
+    Where no block of the chains folded (T <= SCAN_FOLD) one chunk:
     ``_band_inputs`` with -lse (= -logZ) folded into G1, in float32, as
     before the fold. Else the pieces come back to float64 with their
     chains' offsets: G1 = F - cum and G2 = cum + S2 - logZ, F with the forward
     chain's offset Of, S2 with the reversed chain's Or, logZ = lse + Of(L
     - 1), the emission prefix sums cum taken in float64. A video's rows
-    split into chunks of BAND_CHUNK rows from its first frame, each a
+    split into chunks of `chunk` rows from its first frame, each a
     video of the launch of its own rows and a halo of Km rows past them
     (their G1m BIG_NEG: the chunks after it own those starts). A chunk
     starting at t0 is anchored by A = cum[t0] - Fref (per class; Fref =
@@ -1253,11 +1262,11 @@ def _grad_band_inputs(pots: HsmmPotentials, lengths, gamma, offsets, lse):
     scores over a chunk, not over the video; their sum is the same
     posterior. Masked rows are BIG_NEG as in ``_band_inputs``."""
     B, T, C = pots.emit.shape
-    if C > MAX_CLASSES or T <= SCAN_FOLD:
+    if T <= SCAN_FOLD:
         G1, G2p, band = _band_inputs(pots, lengths, gamma)
         return GradBand((G1 - lse[:, None, None]).contiguous(), G2p, band, 1, T, None, None)
     dtype, Km = pots.emit.dtype, pots.lens.shape[1] - 1
-    N = BAND_CHUNK  # rows a chunk owns
+    N = chunk  # rows a chunk owns
     n = max(1, -(-T // N))
     L = lengths[:, None]
     # every chain's offset at each step, and each row s's forward offset

@@ -38,15 +38,15 @@ entry point) go through ``centre_emissions``: the DP over emissions
 shifted frame by frame to a best class of 0, which float32 needs at the
 D=300 emission scale, with the shift's offset added back to logZ.
 
-Up to 128 classes the log scans fold their carry every SCAN_FOLD steps
-and return each chain's offsets beside planes relative to them
-(``hsmm_cuda._scan_plain``): logZ is the finals' LSE plus the forward
-chain's offset at the video's last frame, added in float64, and the
-backward forms its band inputs and exponents from float64 pieces
-anchored per chunk (``hsmm_cuda._grad_band_inputs``), so that no float32
-value grows with the video's length. Where no chain folds (above 128
-classes, where the scans keep zero offsets, or up to SCAN_FOLD frames)
-the backward keeps its float32 form.
+At every width (K2 log and K1, and above 128 classes the wide scans) the
+log scans fold their carry every SCAN_FOLD steps and return each chain's
+offsets beside planes relative to them (``hsmm_cuda._scan_plain``): logZ
+is the finals' LSE plus the forward chain's offset at the video's last
+frame, added in float64, and the backward forms its band inputs and
+exponents from float64 pieces anchored per chunk
+(``hsmm_cuda._grad_band_inputs``; K4 or its wide kernel reads the same
+chunks), so that no float32 value grows with the video's length. Where no
+chain folds (up to SCAN_FOLD frames) the backward keeps its float32 form.
 """
 
 from typing import Callable, NamedTuple

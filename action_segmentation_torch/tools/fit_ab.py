@@ -8,7 +8,7 @@ each streaming (``--sm_device_resident_mb 0``) and resident, none with
 --data_parallel. Run from the repository root on a machine with a CUDA
 card:
 
-    python3 -m action_segmentation_torch.tools.fit_ab --old_tree OLD_DIR [--rounds N] [--wide [--repeats 3] | --step [--steps 20]] [--out ab.json]
+    python3 -m action_segmentation_torch.tools.fit_ab --old_tree OLD_DIR [--rounds N] [--wide [--repeats 3] | --step [--steps 20] [--classes 19]] [--out ab.json]
 
 With ``--wide`` the legs are instead ``chip_smoke.py`` phase 4i(b)'s
 serving over all 342 S6 classes: phase 4c's release, the S6 flags with
@@ -23,8 +23,13 @@ With ``--step`` the leg is instead ``chip_smoke.py`` phase 4b's training
 step: an unsupervised model of the synthetic corpus (C=19, K=20, D=300)
 taking forward, backward, clip and Adam steps on one serving batch (B=18,
 T=1024) already on the card, `--steps` steps a window on CUDA events,
-three windows, the least kept (the old tree's ``chip_smoke.py`` must have
-``sm_args`` and ``cuda_ms``, as from the training slice's commit on).
+three windows, the least kept, and the card's peak memory allocated over
+them (the old tree's ``chip_smoke.py`` must have ``sm_args`` and
+``cuda_ms``, as from the training slice's commit on). ``--classes
+342,1577`` takes the same step at each of those widths instead, one
+after another in each turn (a wide DP: W1 log, K4 wide), on the most
+videos up to 18 whose (B, T, C, C) pair exponent in the backward's
+transition cotangent fits 16 GiB (18 at 342 classes, 1 at 1,577).
 
 OLD_DIR is a checkout of an earlier commit, for example ``git archive
 <commit> | tar -x -C OLD_DIR`` into a directory that .gitignore lists; its
@@ -142,43 +147,58 @@ from action_segmentation_torch.data.synthetic import SyntheticDatasplit
 from action_segmentation_torch.models.base import clip_grads, make_optimizer
 from action_segmentation_torch.models.semimarkov import SemiMarkovModel
 from action_segmentation_torch.ops import _build
+from action_segmentation_torch.ops import hsmm_cuda as hc
 
 device = torch.device("cuda")
-_build.build(["hsmm_scan", "band_grad"])
-train = SyntheticDatasplit(seed=0, num_videos=36, n_classes=cs.C, max_len=cs.T, span_k=cs.K,
-                           feature_dim=cs.D, shift=1.0)
-model = SemiMarkovModel.from_args(cs.sm_args(epochs=1), train, device=device)
-rng = np.random.RandomState(3)
-B, T, C = cs.B, cs.T, cs.C
-batch = (torch.from_numpy(rng.randn(B, T, cs.D).astype(np.float32)).to(device),
-         torch.full((B,), T, dtype=torch.int32, device=device),
-         torch.arange(C, device=device), torch.arange(C, device=device),
-         torch.zeros((B, T), dtype=torch.long, device=device),
-         torch.zeros((B, T, C), device=device), torch.zeros((B, C), device=device),
-         torch.ones((B,), device=device))
-params = list(model.module.parameters())
-optimizer, _ = make_optimizer(model.args, params)
+counted = ("hsmm_log_scan", "hsmm_band_grad", "hsmm_log_scan_wide", "hsmm_band_grad_wide")
+classes = [int(c) for c in sys.argv[2].split(",")]
+_build.build(["hsmm_scan", "band_grad"] + (["hsmm_scan_wide"] if max(classes) > 128 else []))
+out = {}
+for C in classes:
+    train = SyntheticDatasplit(seed=0, num_videos=36, n_classes=C, max_len=cs.T, span_k=cs.K,
+                               feature_dim=cs.D, shift=1.0)
+    model = SemiMarkovModel.from_args(cs.sm_args(epochs=1), train, device=device)
+    rng = np.random.RandomState(3)
+    # the backward's (B, T, C, C) pair exponent within 16 GiB
+    T = cs.T
+    B = max(1, min(cs.B, 2 ** 32 // (T * C * C)))
+    batch = (torch.from_numpy(rng.randn(B, T, cs.D).astype(np.float32)).to(device),
+             torch.full((B,), T, dtype=torch.int32, device=device),
+             torch.arange(C, device=device), torch.arange(C, device=device),
+             torch.zeros((B, T), dtype=torch.long, device=device),
+             torch.zeros((B, T, C), device=device), torch.zeros((B, C), device=device),
+             torch.ones((B,), device=device))
+    params = list(model.module.parameters())
+    optimizer, _ = make_optimizer(model.args, params)
 
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        loss, _ = model._loss(*batch, use_labels=False)
+        loss.backward()
+        clip_grads(params, model.args.max_grad_norm)
+        optimizer.step()
 
-def step():
-    optimizer.zero_grad(set_to_none=True)
-    loss, _ = model._loss(*batch, use_labels=False)
-    loss.backward()
-    clip_grads(params, model.args.max_grad_norm)
-    optimizer.step()
-
-
-windows = [cs.cuda_ms(step, int(sys.argv[1])) for _ in range(3)]
-print("FIT_AB " + json.dumps({"train step": {"wall_s": min(windows) / 1e3, "ms": windows}}),
-      flush=True)
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for n in counted:
+        getattr(hc, n).launches = 0
+    windows = [cs.cuda_ms(step, int(sys.argv[1])) for _ in range(3)]
+    name = "train step" if classes == [cs.C] else "train step C={}".format(C)
+    out[name] = {"wall_s": min(windows) / 1e3, "ms": windows, "B": B, "T": T,
+                 "peak_mib": torch.cuda.max_memory_allocated(device) / 2 ** 20,
+                 "launches": {n: getattr(hc, n).launches for n in counted}}
+    del model, optimizer, params, batch, train
+    torch.cuda.empty_cache()
+print("FIT_AB " + json.dumps(out), flush=True)
 """
 
 
-def turn(tree, wide=False, repeats=3, step=False, steps=20):
+def turn(tree, wide=False, repeats=3, step=False, steps=20, classes="19"):
     """One turn in `tree`: {case: {wall_s, frames_per_s, ...}}."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
     if step:
-        code = [_STEP_TURN, str(steps)]
+        code = [_STEP_TURN, str(steps), classes]
     else:
         code = [_WIDE_TURN, str(repeats)] if wide else [_TURN]
     proc = subprocess.run([sys.executable, "-c", *code], cwd=tree, env=env,
@@ -200,6 +220,8 @@ def main(argv=None):
     cli.add_argument("--step", action="store_true",
                      help="phase 4b's unsupervised training step at the serving shape")
     cli.add_argument("--steps", type=int, default=20)
+    cli.add_argument("--classes", default="19",
+                     help="--step: the model's classes, one or several, comma-separated")
     cli.add_argument("--out", default=None)
     opts = cli.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -209,7 +231,7 @@ def main(argv=None):
              ("old", opts.old_tree)] * opts.rounds
     turns = []
     for which, tree in order:
-        rec = turn(tree, opts.wide, opts.repeats, opts.step, opts.steps)
+        rec = turn(tree, opts.wide, opts.repeats, opts.step, opts.steps, opts.classes)
         turns.append((which, rec))
         print(which, json.dumps(rec), flush=True)
     summary = {}
@@ -221,11 +243,16 @@ def main(argv=None):
                          "new_over_old": means["new"] / means["old"],
                          "least_new_over_old": min(walls["new"]) / min(walls["old"]),
                          "busy": {w: [rec[case].get("busy_share") for which, rec in turns
-                                      if which == w] for w in ("old", "new")}}
-        print("{}: old {} s, new {} s, new/old {:.4f} (means), {:.4f} (least); {}".format(
+                                      if which == w] for w in ("old", "new")},
+                         "peak_mib": {w: [rec[case].get("peak_mib") for which, rec in turns
+                                          if which == w] for w in ("old", "new")}}
+        print("{}: old {} s, new {} s, new/old {:.4f} (means), {:.4f} (least){}; {}".format(
             case, ["{:.4f}".format(x) for x in walls["old"]],
             ["{:.4f}".format(x) for x in walls["new"]], summary[case]["new_over_old"],
-            summary[case]["least_new_over_old"], smi), flush=True)
+            summary[case]["least_new_over_old"],
+            "" if turns[0][1][case].get("peak_mib") is None else "; peak MiB old {}, new {}".format(
+                summary[case]["peak_mib"]["old"], summary[case]["peak_mib"]["new"]), smi),
+            flush=True)
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump({"device": smi, "order": [w for w, _ in order], "turns": turns,

@@ -117,32 +117,22 @@ count warps alone, rule, warps, warps, rule from graphs, fm equal to
 the plain version's in both.
 
 The wide scans (``--kernels wide``, never with the others) take an
-earlier ``hsmm_scan_wide.cu`` whose past-the-cluster route is one block a
-chain (the L2 route: ``git show
-73d2b7b:action_segmentation_torch/csrc/hsmm_scan_wide.cu``, its entry
-points taking pointers to the transposed tables, init, dur, emit, the
-outputs and the ring's scratch or null, then N, T, C, Km, [radix,] 0 for
-that route, the slab, the shared memory and the chains a table), launched
-as ``scan_floor.earlier_l2_launch`` sizes it. Step 0 comes first: the
-earlier kernels' floors from their SASS (``scan_floor.wide_floors``) and
-each earlier kernel timed alone at each shape (old, old); with
-``--step0`` nothing current is built. Otherwise the empty-step probe
-times the current grid route's barrier alone (``hsmm_wide_grid_barrier``,
-T = 1,024 steps at one block an SM and at each shape's grid), then the
-current kernels on the route ``wide_scan_instance`` picks are checked
-equal to the earlier ones and timed old, new, new, old with CUDA events
-launched one by one (a launch is milliseconds), at C = 665, 1,024, 1,577
-(B = 18, T = 1,024, K = 20, the timed shape; at 1,577 a second tiling of
-the grid route, 18 chains a block, in turns beside it: new, alt, alt,
-new), 2,048 and 664 at Km = 19 (256 frames): the max and forward scans on
-18 chains of one expanded table, the log scan on the 36 stacked chains
-of two (the table and its transpose, ``_stack_fwd_rev``), both versions
-given the same tables. Last, as a finding, the grid route where the
-cluster route runs (C = 342 at the S6 shape, 664 at K = 2): cluster,
-grid, grid, cluster. It prints ms and us a step, each version's floor
-(the grid route's with the probe's barrier) and each time's ratio to it.
-The tables' layouts, which the wrapper makes each call, are made once,
-outside the timed windows.
+earlier ``hsmm_scan_wide.cu`` of the current interface (the cluster and
+grid routes, from commit 39d6789's source on; an earlier source is
+refused: its library lacks ``hsmm_wide_grid_barrier``), whose log scans
+fold where its library exports ``hsmm_wide_fold_steps`` (for example
+``git show e050508:action_segmentation_torch/csrc/hsmm_scan_wide.cu``,
+which does not). At the S6 shape and at B = 18, T = 1,024, C = 1,577,
+K = 20, each version's log and forward scans on the first 128 frames
+are held equal to the plain scan with or without the fold as the
+version computes it (offsets included), the max scans equal across the
+versions, then old, new, new, old with CUDA events on the route
+``wide_scan_instance`` picks (the max and forward scans on 18 chains of
+one expanded table, the log scan on the 36 stacked chains of two); and
+K4 wide on each version's band inputs (one chunk a video where the
+version does not fold, chunks of 16 rows where it does), qg, sa and st
+equal to the plain version's, old, new, new, old from replayed graphs.
+About 3 minutes of command time.
 
 A thread reads the SM clock through NVML every 5 ms; each result lists
 the readings taken inside its timed windows, old and new apart. Prints the
@@ -183,7 +173,6 @@ from action_segmentation_torch.tools.scan_floor import (
     band_grad_wide_floor,
     band_grad_wide_issue_ms,
     chain_cycles,
-    earlier_l2_launch,
     library_sass,
     max_sm_clock_mhz,
     parse_function,
@@ -192,7 +181,6 @@ from action_segmentation_torch.tools.scan_floor import (
     traceback_wide_floor_ms,
     wide_duration_loop,
     wide_first_tile_bytes,
-    wide_floors,
 )
 from action_segmentation_torch.utils.misc import host_ms
 
@@ -291,23 +279,16 @@ BAND_MAX_RULE_SHAPES = [
     ("B=9", 9, 1024, 19, 20, None),
     ("C=48", 18, 1024, 48, 20, None),
 ]
-# the wide scans' shapes past the cluster route: (name, B, T, C, K); the
-# log scan runs on the 2B stacked chains
-WIDE_SHAPES = [
-    ("C=665", 18, 1024, 665, 20),
-    ("C=1024", 18, 1024, 1024, 20),
-    ("timed C=1577", 18, 1024, 1577, 20),
-    ("C=2048", 18, 256, 2048, 20),
-    ("C=664 Km=19", 18, 256, 664, 20),  # past the cluster route's ring at Km = 19
-]
-# the grid route where the cluster route runs (a finding): (name, B, T, C, K)
-WIDE_CLUSTER_SHAPES = [("S6 C=342", 18, 1024, 342, 20), ("C=664 Km=1", 18, 256, 664, 2)]
-# the timed shape's second tiling: chains a block (max and forward, log)
-WIDE_ALT_CHAINS = {"viterbi": 18, "forward": 18, "log": 9}
-# (scan, symbol, outputs: "g" gamma, "a" alphas, "b" codes)
+# (scan, symbol, outputs: "g" gamma, "a" alphas, "b" codes; a source whose
+# wide log scans fold also writes "o" offsets after them)
 WIDE_SCANS = [("viterbi", "hsmm_wide_viterbi_scan", "ab"),
               ("log", "hsmm_wide_log_scan", "ga"),
               ("forward", "hsmm_wide_forward_scan", "a")]
+# the wide scans and K4 wide against an earlier source: (name, B, T, C, K);
+# each version's log and forward scans held to the plain scan, with or
+# without the fold, on the first WIDE_CHECK_T frames
+WIDE_SHAPES = [("S6 C=342", 18, 1024, 342, 20), ("timed C=1577", 18, 1024, 1577, 20)]
+WIDE_CHECK_T = 128
 N_GRAPH = 50  # step 0's launches in one graph
 RTOL, ATOL = 1e-5, 1e-4
 # (scan, symbol, library, outputs: "g" gamma, "a" alphas, "b" codes, "-" none;
@@ -325,6 +306,27 @@ def folds(csrc):
     (and so takes their offsets output)."""
     header = csrc / "hsmm_scan_core.cuh"
     return header.exists() and "kFold" in header.read_text()
+
+
+def wide_folds(lib):
+    """True where the wide scans' library `lib` folds the log scans' carry
+    (it exports ``hsmm_wide_fold_steps``; its log scans then take their
+    offsets output). Raises for a library of the earlier L2 route."""
+    if not hasattr(lib, "hsmm_wide_grid_barrier"):
+        raise RuntimeError("the earlier hsmm_scan_wide.cu is not of the current interface (the "
+                           "cluster and grid routes, from commit 39d6789's source on)")
+    if not hasattr(lib, "hsmm_wide_fold_steps"):
+        return False
+    steps = ctypes.c_int.in_dll(lib, "hsmm_wide_fold_steps").value
+    if steps != hc.SCAN_FOLD:
+        raise RuntimeError("the library folds every {} steps, not {}".format(steps, hc.SCAN_FOLD))
+    return True
+
+
+def wide_kind(scan, kind, folded):
+    """A wide scan's outputs in a version: the offsets after the log scans'
+    planes where its source folds."""
+    return kind + "o" if folded and scan != "viterbi" else kind
 
 
 class SmClock:
@@ -1346,24 +1348,19 @@ def compare_ring(fn, inputs, clock):
             for st in order]
 
 
-def wide_launcher(fn, inputs, kind, inst, old):
+def wide_launcher(fn, inputs, kind, inst):
     """(run, outputs): one launch of a wide scan `fn` on (trans, init, dur,
     emit) on `inst`'s launch, the chains sharing tables as the inputs
     give them (``hsmm_cuda._wide_tables``); the tables' layout (transposed
-    for the cluster route and the earlier L2 route, rows padded for the
-    grid route) and the scratch made once here. The earlier interface has
-    no exchange rows, counter or chains a block."""
+    for the cluster route, rows padded for the grid route) and the scratch
+    made once here."""
     trans, init, dur, emit = inputs
     N, T, C = emit.shape
     Km = dur.shape[1]
     tables, group = hc._wide_tables("scan_ab", trans, N, C)
     outs = outputs_for(kind, emit)
     radix = [hc.code_radix(C)] if "b" in kind else []
-    if old:  # the earlier L2 route: one block a chain
-        ring = emit.new_empty((N, Km, C)) if inst.ring == "global" else None
-        held = [tables.transpose(1, 2).contiguous(), init, dur, emit, *outs, ring]
-        ints = [N, T, C, Km, *radix, 0, C, inst.smem_bytes, group]
-    elif inst.route == "cluster":
+    if inst.route == "cluster":
         held = [tables.transpose(1, 2).contiguous(), init, dur, emit, *outs, None, None, None]
         ints = [N, T, C, Km, *radix, inst.cluster, inst.slab, 1, inst.smem_bytes, group]
     else:
@@ -1384,15 +1381,16 @@ def wide_launcher(fn, inputs, kind, inst, old):
     return run, outs
 
 
-def compare_wide(runs, window_ms, clock, order):
-    """Outputs equal across the versions, then ms from CUDA events over
-    `order`'s turns, each window about `window_ms`, and the SM clock
-    readings inside each version's windows."""
+def compare_wide(runs, window_ms, clock, order, same=True):
+    """Outputs equal across the versions (where `same`: they compute one
+    function), then ms from CUDA events over `order`'s turns, each window
+    about `window_ms`, and the SM clock readings inside each version's
+    windows."""
     for run, _ in runs.values():
         run()
     torch.cuda.synchronize()
     names = list(runs)
-    for v in names[1:]:
+    for v in names[1:] if same else ():
         for a, b in zip(runs[names[0]][1], runs[v][1]):
             if not torch.equal(a, b):
                 raise RuntimeError("{} and {} differ at {} of {} entries".format(
@@ -1408,132 +1406,130 @@ def compare_wide(runs, window_ms, clock, order):
     return r
 
 
-def barrier_probe(lib, blocks, threads, T, clock):
-    """us a step of T grid barriers alone (``hsmm_wide_grid_barrier``) in a
-    cooperative grid of `blocks` blocks of `threads` threads, twice, and
-    the SM clock readings inside."""
-    fn = bind(lib, "hsmm_wide_grid_barrier", 1, 3)
-    counter = torch.zeros(1, dtype=torch.int32, device="cuda")
-
-    def run():
-        err = fn(counter.data_ptr(), blocks, threads, T, counter.device.index,
-                 torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError("barrier probe failed with CUDA error {}".format(err))
+def check_wide_plain(name, fn, inputs, kind, inst, plain):
+    """One launch of a wide log or forward scan on `inputs` (the first
+    frames of a shape), each output equal to `plain`'s (gamma, alphas,
+    offsets of the plain scan on the same chains, with or without the
+    fold, as the version computes); raises naming `name`."""
+    run, outs = wide_launcher(fn, inputs, kind, inst)
     run()
-    timed = [event_ms(run, 20) for _ in range(2)]
-    return {"blocks": blocks, "threads": threads, "T": T,
-            "us_per_step": [1e3 * ms / T for ms, _ in timed],
-            "sm_mhz": clock_summary(clock.within([win for _, win in timed]))}
+    torch.cuda.synchronize()
+    for k, out in zip(kind, outs):
+        want = plain["gao".index(k)]
+        if not torch.equal(out, want):
+            raise RuntimeError("{}: {} differs from the plain scan at {} of {} entries".format(
+                name, k, int((out != want).sum()), out.numel()))
 
 
-def wide_inputs(B, T, C, K, rng, device):
+def wide_inputs(pots, L):
     """{scan: inputs}: the forward chains of one expanded table (the max
     and forward scans, as the spans chain and the primal give them) and
     the stacked forward and reversed chains of two (the log scan)."""
-    stacked, forward = scan_inputs(B, T, C, K, None, rng, device)
-    forward = (stacked[0][0], *forward[1:])  # the model's expanded table
+    B = pots.emit.shape[0]
+    stacked = hc._stack_fwd_rev(pots, L)
+    forward = (stacked[0][0], *(x[:B] for x in stacked[1:]))  # one expanded table
     return {"viterbi": forward, "forward": forward, "log": stacked}
 
 
-def run_wide(old_lib, new_lib, window_ms, clock, rng, device, old_sass, new_sass):
-    """The wide scans: step 0's floors of the earlier kernels and their
-    times alone; with `new_lib` None nothing more. Else the barrier probe,
-    then at WIDE_SHAPES old, new, new, old on the route
-    ``wide_scan_instance`` picks (at the timed shape a second tiling
-    beside it), and at WIDE_CLUSTER_SHAPES the grid route against the
-    cluster route. Returns (results, probes)."""
-    mhz = max_sm_clock_mhz()
+def k4_wide_inputs(pots, L, log_out):
+    """K4 wide's inputs from a log scan's (gamma, alphas[, offsets]) of the
+    stacked chains, as the backward forms them: one chunk a video in
+    float32 where the scan does not fold (the wide route before the fold),
+    else the chunks of ``_grad_band_inputs``."""
+    B = pots.emit.shape[0]
+    gamma, alphas = log_out[:2]
+    if len(log_out) == 2:
+        lse = torch.logsumexp(_finals(alphas[:B], L, pots.end_mask), dim=-1)
+        G1, G2p, band = hc._band_inputs(pots, L, gamma)
+        return (G1 - lse[:, None, None]).contiguous(), G2p, band
+    lse, _ = _log_partition(alphas[:B], log_out[2][:B], L, pots.end_mask)
+    gb = hc._grad_band_inputs(pots, L, gamma, log_out[2], lse)
+    return gb.G1m, gb.G2p, gb.band
+
+
+def run_wide(old_lib, new_lib, window_ms, clock, rng, device):
+    """The wide scans against an earlier source of the current interface
+    at WIDE_SHAPES (B = 18, T = 1,024, K = 20): each version's log and
+    forward scans on the first WIDE_CHECK_T frames equal to the plain scan
+    (with the fold where the version folds, ``wide_folds``; the max scans,
+    and the log and forward scans where both fold, equal across the
+    versions), then old, new, new, old with CUDA events on the route
+    ``wide_scan_instance`` picks. Then K4 wide (its one source) on each
+    version's band inputs, from replayed graphs in the same turns: one
+    chunk a video where the version does not fold, the chunks of
+    BAND_CHUNK rows where it does; qg, sa and st equal to the plain
+    version's on each. Returns the results."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    results, probes = [], []
-    if new_lib is not None:
-        for threads in (32, 224, 448):
-            probes.append(barrier_probe(new_lib, sms, threads, 1024, clock))
-            print("grid barrier probe: {} blocks of {} threads, {} us a step; SM clock {}".format(
-                sms, threads, ["{:.3f}".format(x) for x in probes[-1]["us_per_step"]],
-                probes[-1]["sm_mhz"]), flush=True)
-    for shape, B, T, C, K in WIDE_SHAPES + (WIDE_CLUSTER_SHAPES if new_lib else []):
-        inputs = wide_inputs(B, T, C, K, rng, device)
+    folded = {"old": wide_folds(old_lib), "new": wide_folds(new_lib)}
+    results = []
+    for shape, B, T, C, K in WIDE_SHAPES:
+        pots, L = potentials(rng, B, T, C, K, np.full(B, T, np.int64), device)
+        inputs = wide_inputs(pots, L)
         Km = K - 1
-        cluster_shape = (shape, B, T, C, K) in WIDE_CLUSTER_SHAPES
-        old_floor = {} if cluster_shape else wide_floors(old_sass, C, Km, T, B, mhz, sms,
-                                                         earlier=True)
+        cut = (*inputs["log"][:3], inputs["log"][3][:, :WIDE_CHECK_T].contiguous())
+        plain = {f: hc._scan_plain(*cut, "log", fold=f) for f in set(folded.values())}
+        log_outs = {}
         for scan, symbol, kind in WIDE_SCANS:
             scan_in = inputs[scan]
             N = scan_in[3].shape[0]
-            n_ptr = 5 + len(kind)
             inst = hc.wide_scan_instance(C, Km, N, B, sms)
-            grid = hc.wide_grid_instance(C, Km, N, B, sms)
-            runs, order = {}, []
-            if not cluster_shape:
-                runs["old"] = wide_launcher(bind(old_lib, symbol, n_ptr, 8 + (kind == "ab")),
-                                            scan_in, kind, earlier_l2_launch(C, Km), old=True)
-            if new_lib is not None:
-                fn = bind(new_lib, symbol, n_ptr + 2, 9 + (kind == "ab"))
-                runs["new"] = wide_launcher(fn, scan_in, kind, inst, old=False)
-                if cluster_shape:
-                    runs["grid"] = wide_launcher(fn, scan_in, kind, grid, old=False)
-                    order = ["new", "grid", "grid", "new"]
-                else:
-                    order = ["old", "new", "new", "old"]
-                if shape.startswith("timed"):
-                    alt = hc.wide_grid_instance(C, Km, N, B, sms, chains=WIDE_ALT_CHAINS[scan])
-                    runs["alt"] = wide_launcher(fn, scan_in, kind, alt, old=False)
-                    order += ["new", "alt", "alt", "new"]
-            else:
-                order = ["old", "old"]
-            r = compare_wide(runs, window_ms, clock, order)
+            runs = {}
+            for v, lib in (("old", old_lib), ("new", new_lib)):
+                v_kind = wide_kind(scan, kind, folded[v])
+                fn = bind(lib, symbol, 7 + len(v_kind), 9 + (kind == "ab"))
+                runs[v] = wide_launcher(fn, scan_in, v_kind, inst)
+                if scan != "viterbi":
+                    want = plain[folded[v]]
+                    if scan == "forward":
+                        want = [None, *(x[:B] for x in want[1:])]
+                    check_wide_plain("{} {} {}".format(shape, v, scan), fn,
+                                     (*scan_in[:3], scan_in[3][:, :WIDE_CHECK_T].contiguous()),
+                                     v_kind, inst, want)
+            same = scan == "viterbi" or folded["old"] == folded["new"]
+            r = compare_wide(runs, window_ms, clock, ["old", "new", "new", "old"], same=same)
+            if scan == "log":
+                log_outs = {v: runs[v][1] for v in runs}
             r.update(shape=shape, scan=scan, chains=N, T=T, C=C, Km=Km, route=inst.route,
                      cluster=inst.cluster, slab=inst.slab, chains_per_block=inst.chains,
-                     blocks=inst.blocks, threads=inst.threads, table=inst.table, ring=inst.ring)
-            if "alt" in runs:
-                r.update(alt_chains_per_block=alt.chains, alt_slab=alt.slab,
-                         alt_table=alt.table)
-            if "grid" in runs:
-                r.update(grid_chains_per_block=grid.chains, grid_slab=grid.slab,
-                         grid_blocks=grid.blocks, grid_table=grid.table)
-            if old_floor:
-                r["old_floor_ms"] = old_floor["{} l2".format(scan)]["floor_ms"]
-                r["old_floor_ratio"] = np.mean(r["old_ms"]) / r["old_floor_ms"]
-            for v in runs:
-                r[v + "_us_per_step"] = 1e3 * np.mean(r[v + "_ms"]) / T
-            if new_sass is not None:
-                barrier = next((p["us_per_step"][-1] for p in probes
-                                if p["threads"] == inst.threads), None)
-                if barrier is None and probes:
-                    barrier = min(x for p in probes for x in p["us_per_step"])
-                try:
-                    floor = wide_floors(new_sass, C, Km, T, B, mhz, sms,
-                                        barrier_us=barrier or 0.0)["{} {}".format(scan, inst.route)]
-                except ValueError as e:  # a loop the reader does not recognise
-                    print("scan_ab: the new {} {}'s floor not read: {}".format(scan, inst.route, e),
-                          flush=True)
-                else:
-                    r.update(new_floor_ms=floor["floor_ms"],
-                             new_floor_ratio=np.mean(r["new_ms"]) / floor["floor_ms"],
-                             new_floor_barrier_us=floor["barrier_us_per_step"])
-                if "old" in runs:
-                    r["speedup"] = np.mean(r["old_ms"]) / np.mean(r["new_ms"])
+                     blocks=inst.blocks, threads=inst.threads, table=inst.table, ring=inst.ring,
+                     old_folds=folded["old"],
+                     change=np.mean(r["new_ms"]) / np.mean(r["old_ms"]) - 1)
             results.append(r)
             print("{:14s} wide {:8s} N={:2d} T={:5d} C={:4d} Km={:2d}, {} (cluster {}, {} chains "
-                  "x {} classes a block, {} blocks of {} threads, table {}, ring {}): {}; outputs "
-                  "equal{}{}; SM clock {}".format(
-                      shape, scan, N, T, C, Km, inst.route, inst.cluster, inst.chains, inst.slab,
-                      inst.blocks, inst.threads, inst.table, inst.ring,
-                      "; ".join("{} {} ms ({:.3f} us a step)".format(
-                          v, ["{:.4f}".format(x) for x in r[v + "_ms"]],
-                          r[v + "_us_per_step"]) for v in runs),
-                      "" if not old_floor else "; old floor {:.4f} ms (x{:.2f})".format(
-                          r["old_floor_ms"], r["old_floor_ratio"]),
-                      "" if "new_floor_ms" not in r else
-                      "; new floor {:.4f} ms with {:.3f} us a step of barrier (x{:.2f}){}".format(
-                          r["new_floor_ms"], r["new_floor_barrier_us"], r["new_floor_ratio"],
-                          "; x{:.2f} faster than old".format(r["speedup"]) if "speedup" in r
-                          else ""),
-                      "; ".join("{} {}-{} MHz ({} readings)".format(
-                          v, r[v + "_sm_mhz"].get("min"), r[v + "_sm_mhz"].get("max"),
-                          r[v + "_sm_mhz"]["n"]) for v in runs)), flush=True)
-    return results, probes
+                  "x {} classes a block, {} blocks): old {} ms, new {} ms ({:+.2%}); log and "
+                  "forward outputs each equal to its plain scan on {} frames{}; SM clock old {}, "
+                  "new {}".format(
+                      shape, scan, N, T, C, Km, inst.route, inst.cluster, inst.chains,
+                      inst.slab, inst.blocks, ["{:.4f}".format(x) for x in r["old_ms"]],
+                      ["{:.4f}".format(x) for x in r["new_ms"]], r["change"], WIDE_CHECK_T,
+                      ", outputs equal across the versions" if same else "",
+                      r["old_sm_mhz"], r["new_sm_mhz"]), flush=True)
+        # K4 wide on each version's band inputs (full-length log scans)
+        k4_in = {v: k4_wide_inputs(pots, L, outs) for v, outs in log_outs.items()}
+        runs = {}
+        for v, band_in in k4_in.items():
+            check_band_grad_plain("{} K4 wide on {}'s inputs".format(shape, v),
+                                  hc.hsmm_band_grad_wide(*band_in), hc._band_grad_plain(*band_in))
+            runs[v] = lambda band_in=band_in: hc.hsmm_band_grad_wide(*band_in)
+        timed = [(v, *graph_ms(runs[v], N_GRAPH)) for v in ("old", "new", "new", "old")]
+        r = {"shape": shape, "scan": "K4 wide", "chains": B, "T": T, "C": C, "Km": Km,
+             "launches": N_GRAPH}
+        for v in runs:
+            G1m = k4_in[v][0]
+            r[v + "_ms"] = [ms for w, ms, _ in timed if w == v]
+            r[v + "_inputs"] = list(G1m.shape)
+            r[v + "_chunks"] = G1m.shape[0] // B
+            r[v + "_sm_mhz"] = clock_summary(clock.within([win for w, _, win in timed if w == v]))
+        r["change"] = np.mean(r["new_ms"]) / np.mean(r["old_ms"]) - 1
+        results.append(r)
+        print("{:14s} K4 wide B={} T={} C={} Km={}: on {} chunk(s) a video ({} rows) {} ms, on {} "
+              "chunks ({} rows) {} ms ({:+.2%}; graphs of {}, old, new, new, old); qg/sa/st equal "
+              "to plain on both; SM clock old {}, new {}".format(
+                  shape, B, T, C, Km, r["old_chunks"], r["old_inputs"][1],
+                  ["{:.5f}".format(x) for x in r["old_ms"]], r["new_chunks"], r["new_inputs"][1],
+                  ["{:.5f}".format(x) for x in r["new_ms"]], r["change"], N_GRAPH,
+                  r["old_sm_mhz"], r["new_sm_mhz"]), flush=True)
+    return results
 
 
 def main():
@@ -1542,16 +1538,16 @@ def main():
     parser.add_argument("--kernels", choices=("all", "scans", "traceback", "band_grad",
                                               "band_max", "wide"), default="all")
     parser.add_argument("--step0", action="store_true",
-                        help="--kernels wide, traceback or band_grad: the earlier kernels "
-                             "alone (band_grad: and its split), nothing current built")
+                        help="--kernels traceback or band_grad: the earlier kernels alone "
+                             "(band_grad: and its split), nothing current built")
     parser.add_argument("--shapes", nargs="+", default=None,
                         help="--kernels scans: these SHAPES names only (default: all)")
     parser.add_argument("--out", type=Path, default=None)
     parser.add_argument("--window_ms", type=float, default=100.0)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
-    if args.step0 and args.kernels not in ("wide", "traceback", "band_grad"):
-        parser.error("--step0 takes --kernels wide, traceback or band_grad")
+    if args.step0 and args.kernels not in ("traceback", "band_grad"):
+        parser.error("--step0 takes --kernels traceback or band_grad")
     if not torch.cuda.is_available():
         print("scan_ab: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1575,7 +1571,7 @@ def main():
     rng = np.random.RandomState(args.seed)
     results, tb_results, bg_results, bm_results, rule_results = [], [], [], [], []
     step_loops = []
-    wide_results, wide_probes = [], []
+    wide_results = []
     bg_opcodes = {}
 
     def clk(s):
@@ -1598,11 +1594,8 @@ def main():
 
     with SmClock(device.index or 0) as clock:
         if args.kernels == "wide":
-            old_sass = library_sass(args.old_csrc / "build" / "libhsmm_scan_wide.so")
-            wide_results, wide_probes = run_wide(
-                old_libs["hsmm_scan_wide"], new_libs.get("hsmm_scan_wide"), args.window_ms,
-                clock, rng, device, old_sass,
-                None if args.step0 else built_sass("hsmm_scan_wide"))
+            wide_results = run_wide(old_libs["hsmm_scan_wide"], new_libs["hsmm_scan_wide"],
+                                    args.window_ms, clock, rng, device)
         if args.kernels == "band_max":
             fns = {"old": bind(old_libs["band_max"], "hsmm_band_max", 4, 5),
                    "new": bind(new_libs["band_max"], "hsmm_band_max", 4, 8)}
@@ -1682,8 +1675,7 @@ def main():
            "results": results, "step_loops": step_loops, "traceback": tb_results,
            "band_grad": bg_results,
            "band_grad_loop_opcodes": bg_opcodes,
-           "band_max": bm_results, "band_max_rule": rule_results, "wide": wide_results,
-           "wide_barrier_probe": wide_probes}
+           "band_max": bm_results, "band_max_rule": rule_results, "wide": wide_results}
     if args.out is not None:
         os.makedirs(args.out.parent, exist_ok=True)
         args.out.write_text(json.dumps(out, indent=1))
@@ -1705,9 +1697,7 @@ def main():
                       "band_max_rule": [{k: v for k, v in r.items() if k not in (
                           "rule_sm_mhz", "warps_sm_mhz")} for r in rule_results],
                       "wide_ab": [{k: v for k, v in r.items() if not k.endswith("_sm_mhz")}
-                                  for r in wide_results],
-                      "wide_barrier_probe": [{k: v for k, v in p.items() if k != "sm_mhz"}
-                                             for p in wide_probes]}))
+                                  for r in wide_results]}))
     return 0
 
 

@@ -378,17 +378,15 @@ def check_equal(name, got, want):
         name, int((got != want).sum()), got.numel()))
 
 
-def grad_inputs(pots, lengths, gamma, alphas, offsets=None):
+def grad_inputs(pots, lengths, gamma, alphas, offsets):
     """K4's inputs (G1m, G2p, band) as the partition's backward forms them
-    (``_grad_band_inputs``: a launch over each video's chunks up to 128
-    classes) from a log scan's planes of the stacked chains and their
-    offsets (None: a wide scan's, which does not fold)."""
-    from action_segmentation_torch.ops.hsmm_cuda import _grad_band_inputs, fold_blocks
+    (``_grad_band_inputs``: a launch over each video's chunks, at every
+    width) from a log scan's planes of the stacked chains and their
+    offsets."""
+    from action_segmentation_torch.ops.hsmm_cuda import _grad_band_inputs
     from action_segmentation_torch.ops.hsmm_grad import _log_partition
 
     B = pots.emit.shape[0]
-    if offsets is None:
-        offsets = gamma.new_zeros((gamma.shape[0], fold_blocks(gamma.shape[1])))
     lse, _ = _log_partition(alphas[:B], offsets[:B], lengths, pots.end_mask)
     gb = _grad_band_inputs(pots, lengths, gamma, offsets, lse)
     return gb.G1m, gb.G2p, gb.band
@@ -3393,12 +3391,35 @@ def run_dp_slice(device, root, models, resident_cases, mixed, smi):
 # the wide kernels' cases, (C, Km) with Km = K - 1 duration rows, at B_WIDE
 # videos of T_WIDE[C] frames, ragged down to 1: the plain log scan is a
 # Python loop over C, so the log scans' cases stay at T <= 256 (they are
-# checked at the S6 shape at T_S6_LOG). 664 and 665 are the widest DP the
-# wide scans' cluster route takes (at Km = 1) and the next, on the grid route
+# checked at the S6 shape at T_S6_LOG), each past SCAN_FOLD = 64 frames so
+# that the log scans fold. 664 and 665 are the widest DP the wide scans'
+# cluster route takes (at Km = 1) and the next, on the grid route. Km = 64
+# takes K4 wide's slab past its 27 durations (Km = 25, a case of the narrow
+# template's carry, is not one for the wide kernels' rings, and left out to
+# hold the smoke's wall with the longer cases)
 WIDE_CLASSES = (129, 342, 664, 665, 1024)
-WIDE_KMS = (1, 19, 25, 64)
+WIDE_KMS = (1, 19, 64)
 B_WIDE = 4
-T_WIDE = {129: 256, 342: 128, 664: 64, 665: 64, 1024: 64}
+T_WIDE = {129: 256, 342: 128, 664: 80, 665: 80, 1024: 80}
+# the long wide case against float64 (tests/test_torch_wide_long_video.py's
+# draws at T = 4,096): d300_case's seed-10 draws at B=1, C=136 (a cluster
+# of one block), K=20; the centred kernel path within the narrow route's
+# T=4,096 bounds
+WIDE_LONG = dict(b=1, t=4096, c=136)
+WIDE_LONG_BOUNDS = dict(gap=0.02, emit=0.02)
+# the wide kernels' times before the wide fold (PERF.md §6), printed beside
+# this run's: W1 log and fwd at the S6 shape (the cluster route as of commit
+# b8d2282, the same source through e050508) and at B=18, T=1024, C=1,577
+# (phase 4j(c); the grid route as of 39d6789, the same through e050508), K4
+# wide on one chunk a video (phase 4i(d); as of bcac8be, on the inputs
+# e050508 gave it above 128 classes); NVIDIA H100 80GB HBM3, 700 W
+WIDE_EARLIER_MS = {"hsmm_log_scan_wide": 6.934, "hsmm_forward_scan_wide": 6.891,
+                   "hsmm_band_grad_wide": 0.4153}
+PAST_EARLIER_MS = {"hsmm_log_scan_wide": 86.97, "hsmm_forward_scan_wide": 40.22,
+                   "hsmm_band_grad_wide": 1.7754}
+# segment_with_marginals' max |sum_c marginal - 1| in phases 4i(b) and 4j(b)
+# before the wide fold (commits c6fe124 and e050508; PERF.md §6)
+WIDE_GAPS_BEFORE = {"wide": 0.00249, "past1024": 0.00600}
 # the S6 model's classes: 18 tasks x (2 x 9 steps + 1)
 C_S6 = 342
 T_S6_LOG = 256
@@ -3458,14 +3479,37 @@ def grid_launches(trans, N, C, Km, device):
     return out
 
 
+def class_folds(emit):
+    """How often a log scan's classes fold their own prefix sums on
+    `emit` (N, T, C): the (chain, step, class) triples where |cum| passes
+    SCAN_FOLD_LIMIT after the step's alpha (``hsmm_cuda._scan_plain``; the
+    prefix sums alone decide it, the chain's fold resetting them)."""
+    import torch
+
+    from action_segmentation_torch.ops.hsmm_cuda import SCAN_FOLD, SCAN_FOLD_LIMIT
+
+    Tn = emit.shape[1]
+    cum = torch.zeros_like(emit[:, 0])
+    fired = torch.zeros((), dtype=torch.long, device=emit.device)
+    for t in range(Tn):
+        cum = cum + emit[:, t]
+        big = cum.abs() > SCAN_FOLD_LIMIT
+        fired += big.sum()
+        cum = torch.where(big, torch.zeros_like(cum), cum)
+        if t % SCAN_FOLD == SCAN_FOLD - 1:
+            cum = torch.zeros_like(cum)
+    return int(fired)
+
+
 def wide_kernel_case(name, pots, lengths, log_cut=None):
     """The wide kernels (W1's three instances, W2, K4's) at C > 128
     against their plain versions on the same inputs, each equal: the
     backpointer scan (alphas and codes) and the traceback on the forward
-    model; the log scan (gamma, alphas) on the stacked forward and
-    reversed chains (an expanded table's two) and the forward scan on the
-    forward half (the plain forward scan is that half of the plain log
-    scan's alphas), each through its wrapper on the route it picks and,
+    model; the log scan (gamma, alphas, offsets: the fold included) on the
+    stacked forward and reversed chains (an expanded table's two) and the
+    forward scan (alphas, offsets) on the forward half (the plain forward
+    scan is that half of the plain log scan's), each through its wrapper on
+    the route it picks and,
     on the card, on the grid route's launches (``grid_launches``: the
     rule's where the cluster route runs, the table slab and ring in global
     memory, the chains split); K4 (its wide kernel) on the kernel log
@@ -3510,24 +3554,28 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
     check_equal(name + " wide traceback spans", spans_k, spans_p)
 
     scan_in = _stack_fwd_rev(pots, L)
-    gamma_k, alphas2_k = hsmm_log_scan_wide(*scan_in)
+    log_k = hsmm_log_scan_wide(*scan_in)
     cut = scan_in if log_cut is None else (*scan_in[:3], scan_in[3][:, :log_cut].contiguous())
-    cut_k = hsmm_log_scan_wide(*cut) if log_cut is not None else (gamma_k, alphas2_k)
-    gamma_p, alphas2_p, _ = _log_scan_plain(*cut)
+    cut_k = hsmm_log_scan_wide(*cut) if log_cut is not None else log_k
+    log_p = _log_scan_plain(*cut)
     fwd_in = _forward_chains(cut, Bn)
-    af_k = hsmm_forward_scan_wide(*fwd_in)
+    fwd_k = hsmm_forward_scan_wide(*fwd_in)
+    fwd_p = (log_p[1][:Bn], log_p[2][:Bn])
     torch.cuda.synchronize()
-    check_equal(name + " wide log scan gamma", cut_k[0], gamma_p)
-    check_equal(name + " wide log scan alphas", cut_k[1], alphas2_p)
-    check_equal(name + " wide forward scan alphas", af_k, alphas2_p[:Bn])
+    for what, k, p in zip(("gamma", "alphas", "offsets"), cut_k, log_p):
+        check_equal("{} wide log scan {}".format(name, what), k, p)
+    for what, k, p in zip(("alphas", "offsets"), fwd_k, fwd_p):
+        check_equal("{} wide forward scan {}".format(name, what), k, p)
+    fired = class_folds(cut[3])
+    chain_folds = int((log_p[2][:, 1:] != 0).sum())
     inst = wide_scan_instance(Cn, Km)
     grids = 0
     if pots.emit.is_cuda:  # the same cases on the grid route's launches
         dev = pots.emit.device
         for symbol, inputs, want, ints in (
                 ("hsmm_wide_viterbi_scan", vit_in, (alphas_p, bp_p), [code_radix(Cn)]),
-                ("hsmm_wide_log_scan", cut, (gamma_p, alphas2_p), []),
-                ("hsmm_wide_forward_scan", fwd_in, (alphas2_p[:Bn],), [])):
+                ("hsmm_wide_log_scan", cut, log_p, []),
+                ("hsmm_wide_forward_scan", fwd_in, fwd_p, [])):
             N = inputs[3].shape[0]
             for grid in grid_launches(inputs[0], N, Cn, Km, dev):
                 outs = [torch.empty_like(w) for w in want]
@@ -3540,24 +3588,73 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
                                     grid.ring, grid.launch_chains), got, w)
                 grids += 1
 
-    grad_in = grad_inputs(pots, L, gamma_k, alphas2_k)
+    grad_in = grad_inputs(pots, L, *log_k)
     bg_k = hsmm_band_grad(*grad_in)
     bg_p = _band_grad_plain(*grad_in)
     torch.cuda.synchronize()
-    check_band_grad(name + " band grad", bg_k, bg_p)
+    check_band_grad("{} band grad ({} chunks)".format(name, grad_in[0].shape[0] // Bn), bg_k,
+                    bg_p)
     errs = {"viterbi_scan": max_err(alphas_k, alphas_p), "traceback": 0.0,
-            "log_scan": max(max_err(cut_k[0], gamma_p), max_err(cut_k[1], alphas2_p)),
-            "forward_scan": max_err(af_k, alphas2_p[:Bn]),
+            "log_scan": max(max_err(k, p) for k, p in zip(cut_k, log_p)),
+            "forward_scan": max(max_err(k, p) for k, p in zip(fwd_k, fwd_p)),
             "band_grad": max(max_err(k, p) for k, p in zip(bg_k, bg_p))}
     phase("wide", "(a) {}: B={} T={} C={} Km={} lengths {}-{}: {} route (cluster {}, slab {}), "
           "and {} grid-route launches: viterbi scan alphas and codes, traceback spans ({} "
-          "segments), log scan gamma and alphas{} and forward alphas equal to the plain "
-          "versions; band grad qg/sa/st equal, lg max_abs_err {:g}".format(
+          "segments), log scan gamma, alphas and offsets{} and forward alphas and offsets "
+          "equal to the plain versions (the chains' folds {}, the classes' own {} of {} "
+          "(chain, step, class)); band grad on {} chunks a video qg/sa/st equal, lg "
+          "max_abs_err {:g}".format(
               name, Bn, Tn, Cn, Km, int(L.min()), int(L.max()), inst.route,
               inst.cluster, inst.slab, grids,
               int((spans_k >= 0).sum()), "" if log_cut is None else " (first {} frames)".format(
-                  log_cut), errs["band_grad"]))
+                  log_cut), chain_folds, fired, cut[3].numel(), grad_in[0].shape[0] // Bn,
+              errs["band_grad"]))
     return errs, vit_in, tb_in, scan_in, fwd_in, grad_in
+
+
+def wide_long_case(device):
+    """The long wide case (WIDE_LONG: B=1, T=4,096, C=136, K=20 at the
+    D=300 scale) through the kernels, the wide log scan on a cluster of one
+    block and K4's wide kernel on 256 chunks of 16 rows: the model's path
+    (centred) and the kernels as is (uncentred) against the Function's
+    PLAIN path in float64 on the CPU. The centred errors must meet
+    WIDE_LONG_BOUNDS. Returns {"centred", "as is": errors, "s"}."""
+    import torch
+
+    from action_segmentation_torch.ops import hsmm_cuda as hc
+    from action_segmentation_torch.ops.hsmm_grad import PLAIN
+
+    t0 = time.perf_counter()
+    p, L = d300_case(device, **WIDE_LONG)
+    Cn = p.emit.shape[-1]
+    inst = hc.wide_scan_instance(Cn, K - 1, 2, 2)
+    check(inst.route == "cluster" and inst.cluster == 1,
+          "the long wide case takes {} (cluster {}), not a cluster of one".format(
+              inst.route, inst.cluster))
+    got, n = counted(lambda: centred_grads(p, L))
+    as_is = partition_grads(p, L)
+    card = device.type == "cuda"
+    check(not card or n["hsmm_log_scan_wide"] == n["hsmm_band_grad_wide"] == 1
+          and all(n[k] == 0 for k in NARROW_NAMES),
+          "the long wide case's launches {}".format(n))
+    cpu = torch.device("cpu")
+    want = partition_grads(type(p)(*(x.double().to(cpu) for x in p)), L.to(cpu), PLAIN)
+    out = {"centred": float64_errors("long wide case centred", [g.to(cpu) for g in got], want,
+                                     L.to(cpu)),
+           "as is": float64_errors("long wide case as is", [g.to(cpu) for g in as_is], want,
+                                   L.to(cpu), finite=False)}
+    out["s"] = time.perf_counter() - t0
+    phase("wide", "(a) long case B={} T={} C={} K={} D={} (the {} route, a cluster of {}; K4 wide "
+          "on {} chunks of {} rows), the kernel path against the PLAIN path in float64: "
+          "centred {}; as is {}; bounds {}; launches {}; {:.1f} s".format(
+              *p.emit.shape, K, D, inst.route, inst.cluster, -(-p.emit.shape[1] // hc.BAND_CHUNK),
+              hc.BAND_CHUNK, *("{" + ", ".join("{} {:g}".format(k, v) for k, v in out[w].items())
+                               + "}" for w in ("centred", "as is")),
+              WIDE_LONG_BOUNDS, {k: v for k, v in n.items() if v}, out["s"]))
+    for name, bound in WIDE_LONG_BOUNDS.items():
+        check(out["centred"][name] <= bound, "the long wide case's centred {} error {:g} is above "
+              "{:g}".format(name, out["centred"][name], bound))
+    return out
 
 
 def labels_or_ties(name, pots, lengths, got, want, gaps=None):
@@ -3629,7 +3726,7 @@ def marginals_against_float64(seg, features, marg, device, uncentred=True):
 
 def run_wide_slice(device, root, smi):
     """Phase 4i: a DP wider than 128 classes. (a) The wide kernels (K4's
-    among them) at C = 129, 342 and 1,024 and Km = 1, 19, 25 and 64 (ragged lengths
+    among them) at C = 129, 342, 664, 665 and 1,024 and Km = 1, 19 and 64 (ragged lengths
     down to 1) and at the S6 shape, each equal to its plain version. (b)
     The S6 model over all 342 classes: the S6 flags with --mix_tasks on
     phase 4c's release, a closed-form fit, pickled, served by
@@ -3719,6 +3816,7 @@ def run_wide_slice(device, root, smi):
         "S6 shape", *s6_pots, log_cut=T_S6_LOG)
     for k, v in case.items():
         errs[k] = max(errs.get(k, 0.0), v)
+    long_case = wide_long_case(device)
     a_s = time.perf_counter() - t_phase
 
     # (b) the S6 model over all 342 classes, served by Segmenter.load
@@ -3811,9 +3909,9 @@ def run_wide_slice(device, root, smi):
     phase("wide", "(b) segment_with_marginals on the 3 shortest val videos ({} frames) in "
           "{:.4f} s = {:.0f} frames/s: labels == segment_many's, marginals vs PLAIN (both "
           "centred) on the card max_abs_err {} (rtol {} / atol {}), max |sum_c marginal - 1| "
-          "{}; launches {}".format(
+          "{} (before the wide fold {}); launches {}".format(
               marg_frames, marg_s, marg_frames / marg_s, marg_errs, GRAD_RTOL, GRAD_ATOL, gaps,
-              {k: v for k, v in n_marg.items() if v}))
+              WIDE_GAPS_BEFORE["wide"], {k: v for k, v in n_marg.items() if v}))
     marg_fp64 = marginals_against_float64(seg, feats[order[0]], marg_out[0][1], device)
     phase("wide", "(b) segment_with_marginals over {} classes on the shortest val video against "
           "the PLAIN path in float64: {}".format(C_S6, marg_fp64))
@@ -3920,9 +4018,13 @@ def run_wide_slice(device, root, smi):
             [hc.code_radix(C_S6)]), 10, warmup=1),
         "hsmm_log_scan_wide": cuda_ms(on_grid(
             "hsmm_wide_log_scan", scan_in, [torch.empty_like(scan_in[3]),
-                                            torch.empty_like(scan_in[3])]), 10, warmup=1),
+                                            torch.empty_like(scan_in[3]),
+                                            scan_in[3].new_empty((n2, hc.fold_blocks(T)))]),
+            10, warmup=1),
         "hsmm_forward_scan_wide": cuda_ms(on_grid(
-            "hsmm_wide_forward_scan", fwd6, [torch.empty_like(fwd6[3])]), 10, warmup=1),
+            "hsmm_wide_forward_scan", fwd6, [torch.empty_like(fwd6[3]),
+                                             fwd6[3].new_empty((B, hc.fold_blocks(T)))]),
+            10, warmup=1),
     }
     floors = wide_floors(built_sass("hsmm_scan_wide"), C_S6, Km, T, B, clock_mhz, sms) \
         if card else {}
@@ -3972,7 +4074,8 @@ def run_wide_slice(device, root, smi):
                          tb_chain, ring.stages, ring.rows, W2_EARLIER_MS, W2_EARLIER_MS / ms))
         if name == "hsmm_band_grad_wide":
             entry.update({k: v for k, v in k4.items() if k not in entry})
-            extra = k4_wide_line(k4)
+            extra = k4_wide_line(k4) + " (on {} chunks of {} rows a video)".format(
+                grad_in[0].shape[0] // B, grad_in[0].shape[1])
         if name in floor_of and card:
             fl = floors["{} {}".format(floor_of[name], s6.route)]
             entry.update(scan_route=s6.route, cluster=s6.cluster, floor_ms=fl["floor_ms"],
@@ -3983,12 +4086,15 @@ def run_wide_slice(device, root, smi):
                          s6.route, s6.cluster, 1e3 * ms / T, fl["floor_ms"], ms / fl["floor_ms"],
                          round(fl["instructions_per_step"]), fl["chain_cycles_per_step"],
                          fl["warps_per_scheduler"], grid_ms[name], grid_ms[name] / ms))
+        if name in WIDE_EARLIER_MS:
+            extra += "; before the wide fold {} ms ({:.3f}x this)".format(
+                WIDE_EARLIER_MS[name], WIDE_EARLIER_MS[name] / ms)
         entries.append(entry)
         phase("wide", "(d) {} at {}: {:.5f} ms{}{} (plain {:.4f} ms), bound {:.6f} ms by {} "
               "({:.0f}x), launches on the slice {}; {}".format(
                   name, tuple(shape), ms, " (a CUDA graph of {})".format(N_TIMED)
-                  if "traceback" in name or "band_grad" in name else "", extra, plain_ms, b_ms,
-                  b_by, ms / b_ms, launches[name], smi))
+                  if "traceback" in name or "band_grad" in name else "", extra, plain_ms,
+                  b_ms, b_by, ms / b_ms, launches[name], smi))
     phase_s = time.perf_counter() - t_phase
     phase("wide", "phase 4i: {:.3f} s ((a) {:.3f} s)".format(phase_s, a_s))
     e2e = {"wide_segment_many_frames_per_s": frames / seg_s,
@@ -3998,6 +4104,7 @@ def run_wide_slice(device, root, smi):
            "wide_routes": routes, "wide_max_active_clusters": active,
            "wide_marginals_frames_per_s": marg_frames / marg_s,
            "wide_marginal_sum_gap": max(gaps), "wide_fit_losses": losses,
+           "wide_long_case": long_case,
            "wide_fit_frames_per_s": fit_frames / fit_s, "wide_phase_s": phase_s,
            "wide_launches": launches}
     return e2e, entries
@@ -4012,7 +4119,7 @@ def run_wide_slice(device, root, smi):
 # shared memory by the rule at these 4 videos, in global memory on the
 # launches beside it (``grid_launches``)
 PAST_CLASSES = (1025, 1577, 2048, 3000)
-PAST_KMS = (1, 20, 64)
+PAST_KMS = (1, 64)
 T_PAST = {1025: 64, 1577: 64, 2048: 48, 3000: 32}
 # the primary + related model: 83 tasks x (2 x 9 steps + 1)
 C_ALL = 1577
@@ -4039,7 +4146,7 @@ def run_past_1024_slice(device, root, smi):
     """Phase 4j: a DP wider than 1,024 classes. (a) The wide kernels (W1's
     three instances on the grid route; W2 at radix 2,048 and 4,096; K4's
     wide kernel) at
-    C = 1,025, 1,577, 2,048 and 3,000 and Km = 1, 20 and 64, ragged
+    C = 1,025, 1,577, 2,048 and 3,000 and Km = 1 and 64, ragged
     lengths down to 1, each equal to its plain version. (b) The S6 flags
     with --mix_tasks --crosstask_training_data primary related on a
     release of the 18 primary and 65 related tasks written under `root`:
@@ -4048,8 +4155,9 @@ def run_past_1024_slice(device, root, smi):
     segment_many over every val video against the same Segmenter's plain
     chain on the card and, on the 3 shortest, against the CPU Segmenter
     (labels equal but at float64-verified ties), through the wide kernels
-    only; segment_with_marginals on the 3 shortest against the PLAIN
-    Function on the card. (c) At B=18, T=1024, C=1,577, K=20 each wide
+    only; segment_with_marginals on the 3 shortest (labels, shape and the
+    marginal sums' gap), the shortest against the PLAIN Function on the
+    card. (c) At B=18, T=1024, C=1,577, K=20 each wide
     kernel's time (K4's wide kernel's among them, with its lg scratch and
     its floor with the cross-tile sum, beside the narrow kernel in its own
     tile) beside its plain version's, its bound and its floor from the
@@ -4245,24 +4353,29 @@ def run_past_1024_slice(device, root, smi):
               "segment_many's for {}".format(keys[i]))
         check(marg.shape == (f.shape[0], C_ALL) and np.isfinite(marg).all(),
               "segment_with_marginals marginals of {}".format(keys[i]))
-        # on the Segmenter's own potentials, centred as it centres them
+        gaps.append(float(np.abs(marg.sum(axis=1) - 1).max()))
+        if i != order[0]:
+            continue
+        # on the Segmenter's own potentials, centred as it centres them; the
+        # shortest video alone (the plain log scan's Python loop over 1,577
+        # classes takes about 20 s a video)
         pots, lb = video_pots(seg, f, device)
         plain = hsmm_frame_marginals_fast(centre_emissions(pots, lb)[0], lb, PLAIN)
         assert_close("segment_with_marginals {} vs PLAIN".format(keys[i][1]),
                      torch.from_numpy(marg).to(device), plain[0, :f.shape[0]], GRAD_RTOL,
                      GRAD_ATOL)
         marg_errs.append(max_err(torch.from_numpy(marg).to(device), plain[0, :f.shape[0]]))
-        gaps.append(float(np.abs(marg.sum(axis=1) - 1).max()))
     check(not card or n_marg["hsmm_log_scan_wide"] == n_marg["hsmm_band_grad_wide"] == 3
           and n_marg["hsmm_viterbi_scan_wide"] == n_marg["hsmm_viterbi_traceback_wide"] == 3
           and all(n_marg[k] == 0 for k in NARROW_NAMES),
           "segment_with_marginals launches {}".format(n_marg))
     phase("past1024", "(b) segment_with_marginals on the 3 shortest val videos ({} frames) in "
           "{:.4f} s = {:.0f} frames/s: labels == segment_many's, marginals vs PLAIN (both "
-          "centred) on the card max_abs_err {} (rtol {} / atol {}), max |sum_c marginal - 1| "
-          "{}; launches {}".format(marg_frames, marg_s, marg_frames / marg_s, marg_errs,
-                                   GRAD_RTOL, GRAD_ATOL, gaps,
-                                   {k: v for k, v in n_marg.items() if v}))
+          "centred) on the card, the shortest video, max_abs_err {} (rtol {} / atol {}), max "
+          "|sum_c marginal - 1| "
+          "{} (before the wide fold {}); launches {}".format(
+              marg_frames, marg_s, marg_frames / marg_s, marg_errs, GRAD_RTOL, GRAD_ATOL, gaps,
+              WIDE_GAPS_BEFORE["past1024"], {k: v for k, v in n_marg.items() if v}))
     marg_fp64 = marginals_against_float64(seg, feats[order[0]], marg_out[0][1], device,
                                           uncentred=False)
     phase("past1024", "(b) segment_with_marginals over {} classes on the shortest val video "
@@ -4290,7 +4403,8 @@ def run_past_1024_slice(device, root, smi):
     vit_p = hc._viterbi_scan_plain(*copied_in)
     torch.cuda.synchronize()
     for what, a, b in (("alphas", vit_s[0], vit_c[0]), ("codes", vit_s[1], vit_c[1]),
-                       ("forward alphas", fwd_s, fwd_c)):
+                       ("forward alphas", fwd_s[0], fwd_c[0]),
+                       ("forward offsets", fwd_s[1], fwd_c[1])):
         check_equal("shared table vs a table a chain: " + what, a, b)
     check_equal("C={} viterbi scan alphas".format(C_ALL), vit_s[0], vit_p[0])
     check_equal("C={} viterbi scan codes".format(C_ALL), vit_s[1], vit_p[1])
@@ -4305,23 +4419,35 @@ def run_past_1024_slice(device, root, smi):
     n_segments, longest = int(per_video.sum()), int(per_video.max())
     scan_in = hc._stack_fwd_rev(pots, L)  # the two tables, each read by B chains
     scan_copied = (hc._dense_trans(scan_in[0]).contiguous(), *scan_in[1:])  # a table a chain
-    gamma_k, alphas_k = hc.hsmm_log_scan_wide(*scan_in)
+    log_k = hc.hsmm_log_scan_wide(*scan_in)
     log_c = hc.hsmm_log_scan_wide(*scan_copied)
     cut = (*scan_in[:3], scan_in[3][:, :T_PLAIN_LOG].contiguous())
     cut_k = hc.hsmm_log_scan_wide(*cut)
-    cut_p = hc._log_scan_plain(*cut)
+    held = []  # the plain log scan's one run, timed: (c)'s plain time below
+    plain_log_ms = cuda_ms(lambda: held.append(hc._log_scan_plain(*cut)), 1, warmup=0)
+    cut_p = held[0]
+    fwd_cut = hc._forward_chains(cut, B)
+    fwd_cut_k = hc.hsmm_forward_scan_wide(*fwd_cut)
     torch.cuda.synchronize()
-    check_equal("two shared tables vs a table a chain: log gamma", gamma_k, log_c[0])
-    check_equal("two shared tables vs a table a chain: log alphas", alphas_k, log_c[1])
+    for what, a, b in zip(("gamma", "alphas", "offsets"), log_k, log_c):
+        check_equal("two shared tables vs a table a chain: log " + what, a, b)
     del log_c
     log_ab = alternating_ms({"shared": lambda: hc.hsmm_log_scan_wide(*scan_in),
                              "copied": lambda: hc.hsmm_log_scan_wide(*scan_copied)}, 1)
-    check_equal("C={} log scan gamma (first {} frames)".format(C_ALL, T_PLAIN_LOG), cut_k[0],
-                cut_p[0])
-    check_equal("C={} log scan alphas (first {} frames)".format(C_ALL, T_PLAIN_LOG), cut_k[1],
-                cut_p[1])
-    fwd_cut = hc._forward_chains(cut, B)
-    grad_in = grad_inputs(pots, L, gamma_k, alphas_k)
+    for what, k, p in zip(("gamma", "alphas", "offsets"), cut_k, cut_p):
+        check_equal("C={} log scan {} (first {} frames, two shared tables)".format(
+            C_ALL, what, T_PLAIN_LOG), k, p)
+    for what, k, p in zip(("alphas", "offsets"), fwd_cut_k, (cut_p[1][:B], cut_p[2][:B])):
+        check_equal("C={} forward scan {} (first {} frames, one shared table)".format(
+            C_ALL, what, T_PLAIN_LOG), k, p)
+    cut_fired = class_folds(cut[3])
+    phase("past1024", "(c) the log scan ({} chains, two shared tables) and the forward scan "
+          "({} chains, one) at C={} on the grid route equal to their plain versions on the first "
+          "{} frames, offsets included (the chains' folds {}, the classes' own {} of {} "
+          "(chain, step, class))".format(2 * B, B, C_ALL, T_PLAIN_LOG,
+                                         int((cut_p[2][:, 1:] != 0).sum()), cut_fired,
+                                         cut[3].numel()))
+    grad_in = grad_inputs(pots, L, *log_k)
     bg_k, bg_p = hc.hsmm_band_grad(*grad_in), hc._band_grad_plain(*grad_in)
     torch.cuda.synchronize()
     check_band_grad("C={} band grad".format(C_ALL), bg_k, bg_p)
@@ -4371,8 +4497,8 @@ def run_past_1024_slice(device, root, smi):
             bound(8 * B * T + 8 * n_segments + 16 * B, 4 * n_segments), tb_floor,
             tuple(tb_in[0].shape)),
         "hsmm_log_scan_wide": (
-            min(log_ab["shared"]), cuda_ms(lambda: hc._log_scan_plain(*cut), 1, warmup=0),
-            T_PLAIN_LOG, scan_bound(2 * B, 2), floors.get("log grid", {}).get("floor_ms"),
+            min(log_ab["shared"]), plain_log_ms, T_PLAIN_LOG, scan_bound(2 * B, 2),
+            floors.get("log grid", {}).get("floor_ms"),
             tuple(scan_in[3].shape)),
         "hsmm_forward_scan_wide": (
             min(fwd_ab["shared"]), cuda_ms(lambda: hc._forward_scan_plain(*fwd_cut), 1,
@@ -4419,7 +4545,11 @@ def run_past_1024_slice(device, root, smi):
             entries[name].update({"past_1024_" + k: v for k, v in k4.items()
                                   if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "floor_ms")})
-            extra = k4_wide_line(k4)
+            extra = k4_wide_line(k4) + " (on {} chunks of {} rows a video)".format(
+                grad_in[0].shape[0] // B, grad_in[0].shape[1])
+        if name in PAST_EARLIER_MS:
+            extra += "; before the wide fold {} ms ({:.3f}x this)".format(
+                PAST_EARLIER_MS[name], PAST_EARLIER_MS[name] / ms)
         phase("past1024", "(c) {} at {}: {:.5f} ms, {:.4f} us a step, plain {:.4f} ms (at {} "
               "frames), bound {:.6f} ms by {} ({:.0f}x), floor {}, launches on the phase's "
               "path {}{}; {}".format(

@@ -85,6 +85,19 @@ def test_wide_band_grad_tile_at_the_timed_shapes():
     assert hc.band_grad_wide_tile(18, 1024, 342, 19, sms=66).tiles != s6.tiles
 
 
+@pytest.mark.parametrize("C,blocks", [(129, 5760), (342, 12672), (1577, 57600)])
+def test_wide_band_grad_tile_on_the_backwards_chunks(C, blocks):
+    """The backward's band inputs at every width are a video's chunks of
+    BAND_CHUNK rows, each a video of its own rows and a halo of Km (18
+    videos of 1,024 frames at Km = 19: 1,152 of 35 rows): one run a
+    chunk, every duration in the slab, no partials and no ticket, and a
+    block for every resident slot of the card many times over."""
+    n = -(-1024 // hc.BAND_CHUNK)
+    tile = hc.band_grad_wide_tile(18 * n, hc.BAND_CHUNK + 19, C, 19, SMS)
+    assert (tile.rows, tile.tiles, tile.slab, tile.scratch_bytes) == (35, 1, 19, 0)
+    assert 18 * n * tile.groups == blocks and tile.waves == -(-blocks // (SMS * 8))
+
+
 @pytest.mark.parametrize("C", (19, 128, 129, 342, 1577))
 def test_band_grad_picks_its_kernel_by_the_class_count(monkeypatch, C):
     """``hsmm_band_grad`` on card tensors (the card stood in for) launches

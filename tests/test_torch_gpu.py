@@ -192,21 +192,24 @@ BAND_GRAD_SHAPES = SHAPES + SHORT_SHAPES + [
     (1, 12000, 19, 20)]
 
 
-def band_grad_inputs(B, T, C, K, device, seed, scan=hc._log_scan_plain):
+def band_grad_inputs(B, T, C, K, device, seed, scan=hc._log_scan_plain, chunk=None):
     """(G1m, G2p, band) as the partition's backward builds them, from the
     log scan `scan` (the plain version, or the kernel at a wide shape
-    whose plain scan is a long Python loop)."""
+    whose plain scan is a long Python loop), in chunks of `chunk` rows (by
+    default BAND_CHUNK; T: one chunk a video, whose rows K4's wide kernel
+    splits into runs that meet by tickets)."""
     pots, lengths = random_pots(np.random.RandomState(seed), B, T, C, K, device)
-    return grad_inputs(pots, lengths.long(), scan)
+    return grad_inputs(pots, lengths.long(), scan, chunk or hc.BAND_CHUNK)
 
 
-def grad_inputs(pots, lengths, scan=hc._log_scan_plain):
+def grad_inputs(pots, lengths, scan=hc._log_scan_plain, chunk=hc.BAND_CHUNK):
     """(G1m, G2p, band): the band gradient's launch over each video's
-    chunks as ``hg._cotangents`` forms it from the log scan `scan`."""
+    chunks of `chunk` rows as ``hg._cotangents`` forms it from the log
+    scan `scan`."""
     gamma, alphas, offsets = scan(*hc._stack_fwd_rev(pots, lengths))
     lse, _ = hg._log_partition(alphas[:pots.emit.shape[0]], offsets[:pots.emit.shape[0]],
                                lengths, pots.end_mask)
-    gb = hc._grad_band_inputs(pots, lengths, gamma, offsets, lse)
+    gb = hc._grad_band_inputs(pots, lengths, gamma, offsets, lse, chunk)
     return gb.G1m, gb.G2p, gb.band
 
 
@@ -1043,7 +1046,6 @@ def assert_wide_scans_equal_plain(scan_in):
     log_gamma, log_alphas, log_offsets = hc.hsmm_log_scan(*scan_in)
     fwd, fwd_offsets = hc.hsmm_forward_scan(*scan_in)
     assert [a - b for a, b in zip(launches(WIDE_KERNELS), before)] == [1, 1, 1, 0]
-    assert not log_offsets.any() and not fwd_offsets.any()  # the wide scans do not fold
     assert launches(NARROW_KERNELS) == narrow
     want_vit = hc._viterbi_scan_plain(*scan_in, radix=hc.code_radix(scan_in[3].shape[-1]))
     want_log = hc._log_scan_plain(*scan_in)
@@ -1052,7 +1054,9 @@ def assert_wide_scans_equal_plain(scan_in):
                            ("codes", bp, want_vit[1]),
                            ("log gamma", log_gamma, want_log[0]),
                            ("log alphas", log_alphas, want_log[1]),
-                           ("forward alphas", fwd, want_log[1])):
+                           ("log offsets", log_offsets, want_log[2]),
+                           ("forward alphas", fwd, want_log[1]),
+                           ("forward offsets", fwd_offsets, want_log[2])):
         assert torch.equal(got, exp), "{}: {} of {} differ".format(
             name, int((got != exp).sum()), got.numel())
     return bp
@@ -1275,9 +1279,9 @@ def test_wide_band_grad_route_matches_plain(cuda, B, T, C, K):
     st equal to the plain version's and lg the same in two runs (within
     the score tolerance of the plain sum), its partials within one plane,
     its counters back at 0."""
-    band_in = band_grad_inputs(B, T, C, K, cuda, B + C + K, scan=hc.hsmm_log_scan)
-    tile = hc.band_grad_wide_tile(B, T, C, K - 1, hc._sm_count(cuda.index or 0))
-    assert tile.scratch_bytes <= 4 * B * T * C
+    band_in = band_grad_inputs(B, T, C, K, cuda, B + C + K, scan=hc.hsmm_log_scan, chunk=T)
+    tile = hc.band_grad_wide_tile(*band_in[0].shape, K - 1, hc._sm_count(cuda.index or 0))
+    assert tile.scratch_bytes <= 4 * band_in[0].numel()
     if K == 101:
         assert tile.slab < K - 1  # several slabs
     assert_band_grad_matches_plain(band_in)
@@ -1288,8 +1292,8 @@ def test_wide_band_grad_in_a_cuda_graph(cuda):
     """The wide kernel captured in a CUDA graph (its counters made by a
     launch before the capture), replayed twice: the plain version's
     outputs (lg at the score tolerance), the same bits each replay."""
-    band_in = band_grad_inputs(2, 512, 342, 20, cuda, 11, scan=hc.hsmm_log_scan)
-    assert hc.band_grad_wide_tile(2, 512, 342, 19).tiles > 1  # the ticket runs
+    band_in = band_grad_inputs(2, 512, 342, 20, cuda, 11, scan=hc.hsmm_log_scan, chunk=512)
+    assert hc.band_grad_wide_tile(*band_in[0].shape, 19).tiles > 1  # the ticket runs
     hc.hsmm_band_grad(*band_in)
     torch.cuda.synchronize()
     before = hc.hsmm_band_grad_wide.launches
@@ -1317,8 +1321,8 @@ def test_wide_band_grad_launch_refuses_a_tile_that_does_not_fit(cuda):
     for its slab, more than 256 threads, no slab for a band, shared
     memory past a block's, or no partials for more than one run is
     refused, not run."""
-    band_in = band_grad_inputs(2, 256, 342, 20, cuda, 12, scan=hc.hsmm_log_scan)
-    tile = hc.band_grad_wide_tile(2, 256, 342, 19)
+    band_in = band_grad_inputs(2, 256, 342, 20, cuda, 12, scan=hc.hsmm_log_scan, chunk=256)
+    tile = hc.band_grad_wide_tile(*band_in[0].shape, 19)
     assert tile.tiles > 1
     for bad in (tile._replace(smem_bytes=tile.smem_bytes - 4),
                 tile._replace(warps=9, threads=288),
@@ -1468,13 +1472,15 @@ def test_wide_model_decodes_and_trains_on_the_card(cuda):
 ROUTE_CLASSES = (129, 236, 342, hc.WIDE_CLUSTER_MAX_CLASSES, hc.WIDE_CLUSTER_MAX_CLASSES + 1,
                  1024, 1025, 1577, 2048, 3000)
 ROUTE_KMS = (1, 19, 25, 64)
-WIDE_SCAN_CALLS = (("hsmm_wide_viterbi_scan", "ab"), ("hsmm_wide_log_scan", "ga"),
-                   ("hsmm_wide_forward_scan", "a"))
+# (symbol, outputs: "a" alphas, "b" codes, "g" gamma, "o" the offsets)
+WIDE_SCAN_CALLS = (("hsmm_wide_viterbi_scan", "ab"), ("hsmm_wide_log_scan", "gao"),
+                   ("hsmm_wide_forward_scan", "ao"))
 
 
 def wide_outputs(kind, emit):
+    shapes = {"o": (emit.shape[0], hc.fold_blocks(emit.shape[1]))}
     return [torch.empty(emit.shape, dtype=torch.int32, device=emit.device) if k == "b"
-            else torch.empty_like(emit) for k in kind]
+            else emit.new_empty(shapes.get(k, emit.shape)) for k in kind]
 
 
 def grid_variants(C, Km, N, group, sms):
@@ -1530,6 +1536,26 @@ def test_wide_scans_equal_plain_on_each_route(cuda, C, Km):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     insts = {hc.wide_scan_instance(C, Km, 6, 1, sms)} | grid_variants(C, Km, 6, 1, sms)
     assert_wide_launches_equal_plain(scan_in, insts)
+
+
+@pytest.mark.parametrize("C,unit", [(129, True), (342, True), (342, False), (665, True),
+                                    (665, False), (1577, False)])
+def test_wide_scans_fold_on_each_route(cuda, C, unit):
+    """Past SCAN_FOLD frames (T = 150, two folds) the wide log and
+    forward scans, on the route the rule picks and on the grid route's
+    launches, equal their plain versions with the fold, offsets included
+    (non-zero past the first column): at unit-scale emissions, where only
+    the chain folds, and at the D=300 scale (-400 nats a frame), where
+    each class's prefix sum passes SCAN_FOLD_LIMIT every few frames."""
+    Km, T = 19, 150
+    pots, lengths = random_pots(np.random.RandomState(C + unit), 2, T, C, Km + 1, cuda, unit)
+    scan_in = hc._stack_fwd_rev(pots, lengths.long())
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    insts = {hc.wide_scan_instance(C, Km, 4, 1, sms)} | grid_variants(C, Km, 4, 1, sms)
+    assert_wide_launches_equal_plain(scan_in, insts)
+    _, _, offsets = hc.hsmm_log_scan(*scan_in)
+    torch.cuda.synchronize()
+    assert offsets.shape == (4, 3) and (offsets[:, 1:] != 0).any()
 
 
 @pytest.mark.parametrize("C", (665, 1577))
@@ -1608,7 +1634,7 @@ def test_wide_scans_share_an_expanded_table(cuda, C, Km):
     copied = shared.contiguous()
     want = {"hsmm_wide_viterbi_scan": hc.hsmm_viterbi_scan_wide(copied, init, dur, emit),
             "hsmm_wide_log_scan": hc.hsmm_log_scan_wide(copied, init, dur, emit),
-            "hsmm_wide_forward_scan": (hc.hsmm_forward_scan_wide(copied, init, dur, emit),)}
+            "hsmm_wide_forward_scan": hc.hsmm_forward_scan_wide(copied, init, dur, emit)}
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for inst in {hc.wide_scan_instance(C, Km, N, N, sms)} | grid_variants(C, Km, N, N, sms):
         for symbol, kind in WIDE_SCAN_CALLS:

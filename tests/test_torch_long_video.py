@@ -1,5 +1,4 @@
-"""Long videos through the port's log-semiring DP up to 128 classes, held
-against float64.
+"""Long videos through the port's log-semiring DP, held against float64.
 
 The log scans (K2 log, K1; their plain versions on the CPU) fold their
 carry every SCAN_FOLD frames: the carry takes in the emission prefix sum
@@ -15,8 +14,10 @@ uncentred potentials (the exact answer) at 1,024, 4,096 and 12,000 frames,
 two and four warps' widths and a band past the carry's 24 register rows;
 the offsets at ragged lengths; T <= SCAN_FOLD against the scan before the
 fold, bit for bit; JAX's float32 partition at unit scale with folds in
-play; the chunks against one chunk in float64; and the wide and decode
-chains, which do not fold. Run with -s to print the numbers.
+play; the chunks against one chunk in float64; the wide chains, which fold
+and chunk as the narrow ones (tests/test_torch_wide_long_video.py holds
+them against float64), and decode's max chains, which do not fold. Run
+with -s to print the numbers.
 """
 
 import functools
@@ -312,24 +313,30 @@ def test_a_videos_gradient_does_not_depend_on_its_batch(monkeypatch):
 
 
 def test_wide_and_decode_chains_do_not_fold():
-    """Above 128 classes the log scans keep the scan before the fold (0
-    offsets) and the backward its float32 band inputs (one chunk, -logZ
-    on G1); the max scan of decode is the scan before the fold at any T."""
+    """Above 128 classes the log scans fold as the narrow ones do (the
+    plain scan with the fold, non-zero offsets past SCAN_FOLD frames, logZ
+    the finals' LSE plus the offset) and the backward reads chunks of
+    BAND_CHUNK rows anchored in float64, as the narrow route's; the max
+    scans of decode (the wide backpointer scan, the narrow gamma scan) are
+    the scan before the fold at any T."""
     arrays, lengths = arrays_np(np.random.RandomState(3), 2, 80, 130, 4, constrained=True)
+    lengths[0] = 80
     pots = th.HsmmPotentials(*map(torch.from_numpy, arrays))
     L = torch.from_numpy(lengths).long().clamp(min=1)
     scan_in = hc._stack_fwd_rev(pots, L)
     gamma, alphas, offsets = hc.hsmm_log_scan(*scan_in)
-    want_gamma, want_alphas = pr21_scan(*scan_in, "log")
-    assert torch.equal(gamma, want_gamma) and torch.equal(alphas, want_alphas)
-    assert offsets.shape == (4, 2) and (offsets == 0).all()
+    want = hc._scan_plain(*scan_in, "log", fold=True)
+    assert all(torch.equal(g, w) for g, w in zip((gamma, alphas, offsets), want))
+    assert offsets.shape == (4, 2) and (offsets[:, 0] == 0).all() and offsets[0, 1] != 0
     lse, logZ = hg._log_partition(alphas[:2], offsets[:2], L, pots.end_mask)
+    assert torch.equal(logZ, lse.double() + hc.chain_offsets(offsets[:2], L - 1))
     gb = hc._grad_band_inputs(pots, L, gamma, offsets, lse)
-    G1, G2p, band = hc._band_inputs(pots, L, gamma)
-    assert gb.chunks == 1 and gb.x_shift is None
-    assert torch.equal(gb.G1m, G1 - lse[:, None, None]) and torch.equal(gb.G2p, G2p)
-    assert torch.equal(logZ.float(), lse)
+    assert gb.chunks == 5 and gb.chunk == hc.BAND_CHUNK and gb.x_shift is not None
+    assert gb.G1m.shape == (10, hc.BAND_CHUNK + 3, 130)
 
+    fwd = tuple(x.contiguous() for x in hc._forward_chains(scan_in, 2))
+    vit_alphas, _ = hc.hsmm_viterbi_scan(*fwd)
+    assert torch.equal(vit_alphas, hc._scan_plain(*fwd, "max")[1])
     narrow = th.HsmmPotentials(*map(torch.from_numpy, arrays_np(
         np.random.RandomState(4), 2, 200, 7, 5, constrained=True)[0]))
     narrow_in = hc._stack_fwd_rev(narrow, L)

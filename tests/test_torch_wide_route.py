@@ -258,7 +258,8 @@ def test_grid_splits_a_batch_no_grid_holds(N, group):
 @pytest.mark.parametrize("shared", (False, True))
 def test_wide_launch_passes_the_route(monkeypatch, C, Km, symbol, kind, shared):
     """``_launch_wide_scan`` hands the cluster route trans transposed
-    ([from][to]) and null scratch, the grid route the tables' rows padded
+    ([from][to]) and null scratch (after the outputs: the log scans' planes
+    and then their offsets, as their wrappers pass them), the grid route the tables' rows padded
     to the table stride ([to][from]), the exchange rows (N, 2, stride), a
     ring scratch only where the ring is in global memory, and a counter;
     then N, T, C, Km, [radix,] the blocks a chain (0 for the grid route
@@ -280,6 +281,8 @@ def test_wide_launch_passes_the_route(monkeypatch, C, Km, symbol, kind, shared):
     dur = torch.zeros((N, Km, C))
     emit = torch.zeros((N, T, C))
     outs = [torch.empty((N, T, C)) for _ in kind]
+    if "b" not in kind:  # the log scans' offsets
+        outs.append(torch.empty((N, hc.fold_blocks(T))))
     radix = [hc.code_radix(C)] if "b" in kind else []
     assert hc._launch_wide_scan(symbol, symbol, trans, init, dur, emit, outs, radix) == 1
     (lib, sym, ptrs, ints), = calls
@@ -288,7 +291,8 @@ def test_wide_launch_passes_the_route(monkeypatch, C, Km, symbol, kind, shared):
     assert (lib, sym) == ("hsmm_scan_wide", symbol)
     tables = trans[:1] if shared else trans
     assert [p.data_ptr() for p in ptrs[1:4]] == [x.data_ptr() for x in (init, dur, emit)]
-    assert [p.data_ptr() for p in ptrs[4:4 + len(kind)]] == [o.data_ptr() for o in outs]
+    assert [p.data_ptr() for p in ptrs[4:4 + len(outs)]] == [o.data_ptr() for o in outs]
+    assert len(ptrs) == 4 + len(outs) + 3
     xchg, ring, counter = ptrs[-3:]
     if inst.route == "cluster":
         assert torch.equal(ptrs[0], tables.transpose(1, 2)) and ptrs[0].is_contiguous()
