@@ -1,7 +1,7 @@
 """The banded semi-Markov DP's hand-written CUDA kernels and their chains.
 
 Twin of ``action_segmentation_tpu/ops/hsmm_pallas.py``. Seven kernels,
-from four sources, for a DP of at most 128 classes:
+from four sources, for a DP of at most 128 classes, and one of any width:
 
   * ``hsmm_gamma_scan`` (csrc/hsmm_scan.cu, max semiring) — the forward
     scan over the forward model and the time-reversed model stacked on
@@ -20,7 +20,11 @@ from four sources, for a DP of at most 128 classes:
   * ``hsmm_viterbi_scan`` (csrc/hsmm_viterbi.cu) — the max scan that
     writes packed backpointer codes, and ``hsmm_viterbi_traceback``
     (the same source), which walks them into spans on the card; the
-    exact-spans decode.
+    exact-spans decode;
+  * ``hsmm_pair_grad`` (csrc/pair_grad.cu, any C) — the transition
+    cotangent, the pair posteriors of the interior boundaries summed over
+    frames with no (B, T, C, C) exponent held; the training backward. It
+    replaces no Pallas kernel: XLA fuses the same broadcast into its sum.
 
 The three scans (both gamma scans and the backpointer scan) are
 instances of one template, csrc/hsmm_scan_core.cuh, compiled for buckets
@@ -57,8 +61,9 @@ never sees a wide DP (``kernel_path``).
 
 Each wrapper takes its kernel's plain PyTorch version (``_gamma_scan_plain``
 and its log forms, ``_band_max_plain``, ``_band_grad_plain``,
-``_viterbi_scan_plain``, ``_traceback_plain``) only for tensors on the
-CPU; for a CUDA tensor it launches the kernel or raises. ``launches`` on
+``_viterbi_scan_plain``, ``_traceback_plain``, ``_pair_grad_plain``) only
+for tensors on the CPU; for a CUDA tensor it launches the kernel or
+raises. ``launches`` on
 each wrapper counts the kernel launches, so a run can show that its path
 went through them.
 
@@ -1144,6 +1149,140 @@ def hsmm_band_grad_wide(G1m, G2p, dur):
 
 
 hsmm_band_grad_wide.launches = 0
+
+
+# ---- (d) the transition cotangent -------------------------------------------
+
+# the frames of the plain version's chunk: at most (B, PAIR_CHUNK, C, C) of
+# the pair exponent at once; where T <= PAIR_CHUNK, one chunk
+PAIR_CHUNK = 64
+
+
+def _pair_grad_plain(X, Y, trans, Z, lengths):
+    """Plain PyTorch version of the transition cotangent (any device, any
+    float dtype): (B, C, C) with [b, i, j] the sum over the interior
+    boundaries t = 1 .. L_b - 1 of exp(X[b, t, j] + trans[b, i, j] +
+    Y[b, t, i] - Z[b]); X, Y (B, T, C), trans (B, C, C) (an expanded
+    view too), Z (B,), lengths (B,). The frames go in chunks of
+    PAIR_CHUNK, each chunk's exponent formed, masked to BIG_NEG off the
+    interior, exponentiated and summed over its frames, the chunks' sums
+    added in order; the first chunk is the whole sum where T <=
+    PAIR_CHUNK. The kernel forms each term in the same order; its sum over
+    frames is associated otherwise (by pass, thread and run:
+    ``pair_grad_tile``)."""
+    B, T, C = X.shape
+    out = X.new_zeros((B, C, C))
+    for t0 in range(0, T, PAIR_CHUNK):
+        t1 = min(t0 + PAIR_CHUNK, T)
+        t_idx = torch.arange(t0, t1, device=X.device)[None, :]
+        interior = (t_idx >= 1) & (t_idx < lengths[:, None])
+        expo = X[:, t0:t1, None, :] + trans[:, None, :, :] + Y[:, t0:t1, :, None]
+        expo = expo - Z[:, None, None, None]
+        pair = torch.exp(
+            torch.where(interior[:, :, None, None], expo, torch.full_like(expo, BIG_NEG))
+        )
+        out = pair.sum(dim=1) if t0 == 0 else out + pair.sum(dim=1)
+    return out
+
+
+class PairTile(NamedTuple):
+    """The pair kernel's launch (csrc/pair_grad.cu): blocks of 256 threads
+    over a tile of 32 x 32 (i, j) pairs of one video and a run of
+    `frames` frames."""
+
+    tiles: int  # a video's (i, j) tiles: ceil(C / 32) ** 2
+    runs: int  # a video's runs of frames
+    frames: int  # a run's
+    blocks_per_sm: int  # resident at once
+    waves: int  # B * tiles * runs over the card's resident blocks
+    filling: float  # the launch's blocks over the waves' resident slots
+    scratch_bytes: int  # the partials: B * runs * C * C floats past one run
+
+
+PAIR_GRAD_CLASSES = 32
+PAIR_GRAD_THREADS = 256
+PAIR_GRAD_REGS = 64
+PAIR_GRAD_FRAMES = 32  # the frames a pass stages, and the fewest a run takes
+
+
+@functools.cache
+def pair_grad_tile(B, T, C, sms=H100_SMS):
+    """The launch the pair kernel takes for (B, T, C) on `sms` SMs.
+
+    At most 64 registers a thread, so that four blocks fit an SM. The runs
+    a video: of the counts that leave every run at least PAIR_GRAD_FRAMES
+    frames and keep the partials within one plane (runs * C <= T, so that
+    B * runs * C * C floats are at most B * T * C), the one whose launch
+    costs the least, a launch costing its rounds of resident blocks
+    (ceil(blocks / slots)) times a run's frames plus one pass's (the
+    partials' sum); among equals the fewest runs: 29 runs of 36 frames for
+    18 videos of 1,024 frames at 19 classes (522 blocks for 528 slots), 2
+    at 342 classes, 1 at 1,577. One run needs no partials and no
+    ticket."""
+    side = -(-max(C, 1) // PAIR_GRAD_CLASSES)
+    tiles = side * side
+    per_sm = _blocks_per_sm(PAIR_GRAD_THREADS, PAIR_GRAD_REGS)
+    resident = sms * per_sm
+    lines = max(B, 1) * tiles
+    Tr = max(T, 1)
+    most = max(1, min(Tr // PAIR_GRAD_FRAMES, Tr // max(C, 1)))
+    counts = {-(-Tr // -(-Tr // n)) for n in range(1, most + 1)}
+    runs = min(counts, key=lambda n: (
+        -(-lines * n // resident) * (-(-Tr // n) + PAIR_GRAD_FRAMES), n))
+    frames = -(-Tr // runs)
+    runs = -(-Tr // frames)  # what the launch derives from `frames`
+    waves = max(1, -(-lines * runs // resident))
+    scratch = 4 * B * runs * C * C if runs > 1 else 0
+    return PairTile(tiles, runs, frames, per_sm, waves, lines * runs / (waves * resident),
+                    scratch)
+
+
+def _launch_pair_grad(X, Y, trans, Z, lengths, tile):
+    """One launch of csrc/pair_grad.cu in `tile`; returns the (B, C, C)
+    cotangent."""
+    B, T, C = X.shape
+    out = X.new_empty((B, C, C))
+    part, tickets = None, None
+    if tile.runs > 1:
+        part = X.new_empty((tile.scratch_bytes // 4,))
+        tickets = _tickets(X.device, B * tile.tiles)
+    err = _call("pair_grad", "hsmm_pair_grad", [X, Y, trans, Z, lengths, out, part, tickets],
+                [B, T, C, *trans.stride(), tile.frames], X)
+    _raise_on_error("hsmm_pair_grad", err)
+    return out
+
+
+def hsmm_pair_grad(X, Y, trans, Z, lengths):
+    """The transition cotangent (B, C, C); see ``_pair_grad_plain``.
+
+    On CUDA tensors (X, Y (B, T, C) float32 contiguous; trans (B, C, C)
+    float32 of any strides, an expanded table read in place; Z (B,)
+    float32; lengths (B,), any integer type) it launches
+    csrc/pair_grad.cu once, in the launch ``pair_grad_tile`` sizes, which
+    never holds the (B, T, C, C) exponent and sums each pair's runs in a
+    fixed order (two runs give the same bits); on CPU tensors it runs the
+    plain version."""
+    if _device_type(X) == "cpu":
+        return _pair_grad_plain(X, Y, trans, Z, lengths)
+    B, T, C = X.shape
+    lengths = lengths.to(torch.int32).contiguous()
+    _check_cuda("hsmm_pair_grad", [X, Y, Z, lengths], [(B, T, C), (B, T, C), (B,), (B,)],
+                (torch.float32,) * 3 + (torch.int32,))
+    if trans.device != X.device or trans.dtype != torch.float32 or tuple(trans.shape) != (
+            B, C, C):
+        raise ValueError("hsmm_pair_grad: trans {} {} on {}, not ({}, {}, {}) float32 on "
+                         "{}".format(tuple(trans.shape), trans.dtype, trans.device, B, C, C,
+                                     X.device))
+    if B > 65535 or max(trans.stride()) > 2 ** 31 - 1:
+        raise ValueError("hsmm_pair_grad: B={} (at most 65,535) or trans strides {} past "
+                         "int32".format(B, trans.stride()))
+    out = _launch_pair_grad(X, Y, trans, Z, lengths,
+                            pair_grad_tile(B, T, C, _sm_count(X.device.index)))
+    hsmm_pair_grad.launches += 1
+    return out
+
+
+hsmm_pair_grad.launches = 0
 
 
 # ---- the two directions and the band inputs --------------------------------

@@ -10,8 +10,13 @@ but replays the scan; here:
     and the time-reversed model stacked on the batch axis
     (``hsmm_log_scan``), and keeps its gamma and alphas planes;
   * the backward runs one band sweep (``hsmm_band_grad``) over the two
-    directions' boundary split and forms the five cotangents in closed
-    form, as JAX's ``_fb_bwd_packed`` does;
+    directions' boundary split and forms the cotangents in closed form,
+    as JAX's ``_fb_bwd_packed`` does, the transition's pair posteriors
+    summed over frames by their own kernel (``hsmm_pair_grad``), which
+    holds no (B, T, C, C) exponent, where XLA fuses the same broadcast
+    into its sum; it forms only the cotangents that autograd asks for
+    (``ctx.needs_input_grad``), so the frame marginals, which ask for d
+    logZ / d emit alone, run no pair sum;
   * a call that needs no gradient takes the primal: the forward-only scan
     (``hsmm_forward_scan``) over the forward model alone, as JAX's
     primal calls ``hsmm_alphas_pallas``.
@@ -47,6 +52,9 @@ exponents from float64 pieces anchored per chunk
 (``hsmm_cuda._grad_band_inputs``; K4 or its wide kernel reads the same
 chunks), so that no float32 value grows with the video's length. Where no
 chain folds (up to SCAN_FOLD frames) the backward keeps its float32 form.
+The pair sum reads its inputs the same way (``_pair_inputs``): X, Y and Z
+= logZ as they are where no chain folds, else X and Y anchored per chunk
+as K4's inputs are, with Z = 0.
 """
 
 from typing import Callable, NamedTuple
@@ -67,24 +75,27 @@ from action_segmentation_torch.ops.hsmm_cuda import (
     _forward_scan_plain,
     _grad_band_inputs,
     _log_scan_plain,
+    _pair_grad_plain,
     _stack_fwd_rev,
     chain_offsets,
     hsmm_band_grad,
     hsmm_forward_scan,
     hsmm_log_scan,
+    hsmm_pair_grad,
 )
 
 
 class FbKernels(NamedTuple):
-    """The three functions the partition's forward and backward call."""
+    """The four functions the partition's forward and backward call."""
 
     log_scan: Callable  # (trans, init, dur, emit) -> (gamma, alphas, offsets)
     forward_scan: Callable  # (trans, init, dur, emit) -> (alphas, offsets)
     band_grad: Callable  # (G1m, G2p, dur) -> (qg, sa, st, lg)
+    pair_grad: Callable  # (X, Y, trans, Z, lengths) -> the trans cotangent (B, C, C)
 
 
-KERNELS = FbKernels(hsmm_log_scan, hsmm_forward_scan, hsmm_band_grad)
-PLAIN = FbKernels(_log_scan_plain, _forward_scan_plain, _band_grad_plain)
+KERNELS = FbKernels(hsmm_log_scan, hsmm_forward_scan, hsmm_band_grad, hsmm_pair_grad)
+PLAIN = FbKernels(_log_scan_plain, _forward_scan_plain, _band_grad_plain, _pair_grad_plain)
 
 
 def _log_partition(alphas, offsets, lengths, end_mask):
@@ -97,57 +108,60 @@ def _log_partition(alphas, offsets, lengths, end_mask):
     return lse, lse.double() + chain_offsets(offsets, lengths - 1)
 
 
-def _cotangents(pots: HsmmPotentials, lengths, gamma, offsets, alphas_f, lse, band_grad):
-    """The five cotangents of logZ (B,) from the forward's planes: one
-    band sweep, then the closed form of JAX's ``_fb_bwd_packed``."""
+def _pair_inputs(pots: HsmmPotentials, gb, qg, alphas_f, lse):
+    """(X, Y (B, T, C), Z (B,)) of the pair posteriors over the interior
+    boundaries s = 1..L-1, exp(X[s, c'] + trans[c, c'] + Y[s, c] - Z): the
+    forward mass before s, and Q[s] = LSE_j body, the suffix mass from s
+    without the transition. trans stays INSIDE the exponential (the pair
+    sum's kernel and plain version add it there): the full exponent is a
+    log pair posterior (<= ~0, always representable under BIG_NEG masks),
+    while pulling exp(trans) out overflows where a masked transition
+    separates a dominant class from the class it cannot reach. Where the
+    chains fold X and Y are anchored by the chunk's Fref and cum[t0] as
+    K4's inputs are (Z = 0), each formed in float64 and rounded; else X =
+    alphas, Y = Q and Z = logZ in float32."""
     B, T, C = pots.emit.shape
-    gb = _grad_band_inputs(pots, lengths, gamma, offsets, lse)
-    qg, sa, st, lg = _band_grad_chunked(band_grad, gb, T)
-
-    # emit: frame marginals from the start/stop difference array
-    emit_g = torch.cumsum(sa - st, dim=1)
-    # lens: rows 1..K-1 are the per-duration posterior masses
-    lens_g = torch.cat([lg.new_zeros((B, 1, C)), lg], dim=1)
-
-    # trans: pair marginals over the interior boundaries s = 1..L-1, from
-    # the exponent X[s-1, c'] + trans[c, c'] + Y[s, c] - Z: the forward
-    # mass before s, and Q[s] = LSE_j body, the suffix mass from s without
-    # the transition. trans stays INSIDE the exponential: the full
-    # exponent is a log pair posterior (<= ~0, always representable under
-    # BIG_NEG masks), while pulling exp(trans) out overflows where a masked
-    # transition separates a dominant class from the class it cannot
-    # reach. Where the chains fold X and Y are anchored by the chunk's
-    # Fref and cum[t0] as K4's inputs are (Z = 0), each formed in float64
-    # and rounded before the (B, T, C, C) exponent; else X = alphas, Y = Q
-    # and Z = logZ in float32.
-    t_idx = torch.arange(T, device=pots.emit.device)[None, :]
-    interior = (t_idx >= 1) & (t_idx < lengths[:, None])
     af_sh = torch.cat([alphas_f.new_zeros((B, 1, C)), alphas_f[:, : T - 1]], dim=1)
     if gb.x_shift is None:
-        X, Y, Z = af_sh, qg - _emission_cumsum(pots.emit)[:, :T], lse
-    else:
-        X = (af_sh.double() + gb.x_shift[..., None]).to(af_sh.dtype)
-        Y = (qg.double() - gb.y_shift).to(qg.dtype)
-        Z = None
-    expo = X[:, :, None, :] + pots.trans[:, None, :, :] + Y[:, :, :, None]
-    if Z is not None:
-        expo = expo - Z[:, None, None, None]
-    pair = torch.exp(
-        torch.where(interior[:, :, None, None], expo, torch.full_like(expo, BIG_NEG))
-    )
-    trans_g = pair.sum(dim=1)
+        return af_sh, qg - _emission_cumsum(pots.emit)[:, :T], lse
+    X = (af_sh.double() + gb.x_shift[..., None]).to(af_sh.dtype)
+    Y = (qg.double() - gb.y_shift).to(qg.dtype)
+    return X, Y, torch.zeros_like(lse)
 
-    init_x = pots.init + Y[:, 0]
-    init_g = torch.exp(init_x if Z is None else init_x - Z[:, None])
-    end_g = torch.exp(_finals(alphas_f, lengths, pots.end_mask) - lse[:, None])
+
+def _cotangents(pots: HsmmPotentials, lengths, gamma, offsets, alphas_f, lse, kernels, needs):
+    """The cotangents of logZ (B,) (trans, init, lens, emit, end_mask) from
+    the forward's planes, each where `needs` asks for it, else None: one
+    band sweep where any of the first four is asked for, then the closed
+    form of JAX's ``_fb_bwd_packed``, the trans cotangent by
+    ``kernels.pair_grad``."""
+    B, T, C = pots.emit.shape
+    trans_g = init_g = lens_g = emit_g = end_g = None
+    if any(needs[:4]):
+        gb = _grad_band_inputs(pots, lengths, gamma, offsets, lse)
+        qg, sa, st, lg = _band_grad_chunked(kernels.band_grad, gb, T)
+        if needs[3]:  # frame marginals from the start/stop difference array
+            emit_g = torch.cumsum(sa - st, dim=1)
+        if needs[2]:  # rows 1..K-1 are the per-duration posterior masses
+            lens_g = torch.cat([lg.new_zeros((B, 1, C)), lg], dim=1)
+        if needs[0] or needs[1]:
+            X, Y, Z = _pair_inputs(pots, gb, qg, alphas_f, lse)
+            if needs[0]:
+                trans_g = kernels.pair_grad(X, Y, pots.trans, Z, lengths)
+            if needs[1]:
+                init_g = torch.exp(pots.init + Y[:, 0] - Z[:, None])
+    if needs[4]:
+        end_g = torch.exp(_finals(alphas_f, lengths, pots.end_mask) - lse[:, None])
     return trans_g, init_g, lens_g, emit_g, end_g
 
 
 class HsmmPartitionFB(torch.autograd.Function):
     """logZ (B,) with a kernel forward (the stacked log scan) and a kernel
-    backward (the band sweep). Inputs as ``ops.hsmm.hsmm_partition``;
-    trans/init/lens may be expanded views (autograd sums their
-    cotangents back through the expand)."""
+    backward (the band sweep and the pair sum), which forms only the
+    cotangents of the inputs that need a gradient. Inputs as
+    ``ops.hsmm.hsmm_partition``; trans/init/lens may be expanded views
+    (autograd sums their cotangents back through the expand; the pair
+    sum reads an expanded trans in place)."""
 
     @staticmethod
     def forward(ctx, trans, init, lens, emit, end_mask, lengths, kernels):
@@ -159,7 +173,7 @@ class HsmmPartitionFB(torch.autograd.Function):
         lse, logZ = _log_partition(alphas_f, offsets[:B], lengths, end_mask)
         ctx.save_for_backward(trans, init, lens, emit, end_mask, lengths, gamma, offsets,
                               alphas_f, lse)
-        ctx.band_grad = kernels.band_grad
+        ctx.kernels = kernels
         return logZ.to(emit.dtype)
 
     @staticmethod
@@ -168,14 +182,10 @@ class HsmmPartitionFB(torch.autograd.Function):
             ctx.saved_tensors
         )
         pots = HsmmPotentials(trans, init, lens, emit, end_mask)
-        trans_g, init_g, lens_g, emit_g, end_g = _cotangents(
-            pots, lengths, gamma, offsets, alphas_f, lse, ctx.band_grad
-        )
-        gb = g[:, None, None]
-        return (
-            trans_g * gb, init_g * g[:, None], lens_g * gb, emit_g * gb,
-            end_g * g[:, None], None, None,
-        )
+        grads = _cotangents(pots, lengths, gamma, offsets, alphas_f, lse, ctx.kernels,
+                            ctx.needs_input_grad[:5])
+        scales = (g[:, None, None], g[:, None], g[:, None, None], g[:, None, None], g[:, None])
+        return (*(None if x is None else x * s for x, s in zip(grads, scales)), None, None)
 
 
 def _partition_primal(pots: HsmmPotentials, lengths, forward_scan):

@@ -27,9 +27,12 @@ three windows, the least kept, and the card's peak memory allocated over
 them (the old tree's ``chip_smoke.py`` must have ``sm_args`` and
 ``cuda_ms``, as from the training slice's commit on). ``--classes
 342,1577`` takes the same step at each of those widths instead, one
-after another in each turn (a wide DP: W1 log, K4 wide), on the most
-videos up to 18 whose (B, T, C, C) pair exponent in the backward's
-transition cotangent fits 16 GiB (18 at 342 classes, 1 at 1,577).
+after another in each turn (a wide DP: W1 log, K4 wide, the pair sum),
+on 18 videos where both trees sum the transition cotangent in
+csrc/pair_grad.cu; where either tree forms the backward's whole (B, T,
+C, C) pair exponent instead, on the most videos up to 18 whose exponent
+fits 16 GiB (18 at 342 classes, 1 at 1,577), so that both trees take the
+same batch. ``--old_tree .`` runs this tree alone, at 18 videos.
 
 OLD_DIR is a checkout of an earlier commit, for example ``git archive
 <commit> | tar -x -C OLD_DIR`` into a directory that .gitignore lists; its
@@ -150,18 +153,22 @@ from action_segmentation_torch.ops import _build
 from action_segmentation_torch.ops import hsmm_cuda as hc
 
 device = torch.device("cuda")
-counted = ("hsmm_log_scan", "hsmm_band_grad", "hsmm_log_scan_wide", "hsmm_band_grad_wide")
+pair = hasattr(hc, "hsmm_pair_grad")  # csrc/pair_grad.cu: no (B, T, C, C) exponent
+counted = ("hsmm_log_scan", "hsmm_band_grad", "hsmm_log_scan_wide", "hsmm_band_grad_wide") + (
+    ("hsmm_pair_grad",) if pair else ())
 classes = [int(c) for c in sys.argv[2].split(",")]
-_build.build(["hsmm_scan", "band_grad"] + (["hsmm_scan_wide"] if max(classes) > 128 else []))
+_build.build(["hsmm_scan", "band_grad"] + (["hsmm_scan_wide"] if max(classes) > 128 else [])
+             + (["pair_grad"] if pair else []))
 out = {}
 for C in classes:
     train = SyntheticDatasplit(seed=0, num_videos=36, n_classes=C, max_len=cs.T, span_k=cs.K,
                                feature_dim=cs.D, shift=1.0)
     model = SemiMarkovModel.from_args(cs.sm_args(epochs=1), train, device=device)
     rng = np.random.RandomState(3)
-    # the backward's (B, T, C, C) pair exponent within 16 GiB
+    # where a tree of the comparison forms the backward's (B, T, C, C) pair
+    # exponent, the most videos whose exponent fits 16 GiB
     T = cs.T
-    B = max(1, min(cs.B, 2 ** 32 // (T * C * C)))
+    B = cs.B if sys.argv[3] == "18" else max(1, min(cs.B, 2 ** 32 // (T * C * C)))
     batch = (torch.from_numpy(rng.randn(B, T, cs.D).astype(np.float32)).to(device),
              torch.full((B,), T, dtype=torch.int32, device=device),
              torch.arange(C, device=device), torch.arange(C, device=device),
@@ -194,11 +201,12 @@ print("FIT_AB " + json.dumps(out), flush=True)
 """
 
 
-def turn(tree, wide=False, repeats=3, step=False, steps=20, classes="19"):
-    """One turn in `tree`: {case: {wall_s, frames_per_s, ...}}."""
+def turn(tree, wide=False, repeats=3, step=False, steps=20, classes="19", batch="18"):
+    """One turn in `tree`: {case: {wall_s, frames_per_s, ...}}. `batch`:
+    --step's videos, "18", or "rule" for the 16 GiB rule."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
     if step:
-        code = [_STEP_TURN, str(steps), classes]
+        code = [_STEP_TURN, str(steps), classes, batch]
     else:
         code = [_WIDE_TURN, str(repeats)] if wide else [_TURN]
     proc = subprocess.run([sys.executable, "-c", *code], cwd=tree, env=env,
@@ -229,9 +237,12 @@ def main(argv=None):
     smi = smi.strip()
     order = [("old", opts.old_tree), ("new", "."), ("new", "."),
              ("old", opts.old_tree)] * opts.rounds
+    pair_sum = all(os.path.exists(os.path.join(tree, "action_segmentation_torch", "csrc",
+                                               "pair_grad.cu")) for tree in (opts.old_tree, "."))
     turns = []
     for which, tree in order:
-        rec = turn(tree, opts.wide, opts.repeats, opts.step, opts.steps, opts.classes)
+        rec = turn(tree, opts.wide, opts.repeats, opts.step, opts.steps, opts.classes,
+                   "18" if pair_sum else "rule")
         turns.append((which, rec))
         print(which, json.dumps(rec), flush=True)
     summary = {}

@@ -11,11 +11,12 @@ Phases, one or more lines each; any failure ends the run with a non-zero
 exit and no result line:
 
   1. device  — card name, count, and nvidia-smi's name and power limit;
-  2. build   — the five kernel sources from action_segmentation_torch/csrc
+  2. build   — the six kernel sources from action_segmentation_torch/csrc
                with nvcc for sm_90a, all at once, printing ptxas'
                register/smem/spill lines (a serving scan instance, a wide
-               kernel or a band kernel that spills, or a band kernel above
-               the registers its tile rule assumes, fails the run);
+               kernel, a band kernel or the pair kernel that spills, or a
+               band or pair kernel above the registers its tile rule
+               assumes, fails the run);
   3. kernels — each decode kernel against its plain PyTorch version on the
                card at the serving width (B=18, T=1024, C=19, K=20, D=300)
                and at the edge cases (ragged lengths down to 1 with bucket
@@ -27,7 +28,11 @@ exit and no result line:
                form (alphas) against their plain versions at rtol 1e-5 /
                atol 1e-4, the band gradient's qg, sa and st equal to its
                plain version's (denormal sums included) and its lg at
-               rtol 1e-5 / atol 1e-4 (summed over T by tiles), and logZ and
+               rtol 1e-5 / atol 1e-4 (summed over T by tiles), the pair
+               sum (csrc/pair_grad.cu) on the backward's X, Y and Z at rtol
+               1e-5 / atol 1e-4 and the same bits in two launches (an
+               expanded table, a table a video, T <= 64 where Z = logZ),
+               and logZ and
                the five gradients of the kernel forward/backward against
                the same Function through the plain versions (float32) at
                rtol 2e-3 / atol 2e-4, at the serving width and the same
@@ -50,11 +55,12 @@ exit and no result line:
   4b. train slice — on the same corpus: an unsupervised fit of 3 epochs
                (its epoch loss must fall) and a closed-then-gradient
                discriminative fit of 2 epochs (MoF above 10x chance), each
-               launching the log scan and the band gradient once per
-               training batch; a no-grad partition through the forward-only
-               scan; Segmenter.segment_with_marginals on 3 videos, whose
-               labels must equal segment's (segment_many of the one
-               video: the same potentials' bits);
+               launching the log scan, the band gradient and the pair sum
+               once per training batch; a no-grad partition through the
+               forward-only scan; Segmenter.segment_with_marginals on 3
+               videos, whose labels must equal segment's (segment_many of
+               the one video: the same potentials' bits), with no pair sum
+               (the marginals ask for d logZ / d emit alone);
   4c. crosstask slice — a CrossTask release on disk (the 18 primary
                tasks of 9 steps, D=300, written by data/minigen.py), the
                S6 flags through main.make_data_splits: per task a 342-class
@@ -179,12 +185,14 @@ exit and no result line:
                the wide kernels only; segment_with_marginals on 3 videos
                (labels equal, marginals against the PLAIN Function on
                the card at rtol 2e-3 / atol 2e-4, the sums' gap from 1
-               reported); (c) an unsupervised 2-epoch fit at a 160-wide
-               DP (its first step's loss at rtol 1e-5 and gradients at
-               rtol 2e-3 / atol 2e-4 against the CPU's autograd path,
-               falling losses, the wide log scan and K4's wide kernel
-               once a batch) and a no-grad partition through the wide
-               forward scan; (d) each wide kernel's time at the S6 shape
+               reported; no pair sum); (c) an unsupervised 2-epoch fit at
+               a 160-wide DP (its first step's loss at rtol 1e-5 and
+               gradients at rtol 2e-3 / atol 2e-4 against the CPU's
+               autograd path, falling losses, the wide log scan, K4's wide
+               kernel and the pair sum once a batch) and a no-grad
+               partition through the wide forward scan; the pair sum in
+               (a) at every case and at B=2, T=1,024, C=342 against its
+               plain version; (d) each wide kernel's time at the S6 shape
                beside its plain version's and its bound, K4's wide
                kernel's also beside its lg scratch, its floor with the
                cross-tile sum and the narrow kernel's time in its own
@@ -213,7 +221,14 @@ exit and no result line:
                shortest, the CPU Segmenter (labels equal but at float64-
                verified ties), the wide kernels only;
                segment_with_marginals on the 3 shortest against the PLAIN
-               Function on the card; (c) at B=18, T=1024, C=1,577, K=20
+               Function on the card; segment_with_marginals over all 1,577
+               classes on one video of 8,192 frames (labels equal to
+               segment_many's, marginals finite, the sums' gap within
+               0.05, the peak allocation; no pair sum); one unsupervised
+               gradient step of a 1,577-class model at B=18, T=1,024 (its
+               ms and peak allocation; the pair sum once); the pair sum in
+               (a) at every case and at B=2, T=1,024, C=1,577 against its
+               plain version; (c) at B=18, T=1024, C=1,577, K=20
                each of those kernels' time beside its plain version's
                (the log and forward scans' at 128 frames), its bound and
                its floor from the SASS (K4's as in 4i (d); the grid route's with its
@@ -240,7 +255,14 @@ exit and no result line:
                two duration loops' instructions, read from the SASS, which
                must hold no barrier), at the serving shape and at each
                predict and segment_many batch of the synthetic slice (fm
-               equal to the plain version's there too); segment_many
+               equal to the plain version's there too); the pair sum from
+               a replayed CUDA graph beside its bound (the larger of
+               bytes, fp32 operations and one expf a term on the special-
+               function units), the torch form it replaced (the whole
+               (B, T, C, C) exponent) and its plain version, at the
+               serving shape and at each batch of the constrained
+               CrossTask fit (against the plain version there too);
+               segment_many
                frames/s, one training step's time, the fit's frames/s and
                the CrossTask predict's frames/s.
 
@@ -248,7 +270,8 @@ The line before the last is one JSON object {"kernels": [...]} (each
 kernel's launches on the slices' paths, and its cli_, u7_, baseline_,
 resident_ and dp_launches on phases 4d-4h, dp_ every rank's summed; the
 wide kernels' launches, K4's wide kernel's among them, are phase 4i's;
-each wide kernel's past_1024_ keys are phase 4j's); the last is
+each wide kernel's past_1024_ keys are phase 4j's; the pair sum's
+wide_launches and past_1024_launches phase 4i's and 4j's); the last is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -399,6 +422,45 @@ def check_band_grad(name, got, want):
     for n, k, p in zip(("qg", "sa", "st"), got, want):
         check_equal("{} {}".format(name, n), k, p)
     assert_close(name + " lg", got[3], want[3])
+
+
+def pair_inputs(pots, lengths, scan_out):
+    """The pair sum's inputs (X, Y, trans, Z, lengths) as the partition's
+    backward forms them (``hsmm_grad._pair_inputs``) from a log scan's
+    planes of the stacked chains and their offsets: K4 (its wide kernel
+    above 128 classes) over the band inputs, then X, Y and Z."""
+    from action_segmentation_torch.ops.hsmm_cuda import (
+        _band_grad_chunked,
+        _grad_band_inputs,
+        hsmm_band_grad,
+    )
+    from action_segmentation_torch.ops.hsmm_grad import _log_partition, _pair_inputs
+
+    gamma, alphas, offsets = scan_out
+    B, T = pots.emit.shape[:2]
+    L = lengths.long().clamp(min=1)
+    lse, _ = _log_partition(alphas[:B], offsets[:B], L, pots.end_mask)
+    gb = _grad_band_inputs(pots, L, gamma, offsets, lse)
+    qg = _band_grad_chunked(hsmm_band_grad, gb, T)[0]
+    X, Y, Z = _pair_inputs(pots, gb, qg, alphas[:B], lse)
+    return X, Y, pots.trans, Z, L
+
+
+def check_pair_grad(name, pair_in):
+    """The pair kernel against its plain version on the same inputs at
+    rtol 1e-5 / atol 1e-4 (each term the same float32 operations, the sum
+    over frames associated by pass, thread and run), the same bits in two
+    launches; returns the max abs error."""
+    import torch
+
+    from action_segmentation_torch.ops.hsmm_cuda import _pair_grad_plain, hsmm_pair_grad
+
+    got, again = hsmm_pair_grad(*pair_in), hsmm_pair_grad(*pair_in)
+    want = _pair_grad_plain(*pair_in)
+    torch.cuda.synchronize()
+    assert_close(name + " pair grad", got, want)
+    check(torch.equal(got, again), name + " pair grad: two launches differ")
+    return max_err(got, want)
 
 
 def unit_pots(rng, b, t, c, k, device, lengths=None, end_mask=None):
@@ -627,10 +689,10 @@ def log_scans_case(name, pots, lengths):
 
 
 def train_case(name, pots, lengths):
-    """The three training kernels and the kernel forward/backward against
+    """The four training kernels and the kernel forward/backward against
     their plain versions on the same inputs (the scans equal, K4 on each
-    video's chunks); returns max abs errors and the serving inputs of each
-    kernel."""
+    video's chunks, the pair sum on the backward's X, Y and Z); returns
+    max abs errors and the serving inputs of each kernel."""
     import torch
 
     from action_segmentation_torch.ops.hsmm_cuda import _band_grad_plain, hsmm_band_grad
@@ -646,21 +708,28 @@ def train_case(name, pots, lengths):
     check_band_grad("{} band grad ({} chunks)".format(name, grad_in[0].shape[0] // B), bg_k,
                     bg_p)
 
+    pair_in = pair_inputs(pots, L, (gamma_k, alphas_k, offsets_k))
+    pair_err = check_pair_grad(name, pair_in)
+
     fb_kernel = partition_grads(pots, lengths)
     fb_err = assert_grads_close(name + " partition_fb kernels vs plain", fb_kernel,
                                 partition_grads(pots, lengths, PLAIN))
-    errs.update(band_grad=max(max_err(k, p) for k, p in zip(bg_k, bg_p)), partition_fb=fb_err)
+    errs.update(band_grad=max(max_err(k, p) for k, p in zip(bg_k, bg_p)), pair_grad=pair_err,
+                partition_fb=fb_err)
     phase(
         "kernels (train)",
         "{}: B={} T={} C={} K={} log scan max_abs_err={:g} forward scan {:g} band grad "
-        "{:g}; logZ and grads kernels vs plain max_abs_err={:g}; kernel path's "
-        "max |sum_c marginal - 1| {:g}, max |d logZ / d emit| {:g}".format(
+        "{:g} pair grad {:g} ({} trans, Z {}; two launches equal); logZ and grads kernels "
+        "vs plain max_abs_err={:g}; kernel path's max |sum_c marginal - 1| {:g}, max "
+        "|d logZ / d emit| {:g}".format(
             name, B, pots.emit.shape[1], pots.emit.shape[2], pots.lens.shape[1],
-            errs["log_scan"], errs["forward_scan"], errs["band_grad"], fb_err,
+            errs["log_scan"], errs["forward_scan"], errs["band_grad"], pair_err,
+            "expanded" if pots.trans.stride(0) == 0 else "per-video",
+            "logZ" if pots.emit.shape[1] <= 64 else "0 (anchored per chunk)", fb_err,
             marginal_gap(fb_kernel[4], lengths), float(fb_kernel[4].abs().max()),
         ),
     )
-    return errs, scan_in, fwd_in, grad_in
+    return errs, scan_in, fwd_in, grad_in, pair_in
 
 
 def masked_transition_pots(device):
@@ -716,6 +785,11 @@ def run_train_kernels(device):
     train_case("end_mask", *serving_pots(rng, B, T, C, K, device, end_mask=end))
     train_case("C=128", *serving_pots(rng, 4, T, 128, K, device))
     train_case("K=1", *serving_pots(rng, B, T, C, 1, device))
+    # no chain folds: the pair sum's X = alphas and Z = logZ; and a table a
+    # video, which the pair kernel reads through its batch stride as it
+    # reads the expanded one
+    train_case("T=64", *serving_pots(rng, B, 64, C, K, device, lengths=rl.clip(max=64)))
+    train_case("per-video trans", *unit_pots(rng, B, T, C, K, device))
     # the template's other instances under the fold: two warps, and the
     # carry's tail past 24 rows (its durations staged in shared memory, and
     # read from global memory where they do not fit beside the ring)
@@ -809,7 +883,8 @@ def run_train_kernels(device):
 def run_train_slice(device, num_videos, max_len, shift):
     """Phase 4b: the two fits and the no-grad partition (the training
     path), then segment_with_marginals; returns the e2e record and the
-    training path's launches of (log scan, forward scan, band grad)."""
+    training path's launches of (log scan, forward scan, band grad, pair
+    grad)."""
     import torch
 
     from action_segmentation_torch.api import Segmenter
@@ -821,6 +896,7 @@ def run_train_slice(device, num_videos, max_len, shift):
         hsmm_band_grad,
         hsmm_forward_scan,
         hsmm_log_scan,
+        hsmm_pair_grad,
     )
     from action_segmentation_torch.ops.hsmm_grad import (
         PLAIN,
@@ -834,7 +910,7 @@ def run_train_slice(device, num_videos, max_len, shift):
     test = SyntheticDatasplit(seed=1, **kw)
     n_batches = -(-num_videos // B)
     frames = sum(int(train._samples[n]["features"].shape[0]) for n in train._samples)
-    kernels = (hsmm_log_scan, hsmm_forward_scan, hsmm_band_grad)
+    kernels = (hsmm_log_scan, hsmm_forward_scan, hsmm_band_grad, hsmm_pair_grad)
     for k in kernels:
         k.launches = 0
 
@@ -863,12 +939,13 @@ def run_train_slice(device, num_videos, max_len, shift):
     steady = 2 * frames / (stamps[2] - stamps[0])  # epochs 2 and 3
     n_unsup = counts()
     phase("train slice", "unsupervised fit: 3 epochs x {} batches, epoch losses {}, "
-          "launches log/forward/band grad = {}, {:.3f} s = {:.0f} frames/s ({:.0f} frames/s "
+          "launches log/forward/band grad/pair grad = {}, {:.3f} s = {:.0f} frames/s ({:.0f} frames/s "
           "over epochs 2-3; the first Adam of the process took {:.3f} s before)".format(
               n_batches, losses, n_unsup, fit_s, 3 * frames / fit_s, steady,
               optimizer_setup_s))
-    check(n_unsup == [3 * n_batches, 0, 3 * n_batches],
-          "unsupervised fit launches {} != one log scan and band grad per batch".format(n_unsup))
+    check(n_unsup == [3 * n_batches, 0, 3 * n_batches, 3 * n_batches],
+          "unsupervised fit launches {} != one log scan, band grad and pair grad per "
+          "batch".format(n_unsup))
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           "unsupervised epoch loss did not fall: {}".format(losses))
     before = counts()
@@ -888,10 +965,11 @@ def run_train_slice(device, num_videos, max_len, shift):
     n_disc = [a - b for a, b in zip(counts(), n_unsup)]
     mof_disc = mof(test, disc.predict(test))
     phase("train slice", "closed-then-gradient discriminative fit: 2 epochs, epoch losses {}, "
-          "launches log/forward/band grad = {}, predict MoF {:.4f}".format(
+          "launches log/forward/band grad/pair grad = {}, predict MoF {:.4f}".format(
               disc_losses, n_disc, mof_disc))
-    check(n_disc == [2 * n_batches, 0, 2 * n_batches],
-          "discriminative fit launches {} != one log scan and band grad per batch".format(n_disc))
+    check(n_disc == [2 * n_batches, 0, 2 * n_batches, 2 * n_batches],
+          "discriminative fit launches {} != one log scan, band grad and pair grad per "
+          "batch".format(n_disc))
     check(mof_disc > 10.0 / C, "discriminative MoF {:.4f} is not above 10x chance".format(mof_disc))
 
     # the partition without gradients: the forward-only scan over the
@@ -910,7 +988,8 @@ def run_train_slice(device, num_videos, max_len, shift):
 
     # the training path ends here: both fits and the no-grad partition
     launches = counts()
-    phase("train slice", "train path launches log/forward/band grad = {}".format(launches))
+    phase("train slice", "train path launches log/forward/band grad/pair grad = {}".format(
+        launches))
 
     # labels and marginals from one serving entry point, the labels held to
     # segment's: a video alone, as segment_with_marginals takes it (in a
@@ -927,9 +1006,10 @@ def run_train_slice(device, num_videos, max_len, shift):
         gaps.append(float(np.abs(marg.sum(axis=1) - 1).max()))
     n_seg = [a - b for a, b in zip(counts(), launches)]
     phase("train slice", "segment_with_marginals: 3 videos, labels == segment's, "
-          "max |sum marginal - 1| {}, launches log/forward/band grad = {}".format(gaps, n_seg))
-    check(n_seg == [3, 0, 3], "segment_with_marginals launches {} != one log scan and "
-          "band grad per video".format(n_seg))
+          "max |sum marginal - 1| {}, launches log/forward/band grad/pair grad = {}".format(
+              gaps, n_seg))
+    check(n_seg == [3, 0, 3, 0], "segment_with_marginals launches {} != one log scan and "
+          "band grad per video and no pair grad (d logZ / d emit alone)".format(n_seg))
     e2e = {
         "fit_frames_per_s": 3 * frames / fit_s,
         "fit_steady_frames_per_s": steady,
@@ -1173,8 +1253,9 @@ def run_viterbi_kernels(device):
 
 
 def capture_launch_inputs(launch_name, fn):
-    """Runs fn() with hsmm_cuda.<launch_name> (the traceback's or a band
-    kernel's launch, which the wrapper looks up at each call) keeping a
+    """Runs fn() with hsmm_cuda.<launch_name> (the traceback's, a band
+    kernel's or the pair sum's launch, which the wrapper looks up at each
+    call) keeping a
     copy of the tensor inputs of each launch (all but the tile); returns
     them and fn's result."""
     from action_segmentation_torch.ops import hsmm_cuda
@@ -1214,9 +1295,10 @@ def run_crosstask_slice(device, root):
     Segmenter(task=), then the constrained unsupervised fit of
     CT_FIT_TASKS tasks and a decode with narration at test. Returns the
     e2e record, the decode path's launches of (viterbi scan, traceback),
-    the traceback's inputs at each predict batch, the band gradient's at
-    each batch of the fit, and the closed-form models' per-split stats
-    ({split: {task: stats}}, F1 sampled from numpy's seed 0)."""
+    the traceback's inputs at each predict batch, the band gradient's and
+    the pair sum's at each batch of the fit, and the closed-form models'
+    per-split stats ({split: {task: stats}}, F1 sampled from numpy's seed
+    0)."""
     import torch
 
     from action_segmentation_torch import main as port_main
@@ -1228,13 +1310,14 @@ def run_crosstask_slice(device, root):
         hsmm_forward_scan,
         hsmm_gamma_scan,
         hsmm_log_scan,
+        hsmm_pair_grad,
         hsmm_viterbi_scan,
         hsmm_viterbi_traceback,
     )
 
     decode_kernels = (hsmm_viterbi_scan, hsmm_viterbi_traceback, hsmm_gamma_scan,
                       hsmm_band_max)
-    train_kernels = (hsmm_log_scan, hsmm_forward_scan, hsmm_band_grad)
+    train_kernels = (hsmm_log_scan, hsmm_forward_scan, hsmm_band_grad, hsmm_pair_grad)
 
     def reset(kernels):
         for k in kernels:
@@ -1342,21 +1425,23 @@ def run_crosstask_slice(device, root):
                   "constrained unsupervised epoch loss did not fall: {}".format(losses))
             unsup.append((model, val, losses))
 
-    # the band gradient's inputs at each batch of the fit, timed in phase 5
+    # the band gradient's and the pair sum's inputs at each batch of the
+    # fit, timed in phase 5
     t0 = time.perf_counter()
-    bg_batches, _ = capture_launch_inputs("_launch_band_grad", fit_tasks)
+    pair_batches, (bg_batches, _) = capture_launch_inputs(
+        "_launch_pair_grad", lambda: capture_launch_inputs("_launch_band_grad", fit_tasks))
     unsup_s = time.perf_counter() - t0
     for _, _, train, _ in models[:CT_FIT_TASKS]:
         fit_batches += 2 * -(-len(train._tasks_and_video_names) // uargs.batch_size)
     n_train = counts(train_kernels)
     phase("crosstask slice", "constrained unsupervised fit (ordering, narration at train): "
           "{} tasks x 2 epochs, {} batches in {:.3f} s, epoch losses {}, launches log/"
-          "forward/band grad = {}".format(CT_FIT_TASKS, fit_batches, unsup_s,
+          "forward/band grad/pair grad = {}".format(CT_FIT_TASKS, fit_batches, unsup_s,
                                           [u[2] for u in unsup], n_train))
     if device.type == "cuda":
-        check(n_train == [fit_batches, 0, fit_batches],
-              "constrained fit launches {} != one log scan and band grad per batch".format(
-                  n_train))
+        check(n_train == [fit_batches, 0, fit_batches, fit_batches],
+              "constrained fit launches {} != one log scan, band grad and pair grad per "
+              "batch".format(n_train))
 
     # 7. narration at test
     model, val, _ = unsup[0]
@@ -1382,7 +1467,7 @@ def run_crosstask_slice(device, root):
         "crosstask_mean_f1": float(np.mean(f1s)),
         "crosstask_unsup_epoch_losses": [u[2] for u in unsup],
     }
-    return e2e, launches[:2], tb_batches, bg_batches, stats_by_split, models
+    return e2e, launches[:2], tb_batches, bg_batches, pair_batches, stats_by_split, models
 
 
 def assert_stats_equal(name, got, want):
@@ -1433,7 +1518,7 @@ def cli_recorder(port_main, model_cls):
 
 # the kernels' wrappers as the command-line phases name them
 CLI_KERNELS = ("viterbi scan", "traceback", "gamma scan", "band max", "log scan", "band grad",
-               "forward scan")
+               "forward scan", "pair grad")
 
 
 def cli_kernel_wrappers():
@@ -1441,7 +1526,8 @@ def cli_kernel_wrappers():
     from action_segmentation_torch.ops import hsmm_cuda as hc
 
     return (hc.hsmm_viterbi_scan, hc.hsmm_viterbi_traceback, hc.hsmm_gamma_scan,
-            hc.hsmm_band_max, hc.hsmm_log_scan, hc.hsmm_band_grad, hc.hsmm_forward_scan)
+            hc.hsmm_band_max, hc.hsmm_log_scan, hc.hsmm_band_grad, hc.hsmm_forward_scan,
+            hc.hsmm_pair_grad)
 
 
 def cli_runner(legs, totals):
@@ -1598,7 +1684,7 @@ def run_cli_slice(root, ct_stats, smi):
             g = got["params"][k]
             check(torch.allclose(g, w, rtol=1e-5, atol=0), "resumed param {} differs".format(k))
             param_diff = max(param_diff, float((g - w).abs().max()))
-        for k in ("log scan", "band grad"):
+        for k in ("log scan", "band grad", "pair grad"):
             check(min(n_first[k], n_resumed[k], n_whole[k]) > 0,
                   "{} not launched: {} {} {}".format(k, n_first, n_resumed, n_whole))
         traces = sorted(os.listdir(trace))
@@ -1707,8 +1793,9 @@ def run_u7_slice(device, root, smi):
         falls = sum(x[1] < x[0] for x in losses)
         mean0, mean1 = (float(np.mean([x[i] for x in losses])) for i in (0, 1))
         check(mean1 < mean0, "u7 mean epoch loss {} -> {}: did not fall".format(mean0, mean1))
-        check(min(n["log scan"], n["band grad"]) >= 2 * train_batches,
-              "u7 launches {}: below one log scan and band grad a batch ({} batches)".format(
+        check(min(n["log scan"], n["band grad"], n["pair grad"]) >= 2 * train_batches,
+              "u7 launches {}: below one log scan, band grad and pair grad a batch ({} "
+              "batches)".format(
                   n, 2 * train_batches))
         check(n["viterbi scan"] > 0 and n["viterbi scan"] == n["traceback"]
               and n["gamma scan"] == n["band max"] == 0,
@@ -1757,7 +1844,7 @@ def run_u7_slice(device, root, smi):
         check(sorted(got["params"]) == sorted(want["params"]), "checkpoint keys differ")
         differ = [k for k, w in want["params"].items() if not torch.equal(got["params"][k], w)]
         check(not differ, "resumed params differ from the uninterrupted run's: {}".format(differ))
-        for k in ("log scan", "band grad"):
+        for k in ("log scan", "band grad", "pair grad"):
             check(min(n_first[k], n_resumed[k], n_whole[k]) > 0,
                   "{} not launched: {} {} {}".format(k, n_first, n_resumed, n_whole))
         named, kernel_us, span_us = trace_kernels(trace, "epoch_0.pt.trace.json")
@@ -2008,8 +2095,7 @@ def run_baselines_slice(root, smi, card=None):
     from action_segmentation_torch.ops import hsmm_cuda as hc
 
     on_card = card is None or torch.device(card).type == "cuda"
-    kernels = (hc.hsmm_viterbi_scan, hc.hsmm_viterbi_traceback, hc.hsmm_gamma_scan,
-               hc.hsmm_band_max, hc.hsmm_log_scan, hc.hsmm_band_grad, hc.hsmm_forward_scan)
+    kernels = cli_kernel_wrappers()
     for k in kernels:
         k.launches = 0
     pairs = set()
@@ -2582,9 +2668,9 @@ def run_resident_slice(device, root, models, smi):
         check(rec["builds"] == len(got) and rec["gather"] > 0 and rec["upload"] == 0,
               "{}: not resident: {} builds, gather {} s, upload {} s".format(
                   name, rec["builds"], rec["gather"], rec["upload"]))
-        check(not on_card or n["log scan"] == n["band grad"] == rec["batches"]
+        check(not on_card or n["log scan"] == n["band grad"] == n["pair grad"] == rec["batches"]
               and n["forward scan"] == 0,
-              "{} launches {}: not one log scan and band grad a batch ({})".format(
+              "{} launches {}: not one log scan, band grad and pair grad a batch ({})".format(
                   name, n, rec["batches"]))
     phase("resident", "(a) constrained fit ({} tasks) and u7 fit (--mix_tasks), 2 epochs: "
           "resident == streaming, epoch losses and {} parameter tensors bit for bit; launches "
@@ -3078,7 +3164,7 @@ def run_dp_slice(device, root, models, resident_cases, mixed, smi):
 
     def once_a_batch(name, rec):
         n = rec["launches"]
-        check(not on_card or (n["log scan"] == n["band grad"] == rec["trained"]
+        check(not on_card or (n["log scan"] == n["band grad"] == n["pair grad"] == rec["trained"]
                               and n["viterbi scan"] == n["traceback"] == rec["decoded"]
                               and n["forward scan"] == 0),
               "{}: launches {} against {} training and {} decode batches".format(
@@ -3330,7 +3416,8 @@ def run_dp_slice(device, root, models, resident_cases, mixed, smi):
         for launches in dry["launches"]:
             check(not on_card or (launches["hsmm_gamma_scan"] > 0 and
                                   launches["hsmm_band_max"] > 0 and
-                                  launches["hsmm_log_scan"] == launches["hsmm_band_grad"] > 0),
+                                  launches["hsmm_log_scan"] == launches["hsmm_band_grad"]
+                                  == launches["hsmm_pair_grad"] > 0),
                   "dry run launches {}".format(launches))
             add_launches(launches)
         hsmm_forward_scan.launches = 0
@@ -3434,13 +3521,16 @@ WIDE_KERNEL_NAMES = ("hsmm_viterbi_scan_wide", "hsmm_viterbi_traceback_wide",
 # the narrow kernels a wide leg must not launch
 NARROW_NAMES = ("hsmm_viterbi_scan", "hsmm_viterbi_traceback", "hsmm_gamma_scan",
                 "hsmm_band_max", "hsmm_log_scan", "hsmm_forward_scan", "hsmm_band_grad")
+# the kernel of every width: the training backward's pair sum
+PAIR_NAME = "hsmm_pair_grad"
 
 
 def wide_counters():
-    """{name: wrapper} of the wide kernels and the narrow kernels."""
+    """{name: wrapper} of the wide kernels, the narrow kernels and the
+    pair sum's."""
     from action_segmentation_torch.ops import hsmm_cuda as hc
 
-    return {n: getattr(hc, n) for n in WIDE_KERNEL_NAMES + NARROW_NAMES}
+    return {n: getattr(hc, n) for n in WIDE_KERNEL_NAMES + NARROW_NAMES + (PAIR_NAME,)}
 
 
 def counted(fn):
@@ -3513,7 +3603,8 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
     on the card, on the grid route's launches (``grid_launches``: the
     rule's where the cluster route runs, the table slab and ring in global
     memory, the chains split); K4 (its wide kernel) on the kernel log
-    scan's band inputs (qg, sa, st equal, lg at the score tolerance). With `log_cut`, the log
+    scan's band inputs (qg, sa, st equal, lg at the score tolerance) and
+    the pair sum on the backward's X, Y and Z (``check_pair_grad``). With `log_cut`, the log
     scans are compared on the first `log_cut` frames (the plain log scan's
     Python loop over C) and K4 runs on the full-length kernel planes.
     Returns the errors and the inputs of each kernel."""
@@ -3597,19 +3688,39 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
     errs = {"viterbi_scan": max_err(alphas_k, alphas_p), "traceback": 0.0,
             "log_scan": max(max_err(k, p) for k, p in zip(cut_k, log_p)),
             "forward_scan": max(max_err(k, p) for k, p in zip(fwd_k, fwd_p)),
-            "band_grad": max(max_err(k, p) for k, p in zip(bg_k, bg_p))}
+            "band_grad": max(max_err(k, p) for k, p in zip(bg_k, bg_p)),
+            "pair_grad": check_pair_grad(name, pair_inputs(pots, L, log_k))}
     phase("wide", "(a) {}: B={} T={} C={} Km={} lengths {}-{}: {} route (cluster {}, slab {}), "
           "and {} grid-route launches: viterbi scan alphas and codes, traceback spans ({} "
           "segments), log scan gamma, alphas and offsets{} and forward alphas and offsets "
           "equal to the plain versions (the chains' folds {}, the classes' own {} of {} "
           "(chain, step, class)); band grad on {} chunks a video qg/sa/st equal, lg "
-          "max_abs_err {:g}".format(
+          "max_abs_err {:g}; pair grad max_abs_err {:g}, two launches equal".format(
               name, Bn, Tn, Cn, Km, int(L.min()), int(L.max()), inst.route,
               inst.cluster, inst.slab, grids,
               int((spans_k >= 0).sum()), "" if log_cut is None else " (first {} frames)".format(
                   log_cut), chain_folds, fired, cut[3].numel(), grad_in[0].shape[0] // Bn,
-              errs["band_grad"]))
+              errs["band_grad"], errs["pair_grad"]))
     return errs, vit_in, tb_in, scan_in, fwd_in, grad_in
+
+
+def wide_pair_case(name, rng, Cn, device):
+    """The pair sum at B=2, T=1,024 over Cn classes (one video whole, one
+    of two thirds of it) on the kernel log scan's planes, with the expanded table and
+    with a table a video: each against its plain version at rtol 1e-5 /
+    atol 1e-4, the same bits in two launches. Returns the larger error."""
+    from action_segmentation_torch.ops.hsmm_cuda import _stack_fwd_rev, hsmm_log_scan
+
+    pots, L = serving_pots(rng, 2, T, Cn, K, device, lengths=np.array([T, 2 * T // 3], np.int32))
+    L = L.long()
+    scan = hsmm_log_scan(*_stack_fwd_rev(pots, L))
+    errs = {what: check_pair_grad("{} B=2 T={} C={} ({} trans)".format(name, T, Cn, what),
+                                  pair_inputs(p, L, scan))
+            for what, p in (("expanded", pots),
+                            ("per-video", pots._replace(trans=pots.trans.contiguous())))}
+    phase(name, "(a) pair grad at B=2 T={} C={} K={} (lengths {}): kernel vs plain max_abs_err "
+          "{}, two launches equal".format(T, Cn, K, L.tolist(), errs))
+    return max(errs.values())
 
 
 def wide_long_case(device):
@@ -3816,6 +3927,7 @@ def run_wide_slice(device, root, smi):
         "S6 shape", *s6_pots, log_cut=T_S6_LOG)
     for k, v in case.items():
         errs[k] = max(errs.get(k, 0.0), v)
+    errs["pair_grad"] = max(errs["pair_grad"], wide_pair_case("wide", rng, C_S6, device))
     long_case = wide_long_case(device)
     a_s = time.perf_counter() - t_phase
 
@@ -3853,7 +3965,8 @@ def run_wide_slice(device, root, smi):
     n_batches = -(-len(feats) // args.batch_size)
     card = device.type == "cuda"  # (a rehearsal on the CPU counts no launch)
     check(not card or n_seg["hsmm_viterbi_scan_wide"] == n_seg["hsmm_viterbi_traceback_wide"] == n_batches
-          and all(n_seg[k] == 0 for k in NARROW_NAMES) and n_seg["hsmm_band_grad_wide"] == 0,
+          and all(n_seg[k] == 0 for k in NARROW_NAMES + (PAIR_NAME,))
+          and n_seg["hsmm_band_grad_wide"] == 0,
           "segment_many launches {}: not the wide kernels once a batch".format(n_seg))
     t0 = time.perf_counter()
     want = seg_cpu.segment_many(feats, batch_size=args.batch_size)
@@ -3904,8 +4017,9 @@ def run_wide_slice(device, root, smi):
         gaps.append(float(np.abs(marg.sum(axis=1) - 1).max()))
     check(not card or n_marg["hsmm_log_scan_wide"] == n_marg["hsmm_band_grad_wide"] == 3
           and n_marg["hsmm_viterbi_scan_wide"] == n_marg["hsmm_viterbi_traceback_wide"] == 3
-          and all(n_marg[k] == 0 for k in NARROW_NAMES),
-          "segment_with_marginals launches {}".format(n_marg))
+          and all(n_marg[k] == 0 for k in NARROW_NAMES + (PAIR_NAME,)),
+          "segment_with_marginals launches {} (no pair sum: d logZ / d emit alone)".format(
+              n_marg))
     phase("wide", "(b) segment_with_marginals on the 3 shortest val videos ({} frames) in "
           "{:.4f} s = {:.0f} frames/s: labels == segment_many's, marginals vs PLAIN (both "
           "centred) on the card max_abs_err {} (rtol {} / atol {}), max |sum_c marginal - 1| "
@@ -3940,9 +4054,10 @@ def run_wide_slice(device, root, smi):
     check(len(losses) == 2 and all(math.isfinite(v) for v in losses) and losses[1] < losses[0],
           "the wide fit's epoch losses did not fall: {}".format(losses))
     fit_batches = 2 * -(-WIDE_FIT["num_videos"] // fargs.batch_size)
-    check(not card or n_fit["hsmm_log_scan_wide"] == n_fit["hsmm_band_grad_wide"] == fit_batches
-          and all(n_fit[k] == 0 for k in NARROW_NAMES),
-          "the wide fit's launches {}: not the wide log scan and K4 once a batch".format(n_fit))
+    check(not card or n_fit["hsmm_log_scan_wide"] == n_fit["hsmm_band_grad_wide"]
+          == n_fit[PAIR_NAME] == fit_batches and all(n_fit[k] == 0 for k in NARROW_NAMES),
+          "the wide fit's launches {}: not the wide log scan, K4 and the pair sum once a "
+          "batch".format(n_fit))
     # the partition without gradients: the wide forward scan
     batch = next(iter_batches(fit_train, batch_size=fargs.batch_size, batch_by_task=True,
                               shuffle=False))
@@ -3964,7 +4079,8 @@ def run_wide_slice(device, root, smi):
                         WIDE_FIT["feature_dim"], card_step[0], cpu_step[0], RTOL, step_err,
                         GRAD_RTOL, GRAD_ATOL, losses, fit_s, fit_frames / fit_s,
                         {k: v for k, v in n_fit.items() if v}))
-    launches = {k: n_seg[k] + n_marg[k] + n_fit[k] + n_fwd[k] for k in WIDE_KERNEL_NAMES}
+    launches = {k: n_seg[k] + n_marg[k] + n_fit[k] + n_fwd[k]
+                for k in WIDE_KERNEL_NAMES + (PAIR_NAME,)}
 
     # (d) times at the S6 shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -4129,6 +4245,67 @@ CT_RELATED_TRAIN = 2
 # loop over C a step) beside the kernels at T
 T_PLAIN_LOG = 128
 ALL_TASKS_FLAGS = ("--mix_tasks", "--crosstask_training_data", "primary", "related")
+# phase 4j(b): one unsupervised gradient step of a 1,577-class model at the
+# serving batch (its (B, T, C, C) pair exponent would be 171 GiB), and
+# segment_with_marginals over 1,577 classes on one video of 8,192 frames
+# (81.5 GB of pair exponent), the val features tiled end to end
+PAST_STEP = dict(b=B, t=T)
+T_LONG_MARGINALS = 8192
+
+
+def past_1024_step(device, smi):
+    """Phase 4j(b)'s step: an unsupervised model of the synthetic corpus at
+    C_ALL classes (K=20, D=300) taking forward, backward, clip and Adam on
+    one batch of PAST_STEP videos already on the card; the step's ms (CUDA
+    events, 2 steps after a warm one), the card's peak allocation over them,
+    and the launches."""
+    import torch
+
+    from action_segmentation_torch.data.synthetic import SyntheticDatasplit
+    from action_segmentation_torch.models.base import clip_grads, make_optimizer
+    from action_segmentation_torch.models.semimarkov import SemiMarkovModel
+
+    Bn, Tn = PAST_STEP["b"], PAST_STEP["t"]
+    train = SyntheticDatasplit(seed=0, num_videos=36, n_classes=C_ALL, max_len=Tn, span_k=K,
+                               feature_dim=D, shift=1.0)
+    model = SemiMarkovModel.from_args(sm_args(epochs=1), train, device=device)
+    rng = np.random.RandomState(3)
+    batch = (torch.from_numpy(rng.randn(Bn, Tn, D).astype(np.float32)).to(device),
+             torch.full((Bn,), Tn, dtype=torch.int32, device=device),
+             torch.arange(C_ALL, device=device), torch.arange(C_ALL, device=device),
+             torch.zeros((Bn, Tn), dtype=torch.long, device=device),
+             torch.zeros((Bn, Tn, C_ALL), device=device), torch.zeros((Bn, C_ALL), device=device),
+             torch.ones((Bn,), device=device))
+    params = list(model.module.parameters())
+    optimizer, _ = make_optimizer(model.args, params)
+    losses = []
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        loss, _ = model._loss(*batch, use_labels=False)
+        loss.backward()
+        clip_grads(params, model.args.max_grad_norm)
+        optimizer.step()
+        losses.append(loss.detach())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    ms, n = counted(lambda: cuda_ms(step, 2, warmup=1))
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 20
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses)
+          and all(bool(torch.isfinite(p.grad).all()) for p in params if p.grad is not None),
+          "the {}-class step's losses {} or its last gradients are not finite".format(
+              C_ALL, losses))
+    check(device.type != "cuda" or n[PAIR_NAME] == n["hsmm_log_scan_wide"]
+          == n["hsmm_band_grad_wide"] == 3, "the {}-class step's launches {}: not the wide "
+          "log scan, K4 and the pair sum once a step".format(C_ALL, n))
+    phase("past1024", "(b) one unsupervised step of a {}-class model at B={} T={} K={} D={} "
+          "(its pair exponent {:.1f} GiB): {:.3f} ms, peak allocation {:.1f} MiB, losses {}, "
+          "launches {}; {}".format(C_ALL, Bn, Tn, K, D, 4 * Bn * Tn * C_ALL ** 2 / 2 ** 30, ms,
+                                   peak, losses, {k: v for k, v in n.items() if v}, smi))
+    return {"ms": ms, "peak_mib": peak, "B": Bn, "T": Tn, "losses": losses,
+            "launches": n}
 
 
 def alternating_ms(runs, n):
@@ -4219,6 +4396,7 @@ def run_past_1024_slice(device, root, smi):
     check(not card or all(hc.wide_scan_instance(Cn, Km).route == "grid" for Cn in PAST_CLASSES
               for Km in PAST_KMS) and hc.code_radix(3000) == 4096,
           "the cases do not take the grid route and radix 4,096")
+    errs["pair_grad"] = max(errs["pair_grad"], wide_pair_case("past1024", rng, C_ALL, device))
     phase("past1024", "(a) layouts: {}".format(layouts))
     a_s = time.perf_counter() - t_phase
 
@@ -4300,7 +4478,7 @@ def run_past_1024_slice(device, root, smi):
     got, n_seg = counted(lambda: seg.segment_many(feats, batch_size=args.batch_size))
     seg_s = time.perf_counter() - t0
     check(not card or n_seg["hsmm_viterbi_scan_wide"] == n_seg["hsmm_viterbi_traceback_wide"]
-          == n_batches and all(n_seg[k] == 0 for k in NARROW_NAMES)
+          == n_batches and all(n_seg[k] == 0 for k in NARROW_NAMES + (PAIR_NAME,))
           and n_seg["hsmm_band_grad_wide"] == 0,
           "segment_many launches {}: not the wide kernels once a batch".format(n_seg))
     # the same Segmenter's plain chain on the card
@@ -4367,8 +4545,9 @@ def run_past_1024_slice(device, root, smi):
         marg_errs.append(max_err(torch.from_numpy(marg).to(device), plain[0, :f.shape[0]]))
     check(not card or n_marg["hsmm_log_scan_wide"] == n_marg["hsmm_band_grad_wide"] == 3
           and n_marg["hsmm_viterbi_scan_wide"] == n_marg["hsmm_viterbi_traceback_wide"] == 3
-          and all(n_marg[k] == 0 for k in NARROW_NAMES),
-          "segment_with_marginals launches {}".format(n_marg))
+          and all(n_marg[k] == 0 for k in NARROW_NAMES + (PAIR_NAME,)),
+          "segment_with_marginals launches {} (no pair sum: d logZ / d emit alone)".format(
+              n_marg))
     phase("past1024", "(b) segment_with_marginals on the 3 shortest val videos ({} frames) in "
           "{:.4f} s = {:.0f} frames/s: labels == segment_many's, marginals vs PLAIN (both "
           "centred) on the card, the shortest video, max_abs_err {} (rtol {} / atol {}), max "
@@ -4380,9 +4559,37 @@ def run_past_1024_slice(device, root, smi):
                                           uncentred=False)
     phase("past1024", "(b) segment_with_marginals over {} classes on the shortest val video "
           "against the PLAIN path in float64: {}".format(C_ALL, marg_fp64))
-    launches = {k: n_seg[k] + n_marg[k] for k in path_names}
+    # one video of 8,192 frames, the val features tiled end to end
+    long_feats = np.concatenate(feats * -(-T_LONG_MARGINALS // frames))[:T_LONG_MARGINALS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    (long_labels, long_marg), n_long = counted(lambda: seg.segment_with_marginals(long_feats))
+    long_s = time.perf_counter() - t0
+    long_peak = torch.cuda.max_memory_allocated(device) / 2 ** 20
+    long_want = seg.segment_many([long_feats])[0]
+    long_gap = float(np.abs(long_marg.sum(axis=1) - 1).max())
+    check(np.array_equal(long_labels, long_want), "segment_with_marginals labels of the {}-frame "
+          "video != segment_many's".format(T_LONG_MARGINALS))
+    check(long_marg.shape == (T_LONG_MARGINALS, C_ALL) and np.isfinite(long_marg).all()
+          and long_gap <= CENTRED_BOUNDS["T=12000"]["gap"],
+          "segment_with_marginals of the {}-frame video: shape {}, max |sum_c marginal - 1| "
+          "{} (bound {})".format(T_LONG_MARGINALS, long_marg.shape, long_gap,
+                                 CENTRED_BOUNDS["T=12000"]["gap"]))
+    check(not card or n_long["hsmm_log_scan_wide"] == n_long["hsmm_band_grad_wide"] == 1
+          and n_long[PAIR_NAME] == 0, "the {}-frame marginals' launches {}".format(
+              T_LONG_MARGINALS, n_long))
+    phase("past1024", "(b) segment_with_marginals over {} classes on one video of {} frames (the "
+          "val features tiled; its pair exponent would take {:.1f} GB): {:.3f} s, labels == "
+          "segment_many's, max |sum_c marginal - 1| {:g} (bound {}), peak allocation {:.1f} "
+          "MiB, launches {}".format(C_ALL, T_LONG_MARGINALS, 4 * T_LONG_MARGINALS * C_ALL ** 2
+                                    / 1e9, long_s, long_gap, CENTRED_BOUNDS["T=12000"]["gap"],
+                                    long_peak, {k: v for k, v in n_long.items() if v}))
+    step = past_1024_step(device, smi)
+    launches = {k: n_seg[k] + n_marg[k] + n_long[k] + step["launches"][k]
+                for k in path_names + (PAIR_NAME,)}
     for k in ("hsmm_viterbi_scan_wide", "hsmm_viterbi_traceback_wide", "hsmm_log_scan_wide",
-              "hsmm_band_grad_wide"):
+              "hsmm_band_grad_wide", PAIR_NAME):
         check(not card or launches[k] > 0, "{} was not launched on phase 4j's path".format(k))
     b_s = time.perf_counter() - t_phase - a_s
 
@@ -4567,7 +4774,10 @@ def run_past_1024_slice(device, root, smi):
            "past_1024_marginals_frames_per_s": marg_frames / marg_s,
            "past_1024_marginal_sum_gap": max(gaps), "past_1024_marginal_err": max(marg_errs),
            "past_1024_layouts": layouts, "past_1024_phase_s": phase_s,
-           "past_1024_launches": launches}
+           "past_1024_launches": launches,
+           "past_1024_long_marginals": {"T": T_LONG_MARGINALS, "s": long_s, "gap": long_gap,
+                                        "peak_mib": long_peak},
+           "past_1024_step": {k: v for k, v in step.items() if k != "launches"}}
     return e2e, entries
 
 
@@ -4730,6 +4940,27 @@ def band_grad_bound(grad_in, sms, clock_mhz):
             {k: v * 1e3 for k, v in times.items()})
 
 
+def pair_grad_bound(pair_in, sms, clock_mhz):
+    """The pair sum's bound in ms, "bytes" or "operations", which limit sets
+    it ("bytes", "fp32" or "sfu") and the three times. In: X, Y, trans (one
+    table where it is an expanded view), Z, lengths; out: (B, C, C). A term
+    (an interior boundary's (i, j) pair, sum_b (L_b - 1) C^2 of this run's
+    lengths) takes 4 fp32 operations (three adds and the sum's) and one
+    transcendental (the expf) on the special-function units."""
+    X, Y, trans, Z, lengths = pair_in
+    B, T, C = X.shape
+    terms = int((lengths.long().clamp(1, T) - 1).sum()) * C * C
+    tables = B if trans.stride(0) else 1
+    times = {
+        "bytes": (4 * (X.numel() + Y.numel() + tables * C * C + B * C * C) + 8 * B) / PEAK_BYTES,
+        "fp32": 4 * terms / PEAK_FP32,
+        "sfu": terms / (sms * SFU_PER_SM_CLOCK * clock_mhz * 1e6),
+    }
+    kind = max(times, key=times.get)
+    return (times[kind] * 1e3, "bytes" if kind == "bytes" else "operations", kind,
+            {k: v * 1e3 for k, v in times.items()})
+
+
 def k4_wide_times(grad_in, sms, clock_mhz, card, n):
     """K4's wide kernel at a wide shape: its ms from a replayed CUDA graph
     of `n`, the narrow kernel's in its own tile on the same inputs (the
@@ -4796,6 +5027,7 @@ def main():
         _forward_scan_plain,
         _gamma_scan_plain,
         _log_scan_plain,
+        _pair_grad_plain,
         _traceback_plain,
         _viterbi_scan_plain,
         hsmm_band_grad,
@@ -4803,11 +5035,13 @@ def main():
         hsmm_forward_scan,
         hsmm_gamma_scan,
         hsmm_log_scan,
+        hsmm_pair_grad,
         hsmm_viterbi_scan,
         hsmm_viterbi_traceback,
         scan_instance,
     )
     from action_segmentation_torch.ops import hsmm_cuda
+    from action_segmentation_torch.tools.pair_times import torch_form as pair_torch_form
     from action_segmentation_torch.tools.scan_floor import (
         band_grad_floor,
         band_grad_issue_ms,
@@ -4837,7 +5071,8 @@ def main():
 
     # 2. build: every nvcc process at once
     t0 = time.perf_counter()
-    logs = _build.build(["hsmm_scan", "band_max", "band_grad", "hsmm_viterbi", "hsmm_scan_wide"])
+    logs = _build.build(["hsmm_scan", "band_max", "band_grad", "hsmm_viterbi", "hsmm_scan_wide",
+                         "pair_grad"])
     phase("build", "nvcc sm_90a, {:.1f} s".format(time.perf_counter() - t0))
     ptxas = {}
     no_spills = "0 bytes spill stores, 0 bytes spill loads"
@@ -4855,13 +5090,15 @@ def main():
               "{} spills or was not built: {!r}".format(fn, ptxas.get(fn)))
     for fn, cap in ((BAND_MAX_KERNELS[0], hsmm_cuda.BAND_MAX_REGS),
                     (BAND_MAX_KERNELS[1], hsmm_cuda.BAND_MAX_REGS),
-                    ("band_grad_kernel", hsmm_cuda.BAND_GRAD_REGS)):
+                    ("band_grad_kernel", hsmm_cuda.BAND_GRAD_REGS),
+                    ("pair_grad_kernel", hsmm_cuda.PAIR_GRAD_REGS)):
         regs, spills = ptxas.get(fn, (None, ""))
         check(no_spills in spills and regs is not None and regs <= cap,
               "{} spills, was not built or takes more than the {} registers its tile rule "
               "assumes: {!r}".format(fn, cap, ptxas.get(fn)))
     bm_regs = [ptxas[fn][0] for fn in BAND_MAX_KERNELS]
     bg_regs = ptxas["band_grad_kernel"][0]
+    pg_regs = ptxas["pair_grad_kernel"][0]
     # K4's wide kernel: within the registers its tile rule assumes, and no
     # local memory in its duration loop (ptxas spills a few bytes around
     # it, in the loops over a run's rows and over the slabs)
@@ -4909,7 +5146,7 @@ def main():
     phase("kernels", "traceback: B=4 T=300 kernel labels vs hsmm_viterbi, ties={}".format(ties))
 
     # 3b. the training kernels and the partition's gradient
-    (train_errs, log_in, fwd_in, grad_in), gaps = run_train_kernels(device)
+    (train_errs, log_in, fwd_in, grad_in, pair_in), gaps = run_train_kernels(device)
 
     # 3c. the exact-spans kernels
     vit_errs, vit_in, tb_in = run_viterbi_kernels(device)
@@ -4919,7 +5156,7 @@ def main():
     train_e2e, train_launches = run_train_slice(device, num_videos=36, max_len=T, shift=1.0)
     root = tempfile.mkdtemp(prefix="chip_smoke_crosstask_")
     try:
-        (ct_e2e, ct_launches, ct_tb_in, ct_bg_in, ct_stats,
+        (ct_e2e, ct_launches, ct_tb_in, ct_bg_in, ct_pair_in, ct_stats,
          ct_models) = run_crosstask_slice(device, root)
         e2e.update(run_cli_slice(root, ct_stats, smi))
         e2e.update(run_u7_slice(device, root, smi))
@@ -5047,6 +5284,28 @@ def main():
     ct_mean = {k: float(np.mean([x[i] for x in ct_bg]))
                for i, k in enumerate(("ms", "stream_ms", "floor_ms", "bound_ms"))}
 
+    # the pair sum at the serving shape (phase 3b's serving inputs) and at
+    # the constrained CrossTask fit's batches (the launches the training
+    # path makes there): the kernel from a replayed CUDA graph, beside the
+    # torch form the backward ran before it (its whole (B, T, C, C)
+    # exponent) and the plain version; no library call computes the sum
+    pg_tile = hsmm_cuda.pair_grad_tile(B, T, C, sms)
+    pg_ms = graph_ms(lambda: hsmm_pair_grad(*pair_in), N_TIMED)
+    pg_stream_ms = cuda_ms(lambda: hsmm_pair_grad(*pair_in), N_TIMED)
+    pg_form_ms = cuda_ms(lambda: pair_torch_form(*pair_in, T > hsmm_cuda.SCAN_FOLD), 10)
+    pg_plain_ms = cuda_ms(lambda: _pair_grad_plain(*pair_in), 10)
+    pg_bound, pg_by, pg_kind, pg_times = pair_grad_bound(pair_in, sms, clock_mhz)
+    ct_pg = []
+    for pg_in in ct_pair_in:
+        check_pair_grad("crosstask fit batch", pg_in)
+        fold = pg_in[0].shape[1] > hsmm_cuda.SCAN_FOLD
+        ct_pg.append((graph_ms(lambda: hsmm_pair_grad(*pg_in), N_TIMED),
+                      cuda_ms(lambda: pair_torch_form(*pg_in, fold), 10),
+                      pair_grad_bound(pg_in, sms, clock_mhz)[0], tuple(pg_in[0].shape)))
+    check(len(ct_pg) > 0, "the constrained CrossTask fit launched no pair sum")
+    ct_pg_mean = {k: float(np.mean([x[i] for x in ct_pg]))
+                  for i, k in enumerate(("ms", "torch_form_ms", "bound_ms"))}
+
     vit_ms = cuda_ms(lambda: hsmm_viterbi_scan(*vit_in), N_TIMED)
     vit_plain_ms = cuda_ms(lambda: _viterbi_scan_plain(*vit_in), 2, warmup=1)
     tb_ms = graph_ms(lambda: hsmm_viterbi_traceback(*tb_in), N_TIMED)
@@ -5155,6 +5414,30 @@ def main():
             "t12000_one_chunk_ms": long_k4["one_chunk_ms"],
         },
         {
+            "name": "hsmm_pair_grad", "route": "cuda",
+            "source": "action_segmentation_torch/csrc/pair_grad.cu",
+            "replaces": "action_segmentation_tpu/ops/hsmm_grad.py:246",
+            "replaces_what": "XLA's fusion of _fb_bwd_packed's pair broadcast-sum (no Pallas "
+                             "kernel)",
+            "launches": train_launches[3], "max_abs_err": train_errs["pair_grad"],
+            "ms": pg_ms, "kernel_ms": pg_ms, "graph_ms": pg_ms, "stream_ms": pg_stream_ms,
+            "plain_ms": pg_plain_ms, "torch_form_ms": pg_form_ms, "bound_ms": pg_bound,
+            "bound_by": pg_by, "bound_limit": pg_kind, "bytes_ms": pg_times["bytes"],
+            "fp32_ms": pg_times["fp32"], "sfu_ms": pg_times["sfu"], "registers": pg_regs,
+            "runs": pg_tile.runs, "frames": pg_tile.frames,
+            "blocks": B * pg_tile.tiles * pg_tile.runs, "waves": pg_tile.waves,
+            "library_ms": None,
+            "crosstask_fit_batches": len(ct_pg),
+            "crosstask_fit_batch_ms": ct_pg_mean["ms"],
+            "crosstask_fit_batch_ms_range": [min(x[0] for x in ct_pg), max(x[0] for x in ct_pg)],
+            "crosstask_fit_batch_torch_form_ms": ct_pg_mean["torch_form_ms"],
+            "crosstask_fit_batch_bound_ms": ct_pg_mean["bound_ms"],
+            # phase 4i's path (the 160-wide fit; none on the marginals) and
+            # phase 4j's (the 1,577-class step)
+            "wide_launches": e2e["wide_launches"][PAIR_NAME],
+            "past_1024_launches": e2e["past_1024_launches"][PAIR_NAME],
+        },
+        {
             "name": "hsmm_viterbi_scan", "route": "cuda",
             "source": "action_segmentation_torch/csrc/hsmm_viterbi.cu",
             "replaces": TPU_FILE + ":110", "launches": ct_launches[0],
@@ -5195,6 +5478,10 @@ def main():
         check(k["dp_launches"] > 0, "{} was not launched on phase 4h's ranks".format(k["name"]))
         check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
         check(k["launches"] > 0, "{} was not launched on its path".format(k["name"]))
+    pair = next(k for k in kernels if k["name"] == PAIR_NAME)
+    check(pair["wide_launches"] > 0 and pair["past_1024_launches"] > 0,
+          "the pair sum was not launched on phase 4i's or 4j's training path: {} {}".format(
+              pair["wide_launches"], pair["past_1024_launches"]))
     # phase 4i: the wide kernels (K4's wide kernel among them), whose path is 4i's
     for k in wide_kernels:
         check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
@@ -5241,6 +5528,22 @@ def main():
               gr_times["fp32"], gr_times["sfu"], clock_mhz, bg_floor(grad_in), bg_insts, bg_mufu,
               bg_regs, bg_tile.rows, bg_tile.slab, B * bg_tile.tiles, bg_tile.blocks_per_sm,
               bg_tile.waves, bg_tile.filling, bg_tile.balance))
+    phase("times", "pair grad {:.5f} ms (a CUDA graph of {} launches; {:.5f} launched one by "
+          "one), bound {:.5f} ms by {} (bytes {:.5f}, fp32 {:.5f}, sfu {:.5f} at {:.0f} MHz), "
+          "{:.2f}x it; the torch form {:.5f} ms ({:.1f}x the kernel), plain {:.4f} ms; {} "
+          "registers; {} runs of {} frames, {} blocks, {} waves; launches: train path {}, "
+          "wide {}, past1024 {}, cli {}, u7 {}, resident {}, dp {}, baselines {}".format(
+              pg_ms, N_TIMED, pg_stream_ms, pg_bound, pg_kind, pg_times["bytes"],
+              pg_times["fp32"], pg_times["sfu"], clock_mhz, pg_ms / pg_bound, pg_form_ms,
+              pg_form_ms / pg_ms, pg_plain_ms, pg_regs, pg_tile.runs, pg_tile.frames,
+              pair["blocks"], pg_tile.waves, pair["launches"], pair["wide_launches"],
+              pair["past_1024_launches"], pair["cli_launches"], pair["u7_launches"],
+              pair["resident_launches"], pair["dp_launches"], pair["baseline_launches"]))
+    phase("times", "pair grad at the {} constrained crosstask fit batches: {:.5f} ms a launch "
+          "({:.5f}-{:.5f}), bound {:.5f} ms, the torch form {:.5f} ms; shapes {}; against the "
+          "plain version at rtol 1e-5 / atol 1e-4, two launches equal".format(
+              len(ct_pg), ct_pg_mean["ms"], min(x[0] for x in ct_pg), max(x[0] for x in ct_pg),
+              ct_pg_mean["bound_ms"], ct_pg_mean["torch_form_ms"], sorted({x[3] for x in ct_pg})))
     phase("times", "band max {:.5f} ms (a CUDA graph of {} launches; {:.5f} launched one by "
           "one; the wrapper's host time {:.5f} a call), bound {:.5f} ms by {}, issue floor "
           "{:.5f} ms (instructions a duration {}, {} registers); tile {} rows, slab {}, {} "

@@ -316,6 +316,79 @@ def test_band_grad_launch_refuses_a_tile_that_does_not_fit(cuda):
     torch.testing.assert_close(got[3], want[3], rtol=RTOL, atol=ATOL)
 
 
+# the transition cotangent (csrc/pair_grad.cu): the serving shape (29
+# runs a video that meet by tickets), T <= SCAN_FOLD (X = alphas, Z =
+# logZ), C = 1, a tile's edge at 33, 128, the S6 model's width and 1,577
+# classes (one run a video)
+PAIR_SHAPES = [(18, 1024, 19, 20), (4, 64, 19, 20), (3, 50, 5, 4), (3, 100, 1, 20),
+               (2, 96, 33, 8), (4, 300, 128, 20), (2, 1024, 342, 20), (2, 64, 1577, 20)]
+
+
+def pair_inputs(pots, lengths, scan=hc._log_scan_plain):
+    """(X, Y, trans, Z, lengths): the pair sum's inputs as ``hg._cotangents``
+    forms them from the log scan `scan` (the kernel at a wide shape, whose
+    plain scan is a long Python loop)."""
+    B, T = pots.emit.shape[:2]
+    gamma, alphas, offsets = scan(*hc._stack_fwd_rev(pots, lengths))
+    lse, _ = hg._log_partition(alphas[:B], offsets[:B], lengths, pots.end_mask)
+    gb = hc._grad_band_inputs(pots, lengths, gamma, offsets, lse)
+    qg = hc._band_grad_chunked(hc.hsmm_band_grad, gb, T)[0]
+    X, Y, Z = hg._pair_inputs(pots, gb, qg, alphas[:B], lse)
+    return X, Y, pots.trans, Z, lengths
+
+
+def assert_pair_grad_matches_plain(pair_in):
+    """Two launches, the same bits, within the score tolerance of the plain
+    version (each term the same float32 operations; the sum over frames
+    associated by pass, thread and run), the tickets back at 0."""
+    before = hc.hsmm_pair_grad.launches
+    got = hc.hsmm_pair_grad(*pair_in)
+    again = hc.hsmm_pair_grad(*pair_in)
+    assert hc.hsmm_pair_grad.launches == before + 2
+    want = hc._pair_grad_plain(*pair_in)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), "two runs differ"
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    tickets = hc._TICKETS.get(got.device)
+    assert tickets is None or int(tickets.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("expanded", [False, True], ids=["per-video trans", "expanded trans"])
+@pytest.mark.parametrize("B,T,C,K", PAIR_SHAPES)
+def test_pair_grad_kernel_matches_plain(cuda, B, T, C, K, expanded):
+    pots, lengths = random_pots(np.random.RandomState(B + 3 * T + C), B, T, C, K, cuda)
+    if expanded:  # as compute_potentials hands it in: read in place
+        pots = pots._replace(trans=pots.trans[:1].expand(B, C, C))
+    scan = hc._log_scan_plain if C <= hc.MAX_CLASSES else hc.hsmm_log_scan
+    assert_pair_grad_matches_plain(pair_inputs(pots, lengths.long(), scan))
+
+
+def test_partition_backward_sums_the_pairs_once_and_marginals_never(cuda):
+    pots, lengths = random_pots(np.random.RandomState(7), 3, 100, 19, 20, cuda, unit=True)
+    xs = [x.detach().clone().requires_grad_(True) for x in pots]
+    before = hc.hsmm_pair_grad.launches
+    hg.hsmm_partition_fb(*xs, lengths).sum().backward()
+    assert hc.hsmm_pair_grad.launches == before + 1
+    hg.hsmm_frame_marginals_fast(pots, lengths)
+    assert hc.hsmm_pair_grad.launches == before + 1
+
+
+def test_pair_grad_rejects_what_it_does_not_take(cuda):
+    pots, lengths = random_pots(np.random.RandomState(2), 2, 40, 5, 4, cuda)
+    X, Y, trans, Z, L = pair_inputs(pots, lengths.long())
+    with pytest.raises(TypeError):
+        hc.hsmm_pair_grad(X.double(), Y, trans, Z, L)
+    with pytest.raises(ValueError):
+        hc.hsmm_pair_grad(X, Y[:, :-1].contiguous(), trans, Z, L)
+    with pytest.raises(ValueError):
+        hc.hsmm_pair_grad(X, Y, trans.double(), Z, L)
+    with pytest.raises(ValueError):
+        hc.hsmm_pair_grad(X, Y, trans[:, :4], Z, L)
+    with pytest.raises(ValueError):
+        hc.hsmm_pair_grad(X.transpose(1, 2).contiguous().transpose(1, 2), Y, trans, Z, L)
+
+
 @pytest.mark.parametrize("B,T,C,K", [(3, 50, 5, 4), (18, 160, 19, 20), (4, 128, 128, 20),
                                      (5, 90, 19, 2), (2, 64, 33, 40)])
 def test_partition_fb_grads_match_autograd(cuda, B, T, C, K):

@@ -170,7 +170,8 @@ def test_k1_guard_lens_grad_is_zero():
 
 def test_primal_takes_the_forward_scan_and_the_gradient_the_pair():
     """Without gradients the partition runs the forward-only scan alone;
-    with them, the stacked log scan forward and one band sweep backward."""
+    with them, the stacked log scan forward and one band sweep and one
+    pair sum backward."""
     calls = []
 
     def spy(name, fn):
@@ -186,13 +187,13 @@ def test_primal_takes_the_forward_scan_and_the_gradient_the_pair():
     z = hg.hsmm_partition_fb(*xs, L, kernels)
     assert calls[1:] == ["log_scan"]
     z.sum().backward()
-    assert calls[1:] == ["log_scan", "band_grad"]
+    assert calls[1:] == ["log_scan", "band_grad", "pair_grad"]
     np.testing.assert_allclose(primal.numpy(), z.detach().numpy(), rtol=RTOL, atol=ATOL)
     before = (hc.hsmm_log_scan.launches, hc.hsmm_forward_scan.launches,
-              hc.hsmm_band_grad.launches)
+              hc.hsmm_band_grad.launches, hc.hsmm_pair_grad.launches)
     hg.hsmm_partition_fb(*xs, L).sum().backward()  # CPU tensors: no launch counted
     assert (hc.hsmm_log_scan.launches, hc.hsmm_forward_scan.launches,
-            hc.hsmm_band_grad.launches) == before
+            hc.hsmm_band_grad.launches, hc.hsmm_pair_grad.launches) == before
 
 
 def test_expanded_inputs_sum_their_cotangents():
