@@ -188,8 +188,8 @@ def _same_replicas(stage, mesh, module):
 
 # the kernels' wrappers whose launches a rank of the dry run reports
 KERNEL_WRAPPERS = ("hsmm_gamma_scan", "hsmm_band_max", "hsmm_log_scan", "hsmm_forward_scan",
-                   "hsmm_band_grad", "hsmm_pair_grad", "hsmm_viterbi_scan",
-                   "hsmm_viterbi_traceback")
+                   "hsmm_band_grad", "hsmm_pair_grad", "hsmm_pair_grad_narrow",
+                   "hsmm_viterbi_scan", "hsmm_viterbi_traceback")
 
 
 def _dryrun_rank(mesh, n_devices):

@@ -1185,71 +1185,262 @@ def _pair_grad_plain(X, Y, trans, Z, lengths):
     return out
 
 
+def _pair_grad_plain64(X, Y, trans, Z, lengths):
+    """``_pair_grad_plain`` in float64, a video at a time (at most (1,
+    PAIR_CHUNK, C, C) of the exponent at once): the yardstick the pair
+    kernel is held to (``_pair_grad_plain`` in float32 rounds each
+    exponent to its own ulp)."""
+    return torch.cat([
+        _pair_grad_plain(X[b:b + 1].double(), Y[b:b + 1].double(), trans[b:b + 1].double(),
+                         Z[b:b + 1].double(), lengths[b:b + 1])
+        for b in range(X.shape[0])]) if X.shape[0] else X.new_zeros((0,) + trans.shape[1:],
+                                                                      dtype=torch.float64)
+
+
+# The pair kernel (csrc/pair_grad.cu): the sum over frames as a float64
+# tensor-core product. A block owns a video, a tile of PAIR_TILE x PAIR_TILE
+# (i, j) pairs and a run of frames, staged PAIR_FRAMES at a time. A frame
+# of a tile goes into the product with the operands A[t, j] = exp(X[t, j]
+# - a_t) and B[t, i] = exp(Y[t, i] + a_t + tau - Z), a_t the tile's largest
+# X of the frame, b_t its largest Y and tau the tile's largest trans, and
+# the product is scaled by exp(trans - tau); a frame whose gap g_t = a_t +
+# b_t + tau - Z passes PAIR_THETA is summed term by term instead (the exact
+# path), as is one whose gap is NaN (a NaN among its X, Y or Z), and one
+# below PAIR_DEAD is left out (its every term is below float64's least).
+# The source's header derives both.
+PAIR_TILE = 64
+PAIR_FRAMES = 32
+PAIR_THREADS = 256
+PAIR_REGS = 128
+PAIR_THETA = 600.0
+PAIR_DEAD = -750.0
+# a block's shared memory (csrc/pair_grad.cu's Smem): the two operand
+# stages (doubles, rows of PAIR_TILE + 4), the exact path's sums (doubles),
+# a frame's two exponent shifts (doubles), two stages each of the staged X
+# and Y (floats, rows of PAIR_TILE + 8), the warps' maxima and exact
+# frames, a frame's state and the last-ticket flag
+PAIR_SMEM = (8 * (2 * PAIR_FRAMES * (PAIR_TILE + 4) + PAIR_TILE * PAIR_TILE + 2 * PAIR_FRAMES)
+             + 4 * (4 * PAIR_FRAMES * (PAIR_TILE + 8) + 2 * (PAIR_THREADS // 32)
+                    + PAIR_FRAMES + 2))
+
+
+def pair_scales(X, Y, trans, Z, lengths, side=PAIR_TILE):
+    """The pair kernel's scales, in float64: (a, b (B, T, n), tau (B, n,
+    n), gap (B, T, n, n), interior (B, T)) over the n = ceil(C / side)
+    class tiles a side: a[b, t, q] the largest X[b, t, j] of j-tile q,
+    b[b, t, p] the largest Y[b, t, i] of i-tile p (a and b NaN where a NaN
+    is among them, as the kernel's max.NaN), tau[b, p, q] the tile's
+    largest trans, NaN entries left out (0 where every entry is -inf or
+    NaN), gap = a + b + tau - Z, and which frames are interior (1 <= t <
+    L_b)."""
+    B, T, C = X.shape
+    n = -(-C // side)
+    pad = n * side - C
+    neg = float("-inf")
+    Xd = torch.nn.functional.pad(X.double(), (0, pad), value=neg)
+    Yd = torch.nn.functional.pad(Y.double(), (0, pad), value=neg)
+    tr = torch.nn.functional.pad(trans.double(), (0, pad, 0, pad), value=neg)
+    a = Xd.view(B, T, n, side).amax(dim=-1)
+    b = Yd.view(B, T, n, side).amax(dim=-1)
+    tr = torch.where(tr.isnan(), torch.full_like(tr, neg), tr)
+    tau = tr.view(B, n, side, n, side).amax(dim=(2, 4))
+    tau = torch.where(tau > neg, tau, torch.zeros_like(tau))
+    gap = b[..., :, None] + a[..., None, :] + tau[:, None] - Z.double()[:, None, None, None]
+    t_idx = torch.arange(T, device=X.device)[None, :]
+    interior = (t_idx >= 1) & (t_idx < lengths.to(X.device).clamp(1, T)[:, None])
+    return a, b, tau, gap, interior
+
+
+class PairSplit(NamedTuple):
+    """How the pair kernel takes a launch's interior tile-frames (each
+    (video, tile, interior frame)): into the product, term by term (the
+    exact path, gap > PAIR_THETA or NaN), or left out (gap < PAIR_DEAD)."""
+
+    frames: int
+    product: int
+    exact: int
+    dead: int
+
+    @property
+    def exact_share(self):
+        return self.exact / max(self.frames, 1)
+
+
+def pair_grad_split(X, Y, trans, Z, lengths, side=PAIR_TILE, theta=PAIR_THETA):
+    """The PairSplit of the inputs (X, Y, trans, Z, lengths): from
+    ``pair_scales``, as the kernel decides it."""
+    _, _, _, gap, interior = pair_scales(X, Y, trans, Z, lengths, side)
+    inside = interior[:, :, None, None].expand_as(gap)
+    exact = inside & ~(gap <= theta)  # NaN too, as the kernel sums it term by term
+    dead = inside & (gap < PAIR_DEAD)
+    frames = int(inside.sum())
+    return PairSplit(frames, frames - int(exact.sum()) - int(dead.sum()), int(exact.sum()),
+                     int(dead.sum()))
+
+
+def _pair_grad_scaled(X, Y, trans, Z, lengths, side=PAIR_TILE, theta=PAIR_THETA):
+    """The pair kernel's algorithm in float64 (the tests hold it against
+    ``_pair_grad_plain`` in float64; the main path never runs it): for
+    each (i, j) tile, the operands of ``pair_scales``' product frames
+    multiplied with torch.matmul over the frames and scaled by exp(trans -
+    tau) in each video that has an interior frame, plus the exact path's
+    frames (gap past theta, or NaN) summed term by term. Returns the (B,
+    C, C) float64 sum."""
+    X, Y, trans, Z = X.double(), Y.double(), trans.double(), Z.double()
+    B, T, C = X.shape
+    a, _, tau, gap, interior = pair_scales(X, Y, trans, Z, lengths, side)
+    inside = interior[:, :, None, None]
+    product = inside & (gap <= theta) & (gap >= PAIR_DEAD)
+    exact = inside & ~(gap <= theta)
+    framed = interior.any(dim=1)[:, None, None]
+    out = X.new_zeros((B, C, C))
+    zero = X.new_zeros(())
+    for p, i0 in enumerate(range(0, C, side)):
+        for q, j0 in enumerate(range(0, C, side)):
+            Xj, Yi = X[:, :, j0:j0 + side], Y[:, :, i0:i0 + side]
+            tr = trans[:, i0:i0 + side, j0:j0 + side]
+            live = product[:, :, p, q, None]
+            shift = (a[:, :, q] + tau[:, None, p, q] - Z[:, None])[..., None]
+            A = torch.where(live, torch.exp(Xj - a[:, :, q, None]), zero)
+            Bt = torch.where(live, torch.exp(Yi + shift), zero)
+            tile = torch.where(framed,
+                               (Bt.transpose(1, 2) @ A) * torch.exp(tr - tau[:, p, q, None, None]),
+                               zero)
+            hot = exact[:, :, p, q]
+            for t0 in range(0, T, PAIR_CHUNK):
+                if bool(hot[:, t0:t0 + PAIR_CHUNK].any()):
+                    expo = (Xj[:, t0:t0 + PAIR_CHUNK, None, :] + tr[:, None]
+                            + Yi[:, t0:t0 + PAIR_CHUNK, :, None] - Z[:, None, None, None])
+                    keep = hot[:, t0:t0 + PAIR_CHUNK, None, None]
+                    tile = tile + torch.exp(torch.where(keep, expo, zero - float("inf"))).sum(1)
+            out[:, i0:i0 + side, j0:j0 + side] = tile
+    return out
+
+
 class PairTile(NamedTuple):
-    """The pair kernel's launch (csrc/pair_grad.cu): blocks of 256 threads
-    over a tile of 32 x 32 (i, j) pairs of one video and a run of
+    """A pair kernel's launch (csrc/pair_grad.cu): blocks of 256 threads
+    over a tile of (i, j) pairs of one video (PAIR_TILE a side on the
+    tensor route, PAIR_SCALAR_TILE on the scalar route) and a run of
     `frames` frames."""
 
-    tiles: int  # a video's (i, j) tiles: ceil(C / 32) ** 2
+    route: str  # "tensor" (pair_grad_kernel) or "scalar" (pair_grad_scalar_kernel)
+    tiles: int  # a video's (i, j) tiles
     runs: int  # a video's runs of frames
     frames: int  # a run's
     blocks_per_sm: int  # resident at once
     waves: int  # B * tiles * runs over the card's resident blocks
     filling: float  # the launch's blocks over the waves' resident slots
-    scratch_bytes: int  # the partials: B * runs * C * C floats past one run
+    scratch_bytes: int  # the partials past one run: B * runs * C * C doubles (floats, scalar)
 
 
-PAIR_GRAD_CLASSES = 32
-PAIR_GRAD_THREADS = 256
-PAIR_GRAD_REGS = 64
-PAIR_GRAD_FRAMES = 32  # the frames a pass stages, and the fewest a run takes
+# the scalar route (csrc/pair_grad.cu pair_grad_scalar_kernel, one expf a
+# term): tiles of 32 x 32 pairs, at most 64 registers a thread (four blocks
+# an SM), float32 partials. ``hsmm_pair_grad`` takes it at C <= 32, where
+# its launch is shorter than the product's (the serving shape and the
+# CrossTask fit batches; PERF.md §6)
+PAIR_NARROW_CLASSES = 32
+PAIR_SCALAR_TILE = 32
+PAIR_SCALAR_REGS = 64
+
+
+def pair_runs(B, T, C, side, per_sm, least, sms):
+    """(runs, frames) a video for a pair kernel's tiles of `side`
+    classes, `per_sm` blocks an SM: of the counts that leave every run at
+    least `least` frames and keep the partials within two planes (runs * C
+    <= T), the one whose launch costs the least, a launch costing its
+    rounds of resident blocks (ceil(blocks / slots)) times a run's frames
+    plus one pass's (the partials' sum); among equals the fewest runs."""
+    side_n = -(-max(C, 1) // side)
+    lines = max(B, 1) * side_n * side_n
+    resident = sms * per_sm
+    Tr = max(T, 1)
+    most = max(1, min(Tr // least, Tr // max(C, 1)))
+    counts = {-(-Tr // -(-Tr // n)) for n in range(1, most + 1)}
+    runs = min(counts, key=lambda n: (-(-lines * n // resident) * (-(-Tr // n) + least), n))
+    frames = -(-Tr // runs)
+    return -(-Tr // frames), frames  # the runs the launch derives from `frames`
 
 
 @functools.cache
-def pair_grad_tile(B, T, C, sms=H100_SMS):
-    """The launch the pair kernel takes for (B, T, C) on `sms` SMs.
-
-    At most 64 registers a thread, so that four blocks fit an SM. The runs
-    a video: of the counts that leave every run at least PAIR_GRAD_FRAMES
-    frames and keep the partials within one plane (runs * C <= T, so that
-    B * runs * C * C floats are at most B * T * C), the one whose launch
-    costs the least, a launch costing its rounds of resident blocks
-    (ceil(blocks / slots)) times a run's frames plus one pass's (the
-    partials' sum); among equals the fewest runs: 29 runs of 36 frames for
-    18 videos of 1,024 frames at 19 classes (522 blocks for 528 slots), 2
-    at 342 classes, 1 at 1,577. One run needs no partials and no
-    ticket."""
-    side = -(-max(C, 1) // PAIR_GRAD_CLASSES)
-    tiles = side * side
-    per_sm = _blocks_per_sm(PAIR_GRAD_THREADS, PAIR_GRAD_REGS)
+def pair_grad_tile(B, T, C, sms=H100_SMS, route=None):
+    """The launch a pair kernel takes for (B, T, C) on `sms` SMs, on
+    `route` (by default the scalar route at C <= PAIR_NARROW_CLASSES, else
+    the tensor route): two blocks an SM on the tensor route (PAIR_REGS
+    registers, PAIR_SMEM bytes of shared memory), four on the scalar
+    route, and ``pair_runs`` runs a video (29 runs of 36 frames for 18
+    videos of 1,024 frames at 19 classes, the scalar route's; 2 at 342
+    classes, 1 at 1,577). One run needs no partials and no ticket."""
+    if route is None:
+        route = "scalar" if C <= PAIR_NARROW_CLASSES else "tensor"
+    if route == "tensor":
+        side, word = PAIR_TILE, 8
+        per_sm = min(_blocks_per_sm(PAIR_THREADS, PAIR_REGS),
+                     SM_SMEM // (PAIR_SMEM + SM_SMEM_PER_BLOCK))
+    else:
+        side, word = PAIR_SCALAR_TILE, 4
+        per_sm = _blocks_per_sm(PAIR_THREADS, PAIR_SCALAR_REGS)
+    tiles = (-(-max(C, 1) // side)) ** 2
+    runs, frames = pair_runs(B, T, C, side, per_sm, PAIR_FRAMES, sms)
     resident = sms * per_sm
     lines = max(B, 1) * tiles
-    Tr = max(T, 1)
-    most = max(1, min(Tr // PAIR_GRAD_FRAMES, Tr // max(C, 1)))
-    counts = {-(-Tr // -(-Tr // n)) for n in range(1, most + 1)}
-    runs = min(counts, key=lambda n: (
-        -(-lines * n // resident) * (-(-Tr // n) + PAIR_GRAD_FRAMES), n))
-    frames = -(-Tr // runs)
-    runs = -(-Tr // frames)  # what the launch derives from `frames`
     waves = max(1, -(-lines * runs // resident))
-    scratch = 4 * B * runs * C * C if runs > 1 else 0
-    return PairTile(tiles, runs, frames, per_sm, waves, lines * runs / (waves * resident),
-                    scratch)
+    scratch = word * B * runs * C * C if runs > 1 else 0
+    return PairTile(route, tiles, runs, frames, per_sm, waves,
+                    lines * runs / (waves * resident), scratch)
 
 
 def _launch_pair_grad(X, Y, trans, Z, lengths, tile):
-    """One launch of csrc/pair_grad.cu in `tile`; returns the (B, C, C)
-    cotangent."""
+    """One launch of csrc/pair_grad.cu's kernel of `tile`'s route in
+    `tile`; returns the (B, C, C) cotangent."""
     B, T, C = X.shape
     out = X.new_empty((B, C, C))
     part, tickets = None, None
     if tile.runs > 1:
-        part = X.new_empty((tile.scratch_bytes // 4,))
+        dtype = torch.float64 if tile.route == "tensor" else torch.float32
+        part = X.new_empty((tile.scratch_bytes // dtype.itemsize,), dtype=dtype)
         tickets = _tickets(X.device, B * tile.tiles)
-    err = _call("pair_grad", "hsmm_pair_grad", [X, Y, trans, Z, lengths, out, part, tickets],
+    symbol = "hsmm_pair_grad" if tile.route == "tensor" else "hsmm_pair_grad_scalar"
+    err = _call("pair_grad", symbol, [X, Y, trans, Z, lengths, out, part, tickets],
                 [B, T, C, *trans.stride(), tile.frames], X)
-    _raise_on_error("hsmm_pair_grad", err)
+    _raise_on_error(symbol, err)
     return out
+
+
+def _pair_grad_checked(name, X, Y, trans, Z, lengths):
+    """The pair kernels' checks before a launch; returns lengths as
+    contiguous int32."""
+    B, T, C = X.shape
+    lengths = lengths.to(torch.int32).contiguous()
+    _check_cuda(name, [X, Y, Z, lengths], [(B, T, C), (B, T, C), (B,), (B,)],
+                (torch.float32,) * 3 + (torch.int32,))
+    if trans.device != X.device or trans.dtype != torch.float32 or tuple(trans.shape) != (
+            B, C, C):
+        raise ValueError("{}: trans {} {} on {}, not ({}, {}, {}) float32 on {}".format(
+            name, tuple(trans.shape), trans.dtype, trans.device, B, C, C, X.device))
+    if B > 65535 or max(trans.stride()) > 2 ** 31 - 1:
+        raise ValueError("{}: B={} (at most 65,535) or trans strides {} past int32".format(
+            name, B, trans.stride()))
+    return lengths
+
+
+def hsmm_pair_grad_narrow(X, Y, trans, Z, lengths):
+    """The transition cotangent on the scalar route (csrc/pair_grad.cu
+    pair_grad_scalar_kernel), at any C: each term formed in the plain
+    version's float32 order, the sum over frames associated by pass, thread
+    and run (within rtol 1e-5 / atol 1e-4 of ``_pair_grad_plain``, the same
+    bits in two runs). ``hsmm_pair_grad`` takes it at C <=
+    PAIR_NARROW_CLASSES. On CPU tensors it runs the plain version."""
+    if _device_type(X) == "cpu":
+        return _pair_grad_plain(X, Y, trans, Z, lengths)
+    B, T, C = X.shape
+    lengths = _pair_grad_checked("hsmm_pair_grad_narrow", X, Y, trans, Z, lengths)
+    out = _launch_pair_grad(X, Y, trans, Z, lengths,
+                            pair_grad_tile(B, T, C, _sm_count(X.device.index), "scalar"))
+    hsmm_pair_grad_narrow.launches += 1
+    return out
+
+
+hsmm_pair_grad_narrow.launches = 0
 
 
 def hsmm_pair_grad(X, Y, trans, Z, lengths):
@@ -1257,27 +1448,25 @@ def hsmm_pair_grad(X, Y, trans, Z, lengths):
 
     On CUDA tensors (X, Y (B, T, C) float32 contiguous; trans (B, C, C)
     float32 of any strides, an expanded table read in place; Z (B,)
-    float32; lengths (B,), any integer type) it launches
-    csrc/pair_grad.cu once, in the launch ``pair_grad_tile`` sizes, which
-    never holds the (B, T, C, C) exponent and sums each pair's runs in a
-    fixed order (two runs give the same bits); on CPU tensors it runs the
-    plain version."""
+    float32; lengths (B,), any integer type) it launches one kernel of
+    csrc/pair_grad.cu, in the launch ``pair_grad_tile`` sizes: past
+    PAIR_NARROW_CLASSES the tensor route, the sum over frames as a float64
+    tensor-core product of per-frame scaled operands
+    (``_pair_grad_scaled`` is its algorithm in float64), held to the plain
+    version in float64; at or below it the scalar route
+    (``hsmm_pair_grad_narrow``). Neither holds the (B, T, C, C) exponent,
+    and each sums a pair's runs in a fixed order (two runs give the same
+    bits). ``launches`` counts the tensor route's launches,
+    ``hsmm_pair_grad_narrow.launches`` the scalar route's. On CPU tensors
+    it runs the plain version."""
     if _device_type(X) == "cpu":
         return _pair_grad_plain(X, Y, trans, Z, lengths)
     B, T, C = X.shape
-    lengths = lengths.to(torch.int32).contiguous()
-    _check_cuda("hsmm_pair_grad", [X, Y, Z, lengths], [(B, T, C), (B, T, C), (B,), (B,)],
-                (torch.float32,) * 3 + (torch.int32,))
-    if trans.device != X.device or trans.dtype != torch.float32 or tuple(trans.shape) != (
-            B, C, C):
-        raise ValueError("hsmm_pair_grad: trans {} {} on {}, not ({}, {}, {}) float32 on "
-                         "{}".format(tuple(trans.shape), trans.dtype, trans.device, B, C, C,
-                                     X.device))
-    if B > 65535 or max(trans.stride()) > 2 ** 31 - 1:
-        raise ValueError("hsmm_pair_grad: B={} (at most 65,535) or trans strides {} past "
-                         "int32".format(B, trans.stride()))
+    if C <= PAIR_NARROW_CLASSES:
+        return hsmm_pair_grad_narrow(X, Y, trans, Z, lengths)
+    lengths = _pair_grad_checked("hsmm_pair_grad", X, Y, trans, Z, lengths)
     out = _launch_pair_grad(X, Y, trans, Z, lengths,
-                            pair_grad_tile(B, T, C, _sm_count(X.device.index)))
+                            pair_grad_tile(B, T, C, _sm_count(X.device.index), "tensor"))
     hsmm_pair_grad.launches += 1
     return out
 

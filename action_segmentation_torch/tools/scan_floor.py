@@ -320,6 +320,60 @@ def innermost_loops(insts):
             if not any((a, b) != (c, d) and a <= c and d <= b for c, d in spans)]
 
 
+def _opcount(body, prefix):
+    return sum(1 for ins in body if ins[2].startswith(prefix))
+
+
+def pair_grad_floor(sass):
+    """The pair kernels' loops in csrc/pair_grad.cu's SASS, by function
+    (either design: the scalar kernel, one expf a term, as the scalar route
+    or an earlier source's only kernel, or the tensor-core kernel). The
+    scalar kernel's term loop (of the innermost loops holding
+    two MUFU.EX2 or more, the longest): its instructions (no NOP) and MUFU
+    an iteration, and instructions a term (a MUFU.EX2 each). The tensor-core kernel's
+    product loop (the innermost loop holding DMMA): instructions and DMMA
+    an iteration; and its operand loop (the innermost loop holding MUFU.EX2
+    and no DMMA, where the compiler kept one): instructions and MUFU an
+    iteration."""
+    names = sorted({line.split("Function :")[1].strip() for line in sass.splitlines()
+                    if "Function :" in line and re.search(r"pair_grad(_scalar)?_kernel", line)})
+    out = {}
+    for name in names:
+        insts = parse_function(sass, name)
+        inner = innermost_loops(insts)
+        count = lambda body: sum(1 for ins in body if ins[2] != "NOP")  # noqa: E731
+        if any(ins[2].startswith("DMMA") for ins in insts):
+            mma = min((b for b in inner if _opcount(b, "DMMA")), key=len, default=None)
+            ops = max((b for b in inner if _opcount(b, "MUFU.EX2") and not _opcount(b, "DMMA")),
+                      key=len, default=None)
+            out[name] = {
+                "design": "tensor",
+                "mma_loop": None if mma is None else {
+                    "instructions": count(mma), "dmma": _opcount(mma, "DMMA"),
+                    "lds": _opcount(mma, "LDS")},
+                "operand_loop": None if ops is None else {
+                    "instructions": count(ops), "mufu": _opcount(ops, "MUFU.EX2")},
+                "dmma_total": _opcount(insts, "DMMA"), "mufu_total": _opcount(insts, "MUFU.EX2")}
+        else:
+            body = max((b for b in inner if _opcount(b, "MUFU.EX2") >= 2), key=len,
+                       default=None)
+            if body is None:
+                raise ValueError("no term loop found in " + name)
+            mufu = _opcount(body, "MUFU.EX2")
+            out[name] = {"design": "scalar", "instructions": count(body), "mufu": mufu,
+                         "instructions_per_term": count(body) / mufu}
+    if not out:
+        raise ValueError("no pair_grad_kernel in the SASS")
+    return out
+
+
+def pair_grad_issue_ms(instructions_per_term, terms, clock_mhz, sms=H100_SMS):
+    """The scalar pair kernel's issue floor in ms: its instructions a term
+    x the launch's terms over 32 lanes a warp, issued by `sms` SMs of 4
+    schedulers."""
+    return instructions_per_term * terms / 32 / (sms * SCHEDULERS) / clock_mhz * 1e-3
+
+
 # K3's duration loops: (name, the body's opcodes it needs, those it must
 # not hold, the opcode that marks one duration)
 BAND_MAX_LOOPS = (

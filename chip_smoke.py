@@ -14,7 +14,7 @@ exit and no result line:
   2. build   — the six kernel sources from action_segmentation_torch/csrc
                with nvcc for sm_90a, all at once, printing ptxas'
                register/smem/spill lines (a serving scan instance, a wide
-               kernel, a band kernel or the pair kernel that spills, or a
+               kernel, a band kernel or a pair kernel that spills, or a
                band or pair kernel above the registers its tile rule
                assumes, fails the run);
   3. kernels — each decode kernel against its plain PyTorch version on the
@@ -29,9 +29,13 @@ exit and no result line:
                atol 1e-4, the band gradient's qg, sa and st equal to its
                plain version's (denormal sums included) and its lg at
                rtol 1e-5 / atol 1e-4 (summed over T by tiles), the pair
-               sum (csrc/pair_grad.cu) on the backward's X, Y and Z at rtol
-               1e-5 / atol 1e-4 and the same bits in two launches (an
-               expanded table, a table a video, T <= 64 where Z = logZ),
+               sum (csrc/pair_grad.cu) on the backward's X, Y and Z, the
+               same bits in two launches (an expanded table, a table a
+               video, T <= 64 where Z = logZ): at C <= 32 its scalar
+               route at rtol 1e-5 / atol 1e-4 of the float32 plain
+               version, past it its tensor route against the plain
+               version in float64, within the looser of that tolerance
+               and the float32 plain version's own error,
                and logZ and
                the five gradients of the kernel forward/backward against
                the same Function through the plain versions (float32) at
@@ -192,7 +196,10 @@ exit and no result line:
                kernel and the pair sum once a batch) and a no-grad
                partition through the wide forward scan; the pair sum in
                (a) at every case and at B=2, T=1,024, C=342 against its
-               plain version; (d) each wide kernel's time at the S6 shape
+               plain version, and where a masked pair dominates each
+               frame by 100 to 5,000 nats (the exact path's share
+               printed), and with a NaN in X, Y, Z and trans (NaN where
+               the plain version has it); (d) each wide kernel's time at the S6 shape
                beside its plain version's and its bound, K4's wide
                kernel's also beside its lg scratch, its floor with the
                cross-tile sum and the narrow kernel's time in its own
@@ -255,13 +262,17 @@ exit and no result line:
                two duration loops' instructions, read from the SASS, which
                must hold no barrier), at the serving shape and at each
                predict and segment_many batch of the synthetic slice (fm
-               equal to the plain version's there too); the pair sum from
-               a replayed CUDA graph beside its bound (the larger of
-               bytes, fp32 operations and one expf a term on the special-
-               function units), the torch form it replaced (the whole
-               (B, T, C, C) exponent) and its plain version, at the
-               serving shape and at each batch of the constrained
-               CrossTask fit (against the plain version there too);
+               equal to the plain version's there too); the pair sum's
+               scalar route from a replayed CUDA graph beside its bound
+               (the larger of bytes, fp32 operations and one expf a term
+               on the special-function units), its issue floor, the
+               tensor route's kernel on the same inputs, the torch form
+               (the whole (B, T, C, C) exponent) and its plain version,
+               at the serving shape and at each batch of the constrained
+               CrossTask fit (against the plain version there too); the
+               tensor route's at the S6 shape (4i) and at 1,577 classes
+               (4j) beside the scalar route's kernel and its bound (the
+               FP64 tensor cores' rate);
                segment_many
                frames/s, one training step's time, the fit's frames/s and
                the CrossTask predict's frames/s.
@@ -270,8 +281,9 @@ The line before the last is one JSON object {"kernels": [...]} (each
 kernel's launches on the slices' paths, and its cli_, u7_, baseline_,
 resident_ and dp_launches on phases 4d-4h, dp_ every rank's summed; the
 wide kernels' launches, K4's wide kernel's among them, are phase 4i's;
-each wide kernel's past_1024_ keys are phase 4j's; the pair sum's
-wide_launches and past_1024_launches phase 4i's and 4j's); the last is
+each wide kernel's past_1024_ keys are phase 4j's, the pair sum's tensor
+route, hsmm_pair_grad, among them; its scalar route, hsmm_pair_grad_narrow,
+counts the narrow paths'); the last is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -301,6 +313,8 @@ N_TIMED = 50
 # compute capability 9.0)
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+# the FP64 tensor cores' peak, flops a second (NVIDIA's data sheet, H100 SXM)
+PEAK_FP64_TENSOR = 67e12
 SFU_PER_SM_CLOCK = 16
 # tolerances of the JAX package's own tests: scores (tests/test_hsmm_pallas.py)
 # and the partition's gradients (tests/test_hsmm_grad.py)
@@ -446,21 +460,165 @@ def pair_inputs(pots, lengths, scan_out):
     return X, Y, pots.trans, Z, L
 
 
-def check_pair_grad(name, pair_in):
-    """The pair kernel against its plain version on the same inputs at
-    rtol 1e-5 / atol 1e-4 (each term the same float32 operations, the sum
-    over frames associated by pass, thread and run), the same bits in two
-    launches; returns the max abs error."""
+def check_pair_rule(name, got, want32, want64, rtol=RTOL, atol=ATOL):
+    """The pair kernel's sum `got` against the plain version in float64,
+    `want64`: NaN where it is NaN and nowhere else, finite where it is
+    finite, and each finite entry within the looser of rtol / atol and the
+    float32 plain version's own error at that entry (|want32 - want64|,
+    none where want32 is not finite). Returns (the kernel's max abs error
+    against float64, the float32 plain version's, the entries within that
+    error and past rtol / atol), over the finite entries."""
     import torch
 
-    from action_segmentation_torch.ops.hsmm_cuda import _pair_grad_plain, hsmm_pair_grad
+    nan = want64.isnan()
+    check(torch.equal(got.isnan(), nan), "{}: NaN in {} entries where the plain version in "
+          "float64 has it in {}".format(name, int(got.isnan().sum()), int(nan.sum())))
+    live = torch.isfinite(want64)
+    check(bool(torch.isfinite(got[live]).all()),
+          name + ": non-finite values where the plain version in float64 is finite")
+    w = want64[live]
+    gap = (got.double()[live] - w).abs()
+    err32 = (want32.double()[live] - w).abs()
+    err32 = torch.where(torch.isfinite(err32), err32, torch.zeros_like(err32))
+    tol = atol + rtol * w.abs()
+    bad = gap > torch.maximum(tol, err32)
+    check(not bool(bad.any()), "{}: {} of {} entries past the looser of rtol {} / atol {} and "
+          "the float32 plain version's own error there against float64 (largest {:g})".format(
+              name, int(bad.sum()), bad.numel(), rtol, atol, float(gap.max())))
+    if not gap.numel():
+        return 0.0, 0.0, 0
+    return float(gap.max()), float(err32.max()), int((gap > tol).sum())
+
+
+def same_bits(a, b):
+    """Whether two float32 tensors hold the same bits (NaN included)."""
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# the pair sum's largest error against the plain version in float64 on
+# each route, over every check_pair_grad of the run (the kernels line's)
+PAIR_ERRS = {"tensor": 0.0, "scalar": 0.0}
+
+
+def check_pair_grad(name, pair_in):
+    """The pair sum on the route ``hsmm_pair_grad`` takes, against the plain
+    version on the same inputs, the same bits in two launches (NaN
+    included): the tensor route against the plain version in float64
+    (``check_pair_rule``), the
+    scalar route (C <= 32) against the float32 plain version at rtol 1e-5 /
+    atol 1e-4 (each term the same float32 operations, the sum over frames
+    associated by pass, thread and run). Prints the route's error against
+    float64 beside the float32 plain version's (and on the tensor route
+    the entries held by the float32 error alone), and how the tensor route
+    splits (or would split) the tile-frames: product, exact path, left out.
+    Returns the route's max abs error against float64 and adds it to
+    PAIR_ERRS."""
+    import torch
+
+    from action_segmentation_torch.ops.hsmm_cuda import (
+        PAIR_NARROW_CLASSES,
+        _pair_grad_plain,
+        _pair_grad_plain64,
+        hsmm_pair_grad,
+        pair_grad_split,
+    )
 
     got, again = hsmm_pair_grad(*pair_in), hsmm_pair_grad(*pair_in)
-    want = _pair_grad_plain(*pair_in)
+    want32, want64 = _pair_grad_plain(*pair_in), _pair_grad_plain64(*pair_in)
     torch.cuda.synchronize()
-    assert_close(name + " pair grad", got, want)
-    check(torch.equal(got, again), name + " pair grad: two launches differ")
-    return max_err(got, want)
+    route = "scalar" if pair_in[0].shape[2] <= PAIR_NARROW_CLASSES else "tensor"
+    held = 0
+    if route == "scalar":
+        assert_close(name + " pair grad", got, want32)
+        err, err32 = max_err(got, want64), max_err(want32, want64)
+    else:
+        err, err32, held = check_pair_rule(name + " pair grad", got, want32, want64)
+    check(same_bits(got, again), name + " pair grad: two launches differ")
+    PAIR_ERRS[route] = max(PAIR_ERRS[route], err)
+    split = pair_grad_split(*pair_in)
+    phase("pair grad", "{} {}: the {} route; max |kernel - fp64 plain| {:g} (fp32 plain's {:g}; "
+          "{} entries past rtol / atol within it); two launches equal; the tensor route's split "
+          "of {} tile-frames: {} product, {} exact path ({:.6f}), {} left out".format(
+              name, tuple(pair_in[0].shape), route, err, err32, held, split.frames,
+              split.product, split.exact, split.exact_share, split.dead))
+    return err
+
+
+def pair_masked_cases(device):
+    """The tensor route where a masked pair dominates each frame
+    (``masked_pair_draw``, B=4, T=300): gaps of 100, 800 and 5,000 nats
+    mixed a frame at C = 70 and 342 (the product, the exact path and the
+    left-out tile-frames in one launch), and every frame 5,000 nats at C =
+    64, one tile whose every interior tile-frame takes the exact path;
+    each finite and against the plain version in float64
+    (``check_pair_grad``); and NaN among the mixed draw's X, Y, Z and
+    trans at C = 70 (``nan_pair_draw``), NaN where the plain version has
+    it. Returns {case: (max abs error, exact-path share)}."""
+    from action_segmentation_torch.ops.hsmm_cuda import pair_grad_split
+
+    out = {}
+    for Cn, gaps in ((70, (100.0, 800.0, 5000.0)), (342, (100.0, 800.0, 5000.0)),
+                     (64, (5000.0,))):
+        pair_in = masked_pair_draw(np.random.RandomState(Cn), 4, 300, Cn, gaps, device)
+        name = "masked C={} gaps {}".format(Cn, "/".join("{:g}".format(g) for g in gaps))
+        out[name] = (check_pair_grad(name, pair_in), pair_grad_split(*pair_in).exact_share)
+    check(out["masked C=64 gaps 5000"][1] == 1.0,
+          "the 5,000-nat draw at one tile did not take the exact path on every tile-frame")
+    pair_in = nan_pair_draw(np.random.RandomState(7), 300, 70, device)
+    out["NaN C=70"] = (check_pair_grad("NaN C=70", pair_in), pair_grad_split(*pair_in).exact_share)
+    return out
+
+
+def masked_pair_draw(rng, b, t, c, gaps, device):
+    """Pair-sum inputs (X, Y, trans, Z, lengths) where a masked pair
+    dominates every frame: a class drawn a frame stands `gap` above the
+    others in X and in Y (X, Y = -gap / 2 + 3 N(0, 1), that class's +gap),
+    the gap drawn a frame from `gaps`, and the table's diagonal BIG_NEG
+    (log-Dirichlet rows, expanded over the batch), so that the masked
+    pair's exponent is about gap above the best unmasked pair's (about 0;
+    Z = 0.1 N(0, 1)); lengths ragged down to 1."""
+    import torch
+
+    from action_segmentation_torch import BIG_NEG
+
+    gap = np.asarray(gaps, np.float64)[rng.randint(len(gaps), size=(b, t))]
+    top = rng.randint(c, size=(b, t))
+    X = rng.randn(b, t, c) * 3 - gap[..., None] / 2
+    Y = rng.randn(b, t, c) * 3 - gap[..., None] / 2
+    bi, ti = np.meshgrid(np.arange(b), np.arange(t), indexing="ij")
+    X[bi, ti, top] += gap
+    Y[bi, ti, top] += gap
+    trans = np.log(rng.dirichlet(np.ones(c), size=c))
+    trans[np.arange(c), np.arange(c)] = BIG_NEG
+    Z = rng.randn(b) * 0.1
+    lengths = rng.randint(1, t + 1, size=b)
+    lengths[0] = t
+    if b > 1:
+        lengths[-1] = 1
+    dev = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)  # noqa: E731
+    return (dev(X), dev(Y), dev(trans).expand(b, c, c), dev(Z),
+            torch.from_numpy(lengths).long().to(device))
+
+
+def nan_pair_draw(rng, t, c, device):
+    """``masked_pair_draw`` (6 videos of `t` frames, gaps of 100, 800 and
+    5,000 nats, a table of each video's own) with a NaN in each of its
+    inputs: X of video 0 at interior frame 1 (and at frame 0, which no sum
+    reads), Y of video 1 at frame 1, Z of video 2, trans of video 3, and Z
+    and trans of video 4, whose one frame has no interior boundary (its sum
+    stays 0); videos 0-3 at least 2 frames."""
+    X, Y, trans, Z, L = masked_pair_draw(rng, 6, t, c, (100.0, 800.0, 5000.0), device)
+    X, Y, trans, Z, L = X.clone(), Y.clone(), trans.contiguous(), Z.clone(), L.clone()
+    nan = float("nan")
+    X[0, 1, 3 % c] = X[0, 0, (c - 1) // 2] = nan
+    Y[1, 1, c - 1] = nan
+    Z[2] = Z[4] = nan
+    trans[3, c // 3, c - 1] = trans[4, 0, 0] = nan
+    L[:4] = L[:4].clamp(min=2)
+    L[4] = 1
+    return X, Y, trans, Z, L
 
 
 def unit_pots(rng, b, t, c, k, device, lengths=None, end_mask=None):
@@ -884,7 +1042,8 @@ def run_train_slice(device, num_videos, max_len, shift):
     """Phase 4b: the two fits and the no-grad partition (the training
     path), then segment_with_marginals; returns the e2e record and the
     training path's launches of (log scan, forward scan, band grad, pair
-    grad)."""
+    grad on the tensor route and on the scalar route: the serving width, C
+    = 19, takes the scalar kernel)."""
     import torch
 
     from action_segmentation_torch.api import Segmenter
@@ -897,6 +1056,7 @@ def run_train_slice(device, num_videos, max_len, shift):
         hsmm_forward_scan,
         hsmm_log_scan,
         hsmm_pair_grad,
+        hsmm_pair_grad_narrow,
     )
     from action_segmentation_torch.ops.hsmm_grad import (
         PLAIN,
@@ -910,7 +1070,8 @@ def run_train_slice(device, num_videos, max_len, shift):
     test = SyntheticDatasplit(seed=1, **kw)
     n_batches = -(-num_videos // B)
     frames = sum(int(train._samples[n]["features"].shape[0]) for n in train._samples)
-    kernels = (hsmm_log_scan, hsmm_forward_scan, hsmm_band_grad, hsmm_pair_grad)
+    kernels = (hsmm_log_scan, hsmm_forward_scan, hsmm_band_grad, hsmm_pair_grad,
+               hsmm_pair_grad_narrow)
     for k in kernels:
         k.launches = 0
 
@@ -939,11 +1100,11 @@ def run_train_slice(device, num_videos, max_len, shift):
     steady = 2 * frames / (stamps[2] - stamps[0])  # epochs 2 and 3
     n_unsup = counts()
     phase("train slice", "unsupervised fit: 3 epochs x {} batches, epoch losses {}, "
-          "launches log/forward/band grad/pair grad = {}, {:.3f} s = {:.0f} frames/s ({:.0f} frames/s "
+          "launches log/forward/band grad/pair grad (tensor, scalar route) = {}, {:.3f} s = {:.0f} frames/s ({:.0f} frames/s "
           "over epochs 2-3; the first Adam of the process took {:.3f} s before)".format(
               n_batches, losses, n_unsup, fit_s, 3 * frames / fit_s, steady,
               optimizer_setup_s))
-    check(n_unsup == [3 * n_batches, 0, 3 * n_batches, 3 * n_batches],
+    check(n_unsup == [3 * n_batches, 0, 3 * n_batches, 0, 3 * n_batches],
           "unsupervised fit launches {} != one log scan, band grad and pair grad per "
           "batch".format(n_unsup))
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
@@ -965,9 +1126,9 @@ def run_train_slice(device, num_videos, max_len, shift):
     n_disc = [a - b for a, b in zip(counts(), n_unsup)]
     mof_disc = mof(test, disc.predict(test))
     phase("train slice", "closed-then-gradient discriminative fit: 2 epochs, epoch losses {}, "
-          "launches log/forward/band grad/pair grad = {}, predict MoF {:.4f}".format(
+          "launches log/forward/band grad/pair grad (tensor, scalar route) = {}, predict MoF {:.4f}".format(
               disc_losses, n_disc, mof_disc))
-    check(n_disc == [2 * n_batches, 0, 2 * n_batches, 2 * n_batches],
+    check(n_disc == [2 * n_batches, 0, 2 * n_batches, 0, 2 * n_batches],
           "discriminative fit launches {} != one log scan, band grad and pair grad per "
           "batch".format(n_disc))
     check(mof_disc > 10.0 / C, "discriminative MoF {:.4f} is not above 10x chance".format(mof_disc))
@@ -988,8 +1149,8 @@ def run_train_slice(device, num_videos, max_len, shift):
 
     # the training path ends here: both fits and the no-grad partition
     launches = counts()
-    phase("train slice", "train path launches log/forward/band grad/pair grad = {}".format(
-        launches))
+    phase("train slice", "train path launches log/forward/band grad/pair grad (tensor, scalar route) = "
+          "{}".format(launches))
 
     # labels and marginals from one serving entry point, the labels held to
     # segment's: a video alone, as segment_with_marginals takes it (in a
@@ -1006,9 +1167,9 @@ def run_train_slice(device, num_videos, max_len, shift):
         gaps.append(float(np.abs(marg.sum(axis=1) - 1).max()))
     n_seg = [a - b for a, b in zip(counts(), launches)]
     phase("train slice", "segment_with_marginals: 3 videos, labels == segment's, "
-          "max |sum marginal - 1| {}, launches log/forward/band grad/pair grad = {}".format(
-              gaps, n_seg))
-    check(n_seg == [3, 0, 3, 0], "segment_with_marginals launches {} != one log scan and "
+          "max |sum marginal - 1| {}, launches log/forward/band grad/pair grad (tensor, scalar route) = "
+          "{}".format(gaps, n_seg))
+    check(n_seg == [3, 0, 3, 0, 0], "segment_with_marginals launches {} != one log scan and "
           "band grad per video and no pair grad (d logZ / d emit alone)".format(n_seg))
     e2e = {
         "fit_frames_per_s": 3 * frames / fit_s,
@@ -1310,14 +1471,15 @@ def run_crosstask_slice(device, root):
         hsmm_forward_scan,
         hsmm_gamma_scan,
         hsmm_log_scan,
-        hsmm_pair_grad,
+        hsmm_pair_grad_narrow,
         hsmm_viterbi_scan,
         hsmm_viterbi_traceback,
     )
 
     decode_kernels = (hsmm_viterbi_scan, hsmm_viterbi_traceback, hsmm_gamma_scan,
                       hsmm_band_max)
-    train_kernels = (hsmm_log_scan, hsmm_forward_scan, hsmm_band_grad, hsmm_pair_grad)
+    # a task's classes (19 or 20): the pair sum's scalar route
+    train_kernels = (hsmm_log_scan, hsmm_forward_scan, hsmm_band_grad, hsmm_pair_grad_narrow)
 
     def reset(kernels):
         for k in kernels:
@@ -1518,7 +1680,13 @@ def cli_recorder(port_main, model_cls):
 
 # the kernels' wrappers as the command-line phases name them
 CLI_KERNELS = ("viterbi scan", "traceback", "gamma scan", "band max", "log scan", "band grad",
-               "forward scan", "pair grad")
+               "forward scan", "pair grad", "pair grad narrow")
+
+
+def pair_sum(n):
+    """`n` (launches by CLI_KERNELS name) with "pair sum": the pair sum's
+    launches on either route."""
+    return dict(n, **{"pair sum": n["pair grad"] + n["pair grad narrow"]})
 
 
 def cli_kernel_wrappers():
@@ -1527,7 +1695,7 @@ def cli_kernel_wrappers():
 
     return (hc.hsmm_viterbi_scan, hc.hsmm_viterbi_traceback, hc.hsmm_gamma_scan,
             hc.hsmm_band_max, hc.hsmm_log_scan, hc.hsmm_band_grad, hc.hsmm_forward_scan,
-            hc.hsmm_pair_grad)
+            hc.hsmm_pair_grad, hc.hsmm_pair_grad_narrow)
 
 
 def cli_runner(legs, totals):
@@ -1684,8 +1852,8 @@ def run_cli_slice(root, ct_stats, smi):
             g = got["params"][k]
             check(torch.allclose(g, w, rtol=1e-5, atol=0), "resumed param {} differs".format(k))
             param_diff = max(param_diff, float((g - w).abs().max()))
-        for k in ("log scan", "band grad", "pair grad"):
-            check(min(n_first[k], n_resumed[k], n_whole[k]) > 0,
+        for k in ("log scan", "band grad", "pair sum"):
+            check(min(pair_sum(n)[k] for n in (n_first, n_resumed, n_whole)) > 0,
                   "{} not launched: {} {} {}".format(k, n_first, n_resumed, n_whole))
         traces = sorted(os.listdir(trace))
         check(traces == ["epoch_0.pt.trace.json", "epoch_2.pt.trace.json"],
@@ -1793,7 +1961,7 @@ def run_u7_slice(device, root, smi):
         falls = sum(x[1] < x[0] for x in losses)
         mean0, mean1 = (float(np.mean([x[i] for x in losses])) for i in (0, 1))
         check(mean1 < mean0, "u7 mean epoch loss {} -> {}: did not fall".format(mean0, mean1))
-        check(min(n["log scan"], n["band grad"], n["pair grad"]) >= 2 * train_batches,
+        check(min(n["log scan"], n["band grad"], pair_sum(n)["pair sum"]) >= 2 * train_batches,
               "u7 launches {}: below one log scan, band grad and pair grad a batch ({} "
               "batches)".format(
                   n, 2 * train_batches))
@@ -1844,8 +2012,8 @@ def run_u7_slice(device, root, smi):
         check(sorted(got["params"]) == sorted(want["params"]), "checkpoint keys differ")
         differ = [k for k, w in want["params"].items() if not torch.equal(got["params"][k], w)]
         check(not differ, "resumed params differ from the uninterrupted run's: {}".format(differ))
-        for k in ("log scan", "band grad", "pair grad"):
-            check(min(n_first[k], n_resumed[k], n_whole[k]) > 0,
+        for k in ("log scan", "band grad", "pair sum"):
+            check(min(pair_sum(n)[k] for n in (n_first, n_resumed, n_whole)) > 0,
                   "{} not launched: {} {} {}".format(k, n_first, n_resumed, n_whole))
         named, kernel_us, span_us = trace_kernels(trace, "epoch_0.pt.trace.json")
         leg_line(leg, "epochs {} then --resume {} against {}; epoch-1 loss {!r} == {!r}, {} "
@@ -2668,7 +2836,8 @@ def run_resident_slice(device, root, models, smi):
         check(rec["builds"] == len(got) and rec["gather"] > 0 and rec["upload"] == 0,
               "{}: not resident: {} builds, gather {} s, upload {} s".format(
                   name, rec["builds"], rec["gather"], rec["upload"]))
-        check(not on_card or n["log scan"] == n["band grad"] == n["pair grad"] == rec["batches"]
+        check(not on_card or n["log scan"] == n["band grad"] == pair_sum(n)["pair sum"]
+              == rec["batches"]
               and n["forward scan"] == 0,
               "{} launches {}: not one log scan, band grad and pair grad a batch ({})".format(
                   name, n, rec["batches"]))
@@ -3164,7 +3333,8 @@ def run_dp_slice(device, root, models, resident_cases, mixed, smi):
 
     def once_a_batch(name, rec):
         n = rec["launches"]
-        check(not on_card or (n["log scan"] == n["band grad"] == n["pair grad"] == rec["trained"]
+        check(not on_card or (n["log scan"] == n["band grad"] == pair_sum(n)["pair sum"]
+                              == rec["trained"]
                               and n["viterbi scan"] == n["traceback"] == rec["decoded"]
                               and n["forward scan"] == 0),
               "{}: launches {} against {} training and {} decode batches".format(
@@ -3417,7 +3587,7 @@ def run_dp_slice(device, root, models, resident_cases, mixed, smi):
             check(not on_card or (launches["hsmm_gamma_scan"] > 0 and
                                   launches["hsmm_band_max"] > 0 and
                                   launches["hsmm_log_scan"] == launches["hsmm_band_grad"]
-                                  == launches["hsmm_pair_grad"] > 0),
+                                  == launches["hsmm_pair_grad_narrow"] > 0),
                   "dry run launches {}".format(launches))
             add_launches(launches)
         hsmm_forward_scan.launches = 0
@@ -3520,9 +3690,15 @@ WIDE_KERNEL_NAMES = ("hsmm_viterbi_scan_wide", "hsmm_viterbi_traceback_wide",
                      "hsmm_log_scan_wide", "hsmm_forward_scan_wide", "hsmm_band_grad_wide")
 # the narrow kernels a wide leg must not launch
 NARROW_NAMES = ("hsmm_viterbi_scan", "hsmm_viterbi_traceback", "hsmm_gamma_scan",
-                "hsmm_band_max", "hsmm_log_scan", "hsmm_forward_scan", "hsmm_band_grad")
-# the kernel of every width: the training backward's pair sum
+                "hsmm_band_max", "hsmm_log_scan", "hsmm_forward_scan", "hsmm_band_grad",
+                "hsmm_pair_grad_narrow")
+# the training backward's pair sum, either route (``launches`` counts
+# both); at a wide DP every launch takes the tensor route (the narrow
+# route's wrapper, hsmm_pair_grad_narrow, is among NARROW_NAMES)
 PAIR_NAME = "hsmm_pair_grad"
+PAIR_NARROW_NAME = "hsmm_pair_grad_narrow"
+# the tensor route's kernel
+PAIR_TENSOR_KERNEL = "pair_grad_kernel"
 
 
 def wide_counters():
@@ -3707,8 +3883,9 @@ def wide_kernel_case(name, pots, lengths, log_cut=None):
 def wide_pair_case(name, rng, Cn, device):
     """The pair sum at B=2, T=1,024 over Cn classes (one video whole, one
     of two thirds of it) on the kernel log scan's planes, with the expanded table and
-    with a table a video: each against its plain version at rtol 1e-5 /
-    atol 1e-4, the same bits in two launches. Returns the larger error."""
+    with a table a video: each against its plain version
+    (``check_pair_grad``), the same bits in two launches. Returns the
+    larger error."""
     from action_segmentation_torch.ops.hsmm_cuda import _stack_fwd_rev, hsmm_log_scan
 
     pots, L = serving_pots(rng, 2, T, Cn, K, device, lengths=np.array([T, 2 * T // 3], np.int32))
@@ -3721,6 +3898,78 @@ def wide_pair_case(name, rng, Cn, device):
     phase(name, "(a) pair grad at B=2 T={} C={} K={} (lengths {}): kernel vs plain max_abs_err "
           "{}, two launches equal".format(T, Cn, K, L.tolist(), errs))
     return max(errs.values())
+
+
+def pair_tensor_entry(pair_in, launches, sms, clock_mhz, smi, where, plain_videos=None):
+    """The kernels line's entry of the pair sum's tensor route at `pair_in`
+    (a wide shape), with `launches` from the phase's path: its ms from a
+    replayed CUDA graph, the scalar route's kernel on the same inputs (the
+    design before it, launched directly: no counter moves), the plain
+    version's ms (on the first `plain_videos` videos where given, the
+    whole batch's being too long to run), the bound
+    (``pair_grad_tensor_bound``) and the scalar design's
+    (``pair_grad_bound``) with its issue floor from the SASS, and the
+    split of the tile-frames."""
+    import torch
+
+    from action_segmentation_torch.ops import hsmm_cuda as hc
+    from action_segmentation_torch.tools.scan_floor import (
+        built_sass,
+        pair_grad_floor,
+        pair_grad_issue_ms,
+    )
+
+    X, Y, trans, Z, L = pair_in
+    B, T, C = X.shape
+    tile = hc.pair_grad_tile(B, T, C, sms, "tensor")
+    check(hc.pair_grad_tile(B, T, C, sms).route == "tensor", "{}: the pair sum at C={} is not on the tensor route".format(
+        where, C))
+    n = 10 if B * C * C > 2 ** 24 else N_TIMED
+    ms = graph_ms(lambda: hc.hsmm_pair_grad(*pair_in), n)
+    scalar_tile = hc.pair_grad_tile(B, T, C, sms, "scalar")
+    L32 = L.to(torch.int32).contiguous()
+    scalar_ms = graph_ms(lambda: hc._launch_pair_grad(X, Y, trans, Z, L32, scalar_tile), n)
+    cut = pair_in if plain_videos is None else tuple(
+        x[:plain_videos] for x in (X, Y, trans, Z, L))
+    plain_ms = cuda_ms(lambda: hc._pair_grad_plain(*cut), 1, warmup=0)
+    b_ms, b_by, b_kind, b_times = pair_grad_tensor_bound(pair_in, sms, clock_mhz)
+    s_ms, _, s_kind, _ = pair_grad_bound(pair_in, sms, clock_mhz)
+    s_sass = [v for v in pair_grad_floor(built_sass("pair_grad")).values()
+              if v["design"] == "scalar"]
+    check(len(s_sass) == 1, "{}: the pair library's SASS holds {} scalar kernels, not 1".format(
+        where, len(s_sass)))
+    s_sass = s_sass[0]
+    s_floor = pair_grad_issue_ms(s_sass["instructions_per_term"], pair_terms(pair_in), clock_mhz,
+                                 sms)
+    split = hc.pair_grad_split(*pair_in)
+    entry = {
+        "name": PAIR_NAME, "route": "cuda", "source": "action_segmentation_torch/csrc/pair_grad.cu",
+        "kernel": PAIR_TENSOR_KERNEL, "replaces": "action_segmentation_tpu/ops/hsmm_grad.py:246",
+        "replaces_what": "XLA's fusion of _fb_bwd_packed's pair broadcast-sum (no Pallas "
+                         "kernel), at C > 32",
+        "launches": launches, "max_abs_err": PAIR_ERRS["tensor"], "ms": ms, "kernel_ms": ms,
+        "graph_ms": ms, "scalar_route_ms": scalar_ms, "plain_ms": plain_ms,
+        "plain_videos": cut[0].shape[0], "bound_ms": b_ms, "bound_by": b_by,
+        "bound_limit": b_kind, "bytes_ms": b_times["bytes"],
+        "fp64_tensor_ms": b_times["fp64 tensor"], "sfu_ms": b_times["sfu"],
+        "scalar_bound_ms": s_ms, "scalar_bound_limit": s_kind, "scalar_route_floor_ms": s_floor,
+        "library_ms": None,
+        "shape": [B, T, C], "runs": tile.runs, "frames": tile.frames,
+        "blocks": B * tile.tiles * tile.runs, "waves": tile.waves,
+        "tile_frames": split.frames, "exact_tile_frames": split.exact,
+        "exact_share": split.exact_share, "dead_tile_frames": split.dead,
+    }
+    phase(where, "pair grad, tensor route, at {}: {:.5f} ms (a CUDA graph of {}), bound {:.5f} ms "
+          "by {} (bytes {:.5f}, fp64 tensor {:.5f}, sfu {:.5f}; {:.2f}x it); the scalar route's "
+          "kernel {:.5f} ms ({:.2f}x this; its bound {:.5f} by {}, its issue floor {:.5f}); plain "
+          "{:.4f} ms on {} "
+          "video(s); {} runs of {} frames, {} blocks, {} waves; {} of {} tile-frames on the exact "
+          "path; launches on the phase's path {}; {}".format(
+              (B, T, C), ms, n, b_ms, b_kind, b_times["bytes"], b_times["fp64 tensor"],
+              b_times["sfu"], ms / b_ms, scalar_ms, scalar_ms / ms, s_ms, s_kind, s_floor, plain_ms,
+              cut[0].shape[0], tile.runs, tile.frames, entry["blocks"], tile.waves, split.exact,
+              split.frames, launches, smi))
+    return entry
 
 
 def wide_long_case(device):
@@ -3928,6 +4177,8 @@ def run_wide_slice(device, root, smi):
     for k, v in case.items():
         errs[k] = max(errs.get(k, 0.0), v)
     errs["pair_grad"] = max(errs["pair_grad"], wide_pair_case("wide", rng, C_S6, device))
+    masked = pair_masked_cases(device)
+    errs["pair_grad"] = max([errs["pair_grad"]] + [e for e, _ in masked.values()])
     long_case = wide_long_case(device)
     a_s = time.perf_counter() - t_phase
 
@@ -4211,6 +4462,11 @@ def run_wide_slice(device, root, smi):
                   name, tuple(shape), ms, " (a CUDA graph of {})".format(N_TIMED)
                   if "traceback" in name or "band_grad" in name else "", extra, plain_ms,
                   b_ms, b_by, ms / b_ms, launches[name], smi))
+    entries.append(pair_tensor_entry(
+        pair_inputs(s6_pots[0], s6_pots[1].long().clamp(min=1), hc.hsmm_log_scan_wide(*scan_in)),
+        launches[PAIR_NAME], sms, clock_mhz, smi, "wide"))
+    entries[-1]["masked_cases"] = {k: {"max_abs_err": e, "exact_share": x}
+                                   for k, (e, x) in masked.items()}
     phase_s = time.perf_counter() - t_phase
     phase("wide", "phase 4i: {:.3f} s ((a) {:.3f} s)".format(phase_s, a_s))
     e2e = {"wide_segment_many_frames_per_s": frames / seg_s,
@@ -4763,6 +5019,10 @@ def run_past_1024_slice(device, root, smi):
                   name, shape, ms, 1e3 * ms / T, plain_ms, plain_t, b_ms, b_by, ms / b_ms,
                   "{:.5f} ms".format(floor_ms) if floor_ms is not None else "not measured",
                   launches[name], extra, smi))
+    pair = pair_tensor_entry(pair_inputs(pots, L, log_k), launches[PAIR_NAME], sms, clock_mhz,
+                             smi, "past1024", plain_videos=2)
+    entries[PAIR_NAME] = {"past_1024_" + k: v for k, v in pair.items()
+                          if k not in ("name", "route", "source", "kernel", "replaces")}
     phase_s = time.perf_counter() - t_phase
     phase("past1024", "phase 4j: {:.3f} s ((a) {:.3f} s, (b) {:.3f} s)".format(phase_s, a_s, b_s))
     e2e = {"past_1024_segment_many_frames_per_s": frames / seg_s,
@@ -4940,19 +5200,74 @@ def band_grad_bound(grad_in, sms, clock_mhz):
             {k: v * 1e3 for k, v in times.items()})
 
 
+def pair_terms(pair_in):
+    """The pair sum's terms: an interior boundary's (i, j) pair, sum_b (L_b
+    - 1) C^2 of this run's lengths."""
+    X, lengths = pair_in[0], pair_in[4]
+    B, T, C = X.shape
+    return int((lengths.long().clamp(1, T) - 1).sum()) * C * C
+
+
+def pair_bytes_ms(pair_in):
+    """The pair sum's bytes over the card's memory rate, in ms. In: X, Y,
+    trans (one table where it is an expanded view), Z, lengths; out: (B, C,
+    C)."""
+    X, Y, trans = pair_in[:3]
+    B, T, C = X.shape
+    tables = B if trans.stride(0) else 1
+    return (4 * (X.numel() + Y.numel() + tables * C * C + B * C * C) + 8 * B) / PEAK_BYTES * 1e3
+
+
+def pair_grad_tensor_bound(pair_in, sms, clock_mhz):
+    """The tensor route's bound in ms, "bytes" or "operations", which limit
+    sets it ("bytes", "fp64 tensor" or "sfu") and the three times: the
+    bytes (``pair_bytes_ms``); the product's 2 flops a term at the FP64
+    tensor cores' peak (PEAK_FP64_TENSOR); the operands' exponentials, one
+    MUFU for each live class of a tile-frame's two sides (2 C a frame for
+    each of the ceil(C / PAIR_TILE) tiles a side), over the
+    special-function units: every interior frame of every tile, whatever
+    the split."""
+    from action_segmentation_torch.ops.hsmm_cuda import PAIR_TILE
+
+    X, lengths = pair_in[0], pair_in[4]
+    B, T, C = X.shape
+    frames = int((lengths.long().clamp(1, T) - 1).sum())
+    times = {
+        "bytes": pair_bytes_ms(pair_in) * 1e-3,
+        "fp64 tensor": 2 * pair_terms(pair_in) / PEAK_FP64_TENSOR,
+        "sfu": frames * 2 * C * -(-C // PAIR_TILE) / (sms * SFU_PER_SM_CLOCK * clock_mhz * 1e6),
+    }
+    kind = max(times, key=times.get)
+    return (times[kind] * 1e3, "bytes" if kind == "bytes" else "operations", kind,
+            {k: v * 1e3 for k, v in times.items()})
+
+
+def tensor_pair_launch(pair_in, sms):
+    """A call that launches the pair sum's tensor route on `pair_in` in its
+    own launch (``hsmm_cuda._launch_pair_grad``), whatever C, with no
+    counter."""
+    import torch
+
+    from action_segmentation_torch.ops import hsmm_cuda as hc
+
+    X, Y, trans, Z, lengths = pair_in
+    tile = hc.pair_grad_tile(*X.shape, sms, "tensor")
+    L32 = lengths.to(torch.int32).contiguous()
+    return lambda: hc._launch_pair_grad(X, Y, trans, Z, L32, tile)
+
+
 def pair_grad_bound(pair_in, sms, clock_mhz):
-    """The pair sum's bound in ms, "bytes" or "operations", which limit sets
-    it ("bytes", "fp32" or "sfu") and the three times. In: X, Y, trans (one
-    table where it is an expanded view), Z, lengths; out: (B, C, C). A term
-    (an interior boundary's (i, j) pair, sum_b (L_b - 1) C^2 of this run's
-    lengths) takes 4 fp32 operations (three adds and the sum's) and one
-    transcendental (the expf) on the special-function units."""
+    """The scalar route's bound in ms, "bytes" or "operations", which limit
+    sets it ("bytes", "fp32" or "sfu") and the three times. In: X, Y, trans
+    (one table where it is an expanded view), Z, lengths; out: (B, C, C). A
+    term (``pair_terms``) takes 4 fp32 operations (three adds and the
+    sum's) and one transcendental (the expf) on the special-function
+    units."""
     X, Y, trans, Z, lengths = pair_in
     B, T, C = X.shape
-    terms = int((lengths.long().clamp(1, T) - 1).sum()) * C * C
-    tables = B if trans.stride(0) else 1
+    terms = pair_terms(pair_in)
     times = {
-        "bytes": (4 * (X.numel() + Y.numel() + tables * C * C + B * C * C) + 8 * B) / PEAK_BYTES,
+        "bytes": pair_bytes_ms(pair_in) * 1e-3,
         "fp32": 4 * terms / PEAK_FP32,
         "sfu": terms / (sms * SFU_PER_SM_CLOCK * clock_mhz * 1e6),
     }
@@ -5035,7 +5350,7 @@ def main():
         hsmm_forward_scan,
         hsmm_gamma_scan,
         hsmm_log_scan,
-        hsmm_pair_grad,
+        hsmm_pair_grad_narrow,
         hsmm_viterbi_scan,
         hsmm_viterbi_traceback,
         scan_instance,
@@ -5049,6 +5364,8 @@ def main():
         band_max_issue_ms,
         built_sass,
         max_sm_clock_mhz,
+        pair_grad_floor,
+        pair_grad_issue_ms,
         parse_function,
         traceback_floor,
         wide_duration_loop,
@@ -5091,14 +5408,15 @@ def main():
     for fn, cap in ((BAND_MAX_KERNELS[0], hsmm_cuda.BAND_MAX_REGS),
                     (BAND_MAX_KERNELS[1], hsmm_cuda.BAND_MAX_REGS),
                     ("band_grad_kernel", hsmm_cuda.BAND_GRAD_REGS),
-                    ("pair_grad_kernel", hsmm_cuda.PAIR_GRAD_REGS)):
+                    (PAIR_TENSOR_KERNEL, hsmm_cuda.PAIR_REGS),
+                    ("pair_grad_scalar_kernel", hsmm_cuda.PAIR_SCALAR_REGS)):
         regs, spills = ptxas.get(fn, (None, ""))
         check(no_spills in spills and regs is not None and regs <= cap,
               "{} spills, was not built or takes more than the {} registers its tile rule "
               "assumes: {!r}".format(fn, cap, ptxas.get(fn)))
     bm_regs = [ptxas[fn][0] for fn in BAND_MAX_KERNELS]
     bg_regs = ptxas["band_grad_kernel"][0]
-    pg_regs = ptxas["pair_grad_kernel"][0]
+    pg_regs = ptxas["pair_grad_scalar_kernel"][0]
     # K4's wide kernel: within the registers its tile rule assumes, and no
     # local memory in its duration loop (ptxas spills a few bytes around
     # it, in the loops over a run's rows and over the slabs)
@@ -5284,27 +5602,40 @@ def main():
     ct_mean = {k: float(np.mean([x[i] for x in ct_bg]))
                for i, k in enumerate(("ms", "stream_ms", "floor_ms", "bound_ms"))}
 
-    # the pair sum at the serving shape (phase 3b's serving inputs) and at
-    # the constrained CrossTask fit's batches (the launches the training
-    # path makes there): the kernel from a replayed CUDA graph, beside the
-    # torch form the backward ran before it (its whole (B, T, C, C)
-    # exponent) and the plain version; no library call computes the sum
+    # the pair sum's scalar route (C <= 32) at the serving shape (phase 3b's
+    # serving inputs) and at the constrained CrossTask fit's batches (the
+    # launches the training path makes there): the kernel from a replayed
+    # CUDA graph, beside the tensor route's kernel on the same inputs
+    # (launched directly, so no counter moves: why the scalar route stays
+    # at these widths), the torch form the backward once ran (its whole
+    # (B, T, C, C) exponent) and the plain version; no
+    # library call computes the sum
     pg_tile = hsmm_cuda.pair_grad_tile(B, T, C, sms)
-    pg_ms = graph_ms(lambda: hsmm_pair_grad(*pair_in), N_TIMED)
-    pg_stream_ms = cuda_ms(lambda: hsmm_pair_grad(*pair_in), N_TIMED)
+    check(pg_tile.route == "scalar", "the serving shape's pair sum is not on the scalar route")
+    pg_ms = graph_ms(lambda: hsmm_pair_grad_narrow(*pair_in), N_TIMED)
+    pg_stream_ms = cuda_ms(lambda: hsmm_pair_grad_narrow(*pair_in), N_TIMED)
+    pg_tensor_ms = graph_ms(tensor_pair_launch(pair_in, sms), N_TIMED)
     pg_form_ms = cuda_ms(lambda: pair_torch_form(*pair_in, T > hsmm_cuda.SCAN_FOLD), 10)
     pg_plain_ms = cuda_ms(lambda: _pair_grad_plain(*pair_in), 10)
     pg_bound, pg_by, pg_kind, pg_times = pair_grad_bound(pair_in, sms, clock_mhz)
+    # its issue floor: the term loop's instructions from the SASS
+    # (tools/scan_floor.py) over the 4 schedulers of every SM
+    pg_sass = next(v for k, v in pair_grad_floor(built_sass("pair_grad")).items()
+                   if v["design"] == "scalar")
+    pg_floor_ms = pair_grad_issue_ms(pg_sass["instructions_per_term"], pair_terms(pair_in),
+                                     clock_mhz, sms)
     ct_pg = []
     for pg_in in ct_pair_in:
         check_pair_grad("crosstask fit batch", pg_in)
         fold = pg_in[0].shape[1] > hsmm_cuda.SCAN_FOLD
-        ct_pg.append((graph_ms(lambda: hsmm_pair_grad(*pg_in), N_TIMED),
+        ct_pg.append((graph_ms(lambda: hsmm_pair_grad_narrow(*pg_in), N_TIMED),
                       cuda_ms(lambda: pair_torch_form(*pg_in, fold), 10),
-                      pair_grad_bound(pg_in, sms, clock_mhz)[0], tuple(pg_in[0].shape)))
+                      pair_grad_bound(pg_in, sms, clock_mhz)[0], tuple(pg_in[0].shape),
+                      graph_ms(tensor_pair_launch(pg_in, sms), N_TIMED)))
     check(len(ct_pg) > 0, "the constrained CrossTask fit launched no pair sum")
     ct_pg_mean = {k: float(np.mean([x[i] for x in ct_pg]))
                   for i, k in enumerate(("ms", "torch_form_ms", "bound_ms"))}
+    ct_pg_mean["tensor_route_ms"] = float(np.mean([x[4] for x in ct_pg]))
 
     vit_ms = cuda_ms(lambda: hsmm_viterbi_scan(*vit_in), N_TIMED)
     vit_plain_ms = cuda_ms(lambda: _viterbi_scan_plain(*vit_in), 2, warmup=1)
@@ -5414,28 +5745,29 @@ def main():
             "t12000_one_chunk_ms": long_k4["one_chunk_ms"],
         },
         {
-            "name": "hsmm_pair_grad", "route": "cuda",
+            "name": PAIR_NARROW_NAME, "route": "cuda",
             "source": "action_segmentation_torch/csrc/pair_grad.cu",
+            "kernel": "pair_grad_scalar_kernel",
             "replaces": "action_segmentation_tpu/ops/hsmm_grad.py:246",
             "replaces_what": "XLA's fusion of _fb_bwd_packed's pair broadcast-sum (no Pallas "
-                             "kernel)",
-            "launches": train_launches[3], "max_abs_err": train_errs["pair_grad"],
+                             "kernel), at C <= 32",
+            "launches": train_launches[4], "max_abs_err": PAIR_ERRS["scalar"],
             "ms": pg_ms, "kernel_ms": pg_ms, "graph_ms": pg_ms, "stream_ms": pg_stream_ms,
+            "tensor_route_ms": pg_tensor_ms,
             "plain_ms": pg_plain_ms, "torch_form_ms": pg_form_ms, "bound_ms": pg_bound,
             "bound_by": pg_by, "bound_limit": pg_kind, "bytes_ms": pg_times["bytes"],
             "fp32_ms": pg_times["fp32"], "sfu_ms": pg_times["sfu"], "registers": pg_regs,
             "runs": pg_tile.runs, "frames": pg_tile.frames,
             "blocks": B * pg_tile.tiles * pg_tile.runs, "waves": pg_tile.waves,
-            "library_ms": None,
+            "library_ms": None, "floor_ms": pg_floor_ms,
+            "floor_instructions_per_term": pg_sass["instructions_per_term"],
+            "floor_mufu_per_loop": pg_sass["mufu"],
             "crosstask_fit_batches": len(ct_pg),
             "crosstask_fit_batch_ms": ct_pg_mean["ms"],
             "crosstask_fit_batch_ms_range": [min(x[0] for x in ct_pg), max(x[0] for x in ct_pg)],
+            "crosstask_fit_batch_tensor_route_ms": ct_pg_mean["tensor_route_ms"],
             "crosstask_fit_batch_torch_form_ms": ct_pg_mean["torch_form_ms"],
             "crosstask_fit_batch_bound_ms": ct_pg_mean["bound_ms"],
-            # phase 4i's path (the 160-wide fit; none on the marginals) and
-            # phase 4j's (the 1,577-class step)
-            "wide_launches": e2e["wide_launches"][PAIR_NAME],
-            "past_1024_launches": e2e["past_1024_launches"][PAIR_NAME],
         },
         {
             "name": "hsmm_viterbi_scan", "route": "cuda",
@@ -5478,10 +5810,7 @@ def main():
         check(k["dp_launches"] > 0, "{} was not launched on phase 4h's ranks".format(k["name"]))
         check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
         check(k["launches"] > 0, "{} was not launched on its path".format(k["name"]))
-    pair = next(k for k in kernels if k["name"] == PAIR_NAME)
-    check(pair["wide_launches"] > 0 and pair["past_1024_launches"] > 0,
-          "the pair sum was not launched on phase 4i's or 4j's training path: {} {}".format(
-              pair["wide_launches"], pair["past_1024_launches"]))
+    pair = next(k for k in kernels if k["name"] == PAIR_NARROW_NAME)
     # phase 4i: the wide kernels (K4's wide kernel among them), whose path is 4i's
     for k in wide_kernels:
         check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
@@ -5492,6 +5821,8 @@ def main():
         if k["name"] in past_entries:
             k.update(past_entries[k["name"]])
             check(all(math.isfinite(v) for v in numbers(k)), "non-finite number in {}".format(k))
+    # the tensor route's error over every case of the run (4i's and 4j's)
+    next(k for k in kernels if k["name"] == PAIR_NAME)["max_abs_err"] = PAIR_ERRS["tensor"]
     phase("times", "serving shape B={} T={} C={} K={}; {} launches of each kernel; "
           "plain versions of the scans and the traceback 2 launches; library call: none "
           "computes any of these functions".format(B, T, C, K, N_TIMED))
@@ -5528,22 +5859,27 @@ def main():
               gr_times["fp32"], gr_times["sfu"], clock_mhz, bg_floor(grad_in), bg_insts, bg_mufu,
               bg_regs, bg_tile.rows, bg_tile.slab, B * bg_tile.tiles, bg_tile.blocks_per_sm,
               bg_tile.waves, bg_tile.filling, bg_tile.balance))
-    phase("times", "pair grad {:.5f} ms (a CUDA graph of {} launches; {:.5f} launched one by "
-          "one), bound {:.5f} ms by {} (bytes {:.5f}, fp32 {:.5f}, sfu {:.5f} at {:.0f} MHz), "
-          "{:.2f}x it; the torch form {:.5f} ms ({:.1f}x the kernel), plain {:.4f} ms; {} "
-          "registers; {} runs of {} frames, {} blocks, {} waves; launches: train path {}, "
-          "wide {}, past1024 {}, cli {}, u7 {}, resident {}, dp {}, baselines {}".format(
-              pg_ms, N_TIMED, pg_stream_ms, pg_bound, pg_kind, pg_times["bytes"],
-              pg_times["fp32"], pg_times["sfu"], clock_mhz, pg_ms / pg_bound, pg_form_ms,
-              pg_form_ms / pg_ms, pg_plain_ms, pg_regs, pg_tile.runs, pg_tile.frames,
-              pair["blocks"], pg_tile.waves, pair["launches"], pair["wide_launches"],
-              pair["past_1024_launches"], pair["cli_launches"], pair["u7_launches"],
-              pair["resident_launches"], pair["dp_launches"], pair["baseline_launches"]))
-    phase("times", "pair grad at the {} constrained crosstask fit batches: {:.5f} ms a launch "
-          "({:.5f}-{:.5f}), bound {:.5f} ms, the torch form {:.5f} ms; shapes {}; against the "
-          "plain version at rtol 1e-5 / atol 1e-4, two launches equal".format(
+    phase("times", "pair grad, scalar route, {:.5f} ms (a CUDA graph of {} launches; {:.5f} "
+          "launched one by one; the tensor route's kernel on the same inputs {:.5f} ms, {:.2f}x "
+          "it), bound {:.5f} ms by {} (bytes {:.5f}, fp32 {:.5f}, sfu {:.5f} at {:.0f} MHz), "
+          "{:.2f}x it; issue floor {:.5f} ms ({:.2f} instructions a term); the torch form {:.5f} "
+          "ms ({:.1f}x the kernel), plain {:.4f} ms; {} registers; {} runs of {} frames, {} "
+          "blocks, {} waves; launches: train path {}, cli {}, u7 {}, resident {}, dp {}, "
+          "baselines {}".format(
+              pg_ms, N_TIMED, pg_stream_ms, pg_tensor_ms, pg_tensor_ms / pg_ms, pg_bound,
+              pg_kind, pg_times["bytes"], pg_times["fp32"], pg_times["sfu"], clock_mhz,
+              pg_ms / pg_bound, pair["floor_ms"], pair["floor_instructions_per_term"],
+              pg_form_ms, pg_form_ms / pg_ms, pg_plain_ms, pg_regs, pg_tile.runs,
+              pg_tile.frames, pair["blocks"], pg_tile.waves, pair["launches"],
+              pair["cli_launches"], pair["u7_launches"], pair["resident_launches"],
+              pair["dp_launches"], pair["baseline_launches"]))
+    phase("times", "pair grad, scalar route, at the {} constrained crosstask fit batches: "
+          "{:.5f} ms a launch ({:.5f}-{:.5f}; the tensor route's kernel {:.5f}), bound {:.5f} "
+          "ms, the torch form {:.5f} ms; shapes {}; against the plain version at rtol 1e-5 / "
+          "atol 1e-4, two launches equal".format(
               len(ct_pg), ct_pg_mean["ms"], min(x[0] for x in ct_pg), max(x[0] for x in ct_pg),
-              ct_pg_mean["bound_ms"], ct_pg_mean["torch_form_ms"], sorted({x[3] for x in ct_pg})))
+              ct_pg_mean["tensor_route_ms"], ct_pg_mean["bound_ms"],
+              ct_pg_mean["torch_form_ms"], sorted({x[3] for x in ct_pg})))
     phase("times", "band max {:.5f} ms (a CUDA graph of {} launches; {:.5f} launched one by "
           "one; the wrapper's host time {:.5f} a call), bound {:.5f} ms by {}, issue floor "
           "{:.5f} ms (instructions a duration {}, {} registers); tile {} rows, slab {}, {} "

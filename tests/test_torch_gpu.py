@@ -9,7 +9,10 @@ imports neither JAX nor the JAX package, so it runs where JAX is absent:
 version do the same float32 operations in the same order, so they are
 held to the JAX package's score tolerance (rtol 1e-5 / atol 1e-4,
 tests/test_hsmm_pallas.py) and labels, backpointer codes and spans must
-be equal, as must K3's fm and K4's qg, sa and st, denormal sums included. The partition's
+be equal, as must K3's fm and K4's qg, sa and st, denormal sums included. The
+pair sum's tensor route (a float64 product) is held instead to the plain
+version in float64, each entry within the looser of that tolerance and the
+float32 plain version's own error at that entry. The partition's
 gradients are held to the JAX package's gradient tolerance (rtol 2e-3 /
 atol 2e-4, tests/test_hsmm_grad.py).
 """
@@ -22,6 +25,11 @@ from action_segmentation_torch.ops import hsmm as th
 from action_segmentation_torch.ops import hsmm_cuda as hc
 from action_segmentation_torch.ops import hsmm_grad as hg
 from action_segmentation_torch.ops.span_codec import spans_to_labels
+
+# tests/ is on sys.path under pytest; imported by its own name, since a
+# top-level package named `tests` that some libraries install would shadow
+# the repository's `tests.`
+from torch_pair_cases import masked_pair_draw, nan_pair_draw  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 RTOL, ATOL = 1e-5, 1e-4
@@ -316,10 +324,10 @@ def test_band_grad_launch_refuses_a_tile_that_does_not_fit(cuda):
     torch.testing.assert_close(got[3], want[3], rtol=RTOL, atol=ATOL)
 
 
-# the transition cotangent (csrc/pair_grad.cu): the serving shape (29
+# the transition cotangent (csrc/pair_grad.cu): the serving shape (14
 # runs a video that meet by tickets), T <= SCAN_FOLD (X = alphas, Z =
-# logZ), C = 1, a tile's edge at 33, 128, the S6 model's width and 1,577
-# classes (one run a video)
+# logZ), C = 1, a tile's edge at 33, 128, the S6 model's width (two runs of
+# 36 tiles) and 1,577 classes (one run of 625 tiles)
 PAIR_SHAPES = [(18, 1024, 19, 20), (4, 64, 19, 20), (3, 50, 5, 4), (3, 100, 1, 20),
                (2, 96, 33, 8), (4, 300, 128, 20), (2, 1024, 342, 20), (2, 64, 1577, 20)]
 
@@ -337,19 +345,52 @@ def pair_inputs(pots, lengths, scan=hc._log_scan_plain):
     return X, Y, pots.trans, Z, lengths
 
 
-def assert_pair_grad_matches_plain(pair_in):
-    """Two launches, the same bits, within the score tolerance of the plain
-    version (each term the same float32 operations; the sum over frames
-    associated by pass, thread and run), the tickets back at 0."""
-    before = hc.hsmm_pair_grad.launches
-    got = hc.hsmm_pair_grad(*pair_in)
-    again = hc.hsmm_pair_grad(*pair_in)
-    assert hc.hsmm_pair_grad.launches == before + 2
-    want = hc._pair_grad_plain(*pair_in)
+# the pair sum's wrappers: the tensor route's and the scalar route's
+PAIR_WRAPPERS = (hc.hsmm_pair_grad, hc.hsmm_pair_grad_narrow)
+
+
+def pair_launches():
+    return tuple(k.launches for k in PAIR_WRAPPERS)
+
+
+def assert_pair_grad_matches_plain(pair_in, route=None):
+    """Two launches (of the route ``hsmm_pair_grad`` takes, or of `route`),
+    the same bits, NaN where the plain version in float64 is NaN and
+    nowhere else, finite where it is finite, the tickets back at 0. The
+    tensor route: each finite entry within the looser of the score
+    tolerance and the float32 plain version's own error at that entry of
+    the plain version in float64 (it forms each exponent in float64 and
+    sums in float64). The scalar route: within the score tolerance of the
+    float32 plain version (each term the same float32 operations; the sum
+    over frames associated by pass, thread and run)."""
+    B, T, C = pair_in[0].shape
+    if route is None:
+        route = hc.pair_grad_tile(B, T, C, hc._sm_count(pair_in[0].device.index)).route
+        counter = hc.hsmm_pair_grad if route == "tensor" else hc.hsmm_pair_grad_narrow
+        before = pair_launches()
+        got = hc.hsmm_pair_grad(*pair_in)
+        again = hc.hsmm_pair_grad(*pair_in)
+        assert pair_launches() == tuple(
+            n + 2 * (k is counter) for n, k in zip(before, PAIR_WRAPPERS))
+    else:
+        tile = hc.pair_grad_tile(B, T, C, hc._sm_count(pair_in[0].device.index), route)
+        lengths = pair_in[4].to(torch.int32)
+        got, again = (hc._launch_pair_grad(*pair_in[:4], lengths, tile) for _ in range(2))
+    want32 = hc._pair_grad_plain(*pair_in)
+    want = hc._pair_grad_plain64(*pair_in)
     torch.cuda.synchronize()
-    assert torch.equal(got, again), "two runs differ"
-    assert torch.isfinite(got).all()
-    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32)), "two runs differ"
+    assert torch.equal(got.isnan(), want.isnan())
+    live = torch.isfinite(want)
+    assert torch.isfinite(got[live]).all()
+    if route == "scalar":
+        torch.testing.assert_close(got, want32, rtol=RTOL, atol=ATOL, equal_nan=True)
+    else:
+        err32 = (want32.double()[live] - want[live]).abs()
+        err32 = torch.where(torch.isfinite(err32), err32, torch.zeros_like(err32))
+        gap = (got.double()[live] - want[live]).abs()
+        bad = gap > torch.maximum(ATOL + RTOL * want[live].abs(), err32)
+        assert not bool(bad.any()), (int(bad.sum()), float(gap.max()))
     tickets = hc._TICKETS.get(got.device)
     assert tickets is None or int(tickets.abs().sum()) == 0
 
@@ -364,14 +405,50 @@ def test_pair_grad_kernel_matches_plain(cuda, B, T, C, K, expanded):
     assert_pair_grad_matches_plain(pair_inputs(pots, lengths.long(), scan))
 
 
+@pytest.mark.parametrize("route", ["tensor", "scalar"])
+@pytest.mark.parametrize("B,T,C,K", [(18, 1024, 19, 20), (3, 100, 1, 20), (2, 96, 33, 8),
+                                     (2, 1024, 342, 20)])
+def test_pair_grad_each_route_at_every_width(cuda, B, T, C, K, route):
+    """Each kernel on the other's widths too: the tensor route at the
+    serving shape (14 runs a video meeting by tickets) and C = 1, the
+    scalar route past 32 classes."""
+    pots, lengths = random_pots(np.random.RandomState(B + 5 * T + C), B, T, C, K, cuda)
+    scan = hc._log_scan_plain if C <= hc.MAX_CLASSES else hc.hsmm_log_scan
+    assert_pair_grad_matches_plain(pair_inputs(pots, lengths.long(), scan), route)
+
+
+@pytest.mark.parametrize("gaps", [(100.0,), (800.0,), (5000.0,), (100.0, 800.0, 5000.0)],
+                         ids=["100", "800", "5000", "mixed"])
+@pytest.mark.parametrize("C", [33, 64, 70, 342])
+def test_pair_grad_kernel_where_a_masked_pair_dominates(cuda, C, gaps):
+    """The tensor route at gaps on both sides of theta: the product, the
+    exact path (every interior tile-frame of the 5,000-nat draw at C = 64)
+    and the left-out tile-frames, finite and equal to the plain
+    version's."""
+    assert_pair_grad_matches_plain(masked_pair_draw(np.random.RandomState(C), 3, 200, C, gaps,
+                                                    cuda))
+
+
+@pytest.mark.parametrize("C", [19, 33, 70, 342])
+def test_pair_grad_kernel_propagates_nan(cuda, C):
+    """A NaN in X, Y, Z or trans (``nan_pair_draw``) on either route: NaN
+    where the plain version has it (a column, a row, a video, an entry),
+    its sum elsewhere, 0 in the video of one frame."""
+    pair_in = nan_pair_draw(np.random.RandomState(C), 200, C, cuda)
+    assert_pair_grad_matches_plain(pair_in)
+    got = hc.hsmm_pair_grad(*pair_in)
+    assert got.isnan().flatten(1).any(1).tolist() == [True] * 4 + [False] * 2
+    assert torch.equal(got[4], torch.zeros_like(got[4]))
+
+
 def test_partition_backward_sums_the_pairs_once_and_marginals_never(cuda):
     pots, lengths = random_pots(np.random.RandomState(7), 3, 100, 19, 20, cuda, unit=True)
     xs = [x.detach().clone().requires_grad_(True) for x in pots]
-    before = hc.hsmm_pair_grad.launches
+    before = pair_launches()  # C = 19: the scalar route
     hg.hsmm_partition_fb(*xs, lengths).sum().backward()
-    assert hc.hsmm_pair_grad.launches == before + 1
+    assert pair_launches() == (before[0], before[1] + 1)
     hg.hsmm_frame_marginals_fast(pots, lengths)
-    assert hc.hsmm_pair_grad.launches == before + 1
+    assert pair_launches() == (before[0], before[1] + 1)
 
 
 def test_pair_grad_rejects_what_it_does_not_take(cuda):

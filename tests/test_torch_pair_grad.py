@@ -11,8 +11,9 @@ numpy draws on both sides. Gradients at the JAX package's tolerance (rtol
 against the whole (B, T, C, C) expression bit for bit where one chunk
 holds every frame, and at the score tolerance (rtol 1e-5 / atol 1e-4,
 tests/test_hsmm_pallas.py) past it, where only the sum's association
-differs. The kernel itself is held against the plain version on the card
-(tests/test_torch_gpu.py, chip_smoke.py).
+differs. The kernels themselves are held against the plain version on the
+card (tests/test_torch_gpu.py, chip_smoke.py), and the tensor route's
+algorithm in float64 on the CPU (tests/test_torch_pair_grad_tc.py).
 """
 
 import jax
@@ -215,8 +216,8 @@ def test_backward_forms_what_is_asked(asked):
 
 
 @pytest.mark.parametrize("B,T,C,runs,frames", [
-    (18, 1024, 19, 29, 36),  # the serving shape: 522 blocks for 528 slots
-    (18, 1024, 342, 2, 512),  # the S6 shape
+    (18, 1024, 19, 29, 36),  # the serving shape, the scalar route: 522 blocks for 528 slots
+    (18, 1024, 342, 2, 512),  # the S6 shape: 1,296 blocks of 64 x 64 pairs
     (18, 1024, 1577, 1, 1024),  # every CrossTask task
     (1, 1024, 1577, 1, 1024),
     (4, 1024, 128, 8, 128),
@@ -227,13 +228,29 @@ def test_backward_forms_what_is_asked(asked):
 def test_pair_grad_tile(B, T, C, runs, frames):
     tile = hc.pair_grad_tile(B, T, C)
     assert (tile.runs, tile.frames) == (runs, frames)
-    assert tile.tiles == (-(-C // 32)) ** 2 and tile.blocks_per_sm == 4
+    scalar = C <= hc.PAIR_NARROW_CLASSES
+    assert tile.route == ("scalar" if scalar else "tensor")
+    side = hc.PAIR_SCALAR_TILE if scalar else hc.PAIR_TILE
+    assert tile.tiles == (-(-C // side)) ** 2 and tile.blocks_per_sm == (4 if scalar else 2)
     # every frame in one run, every run past the first frame's
     assert (tile.runs - 1) * tile.frames < T <= tile.runs * tile.frames
-    # runs of at least one staged pass, partials within one (B, T, C) plane
-    assert tile.runs == 1 or (tile.frames >= hc.PAIR_GRAD_FRAMES and tile.runs * C <= T)
-    assert tile.scratch_bytes == (4 * B * tile.runs * C * C if tile.runs > 1 else 0)
-    assert tile.waves == -(-B * tile.tiles * tile.runs // (132 * 4))
+    # runs of at least one staged pass, partials within two (B, T, C) planes
+    assert tile.runs == 1 or (tile.frames >= hc.PAIR_FRAMES and tile.runs * C <= T)
+    word = 4 if scalar else 8
+    assert tile.scratch_bytes == (word * B * tile.runs * C * C if tile.runs > 1 else 0)
+    assert tile.waves == -(-B * tile.tiles * tile.runs // (132 * tile.blocks_per_sm))
+
+
+def test_pair_grad_tile_on_the_tensor_route_at_narrow_widths():
+    """Asked for, the tensor route takes any C, tiles of 64 a side."""
+    tile = hc.pair_grad_tile(18, 1024, 19, route="tensor")
+    assert (tile.route, tile.tiles, tile.blocks_per_sm, tile.runs, tile.frames) == (
+        "tensor", 1, 2, 14, 74)
+
+
+def test_pair_kernel_shared_memory_fits_two_blocks_an_sm():
+    assert 2 * (hc.PAIR_SMEM + hc.SM_SMEM_PER_BLOCK) <= hc.SM_SMEM
+    assert hc.PAIR_SMEM <= hc.MAX_BLOCK_SMEM
 
 
 def test_pair_grad_wrapper_takes_cpu_or_cuda_only():
@@ -246,3 +263,13 @@ def test_pair_grad_wrapper_takes_cpu_or_cuda_only():
     meta = [x.to("meta") for x in inputs]
     with pytest.raises(ValueError, match="meta"):
         hc.hsmm_pair_grad(*meta)
+
+
+def test_narrow_pair_grad_wrapper_takes_cpu_or_cuda_only():
+    """The scalar route's wrapper alike."""
+    inputs = pair_draw(3, 3, 10, 4)
+    before = hc.hsmm_pair_grad_narrow.launches
+    assert torch.equal(hc.hsmm_pair_grad_narrow(*inputs), hc._pair_grad_plain(*inputs))
+    assert hc.hsmm_pair_grad_narrow.launches == before
+    with pytest.raises(ValueError, match="meta"):
+        hc.hsmm_pair_grad_narrow(*[x.to("meta") for x in inputs])
